@@ -1,0 +1,9 @@
+"""PyTorch + CUDA port of the FastEGNN rollout-serving path.
+
+Module paths mirror the JAX package: ``repro_torch.X.Y`` is the
+counterpart of ``repro.X.Y``.  The port imports ``torch`` and numpy only;
+its hand-written CUDA kernels live in ``csrc/`` and are built with
+``nvcc`` at first use (``kernels/build.py``).  Entry points default to
+``device="cuda"`` and raise when no GPU is present; pass
+``device="cpu"`` to run the plain PyTorch versions of the kernels.
+"""

@@ -1,0 +1,118 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+into ``_build/<name>-<hash>.so`` inside the package (listed in
+``.gitignore``); the hash covers the source and the flags, so an edited
+source rebuilds and a stale library is never loaded.  :func:`build_all`
+starts one ``nvcc`` per missing library, all at once, and waits for them;
+:func:`load` builds on first use and returns the ``ctypes.CDLL``.  Nothing
+here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Iterable, Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("edge_message", "virtual_message")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` on PATH, else the CUDA toolkit's; raises if neither."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> dict:
+    """Compile every missing library in parallel (one ``nvcc`` each).
+
+    Returns ``{name: {"seconds": float, "ptxas": str, "cached": bool}}``
+    with ``nvcc``'s register/shared-memory report; raises ``RuntimeError``
+    with the compiler output if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs, out = {}, {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = {"seconds": 0.0, "ptxas": "", "cached": True}
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = {"seconds": secs, "ptxas": log, "cached": False}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library ``name`` (built on first use), with ``bind``
+    applied once to declare its functions' ``argtypes``/``restype``."""
+    with _LOCK:
+        lib: Optional[ctypes.CDLL] = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            bind(lib)
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` as a raw pointer."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def common_bind(lib: ctypes.CDLL) -> None:
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p

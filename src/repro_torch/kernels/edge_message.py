@@ -1,0 +1,153 @@
+"""The real-real edge forward: CUDA kernel wrapper, plain version, launch
+counter.
+
+:func:`edge_pathway_fused` is the kernel's wrapper.  It takes the edges
+in the port's receiver-sorted CSR layout — ``snd``/``em`` slot arrays and
+``indptr`` (N+1 row offsets over the slots, built by
+``data.radius_graph.csr_indptr``) — and returns ``(dx (N,3), mh (N,M),
+deg (N,1))``, the masked means of ``kernels.ref.edge_pathway_ref``.  For
+CUDA tensors it launches ``csrc/edge_message.cu`` (which replaces the
+JAX package's Pallas ``edge_pathway_fused``) or raises; for CPU tensors it
+runs :func:`edge_pathway_plain`.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import edge_pathway_ref
+from repro_torch.kernels.runtime import require_f32
+
+Tensor = torch.Tensor
+
+#: launches of the CUDA edge kernel since the last :func:`reset_launches`
+launches = 0
+
+#: the width the CUDA kernel is compiled for (Dh = H1 = M = HG)
+KERNEL_WIDTH = 64
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    build.common_bind(lib)
+    lib.edge_forward.argtypes = ([ctypes.c_void_p] * 17
+                                 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p])
+    lib.edge_forward.restype = ctypes.c_int
+    lib.edge_rows_per_block.restype = ctypes.c_int
+    lib.edge_blocks_per_sm.restype = ctypes.c_int
+
+
+def csr_receivers(indptr: Tensor) -> Tensor:
+    """Receiver index of every slot in ``[0, indptr[-1])`` (int64)."""
+    n = indptr.shape[0] - 1
+    counts = torch.diff(indptr.long())
+    return torch.repeat_interleave(torch.arange(n, device=indptr.device),
+                                   counts)
+
+
+def edge_pathway_plain(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
+                       bg1, wg2, *, gate_mode="mlp", rel_mode="raw",
+                       clamp=math.inf):
+    """The kernel's function in plain PyTorch: the CSR rows of ``indptr``
+    name each slot's receiver, slots past ``indptr[-1]`` are not read."""
+    e = int(indptr[-1])
+    return edge_pathway_ref(x, h, snd[:e], csr_receivers(indptr), em[:e],
+                            w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2,
+                            gate_mode=gate_mode, rel_mode=rel_mode,
+                            clamp=clamp)
+
+
+def _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode):
+    tensors = (x, h, snd, em, indptr, *ws)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "edge_pathway_fused has no backward kernel yet: call it under "
+            "torch.no_grad() or with inputs that do not require grad")
+    dev = x.device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"all operands must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("edge_pathway_fused needs contiguous operands")
+    for name, t in (("x", x), ("h", h), ("em", em)) + tuple(
+            (f"w{i}", w) for i, w in enumerate(ws)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if snd.dtype != torch.int32 or indptr.dtype != torch.int32:
+        raise TypeError("snd and indptr must be int32")
+    n = x.shape[0]
+    if x.shape != (n, 3) or h.ndim != 2 or h.shape[0] != n:
+        raise ValueError(f"x must be (N,3) and h (N,Dh); got {tuple(x.shape)}"
+                         f", {tuple(h.shape)}")
+    if indptr.shape != (n + 1,):
+        raise ValueError(f"indptr must be ({n + 1},), got {tuple(indptr.shape)}")
+    if snd.ndim != 1 or em.shape != snd.shape:
+        raise ValueError("snd and em must be matching (E,) slot arrays")
+    if gate_mode not in ("mlp", "identity", "none"):
+        raise ValueError(f"unknown gate_mode {gate_mode!r}")
+    if rel_mode not in ("raw", "inv1p"):
+        raise ValueError(f"unknown rel_mode {rel_mode!r}")
+
+
+def _check_kernel_shapes(h, ws, gate_mode):
+    w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2 = ws
+    d = KERNEL_WIDTH
+    want = {"h": (h, (h.shape[0], d)), "w1r": (w1r, (d, d)),
+            "w1s": (w1s, (d, d)), "w1d": (w1d, (1, d)), "b1": (b1, (1, d)),
+            "w2": (w2, (d, d)), "b2": (b2, (1, d))}
+    if gate_mode == "mlp":
+        want.update(wg1=(wg1, (d, d)), bg1=(bg1, (1, d)), wg2=(wg2, (d, 1)))
+    elif gate_mode == "identity":
+        raise ValueError("the CUDA edge kernel implements gate_mode 'mlp' "
+                         "and 'none'; 'identity' has no kernel")
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"CUDA edge kernel needs {name} of shape {shape} "
+                             f"(width {d}), got {tuple(t.shape)}")
+
+
+def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
+                       indptr: Tensor, w1r: Tensor, w1s: Tensor, w1d: Tensor,
+                       b1: Tensor, w2: Tensor, b2: Tensor, wg1: Tensor,
+                       bg1: Tensor, wg2: Tensor, *, gate_mode: str = "mlp",
+                       rel_mode: str = "raw", clamp: float = math.inf,
+                       precision=None):
+    """Edge forward over a receiver-sorted CSR layout → ``(dx, mh, deg)``.
+
+    CUDA tensors launch the kernel (f32, widths 64, gate 'mlp' or 'none');
+    anything the kernel does not take raises.  CPU tensors run
+    :func:`edge_pathway_plain`.
+    """
+    global launches
+    require_f32(precision)
+    ws = (w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2)
+    _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode)
+    if x.device.type != "cuda":
+        return edge_pathway_plain(x, h, snd, em, indptr, *ws,
+                                  gate_mode=gate_mode, rel_mode=rel_mode,
+                                  clamp=clamp)
+    _check_kernel_shapes(h, ws, gate_mode)
+    lib = build.load("edge_message", _bind)
+    n = x.shape[0]
+    dx = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    mh = torch.empty((n, KERNEL_WIDTH), dtype=torch.float32, device=x.device)
+    deg = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows = lib.edge_rows_per_block()
+    n_blocks = min(-(-n // rows), sms * lib.edge_blocks_per_sm())
+    ptrs = [t.data_ptr() for t in (x, h, snd, em, indptr, *ws, dx, mh, deg)]
+    err = lib.edge_forward(*ptrs, n, int(gate_mode == "mlp"),
+                           int(rel_mode == "inv1p"), float(clamp), n_blocks,
+                           build.stream_ptr(x.device))
+    build.check(lib, err, "edge_forward")
+    launches += 1
+    return dx, mh, deg

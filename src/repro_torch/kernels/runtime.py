@@ -1,0 +1,87 @@
+"""Device selection and the precision contract shared by every kernel.
+
+There is no interpret mode: a kernel wrapper launches its CUDA kernel for
+CUDA tensors and runs its plain PyTorch version only for CPU tensors.
+:func:`resolve_device` is the one place an entry point turns its
+``device`` argument into a ``torch.device``: the default is CUDA, and
+asking for CUDA without a GPU raises instead of silently running on the
+CPU.  It also turns TF32 off for f32 matmuls and convolutions — the f32
+parity contract with the reference needs full-precision products.
+
+Precision contract
+------------------
+:class:`Precision` is the static ``(compute, accumulate)`` dtype pair.
+This slice serves ``'f32'`` only; the kernels raise
+``NotImplementedError`` for ``'bf16'``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Union
+
+import torch
+
+
+def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
+    """``None``/``'cuda'``/``'cpu'``/``torch.device`` → ``torch.device``.
+
+    ``None`` means CUDA.  A CUDA device without a GPU raises
+    ``RuntimeError`` (no silent CPU fallback).  On CUDA, TF32 is switched
+    off for matmuls and cuDNN so f32 products stay f32.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False — pass device='cpu' to run the plain PyTorch path")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: expected 'cuda' or 'cpu'")
+    return dev
+
+
+class Precision(NamedTuple):
+    """Static compute/accumulate dtype pair (dtype names, hashable)."""
+
+    compute: str = "float32"
+    accumulate: str = "float32"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute)
+
+    @property
+    def accumulate_dtype(self) -> torch.dtype:
+        return getattr(torch, self.accumulate)
+
+
+F32 = Precision("float32", "float32")
+BF16 = Precision("bfloat16", "float32")
+
+_PRECISIONS = {
+    None: F32,
+    "f32": F32, "float32": F32, "fp32": F32,
+    "bf16": BF16, "bfloat16": BF16,
+}
+
+
+def resolve_precision(p: Union[str, Precision, None]) -> Precision:
+    """``None``/``'f32'``/``'bf16'``/``Precision`` → :class:`Precision`;
+    anything else raises ``ValueError``."""
+    if isinstance(p, Precision):
+        return p
+    try:
+        return _PRECISIONS[p]
+    except KeyError:
+        raise ValueError(
+            f"unknown precision {p!r}: expected 'f32', 'bf16', or a "
+            f"kernels.runtime.Precision") from None
+
+
+def require_f32(p: Union[str, Precision, None]) -> None:
+    """Raise ``NotImplementedError`` unless ``p`` resolves to f32."""
+    if resolve_precision(p) != F32:
+        raise NotImplementedError(
+            f"precision {p!r}: the PyTorch port serves precision='f32' "
+            f"only; bf16 kernels are not ported yet")
