@@ -187,7 +187,10 @@ def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
         live = int((em[:n_edges] != 0).sum())
         e_bytes = (n * (3 + hid) * 4 + n_edges * 8 + (n + 1) * 4
                    + (4 * hid * hid + 5 * hid) * 4 + n * (3 + hid + 1) * 4)
-        e_flops = n * 2 * hid * hid + live * (3 * 2 * hid * hid + 2 * hid)
+        # the function's own work: h·W1r and h·W1s once per node, then per
+        # live edge msg = ·W2 and the gate's ·Wg1 and ·wg2
+        e_flops = (n * 2 * (2 * hid * hid)
+                   + live * (2 * 2 * hid * hid + 2 * hid))
         b_ms, b_by = bound_ms(e_bytes, e_flops)
         rows.append(dict(
             name="edge_pathway_fused", route="cuda",

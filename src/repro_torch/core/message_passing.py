@@ -5,7 +5,8 @@
 head and reduces onto receivers with masked degree normalisation.  With
 ``use_kernel=True`` and a kernel-eligible spec (:func:`kernel_supported`)
 it dispatches to ``kernels.ops.edge_pathway`` — the hand-written CUDA
-kernel on CUDA tensors — otherwise it runs the plain PyTorch path below.
+kernel on CUDA tensors; an ineligible spec with ``use_kernel=True``
+raises on CUDA.  Everything else runs the plain PyTorch path below.
 
 Every reduction here is :func:`segment_sum`: a fixed-order segment sum
 that adds each segment's values one at a time in edge order, on every
@@ -101,9 +102,8 @@ def live_edges(snd: Tensor, rcv: Tensor, em: Tensor):
 
 
 # --------------------------------------------------------------- telemetry
-# Dispatch counters: 'edge_kernel' / 'edge_plain' (this module),
-# 'virtual_kernel' / 'virtual_plain' (core.virtual_nodes),
-# 'edge_layout_host' / 'edge_layout_regroup' (kernels.ops).  PyTorch runs
+# Dispatch counters: 'edge_kernel' / 'edge_plain' (this module) and
+# 'virtual_kernel' / 'virtual_plain' (core.virtual_nodes).  PyTorch runs
 # eagerly, so counts are per call, not per trace.
 DISPATCH_COUNTS: dict[str, int] = {}
 
@@ -123,7 +123,8 @@ def dispatch_counts() -> dict[str, int]:
 def kernel_supported(lp: dict, g: GeometricGraph, spec: EdgeSpec) -> bool:
     """Kernel-dispatch rule: 2-layer φ1 over ``[h_i | h_j | d²]``, a
     2-layer (or identity) gate and a masked-mean reduction.  Extra edge
-    attributes, deeper MLPs and unnormalised sums take the plain path."""
+    attributes, deeper MLPs and unnormalised sums are not kernel-eligible:
+    they take the plain path on the CPU and raise on CUDA."""
     if spec.use_edge_attr and g.edge_attr.shape[-1] > 0:
         return False
     if not spec.normalize:
@@ -155,15 +156,22 @@ def edge_pathway(lp: dict, h: Tensor, x: Tensor, g: GeometricGraph,
 
     ``lp`` holds ``"phi1"`` and, for ``spec.gate == 'mlp'``, ``"gate"``.
     ``layout`` is this graph's CSR layout ``(indptr, n_edges)`` (see
-    ``data.radius_graph.csr_indptr``); the kernel path reads it, the plain
-    path ignores it.
+    ``data.radius_graph.csr_indptr``); the kernel path needs it, the plain
+    path ignores it.  With ``use_kernel`` on CUDA tensors a spec or
+    parameter block the kernel cannot run raises rather than running the
+    plain path on the card; on CPU tensors it takes the plain path.
     """
     if use_kernel and kernel_supported(lp, g, spec):
         from repro_torch.kernels import ops as kops
 
+        dx, mh = kops.edge_pathway(lp, h, x, g, spec, layout)
         record_dispatch("edge_kernel")
-        dx, mh = kops.edge_pathway(lp, h, x, g, spec, layout=layout)
         return EdgePathwayOut(dx=dx if spec.gate != "none" else None, mh=mh)
+    if use_kernel and x.is_cuda:
+        raise ValueError(
+            "use_kernel=True on CUDA, but this edge spec / parameter block "
+            "is not kernel-eligible (needs a 2-layer phi1, no edge "
+            "attributes, normalised sums); pass use_kernel=False")
     record_dispatch("edge_plain")
 
     n = g.n_nodes

@@ -1,5 +1,9 @@
 """Functional MLP over nested dicts of tensors (the reference's pytree
-layout: a list of ``{"w": (d_in, d_out), "b": (d_out,)}`` layers)."""
+layout: a list of ``{"w": (d_in, d_out), "b": (d_out,)}`` layers).
+
+The init functions draw from a CPU ``torch.Generator`` (so weights do not
+depend on the device) and place them on ``device`` — CUDA by default,
+raising without a GPU (``kernels.runtime.resolve_device``)."""
 from __future__ import annotations
 
 import math
@@ -7,6 +11,8 @@ from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.runtime import resolve_device
 
 Tensor = torch.Tensor
 
@@ -18,7 +24,8 @@ def _glorot(gen: torch.Generator, shape, device) -> Tensor:
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, bias: bool = True,
-                device="cpu"):
+                device=None):
+    device = resolve_device(device)
     p = {"w": _glorot(gen, (d_in, d_out), device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
@@ -37,8 +44,9 @@ def silu(x: Tensor) -> Tensor:
 
 
 def init_mlp(gen: torch.Generator, sizes: Sequence[int], *,
-             final_bias: bool = True, device="cpu"):
+             final_bias: bool = True, device=None):
     """``sizes = [d_in, h1, ..., d_out]`` → list of linear params."""
+    device = resolve_device(device)
     layers = []
     for i in range(len(sizes) - 1):
         last = i == len(sizes) - 2

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.mlp import init_mlp, init_stacked_mlp, mlp
+from repro_torch.kernels.runtime import resolve_device
 
 Tensor = torch.Tensor
 
@@ -43,10 +44,11 @@ def virtual_global_message(z: Tensor, com: Tensor) -> Tensor:
 
 def init_virtual_block(gen: torch.Generator, n_channels: int, h_dim: int,
                        s_dim: int, hidden: int, shared: bool = False,
-                       device="cpu"):
+                       device=None):
     """Parameters for one layer's virtual pathway: φ2 (message), φ_xv
     (real-coordinate gate), φ_z (virtual-coordinate gate), φ_s (feature
     update).  ``shared=True`` builds the Global Nodes ablation."""
+    device = resolve_device(device)
     msg_in = h_dim + s_dim + 1 + n_channels
 
     def mk(sizes, **kw):
@@ -127,7 +129,9 @@ def virtual_pathway(params, h: Tensor, x: Tensor, vs: VirtualState,
     """The Eq. 5–9 hot path: ``(dx (N,3), mh (N,hidden), dz_sum (C,3),
     ms_sum (C,hidden))``.  With ``use_kernel`` and an eligible parameter
     block this goes through ``kernels.ops.virtual_pathway`` (the CUDA
-    kernel on CUDA tensors), otherwise through the plain composition."""
+    kernel on CUDA tensors), otherwise through the plain composition.
+    ``use_kernel`` with an ineligible block (e.g. the shared-weight
+    ablation) raises on CUDA tensors and runs the plain path on the CPU."""
     from repro_torch.core.message_passing import record_dispatch
 
     if use_kernel and virtual_kernel_supported(params, h):
@@ -136,6 +140,12 @@ def virtual_pathway(params, h: Tensor, x: Tensor, vs: VirtualState,
         record_dispatch("virtual_kernel")
         return kops.virtual_pathway(params, h, x, vs, mv, node_mask,
                                     precision=precision)
+    if use_kernel and x.is_cuda:
+        raise ValueError(
+            "use_kernel=True on CUDA, but this virtual parameter block is "
+            "not kernel-eligible (needs per-channel stacked 2-layer phi2 / "
+            "phi_xv / phi_z and a real feature column); pass "
+            "use_kernel=False")
     record_dispatch("virtual_plain")
     msgs = virtual_messages(params, h, x, vs, mv)
     dx, mh = real_from_virtual(params, x, vs, msgs)

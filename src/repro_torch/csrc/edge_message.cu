@@ -31,12 +31,14 @@
 // W1s, W2 and Wg1 (4 x 16 KB) and the bias rows stay in shared memory for
 // the life of the CTA.
 //
-// Bound on an H100: per live edge 3 dense 64x64 matvecs in f32 (h_s.W1s,
-// .W2, .Wg1: 24,576 FLOP; the h_s.W1s product could be hoisted to one per
-// node) plus one per row for h_r.W1r, against a 256-byte gather of h_s.
-// That is ~100 FLOP per byte, far above the f32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/B), so the kernel is bound by f32 operations on the
-// CUDA cores, and its shared-memory reads are what limit the FMA rate.
+// Bound on an H100: the function needs 2 dense 64x64 matvecs in f32 per
+// live edge (.W2 and .Wg1: 16,384 FLOP) plus 2 per node (h.W1r and h.W1s,
+// each computable once per node), against a 256-byte gather of h_s per
+// edge.  That is ~64 FLOP per byte, above the f32 ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 FLOP/B), so the bound is f32 operations on the CUDA
+// cores.  This kernel does more than the bound counts: it recomputes
+// h_s.W1s per edge (a third matvec) instead of in a per-node pre-pass, and
+// its shared-memory reads are what limit the FMA rate.
 #include <cuda_runtime.h>
 
 namespace {

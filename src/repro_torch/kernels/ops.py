@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.message_passing import record_dispatch
 from repro_torch.kernels.edge_message import edge_pathway_fused
 from repro_torch.kernels.runtime import require_f32
 from repro_torch.kernels.virtual_message import virtual_pathway_fused
@@ -53,39 +52,23 @@ def unpack_edge_params(lp, h: Tensor, spec) -> tuple[Tensor, tuple]:
     return hk.contiguous(), tuple(w.contiguous() for w in ws)
 
 
-def regroup_csr(snd: Tensor, rcv: Tensor, em: Tensor, n_nodes: int):
-    """Receiver-sorted CSR of an arbitrary edge list, for callers that
-    carry no layout: a stable sort by receiver with masked slots last.
-    Returns ``(snd, em, indptr)`` over the permuted slots."""
-    key = torch.where(em != 0, rcv.long(), torch.full_like(rcv, n_nodes,
-                                                           dtype=torch.long))
-    order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=n_nodes + 1)[:n_nodes]
-    indptr = torch.zeros(n_nodes + 1, dtype=torch.int32, device=snd.device)
-    indptr[1:] = torch.cumsum(counts, 0)
-    return snd[order].contiguous(), em[order].contiguous(), indptr
-
-
 def edge_pathway(lp, h: Tensor, x: Tensor, g, spec,
-                 layout=None) -> tuple[Tensor, Tensor]:
+                 layout) -> tuple[Tensor, Tensor]:
     """Kernel-backed edge pathway → ``(dx (N,3), mh (N,M))``.
 
     ``layout`` is the graph's CSR layout ``(indptr, n_edges)``, valid for
-    its receiver-sorted slot arrays (``data.radius_graph.csr_indptr``);
-    without one the edges are regrouped here first.
+    its receiver-sorted slot arrays (``data.radius_graph.csr_indptr``).
+    The kernel walks ``indptr``; there is no layout-free route.
     """
+    if layout is None:
+        raise ValueError(
+            "the kernel edge pathway needs the graph's CSR layout "
+            "(indptr, n_edges) from data.radius_graph.csr_indptr")
     require_f32(spec.precision)
     hk, ws = unpack_edge_params(lp, h, spec)
-    if layout is not None:
-        record_dispatch("edge_layout_host")
-        snd, em, indptr = g.senders, g.edge_mask, layout[0]
-    else:
-        record_dispatch("edge_layout_regroup")
-        snd, em, indptr = regroup_csr(g.senders, g.receivers, g.edge_mask,
-                                      g.n_nodes)
     dx, mh, _deg = edge_pathway_fused(
-        x.contiguous(), hk, snd.contiguous(), em.contiguous(),
-        indptr.contiguous(), *ws, gate_mode=spec.gate, rel_mode=spec.rel,
+        x.contiguous(), hk, g.senders.contiguous(), g.edge_mask.contiguous(),
+        layout[0].contiguous(), *ws, gate_mode=spec.gate, rel_mode=spec.rel,
         clamp=float(spec.coord_clamp))
     return dx, mh
 

@@ -19,7 +19,7 @@ from repro_torch.core.virtual_nodes import (VirtualState, init_virtual_block,
                                             virtual_aggregate_from_sums,
                                             virtual_global_message,
                                             virtual_pathway)
-from repro_torch.kernels.runtime import require_f32
+from repro_torch.kernels.runtime import require_f32, resolve_device
 from repro_torch.models.egnn import real_real_pathway
 
 Tensor = torch.Tensor
@@ -40,7 +40,8 @@ class FastEGNNConfig(NamedTuple):
 
 
 def init_fast_egnn_layer(gen: torch.Generator, cfg: FastEGNNConfig,
-                         device="cpu"):
+                         device=None):
+    device = resolve_device(device)
     hid = cfg.hidden
     msg_in = 2 * hid + 1 + cfg.edge_attr_dim
     p = {
@@ -55,8 +56,10 @@ def init_fast_egnn_layer(gen: torch.Generator, cfg: FastEGNNConfig,
     return p
 
 
-def init_fast_egnn(gen: torch.Generator, cfg: FastEGNNConfig, device="cpu"):
-    """Random weights drawn from ``gen`` (the reference's pytree keys)."""
+def init_fast_egnn(gen: torch.Generator, cfg: FastEGNNConfig, device=None):
+    """Random weights drawn from ``gen`` (the reference's pytree keys) on
+    ``device`` (default CUDA; raises without a GPU)."""
+    device = resolve_device(device)
     embed = init_mlp(gen, [cfg.h_in, cfg.hidden], device=device)
     s_init = 0.1 * torch.randn((cfg.n_virtual, cfg.s_dim), generator=gen)
     return {

@@ -115,14 +115,14 @@ class BatchedRolloutEngine:
     make each scene's trajectory independent of the rebuild schedule, so a
     batched run equals single-scene runs at the same capacities.
 
-    ``predict_fn(params, graph(B,·), layout|None) -> (B, N, 3)`` is the
-    model (``Pipeline.predict_fn``); with ``with_layout`` the engine hands
-    it each scene's CSR layout ``(indptr, n_edges)``.
+    ``predict_fn(params, graph(B,·), layout) -> (B, N, 3)`` is the model
+    (``Pipeline.predict_fn``); the engine hands it each scene's CSR layout
+    ``(indptr, n_edges)``, built with every Verlet list.
     """
 
     def __init__(self, predict_fn: Callable, *, batch_size: int,
                  node_cap: int, edge_cap: int, r: float, skin: float,
-                 dt: float, drop_rate: float = 0.0, with_layout: bool = False,
+                 dt: float, drop_rate: float = 0.0,
                  wrap_box: Optional[float] = None,
                  rebuild_mode: str = "auto", device=None):
         if batch_size < 1:
@@ -139,7 +139,6 @@ class BatchedRolloutEngine:
         self.skin = float(skin)
         self.dt = float(dt)
         self.drop_rate = float(drop_rate)
-        self.with_layout = bool(with_layout)
         self.wrap_box = None if wrap_box is None else float(wrap_box)
         self.rebuild_mode = _resolve_rebuild_mode(rebuild_mode)
         self.device = resolve_device(device)
@@ -157,12 +156,10 @@ class BatchedRolloutEngine:
         snd, rcv = radius_graph(x_np, self.r + self.skin)
         snd, rcv = sort_edges_by_receiver(snd, rcv)
         sp, rp, em = pad_edges(snd, rcv, self.edge_cap, x_np)
-        out = dict(senders=sp, receivers=rp, edge_mask=em)
-        if self.with_layout:
-            n_edges = int(np.count_nonzero(em))
-            out["indptr"] = csr_indptr(rp, n_edges, self.node_cap)
-            out["n_edges"] = n_edges
-        return out
+        n_edges = int(np.count_nonzero(em))
+        return dict(senders=sp, receivers=rp, edge_mask=em,
+                    indptr=csr_indptr(rp, n_edges, self.node_cap),
+                    n_edges=n_edges)
 
     def _build_scenes(self, scene_x: list) -> list:
         # sequential: the numpy build holds the GIL, threads gain nothing
@@ -177,10 +174,9 @@ class BatchedRolloutEngine:
         self._g = self._g._replace(senders=stack("senders"),
                                    receivers=stack("receivers"),
                                    edge_mask=stack("edge_mask"))
-        if self.with_layout:
-            n_edges = torch.tensor([builds[j]["n_edges"] for j in slot_src],
-                                   device=dev)
-            self._lay = (stack("indptr"), n_edges)
+        n_edges = torch.tensor([builds[j]["n_edges"] for j in slot_src],
+                               device=dev)
+        self._lay = (stack("indptr"), n_edges)
 
     # ----------------------------------------------------------- device side
     def _step(self, params, x: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:

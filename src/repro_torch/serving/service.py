@@ -175,7 +175,6 @@ class RolloutService:
         self._predict_fn = pipeline.predict_fn
         self._params = pipeline.params
         self._device = pipeline.device
-        self._with_layout = bool(getattr(pipeline.cfg, "use_kernel", False))
         self._clock = clock
         self._batcher = DynamicBatcher(self.cfg.max_batch, self.cfg.window_s,
                                        self.cfg.queue_cap)
@@ -289,8 +288,7 @@ class RolloutService:
             self._predict_fn, batch_size=self.cfg.max_batch,
             node_cap=bucket.node_cap, edge_cap=bucket.edge_cap,
             r=bucket.r, skin=bucket.skin, dt=bucket.dt,
-            drop_rate=bucket.drop_rate, with_layout=self._with_layout,
-            wrap_box=bucket.wrap_box, device=self._device)
+            drop_rate=bucket.drop_rate, wrap_box=bucket.wrap_box, device=self._device)
 
     def _run_batch(self, bucket: BucketKey, batch: list) -> None:
         t_dispatch = self._clock()

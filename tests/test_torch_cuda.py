@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from repro_torch.core.graph import GeometricGraph
-from repro_torch.core.message_passing import EdgeSpec
-from repro_torch.core.virtual_nodes import init_virtual_block
+from repro_torch.core.message_passing import EdgeSpec, edge_pathway
+from repro_torch.core.virtual_nodes import (VirtualState, init_virtual_block,
+                                            virtual_pathway)
 from repro_torch.data.radius_graph import (csr_indptr, pad_edges, pad_nodes,
                                            radius_graph,
                                            sort_edges_by_receiver)
@@ -139,6 +140,38 @@ def test_kernels_refuse_unsupported_widths_and_modes():
         vargs[4] = vargs[4][:, :32].contiguous()
         with pytest.raises(ValueError, match="Dh = hid = 64"):
             virtual_message.virtual_pathway_fused(*vargs)
+
+
+@needs_cuda
+def test_kernel_path_refuses_ineligible_blocks_on_card():
+    """``use_kernel=True`` on CUDA never runs the plain path in silence: an
+    edge spec or virtual block the kernels cannot run raises."""
+    dev = torch.device("cuda")
+    x, sp, rp, em, indptr, n_edges = _graph(seed=11)
+    n = x.shape[0]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    g = GeometricGraph(x=t(x), v=torch.zeros(n, 3, device=dev),
+                       h=torch.ones(n, WIDTH, device=dev), senders=t(sp),
+                       receivers=t(rp),
+                       edge_attr=torch.zeros(sp.size, 0, device=dev),
+                       node_mask=torch.ones(n, device=dev), edge_mask=t(em))
+    z = lambda *s: torch.zeros(s, device=dev)
+    lp = {"phi1": [{"w": z(2 * WIDTH + 1, WIDTH), "b": z(WIDTH)},
+                   {"w": z(WIDTH, WIDTH), "b": z(WIDTH)}],
+          "gate": [{"w": z(WIDTH, WIDTH), "b": z(WIDTH)}, {"w": z(WIDTH, 1)}]}
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="not kernel-eligible"):
+            edge_pathway(lp, g.h, g.x, g, EdgeSpec(normalize=False),
+                         use_kernel=True, layout=(t(indptr), n_edges))
+        shared = init_virtual_block(torch.Generator().manual_seed(0), 3,
+                                    WIDTH, WIDTH, WIDTH, shared=True,
+                                    device=dev)
+        vs = VirtualState(z=torch.full((3, 3), 0.5, device=dev),
+                          s=torch.zeros(3, WIDTH, device=dev))
+        with pytest.raises(ValueError, match="not kernel-eligible"):
+            virtual_pathway(shared, g.h, g.x, vs,
+                            torch.zeros(3, 3, device=dev), g.node_mask,
+                            use_kernel=True)
 
 
 @needs_cuda

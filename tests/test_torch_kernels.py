@@ -98,7 +98,7 @@ def test_edge_wrapper_plain_matches_reference_and_pallas(edge_case):
 
 def test_edge_pathway_plain_and_kernel_paths_match_reference(edge_case):
     """``core.message_passing.edge_pathway`` both ways: the plain path and
-    the kernel path (CSR layout from the host, or regrouped)."""
+    the kernel path, which needs the graph's CSR layout."""
     c = edge_case
     spec = t_mp.EdgeSpec(gate=c["gate"], rel=c["rel"], coord_clamp=c["clamp"])
     n, e = c["x"].shape[0], c["sp"].shape[0]
@@ -111,11 +111,10 @@ def test_edge_pathway_plain_and_kernel_paths_match_reference(edge_case):
     t_mp.reset_dispatch_counts()
     outs = [t_mp.edge_pathway(lp, g.h, g.x, g, spec),
             t_mp.edge_pathway(lp, g.h, g.x, g, spec, use_kernel=True,
-                              layout=layout),
-            t_mp.edge_pathway(lp, g.h, g.x, g, spec, use_kernel=True)]
-    assert t_mp.dispatch_counts() == {"edge_plain": 1, "edge_kernel": 2,
-                                      "edge_layout_host": 1,
-                                      "edge_layout_regroup": 1}
+                              layout=layout)]
+    with pytest.raises(ValueError, match="CSR layout"):
+        t_mp.edge_pathway(lp, g.h, g.x, g, spec, use_kernel=True)
+    assert t_mp.dispatch_counts() == {"edge_plain": 1, "edge_kernel": 1}
     dx_ref, mh_ref, _ = c["ref"]
     for out in outs:
         _close(out.mh.numpy(), mh_ref)

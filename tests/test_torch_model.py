@@ -2,8 +2,7 @@
 
 The reference runs with ``use_kernel=True`` (its Pallas kernels in
 interpret mode) and without; the port runs its kernel path (the kernels'
-plain versions on the CPU, fed by the CSR layout or a regroup) and its
-plain path.  Coordinates, features and the final virtual state agree to
+plain versions on the CPU, fed by the CSR layout) and its plain path.  Coordinates, features and the final virtual state agree to
 1e-4.
 """
 import jax
@@ -64,14 +63,12 @@ def model_case():
                 want=jax.tree.map(np.asarray, out_j))
 
 
-@pytest.mark.parametrize("mode", ["plain", "kernel-layout", "kernel-regroup"])
+@pytest.mark.parametrize("mode", ["plain", "kernel-layout"])
 def test_fast_egnn_apply_matches_reference(model_case, mode):
     c = model_case
     cfg = t_fe.FastEGNNConfig(**SMALL, use_kernel=mode != "plain")
     g = TGraph(*map(torch.from_numpy, c["arrays"]))
-    lay = None
-    if mode == "kernel-layout":
-        lay = (torch.from_numpy(c["indptr"]), c["n_edges"])
+    lay = (torch.from_numpy(c["indptr"]), c["n_edges"])
     params = params_from_jax(c["params"], device="cpu")
     t_mp.reset_dispatch_counts()
     with torch.no_grad():
@@ -83,26 +80,20 @@ def test_fast_egnn_apply_matches_reference(model_case, mode):
     if mode == "plain":
         assert counts == {"virtual_plain": 2, "edge_plain": 2}
     else:
-        layout_event = ("edge_layout_host" if lay is not None
-                        else "edge_layout_regroup")
-        assert counts == {"virtual_kernel": 2, "edge_kernel": 2,
-                          layout_event: 2}
+        assert counts == {"virtual_kernel": 2, "edge_kernel": 2}
 
 
-def test_kernel_path_layout_and_regroup_agree_bitwise(model_case):
+def test_kernel_path_needs_the_csr_layout(model_case):
     c = model_case
     cfg = t_fe.FastEGNNConfig(**SMALL, use_kernel=True)
     g = TGraph(*map(torch.from_numpy, c["arrays"]))
     params = params_from_jax(c["params"], device="cpu")
-    with torch.no_grad():
-        a = t_fe.fast_egnn_apply(params, cfg, g, edge_layout=(
-            torch.from_numpy(c["indptr"]), c["n_edges"]))
-        b = t_fe.fast_egnn_apply(params, cfg, g)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    with torch.no_grad(), pytest.raises(ValueError, match="CSR layout"):
+        t_fe.fast_egnn_apply(params, cfg, g)
 
 
 def test_shared_virtual_ablation_matches_reference():
-    arrays, _, _ = _scene(n=60, ncap=64, ecap=1200, seed=3)
+    arrays, indptr, n_edges = _scene(n=60, ncap=64, ecap=1200, seed=3)
     cfg_j, p_j = _jax_params(seed=2, shared_virtual=True)
     want = j_fe.fast_egnn_apply(p_j, cfg_j, JGraph(*map(jnp.asarray, arrays)))
     cfg = t_fe.FastEGNNConfig(**SMALL, shared_virtual=True, use_kernel=True)
@@ -110,8 +101,11 @@ def test_shared_virtual_ablation_matches_reference():
     t_mp.reset_dispatch_counts()
     with torch.no_grad():
         got = t_fe.fast_egnn_apply(params, cfg,
-                                   TGraph(*map(torch.from_numpy, arrays)))
-    # rank-2 shared weights are not kernel-eligible: plain virtual path
+                                   TGraph(*map(torch.from_numpy, arrays)),
+                                   edge_layout=(torch.from_numpy(indptr),
+                                                n_edges))
+    # rank-2 shared weights are not kernel-eligible: plain virtual path on
+    # the CPU (on CUDA this raises, see tests/test_torch_cuda.py)
     assert t_mp.dispatch_counts()["virtual_plain"] == 2
     assert _max_err(want[0], got[0]) <= TOL
     assert _max_err(want[2].s, got[2].s) <= TOL
@@ -125,12 +119,18 @@ def _shapes(tree):
     return tuple(tree.shape)
 
 
-def test_init_fast_egnn_has_reference_structure():
+def test_init_fast_egnn_has_reference_structure(monkeypatch):
     for kw in ({}, {"shared_virtual": True}, {"velocity": False}):
         _, p_j = _jax_params(**kw)
         p_t = t_fe.init_fast_egnn(torch.Generator().manual_seed(0),
-                                  t_fe.FastEGNNConfig(**SMALL, **kw))
+                                  t_fe.FastEGNNConfig(**SMALL, **kw),
+                                  device="cpu")
         assert _shapes(p_t) == _shapes(jax.tree.map(np.asarray, p_j))
+    # like every entry point, init defaults to CUDA: no silent CPU weights
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_fe.init_fast_egnn(torch.Generator().manual_seed(0),
+                            t_fe.FastEGNNConfig(**SMALL))
 
 
 def test_load_npz_reads_reference_checkpoint(tmp_path):

@@ -51,7 +51,7 @@ def pipe(jax_pipe):
 
 def _engine(p, batch_size, **kw):
     base = dict(batch_size=batch_size, node_cap=NODE_CAP, edge_cap=EDGE_CAP,
-                r=R, skin=SKIN, dt=DT, with_layout=True, device="cpu")
+                r=R, skin=SKIN, dt=DT, device="cpu")
     base.update(kw)
     return BatchedRolloutEngine(p.predict_fn, **base)
 
@@ -87,18 +87,42 @@ def test_rebuild_modes():
 
 
 # ------------------------------------------------ port against itself
-@pytest.mark.parametrize("with_layout", [True, False],
+@pytest.mark.parametrize("use_kernel", [True, False],
                          ids=["kernel-layout", "plain"])
-def test_batched_equals_singles_bitwise(pipe, with_layout):
-    p = pipe if with_layout else build_pipeline(
+def test_batched_equals_singles_bitwise(pipe, use_kernel):
+    p = pipe if use_kernel else build_pipeline(
         "fast_egnn", device="cpu", params=pipe.params, **SMALL)
     scenes = [_scene(n, seed=s) for s, n in enumerate((40, 33, 45))]
-    res = _engine(p, 3, with_layout=with_layout).run(p.params, scenes, 6)
+    res = _engine(p, 3).run(p.params, scenes, 6)
     assert res.n_scenes == 3 and res.rebuild_count >= 1
     for s, scene in enumerate(scenes):
-        one = _engine(p, 1, with_layout=with_layout).run(p.params, [scene], 6)
+        one = _engine(p, 1).run(p.params, [scene], 6)
         np.testing.assert_array_equal(res.trajectories[s],
                                       one.trajectories[0])
+
+
+def test_engine_hands_predict_fn_each_slots_csr_layout(pipe):
+    """Every step gets ``(indptr, n_edges)`` matching that slot's Verlet
+    list: rows of the first ``n_edges`` slots, the padded tail outside."""
+    seen = []
+
+    def spy(params, g, lay):
+        seen.append((g.receivers.clone(), lay[0].clone(), lay[1].clone()))
+        return pipe.predict_fn(params, g, lay)
+
+    scenes = [_scene(n, seed=s) for s, n in enumerate((40, 30))]
+    res = BatchedRolloutEngine(spy, batch_size=3, node_cap=NODE_CAP,
+                               edge_cap=EDGE_CAP, r=R, skin=SKIN, dt=DT,
+                               device="cpu").run(pipe.params, scenes, 4)
+    assert len(seen) == 4 and res.rebuild_count >= 1
+    for rcv, indptr, n_edges in seen:
+        assert indptr.shape == (3, NODE_CAP + 1) and indptr.dtype == torch.int32
+        for b in range(3):
+            e = int(n_edges[b])
+            assert 0 < e < EDGE_CAP and int(indptr[b, -1]) == e
+            counts = torch.bincount(rcv[b, :e].long(), minlength=NODE_CAP)
+            assert torch.equal(torch.diff(indptr[b]).long(), counts)
+        assert torch.equal(indptr[2], indptr[1])  # replica of the last scene
 
 
 def test_short_batch_replica_padding(pipe):
