@@ -5,18 +5,29 @@
 
 Phases, each printing one JSON line (any failure exits nonzero):
 
-1. build   — nvcc builds every CUDA kernel of the serving path from
-             ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
-2. kernels — each kernel against its plain PyTorch version on the card at
-             the serving shapes (N = 8,192 nodes, 8,192 x 32 edge slots of
-             a fluid scene built at r + skin, hidden 64, C = 3), with
-             CUDA-event times of kernel and plain version.
+1. build   — nvcc builds every CUDA kernel of the serving and training
+             paths from ``src/repro_torch/csrc`` (one nvcc per source, in
+             parallel).
+2. kernels — each of the six kernels (edge and virtual forward, edge and
+             virtual backward, MMD cross sum and gradient) against its
+             plain PyTorch version on the card at the serving shapes
+             (N = 8,192 nodes, 8,192 x 32 edge slots of a fluid scene
+             built at r + skin, hidden 64, C = 3), with CUDA-event times of
+             kernel and plain version and a bitwise repeat check.
 3. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each.  Checks every frame, the kernel
              launch counts and the first frame against the plain path.
 4. scale   — one forward step of a 113,000-particle scene (bucket
              131,072) through ``predict_fn``, timed.
+5. train   — a full-width FastEGNN (random weights from seed 0) trained
+             with ``use_kernel=True`` through ``Pipeline.fit`` for 2 epochs
+             on 6 + 2 fluid scenes of 7,800 particles (batch 4, so the
+             second training batch is mask-padded), lam_mmd 0.03 over every
+             node.  Checks every loss, the launch counts of every kernel,
+             the first step's loss, gradients and update against a
+             ``use_kernel=False`` pipeline on the card, and that the same
+             first step run twice is bitwise equal; times a train step.
 
 Then it prints the card's name and power limit, the per-kernel summary,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA and a checkout
@@ -42,8 +53,17 @@ MAX_BATCH, LAYERS = 4, 4
 # kernel vs plain version, elementwise: |k - p| <= ATOL + RTOL * |p|
 # (f32; the two sum in different orders)
 ATOL, RTOL = 1e-5, 1e-4
+# gradients vs their plain versions, relative to each output's largest
+# magnitude: |k - p| <= GATOL * max|p| + GRTOL * |p| (the JAX package's
+# own _assert_tree_close)
+GATOL, GRTOL = 5e-5, 1e-3
 # first served frame vs the plain path after 4 layers (periodic distance)
 FRAME_TOL = 1e-4
+# training: 6 train + 2 validation scenes, batch 4, 2 epochs
+TRAIN_SCENES, VAL_SCENES, TRAIN_BATCH, EPOCHS = 6, 2, 4, 2
+LAM_MMD, MMD_SIGMA = 0.03, 1.5
+# first-step update compared where |g| >= SMALL_GRAD x the leaf's largest
+SMALL_GRAD = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
@@ -90,6 +110,29 @@ def compare(got, want) -> dict:
         rel = max(rel, float(d.max() / w.abs().max().clamp(min=1e-30)))
         ok &= bool(torch.all(d <= ATOL + RTOL * w.abs()))
     return {"max_abs_err": err, "max_rel_err": rel, "within_tol": ok}
+
+
+def compare_grads(got, want) -> dict:
+    """Gradient outputs against the plain ones, each relative to its own
+    largest magnitude (GATOL / GRTOL)."""
+    import torch
+
+    err, rel, ok = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        d = (g - w).abs()
+        scale = float(w.abs().max()) + 1e-6
+        err = max(err, float(d.max()))
+        rel = max(rel, float(d.max()) / scale)
+        ok &= bool(torch.all(d <= GATOL * scale + GRTOL * w.abs()))
+    return {"max_abs_err": err, "max_rel_err": rel, "within_tol": ok}
+
+
+def repeat_equal(a, b) -> bool:
+    import torch
+
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -222,13 +265,129 @@ def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
                 lambda: virtual_message.virtual_pathway_plain(*v_args)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             shapes=dict(n=n, channels=c, hidden=hid), **cmp_v))
-    line = {"phase": "kernels", "tolerance": {"atol": ATOL, "rtol": RTOL},
+        rows += backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev)
+    line = {"phase": "kernels",
+            "tolerance": {"values": {"atol": ATOL, "rtol": RTOL},
+                          "grads_relative_to_max": {"atol": GATOL,
+                                                    "rtol": GRTOL}},
             "kernels": rows}
     for row in rows:
         if not (row["within_tol"] and row["bitwise_repeatable"]):
             raise AssertionError(f"kernel {row['name']} disagrees with its "
                                  f"plain version: {json.dumps(line)}")
     return line, rows
+
+
+def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
+    """The training kernels (edge and virtual backward, MMD cross sum and
+    gradient) against their plain versions on the serving inputs."""
+    import torch
+
+    from repro_torch.data.radius_graph import csr_sender_perm
+    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+
+    x, _h, snd = e_args[0], e_args[1], e_args[2]
+    n, hid = x.shape[0], e_args[1].shape[1]
+    z = v_args[2]
+    c = z.shape[0]
+    f4 = 4
+    w_edge = (4 * hid * hid + 5 * hid) * f4  # W1r W1s W2 Wg1 + rows
+    rows = []
+    # edge backward: the sender permutation of the slots [0, n_edges)
+    perm, sptr = csr_sender_perm(snd.cpu().numpy(), n_edges, n)
+    sperm = torch.zeros_like(snd)
+    sperm[:perm.size] = torch.from_numpy(perm).to(dev)
+    sptr = torch.from_numpy(sptr).to(dev)
+    deg = edge_message.edge_pathway_fused(*e_args, **kw)[2].contiguous()
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_mh = torch.randn((n, hid), generator=gen, device=dev)
+    eb = (*e_args[:5], sperm, sptr, *e_args[5:], deg, g_dx, g_mh)
+    run = lambda: edge_message.edge_pathway_bwd_fused(*eb, **kw)
+    plain = lambda: edge_message.edge_pathway_bwd_plain(*e_args, g_dx, g_mh,
+                                                        **kw)
+    got, again = run(), run()
+    cmp = compare_grads(got, plain())
+    cmp["bitwise_repeatable"] = repeat_equal(got, again)
+    # reads x, h, the live slots' snd/em/sperm, indptr, sptr, weights, deg
+    # and both cotangents once; writes gx, gh and the weight grads
+    e_bytes = (n * (3 + hid) * f4 + 3 * n_edges * f4 + 2 * (n + 1) * f4
+               + w_edge + n * (1 + 3 + hid) * f4 + n * (3 + hid) * f4
+               + w_edge)
+    # six 64x64 products per live edge (.W2 and .Wg1 recomputed, the
+    # cotangents through Wg1^T and W2^T, the W2 and Wg1 outer products) and
+    # six per node (h.W1r, h.W1s, G.W1r^T, S.W1s^T, the W1r / W1s outer
+    # products over the per-node sums of g_pre1)
+    e_flops = (live + n) * 6 * 2 * hid * hid
+    b_ms, b_by = bound_ms(e_bytes, e_flops)
+    rows.append(dict(
+        name="edge_pathway_bwd_fused", route="cuda",
+        source="src/repro_torch/csrc/edge_message_bwd.cu",
+        replaces="src/repro/kernels/edge_message.py:661",
+        ms=cuda_ms(run), plain_ms=cuda_ms(plain, 10, 2), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shapes=dict(n=n, slots=int(snd.shape[0]), n_edges=n_edges,
+                    live_edges=live, hidden=hid), **cmp))
+    # virtual backward
+    cots = (torch.randn((n, 3), generator=gen, device=dev),
+            torch.randn((n, hid), generator=gen, device=dev),
+            torch.randn((c, 3), generator=gen, device=dev),
+            torch.randn((c, hid), generator=gen, device=dev))
+    run = lambda: virtual_message.virtual_pathway_bwd_fused(*v_args, *cots)
+    plain = lambda: virtual_message.virtual_pathway_bwd_plain(*v_args, *cots)
+    got, again = run(), run()
+    cmp = compare_grads(got, plain())
+    cmp["bitwise_repeatable"] = repeat_equal(got, again)
+    w_virt = c * (4 * hid * hid + 7 * hid) * f4
+    v_bytes = (n * (3 + hid + 1) * f4 + c * 3 * f4 + w_virt
+               + n * (3 + hid) * f4 + c * (3 + hid) * f4
+               + n * (3 + hid) * f4 + c * 3 * f4 + w_virt)
+    # per node and channel eight 64x64 matvecs (four recomputed, four
+    # cotangents) and four outer products
+    v_flops = n * c * 12 * 2 * hid * hid
+    b_ms, b_by = bound_ms(v_bytes, v_flops)
+    rows.append(dict(
+        name="virtual_pathway_bwd_fused", route="cuda",
+        source="src/repro_torch/csrc/virtual_message_bwd.cu",
+        replaces="src/repro/kernels/virtual_message.py:234",
+        ms=cuda_ms(run), plain_ms=cuda_ms(plain, 10, 2), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shapes=dict(n=n, channels=c, hidden=hid), **cmp))
+    # MMD cross sum and gradient over every node (the train phase's mode)
+    xs = x.contiguous()
+    run = lambda: mmd_rbf.mmd_cross_sum(xs, z, nm, sigma=MMD_SIGMA)
+    plain = lambda: mmd_rbf.mmd_cross_sum_plain(xs, z, nm, sigma=MMD_SIGMA)
+    got, again = run(), run()
+    cmp = compare([got], [plain()])
+    cmp["bitwise_repeatable"] = repeat_equal(got, again)
+    m_bytes = n * 16 + c * 12 + 4
+    # per node and channel: 3 sub, 3 mul, 2 add, 1 scale, 1 exp, 1 mul,
+    # 1 add
+    b_ms, b_by = bound_ms(m_bytes, n * c * 12)
+    rows.append(dict(
+        name="mmd_cross_sum", route="cuda",
+        source="src/repro_torch/csrc/mmd_rbf.cu",
+        replaces="src/repro/kernels/mmd_rbf.py:46",
+        ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shapes=dict(n=n, channels=c, sigma=MMD_SIGMA), **cmp))
+    g = torch.tensor(1.0, device=dev)
+    run = lambda: mmd_rbf.mmd_cross_grads(xs, z, nm, g, sigma=MMD_SIGMA)
+    plain = lambda: mmd_rbf.mmd_cross_grads_plain(xs, z, nm, g,
+                                                  sigma=MMD_SIGMA)
+    got, again = run(), run()
+    cmp = compare_grads(got, plain())
+    cmp["bitwise_repeatable"] = repeat_equal(got, again)
+    m_bytes = n * 16 + c * 12 + 4 + n * 12 + c * 12
+    # the kernel value as above, then 3 mul-adds into dx and 3 into dz
+    b_ms, b_by = bound_ms(m_bytes, n * c * 24)
+    rows.append(dict(
+        name="mmd_cross_grads", route="cuda",
+        source="src/repro_torch/csrc/mmd_rbf.cu",
+        replaces="src/repro/kernels/mmd_rbf.py:102",
+        ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shapes=dict(n=n, channels=c, sigma=MMD_SIGMA), **cmp))
+    return rows
 
 
 def phase_serve(pipe, plain, scenes, dev) -> dict:
@@ -330,6 +489,167 @@ def phase_scale(pipe, dev) -> dict:
             "step_ms_min": 1e3 * min(times)}
 
 
+class _GradsOut:
+    """An optimizer stand-in whose update returns the gradients, so a
+    train step exposes them."""
+
+    def update(self, grads, state, params):
+        return grads, state
+
+
+def _update_close(got, want, grads) -> dict:
+    """Parameters after one Adam step, kernel path against plain path, per
+    leaf relative to its largest magnitude (GATOL / GRTOL), on the entries
+    whose gradient is at least SMALL_GRAD of the gradient tolerance's
+    scale (the leaf's largest gradient + 1e-6, as in compare_grads).  The
+    step moves an entry by lr·g/(|g| + eps), which carries the gradient's
+    own relative error; the gradient tolerance leaves that error unbounded
+    for entries far below its scale, so those are counted and left out
+    here (every gradient entry is compared before, at GATOL / GRTOL)."""
+    from repro_torch.training.optim import tree_leaves
+
+    worst, ok, skipped, total = 0.0, True, 0, 0
+    for g, w, gr in zip(tree_leaves(got), tree_leaves(want),
+                        tree_leaves(grads)):
+        keep = gr.abs() >= SMALL_GRAD * (float(gr.abs().max()) + 1e-6)
+        skipped += int((~keep).sum())
+        total += keep.numel()
+        scale = float(w.abs().max()) + 1e-6
+        d = (g - w).abs() * keep
+        worst = max(worst, float(d.max()) / scale)
+        ok &= bool((d <= GATOL * scale + GRTOL * w.abs()).all())
+    return {"max_rel_err": worst, "within_tol": ok,
+            "entries_compared": total - skipped, "entries": total}
+
+
+def profile_step(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time (the
+    profiler's own overhead included), the device time summed over
+    kernels, the idle share and the kernels that take the most device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    from torch.autograd import DeviceType
+
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    # device-side events only: a host op's "self device time" repeats the
+    # time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if events else "not measured",
+            "idle_share": 1 - busy_ms / wall_ms if events else "not measured",
+            "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top}}
+
+
+def phase_train(dev) -> dict:
+    import math
+
+    import torch
+
+    from repro_torch.data.fluid import generate_fluid_dataset
+    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.models.fast_egnn import fast_egnn_full
+    from repro_torch.training.optim import tree_leaves
+    from repro_torch.training.trainer import TrainConfig, build_train_step
+
+    t0 = time.perf_counter()
+    data = generate_fluid_dataset(TRAIN_SCENES + VAL_SCENES,
+                                  n_particles=N_PARTICLES)
+    tc = TrainConfig(epochs=EPOCHS, lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA,
+                     mmd_sample=None)
+    pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                          train_cfg=tc,
+                          generator=torch.Generator().manual_seed(0))
+    plain = build_pipeline("fast_egnn", device=dev, train_cfg=tc,
+                           params=pipe.params)
+    tr = pipe.make_batches(data[:TRAIN_SCENES], TRAIN_BATCH, r=R)
+    va = pipe.make_batches(data[TRAIN_SCENES:], TRAIN_BATCH, r=R)
+    data_s = time.perf_counter() - t0
+    if not (len(tr) == 2 and tr[1].sample_mask is not None):
+        raise AssertionError("expected a full and a mask-padded train batch")
+    # the first step, kernel path twice and plain path once, same weights
+    p0 = pipe.params
+    k1, _, mk = pipe.train_step(p0, pipe.opt.init(p0), tr[0])
+    k2, _, _ = pipe.train_step(p0, pipe.opt.init(p0), tr[0])
+    pl, _, mp = plain.train_step(p0, plain.opt.init(p0), tr[0])
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(tree_leaves(k1), tree_leaves(k2)))
+    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+    loss_ok = abs(loss_k - loss_p) <= ATOL + RTOL * abs(loss_p)
+    grads = [build_train_step(fast_egnn_full, pp.cfg, tc, _GradsOut())[0](
+        p0, None, tr[0])[0] for pp in (pipe, plain)]
+    gcmp = compare_grads(tree_leaves(grads[0]), tree_leaves(grads[1]))
+    upd = _update_close(k1, pl, grads[1])
+    # step time: kernel path and plain path, after the steps above
+    step_s = {}
+    for name, pp in (("kernel", pipe), ("plain", plain)):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            pp.train_step(p0, pp.opt.init(p0), tr[0])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        step_s[name] = statistics.median(times)
+    prof = profile_step(lambda: pipe.train_step(p0, pipe.opt.init(p0), tr[0]))
+
+    for mod in (edge_message, virtual_message, mmd_rbf):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    res = pipe.fit(tr, va)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"edge_pathway_fused": edge_message.launches,
+                "virtual_pathway_fused": virtual_message.launches,
+                "edge_pathway_bwd_fused": edge_message.bwd_launches,
+                "virtual_pathway_bwd_fused": virtual_message.bwd_launches,
+                "mmd_cross_sum": mmd_rbf.sum_launches,
+                "mmd_cross_grads": mmd_rbf.grad_launches}
+    steps = EPOCHS * len(tr)
+    train_passes = steps * TRAIN_BATCH  # slots, padded ones included
+    eval_passes = EPOCHS * len(va) * TRAIN_BATCH
+    want = {"edge_pathway_fused": LAYERS * (train_passes + eval_passes),
+            "virtual_pathway_fused": LAYERS * (train_passes + eval_passes),
+            "edge_pathway_bwd_fused": LAYERS * train_passes,
+            "virtual_pathway_bwd_fused": LAYERS * train_passes,
+            "mmd_cross_sum": train_passes, "mmd_cross_grads": train_passes}
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_mse")]
+    out = {"phase": "train", "particles": N_PARTICLES,
+           "scenes": {"train": TRAIN_SCENES, "val": VAL_SCENES},
+           "batch": TRAIN_BATCH, "epochs": EPOCHS, "steps": steps,
+           "lam_mmd": LAM_MMD, "mmd_sample": None,
+           "n_edges": [int(b.layout[1].max()) for b in tr],
+           "data_s": data_s, "history": res.history,
+           "first_step": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                          "loss_within_tol": loss_ok, "grads": gcmp,
+                          "params": upd,
+                          "bitwise_repeatable": bitwise},
+           "step_ms_kernel": 1e3 * step_s["kernel"],
+           "step_ms_plain": 1e3 * step_s["plain"], "profile_kernel_step": prof,
+           "fit_s": fit_s, "launches": launches, "launches_expected": want}
+    if not all(math.isfinite(v) for v in losses + [loss_k, loss_p]):
+        raise AssertionError(f"non-finite loss: {json.dumps(out)}")
+    if launches != want:
+        raise AssertionError(f"launch counts differ: {json.dumps(out)}")
+    if not (loss_ok and gcmp["within_tol"] and upd["within_tol"]
+            and bitwise):
+        raise AssertionError(f"first step disagrees: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: no src/repro_torch beside this script — run it "
@@ -358,8 +678,11 @@ def main() -> int:
     serve = phase_serve(pipe, plain, scenes, dev)
     emit(serve)
     emit(phase_scale(pipe, dev))
-    for row in rows:
-        row["launches"] = serve["launches"][row["name"]]
+    train = phase_train(dev)
+    emit(train)
+    for row in rows:  # forward kernels: the serve run; the rest: training
+        row["launches"] = serve["launches"].get(row["name"],
+                                                train["launches"][row["name"]])
     print(gpu_line(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

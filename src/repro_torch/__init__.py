@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the FastEGNN rollout-serving path.
+"""PyTorch + CUDA port of FastEGNN: rollout serving and training.
 
 Module paths mirror the JAX package: ``repro_torch.X.Y`` is the
 counterpart of ``repro.X.Y``.  The port imports ``torch`` and numpy only;

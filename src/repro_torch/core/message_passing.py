@@ -102,8 +102,9 @@ def live_edges(snd: Tensor, rcv: Tensor, em: Tensor):
 
 
 # --------------------------------------------------------------- telemetry
-# Dispatch counters: 'edge_kernel' / 'edge_plain' (this module) and
-# 'virtual_kernel' / 'virtual_plain' (core.virtual_nodes).  PyTorch runs
+# Dispatch counters: 'edge_kernel' / 'edge_plain' (this module),
+# 'virtual_kernel' / 'virtual_plain' (core.virtual_nodes) and 'mmd_kernel'
+# (core.mmd).  PyTorch runs
 # eagerly, so counts are per call, not per trace.
 DISPATCH_COUNTS: dict[str, int] = {}
 
@@ -156,8 +157,10 @@ def edge_pathway(lp: dict, h: Tensor, x: Tensor, g: GeometricGraph,
 
     ``lp`` holds ``"phi1"`` and, for ``spec.gate == 'mlp'``, ``"gate"``.
     ``layout`` is this graph's CSR layout ``(indptr, n_edges)`` (see
-    ``data.radius_graph.csr_indptr``); the kernel path needs it, the plain
-    path ignores it.  With ``use_kernel`` on CUDA tensors a spec or
+    ``data.radius_graph.csr_indptr``), optionally followed by the sender
+    permutation ``(sperm, sptr)`` the CUDA backward needs
+    (``data.radius_graph.csr_sender_perm``); the kernel path needs it, the
+    plain path ignores it.  With ``use_kernel`` on CUDA tensors a spec or
     parameter block the kernel cannot run raises rather than running the
     plain path on the card; on CPU tensors it takes the plain path.
     """

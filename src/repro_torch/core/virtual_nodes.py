@@ -129,7 +129,8 @@ def virtual_pathway(params, h: Tensor, x: Tensor, vs: VirtualState,
     """The Eq. 5–9 hot path: ``(dx (N,3), mh (N,hidden), dz_sum (C,3),
     ms_sum (C,hidden))``.  With ``use_kernel`` and an eligible parameter
     block this goes through ``kernels.ops.virtual_pathway`` (the CUDA
-    kernel on CUDA tensors), otherwise through the plain composition.
+    forward and backward kernels on CUDA tensors), otherwise through the
+    plain composition.
     ``use_kernel`` with an ineligible block (e.g. the shared-weight
     ablation) raises on CUDA tensors and runs the plain path on the CPU."""
     from repro_torch.core.message_passing import record_dispatch

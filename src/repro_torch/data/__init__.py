@@ -1,1 +1,2 @@
-"""Host-side graph building (numpy) and the fluid scene generator."""
+"""Host-side graph building (numpy), the fluid scene generator and the
+batch loader."""

@@ -3,7 +3,9 @@ CSR row offsets the CUDA edge kernel walks.
 
 Pure numpy, with the reference data path's semantics: a cell-list radius
 search in O(N·deg), drop-longest edge dropping (Sec. VII-B), a canonical
-(receiver, sender) sort, fixed-capacity padding, and :func:`csr_indptr`.
+(receiver, sender) sort, fixed-capacity padding, :func:`csr_indptr` and
+the sender permutation of :func:`csr_sender_perm` (the edge backward's
+sender pass walks it).
 """
 from __future__ import annotations
 
@@ -117,6 +119,23 @@ def csr_indptr(receivers: np.ndarray, n_edges: int, n_nodes: int) -> np.ndarray:
                          "receivers in [0, n_nodes)")
     counts = np.bincount(rcv, minlength=n_nodes)
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def csr_sender_perm(senders: np.ndarray, n_edges: int, n_nodes: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """The slots ``[0, n_edges)`` stably sorted by sender (int32), and the
+    sender row offsets into that permutation (``n_nodes + 1``, int32).
+
+    Like :func:`csr_indptr` it reads only the first ``n_edges`` slots (the
+    :func:`pad_edges` tail is not part of the graph).  Raises
+    ``ValueError`` for a sender outside ``[0, n_nodes)``.
+    """
+    snd = np.asarray(senders)[:int(n_edges)].astype(np.int64)
+    if snd.size and (snd.min() < 0 or snd.max() >= n_nodes):
+        raise ValueError("csr_sender_perm needs senders in [0, n_nodes)")
+    perm = np.argsort(snd, kind="stable").astype(np.int32)
+    counts = np.bincount(snd, minlength=n_nodes)
+    return perm, np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
 
 _TRUNCATION_WARNED: set[tuple[int, int]] = set()

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/<name>-<hash>.so`` inside the package (listed in
-``.gitignore``); the hash covers the source and the flags, so an edited
-source rebuilds and a stale library is never loaded.  :func:`build_all`
+``.gitignore``); the hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header rebuilds and a stale library is never loaded.  :func:`build_all`
 starts one ``nvcc`` per missing library, all at once, and waits for them;
 :func:`load` builds on first use and returns the ``ctypes.CDLL``.  Nothing
 here runs at import time.
@@ -23,7 +23,8 @@ from typing import Callable, Iterable, Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("edge_message", "virtual_message")
+SOURCES = ("edge_message", "virtual_message", "edge_message_bwd",
+           "virtual_message_bwd", "mmd_rbf")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +46,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared by several sources
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,14 +1,23 @@
-"""The real-real edge forward: CUDA kernel wrapper, plain version, launch
-counter.
+"""The real-real edge pathway: CUDA kernel wrappers (forward and
+backward), plain versions, launch counters.
 
-:func:`edge_pathway_fused` is the kernel's wrapper.  It takes the edges
-in the port's receiver-sorted CSR layout — ``snd``/``em`` slot arrays and
-``indptr`` (N+1 row offsets over the slots, built by
+:func:`edge_pathway_fused` is the forward kernel's wrapper.  It takes the
+edges in the port's receiver-sorted CSR layout — ``snd``/``em`` slot
+arrays and ``indptr`` (N+1 row offsets over the slots, built by
 ``data.radius_graph.csr_indptr``) — and returns ``(dx (N,3), mh (N,M),
 deg (N,1))``, the masked means of ``kernels.ref.edge_pathway_ref``.  For
 CUDA tensors it launches ``csrc/edge_message.cu`` (which replaces the
 JAX package's Pallas ``edge_pathway_fused``) or raises; for CPU tensors it
 runs :func:`edge_pathway_plain`.  ``launches`` counts kernel launches.
+
+:func:`edge_pathway_bwd_fused` returns the 11 gradients of the forward
+from its primals, its ``deg`` output and the cotangents ``(g_dx, g_mh)``.
+For CUDA tensors it launches ``csrc/edge_message_bwd.cu`` (which replaces
+the Pallas ``edge_pathway_bwd_fused``); its sender pass walks the sender
+permutation ``sperm`` / ``sptr`` of ``data.radius_graph.csr_sender_perm``.
+For CPU tensors it runs :func:`edge_pathway_bwd_plain`.  ``bwd_launches``
+counts its launches.  Gradients flow through ``kernels.ops.EdgePathway``;
+both raw wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -25,14 +34,16 @@ Tensor = torch.Tensor
 
 #: launches of the CUDA edge kernel since the last :func:`reset_launches`
 launches = 0
+#: launches of the CUDA edge backward since the last :func:`reset_launches`
+bwd_launches = 0
 
 #: the width the CUDA kernel is compiled for (Dh = H1 = M = HG)
 KERNEL_WIDTH = 64
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -44,6 +55,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.edge_forward.restype = ctypes.c_int
     lib.edge_rows_per_block.restype = ctypes.c_int
     lib.edge_blocks_per_sm.restype = ctypes.c_int
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    build.common_bind(lib)
+    lib.edge_bwd_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.edge_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.edge_backward.argtypes = ([ctypes.c_void_p] * 31
+                                  + [ctypes.c_int] * 4
+                                  + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p])
+    lib.edge_backward.restype = ctypes.c_int
+    lib.edge_bwd_rows_per_block.restype = ctypes.c_int
 
 
 def csr_receivers(indptr: Tensor) -> Tensor:
@@ -66,12 +89,13 @@ def edge_pathway_plain(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
                             clamp=clamp)
 
 
-def _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode):
-    tensors = (x, h, snd, em, indptr, *ws)
+def _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode, extra=()):
+    tensors = (x, h, snd, em, indptr, *ws, *extra)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "edge_pathway_fused has no backward kernel yet: call it under "
-            "torch.no_grad() or with inputs that do not require grad")
+            "the raw edge wrappers have no backward kernel of their own: "
+            "differentiate through kernels.ops.EdgePathway, or call them "
+            "under torch.no_grad()")
     dev = x.device
     for t in tensors:
         if t.device != dev:
@@ -151,3 +175,93 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
     build.check(lib, err, "edge_forward")
     launches += 1
     return dx, mh, deg
+
+
+def edge_pathway_bwd_plain(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2,
+                           wg1, bg1, wg2, g_dx, g_mh, *, gate_mode="mlp",
+                           rel_mode="raw", clamp=math.inf):
+    """``torch.autograd.grad`` of :func:`edge_pathway_plain` for the
+    cotangents ``(g_dx, g_mh)`` → the 11 gradients ``(x, h, w1r, w1s, w1d,
+    b1, w2, b2, wg1, bg1, wg2)``; zeros where an input is unused."""
+    prim = [t.detach().requires_grad_(True)
+            for t in (x, h, w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2)]
+    with torch.enable_grad():
+        dx, mh, _ = edge_pathway_plain(prim[0], prim[1], snd, em, indptr,
+                                       *prim[2:], gate_mode=gate_mode,
+                                       rel_mode=rel_mode, clamp=clamp)
+        grads = torch.autograd.grad((dx, mh), prim, grad_outputs=(g_dx, g_mh),
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, prim))
+
+
+def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
+                           indptr: Tensor, sperm, sptr, w1r: Tensor,
+                           w1s: Tensor, w1d: Tensor, b1: Tensor, w2: Tensor,
+                           b2: Tensor, wg1: Tensor, bg1: Tensor, wg2: Tensor,
+                           deg: Tensor, g_dx: Tensor, g_mh: Tensor, *,
+                           gate_mode: str = "mlp", rel_mode: str = "raw",
+                           clamp: float = math.inf, precision=None):
+    """Backward of :func:`edge_pathway_fused` → the 11 gradients
+    ``(gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2)``.
+
+    ``deg`` is the forward's third output (constant: it depends on the
+    edge mask only).  ``sperm`` (int32, slots of ``[0, indptr[-1])``
+    stably sorted by sender, padded to any length) and ``sptr`` (int32,
+    N+1 sender offsets into it) come from
+    ``data.radius_graph.csr_sender_perm``; the CUDA kernel needs them, the
+    plain version ignores them.  Masked slots and rows with ``deg = 0``
+    give exact zeros; an empty slot list gives zeros.
+    """
+    global bwd_launches
+    require_f32(precision)
+    ws = (w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2)
+    _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode,
+           extra=(deg, g_dx, g_mh))
+    n = x.shape[0]
+    if deg.shape != (n, 1) or g_dx.shape != (n, 3) or g_mh.shape != (
+            n, w2.shape[1]):
+        raise ValueError(f"need deg (N,1), g_dx (N,3), g_mh (N,M); got "
+                         f"{tuple(deg.shape)}, {tuple(g_dx.shape)}, "
+                         f"{tuple(g_mh.shape)}")
+    if snd.shape[0] == 0:  # empty graph: nothing was reduced
+        return tuple(torch.zeros_like(t) for t in (x, h, *ws))
+    if x.device.type != "cuda":
+        return edge_pathway_bwd_plain(x, h, snd, em, indptr, *ws, g_dx, g_mh,
+                                      gate_mode=gate_mode, rel_mode=rel_mode,
+                                      clamp=clamp)
+    _check_kernel_shapes(h, ws, gate_mode)
+    if sperm is None or sptr is None:
+        raise ValueError(
+            "the CUDA edge backward needs the sender permutation (sperm, "
+            "sptr) of data.radius_graph.csr_sender_perm in the layout")
+    if (sperm.dtype != torch.int32 or sptr.dtype != torch.int32
+            or sptr.shape != (n + 1,) or sperm.ndim != 1
+            or sperm.device != x.device or sptr.device != x.device
+            or not (sperm.is_contiguous() and sptr.is_contiguous())):
+        raise ValueError(f"sperm must be a contiguous int32 (E,) and sptr "
+                         f"an int32 ({n + 1},) tensor on {x.device}")
+    lib = build.load("edge_message_bwd", _bind_bwd)
+    dev = x.device
+    e = snd.shape[0]
+    d = KERNEL_WIDTH
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    gx, gh = empty(n, 3), empty(n, d)
+    gw1r, gw1s, gw1d, gb1 = empty(d, d), empty(d, d), empty(1, d), empty(1, d)
+    gw2, gb2 = empty(d, d), empty(1, d)
+    if gate_mode == "mlp":
+        gwg1, gbg1, gwg2 = empty(d, d), empty(1, d), empty(d, 1)
+    else:  # the kernel writes no gate grads
+        gwg1, gbg1, gwg2 = (torch.zeros_like(w) for w in (wg1, bg1, wg2))
+    scratch = empty(int(lib.edge_bwd_scratch_floats(n, e)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = min(-(-n // lib.edge_bwd_rows_per_block()), 2 * sms)
+    outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2)
+    ptrs = [t.data_ptr() for t in (x, h, snd, em, indptr, sperm, sptr, *ws,
+                                   deg, g_dx, g_mh, *outs, scratch)]
+    err = lib.edge_backward(*ptrs, n, e, int(gate_mode == "mlp"),
+                            int(rel_mode == "inv1p"), float(clamp), n_blocks,
+                            build.stream_ptr(dev))
+    build.check(lib, err, "edge_backward")
+    bwd_launches += 1
+    return outs

@@ -1,20 +1,36 @@
-"""Glue between the model's parameter dicts and the kernels (forward only).
+"""Glue between the model's parameter dicts and the kernels, and the
+``torch.autograd.Function``s that make them trainable.
 
 * :func:`unpack_edge_params` / :func:`unpack_virtual_block` slice the
   model's MLP parameters into the kernels' flat weight layout (the latter
-  also forms the node-independent φ2 layer-1 constant with a small einsum);
-* :func:`edge_pathway` / :func:`virtual_pathway` feed the kernel wrappers.
+  also forms the node-independent φ2 layer-1 constant with a small einsum,
+  so the const1 cotangent flows back to ``s``, ``m^v`` and ``b1`` through
+  ordinary autograd);
+* :class:`EdgePathway`, :class:`VirtualPathway` and :class:`MMDCross` run
+  the forward kernel wrappers and, in ``backward``, the backward kernel
+  wrappers (``edge_pathway_bwd_fused``, ``virtual_pathway_bwd_fused``,
+  ``mmd_cross_grads``); on CPU tensors both directions run the plain
+  versions, so the CPU tests exercise this glue too;
+* :func:`edge_pathway`, :func:`virtual_pathway` and :func:`mmd_cross` are
+  the entry points the model and the loss call.
 
-There is no ``autograd.Function`` yet: the wrappers raise when asked for
-gradients, so nothing can silently train through a forward-only kernel.
+Differentiability contract (as the JAX package's ``kernels/ops.py``):
+coordinates, features, virtual state and all weights get gradients; masks
+get none, integer indices and the layout get ``None``, and the edge
+forward's ``deg`` output is constant.  The raw wrappers refuse inputs that
+require grad, so these Functions are the only way to differentiate
+through a kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.edge_message import edge_pathway_fused
+from repro_torch.kernels.edge_message import (edge_pathway_bwd_fused,
+                                              edge_pathway_fused)
+from repro_torch.kernels.mmd_rbf import mmd_cross_grads, mmd_cross_sum
 from repro_torch.kernels.runtime import require_f32
-from repro_torch.kernels.virtual_message import virtual_pathway_fused
+from repro_torch.kernels.virtual_message import (virtual_pathway_bwd_fused,
+                                                 virtual_pathway_fused)
 
 Tensor = torch.Tensor
 
@@ -52,12 +68,48 @@ def unpack_edge_params(lp, h: Tensor, spec) -> tuple[Tensor, tuple]:
     return hk.contiguous(), tuple(w.contiguous() for w in ws)
 
 
+class EdgePathway(torch.autograd.Function):
+    """Edge forward kernel with the edge backward kernel as its vjp.
+
+    ``apply(x, h, snd, em, indptr, sperm, sptr, gate_mode, rel_mode, clamp,
+    *ws)`` → ``(dx, mh, deg)``.  Saves the primals and ``deg``; gradients
+    for ``x``, ``h`` and the nine weights, ``None`` for the rest.
+    """
+
+    @staticmethod
+    def forward(ctx, x, h, snd, em, indptr, sperm, sptr, gate_mode, rel_mode,
+                clamp, *ws):
+        dx, mh, deg = edge_pathway_fused(x, h, snd, em, indptr, *ws,
+                                         gate_mode=gate_mode,
+                                         rel_mode=rel_mode, clamp=clamp)
+        ctx.save_for_backward(x, h, snd, em, indptr, deg.contiguous(), *ws)
+        ctx.sender = (sperm, sptr)
+        ctx.kw = dict(gate_mode=gate_mode, rel_mode=rel_mode, clamp=clamp)
+        ctx.mark_non_differentiable(deg)
+        return dx, mh, deg
+
+    @staticmethod
+    def backward(ctx, g_dx, g_mh, _g_deg):
+        x, h, snd, em, indptr, deg, *ws = ctx.saved_tensors
+        g_dx = torch.zeros_like(x) if g_dx is None else g_dx.contiguous()
+        g_mh = (torch.zeros((x.shape[0], ws[4].shape[1]), dtype=x.dtype,
+                            device=x.device)
+                if g_mh is None else g_mh.contiguous())
+        gx, gh, *gws = edge_pathway_bwd_fused(
+            x, h, snd, em, indptr, *ctx.sender, *ws, deg, g_dx, g_mh,
+            **ctx.kw)
+        return (gx, gh, None, None, None, None, None, None, None, None,
+                *gws)
+
+
 def edge_pathway(lp, h: Tensor, x: Tensor, g, spec,
                  layout) -> tuple[Tensor, Tensor]:
-    """Kernel-backed edge pathway → ``(dx (N,3), mh (N,M))``.
+    """Kernel-backed edge pathway → ``(dx (N,3), mh (N,M))``, trainable.
 
     ``layout`` is the graph's CSR layout ``(indptr, n_edges)``, valid for
-    its receiver-sorted slot arrays (``data.radius_graph.csr_indptr``).
+    its receiver-sorted slot arrays (``data.radius_graph.csr_indptr``),
+    optionally followed by the sender permutation ``(sperm, sptr)`` of
+    ``data.radius_graph.csr_sender_perm``, which the CUDA backward needs.
     The kernel walks ``indptr``; there is no layout-free route.
     """
     if layout is None:
@@ -66,10 +118,11 @@ def edge_pathway(lp, h: Tensor, x: Tensor, g, spec,
             "(indptr, n_edges) from data.radius_graph.csr_indptr")
     require_f32(spec.precision)
     hk, ws = unpack_edge_params(lp, h, spec)
-    dx, mh, _deg = edge_pathway_fused(
+    sperm, sptr = (layout[2], layout[3]) if len(layout) > 2 else (None, None)
+    dx, mh, _deg = EdgePathway.apply(
         x.contiguous(), hk, g.senders.contiguous(), g.edge_mask.contiguous(),
-        layout[0].contiguous(), *ws, gate_mode=spec.gate, rel_mode=spec.rel,
-        clamp=float(spec.coord_clamp))
+        layout[0].contiguous(), sperm, sptr, spec.gate, spec.rel,
+        float(spec.coord_clamp), *ws)
     return dx, mh
 
 
@@ -99,12 +152,68 @@ def unpack_virtual_block(vb, s: Tensor, mv: Tensor, h_dim: int) -> dict:
     return {k: v.contiguous() for k, v in out.items()}
 
 
+class VirtualPathway(torch.autograd.Function):
+    """Virtual forward kernel with the virtual backward kernel as its vjp.
+
+    ``apply(x, h, z, node_mask, *ws)`` (``ws``: the 11 per-channel stacks)
+    → ``(dx, mh, dz_sum, ms_sum)``.  Saves the primals only; no gradient
+    for the node mask.
+    """
+
+    @staticmethod
+    def forward(ctx, x, h, z, node_mask, *ws):
+        ctx.save_for_backward(x, h, z, node_mask, *ws)
+        return virtual_pathway_fused(x, h, z, node_mask, *ws)
+
+    @staticmethod
+    def backward(ctx, g_dx, g_mh, g_dz, g_ms):
+        ops = ctx.saved_tensors
+        x, z, w2 = ops[0], ops[2], ops[7]
+        hid = w2.shape[2]
+        shapes = ((x.shape[0], 3), (x.shape[0], hid), (z.shape[0], 3),
+                  (z.shape[0], hid))
+        cots = tuple(
+            torch.zeros(s, dtype=x.dtype, device=x.device) if c is None
+            else c.contiguous() for c, s in zip((g_dx, g_mh, g_dz, g_ms),
+                                                shapes))
+        gx, gh, gz, *gws = virtual_pathway_bwd_fused(*ops, *cots)
+        return (gx, gh, gz, None, *gws)
+
+
 def virtual_pathway(vb, h: Tensor, x: Tensor, vs, mv: Tensor,
                     node_mask: Tensor, precision=None):
-    """Kernel-backed virtual pathway → ``(dx, mh, dz_sum, ms_sum)``."""
+    """Kernel-backed virtual pathway → ``(dx, mh, dz_sum, ms_sum)``,
+    trainable."""
+    require_f32(precision)
     w = unpack_virtual_block(vb, vs.s, mv, h.shape[-1])
-    return virtual_pathway_fused(
+    return VirtualPathway.apply(
         x.contiguous(), h.contiguous(), vs.z.contiguous(),
         node_mask.contiguous(), w["w1h"], w["w1d"], w["const1"], w["w2"],
-        w["b2"], w["wg1"], w["bg1"], w["wg2"], w["wz1"], w["bz1"], w["wz2"],
-        precision=precision)
+        w["b2"], w["wg1"], w["bg1"], w["wg2"], w["wz1"], w["bz1"], w["wz2"])
+
+
+# --------------------------------------------------------------------- MMD
+class MMDCross(torch.autograd.Function):
+    """MMD cross-sum kernel with the cross-gradient kernel as its vjp.
+
+    ``apply(x, z, weight, sigma)`` → scalar; no gradient for the weight.
+    """
+
+    @staticmethod
+    def forward(ctx, x, z, weight, sigma):
+        ctx.save_for_backward(x, z, weight)
+        ctx.sigma = sigma
+        return mmd_cross_sum(x, z, weight, sigma=sigma)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z, weight = ctx.saved_tensors
+        dx, dz = mmd_cross_grads(x, z, weight, g, sigma=ctx.sigma)
+        return dx, dz, None, None
+
+
+def mmd_cross(x: Tensor, z: Tensor, weight: Tensor, sigma: float) -> Tensor:
+    """Differentiable Σ_i w_i Σ_c k(x_i, z_c) through the MMD kernels
+    (``weight`` is the node mask, or all-ones for a sampled subset)."""
+    return MMDCross.apply(x.contiguous(), z.contiguous(), weight.contiguous(),
+                          float(sigma))

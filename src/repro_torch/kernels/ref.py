@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two forward kernels (their ground truth).
+"""Plain PyTorch oracles of the kernels (their ground truth).
 
 Each function computes one kernel's contract with ordinary tensor ops;
 the CPU tests hold them against the JAX package, and ``chip_smoke.py``
@@ -103,3 +103,11 @@ def edge_pathway_ref(
     mh = sums[:, :m] * inv
     dx = sums[:, m:m + 3] * inv
     return dx, mh, deg
+
+
+def mmd_cross_ref(x: Tensor, z: Tensor, node_mask: Tensor,
+                  sigma: float) -> Tensor:
+    """Σ_i mask_i Σ_c exp(−‖x_i−z_c‖²/2σ²) — the MMD cross term numerator."""
+    d2 = ((x[:, None, :] - z[None, :, :]) ** 2).sum(-1)
+    k = torch.exp(-d2 / (2.0 * sigma * sigma))
+    return (k * node_mask[:, None]).sum()

@@ -11,7 +11,7 @@ parity contract with the reference needs full-precision products.
 Precision contract
 ------------------
 :class:`Precision` is the static ``(compute, accumulate)`` dtype pair.
-This slice serves ``'f32'`` only; the kernels raise
+The port runs ``'f32'`` only; the kernels raise
 ``NotImplementedError`` for ``'bf16'``.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The virtual-node forward: CUDA kernel wrapper, plain version, launch
-counter.
+"""The virtual-node pathway: CUDA kernel wrappers (forward and backward),
+plain versions, launch counters.
 
 :func:`virtual_pathway_fused` returns ``(dx (N,3), mh (N,hid), dz_sum
 (C,3), ms_sum (C,hid))``, the contract of
@@ -9,6 +9,15 @@ counter.
 partial sums per block into a scratch tensor this wrapper allocates, and a
 second kernel adds the blocks in order.  ``launches`` counts the main
 kernel only.  CPU tensors run :func:`virtual_pathway_plain`.
+
+:func:`virtual_pathway_bwd_fused` returns the 14 gradients of the forward
+(all operands but the node mask) from its primals and the four output
+cotangents.  For CUDA tensors it launches ``csrc/virtual_message_bwd.cu``
+(which replaces the Pallas ``virtual_pathway_bwd_fused``);
+``bwd_launches`` counts its main kernel.  CPU tensors run
+:func:`virtual_pathway_bwd_plain`.  Gradients flow through
+``kernels.ops.VirtualPathway``; both raw wrappers refuse inputs that
+require grad.
 """
 from __future__ import annotations
 
@@ -24,14 +33,17 @@ Tensor = torch.Tensor
 
 #: launches of the main CUDA virtual kernel since :func:`reset_launches`
 launches = 0
+#: launches of the main CUDA virtual backward kernel since
+#: :func:`reset_launches`
+bwd_launches = 0
 
 #: the width the CUDA kernel is compiled for (Dh = hid)
 KERNEL_WIDTH = 64
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -48,6 +60,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.virtual_partial_width.restype = ctypes.c_int
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    build.common_bind(lib)
+    lib.virtual_bwd_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.virtual_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.virtual_backward.argtypes = ([ctypes.c_void_p] * 34
+                                     + [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p])
+    lib.virtual_backward.restype = ctypes.c_int
+
+
 def virtual_pathway_plain(*operands):
     """The kernel's function in plain PyTorch (``virtual_pathway_ref``)."""
     return virtual_pathway_ref(*operands)
@@ -60,8 +82,9 @@ _SHAPES = ("x", "h", "z", "mask", "w1h", "w1d", "const1", "w2", "b2", "wg1",
 def _check(ops: tuple) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
         raise RuntimeError(
-            "virtual_pathway_fused has no backward kernel yet: call it under "
-            "torch.no_grad() or with inputs that do not require grad")
+            "the raw virtual wrappers have no backward kernel of their own: "
+            "differentiate through kernels.ops.VirtualPathway, or call them "
+            "under torch.no_grad()")
     dev = ops[0].device
     for name, t in zip(_SHAPES, ops):
         if t.device != dev:
@@ -123,3 +146,67 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
                            n_blocks, c, stream)
     build.check(lib, err, "virtual_sums")
     return dx, mh, dz, ms
+
+
+def virtual_pathway_bwd_plain(*operands):
+    """``torch.autograd.grad`` of :func:`virtual_pathway_plain`: operands
+    are the forward's 15 followed by the four cotangents ``(g_dx, g_mh,
+    g_dz, g_ms)``; returns the 14 gradients (no node-mask gradient)."""
+    prim, cots = operands[:15], operands[15:]
+    diff = [t.detach().requires_grad_(True)
+            for i, t in enumerate(prim) if i != 3]
+    with torch.enable_grad():
+        outs = virtual_pathway_plain(diff[0], diff[1], diff[2],
+                                     prim[3].detach(), *diff[3:])
+        grads = torch.autograd.grad(outs, diff, grad_outputs=cots,
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, diff))
+
+
+def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
+                              node_mask: Tensor, w1h: Tensor, w1d: Tensor,
+                              const1: Tensor, w2: Tensor, b2: Tensor,
+                              wg1: Tensor, bg1: Tensor, wg2: Tensor,
+                              wz1: Tensor, bz1: Tensor, wz2: Tensor,
+                              g_dx: Tensor, g_mh: Tensor, g_dz: Tensor,
+                              g_ms: Tensor, *, precision=None):
+    """Backward of :func:`virtual_pathway_fused` → ``(gx, gh, gz, gw1h,
+    gw1d, gc1, gw2, gb2, gwg1, gbg1, gwg2, gwz1, gbz1, gwz2)``.
+
+    CUDA tensors launch the kernel (f32, Dh = hid = 64) or raise; CPU
+    tensors run :func:`virtual_pathway_bwd_plain`.
+    """
+    global bwd_launches
+    require_f32(precision)
+    ops = (x, h, z, node_mask, w1h, w1d, const1, w2, b2, wg1, bg1, wg2, wz1,
+           bz1, wz2)
+    _check(ops)
+    cots = (g_dx, g_mh, g_dz, g_ms)
+    want = ((x.shape[0], 3), (x.shape[0], w1h.shape[2]), (z.shape[0], 3),
+            (z.shape[0], w1h.shape[2]))
+    for name, t, shape in zip(("g_dx", "g_mh", "g_dz", "g_ms"), cots, want):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in cots):
+        raise RuntimeError("virtual_pathway_bwd_fused has no double "
+                           "backward: pass cotangents without grad")
+    if x.device.type != "cuda":
+        return virtual_pathway_bwd_plain(*ops, *cots)
+    d = KERNEL_WIDTH
+    if h.shape[1] != d or w1h.shape[2] != d:
+        raise ValueError(f"CUDA virtual kernel needs Dh = hid = {d}, got "
+                         f"Dh={h.shape[1]}, hid={w1h.shape[2]}")
+    lib = build.load("virtual_message_bwd", _bind_bwd)
+    n, c = x.shape[0], z.shape[0]
+    grads = tuple(torch.empty_like(t) for i, t in enumerate(ops) if i != 3)
+    scratch = torch.empty((int(lib.virtual_bwd_scratch_floats(n, c)),),
+                          dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for t in (*ops, *cots, *grads, scratch)]
+    err = lib.virtual_backward(*ptrs, n, c, build.stream_ptr(x.device))
+    build.check(lib, err, "virtual_backward")
+    bwd_launches += 1
+    return grads

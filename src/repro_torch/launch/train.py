@@ -1,0 +1,109 @@
+"""Training launcher (GNN mode, one device).
+
+    python -m repro_torch.launch.train gnn --dataset fluid --n-nodes 7800 \\
+        --n-samples 8 --batch 4 --epochs 2
+
+Builds FastEGNN with ``build_pipeline`` (random weights from ``--seed``),
+the batches with ``Pipeline.make_batches`` and trains with
+``Pipeline.fit``; the flags and their defaults are the JAX package's
+``launch/train.py``, plus ``--device``: the model runs on CUDA through
+the hand-written kernels, or with ``--device cpu`` through their plain
+PyTorch versions.  Not ported yet: the ``nbody``
+and ``protein`` datasets and the streaming data plane (``--layout-cache``,
+``--reshuffle``; ROADMAP queue A #7), DistEGNN over several devices
+(``--devices > 1``; queue A #8), the other registry models (queue A #6)
+and LM mode (queue A #10).  ``--prefetch`` and ``--workers`` are accepted
+and have no effect: batches are built eagerly.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def gnn_main(args) -> None:
+    import torch
+
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.training.trainer import TrainConfig
+
+    if args.devices > 1:
+        raise NotImplementedError(
+            "--devices > 1 needs DistEGNN on torch.distributed, which the "
+            "port does not have yet (ROADMAP queue A #8)")
+    if args.dataset != "fluid":
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: the port generates 'fluid' only; "
+            f"nbody and protein come with the data plane (ROADMAP queue A "
+            f"#7)")
+    if args.model != "fast_egnn":
+        raise NotImplementedError(
+            f"--model {args.model}: the port builds fast_egnn only (ROADMAP "
+            f"queue A #6)")
+    if args.layout_cache or args.reshuffle:
+        raise NotImplementedError(
+            "--layout-cache and --reshuffle need the streaming data plane "
+            "(ROADMAP queue A #7)")
+    from repro_torch.data.fluid import generate_fluid_dataset
+
+    data = generate_fluid_dataset(args.n_samples, n_particles=args.n_nodes)
+    r, h_in = 0.035, 1
+    n_tr = int(0.8 * len(data))
+    tc = TrainConfig(epochs=args.epochs, lam_mmd=args.lam_mmd,
+                     mmd_sigma=args.mmd_sigma, seed=args.seed)
+    pipe = build_pipeline(
+        "fast_egnn", generator=torch.Generator().manual_seed(args.seed),
+        device=args.device, train_cfg=tc, use_kernel=True,
+        h_in=h_in, n_layers=args.n_layers, hidden=args.hidden,
+        n_virtual=args.n_virtual, s_dim=args.hidden)
+    bk = dict(r=r, drop_rate=args.drop_rate)
+    tr = pipe.make_batches(data[:n_tr], args.batch, **bk)
+    va = pipe.make_batches(data[n_tr:], args.batch, **bk)
+    res = pipe.fit(tr, va, verbose=True)
+    print(f"best val MSE: {res.best_val:.6f}  wall: {res.wall_time:.1f}s"
+          f"  device: {pipe.device}")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, res.params,
+                        {"model": args.model, "val_mse": res.best_val})
+        print("saved", args.checkpoint)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    sub = ap.add_subparsers(dest="mode", required=True)
+    g = sub.add_parser("gnn")
+    g.add_argument("--model", default="fast_egnn")
+    g.add_argument("--dataset", default="nbody",
+                   choices=["nbody", "fluid", "protein"])
+    g.add_argument("--n-samples", type=int, default=64)
+    g.add_argument("--n-nodes", type=int, default=100)
+    g.add_argument("--batch", type=int, default=8)
+    g.add_argument("--epochs", type=int, default=50)
+    g.add_argument("--n-layers", type=int, default=4)
+    g.add_argument("--hidden", type=int, default=64)
+    g.add_argument("--n-virtual", type=int, default=3)
+    g.add_argument("--drop-rate", type=float, default=0.0)
+    g.add_argument("--lam-mmd", type=float, default=0.03)
+    g.add_argument("--mmd-sigma", type=float, default=1.5)
+    g.add_argument("--devices", type=int, default=1)
+    g.add_argument("--partition", default="random",
+                   choices=["random", "metis"])
+    g.add_argument("--checkpoint", default=None)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--layout-cache", default=None, metavar="DIR")
+    g.add_argument("--reshuffle", action="store_true")
+    g.add_argument("--prefetch", type=int, default=2)
+    g.add_argument("--workers", type=int, default=4)
+    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the model runs (default: the GPU)")
+    sub.add_parser("lm")
+    args = ap.parse_args(argv)
+    if args.mode == "lm":
+        raise NotImplementedError(
+            "LM mode needs the LM stack, which the port does not have yet "
+            "(ROADMAP queue A #10)")
+    gnn_main(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,8 @@
 
 The layer loop is the reference's serialized schedule (no collectives).
 With ``cfg.use_kernel`` both per-layer pathways go through the CUDA
-kernels on CUDA tensors: the virtual forward (Eq. 5) and the real-real
-edge forward (Eqs. 3, 6-7).
+kernels on CUDA tensors, forward and backward: the virtual pathway
+(Eq. 5) and the real-real edge pathway (Eqs. 3, 6-7).
 """
 from __future__ import annotations
 
@@ -105,3 +105,11 @@ def fast_egnn_apply(params, cfg: FastEGNNConfig, g: GeometricGraph, *,
                                          n_real)
         x = x_new
     return x, h, vs
+
+
+def fast_egnn_full(params, cfg: FastEGNNConfig, g: GeometricGraph, *,
+                   edge_layout: Optional[tuple] = None) -> tuple[Tensor, dict]:
+    """The trainer's ``apply_full``: ``(coords, {"h": feats, "virtual":
+    VirtualState})``, as the JAX package's registry wrapper returns."""
+    x, h, vs = fast_egnn_apply(params, cfg, g, edge_layout=edge_layout)
+    return x, {"h": h, "virtual": vs}

@@ -1,57 +1,142 @@
-"""The single-device forward surface of a built model.
+"""The single-device surface of a built model: forward and training.
 
-``build_pipeline("fast_egnn", generator=..., device=..., **cfg)`` returns
-a :class:`Pipeline` with ``cfg``, ``params``, ``device`` and
-``predict_fn(params, graph(B,·), layout) -> (B, N, 3)``: the forward the
-rollout engine and the serving plane compose.  ``layout`` is ``None`` or
-the batch's CSR layout ``(indptr (B, N+1) int32, n_edges (B,))``.  The
-scenes of a batch run one after another through the same per-scene
-forward, so a batched prediction equals the per-scene ones by
-construction.
+``build_pipeline("fast_egnn", generator=..., device=..., train_cfg=...,
+**cfg)`` returns a :class:`Pipeline` with ``cfg``, ``params``, ``device``,
+``train_cfg``, ``opt`` and
+
+* ``predict_fn(params, graph(B,·), layout) -> (B, N, 3)``: the forward the
+  rollout engine and the serving plane compose.  ``layout`` is ``None`` or
+  the batch's CSR layout ``(indptr (B, N+1) int32, n_edges (B,)[, sperm,
+  sptr])``.  The scenes of a batch run one after another through the same
+  per-scene forward, so a batched prediction equals the per-scene ones by
+  construction;
+* :meth:`Pipeline.make_batches` → an eager list of layout-carrying
+  ``data.loader.GraphBatch``es; :meth:`Pipeline.train_step`,
+  :meth:`Pipeline.eval_step`, :meth:`Pipeline.predict` and
+  :meth:`Pipeline.fit` (epochs + early stopping, ``training.trainer``).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.graph import GeometricGraph
 from repro_torch.kernels.runtime import require_f32, resolve_device
 from repro_torch.models.fast_egnn import (FastEGNNConfig, fast_egnn_apply,
-                                          init_fast_egnn)
+                                          fast_egnn_full, init_fast_egnn)
+from repro_torch.training.optim import Adam
+from repro_torch.training.trainer import (FitResult, TrainConfig,
+                                          build_train_step, run_fit)
 
 Tensor = torch.Tensor
 
 
 class Pipeline:
-    """A model's config, parameters, device and forward program."""
+    """A model's config, parameters, device, forward program and training
+    machinery."""
 
     def __init__(self, name: str, cfg: FastEGNNConfig, params,
-                 device: torch.device):
+                 device: torch.device,
+                 train_cfg: Optional[TrainConfig] = None):
         self.name = name
         self.cfg = cfg
         self.params = params
         self.device = device
+        self.train_cfg = train_cfg if train_cfg is not None else TrainConfig()
+        tc = self.train_cfg
+        self.opt = Adam(lr=tc.lr, weight_decay=tc.weight_decay,
+                        grad_clip=tc.grad_clip)
         #: ``(params, graph(B,·), layout|None) -> (B, N, 3)`` predicted
         #: coordinates, run without autograd
         self.predict_fn: Callable = torch.no_grad()(self._predict)
+        self._steps = None
 
     def _predict(self, params, g: GeometricGraph,
                  layout: Optional[tuple]) -> Tensor:
         out = []
         for b in range(g.x.shape[0]):
             gb = GeometricGraph(*(a[b] for a in g))
-            lay = None if layout is None else (layout[0][b], layout[1][b])
+            lay = None if layout is None else tuple(a[b] for a in layout)
             out.append(fast_egnn_apply(params, self.cfg, gb,
                                        edge_layout=lay)[0])
         return torch.stack(out)
 
+    # ------------------------------------------------------------- batches
+    def make_batches(self, samples, batch_size: int, *, r: float = np.inf,
+                     drop_rate: float = 0.0,
+                     shuffle_seed: Optional[int] = None,
+                     with_layout: Optional[bool] = None,
+                     edge_cap: Optional[int] = None,
+                     drop_last: bool = False) -> list:
+        """Raw samples → an eager list of fixed-shape ``GraphBatch``es on
+        this pipeline's device; the trailing partial batch is mask-padded
+        (``data.loader.dataset_to_batches``).  ``with_layout`` defaults to
+        ``cfg.use_kernel``: only the kernel path reads the CSR layout."""
+        from repro_torch.data.loader import dataset_to_batches
+
+        if with_layout is None:
+            with_layout = bool(self.cfg.use_kernel)
+        return dataset_to_batches(
+            samples, batch_size, r=r, drop_rate=drop_rate, edge_cap=edge_cap,
+            shuffle_seed=shuffle_seed, with_layout=with_layout,
+            drop_last=drop_last, device=self.device)
+
+    # --------------------------------------------------------------- steps
+    def _build_steps(self):
+        if self._steps is None:
+            step, ev = build_train_step(fast_egnn_full, self.cfg,
+                                        self.train_cfg, self.opt)
+
+            def train_step(params, opt_state, batch, generator=None):
+                if generator is None:  # as the reference's default key
+                    generator = torch.Generator(device=self.device)
+                    generator.manual_seed(self.train_cfg.seed)
+                return step(params, opt_state, batch, generator)
+
+            self._steps = (train_step, ev)
+        return self._steps
+
+    @property
+    def train_step(self) -> Callable:
+        """``(params, opt_state, batch, generator=None)`` → ``(params,
+        opt_state, metrics)``; metrics always has ``"loss"``.  The MMD node
+        sample (``train_cfg.mmd_sample``) draws from ``generator``, by
+        default one seeded with ``train_cfg.seed`` on this device."""
+        return self._build_steps()[0]
+
+    @property
+    def eval_step(self) -> Callable:
+        """``(params, batch)`` → the batch's masked MSE (0-d tensor)."""
+        return self._build_steps()[1]
+
+    def predict(self, params, batch) -> Tensor:
+        """Batch-level forward → predicted coordinates (B, N, 3)."""
+        return self.predict_fn(params, batch.graph, batch.layout)
+
+    def fit(self, train_batches, val_batches,
+            verbose: bool = False) -> FitResult:
+        """Epochs + validation-based early stopping
+        (``training.trainer.run_fit``); sets ``self.params`` to the best
+        validation parameters and returns the :class:`FitResult`."""
+        step, eval_step = self._build_steps()
+        res = run_fit(step, eval_step, self.params,
+                      self.opt.init(self.params), self.train_cfg,
+                      train_batches, val_batches, verbose=verbose)
+        self.params = res.params
+        return res
+
 
 def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,
-                   params=None, device=None, **cfg_overrides) -> Pipeline:
+                   params=None, device=None,
+                   train_cfg: Optional[TrainConfig] = None,
+                   **cfg_overrides) -> Pipeline:
     """``'fast_egnn'`` + config overrides → :class:`Pipeline` on ``device``
     (default CUDA).  Weights are ``params`` (e.g. from
-    ``weights.params_from_jax``) or random draws from ``generator``."""
+    ``weights.params_from_jax``) or random draws from ``generator``;
+    ``train_cfg`` sets the optimizer and the fit protocol (default
+    :class:`~repro_torch.training.trainer.TrainConfig`)."""
     if name != "fast_egnn":
         raise NotImplementedError(
             f"model {name!r}: the PyTorch port builds 'fast_egnn' only")
@@ -62,4 +147,4 @@ def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,
         if generator is None:
             raise ValueError("build_pipeline needs params= or generator=")
         params = init_fast_egnn(generator, cfg, device=dev)
-    return Pipeline(name, cfg, params, dev)
+    return Pipeline(name, cfg, params, dev, train_cfg)

@@ -7,8 +7,10 @@ JAX, so run it there as
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerances: atol 1e-5 / rtol 1e-4 in f32 (kernel and plain version sum in
-different orders); repeated kernel runs must be bitwise equal.
+Tolerances: forward values atol 1e-5 / rtol 1e-4 in f32 (kernel and plain
+version sum in different orders); gradients relative to each output's
+largest magnitude, rtol 1e-3 / atol 5e-5 (the reference's own
+``_assert_tree_close``).  Repeated kernel runs must be bitwise equal.
 """
 import math
 
@@ -20,10 +22,10 @@ from repro_torch.core.graph import GeometricGraph
 from repro_torch.core.message_passing import EdgeSpec, edge_pathway
 from repro_torch.core.virtual_nodes import (VirtualState, init_virtual_block,
                                             virtual_pathway)
-from repro_torch.data.radius_graph import (csr_indptr, pad_edges, pad_nodes,
-                                           radius_graph,
+from repro_torch.data.radius_graph import (csr_indptr, csr_sender_perm,
+                                           pad_edges, pad_nodes, radius_graph,
                                            sort_edges_by_receiver)
-from repro_torch.kernels import edge_message, ops, virtual_message
+from repro_torch.kernels import edge_message, mmd_rbf, ops, virtual_message
 from repro_torch.models.fast_egnn import FastEGNNConfig, fast_egnn_apply
 from repro_torch.pipeline import build_pipeline
 
@@ -201,3 +203,183 @@ def test_model_kernel_path_matches_plain_path_on_card():
     torch.testing.assert_close(xk, xr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(hk, hr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(vk.z, vr.z, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------- backwards
+def _assert_grads_match(got, again, want):
+    """Bitwise repeatable, and within rtol 1e-3 / atol 5e-5 of the plain
+    gradients relative to each output's largest magnitude."""
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, a)
+        scale = float(w.abs().max()) + 1e-6
+        torch.testing.assert_close(g / scale, w / scale, atol=5e-5,
+                                   rtol=1e-3)
+
+
+def _sender_perm(sp, n_edges, n, dev):
+    perm, sptr = csr_sender_perm(sp, n_edges, n)
+    full = np.zeros(sp.size, np.int32)
+    full[:perm.size] = perm
+    return torch.from_numpy(full).to(dev), torch.from_numpy(sptr).to(dev)
+
+
+def _edge_bwd_args(dev, gate, rel, clamp, seed=5):
+    x, sp, _, em, indptr, n_edges = _graph(seed=seed)
+    args = _edge_args(dev, seed=seed)
+    n = x.shape[0]
+    if gate == "none":
+        args[11:14] = [torch.zeros(1, 1, device=dev)] * 3
+    with torch.no_grad():
+        _, _, deg = edge_message.edge_pathway_plain(
+            *args, gate_mode=gate, rel_mode=rel, clamp=clamp)
+    rng = np.random.default_rng(seed + 2)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    g_dx = t(rng.standard_normal((n, 3)))
+    g_mh = t(rng.standard_normal((n, WIDTH)))
+    sperm, sptr = _sender_perm(sp, n_edges, n, dev)
+    return args, (sperm, sptr), deg.contiguous(), g_dx, g_mh
+
+
+@needs_cuda
+@pytest.mark.parametrize("gate,rel,clamp", [
+    ("mlp", "raw", math.inf), ("mlp", "raw", 0.05), ("mlp", "inv1p", 0.05),
+    ("mlp", "inv1p", math.inf), ("none", "raw", math.inf)])
+def test_edge_backward_kernel_matches_plain(gate, rel, clamp):
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh = _edge_bwd_args(dev, gate, rel, clamp)
+    kw = dict(gate_mode=gate, rel_mode=rel, clamp=clamp)
+    edge_message.reset_launches()
+    run = lambda: edge_message.edge_pathway_bwd_fused(
+        *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw)
+    got, again = run(), run()
+    want = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, **kw)
+    torch.cuda.synchronize()
+    assert edge_message.bwd_launches == 2
+    _assert_grads_match(got, again, want)
+
+
+@needs_cuda
+def test_edge_backward_masked_rows_nodes_and_empty_graph():
+    """All-masked rows give exact zeros, and so does an empty slot list."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh = _edge_bwd_args(dev, "mlp", "raw",
+                                                   math.inf)
+    em = args[3].clone()
+    indptr = args[4].cpu().numpy()
+    dead = np.arange(0, indptr.size - 1, 3)  # every third receiver row
+    for r in dead:
+        em[int(indptr[r]):int(indptr[r + 1])] = 0.0
+    args[3] = em
+    with torch.no_grad():
+        deg = edge_message.edge_pathway_plain(*args)[2].contiguous()
+    got = edge_message.edge_pathway_bwd_fused(*args[:5], *sender, *args[5:],
+                                              deg, g_dx, g_mh)
+    want = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh)
+    torch.cuda.synchronize()
+    _assert_grads_match(got, got, want)
+    args[3] = torch.zeros_like(em)
+    zero_deg = torch.zeros_like(deg)
+    got = edge_message.edge_pathway_bwd_fused(*args[:5], *sender, *args[5:],
+                                              zero_deg, g_dx, g_mh)
+    assert all(not g.any() for g in got)
+    empty = [a[:0] if i in (2, 3) else a for i, a in enumerate(args)]
+    empty[4] = torch.zeros_like(args[4])
+    got = edge_message.edge_pathway_bwd_fused(*empty[:5], *sender,
+                                              *empty[5:], zero_deg, g_dx,
+                                              g_mh)
+    assert all(not g.any() for g in got)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [1000, 64, 37])
+def test_virtual_backward_kernel_matches_plain(n):
+    dev = torch.device("cuda")
+    args = _virtual_args(dev, n=n)
+    rng = np.random.default_rng(n)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    c = args[2].shape[0]
+    cots = (t(n, 3), t(n, WIDTH), t(c, 3), t(c, WIDTH))
+    virtual_message.reset_launches()
+    got = virtual_message.virtual_pathway_bwd_fused(*args, *cots)
+    again = virtual_message.virtual_pathway_bwd_fused(*args, *cots)
+    want = virtual_message.virtual_pathway_bwd_plain(*args, *cots)
+    torch.cuda.synchronize()
+    assert virtual_message.bwd_launches == 2
+    _assert_grads_match(got, again, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [8192, 1000, 37])
+def test_mmd_kernels_match_plain(n):
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    x = t(rng.uniform(0, 1, (n, 3)))
+    z = t(0.5 + 0.2 * rng.standard_normal((3, 3)))
+    mask = t((rng.uniform(size=n) > 0.2) * 1.0)
+    g = t(np.array(0.7))
+    mmd_rbf.reset_launches()
+    got = mmd_rbf.mmd_cross_sum(x, z, mask, sigma=0.3)
+    again = mmd_rbf.mmd_cross_sum(x, z, mask, sigma=0.3)
+    want = mmd_rbf.mmd_cross_sum_plain(x, z, mask, sigma=0.3)
+    gg = mmd_rbf.mmd_cross_grads(x, z, mask, g, sigma=0.3)
+    gg2 = mmd_rbf.mmd_cross_grads(x, z, mask, g, sigma=0.3)
+    gw = mmd_rbf.mmd_cross_grads_plain(x, z, mask, g, sigma=0.3)
+    torch.cuda.synchronize()
+    assert mmd_rbf.sum_launches == 2 and mmd_rbf.grad_launches == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    _assert_grads_match(gg, gg2, gw)
+
+
+@needs_cuda
+def test_model_gradients_kernel_path_match_plain_path_on_card():
+    """Full-width FastEGNN (2 layers) with the MMD term: the gradients
+    through the three autograd Functions match the plain path, and every
+    layer launches each backward kernel once."""
+    from repro_torch.core.mmd import mmd_loss
+
+    dev = torch.device("cuda")
+    x, sp, rp, em, indptr, n_edges = _graph(n=400, cap=16000, seed=9)
+    n_cap = 512
+    xp, nm = pad_nodes(x, n_cap)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    g = GeometricGraph(x=t(xp), v=torch.zeros(n_cap, 3, device=dev),
+                       h=t(nm[:, None].copy()), senders=t(sp),
+                       receivers=t(rp),
+                       edge_attr=torch.zeros(sp.size, 0, device=dev),
+                       node_mask=t(nm), edge_mask=t(em))
+    lay = (t(csr_indptr(rp, n_edges, n_cap)), n_edges,
+           *_sender_perm(sp, n_edges, n_cap, dev))
+    pipe = build_pipeline("fast_egnn", device=dev, n_layers=2,
+                          generator=torch.Generator().manual_seed(3))
+    target = g.x + 0.01
+
+    def grads(cfg, layout):
+        leaves = [p for lp in pipe.params["layers"] for blk in lp.values()
+                  for layer in (blk if isinstance(blk, list) else
+                                [l for v in blk.values() for l in v])
+                  for p in layer.values()]
+        for p in leaves:
+            p.requires_grad_(True)
+        xo, _, vs = fast_egnn_apply(pipe.params, cfg, g, edge_layout=layout)
+        loss = (((xo - target) ** 2).sum(-1) * g.node_mask).mean() + 0.03 * \
+            mmd_loss(vs.z, target, g.node_mask, sigma=1.5,
+                     use_kernel=cfg.use_kernel)
+        out = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for p in leaves:
+            p.requires_grad_(False)
+        return [torch.zeros_like(p) if o is None else o
+                for o, p in zip(out, leaves)]
+
+    edge_message.reset_launches()
+    virtual_message.reset_launches()
+    mmd_rbf.reset_launches()
+    gk = grads(FastEGNNConfig(n_layers=2, use_kernel=True), lay)
+    gr = grads(pipe.cfg, None)
+    torch.cuda.synchronize()
+    assert edge_message.bwd_launches == 2 and virtual_message.bwd_launches == 2
+    assert mmd_rbf.sum_launches == 1 and mmd_rbf.grad_launches == 1
+    _assert_grads_match(gk, gk, gr)

@@ -2,9 +2,10 @@
 
 Covers ``radius_graph``, ``sort_edges_by_receiver``, ``pad_edges``,
 ``drop_longest_edges``, ``pad_nodes``, the fluid generator, the rollout
-engine's per-step edge masks, and ``csr_indptr`` — including the padded
-tail trap: ``pad_edges`` fills the tail with receiver 0, so row offsets
-must come from the first ``n_edges`` slots only.
+engine's per-step edge masks, ``csr_indptr`` and ``csr_sender_perm`` —
+including the padded tail trap: ``pad_edges`` fills the tail with
+receiver 0 and sender 0, so row offsets and the sender permutation must
+come from the first ``n_edges`` slots only — and the batch loader.
 """
 import warnings
 
@@ -209,3 +210,58 @@ def test_csr_indptr_stays_valid_under_step_mask_holes():
         em_step = keep.numpy().astype(np.float32)
         assert 0 < em_step.sum() < e
         _csr_plain_vs_reference(x, h, sp, rp, em_step, indptr)
+
+
+# ------------------------------------------------------- csr_sender_perm
+def test_csr_sender_perm_sorts_real_slots_only():
+    x, sp, rp, em, e, _ = _verlet_case(seed=3)
+    n = x.shape[0]
+    perm, sptr = t_rg.csr_sender_perm(sp, e, n)
+    assert perm.dtype == np.int32 and sptr.dtype == np.int32
+    assert perm.shape == (e,) and sptr.shape == (n + 1,) and sptr[-1] == e
+    # the padded tail (sender 0) is not part of the permutation
+    assert sp[e:].size and (sp[e:] == 0).all() and perm.max() < e
+    np.testing.assert_array_equal(perm, np.argsort(sp[:e], kind="stable"))
+    np.testing.assert_array_equal(np.diff(sptr),
+                                  np.bincount(sp[:e], minlength=n))
+    for s in (0, 7, n - 1):  # each sender's slots, in slot order
+        mine = perm[sptr[s]:sptr[s + 1]]
+        np.testing.assert_array_equal(mine, np.flatnonzero(sp[:e] == s))
+    with pytest.raises(ValueError, match="senders in"):
+        t_rg.csr_sender_perm(sp, e, 5)
+    empty, eptr = t_rg.csr_sender_perm(sp, 0, n)
+    assert empty.size == 0 and not eptr.any()
+
+
+# ------------------------------------------------------------------ loader
+def test_dataset_to_batches_matches_reference_and_carries_layout():
+    from repro.data.loader import dataset_to_batches as j_batches
+    from repro_torch.data import loader as t_loader
+
+    data = j_fluid.generate_fluid_dataset(5, n_particles=40)
+    want = j_batches(data, 2, r=0.05, shuffle_seed=3, with_layout=False)
+    got = t_loader.dataset_to_batches(data, 2, r=0.05, shuffle_seed=3,
+                                      device="cpu")
+    assert len(got) == len(want) == 3
+    for tb, jb in zip(got, want):
+        for k in tb.graph._fields:
+            np.testing.assert_array_equal(getattr(tb.graph, k).numpy(),
+                                          np.asarray(getattr(jb.graph, k)))
+        np.testing.assert_array_equal(tb.x_target.numpy(), jb.x_target)
+        indptr, n_edges, sperm, sptr = (a.numpy() for a in tb.layout)
+        for b in range(indptr.shape[0]):
+            rcv, snd = tb.graph.receivers[b].numpy(), tb.graph.senders[b]
+            e = int(n_edges[b])
+            assert e == int(tb.graph.edge_mask[b].sum())
+            np.testing.assert_array_equal(indptr[b],
+                                          t_rg.csr_indptr(rcv, e, 40))
+            perm, ptr = t_rg.csr_sender_perm(snd.numpy(), e, 40)
+            np.testing.assert_array_equal(sperm[b, :e], perm)
+            np.testing.assert_array_equal(sptr[b], ptr)
+    assert got[0].sample_mask is None
+    np.testing.assert_array_equal(got[-1].sample_mask.numpy(), [1.0, 0.0])
+    np.testing.assert_array_equal(np.asarray(want[-1].sample_mask), [1, 0])
+    with pytest.warns(UserWarning, match="dropping the trailing 1"):
+        assert len(t_loader.dataset_to_batches(data, 2, r=0.05,
+                                               drop_last=True,
+                                               device="cpu")) == 2
