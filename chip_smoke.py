@@ -5,9 +5,9 @@
 
 Phases, each printing one JSON line (any failure exits nonzero):
 
-1. build   — nvcc builds every CUDA kernel of the serving and training
-             paths from ``src/repro_torch/csrc`` (one nvcc per source, in
-             parallel).
+1. build   — nvcc builds every CUDA kernel of the FastEGNN serving and
+             training paths and the LM prefill from
+             ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
 2. kernels — each of the six kernels (edge and virtual forward, edge and
              virtual backward, MMD cross sum and gradient) against its
              plain PyTorch version on the card at the serving shapes
@@ -28,6 +28,36 @@ Phases, each printing one JSON line (any failure exits nonzero):
              the first step's loss, gradients and update against a
              ``use_kernel=False`` pipeline on the card, and that the same
              first step run twice is bitwise equal; times a train step.
+
+The FastEGNN tensors are then freed, and the LM slice (gemma3-12b, random
+weights from seed 0) runs:
+
+6. swa_kernel — the sliding-window attention kernel against its plain
+             version (the port of ``_chunked_attention``) at the prefill's
+             shape (B = 1, S = 8,192, 16 heads over 8 KV heads, D = 256),
+             in bf16 and f32, with a bitwise repeat; CUDA-event times of
+             kernel, plain version and the SDPA yardstick for the SWA
+             (window 1,024) and the global (causal) layer.
+7. lm_parity — gemma3-12b at full width and 6 layers (one 5:1 pattern),
+             f32, B = 1, S = 2,048: ``forward`` with the kernel against
+             ``forward(use_kernel=False)`` on the card, every logit within
+             1e-4 of the largest, 6 launches.  lm_parity_full: the same at
+             full depth (48 layers) and the prefill's S = 8,192, on the
+             last position's logits, 48 launches.
+8. lm_prefill — gemma3-12b at full width and depth (48 layers), bf16
+             weights built on the card, B = 1, S = 8,192: finite logits,
+             48 launches, wall time, tokens/s, peak memory, a profile, and
+             the relative L2 of the last position's logits against a
+             plain-attention forward, beside the same for the plain path
+             with one weight moved by one bf16 ulp (the model's
+             own bf16 sensitivity at this depth; neither is gated).
+9. lm_serve — the port's ``launch/serve.py`` path on the same weights:
+             batch 4, prompt 16, 32 greedy tokens, then a run of
+             1,000 + 40 tokens so that the SWA ring buffers wrap; cache
+             footprint (exact), tokens/s, 0 kernel launches, and finite
+             logits at every step whose virtual-token state is finite
+             (with random weights that state, as in the reference,
+             overflows after a few steps at this depth).
 
 Then it prints the card's name and power limit, the per-kernel summary,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA and a checkout
@@ -64,8 +94,21 @@ TRAIN_SCENES, VAL_SCENES, TRAIN_BATCH, EPOCHS = 6, 2, 4, 2
 LAM_MMD, MMD_SIGMA = 0.03, 1.5
 # first-step update compared where |g| >= SMALL_GRAD x the leaf's largest
 SMALL_GRAD = 1e-2
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) FLOP/s
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
+# bf16 tensor-core (f32 accumulate) FLOP/s
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# LM slice: gemma3-12b, attention at the prefill's shape
+LM_ARCH = "gemma3_12b"
+PARITY_LAYERS, PARITY_S = 6, 2048
+PREFILL_S = 8192
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+WRAP_PROMPT, WRAP_GEN = 1000, 40  # prompt + gen > window: the rings wrap
+# bf16 attention, kernel vs plain version: both compute in f32 and round
+# once, in different summation orders, so they may land one bf16 rounding
+# apart: |k - p| <= 2^-7 |p| (one bf16 ulp at |p|) + 1e-3 (near 0)
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
+# lm_parity (f32): |k - p| <= LOGIT_TOL * max|p| + LOGIT_TOL * |p|
+LOGIT_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -135,8 +178,9 @@ def repeat_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = n_bytes / HBM_BPS, flops / F32_FLOPS
+def bound_ms(n_bytes: float, flops: float,
+             peak: float = F32_FLOPS) -> tuple[float, str]:
+    t_b, t_f = n_bytes / HBM_BPS, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -650,6 +694,327 @@ def phase_train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- LM slice
+def _attention_close(got, want) -> dict:
+    """Kernel against plain attention: f32 at ATOL / RTOL, bf16 within one
+    bf16 rounding (BF16_ATOL / BF16_RTOL), both compared in f32."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    atol, rtol = ((BF16_ATOL, BF16_RTOL) if want.dtype == torch.bfloat16
+                  else (ATOL, RTOL))
+    return {"max_abs_err": float(d.max()),
+            "max_rel_err": float(d.max() / w.abs().max().clamp(min=1e-30)),
+            "within_tol": bool(torch.all(d <= atol + rtol * w.abs()))}
+
+
+def visible_pairs(s: int, causal: bool, window) -> int:
+    """(q, k) pairs the mask keeps in one head of length ``s``."""
+    total = 0
+    for q in range(s):
+        lo = 0 if window is None else max(0, q - window + 1)
+        hi = q if causal else s - 1
+        total += hi - lo + 1
+    return total
+
+
+def swa_rows(cfg, dev) -> dict:
+    """The SWA kernel at the prefill's shapes: the sliding-window layer
+    (window ``cfg.window``) and the global (causal) layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import swa_attention
+
+    b, s, h, kv, d = 1, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
+               for n in (h, kv, kv))
+    pos = torch.arange(s, device=dev)
+    qi = pos[:, None]
+    layers = {}
+    with torch.no_grad():
+        for name, window in (("swa", cfg.window), ("global", None)):
+            out = {"window": window}
+            for dt in (torch.bfloat16, torch.float32):
+                args = (q.to(dt), k.to(dt), v.to(dt))
+                run = lambda: swa_attention.attention(*args, causal=True,
+                                                      window=window)
+                plain = lambda: swa_attention.chunked_attention(
+                    *args, pos, pos, causal=True, window=window,
+                    q_chunk=cfg.q_chunk)
+                got, again = run(), run()
+                cmp = _attention_close(got, plain())
+                cmp["bitwise_repeatable"] = torch.equal(got, again)
+                tag = "bf16" if dt == torch.bfloat16 else "f32"
+                out[tag] = cmp
+                out[f"ms_{tag}"] = cuda_ms(run, 10, 2)
+                if dt == torch.bfloat16:
+                    out["plain_ms"] = cuda_ms(plain, 5, 1)
+                    sq, sk, sv = (a.transpose(1, 2) for a in args)
+                    if window is None:
+                        lib = lambda: F.scaled_dot_product_attention(
+                            sq, sk, sv, is_causal=True, enable_gqa=True)
+                    else:
+                        band = (pos[None, :] <= qi) & (pos[None, :]
+                                                       > qi - window)
+                        lib = lambda: F.scaled_dot_product_attention(
+                            sq, sk, sv, attn_mask=band, enable_gqa=True)
+                    out["library_ms"] = cuda_ms(lib, 10, 2)
+                del got, again
+            pairs = visible_pairs(s, True, window)
+            flops = 4 * d * pairs * h * b
+            n_bytes = b * s * (2 * h + 2 * kv) * d * 2  # q, k, v, o in bf16
+            out["pairs_per_head"] = pairs
+            out["gflop"] = flops / 1e9
+            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops,
+                                                        BF16_FLOPS)
+            out["bound_ms_f32_rate"] = bound_ms(n_bytes, flops)[0]
+            layers[name] = out
+    line = {"phase": "swa_kernel",
+            "shape": dict(b=b, s=s, h=h, kv=kv, d=d),
+            "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL},
+                          "bf16": {"atol": BF16_ATOL, "rtol": BF16_RTOL}},
+            **layers}
+    for name in layers:
+        for tag in ("bf16", "f32"):
+            c = layers[name][tag]
+            if not (c["within_tol"] and c["bitwise_repeatable"]):
+                raise AssertionError(f"SWA kernel ({name}, {tag}) disagrees "
+                                     f"with its plain version: "
+                                     f"{json.dumps(line)}")
+    swa, glob = layers["swa"], layers["global"]
+    row = dict(name="swa_attention", route="cuda",
+               source="src/repro_torch/csrc/swa_attention.cu",
+               replaces="src/repro/kernels/swa_attention.py:70",
+               max_abs_err=swa["bf16"]["max_abs_err"], ms=swa["ms_bf16"],
+               plain_ms=swa["plain_ms"], bound_ms=swa["bound_ms"],
+               bound_by=swa["bound_by"], library_ms=swa["library_ms"],
+               bound_ms_f32_rate=swa["bound_ms_f32_rate"],
+               global_layer={k: glob[k] for k in (
+                   "ms_bf16", "plain_ms", "library_ms", "bound_ms",
+                   "bound_by", "bound_ms_f32_rate")})
+    return line, row
+
+
+def all_launch_counts() -> dict:
+    from repro_torch.kernels import (edge_message, mmd_rbf, swa_attention,
+                                     virtual_message)
+
+    return {"edge_pathway_fused": edge_message.launches,
+            "virtual_pathway_fused": virtual_message.launches,
+            "edge_pathway_bwd_fused": edge_message.bwd_launches,
+            "virtual_pathway_bwd_fused": virtual_message.bwd_launches,
+            "mmd_cross_sum": mmd_rbf.sum_launches,
+            "mmd_cross_grads": mmd_rbf.grad_launches,
+            "swa_attention": swa_attention.launches}
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import (edge_message, mmd_rbf, swa_attention,
+                                     virtual_message)
+
+    for mod in (edge_message, virtual_message, mmd_rbf, swa_attention):
+        mod.reset_launches()
+
+
+def _expect_launches(phase: str, counts: dict, swa: int) -> None:
+    want = {k: (swa if k == "swa_attention" else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{phase}: launch counts {counts}, expected "
+                             f"{want}")
+
+
+def phase_lm_parity(dev, n_layers: int, seq: int, last_only: bool) -> dict:
+    """gemma3-12b at full width and ``n_layers``, f32, random weights from
+    seed 0: ``forward`` with the kernel against ``use_kernel=False`` on the
+    card, all logits or (``last_only``, to keep the (S, V) logits out of
+    memory) the last position's, elementwise within LOGIT_TOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.archs.model import forward, init_arch, lm_head_weights
+    from repro_torch.configs import get_arch
+
+    full = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=n_layers,
+                              blocks=full.blocks[:n_layers],
+                              ffns=full.ffns[:n_layers])
+    t0 = time.perf_counter()
+    params = init_arch(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab, (1, seq), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def run(use_kernel: bool):
+        out, _ = forward(params, cfg, tok, dtype=torch.float32,
+                         return_hidden=last_only, use_kernel=use_kernel)
+        if last_only:
+            out = out[:, -1] @ lm_head_weights(params, cfg, torch.float32)
+        return out
+
+    with torch.no_grad():
+        reset_all_launches()
+        t = time.perf_counter()
+        got = run(True)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t
+        launches = all_launch_counts()
+        t = time.perf_counter()
+        want = run(False)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+    scale = float(want.abs().max())
+    d = (got - want).abs()
+    ok = bool(torch.all(d <= LOGIT_TOL * scale + LOGIT_TOL * want.abs()))
+    name = "lm_parity_full" if last_only else "lm_parity"
+    out = {"phase": name, "arch": cfg.name, "layers": n_layers,
+           "pattern": list(cfg.blocks[:6]), "dtype": "float32", "batch": 1,
+           "seq": seq, "compared": "last position" if last_only else "all",
+           "init_s": init_s, "kernel_forward_s": kernel_s,
+           "plain_forward_s": plain_s, "max_abs_err": float(d.max()),
+           "max_abs_logit": scale,
+           "max_err_over_max_logit": float(d.max()) / scale,
+           "rel_l2": float((got - want).norm() / want.norm()),
+           "tolerance": {"atol_x_max": LOGIT_TOL, "rtol": LOGIT_TOL},
+           "within_tol": ok, "finite": bool(torch.isfinite(got).all()),
+           "launches": launches}
+    del params, got, want, d
+    torch.cuda.empty_cache()
+    _expect_launches(name, launches, n_layers)
+    if not (ok and out["finite"]):
+        raise AssertionError(f"{name}: kernel forward differs from the "
+                             f"plain one: {json.dumps(out)}")
+    return out
+
+
+def phase_lm_prefill(params, cfg, dev) -> dict:
+    import torch
+
+    from repro_torch.archs.model import forward
+
+    tok = torch.randint(0, cfg.vocab, (1, PREFILL_S), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        logits, _ = forward(params, cfg, tok)
+        torch.cuda.synchronize()
+        launches = all_launch_counts()
+        peak = torch.cuda.max_memory_allocated()  # before the check's temps
+        finite = bool(torch.isfinite(logits).all())
+        shape = list(logits.shape)
+        last = logits[:, -1].clone()
+        del logits
+        times = []
+        for _ in range(4):  # a warm-up, then 3 timed
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            forward(params, cfg, tok)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        wall = statistics.median(times[1:])
+        prof = profile_step(lambda: forward(params, cfg, tok))
+
+        def plain_last():
+            out, _ = forward(params, cfg, tok, use_kernel=False)
+            return out[:, -1].clone()
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = plain_last()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        # control: the plain path with one weight (layer 0's wq[7, 7]) moved
+        # by one bf16 ulp
+        bits = params["layers"][0]["attn"]["wq"][7, 7:8].view(torch.int16)
+        bits += 1
+        plain_ulp = plain_last()
+        bits -= 1
+    torch.cuda.empty_cache()
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    out = {"phase": "lm_prefill", "arch": cfg.name, "layers": cfg.n_layers,
+           "dtype": "bfloat16", "batch": 1, "seq": PREFILL_S,
+           "logits_shape": shape, "finite": finite, "launches": launches,
+           "wall_s_median": wall, "wall_s": times[1:],
+           "tokens_per_s": PREFILL_S / wall, "allocated_before_bytes": before,
+           "peak_memory_bytes": peak, "plain_attention_wall_s": plain_s,
+           "last_logits_rel_l2_kernel_vs_plain": rel(last, plain),
+           "last_logits_rel_l2_plain_vs_plain_1ulp_wq": rel(plain_ulp,
+                                                            plain),
+           "note": "bf16 at depth 48 with random weights: one bf16 ulp "
+                   "anywhere moves the last logits by as much as the "
+                   "attention's summation order does (the control), so "
+                   "neither is gated; lm_parity_full holds the kernel to "
+                   "the plain path at this depth and length in f32",
+           "profile": prof}
+    _expect_launches("lm_prefill", launches, cfg.n_layers)
+    if not finite:
+        raise AssertionError(f"lm_prefill: non-finite logits: "
+                             f"{json.dumps(out)}")
+    return out
+
+
+def expected_cache_bytes(cfg, batch: int, cap: int) -> int:
+    """bf16 K and V and int32 positions per layer (a ring of the window
+    for SWA layers), plus the bf16 virtual-token state."""
+    total = 0
+    for kind in cfg.blocks:
+        c = min(cfg.window, cap) if kind == "swa" else cap
+        total += batch * c * (2 * cfg.n_kv_heads * cfg.head_dim * 2 + 4)
+    return total + batch * cfg.n_virtual_tokens * cfg.d_virtual * 2
+
+
+def phase_lm_serve(params, cfg, dev) -> dict:
+    """The port's serve path on the prefill's weights.  With random
+    weights the virtual-token state of ``decode_step`` (a read added per
+    layer and per step, as in the reference) grows until it overflows; the
+    check is that every step whose virtual-token state is finite has finite
+    logits, the first step included."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import serve
+
+    runs = []
+    for prompt, gen in ((SERVE_PROMPT, SERVE_GEN), (WRAP_PROMPT, WRAP_GEN)):
+        text = io.StringIO()
+        reset_all_launches()
+        with contextlib.redirect_stdout(text):
+            res = serve.run(params, cfg, batch=SERVE_BATCH, prompt_len=prompt,
+                            gen=gen, device=dev)
+        launches = all_launch_counts()
+        want_bytes = expected_cache_bytes(cfg, SERVE_BATCH, prompt + gen)
+        lo, vo = res.pop("logits_finite_steps"), res.pop("vt_finite_steps")
+        res["generated"] = res["generated"][0].tolist()
+        run = {**res, "launches": launches, "cache_bytes_expected": want_bytes,
+               "steps": len(lo), "steps_logits_finite": sum(lo),
+               "first_step_vt_nonfinite": next(
+                   (t for t, ok in enumerate(vo) if not ok), None),
+               "printout": text.getvalue().splitlines()}
+        runs.append(run)
+        _expect_launches("lm_serve", launches, 0)
+        if not (res["cache_bytes"] == want_bytes and lo[0]
+                and all(l or not v for l, v in zip(lo, vo))):
+            raise AssertionError(f"lm_serve failed: {json.dumps(run)}")
+    from repro_torch.archs.model import decode_step, init_cache
+
+    cache = init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device=dev)
+    zeros = torch.zeros((SERVE_BATCH,), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        prof = profile_step(lambda: decode_step(params, cfg, cache, zeros,
+                                                zeros))
+    return {"phase": "lm_serve", "window": cfg.window, "runs": runs,
+            "profile_decode_step": prof}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: no src/repro_torch beside this script — run it "
@@ -683,10 +1048,40 @@ def main() -> int:
     for row in rows:  # forward kernels: the serve run; the rest: training
         row["launches"] = serve["launches"].get(row["name"],
                                                 train["launches"][row["name"]])
+
+    # the LM slice: free the FastEGNN phases' tensors first
+    del pipe, plain, scenes
+    torch.cuda.empty_cache()
+    from repro_torch.archs.model import init_arch
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_ARCH)
+    line, swa_row = swa_rows(cfg, dev)
+    emit(line)
+    emit(phase_lm_parity(dev, PARITY_LAYERS, PARITY_S, last_only=False))
+    emit(phase_lm_parity(dev, cfg.n_layers, PREFILL_S, last_only=True))
+    t0 = time.perf_counter()
+    params = init_arch(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    from repro_torch.training.optim import tree_leaves
+
+    emit({"phase": "lm_setup", "arch": cfg.name,
+          "init_s": time.perf_counter() - t0,
+          "param_bytes": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params))})
+    prefill = phase_lm_prefill(params, cfg, dev)
+    emit(prefill)
+    emit(phase_lm_serve(params, cfg, dev))
+    swa_row["launches"] = prefill["launches"]["swa_attention"]
+    rows.append(swa_row)
     print(gpu_line(), flush=True)
+    # every row: the contract's keys; the SWA row also its bound at the f32
+    # rate and its global layer's numbers
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_ms_f32_rate", "global_layer")
+    emit({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

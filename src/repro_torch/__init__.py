@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of FastEGNN: rollout serving and training.
+"""PyTorch + CUDA port of FastEGNN (rollout serving and training) and of
+the LM stack's dense-attention path (gemma3 prefill and decode).
 
 Module paths mirror the JAX package: ``repro_torch.X.Y`` is the
 counterpart of ``repro.X.Y``.  The port imports ``torch`` and numpy only;

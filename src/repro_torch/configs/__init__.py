@@ -1,0 +1,75 @@
+"""Config registry: ``get_arch(name)`` + the assigned input shapes.
+
+Only the two gemma3 configs are ported (dense GQA/SWA blocks with GeGLU
+FFNs, the path whose self-attention runs ``csrc/swa_attention.cu``).  The
+other ids keep their aliases, and :func:`get_arch` raises
+``NotImplementedError`` naming the block kinds that keep them out.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import NamedTuple
+
+from repro_torch.archs.config import ArchConfig
+
+_ARCH_IDS = [
+    "olmoe_1b_7b",
+    "gemma3_12b",
+    "xlstm_125m",
+    "deepseek_v2_lite_16b",
+    "whisper_small",
+    "llama3_405b",
+    "zamba2_1_2b",
+    "llama_3_2_vision_11b",
+    "gemma3_27b",
+    "granite_20b",
+]
+
+# ids whose config is not ported yet → what they need (ROADMAP queue A #10)
+_NOT_PORTED = {
+    "olmoe_1b_7b": "MoE FFNs",
+    "xlstm_125m": "mLSTM/sLSTM blocks",
+    "deepseek_v2_lite_16b": "MLA attention and MoE FFNs",
+    "whisper_small": "the audio encoder and cross-attention",
+    "llama3_405b": "its config module",
+    "zamba2_1_2b": "Mamba2 and shared-attention blocks",
+    "llama_3_2_vision_11b": "image cross-attention",
+    "granite_20b": "its config module",
+}
+
+# canonical dashed ids (CLI) → module names
+ALIASES = {i.replace("_", "-"): i for i in _ARCH_IDS}
+ALIASES.update({i: i for i in _ARCH_IDS})
+# spec-sheet ids
+ALIASES.update({
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+})
+
+ARCH_NAMES = sorted(ALIASES)
+
+
+def get_arch(name: str) -> ArchConfig:
+    mod = ALIASES[name]
+    if mod in _NOT_PORTED:
+        raise NotImplementedError(
+            f"config {name!r} is not ported to repro_torch yet: it needs "
+            f"{_NOT_PORTED[mod]} (ROADMAP queue A #10, the LM stack)")
+    return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
+
+
+class InputShape(NamedTuple):
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

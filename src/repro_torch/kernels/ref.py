@@ -111,3 +111,25 @@ def mmd_cross_ref(x: Tensor, z: Tensor, node_mask: Tensor,
     d2 = ((x[:, None, :] - z[None, :, :]) ** 2).sum(-1)
     k = torch.exp(-d2 / (2.0 * sigma * sigma))
     return (k * node_mask[:, None]).sum()
+
+
+def swa_attention_ref(q: Tensor, k: Tensor, v: Tensor, window: int | None,
+                      causal: bool = True) -> Tensor:
+    """Sliding-window (optionally causal) attention oracle.
+
+    q,k,v: (S, H, D) — single batch; window = number of past positions
+    visible (None = unlimited).  softmax over masked logits, scaled by 1/√D.
+    """
+    s, _, d = q.shape
+    logits = torch.einsum("qhd,khd->hqk", q, k) / torch.sqrt(
+        torch.tensor(float(d), dtype=q.dtype, device=q.device))
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = torch.where(mask[None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("hqk,khd->qhd", p, v)

@@ -11,8 +11,11 @@ parity contract with the reference needs full-precision products.
 Precision contract
 ------------------
 :class:`Precision` is the static ``(compute, accumulate)`` dtype pair.
-The port runs ``'f32'`` only; the kernels raise
-``NotImplementedError`` for ``'bf16'``.
+The FastEGNN path runs ``'f32'`` only: its kernels raise
+``NotImplementedError`` for ``'bf16'`` (:func:`require_f32`).  The LM
+path computes in bf16 by default with f32 accumulation: the
+sliding-window attention kernel takes f32 or bf16 inputs and does its
+math in f32.
 """
 from __future__ import annotations
 

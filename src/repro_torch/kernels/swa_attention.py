@@ -1,0 +1,198 @@
+"""Flash causal sliding-window attention: the CUDA kernel's wrapper, its
+plain version and a launch counter.
+
+:func:`attention` takes the transformer's layout, q (B, S, H, D) and k, v
+(B, S, KV, D) with head h reading KV head ``h // (H // KV)``, at positions
+``0 .. S-1``; :func:`swa_attention` keeps the Pallas kernel's (H, S, D)
+signature.  Both compute ``softmax(mask(q kᵀ / √D)) v`` with the mask
+``k ≤ q`` (``causal``) and ``k > q − window`` (``window`` not None), f32
+inside, the output in the input dtype.  For CUDA tensors they launch
+``csrc/swa_attention.cu`` (which replaces the JAX package's Pallas
+``swa_attention``) or raise; for CPU tensors they run
+:func:`chunked_attention`, the port of the JAX package's
+``nn.attention._chunked_attention``.  ``launches`` counts kernel launches.
+
+The kernel takes f32 or bf16, D ∈ {64, 128, 256}, any S ≥ 1, and has no
+backward: it refuses inputs that require grad.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+
+_NEG = -1e30
+SUPPORTED_D = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: launches of the CUDA kernel since :func:`reset_launches`
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    build.common_bind(lib)
+    lib.swa_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    lib.swa_attention_launch.restype = ctypes.c_int
+
+
+def chunked_attention(
+    q: Tensor,  # (B, S, H, D)
+    k: Tensor,  # (B, T, KV, D)
+    v: Tensor,  # (B, T, KV, Dv)
+    q_positions: Tensor,  # (S,)
+    kv_positions: Tensor,  # (T,)
+    *,
+    causal: bool,
+    window: Optional[int],
+    q_chunk: int = 512,
+) -> Tensor:
+    """The kernel's function in plain PyTorch: query chunks of ``q_chunk``
+    rows (one chunk if S is not a multiple), each against every key, the
+    (chunk, T) scores in f32, masked by position.  Returns (B, S, H, Dv) in
+    q's dtype."""
+    b, s, h, d = q.shape
+    t, kv_heads = k.shape[1], k.shape[2]
+    g = h // kv_heads
+    scale = 1.0 / (d ** 0.5)
+    qc = min(q_chunk, s)
+    if s % qc != 0:  # fall back to one chunk for ragged sizes
+        qc = s
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    dv = v.shape[-1]
+    outs = []
+    for c0 in range(0, s, qc):
+        qi = q[:, c0:c0 + qc].to(torch.float32).reshape(b, qc, kv_heads, g, d)
+        qp = q_positions[c0:c0 + qc]
+        logits = torch.einsum("bqkgd,btkd->bkgqt", qi, kf) * scale
+        mask = torch.ones((qc, t), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kv_positions[None, :] <= qp[:, None]
+        if window is not None:
+            mask &= kv_positions[None, :] > qp[:, None] - window
+        logits = torch.where(mask, logits, _NEG)
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkgqt,btkd->bqkgd", p, vf)
+        outs.append(out.to(q.dtype).reshape(b, qc, h, dv))
+    return torch.cat(outs, dim=1)
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int]) -> None:
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"attention takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"need q (B,S,H,D) and k, v (B,S,KV,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, d = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} in batch, length or head width")
+    if h % k.shape[2] != 0:
+        raise ValueError(f"{h} query heads do not group over "
+                         f"{k.shape[2]} KV heads")
+    if s < 1:
+        raise ValueError("attention needs S >= 1")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def _require_contiguous(q: Tensor, k: Tensor, v: Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"the SWA attention kernel needs a contiguous "
+                             f"{name}")
+
+
+def _launch(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor, causal: bool,
+            window: Optional[int]) -> None:
+    """Launch the kernel on (B, S, H, D) / (B, S, KV, D) views whose
+    strides it reads; ``out4`` has q's strides."""
+    global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q4, k4, v4)):
+        raise RuntimeError("the SWA attention kernel has no backward: run "
+                           "it under torch.no_grad()")
+    b, s, h, d = q4.shape
+    if d not in SUPPORTED_D:
+        raise ValueError(f"the SWA attention kernel takes D in "
+                         f"{SUPPORTED_D}, got {d}")
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h} exceeds the kernel's grid")
+    if out4.stride() != q4.stride() or v4.stride() != k4.stride():
+        raise ValueError("o must share q's strides and v k's")
+    for name, t in (("q", q4), ("k", k4), ("v", v4), ("o", out4)):
+        if (t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(f"the SWA attention kernel needs {name} with a "
+                             f"contiguous last dim, strides in multiples of "
+                             f"4 elements and a 16-byte aligned start")
+    lib = build.load("swa_attention", _bind)
+    err = lib.swa_attention_launch(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
+        _DTYPE_CODE[q4.dtype], b, s, h, k4.shape[2], d, *q4.stride()[:3],
+        *k4.stride()[:3], int(causal), 0 if window is None else int(window),
+        1.0 / (d ** 0.5), build.stream_ptr(q4.device))
+    build.check(lib, err, "swa_attention")
+    launches += 1
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+              window: Optional[int] = None, q_chunk: int = 512) -> Tensor:
+    """Self-attention of q (B, S, H, D) over k, v (B, S, KV, D) at
+    positions 0 .. S-1 → (B, S, H, D) in q's dtype.
+
+    CUDA tensors launch the kernel (contiguous inputs) or raise; CPU
+    tensors run :func:`chunked_attention` with ``q_chunk``.
+    """
+    _check(q, k, v, window)
+    if q.device.type != "cuda":
+        pos = torch.arange(q.shape[1], device=q.device)
+        return chunked_attention(q, k, v, pos, pos, causal=causal,
+                                 window=window, q_chunk=q_chunk)
+    _require_contiguous(q, k, v)
+    out = torch.empty_like(q)
+    _launch(q, k, v, out, causal, window)
+    return out
+
+
+def swa_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                  window: Optional[int] = None) -> Tensor:
+    """q/k/v: (H, S, D) → (H, S, D), the Pallas kernel's signature (its
+    oracle ``ref.swa_attention_ref`` takes (S, H, D)).
+
+    CUDA tensors launch the same kernel as :func:`attention`, reading the
+    (H, S, D) layout through strides (contiguous inputs), or raise; CPU
+    tensors run :func:`chunked_attention`.
+    """
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"need q, k, v of one shape (H, S, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    as4 = lambda t: t.permute(1, 0, 2).unsqueeze(0)  # (1, S, H, D) view
+    q4, k4, v4 = as4(q), as4(k), as4(v)
+    _check(q4, k4, v4, window)
+    if q.device.type != "cuda":
+        pos = torch.arange(q.shape[1], device=q.device)
+        out = chunked_attention(q4, k4, v4, pos, pos, causal=causal,
+                                window=window)
+        return out[0].permute(1, 0, 2).contiguous()
+    _require_contiguous(q, k, v)
+    out = torch.empty_like(q)
+    _launch(q4, k4, v4, as4(out), causal, window)
+    return out

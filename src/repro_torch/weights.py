@@ -1,8 +1,9 @@
 """Weight interchange with the JAX package.
 
 The reference keeps parameters as a pytree of nested dicts and lists
-(``embed``, ``s_init``, ``layers[i].phi1[0].w``, …); the port keeps the
-same structure with ``torch.Tensor`` leaves.
+(FastEGNN's ``embed``, ``s_init``, ``layers[i].phi1[0].w``, …; the LM's
+``embed``, ``final_norm.scale``, ``layers[i].attn.wq``, ``vt[i].w_read``,
+…); the port keeps the same structure with ``torch.Tensor`` leaves.
 
 * :func:`params_from_jax` converts such a tree with numpy (or any
   array-like) leaves — how the parity tests share weights;
@@ -18,21 +19,23 @@ import torch
 from repro_torch.kernels.runtime import resolve_device
 
 
-def _convert(tree, device):
+def _convert(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _convert(v, device) for k, v in tree.items()}
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_convert(v, device) for v in tree]
-    arr = np.asarray(tree)
+        return [_convert(v, device, dtype) for v in tree]
+    arr = np.ascontiguousarray(np.asarray(tree))
     if np.issubdtype(arr.dtype, np.floating):
-        arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+    return torch.from_numpy(arr).to(device)
 
 
-def params_from_jax(tree, *, device=None):
-    """Reference parameter pytree (array-like leaves) → the port's tree of
-    float32 tensors on ``device`` (default CUDA)."""
-    return _convert(tree, resolve_device(device))
+def params_from_jax(tree, *, device=None, dtype=torch.float32):
+    """Reference parameter pytree (array-like leaves) → the port's tree on
+    ``device`` (default CUDA), floating leaves in ``dtype`` (float32 by
+    default; bf16 takes a full-size LM straight to its compute dtype),
+    integer leaves as they are."""
+    return _convert(tree, resolve_device(device), dtype)
 
 
 def _listify(node):

@@ -10,14 +10,18 @@ JAX, so run it there as
 Tolerances: forward values atol 1e-5 / rtol 1e-4 in f32 (kernel and plain
 version sum in different orders); gradients relative to each output's
 largest magnitude, rtol 1e-3 / atol 5e-5 (the reference's own
-``_assert_tree_close``).  Repeated kernel runs must be bitwise equal.
+``_assert_tree_close``); bf16 attention outputs within one bf16 rounding
+of the plain version's.  Repeated kernel runs must be bitwise equal.
 """
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.archs import model as lm_model
+from repro_torch.configs import get_arch
 from repro_torch.core.graph import GeometricGraph
 from repro_torch.core.message_passing import EdgeSpec, edge_pathway
 from repro_torch.core.virtual_nodes import (VirtualState, init_virtual_block,
@@ -25,8 +29,10 @@ from repro_torch.core.virtual_nodes import (VirtualState, init_virtual_block,
 from repro_torch.data.radius_graph import (csr_indptr, csr_sender_perm,
                                            pad_edges, pad_nodes, radius_graph,
                                            sort_edges_by_receiver)
-from repro_torch.kernels import edge_message, mmd_rbf, ops, virtual_message
+from repro_torch.kernels import (edge_message, mmd_rbf, ops, swa_attention,
+                                 virtual_message)
 from repro_torch.models.fast_egnn import FastEGNNConfig, fast_egnn_apply
+from repro_torch.nn.attention import gqa_forward, init_gqa
 from repro_torch.pipeline import build_pipeline
 
 ATOL, RTOL = 1e-5, 1e-4
@@ -383,3 +389,111 @@ def test_model_gradients_kernel_path_match_plain_path_on_card():
     assert edge_message.bwd_launches == 2 and virtual_message.bwd_launches == 2
     assert mmd_rbf.sum_launches == 1 and mmd_rbf.grad_launches == 1
     _assert_grads_match(gk, gk, gr)
+
+
+# ------------------------------------------------- sliding-window attention
+# bf16 outputs: kernel and plain version both compute in f32 and round once,
+# in different summation orders, so they may land one bf16 rounding apart:
+# |k - p| <= 2^-7 |p| (one bf16 ulp at |p|) + 1e-3 (for outputs near 0)
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
+
+
+def _assert_attention_close(got, want):
+    if want.dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        assert bool(torch.all((g - w).abs() <= BF16_ATOL + BF16_RTOL * w.abs()))
+    else:
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def _swa_inputs(b, s, h, kv, d, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda n: torch.randn((b, s, n, d), generator=gen, device="cuda").to(
+        dtype)
+    return r(h), r(kv), r(kv)
+
+
+@needs_cuda
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("window", [None, 64, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("s", [100, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_matches_plain(d, window, causal, group, s, dtype):
+    q, k, v = _swa_inputs(2, s, 2 * group, 2, d, dtype, seed=s + d)
+    pos = torch.arange(s, device="cuda")
+    swa_attention.reset_launches()
+    with torch.no_grad():
+        got = swa_attention.attention(q, k, v, causal=causal, window=window)
+        again = swa_attention.attention(q, k, v, causal=causal, window=window)
+        want = swa_attention.chunked_attention(q, k, v, pos, pos,
+                                               causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert swa_attention.launches == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    _assert_attention_close(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_head_major_signature(dtype):
+    """The Pallas signature (H, S, D) reads its layout through strides."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((4, 200, 128), generator=gen,
+                           device="cuda").to(dtype) for _ in range(3))
+    with torch.no_grad():
+        got = swa_attention.swa_attention(q, k, v, causal=True, window=50)
+        want = swa_attention.swa_attention(q.cpu(), k.cpu(), v.cpu(),
+                                           causal=True, window=50)
+    _assert_attention_close(got.cpu(), want)
+
+
+@needs_cuda
+def test_swa_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = _swa_inputs(1, 64, 2, 2, 32, torch.float32)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="D in"):
+            swa_attention.attention(q, k, v)
+        q, k, v = _swa_inputs(1, 64, 2, 2, 64, torch.float32)
+        with pytest.raises(ValueError, match="is on"):
+            swa_attention.attention(q, k.cpu(), v)
+        with pytest.raises(ValueError, match="contiguous"):
+            swa_attention.attention(q.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        swa_attention.attention(q.requires_grad_(True), k, v)
+    cfg = get_arch("gemma3_12b").reduced()
+    p = init_gqa(torch.Generator(device="cuda").manual_seed(0), cfg.d_model,
+                 cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, device="cuda")
+    x = torch.zeros((1, 8, cfg.d_model), device="cuda")
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="cross"):
+        gqa_forward(p, x, torch.arange(8, device="cuda"), n_heads=cfg.n_heads,
+                    n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, cross_kv=x)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_kv", [4, 2])
+def test_lm_forward_kernel_path_matches_plain_on_card(n_kv):
+    """Reduced gemma3-12b (SWA then global layer) at S = 192 > 2 x window:
+    one launch per layer, logits within 1e-4 of the largest |logit| of the
+    plain attention path; decode launches nothing."""
+    cfg = dataclasses.replace(get_arch("gemma3_12b").reduced(),
+                              n_kv_heads=n_kv)
+    params = lm_model.init_arch(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, device="cuda")
+    tok = torch.randint(0, cfg.vocab, (2, 192), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    swa_attention.reset_launches()
+    with torch.no_grad():
+        got, _ = lm_model.forward(params, cfg, tok, dtype=torch.float32)
+        n = swa_attention.launches
+        want, _ = lm_model.forward(params, cfg, tok, dtype=torch.float32,
+                                   use_kernel=False)
+        cache = lm_model.init_cache(cfg, 2, 8, device="cuda")
+        lm_model.decode_step(params, cfg, cache, tok[:, 0],
+                             torch.zeros(2, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert n == cfg.n_layers and swa_attention.launches == n
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4)
