@@ -41,9 +41,8 @@ weights from seed 0) runs:
 7. lm_parity — gemma3-12b at full width and 6 layers (one 5:1 pattern),
              f32, B = 1, S = 2,048: ``forward`` with the kernel against
              ``forward(use_kernel=False)`` on the card, every logit within
-             1e-4 of the largest, 6 launches.  lm_parity_full: the same at
-             full depth (48 layers) and the prefill's S = 8,192, on the
-             last position's logits, 48 launches.
+             1e-4 of the largest, 6 launches, and a planted fault (the
+             SWA window one too wide) outside that limit.
 8. lm_prefill — gemma3-12b at full width and depth (48 layers), bf16
              weights built on the card, B = 1, S = 8,192: finite logits,
              48 launches, wall time, tokens/s, peak memory, a profile, and
@@ -54,10 +53,21 @@ weights from seed 0) runs:
 9. lm_serve — the port's ``launch/serve.py`` path on the same weights:
              batch 4, prompt 16, 32 greedy tokens, then a run of
              1,000 + 40 tokens so that the SWA ring buffers wrap; cache
-             footprint (exact), tokens/s, 0 kernel launches, and finite
-             logits at every step whose virtual-token state is finite
-             (with random weights that state, as in the reference,
-             overflows after a few steps at this depth).
+             footprint (exact), tokens/s and 0 kernel launches.  The first
+             run's tokens are replayed through ``decode_step``: each
+             generated token is the replay's argmax where logits are
+             finite, logits are finite wherever the virtual-token state
+             is, and that state (with random weights it overflows, as the
+             reference's does) first turns non-finite inside the window
+             the reference shows; tokens/s over the finite steps.
+10. lm_parity_full — the bf16 weights freed, gemma3-12b at full depth in
+             f32 for weight seeds 0 and 1, S = 8,192: the last position's
+             logits of the kernel path against the plain path's within a
+             limit set between these sound readings and a planted fault's
+             (which must exceed it), 48 launches each.
+    lm_decode_f32 — seed 0's f32 weights replay the served tokens: the
+             virtual-token state overflows inside the same window and
+             within one step of the bf16 replay.
 
 Then it prints the card's name and power limit, the per-kernel summary,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA and a checkout
@@ -109,6 +119,21 @@ WRAP_PROMPT, WRAP_GEN = 1000, 40  # prompt + gen > window: the rings wrap
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-3
 # lm_parity (f32): |k - p| <= LOGIT_TOL * max|p| + LOGIT_TOL * |p|
 LOGIT_TOL = 1e-4
+# lm_parity_full (f32, 48 layers, S = 8,192, last position): the kernel
+# path's max|k - p| / max|p| for each weight seed must not exceed
+# FULL_LOGIT_TOL, and the same reading of a planted fault (the SWA window
+# one too wide) must exceed it.  On an H100 the sound readings were 7.1e-5
+# (seed 0) and 3.1e-5 (seed 1), the fault's 0.111: the limit sits near
+# their geometric mean, 42x above the one and 37x below the other.
+FULL_SEEDS = (0, 1)
+FULL_LOGIT_TOL = 3e-3
+# decode with random weights: the virtual-token state (one read added per
+# layer and per step, as in the reference) grows ~10^2.4 a step until it
+# overflows; the JAX reference at 48 layers turns non-finite at step 15 at
+# d_model 256 and 512 over several seeds (tests/test_torch_lm_deep.py).
+# The card's first non-finite step, bf16 and f32, must lie in this window
+# (inclusive), and the two within one step of each other.
+VT_OVERFLOW_STEPS = (13, 16)
 
 
 def emit(obj) -> None:
@@ -826,69 +851,103 @@ def _expect_launches(phase: str, counts: dict, swa: int) -> None:
                              f"{want}")
 
 
-def phase_lm_parity(dev, n_layers: int, seq: int, last_only: bool) -> dict:
-    """gemma3-12b at full width and ``n_layers``, f32, random weights from
-    seed 0: ``forward`` with the kernel against ``use_kernel=False`` on the
-    card, all logits or (``last_only``, to keep the (S, V) logits out of
-    memory) the last position's, elementwise within LOGIT_TOL."""
+def lm_f32_weights(cfg, seed: int, dev):
+    import torch
+
+    from repro_torch.archs.model import init_arch
+
+    return init_arch(torch.Generator(device=dev).manual_seed(seed), cfg,
+                     device=dev, dtype=torch.float32)
+
+
+def parity_reading(params, cfg, tok, last_only: bool, fault: bool) -> dict:
+    """f32 ``forward`` with the kernel against ``use_kernel=False`` on the
+    card: all logits or (``last_only``, to keep the (S, V) logits out of
+    memory) the last position's.  ``fault``: also the kernel path with the
+    SWA layers' window one too wide (a planted off-by-one), against the
+    same plain logits — where a faulty kernel would read."""
     import dataclasses
 
     import torch
 
-    from repro_torch.archs.model import forward, init_arch, lm_head_weights
-    from repro_torch.configs import get_arch
+    from repro_torch.archs.model import forward, lm_head_weights
 
-    full = get_arch(LM_ARCH)
-    cfg = dataclasses.replace(full, n_layers=n_layers,
-                              blocks=full.blocks[:n_layers],
-                              ffns=full.ffns[:n_layers])
-    t0 = time.perf_counter()
-    params = init_arch(torch.Generator(device=dev).manual_seed(0), cfg,
-                       device=dev, dtype=torch.float32)
-    tok = torch.randint(0, cfg.vocab, (1, seq), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(1))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-
-    def run(use_kernel: bool):
-        out, _ = forward(params, cfg, tok, dtype=torch.float32,
+    def run(c, use_kernel: bool):
+        out, _ = forward(params, c, tok, dtype=torch.float32,
                          return_hidden=last_only, use_kernel=use_kernel)
         if last_only:
-            out = out[:, -1] @ lm_head_weights(params, cfg, torch.float32)
+            out = out[:, -1] @ lm_head_weights(params, c, torch.float32)
         return out
 
     with torch.no_grad():
         reset_all_launches()
         t = time.perf_counter()
-        got = run(True)
+        got = run(cfg, True)
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t
         launches = all_launch_counts()
         t = time.perf_counter()
-        want = run(False)
+        want = run(cfg, False)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t
-    scale = float(want.abs().max())
-    d = (got - want).abs()
-    ok = bool(torch.all(d <= LOGIT_TOL * scale + LOGIT_TOL * want.abs()))
-    name = "lm_parity_full" if last_only else "lm_parity"
-    out = {"phase": name, "arch": cfg.name, "layers": n_layers,
-           "pattern": list(cfg.blocks[:6]), "dtype": "float32", "batch": 1,
-           "seq": seq, "compared": "last position" if last_only else "all",
-           "init_s": init_s, "kernel_forward_s": kernel_s,
-           "plain_forward_s": plain_s, "max_abs_err": float(d.max()),
-           "max_abs_logit": scale,
-           "max_err_over_max_logit": float(d.max()) / scale,
-           "rel_l2": float((got - want).norm() / want.norm()),
-           "tolerance": {"atol_x_max": LOGIT_TOL, "rtol": LOGIT_TOL},
-           "within_tol": ok, "finite": bool(torch.isfinite(got).all()),
-           "launches": launches}
-    del params, got, want, d
+        scale = float(want.abs().max())
+        d = (got - want).abs()
+        out = {"kernel_forward_s": kernel_s, "plain_forward_s": plain_s,
+               "max_abs_err": float(d.max()), "max_abs_logit": scale,
+               "max_err_over_max_logit": float(d.max()) / scale,
+               "rel_l2": float((got - want).norm() / want.norm()),
+               "elementwise_within_logit_tol": bool(torch.all(
+                   d <= LOGIT_TOL * scale + LOGIT_TOL * want.abs())),
+               "finite": bool(torch.isfinite(got).all()),
+               "launches": launches}
+        del got, d
+        if fault:
+            wide = dataclasses.replace(cfg, window=cfg.window + 1)
+            bad = run(wide, True)
+            d = (bad - want).abs()
+            out["fault_window_plus_1_max_err_over_max_logit"] = float(
+                d.max()) / scale
+            out["fault_elementwise_within_logit_tol"] = bool(torch.all(
+                d <= LOGIT_TOL * scale + LOGIT_TOL * want.abs()))
+            del bad, d
+        del want
+    return out
+
+
+def phase_lm_parity(dev) -> dict:
+    """gemma3-12b at full width and PARITY_LAYERS (one 5:1 pattern), f32,
+    random weights from seed 0, S = PARITY_S: every logit of the kernel
+    path within LOGIT_TOL of the plain path's (elementwise, against the
+    largest), PARITY_LAYERS launches, and the planted fault outside it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PARITY_LAYERS,
+                              blocks=full.blocks[:PARITY_LAYERS],
+                              ffns=full.ffns[:PARITY_LAYERS])
+    t0 = time.perf_counter()
+    params = lm_f32_weights(cfg, 0, dev)
+    tok = torch.randint(0, cfg.vocab, (1, PARITY_S), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    r = parity_reading(params, cfg, tok, last_only=False, fault=True)
+    del params
     torch.cuda.empty_cache()
-    _expect_launches(name, launches, n_layers)
-    if not (ok and out["finite"]):
-        raise AssertionError(f"{name}: kernel forward differs from the "
-                             f"plain one: {json.dumps(out)}")
+    out = {"phase": "lm_parity", "arch": cfg.name, "layers": PARITY_LAYERS,
+           "pattern": list(cfg.blocks), "dtype": "float32", "batch": 1,
+           "seq": PARITY_S, "compared": "all", "init_s": init_s, **r,
+           "tolerance": {"atol_x_max": LOGIT_TOL, "rtol": LOGIT_TOL}}
+    _expect_launches("lm_parity", r["launches"], PARITY_LAYERS)
+    if not (r["elementwise_within_logit_tol"] and r["finite"]
+            and not r["fault_elementwise_within_logit_tol"]):
+        raise AssertionError(f"lm_parity: kernel forward differs from the "
+                             f"plain one, or the planted fault does not: "
+                             f"{json.dumps(out)}")
     return out
 
 
@@ -970,12 +1029,58 @@ def expected_cache_bytes(cfg, batch: int, cap: int) -> int:
     return total + batch * cfg.n_virtual_tokens * cfg.d_virtual * 2
 
 
-def phase_lm_serve(params, cfg, dev) -> dict:
-    """The port's serve path on the prefill's weights.  With random
-    weights the virtual-token state of ``decode_step`` (a read added per
-    layer and per step, as in the reference) grows until it overflows; the
-    check is that every step whose virtual-token state is finite has finite
-    logits, the first step included."""
+def decode_trace(params, cfg, seq, dtype, dev) -> dict:
+    """Teacher-force ``seq`` (B, T) through ``decode_step`` in ``dtype``
+    from an empty cache of capacity T.  Per step: the greedy token, whether
+    the logits are finite, log10 of the virtual-token state's largest
+    |value| (inf or nan once it is not finite), and the step's time between
+    CUDA events around ``decode_step`` (the host issues the step's ops
+    while the device waits, so this is the step's wall time)."""
+    import math
+
+    import torch
+
+    from repro_torch.archs.model import decode_step, init_cache
+
+    b, steps = seq.shape
+    seq = seq.to(dev)
+    cache = init_cache(cfg, b, steps, dtype=dtype, device=dev)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    greedy, lf, vmax = [], [], []
+    with torch.no_grad():
+        for t in range(steps):
+            ev[t][0].record()
+            logits, cache = decode_step(
+                params, cfg, cache, seq[:, t],
+                torch.full((b,), t, dtype=torch.int32, device=dev),
+                dtype=dtype)
+            ev[t][1].record()
+            greedy.append(torch.argmax(logits, dim=-1))
+            lf.append(torch.isfinite(logits).all())
+            vmax.append(cache.vt.float().abs().amax())
+    torch.cuda.synchronize()
+    vmax = torch.stack(vmax).tolist()
+    vt_finite = [math.isfinite(v) for v in vmax]
+    return {"greedy": torch.stack(greedy, dim=1).cpu(),
+            "logits_finite": torch.stack(lf).tolist(),
+            "vt_finite": vt_finite,
+            "log10_max_vt": [math.log10(v) if f and v > 0 else None
+                             for v, f in zip(vmax, vt_finite)],
+            "first_vt_nonfinite": next(
+                (t for t, f in enumerate(vt_finite) if not f), None),
+            "step_ms": [a.elapsed_time(z) for a, z in ev]}
+
+
+def phase_lm_serve(params, cfg, dev) -> tuple[dict, dict]:
+    """The port's serve path on the prefill's weights: batch 4, prompt 16,
+    32 greedy tokens, then 1,000 + 40 so the SWA rings wrap; exact cache
+    footprint and 0 kernel launches for both.  The first run's prompt and
+    generated tokens are then replayed through ``decode_step``: every
+    generated token must be the replay's argmax where the logits are
+    finite, the logits finite wherever the virtual-token state is, and
+    that state's first non-finite step inside VT_OVERFLOW_STEPS (with
+    random weights it overflows, as the reference's does)."""
     import contextlib
     import io
 
@@ -992,27 +1097,114 @@ def phase_lm_serve(params, cfg, dev) -> dict:
                             gen=gen, device=dev)
         launches = all_launch_counts()
         want_bytes = expected_cache_bytes(cfg, SERVE_BATCH, prompt + gen)
-        lo, vo = res.pop("logits_finite_steps"), res.pop("vt_finite_steps")
-        res["generated"] = res["generated"][0].tolist()
-        run = {**res, "launches": launches, "cache_bytes_expected": want_bytes,
-               "steps": len(lo), "steps_logits_finite": sum(lo),
-               "first_step_vt_nonfinite": next(
-                   (t for t, ok in enumerate(vo) if not ok), None),
-               "printout": text.getvalue().splitlines()}
+        run = {k: v for k, v in res.items() if k not in ("prompt",
+                                                          "generated")}
+        run.update(launches=launches, cache_bytes_expected=want_bytes,
+                   generated_row0=res["generated"][0].tolist(),
+                   printout=text.getvalue().splitlines())
         runs.append(run)
         _expect_launches("lm_serve", launches, 0)
-        if not (res["cache_bytes"] == want_bytes and lo[0]
-                and all(l or not v for l, v in zip(lo, vo))):
-            raise AssertionError(f"lm_serve failed: {json.dumps(run)}")
+        if res["cache_bytes"] != want_bytes:
+            raise AssertionError(f"lm_serve: cache footprint: "
+                                 f"{json.dumps(run)}")
+        if not runs[1:]:
+            seq = torch.cat([res["prompt"], res["generated"]], dim=1)
+    tr = decode_trace(params, cfg, seq, torch.bfloat16, dev)
+    p, steps = SERVE_PROMPT, seq.shape[1]
+    first = tr["first_vt_nonfinite"]
+    lf, vf = tr["logits_finite"], tr["vt_finite"]
+    n_fin = first if first is not None else steps
+    replay = {
+        "steps": steps, "first_vt_nonfinite": first,
+        "steps_logits_finite": sum(lf),
+        "logits_finite_where_vt_finite": all(l or not v
+                                             for l, v in zip(lf, vf)),
+        "generated_match_replay": all(
+            torch.equal(tr["greedy"][:, t], seq[:, t + 1])
+            for t in range(p - 1, steps - 1) if lf[t]),
+        "log10_max_vt": tr["log10_max_vt"],
+        "tokens_per_s_finite_steps": (
+            SERVE_BATCH * n_fin / (sum(tr["step_ms"][:n_fin]) / 1e3)
+            if n_fin else None),
+        "tokens_per_s_all_steps": SERVE_BATCH * steps / (
+            sum(tr["step_ms"]) / 1e3),
+        "step_ms": tr["step_ms"]}
+    out = {"phase": "lm_serve", "window": cfg.window, "runs": runs,
+           "replay_bf16": replay, "vt_overflow_steps": list(VT_OVERFLOW_STEPS)}
+    lo, hi = VT_OVERFLOW_STEPS
+    if not (replay["logits_finite_where_vt_finite"] and lf[0]
+            and replay["generated_match_replay"]
+            and first is not None and lo <= first <= hi):
+        raise AssertionError(f"lm_serve failed: {json.dumps(out)}")
     from repro_torch.archs.model import decode_step, init_cache
 
     cache = init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device=dev)
     zeros = torch.zeros((SERVE_BATCH,), dtype=torch.int32, device=dev)
     with torch.no_grad():
-        prof = profile_step(lambda: decode_step(params, cfg, cache, zeros,
-                                                zeros))
-    return {"phase": "lm_serve", "window": cfg.window, "runs": runs,
-            "profile_decode_step": prof}
+        out["profile_decode_step"] = profile_step(
+            lambda: decode_step(params, cfg, cache, zeros, zeros))
+    return out, {"seq": seq, "first_vt_nonfinite": first}
+
+
+def phase_lm_full_f32(cfg, dev, served) -> tuple[dict, dict]:
+    """gemma3-12b at full width and depth in f32, random weights from each
+    of FULL_SEEDS, S = PREFILL_S: the last position's logits of the kernel
+    path against the plain path's within FULL_LOGIT_TOL of the largest,
+    48 launches, and seed 0's planted fault above that limit.  With seed
+    0's weights (the bf16 model's before rounding) the served sequence is
+    replayed through ``decode_step`` in f32: its virtual-token state must
+    overflow inside VT_OVERFLOW_STEPS and within one step of the bf16
+    replay's."""
+    import torch
+
+    tok = torch.randint(0, cfg.vocab, (1, PREFILL_S), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    seeds, trace = {}, None
+    for seed in FULL_SEEDS:
+        t0 = time.perf_counter()
+        params = lm_f32_weights(cfg, seed, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        r = parity_reading(params, cfg, tok, last_only=True,
+                           fault=seed == FULL_SEEDS[0])
+        seeds[str(seed)] = {"init_s": init_s, **r}
+        if seed == FULL_SEEDS[0]:
+            trace = decode_trace(params, cfg,
+                                 served["seq"][:, :VT_OVERFLOW_STEPS[1] + 1],
+                                 torch.float32, dev)
+        del params
+        torch.cuda.empty_cache()
+    sound = max(r["max_err_over_max_logit"] for r in seeds.values())
+    fault = seeds[str(FULL_SEEDS[0])][
+        "fault_window_plus_1_max_err_over_max_logit"]
+    parity = {"phase": "lm_parity_full", "arch": cfg.name,
+              "layers": cfg.n_layers, "dtype": "float32", "batch": 1,
+              "seq": PREFILL_S, "compared": "last position", "seeds": seeds,
+              "limit_max_err_over_max_logit": FULL_LOGIT_TOL,
+              "sound_max": sound, "fault_reading": fault}
+    first, first_bf16 = trace["first_vt_nonfinite"], served[
+        "first_vt_nonfinite"]
+    lf, vf = trace["logits_finite"], trace["vt_finite"]
+    decode = {"phase": "lm_decode_f32", "arch": cfg.name, "seed": 0,
+              "steps": len(lf), "first_vt_nonfinite": first,
+              "first_vt_nonfinite_bf16": first_bf16,
+              "logits_finite_where_vt_finite": all(l or not v
+                                                   for l, v in zip(lf, vf)),
+              "log10_max_vt": trace["log10_max_vt"],
+              "step_ms": trace["step_ms"],
+              "vt_overflow_steps": list(VT_OVERFLOW_STEPS)}
+    for r in seeds.values():
+        _expect_launches("lm_parity_full", r["launches"], cfg.n_layers)
+    lo, hi = VT_OVERFLOW_STEPS
+    if not (sound <= FULL_LOGIT_TOL < fault
+            and all(r["finite"] for r in seeds.values())):
+        raise AssertionError(f"lm_parity_full: the kernel path is not "
+                             f"within the limit, or the planted fault is: "
+                             f"{json.dumps([parity, decode])}")
+    if not (decode["logits_finite_where_vt_finite"] and first is not None
+            and lo <= first <= hi and abs(first - first_bf16) <= 1):
+        raise AssertionError(f"lm_decode_f32 failed: {json.dumps(decode)}")
+    return parity, decode
 
 
 def main() -> int:
@@ -1058,8 +1250,7 @@ def main() -> int:
     cfg = get_arch(LM_ARCH)
     line, swa_row = swa_rows(cfg, dev)
     emit(line)
-    emit(phase_lm_parity(dev, PARITY_LAYERS, PARITY_S, last_only=False))
-    emit(phase_lm_parity(dev, cfg.n_layers, PREFILL_S, last_only=True))
+    emit(phase_lm_parity(dev))
     t0 = time.perf_counter()
     params = init_arch(torch.Generator(device=dev).manual_seed(0), cfg,
                        device=dev, dtype=torch.bfloat16)
@@ -1072,7 +1263,12 @@ def main() -> int:
                              for t in tree_leaves(params))})
     prefill = phase_lm_prefill(params, cfg, dev)
     emit(prefill)
-    emit(phase_lm_serve(params, cfg, dev))
+    line, served = phase_lm_serve(params, cfg, dev)
+    emit(line)
+    del params
+    torch.cuda.empty_cache()
+    for line in phase_lm_full_f32(cfg, dev, served):
+        emit(line)
     swa_row["launches"] = prefill["launches"]["swa_attention"]
     rows.append(swa_row)
     print(gpu_line(), flush=True)

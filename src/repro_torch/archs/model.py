@@ -126,12 +126,12 @@ def _ffn_apply(lp, kind: str, x: Tensor) -> Tensor:
     return torch.zeros_like(x)
 
 
-def _layer_forward(lp, cfg: ArchConfig, i: int, x: Tensor, positions: Tensor,
+def _layer_forward(lp, cfg: ArchConfig, i: int, x: Tensor,
                    use_kernel: bool) -> Tensor:
     kind = cfg.block_kind(i)
     h = rmsnorm(lp["norm1"], x)
     x = x + attn.gqa_forward(
-        lp["attn"], h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        lp["attn"], h, None, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         d_head=cfg.head_dim, window=cfg.window if kind == SWA else None,
         rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk, use_kernel=use_kernel)
     fk = cfg.ffns[i]
@@ -165,15 +165,13 @@ def forward(
     if audio is not None or images is not None:
         raise NotImplementedError(f"audio / image inputs are not ported {_TODO}")
     params = cast_params(params, dtype)
-    b, s = tokens.shape
+    b = tokens.shape[0]
     x = _embed(params, cfg, tokens, dtype)
-    positions = torch.arange(s, device=tokens.device)
     vt = None
     if cfg.n_virtual_tokens > 0:
         vt = init_vt_state(params["vt"][0], b).to(dtype)
     for i in range(cfg.n_layers):
-        x = _layer_forward(params["layers"][i], cfg, i, x, positions,
-                           use_kernel)
+        x = _layer_forward(params["layers"][i], cfg, i, x, use_kernel)
         if vt is not None:
             x, vt = virtual_token_layer(params["vt"][i], x, vt)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)

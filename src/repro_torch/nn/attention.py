@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import swa_attention as swa_kernel
+from repro_torch.kernels.runtime import resolve_device
 # the kernel's plain version, the port of the reference's chunked attention
 from repro_torch.kernels.swa_attention import \
     chunked_attention as _chunked_attention
@@ -34,7 +35,7 @@ _NEG = -1e30
 # ----------------------------------------------------------------- GQA init
 def init_gqa(gen, d_model: int, n_heads: int, n_kv: int, d_head: int, *,
              device=None, dtype=torch.float32):
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(device=resolve_device(device), dtype=dtype)
     return {
         "wq": dense_init(gen, d_model, n_heads * d_head, **kw),
         "wk": dense_init(gen, d_model, n_kv * d_head, **kw),
@@ -46,7 +47,7 @@ def init_gqa(gen, d_model: int, n_heads: int, n_kv: int, d_head: int, *,
 def gqa_forward(
     p,
     x: Tensor,  # (B, S, d_model)
-    positions: Tensor,  # (S,)
+    positions: Optional[Tensor],  # (S,), or None for 0 .. S-1
     *,
     n_heads: int,
     n_kv: int,
@@ -60,18 +61,27 @@ def gqa_forward(
 ) -> Tensor:
     """Self-attention → (B, S, d_model).
 
-    The kernel masks by index, so on its path ``positions`` must be
-    consecutive (``forward`` passes ``arange(S)``); RoPE reads them as
-    given.  Cross-attention (``cross_kv``) is not ported: it raises.
+    ``positions=None`` means ``0 .. S-1`` (what ``forward`` passes).  The
+    kernel masks by index, so with ``use_kernel`` explicit positions must
+    be ``0 .. S-1`` or it raises (checking them costs a host sync on the
+    card); the plain path masks by the positions given, as the reference
+    does.  Cross-attention (``cross_kv``) is not ported: it raises.
     """
     if cross_kv is not None:
         raise NotImplementedError(
             "cross-attention is not ported (the encoder and cross-attention "
             "wait in ROADMAP queue A #10)")
     b, s, _ = x.shape
-    if positions.shape != (s,):
+    index = torch.arange(s, device=x.device)
+    if positions is None:
+        positions = index
+    elif positions.shape != (s,):
         raise ValueError(f"positions must be (S,) = ({s},), got "
                          f"{tuple(positions.shape)}")
+    elif use_kernel and not torch.equal(positions.to(index), index):
+        raise ValueError("the attention kernel masks by index: positions "
+                         "must be 0 .. S-1 (use_kernel=False masks by "
+                         "positions)")
     q = (x @ p["wq"]).reshape(b, s, n_heads, d_head)
     k = (x @ p["wk"]).reshape(b, s, n_kv, d_head)
     v = (x @ p["wv"]).reshape(b, s, n_kv, d_head)
@@ -98,6 +108,7 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(batch: int, capacity: int, n_kv: int, d_head: int,
                   dtype=torch.bfloat16, *, device=None) -> KVCache:
+    device = resolve_device(device)
     return KVCache(
         k=torch.zeros((batch, capacity, n_kv, d_head), dtype=dtype,
                       device=device),

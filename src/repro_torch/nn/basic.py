@@ -4,12 +4,15 @@ The counterpart of the JAX package's ``nn/basic.py``.  Weights are
 ``(d_in, d_out)`` and applied as ``x @ w``, as there.  Initialisers draw
 from an explicit ``torch.Generator`` on the generator's own device and
 return the leaf on ``device`` in ``dtype`` (so a large model can be built
-straight in bf16 on the card, one leaf at a time).
+straight in bf16 on the card, one leaf at a time).  ``device`` goes through
+``kernels.runtime.resolve_device``: CUDA by default, raising without a GPU.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.runtime import resolve_device
 
 Tensor = torch.Tensor
 
@@ -18,12 +21,12 @@ Tensor = torch.Tensor
 def randn(gen: torch.Generator, shape, *, scale: float = 1.0, device=None,
           dtype=torch.float32) -> Tensor:
     """``scale · N(0, 1)`` of ``shape``: drawn in f32 on ``gen``'s device,
-    returned on ``device`` (default: the generator's) in ``dtype``."""
+    returned on ``device`` (default CUDA) in ``dtype``."""
     t = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
     if scale != 1.0:
         t.mul_(scale)
-    return t.to(device=device or gen.device, dtype=dtype)
+    return t.to(device=resolve_device(device), dtype=dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -36,7 +39,8 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 # ------------------------------------------------------------------- norms
 def init_rmsnorm(d: int, *, device=None, dtype=torch.float32):
     # gemma-style (1 + scale)
-    return {"scale": torch.zeros((d,), device=device, dtype=dtype)}
+    return {"scale": torch.zeros((d,), device=resolve_device(device),
+                                 dtype=dtype)}
 
 
 def rmsnorm(p, x: Tensor, eps: float = 1e-6) -> Tensor:
@@ -50,7 +54,8 @@ def rmsnorm(p, x: Tensor, eps: float = 1e-6) -> Tensor:
 # -------------------------------------------------------------------- RoPE
 def rope_freqs(d_head: int, theta: float = 10000.0, *, device=None) -> Tensor:
     return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
-                                         device=device) / d_head))
+                                         device=resolve_device(device))
+                            / d_head))
 
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:

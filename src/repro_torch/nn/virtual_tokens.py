@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.runtime import resolve_device
 from repro_torch.nn.basic import randn
 
 Tensor = torch.Tensor
@@ -21,7 +22,7 @@ Tensor = torch.Tensor
 
 def init_virtual_tokens(gen, n_channels: int, d_model: int, d_virtual: int, *,
                         device=None, dtype=torch.float32):
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(device=resolve_device(device), dtype=dtype)
     c = n_channels
     return {
         "vt_init": randn(gen, (c, d_virtual), scale=0.02, **kw),

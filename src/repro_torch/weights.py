@@ -19,23 +19,21 @@ import torch
 from repro_torch.kernels.runtime import resolve_device
 
 
-def _convert(tree, device, dtype):
+def _convert(tree, device):
     if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+        return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_convert(v, device, dtype) for v in tree]
-    arr = np.ascontiguousarray(np.asarray(tree))
+        return [_convert(v, device) for v in tree]
+    arr = np.asarray(tree)
     if np.issubdtype(arr.dtype, np.floating):
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
-    return torch.from_numpy(arr).to(device)
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def params_from_jax(tree, *, device=None, dtype=torch.float32):
-    """Reference parameter pytree (array-like leaves) → the port's tree on
-    ``device`` (default CUDA), floating leaves in ``dtype`` (float32 by
-    default; bf16 takes a full-size LM straight to its compute dtype),
-    integer leaves as they are."""
-    return _convert(tree, resolve_device(device), dtype)
+def params_from_jax(tree, *, device=None):
+    """Reference parameter pytree (array-like leaves) → the port's tree of
+    float32 tensors on ``device`` (default CUDA)."""
+    return _convert(tree, resolve_device(device))
 
 
 def _listify(node):

@@ -465,11 +465,27 @@ def test_swa_wrapper_refuses_what_the_kernel_does_not_take():
         swa_attention.attention(q.requires_grad_(True), k, v)
     cfg = get_arch("gemma3_12b").reduced()
     p = init_gqa(torch.Generator(device="cuda").manual_seed(0), cfg.d_model,
-                 cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, device="cuda")
+                 cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     x = torch.zeros((1, 8, cfg.d_model), device="cuda")
     with torch.no_grad(), pytest.raises(NotImplementedError, match="cross"):
         gqa_forward(p, x, torch.arange(8, device="cuda"), n_heads=cfg.n_heads,
                     n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, cross_kv=x)
+
+
+@needs_cuda
+def test_lm_inits_default_to_the_card():
+    """With no ``device`` the LM's weights and caches land on the card,
+    drawn from a CPU generator as from a CUDA one."""
+    cfg = get_arch("gemma3_12b").reduced()
+    for gen in (torch.Generator(), torch.Generator(device="cuda")):
+        params = lm_model.init_arch(gen.manual_seed(0), cfg)
+        leaves = [params["embed"], params["final_norm"]["scale"],
+                  params["layers"][0]["attn"]["wq"],
+                  params["layers"][0]["ffn"]["w_up"], params["vt"][0]["w_read"]]
+        assert all(t.device.type == "cuda" for t in leaves)
+    cache = lm_model.init_cache(cfg, 1, 4)
+    assert cache.vt.device.type == "cuda"
+    assert all(c["kv"].k.device.type == "cuda" for c in cache.layers)
 
 
 @needs_cuda

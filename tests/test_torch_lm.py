@@ -156,6 +156,55 @@ def test_gqa_forward_matches(model, window, use_kernel):
                                rtol=RTOL)
 
 
+def test_gqa_forward_positions(model):
+    """Shifted positions: the plain path masks by them, as the reference
+    does; the kernel path (which masks by index) refuses them."""
+    cfg, _, jp, tp = model
+    x = np.random.default_rng(4).standard_normal(
+        (1, 80, cfg.d_model)).astype(np.float32)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+              window=cfg.window, rope_theta=cfg.rope_theta)
+    pos = 7 + 2 * np.arange(80)
+    want = j_attn.gqa_forward(jp["layers"][0]["attn"], jnp.asarray(x),
+                              jnp.asarray(pos), **kw)
+    got = t_attn.gqa_forward(tp["layers"][0]["attn"], _t(x),
+                             torch.from_numpy(pos), use_kernel=False, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=RTOL)
+    with pytest.raises(ValueError, match="masks by index"):
+        t_attn.gqa_forward(tp["layers"][0]["attn"], _t(x),
+                           torch.from_numpy(pos), **kw)
+    same = t_attn.gqa_forward(tp["layers"][0]["attn"], _t(x), None, **kw)
+    torch.testing.assert_close(same, t_attn.gqa_forward(
+        tp["layers"][0]["attn"], _t(x), torch.arange(80), **kw))
+
+
+_CFG = get_arch("gemma3_12b").reduced()
+_GEN = torch.Generator
+_INITS = {
+    "randn": lambda: t_basic.randn(_GEN(), (2, 3)),
+    "dense_init": lambda: t_basic.dense_init(_GEN(), 4, 8),
+    "init_rmsnorm": lambda: t_basic.init_rmsnorm(8),
+    "rope_freqs": lambda: t_basic.rope_freqs(8),
+    "init_geglu": lambda: t_basic.init_geglu(_GEN(), 4, 8),
+    "init_swiglu": lambda: t_basic.init_swiglu(_GEN(), 4, 8),
+    "init_gqa": lambda: t_attn.init_gqa(_GEN(), 8, 2, 1, 4),
+    "init_kv_cache": lambda: t_attn.init_kv_cache(1, 4, 1, 4),
+    "init_virtual_tokens": lambda: t_vt.init_virtual_tokens(_GEN(), 2, 8, 4),
+    "init_arch": lambda: t_model.init_arch(_GEN(), _CFG),
+    "init_cache": lambda: t_model.init_cache(_CFG, 1, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_INITS))
+def test_lm_inits_default_to_cuda(name, monkeypatch):
+    """With no ``device`` every init asks for the card, and so raises
+    where there is none, as the FastEGNN inits do."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        _INITS[name]()
+
+
 def test_gqa_cross_attention_is_not_ported(model):
     cfg, _, _, tp = model
     x = torch.zeros((1, 8, cfg.d_model))
@@ -193,9 +242,6 @@ def test_init_arch_shapes_match_reference():
     assert tdef == jdef
     assert [tuple(t.shape) for t in tl] == [tuple(a.shape) for a in jl]
     assert all(t.dtype == torch.bfloat16 for t in tl)
-    bf = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu",
-                         dtype=torch.bfloat16)
-    assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(bf))
 
 
 # ------------------------------------------------------------------- forward
@@ -299,9 +345,24 @@ def test_serve_main_on_cpu():
     assert lines[0].startswith("gemma3-12b-smoke: cache footprint")
     assert lines[1].startswith("decoded 22 tokens in")
     assert lines[2].startswith("sample: [")
-    assert res["all_finite"] and res["tokens"] == 22
+    assert res["tokens"] == 22
+    assert tuple(res["prompt"].shape) == (2, 5)
     assert tuple(res["generated"].shape) == (2, 6)
     cfg = get_arch("gemma3-12b").reduced()
     assert res["cache_bytes"] == j_cache_bytes(
         j_model.init_cache(j_get_arch("gemma3-12b").reduced(), 2, 11))
     assert int(res["generated"].max()) < cfg.vocab
+    # the served sequence replayed through decode_step: finite logits at
+    # every step, and each generated token the argmax of the step before
+    params = t_model.init_arch(torch.Generator().manual_seed(0), cfg,
+                               device="cpu", dtype=torch.bfloat16)
+    seq = torch.cat([res["prompt"], res["generated"]], dim=1)
+    cache = t_model.init_cache(cfg, 2, 11, device="cpu")
+    with torch.no_grad():
+        for t in range(10):
+            logits, cache = t_model.decode_step(
+                params, cfg, cache, seq[:, t],
+                torch.full((2,), t, dtype=torch.int32))
+            assert torch.isfinite(logits).all()
+            if t >= 4:
+                assert torch.equal(torch.argmax(logits, dim=-1), seq[:, t + 1])
