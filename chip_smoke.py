@@ -32,20 +32,26 @@ Phases, each printing one JSON line (any failure exits nonzero):
 The FastEGNN tensors are then freed, and the LM slice (gemma3-12b, random
 weights from seed 0) runs:
 
-6. swa_kernel — the sliding-window attention kernel against its plain
-             version (the port of ``_chunked_attention``) at the prefill's
-             shape (B = 1, S = 8,192, 16 heads over 8 KV heads, D = 256),
-             in bf16 and f32, with a bitwise repeat; CUDA-event times of
-             kernel, plain version and the SDPA yardstick for the SWA
-             (window 1,024) and the global (causal) layer.
+6. swa_kernel — both sliding-window attention kernels against their
+             plain version (the port of ``_chunked_attention``) at the
+             prefill's shape (B = 1, S = 8,192, 16 heads over 8 KV heads,
+             D = 256): the bf16 tensor-core kernel (``wgmma`` + TMA) on
+             bf16 inputs, the f32 kernel on f32, each with a bitwise
+             repeat; CUDA-event times of each kernel, the plain version and
+             the SDPA yardstick in its dtype for the SWA (window 1,024) and
+             the global (causal) layer; and a planted fault, the bf16
+             kernel with the window one too wide, which must land outside
+             the bf16 tolerance.
 7. lm_parity — gemma3-12b at full width and 6 layers (one 5:1 pattern),
              f32, B = 1, S = 2,048: ``forward`` with the kernel against
              ``forward(use_kernel=False)`` on the card, every logit within
-             1e-4 of the largest, 6 launches, and a planted fault (the
-             SWA window one too wide) outside that limit.
+             1e-4 of the largest, 6 launches of the f32 kernel, and a
+             planted fault (the SWA window one too wide) outside that
+             limit.
 8. lm_prefill — gemma3-12b at full width and depth (48 layers), bf16
              weights built on the card, B = 1, S = 8,192: finite logits,
-             48 launches, wall time, tokens/s, peak memory, a profile, and
+             48 launches, all of the bf16 tensor-core kernel, wall time,
+             tokens/s, peak memory, a profile, and
              the relative L2 of the last position's logits against a
              plain-attention forward, beside the same for the plain path
              with one weight moved by one bf16 ulp (the model's
@@ -64,7 +70,7 @@ weights from seed 0) runs:
              f32 for weight seeds 0 and 1, S = 8,192: the last position's
              logits of the kernel path against the plain path's within a
              limit set between these sound readings and a planted fault's
-             (which must exceed it), 48 launches each.
+             (which must exceed it), 48 launches of the f32 kernel each.
     lm_decode_f32 — seed 0's f32 weights replay the served tokens: the
              virtual-token state overflows inside the same window and
              within one step of the bf16 replay.
@@ -744,9 +750,14 @@ def visible_pairs(s: int, causal: bool, window) -> int:
     return total
 
 
-def swa_rows(cfg, dev) -> dict:
-    """The SWA kernel at the prefill's shapes: the sliding-window layer
-    (window ``cfg.window``) and the global (causal) layer."""
+def swa_rows(cfg, dev) -> tuple[dict, list]:
+    """Both SWA kernels at the prefill's shapes, the sliding-window layer
+    (window ``cfg.window``) and the global (causal) layer: the bf16
+    tensor-core kernel on bf16 inputs and the f32 kernel on the same
+    values in f32, each against the plain version in its dtype, with a
+    bitwise repeat, and timed beside the plain version and SDPA; then a
+    planted fault, the bf16 kernel with the window one too wide, against
+    the plain version at the true window."""
     import torch
     import torch.nn.functional as F
 
@@ -763,39 +774,44 @@ def swa_rows(cfg, dev) -> dict:
         for name, window in (("swa", cfg.window), ("global", None)):
             out = {"window": window}
             for dt in (torch.bfloat16, torch.float32):
+                tag = "bf16" if dt == torch.bfloat16 else "f32"
                 args = (q.to(dt), k.to(dt), v.to(dt))
-                run = lambda: swa_attention.attention(*args, causal=True,
-                                                      window=window)
+                run = lambda w=window: swa_attention.attention(
+                    *args, causal=True, window=w)
                 plain = lambda: swa_attention.chunked_attention(
                     *args, pos, pos, causal=True, window=window,
                     q_chunk=cfg.q_chunk)
-                got, again = run(), run()
-                cmp = _attention_close(got, plain())
+                got, again, want = run(), run(), plain()
+                cmp = _attention_close(got, want)
                 cmp["bitwise_repeatable"] = torch.equal(got, again)
-                tag = "bf16" if dt == torch.bfloat16 else "f32"
+                if window is not None and dt == torch.bfloat16:
+                    cmp["fault_window_plus_1"] = _attention_close(
+                        run(window + 1), want)
                 out[tag] = cmp
+                del got, again, want
                 out[f"ms_{tag}"] = cuda_ms(run, 10, 2)
-                if dt == torch.bfloat16:
-                    out["plain_ms"] = cuda_ms(plain, 5, 1)
-                    sq, sk, sv = (a.transpose(1, 2) for a in args)
-                    if window is None:
-                        lib = lambda: F.scaled_dot_product_attention(
-                            sq, sk, sv, is_causal=True, enable_gqa=True)
-                    else:
-                        band = (pos[None, :] <= qi) & (pos[None, :]
-                                                       > qi - window)
-                        lib = lambda: F.scaled_dot_product_attention(
-                            sq, sk, sv, attn_mask=band, enable_gqa=True)
-                    out["library_ms"] = cuda_ms(lib, 10, 2)
-                del got, again
+                out[f"plain_ms_{tag}"] = cuda_ms(plain, 5, 1)
+                sq, sk, sv = (a.transpose(1, 2) for a in args)
+                if window is None:
+                    lib = lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, is_causal=True, enable_gqa=True)
+                else:
+                    band = (pos[None, :] <= qi) & (pos[None, :]
+                                                   > qi - window)
+                    lib = lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, attn_mask=band, enable_gqa=True)
+                out[f"library_ms_{tag}"] = cuda_ms(lib, 10, 2)
             pairs = visible_pairs(s, True, window)
             flops = 4 * d * pairs * h * b
-            n_bytes = b * s * (2 * h + 2 * kv) * d * 2  # q, k, v, o in bf16
+            n_bytes = b * s * (2 * h + 2 * kv) * d  # q, k, v, o: elements
             out["pairs_per_head"] = pairs
             out["gflop"] = flops / 1e9
-            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops,
-                                                        BF16_FLOPS)
-            out["bound_ms_f32_rate"] = bound_ms(n_bytes, flops)[0]
+            # bf16 at the tensor-core rate, f32 at the f32 (non-tensor) rate
+            out["bound_ms_bf16"], out["bound_by_bf16"] = bound_ms(
+                2 * n_bytes, flops, BF16_FLOPS)
+            out["bound_ms_f32"], out["bound_by_f32"] = bound_ms(4 * n_bytes,
+                                                                flops)
+            out["speedup_bf16_over_f32"] = out["ms_f32"] / out["ms_bf16"]
             layers[name] = out
     line = {"phase": "swa_kernel",
             "shape": dict(b=b, s=s, h=h, kv=kv, d=d),
@@ -809,18 +825,27 @@ def swa_rows(cfg, dev) -> dict:
                 raise AssertionError(f"SWA kernel ({name}, {tag}) disagrees "
                                      f"with its plain version: "
                                      f"{json.dumps(line)}")
+    if layers["swa"]["bf16"]["fault_window_plus_1"]["within_tol"]:
+        raise AssertionError(f"the planted fault (window + 1) lands inside "
+                             f"the bf16 tolerance: {json.dumps(line)}")
+    rows = []
     swa, glob = layers["swa"], layers["global"]
-    row = dict(name="swa_attention", route="cuda",
-               source="src/repro_torch/csrc/swa_attention.cu",
-               replaces="src/repro/kernels/swa_attention.py:70",
-               max_abs_err=swa["bf16"]["max_abs_err"], ms=swa["ms_bf16"],
-               plain_ms=swa["plain_ms"], bound_ms=swa["bound_ms"],
-               bound_by=swa["bound_by"], library_ms=swa["library_ms"],
-               bound_ms_f32_rate=swa["bound_ms_f32_rate"],
-               global_layer={k: glob[k] for k in (
-                   "ms_bf16", "plain_ms", "library_ms", "bound_ms",
-                   "bound_by", "bound_ms_f32_rate")})
-    return line, row
+    for tag, name, src in (("bf16", "swa_attention", "swa_attention_wgmma"),
+                           ("f32", "swa_attention_f32", "swa_attention")):
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
+            replaces="src/repro/kernels/swa_attention.py:70",
+            max_abs_err=swa[tag]["max_abs_err"], ms=swa[f"ms_{tag}"],
+            plain_ms=swa[f"plain_ms_{tag}"], bound_ms=swa[f"bound_ms_{tag}"],
+            bound_by=swa[f"bound_by_{tag}"],
+            library_ms=swa[f"library_ms_{tag}"],
+            global_layer={
+                "max_abs_err": glob[tag]["max_abs_err"],
+                "ms": glob[f"ms_{tag}"], "plain_ms": glob[f"plain_ms_{tag}"],
+                "library_ms": glob[f"library_ms_{tag}"],
+                "bound_ms": glob[f"bound_ms_{tag}"],
+                "bound_by": glob[f"bound_by_{tag}"]}))
+    return line, rows
 
 
 def all_launch_counts() -> dict:
@@ -833,7 +858,9 @@ def all_launch_counts() -> dict:
             "virtual_pathway_bwd_fused": virtual_message.bwd_launches,
             "mmd_cross_sum": mmd_rbf.sum_launches,
             "mmd_cross_grads": mmd_rbf.grad_launches,
-            "swa_attention": swa_attention.launches}
+            "swa_attention": swa_attention.wgmma_launches,
+            "swa_attention_f32": (swa_attention.launches
+                                  - swa_attention.wgmma_launches)}
 
 
 def reset_all_launches() -> None:
@@ -844,8 +871,12 @@ def reset_all_launches() -> None:
         mod.reset_launches()
 
 
-def _expect_launches(phase: str, counts: dict, swa: int) -> None:
-    want = {k: (swa if k == "swa_attention" else 0) for k in counts}
+def _expect_launches(phase: str, counts: dict, bf16: int = 0,
+                     f32: int = 0) -> None:
+    """Only the SWA kernels launch in the LM phases: ``bf16`` times the
+    tensor-core kernel, ``f32`` times the f32 one."""
+    want = {k: 0 for k in counts}
+    want.update(swa_attention=bf16, swa_attention_f32=f32)
     if counts != want:
         raise AssertionError(f"{phase}: launch counts {counts}, expected "
                              f"{want}")
@@ -942,7 +973,7 @@ def phase_lm_parity(dev) -> dict:
            "pattern": list(cfg.blocks), "dtype": "float32", "batch": 1,
            "seq": PARITY_S, "compared": "all", "init_s": init_s, **r,
            "tolerance": {"atol_x_max": LOGIT_TOL, "rtol": LOGIT_TOL}}
-    _expect_launches("lm_parity", r["launches"], PARITY_LAYERS)
+    _expect_launches("lm_parity", r["launches"], f32=PARITY_LAYERS)
     if not (r["elementwise_within_logit_tol"] and r["finite"]
             and not r["fault_elementwise_within_logit_tol"]):
         raise AssertionError(f"lm_parity: kernel forward differs from the "
@@ -1012,7 +1043,7 @@ def phase_lm_prefill(params, cfg, dev) -> dict:
                    "neither is gated; lm_parity_full holds the kernel to "
                    "the plain path at this depth and length in f32",
            "profile": prof}
-    _expect_launches("lm_prefill", launches, cfg.n_layers)
+    _expect_launches("lm_prefill", launches, bf16=cfg.n_layers)
     if not finite:
         raise AssertionError(f"lm_prefill: non-finite logits: "
                              f"{json.dumps(out)}")
@@ -1103,7 +1134,7 @@ def phase_lm_serve(params, cfg, dev) -> tuple[dict, dict]:
                    generated_row0=res["generated"][0].tolist(),
                    printout=text.getvalue().splitlines())
         runs.append(run)
-        _expect_launches("lm_serve", launches, 0)
+        _expect_launches("lm_serve", launches)
         if res["cache_bytes"] != want_bytes:
             raise AssertionError(f"lm_serve: cache footprint: "
                                  f"{json.dumps(run)}")
@@ -1194,7 +1225,7 @@ def phase_lm_full_f32(cfg, dev, served) -> tuple[dict, dict]:
               "step_ms": trace["step_ms"],
               "vt_overflow_steps": list(VT_OVERFLOW_STEPS)}
     for r in seeds.values():
-        _expect_launches("lm_parity_full", r["launches"], cfg.n_layers)
+        _expect_launches("lm_parity_full", r["launches"], f32=cfg.n_layers)
     lo, hi = VT_OVERFLOW_STEPS
     if not (sound <= FULL_LOGIT_TOL < fault
             and all(r["finite"] for r in seeds.values())):
@@ -1248,7 +1279,7 @@ def main() -> int:
     from repro_torch.configs import get_arch
 
     cfg = get_arch(LM_ARCH)
-    line, swa_row = swa_rows(cfg, dev)
+    line, lm_rows = swa_rows(cfg, dev)
     emit(line)
     emit(phase_lm_parity(dev))
     t0 = time.perf_counter()
@@ -1267,16 +1298,22 @@ def main() -> int:
     emit(line)
     del params
     torch.cuda.empty_cache()
-    for line in phase_lm_full_f32(cfg, dev, served):
-        emit(line)
-    swa_row["launches"] = prefill["launches"]["swa_attention"]
-    rows.append(swa_row)
+    full, decode = phase_lm_full_f32(cfg, dev, served)
+    emit(full)
+    emit(decode)
+    # the bf16 kernel's launches: the bf16 prefill; the f32 kernel's: the
+    # f32 prefill of lm_parity_full (seed 0)
+    swa_bf16, swa_f32 = lm_rows
+    swa_bf16["launches"] = prefill["launches"]["swa_attention"]
+    swa_f32["launches"] = full["seeds"][str(FULL_SEEDS[0])]["launches"][
+        "swa_attention_f32"]
+    rows += lm_rows
     print(gpu_line(), flush=True)
-    # every row: the contract's keys; the SWA row also its bound at the f32
-    # rate and its global layer's numbers
+    # every row: the contract's keys; the SWA rows also their global
+    # layer's numbers
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_ms_f32_rate", "global_layer")
+            "global_layer")
     emit({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,14 +6,16 @@ plain version and a launch counter.
 ``0 .. S-1``; :func:`swa_attention` keeps the Pallas kernel's (H, S, D)
 signature.  Both compute ``softmax(mask(q kᵀ / √D)) v`` with the mask
 ``k ≤ q`` (``causal``) and ``k > q − window`` (``window`` not None), f32
-inside, the output in the input dtype.  For CUDA tensors they launch
-``csrc/swa_attention.cu`` (which replaces the JAX package's Pallas
-``swa_attention``) or raise; for CPU tensors they run
-:func:`chunked_attention`, the port of the JAX package's
-``nn.attention._chunked_attention``.  ``launches`` counts kernel launches.
+inside, the output in the input dtype.  For CUDA tensors they launch one
+of two kernels that replace the JAX package's Pallas ``swa_attention``, or
+raise: bf16 goes to ``csrc/swa_attention_wgmma.cu`` (tensor cores, TMA),
+f32 to ``csrc/swa_attention.cu`` (f32 FMA units).  For CPU tensors they
+run :func:`chunked_attention`, the port of the JAX package's
+``nn.attention._chunked_attention``.  ``launches`` counts the launches of
+both kernels, ``wgmma_launches`` those of the bf16 one.
 
-The kernel takes f32 or bf16, D ∈ {64, 128, 256}, any S ≥ 1, and has no
-backward: it refuses inputs that require grad.
+Both take D ∈ {64, 128, 256} and any S ≥ 1, and have no backward: they
+refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -28,23 +30,30 @@ Tensor = torch.Tensor
 
 _NEG = -1e30
 SUPPORTED_D = (64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel library for each dtype, and the stride (in elements) its
+#: loads need: TMA's 16 bytes for bf16, float4 loads for f32
+KERNELS = {torch.bfloat16: ("swa_attention_wgmma", 8),
+           torch.float32: ("swa_attention", 4)}
 
-#: launches of the CUDA kernel since :func:`reset_launches`
+#: launches of either CUDA kernel since :func:`reset_launches`
 launches = 0
+#: launches of the bf16 tensor-core kernel since :func:`reset_launches`
+wgmma_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, wgmma_launches
+    launches = wgmma_launches = 0
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _bind(lib: ctypes.CDLL, entry: str) -> None:
     build.common_bind(lib)
-    lib.swa_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    lib.swa_attention_launch.restype = ctypes.c_int
+    fn = getattr(lib, entry)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 6
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def chunked_attention(
@@ -94,7 +103,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int]) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in KERNELS:
         raise TypeError(f"attention takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"need q (B,S,H,D) and k, v (B,S,KV,D); got "
@@ -120,36 +129,53 @@ def _require_contiguous(q: Tensor, k: Tensor, v: Tensor) -> None:
                              f"{name}")
 
 
-def _launch(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor, causal: bool,
-            window: Optional[int]) -> None:
-    """Launch the kernel on (B, S, H, D) / (B, S, KV, D) views whose
-    strides it reads; ``out4`` has q's strides."""
-    global launches
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q4, k4, v4)):
-        raise RuntimeError("the SWA attention kernel has no backward: run "
-                           "it under torch.no_grad()")
+def route(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor) -> str:
+    """The kernel library that takes these (B, S, H, D) / (B, S, KV, D)
+    views (``out4`` with q's strides): ``KERNELS[dtype]``, after checking
+    what that kernel needs of D, the grid, strides and alignment; raises
+    ``ValueError`` for what it does not take.  Launches nothing."""
+    name, align = KERNELS[q4.dtype]
     b, s, h, d = q4.shape
     if d not in SUPPORTED_D:
         raise ValueError(f"the SWA attention kernel takes D in "
                          f"{SUPPORTED_D}, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"B * H = {b * h} exceeds the kernel's grid")
+    # grid y: (B * H) for the f32 kernel, 128-query blocks for the bf16 one
+    if (b * h if q4.dtype == torch.float32 else -(-s // 128)) > 65535:
+        raise ValueError(f"B * H = {b * h}, S = {s}: too many blocks for "
+                         f"the {q4.dtype} kernel's grid")
     if out4.stride() != q4.stride() or v4.stride() != k4.stride():
         raise ValueError("o must share q's strides and v k's")
-    for name, t in (("q", q4), ("k", k4), ("v", v4), ("o", out4)):
-        if (t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:3])
+    for t_name, t in (("q", q4), ("k", k4), ("v", v4), ("o", out4)):
+        if (t.stride(-1) != 1 or any(st % align for st in t.stride()[:3])
                 or t.data_ptr() % 16):
-            raise ValueError(f"the SWA attention kernel needs {name} with a "
-                             f"contiguous last dim, strides in multiples of "
-                             f"4 elements and a 16-byte aligned start")
-    lib = build.load("swa_attention", _bind)
-    err = lib.swa_attention_launch(
+            raise ValueError(f"the {q4.dtype} SWA attention kernel needs "
+                             f"{t_name} with a contiguous last dim, strides "
+                             f"in multiples of {align} elements and a "
+                             f"16-byte aligned start")
+    return name
+
+
+def _launch(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor, causal: bool,
+            window: Optional[int]) -> None:
+    """Launch the kernel :func:`route` picks on (B, S, H, D) /
+    (B, S, KV, D) views whose strides it reads."""
+    global launches, wgmma_launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q4, k4, v4)):
+        raise RuntimeError("the SWA attention kernel has no backward: run "
+                           "it under torch.no_grad()")
+    name = route(q4, k4, v4, out4)
+    entry = f"{name}_launch"
+    lib = build.load(name, lambda lib: _bind(lib, entry))
+    b, s, h, d = q4.shape
+    err = getattr(lib, entry)(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
-        _DTYPE_CODE[q4.dtype], b, s, h, k4.shape[2], d, *q4.stride()[:3],
-        *k4.stride()[:3], int(causal), 0 if window is None else int(window),
-        1.0 / (d ** 0.5), build.stream_ptr(q4.device))
-    build.check(lib, err, "swa_attention")
+        b, s, h, k4.shape[2], d, *q4.stride()[:3], *k4.stride()[:3],
+        int(causal), 0 if window is None else int(window), 1.0 / (d ** 0.5),
+        build.stream_ptr(q4.device))
+    build.check(lib, err, name)
     launches += 1
+    if name == "swa_attention_wgmma":
+        wgmma_launches += 1
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -157,8 +183,8 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """Self-attention of q (B, S, H, D) over k, v (B, S, KV, D) at
     positions 0 .. S-1 → (B, S, H, D) in q's dtype.
 
-    CUDA tensors launch the kernel (contiguous inputs) or raise; CPU
-    tensors run :func:`chunked_attention` with ``q_chunk``.
+    CUDA tensors launch the kernel of their dtype (contiguous inputs) or
+    raise; CPU tensors run :func:`chunked_attention` with ``q_chunk``.
     """
     _check(q, k, v, window)
     if q.device.type != "cuda":
@@ -176,7 +202,7 @@ def swa_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """q/k/v: (H, S, D) → (H, S, D), the Pallas kernel's signature (its
     oracle ``ref.swa_attention_ref`` takes (S, H, D)).
 
-    CUDA tensors launch the same kernel as :func:`attention`, reading the
+    CUDA tensors launch the same kernels as :func:`attention`, reading the
     (H, S, D) layout through strides (contiguous inputs), or raise; CPU
     tensors run :func:`chunked_attention`.
     """

@@ -414,13 +414,16 @@ def _swa_inputs(b, s, h, kv, d, dtype, seed=0):
 
 
 @needs_cuda
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("window", [None, 64, 1024])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 2])
-@pytest.mark.parametrize("s", [100, 1024])
+@pytest.mark.parametrize("s", [100, 1000, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_kernel_matches_plain(d, window, causal, group, s, dtype):
+    """S = 100 and 1,000 are multiples of neither the bf16 kernel's 128
+    query rows nor its 64 keys a block.  bf16 launches the tensor-core
+    kernel, f32 the f32 one."""
     q, k, v = _swa_inputs(2, s, 2 * group, 2, d, dtype, seed=s + d)
     pos = torch.arange(s, device="cuda")
     swa_attention.reset_launches()
@@ -431,8 +434,30 @@ def test_swa_kernel_matches_plain(d, window, causal, group, s, dtype):
                                                causal=causal, window=window)
     torch.cuda.synchronize()
     assert swa_attention.launches == 2
+    assert swa_attention.wgmma_launches == (2 if dtype == torch.bfloat16
+                                            else 0)
     assert got.dtype == dtype and torch.equal(got, again)
     _assert_attention_close(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("d", [128, 256])
+def test_swa_bf16_kernel_planted_fault_is_caught(d):
+    """The bf16 kernel with the window one too wide, against the plain
+    version at the true window, lands outside the bound the sound kernel
+    keeps (S = 1,024, window 256)."""
+    s, window = 1024, 256
+    q, k, v = _swa_inputs(1, s, 2, 1, d, torch.bfloat16, seed=14)
+    pos = torch.arange(s, device="cuda")
+    with torch.no_grad():
+        want = swa_attention.chunked_attention(q, k, v, pos, pos,
+                                               causal=True, window=window)
+        good = swa_attention.attention(q, k, v, causal=True, window=window)
+        bad = swa_attention.attention(q, k, v, causal=True,
+                                      window=window + 1)
+    _assert_attention_close(good, want)
+    with pytest.raises(AssertionError):
+        _assert_attention_close(bad, want)
 
 
 @needs_cuda
@@ -489,27 +514,33 @@ def test_lm_inits_default_to_the_card():
 
 
 @needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_kv", [4, 2])
-def test_lm_forward_kernel_path_matches_plain_on_card(n_kv):
+def test_lm_forward_kernel_path_matches_plain_on_card(n_kv, dtype):
     """Reduced gemma3-12b (SWA then global layer) at S = 192 > 2 x window:
-    one launch per layer, logits within 1e-4 of the largest |logit| of the
-    plain attention path; decode launches nothing."""
+    one launch per layer (of the tensor-core kernel in bf16), logits within
+    1e-4 of the largest |logit| of the plain attention path in f32 and
+    within 2e-2 in bf16 (the reference's own bf16 tolerance); decode
+    launches nothing."""
     cfg = dataclasses.replace(get_arch("gemma3_12b").reduced(),
                               n_kv_heads=n_kv)
     params = lm_model.init_arch(torch.Generator(device="cuda").manual_seed(0),
-                                cfg, device="cuda")
+                                cfg, device="cuda", dtype=dtype)
     tok = torch.randint(0, cfg.vocab, (2, 192), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(1))
     swa_attention.reset_launches()
     with torch.no_grad():
-        got, _ = lm_model.forward(params, cfg, tok, dtype=torch.float32)
-        n = swa_attention.launches
-        want, _ = lm_model.forward(params, cfg, tok, dtype=torch.float32,
+        got, _ = lm_model.forward(params, cfg, tok, dtype=dtype)
+        n, n_wgmma = swa_attention.launches, swa_attention.wgmma_launches
+        want, _ = lm_model.forward(params, cfg, tok, dtype=dtype,
                                    use_kernel=False)
         cache = lm_model.init_cache(cfg, 2, 8, device="cuda")
         lm_model.decode_step(params, cfg, cache, tok[:, 0],
                              torch.zeros(2, dtype=torch.int32, device="cuda"))
     torch.cuda.synchronize()
     assert n == cfg.n_layers and swa_attention.launches == n
+    assert n_wgmma == (n if dtype == torch.bfloat16 else 0)
+    got, want = got.float(), want.float()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
     scale = float(want.abs().max())
-    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4)
+    torch.testing.assert_close(got, want, atol=tol * scale, rtol=tol)
