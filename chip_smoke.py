@@ -13,7 +13,13 @@ Phases, each printing one JSON line (any failure exits nonzero):
              plain PyTorch version on the card at the serving shapes
              (N = 8,192 nodes, 8,192 x 32 edge slots of a fluid scene
              built at r + skin, hidden 64, C = 3), with CUDA-event times of
-             kernel and plain version and a bitwise repeat check.
+             kernel and plain version and a bitwise repeat check.  The two
+             backwards also get a planted fault each (one live slot's mask
+             zeroed, one node's mask flipped, in the kernel's call only),
+             which must land outside the gradient tolerance, the device
+             kernels one call launches with their device times
+             (``torch.profiler``), and a second bound at the TF32
+             tensor-core rate (their products run as 3xTF32).
 3. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each.  Checks every frame, the kernel
@@ -113,6 +119,10 @@ SMALL_GRAD = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
 # bf16 tensor-core (f32 accumulate) FLOP/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# TF32 tensor-core peak (dense); the FastEGNN backwards run every 64x64
+# product as three TF32 MMAs (3xTF32), so their tensor-core bound counts
+# 3x the FLOP at this rate
+TF32_FLOPS = 495e12
 # LM slice: gemma3-12b, attention at the prefill's shape
 LM_ARCH = "gemma3_12b"
 PARITY_LAYERS, PARITY_S = 6, 2048
@@ -213,6 +223,29 @@ def bound_ms(n_bytes: float, flops: float,
              peak: float = F32_FLOPS) -> tuple[float, str]:
     t_b, t_f = n_bytes / HBM_BPS, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def device_kernels_per_call(fn) -> tuple:
+    """The device kernels (and copies) that one call of ``fn`` launches,
+    read from ``torch.profiler``: their number and each one's device time
+    in microseconds; ("not measured", {}) if the profiler sees none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    n = sum(e.count for e in events)
+    if not n:
+        return "not measured", {}
+    return n, {e.key[:48]: dev_us(e) for e in events}
 
 
 # ------------------------------------------------------------------ phases
@@ -350,6 +383,10 @@ def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
         if not (row["within_tol"] and row["bitwise_repeatable"]):
             raise AssertionError(f"kernel {row['name']} disagrees with its "
                                  f"plain version: {json.dumps(line)}")
+        if row.get("planted_fault", {}).get("within_tol"):
+            raise AssertionError(f"kernel {row['name']}: the planted fault "
+                                 f"lands inside the tolerance: "
+                                 f"{json.dumps(line)}")
     return line, rows
 
 
@@ -380,9 +417,17 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
     run = lambda: edge_message.edge_pathway_bwd_fused(*eb, **kw)
     plain = lambda: edge_message.edge_pathway_bwd_plain(*e_args, g_dx, g_mh,
                                                         **kw)
-    got, again = run(), run()
-    cmp = compare_grads(got, plain())
+    got, again, want = run(), run(), plain()
+    cmp = compare_grads(got, want)
     cmp["bitwise_repeatable"] = repeat_equal(got, again)
+    # planted fault: one live slot's mask zeroed in the kernel's call only
+    live_slots = torch.nonzero(eb[3][:n_edges]).flatten()
+    em_bad = eb[3].clone()
+    em_bad[live_slots[live_slots.numel() // 2]] = 0.0
+    bad = (*eb[:3], em_bad, *eb[4:])
+    cmp["planted_fault"] = compare_grads(
+        edge_message.edge_pathway_bwd_fused(*bad, **kw), want)
+    del got, again, want
     # reads x, h, the live slots' snd/em/sperm, indptr, sptr, weights, deg
     # and both cotangents once; writes gx, gh and the weight grads
     e_bytes = (n * (3 + hid) * f4 + 3 * n_edges * f4 + 2 * (n + 1) * f4
@@ -394,12 +439,16 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
     # products over the per-node sums of g_pre1)
     e_flops = (live + n) * 6 * 2 * hid * hid
     b_ms, b_by = bound_ms(e_bytes, e_flops)
+    tc_ms, tc_by = bound_ms(e_bytes, 3 * e_flops, TF32_FLOPS)
+    k_n, k_us = device_kernels_per_call(run)
     rows.append(dict(
         name="edge_pathway_bwd_fused", route="cuda",
         source="src/repro_torch/csrc/edge_message_bwd.cu",
         replaces="src/repro/kernels/edge_message.py:661",
         ms=cuda_ms(run), plain_ms=cuda_ms(plain, 10, 2), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=None, bound_3xtf32_ms=tc_ms,
+        bound_3xtf32_by=tc_by, kernels_per_call=k_n, kernels_us=k_us,
+        device_ms=sum(k_us.values()) / 1e3 if k_us else "not measured",
         shapes=dict(n=n, slots=int(snd.shape[0]), n_edges=n_edges,
                     live_edges=live, hidden=hid), **cmp))
     # virtual backward
@@ -409,9 +458,16 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
             torch.randn((c, hid), generator=gen, device=dev))
     run = lambda: virtual_message.virtual_pathway_bwd_fused(*v_args, *cots)
     plain = lambda: virtual_message.virtual_pathway_bwd_plain(*v_args, *cots)
-    got, again = run(), run()
-    cmp = compare_grads(got, plain())
+    got, again, want = run(), run(), plain()
+    cmp = compare_grads(got, want)
     cmp["bitwise_repeatable"] = repeat_equal(got, again)
+    # planted fault: one node's mask flipped in the kernel's call only
+    nm_bad = v_args[3].clone()
+    nm_bad[0] = 1.0 - nm_bad[0]
+    bad = (*v_args[:3], nm_bad, *v_args[4:])
+    cmp["planted_fault"] = compare_grads(
+        virtual_message.virtual_pathway_bwd_fused(*bad, *cots), want)
+    del got, again, want
     w_virt = c * (4 * hid * hid + 7 * hid) * f4
     v_bytes = (n * (3 + hid + 1) * f4 + c * 3 * f4 + w_virt
                + n * (3 + hid) * f4 + c * (3 + hid) * f4
@@ -420,12 +476,16 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
     # cotangents) and four outer products
     v_flops = n * c * 12 * 2 * hid * hid
     b_ms, b_by = bound_ms(v_bytes, v_flops)
+    tc_ms, tc_by = bound_ms(v_bytes, 3 * v_flops, TF32_FLOPS)
+    k_n, k_us = device_kernels_per_call(run)
     rows.append(dict(
         name="virtual_pathway_bwd_fused", route="cuda",
         source="src/repro_torch/csrc/virtual_message_bwd.cu",
         replaces="src/repro/kernels/virtual_message.py:234",
         ms=cuda_ms(run), plain_ms=cuda_ms(plain, 10, 2), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=None, bound_3xtf32_ms=tc_ms,
+        bound_3xtf32_by=tc_by, kernels_per_call=k_n, kernels_us=k_us,
+        device_ms=sum(k_us.values()) / 1e3 if k_us else "not measured",
         shapes=dict(n=n, channels=c, hidden=hid), **cmp))
     # MMD cross sum and gradient over every node (the train phase's mode)
     xs = x.contiguous()
@@ -1313,7 +1373,8 @@ def main() -> int:
     # layer's numbers
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "global_layer")
+            "global_layer", "bound_3xtf32_ms", "kernels_per_call",
+            "device_ms")
     emit({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,178 +1,274 @@
-// Helpers shared by the backward kernels (edge_message_bwd.cu,
+// Tile machinery shared by the backward kernels (edge_message_bwd.cu,
 // virtual_message_bwd.cu).  Header only; each including file gets its own
 // copy inside an anonymous namespace.
 //
-// * tile helpers: a warp holds a tile of TILE = 8 rows (edges or nodes) of a
-//   64-wide vector in a shared buffer laid out [k][t]; lane owns output
-//   columns j = lane and j = lane + 32 of every 64x64 matvec over the tile.
-// * outer_partials / sum_partials: a deterministic two-stage reduction of
-//   sum_i a_i (x) b_i (a 64x64 outer-product sum) and sum_i b_i over the rows
-//   of two row-major (rows x 64) arrays.  Stage one: block b adds rows
-//   [b*OUTER_ROWS, (b+1)*OUTER_ROWS) in row order into a partial of
-//   64*64 + 64 floats (each thread owns a 4x4 sub-block of the matrix);
-//   stage two adds the partials in block order.  No atomics, so the result
-//   depends only on the inputs and OUTER_ROWS, never on scheduling.
+// * A tile is 64 rows (nodes or edge slots) x 64 features of f32 in shared
+//   memory, row-major with an XOR swizzle of 16-byte granules
+//   (`swz`): element (r, c) lives at r*64 + (c ^ h(r)), h(r) =
+//   8 (r & 3) + (r & 4).  With it every fragment load of `tile_mma` --
+//   A or B, plain or transposed -- hits 32 distinct banks, so a matrix and
+//   its transpose are the same 16 KB, read in two layouts.
+// * CTAs have 8 warps.  Warp w owns rows 16 (w & 3) .. +15 and columns
+//   32 (w >> 2) .. +31 of every 64 x 64 product: four m16n8 accumulator
+//   tiles, 16 floats a thread (`Frag`).  Lane (g = lane / 4, t = lane % 4)
+//   holds rows 16 (w & 3) + g (+ 8) and columns 32 (w >> 2) + 8 jn + 2 t
+//   (+ 1) of accumulator tile jn, the layout of mma.m16n8k8.
+// * `tile_mma` runs the products on the tensor cores with
+//   mma.sync.m16n8k8 in TF32, split three ways ("3xTF32"): each operand
+//   a = a_hi + a_lo, both parts cut to TF32 by a bit mask, and
+//   acc += a_lo b_hi + a_hi b_lo + a_hi b_hi.  The dropped a_lo b_lo term
+//   and the cut of a_lo leave ~2^-21 of each product, so the products keep
+//   f32 accuracy (a single TF32 pass keeps ~3 digits and misses the f32
+//   gradient tolerance).  Every sum runs in a fixed order: the MMA's own
+//   k order, k-steps in order, and the butterfly row / column sums below.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int HID = 64;
-constexpr int TILE = 8;
+constexpr int HID = 64;                  // every width of both pathways
+constexpr int TR = 64;                   // rows of a tile
+constexpr int TILE_F = TR * HID;         // floats of a tile
+constexpr int THREADS = 256;             // 8 warps
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int OUTER_ROWS = 512;           // rows per stage-one block
-constexpr int OUTER_W = HID * HID + HID;  // partial: matrix | column sums
-constexpr int OUTER_THREADS = 256;
-constexpr int OUTER_TR = 32;              // rows staged in shared memory
 
-__device__ __forceinline__ float silu(float u) { return u / (1.0f + expf(-u)); }
-
-// d silu(u) / du = s (1 + u (1 - s)), s = sigmoid(u)
-__device__ __forceinline__ float silu_grad(float u) {
-  const float s = 1.0f / (1.0f + expf(-u));
-  return s * (1.0f + u * (1.0f - s));
+// sigmoid with the fast exponential and division (relative error ~1e-6,
+// far inside the gradient tolerance); 0 where exp(-u) overflows
+__device__ __forceinline__ float sigm(float u) {
+  return __fdividef(1.0f, 1.0f + __expf(-u));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-  return v;  // identical bits on every lane
+// silu(u) = u s and d silu / du = s (1 + u (1 - s)), s = sigmoid(u), from
+// one exponential
+__device__ __forceinline__ void silu_both(float u, float& f, float& df) {
+  const float s = sigm(u);
+  f = u * s;
+  df = s * (1.0f + u * (1.0f - s));
 }
 
-// acc{0,1}[t] += sum_k buf[k][t] * W[k][j], j = lane / lane + 32
-__device__ __forceinline__ void tile_matvec(const float* __restrict__ buf,
-                                            const float* __restrict__ W,
-                                            int lane, float* acc0, float* acc1) {
-#pragma unroll 8
-  for (int k = 0; k < HID; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(buf + k * TILE);
-    const float4 b = *reinterpret_cast<const float4*>(buf + k * TILE + 4);
-    const float w0 = W[k * HID + lane];
-    const float w1 = W[k * HID + lane + 32];
-    const float v[TILE] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+// offset of element (r, c) of a swizzled tile
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * HID + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+// this thread's place in the warp tiling of a 64 x 64 product
+struct Lane {
+  int rb, ch, g, t;
+  __device__ __forceinline__ int row(int e) const {
+    return 16 * rb + g + 8 * (e >> 1);
+  }
+  __device__ __forceinline__ int col(int jn, int e) const {
+    return 32 * ch + 8 * jn + 2 * t + (e & 1);
+  }
+};
+
+__device__ __forceinline__ Lane lane_of() {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  return Lane{w & 3, w >> 2, l >> 2, l & 3};
+}
+
+typedef float Frag[4][4];
+
+__device__ __forceinline__ void frag_zero(Frag& a) {
 #pragma unroll
-    for (int t = 0; t < TILE; ++t) {
-      acc0[t] = fmaf(v[t], w0, acc0[t]);
-      acc1[t] = fmaf(v[t], w1, acc1[t]);
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.0f;
+}
+
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t h = __float_as_uint(a) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(a - __uint_as_float(h)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += op(A) . op(B) over k = 0..63 (3xTF32 tensor-core MMAs), with
+// op(A)[m][k] = TA ? A[k][m] : A[m][k] and op(B)[k][n] = TB ? B[n][k] :
+// B[k][n]; A and B are swizzled tiles.
+template <bool TA, bool TB>
+__device__ __forceinline__ void tile_mma(Frag& acc, const float* A,
+                                         const float* B, const Lane& L) {
+  // Offsets hoisted out of the k loop.  Row m & 7 = g for every row this
+  // lane reads as a fixed row (m0, m0 + 8, n0 + 8 jn), and k & 7 = t or
+  // t + 4 for every row it reads at k = kk + t (+ 4), so the swizzle of a
+  // read splits into a per-lane constant and a per-step term: kk ^ (h & 24)
+  // along a fixed row, kk * 64 down a fixed column.
+  const int m0 = 16 * L.rb + L.g, n0 = 32 * L.ch + L.g;
+  const int tk[2] = {L.t, L.t + 4};
+  const int hg = ((L.g & 3) << 3) | (L.g & 4);
+  int a_off[2][2], b_off[4][2];  // [row i or tile jn][k half]
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int ht = ((tk[j] & 3) << 3) | (tk[j] & 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      a_off[i][j] = TA ? tk[j] * HID + ((m0 + 8 * i) ^ ht)
+                       : (m0 + 8 * i) * HID + (tk[j] ^ (hg & 4));
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+      b_off[jn][j] = TB ? (n0 + 8 * jn) * HID + (tk[j] ^ (hg & 4))
+                        : tk[j] * HID + ((n0 + 8 * jn) ^ ht);
+  }
+#pragma unroll 2
+  for (int kk = 0; kk < HID; kk += 8) {
+    const int sa = TA ? kk * HID : (kk ^ (hg & 24));
+    const int sb = TB ? (kk ^ (hg & 24)) : kk * HID;
+    const float av[4] = {A[a_off[0][0] + sa], A[a_off[1][0] + sa],
+                         A[a_off[0][1] + sa], A[a_off[1][1] + sa]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        split_tf32(B[b_off[jn][j] + sb], bh[jn][j], bl[jn][j]);
+    // the three passes in turn over the four accumulator tiles, so that
+    // consecutive MMAs are independent
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) mma_tf32(acc[jn], al, bh[jn]);
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) mma_tf32(acc[jn], ah, bl[jn]);
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) mma_tf32(acc[jn], ah, bh[jn]);
+  }
+}
+
+// tile[r][c] = v at this thread's fragment positions
+__device__ __forceinline__ void frag_store(float* tile, const Frag& v,
+                                           const Lane& L) {
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(tile + swz(L.row(2 * h), L.col(jn, 0))) =
+          make_float2(v[jn][2 * h], v[jn][2 * h + 1]);
+}
+
+// a row-major 64 x 64 matrix in device memory = v (a weight partial)
+__device__ __forceinline__ void frag_store_global(float* dst, const Frag& v,
+                                                  const Lane& L) {
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(dst + L.row(2 * h) * HID + L.col(jn, 0)) =
+          make_float2(v[jn][2 * h], v[jn][2 * h + 1]);
+}
+
+// Row sums over this warp's 32 columns: red[ch * 64 + row] (caller syncs;
+// the row's sum is red[row] + red[64 + row]).
+__device__ __forceinline__ void frag_rowsum(const Frag& v, const Lane& L,
+                                            float* red) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.0f;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) s += v[jn][2 * h] + v[jn][2 * h + 1];
+    s += __shfl_xor_sync(FULL, s, 1);
+    s += __shfl_xor_sync(FULL, s, 2);
+    if (L.t == 0) red[64 * L.ch + L.row(2 * h)] = s;
+  }
+}
+
+// Column sums over this warp's 16 rows: red[rb * 64 + col] (caller syncs;
+// the column's sum is red[col] + red[64 + col] + red[128 + col] +
+// red[192 + col], in that order: `colsum4`).
+__device__ __forceinline__ void frag_colsum(const Frag& v, const Lane& L,
+                                            float* red) {
+#pragma unroll
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = v[jn][e] + v[jn][e + 2];
+      s += __shfl_xor_sync(FULL, s, 4);
+      s += __shfl_xor_sync(FULL, s, 8);
+      s += __shfl_xor_sync(FULL, s, 16);
+      if (L.g == 0) red[64 * L.rb + L.col(jn, e)] = s;
     }
+}
+
+__device__ __forceinline__ float colsum4(const float* red, int j) {
+  return ((red[j] + red[64 + j]) + red[128 + j]) + red[192 + j];
+}
+
+// Fill a swizzled tile from rows of a (rows x 64) array in device memory:
+// tile row i <- src[idx(i)] for i < n_rows with idx(i) >= 0, else zeros.
+// 16-byte loads, 16 threads a row.
+template <typename Idx>
+__device__ __forceinline__ void tile_gather(float* tile, const float* src,
+                                            Idx idx) {
+  for (int f = threadIdx.x; f < TR * HID / 4; f += blockDim.x) {
+    const int i = f >> 4, q = (f & 15) * 4;
+    const int r = idx(i);
+    const float4 v = r >= 0 ? *reinterpret_cast<const float4*>(
+                                  src + (size_t)r * HID + q)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(tile + swz(i, q)) = v;
   }
 }
 
-// buf[j][t] = v{0,1}[t] for this lane's two columns
-__device__ __forceinline__ void tile_store(float* buf, int lane,
-                                           const float* v0, const float* v1) {
-  float4* p0 = reinterpret_cast<float4*>(buf + lane * TILE);
-  float4* p1 = reinterpret_cast<float4*>(buf + (lane + 32) * TILE);
-  p0[0] = make_float4(v0[0], v0[1], v0[2], v0[3]);
-  p0[1] = make_float4(v0[4], v0[5], v0[6], v0[7]);
-  p1[0] = make_float4(v1[0], v1[1], v1[2], v1[3]);
-  p1[1] = make_float4(v1[4], v1[5], v1[6], v1[7]);
-}
-
-// out = buf . W over the tile (zero-initialised accumulators)
-__device__ __forceinline__ void tile_product(float* buf, const float* W,
-                                             int lane, const float* in0,
-                                             const float* in1, float* out0,
-                                             float* out1) {
-#pragma unroll
-  for (int t = 0; t < TILE; ++t) {
-    out0[t] = 0.0f;
-    out1[t] = 0.0f;
-  }
-  __syncwarp();
-  tile_store(buf, lane, in0, in1);
-  __syncwarp();
-  tile_matvec(buf, W, lane, out0, out1);
-}
-
-// Stage one.  Rows i in [0, min(n_rows, *limit)) (limit may be null), row i
-// counted only where mask is null or mask[i] != 0.  A may be null: then
-// only the column sums of B are formed (the matrix part is not written).
-__global__ void __launch_bounds__(OUTER_THREADS)
-outer_partials(const float* __restrict__ A, const float* __restrict__ B,
-               const float* __restrict__ mask, const int* __restrict__ limit,
-               int n_rows, float* __restrict__ part) {
-  __shared__ __align__(16) float sa[OUTER_TR * HID];
-  __shared__ __align__(16) float sb[OUTER_TR * HID];
-  const int tid = threadIdx.x;
-  const int k0 = (tid >> 4) * 4;
-  const int j0 = (tid & 15) * 4;
-  int end = n_rows;
-  if (limit != nullptr) end = min(end, *limit);
-  const int row0 = blockIdx.x * OUTER_ROWS;
-  end = min(end, row0 + OUTER_ROWS);
-  float acc[4][4], cs[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    cs[a] = 0.0f;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-  }
-  for (int base = row0; base < end; base += OUTER_TR) {
-    for (int f = tid; f < OUTER_TR * HID; f += OUTER_THREADS) {
-      const int i = base + f / HID;
-      const int k = f % HID;
-      const bool ok = i < end && (mask == nullptr || mask[i] != 0.0f);
-      sb[f] = ok ? B[(size_t)i * HID + k] : 0.0f;
-      if (A != nullptr) sa[f] = ok ? A[(size_t)i * HID + k] : 0.0f;
-    }
-    __syncthreads();
-    for (int r = 0; r < OUTER_TR; ++r) {
-      const float4 bv = *reinterpret_cast<const float4*>(sb + r * HID + j0);
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int b = 0; b < 4; ++b) cs[b] += b4[b];
-      if (A != nullptr) {
-        const float4 av = *reinterpret_cast<const float4*>(sa + r * HID + k0);
-        const float a4[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(a4[a], b4[b], acc[a][b]);
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.x * OUTER_W;
-  if (A != nullptr) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) out[(k0 + a) * HID + j0 + b] = acc[a][b];
-  }
-  if (k0 == 0) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) out[HID * HID + j0 + b] = cs[b];
+// Asynchronous 16-byte copy of a row-major 64 x 64 matrix into a swizzled
+// tile (cp.async; the caller commits and waits).
+__device__ __forceinline__ void tile_load_async(float* tile, const float* src) {
+  for (int f = threadIdx.x; f < HID * HID / 4; f += blockDim.x) {
+    const int i = f >> 4, q = (f & 15) * 4;
+    const unsigned dst =
+        (unsigned)__cvta_generic_to_shared(tile + swz(i, q));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src + i * HID + q));
   }
 }
 
-// Stage two: dst = sum over blocks 0..n_blocks-1, in order.  mat (64x64)
-// and col (64) may each be null.
-__global__ void sum_partials(const float* __restrict__ part, int n_blocks,
-                             float* __restrict__ mat, float* __restrict__ col) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= OUTER_W) return;
-  float* dst = f < HID * HID ? mat : col;
-  if (dst == nullptr) return;
+__device__ __forceinline__ void vec_load_async(float* dst, const float* src,
+                                               int n) {
+  for (int f = threadIdx.x; f < n; f += blockDim.x) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + f);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src + f));
+  }
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// sum over b < n of src[b * stride], added in b order; eight loads in
+// flight (the last kernels add the CTAs' partials with it)
+__device__ __forceinline__ float sum_strided(const float* __restrict__ src,
+                                             size_t stride, int n) {
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += part[(size_t)b * OUTER_W + f];
-  dst[f < HID * HID ? f : f - HID * HID] = s;
-}
-
-inline int outer_blocks(int n_rows) {
-  return (n_rows + OUTER_ROWS - 1) / OUTER_ROWS;
-}
-
-// Both stages on `stream`; `part` holds outer_blocks(n_rows) partials.
-inline void outer_sum(const float* A, const float* B, const float* mask,
-                      const int* limit, int n_rows, float* part, float* mat,
-                      float* col, cudaStream_t stream) {
-  const int nb = outer_blocks(n_rows);
-  if (nb > 0) {
-    outer_partials<<<nb, OUTER_THREADS, 0, stream>>>(A, B, mask, limit,
-                                                     n_rows, part);
+  int b = 0;
+  for (; b + 8 <= n; b += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = src[(b + u) * stride];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) s += v[u];
   }
-  sum_partials<<<(OUTER_W + 255) / 256, 256, 0, stream>>>(part, nb, mat, col);
+  for (; b < n; ++b) s += src[b * stride];
+  return s;
 }
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+inline size_t round4(size_t v) { return (v + 3) & ~size_t(3); }
 
 }  // namespace

@@ -10,341 +10,582 @@
 // `_edge_bwd_common` does (clip vjp passes only inside [-clamp, clamp],
 // inv1p adds the d kf / d d2 term).
 //
-// Launch sequence (one stream, no atomics, fixed summation orders, so
-// repeated runs are bitwise equal):
-//   1. node_proj      P = h.W1r, Q = h.W1s per node (the forward's
-//                     pre-activation is P_r + Q_s + d2 w1d + b1).
-//   2. recv pass      one warp per receiver row of the CSR layout, live
-//                     slots compacted into 8-edge tiles as in the forward.
-//                     Per edge it recomputes t1, msg, the gate MLP, and
-//                     backpropagates to g_pre1 (64) and g_rel_tot (3).  It
-//                     writes per row G = sum g_pre1, D = sum d2 g_pre1,
-//                     V = sum silu(gp1) g_gate and dx_r, and per live slot
-//                     t1, g_msg, msg, g_gp1, g_pre1 and g_rel_tot.
-//   3. send pass      one warp per sender node walks the sender
-//                     permutation (slots stably sorted by sender) and sums
-//                     the stored g_pre1 / g_rel_tot: S and dx_s.
-//   4. nodes          gh = G.W1r^T + S.W1s^T, gx = dx_r + dx_s.
-//   5. outer sums     the weight grads, each a two-stage block reduction
-//                     (common.cuh): W1r = h^T G (+ b1 = sum G),
-//                     W1s = h^T S, w1d = sum D, W2 = t1^T g_msg (+ b2),
-//                     Wg1 = msg^T g_gp1 (+ bg1), wg2 = sum V.
-// Unlike the TPU kernel's sender pass, which recomputes the chain, the
-// receiver pass stores the per-edge cotangents it needs later (five
-// 64-wide rows per live slot): simpler, and the outer-product sums then
-// run as plain reductions over those rows.
+// Four launches on one stream, no atomics, every sum in an order fixed by
+// the inputs and the CTA count (repeated runs are bitwise equal):
+//   1. node_proj   CTA per 64 nodes: P = h.W1r, Q = h.W1s (the forward's
+//                  pre-activation is P_r + Q_s + d2 w1d + b1), and the
+//                  receiver row of each of their slots.
+//   2. edge pass   `n_blocks` CTAs (fixed by the caller, never by the
+//                  card) split the live slot range [0, indptr[N]) into
+//                  equal index ranges.  A CTA compacts the live slots of
+//                  its range, in slot order, into 64-edge tiles (a
+//                  block-wide ballot scan; a slot's receiver comes from the
+//                  row map node_proj writes, so a row may cross ranges).
+//                  Per tile: gather P[r] + Q[s] + d2 w1d + b1, then as tile
+//                  products t1.W2, msg.Wg1, g_gp1.Wg1^T, g_msg.W2^T and
+//                  the weight partials t1^T g_msg, msg^T g_gp1, kept in
+//                  registers across the CTA's tiles; the column sums (b2,
+//                  bg1, wg2, b1, w1d) likewise.  Per live slot it stores
+//                  only g_pre1 (64 floats) and g_rel (3 + 1 pad).
+//   3. node pass   CTA per 64 nodes: sums each node's receiver segment (G,
+//                  dx_r) in slot order and its sender segment (S, dx_s) in
+//                  `csr_sender_perm` order (8 lanes per node, four rows
+//                  in flight), then gh = G.W1r^T + S.W1s^T and the
+//                  partials h^T G, h^T S as tile products.
+//   4. reduce      adds the edge-pass partials in CTA order, then the
+//                  node-pass partials in CTA order: every weight gradient.
+// All 64 x 64 products run on the tensor cores in 3xTF32 (common.cuh):
+// mma.sync.m16n8k8, the transposes read from the same swizzled tile in the
+// other operand layout.  SiLU, the gate, the clip and the sums run on the
+// FP32 units, one exponential per SiLU and its derivative.  Shared memory:
+// edge pass 6 tiles (2 weights, 3 activations, silu'(pre1)) + row data and
+// the compaction queue, ~111 KB: two CTAs of 8 warps per SM, at most 128
+// registers a thread; node pass 5 tiles, 80 KB.
 //
 // Bound on an H100: per live edge six 64x64 products (recompute .W2 and
 // .Wg1; cotangents through Wg1^T and W2^T; the W2 and Wg1 outer products)
 // and per node six (h.W1r, h.W1s, the W1r/W1s outer products, G.W1r^T,
 // S.W1s^T) -- ~50K FLOP per edge against ~300 bytes of node gathers, far
-// above the f32 ridge, so the function is bound by f32 operations.  This
-// kernel also moves ~1.3 KB per live edge through the stored cotangents.
+// above the f32 ridge, so the function is bound by operations.  The kernel
+// also moves 272 bytes per live edge through g_pre1 / g_rel (written by
+// the edge pass, read twice by the node pass).  On the card the edge pass
+// dominates, and within a tile the six products take about three
+// quarters of the time (tools/phase_trace.py); `wgmma` with the same split is the
+// next step (PERF.md section 6).
 #include "common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;  // warps per CTA of the row passes
-constexpr int SMEM_FLOATS = 4 * HID * HID + 5 * HID + WARPS * HID * TILE;
+// edge-pass partial of one CTA: W2 | Wg1 | b2 | bg1 | wg2 | b1 | w1d
+constexpr int E_W2 = 0, E_WG1 = 4096, E_B2 = 8192, E_BG1 = E_B2 + 64,
+              E_WG2 = E_BG1 + 64, E_B1 = E_WG2 + 64, E_W1D = E_B1 + 64;
+constexpr int PE = E_W1D + 64;
+// node-pass partial of one CTA: W1r | W1s
+constexpr int PN = 2 * HID * HID;
+constexpr int PEND = TR + THREADS;  // compaction queue
+// edge-pass row data (64 each)
+enum { Q_E = 0, Q_REL0, Q_REL1, Q_REL2, Q_D2, Q_INV, Q_U0, Q_U1, Q_U2, Q_GG,
+       Q_GR0, Q_GR1, Q_GR2, Q_GQ2, Q_N };
+constexpr int EDGE_SMEM_FLOATS = 6 * TILE_F + 5 * HID + Q_N * TR + 4 * PEND +
+                                 8 + 2 * TR + 5 * 4 * TR;
+constexpr int NODE_SMEM_FLOATS = 5 * TILE_F;
+constexpr int PROJ_SMEM_FLOATS = 3 * TILE_F;
 
-inline size_t round4(size_t v) { return (v + 3) & ~size_t(3); }
+int n_tiles(int n) { return (n + TR - 1) / TR; }
 
-// P[n][j] = sum_k h[n][k] W1r[k][j], Q likewise with W1s
-__global__ void node_proj(const float* __restrict__ h,
-                          const float* __restrict__ w1r,
-                          const float* __restrict__ w1s, float* __restrict__ P,
-                          float* __restrict__ Q, int n_nodes) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= n_nodes * HID) return;
-  const int n = f / HID, j = f % HID;
-  const float* hn = h + (size_t)n * HID;
-  float p = 0.0f, q = 0.0f;
-  for (int k = 0; k < HID; ++k) {
-    p = fmaf(hn[k], w1r[k * HID + j], p);
-    q = fmaf(hn[k], w1s[k * HID + j], q);
+// P = h.W1r, Q = h.W1s for the CTA's 64 nodes, and rowof[s] = the
+// receiver row of each slot s of their CSR rows
+__global__ void __launch_bounds__(THREADS)
+node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
+          const float* __restrict__ w1s, const int* __restrict__ indptr,
+          float* __restrict__ P, float* __restrict__ Q,
+          int* __restrict__ rowof, int n_nodes) {
+  extern __shared__ float4 smem4[];
+  float* tH = reinterpret_cast<float*>(smem4);
+  float* sWr = tH + TILE_F;
+  float* sWs = sWr + TILE_F;
+  const int node0 = blockIdx.x * TR;
+  tile_gather(tH, h, [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  tile_gather(sWr, w1r, [](int i) { return i; });
+  tile_gather(sWs, w1s, [](int i) { return i; });
+  // the receiver row of every slot of these nodes' CSR rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = warp; k < TR && node0 + k < n_nodes; k += THREADS / 32) {
+    const int i = node0 + k;
+    for (int s = indptr[i] + lane; s < indptr[i + 1]; s += 32) rowof[s] = i;
   }
-  P[f] = p;
-  Q[f] = q;
+  __syncthreads();
+  const Lane L = lane_of();
+  float* dst[2] = {P, Q};
+  const float* W[2] = {sWr, sWs};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    Frag a;
+    frag_zero(a);
+    tile_mma<false, false>(a, tH, W[k], L);
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int i = node0 + L.row(2 * h2);
+        if (i < n_nodes)
+          *reinterpret_cast<float2*>(dst[k] + (size_t)i * HID + L.col(jn, 0)) =
+              make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
+      }
+  }
 }
 
-__global__ void __launch_bounds__(WARPS * 32, 1)
-edge_bwd_recv(const float* __restrict__ x, const int* __restrict__ snd,
-              const float* __restrict__ em, const int* __restrict__ indptr,
-              const float* __restrict__ P, const float* __restrict__ Q,
-              const float* __restrict__ w1d, const float* __restrict__ b1,
-              const float* __restrict__ w2, const float* __restrict__ b2,
-              const float* __restrict__ wg1, const float* __restrict__ bg1,
-              const float* __restrict__ wg2, const float* __restrict__ deg,
-              const float* __restrict__ gdx, const float* __restrict__ gmh,
-              float* __restrict__ G, float* __restrict__ D,
-              float* __restrict__ V, float* __restrict__ dxr,
-              float* __restrict__ T1, float* __restrict__ GMSG,
-              float* __restrict__ MSG, float* __restrict__ GGP1,
-              float* __restrict__ GPRE1, float* __restrict__ GREL,
-              int n_nodes, int gate_mlp, int rel_inv1p, float clamp) {
+__global__ void __launch_bounds__(THREADS, 2)
+edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
+               const float* __restrict__ em, const int* __restrict__ indptr,
+               const int* __restrict__ rowof,
+               const float* __restrict__ P, const float* __restrict__ Q,
+               const float* __restrict__ w1d, const float* __restrict__ b1,
+               const float* __restrict__ w2, const float* __restrict__ b2,
+               const float* __restrict__ wg1, const float* __restrict__ bg1,
+               const float* __restrict__ wg2, const float* __restrict__ deg,
+               const float* __restrict__ gdx, const float* __restrict__ gmh,
+               float* __restrict__ GPRE1, float* __restrict__ GREL,
+               float* __restrict__ part, int n_nodes, int gate_mlp,
+               int rel_inv1p, float clamp) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* sW2 = smem;
-  float* sW2T = sW2 + HID * HID;
-  float* sWg1 = sW2T + HID * HID;
-  float* sWg1T = sWg1 + HID * HID;
-  float* sw1d = sWg1T + HID * HID;
+  float* sWg1 = sW2 + TILE_F;
+  float* tT1 = sWg1 + TILE_F;
+  float* tMSG = tT1 + TILE_F;  // msg, then g_msg
+  float* tGG = tMSG + TILE_F;  // g_gp1, then g_pre1
+  float* tSG = tGG + TILE_F;   // silu'(pre1)
+  float* sw1d = tSG + TILE_F;
   float* sb1 = sw1d + HID;
   float* sb2 = sb1 + HID;
   float* sbg1 = sb2 + HID;
   float* swg2 = sbg1 + HID;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* buf = swg2 + HID + warp * HID * TILE;
+  float* rq = swg2 + HID;  // [Q_N][64]
+  // the compaction queue: slot, receiver, sender and mask of each live slot
+  int* pslot = reinterpret_cast<int*>(rq + Q_N * TR);
+  int* prow = pslot + PEND;
+  int* psnd = prow + PEND;
+  float* pem = reinterpret_cast<float*>(psnd + PEND);
+  int* wcount = reinterpret_cast<int*>(pem + PEND);
+  float* rowred = reinterpret_cast<float*>(wcount + 8);  // [2][64]
+  float* colred = rowred + 2 * TR;  // [5 sums][4][64]
+  auto RQ = [&](int k) { return rq + k * TR; };
 
-  for (int i = tid; i < HID * HID; i += blockDim.x) {
-    const int k = i / HID, j = i % HID;
-    sW2[i] = w2[i];
-    sW2T[i] = w2[j * HID + k];
-    sWg1[i] = gate_mlp ? wg1[i] : 0.0f;
-    sWg1T[i] = gate_mlp ? wg1[j * HID + k] : 0.0f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Lane L = lane_of();
+  tile_gather(sW2, w2, [](int i) { return i; });
+  if (gate_mlp) tile_gather(sWg1, wg1, [](int i) { return i; });
+  if (tid < HID) {
+    sw1d[tid] = w1d[tid];
+    sb1[tid] = b1[tid];
+    sb2[tid] = b2[tid];
+    sbg1[tid] = gate_mlp ? bg1[tid] : 0.0f;
+    swg2[tid] = gate_mlp ? wg2[tid] : 0.0f;
   }
-  for (int i = tid; i < HID; i += blockDim.x) {
-    sw1d[i] = w1d[i];
-    sb1[i] = b1[i];
-    sb2[i] = b2[i];
-    sbg1[i] = gate_mlp ? bg1[i] : 0.0f;
-    swg2[i] = gate_mlp ? wg2[i] : 0.0f;
+  Frag aW2, aWg1;
+  frag_zero(aW2);
+  frag_zero(aWg1);
+  float cb2 = 0.0f, cbg1 = 0.0f, cwg2 = 0.0f, cb1 = 0.0f, cw1d = 0.0f;
+
+  // one tile: the first `cnt` (<= 64) slots of the queue
+  auto tile = [&](int cnt) {
+    if (tid < TR) {
+      const bool live = tid < cnt;
+      const int r = live ? prow[tid] : -1;
+      const int s = live ? psnd[tid] : -1;
+      const float e = live ? pem[tid] : 0.0f;
+      float rel[3] = {0.f, 0.f, 0.f}, u[3] = {0.f, 0.f, 0.f}, d2 = 0.f,
+            inv = 0.f;
+      if (live) {
+        rel[0] = x[3 * r] - x[3 * s];
+        rel[1] = x[3 * r + 1] - x[3 * s + 1];
+        rel[2] = x[3 * r + 2] - x[3 * s + 2];
+        d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
+        inv = 1.0f / fmaxf(deg[r], 1.0f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) u[k] = (gdx[3 * r + k] * inv) * e;
+      }
+      RQ(Q_E)[tid] = e;
+      RQ(Q_INV)[tid] = inv;
+      RQ(Q_D2)[tid] = d2;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        RQ(Q_REL0 + k)[tid] = rel[k];
+        RQ(Q_U0 + k)[tid] = u[k];
+        RQ(Q_GR0 + k)[tid] = 0.0f;
+      }
+      RQ(Q_GQ2)[tid] = 0.0f;
+    }
+    __syncthreads();
+    // pre1 = ((P_r + Q_s) + d2 w1d) + b1 (0 on rows past cnt); t1 =
+    // silu(pre1) into tT1, silu'(pre1) into tSG
+    for (int f = tid; f < TR * HID / 4; f += THREADS) {
+      const int i = f >> 4, q = (f & 15) * 4;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (i < cnt) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            P + (size_t)prow[i] * HID + q);
+        const float4 o = *reinterpret_cast<const float4*>(
+            Q + (size_t)psnd[i] * HID + q);
+        const float d2 = RQ(Q_D2)[i];
+        v[0] = ((p.x + o.x) + d2 * sw1d[q]) + sb1[q];
+        v[1] = ((p.y + o.y) + d2 * sw1d[q + 1]) + sb1[q + 1];
+        v[2] = ((p.z + o.z) + d2 * sw1d[q + 2]) + sb1[q + 2];
+        v[3] = ((p.w + o.w) + d2 * sw1d[q + 3]) + sb1[q + 3];
+      }
+      float t[4], g[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) silu_both(v[k], t[k], g[k]);
+      *reinterpret_cast<float4*>(tT1 + swz(i, q)) =
+          make_float4(t[0], t[1], t[2], t[3]);
+      *reinterpret_cast<float4*>(tSG + swz(i, q)) =
+          make_float4(g[0], g[1], g[2], g[3]);
+    }
+    __syncthreads();
+    {  // msg = t1.W2 + b2
+      Frag m;
+      frag_zero(m);
+      tile_mma<false, false>(m, tT1, sW2, L);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col(jn, e)];
+      frag_store(tMSG, m, L);
+    }
+    __syncthreads();
+    if (gate_mlp) {
+      Frag gp, sv;
+      frag_zero(gp);
+      tile_mma<false, false>(gp, tMSG, sWg1, L);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = L.col(jn, e);
+          gp[jn][e] += sbg1[j];
+          sv[jn][e] = gp[jn][e] * sigm(gp[jn][e]) * swg2[j];
+        }
+      frag_rowsum(sv, L, rowred);
+      __syncthreads();
+      if (tid < TR) {
+        const float gate_pre = rowred[tid] + rowred[TR + tid];
+        const float gate = fminf(fmaxf(gate_pre, -clamp), clamp);
+        const float r0 = RQ(Q_REL0)[tid], r1 = RQ(Q_REL1)[tid],
+                    r2 = RQ(Q_REL2)[tid];
+        const float u0 = RQ(Q_U0)[tid], u1 = RQ(Q_U1)[tid],
+                    u2 = RQ(Q_U2)[tid];
+        float kf = 1.0f, sd = 0.0f;
+        if (rel_inv1p) {
+          sd = sqrtf(RQ(Q_D2)[tid] + 1e-12f);
+          kf = 1.0f / (sd + 1.0f);
+        }
+        float g_gate = u0 * (r0 * kf) + u1 * (r1 * kf) + u2 * (r2 * kf);
+        if (!(gate_pre >= -clamp && gate_pre <= clamp)) g_gate = 0.0f;
+        const float gu0 = u0 * gate, gu1 = u1 * gate, gu2 = u2 * gate;
+        RQ(Q_GG)[tid] = g_gate;
+        if (rel_inv1p) {
+          RQ(Q_GR0)[tid] = gu0 * kf;
+          RQ(Q_GR1)[tid] = gu1 * kf;
+          RQ(Q_GR2)[tid] = gu2 * kf;
+          RQ(Q_GQ2)[tid] = (gu0 * r0 + gu1 * r1 + gu2 * r2) *
+                           (-(kf * kf) / (2.0f * sd));
+        } else {
+          RQ(Q_GR0)[tid] = gu0;
+          RQ(Q_GR1)[tid] = gu1;
+          RQ(Q_GR2)[tid] = gu2;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float g_gate = RQ(Q_GG)[L.row(e)];
+          float sgp, dsgp;
+          silu_both(gp[jn][e], sgp, dsgp);
+          sv[jn][e] = sgp * g_gate;
+          gp[jn][e] = (g_gate * swg2[L.col(jn, e)]) * dsgp;
+        }
+      frag_store(tGG, gp, L);
+      frag_colsum(gp, L, colred);           // bg1
+      frag_colsum(sv, L, colred + 4 * TR);  // wg2
+      __syncthreads();
+      tile_mma<true, false>(aWg1, tMSG, tGG, L);
+    }
+    {  // g_msg = g_mh[r] inv em (+ g_gp1.Wg1^T)
+      Frag gm;
+      frag_zero(gm);
+      if (gate_mlp) tile_mma<false, true>(gm, tGG, sWg1, L);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int i = L.row(2 * h2), j = L.col(jn, 0);
+          if (i < cnt) {
+            const float2 g = *reinterpret_cast<const float2*>(
+                gmh + (size_t)prow[i] * HID + j);
+            const float inv = RQ(Q_INV)[i], e = RQ(Q_E)[i];
+            gm[jn][2 * h2] += (g.x * inv) * e;
+            gm[jn][2 * h2 + 1] += (g.y * inv) * e;
+          }
+        }
+      frag_colsum(gm, L, colred + 8 * TR);  // b2
+      __syncthreads();  // msg and g_gp1 are read
+      frag_store(tMSG, gm, L);
+    }
+    __syncthreads();
+    if (tid < HID) {
+      cb2 += colsum4(colred + 8 * TR, tid);
+      if (gate_mlp) {
+        cbg1 += colsum4(colred, tid);
+        cwg2 += colsum4(colred + 4 * TR, tid);
+      }
+    }
+    tile_mma<true, false>(aW2, tT1, tMSG, L);
+    Frag gp;  // g_pre1 = (g_msg.W2^T) silu'(pre1), into tGG (read above)
+    frag_zero(gp);
+    tile_mma<false, true>(gp, tMSG, sW2, L);
+    {
+      Frag dg, gw;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          gp[jn][e] *= tSG[swz(L.row(e), L.col(jn, e))];
+          dg[jn][e] = RQ(Q_D2)[L.row(e)] * gp[jn][e];
+          gw[jn][e] = gp[jn][e] * sw1d[L.col(jn, e)];
+        }
+      frag_store(tGG, gp, L);
+      frag_rowsum(gw, L, rowred);
+      frag_colsum(gp, L, colred + 12 * TR);  // b1
+      frag_colsum(dg, L, colred + 16 * TR);  // w1d
+    }
+    __syncthreads();
+    if (tid < HID) {
+      cb1 += colsum4(colred + 12 * TR, tid);
+      cw1d += colsum4(colred + 16 * TR, tid);
+    }
+    if (tid < cnt) {  // g_rel = g_r + 2 rel g_d2
+      const float g_d2 = RQ(Q_GQ2)[tid] + (rowred[tid] + rowred[TR + tid]);
+      float4 g;
+      g.x = RQ(Q_GR0)[tid] + 2.0f * RQ(Q_REL0)[tid] * g_d2;
+      g.y = RQ(Q_GR1)[tid] + 2.0f * RQ(Q_REL1)[tid] * g_d2;
+      g.z = RQ(Q_GR2)[tid] + 2.0f * RQ(Q_REL2)[tid] * g_d2;
+      g.w = 0.0f;
+      *reinterpret_cast<float4*>(GREL + (size_t)pslot[tid] * 4) = g;
+    }
+    for (int f = tid; f < TR * HID / 4; f += THREADS) {
+      const int i = f >> 4, q = (f & 15) * 4;
+      if (i < cnt)
+        *reinterpret_cast<float4*>(GPRE1 + (size_t)pslot[i] * HID + q) =
+            *reinterpret_cast<const float4*>(tGG + swz(i, q));
+    }
+    __syncthreads();
+  };
+
+  // this CTA's slot range: an equal share of [0, indptr[N])
+  const int live_end = indptr[n_nodes];
+  const int len = (live_end + gridDim.x - 1) / gridDim.x;
+  const int beg = min((int)blockIdx.x * len, live_end);
+  const int end = min(beg + len, live_end);
+  int cnt = 0;  // queued live slots (the same on every thread)
+  __syncthreads();  // weights in
+  for (int base = beg; base < end; base += THREADS) {
+    const int slot = base + tid;
+    const float e = slot < end ? em[slot] : 0.0f;
+    const bool live = e != 0.0f;
+    const unsigned m = __ballot_sync(FULL, live);
+    if (lane == 0) wcount[warp] = __popc(m);
+    __syncthreads();
+    int off = cnt, total = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      off += w < warp ? wcount[w] : 0;
+      total += wcount[w];
+    }
+    if (live) {
+      const int k = off + __popc(m & ((1u << lane) - 1u));
+      pslot[k] = slot;
+      prow[k] = rowof[slot];
+      psnd[k] = snd[slot];
+      pem[k] = e;
+    }
+    cnt += total;
+    __syncthreads();
+    while (cnt >= TR) {
+      tile(TR);
+      const int rest = cnt - TR;
+      int v0 = 0, v1 = 0, v2 = 0;
+      float v3 = 0.0f;
+      if (tid < rest) {
+        v0 = pslot[TR + tid];
+        v1 = prow[TR + tid];
+        v2 = psnd[TR + tid];
+        v3 = pem[TR + tid];
+      }
+      __syncthreads();
+      if (tid < rest) {
+        pslot[tid] = v0;
+        prow[tid] = v1;
+        psnd[tid] = v2;
+        pem[tid] = v3;
+      }
+      __syncthreads();
+      cnt = rest;
+    }
+  }
+  if (cnt > 0) tile(cnt);
+
+  float* out = part + (size_t)blockIdx.x * PE;
+  frag_store_global(out + E_W2, aW2, L);
+  frag_store_global(out + E_WG1, aWg1, L);
+  if (tid < HID) {
+    out[E_B2 + tid] = cb2;
+    out[E_BG1 + tid] = cbg1;
+    out[E_WG2 + tid] = cwg2;
+    out[E_B1 + tid] = cb1;
+    out[E_W1D + tid] = cw1d;
+  }
+}
+
+// A group of 8 lanes (lane gl owns columns 8 gl .. 8 gl + 7) adds, in p
+// order, the g_pre1 rows of the live slots s(p), p in [p0, p1) -- s(p) = p,
+// or perm[p] -- into acc, and lanes gl < 3 add sign * g_rel[gl] into d.
+// Eight masks are read at once and four rows are in flight.
+template <bool PERM>
+__device__ __forceinline__ void segment_sum(
+    const int* __restrict__ perm, const float* __restrict__ em,
+    const float* __restrict__ GPRE1, const float* __restrict__ GREL, int p0,
+    int p1, int gl, int grp, float sign, float (&acc)[8], float& d) {
+  const unsigned gm = 0xffu << (8 * grp);
+  for (int b = p0; b < p1; b += 8) {
+    const int p = b + gl;
+    const int s = p < p1 ? (PERM ? perm[p] : p) : 0;
+    const bool ok = p < p1 && em[s] != 0.0f;
+    unsigned m = (__ballot_sync(gm, ok) >> (8 * grp)) & 0xffu;
+    while (m) {
+      int sl[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int v = __shfl_sync(gm, s, 8 * grp + (m ? __ffs(m) - 1 : 0));
+        sl[u] = m ? v : -1;
+        m &= m - 1;
+      }
+      float4 v[4][2];
+      float g[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4* row = reinterpret_cast<const float4*>(
+            GPRE1 + (size_t)(sl[u] >= 0 ? sl[u] : 0) * HID + 8 * gl);
+        v[u][0] = sl[u] >= 0 ? row[0] : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[u][1] = sl[u] >= 0 ? row[1] : make_float4(0.f, 0.f, 0.f, 0.f);
+        g[u] = sl[u] >= 0 && gl < 3 ? GREL[(size_t)sl[u] * 4 + gl] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (sl[u] >= 0) {
+          acc[0] += v[u][0].x;
+          acc[1] += v[u][0].y;
+          acc[2] += v[u][0].z;
+          acc[3] += v[u][0].w;
+          acc[4] += v[u][1].x;
+          acc[5] += v[u][1].y;
+          acc[6] += v[u][1].z;
+          acc[7] += v[u][1].w;
+          d += sign * g[u];
+        }
+    }
+  }
+}
+
+// Per node: G = receiver-segment sum of g_pre1 (slot order), S = sender-
+// segment sum (sender-permutation order), gx = dx_r + dx_s; then
+// gh = G.W1r^T + S.W1s^T and the W1r / W1s partials h^T G, h^T S.
+__global__ void __launch_bounds__(THREADS)
+edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
+               const int* __restrict__ indptr, const int* __restrict__ sperm,
+               const int* __restrict__ sptr, const float* __restrict__ w1r,
+               const float* __restrict__ w1s, const float* __restrict__ GPRE1,
+               const float* __restrict__ GREL, float* __restrict__ gx,
+               float* __restrict__ gh, float* __restrict__ part,
+               int n_nodes) {
+  extern __shared__ float4 smem4[];
+  float* sWr = reinterpret_cast<float*>(smem4);
+  float* sWs = sWr + TILE_F;
+  float* tH = sWs + TILE_F;
+  float* tG = tH + TILE_F;
+  float* tS = tG + TILE_F;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int node0 = blockIdx.x * TR;
+  tile_gather(sWr, w1r, [](int i) { return i; });
+  tile_gather(sWs, w1s, [](int i) { return i; });
+  tile_gather(tH, h, [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  // 8 lanes per node, 2 nodes each; lane gl owns columns 8 gl .. + 7
+  const int grp = lane >> 3, gl = lane & 7;
+  for (int k = 0; k < 2; ++k) {
+    const int r = (4 * warp + grp) * 2 + k;
+    const int i = node0 + r;
+    float G[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float S[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float dr = 0.0f, ds = 0.0f;  // lanes gl < 3: component gl
+    if (i < n_nodes) {
+      segment_sum<false>(nullptr, em, GPRE1, GREL, indptr[i], indptr[i + 1],
+                         gl, grp, 1.0f, G, dr);
+      segment_sum<true>(sperm, em, GPRE1, GREL, sptr[i], sptr[i + 1], gl,
+                        grp, -1.0f, S, ds);
+      if (gl < 3) gx[3 * i + gl] = dr + ds;
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      *reinterpret_cast<float4*>(tG + swz(r, 8 * gl + 4 * h2)) = make_float4(
+          G[4 * h2], G[4 * h2 + 1], G[4 * h2 + 2], G[4 * h2 + 3]);
+      *reinterpret_cast<float4*>(tS + swz(r, 8 * gl + 4 * h2)) = make_float4(
+          S[4 * h2], S[4 * h2 + 1], S[4 * h2 + 2], S[4 * h2 + 3]);
+    }
   }
   __syncthreads();
-
-  for (int row = blockIdx.x * WARPS + warp; row < n_nodes;
-       row += gridDim.x * WARPS) {
-    const int beg = indptr[row];
-    const int end = indptr[row + 1];
-    const float inv = 1.0f / fmaxf(deg[row], 1.0f);
-    const float gm0 = gmh[(size_t)row * HID + lane] * inv;
-    const float gm1 = gmh[(size_t)row * HID + lane + 32] * inv;
-    const float gd0 = gdx[3 * row] * inv, gd1 = gdx[3 * row + 1] * inv,
-                gd2 = gdx[3 * row + 2] * inv;
-    const float pr0 = P[(size_t)row * HID + lane];
-    const float pr1 = P[(size_t)row * HID + lane + 32];
-    const float xr0 = x[3 * row], xr1 = x[3 * row + 1], xr2 = x[3 * row + 2];
-    float G0 = 0.0f, G1 = 0.0f, D0 = 0.0f, D1 = 0.0f, V0 = 0.0f, V1 = 0.0f;
-    float dx0 = 0.0f, dx1 = 0.0f, dx2 = 0.0f;
-
-    for (int base = beg; base < end; base += 32) {
-      const int s = base + lane;
-      const float e_l = s < end ? em[s] : 0.0f;
-      const int snd_l = s < end ? snd[s] : 0;
-      unsigned live = __ballot_sync(FULL, e_l != 0.0f);
-      while (live) {  // warp-uniform
-        int ts[TILE], tslot[TILE];
-        float te[TILE];
+  const Lane L = lane_of();
+  Frag a;
+  frag_zero(a);
+  tile_mma<false, true>(a, tG, sWr, L);
+  tile_mma<false, true>(a, tS, sWs, L);
 #pragma unroll
-        for (int t = 0; t < TILE; ++t) {
-          const int b = live ? __ffs(live) - 1 : 0;
-          const float eb = __shfl_sync(FULL, e_l, b);
-          ts[t] = __shfl_sync(FULL, snd_l, b);
-          tslot[t] = base + b;
-          te[t] = live ? eb : 0.0f;
-          live &= live - 1;
-        }
-        float r0[TILE], r1[TILE], r2[TILE], d2[TILE];
-        float pre0[TILE], pre1[TILE], a0[TILE], a1[TILE];
+  for (int jn = 0; jn < 4; ++jn)
 #pragma unroll
-        for (int t = 0; t < TILE; ++t) {
-          const int sn = ts[t];
-          r0[t] = xr0 - x[3 * sn];
-          r1[t] = xr1 - x[3 * sn + 1];
-          r2[t] = xr2 - x[3 * sn + 2];
-          d2[t] = r0[t] * r0[t] + r1[t] * r1[t] + r2[t] * r2[t];
-          const float q0 = te[t] != 0.0f ? Q[(size_t)sn * HID + lane] : 0.0f;
-          const float q1 =
-              te[t] != 0.0f ? Q[(size_t)sn * HID + lane + 32] : 0.0f;
-          pre0[t] = ((pr0 + q0) + d2[t] * sw1d[lane]) + sb1[lane];
-          pre1[t] = ((pr1 + q1) + d2[t] * sw1d[lane + 32]) + sb1[lane + 32];
-          a0[t] = silu(pre0[t]);
-          a1[t] = silu(pre1[t]);
-        }
-        float m0[TILE], m1[TILE];
-        tile_product(buf, sW2, lane, a0, a1, m0, m1);
-        float gg0[TILE], gg1[TILE];  // g_msg
-        float gr0[TILE], gr1[TILE], gr2[TILE], gq2[TILE];  // g_d2 part
-#pragma unroll
-        for (int t = 0; t < TILE; ++t) {
-          m0[t] += sb2[lane];
-          m1[t] += sb2[lane + 32];
-          gg0[t] = gm0 * te[t];
-          gg1[t] = gm1 * te[t];
-          gr0[t] = gr1[t] = gr2[t] = gq2[t] = 0.0f;
-          if (te[t] != 0.0f) {
-            const size_t o = (size_t)tslot[t] * HID;
-            T1[o + lane] = a0[t];
-            T1[o + lane + 32] = a1[t];
-          }
-        }
-        if (gate_mlp) {
-          float p0[TILE], p1[TILE];
-          tile_product(buf, sWg1, lane, m0, m1, p0, p1);
-          float q0[TILE], q1[TILE];  // g_gp1
-#pragma unroll
-          for (int t = 0; t < TILE; ++t) {
-            const float gp0 = p0[t] + sbg1[lane];
-            const float gp1 = p1[t] + sbg1[lane + 32];
-            const float s0 = silu(gp0), s1 = silu(gp1);
-            const float gate_pre = warp_sum(s0 * swg2[lane] + s1 * swg2[lane + 32]);
-            const float gate = fminf(fmaxf(gate_pre, -clamp), clamp);
-            const float u0 = gd0 * te[t], u1 = gd1 * te[t], u2 = gd2 * te[t];
-            float kf = 1.0f, sd = 0.0f;
-            if (rel_inv1p) {
-              sd = sqrtf(d2[t] + 1e-12f);
-              kf = 1.0f / (sd + 1.0f);
-            }
-            const float q0r = r0[t] * kf, q1r = r1[t] * kf, q2r = r2[t] * kf;
-            float g_gate = u0 * q0r + u1 * q1r + u2 * q2r;
-            if (!(gate_pre >= -clamp && gate_pre <= clamp)) g_gate = 0.0f;
-            const float gu0 = u0 * gate, gu1 = u1 * gate, gu2 = u2 * gate;
-            q0[t] = (g_gate * swg2[lane]) * silu_grad(gp0);
-            q1[t] = (g_gate * swg2[lane + 32]) * silu_grad(gp1);
-            if (rel_inv1p) {
-              gr0[t] = gu0 * kf;
-              gr1[t] = gu1 * kf;
-              gr2[t] = gu2 * kf;
-              gq2[t] = (gu0 * r0[t] + gu1 * r1[t] + gu2 * r2[t]) *
-                       (-(kf * kf) / (2.0f * sd));
-            } else {
-              gr0[t] = gu0;
-              gr1[t] = gu1;
-              gr2[t] = gu2;
-            }
-            if (te[t] != 0.0f) {
-              V0 += s0 * g_gate;
-              V1 += s1 * g_gate;
-              const size_t o = (size_t)tslot[t] * HID;
-              MSG[o + lane] = m0[t];
-              MSG[o + lane + 32] = m1[t];
-              GGP1[o + lane] = q0[t];
-              GGP1[o + lane + 32] = q1[t];
-            }
-          }
-          tile_product(buf, sWg1T, lane, q0, q1, p0, p1);
-#pragma unroll
-          for (int t = 0; t < TILE; ++t) {
-            gg0[t] += p0[t];
-            gg1[t] += p1[t];
-          }
-        }
-        float u0[TILE], u1[TILE];
-        tile_product(buf, sW2T, lane, gg0, gg1, u0, u1);
-#pragma unroll
-        for (int t = 0; t < TILE; ++t) {
-          const float gp0 = u0[t] * silu_grad(pre0[t]);
-          const float gp1 = u1[t] * silu_grad(pre1[t]);
-          const float g_d2 =
-              gq2[t] + warp_sum(gp0 * sw1d[lane] + gp1 * sw1d[lane + 32]);
-          const float gt0 = gr0[t] + 2.0f * r0[t] * g_d2;
-          const float gt1 = gr1[t] + 2.0f * r1[t] * g_d2;
-          const float gt2 = gr2[t] + 2.0f * r2[t] * g_d2;
-          if (te[t] != 0.0f) {  // slot order
-            G0 += gp0;
-            G1 += gp1;
-            D0 += d2[t] * gp0;
-            D1 += d2[t] * gp1;
-            dx0 += gt0;
-            dx1 += gt1;
-            dx2 += gt2;
-            const size_t o = (size_t)tslot[t] * HID;
-            GMSG[o + lane] = gg0[t];
-            GMSG[o + lane + 32] = gg1[t];
-            GPRE1[o + lane] = gp0;
-            GPRE1[o + lane + 32] = gp1;
-            if (lane == 0) {
-              GREL[(size_t)tslot[t] * 4] = gt0;
-              GREL[(size_t)tslot[t] * 4 + 1] = gt1;
-              GREL[(size_t)tslot[t] * 4 + 2] = gt2;
-            }
-          }
-        }
-        __syncwarp();
-      }
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int i = node0 + L.row(2 * h2);
+      if (i < n_nodes)
+        *reinterpret_cast<float2*>(gh + (size_t)i * HID + L.col(jn, 0)) =
+            make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
     }
-    const size_t o = (size_t)row * HID;
-    G[o + lane] = G0;
-    G[o + lane + 32] = G1;
-    D[o + lane] = D0;
-    D[o + lane + 32] = D1;
-    V[o + lane] = V0;
-    V[o + lane + 32] = V1;
-    if (lane == 0) {
-      dxr[3 * row] = dx0;
-      dxr[3 * row + 1] = dx1;
-      dxr[3 * row + 2] = dx2;
-    }
-  }
+  float* out = part + (size_t)blockIdx.x * PN;
+  frag_zero(a);
+  tile_mma<true, false>(a, tH, tG, L);
+  frag_store_global(out, a, L);
+  frag_zero(a);
+  tile_mma<true, false>(a, tH, tS, L);
+  frag_store_global(out + HID * HID, a, L);
 }
 
-// S[s] = sum of the stored g_pre1 over the live slots whose sender is s,
-// dxs[s] = -sum of their g_rel_tot, in sender-permutation order
-__global__ void edge_bwd_send(const float* __restrict__ em,
-                              const int* __restrict__ sperm,
-                              const int* __restrict__ sptr,
-                              const float* __restrict__ GPRE1,
-                              const float* __restrict__ GREL,
-                              float* __restrict__ S, float* __restrict__ dxs,
-                              int n_nodes) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int s = blockIdx.x * warps + (threadIdx.x >> 5); s < n_nodes;
-       s += gridDim.x * warps) {
-    float s0 = 0.0f, s1 = 0.0f, d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;
-    for (int k = sptr[s]; k < sptr[s + 1]; ++k) {
-      const int e = sperm[k];
-      if (em[e] != 0.0f) {
-        s0 += GPRE1[(size_t)e * HID + lane];
-        s1 += GPRE1[(size_t)e * HID + lane + 32];
-        d0 -= GREL[(size_t)e * 4];
-        d1 -= GREL[(size_t)e * 4 + 1];
-        d2 -= GREL[(size_t)e * 4 + 2];
-      }
-    }
-    S[(size_t)s * HID + lane] = s0;
-    S[(size_t)s * HID + lane + 32] = s1;
-    if (lane == 0) {
-      dxs[3 * s] = d0;
-      dxs[3 * s + 1] = d1;
-      dxs[3 * s + 2] = d2;
-    }
-  }
-}
+struct Outs {
+  float *gw1r, *gw1s, *gw1d, *gb1, *gw2, *gb2, *gwg1, *gbg1, *gwg2;
+};
 
-// gh[n][j] = sum_k G[n][k] W1r[j][k] + sum_k S[n][k] W1s[j][k];
-// gx = dx_r + dx_s
-__global__ void edge_bwd_nodes(const float* __restrict__ G,
-                               const float* __restrict__ S,
-                               const float* __restrict__ w1r,
-                               const float* __restrict__ w1s,
-                               const float* __restrict__ dxr,
-                               const float* __restrict__ dxs,
-                               float* __restrict__ gh, float* __restrict__ gx,
-                               int n_nodes) {
+// every weight gradient: edge-pass partials in CTA order, then node-pass
+// partials in CTA order
+__global__ void edge_bwd_reduce(const float* __restrict__ pe,
+                                const float* __restrict__ pn, Outs o,
+                                int n_edge_ctas, int n_node_ctas,
+                                int gate_mlp) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= n_nodes * HID) return;
-  const int n = f / HID, j = f % HID;
-  const float* gn = G + (size_t)n * HID;
-  const float* sn = S + (size_t)n * HID;
-  float a = 0.0f, b = 0.0f;
-  for (int k = 0; k < HID; ++k) {
-    a = fmaf(gn[k], w1r[j * HID + k], a);
-    b = fmaf(sn[k], w1s[j * HID + k], b);
+  if (f >= PE + PN) return;
+  if (f < PE) {
+    if (!gate_mlp && f >= E_WG1 && f < E_B1 && !(f >= E_B2 && f < E_BG1))
+      return;  // no gate: the caller's gate grads stay zero
+    const float s = sum_strided(pe + f, PE, n_edge_ctas);
+    if (f < E_WG1) o.gw2[f] = s;
+    else if (f < E_B2) o.gwg1[f - E_WG1] = s;
+    else if (f < E_BG1) o.gb2[f - E_B2] = s;
+    else if (f < E_WG2) o.gbg1[f - E_BG1] = s;
+    else if (f < E_B1) o.gwg2[f - E_WG2] = s;
+    else if (f < E_W1D) o.gb1[f - E_B1] = s;
+    else o.gw1d[f - E_W1D] = s;
+  } else {
+    const int k = f - PE;
+    const float s = sum_strided(pn + k, PN, n_node_ctas);
+    if (k < HID * HID) o.gw1r[k] = s;
+    else o.gw1s[k - HID * HID] = s;
   }
-  gh[f] = a + b;
-  if (j < 3) gx[3 * n + j] = dxr[3 * n + j] + dxs[3 * n + j];
 }
 
 struct Scratch {
-  float *P, *Q, *G, *D, *V, *S, *dxr, *dxs;
-  float *T1, *GMSG, *MSG, *GGP1, *GPRE1, *GREL, *part;
+  float *P, *Q, *GPRE1, *GREL, *pe, *pn;
+  int* rowof;
   size_t total;
 };
 
-Scratch carve(float* base, int n, int e) {
+Scratch carve(float* base, int n, int e, int n_edge_ctas) {
   Scratch s;
   size_t off = 0;
   auto take = [&](size_t count) {
@@ -352,32 +593,22 @@ Scratch carve(float* base, int n, int e) {
     off += round4(count);
     return p;
   };
-  const size_t nh = (size_t)n * HID, eh = (size_t)e * HID;
-  s.P = take(nh);
-  s.Q = take(nh);
-  s.G = take(nh);
-  s.D = take(nh);
-  s.V = take(nh);
-  s.S = take(nh);
-  s.dxr = take((size_t)n * 3);
-  s.dxs = take((size_t)n * 3);
-  s.T1 = take(eh);
-  s.GMSG = take(eh);
-  s.MSG = take(eh);
-  s.GGP1 = take(eh);
-  s.GPRE1 = take(eh);
+  s.P = take((size_t)n * HID);
+  s.Q = take((size_t)n * HID);
+  s.GPRE1 = take((size_t)e * HID);
   s.GREL = take((size_t)e * 4);
-  const int nb = outer_blocks(e) > outer_blocks(n) ? outer_blocks(e)
-                                                   : outer_blocks(n);
-  s.part = take((size_t)nb * OUTER_W);
+  s.rowof = reinterpret_cast<int*>(take((size_t)e));
+  s.pe = take((size_t)n_edge_ctas * PE);
+  s.pn = take((size_t)n_tiles(n) * PN);
   s.total = off;
   return s;
 }
 
 }  // namespace
 
-extern "C" long long edge_bwd_scratch_floats(int n_nodes, int n_slots) {
-  return (long long)carve(nullptr, n_nodes, n_slots).total;
+extern "C" long long edge_bwd_scratch_floats(int n_nodes, int n_slots,
+                                             int n_edge_ctas) {
+  return (long long)carve(nullptr, n_nodes, n_slots, n_edge_ctas).total;
 }
 
 extern "C" int edge_backward(
@@ -391,40 +622,48 @@ extern "C" int edge_backward(
     int n_nodes, int n_slots, int gate_mlp, int rel_inv1p, float clamp,
     int n_blocks, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+  if (!(aligned16(h) && aligned16(w1r) && aligned16(w1s) && aligned16(w2) &&
+        (!gate_mlp || aligned16(wg1)) && aligned16(gmh) && aligned16(gh) &&
+        aligned16(scratch)))
+    return (int)cudaErrorMisalignedAddress;
+  if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  const size_t e_smem = EDGE_SMEM_FLOATS * sizeof(float);
+  const size_t n_smem = NODE_SMEM_FLOATS * sizeof(float);
+  const size_t p_smem = PROJ_SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_bwd_recv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      edge_bwd_edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)e_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(edge_bwd_nodes,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)n_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(node_proj,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p_smem);
   if (err != cudaSuccess) return (int)err;
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots);
-  const int nh_blocks = (n_nodes * HID + 255) / 256;
-  node_proj<<<nh_blocks, 256, 0, stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes);
-  edge_bwd_recv<<<n_blocks, WARPS * 32, smem, stream>>>(
-      x, snd, em, indptr, s.P, s.Q, w1d, b1, w2, b2, wg1, bg1, wg2, deg, gdx,
-      gmh, s.G, s.D, s.V, s.dxr, s.T1, s.GMSG, s.MSG, s.GGP1, s.GPRE1, s.GREL,
-      n_nodes, gate_mlp, rel_inv1p, clamp);
+  Scratch s = carve(scratch, n_nodes, n_slots, n_blocks);
+  const int nt = n_tiles(n_nodes);
+  node_proj<<<nt, THREADS, p_smem, stream>>>(h, w1r, w1s, indptr, s.P, s.Q,
+                                             s.rowof, n_nodes);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  edge_bwd_send<<<(n_nodes + 7) / 8, 256, 0, stream>>>(
-      em, sperm, sptr, s.GPRE1, s.GREL, s.S, s.dxs, n_nodes);
-  edge_bwd_nodes<<<nh_blocks, 256, 0, stream>>>(s.G, s.S, w1r, w1s, s.dxr,
-                                                s.dxs, gh, gx, n_nodes);
-  const int* live_end = indptr + n_nodes;  // slots past it are never read
-  outer_sum(h, s.G, nullptr, nullptr, n_nodes, s.part, gw1r, gb1, stream);
-  outer_sum(h, s.S, nullptr, nullptr, n_nodes, s.part, gw1s, nullptr, stream);
-  outer_sum(nullptr, s.D, nullptr, nullptr, n_nodes, s.part, nullptr, gw1d,
-            stream);
-  outer_sum(s.T1, s.GMSG, em, live_end, n_slots, s.part, gw2, gb2, stream);
-  if (gate_mlp) {
-    outer_sum(s.MSG, s.GGP1, em, live_end, n_slots, s.part, gwg1, gbg1,
-              stream);
-    outer_sum(nullptr, s.V, nullptr, nullptr, n_nodes, s.part, nullptr, gwg2,
-              stream);
-  }
+  edge_bwd_edges<<<n_blocks, THREADS, e_smem, stream>>>(
+      x, snd, em, indptr, s.rowof, s.P, s.Q, w1d, b1, w2, b2, wg1, bg1, wg2,
+      deg, gdx, gmh, s.GPRE1, s.GREL, s.pe, n_nodes, gate_mlp, rel_inv1p, clamp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  edge_bwd_nodes<<<nt, THREADS, n_smem, stream>>>(
+      h, em, indptr, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, gx, gh, s.pn,
+      n_nodes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  Outs o{gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2};
+  edge_bwd_reduce<<<(PE + PN + 255) / 256, 256, 0, stream>>>(
+      s.pe, s.pn, o, n_blocks, nt, gate_mlp);
   return (int)cudaGetLastError();
 }
-
-extern "C" int edge_bwd_rows_per_block() { return WARPS; }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -9,70 +9,60 @@
 // does.  The 1/C channel mean is folded into the upstream; u_z = -m g_dz
 // and g_rel = u_x gate_x + u_z gate_z + 2 rel g_d2.
 //
-// One CTA owns 64 nodes (8 warps x 8 nodes) and loops over the channels in
-// order, with that channel's four 64x64 matrices and their transposes in
-// shared memory (128 KB).  Per node it sums dx and dh over the channels in
-// order and writes them once.  The cross-node sums go through global
-// scratch, in fixed orders (no atomics, repeated runs are bitwise equal):
-//   * dz: each CTA writes its per-channel partial (nodes of a warp in
-//     order, then warps in order) and `virtual_bwd_dz` adds the CTAs in
-//     index order;
-//   * the weight stacks: the kernel stores, per channel and node, the
-//     64-wide rows t1, g_msg, msg, g_gpx, g_gpz, g_pre1, d2 g_pre1,
-//     sx g_gx and sz g_gz, and the two-stage block reduction of
-//     common.cuh forms w1h = h^T g_pre1 (+ const1 = sum g_pre1),
-//     w2 = t1^T g_msg (+ b2), wg1 = msg^T g_gpx (+ bg1),
-//     wz1 = msg^T g_gpz (+ bz1), w1d, wg2 and wz2 as column sums.
+// Two launches, one stream, no atomics, every sum in an order fixed by the
+// inputs (repeated runs are bitwise equal):
+//   1. virtual_bwd_kernel  one CTA of 8 warps per 64-node tile, the
+//      channels in order.  Per channel it recomputes the forward chain and
+//      backpropagates as 64 x 64 tile products of its node tile (common.cuh,
+//      tensor cores, 3xTF32): .W1h, .W2, .Wg1, .Wz1 and the cotangents
+//      .Wg1^T, .Wz1^T, .W2^T, .W1h^T (the transposes are the same tiles read
+//      in the other operand layout), then the four weight-gradient
+//      partials of the tile -- h^T g_pre1, t1^T g_msg, msg^T g_gpx,
+//      msg^T g_gpz -- as four more products, and the seven column sums
+//      (const1, b2, bg1, bz1, w1d, wg2, wz2) and the dz sum.  The CTA
+//      writes one partial per channel (16,836 floats) and, after the last
+//      channel, the nodes' dx and dh.  Nothing per node and channel leaves
+//      the chip.
+//   2. virtual_bwd_reduce  adds the CTAs' partials in CTA order: every
+//      weight gradient and dz.
+// Weights stream in with 16-byte cp.async as soon as the previous channel
+// is done with their slot: W1h (needed first) ping-pongs between two
+// slots, Wg1 / Wz1 / W2 of channel c + 1 load while channel c finishes.
+// Shared memory: 5 weight tiles, 6 activation tiles (h, t1, msg, g_gpx,
+// g_gpz -- later g_pre1 --, g_msg), row scalars and reduction rows:
+// ~194 KB, one CTA per SM; N = 8,192 gives 128 CTAs for 132 SMs.
 //
-// Bound on an H100: per node and channel eight 64x64 matvecs (the four of
-// the forward recomputed, the cotangents through W1h^T, W2^T, Wg1^T and
-// Wz1^T) plus four outer products: ~98K f32 FLOP against ~800 bytes of
-// node inputs and outputs, so it is bound by f32 operations.
+// Bound on an H100: per node and channel twelve 64 x 64 products (four
+// recomputed, four cotangents, four weight gradients), ~98K FLOP against
+// ~800 bytes of node inputs and outputs: bound by operations.  All twelve
+// run on the tensor cores (TF32, three MMAs each: 3 x the FLOP at the
+// 495 TFLOP/s TF32 rate); the elementwise SiLU chain, the row dots and the
+// column sums run on the FP32 units.  The partials add 25.8 MB of writes
+// and reads at N = 8,192, C = 3 (128 CTAs x 3 channels x 16,836 floats),
+// which stay in the 50 MB L2.  On the card the twelve products take about
+// nine tenths of a channel's time (tools/phase_trace.py); `wgmma` with
+// the same split is the next step (PERF.md section 6).
 #include "common.cuh"
 
 namespace {
 
-constexpr int TN = TILE;  // nodes per warp
-constexpr int WARPS = 8;
-constexpr int NODES = TN * WARPS;
-constexpr int SMEM_FLOATS = 8 * HID * HID + 8 * HID + 2 * WARPS * HID * TN +
-                            WARPS * 4;
+constexpr int NVEC = 7;  // w1d c1 b2 bg1 wg2 bz1 wz2
+enum { V_W1D = 0, V_C1, V_B2, V_BG1, V_WG2, V_BZ1, V_WZ2 };
+// partial of one CTA and channel: W1h | W2 | Wg1 | Wz1 | c1 | b2 | bg1 |
+// bz1 | w1d | wg2 | wz2 | dz (3) + 1 pad
+constexpr int P_W1H = 0, P_W2 = 4096, P_WG1 = 8192, P_WZ1 = 12288;
+constexpr int P_C1 = 16384, P_B2 = P_C1 + 64, P_BG1 = P_B2 + 64,
+              P_BZ1 = P_BG1 + 64, P_W1D = P_BZ1 + 64, P_WG2 = P_W1D + 64,
+              P_WZ2 = P_WG2 + 64, P_DZ = P_WZ2 + 64;
+constexpr int PART = P_DZ + 4;
+// row scalars (64 each)
+enum { R_X0 = 0, R_X1, R_X2, R_M, R_UX0, R_UX1, R_UX2, R_RL0, R_RL1, R_RL2,
+       R_D2, R_GGX, R_GGZ, R_GX, R_GZ, R_DX0, R_DX1, R_DX2, R_GR0, R_GR1,
+       R_GR2, R_N };
+constexpr int SMEM_FLOATS = 5 * TILE_F + 2 * NVEC * HID + 6 * TILE_F +
+                            R_N * TR + 2 * 2 * TR + 4 * 4 * TR;
 
-inline size_t round4(size_t v) { return (v + 3) & ~size_t(3); }
-
-// gate[t] = SiLU(pre[t]) . w2 where pre = buf . W1 + b1 (pre kept)
-__device__ __forceinline__ void tile_gate(float* buf, const float* W1,
-                                          const float* b1, const float* w2,
-                                          int lane, const float* in0,
-                                          const float* in1, float* pre0,
-                                          float* pre1, float* gate) {
-  tile_product(buf, W1, lane, in0, in1, pre0, pre1);
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    pre0[t] += b1[lane];
-    pre1[t] += b1[lane + 32];
-    gate[t] = warp_sum(silu(pre0[t]) * w2[lane] + silu(pre1[t]) * w2[lane + 32]);
-  }
-}
-
-__device__ __forceinline__ void store_rows(float* dst, int node0, int n_nodes,
-                                           int lane, const float* v0,
-                                           const float* v1) {
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    const int i = node0 + t;
-    if (i < n_nodes) {
-      dst[(size_t)i * HID + lane] = v0[t];
-      dst[(size_t)i * HID + lane + 32] = v1[t];
-    }
-  }
-}
-
-struct Rows {  // per-channel (N, 64) row arrays, channel c at + c * N * 64
-  float *T1, *GMSG, *MSG, *GGPX, *GGPZ, *GPRE1, *DG, *SXG, *SZG;
-};
-
-__global__ void __launch_bounds__(WARPS * 32, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ z, const float* __restrict__ mask,
                    const float* __restrict__ w1h, const float* __restrict__ w1d,
@@ -83,283 +73,328 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ wz2, const float* __restrict__ gdx,
                    const float* __restrict__ gmh, const float* __restrict__ gdz,
                    const float* __restrict__ gms, float* __restrict__ gx,
-                   float* __restrict__ gh, float* __restrict__ dzpart, Rows R,
+                   float* __restrict__ gh, float* __restrict__ part,
                    int n_nodes, int n_chan) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* sW1h = smem;
-  float* sW1hT = sW1h + HID * HID;
-  float* sW2 = sW1hT + HID * HID;
-  float* sW2T = sW2 + HID * HID;
-  float* sWg1 = sW2T + HID * HID;
-  float* sWg1T = sWg1 + HID * HID;
-  float* sWz1 = sWg1T + HID * HID;
-  float* sWz1T = sWz1 + HID * HID;
-  float* sw1d = sWz1T + HID * HID;
-  float* sc1 = sw1d + HID;
-  float* sb2 = sc1 + HID;
-  float* sbg1 = sb2 + HID;
-  float* swg2 = sbg1 + HID;
-  float* sbz1 = swg2 + HID;
-  float* swz2 = sbz1 + HID;
-  float* tiles = swz2 + 2 * HID;  // keeps 16-byte alignment
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* hbuf = tiles + warp * HID * TN;
-  float* buf = tiles + (WARPS + warp) * HID * TN;
-  float* red = tiles + 2 * WARPS * HID * TN;  // [WARPS][4]
+  float* sW1h[2] = {smem, smem + TILE_F};
+  float* sW2 = smem + 2 * TILE_F;
+  float* sWg1 = sW2 + TILE_F;
+  float* sWz1 = sWg1 + TILE_F;
+  float* sVec[2] = {sWz1 + TILE_F, sWz1 + TILE_F + NVEC * HID};
+  float* tH = sVec[1] + NVEC * HID;
+  float* tT1 = tH + TILE_F;
+  float* tMSG = tT1 + TILE_F;
+  float* tGX = tMSG + TILE_F;  // g_gpx, then g_pre1
+  float* tGZ = tGX + TILE_F;
+  float* tGM = tGZ + TILE_F;
+  float* rs = tGM + TILE_F;           // [R_N][64] row scalars
+  float* rowred = rs + R_N * TR;      // [2 sums][2 halves][64]
+  float* colred = rowred + 4 * TR;    // [4 sums][4 row blocks][64]
+  auto R = [&](int k) { return rs + k * TR; };
 
-  const int node0 = blockIdx.x * NODES + warp * TN;
+  const int tid = threadIdx.x;
+  const Lane L = lane_of();
+  const int node0 = blockIdx.x * TR;
   const float inv_c = 1.0f / (float)n_chan;
-  float xt[TN][3], mt[TN];
-  {
-    float v0[TN], v1[TN];
+
+  auto load_vecs = [&](float* dst, int c) {
+    const float* src[NVEC] = {w1d, c1, b2, bg1, wg2, bz1, wz2};
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      const int i = node0 + t;
-      const bool ok = i < n_nodes;
-      xt[t][0] = ok ? x[3 * i] : 0.0f;
-      xt[t][1] = ok ? x[3 * i + 1] : 0.0f;
-      xt[t][2] = ok ? x[3 * i + 2] : 0.0f;
-      mt[t] = ok ? mask[i] : 0.0f;
-      v0[t] = ok ? h[(size_t)i * HID + lane] : 0.0f;
-      v1[t] = ok ? h[(size_t)i * HID + lane + 32] : 0.0f;
-    }
-    tile_store(hbuf, lane, v0, v1);
+    for (int v = 0; v < NVEC; ++v)
+      vec_load_async(dst + v * HID, src[v] + (size_t)c * HID, HID);
+  };
+  const size_t WW = (size_t)HID * HID;
+  tile_load_async(sW1h[0], w1h);
+  tile_load_async(sW2, w2);
+  tile_load_async(sWg1, wg1);
+  tile_load_async(sWz1, wz1);
+  load_vecs(sVec[0], 0);
+  async_commit();
+  tile_gather(tH, h, [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  if (tid < TR) {
+    const int i = node0 + tid;
+    const bool ok = i < n_nodes;
+    R(R_X0)[tid] = ok ? x[3 * i] : 0.0f;
+    R(R_X1)[tid] = ok ? x[3 * i + 1] : 0.0f;
+    R(R_X2)[tid] = ok ? x[3 * i + 2] : 0.0f;
+    R(R_M)[tid] = ok ? mask[i] : 0.0f;
+    R(R_UX0)[tid] = ok ? gdx[3 * i] * inv_c : 0.0f;
+    R(R_UX1)[tid] = ok ? gdx[3 * i + 1] * inv_c : 0.0f;
+    R(R_UX2)[tid] = ok ? gdx[3 * i + 2] * inv_c : 0.0f;
+    R(R_DX0)[tid] = R(R_DX1)[tid] = R(R_DX2)[tid] = 0.0f;
   }
-  float dxa[TN][3], dh0[TN], dh1[TN];
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    dxa[t][0] = dxa[t][1] = dxa[t][2] = 0.0f;
-    dh0[t] = dh1[t] = 0.0f;
-  }
+  Frag dh;
+  frag_zero(dh);
 
   for (int c = 0; c < n_chan; ++c) {
-    __syncthreads();  // the previous channel's weights and partials are used
-    const size_t wo = (size_t)c * HID * HID;
-    for (int i = tid; i < HID * HID; i += blockDim.x) {
-      const int k = i / HID, j = i % HID;
-      const size_t it = wo + (size_t)j * HID + k;
-      sW1h[i] = w1h[wo + i];
-      sW1hT[i] = w1h[it];
-      sW2[i] = w2[wo + i];
-      sW2T[i] = w2[it];
-      sWg1[i] = wg1[wo + i];
-      sWg1T[i] = wg1[it];
-      sWz1[i] = wz1[wo + i];
-      sWz1T[i] = wz1[it];
+    const int buf = c & 1;
+    const float* W1h = sW1h[buf];
+    const float* vec = sVec[buf];
+    async_wait_all();
+    __syncthreads();  // channel c's weights are in; channel c - 1 is done
+    if (c + 1 < n_chan) {
+      tile_load_async(sW1h[buf ^ 1], w1h + (c + 1) * WW);
+      load_vecs(sVec[buf ^ 1], c + 1);
+      async_commit();
     }
-    for (int i = tid; i < HID; i += blockDim.x) {
-      const int o = c * HID + i;
-      sw1d[i] = w1d[o];
-      sc1[i] = c1[o];
-      sb2[i] = b2[o];
-      sbg1[i] = bg1[o];
-      swg2[i] = wg2[o];
-      sbz1[i] = bz1[o];
-      swz2[i] = wz2[o];
+    float* P = part + ((size_t)blockIdx.x * n_chan + c) * PART;
+    if (tid < TR) {
+      const float rl0 = R(R_X0)[tid] - z[3 * c];
+      const float rl1 = R(R_X1)[tid] - z[3 * c + 1];
+      const float rl2 = R(R_X2)[tid] - z[3 * c + 2];
+      const float m = R(R_M)[tid];
+      R(R_RL0)[tid] = rl0;
+      R(R_RL1)[tid] = rl1;
+      R(R_RL2)[tid] = rl2;
+      R(R_D2)[tid] = rl0 * rl0 + rl1 * rl1 + rl2 * rl2;
+      R(R_GGX)[tid] = R(R_UX0)[tid] * rl0 + R(R_UX1)[tid] * rl1 +
+                      R(R_UX2)[tid] * rl2;
+      R(R_GGZ)[tid] = (-m * gdz[3 * c]) * rl0 + (-m * gdz[3 * c + 1]) * rl1 +
+                      (-m * gdz[3 * c + 2]) * rl2;
     }
     __syncthreads();
-    const float zc0 = z[3 * c], zc1 = z[3 * c + 1], zc2 = z[3 * c + 2];
-    const float gz0 = gdz[3 * c], gz1 = gdz[3 * c + 1], gz2 = gdz[3 * c + 2];
-    const size_t co = (size_t)c * n_nodes * HID;
-
-    float rl[TN][3], d2[TN];
+    // ---- recompute: pre = h.W1h + d2 w1d + c1, t1 = silu(pre) ----------
+    Frag pre;  // then silu'(pre)
+    frag_zero(pre);
+    tile_mma<false, false>(pre, tH, W1h, L);
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      rl[t][0] = xt[t][0] - zc0;
-      rl[t][1] = xt[t][1] - zc1;
-      rl[t][2] = xt[t][2] - zc2;
-      d2[t] = rl[t][0] * rl[t][0] + rl[t][1] * rl[t][1] + rl[t][2] * rl[t][2];
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = L.row(e), j = L.col(jn, e);
+        pre[jn][e] = (pre[jn][e] + R(R_D2)[r] * vec[V_W1D * HID + j]) +
+                     vec[V_C1 * HID + j];
+      }
+    {
+      Frag t1;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) silu_both(pre[jn][e], t1[jn][e], pre[jn][e]);
+      frag_store(tT1, t1, L);
     }
-    // ---- recompute the channel's forward chain --------------------------
-    float pre0[TN], pre1[TN];
+    __syncthreads();
+    // ---- msg = t1.W2 + b2 -------------------------------------------------
+    {
+      Frag m;
+      frag_zero(m);
+      tile_mma<false, false>(m, tT1, sW2, L);
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      pre0[t] = 0.0f;
-      pre1[t] = 0.0f;
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[jn][e] += vec[V_B2 * HID + L.col(jn, e)];
+      frag_store(tMSG, m, L);
     }
-    tile_matvec(hbuf, sW1h, lane, pre0, pre1);
-    float a0[TN], a1[TN];
+    __syncthreads();
+    // ---- the two gate MLPs and their cotangents -------------------------
+    {
+      Frag px, pz;
+      frag_zero(px);
+      frag_zero(pz);
+      tile_mma<false, false>(px, tMSG, sWg1, L);
+      tile_mma<false, false>(pz, tMSG, sWz1, L);
+      Frag sx, sz;  // silu(px), silu(pz); px, pz become their derivatives
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      pre0[t] = (pre0[t] + d2[t] * sw1d[lane]) + sc1[lane];
-      pre1[t] = (pre1[t] + d2[t] * sw1d[lane + 32]) + sc1[lane + 32];
-      a0[t] = silu(pre0[t]);
-      a1[t] = silu(pre1[t]);
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = L.col(jn, e);
+          silu_both(px[jn][e] + vec[V_BG1 * HID + j], sx[jn][e], px[jn][e]);
+          silu_both(pz[jn][e] + vec[V_BZ1 * HID + j], sz[jn][e], pz[jn][e]);
+        }
+      Frag wx, wz;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = L.col(jn, e);
+          wx[jn][e] = sx[jn][e] * vec[V_WG2 * HID + j];
+          wz[jn][e] = sz[jn][e] * vec[V_WZ2 * HID + j];
+        }
+      frag_rowsum(wx, L, rowred);
+      frag_rowsum(wz, L, rowred + 2 * TR);
+      Frag qx, qz;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = L.row(e), j = L.col(jn, e);
+          const float ggx = R(R_GGX)[r], ggz = R(R_GGZ)[r];
+          qx[jn][e] = (ggx * vec[V_WG2 * HID + j]) * px[jn][e];
+          qz[jn][e] = (ggz * vec[V_WZ2 * HID + j]) * pz[jn][e];
+          sx[jn][e] *= ggx;
+          sz[jn][e] *= ggz;
+        }
+      frag_store(tGX, qx, L);
+      frag_store(tGZ, qz, L);
+      frag_colsum(qx, L, colred);
+      frag_colsum(qz, L, colred + 4 * TR);
+      frag_colsum(sx, L, colred + 8 * TR);
+      frag_colsum(sz, L, colred + 12 * TR);
     }
-    store_rows(R.T1 + co, node0, n_nodes, lane, a0, a1);
-    float m0[TN], m1[TN];
-    tile_product(buf, sW2, lane, a0, a1, m0, m1);
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      m0[t] += sb2[lane];
-      m1[t] += sb2[lane + 32];
+    __syncthreads();
+    if (tid < TR) {
+      R(R_GX)[tid] = rowred[tid] + rowred[TR + tid];
+      R(R_GZ)[tid] = rowred[2 * TR + tid] + rowred[3 * TR + tid];
+      P[P_BG1 + tid] = colsum4(colred, tid);
+      P[P_BZ1 + tid] = colsum4(colred + 4 * TR, tid);
+      P[P_WG2 + tid] = colsum4(colred + 8 * TR, tid);
+      P[P_WZ2 + tid] = colsum4(colred + 12 * TR, tid);
     }
-    store_rows(R.MSG + co, node0, n_nodes, lane, m0, m1);
-    float px0[TN], px1[TN], gate_x[TN], pz0[TN], pz1[TN], gate_z[TN];
-    tile_gate(buf, sWg1, sbg1, swg2, lane, m0, m1, px0, px1, gate_x);
-    tile_gate(buf, sWz1, sbz1, swz2, lane, m0, m1, pz0, pz1, gate_z);
-
-    // ---- backpropagate the four cotangents -----------------------------
-    float ux[TN][3], uz[TN][3], g_gx[TN], g_gz[TN];
-    float gg0[TN], gg1[TN];  // g_msg
+    // ---- g_msg = g_mh / C + m g_ms + g_gpx.Wg1^T + g_gpz.Wz1^T ----------
+    {
+      Frag gm;
+      frag_zero(gm);
+      tile_mma<false, true>(gm, tGX, sWg1, L);
+      tile_mma<false, true>(gm, tGZ, sWz1, L);
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      const int i = node0 + t;
-      const bool ok = i < n_nodes;
-      ux[t][0] = ok ? gdx[3 * i] * inv_c : 0.0f;
-      ux[t][1] = ok ? gdx[3 * i + 1] * inv_c : 0.0f;
-      ux[t][2] = ok ? gdx[3 * i + 2] * inv_c : 0.0f;
-      uz[t][0] = -mt[t] * gz0;
-      uz[t][1] = -mt[t] * gz1;
-      uz[t][2] = -mt[t] * gz2;
-      g_gx[t] = ux[t][0] * rl[t][0] + ux[t][1] * rl[t][1] + ux[t][2] * rl[t][2];
-      g_gz[t] = uz[t][0] * rl[t][0] + uz[t][1] * rl[t][1] + uz[t][2] * rl[t][2];
-      const float gm0 = ok ? gmh[(size_t)i * HID + lane] * inv_c : 0.0f;
-      const float gm1 = ok ? gmh[(size_t)i * HID + lane + 32] * inv_c : 0.0f;
-      gg0[t] = gm0 + mt[t] * gms[c * HID + lane];
-      gg1[t] = gm1 + mt[t] * gms[c * HID + lane + 32];
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int r = L.row(2 * h2), j = L.col(jn, 0);
+          const int i = node0 + r;
+          float2 g = make_float2(0.f, 0.f);
+          if (i < n_nodes)
+            g = *reinterpret_cast<const float2*>(gmh + (size_t)i * HID + j);
+          const float m = R(R_M)[r];
+          gm[jn][2 * h2] += g.x * inv_c + m * gms[c * HID + j];
+          gm[jn][2 * h2 + 1] += g.y * inv_c + m * gms[c * HID + j + 1];
+        }
+      frag_store(tGM, gm, L);
+      __syncthreads();  // colred / rowred reads above are done
+      frag_colsum(gm, L, colred);
     }
-    float q0[TN], q1[TN], p0[TN], p1[TN], s0[TN], s1[TN];
-    // gate-x MLP
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      q0[t] = (g_gx[t] * swg2[lane]) * silu_grad(px0[t]);
-      q1[t] = (g_gx[t] * swg2[lane + 32]) * silu_grad(px1[t]);
-      s0[t] = silu(px0[t]) * g_gx[t];
-      s1[t] = silu(px1[t]) * g_gx[t];
+    __syncthreads();
+    if (tid < TR) P[P_B2 + tid] = colsum4(colred, tid);
+    // ---- weight partials of the message and gate MLPs ----------------
+    {
+      Frag a;
+      frag_zero(a);
+      tile_mma<true, false>(a, tMSG, tGX, L);
+      frag_store_global(P + P_WG1, a, L);
+      frag_zero(a);
+      tile_mma<true, false>(a, tMSG, tGZ, L);
+      frag_store_global(P + P_WZ1, a, L);
+      frag_zero(a);
+      tile_mma<true, false>(a, tT1, tGM, L);
+      frag_store_global(P + P_W2, a, L);
     }
-    store_rows(R.GGPX + co, node0, n_nodes, lane, q0, q1);
-    store_rows(R.SXG + co, node0, n_nodes, lane, s0, s1);
-    tile_product(buf, sWg1T, lane, q0, q1, p0, p1);
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      gg0[t] += p0[t];
-      gg1[t] += p1[t];
+    // ---- g_pre1 = (g_msg.W2^T) silu'(pre) ----------------------------------
+    Frag gp;
+    frag_zero(gp);
+    tile_mma<false, true>(gp, tGM, sW2, L);
+    __syncthreads();  // msg / g_gpx / g_gpz / Wg1 / Wz1 / colred are free
+    if (c + 1 < n_chan) {
+      tile_load_async(sWg1, wg1 + (c + 1) * WW);
+      tile_load_async(sWz1, wz1 + (c + 1) * WW);
+      async_commit();
     }
-    // gate-z MLP
+    {
+      Frag dg, gw;
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      q0[t] = (g_gz[t] * swz2[lane]) * silu_grad(pz0[t]);
-      q1[t] = (g_gz[t] * swz2[lane + 32]) * silu_grad(pz1[t]);
-      s0[t] = silu(pz0[t]) * g_gz[t];
-      s1[t] = silu(pz1[t]) * g_gz[t];
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = L.row(e), j = L.col(jn, e);
+          gp[jn][e] *= pre[jn][e];
+          dg[jn][e] = R(R_D2)[r] * gp[jn][e];
+          gw[jn][e] = gp[jn][e] * vec[V_W1D * HID + j];
+        }
+      frag_store(tGX, gp, L);
+      frag_rowsum(gw, L, rowred);
+      frag_colsum(gp, L, colred);
+      frag_colsum(dg, L, colred + 4 * TR);
     }
-    store_rows(R.GGPZ + co, node0, n_nodes, lane, q0, q1);
-    store_rows(R.SZG + co, node0, n_nodes, lane, s0, s1);
-    tile_product(buf, sWz1T, lane, q0, q1, p0, p1);
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      gg0[t] += p0[t];
-      gg1[t] += p1[t];
+    __syncthreads();
+    if (c + 1 < n_chan) {
+      tile_load_async(sW2, w2 + (c + 1) * WW);
+      async_commit();
     }
-    store_rows(R.GMSG + co, node0, n_nodes, lane, gg0, gg1);
-    // message MLP
-    tile_product(buf, sW2T, lane, gg0, gg1, p0, p1);
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      q0[t] = p0[t] * silu_grad(pre0[t]);
-      q1[t] = p1[t] * silu_grad(pre1[t]);
-      s0[t] = d2[t] * q0[t];
-      s1[t] = d2[t] * q1[t];
-    }
-    store_rows(R.GPRE1 + co, node0, n_nodes, lane, q0, q1);
-    store_rows(R.DG + co, node0, n_nodes, lane, s0, s1);
-    tile_product(buf, sW1hT, lane, q0, q1, p0, p1);
-    float dz0 = 0.0f, dz1 = 0.0f, dz2 = 0.0f;
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      dh0[t] += p0[t];
-      dh1[t] += p1[t];
-      const float g_d2 = warp_sum(q0[t] * sw1d[lane] + q1[t] * sw1d[lane + 32]);
-      float g_rel[3];
+    if (tid < TR) {
+      P[P_C1 + tid] = colsum4(colred, tid);
+      P[P_W1D + tid] = colsum4(colred + 4 * TR, tid);
+      const float g_d2 = rowred[tid] + rowred[TR + tid];
+      const float m = R(R_M)[tid];
+      const float gxr = R(R_GX)[tid], gzr = R(R_GZ)[tid];
+      const float rl[3] = {R(R_RL0)[tid], R(R_RL1)[tid], R(R_RL2)[tid]};
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        g_rel[k] = ux[t][k] * gate_x[t] + uz[t][k] * gate_z[t] +
-                   2.0f * rl[t][k] * g_d2;
-        dxa[t][k] += g_rel[k];
+        const float uz = -m * gdz[3 * c + k];
+        const float g_rel =
+            R(R_UX0 + k)[tid] * gxr + uz * gzr + 2.0f * rl[k] * g_d2;
+        R(R_DX0 + k)[tid] += g_rel;
+        R(R_GR0 + k)[tid] = node0 + tid < n_nodes ? g_rel : 0.0f;
       }
-      dz0 += g_rel[0];
-      dz1 += g_rel[1];
-      dz2 += g_rel[2];
     }
-    float* rw = red + warp * 4;
-    if (lane == 0) {
-      rw[0] = dz0;
-      rw[1] = dz1;
-      rw[2] = dz2;
+    // ---- dh += g_pre1.W1h^T; the W1h partial h^T g_pre1 ----------------
+    tile_mma<false, true>(dh, tGX, W1h, L);
+    {
+      Frag a;
+      frag_zero(a);
+      tile_mma<true, false>(a, tH, tGX, L);
+      frag_store_global(P + P_W1H, a, L);
     }
     __syncthreads();
-    if (tid < 3) {
+    if (tid < 3) {  // dz: nodes in order
       float s = 0.0f;
-      for (int w = 0; w < WARPS; ++w) s += red[w * 4 + tid];
-      dzpart[((size_t)blockIdx.x * n_chan + c) * 3 + tid] = -s;
+      for (int r = 0; r < TR; ++r) s += R(R_GR0 + tid)[r];
+      P[P_DZ + tid] = -s;
     }
   }
 
 #pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    const int i = node0 + t;
-    if (i < n_nodes) {
-      gh[(size_t)i * HID + lane] = dh0[t];
-      gh[(size_t)i * HID + lane + 32] = dh1[t];
-      if (lane == 0) {
-        gx[3 * i] = dxa[t][0];
-        gx[3 * i + 1] = dxa[t][1];
-        gx[3 * i + 2] = dxa[t][2];
-      }
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int i = node0 + L.row(2 * h2);
+      if (i < n_nodes)
+        *reinterpret_cast<float2*>(gh + (size_t)i * HID + L.col(jn, 0)) =
+            make_float2(dh[jn][2 * h2], dh[jn][2 * h2 + 1]);
     }
+  if (tid < TR && node0 + tid < n_nodes) {
+    const int i = node0 + tid;
+    gx[3 * i] = R(R_DX0)[tid];
+    gx[3 * i + 1] = R(R_DX1)[tid];
+    gx[3 * i + 2] = R(R_DX2)[tid];
   }
 }
 
-// gz[c][k] = sum over blocks b = 0..n_blocks-1, in order, of dzpart[b][c][k]
-__global__ void virtual_bwd_dz(const float* __restrict__ dzpart,
-                               float* __restrict__ gz, int n_blocks,
-                               int n_chan) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= n_chan * 3) return;
-  float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += dzpart[(size_t)b * n_chan * 3 + f];
-  gz[f] = s;
-}
-
-struct Scratch {
-  Rows R;
-  float* dzpart;
-  float* part;
-  size_t total;
+struct Outs {
+  float *gz, *gw1h, *gw1d, *gc1, *gw2, *gb2, *gwg1, *gbg1, *gwg2, *gwz1,
+      *gbz1, *gwz2;
 };
 
-Scratch carve(float* base, int n, int c) {
-  Scratch s;
-  size_t off = 0;
-  auto take = [&](size_t count) {
-    float* p = base == nullptr ? nullptr : base + off;
-    off += round4(count);
-    return p;
-  };
-  const size_t rows = (size_t)c * n * HID;
-  s.R.T1 = take(rows);
-  s.R.GMSG = take(rows);
-  s.R.MSG = take(rows);
-  s.R.GGPX = take(rows);
-  s.R.GGPZ = take(rows);
-  s.R.GPRE1 = take(rows);
-  s.R.DG = take(rows);
-  s.R.SXG = take(rows);
-  s.R.SZG = take(rows);
-  s.dzpart = take((size_t)((n + NODES - 1) / NODES) * c * 3);
-  s.part = take((size_t)outer_blocks(n) * OUTER_W);
-  s.total = off;
-  return s;
+// every weight gradient and dz: the CTAs' partials added in CTA order
+__global__ void virtual_bwd_reduce(const float* __restrict__ part, Outs o,
+                                   int n_blocks, int n_chan) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= n_chan * PART) return;
+  const int c = f / PART, k = f % PART;
+  if (k >= P_DZ + 3) return;
+  const float s = sum_strided(part + (size_t)c * PART + k,
+                              (size_t)n_chan * PART, n_blocks);
+  const size_t mo = (size_t)c * HID * HID, vo = (size_t)c * HID;
+  if (k < P_W2) o.gw1h[mo + k] = s;
+  else if (k < P_WG1) o.gw2[mo + k - P_W2] = s;
+  else if (k < P_WZ1) o.gwg1[mo + k - P_WG1] = s;
+  else if (k < P_C1) o.gwz1[mo + k - P_WZ1] = s;
+  else if (k < P_B2) o.gc1[vo + k - P_C1] = s;
+  else if (k < P_BG1) o.gb2[vo + k - P_B2] = s;
+  else if (k < P_BZ1) o.gbg1[vo + k - P_BG1] = s;
+  else if (k < P_W1D) o.gbz1[vo + k - P_BZ1] = s;
+  else if (k < P_WG2) o.gw1d[vo + k - P_W1D] = s;
+  else if (k < P_WZ2) o.gwg2[vo + k - P_WG2] = s;
+  else if (k < P_DZ) o.gwz2[vo + k - P_WZ2] = s;
+  else o.gz[3 * c + k - P_DZ] = s;
 }
+
+int n_tiles(int n) { return (n + TR - 1) / TR; }
 
 }  // namespace
 
 extern "C" long long virtual_bwd_scratch_floats(int n_nodes, int n_chan) {
-  return (long long)carve(nullptr, n_nodes, n_chan).total;
+  return (long long)n_tiles(n_nodes) * n_chan * PART;
 }
 
 extern "C" int virtual_backward(
@@ -373,39 +408,27 @@ extern "C" int virtual_backward(
     float* gbz1, float* gwz2, float* scratch, int n_nodes, int n_chan,
     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (!(aligned16(h) && aligned16(w1h) && aligned16(w2) && aligned16(wg1) &&
+        aligned16(wz1) && aligned16(gmh) && aligned16(gh) &&
+        aligned16(scratch)))
+    return (int)cudaErrorMisalignedAddress;
   const size_t smem = SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       virtual_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  Scratch s = carve(scratch, n_nodes, n_chan);
-  const int n_blocks = (n_nodes + NODES - 1) / NODES;
+  const int n_blocks = n_tiles(n_nodes);
   if (n_blocks > 0) {
-    virtual_bwd_kernel<<<n_blocks, WARPS * 32, smem, stream>>>(
+    virtual_bwd_kernel<<<n_blocks, THREADS, smem, stream>>>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2,
-        gdx, gmh, gdz, gms, gx, gh, s.dzpart, s.R, n_nodes, n_chan);
+        gdx, gmh, gdz, gms, gx, gh, scratch, n_nodes, n_chan);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  virtual_bwd_dz<<<1, 256, 0, stream>>>(s.dzpart, gz, n_blocks, n_chan);
-  for (int c = 0; c < n_chan; ++c) {
-    const size_t co = (size_t)c * n_nodes * HID;
-    const size_t mo = (size_t)c * HID * HID, vo = (size_t)c * HID;
-    outer_sum(h, s.R.GPRE1 + co, nullptr, nullptr, n_nodes, s.part,
-              gw1h + mo, gc1 + vo, stream);
-    outer_sum(s.R.T1 + co, s.R.GMSG + co, nullptr, nullptr, n_nodes, s.part,
-              gw2 + mo, gb2 + vo, stream);
-    outer_sum(s.R.MSG + co, s.R.GGPX + co, nullptr, nullptr, n_nodes, s.part,
-              gwg1 + mo, gbg1 + vo, stream);
-    outer_sum(s.R.MSG + co, s.R.GGPZ + co, nullptr, nullptr, n_nodes, s.part,
-              gwz1 + mo, gbz1 + vo, stream);
-    outer_sum(nullptr, s.R.DG + co, nullptr, nullptr, n_nodes, s.part,
-              nullptr, gw1d + vo, stream);
-    outer_sum(nullptr, s.R.SXG + co, nullptr, nullptr, n_nodes, s.part,
-              nullptr, gwg2 + vo, stream);
-    outer_sum(nullptr, s.R.SZG + co, nullptr, nullptr, n_nodes, s.part,
-              nullptr, gwz2 + vo, stream);
-  }
+  Outs o{gz, gw1h, gw1d, gc1, gw2, gb2, gwg1, gbg1, gwg2, gwz1, gbz1, gwz2};
+  const int total = n_chan * PART;
+  virtual_bwd_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
+      scratch, o, n_blocks, n_chan);
   return (int)cudaGetLastError();
 }
 

@@ -13,11 +13,12 @@ runs :func:`edge_pathway_plain`.  ``launches`` counts kernel launches.
 :func:`edge_pathway_bwd_fused` returns the 11 gradients of the forward
 from its primals, its ``deg`` output and the cotangents ``(g_dx, g_mh)``.
 For CUDA tensors it launches ``csrc/edge_message_bwd.cu`` (which replaces
-the Pallas ``edge_pathway_bwd_fused``); its sender pass walks the sender
-permutation ``sperm`` / ``sptr`` of ``data.radius_graph.csr_sender_perm``.
-For CPU tensors it runs :func:`edge_pathway_bwd_plain`.  ``bwd_launches``
-counts its launches.  Gradients flow through ``kernels.ops.EdgePathway``;
-both raw wrappers refuse inputs that require grad.
+the Pallas ``edge_pathway_bwd_fused``): four kernels, whose node pass walks
+the sender permutation ``sperm`` / ``sptr`` of
+``data.radius_graph.csr_sender_perm``.  For CPU tensors it runs
+:func:`edge_pathway_bwd_plain`.  ``bwd_launches`` counts its calls.
+Gradients flow through ``kernels.ops.EdgePathway``; both raw wrappers
+refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import edge_pathway_ref
-from repro_torch.kernels.runtime import require_f32
+from repro_torch.kernels.runtime import align16, require_f32
 
 Tensor = torch.Tensor
 
@@ -39,6 +40,10 @@ bwd_launches = 0
 
 #: the width the CUDA kernel is compiled for (Dh = H1 = M = HG)
 KERNEL_WIDTH = 64
+#: CTAs of the backward's edge pass: each takes an equal share of the live
+#: slot range, so the weight gradients' summation order depends on this
+#: number and the inputs only, never on the card
+EDGE_BWD_CTAS = 256
 
 
 def reset_launches() -> None:
@@ -59,14 +64,13 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.edge_bwd_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.edge_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.edge_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.edge_backward.argtypes = ([ctypes.c_void_p] * 31
                                   + [ctypes.c_int] * 4
                                   + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
     lib.edge_backward.restype = ctypes.c_int
-    lib.edge_bwd_rows_per_block.restype = ctypes.c_int
 
 
 def csr_receivers(indptr: Tensor) -> Tensor:
@@ -253,15 +257,15 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
         gwg1, gbg1, gwg2 = empty(d, d), empty(1, d), empty(d, 1)
     else:  # the kernel writes no gate grads
         gwg1, gbg1, gwg2 = (torch.zeros_like(w) for w in (wg1, bg1, wg2))
-    scratch = empty(int(lib.edge_bwd_scratch_floats(n, e)))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_blocks = min(-(-n // lib.edge_bwd_rows_per_block()), 2 * sms)
+    scratch = empty(int(lib.edge_bwd_scratch_floats(n, e, EDGE_BWD_CTAS)))
     outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2)
-    ptrs = [t.data_ptr() for t in (x, h, snd, em, indptr, sperm, sptr, *ws,
-                                   deg, g_dx, g_mh, *outs, scratch)]
+    # the kernels read h, g_mh and the 64x64 weights with 16-byte loads
+    ins = [align16(t) for t in (x, h, snd, em, indptr, sperm, sptr, *ws, deg,
+                                g_dx, g_mh)]
+    ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
     err = lib.edge_backward(*ptrs, n, e, int(gate_mode == "mlp"),
-                            int(rel_mode == "inv1p"), float(clamp), n_blocks,
-                            build.stream_ptr(dev))
+                            int(rel_mode == "inv1p"), float(clamp),
+                            EDGE_BWD_CTAS, build.stream_ptr(dev))
     build.check(lib, err, "edge_backward")
     bwd_launches += 1
     return outs

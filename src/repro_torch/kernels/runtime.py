@@ -24,6 +24,13 @@ from typing import NamedTuple, Union
 import torch
 
 
+def align16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if its data does not start on a 16-byte
+    boundary (the kernels read some operands with 16-byte loads; a
+    contiguous view into a larger tensor may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """``None``/``'cuda'``/``'cpu'``/``torch.device`` → ``torch.device``.
 

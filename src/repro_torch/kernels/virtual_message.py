@@ -13,9 +13,9 @@ kernel only.  CPU tensors run :func:`virtual_pathway_plain`.
 :func:`virtual_pathway_bwd_fused` returns the 14 gradients of the forward
 (all operands but the node mask) from its primals and the four output
 cotangents.  For CUDA tensors it launches ``csrc/virtual_message_bwd.cu``
-(which replaces the Pallas ``virtual_pathway_bwd_fused``);
-``bwd_launches`` counts its main kernel.  CPU tensors run
-:func:`virtual_pathway_bwd_plain`.  Gradients flow through
+(which replaces the Pallas ``virtual_pathway_bwd_fused``): the main
+kernel and the reduction of its partials; ``bwd_launches`` counts calls.
+CPU tensors run :func:`virtual_pathway_bwd_plain`.  Gradients flow through
 ``kernels.ops.VirtualPathway``; both raw wrappers refuse inputs that
 require grad.
 """
@@ -27,13 +27,13 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import virtual_pathway_ref
-from repro_torch.kernels.runtime import require_f32
+from repro_torch.kernels.runtime import align16, require_f32
 
 Tensor = torch.Tensor
 
 #: launches of the main CUDA virtual kernel since :func:`reset_launches`
 launches = 0
-#: launches of the main CUDA virtual backward kernel since
+#: calls of the CUDA virtual backward (two kernels each) since
 #: :func:`reset_launches`
 bwd_launches = 0
 
@@ -205,7 +205,9 @@ def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
     grads = tuple(torch.empty_like(t) for i, t in enumerate(ops) if i != 3)
     scratch = torch.empty((int(lib.virtual_bwd_scratch_floats(n, c)),),
                           dtype=torch.float32, device=x.device)
-    ptrs = [t.data_ptr() for t in (*ops, *cots, *grads, scratch)]
+    # the kernel reads h, g_mh and the 64x64 weights with 16-byte loads
+    ins = [align16(t) for t in (*ops, *cots)]
+    ptrs = [t.data_ptr() for t in (*ins, *grads, scratch)]
     err = lib.virtual_backward(*ptrs, n, c, build.stream_ptr(x.device))
     build.check(lib, err, "virtual_backward")
     bwd_launches += 1

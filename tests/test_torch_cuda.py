@@ -391,6 +391,146 @@ def test_model_gradients_kernel_path_match_plain_path_on_card():
     _assert_grads_match(gk, gk, gr)
 
 
+# ---------------------------- the backwards' schedules: ranges, hubs, faults
+def _outside_tolerance(got, want) -> bool:
+    """True where some output leaves the gradient tolerance."""
+    for g, w in zip(got, want):
+        scale = float(w.abs().max()) + 1e-6
+        if not bool(((g - w).abs() <= 5e-5 * scale + 1e-3 * w.abs()).all()):
+            return True
+    return False
+
+
+def _hub_edge_bwd_args(dev, hub_deg=200, n=301, seed=13):
+    """A radius graph plus a hub receiver (node 3) and a hub sender (node
+    7) of degree ``hub_deg``, with mask holes; ``n`` is not a multiple of
+    the 64-node tile.  Returns the wrapper's arguments and the length of
+    one edge-pass CTA's slot range."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    snd, rcv = radius_graph(x, 0.15)
+    pick = rng.choice(np.setdiff1d(np.arange(n), [3, 7]), hub_deg,
+                      replace=False)
+    pairs = set(zip(snd.tolist(), rcv.tolist()))
+    pairs |= {(int(j), 3) for j in pick} | {(7, int(j)) for j in pick}
+    snd = np.array([p[0] for p in pairs], np.int32)
+    rcv = np.array([p[1] for p in pairs], np.int32)
+    snd, rcv = sort_edges_by_receiver(snd, rcv)
+    sp, rp, em = pad_edges(snd, rcv, snd.size + 500, x)
+    em[: snd.size: 7] = 0.0
+    indptr = csr_indptr(rp, snd.size, n)
+    args = _edge_args(dev, seed=seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    h = torch.from_numpy(rng.standard_normal((n, WIDTH)).astype(
+        np.float32)).to(dev)
+    args[:5] = [t(x), h, t(sp), t(em), t(indptr)]
+    with torch.no_grad():
+        deg = edge_message.edge_pathway_plain(*args)[2].contiguous()
+    g_dx = t(rng.standard_normal((n, 3)).astype(np.float32))
+    g_mh = t(rng.standard_normal((n, WIDTH)).astype(np.float32))
+    sender = _sender_perm(sp, snd.size, n, dev)
+    length = -(-snd.size // edge_message.EDGE_BWD_CTAS)
+    return args, sender, deg, g_dx, g_mh, length
+
+
+@needs_cuda
+@pytest.mark.parametrize("gate,rel,clamp", [
+    ("mlp", "raw", math.inf), ("mlp", "inv1p", 0.05), ("none", "raw",
+                                                       math.inf)])
+def test_edge_backward_hub_rows_cross_cta_ranges(gate, rel, clamp):
+    """A hub receiver whose row is longer than one CTA's slot range, a hub
+    sender, and a node count that is no multiple of the node tile."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh, length = _hub_edge_bwd_args(dev)
+    if gate == "none":
+        args[11:14] = [torch.zeros(1, 1, device=dev)] * 3
+    indptr = args[4].cpu().numpy()
+    assert np.diff(indptr).max() > 2 * length
+    assert args[0].shape[0] % 64 != 0
+    kw = dict(gate_mode=gate, rel_mode=rel, clamp=clamp)
+    run = lambda: edge_message.edge_pathway_bwd_fused(
+        *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw)
+    got, again = run(), run()
+    want = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_match(got, again, want)
+
+
+@needs_cuda
+def test_edge_backward_cta_range_without_live_slots():
+    """Ranges with every slot masked write zero partials."""
+    dev = torch.device("cuda")
+    args, sender, _, g_dx, g_mh, length = _hub_edge_bwd_args(dev)
+    em = args[3].clone()
+    em[5 * length:8 * length] = 0.0
+    args[3] = em
+    with torch.no_grad():
+        deg = edge_message.edge_pathway_plain(*args)[2].contiguous()
+    run = lambda: edge_message.edge_pathway_bwd_fused(
+        *args[:5], *sender, *args[5:], deg, g_dx, g_mh)
+    got, again = run(), run()
+    want = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh)
+    torch.cuda.synchronize()
+    _assert_grads_match(got, again, want)
+
+
+@needs_cuda
+def test_edge_backward_planted_fault_is_caught():
+    """One live slot's mask zeroed in the kernel's call only lands outside
+    the gradient tolerance."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh, _ = _hub_edge_bwd_args(dev)
+    want = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh)
+    bad = list(args)
+    em = args[3].clone()
+    live = torch.nonzero(em).flatten()
+    em[live[live.numel() // 2]] = 0.0
+    bad[3] = em
+    got = edge_message.edge_pathway_bwd_fused(*bad[:5], *sender, *bad[5:],
+                                              deg, g_dx, g_mh)
+    torch.cuda.synchronize()
+    assert _outside_tolerance(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("c", [1, 3])
+def test_virtual_backward_at_serving_size(c):
+    dev = torch.device("cuda")
+    n = 8192
+    args = _virtual_args(dev, n=n, c=c)
+    rng = np.random.default_rng(c)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    cots = (t(n, 3), t(n, WIDTH), t(c, 3), t(c, WIDTH))
+    virtual_message.reset_launches()
+    got = virtual_message.virtual_pathway_bwd_fused(*args, *cots)
+    again = virtual_message.virtual_pathway_bwd_fused(*args, *cots)
+    want = virtual_message.virtual_pathway_bwd_plain(*args, *cots)
+    torch.cuda.synchronize()
+    assert virtual_message.bwd_launches == 2
+    _assert_grads_match(got, again, want)
+
+
+@needs_cuda
+def test_virtual_backward_planted_fault_is_caught():
+    """One node's mask flipped in the kernel's call only lands outside the
+    gradient tolerance."""
+    dev = torch.device("cuda")
+    args = _virtual_args(dev, n=1000)
+    rng = np.random.default_rng(4)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    cots = (t(1000, 3), t(1000, WIDTH), t(3, 3), t(3, WIDTH))
+    want = virtual_message.virtual_pathway_bwd_plain(*args, *cots)
+    bad = list(args)
+    mask = args[3].clone()
+    mask[500] = 1.0 - mask[500]
+    bad[3] = mask
+    got = virtual_message.virtual_pathway_bwd_fused(*bad, *cots)
+    torch.cuda.synchronize()
+    assert _outside_tolerance(got, want)
+
+
 # ------------------------------------------------- sliding-window attention
 # bf16 outputs: kernel and plain version both compute in f32 and round once,
 # in different summation orders, so they may land one bf16 rounding apart:

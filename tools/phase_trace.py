@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Per-phase clock trace of the FastEGNN backward kernels on one GPU.
+
+    python3 tools/phase_trace.py          # from the repository root
+
+Builds instrumented copies of ``csrc/edge_message_bwd.cu`` and
+``csrc/virtual_message_bwd.cu`` into ``src/repro_torch/_build/trace/``:
+after every ``__syncthreads()`` of the main kernel (``edge_bwd_edges``,
+``virtual_bwd_kernel``), thread 0 of CTA 0 records the source line and
+``clock64()``.  Runs the kernels through ``chip_smoke.phase_kernels`` at
+its serving shapes (the last call's trace is kept) and prints, for each
+sync point, how often CTA 0 passed it and the mean clocks since the
+previous one.  The clocks include the work of any other CTA on the same
+SM.  Needs CUDA and nvcc; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+KERNELS = {"edge_message_bwd": "edge_bwd_edges",
+           "virtual_message_bwd": "virtual_bwd_kernel"}
+SLOTS = 1024
+
+
+def instrument(src: str, kernel: str) -> str:
+    """``src`` with a trace point after each ``__syncthreads()`` of
+    ``kernel`` and a C entry point ``get_trace`` that copies it out."""
+    lines = src.split("\n")
+    start = next(i for i, ln in enumerate(lines) if ln.startswith(kernel + "("))
+    stop = next(i for i, ln in enumerate(lines) if i > start
+                and ln.startswith("}"))
+    out = []
+    for i, ln in enumerate(lines):
+        if start < i < stop and "__syncthreads();" in ln:
+            ln = ln.replace("__syncthreads();",
+                            f"__syncthreads(); trace_point({i + 1});")
+        out.append(ln)
+        if ln.startswith('#include "common.cuh"'):
+            out.append(f"__device__ long long g_trace[{2 * SLOTS}];")
+        if (start < i < stop
+                and ln.strip().startswith("const Lane L = lane_of();")):
+            out.append(
+                "  int n_trace = 0;\n"
+                "  auto trace_point = [&](int line) {\n"
+                "    if (threadIdx.x == 0 && blockIdx.x == 0 &&\n"
+                f"        n_trace < {SLOTS}) {{\n"
+                "      g_trace[2 * n_trace] = line;\n"
+                "      g_trace[2 * n_trace + 1] = clock64();\n"
+                "      ++n_trace;\n"
+                "    }\n"
+                "  };")
+    out.append('extern "C" int get_trace(long long* o) { return (int)'
+               f"cudaMemcpyFromSymbol(o, g_trace, {16 * SLOTS}); }}")
+    return "\n".join(out)
+
+
+def report(name: str, lib: ctypes.CDLL) -> None:
+    buf = (ctypes.c_longlong * (2 * SLOTS))()
+    lib.get_trace.argtypes = [ctypes.c_void_p]
+    err = lib.get_trace(ctypes.addressof(buf))
+    if err:
+        raise RuntimeError(f"{name}: get_trace failed with CUDA error {err}")
+    events = [(buf[2 * k], buf[2 * k + 1]) for k in range(SLOTS)
+              if buf[2 * k + 1]]
+    if len(events) < 2:
+        raise RuntimeError(f"{name}: no trace recorded")
+    gaps: dict[int, list[int]] = {}
+    for (_, t0), (line, t1) in zip(events, events[1:]):
+        gaps.setdefault(line, []).append(t1 - t0)
+    print(f"{name}: {len(events)} trace points, "
+          f"{events[-1][1] - events[0][1]} clocks from first to last")
+    for line, g in sorted(gaps.items()):
+        print(f"  line {line:4d}: passed {len(g):3d} times, "
+              f"mean {sum(g) / len(g):9.0f} clocks since the previous point")
+
+
+def main() -> int:
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("phase_trace.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import build, edge_message, virtual_message
+    from repro_torch.pipeline import build_pipeline
+
+    print(cs.gpu_line(), flush=True)
+    out_dir = build.BUILD_DIR / "trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    binds = {"edge_message_bwd": edge_message._bind_bwd,
+             "virtual_message_bwd": virtual_message._bind_bwd}
+    libs = {}
+    for name, kernel in KERNELS.items():
+        src = out_dir / f"{name}.cu"
+        src.write_text(instrument((build.CSRC_DIR / f"{name}.cu").read_text(),
+                                  kernel))
+        so = out_dir / f"{name}.so"
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                        str(build.CSRC_DIR), "-o", str(so), str(src)],
+                       check=True, capture_output=True)
+        libs[name] = ctypes.CDLL(str(so))
+        binds[name](libs[name])
+        build._LIBS[name] = libs[name]  # the wrappers now call the copies
+    dev = torch.device("cuda")
+    pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                          generator=torch.Generator().manual_seed(0))
+    scene = cs.make_scenes(1, cs.N_PARTICLES)[0]
+    cs.phase_kernels(pipe, scene, dev)
+    torch.cuda.synchronize()
+    for name, lib in libs.items():
+        report(name, lib)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
