@@ -13,19 +13,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
              plain PyTorch version on the card at the serving shapes
              (N = 8,192 nodes, 8,192 x 32 edge slots of a fluid scene
              built at r + skin, hidden 64, C = 3), with CUDA-event times of
-             kernel and plain version and a bitwise repeat check.  The two
-             backwards also get a planted fault each (one live slot's mask
-             zeroed, one node's mask flipped, in the kernel's call only),
-             which must land outside the gradient tolerance, the device
-             kernels one call launches with their device times
-             (``torch.profiler``), and a second bound at the TF32
-             tensor-core rate (their products run as 3xTF32).
+             kernel and plain version and a bitwise repeat check.  The
+             edge and virtual kernels, forward and backward, also get a
+             planted fault each (one live slot's mask zeroed, one node's
+             mask flipped, in the kernel's call only), which must land
+             outside the tolerance, the device kernels one call launches
+             with their device times (``torch.profiler``), and a second
+             bound at the TF32 tensor-core rate (their products run as
+             3xTF32).
 3. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each.  Checks every frame, the kernel
              launch counts and the first frame against the plain path.
 4. scale   — one forward step of a 113,000-particle scene (bucket
-             131,072) through ``predict_fn``, timed.
+             131,072) through ``predict_fn``, timed, and one step profiled
+             (device time, idle share, top kernels).
 5. train   — a full-width FastEGNN (random weights from seed 0) trained
              with ``use_kernel=True`` through ``Pipeline.fit`` for 2 epochs
              on 6 + 2 fluid scenes of 7,800 particles (batch 4, so the
@@ -119,9 +121,9 @@ SMALL_GRAD = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
 # bf16 tensor-core (f32 accumulate) FLOP/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
-# TF32 tensor-core peak (dense); the FastEGNN backwards run every 64x64
-# product as three TF32 MMAs (3xTF32), so their tensor-core bound counts
-# 3x the FLOP at this rate
+# TF32 tensor-core peak (dense); the FastEGNN edge and virtual kernels run
+# every 64x64 product as three TF32 MMAs (3xTF32), so their tensor-core
+# bound counts 3x the FLOP at this rate
 TF32_FLOPS = 495e12
 # LM slice: gemma3-12b, attention at the prefill's shape
 LM_ARCH = "gemma3_12b"
@@ -225,6 +227,18 @@ def bound_ms(n_bytes: float, flops: float,
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def tensor_core_fields(fn, n_bytes: float, flops: float) -> dict:
+    """For the FastEGNN edge and virtual kernels (3xTF32 products): the
+    bound at the TF32 tensor-core rate (3 x the FLOP), and the device
+    kernels one call of ``fn`` launches with their device times."""
+    tc_ms, tc_by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
+    k_n, k_us = device_kernels_per_call(fn)
+    return dict(bound_3xtf32_ms=tc_ms, bound_3xtf32_by=tc_by,
+                kernels_per_call=k_n, kernels_us=k_us,
+                device_ms=(sum(k_us.values()) / 1e3 if k_us
+                           else "not measured"))
+
+
 def device_kernels_per_call(fn) -> tuple:
     """The device kernels (and copies) that one call of ``fn`` launches,
     read from ``torch.profiler``: their number and each one's device time
@@ -296,6 +310,20 @@ def serving_graph(x0, node_cap: int, r_build: float, r_step: float, dev):
 
 
 def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
+    line, rows = kernel_rows(pipe, scene, dev)
+    for row in rows:
+        if not (row["within_tol"] and row["bitwise_repeatable"]):
+            raise AssertionError(f"kernel {row['name']} disagrees with its "
+                                 f"plain version: {json.dumps(line)}")
+        if row.get("planted_fault", {}).get("within_tol"):
+            raise AssertionError(f"kernel {row['name']}: the planted fault "
+                                 f"lands inside the tolerance: "
+                                 f"{json.dumps(line)}")
+    return line, rows
+
+
+def kernel_rows(pipe, scene, dev) -> tuple[dict, list]:
+    """The kernels phase's readings at the serving shapes, unchecked."""
     import torch
 
     from repro_torch.core.virtual_nodes import (init_virtual_coords,
@@ -329,13 +357,19 @@ def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
     rows = []
     with torch.no_grad():
         # edge forward
-        got = edge_message.edge_pathway_fused(*e_args, **kw)
-        again = edge_message.edge_pathway_fused(*e_args, **kw)
+        run = lambda: edge_message.edge_pathway_fused(*e_args, **kw)
+        got, again = run(), run()
         want = edge_message.edge_pathway_plain(*e_args, **kw)
         cmp_e = compare(got, want)
-        cmp_e["bitwise_repeatable"] = all(
-            torch.equal(a, b) for a, b in zip(got, again))
-        live = int((em[:n_edges] != 0).sum())
+        cmp_e["bitwise_repeatable"] = repeat_equal(got, again)
+        # planted fault: one live slot's mask zeroed in the kernel's call only
+        live_slots = torch.nonzero(em[:n_edges]).flatten()
+        em_bad = em.clone()
+        em_bad[live_slots[live_slots.numel() // 2]] = 0.0
+        cmp_e["planted_fault"] = compare(edge_message.edge_pathway_fused(
+            *e_args[:3], em_bad, *e_args[4:], **kw), want)
+        del got, again, want
+        live = int(live_slots.numel())
         e_bytes = (n * (3 + hid) * 4 + n_edges * 8 + (n + 1) * 4
                    + (4 * hid * hid + 5 * hid) * 4 + n * (3 + hid + 1) * 4)
         # the function's own work: h·W1r and h·W1s once per node, then per
@@ -347,19 +381,25 @@ def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
             name="edge_pathway_fused", route="cuda",
             source="src/repro_torch/csrc/edge_message.cu",
             replaces="src/repro/kernels/edge_message.py:396",
-            ms=cuda_ms(lambda: edge_message.edge_pathway_fused(*e_args, **kw)),
+            ms=cuda_ms(run),
             plain_ms=cuda_ms(
                 lambda: edge_message.edge_pathway_plain(*e_args, **kw), 10, 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **tensor_core_fields(run, e_bytes, e_flops),
             shapes=dict(n=n, slots=int(snd.shape[0]), n_edges=n_edges,
                         live_edges=live, hidden=hid), **cmp_e))
         # virtual forward
-        got = virtual_message.virtual_pathway_fused(*v_args)
-        again = virtual_message.virtual_pathway_fused(*v_args)
+        run = lambda: virtual_message.virtual_pathway_fused(*v_args)
+        got, again = run(), run()
         want = virtual_message.virtual_pathway_plain(*v_args)
         cmp_v = compare(got, want)
-        cmp_v["bitwise_repeatable"] = all(
-            torch.equal(a, b) for a, b in zip(got, again))
+        cmp_v["bitwise_repeatable"] = repeat_equal(got, again)
+        # planted fault: one node's mask flipped in the kernel's call only
+        nm_bad = nm.clone()
+        nm_bad[0] = 1.0 - nm_bad[0]
+        cmp_v["planted_fault"] = compare(virtual_message.virtual_pathway_fused(
+            *v_args[:3], nm_bad, *v_args[4:]), want)
+        del got, again, want
         v_bytes = (n * (3 + hid + 1) * 4 + c * (4 * hid * hid + 7 * hid + 3) * 4
                    + n * (3 + hid) * 4 + c * (3 + hid) * 4)
         v_flops = n * c * (4 * 2 * hid * hid + 4 * hid)
@@ -368,10 +408,11 @@ def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
             name="virtual_pathway_fused", route="cuda",
             source="src/repro_torch/csrc/virtual_message.cu",
             replaces="src/repro/kernels/virtual_message.py:91",
-            ms=cuda_ms(lambda: virtual_message.virtual_pathway_fused(*v_args)),
+            ms=cuda_ms(run),
             plain_ms=cuda_ms(
                 lambda: virtual_message.virtual_pathway_plain(*v_args)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **tensor_core_fields(run, v_bytes, v_flops),
             shapes=dict(n=n, channels=c, hidden=hid), **cmp_v))
         rows += backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev)
     line = {"phase": "kernels",
@@ -379,14 +420,6 @@ def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
                           "grads_relative_to_max": {"atol": GATOL,
                                                     "rtol": GRTOL}},
             "kernels": rows}
-    for row in rows:
-        if not (row["within_tol"] and row["bitwise_repeatable"]):
-            raise AssertionError(f"kernel {row['name']} disagrees with its "
-                                 f"plain version: {json.dumps(line)}")
-        if row.get("planted_fault", {}).get("within_tol"):
-            raise AssertionError(f"kernel {row['name']}: the planted fault "
-                                 f"lands inside the tolerance: "
-                                 f"{json.dumps(line)}")
     return line, rows
 
 
@@ -439,16 +472,13 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
     # products over the per-node sums of g_pre1)
     e_flops = (live + n) * 6 * 2 * hid * hid
     b_ms, b_by = bound_ms(e_bytes, e_flops)
-    tc_ms, tc_by = bound_ms(e_bytes, 3 * e_flops, TF32_FLOPS)
-    k_n, k_us = device_kernels_per_call(run)
     rows.append(dict(
         name="edge_pathway_bwd_fused", route="cuda",
         source="src/repro_torch/csrc/edge_message_bwd.cu",
         replaces="src/repro/kernels/edge_message.py:661",
         ms=cuda_ms(run), plain_ms=cuda_ms(plain, 10, 2), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, bound_3xtf32_ms=tc_ms,
-        bound_3xtf32_by=tc_by, kernels_per_call=k_n, kernels_us=k_us,
-        device_ms=sum(k_us.values()) / 1e3 if k_us else "not measured",
+        bound_by=b_by, library_ms=None,
+        **tensor_core_fields(run, e_bytes, e_flops),
         shapes=dict(n=n, slots=int(snd.shape[0]), n_edges=n_edges,
                     live_edges=live, hidden=hid), **cmp))
     # virtual backward
@@ -476,16 +506,13 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
     # cotangents) and four outer products
     v_flops = n * c * 12 * 2 * hid * hid
     b_ms, b_by = bound_ms(v_bytes, v_flops)
-    tc_ms, tc_by = bound_ms(v_bytes, 3 * v_flops, TF32_FLOPS)
-    k_n, k_us = device_kernels_per_call(run)
     rows.append(dict(
         name="virtual_pathway_bwd_fused", route="cuda",
         source="src/repro_torch/csrc/virtual_message_bwd.cu",
         replaces="src/repro/kernels/virtual_message.py:234",
         ms=cuda_ms(run), plain_ms=cuda_ms(plain, 10, 2), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, bound_3xtf32_ms=tc_ms,
-        bound_3xtf32_by=tc_by, kernels_per_call=k_n, kernels_us=k_us,
-        device_ms=sum(k_us.values()) / 1e3 if k_us else "not measured",
+        bound_by=b_by, library_ms=None,
+        **tensor_core_fields(run, v_bytes, v_flops),
         shapes=dict(n=n, channels=c, hidden=hid), **cmp))
     # MMD cross sum and gradient over every node (the train phase's mode)
     xs = x.contiguous()
@@ -619,9 +646,11 @@ def phase_scale(pipe, dev) -> dict:
         raise AssertionError(f"scale step gave shape {tuple(out.shape)} or "
                              f"non-finite values")
     return {"phase": "scale", "particles": SCALE_PARTICLES, "node_cap": n,
-            "edges": n_edges, "graph_build_s": build_s,
+            "edges": n_edges, "live_edges": int((em[:n_edges] != 0).sum()),
+            "graph_build_s": build_s,
             "step_ms_median": 1e3 * statistics.median(times),
-            "step_ms_min": 1e3 * min(times)}
+            "step_ms_min": 1e3 * min(times),
+            "profile_step": profile_step(step)}
 
 
 class _GradsOut:
@@ -681,7 +710,7 @@ def profile_step(fn) -> dict:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
-    top = sorted(events, key=dev_us, reverse=True)[:8]
+    top = sorted(events, key=dev_us, reverse=True)[:12]
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy_ms if events else "not measured",
             "idle_share": 1 - busy_ms / wall_ms if events else "not measured",

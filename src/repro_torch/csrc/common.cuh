@@ -1,6 +1,6 @@
-// Tile machinery shared by the backward kernels (edge_message_bwd.cu,
-// virtual_message_bwd.cu).  Header only; each including file gets its own
-// copy inside an anonymous namespace.
+// Tile machinery shared by the FastEGNN kernels (edge_message.cu,
+// edge_message_bwd.cu, virtual_message.cu, virtual_message_bwd.cu).  Header
+// only; each including file gets its own copy inside an anonymous namespace.
 //
 // * A tile is 64 rows (nodes or edge slots) x 64 features of f32 in shared
 //   memory, row-major with an XOR swizzle of 16-byte granules
@@ -15,12 +15,23 @@
 //   (+ 1) of accumulator tile jn, the layout of mma.m16n8k8.
 // * `tile_mma` runs the products on the tensor cores with
 //   mma.sync.m16n8k8 in TF32, split three ways ("3xTF32"): each operand
-//   a = a_hi + a_lo, both parts cut to TF32 by a bit mask, and
-//   acc += a_lo b_hi + a_hi b_lo + a_hi b_hi.  The dropped a_lo b_lo term
-//   and the cut of a_lo leave ~2^-21 of each product, so the products keep
-//   f32 accuracy (a single TF32 pass keeps ~3 digits and misses the f32
-//   gradient tolerance).  Every sum runs in a fixed order: the MMA's own
-//   k order, k-steps in order, and the butterfly row / column sums below.
+//   a = a_hi + a_lo, a_hi rounded to the nearest TF32 value and a_lo cut
+//   to TF32 (`split_tf32`), and acc += a_lo b_hi + a_hi b_lo + a_hi b_hi.
+//   The dropped a_lo b_lo term and the cut of a_lo leave ~2^-21 of each
+//   product, of either sign (cutting a_hi too would make every product a
+//   little too small), so the products keep f32 accuracy; a single TF32
+//   pass keeps ~3 digits and misses the f32 tolerances.  The tensor core
+//   rounds each MMA's result toward zero: see STEP_SUM below.  Every sum
+//   runs in a fixed order: the MMA's own k order, k-steps in order, and
+//   the butterfly row / column sums below.
+//   A row of a product depends on that row of A alone, wherever it sits
+//   in the tile, so a per-edge result does not depend on how edges were
+//   packed into tiles.
+// * The edge pathway's pieces used by its forward and backward: the node
+//   projection `node_proj` (P = h.W1r, Q = h.W1s once per node), and
+//   `for_live_tiles`, which packs the live slots of a slot range into
+//   64-row tiles in slot order.  The virtual pathway's: the per-channel
+//   vectors `load_virtual_vecs`.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,11 +88,17 @@ __device__ __forceinline__ void frag_zero(Frag& a) {
     for (int e = 0; e < 4; ++e) a[j][e] = 0.0f;
 }
 
+// a = hi + lo, both TF32 values: hi is a rounded to the nearest TF32 value
+// (half an ulp added to the bits, ties away from zero, the 13 low bits
+// cleared) and lo the rest a - hi (exact) cut to TF32 by the mask.  The rest
+// has either sign, so cutting it biases no product.  Where a is NaN, a - hi
+// is NaN and the mask keeps it, so the products stay NaN (hi alone may not
+// be: the add carries the card's NaN, 0x7fffffff, into -0); where a is
+// infinite, a - hi is NaN.
 __device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
                                            uint32_t& lo) {
-  const uint32_t h = __float_as_uint(a) & 0xffffe000u;
-  hi = h;
-  lo = __float_as_uint(a - __uint_as_float(h)) & 0xffffe000u;
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -95,7 +112,14 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // acc += op(A) . op(B) over k = 0..63 (3xTF32 tensor-core MMAs), with
 // op(A)[m][k] = TA ? A[k][m] : A[m][k] and op(B)[k][n] = TB ? B[n][k] :
 // B[k][n]; A and B are swizzled tiles.
-template <bool TA, bool TB>
+// STEP_SUM: each k-step's three MMAs start from zero and the step's sum
+// joins acc by an f32 add.  The tensor core rounds an MMA's result toward
+// zero, so the 24 MMAs of a product into one accumulator leave every
+// result a few ulp too small; a masked sum of thousands of them (the
+// forwards' ms / dz sums) adds that bias up past the forward tolerance.
+// With STEP_SUM the eight round-to-nearest adds carry the running sum;
+// it costs 16 adds a k-step.
+template <bool TA, bool TB, bool STEP_SUM = false>
 __device__ __forceinline__ void tile_mma(Frag& acc, const float* A,
                                          const float* B, const Lane& L) {
   // Offsets hoisted out of the k loop.  Row m & 7 = g for every row this
@@ -136,12 +160,21 @@ __device__ __forceinline__ void tile_mma(Frag& acc, const float* A,
         split_tf32(B[b_off[jn][j] + sb], bh[jn][j], bl[jn][j]);
     // the three passes in turn over the four accumulator tiles, so that
     // consecutive MMAs are independent
+    Frag step;
+    if (STEP_SUM) frag_zero(step);
+    float(&d)[4][4] = STEP_SUM ? step : acc;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) mma_tf32(acc[jn], al, bh[jn]);
+    for (int jn = 0; jn < 4; ++jn) mma_tf32(d[jn], al, bh[jn]);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) mma_tf32(acc[jn], ah, bl[jn]);
+    for (int jn = 0; jn < 4; ++jn) mma_tf32(d[jn], ah, bl[jn]);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) mma_tf32(acc[jn], ah, bh[jn]);
+    for (int jn = 0; jn < 4; ++jn) mma_tf32(d[jn], ah, bh[jn]);
+    if (STEP_SUM) {
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jn][e] += step[jn][e];
+    }
   }
 }
 
@@ -270,5 +303,177 @@ inline bool aligned16(const void* p) {
 }
 
 inline size_t round4(size_t v) { return (v + 3) & ~size_t(3); }
+
+int n_tiles(int n) { return (n + TR - 1) / TR; }
+
+// ------------------------------------------------------------ edge pathway
+// The first layer splits per node: pre1 = ((P_r + Q_s) + d2 w1d) + b1 with
+// P = h.W1r and Q = h.W1s.
+
+// the length of the equal share of the live slot range [0, live_end) that
+// each of `n_ctas` edge CTAs starts from
+__device__ __forceinline__ int slot_share(int live_end, int n_ctas) {
+  return max(1, (live_end + n_ctas - 1) / n_ctas);
+}
+
+constexpr int PROJ_SMEM_FLOATS = 3 * TILE_F;
+
+// One CTA per 64 nodes: P = h.W1r, Q = h.W1s for them (3xTF32 tile
+// products), and rowof[s] = the receiver row of every slot s of their CSR
+// rows.  If `ctarow` is given, also the rows of the forward's `n_ctas` edge
+// CTAs: ctarow[b] (0 < b < n_ctas) is the first row whose CSR segment
+// starts at or after b * slot_share(indptr[N], n_ctas), else N;
+// ctarow[0] = 0, ctarow[n_ctas] = N.  CTA b owns rows [ctarow[b],
+// ctarow[b + 1]) -- whole rows, every row once, the last CTA also the
+// empty rows at the end.  Row r writes the entries b in (c(r - 1), c(r)],
+// c(r) = min(indptr[r] / share, n_ctas - 1), c(-1) = -1; row N writes
+// (c(N - 1), n_ctas].
+__global__ void __launch_bounds__(THREADS)
+node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
+          const float* __restrict__ w1s, const int* __restrict__ indptr,
+          float* __restrict__ P, float* __restrict__ Q,
+          int* __restrict__ rowof, int* __restrict__ ctarow, int n_nodes,
+          int n_ctas) {
+  extern __shared__ float4 smem4[];
+  float* tH = reinterpret_cast<float*>(smem4);
+  float* sWr = tH + TILE_F;
+  float* sWs = sWr + TILE_F;
+  const int node0 = blockIdx.x * TR;
+  tile_load_async(sWr, w1r);
+  tile_load_async(sWs, w1s);
+  async_commit();
+  tile_gather(tH, h,
+              [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  // warp w: rows node0 + 8 w .. + 7; lane l <= 8 holds indptr[node0 + 8 w + l]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = node0 + 8 * warp;
+  const int ip = lane <= 8 && r0 + lane <= n_nodes ? indptr[r0 + lane] : 0;
+#pragma unroll 1
+  for (int k = 0; k < 8; ++k) {
+    const int beg = __shfl_sync(FULL, ip, k);
+    const int end = __shfl_sync(FULL, ip, k + 1);
+    if (r0 + k < n_nodes)
+      for (int s = beg + lane; s < end; s += 32) rowof[s] = r0 + k;
+  }
+  if (ctarow != nullptr) {
+    const int share = slot_share(indptr[n_nodes], n_ctas);
+    const int hi = blockIdx.x == gridDim.x - 1 ? n_nodes + 1 : node0 + TR;
+    for (int r = node0 + threadIdx.x; r < hi; r += blockDim.x) {
+      const int lo = r == 0 ? -1 : min(indptr[r - 1] / share, n_ctas - 1);
+      const int up =
+          r == n_nodes ? n_ctas : min(indptr[r] / share, n_ctas - 1);
+      for (int b = lo + 1; b <= up; ++b) ctarow[b] = r;
+    }
+  }
+  async_wait_all();
+  __syncthreads();
+  const Lane L = lane_of();
+  float* dst[2] = {P, Q};
+  const float* W[2] = {sWr, sWs};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    Frag a;
+    frag_zero(a);
+    tile_mma<false, false>(a, tH, W[k], L);
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int i = node0 + L.row(2 * h2);
+        if (i < n_nodes)
+          *reinterpret_cast<float2*>(dst[k] + (size_t)i * HID + L.col(jn, 0)) =
+              make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
+      }
+  }
+}
+
+// The queue of live slots: slot, receiver row, sender and mask of each,
+// PEND entries apiece, and the per-warp counts of the block-wide scan.
+constexpr int PEND = TR + THREADS;
+constexpr int QUEUE_WORDS = 4 * PEND + THREADS / 32;
+
+struct LiveQueue {
+  int *slot, *row, *snd;
+  float* em;
+  int* wcount;
+  __device__ explicit LiveQueue(int* base)
+      : slot(base), row(base + PEND), snd(base + 2 * PEND),
+        em(reinterpret_cast<float*>(base + 3 * PEND)),
+        wcount(base + 4 * PEND) {}
+};
+
+// tile(cnt) over the live slots (em != 0) of [beg, end), in slot order:
+// THREADS slots at a time join the queue by a block-wide ballot scan;
+// whenever 64 are queued, tile(64) takes the first 64 and the rest move
+// up; tile(cnt) takes the last cnt < 64.  Every thread of the CTA calls
+// it; `tile` must end with a __syncthreads().
+template <typename Tile>
+__device__ __forceinline__ void for_live_tiles(
+    const float* __restrict__ em, const int* __restrict__ rowof,
+    const int* __restrict__ snd, int beg, int end, const LiveQueue& q,
+    Tile&& tile) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int cnt = 0;  // queued live slots (the same on every thread)
+  for (int base = beg; base < end; base += THREADS) {
+    const int slot = base + tid;
+    const float e = slot < end ? em[slot] : 0.0f;
+    const bool live = e != 0.0f;
+    const unsigned m = __ballot_sync(FULL, live);
+    if (lane == 0) q.wcount[warp] = __popc(m);
+    __syncthreads();
+    int off = cnt, total = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      off += w < warp ? q.wcount[w] : 0;
+      total += q.wcount[w];
+    }
+    if (live) {
+      const int k = off + __popc(m & ((1u << lane) - 1u));
+      q.slot[k] = slot;
+      q.row[k] = rowof[slot];
+      q.snd[k] = snd[slot];
+      q.em[k] = e;
+    }
+    cnt += total;
+    __syncthreads();
+    while (cnt >= TR) {
+      tile(TR);
+      const int rest = cnt - TR;
+      int v0 = 0, v1 = 0, v2 = 0;
+      float v3 = 0.0f;
+      if (tid < rest) {
+        v0 = q.slot[TR + tid];
+        v1 = q.row[TR + tid];
+        v2 = q.snd[TR + tid];
+        v3 = q.em[TR + tid];
+      }
+      __syncthreads();
+      if (tid < rest) {
+        q.slot[tid] = v0;
+        q.row[tid] = v1;
+        q.snd[tid] = v2;
+        q.em[tid] = v3;
+      }
+      __syncthreads();
+      cnt = rest;
+    }
+  }
+  if (cnt > 0) tile(cnt);
+}
+
+// --------------------------------------------------------- virtual pathway
+// The seven per-channel vectors, in this order
+constexpr int NVEC = 7;
+enum { V_W1D = 0, V_C1, V_B2, V_BG1, V_WG2, V_BZ1, V_WZ2 };
+
+// dst[v * 64 + j] = vector v of channel c (cp.async; the caller commits)
+__device__ __forceinline__ void load_virtual_vecs(
+    float* dst, int c, const float* w1d, const float* c1, const float* b2,
+    const float* bg1, const float* wg2, const float* bz1, const float* wz2) {
+  const float* src[NVEC] = {w1d, c1, b2, bg1, wg2, bz1, wz2};
+#pragma unroll
+  for (int v = 0; v < NVEC; ++v)
+    vec_load_async(dst + v * HID, src[v] + (size_t)c * HID, HID);
+}
 
 }  // namespace

@@ -4,262 +4,313 @@
 // Replaces the Pallas TPU kernel `edge_pathway_fused` (`_edge_kernel`) of
 // the JAX package's kernels/edge_message.py.  It computes the same
 // function, not the same blocks: the TPU kernel regrouped edges into
-// (receiver-window x sender-window) bands and gathered/scattered with
+// (receiver-window x sender-window) bands and gathered / scattered with
 // one-hot matmuls on the MXU; here the layout is a receiver-sorted CSR
-// (`indptr`, N+1 row offsets into the slot arrays) and a warp owns one
-// receiver row at a time.
-//
-// Per receiver row r (one warp, rows strided over the grid):
-//   A      = h_r . W1r                                    (once per row)
-//   per live slot e in [indptr[r], indptr[r+1]) with em[e] != 0, in slot order:
-//     d2   = |x_r - x_s|^2
-//     msg  = SiLU(A + h_s . W1s + d2 * w1d + b1) . W2 + b2
-//     mh  += msg * em ;  deg += em
-//     gate = clip(SiLU(msg . Wg1 + bg1) . wg2, -clamp, clamp)   (gate 'mlp')
-//     dx  += rel * gate * em   (rel = x_r - x_s, or rel / (|rel| + 1))
+// (`indptr`, N+1 row offsets into the slot arrays).  Per receiver r and
+// live slot e = (r <- s) (em[e] != 0), in slot order:
+//   d2   = |x_r - x_s|^2
+//   msg  = SiLU(((P_r + Q_s) + d2 w1d) + b1) . W2 + b2,  P = h.W1r, Q = h.W1s
+//   mh  += msg em ;  deg += em
+//   gate = clip(SiLU(msg . Wg1 + bg1) . wg2, -clamp, clamp)   (gate 'mlp')
+//   dx  += (rel gate) em   (rel = x_r - x_s, or rel / (|rel| + 1))
 //   mh /= max(deg, 1) ; dx /= max(deg, 1)
-// Slots with em == 0 (padding, Verlet candidates outside r, dropped edges)
-// are skipped: they would add exact zeros.  Nothing of size E x 64 reaches
-// device memory, the sums run in slot order with no atomics, so repeated
-// runs are bitwise equal and independent of how many masked slots a row has.
 //
-// Tiling: the live slots of a row are compacted with a warp ballot into
-// tiles of TE = 8 edges.  A tile's 64-wide input vectors sit in a per-warp
-// shared buffer laid out [k][t]; each lane owns output columns j = lane and
-// j = lane + 32, so one 64x64 matvec over the tile costs 64 x (two
-// broadcast float4 reads + two weight reads) for 16 FMAs per lane.  W1r,
-// W1s, W2 and Wg1 (4 x 16 KB) and the bias rows stay in shared memory for
-// the life of the CTA.
+// Two launches on one stream, no atomics:
+//   1. node_proj (common.cuh)  CTA per 64 nodes: P and Q once per node as
+//      tile products, the receiver row of every slot, and the rows each
+//      edge CTA owns.
+//   2. edge_fwd_edges  `n_ctas` CTAs.  CTA b owns the receiver rows whose
+//      CSR segment starts inside its equal share of [0, indptr[N]), so a
+//      row is never split and a 200-edge hub row is just more tiles in one
+//      CTA.  It packs the live slots of its rows, in slot order, into
+//      64-edge tiles (`for_live_tiles`).  Per tile: gather pre1 = P_r + Q_s
+//      + d2 w1d + b1 with the SiLU into a swizzled tile, msg = t1.W2 + b2
+//      and the gate's msg.Wg1 as 3xTF32 tensor-core tile products
+//      (common.cuh, each k-step summed on its own: STEP_SUM), the gate's
+//      dot with wg2 as a fixed-order row sum.
+//      Its products are rounded on their own (`__fmul_rn`): an FMA that
+//      fused one of them into the sum would be chosen per unrolled
+//      fragment slot, and a row's gate would depend on its tile row.
+//      Then each row's mh, deg and dx start from zero and add its live
+//      edges one at a time in slot order (64 threads a row, one a column;
+//      four rows at a time), carried across tile boundaries; a finished
+//      row is divided by max(deg, 1) and written once; rows without a
+//      live slot get zeros.
+// Masked slots never enter a tile (an Inf there cannot become a NaN), and
+// each output depends only on its row's live edges and their order: not on
+// the CTA count, the SM count, or how many masked slots the layout holds
+// (a trajectory is bitwise independent of the Verlet skin).  Repeated runs
+// are bitwise equal.  W2 and Wg1 stay in shared memory as swizzled tiles;
+// ~75 KB of shared memory and at most 128 registers give two CTAs an SM.
 //
-// Bound on an H100: the function needs 2 dense 64x64 matvecs in f32 per
-// live edge (.W2 and .Wg1: 16,384 FLOP) plus 2 per node (h.W1r and h.W1s,
-// each computable once per node), against a 256-byte gather of h_s per
-// edge.  That is ~64 FLOP per byte, above the f32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/B), so the bound is f32 operations on the CUDA
-// cores.  This kernel does more than the bound counts: it recomputes
-// h_s.W1s per edge (a third matvec) instead of in a per-node pre-pass, and
-// its shared-memory reads are what limit the FMA rate.
-#include <cuda_runtime.h>
+// Bound on an H100: per live edge two 64 x 64 products (.W2, .Wg1) and per
+// node two (h.W1r, h.W1s), ~18K FLOP per edge against a 256-byte gather of
+// Q_s: above the f32 ridge, so bound by operations -- 1.52 GFLOP at the
+// serving shapes (8,192 nodes, 84,806 live edges), 0.0229 ms at the
+// 67 TFLOP/s f32 rate, and 0.0092 ms for its three TF32 MMAs a product at
+// 495 TFLOP/s.  Every product here is a tensor-core tile product; the
+// elementwise SiLU, the gate and the ordered row sums run on the FP32
+// units.
+#include "common.cuh"
 
 namespace {
 
-constexpr int HID = 64;    // Dh = H1 = M = HG
-constexpr int TE = 8;      // live edges per warp tile
-constexpr int WARPS = 8;   // warps per CTA
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_FLOATS = 4 * HID * HID + 5 * HID + WARPS * HID * TE;
+// edge-pass row data (64 each): mask, rel, d2, the edge's dx term
+enum { F_E = 0, F_REL0, F_REL1, F_REL2, F_D2, F_DX0, F_DX1, F_DX2, F_N };
+// carried sums of an unfinished row: mh (64) | deg | dx (3)
+constexpr int CARRY = HID + 4;
+constexpr int EDGE_SMEM_FLOATS = 4 * TILE_F + 5 * HID + F_N * TR +
+                                 QUEUE_WORDS + 2 * TR + (TR + 8) + 2 * CARRY;
+constexpr int BLOCKS_PER_SM = 2;
 
-__device__ __forceinline__ float silu(float u) { return u / (1.0f + expf(-u)); }
-
-// acc{0,1}[t] += sum_k buf[k][t] * W[k][j], j = lane / lane + 32
-__device__ __forceinline__ void tile_matvec(const float* __restrict__ buf,
-                                            const float* __restrict__ W,
-                                            int lane, float* acc0, float* acc1) {
-#pragma unroll 8
-  for (int k = 0; k < HID; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(buf + k * TE);
-    const float4 b = *reinterpret_cast<const float4*>(buf + k * TE + 4);
-    const float w0 = W[k * HID + lane];
-    const float w1 = W[k * HID + lane + 32];
-    const float v[TE] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int t = 0; t < TE; ++t) {
-      acc0[t] = fmaf(v[t], w0, acc0[t]);
-      acc1[t] = fmaf(v[t], w1, acc1[t]);
-    }
-  }
-}
-
-// buf[j][t] = v{0,1}[t] for this lane's two columns
-__device__ __forceinline__ void tile_store(float* buf, int lane,
-                                           const float* v0, const float* v1) {
-  float4* p0 = reinterpret_cast<float4*>(buf + lane * TE);
-  float4* p1 = reinterpret_cast<float4*>(buf + (lane + 32) * TE);
-  p0[0] = make_float4(v0[0], v0[1], v0[2], v0[3]);
-  p0[1] = make_float4(v0[4], v0[5], v0[6], v0[7]);
-  p1[0] = make_float4(v1[0], v1[1], v1[2], v1[3]);
-  p1[1] = make_float4(v1[4], v1[5], v1[6], v1[7]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-  return v;  // identical bits on every lane (each step adds commuted pairs)
-}
-
-__global__ void __launch_bounds__(WARPS * 32, 2)
-edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                const int* __restrict__ snd, const float* __restrict__ em,
-                const int* __restrict__ indptr,
-                const float* __restrict__ w1r, const float* __restrict__ w1s,
-                const float* __restrict__ w1d, const float* __restrict__ b1,
-                const float* __restrict__ w2, const float* __restrict__ b2,
-                const float* __restrict__ wg1, const float* __restrict__ bg1,
-                const float* __restrict__ wg2,
-                float* __restrict__ dx, float* __restrict__ mh,
-                float* __restrict__ deg,
-                int n_nodes, int gate_mlp, int rel_inv1p, float clamp) {
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
+               const float* __restrict__ em, const int* __restrict__ indptr,
+               const int* __restrict__ rowof, const int* __restrict__ ctarow,
+               const float* __restrict__ P, const float* __restrict__ Q,
+               const float* __restrict__ w1d, const float* __restrict__ b1,
+               const float* __restrict__ w2, const float* __restrict__ b2,
+               const float* __restrict__ wg1, const float* __restrict__ bg1,
+               const float* __restrict__ wg2, float* __restrict__ dx,
+               float* __restrict__ mh, float* __restrict__ deg, int gate_mlp,
+               int rel_inv1p, float clamp) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* sW1r = smem;
-  float* sW1s = sW1r + HID * HID;
-  float* sW2 = sW1s + HID * HID;
-  float* sWg1 = sW2 + HID * HID;
-  float* sw1d = sWg1 + HID * HID;
+  float* sW2 = smem;
+  float* sWg1 = sW2 + TILE_F;
+  float* tT1 = sWg1 + TILE_F;
+  float* tMSG = tT1 + TILE_F;
+  float* sw1d = tMSG + TILE_F;
   float* sb1 = sw1d + HID;
   float* sb2 = sb1 + HID;
   float* sbg1 = sb2 + HID;
   float* swg2 = sbg1 + HID;
+  float* rq = swg2 + HID;  // [F_N][64]
+  const LiveQueue lq(reinterpret_cast<int*>(rq + F_N * TR));
+  // [2][64]
+  float* rowred = reinterpret_cast<float*>(lq.wcount + THREADS / 32);
+  int* seg = reinterpret_cast<int*>(rowred + 2 * TR);  // segment starts
+  // meta[0]: segments of the tile; meta[1 + k]: row of carry buffer k
+  // (-1: none); meta[3], meta[4]: the segment-start ballots
+  int* meta = seg + TR + 1;
+  float* carry = reinterpret_cast<float*>(meta + 7);  // [2][CARRY]
+  auto RQ = [&](int k) { return rq + k * TR; };
+
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* buf = swg2 + HID + warp * HID * TE;
-
-  for (int i = tid; i < HID * HID; i += blockDim.x) {
-    sW1r[i] = w1r[i];
-    sW1s[i] = w1s[i];
-    sW2[i] = w2[i];
-    sWg1[i] = gate_mlp ? wg1[i] : 0.0f;
+  const Lane L = lane_of();
+  tile_load_async(sW2, w2);
+  if (gate_mlp) tile_load_async(sWg1, wg1);
+  async_commit();
+  if (tid < HID) {
+    sw1d[tid] = w1d[tid];
+    sb1[tid] = b1[tid];
+    sb2[tid] = b2[tid];
+    sbg1[tid] = gate_mlp ? bg1[tid] : 0.0f;
+    swg2[tid] = gate_mlp ? wg2[tid] : 0.0f;
   }
-  for (int i = tid; i < HID; i += blockDim.x) {
-    sw1d[i] = w1d[i];
-    sb1[i] = b1[i];
-    sb2[i] = b2[i];
-    sbg1[i] = gate_mlp ? bg1[i] : 0.0f;
-    swg2[i] = gate_mlp ? wg2[i] : 0.0f;
-  }
-  __syncthreads();
+  if (tid == 0) meta[1] = meta[2] = -1;
+  const int row_lo = ctarow[blockIdx.x], row_hi = ctarow[blockIdx.x + 1];
+  // the row sums: thread (grp, j) adds column j of every fourth segment
+  const int j = tid & (HID - 1), grp = tid / HID;
+  int cur = 0;  // the carry buffer the next tile reads
 
-  for (int row = blockIdx.x * WARPS + warp; row < n_nodes;
-       row += gridDim.x * WARPS) {
-    const int beg = indptr[row];
-    const int end = indptr[row + 1];
-    const float xr0 = x[3 * row], xr1 = x[3 * row + 1], xr2 = x[3 * row + 2];
-    // receiver projection, j = lane / lane + 32
-    const float* hr = h + (size_t)row * HID;
-    float a0 = 0.0f, a1 = 0.0f;
-    for (int k = 0; k < HID; ++k) {
-      const float hk = hr[k];
-      a0 = fmaf(hk, sW1r[k * HID + lane], a0);
-      a1 = fmaf(hk, sW1r[k * HID + lane + 32], a1);
+  // row r is complete: its sums over max(deg, 1), written once
+  auto finish = [&](int r, float a, float dg, float d) {
+    const float inv = 1.0f / fmaxf(dg, 1.0f);
+    mh[(size_t)r * HID + j] = a * inv;
+    if (j < 3) dx[3 * r + j] = d * inv;
+    if (j == 0) deg[r] = dg;
+  };
+
+  // one tile: the first `cnt` (<= 64) live slots of the queue
+  auto tile = [&](int cnt) {
+    if (tid < TR) {
+      const bool live = tid < cnt;
+      float rel[3] = {0.f, 0.f, 0.f}, d2 = 0.f;
+      int r = -1;
+      if (live) {
+        r = lq.row[tid];
+        const int s = lq.snd[tid];
+        rel[0] = x[3 * r] - x[3 * s];
+        rel[1] = x[3 * r + 1] - x[3 * s + 1];
+        rel[2] = x[3 * r + 2] - x[3 * s + 2];
+        d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
+      }
+      RQ(F_E)[tid] = live ? lq.em[tid] : 0.0f;
+      RQ(F_D2)[tid] = d2;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        RQ(F_REL0 + k)[tid] = rel[k];
+        RQ(F_DX0 + k)[tid] = 0.0f;
+      }
+      // a row's first live slot in the tile starts a segment
+      const bool first = live && (tid == 0 || lq.row[tid - 1] != r);
+      const unsigned m = __ballot_sync(FULL, first);
+      if ((tid & 31) == 0) meta[3 + (tid >> 5)] = (int)m;
     }
-    float mh0 = 0.0f, mh1 = 0.0f, dg = 0.0f;
-    float dx0 = 0.0f, dx1 = 0.0f, dx2 = 0.0f;
-
-    for (int base = beg; base < end; base += 32) {
-      const int s = base + lane;
-      const float e_l = s < end ? em[s] : 0.0f;
-      const int snd_l = s < end ? snd[s] : 0;
-      unsigned live = __ballot_sync(FULL, e_l != 0.0f);
-      while (live) {  // `live` is warp-uniform: every lane takes this path
-        int ts[TE];
-        float te[TE];
-#pragma unroll
-        for (int t = 0; t < TE; ++t) {
-          const int b = live ? __ffs(live) - 1 : 0;
-          const float eb = __shfl_sync(FULL, e_l, b);
-          ts[t] = __shfl_sync(FULL, snd_l, b);
-          te[t] = live ? eb : 0.0f;
-          live &= live - 1;
-        }
-        // gather the tile's sender features into buf[k][t]
-        float v0[TE], v1[TE];
-#pragma unroll
-        for (int t = 0; t < TE; ++t) {
-          const float* hs = h + (size_t)ts[t] * HID;
-          v0[t] = te[t] != 0.0f ? hs[lane] : 0.0f;
-          v1[t] = te[t] != 0.0f ? hs[lane + 32] : 0.0f;
-        }
-        __syncwarp();
-        tile_store(buf, lane, v0, v1);
-        __syncwarp();
-        float p0[TE], p1[TE], d2[TE], r0[TE], r1[TE], r2[TE];
-#pragma unroll
-        for (int t = 0; t < TE; ++t) {
-          p0[t] = 0.0f;
-          p1[t] = 0.0f;
-          const int sn = ts[t];
-          r0[t] = xr0 - x[3 * sn];
-          r1[t] = xr1 - x[3 * sn + 1];
-          r2[t] = xr2 - x[3 * sn + 2];
-          d2[t] = r0[t] * r0[t] + r1[t] * r1[t] + r2[t] * r2[t];
-        }
-        tile_matvec(buf, sW1s, lane, p0, p1);
-#pragma unroll
-        for (int t = 0; t < TE; ++t) {
-          p0[t] = silu(((a0 + p0[t]) + d2[t] * sw1d[lane]) + sb1[lane]);
-          p1[t] = silu(((a1 + p1[t]) + d2[t] * sw1d[lane + 32]) + sb1[lane + 32]);
-        }
-        __syncwarp();
-        tile_store(buf, lane, p0, p1);
-        __syncwarp();
-        float m0[TE], m1[TE];
-#pragma unroll
-        for (int t = 0; t < TE; ++t) {
-          m0[t] = 0.0f;
-          m1[t] = 0.0f;
-        }
-        tile_matvec(buf, sW2, lane, m0, m1);
-#pragma unroll
-        for (int t = 0; t < TE; ++t) {
-          m0[t] += sb2[lane];
-          m1[t] += sb2[lane + 32];
-        }
-#pragma unroll
-        for (int t = 0; t < TE; ++t) {  // slot order; te == 0 pads the tile
-          if (te[t] != 0.0f) {
-            mh0 += m0[t] * te[t];
-            mh1 += m1[t] * te[t];
-            dg += te[t];
-          }
-        }
-        if (gate_mlp) {
-          __syncwarp();
-          tile_store(buf, lane, m0, m1);
-          __syncwarp();
-          float g0[TE], g1[TE];
-#pragma unroll
-          for (int t = 0; t < TE; ++t) {
-            g0[t] = 0.0f;
-            g1[t] = 0.0f;
-          }
-          tile_matvec(buf, sWg1, lane, g0, g1);
-#pragma unroll
-          for (int t = 0; t < TE; ++t) {
-            const float part = silu(g0[t] + sbg1[lane]) * swg2[lane] +
-                               silu(g1[t] + sbg1[lane + 32]) * swg2[lane + 32];
-            float gate = warp_sum(part);
-            gate = fminf(fmaxf(gate, -clamp), clamp);
-            if (te[t] != 0.0f) {
-              float q0 = r0[t], q1 = r1[t], q2 = r2[t];
-              if (rel_inv1p) {
-                const float k = sqrtf(d2[t] + 1e-12f) + 1.0f;
-                q0 /= k;
-                q1 /= k;
-                q2 /= k;
-              }
-              dx0 += q0 * gate * te[t];
-              dx1 += q1 * gate * te[t];
-              dx2 += q2 * gate * te[t];
-            }
-          }
-        }
-        __syncwarp();
+    __syncthreads();
+    if (tid < TR) {  // the segment starts, in order; seg[nseg] = cnt
+      const unsigned m0 = meta[3], m1 = meta[4];
+      const int lane = tid & 31;
+      const unsigned mine = tid < 32 ? m0 : m1;
+      if ((mine >> lane) & 1u)
+        seg[(tid < 32 ? 0 : __popc(m0)) + __popc(mine & ((1u << lane) - 1u))] =
+            tid;
+      if (tid == 0) {
+        const int ns = __popc(m0) + __popc(m1);
+        meta[0] = ns;
+        seg[ns] = cnt;
       }
     }
-    const float inv = 1.0f / fmaxf(dg, 1.0f);
-    mh[(size_t)row * HID + lane] = mh0 * inv;
-    mh[(size_t)row * HID + lane + 32] = mh1 * inv;
-    if (lane == 0) {
-      dx[3 * row] = dx0 * inv;
-      dx[3 * row + 1] = dx1 * inv;
-      dx[3 * row + 2] = dx2 * inv;
-      deg[row] = dg;
+    // pre1 = ((P_r + Q_s) + d2 w1d) + b1 (0 on rows past cnt); t1 = SiLU
+    for (int f = tid; f < TR * HID / 4; f += THREADS) {
+      const int i = f >> 4, q = (f & 15) * 4;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (i < cnt) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            P + (size_t)lq.row[i] * HID + q);
+        const float4 o = *reinterpret_cast<const float4*>(
+            Q + (size_t)lq.snd[i] * HID + q);
+        const float d2 = RQ(F_D2)[i];
+        v[0] = ((p.x + o.x) + d2 * sw1d[q]) + sb1[q];
+        v[1] = ((p.y + o.y) + d2 * sw1d[q + 1]) + sb1[q + 1];
+        v[2] = ((p.z + o.z) + d2 * sw1d[q + 2]) + sb1[q + 2];
+        v[3] = ((p.w + o.w) + d2 * sw1d[q + 3]) + sb1[q + 3];
+      }
+      *reinterpret_cast<float4*>(tT1 + swz(i, q)) =
+          make_float4(v[0] * sigm(v[0]), v[1] * sigm(v[1]), v[2] * sigm(v[2]),
+                      v[3] * sigm(v[3]));
     }
+    __syncthreads();
+    {  // msg = t1.W2 + b2
+      Frag m;
+      frag_zero(m);
+      tile_mma<false, false, true>(m, tT1, sW2, L);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col(jn, e)];
+      frag_store(tMSG, m, L);
+    }
+    __syncthreads();
+    if (gate_mlp) {  // gate = clip(SiLU(msg.Wg1 + bg1) . wg2)
+      Frag gp;
+      frag_zero(gp);
+      tile_mma<false, false, true>(gp, tMSG, sWg1, L);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = L.col(jn, e);
+          const float u = gp[jn][e] + sbg1[c];
+          gp[jn][e] = __fmul_rn(u * sigm(u), swg2[c]);  // never fused
+        }
+      frag_rowsum(gp, L, rowred);
+      __syncthreads();
+      if (tid < cnt) {
+        float g = rowred[tid] + rowred[TR + tid];
+        g = g < -clamp ? -clamp : (g > clamp ? clamp : g);  // NaN stays
+        const float kd =
+            rel_inv1p ? sqrtf(RQ(F_D2)[tid] + 1e-12f) + 1.0f : 1.0f;
+        const float e = RQ(F_E)[tid];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float q = rel_inv1p ? RQ(F_REL0 + k)[tid] / kd
+                                    : RQ(F_REL0 + k)[tid];
+          RQ(F_DX0 + k)[tid] = (q * g) * e;
+        }
+      }
+      __syncthreads();
+    }
+    // each row's sums, its live edges in slot order
+    const int ns = meta[0];
+    const int crow = meta[1 + cur];
+    const float* cin = carry + cur * CARRY;
+    float* cout = carry + (cur ^ 1) * CARRY;
+    for (int k = grp; k < ns; k += THREADS / HID) {
+      const int e0 = seg[k], e1 = seg[k + 1];
+      const int r = lq.row[e0];
+      float a = 0.0f, dg = 0.0f, d = 0.0f;
+      // rows between the previous segment's and this one's: no live slot
+      int gap = k > 0 ? lq.row[seg[k - 1]] + 1
+                      : (crow >= 0 ? crow + 1 : row_lo);
+      if (k == 0 && crow >= 0) {
+        if (crow == r) {  // the carried row goes on
+          a = cin[j];
+          dg = cin[HID];
+          d = j < 3 ? cin[HID + 1 + j] : 0.0f;
+        } else {
+          finish(crow, cin[j], cin[HID], j < 3 ? cin[HID + 1 + j] : 0.0f);
+        }
+      }
+      for (; gap < r; ++gap) finish(gap, 0.0f, 0.0f, 0.0f);
+      for (int e = e0; e < e1; ++e) {
+        const float w = RQ(F_E)[e];
+        a += tMSG[swz(e, j)] * w;
+        dg += w;
+        if (j < 3) d += RQ(F_DX0 + j)[e];
+      }
+      if (k + 1 < ns) {
+        finish(r, a, dg, d);
+      } else {  // the tile's last row may go on in the next tile
+        cout[j] = a;
+        if (j < 3) cout[HID + 1 + j] = d;
+        if (j == 0) {
+          cout[HID] = dg;
+          meta[1 + (cur ^ 1)] = r;
+        }
+      }
+    }
+    cur ^= 1;
+    __syncthreads();
+  };
+
+  async_wait_all();
+  __syncthreads();  // weights in
+  for_live_tiles(em, rowof, snd, indptr[row_lo], indptr[row_hi], lq, tile);
+
+  // the last row with live slots, then the rows after it: zeros
+  const int crow = meta[1 + cur];
+  int tail = row_lo;
+  if (crow >= 0) {
+    const float* cin = carry + cur * CARRY;
+    if (grp == 0)
+      finish(crow, cin[j], cin[HID], j < 3 ? cin[HID + 1 + j] : 0.0f);
+    tail = crow + 1;
   }
+  for (int f = tail * HID + tid; f < row_hi * HID; f += THREADS) mh[f] = 0.0f;
+  for (int f = tail + tid; f < row_hi; f += THREADS) deg[f] = 0.0f;
+  for (int f = 3 * tail + tid; f < 3 * row_hi; f += THREADS) dx[f] = 0.0f;
+}
+
+struct Scratch {
+  float *P, *Q;
+  int *rowof, *ctarow;
+  size_t total;
+};
+
+Scratch carve(float* base, int n, int e, int n_ctas) {
+  Scratch s;
+  size_t off = 0;
+  auto take = [&](size_t count) {
+    float* p = base == nullptr ? nullptr : base + off;
+    off += round4(count);
+    return p;
+  };
+  s.P = take((size_t)n * HID);
+  s.Q = take((size_t)n * HID);
+  s.rowof = reinterpret_cast<int*>(take((size_t)e));
+  s.ctarow = reinterpret_cast<int*>(take((size_t)n_ctas + 1));
+  s.total = off;
+  return s;
 }
 
 }  // namespace
+
+extern "C" long long edge_fwd_scratch_floats(int n_nodes, int n_slots,
+                                             int n_ctas) {
+  return (long long)carve(nullptr, n_nodes, n_slots, n_ctas).total;
+}
 
 extern "C" int edge_forward(const float* x, const float* h, const int* snd,
                             const float* em, const int* indptr,
@@ -268,23 +319,37 @@ extern "C" int edge_forward(const float* x, const float* h, const int* snd,
                             const float* w2, const float* b2,
                             const float* wg1, const float* bg1,
                             const float* wg2, float* dx, float* mh,
-                            float* deg, int n_nodes, int gate_mlp,
-                            int rel_inv1p, float clamp, int n_blocks,
-                            void* stream) {
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+                            float* deg, float* scratch, int n_nodes,
+                            int n_slots, int gate_mlp, int rel_inv1p,
+                            float clamp, int n_ctas, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (!(aligned16(h) && aligned16(w1r) && aligned16(w1s) && aligned16(w2) &&
+        (!gate_mlp || aligned16(wg1)) && aligned16(scratch)))
+    return (int)cudaErrorMisalignedAddress;
+  if (n_ctas <= 0) return (int)cudaErrorInvalidValue;
+  const size_t e_smem = EDGE_SMEM_FLOATS * sizeof(float);
+  const size_t p_smem = PROJ_SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      edge_fwd_edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)e_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(node_proj,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p_smem);
   if (err != cudaSuccess) return (int)err;
-  if (n_nodes > 0 && n_blocks > 0) {
-    edge_fwd_kernel<<<n_blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
-        x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2, dx,
-        mh, deg, n_nodes, gate_mlp, rel_inv1p, clamp);
-  }
+  if (n_nodes <= 0) return (int)cudaGetLastError();
+  Scratch s = carve(scratch, n_nodes, n_slots, n_ctas);
+  node_proj<<<n_tiles(n_nodes), THREADS, p_smem, stream>>>(
+      h, w1r, w1s, indptr, s.P, s.Q, s.rowof, s.ctarow, n_nodes, n_ctas);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  edge_fwd_edges<<<n_ctas, THREADS, e_smem, stream>>>(
+      x, snd, em, indptr, s.rowof, s.ctarow, s.P, s.Q, w1d, b1, w2, b2, wg1,
+      bg1, wg2, dx, mh, deg, gate_mlp, rel_inv1p, clamp);
   return (int)cudaGetLastError();
 }
 
-extern "C" int edge_rows_per_block() { return WARPS; }
-extern "C" int edge_blocks_per_sm() { return 2; }
+extern "C" int edge_fwd_blocks_per_sm() { return BLOCKS_PER_SM; }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

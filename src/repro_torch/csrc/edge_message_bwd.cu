@@ -12,15 +12,17 @@
 //
 // Four launches on one stream, no atomics, every sum in an order fixed by
 // the inputs and the CTA count (repeated runs are bitwise equal):
-//   1. node_proj   CTA per 64 nodes: P = h.W1r, Q = h.W1s (the forward's
+//   1. node_proj   (common.cuh, shared with the forward) CTA per 64
+//                  nodes: P = h.W1r, Q = h.W1s (the forward's
 //                  pre-activation is P_r + Q_s + d2 w1d + b1), and the
 //                  receiver row of each of their slots.
 //   2. edge pass   `n_blocks` CTAs (fixed by the caller, never by the
 //                  card) split the live slot range [0, indptr[N]) into
-//                  equal index ranges.  A CTA compacts the live slots of
-//                  its range, in slot order, into 64-edge tiles (a
-//                  block-wide ballot scan; a slot's receiver comes from the
-//                  row map node_proj writes, so a row may cross ranges).
+//                  equal index ranges.  A CTA packs the live slots of its
+//                  range, in slot order, into 64-edge tiles
+//                  (`for_live_tiles`, common.cuh: a block-wide ballot scan;
+//                  a slot's receiver comes from the row map node_proj
+//                  writes, so a row may cross ranges).
 //                  Per tile: gather P[r] + Q[s] + d2 w1d + b1, then as tile
 //                  products t1.W2, msg.Wg1, g_gp1.Wg1^T, g_msg.W2^T and
 //                  the weight partials t1^T g_msg, msg^T g_gp1, kept in
@@ -50,8 +52,8 @@
 // also moves 272 bytes per live edge through g_pre1 / g_rel (written by
 // the edge pass, read twice by the node pass).  On the card the edge pass
 // dominates, and within a tile the six products take about three
-// quarters of the time (tools/phase_trace.py); `wgmma` with the same split is the
-// next step (PERF.md section 6).
+// quarters of the time (tools/phase_trace.py); `wgmma` with the same split
+// is the next step (PERF.md section 6).
 #include "common.cuh"
 
 namespace {
@@ -62,58 +64,12 @@ constexpr int E_W2 = 0, E_WG1 = 4096, E_B2 = 8192, E_BG1 = E_B2 + 64,
 constexpr int PE = E_W1D + 64;
 // node-pass partial of one CTA: W1r | W1s
 constexpr int PN = 2 * HID * HID;
-constexpr int PEND = TR + THREADS;  // compaction queue
 // edge-pass row data (64 each)
 enum { Q_E = 0, Q_REL0, Q_REL1, Q_REL2, Q_D2, Q_INV, Q_U0, Q_U1, Q_U2, Q_GG,
        Q_GR0, Q_GR1, Q_GR2, Q_GQ2, Q_N };
-constexpr int EDGE_SMEM_FLOATS = 6 * TILE_F + 5 * HID + Q_N * TR + 4 * PEND +
-                                 8 + 2 * TR + 5 * 4 * TR;
+constexpr int EDGE_SMEM_FLOATS = 6 * TILE_F + 5 * HID + Q_N * TR +
+                                 QUEUE_WORDS + 2 * TR + 5 * 4 * TR;
 constexpr int NODE_SMEM_FLOATS = 5 * TILE_F;
-constexpr int PROJ_SMEM_FLOATS = 3 * TILE_F;
-
-int n_tiles(int n) { return (n + TR - 1) / TR; }
-
-// P = h.W1r, Q = h.W1s for the CTA's 64 nodes, and rowof[s] = the
-// receiver row of each slot s of their CSR rows
-__global__ void __launch_bounds__(THREADS)
-node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
-          const float* __restrict__ w1s, const int* __restrict__ indptr,
-          float* __restrict__ P, float* __restrict__ Q,
-          int* __restrict__ rowof, int n_nodes) {
-  extern __shared__ float4 smem4[];
-  float* tH = reinterpret_cast<float*>(smem4);
-  float* sWr = tH + TILE_F;
-  float* sWs = sWr + TILE_F;
-  const int node0 = blockIdx.x * TR;
-  tile_gather(tH, h, [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
-  tile_gather(sWr, w1r, [](int i) { return i; });
-  tile_gather(sWs, w1s, [](int i) { return i; });
-  // the receiver row of every slot of these nodes' CSR rows
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = warp; k < TR && node0 + k < n_nodes; k += THREADS / 32) {
-    const int i = node0 + k;
-    for (int s = indptr[i] + lane; s < indptr[i + 1]; s += 32) rowof[s] = i;
-  }
-  __syncthreads();
-  const Lane L = lane_of();
-  float* dst[2] = {P, Q};
-  const float* W[2] = {sWr, sWs};
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    Frag a;
-    frag_zero(a);
-    tile_mma<false, false>(a, tH, W[k], L);
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int i = node0 + L.row(2 * h2);
-        if (i < n_nodes)
-          *reinterpret_cast<float2*>(dst[k] + (size_t)i * HID + L.col(jn, 0)) =
-              make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
-      }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 2)
 edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
@@ -142,17 +98,14 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   float* sbg1 = sb2 + HID;
   float* swg2 = sbg1 + HID;
   float* rq = swg2 + HID;  // [Q_N][64]
-  // the compaction queue: slot, receiver, sender and mask of each live slot
-  int* pslot = reinterpret_cast<int*>(rq + Q_N * TR);
-  int* prow = pslot + PEND;
-  int* psnd = prow + PEND;
-  float* pem = reinterpret_cast<float*>(psnd + PEND);
-  int* wcount = reinterpret_cast<int*>(pem + PEND);
-  float* rowred = reinterpret_cast<float*>(wcount + 8);  // [2][64]
+  const LiveQueue lq(reinterpret_cast<int*>(rq + Q_N * TR));
+  const int *pslot = lq.slot, *prow = lq.row, *psnd = lq.snd;
+  const float* pem = lq.em;
+  float* rowred = reinterpret_cast<float*>(rq + Q_N * TR + QUEUE_WORDS);
   float* colred = rowred + 2 * TR;  // [5 sums][4][64]
   auto RQ = [&](int k) { return rq + k * TR; };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const Lane L = lane_of();
   tile_gather(sW2, w2, [](int i) { return i; });
   if (gate_mlp) tile_gather(sWg1, wg1, [](int i) { return i; });
@@ -369,53 +322,8 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   const int len = (live_end + gridDim.x - 1) / gridDim.x;
   const int beg = min((int)blockIdx.x * len, live_end);
   const int end = min(beg + len, live_end);
-  int cnt = 0;  // queued live slots (the same on every thread)
   __syncthreads();  // weights in
-  for (int base = beg; base < end; base += THREADS) {
-    const int slot = base + tid;
-    const float e = slot < end ? em[slot] : 0.0f;
-    const bool live = e != 0.0f;
-    const unsigned m = __ballot_sync(FULL, live);
-    if (lane == 0) wcount[warp] = __popc(m);
-    __syncthreads();
-    int off = cnt, total = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
-      off += w < warp ? wcount[w] : 0;
-      total += wcount[w];
-    }
-    if (live) {
-      const int k = off + __popc(m & ((1u << lane) - 1u));
-      pslot[k] = slot;
-      prow[k] = rowof[slot];
-      psnd[k] = snd[slot];
-      pem[k] = e;
-    }
-    cnt += total;
-    __syncthreads();
-    while (cnt >= TR) {
-      tile(TR);
-      const int rest = cnt - TR;
-      int v0 = 0, v1 = 0, v2 = 0;
-      float v3 = 0.0f;
-      if (tid < rest) {
-        v0 = pslot[TR + tid];
-        v1 = prow[TR + tid];
-        v2 = psnd[TR + tid];
-        v3 = pem[TR + tid];
-      }
-      __syncthreads();
-      if (tid < rest) {
-        pslot[tid] = v0;
-        prow[tid] = v1;
-        psnd[tid] = v2;
-        pem[tid] = v3;
-      }
-      __syncthreads();
-      cnt = rest;
-    }
-  }
-  if (cnt > 0) tile(cnt);
+  for_live_tiles(em, rowof, snd, beg, end, lq, tile);
 
   float* out = part + (size_t)blockIdx.x * PE;
   frag_store_global(out + E_W2, aW2, L);
@@ -646,7 +554,7 @@ extern "C" int edge_backward(
   Scratch s = carve(scratch, n_nodes, n_slots, n_blocks);
   const int nt = n_tiles(n_nodes);
   node_proj<<<nt, THREADS, p_smem, stream>>>(h, w1r, w1s, indptr, s.P, s.Q,
-                                             s.rowof, n_nodes);
+                                             s.rowof, nullptr, n_nodes, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   edge_bwd_edges<<<n_blocks, THREADS, e_smem, stream>>>(

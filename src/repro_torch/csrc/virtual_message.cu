@@ -4,98 +4,50 @@
 // Replaces the Pallas TPU kernel `virtual_pathway_fused` (`_kernel`) of the
 // JAX package's kernels/virtual_message.py.  For node i and channel c:
 //   rel     = x_i - z_c ;  d2 = |rel|^2
-//   msg     = SiLU(h_i . w1h_c + d2 * w1d_c + const1_c) . w2_c + b2_c
-//   gate_x  = SiLU(msg . wg1_c + bg1_c) . wg2_c
-//   gate_z  = SiLU(msg . wz1_c + bz1_c) . wz2_c
-// and it returns dx_i = mean_c rel * gate_x, mh_i = mean_c msg (per node),
+//   msg     = SiLU(h_i . W1h_c + d2 w1d_c + const1_c) . W2_c + b2_c
+//   gate_x  = SiLU(msg . Wg1_c + bg1_c) . wg2_c
+//   gate_z  = SiLU(msg . Wz1_c + bz1_c) . wz2_c
+// and it returns dx_i = mean_c rel gate_x, mh_i = mean_c msg (per node),
 // dz_sum_c = sum_i mask_i (z_c - x_i) gate_z and ms_sum_c = sum_i mask_i msg.
 //
-// The TPU kernel carried dz_sum / ms_sum across its sequential grid.  A GPU
-// grid runs in no order, so the cross-node sums use a deterministic
-// two-stage reduction: each CTA writes its partial sums to a
-// (n_blocks, C, 3 + hid) scratch tensor in a fixed order (nodes of a warp
-// in order, then warps in order), and `virtual_block_sums` adds the blocks
-// in index order.  No float atomics, so repeated runs are bitwise equal.
+// Two launches on one stream, no atomics, every sum in a fixed order
+// (repeated runs are bitwise equal):
+//   1. virtual_fwd_kernel  one CTA of 8 warps per 64-node tile.  It gathers
+//      the h tile once (swizzled) and takes the channels in order; per
+//      channel four 3xTF32 tensor-core tile products (common.cuh, each
+//      k-step summed on its own: STEP_SUM): h.W1h, t1.W2, msg.Wg1,
+//      msg.Wz1.  The two gates' dots with wg2 / wz2 are fixed-order row
+//      sums, their products rounded on their own (`__fmul_rn`); mh and
+//      dx add the channels in order in registers.  The masked column sums
+//      (ms: `frag_colsum`; dz: the tile's 64 nodes in order) give one
+//      partial row per CTA and channel.
+//      Channel c + 1's four weight tiles and seven vectors stream in by
+//      cp.async while channel c computes (two slots, ping-pong).
+//   2. virtual_block_sums  adds the partial rows in CTA order, a warp a
+//      column.
+// Shared memory: 8 weight tiles, the h, t1 and msg tiles, ~189 KB: one CTA
+// an SM.  At N = 8,192 that is 128 CTAs for 132 SMs, a single short wave.
 //
-// One CTA owns NODES = 64 nodes (8 warps x TN = 8 nodes) and loops over the
-// C channels in order; each channel's w1h, w2, wg1 and wz1 (4 x 16 KB) and
-// bias rows are loaded into shared memory in turn.  A warp keeps its 8
-// nodes' h in a shared tile [k][t] and runs every 64x64 matvec over the
-// tile with one lane per pair of output columns (j = lane, lane + 32).
-// Nothing of size N x C x hid reaches device memory.
-//
-// Bound on an H100: per node and channel four 64x64 matvecs (32,768 f32
+// Bound on an H100: per node and channel four 64 x 64 products (32,768
 // FLOP) against 268 bytes of x, h and mask read and 268 bytes of dx, mh
-// written per node — ~370 FLOP per byte at C = 3, far above the f32 ridge
-// (67 TFLOP/s / 3.35 TB/s = 20), so it is bound by f32 operations.
-#include <cuda_runtime.h>
+// written per node -- ~370 FLOP per byte at C = 3, far above the f32
+// ridge, so bound by operations: 0.805 GFLOP at N = 8,192, C = 3, that is
+// 0.0121 ms at 67 TFLOP/s f32 and 0.0049 ms for three TF32 MMAs a product
+// at 495 TFLOP/s.  The products run on the tensor cores; the SiLU chain,
+// the gate dots and the sums on the FP32 units.
+#include "common.cuh"
 
 namespace {
 
-constexpr int HID = 64;  // Dh = hid
-constexpr int TN = 8;    // nodes per warp
-constexpr int WARPS = 8;
-constexpr int NODES = TN * WARPS;
-constexpr int OUTW = 3 + HID;  // partial-sum row: dz (3) | ms (hid)
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_FLOATS =
-    4 * HID * HID + 8 * HID + 2 * WARPS * HID * TN + WARPS * OUTW + 4;
+constexpr int OUTW = 3 + HID;  // partial row: dz (3) | ms (hid)
+enum { W_1H = 0, W_2, W_G1, W_Z1, W_N };  // weight tiles of a channel
+// row scalars (64 each): x, mask, rel, d2, the dz terms, the dx sums
+enum { R_X0 = 0, R_X1, R_X2, R_M, R_RL0, R_RL1, R_RL2, R_D2, R_DZ0, R_DZ1,
+       R_DZ2, R_DX0, R_DX1, R_DX2, R_N };
+constexpr int SMEM_FLOATS = 2 * W_N * TILE_F + 2 * NVEC * HID + 3 * TILE_F +
+                            R_N * TR + 4 * TR + 4 * TR;
 
-__device__ __forceinline__ float silu(float u) { return u / (1.0f + expf(-u)); }
-
-__device__ __forceinline__ void tile_matvec(const float* __restrict__ buf,
-                                            const float* __restrict__ W,
-                                            int lane, float* acc0, float* acc1) {
-#pragma unroll 8
-  for (int k = 0; k < HID; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(buf + k * TN);
-    const float4 b = *reinterpret_cast<const float4*>(buf + k * TN + 4);
-    const float w0 = W[k * HID + lane];
-    const float w1 = W[k * HID + lane + 32];
-    const float v[TN] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      acc0[t] = fmaf(v[t], w0, acc0[t]);
-      acc1[t] = fmaf(v[t], w1, acc1[t]);
-    }
-  }
-}
-
-__device__ __forceinline__ void tile_store(float* buf, int lane,
-                                           const float* v0, const float* v1) {
-  float4* p0 = reinterpret_cast<float4*>(buf + lane * TN);
-  float4* p1 = reinterpret_cast<float4*>(buf + (lane + 32) * TN);
-  p0[0] = make_float4(v0[0], v0[1], v0[2], v0[3]);
-  p0[1] = make_float4(v0[4], v0[5], v0[6], v0[7]);
-  p1[0] = make_float4(v1[0], v1[1], v1[2], v1[3]);
-  p1[1] = make_float4(v1[4], v1[5], v1[6], v1[7]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-  return v;
-}
-
-// gate[t] = SiLU(buf . W1 + b1) . w2 for the tile held in buf
-__device__ __forceinline__ void tile_gate(const float* buf, const float* W1,
-                                          const float* b1, const float* w2,
-                                          int lane, float* gate) {
-  float g0[TN], g1[TN];
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    g0[t] = 0.0f;
-    g1[t] = 0.0f;
-  }
-  tile_matvec(buf, W1, lane, g0, g1);
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    gate[t] = warp_sum(silu(g0[t] + b1[lane]) * w2[lane] +
-                       silu(g1[t] + b1[lane + 32]) * w2[lane + 32]);
-  }
-}
-
-__global__ void __launch_bounds__(WARPS * 32, 2)
+__global__ void __launch_bounds__(THREADS, 1)
 virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ z, const float* __restrict__ mask,
                    const float* __restrict__ w1h, const float* __restrict__ w1d,
@@ -108,174 +60,192 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    int n_nodes, int n_chan) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* sW1h = smem;
-  float* sW2 = sW1h + HID * HID;
-  float* sWg1 = sW2 + HID * HID;
-  float* sWz1 = sWg1 + HID * HID;
-  float* sw1d = sWz1 + HID * HID;
-  float* sc1 = sw1d + HID;
-  float* sb2 = sc1 + HID;
-  float* sbg1 = sb2 + HID;
-  float* swg2 = sbg1 + HID;
-  float* sbz1 = swg2 + HID;
-  float* swz2 = sbz1 + HID;
-  float* tiles = swz2 + 2 * HID;  // keeps 16-byte alignment
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* hbuf = tiles + warp * HID * TN;
-  float* buf = tiles + (WARPS + warp) * HID * TN;
-  float* red = tiles + 2 * WARPS * HID * TN;  // [WARPS][OUTW]
+  float* sW = smem;                                // [2 slots][W_N tiles]
+  float* sVec = sW + 2 * W_N * TILE_F;             // [2 slots][NVEC][64]
+  float* tH = sVec + 2 * NVEC * HID;
+  float* tT1 = tH + TILE_F;
+  float* tMSG = tT1 + TILE_F;
+  float* rs = tMSG + TILE_F;      // [R_N][64]
+  float* rowred = rs + R_N * TR;  // [2 gates][2 halves][64]
+  float* colred = rowred + 4 * TR;  // [4 row blocks][64]
+  auto R = [&](int k) { return rs + k * TR; };
+  auto W = [&](int slot, int k) { return sW + (slot * W_N + k) * TILE_F; };
 
-  const int node0 = blockIdx.x * NODES + warp * TN;
-  float xt[TN][3], mt[TN];
-  {
-    float v0[TN], v1[TN];
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      const int i = node0 + t;
-      const bool ok = i < n_nodes;
-      xt[t][0] = ok ? x[3 * i] : 0.0f;
-      xt[t][1] = ok ? x[3 * i + 1] : 0.0f;
-      xt[t][2] = ok ? x[3 * i + 2] : 0.0f;
-      mt[t] = ok ? mask[i] : 0.0f;
-      v0[t] = ok ? h[(size_t)i * HID + lane] : 0.0f;
-      v1[t] = ok ? h[(size_t)i * HID + lane + 32] : 0.0f;
-    }
-    tile_store(hbuf, lane, v0, v1);
+  const int tid = threadIdx.x;
+  const Lane L = lane_of();
+  const int node0 = blockIdx.x * TR;
+  const size_t WW = (size_t)HID * HID;
+  auto load_channel = [&](int slot, int c) {
+    tile_load_async(W(slot, W_1H), w1h + c * WW);
+    tile_load_async(W(slot, W_2), w2 + c * WW);
+    tile_load_async(W(slot, W_G1), wg1 + c * WW);
+    tile_load_async(W(slot, W_Z1), wz1 + c * WW);
+    load_virtual_vecs(sVec + slot * NVEC * HID, c, w1d, c1, b2, bg1, wg2, bz1,
+                      wz2);
+    async_commit();
+  };
+  load_channel(0, 0);
+  tile_gather(tH, h,
+              [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  if (tid < TR) {
+    const int i = node0 + tid;
+    const bool ok = i < n_nodes;
+    R(R_X0)[tid] = ok ? x[3 * i] : 0.0f;
+    R(R_X1)[tid] = ok ? x[3 * i + 1] : 0.0f;
+    R(R_X2)[tid] = ok ? x[3 * i + 2] : 0.0f;
+    R(R_M)[tid] = ok ? mask[i] : 0.0f;
+    R(R_DX0)[tid] = R(R_DX1)[tid] = R(R_DX2)[tid] = 0.0f;
   }
-  float dxa[TN][3], mha0[TN], mha1[TN];
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    dxa[t][0] = dxa[t][1] = dxa[t][2] = 0.0f;
-    mha0[t] = mha1[t] = 0.0f;
-  }
+  Frag mha;  // sum over channels of msg
+  frag_zero(mha);
 
   for (int c = 0; c < n_chan; ++c) {
-    __syncthreads();  // previous channel's weights and partials are consumed
-    const size_t wo = (size_t)c * HID * HID;
-    for (int i = tid; i < HID * HID; i += blockDim.x) {
-      sW1h[i] = w1h[wo + i];
-      sW2[i] = w2[wo + i];
-      sWg1[i] = wg1[wo + i];
-      sWz1[i] = wz1[wo + i];
-    }
-    for (int i = tid; i < HID; i += blockDim.x) {
-      const int o = c * HID + i;
-      sw1d[i] = w1d[o];
-      sc1[i] = c1[o];
-      sb2[i] = b2[o];
-      sbg1[i] = bg1[o];
-      swg2[i] = wg2[o];
-      sbz1[i] = bz1[o];
-      swz2[i] = wz2[o];
+    const int slot = c & 1;
+    const float* vec = sVec + slot * NVEC * HID;
+    async_wait_all();
+    __syncthreads();  // channel c's weights are in; channel c - 1 is done
+    if (c + 1 < n_chan) load_channel(slot ^ 1, c + 1);
+    float* out = part + ((size_t)blockIdx.x * n_chan + c) * OUTW;
+    if (tid < TR) {
+      const float rl0 = R(R_X0)[tid] - z[3 * c];
+      const float rl1 = R(R_X1)[tid] - z[3 * c + 1];
+      const float rl2 = R(R_X2)[tid] - z[3 * c + 2];
+      R(R_RL0)[tid] = rl0;
+      R(R_RL1)[tid] = rl1;
+      R(R_RL2)[tid] = rl2;
+      R(R_D2)[tid] = rl0 * rl0 + rl1 * rl1 + rl2 * rl2;
     }
     __syncthreads();
-    const float zc0 = z[3 * c], zc1 = z[3 * c + 1], zc2 = z[3 * c + 2];
-
-    float d2[TN];
+    {  // t1 = SiLU(h.W1h + d2 w1d + const1)
+      Frag p;
+      frag_zero(p);
+      tile_mma<false, false, true>(p, tH, W(slot, W_1H), L);
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      const float r0 = xt[t][0] - zc0, r1 = xt[t][1] - zc1, r2 = xt[t][2] - zc2;
-      d2[t] = r0 * r0 + r1 * r1 + r2 * r2;
-    }
-    float p0[TN], p1[TN];
+      for (int jn = 0; jn < 4; ++jn)
 #pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      p0[t] = 0.0f;
-      p1[t] = 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          const int j = L.col(jn, e);
+          const float u =
+              (p[jn][e] + R(R_D2)[L.row(e)] * vec[V_W1D * HID + j]) +
+              vec[V_C1 * HID + j];
+          p[jn][e] = u * sigm(u);
+        }
+      frag_store(tT1, p, L);
     }
-    tile_matvec(hbuf, sW1h, lane, p0, p1);
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      p0[t] = silu((p0[t] + d2[t] * sw1d[lane]) + sc1[lane]);
-      p1[t] = silu((p1[t] + d2[t] * sw1d[lane + 32]) + sc1[lane + 32]);
-    }
-    __syncwarp();
-    tile_store(buf, lane, p0, p1);
-    __syncwarp();
-    float m0[TN], m1[TN];
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      m0[t] = 0.0f;
-      m1[t] = 0.0f;
-    }
-    tile_matvec(buf, sW2, lane, m0, m1);
-    float ms0 = 0.0f, ms1 = 0.0f;
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      m0[t] += sb2[lane];
-      m1[t] += sb2[lane + 32];
-      mha0[t] += m0[t];
-      mha1[t] += m1[t];
-      ms0 += m0[t] * mt[t];
-      ms1 += m1[t] * mt[t];
-    }
-    __syncwarp();
-    tile_store(buf, lane, m0, m1);
-    __syncwarp();
-    float gx[TN], gz[TN];
-    tile_gate(buf, sWg1, sbg1, swg2, lane, gx);
-    tile_gate(buf, sWz1, sbz1, swz2, lane, gz);
-
-    float dz0 = 0.0f, dz1 = 0.0f, dz2 = 0.0f;
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      const float r0 = xt[t][0] - zc0, r1 = xt[t][1] - zc1, r2 = xt[t][2] - zc2;
-      dxa[t][0] += r0 * gx[t];
-      dxa[t][1] += r1 * gx[t];
-      dxa[t][2] += r2 * gx[t];
-      dz0 += -r0 * gz[t] * mt[t];
-      dz1 += -r1 * gz[t] * mt[t];
-      dz2 += -r2 * gz[t] * mt[t];
-    }
-    float* rw = red + warp * OUTW;
-    if (lane == 0) {
-      rw[0] = dz0;
-      rw[1] = dz1;
-      rw[2] = dz2;
-    }
-    rw[3 + lane] = ms0;
-    rw[3 + lane + 32] = ms1;
     __syncthreads();
-    for (int f = tid; f < OUTW; f += blockDim.x) {
+    {  // msg = t1.W2 + b2; mh += msg; the masked column sums of msg
+      Frag m, w;
+      frag_zero(m);
+      tile_mma<false, false, true>(m, tT1, W(slot, W_2), L);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = L.row(e);
+          m[jn][e] += vec[V_B2 * HID + L.col(jn, e)];
+          mha[jn][e] += m[jn][e];
+          w[jn][e] = node0 + r < n_nodes ? m[jn][e] * R(R_M)[r] : 0.0f;
+        }
+      frag_store(tMSG, m, L);
+      frag_colsum(w, L, colred);
+    }
+    __syncthreads();
+    {  // the two gates: SiLU(msg.Wg1 + bg1) . wg2, SiLU(msg.Wz1 + bz1) . wz2
+      Frag gx, gz;
+      frag_zero(gx);
+      frag_zero(gz);
+      tile_mma<false, false, true>(gx, tMSG, W(slot, W_G1), L);
+      tile_mma<false, false, true>(gz, tMSG, W(slot, W_Z1), L);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = L.col(jn, e);
+          const float u = gx[jn][e] + vec[V_BG1 * HID + j];
+          const float v = gz[jn][e] + vec[V_BZ1 * HID + j];
+          // rounded on their own: a row's gate does not depend on its
+          // tile row (no FMA fused into the row sum per fragment slot)
+          gx[jn][e] = __fmul_rn(u * sigm(u), vec[V_WG2 * HID + j]);
+          gz[jn][e] = __fmul_rn(v * sigm(v), vec[V_WZ2 * HID + j]);
+        }
+      frag_rowsum(gx, L, rowred);
+      frag_rowsum(gz, L, rowred + 2 * TR);
+    }
+    __syncthreads();
+    if (tid < TR) {
+      const float gxr = rowred[tid] + rowred[TR + tid];
+      const float gzr = rowred[2 * TR + tid] + rowred[3 * TR + tid];
+      const bool ok = node0 + tid < n_nodes;
+      const float m = R(R_M)[tid];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float rl = R(R_RL0 + k)[tid];
+        R(R_DX0 + k)[tid] += rl * gxr;
+        R(R_DZ0 + k)[tid] = ok ? (-rl * gzr) * m : 0.0f;
+      }
+      out[3 + tid] = colsum4(colred, tid);  // ms
+    }
+    __syncthreads();
+    if (tid < 3) {  // dz: the tile's nodes in order
       float s = 0.0f;
-      for (int w = 0; w < WARPS; ++w) s += red[w * OUTW + f];
-      part[((size_t)blockIdx.x * n_chan + c) * OUTW + f] = s;
+      for (int r = 0; r < TR; ++r) s += R(R_DZ0 + tid)[r];
+      out[tid] = s;
     }
   }
 
   const float inv_c = 1.0f / (float)n_chan;
 #pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    const int i = node0 + t;
-    if (i < n_nodes) {
-      mh[(size_t)i * HID + lane] = mha0[t] * inv_c;
-      mh[(size_t)i * HID + lane + 32] = mha1[t] * inv_c;
-      if (lane == 0) {
-        dx[3 * i] = dxa[t][0] * inv_c;
-        dx[3 * i + 1] = dxa[t][1] * inv_c;
-        dx[3 * i + 2] = dxa[t][2] * inv_c;
-      }
+  for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int i = node0 + L.row(2 * h2);
+      if (i < n_nodes)
+        *reinterpret_cast<float2*>(mh + (size_t)i * HID + L.col(jn, 0)) =
+            make_float2(mha[jn][2 * h2] * inv_c, mha[jn][2 * h2 + 1] * inv_c);
     }
+  if (tid < TR && node0 + tid < n_nodes) {
+    const int i = node0 + tid;
+    dx[3 * i] = R(R_DX0)[tid] * inv_c;
+    dx[3 * i + 1] = R(R_DX1)[tid] * inv_c;
+    dx[3 * i + 2] = R(R_DX2)[tid] * inv_c;
   }
 }
 
-// out[c][f] = sum over blocks b = 0..n_blocks-1, in order, of part[b][c][f]
+// out[c][f] = the sum over CTAs b = 0..n_blocks-1 of part[b][c][f], added in
+// CTA order.  One warp a column: lane l loads the partials of CTAs b0 + l,
+// b0 + 32 + l, ... (four loads in flight), and every lane adds the 128 in
+// CTA order from shuffles: the adds of a thread-a-column loop, without its
+// 2,048 loads one after another at 131,072 nodes.
 __global__ void virtual_block_sums(const float* __restrict__ part,
                                    float* __restrict__ dz,
                                    float* __restrict__ ms, int n_blocks,
                                    int n_chan) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_chan * OUTW) return;
-  const int c = idx / OUTW;
-  const int f = idx % OUTW;
+  const int idx = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (idx >= n_chan * OUTW) return;  // whole warps leave together
+  const size_t stride = (size_t)n_chan * OUTW;
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += part[((size_t)b * n_chan + c) * OUTW + f];
-  if (f < 3) {
-    dz[c * 3 + f] = s;
-  } else {
-    ms[c * HID + (f - 3)] = s;
+  for (int b0 = 0; b0 < n_blocks; b0 += 128) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int b = b0 + 32 * u + lane;
+      v[u] = b < n_blocks ? part[idx + b * stride] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int n = n_blocks - (b0 + 32 * u);  // CTAs left from here
+#pragma unroll
+      for (int l = 0; l < 32; ++l) {
+        const float w = __shfl_sync(FULL, v[u], l);
+        if (l < n) s += w;
+      }
+    }
+  }
+  if (lane == 0) {
+    const int c = idx / OUTW, f = idx % OUTW;
+    if (f < 3) dz[c * 3 + f] = s;
+    else ms[c * HID + (f - 3)] = s;
   }
 }
 
@@ -290,14 +260,17 @@ extern "C" int virtual_forward(const float* x, const float* h, const float* z,
                                const float* bz1, const float* wz2, float* dx,
                                float* mh, float* part, int n_nodes,
                                int n_chan, void* stream) {
+  if (!(aligned16(h) && aligned16(w1h) && aligned16(w2) && aligned16(wg1) &&
+        aligned16(wz1) && aligned16(mh)))
+    return (int)cudaErrorMisalignedAddress;
   const size_t smem = SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       virtual_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_blocks = (n_nodes + NODES - 1) / NODES;
+  const int n_blocks = n_tiles(n_nodes);
   if (n_blocks > 0) {
-    virtual_fwd_kernel<<<n_blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
+    virtual_fwd_kernel<<<n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2, dx,
         mh, part, n_nodes, n_chan);
   }
@@ -306,13 +279,13 @@ extern "C" int virtual_forward(const float* x, const float* h, const float* z,
 
 extern "C" int virtual_sums(const float* part, float* dz, float* ms,
                             int n_blocks, int n_chan, void* stream) {
-  const int total = n_chan * OUTW;
-  virtual_block_sums<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+  const int warps = n_chan * OUTW;  // one a column
+  virtual_block_sums<<<(warps + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
       part, dz, ms, n_blocks, n_chan);
   return (int)cudaGetLastError();
 }
 
-extern "C" int virtual_nodes_per_block() { return NODES; }
+extern "C" int virtual_nodes_per_block() { return TR; }
 extern "C" int virtual_partial_width() { return OUTW; }
 
 extern "C" const char* cuda_error_string(int err) {

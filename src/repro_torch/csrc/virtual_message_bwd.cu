@@ -46,8 +46,6 @@
 
 namespace {
 
-constexpr int NVEC = 7;  // w1d c1 b2 bg1 wg2 bz1 wz2
-enum { V_W1D = 0, V_C1, V_B2, V_BG1, V_WG2, V_BZ1, V_WZ2 };
 // partial of one CTA and channel: W1h | W2 | Wg1 | Wz1 | c1 | b2 | bg1 |
 // bz1 | w1d | wg2 | wz2 | dz (3) + 1 pad
 constexpr int P_W1H = 0, P_W2 = 4096, P_WG1 = 8192, P_WZ1 = 12288;
@@ -99,10 +97,7 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   const float inv_c = 1.0f / (float)n_chan;
 
   auto load_vecs = [&](float* dst, int c) {
-    const float* src[NVEC] = {w1d, c1, b2, bg1, wg2, bz1, wz2};
-#pragma unroll
-    for (int v = 0; v < NVEC; ++v)
-      vec_load_async(dst + v * HID, src[v] + (size_t)c * HID, HID);
+    load_virtual_vecs(dst, c, w1d, c1, b2, bg1, wg2, bz1, wz2);
   };
   const size_t WW = (size_t)HID * HID;
   tile_load_async(sW1h[0], w1h);
@@ -388,8 +383,6 @@ __global__ void virtual_bwd_reduce(const float* __restrict__ part, Outs o,
   else if (k < P_DZ) o.gwz2[vo + k - P_WZ2] = s;
   else o.gz[3 * c + k - P_DZ] = s;
 }
-
-int n_tiles(int n) { return (n + TR - 1) / TR; }
 
 }  // namespace
 

@@ -7,8 +7,10 @@ arrays and ``indptr`` (N+1 row offsets over the slots, built by
 ``data.radius_graph.csr_indptr``) — and returns ``(dx (N,3), mh (N,M),
 deg (N,1))``, the masked means of ``kernels.ref.edge_pathway_ref``.  For
 CUDA tensors it launches ``csrc/edge_message.cu`` (which replaces the
-JAX package's Pallas ``edge_pathway_fused``) or raises; for CPU tensors it
-runs :func:`edge_pathway_plain`.  ``launches`` counts kernel launches.
+JAX package's Pallas ``edge_pathway_fused``) or raises: two kernels a
+call, the node projection (P = h·W1r, Q = h·W1s and the CTAs' rows, into
+a scratch tensor this wrapper allocates) and the edge pass.  For CPU
+tensors it runs :func:`edge_pathway_plain`.  ``launches`` counts calls.
 
 :func:`edge_pathway_bwd_fused` returns the 11 gradients of the forward
 from its primals, its ``deg`` output and the cotangents ``(g_dx, g_mh)``.
@@ -33,13 +35,18 @@ from repro_torch.kernels.runtime import align16, require_f32
 
 Tensor = torch.Tensor
 
-#: launches of the CUDA edge kernel since the last :func:`reset_launches`
+#: calls of the CUDA edge forward (two kernels each) since the last
+#: :func:`reset_launches`
 launches = 0
 #: launches of the CUDA edge backward since the last :func:`reset_launches`
 bwd_launches = 0
 
 #: the width the CUDA kernel is compiled for (Dh = H1 = M = HG)
 KERNEL_WIDTH = 64
+#: CTAs of the forward's edge pass; None: two an SM.  Each owns the
+#: receiver rows whose CSR segment starts in its equal share of the live
+#: slot range, so the outputs do not depend on this number
+EDGE_FWD_CTAS = None
 #: CTAs of the backward's edge pass: each takes an equal share of the live
 #: slot range, so the weight gradients' summation order depends on this
 #: number and the inputs only, never on the card
@@ -53,13 +60,14 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.edge_forward.argtypes = ([ctypes.c_void_p] * 17
-                                 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_float, ctypes.c_int,
+    lib.edge_fwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.edge_fwd_scratch_floats.restype = ctypes.c_longlong
+    lib.edge_forward.argtypes = ([ctypes.c_void_p] * 18
+                                 + [ctypes.c_int] * 4
+                                 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_void_p])
     lib.edge_forward.restype = ctypes.c_int
-    lib.edge_rows_per_block.restype = ctypes.c_int
-    lib.edge_blocks_per_sm.restype = ctypes.c_int
+    lib.edge_fwd_blocks_per_sm.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -151,8 +159,9 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
                        precision=None):
     """Edge forward over a receiver-sorted CSR layout → ``(dx, mh, deg)``.
 
-    CUDA tensors launch the kernel (f32, widths 64, gate 'mlp' or 'none');
-    anything the kernel does not take raises.  CPU tensors run
+    CUDA tensors launch the kernels (f32, widths 64, gate 'mlp' or 'none';
+    scratch: P and Q, N x 64 each, and a row map of the slots); anything
+    the kernels do not take raises.  CPU tensors run
     :func:`edge_pathway_plain`.
     """
     global launches
@@ -165,17 +174,20 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
                                   clamp=clamp)
     _check_kernel_shapes(h, ws, gate_mode)
     lib = build.load("edge_message", _bind)
-    n = x.shape[0]
-    dx = torch.empty((n, 3), dtype=torch.float32, device=x.device)
-    mh = torch.empty((n, KERNEL_WIDTH), dtype=torch.float32, device=x.device)
-    deg = torch.empty((n, 1), dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = lib.edge_rows_per_block()
-    n_blocks = min(-(-n // rows), sms * lib.edge_blocks_per_sm())
-    ptrs = [t.data_ptr() for t in (x, h, snd, em, indptr, *ws, dx, mh, deg)]
-    err = lib.edge_forward(*ptrs, n, int(gate_mode == "mlp"),
-                           int(rel_mode == "inv1p"), float(clamp), n_blocks,
-                           build.stream_ptr(x.device))
+    dev = x.device
+    n, e = x.shape[0], snd.shape[0]
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    dx, mh, deg = empty(n, 3), empty(n, KERNEL_WIDTH), empty(n, 1)
+    n_ctas = EDGE_FWD_CTAS or (
+        torch.cuda.get_device_properties(dev).multi_processor_count
+        * lib.edge_fwd_blocks_per_sm())
+    scratch = empty(int(lib.edge_fwd_scratch_floats(n, e, n_ctas)))
+    # the kernels read h and the 64x64 weights with 16-byte loads
+    ins = [align16(t) for t in (x, h, snd, em, indptr, *ws)]
+    ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
+    err = lib.edge_forward(*ptrs, n, e, int(gate_mode == "mlp"),
+                           int(rel_mode == "inv1p"), float(clamp), n_ctas,
+                           build.stream_ptr(dev))
     build.check(lib, err, "edge_forward")
     launches += 1
     return dx, mh, deg

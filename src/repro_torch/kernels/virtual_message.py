@@ -5,10 +5,11 @@ plain versions, launch counters.
 (C,3), ms_sum (C,hid))``, the contract of
 ``kernels.ref.virtual_pathway_ref``.  For CUDA tensors it launches
 ``csrc/virtual_message.cu`` (which replaces the JAX package's Pallas
-``virtual_pathway_fused``): the main kernel writes dx and mh and one row of
-partial sums per block into a scratch tensor this wrapper allocates, and a
-second kernel adds the blocks in order.  ``launches`` counts the main
-kernel only.  CPU tensors run :func:`virtual_pathway_plain`.
+``virtual_pathway_fused``): the main kernel, one CTA per 64-node tile,
+writes dx and mh and one row of partial sums per CTA and channel into a
+scratch tensor this wrapper allocates, and a second kernel adds the CTAs
+in order.  ``launches`` counts calls (two kernels each).  CPU tensors run
+:func:`virtual_pathway_plain`.
 
 :func:`virtual_pathway_bwd_fused` returns the 14 gradients of the forward
 (all operands but the node mask) from its primals and the four output
@@ -31,7 +32,8 @@ from repro_torch.kernels.runtime import align16, require_f32
 
 Tensor = torch.Tensor
 
-#: launches of the main CUDA virtual kernel since :func:`reset_launches`
+#: calls of the CUDA virtual forward (two kernels each) since
+#: :func:`reset_launches`
 launches = 0
 #: calls of the CUDA virtual backward (two kernels each) since
 #: :func:`reset_launches`
@@ -138,7 +140,9 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
     dz = torch.empty((c, 3), dtype=torch.float32, device=dev)
     ms = torch.empty((c, d), dtype=torch.float32, device=dev)
     stream = build.stream_ptr(dev)
-    err = lib.virtual_forward(*[t.data_ptr() for t in (*ops, dx, mh, part)],
+    # the kernel reads h and the 64x64 weights with 16-byte loads
+    ins = [align16(t) for t in ops]
+    err = lib.virtual_forward(*[t.data_ptr() for t in (*ins, dx, mh, part)],
                               n, c, stream)
     build.check(lib, err, "virtual_forward")
     launches += 1

@@ -15,7 +15,7 @@ work and add it up, and the precision of their tensor-core products.
 * Virtual: 64-node tiles (ragged last), the channels in order, one partial
   per tile and channel, added in tile order.
 * Every 64 x 64 product either in f32 or as the kernels' 3xTF32 split
-  (each operand cut to TF32 by a bit mask into a high and a low part,
+  (each operand rounded to TF32 into a high and a low part,
   a_lo b_hi + a_hi b_lo + a_hi b_hi).  A single TF32 pass misses the
   gradient tolerance; the split keeps it.
 
@@ -35,6 +35,8 @@ from repro.kernels import ref as j_ref
 from repro_torch.data.radius_graph import (csr_indptr, csr_sender_perm,
                                            pad_edges, radius_graph,
                                            sort_edges_by_receiver)
+from repro_torch.kernels.edge_message import edge_pathway_bwd_plain
+from repro_torch.kernels.virtual_message import virtual_pathway_bwd_plain
 
 HID = 64   # the kernels' width
 TR = 64    # rows of a tile
@@ -43,8 +45,19 @@ GATOL, GRTOL = 5e-5, 1e-3
 
 # ------------------------------------------------------------ products
 def _tf32(a):
-    """``a`` cut to TF32 (10 mantissa bits) by masking the low 13 bits."""
-    return (a.contiguous().view(torch.int32) & -8192).view(torch.float32)
+    """``a`` rounded to the nearest TF32 value (10 mantissa bits, ties away
+    from zero): half a TF32 ulp added to the bits, then the low 13 bits
+    cleared, as the kernels' ``split_tf32`` makes its high part."""
+    return ((a.contiguous().view(torch.int32) + 4096) & -8192).view(
+        torch.float32)
+
+
+def split_tf32(a):
+    """The kernels' operand split: hi = ``_tf32(a)``, lo = a - hi (exact)
+    with its low 13 bits cleared."""
+    hi = _tf32(a)
+    lo = ((a - hi).view(torch.int32) & -8192).view(torch.float32)
+    return hi, lo
 
 
 def mm_f32(a, b):
@@ -52,16 +65,40 @@ def mm_f32(a, b):
 
 
 def mm_3xtf32(a, b):
-    """The kernels' product: a_lo b_hi + a_hi b_lo + a_hi b_hi, each part
-    cut to TF32 (the hardware reads the top 19 bits of an f32)."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
+    """The kernels' product: a_lo b_hi + a_hi b_lo + a_hi b_hi."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
     return (al @ bh + ah @ bl) + ah @ bh
 
 
 def mm_1xtf32(a, b):
     """A single TF32 pass (not used by the kernels)."""
     return _tf32(a) @ _tf32(b)
+
+
+# NaN and Inf as the card makes them: 0x7fffffff is its NaN, and an
+# integer add of half a TF32 ulp would carry it (and 0xffffffff) into -0 /
+# +0, so a split by that add would drop a NaN from the product
+NONFINITE_BITS = [0x7FFFFFFF, -1, 0x7FC00000, 0x7F800001, 0x7F800000,
+                  -0x800000]
+
+
+@pytest.mark.parametrize("bits", NONFINITE_BITS,
+                         ids=["nan", "-nan", "qnan", "snan", "inf", "-inf"])
+def test_tf32_split_keeps_nonfinite_operands(bits):
+    """A NaN operand gives NaN products in the split, as in f32; an
+    infinite one gives non-finite products (NaN where f32 has ±Inf:
+    a - a_hi is Inf - Inf)."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((4, HID)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((HID, 8)).astype(np.float32))
+    a.view(torch.int32)[1, 5] = bits
+    hi, lo = split_tf32(a[1, 5])
+    assert not torch.isfinite(lo)
+    got, want = mm_3xtf32(a, b), mm_f32(a, b)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(torch.isnan(got) | torch.isinf(want),
+                       torch.isnan(want) | torch.isinf(want))
+    assert not torch.isfinite(got[1]).any() and torch.isfinite(got[0]).all()
 
 
 def _silu_grad(u):
@@ -405,3 +442,44 @@ def test_virtual_schedule_single_tf32_pass_misses_tolerance():
     got = virtual_bwd_schedule(*args, mm=mm_1xtf32)
     with pytest.raises(AssertionError):
         _assert_grads_close(got, want)
+
+
+# ------------------------------------------------------ NaN in the inputs
+def _assert_same_nans(got, want):
+    """NaN where the plain gradients have NaN, and close elsewhere."""
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        if ok.any():
+            scale = float(w[ok].abs().max()) + 1e-6
+            torch.testing.assert_close(g[ok] / scale, w[ok] / scale,
+                                       atol=GATOL, rtol=GRTOL)
+    assert torch.isnan(got[1]).any() and not torch.isnan(got[1]).all()
+
+
+def test_edge_schedule_keeps_nan_in_h():
+    """NaN rows of h (the card's bit patterns, at two nodes that send and
+    receive live edges): NaN in the same gradients as the plain
+    version's autograd, close elsewhere."""
+    targs, kw, _, _ = _edge_case("mlp", "inv1p", 0.05, 12, True)
+    targs = list(targs)
+    h = targs[1].clone()
+    h.view(torch.int32)[2] = 0x7FFFFFFF
+    h.view(torch.int32)[5] = -1
+    targs[1] = h
+    got = edge_bwd_schedule(*targs, **kw, n_ctas=12, mm=mm_3xtf32)
+    want = edge_pathway_bwd_plain(*targs[:5], *targs[7:16], *targs[17:],
+                                  **kw)
+    _assert_same_nans(got, want)
+
+
+def test_virtual_schedule_keeps_nan_in_h():
+    args, _ = _virtual_case(150, 3)
+    args = list(args)
+    live = torch.nonzero(args[3]).flatten()
+    h = args[1].clone()
+    h.view(torch.int32)[int(live[3])] = 0x7FFFFFFF
+    h.view(torch.int32)[int(live[90])] = -1
+    args[1] = h
+    got = virtual_bwd_schedule(*args, mm=mm_3xtf32)
+    _assert_same_nans(got, virtual_pathway_bwd_plain(*args))

@@ -132,6 +132,200 @@ def test_virtual_kernel_matches_plain(n):
     _assert_matches(got, again, want)
 
 
+# ----------------------------- the forwards' schedules: shares, hubs, faults
+def _outside_values_tolerance(got, want) -> bool:
+    """True where some output leaves atol 1e-5 / rtol 1e-4."""
+    return any(not bool(((g - w).abs() <= ATOL + RTOL * w.abs()).all())
+               for g, w in zip(got, want))
+
+
+def _hub_edge_args(dev, gate="mlp"):
+    """The hub graph of the backward tests (a 200-edge hub receiver, node
+    3, and hub sender, node 7; 301 nodes), forward arguments only."""
+    args = _hub_edge_bwd_args(dev)[0]
+    if gate == "none":
+        args[11:14] = [torch.zeros(1, 1, device=dev)] * 3
+    return args
+
+
+@needs_cuda
+@pytest.mark.parametrize("gate,rel,clamp", [
+    ("mlp", "raw", math.inf), ("mlp", "raw", 0.05), ("mlp", "inv1p", 0.05),
+    ("none", "raw", math.inf)])
+def test_edge_forward_hub_rows(gate, rel, clamp):
+    """A receiver row of 200 edges runs over several 64-edge tiles in one
+    CTA; a hub sender; a node count that is no multiple of 64."""
+    dev = torch.device("cuda")
+    args = _hub_edge_args(dev, gate)
+    deg = np.diff(args[4].cpu().numpy())
+    assert deg[3] >= 200 and args[0].shape[0] % 64 != 0
+    kw = dict(gate_mode=gate, rel_mode=rel, clamp=clamp)
+    edge_message.reset_launches()
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*args, **kw)
+        again = edge_message.edge_pathway_fused(*args, **kw)
+        want = edge_message.edge_pathway_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert edge_message.launches == 2
+    _assert_matches(got, again, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_ctas", [1, 3, 64, 1000])
+def test_edge_forward_cta_count_does_not_change_a_bit(monkeypatch, n_ctas):
+    """Each row sums its live edges in slot order inside one CTA, so any
+    CTA count gives the same bits: one CTA; shares that cut rows anywhere;
+    1,000 CTAs, most of whose shares start inside the hub row and own no
+    row."""
+    dev = torch.device("cuda")
+    args = _hub_edge_args(dev)
+    with torch.no_grad():
+        ref = edge_message.edge_pathway_fused(*args)
+        monkeypatch.setattr(edge_message, "EDGE_FWD_CTAS", n_ctas)
+        got = edge_message.edge_pathway_fused(*args)
+        want = edge_message.edge_pathway_plain(*args)
+    torch.cuda.synchronize()
+    _assert_matches(got, ref, want)
+
+
+@needs_cuda
+def test_edge_forward_shares_without_live_slots(monkeypatch):
+    """Three CTA shares whose slots are all masked: their rows get exact
+    zeros, the rest match the plain version."""
+    dev = torch.device("cuda")
+    args = _hub_edge_args(dev)
+    n_ctas = 40
+    monkeypatch.setattr(edge_message, "EDGE_FWD_CTAS", n_ctas)
+    indptr = args[4].cpu().numpy()
+    share = -(-int(indptr[-1]) // n_ctas)
+    em = args[3].clone()
+    em[5 * share:8 * share] = 0.0
+    args[3] = em
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*args)
+        again = edge_message.edge_pathway_fused(*args)
+        want = edge_message.edge_pathway_plain(*args)
+    torch.cuda.synchronize()
+    _assert_matches(got, again, want)
+    dead = [r for r in range(indptr.size - 1)
+            if not em[int(indptr[r]):int(indptr[r + 1])].any()]
+    assert len(dead) > 3
+    for out in got:
+        assert not out[dead].any()
+
+
+@needs_cuda
+def test_edge_forward_extra_masked_slots_do_not_change_a_bit():
+    """The same live edges, once in a Verlet list at r + skin with the
+    candidates outside r masked and once in a list of exactly the live
+    edges: torch.equal outputs (a trajectory cannot depend on the skin)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    n, r, skin = 400, 0.15, 0.1
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    args = _edge_args(dev, seed=21)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    h = torch.from_numpy(rng.standard_normal((n, WIDTH)).astype(
+        np.float32)).to(dev)
+    snd, rcv = sort_edges_by_receiver(*radius_graph(x, r + skin))
+    d = x[snd] - x[rcv]
+    keep = (d * d).sum(-1) <= np.float32(r) ** 2
+    outs = []
+    for s, rc, m in ((snd, rcv, keep), (snd[keep], rcv[keep], keep[keep])):
+        sp, rp, em = pad_edges(s, rc, s.size + 64, x)
+        em[:s.size] = m
+        args[:5] = [t(x), h, t(sp), t(em), t(csr_indptr(rp, s.size, n))]
+        with torch.no_grad():
+            outs.append(edge_message.edge_pathway_fused(*args))
+    assert 1000 < keep.sum() < keep.size // 2
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@needs_cuda
+def test_edge_forward_planted_fault_is_caught():
+    """One live slot's mask zeroed in the kernel's call only lands outside
+    the forward tolerance."""
+    dev = torch.device("cuda")
+    args = _hub_edge_args(dev)
+    with torch.no_grad():
+        want = edge_message.edge_pathway_plain(*args)
+        em = args[3].clone()
+        live = torch.nonzero(em).flatten()
+        em[live[live.numel() // 2]] = 0.0
+        got = edge_message.edge_pathway_fused(*args[:3], em, *args[4:])
+    torch.cuda.synchronize()
+    assert _outside_values_tolerance(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,c", [(8192, 3), (8192, 1), (8191, 3), (100, 2)])
+def test_virtual_forward_serving_and_ragged_sizes(n, c):
+    """The serving size (128 tiles of 64 nodes), a ragged last tile, and
+    one or several channels."""
+    args = _virtual_args(torch.device("cuda"), n=n, c=c)
+    virtual_message.reset_launches()
+    with torch.no_grad():
+        got = virtual_message.virtual_pathway_fused(*args)
+        again = virtual_message.virtual_pathway_fused(*args)
+        want = virtual_message.virtual_pathway_plain(*args)
+    torch.cuda.synchronize()
+    assert virtual_message.launches == 2
+    _assert_matches(got, again, want)
+
+
+@needs_cuda
+def test_virtual_forward_planted_fault_is_caught():
+    """One node's mask flipped in the kernel's call only lands outside the
+    forward tolerance."""
+    args = _virtual_args(torch.device("cuda"), n=1000)
+    with torch.no_grad():
+        want = virtual_message.virtual_pathway_plain(*args)
+        mask = args[3].clone()
+        mask[500] = 1.0 - mask[500]
+        got = virtual_message.virtual_pathway_fused(*args[:3], mask,
+                                                    *args[4:])
+    torch.cuda.synchronize()
+    assert _outside_values_tolerance(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("drop_rate", [0.0, 0.5])
+def test_rollout_kernel_path_bitwise_independent_of_skin(drop_rate):
+    """DESIGN.md §10.2 on the card: full-width FastEGNN (2 layers) through
+    the kernels, two scenes, trajectories at skin 0 (a rebuild every step)
+    and skin 0.4 (a reused Verlet list with many masked candidates) are
+    array_equal.  The random weights' coordinate outputs are scaled by
+    0.05 so that the scenes stay finite and the list is reused."""
+    from repro_torch.rollout import BatchedRolloutEngine
+
+    dev = torch.device("cuda")
+    pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                          n_layers=2,
+                          generator=torch.Generator().manual_seed(3))
+    for lp in pipe.params["layers"]:
+        for w in (lp["phi_xr"][1]["w"], lp["phi_v"][1]["w"],
+                  lp["virtual"]["phi_xv"][1]["w"],
+                  lp["virtual"]["phi_z"][1]["w"]):
+            w.mul_(0.05)
+    rng = np.random.default_rng(8)
+    scenes = [(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32),
+               (0.05 * rng.standard_normal((n, 3))).astype(np.float32),
+               np.ones((n, 1), np.float32)) for n in (300, 260)]
+    runs = []
+    for skin in (0.0, 0.4):
+        eng = BatchedRolloutEngine(pipe.predict_fn, batch_size=2, node_cap=320,
+                                   edge_cap=320 * 300, r=0.15, skin=skin,
+                                   dt=0.01, drop_rate=drop_rate, device=dev)
+        edge_message.reset_launches()
+        runs.append(eng.run(pipe.params, scenes, 8))
+        assert edge_message.launches == 2 * 2 * 8  # layers x scenes x steps
+    assert runs[1].rebuild_count < runs[0].rebuild_count
+    for a, b in zip(runs[0].trajectories, runs[1].trajectories):
+        assert np.isfinite(a).all()
+        assert np.array_equal(a, b)
+
+
 @needs_cuda
 def test_kernels_refuse_unsupported_widths_and_modes():
     dev = torch.device("cuda")
@@ -529,6 +723,96 @@ def test_virtual_backward_planted_fault_is_caught():
     got = virtual_message.virtual_pathway_bwd_fused(*bad, *cots)
     torch.cuda.synchronize()
     assert _outside_tolerance(got, want)
+
+
+# ------------------------------------------------- NaN computed on the card
+def _card_nan_rows(h, rows):
+    """h with two NaN rows: 0 / 0 computed on the card (0x7fffffff) and
+    the same with the sign bit set (0xffffffff).  An integer add of half a
+    TF32 ulp carries both into a zero."""
+    h = h.clone()
+    h[rows[0]] = torch.zeros((), device=h.device) / 0.0
+    bits = h.view(torch.int32)
+    bits[rows[1]] = -1
+    assert int(bits[rows[0], 0]) == 0x7FFFFFFF
+    return h
+
+
+def _assert_same_nans(got, want):
+    """NaN exactly where the plain version has NaN, close elsewhere (each
+    output relative to its largest finite magnitude)."""
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        if ok.any():
+            scale = float(w[ok].abs().max()) + 1e-6
+            torch.testing.assert_close(g[ok] / scale, w[ok] / scale,
+                                       atol=5e-5, rtol=1e-3)
+    assert torch.isnan(got[1]).any() and not torch.isnan(got[1]).all()
+
+
+def _live_nodes(args, dev):
+    """Two nodes that receive and send live edges."""
+    snd, em, indptr = args[2].cpu(), args[3].cpu(), args[4].cpu()
+    rcv = torch.repeat_interleave(torch.arange(indptr.numel() - 1),
+                                  torch.diff(indptr.long()))
+    live = em[:rcv.numel()] != 0
+    both = sorted(set(rcv[live].tolist()) & set(snd[:rcv.numel()][live]
+                                                 .tolist()))
+    return both[3], both[40]
+
+
+@needs_cuda
+def test_edge_forward_keeps_nan_computed_on_card():
+    dev = torch.device("cuda")
+    args = _edge_args(dev)
+    args[1] = _card_nan_rows(args[1], _live_nodes(args, dev))
+    kw = dict(gate_mode="mlp", rel_mode="inv1p", clamp=0.05)
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*args, **kw)
+        want = edge_message.edge_pathway_plain(*args, **kw)
+    _assert_same_nans(got, want)
+
+
+@needs_cuda
+def test_edge_backward_keeps_nan_computed_on_card():
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh = _edge_bwd_args(dev, "mlp", "inv1p", 0.05)
+    args[1] = _card_nan_rows(args[1], _live_nodes(args, dev))
+    kw = dict(gate_mode="mlp", rel_mode="inv1p", clamp=0.05)
+    got = edge_message.edge_pathway_bwd_fused(*args[:5], *sender, *args[5:],
+                                              deg, g_dx, g_mh, **kw)
+    want = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, **kw)
+    _assert_same_nans(got, want)
+
+
+def _virtual_nan_args(dev, n=1000):
+    args = _virtual_args(dev, n=n)
+    live = torch.nonzero(args[3]).flatten().tolist()
+    args[1] = _card_nan_rows(args[1], (live[3], live[700]))
+    return args
+
+
+@needs_cuda
+def test_virtual_forward_keeps_nan_computed_on_card():
+    args = _virtual_nan_args(torch.device("cuda"))
+    with torch.no_grad():
+        got = virtual_message.virtual_pathway_fused(*args)
+        want = virtual_message.virtual_pathway_plain(*args)
+    _assert_same_nans(got, want)
+
+
+@needs_cuda
+def test_virtual_backward_keeps_nan_computed_on_card():
+    dev = torch.device("cuda")
+    args = _virtual_nan_args(dev)
+    rng = np.random.default_rng(9)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    cots = (t(1000, 3), t(1000, WIDTH), t(3, 3), t(3, WIDTH))
+    got = virtual_message.virtual_pathway_bwd_fused(*args, *cots)
+    want = virtual_message.virtual_pathway_bwd_plain(*args, *cots)
+    _assert_same_nans(got, want)
 
 
 # ------------------------------------------------- sliding-window attention

@@ -1,0 +1,425 @@
+"""The schedule of the CUDA edge (#1) and virtual (#3) forward kernels,
+emulated in plain PyTorch and held against the JAX package's oracles
+(``edge_pathway_ref`` / ``virtual_pathway_ref``).
+
+No CUDA kernel runs on the CPU, so these tests hold the kernels'
+algorithm where the kernels cannot run: how ``csrc/edge_message.cu`` and
+``csrc/virtual_message.cu`` cut the work and add it up, and the precision
+of their tensor-core products.
+
+* Edge: the node projection P = h·W1r, Q = h·W1s over 64-node tiles; CTA b
+  owns the receiver rows whose CSR segment starts in its equal share of
+  ``[0, indptr[N])`` (``node_proj``'s ``ctarow``); its live slots are
+  packed in slot order into 64-edge tiles; each row's mh, deg and dx start
+  from zero and add the row's live edges one at a time in slot order,
+  carried across tiles.  The output must not change by a bit with the CTA
+  count or with extra masked slots in the layout.
+* Virtual: 64-node tiles (ragged last), the channels in order, one partial
+  row (dz | ms) per tile and channel, added in tile order.
+* Every 64 x 64 product either in f32 or as the kernels' 3xTF32 split;
+  and the split as the tensor core sums it (each MMA's result rounded
+  toward zero), which is why the forwards sum every k-step on its own
+  (``tile_mma``'s STEP_SUM).
+
+Tolerance: the forward's, elementwise atol 1e-5 / rtol 1e-4
+(``chip_smoke.py``'s ATOL / RTOL).
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as j_ref
+from repro_torch.core.virtual_nodes import init_virtual_block
+from repro_torch.data.radius_graph import (csr_indptr, pad_edges,
+                                           radius_graph,
+                                           sort_edges_by_receiver)
+from repro_torch.kernels.edge_message import edge_pathway_plain
+from repro_torch.kernels.ops import unpack_virtual_block
+from repro_torch.kernels.virtual_message import virtual_pathway_plain
+from test_torch_bwd_schedule import (HID, TR, _edge_graph, _edge_weights,
+                                     mm_1xtf32, mm_3xtf32, mm_f32,
+                                     split_tf32, sum_in_order)
+
+ATOL, RTOL = 1e-5, 1e-4
+silu = torch.nn.functional.silu
+
+
+def _round_to_zero(x):
+    """f64 → f32, rounded toward zero."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    y[over] = torch.nextafter(y[over], torch.zeros_like(y[over]))
+    return y
+
+
+def mm_tensor_core(a, b, step_sum=True):
+    """The 3xTF32 product as the tensor core sums it: each MMA adds its
+    eight exact products to its accumulator and rounds the result toward
+    zero.  ``step_sum``: each k-step's three MMAs start from zero and the
+    step joins the running sum by a round-to-nearest f32 add, as
+    ``tile_mma<..., STEP_SUM>`` does."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        d = torch.zeros_like(acc) if step_sum else acc
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            d = _round_to_zero(d.double() + x[:, s].double() @ y[s].double())
+        acc = acc + d if step_sum else d
+    return acc
+
+
+def _tiles(a, fn):
+    """fn over 64-row tiles of ``a`` (the last padded with zero rows)."""
+    out = []
+    for i in range(0, a.shape[0], TR):
+        t = a[i:i + TR]
+        cnt = t.shape[0]
+        t = torch.cat([t, t.new_zeros((TR - cnt,) + t.shape[1:])])
+        out.append(fn(t)[:cnt])
+    return torch.cat(out)
+
+
+# ------------------------------------------------------- edge schedule
+def cta_rows(indptr, n_ctas):
+    """``node_proj``'s ctarow: CTA b owns rows [rows[b], rows[b + 1])."""
+    n = indptr.shape[0] - 1
+    share = max(1, -(-int(indptr[n]) // n_ctas))
+    c = lambda r: min(int(indptr[r]) // share, n_ctas - 1)
+    rows = [None] * (n_ctas + 1)
+    for r in range(n + 1):
+        lo = -1 if r == 0 else c(r - 1)
+        up = n_ctas if r == n else c(r)
+        for b in range(lo + 1, up + 1):
+            rows[b] = r
+    return rows
+
+
+def edge_fwd_schedule(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
+                      bg1, wg2, *, gate_mode, rel_mode, clamp, n_ctas, mm,
+                      trace=None):
+    """``csrc/edge_message.cu``'s schedule → ``(dx, mh, deg)``."""
+    n = x.shape[0]
+    f32 = torch.float32
+    P = _tiles(h, lambda t: mm(t, w1r))
+    Q = _tiles(h, lambda t: mm(t, w1s))
+    dx = torch.full((n, 3), float("nan"), dtype=f32)
+    mh = torch.full((n, HID), float("nan"), dtype=f32)
+    deg = torch.full((n, 1), float("nan"), dtype=f32)
+    rows = cta_rows(indptr, n_ctas)
+    row_of = torch.searchsorted(indptr.long(), torch.arange(snd.shape[0]),
+                                right=True) - 1
+
+    def finish(r, a, dg, d):
+        inv = 1.0 / max(dg, torch.tensor(1.0))
+        mh[r], dx[r], deg[r, 0] = a * inv, d * inv, dg
+
+    for b in range(n_ctas):
+        r0, r1 = rows[b], rows[b + 1]
+        live = [s for s in range(int(indptr[r0]), int(indptr[r1]))
+                if em[s] != 0]
+        for r in range(r0, r1):  # rows with no live slot
+            finish(r, torch.zeros(HID), torch.tensor(0.0), torch.zeros(3))
+        carry = None  # (row, mh sum, deg, dx sum) of the unfinished row
+        for t0 in range(0, len(live), TR):
+            sl = torch.tensor(live[t0:t0 + TR], dtype=torch.long)
+            cnt = sl.numel()
+            r, s, e = row_of[sl], snd[sl].long(), em[sl]
+            if trace is not None:
+                trace.append((b, r0, r1, r.tolist()))
+            rel = x[r] - x[s]
+            d2 = (rel * rel).sum(-1)
+            pad = lambda t: torch.cat([t, t.new_zeros((TR - cnt,)
+                                                      + t.shape[1:])])
+            t1 = silu(pad(((P[r] + Q[s]) + d2[:, None] * w1d) + b1))
+            msg = mm(t1, w2) + b2
+            term = torch.zeros((cnt, 3), dtype=f32)
+            if gate_mode == "mlp":
+                g = (silu(mm(msg, wg1) + bg1) * wg2[:, 0]).sum(-1)[:cnt]
+                g = torch.clamp(g, -clamp, clamp)
+                q = rel / (torch.sqrt(d2 + 1e-12) + 1.0)[:, None] if (
+                    rel_mode == "inv1p") else rel
+                term = (q * g[:, None]) * e[:, None]
+            for i in range(cnt):  # each row's live edges in slot order
+                ri = int(r[i])
+                if carry is None or carry[0] != ri:
+                    if carry is not None:
+                        finish(*carry)
+                    carry = (ri, torch.zeros(HID), torch.tensor(0.0),
+                             torch.zeros(3))
+                _, a, dg, d = carry
+                carry = (ri, a + msg[i] * e[i], dg + e[i], d + term[i])
+        if carry is not None:
+            finish(*carry)
+    return dx, mh, deg
+
+
+def _edge_fwd_case(gate, rel, clamp, empty_share=None):
+    x, sp, rp, em, indptr, _, _ = _edge_graph()
+    if empty_share is not None:  # one CTA share with no live slot
+        n_ctas, k = empty_share
+        length = -(-int(indptr[-1]) // n_ctas)
+        em[k * length:(k + 1) * length] = 0.0
+    rng = np.random.default_rng(2)
+    h = rng.standard_normal((x.shape[0], HID)).astype(np.float32)
+    ws = _edge_weights()
+    if gate == "none":
+        ws[6:] = [np.zeros((1, 1), np.float32)] * 3
+    kw = dict(gate_mode=gate, rel_mode=rel, clamp=clamp)
+    want = j_ref.edge_pathway_ref(*[jnp.asarray(a) for a in (x, h, sp, rp, em)],
+                                  *[jnp.asarray(w) for w in ws], **kw)
+    t = torch.from_numpy
+    targs = (t(x), t(h), t(sp), t(em), t(indptr), *[t(w) for w in ws])
+    return targs, kw, [np.asarray(w) for w in want]
+
+
+def _assert_close(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
+EDGE_CASES = [("mlp", "raw", math.inf), ("mlp", "raw", 0.05),
+              ("mlp", "inv1p", 0.05), ("mlp", "inv1p", math.inf),
+              ("none", "raw", math.inf)]
+
+
+@pytest.mark.parametrize("mm", [mm_f32, mm_3xtf32], ids=["f32", "3xtf32"])
+@pytest.mark.parametrize("gate,rel,clamp", EDGE_CASES,
+                         ids=["mlp", "mlp-clip", "inv1p-clip", "inv1p",
+                              "none"])
+def test_edge_fwd_schedule_matches_oracle(gate, rel, clamp, mm):
+    """24 CTAs: the hub row runs far past its share, CTAs whose share
+    starts inside it own no row, one share has no live slot; 4 CTAs:
+    several tiles a CTA, rows carried across tiles and tiles whose last
+    live edge ends a row.  Both within the tolerance, and bitwise equal."""
+    targs, kw, want = _edge_fwd_case(gate, rel, clamp, empty_share=(24, 10))
+    indptr = targs[4].numpy()
+    outs = []
+    for n_ctas in (24, 4):
+        trace = []
+        outs.append(edge_fwd_schedule(*targs, **kw, n_ctas=n_ctas, mm=mm,
+                                      trace=trace))
+        _assert_close(outs[-1], want)
+        tiles = {}
+        for b, _, _, rows in trace:
+            tiles.setdefault(b, []).append(rows)
+        pairs = [(a[-1], c[0]) for ts in tiles.values()
+                 for a, c in zip(ts, ts[1:])]
+        share = -(-int(indptr[-1]) // n_ctas)
+        rows = cta_rows(targs[4], n_ctas)
+        if n_ctas == 24:
+            assert np.diff(indptr).max() > 2 * share
+            assert any(rows[b] == rows[b + 1] for b in range(n_ctas))
+        else:
+            assert any(a == c for a, c in pairs)  # a row carried on
+            assert any(a != c for a, c in pairs)  # a row ended a tile
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    # padding nodes (no slot) get exact zeros
+    assert all(not v[200:].any() for v in outs[0])
+
+
+@pytest.mark.parametrize("gate,rel,clamp", EDGE_CASES[1:3],
+                         ids=["mlp-clip", "inv1p-clip"])
+def test_edge_fwd_schedule_cta_count_does_not_change_a_bit(gate, rel, clamp):
+    """One CTA, shares that cut rows anywhere, and more CTAs than rows:
+    the same bits."""
+    targs, kw, _ = _edge_fwd_case(gate, rel, clamp)
+    outs = [edge_fwd_schedule(*targs, **kw, n_ctas=k, mm=mm_3xtf32)
+            for k in (1, 3, 7, 12, 300)]
+    for out in outs[1:]:
+        for a, b in zip(out, outs[0]):
+            assert torch.equal(a, b)
+
+
+def test_edge_fwd_schedule_masked_slots_do_not_change_a_bit():
+    """The same live edges in a Verlet list at r + skin (the candidates
+    outside r masked) and in a list of exactly the live edges: the same
+    bits, as the rollout's skin independence needs."""
+    rng = np.random.default_rng(4)
+    n, r = 150, 0.2
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    snd, rcv = sort_edges_by_receiver(*radius_graph(x, r + 0.1))
+    d = x[snd] - x[rcv]
+    keep = (d * d).sum(-1) <= np.float32(r) ** 2
+    h = torch.from_numpy(rng.standard_normal((n, HID)).astype(np.float32))
+    ws = [torch.from_numpy(w) for w in _edge_weights()]
+    outs = []
+    for s, rc, m in ((snd, rcv, keep), (snd[keep], rcv[keep], keep[keep])):
+        sp, rp, em = pad_edges(s, rc, s.size + 50, x)
+        em[:s.size] = m
+        t = torch.from_numpy
+        outs.append(edge_fwd_schedule(
+            t(x), h, t(sp), t(em), t(csr_indptr(rp, s.size, n)), *ws,
+            gate_mode="mlp", rel_mode="inv1p", clamp=0.05, n_ctas=9,
+            mm=mm_3xtf32))
+    assert 0 < keep.sum() < keep.size
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_edge_fwd_schedule_single_tf32_pass_misses_tolerance():
+    """Why the kernel splits every operand: one TF32 pass per product
+    lands outside the forward tolerance on the same case."""
+    targs, kw, want = _edge_fwd_case("mlp", "raw", math.inf)
+    got = edge_fwd_schedule(*targs, **kw, n_ctas=12, mm=mm_1xtf32)
+    with pytest.raises(AssertionError):
+        _assert_close(got, want)
+
+
+# ---------------------------------------------------- virtual schedule
+def virtual_fwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
+                         wz1, bz1, wz2, *, mm):
+    """``csrc/virtual_message.cu``'s schedule → ``(dx, mh, dz, ms)``."""
+    n, c = x.shape[0], z.shape[0]
+    f32 = torch.float32
+    inv_c = 1.0 / c
+    dx = torch.zeros((n, 3), dtype=f32)
+    mh = torch.zeros((n, HID), dtype=f32)
+    parts = []
+    for i0 in range(0, n, TR):
+        cnt = min(TR, n - i0)
+        pad = lambda t: torch.cat([t, t.new_zeros((TR - cnt,)
+                                                  + t.shape[1:])])
+        xt, ht, mt = pad(x[i0:i0 + cnt]), pad(h[i0:i0 + cnt]), pad(
+            mask[i0:i0 + cnt])
+        ok = torch.arange(TR) < cnt
+        mha = torch.zeros((TR, HID), dtype=f32)
+        dxa = torch.zeros((TR, 3), dtype=f32)
+        tile_parts = []
+        for ch in range(c):  # the channels in order
+            rl = xt - z[ch]
+            d2 = (rl * rl).sum(-1)
+            t1 = silu((mm(ht, w1h[ch]) + d2[:, None] * w1d[ch]) + c1[ch])
+            msg = mm(t1, w2[ch]) + b2[ch]
+            mha = mha + msg
+            gx = (silu(mm(msg, wg1[ch]) + bg1[ch]) * wg2[ch, :, 0]).sum(-1)
+            gz = (silu(mm(msg, wz1[ch]) + bz1[ch]) * wz2[ch, :, 0]).sum(-1)
+            dxa = dxa + rl * gx[:, None]
+            ms = torch.where(ok[:, None], msg * mt[:, None], 0.0).sum(0)
+            dzt = torch.where(ok[:, None], (-rl * gz[:, None]) * mt[:, None],
+                              0.0)
+            tile_parts.append((sum_in_order(list(dzt)), ms))
+        parts.append(tile_parts)
+        mh[i0:i0 + cnt] = (mha * inv_c)[:cnt]
+        dx[i0:i0 + cnt] = (dxa * inv_c)[:cnt]
+    red = lambda k: torch.stack([sum_in_order([p[ch][k] for p in parts])
+                                 for ch in range(c)])
+    return dx, mh, red(0), red(1)
+
+
+def _virtual_fwd_case(n, c, seed=3):
+    rng = np.random.default_rng(seed)
+    f = lambda s, sc=1.0: (sc * rng.standard_normal(s)).astype(np.float32)
+    x = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    h = f((n, HID))
+    mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
+    z = (0.5 + 0.2 * rng.standard_normal((c, 3))).astype(np.float32)
+    sc = 0.15
+    ws = [f((c, HID, HID), sc), f((c, HID), sc), f((c, HID), sc),
+          f((c, HID, HID), sc), f((c, HID), sc), f((c, HID, HID), sc),
+          f((c, HID), sc), f((c, HID, 1), sc), f((c, HID, HID), sc),
+          f((c, HID), sc), f((c, HID, 1), sc)]
+    want = j_ref.virtual_pathway_ref(*[jnp.asarray(a)
+                                       for a in (x, h, z, mask, *ws)])
+    t = torch.from_numpy
+    return (t(x), t(h), t(z), t(mask), *[t(w) for w in ws]), want
+
+
+@pytest.mark.parametrize("mm", [mm_f32, mm_3xtf32], ids=["f32", "3xtf32"])
+@pytest.mark.parametrize("n,c", [(150, 3), (64, 1), (37, 3), (200, 2)])
+def test_virtual_fwd_schedule_matches_oracle(n, c, mm):
+    args, want = _virtual_fwd_case(n, c)
+    _assert_close(virtual_fwd_schedule(*args, mm=mm), want)
+
+
+def test_virtual_fwd_schedule_single_tf32_pass_misses_tolerance():
+    args, want = _virtual_fwd_case(150, 3)
+    with pytest.raises(AssertionError):
+        _assert_close(virtual_fwd_schedule(*args, mm=mm_1xtf32), want)
+
+
+def _virtual_init_case(n, c, seed=7):
+    """The model's own virtual block (``init_virtual_block``) at ``n``
+    nodes, as the GPU tests build it."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: a.astype(np.float32)
+    x, h = f(rng.uniform(0, 1, (n, 3))), f(rng.standard_normal((n, HID)))
+    mask = f((rng.uniform(size=n) > 0.1) * 1.0)
+    z = f(0.5 + 0.2 * rng.standard_normal((c, 3)))
+    s = torch.from_numpy(f(0.1 * rng.standard_normal((c, HID))))
+    block = init_virtual_block(torch.Generator().manual_seed(seed), c, HID,
+                               HID, HID, device="cpu")
+    w = unpack_virtual_block(block, s, torch.zeros(c, c), HID)
+    ws = [w[k].numpy() for k in ("w1h", "w1d", "const1", "w2", "b2", "wg1",
+                                 "bg1", "wg2", "wz1", "bz1", "wz2")]
+    want = j_ref.virtual_pathway_ref(*[jnp.asarray(a)
+                                       for a in (x, h, z, mask, *ws)])
+    t = torch.from_numpy
+    return (t(x), t(h), t(z), t(mask), *[t(a) for a in ws]), want
+
+
+@pytest.mark.parametrize("step_sum", [True, False],
+                         ids=["step-sums", "one-accumulator"])
+def test_virtual_fwd_schedule_tensor_core_rounding(step_sum):
+    """The serving size, one channel: ms sums ~7,400 messages.  With the
+    24 MMAs of each product rounding toward zero into one accumulator, the
+    messages' common bias leaves the forward tolerance; summing each
+    k-step on its own keeps it."""
+    args, want = _virtual_init_case(8192, 1)
+    got = virtual_fwd_schedule(
+        *args, mm=lambda a, b: mm_tensor_core(a, b, step_sum))
+    if step_sum:
+        _assert_close(got, want)
+    else:
+        with pytest.raises(AssertionError):
+            _assert_close(got, want)
+
+
+# ------------------------------------------------------ NaN in the inputs
+CARD_NANS = (0x7FFFFFFF, -1)  # the card's NaN, and 0xffffffff
+
+
+def _plant_nans(h, rows):
+    """h with rows set to NaN bit patterns the card computes."""
+    h = h.clone()
+    for r, bits in zip(rows, CARD_NANS):
+        h.view(torch.int32)[r] = bits
+    return h
+
+
+def _assert_same_nans(got, want):
+    """NaN where the plain version has NaN, and close elsewhere."""
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        torch.testing.assert_close(g[ok], w[ok], atol=ATOL, rtol=RTOL)
+    assert any(torch.isnan(g).any() for g in got)
+
+
+@pytest.mark.parametrize("mm", [mm_3xtf32, mm_tensor_core],
+                         ids=["3xtf32", "tensor-core"])
+def test_edge_fwd_schedule_keeps_nan_in_h(mm):
+    """NaN rows of h (a receiver and a sender with live edges) reach the
+    same outputs as in the plain version, and no others."""
+    targs, kw, _ = _edge_fwd_case("mlp", "inv1p", 0.05)
+    args = (targs[0], _plant_nans(targs[1], (5, 11)), *targs[2:])
+    got = edge_fwd_schedule(*args, **kw, n_ctas=12, mm=mm)
+    _assert_same_nans(got, edge_pathway_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("mm", [mm_3xtf32, mm_tensor_core],
+                         ids=["3xtf32", "tensor-core"])
+def test_virtual_fwd_schedule_keeps_nan_in_h(mm):
+    """NaN rows of h at two live nodes: NaN in their rows and in the
+    masked sums, as in the plain version."""
+    args, _ = _virtual_fwd_case(150, 3)
+    live = torch.nonzero(args[3]).flatten()
+    args = (args[0], _plant_nans(args[1], (int(live[3]), int(live[90]))),
+            *args[2:])
+    got = virtual_fwd_schedule(*args, mm=mm)
+    _assert_same_nans(got, virtual_pathway_plain(*args))

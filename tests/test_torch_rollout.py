@@ -3,7 +3,8 @@
 * against the JAX package: ``BatchedRolloutEngine`` (host rebuilds) over 3
   scenes and 6 steps with at least one Verlet rebuild, trajectories to 1e-4;
 * port against itself, bitwise: batched == single-scene runs, replica
-  padding, and the ``RolloutService`` stream == ``engine.run``;
+  padding, trajectories independent of the skin, and the
+  ``RolloutService`` stream == ``engine.run``;
 * service behaviour: admission errors, batching window, capacity
   isolation, queue backpressure, LRU eviction and re-admission.
 """
@@ -99,6 +100,26 @@ def test_batched_equals_singles_bitwise(pipe, use_kernel):
         one = _engine(p, 1).run(p.params, [scene], 6)
         np.testing.assert_array_equal(res.trajectories[s],
                                       one.trajectories[0])
+
+
+@pytest.mark.parametrize("drop_rate", [0.0, 0.5])
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["kernel-layout", "plain"])
+def test_trajectories_bitwise_independent_of_skin(pipe, use_kernel,
+                                                  drop_rate):
+    """DESIGN.md §10.2, the reference's ``tests/test_rollout.py:135``: the
+    skin is an execution knob only.  Skin 0 rebuilds every step; skin 0.4
+    reuses a Verlet list whose candidates outside r are masked per step;
+    the trajectories are array_equal."""
+    p = pipe if use_kernel else build_pipeline(
+        "fast_egnn", device="cpu", params=pipe.params, **SMALL)
+    scenes = [_scene(n, seed=s) for s, n in enumerate((40, 33))]
+    r0 = _engine(p, 2, skin=0.0, drop_rate=drop_rate).run(p.params, scenes, 8)
+    r1 = _engine(p, 2, skin=0.4, drop_rate=drop_rate).run(p.params, scenes, 8)
+    assert r1.rebuild_count < r0.rebuild_count  # the list was reused...
+    for a, b in zip(r0.trajectories, r1.trajectories):
+        assert np.isfinite(a).all()
+        assert np.array_equal(a, b)  # ...invisibly
 
 
 def test_engine_hands_predict_fn_each_slots_csr_layout(pipe):

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Per-phase clock trace of the FastEGNN backward kernels on one GPU.
+"""Per-phase clock trace of the FastEGNN edge and virtual kernels, forward
+and backward, on one GPU.
 
     python3 tools/phase_trace.py          # from the repository root
 
-Builds instrumented copies of ``csrc/edge_message_bwd.cu`` and
+Builds instrumented copies of ``csrc/edge_message.cu``,
+``csrc/virtual_message.cu``, ``csrc/edge_message_bwd.cu`` and
 ``csrc/virtual_message_bwd.cu`` into ``src/repro_torch/_build/trace/``:
-after every ``__syncthreads()`` of the main kernel (``edge_bwd_edges``,
-``virtual_bwd_kernel``), thread 0 of CTA 0 records the source line and
-``clock64()``.  Runs the kernels through ``chip_smoke.phase_kernels`` at
+after every ``__syncthreads()`` of the main kernel (``edge_fwd_edges``,
+``virtual_fwd_kernel``, ``edge_bwd_edges``, ``virtual_bwd_kernel``; not
+those inside ``common.cuh``), thread 0 of CTA 0 records the source line
+and ``clock64()``.  Runs the kernels through ``chip_smoke.phase_kernels`` at
 its serving shapes (the last call's trace is kept) and prints, for each
 sync point, how often CTA 0 passed it and the mean clocks since the
 previous one.  The clocks include the work of any other CTA on the same
@@ -21,7 +24,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNELS = {"edge_message_bwd": "edge_bwd_edges",
+KERNELS = {"edge_message": "edge_fwd_edges",
+           "virtual_message": "virtual_fwd_kernel",
+           "edge_message_bwd": "edge_bwd_edges",
            "virtual_message_bwd": "virtual_bwd_kernel"}
 SLOTS = 1024
 
@@ -92,7 +97,9 @@ def main() -> int:
     print(cs.gpu_line(), flush=True)
     out_dir = build.BUILD_DIR / "trace"
     out_dir.mkdir(parents=True, exist_ok=True)
-    binds = {"edge_message_bwd": edge_message._bind_bwd,
+    binds = {"edge_message": edge_message._bind,
+             "virtual_message": virtual_message._bind,
+             "edge_message_bwd": edge_message._bind_bwd,
              "virtual_message_bwd": virtual_message._bind_bwd}
     libs = {}
     for name, kernel in KERNELS.items():
