@@ -8,7 +8,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
 1. build   — nvcc builds every CUDA kernel of the FastEGNN serving and
              training paths and the LM prefill from
              ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
-2. kernels — each of the six kernels (edge and virtual forward, edge and
+2. swa_kernel — the LM slice's two sliding-window attention kernels
+             against their plain version (the port of
+             ``_chunked_attention``) at gemma3-12b's prefill shape (B = 1,
+             S = 8,192, 16 heads over 8 KV heads, D = 256): the bf16
+             kernel (``wgmma`` + TMA) on bf16 inputs, the f32 kernel
+             (3xTF32 ``mma.sync``) on f32, each with a bitwise repeat;
+             CUDA-event times of each kernel, the plain version and the
+             SDPA yardstick in its dtype, and each kernel's device time
+             (``torch.profiler``), for the SWA (window 1,024) and the
+             global (causal) layer; and a planted fault, each kernel with
+             the window one too wide, which must land outside its
+             tolerance.  It runs first: after the
+             FastEGNN phases ``torch.profiler`` recorded no device
+             activity for these calls on an H100.
+3. kernels — each of the six kernels (edge and virtual forward, edge and
              virtual backward, MMD cross sum and gradient) against its
              plain PyTorch version on the card at the serving shapes
              (N = 8,192 nodes, 8,192 x 32 edge slots of a fluid scene
@@ -17,18 +31,18 @@ Phases, each printing one JSON line (any failure exits nonzero):
              edge and virtual kernels, forward and backward, also get a
              planted fault each (one live slot's mask zeroed, one node's
              mask flipped, in the kernel's call only), which must land
-             outside the tolerance, the device kernels one call launches
-             with their device times (``torch.profiler``), and a second
-             bound at the TF32 tensor-core rate (their products run as
-             3xTF32).
-3. serve   — a full-width FastEGNN (random weights from a seed) behind
+             outside the tolerance, and a second bound at the TF32
+             tensor-core rate (their products run as 3xTF32).  Every
+             kernel also gets the device kernels one call launches, with
+             their device times (``torch.profiler``).
+4. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each.  Checks every frame, the kernel
              launch counts and the first frame against the plain path.
-4. scale   — one forward step of a 113,000-particle scene (bucket
+5. scale   — one forward step of a 113,000-particle scene (bucket
              131,072) through ``predict_fn``, timed, and one step profiled
              (device time, idle share, top kernels).
-5. train   — a full-width FastEGNN (random weights from seed 0) trained
+6. train   — a full-width FastEGNN (random weights from seed 0) trained
              with ``use_kernel=True`` through ``Pipeline.fit`` for 2 epochs
              on 6 + 2 fluid scenes of 7,800 particles (batch 4, so the
              second training batch is mask-padded), lam_mmd 0.03 over every
@@ -40,16 +54,6 @@ Phases, each printing one JSON line (any failure exits nonzero):
 The FastEGNN tensors are then freed, and the LM slice (gemma3-12b, random
 weights from seed 0) runs:
 
-6. swa_kernel — both sliding-window attention kernels against their
-             plain version (the port of ``_chunked_attention``) at the
-             prefill's shape (B = 1, S = 8,192, 16 heads over 8 KV heads,
-             D = 256): the bf16 tensor-core kernel (``wgmma`` + TMA) on
-             bf16 inputs, the f32 kernel on f32, each with a bitwise
-             repeat; CUDA-event times of each kernel, the plain version and
-             the SDPA yardstick in its dtype for the SWA (window 1,024) and
-             the global (causal) layer; and a planted fault, the bf16
-             kernel with the window one too wide, which must land outside
-             the bf16 tolerance.
 7. lm_parity — gemma3-12b at full width and 6 layers (one 5:1 pattern),
              f32, B = 1, S = 2,048: ``forward`` with the kernel against
              ``forward(use_kernel=False)`` on the card, every logit within
@@ -141,8 +145,11 @@ LOGIT_TOL = 1e-4
 # path's max|k - p| / max|p| for each weight seed must not exceed
 # FULL_LOGIT_TOL, and the same reading of a planted fault (the SWA window
 # one too wide) must exceed it.  On an H100 the sound readings were 7.1e-5
-# (seed 0) and 3.1e-5 (seed 1), the fault's 0.111: the limit sits near
-# their geometric mean, 42x above the one and 37x below the other.
+# (seed 0) and 3.1e-5 (seed 1) with the f32 kernel on the f32 units, and
+# 6.9e-5 and 7.0e-5 with it on the tensor cores (3xTF32), the fault's
+# 0.111 in both: the limit sits near the geometric mean of the largest
+# sound reading and the fault's, 43x above the one and 37x below the
+# other.
 FULL_SEEDS = (0, 1)
 FULL_LOGIT_TOL = 3e-3
 # decode with random weights: the virtual-token state (one read added per
@@ -229,12 +236,18 @@ def bound_ms(n_bytes: float, flops: float,
 
 def tensor_core_fields(fn, n_bytes: float, flops: float) -> dict:
     """For the FastEGNN edge and virtual kernels (3xTF32 products): the
-    bound at the TF32 tensor-core rate (3 x the FLOP), and the device
-    kernels one call of ``fn`` launches with their device times."""
+    bound at the TF32 tensor-core rate (3 x the FLOP), and
+    :func:`device_fields`."""
     tc_ms, tc_by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
-    k_n, k_us = device_kernels_per_call(fn)
     return dict(bound_3xtf32_ms=tc_ms, bound_3xtf32_by=tc_by,
-                kernels_per_call=k_n, kernels_us=k_us,
+                **device_fields(fn))
+
+
+def device_fields(fn) -> dict:
+    """The device kernels one call of ``fn`` launches, with their device
+    times and the sum of those (``device_ms``)."""
+    k_n, k_us = device_kernels_per_call(fn)
+    return dict(kernels_per_call=k_n, kernels_us=k_us,
                 device_ms=(sum(k_us.values()) / 1e3 if k_us
                            else "not measured"))
 
@@ -242,20 +255,25 @@ def tensor_core_fields(fn, n_bytes: float, flops: float) -> dict:
 def device_kernels_per_call(fn) -> tuple:
     """The device kernels (and copies) that one call of ``fn`` launches,
     read from ``torch.profiler``: their number and each one's device time
-    in microseconds; ("not measured", {}) if the profiler sees none."""
+    in microseconds; ("not measured", {}) if the profiler sees none.  A
+    marker kernel (``torch.cuda._sleep``) runs first in the session and is
+    left out: on an H100, after other work on the card, a session missed
+    its first kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA and "spin" not in e.key]
     n = sum(e.count for e in events)
     if not n:
         return "not measured", {}
@@ -530,7 +548,7 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
         source="src/repro_torch/csrc/mmd_rbf.cu",
         replaces="src/repro/kernels/mmd_rbf.py:46",
         ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=None, **device_fields(run),
         shapes=dict(n=n, channels=c, sigma=MMD_SIGMA), **cmp))
     g = torch.tensor(1.0, device=dev)
     run = lambda: mmd_rbf.mmd_cross_grads(xs, z, nm, g, sigma=MMD_SIGMA)
@@ -547,7 +565,7 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
         source="src/repro_torch/csrc/mmd_rbf.cu",
         replaces="src/repro/kernels/mmd_rbf.py:102",
         ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=None, **device_fields(run),
         shapes=dict(n=n, channels=c, sigma=MMD_SIGMA), **cmp))
     return rows
 
@@ -842,11 +860,12 @@ def visible_pairs(s: int, causal: bool, window) -> int:
 def swa_rows(cfg, dev) -> tuple[dict, list]:
     """Both SWA kernels at the prefill's shapes, the sliding-window layer
     (window ``cfg.window``) and the global (causal) layer: the bf16
-    tensor-core kernel on bf16 inputs and the f32 kernel on the same
-    values in f32, each against the plain version in its dtype, with a
-    bitwise repeat, and timed beside the plain version and SDPA; then a
-    planted fault, the bf16 kernel with the window one too wide, against
-    the plain version at the true window."""
+    kernel (``wgmma``) on bf16 inputs and the f32 kernel (3xTF32
+    ``mma.sync``) on the same values in f32, each against the plain
+    version in its dtype, with a bitwise repeat, timed beside the plain
+    version and SDPA, and its device kernels a call read with
+    ``torch.profiler``; then a planted fault, each kernel with the window
+    one too wide, against the plain version at the true window."""
     import torch
     import torch.nn.functional as F
 
@@ -873,12 +892,15 @@ def swa_rows(cfg, dev) -> tuple[dict, list]:
                 got, again, want = run(), run(), plain()
                 cmp = _attention_close(got, want)
                 cmp["bitwise_repeatable"] = torch.equal(got, again)
-                if window is not None and dt == torch.bfloat16:
+                if window is not None:
                     cmp["fault_window_plus_1"] = _attention_close(
                         run(window + 1), want)
                 out[tag] = cmp
                 del got, again, want
                 out[f"ms_{tag}"] = cuda_ms(run, 10, 2)
+                dev_f = device_fields(run)
+                for key in ("kernels_per_call", "device_ms"):
+                    out[f"{key}_{tag}"] = dev_f[key]
                 out[f"plain_ms_{tag}"] = cuda_ms(plain, 5, 1)
                 sq, sk, sv = (a.transpose(1, 2) for a in args)
                 if window is None:
@@ -900,6 +922,9 @@ def swa_rows(cfg, dev) -> tuple[dict, list]:
                 2 * n_bytes, flops, BF16_FLOPS)
             out["bound_ms_f32"], out["bound_by_f32"] = bound_ms(4 * n_bytes,
                                                                 flops)
+            # the f32 kernel's products run as 3xTF32 on the tensor cores
+            out["bound_3xtf32_ms_f32"], out["bound_3xtf32_by_f32"] = bound_ms(
+                4 * n_bytes, 3 * flops, TF32_FLOPS)
             out["speedup_bf16_over_f32"] = out["ms_f32"] / out["ms_bf16"]
             layers[name] = out
     line = {"phase": "swa_kernel",
@@ -914,26 +939,25 @@ def swa_rows(cfg, dev) -> tuple[dict, list]:
                 raise AssertionError(f"SWA kernel ({name}, {tag}) disagrees "
                                      f"with its plain version: "
                                      f"{json.dumps(line)}")
-    if layers["swa"]["bf16"]["fault_window_plus_1"]["within_tol"]:
-        raise AssertionError(f"the planted fault (window + 1) lands inside "
-                             f"the bf16 tolerance: {json.dumps(line)}")
+    for tag in ("bf16", "f32"):
+        if layers["swa"][tag]["fault_window_plus_1"]["within_tol"]:
+            raise AssertionError(f"the planted fault (window + 1) lands "
+                                 f"inside the {tag} tolerance: "
+                                 f"{json.dumps(line)}")
     rows = []
-    swa, glob = layers["swa"], layers["global"]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_ms", "kernels_per_call", "bound_3xtf32_ms")
     for tag, name, src in (("bf16", "swa_attention", "swa_attention_wgmma"),
                            ("f32", "swa_attention_f32", "swa_attention")):
+        per = lambda lay: {k: lay[f"{k}_{tag}"] for k in keys
+                           if f"{k}_{tag}" in lay}
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{src}.cu",
             replaces="src/repro/kernels/swa_attention.py:70",
-            max_abs_err=swa[tag]["max_abs_err"], ms=swa[f"ms_{tag}"],
-            plain_ms=swa[f"plain_ms_{tag}"], bound_ms=swa[f"bound_ms_{tag}"],
-            bound_by=swa[f"bound_by_{tag}"],
-            library_ms=swa[f"library_ms_{tag}"],
-            global_layer={
-                "max_abs_err": glob[tag]["max_abs_err"],
-                "ms": glob[f"ms_{tag}"], "plain_ms": glob[f"plain_ms_{tag}"],
-                "library_ms": glob[f"library_ms_{tag}"],
-                "bound_ms": glob[f"bound_ms_{tag}"],
-                "bound_by": glob[f"bound_by_{tag}"]}))
+            max_abs_err=layers["swa"][tag]["max_abs_err"],
+            **per(layers["swa"]),
+            global_layer={"max_abs_err": layers["global"][tag]["max_abs_err"],
+                          **per(layers["global"])}))
     return line, rows
 
 
@@ -1339,10 +1363,14 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False — this "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_arch
     from repro_torch.pipeline import build_pipeline
 
     dev = torch.device("cuda")
     emit(phase_build())
+    cfg = get_arch(LM_ARCH)
+    line, lm_rows = swa_rows(cfg, dev)
+    emit(line)
     t0 = time.perf_counter()
     scenes = make_scenes(MAX_BATCH, N_PARTICLES)
     pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
@@ -1365,11 +1393,7 @@ def main() -> int:
     del pipe, plain, scenes
     torch.cuda.empty_cache()
     from repro_torch.archs.model import init_arch
-    from repro_torch.configs import get_arch
 
-    cfg = get_arch(LM_ARCH)
-    line, lm_rows = swa_rows(cfg, dev)
-    emit(line)
     emit(phase_lm_parity(dev))
     t0 = time.perf_counter()
     params = init_arch(torch.Generator(device=dev).manual_seed(0), cfg,

@@ -16,7 +16,8 @@
 // * `tile_mma` runs the products on the tensor cores with
 //   mma.sync.m16n8k8 in TF32, split three ways ("3xTF32"): each operand
 //   a = a_hi + a_lo, a_hi rounded to the nearest TF32 value and a_lo cut
-//   to TF32 (`split_tf32`), and acc += a_lo b_hi + a_hi b_lo + a_hi b_hi.
+//   to TF32 (`split_tf32`, tf32.cuh), and
+//   acc += a_lo b_hi + a_hi b_lo + a_hi b_hi.
 //   The dropped a_lo b_lo term and the cut of a_lo leave ~2^-21 of each
 //   product, of either sign (cutting a_hi too would make every product a
 //   little too small), so the products keep f32 accuracy; a single TF32
@@ -35,6 +36,8 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -86,27 +89,6 @@ __device__ __forceinline__ void frag_zero(Frag& a) {
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[j][e] = 0.0f;
-}
-
-// a = hi + lo, both TF32 values: hi is a rounded to the nearest TF32 value
-// (half an ulp added to the bits, ties away from zero, the 13 low bits
-// cleared) and lo the rest a - hi (exact) cut to TF32 by the mask.  The rest
-// has either sign, so cutting it biases no product.  Where a is NaN, a - hi
-// is NaN and the mask keeps it, so the products stay NaN (hi alone may not
-// be: the add carries the card's NaN, 0x7fffffff, into -0); where a is
-// infinite, a - hi is NaN.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // acc += op(A) . op(B) over k = 0..63 (3xTF32 tensor-core MMAs), with

@@ -1,68 +1,118 @@
-// Flash-style causal sliding-window attention for Hopper (sm_90a), f32.
+// Flash-style causal sliding-window attention for Hopper (sm_90a), f32, on
+// the tensor cores as 3xTF32.
 //
 //   o = softmax(mask(q k^T / sqrt(D))) v,   mask: k <= q (causal) and
 //                                                 k >  q - window (windowed)
 //
 // Replaces the Pallas TPU kernel `swa_attention` (`_kernel`) of the JAX
 // package's kernels/swa_attention.py for f32 inputs (bf16 inputs go to the
-// tensor-core kernel in swa_attention_wgmma.cu), generalised to the layout
-// the transformer hands over: q and o (B, S, H, D), k and v (B, S, KV, D),
-// head h reading KV head h / (H / KV), any element strides per batch,
-// position and head (so the (H, S, D) layout of the Pallas kernel needs no
-// transpose), D in {64, 128, 256}, any S >= 1 (the ragged last block is
-// masked here; the Pallas kernel asserted S % block == 0).  Everything
-// inside is f32.
-//
-// Design (right and simple first; f32 FMA units, no tensor cores):
-// - One CTA of 256 threads per (batch * head, 64-query block).  The TPU
-//   grid walked the key blocks sequentially and kept m / l / acc in VMEM
-//   scratch; here the CTA loops over key blocks itself and keeps them in
-//   registers: thread (ty, tx) owns query rows 4*ty .. 4*ty+3, the scores
-//   of key columns 4*tx .. 4*tx+3, and the output columns
-//   {4*tx + 64*c .. +3}.  A row's 16 owners are 16 lanes of one warp, so
-//   the row max and row sum are shuffles.
-// - The loop touches only the key blocks that meet the causal / window
-//   band, [max(0, q0 - window + 1), min(S - 1, q0 + 63)] for a causal
-//   window: what makes SWA linear in S (the Pallas pl.when(any(visible))).
-// - q and k are staged transposed ([D][64]) and v row-major ([64][D])
-//   through shared memory as f32; P goes through a [64][68] tile.  At
-//   D = 256 that is 214,016 bytes, one CTA per SM.
-// - Masked scores give p = 0 by an explicit select (as `_kernel`'s
-//   jnp.where(visible, exp(s - m_new), 0)): with m = -1e30 for a row that
-//   has seen nothing yet, exp(s - m) would be exp(0) = 1.  The output is
-//   acc / max(l, 1e-30).
-// - No atomics and a fixed summation order: a repeated run is bitwise
-//   equal.
+// kernel in swa_attention_wgmma.cu), generalised to the layout the
+// transformer hands over: q and o (B, S, H, D), k and v (B, S, KV, D), head
+// h reading KV head h / (H / KV), any element strides (multiples of 4) per
+// batch, position and head, D in {64, 128, 256}, any S >= 1 (the ragged
+// last block is masked here; the Pallas kernel asserted S % block == 0).
+// As `_kernel`: masked scores get p = 0 by a select (m starts at -1e30,
+// where exp(s - m) would be 1), online softmax, o = acc / max(l, 1e-30),
+// and key blocks outside the causal / window band are skipped.
 //
 // Bound on an H100 (B = 1, S = 8,192, H = 16, KV = 8, D = 256): 4 D FLOP
 // per visible (q, k) pair, 129 GFLOP for a 1,024 window and 550 GFLOP
-// causal, i.e. 1.92 / 8.21 ms at the 67 TFLOP/s f32 rate this kernel
-// computes at, against 0.120 ms for the 403 MB of f32 q, k, v and o: bound
-// by operations.  It keeps f32 exact (no TF32), which is what the f32
-// parity checks of the LM are placed on.
+// causal.  Every product runs as three TF32 MMAs (below), so the tensor
+// cores do 3x that FLOP: 0.781 / 3.33 ms at the 495 TFLOP/s TF32 rate,
+// against 0.120 ms for the 403 MB of q, k, v and o: bound by operations.
+//
+// Design:
+// - Products on the tensor cores with mma.sync.m16n8k8 in TF32, each
+//   operand split as it is loaded into a TF32 high and low part
+//   (`split_tf32`, tf32.cuh) and each product taken as a_lo b_hi +
+//   a_hi b_lo + a_hi b_hi: f32 accuracy (a single TF32 pass misses the f32
+//   tolerance).  Not wgmma: in TF32 it wants both shared-memory operands
+//   K-major, so V (keys x D, MN-major in P V) would need a transposed copy,
+//   and 3xTF32 through wgmma needs hi and lo copies of K and V^T in shared
+//   memory, which at D = 256 do not fit beside Q.  mma.sync takes its
+//   operands from registers, so each is split there.
+// - One CTA of 8 warps per (batch * head, 128-query block); warp w owns
+//   query rows 16 w .. 16 w + 15 for both S = Q K^T (16 x 32 keys: four
+//   n8 tiles) and O = P V (16 x D: D / 8 n8 tiles, D / 2 registers a
+//   thread, 128 at D = 256).  Registers bound the rows a warp can own (at
+//   D = 256, O, S and the split operands take all 255 a thread; ptxas
+//   spills 24 B, three staging addresses kept across the block loop), and
+//   shared memory the rows a CTA can keep (Q for 128 rows is 135 KB at
+//   D = 256).  So one CTA of 8 warps an SM, each key block shared by all 8.
+// - Key blocks of 32.  K and V have one buffer each and their loads
+//   (cp.async) overlap the other half of the work: V of block j lands
+//   while the warps compute Q K_j^T and the softmax, K of block j + 1 while
+//   they compute P V_j; two __syncthreads() a block.  Q (128 x D) is loaded
+//   once.  Shared memory at D = 256: 135,168 + 33,792 + 33,280 = 202,240 B.
+// - P stays in registers.  The accumulator gives lane (g, t) the key
+//   columns 2t and 2t + 1 of each n8 tile, and the A fragment of the next
+//   MMA wants k-indices t and t + 4: reading V's B fragment rows in the
+//   same order (row 2t for k-index t, 2t + 1 for t + 4) makes the
+//   accumulator the A operand as it is.  P is split anew for each
+//   32-column group of P V, which keeps 16 registers free.
+// - Conflict-free fragment loads.  The contraction over D may run in any
+//   order that Q and K share: k-step kk takes d = 8 kk + 2t for k-index t
+//   and 8 kk + 2t + 1 for t + 4, one 8-byte load; Q and K rows are D + 8
+//   floats apart, so the rows g of a half-warp land 8 banks apart.  V's B
+//   fragment wants column g of each n8 tile: lane g loads columns 4g ..
+//   4g + 3 of a 32-column group, one for each of four n8 tiles (16 bytes),
+//   so a lane's outputs are 8 consecutive columns; V rows are D + 4 floats
+//   apart (rows 2t of a quarter-warp 8 banks apart).
+// - The tensor core rounds each MMA's result toward zero.  Each k-step of
+//   Q K^T sums its three MMAs from zero and joins S by an f32 add (as
+//   common.cuh's STEP_SUM); P V sums a block's 12 MMAs a tile from zero
+//   and joins O by an f32 add: without that sum the roundings of O's
+//   running sum bias the output toward zero by ~8e-6 relative for every
+//   1,024 keys (the CPU model in tests/test_torch_swa.py), ~0.6 of the
+//   f32 tolerance over 8,192.
+// - A warp skips a key block that none of its rows sees (the same result:
+//   alpha = 1, p = 0) and masks only the blocks that meet a band edge
+//   (3-4 % of the time).  CTAs run the longest bands (the last query
+//   blocks) first.
+// - No atomics and a fixed summation order: a repeated run is bitwise
+//   equal.  NaN: a NaN in q row i gives NaN in row i, one in k row j NaN
+//   in the rows that see key j, as in the plain version; a NaN in v row j
+//   reaches every row of the warps that compute j's block (the plain
+//   version's every row of its query chunk).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
 
-constexpr int BQ = 64;         // query rows per CTA
-constexpr int BK = 64;         // keys per block
-constexpr int PS = BK + 4;     // row stride of the P tile (float4-aligned)
-constexpr int THREADS = 256;
+constexpr int BQ = 128;        // query rows per CTA
+constexpr int BK = 32;         // keys per block
+constexpr int NT = BK / 8;     // n8 tiles of a warp's scores
+constexpr int WARPS = BQ / 16;
+constexpr int THREADS = 32 * WARPS;
 constexpr float NEG = -1e30f;  // the Pallas kernel's _NEG
 constexpr unsigned FULL = 0xffffffffu;
+
+// shared-memory layout for head width D (floats)
+template <int D>
+struct Smem {
+  static constexpr int LDQ = D + 8;   // row stride of Q and K
+  static constexpr int LDV = D + 4;   // row stride of V
+  static constexpr int Q = 0, K = BQ * LDQ, V = K + BK * LDQ;
+  static constexpr size_t BYTES = sizeof(float) * (V + BK * LDV);
+};
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  int S, H, group;           // group = H / KV
+  int S, H, group;             // group = H / KV
   long long q_sb, q_ss, q_sh;  // element strides of q and o
   long long k_sb, k_ss, k_sh;  // element strides of k and v
-  int causal, window;        // window <= 0: no window
+  int causal, window;          // window <= 0: no window
   float scale;
 };
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -72,187 +122,263 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// max / sum over the 16 lanes that own one query row (lanes 0-15 or 16-31)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int m = 8; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, m));
-  return v;
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int m = 8; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-  return v;
+__device__ __forceinline__ void async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// 64 rows of `src` (row stride `ss` elements) from row `r0`, zero past `n`,
-// into dst[d][r] (transposed).  Thread t stages row t % 64, four
-// consecutive d at a time, so a warp writes 32 consecutive floats.
+// rows [r0, r0 + n) of src (row stride ss elements) into dst (row stride
+// ld floats) by 16-byte cp.async; rows at or past S are filled with zeros
 template <int D>
-__device__ __forceinline__ void stage_transposed(float* dst, const float* src,
-                                                 int r0, int n, long long ss) {
-  const int r = threadIdx.x & 63;
-  const bool ok = r0 + r < n;
-  const float* row = src + (long long)(r0 + r) * ss;
-#pragma unroll 4
-  for (int d = (threadIdx.x >> 6) * 4; d < D; d += 16) {
-    const float4 x = ok ? load4(row + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-    dst[(d + 0) * 64 + r] = x.x;
-    dst[(d + 1) * 64 + r] = x.y;
-    dst[(d + 2) * 64 + r] = x.z;
-    dst[(d + 3) * 64 + r] = x.w;
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* src, long long ss,
+                                           int r0, int n, int S) {
+  constexpr int C = D / 4;  // 16-byte chunks a row
+  for (int f = threadIdx.x; f < n * C; f += THREADS) {
+    const int r = f / C, c = (f % C) * 4;
+    const bool ok = r0 + r < S;
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + r * ld + c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src + (ok ? (long long)(r0 + r) * ss : 0LL) + c),
+                 "r"(ok ? 16 : 0));
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 swa_attention_kernel(const Params p) {
-  constexpr int NC = D / 64;  // float4 output columns per thread
+  using L = Smem<D>;
+  constexpr int LDQ = L::LDQ, LDV = L::LDV, NG = D / 32;
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][BQ]
-  float* kt = qt + D * BQ;                        // [D][BK]
-  float* vs = kt + D * BK;                        // [BK][D]
-  float* ps = vs + BK * D;                        // [BQ][PS]
+  float* const sq = reinterpret_cast<float*>(smem4) + L::Q;
+  float* const sk = reinterpret_cast<float*>(smem4) + L::K;
+  float* const sv = reinterpret_cast<float*>(smem4) + L::V;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kvh = h / p.group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, kvh = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest bands first
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.k_sb + kvh * p.k_sh;
   float* og = static_cast<float*>(p.o) + b * p.q_sb + h * p.q_sh;
 
-  stage_transposed<D>(qt, qg, q0, p.S, p.q_ss);
-
-  float m[4], l[4], acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
-
   // the key blocks that meet the band of rows [q0, q0 + BQ)
   const int q_last = min(q0 + BQ, p.S) - 1;
   const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int k_hi = p.causal ? q_last : p.S - 1;
+  const int kb0 = k_lo / BK, kb1 = k_hi / BK;
 
-  for (int kb = k_lo / BK; kb <= k_hi / BK; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous block's kt / vs / ps are consumed
-    stage_transposed<D>(kt, kg, k0, p.S, p.k_ss);
-    for (int i = tid; i < BK * D / 4; i += THREADS) {
-      const int r = i / (D / 4), d = (i % (D / 4)) * 4;
-      const float4 x = k0 + r < p.S ? load4(vg + (long long)(k0 + r) * p.k_ss + d)
-                                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      store4(vs + r * D + d, x);
-    }
-    __syncthreads();
+  stage_rows<D>(sq, LDQ, qg, p.q_ss, q0, BQ, p.S);
+  stage_rows<D>(sk, LDQ, kg, p.k_ss, kb0 * BK, BK, p.S);
+  async_commit();
 
-    // scores of rows 4ty.. against keys 4tx..
-    float s[4][4];
+  const int r0 = q0 + 16 * warp;           // this warp's first row
+  const int row[2] = {r0 + g, r0 + g + 8};  // the rows this lane holds
+  const float* qa = sq + (16 * warp + g) * LDQ + 2 * t;
+  const float* ka = sk + g * LDQ + 2 * t;
+  const float* va = sv + 2 * t * LDV + 4 * g;
+
+  // o[c][i]: rows g (e = 0, 1) and g + 8 (e = 2, 3), columns
+  // 32 c + 8 t + i (e even) and 32 c + 8 t + 4 + i (e odd)
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, o[NG][4][4];
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = load4(qt + d * BQ + 4 * ty);
-      const float4 c = load4(kt + d * BK + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
+      for (int e = 0; e < 4; ++e) o[c][i][e] = 0.f;
 
-    // mask, online softmax, P into shared memory
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      bool vis[4];
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + 4 * tx + j;
-        vis[j] = kpos < p.S && (!p.causal || kpos <= qpos) &&
-                 (p.window <= 0 || kpos > qpos - p.window);
-        s[i][j] = vis[j] ? s[i][j] * p.scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += s[i][j];
-      }
-      rs = row_sum(rs);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
-      store4(ps + (4 * ty + i) * PS + 4 * tx,
-             make_float4(s[i][0], s[i][1], s[i][2], s[i][3]));
-    }
-    __syncthreads();
+  for (int kb = kb0; kb <= kb1; ++kb) {
+    const int k0 = kb * BK;
+    async_wait_all();
+    __syncthreads();  // K of this block is in; every warp is done with V
+    stage_rows<D>(sv, LDV, vg, p.k_ss, k0, BK, p.S);
+    async_commit();
 
-    // acc += P V
+    // a warp skips a block none of its rows sees
+    const bool live = r0 < p.S && !(p.causal && k0 > r0 + 15) &&
+                      !(p.window > 0 && k0 + BK - 1 <= r0 - p.window);
+    float pr[NT][4];  // P, the A fragments of the P V k-steps
+    if (live) {
+      // S = Q K^T: k-step kk covers d in [8 kk, 8 kk + 8), k-index t
+      // <- d = 8 kk + 2t and t + 4 <- 8 kk + 2t + 1
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 2
-    for (int k = 0; k < BK; k += 4) {
-      float pr[4][4];
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float2 x0 = load2(qa + 8 * kk);
+        const float2 x1 = load2(qa + 8 * LDQ + 8 * kk);
+        uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+        split_tf32(x0.x, ah[0], al[0]);
+        split_tf32(x1.x, ah[1], al[1]);
+        split_tf32(x0.y, ah[2], al[2]);
+        split_tf32(x1.y, ah[3], al[3]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t = load4(ps + (4 * ty + i) * PS + k);
-        pr[i][0] = t.x; pr[i][1] = t.y; pr[i][2] = t.z; pr[i][3] = t.w;
+        for (int j = 0; j < NT; ++j) {
+          const float2 y = load2(ka + 8 * j * LDQ + 8 * kk);
+          split_tf32(y.x, bh[j][0], bl[j][0]);
+          split_tf32(y.y, bh[j][1], bl[j][1]);
+        }
+        float d[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[j], al, bh[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[j], ah, bl[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[j], ah, bh[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += d[j][e];
+      }
+
+      // mask and scale; s[j][e]: row row[e >> 1], key k0 + 8 j + 2 t + (e & 1).
+      // Only a block that meets a band edge or the end needs the mask.
+      const bool edge = k0 + BK > p.S ||
+                        (p.causal && k0 + BK - 1 > r0) ||
+                        (p.window > 0 && k0 <= r0 + 15 - p.window);
+      uint32_t vis = 0xffffffffu;  // bit 4 j + e
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1), q = row[e >> 1];
+            const bool ok = key < p.S && (!p.causal || key <= q) &&
+                            (p.window <= 0 || key > q - p.window);
+            if (!ok) vis &= ~(1u << (4 * j + e));
+          }
+      }
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = (vis >> (4 * j + e)) & 1u ? s[j][e] * p.scale : NEG;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      // online softmax: a row's 32 scores lie on the 4 lanes of its g
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        mx[r] = fmaxf(m[r], mx[r]);  // m_new
+        alpha[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv = load4(vs + (k + kk) * D + 64 * c + 4 * tx);
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = (vis >> (4 * j + e)) & 1u ? expf(s[j][e] - m[e >> 1])
+                                                : 0.f;
+          rs[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(FULL, rs[r], 1);
+        rs[r] += __shfl_xor_sync(FULL, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int c = 0; c < NG; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[c][i][e] *= alpha[e >> 1];
+      // A fragment of k-step j: rows g, g + 8 at k-index t (key 2t) and
+      // t + 4 (key 2t + 1)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        pr[j][0] = s[j][0];
+        pr[j][1] = s[j][2];
+        pr[j][2] = s[j][1];
+        pr[j][3] = s[j][3];
+      }
+    }
+
+    async_wait_all();
+    __syncthreads();  // V of this block is in; every warp is done with K
+    if (kb < kb1) stage_rows<D>(sk, LDQ, kg, p.k_ss, k0 + BK, BK, p.S);
+    async_commit();
+
+    if (live) {
+      // O += P V, one 32-column group (four n8 tiles) at a time; the
+      // block's 12 MMAs a tile sum from zero, then join O
+#pragma unroll
+      for (int c = 0; c < NG; ++c) {
+        float d[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[i][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float4 v0 = load4(va + 8 * j * LDV + 32 * c);
+          const float4 v1 = load4(va + (8 * j + 1) * LDV + 32 * c);
+          const float w0[4] = {v0.x, v0.y, v0.z, v0.w};
+          const float w1[4] = {v1.x, v1.y, v1.z, v1.w};
+          uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(pr[j][i], ah[i], al[i]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            acc[i][4 * c + 0] = fmaf(pr[i][kk], vv.x, acc[i][4 * c + 0]);
-            acc[i][4 * c + 1] = fmaf(pr[i][kk], vv.y, acc[i][4 * c + 1]);
-            acc[i][4 * c + 2] = fmaf(pr[i][kk], vv.z, acc[i][4 * c + 2]);
-            acc[i][4 * c + 3] = fmaf(pr[i][kk], vv.w, acc[i][4 * c + 3]);
+            split_tf32(w0[i], bh[i][0], bl[i][0]);
+            split_tf32(w1[i], bh[i][1], bl[i][1]);
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(d[i], al, bh[i]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(d[i], ah, bl[i]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(d[i], ah, bh[i]);
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[c][i][e] += d[i][e];
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    if (qpos >= p.S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* row = og + (long long)qpos * p.q_ss;
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= p.S) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    float* dst = og + (long long)row[r] * p.q_ss + 8 * t;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      store4(row + 64 * c + 4 * tx,
-             make_float4(acc[i][4 * c + 0] / den, acc[i][4 * c + 1] / den,
-                         acc[i][4 * c + 2] / den, acc[i][4 * c + 3] / den));
+    for (int c = 0; c < NG; ++c)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int e = 2 * r + half;
+        store4(dst + 32 * c + 4 * half,
+               make_float4(o[c][0][e] / den, o[c][1][e] / den,
+                           o[c][2][e] / den, o[c][3][e] / den));
+      }
   }
-}
-
-constexpr size_t smem_bytes(int d) {
-  return sizeof(float) * (size_t)(3 * 64 * d + BQ * PS);
 }
 
 template <int D>
-int launch(const Params& p, int n_q_blocks, int n_bh, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+int launch(const Params& p, int n_bh, int n_q_blocks, cudaStream_t stream) {
+  const size_t smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       swa_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   swa_attention_kernel<D>
-      <<<dim3(n_q_blocks, n_bh), THREADS, smem, stream>>>(p);
+      <<<dim3(n_bh, n_q_blocks), THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -264,16 +390,16 @@ extern "C" int swa_attention_launch(
     int S, int H, int KV, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     int causal, int window, float scale, void* stream_ptr) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || B * H > 65535)
+  const int n_q_blocks = (S + BQ - 1) / BQ;
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || n_q_blocks > 65535)
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, S, H, H / KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
            causal, window, scale};
-  const int n_q_blocks = (S + BQ - 1) / BQ;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   switch (D) {
-    case 64: return launch<64>(p, n_q_blocks, B * H, stream);
-    case 128: return launch<128>(p, n_q_blocks, B * H, stream);
-    case 256: return launch<256>(p, n_q_blocks, B * H, stream);
+    case 64: return launch<64>(p, B * H, n_q_blocks, stream);
+    case 128: return launch<128>(p, B * H, n_q_blocks, stream);
+    case 256: return launch<256>(p, B * H, n_q_blocks, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

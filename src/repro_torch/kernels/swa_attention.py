@@ -8,9 +8,10 @@ signature.  Both compute ``softmax(mask(q kᵀ / √D)) v`` with the mask
 ``k ≤ q`` (``causal``) and ``k > q − window`` (``window`` not None), f32
 inside, the output in the input dtype.  For CUDA tensors they launch one
 of two kernels that replace the JAX package's Pallas ``swa_attention``, or
-raise: bf16 goes to ``csrc/swa_attention_wgmma.cu`` (tensor cores, TMA),
-f32 to ``csrc/swa_attention.cu`` (f32 FMA units).  For CPU tensors they
-run :func:`chunked_attention`, the port of the JAX package's
+raise: bf16 goes to ``csrc/swa_attention_wgmma.cu`` (``wgmma``, TMA),
+f32 to ``csrc/swa_attention.cu`` (``mma.sync``, every product as three
+TF32 MMAs), both on the tensor cores in 128-query blocks.  For CPU
+tensors they run :func:`chunked_attention`, the port of the JAX package's
 ``nn.attention._chunked_attention``.  ``launches`` counts the launches of
 both kernels, ``wgmma_launches`` those of the bf16 one.
 
@@ -139,10 +140,10 @@ def route(q4: Tensor, k4: Tensor, v4: Tensor, out4: Tensor) -> str:
     if d not in SUPPORTED_D:
         raise ValueError(f"the SWA attention kernel takes D in "
                          f"{SUPPORTED_D}, got {d}")
-    # grid y: (B * H) for the f32 kernel, 128-query blocks for the bf16 one
-    if (b * h if q4.dtype == torch.float32 else -(-s // 128)) > 65535:
-        raise ValueError(f"B * H = {b * h}, S = {s}: too many blocks for "
-                         f"the {q4.dtype} kernel's grid")
+    # grid y of both kernels: 128-query blocks
+    if -(-s // 128) > 65535:
+        raise ValueError(f"S = {s}: too many query blocks for the "
+                         f"{q4.dtype} kernel's grid")
     if out4.stride() != q4.stride() or v4.stride() != k4.stride():
         raise ValueError("o must share q's strides and v k's")
     for t_name, t in (("q", q4), ("k", k4), ("v", v4), ("o", out4)):

@@ -866,12 +866,14 @@ def test_swa_kernel_matches_plain(d, window, causal, group, s, dtype):
 
 @needs_cuda
 @pytest.mark.parametrize("d", [128, 256])
-def test_swa_bf16_kernel_planted_fault_is_caught(d):
-    """The bf16 kernel with the window one too wide, against the plain
-    version at the true window, lands outside the bound the sound kernel
-    keeps (S = 1,024, window 256)."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swa_kernel_planted_fault_is_caught(dtype, d):
+    """Each kernel with the window one too wide, against the plain version
+    at the true window, lands outside the bound the sound kernel keeps
+    (S = 1,024, window 256): one bf16 rounding for the bf16 kernel, the f32
+    tolerance for the f32 one."""
     s, window = 1024, 256
-    q, k, v = _swa_inputs(1, s, 2, 1, d, torch.bfloat16, seed=14)
+    q, k, v = _swa_inputs(1, s, 2, 1, d, dtype, seed=14)
     pos = torch.arange(s, device="cuda")
     with torch.no_grad():
         want = swa_attention.chunked_attention(q, k, v, pos, pos,
@@ -882,6 +884,53 @@ def test_swa_bf16_kernel_planted_fault_is_caught(d):
     _assert_attention_close(good, want)
     with pytest.raises(AssertionError):
         _assert_attention_close(bad, want)
+
+
+# NaN as the card makes it (0 / 0 gives 0x7fffffff) and as numpy does
+NAN_BITS = [0x7FFFFFFF, 0x7FC00000]
+
+
+@needs_cuda
+@pytest.mark.parametrize("bits", NAN_BITS, ids=["card-nan", "qnan"])
+@pytest.mark.parametrize("where", ["q", "k"])
+@pytest.mark.parametrize("window", [None, 256])
+def test_swa_f32_kernel_nan_lands_where_plain_has_it(window, where, bits):
+    """A NaN planted in one q row (head 1) or one k row (KV head 0) of the
+    f32 kernel's inputs gives NaN in exactly the outputs where
+    ``chunked_attention`` has it: that query row, or the rows of the KV
+    head's query heads that see that key (S = 1,000, D = 256, H = 4 over
+    KV = 2)."""
+    s, row = 1000, 613
+    q, k, v = _swa_inputs(1, s, 4, 2, 256, torch.float32, seed=21)
+    t = q if where == "q" else k
+    t[0, row, 1 if where == "q" else 0, 37].view(torch.int32).fill_(bits)
+    pos = torch.arange(s, device="cuda")
+    with torch.no_grad():
+        got = swa_attention.attention(q, k, v, causal=True, window=window)
+        want = swa_attention.chunked_attention(q, k, v, pos, pos,
+                                               causal=True, window=window)
+    nan = torch.isnan(want)
+    assert nan.any() and not nan.all()
+    assert torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], atol=ATOL, rtol=RTOL)
+
+
+@needs_cuda
+@pytest.mark.parametrize("window", [1024, None], ids=["swa", "global"])
+def test_swa_f32_kernel_at_prefill_shape(window):
+    """gemma3-12b's attention shape (B = 1, S = 8,192, 16 heads over 8 KV
+    heads, D = 256), both layers: the f32 kernel within the f32 tolerance
+    of the plain version and bitwise repeatable."""
+    s = 8192
+    q, k, v = _swa_inputs(1, s, 16, 8, 256, torch.float32, seed=2)
+    pos = torch.arange(s, device="cuda")
+    with torch.no_grad():
+        got = swa_attention.attention(q, k, v, causal=True, window=window)
+        again = swa_attention.attention(q, k, v, causal=True, window=window)
+        want = swa_attention.chunked_attention(q, k, v, pos, pos,
+                                               causal=True, window=window)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
 @needs_cuda

@@ -5,7 +5,7 @@
 
 Builds the four FastEGNN kernels (edge and virtual, forward and backward)
 four ways into ``src/repro_torch/_build/split_ab/<variant>/``, the
-variants differing only in ``split_tf32`` of ``csrc/common.cuh``, which
+variants differing only in ``split_tf32`` of ``csrc/tf32.cuh``, which
 splits every operand of the 3xTF32 products into a TF32 high part and a
 TF32 low part:
 
@@ -60,14 +60,14 @@ ORDER = ("mask", "add", "cvt", "split", "split", "cvt", "add", "mask")
 
 
 def variant_header(src: str, body) -> str:
-    """common.cuh with ``split_tf32``'s body replaced by ``body``."""
+    """tf32.cuh with ``split_tf32``'s body replaced by ``body``."""
     if body is None:
         return src
     pat = re.compile(r"(void split_tf32\(float a, uint32_t& hi,\s*"
                      r"uint32_t& lo\) \{\n)(.*?)(\n\})", re.S)
     out, n = pat.subn(lambda m: m.group(1) + body + m.group(3), src)
     if n != 1:
-        raise RuntimeError("split_tf32 not found in common.cuh")
+        raise RuntimeError("split_tf32 not found in tf32.cuh")
     return out
 
 
@@ -75,13 +75,13 @@ def build_variants(build) -> tuple[dict, dict]:
     """{variant: {source: .so path}} and {variant: ptxas register lines},
     one nvcc per library, all started together."""
     procs, paths = [], {}
-    header = (build.CSRC_DIR / "common.cuh").read_text()
+    header = (build.CSRC_DIR / "tf32.cuh").read_text()
     for var, body in BODIES.items():
         d = build.BUILD_DIR / "split_ab" / var
         d.mkdir(parents=True, exist_ok=True)
         for h in build.CSRC_DIR.glob("*.cuh"):
             shutil.copy(h, d / h.name)
-        (d / "common.cuh").write_text(variant_header(header, body))
+        (d / "tf32.cuh").write_text(variant_header(header, body))
         for name in SOURCES:
             shutil.copy(build.CSRC_DIR / f"{name}.cu", d / f"{name}.cu")
             so = d / f"{name}.so"
