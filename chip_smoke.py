@@ -24,17 +24,24 @@ Phases, each printing one JSON line (any failure exits nonzero):
              activity for these calls on an H100.
 3. kernels — each of the six kernels (edge and virtual forward, edge and
              virtual backward, MMD cross sum and gradient) against its
-             plain PyTorch version on the card at the serving shapes
-             (N = 8,192 nodes, 8,192 x 32 edge slots of a fluid scene
-             built at r + skin, hidden 64, C = 3), with CUDA-event times of
+             plain PyTorch version on the card, with CUDA-event times of
              kernel and plain version and a bitwise repeat check.  The
-             edge and virtual kernels, forward and backward, also get a
-             planted fault each (one live slot's mask zeroed, one node's
-             mask flipped, in the kernel's call only), which must land
-             outside the tolerance, and a second bound at the TF32
-             tensor-core rate (their products run as 3xTF32).  Every
-             kernel also gets the device kernels one call launches, with
-             their device times (``torch.profiler``).
+             four FastEGNN kernels run at the serving shapes (N = 8,192
+             nodes, 8,192 x 32 edge slots of a fluid scene built at
+             r + skin, hidden 64, C = 3), each with a planted fault (one
+             live slot's mask zeroed, one node's mask flipped, in the
+             kernel's call only) that must land outside the tolerance, and
+             a second bound at the TF32 tensor-core rate (their products
+             run as 3xTF32).  The MMD pair runs batched, as the trainer
+             calls it, at the train step's shape (B = 4 scenes of 7,800
+             particles in 8,192-node buckets) and at Fluid113K's (B = 1,
+             113,000 particles in a 131,072 bucket): also each graph alone
+             against its row of the batch (bitwise), the host time of the
+             wrapper alone, a planted fault (one live node's mask
+             flipped), and the host time of the MMD term of a train step,
+             batched and graph by graph.  Every kernel also gets the
+             device kernels one call launches, with their device times
+             (``torch.profiler``): one a call for each of the MMD pair.
 4. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each.  Checks every frame, the kernel
@@ -119,7 +126,7 @@ GATOL, GRTOL = 5e-5, 1e-3
 FRAME_TOL = 1e-4
 # training: 6 train + 2 validation scenes, batch 4, 2 epochs
 TRAIN_SCENES, VAL_SCENES, TRAIN_BATCH, EPOCHS = 6, 2, 4, 2
-LAM_MMD, MMD_SIGMA = 0.03, 1.5
+LAM_MMD, MMD_SIGMA, MMD_CHANNELS = 0.03, 1.5, 3
 # first-step update compared where |g| >= SMALL_GRAD x the leaf's largest
 SMALL_GRAD = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
@@ -327,16 +334,26 @@ def serving_graph(x0, node_cap: int, r_build: float, r_step: float, dev):
     return x, sp, rp, keep, nm, t(indptr), n_edges
 
 
-def phase_kernels(pipe, scene, dev) -> tuple[dict, list]:
-    line, rows = kernel_rows(pipe, scene, dev)
+def phase_kernels(pipe, scenes, dev) -> tuple[dict, list]:
+    line, rows = kernel_rows(pipe, scenes[0], dev)
+    mmd, line["mmd_objective_host_us"] = mmd_rows(scenes, dev)
+    rows += mmd
     for row in rows:
-        if not (row["within_tol"] and row["bitwise_repeatable"]):
-            raise AssertionError(f"kernel {row['name']} disagrees with its "
-                                 f"plain version: {json.dumps(line)}")
-        if row.get("planted_fault", {}).get("within_tol"):
-            raise AssertionError(f"kernel {row['name']}: the planted fault "
-                                 f"lands inside the tolerance: "
-                                 f"{json.dumps(line)}")
+        for r in (row, row.get("fluid113k", row)):
+            ok = r["within_tol"] and r["bitwise_repeatable"]
+            if "batched_equals_singles" in r:  # the MMD pair: one launch
+                ok &= (r["batched_equals_singles"]
+                       and r["kernels_per_call"] in (1, "not measured"))
+            if not ok:
+                raise AssertionError(f"kernel {row['name']} disagrees with "
+                                     f"its plain version, is not repeatable "
+                                     f"or batch-independent, or launches "
+                                     f"more than one kernel a call: "
+                                     f"{json.dumps(line)}")
+            if r.get("planted_fault", {}).get("within_tol"):
+                raise AssertionError(f"kernel {row['name']}: the planted "
+                                     f"fault lands inside the tolerance: "
+                                     f"{json.dumps(line)}")
     return line, rows
 
 
@@ -432,7 +449,7 @@ def kernel_rows(pipe, scene, dev) -> tuple[dict, list]:
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             **tensor_core_fields(run, v_bytes, v_flops),
             shapes=dict(n=n, channels=c, hidden=hid), **cmp_v))
-        rows += backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev)
+        rows += backward_rows(e_args, kw, v_args, n_edges, live, gen, dev)
     line = {"phase": "kernels",
             "tolerance": {"values": {"atol": ATOL, "rtol": RTOL},
                           "grads_relative_to_max": {"atol": GATOL,
@@ -441,13 +458,13 @@ def kernel_rows(pipe, scene, dev) -> tuple[dict, list]:
     return line, rows
 
 
-def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
-    """The training kernels (edge and virtual backward, MMD cross sum and
-    gradient) against their plain versions on the serving inputs."""
+def backward_rows(e_args, kw, v_args, n_edges, live, gen, dev) -> list:
+    """The edge and virtual backward kernels against their plain versions
+    on the serving inputs."""
     import torch
 
     from repro_torch.data.radius_graph import csr_sender_perm
-    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+    from repro_torch.kernels import edge_message, virtual_message
 
     x, _h, snd = e_args[0], e_args[1], e_args[2]
     n, hid = x.shape[0], e_args[1].shape[1]
@@ -532,42 +549,146 @@ def backward_rows(e_args, kw, v_args, nm, n_edges, live, gen, dev) -> list:
         bound_by=b_by, library_ms=None,
         **tensor_core_fields(run, v_bytes, v_flops),
         shapes=dict(n=n, channels=c, hidden=hid), **cmp))
-    # MMD cross sum and gradient over every node (the train phase's mode)
-    xs = x.contiguous()
-    run = lambda: mmd_rbf.mmd_cross_sum(xs, z, nm, sigma=MMD_SIGMA)
-    plain = lambda: mmd_rbf.mmd_cross_sum_plain(xs, z, nm, sigma=MMD_SIGMA)
-    got, again = run(), run()
-    cmp = compare([got], [plain()])
-    cmp["bitwise_repeatable"] = repeat_equal(got, again)
-    m_bytes = n * 16 + c * 12 + 4
-    # per node and channel: 3 sub, 3 mul, 2 add, 1 scale, 1 exp, 1 mul,
-    # 1 add
-    b_ms, b_by = bound_ms(m_bytes, n * c * 12)
-    rows.append(dict(
-        name="mmd_cross_sum", route="cuda",
-        source="src/repro_torch/csrc/mmd_rbf.cu",
-        replaces="src/repro/kernels/mmd_rbf.py:46",
-        ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, **device_fields(run),
-        shapes=dict(n=n, channels=c, sigma=MMD_SIGMA), **cmp))
-    g = torch.tensor(1.0, device=dev)
-    run = lambda: mmd_rbf.mmd_cross_grads(xs, z, nm, g, sigma=MMD_SIGMA)
-    plain = lambda: mmd_rbf.mmd_cross_grads_plain(xs, z, nm, g,
-                                                  sigma=MMD_SIGMA)
-    got, again = run(), run()
-    cmp = compare_grads(got, plain())
-    cmp["bitwise_repeatable"] = repeat_equal(got, again)
-    m_bytes = n * 16 + c * 12 + 4 + n * 12 + c * 12
-    # the kernel value as above, then 3 mul-adds into dx and 3 into dz
-    b_ms, b_by = bound_ms(m_bytes, n * c * 24)
-    rows.append(dict(
-        name="mmd_cross_grads", route="cuda",
-        source="src/repro_torch/csrc/mmd_rbf.cu",
-        replaces="src/repro/kernels/mmd_rbf.py:102",
-        ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, **device_fields(run),
-        shapes=dict(n=n, channels=c, sigma=MMD_SIGMA), **cmp))
     return rows
+
+
+def mmd_inputs(xs, node_cap: int, gen, dev):
+    """The MMD kernels' inputs for scenes ``xs`` padded to ``node_cap``:
+    x (B,N,3), z (B,C,3) at each scene's centre of mass plus noise, the
+    node masks (B,N) and a cotangent (B,)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.virtual_nodes import init_virtual_coords
+    from repro_torch.data.radius_graph import pad_nodes
+
+    pads = [pad_nodes(np.asarray(x, np.float32), node_cap) for x in xs]
+    x = torch.from_numpy(np.stack([p[0] for p in pads])).to(dev)
+    nm = torch.from_numpy(np.stack([p[1] for p in pads])).to(dev)
+    z = torch.stack([init_virtual_coords(x[b], nm[b], MMD_CHANNELS)
+                     for b in range(len(xs))])
+    z = z + 0.05 * torch.randn(z.shape, generator=gen, device=dev)
+    g = 0.5 + torch.rand((len(xs),), generator=gen, device=dev)
+    return x.contiguous(), z.contiguous(), nm, g
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Median host time of one call of ``fn`` in microseconds, the device
+    idle before each call (the wrapper alone: no synchronise inside)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def mmd_reading(x, z, nm, g, live: int) -> dict:
+    """Both MMD kernels on one batch: against their plain versions, a
+    bitwise repeat, each graph alone against its row of the batch
+    (bitwise), a planted fault (graph 0's node ``live // 2`` masked out in
+    the kernel's call only), CUDA-event, device and host times and the
+    device kernels a call."""
+    import torch
+
+    from repro_torch.kernels import mmd_rbf
+
+    b, n = nm.shape
+    c = z.shape[1]
+    bad = nm.clone()
+    bad[0, live // 2] = 1.0 - bad[0, live // 2]
+    sig = dict(sigma=MMD_SIGMA)
+    cases = {
+        "mmd_cross_sum": (
+            lambda m=nm, sl=slice(None): (mmd_rbf.mmd_cross_sum(
+                x[sl], z[sl], m[sl], **sig),),
+            lambda: (mmd_rbf.mmd_cross_sum_plain(x, z, nm, **sig),),
+            compare,
+            # reads x, mask, z once, writes the sums; per live node and
+            # channel: 3 sub, 3 mul, 2 add, 1 scale, 1 exp, 1 mul, 1 add
+            b * n * 16 + b * c * 12 + b * 4, b * live * c * 12),
+        "mmd_cross_grads": (
+            lambda m=nm, sl=slice(None): mmd_rbf.mmd_cross_grads(
+                x[sl], z[sl], m[sl], g[sl], **sig),
+            lambda: mmd_rbf.mmd_cross_grads_plain(x, z, nm, g, **sig),
+            compare_grads,
+            # ... and g, writing dx and dz; the kernel value as above,
+            # then 3 mul-adds into dx and 3 into dz
+            b * n * 16 + b * c * 12 + b * 4 + b * n * 12 + b * c * 12,
+            b * live * c * 24),
+    }
+    out = {}
+    for name, (run, plain, cmp_fn, n_bytes, flops) in cases.items():
+        got, again, want = run(), run(), plain()
+        r = cmp_fn(got, want)
+        r["bitwise_repeatable"] = repeat_equal(got, again)
+        singles = [run(sl=slice(k, k + 1)) for k in range(b)]
+        r["batched_equals_singles"] = all(
+            torch.equal(t[k:k + 1], s) for k, one in enumerate(singles)
+            for t, s in zip(got, one))
+        r["planted_fault"] = cmp_fn(run(bad), want)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        r.update(ms=cuda_ms(run, 50, 5), plain_ms=cuda_ms(plain),
+                 host_us=host_us(run), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, **device_fields(run),
+                 shapes=dict(b=b, n=n, live=live, channels=c,
+                             sigma=MMD_SIGMA))
+        out[name] = r
+    return out
+
+
+def mmd_objective_host_us(x, z, nm) -> dict:
+    """Host time of the MMD term's forward and backward as a train step
+    runs it (``mmd_loss`` with the kernels, the gradient to z), for the
+    batch in one call and, as before the trainer batched it, graph by
+    graph."""
+    import torch
+
+    from repro_torch.core.mmd import mmd_loss
+
+    zg = z.clone().requires_grad_(True)
+    loss = lambda zz, xx, mm: mmd_loss(zz, xx, mm, sigma=MMD_SIGMA,
+                                       use_kernel=True)
+    batched = lambda: torch.autograd.grad(loss(zg, x, nm).sum(), zg)
+    per_slot = lambda: torch.autograd.grad(
+        sum(loss(zg[b], x[b], nm[b]) for b in range(x.shape[0])), zg)
+    return {"batched": host_us(batched, 50),
+            "per_slot": host_us(per_slot, 50), "graphs": int(x.shape[0])}
+
+
+def mmd_rows(scenes, dev) -> tuple[list, dict]:
+    """The MMD pair (#5 cross sum, #6 cross gradient), batched as the
+    trainer calls it: at the train step's shape (the four 7,800-particle
+    scenes in one batch of 8,192-node buckets) and at Fluid113K's (B = 1,
+    113,000 particles in a 131,072 bucket); and the MMD term's host time
+    in a train step.  One node's fault is 1e-5 of a 113,000-node sum,
+    under the value tolerance's rtol, so the cross sum's planted fault is
+    gated at the train shape only."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.fluid import simulate_fluid
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = mmd_inputs([s[0] for s in scenes], NODE_CAP, gen, dev)
+    with torch.no_grad():
+        train = mmd_reading(*args, N_PARTICLES)
+        xs, _ = simulate_fluid(np.random.default_rng(0), SCALE_PARTICLES, 1)
+        big = mmd_reading(*mmd_inputs([xs[0]], SCALE_CAP, gen, dev),
+                          SCALE_PARTICLES)
+    big["mmd_cross_sum"]["planted_fault_ungated"] = big["mmd_cross_sum"].pop(
+        "planted_fault")
+    rows = [dict(name=name, route="cuda",
+                 source="src/repro_torch/csrc/mmd_rbf.cu",
+                 replaces=f"src/repro/kernels/mmd_rbf.py:{line}",
+                 **train[name], fluid113k=big[name])
+            for name, line in (("mmd_cross_sum", 46),
+                               ("mmd_cross_grads", 102))]
+    return rows, mmd_objective_host_us(*args[:3])
 
 
 def phase_serve(pipe, plain, scenes, dev) -> dict:
@@ -704,11 +825,12 @@ def _update_close(got, want, grads) -> dict:
             "entries_compared": total - skipped, "entries": total}
 
 
-def profile_step(fn) -> dict:
+def profile_step(fn, watch: str = "") -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time (the
     profiler's own overhead included), the device time summed over
     kernels, the idle share and the kernels that take the most device
-    time."""
+    time; with ``watch``, also the launches and device time of the
+    kernels whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -729,10 +851,15 @@ def profile_step(fn) -> dict:
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:12]
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy_ms if events else "not measured",
-            "idle_share": 1 - busy_ms / wall_ms if events else "not measured",
-            "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top}}
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": busy_ms if events else "not measured",
+           "idle_share": 1 - busy_ms / wall_ms if events else "not measured",
+           "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top}}
+    if watch:
+        seen = [e for e in events if watch in e.key]
+        out[f"{watch}kernels"] = {"launches": sum(e.count for e in seen),
+                                  "device_ms": sum(map(dev_us, seen)) / 1e3}
+    return out
 
 
 def phase_train(dev) -> dict:
@@ -786,7 +913,8 @@ def phase_train(dev) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         step_s[name] = statistics.median(times)
-    prof = profile_step(lambda: pipe.train_step(p0, pipe.opt.init(p0), tr[0]))
+    prof = profile_step(lambda: pipe.train_step(p0, pipe.opt.init(p0), tr[0]),
+                        watch="mmd_")
 
     for mod in (edge_message, virtual_message, mmd_rbf):
         mod.reset_launches()
@@ -803,11 +931,12 @@ def phase_train(dev) -> dict:
     steps = EPOCHS * len(tr)
     train_passes = steps * TRAIN_BATCH  # slots, padded ones included
     eval_passes = EPOCHS * len(va) * TRAIN_BATCH
+    # the MMD pair: one batched call of each a train step
     want = {"edge_pathway_fused": LAYERS * (train_passes + eval_passes),
             "virtual_pathway_fused": LAYERS * (train_passes + eval_passes),
             "edge_pathway_bwd_fused": LAYERS * train_passes,
             "virtual_pathway_bwd_fused": LAYERS * train_passes,
-            "mmd_cross_sum": train_passes, "mmd_cross_grads": train_passes}
+            "mmd_cross_sum": steps, "mmd_cross_grads": steps}
     losses = [h[k] for h in res.history for k in ("train_loss", "val_mse")]
     out = {"phase": "train", "particles": N_PARTICLES,
            "scenes": {"train": TRAIN_SCENES, "val": VAL_SCENES},
@@ -1378,7 +1507,7 @@ def main() -> int:
     plain = build_pipeline("fast_egnn", device=dev, params=pipe.params)
     emit({"phase": "setup", "scenes_s": time.perf_counter() - t0,
           "cfg": pipe.cfg._asdict()})
-    line, rows = phase_kernels(pipe, scenes[0], dev)
+    line, rows = phase_kernels(pipe, scenes, dev)
     emit(line)
     serve = phase_serve(pipe, plain, scenes, dev)
     emit(serve)
@@ -1427,8 +1556,13 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "global_layer", "bound_3xtf32_ms", "kernels_per_call",
-            "device_ms")
-    emit({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]})
+            "device_ms", "host_us")
+    for row in rows:  # the MMD pair: also its readings at Fluid113K's size
+        if "fluid113k" in row:
+            row["fluid113k"] = {k: row["fluid113k"][k] for k in keys
+                                if k in row["fluid113k"]}
+    emit({"kernels": [{k: row[k] for k in keys + ("fluid113k",) if k in row}
+                      for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

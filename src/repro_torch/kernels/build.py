@@ -111,10 +111,14 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on ``device`` as a raw pointer."""
+    """PyTorch's current CUDA stream on ``device`` as a raw pointer (read
+    with the raw getter: ``torch.cuda.current_stream`` builds a Stream
+    object on every call)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def common_bind(lib: ctypes.CDLL) -> None:

@@ -196,7 +196,9 @@ def virtual_pathway(vb, h: Tensor, x: Tensor, vs, mv: Tensor,
 class MMDCross(torch.autograd.Function):
     """MMD cross-sum kernel with the cross-gradient kernel as its vjp.
 
-    ``apply(x, z, weight, sigma)`` → scalar; no gradient for the weight.
+    ``apply(x, z, weight, sigma)`` → (B,) for a batch (x (B,M,3), z
+    (B,C,3), weight (B,M)), a scalar for one graph; one launch of each
+    kernel either way.  No gradient for the weight.
     """
 
     @staticmethod
@@ -208,12 +210,14 @@ class MMDCross(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, z, weight = ctx.saved_tensors
-        dx, dz = mmd_cross_grads(x, z, weight, g, sigma=ctx.sigma)
+        dx, dz = mmd_cross_grads(x, z, weight, g.contiguous(),
+                                 sigma=ctx.sigma)
         return dx, dz, None, None
 
 
 def mmd_cross(x: Tensor, z: Tensor, weight: Tensor, sigma: float) -> Tensor:
-    """Differentiable Σ_i w_i Σ_c k(x_i, z_c) through the MMD kernels
-    (``weight`` is the node mask, or all-ones for a sampled subset)."""
+    """Differentiable Σ_i w_i Σ_c k(x_i, z_c) through the MMD kernels, per
+    graph of a batch or for one graph (``weight`` is the node mask, or
+    all-ones for a sampled subset)."""
     return MMDCross.apply(x.contiguous(), z.contiguous(), weight.contiguous(),
                           float(sigma))

@@ -107,10 +107,14 @@ def edge_pathway_ref(
 
 def mmd_cross_ref(x: Tensor, z: Tensor, node_mask: Tensor,
                   sigma: float) -> Tensor:
-    """Σ_i mask_i Σ_c exp(−‖x_i−z_c‖²/2σ²) — the MMD cross term numerator."""
-    d2 = ((x[:, None, :] - z[None, :, :]) ** 2).sum(-1)
+    """Σ_i mask_i Σ_c exp(−‖x_i−z_c‖²/2σ²) — the MMD cross term numerator.
+
+    x (..., N, 3), z (..., C, 3), node_mask (..., N) → (...): a batch of
+    graphs (B,), or one graph, 0-d.
+    """
+    d2 = ((x[..., :, None, :] - z[..., None, :, :]) ** 2).sum(-1)
     k = torch.exp(-d2 / (2.0 * sigma * sigma))
-    return (k * node_mask[:, None]).sum()
+    return (k * node_mask[..., None]).sum((-2, -1))
 
 
 def swa_attention_ref(q: Tensor, k: Tensor, v: Tensor, window: int | None,

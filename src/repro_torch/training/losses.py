@@ -1,4 +1,8 @@
-"""Training objectives: masked MSE + the paper's MMD regulariser (Eq. 11)."""
+"""Training objectives: masked MSE + the paper's MMD regulariser (Eq. 11).
+
+Each takes one graph, or a batch of them along a leading axis (one value
+per graph), as ``jax.vmap`` of the reference's objectives gives.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,9 +15,10 @@ Tensor = torch.Tensor
 
 
 def masked_mse(pred: Tensor, target: Tensor, node_mask: Tensor) -> Tensor:
-    """Mean over real nodes of ‖pred − target‖² (per-coordinate mean)."""
+    """Mean over real nodes of ‖pred − target‖² (per-coordinate mean):
+    (N,3), (N,3), (N,) → a scalar, or (B,N,3), (B,N,3), (B,N) → (B,)."""
     err = ((pred - target) ** 2).sum(-1) * node_mask
-    return err.sum() / torch.clamp(node_mask.sum(), min=1.0) / 3.0
+    return err.sum(-1) / torch.clamp(node_mask.sum(-1), min=1.0) / 3.0
 
 
 def combined_objective(
@@ -28,7 +33,9 @@ def combined_objective(
     generator: Optional[torch.Generator] = None,
     use_kernel: bool = False,
 ) -> tuple[Tensor, dict]:
-    """Eq. 11: L = MSE(X^L, X^GT) + λ·MMD(Z^L, X^GT) → ``(loss, parts)``.
+    """Eq. 11: L = MSE(X^L, X^GT) + λ·MMD(Z^L, X^GT) → ``(loss, parts)``,
+    for one graph or a batch (``z_virtual`` (B,C,3): the loss and each
+    part (B,), with one MMD call for the batch).
 
     ``use_kernel`` routes the MMD cross term through the kernels (the
     trainer forwards the model config's flag).  ``generator`` draws the

@@ -4,11 +4,13 @@
 generator=None) → (params, opt_state, metrics)`` and ``eval_step(params,
 batch) → masked MSE``.  The JAX trainer vmaps over the batch; here the
 scenes of a batch run one after another through the same per-scene
-forward (as ``Pipeline.predict_fn`` does), their losses are weighted by
-the batch's ``sample_mask`` and one backward pass runs over the weighted
-sum.  ``loss_scale`` multiplies the loss before the backward and divides
-the gradients after it.  :func:`run_fit` is the epoch loop with
-validation-based early stopping (the paper's protocol, Table IX).
+forward (as ``Pipeline.predict_fn`` does), then the objective of all of
+them at once (one batched MMD call, as the reference's vmapped kernel
+call); their losses are weighted by the batch's ``sample_mask`` and one
+backward pass runs over the weighted sum.  ``loss_scale`` multiplies the
+loss before the backward and divides the gradients after it.
+:func:`run_fit` is the epoch loop with validation-based early stopping
+(the paper's protocol, Table IX).
 """
 from __future__ import annotations
 
@@ -65,20 +67,20 @@ def build_train_step(apply_full: Callable, cfg_model, tc: TrainConfig,
     scale = float(tc.loss_scale)
 
     def batch_loss(params, batch, generator):
-        losses, parts = [], []
-        for g, target, lay in _slots(batch):
+        preds, zs = [], []
+        for g, _, lay in _slots(batch):
             x_pred, aux = apply_full(params, cfg_model, g, edge_layout=lay)
-            z = aux["virtual"].z if "virtual" in aux else None
-            loss, p = combined_objective(
-                x_pred, target, g.node_mask, z, lam=tc.lam_mmd,
-                sigma=tc.mmd_sigma, mmd_sample=tc.mmd_sample,
-                generator=generator, use_kernel=use_kernel)
-            losses.append(loss)
-            parts.append(p)
+            preds.append(x_pred)
+            zs.append(aux["virtual"].z if "virtual" in aux else None)
+        # the objective of every slot at once: one MMD call for the batch
+        losses, parts = combined_objective(
+            torch.stack(preds), batch.x_target, batch.graph.node_mask,
+            None if zs[0] is None else torch.stack(zs), lam=tc.lam_mmd,
+            sigma=tc.mmd_sigma, mmd_sample=tc.mmd_sample,
+            generator=generator, use_kernel=use_kernel)
         sm = batch.sample_mask
-        mean = lambda vals: _batch_mean(torch.stack(vals), sm)
-        return mean(losses), {k: mean([p[k] for p in parts])
-                              for k in parts[0]}
+        return _batch_mean(losses, sm), {k: _batch_mean(v, sm)
+                                         for k, v in parts.items()}
 
     def train_step(params, opt_state: AdamState, batch, generator=None):
         work = tree_map(lambda p: p.detach().requires_grad_(True), params)

@@ -513,6 +513,8 @@ def test_virtual_backward_kernel_matches_plain(n):
 @needs_cuda
 @pytest.mark.parametrize("n", [8192, 1000, 37])
 def test_mmd_kernels_match_plain(n):
+    """The unbatched call (one graph); the counters count calls, one
+    kernel each."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(n)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -529,9 +531,136 @@ def test_mmd_kernels_match_plain(n):
     gw = mmd_rbf.mmd_cross_grads_plain(x, z, mask, g, sigma=0.3)
     torch.cuda.synchronize()
     assert mmd_rbf.sum_launches == 2 and mmd_rbf.grad_launches == 2
+    assert got.shape == () and gg[0].shape == (n, 3) and gg[1].shape == (3, 3)
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
     _assert_grads_match(gg, gg2, gw)
+
+
+def _mmd_batch(b, n, c, dev, seed=0, live=None):
+    """x (B,N,3), z (B,C,3), mask (B,N), g (B,): graph k has ``live``
+    nodes (default: 80 % of n, at random), the rest masked out."""
+    rng = np.random.default_rng(seed + b * n + c)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    x = rng.uniform(0, 1, (b, n, 3))
+    if live is None:
+        mask = rng.uniform(size=(b, n)) > 0.2
+    else:
+        mask = np.arange(n)[None, :] < np.asarray(live)[:, None]
+    z = 0.5 + 0.2 * rng.standard_normal((b, c, 3))
+    return t(x), t(z), t(mask), t(rng.uniform(0.5, 1.5, b))
+
+
+def _mmd_pair(x, z, mask, g, sigma=0.3):
+    return (mmd_rbf.mmd_cross_sum(x, z, mask, sigma=sigma),
+            *mmd_rbf.mmd_cross_grads(x, z, mask, g, sigma=sigma))
+
+
+def _mmd_pair_plain(x, z, mask, g, sigma=0.3):
+    return (mmd_rbf.mmd_cross_sum_plain(x, z, mask, sigma=sigma),
+            *mmd_rbf.mmd_cross_grads_plain(x, z, mask, g, sigma=sigma))
+
+
+@needs_cuda
+@pytest.mark.parametrize("c", [3, 5])
+@pytest.mark.parametrize("n", [37, 1000, 8192, 131072])
+@pytest.mark.parametrize("b", [1, 4])
+def test_mmd_batched_kernels_match_plain_and_singles(b, n, c):
+    """One launch of each kernel for the batch: within the tolerances of
+    the plain version, bitwise repeatable, and each graph's rows bitwise
+    equal to that graph run alone (its schedule depends on N only).  Five
+    channels take two passes of the gradient's register-held dz sums."""
+    dev = torch.device("cuda")
+    args = _mmd_batch(b, n, c, dev)
+    mmd_rbf.reset_launches()
+    got = _mmd_pair(*args)
+    assert mmd_rbf.sum_launches == 1 and mmd_rbf.grad_launches == 1
+    again = _mmd_pair(*args)
+    want = _mmd_pair_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b,) and got[1].shape == (b, n, 3)
+    assert got[2].shape == (b, c, 3)
+    assert torch.equal(got[0], again[0])
+    torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=RTOL)
+    _assert_grads_match(got[1:], again[1:], want[1:])
+    for k in range(b):
+        one = _mmd_pair(*(a[k:k + 1] for a in args))
+        for t, s in zip(got, one):
+            assert torch.equal(t[k:k + 1], s)
+
+
+@needs_cuda
+@pytest.mark.parametrize("b,n", [(1, 37), (4, 8192), (1, 131072),
+                                 (4, 131072)])
+def test_mmd_kernels_one_device_kernel_per_call(b, n):
+    """``torch.profiler`` sees one device kernel for each call of either
+    wrapper, whatever B (a marker kernel first, left out: the profiler
+    may miss a session's first kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    x, z, mask, g = _mmd_batch(b, n, 3, dev)
+    for name, call in (
+            ("mmd_sum_kernel", lambda: mmd_rbf.mmd_cross_sum(
+                x, z, mask, sigma=0.3)),
+            ("mmd_grad_kernel", lambda: mmd_rbf.mmd_cross_grads(
+                x, z, mask, g, sigma=0.3))):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(10_000)
+            torch.cuda.synchronize()
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin" not in e.key]
+        assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+        assert name in kernels[0].key
+
+
+@needs_cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_mmd_kernels_keep_nan(masked):
+    """A NaN in one node's x makes its graph's sum, that node's dx and
+    the graph's dz NaN, as in the plain version (a masked node too:
+    NaN · 0 is NaN), and leaves the other graphs alone."""
+    dev = torch.device("cuda")
+    x, z, mask, g = _mmd_batch(3, 1000, 3, dev, seed=4)
+    x[1, 17, 2] = float("nan")
+    mask[1, 17] = 0.0 if masked else 1.0
+    got = _mmd_pair(x, z, mask, g)
+    want = _mmd_pair_plain(x, z, mask, g)
+    torch.cuda.synchronize()
+    for k, w in zip(got, want):
+        assert torch.equal(torch.isnan(k), torch.isnan(w))
+    assert torch.isnan(got[0][1]) and torch.isfinite(got[0][[0, 2]]).all()
+    assert torch.isnan(got[1][1, 17]).all() and torch.isnan(got[2][1]).all()
+    assert torch.isfinite(got[1][[0, 2]]).all()
+
+
+@needs_cuda
+def test_mmd_planted_mask_fault_is_caught():
+    """One live node's mask flipped in the kernels' call only, at the
+    train step's shape (B = 4, 7,800 live of 8,192): the sum and the
+    gradients land outside the tolerances of the plain version."""
+    dev = torch.device("cuda")
+    x, z, mask, g = _mmd_batch(4, 8192, 3, dev, live=[7800] * 4)
+    z = x[:, :7800].mean(1, keepdim=True) + 0.05 * (z - 0.5)
+    want = _mmd_pair_plain(x, z, mask, g, sigma=1.5)
+    bad = mask.clone()
+    bad[0, 3900] = 0.0
+    got = _mmd_pair(x, z, bad, g, sigma=1.5)
+    torch.cuda.synchronize()
+    assert not bool(torch.all((got[0] - want[0]).abs()
+                              <= ATOL + RTOL * want[0].abs()))
+    assert _outside_tolerance(got[1:], want[1:])
+    # ... and the sound call lands inside them
+    sound = _mmd_pair(x, z, mask, g, sigma=1.5)
+    torch.testing.assert_close(sound[0], want[0], atol=ATOL, rtol=RTOL)
+    assert not _outside_tolerance(sound[1:], want[1:])
 
 
 @needs_cuda
