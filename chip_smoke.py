@@ -44,11 +44,22 @@ Phases, each printing one JSON line (any failure exits nonzero):
              (``torch.profiler``): one a call for each of the MMD pair.
 4. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
-             fluid scenes, 20 steps each.  Checks every frame, the kernel
-             launch counts and the first frame against the plain path.
+             fluid scenes, 20 steps each, the Verlet lists rebuilt on the
+             card (``data/cell_list.py``, the service's default).  Checks
+             every frame, the kernel launch counts, the first frame
+             against the plain path, and that the served engine rebuilt
+             on the device with no coordinate fetch and no edge upload.
+             Then the same scenes through ``BatchedRolloutEngine`` with
+             the kernels for a few steps, device against host rebuilds:
+             trajectories bitwise equal, seconds a rebuild of each mode,
+             and the device build of the four slots alone (CUDA events).
 5. scale   — one forward step of a 113,000-particle scene (bucket
              131,072) through ``predict_fn``, timed, and one step profiled
-             (device time, idle share, top kernels).
+             (device time, idle share, top kernels); the scene's graph is
+             also built on the card, bitwise against the host build,
+             timed (CUDA events) with its peak memory.
+   simulate — ``python -m repro_torch.launch.simulate --n 7800 --steps
+             20 --use-kernel`` in a process of its own: exit 0, steps/s.
 6. train   — a full-width FastEGNN (random weights from seed 0) trained
              with ``use_kernel=True`` through ``Pipeline.fit`` for 2 epochs
              on 6 + 2 fluid scenes of 7,800 particles (batch 4, so the
@@ -124,6 +135,8 @@ ATOL, RTOL = 1e-5, 1e-4
 GATOL, GRTOL = 5e-5, 1e-3
 # first served frame vs the plain path after 4 layers (periodic distance)
 FRAME_TOL = 1e-4
+# serve scenes through BatchedRolloutEngine, device against host rebuilds
+REBUILD_STEPS = 6
 # training: 6 train + 2 validation scenes, batch 4, 2 epochs
 TRAIN_SCENES, VAL_SCENES, TRAIN_BATCH, EPOCHS = 6, 2, 4, 2
 LAM_MMD, MMD_SIGMA, MMD_CHANNELS = 0.03, 1.5, 3
@@ -311,21 +324,32 @@ def make_scenes(n_scenes: int, n_particles: int, seed: int = 0) -> list:
                                    seed=seed)]
 
 
+def host_graph(x0, node_cap: int, r_build: float):
+    """The host build of one scene's Verlet list at ``r_build``: padded
+    ``(senders, receivers, edge_mask)``, CSR ``indptr`` and the live edge
+    count (numpy)."""
+    import numpy as np
+
+    from repro_torch.data.radius_graph import (csr_indptr, pad_edges,
+                                               radius_graph,
+                                               sort_edges_by_receiver)
+
+    snd, rcv = sort_edges_by_receiver(*radius_graph(x0, r_build))
+    sp, rp, em = pad_edges(snd, rcv, node_cap * EDGES_PER_NODE, x0)
+    n_edges = int(np.count_nonzero(em))
+    return sp, rp, em, csr_indptr(rp, n_edges, node_cap), n_edges
+
+
 def serving_graph(x0, node_cap: int, r_build: float, r_step: float, dev):
     """Padded Verlet list of one scene at ``r_build`` with the step mask
     at ``r_step`` applied (holes where candidates lie outside r)."""
     import numpy as np
     import torch
 
-    from repro_torch.data.radius_graph import (csr_indptr, pad_edges,
-                                               pad_nodes, radius_graph,
-                                               sort_edges_by_receiver)
+    from repro_torch.data.radius_graph import pad_nodes
     from repro_torch.rollout.engine import _step_edge_masks
 
-    snd, rcv = sort_edges_by_receiver(*radius_graph(x0, r_build))
-    sp, rp, em = pad_edges(snd, rcv, node_cap * EDGES_PER_NODE, x0)
-    n_edges = int(np.count_nonzero(em))
-    indptr = csr_indptr(rp, n_edges, node_cap)
+    sp, rp, em, indptr, n_edges = host_graph(x0, node_cap, r_build)
     xp, nm = pad_nodes(x0, node_cap)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     x, sp, rp, em, nm = t(xp), t(sp), t(rp), t(em), t(nm)
@@ -715,6 +739,16 @@ def phase_serve(pipe, plain, scenes, dev) -> dict:
     launches = {"edge_pathway_fused": edge_message.launches,
                 "virtual_pathway_fused": virtual_message.launches}
     m = svc.metrics()
+    (served,) = [svc._programs._lru.get(k) for k in svc._programs.keys()]
+    tel = served._tel
+    rebuild = {"rebuild_mode": served.rebuild_mode,
+               "coord_d2h_bytes": tel.coord_d2h,
+               "edge_h2d_bytes": tel.edge_h2d,
+               "cell_overflows": served._cell_overflows,
+               "cell_cap": served._cell_cap}
+    if (served.rebuild_mode != "device" or tel.coord_d2h or tel.edge_h2d):
+        raise AssertionError(f"serve did not rebuild on the device with no "
+                             f"coordinate fetch and no edge upload: {rebuild}")
 
     for j, frames in enumerate(streams):
         if len(frames) != STEPS:
@@ -748,8 +782,72 @@ def phase_serve(pipe, plain, scenes, dev) -> dict:
             "scenes_per_s": len(scenes) / wall,
             "compute_mean_s": m["compute_mean_s"],
             "mean_step_s": m["compute_mean_s"] / STEPS,
-            "rebuilds": m["rebuilds"], "rebuild_mean_s": m["rebuild_mean_s"],
-            "wall_s": wall}
+            "rebuilds": m["rebuilds"], "rebuild_waits": m["rebuild_waits"],
+            "rebuild_mean_s": m["rebuild_mean_s"],
+            "rebuild_share": m["rebuild_mean_s"] / m["compute_mean_s"],
+            **rebuild, "wall_s": wall,
+            "device_vs_host": rebuild_modes(pipe, scenes, dev)}
+
+
+def rebuild_modes(pipe, scenes, dev) -> dict:
+    """The serve scenes through ``BatchedRolloutEngine`` with the kernels
+    for REBUILD_STEPS steps, once with device and once with host rebuilds:
+    the trajectories must be bitwise equal, the device run must fetch no
+    coordinates and upload no edges; each mode's seconds a rebuild (host
+    clock, the flags' or coordinates' fetch included).  Also the device
+    build of the four slots alone (``device_radius_build`` +
+    ``device_csr``), CUDA events, median of 5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.cell_list import device_csr, device_radius_build
+    from repro_torch.rollout import BatchedRolloutEngine
+
+    out, trajs = {}, {}
+    for mode in ("device", "host"):
+        eng = BatchedRolloutEngine(
+            pipe.predict_fn, batch_size=MAX_BATCH, node_cap=NODE_CAP,
+            edge_cap=NODE_CAP * EDGES_PER_NODE, r=R, skin=SKIN, dt=DT,
+            wrap_box=BOX, rebuild_mode=mode, device=dev)
+        t0 = time.perf_counter()
+        res = eng.run(pipe.params, scenes, REBUILD_STEPS)
+        wall = time.perf_counter() - t0
+        trajs[mode] = res.trajectories
+        out[mode] = {"rebuilds": res.rebuild_count,
+                     "rebuild_s": res.rebuild_s,
+                     "rebuild_mean_s": res.rebuild_s / max(1,
+                                                           res.rebuild_count),
+                     "coord_d2h_bytes": res.coord_d2h_bytes,
+                     "edge_h2d_bytes": res.edge_h2d_bytes,
+                     "cell_overflows": res.cell_overflows,
+                     "rebuild_waits": res.rebuild_waits, "wall_s": wall}
+        if mode == "device":
+            out[mode]["cell_cap"] = eng._cell_cap
+            g = eng._g
+            kw = dict(r_build=R + SKIN, edge_cap=eng.edge_cap,
+                      cell_cap=eng._cell_cap)
+
+            def build():
+                db = device_radius_build(g.x, g.node_mask, **kw)
+                return device_csr(db.receivers, db.edge_mask, NODE_CAP)
+
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out["device_build_ms"] = cuda_ms(build, reps=5, warm=1)
+            out["device_build_peak_bytes"] = (
+                torch.cuda.max_memory_allocated() - base)
+    dv = out["device"]
+    if dv["rebuilds"] < 2 or dv["coord_d2h_bytes"] or dv["edge_h2d_bytes"] \
+            or dv["rebuild_waits"]:
+        raise AssertionError(f"device rebuilds: {dv}")
+    if out["host"]["rebuilds"] != dv["rebuilds"] or not all(
+            np.array_equal(a, b) for a, b in zip(trajs["device"],
+                                                 trajs["host"])):
+        raise AssertionError("device and host rebuilds gave different "
+                             "trajectories")
+    out["bitwise_equal"] = True
+    out["steps"] = REBUILD_STEPS
+    return out
 
 
 def phase_scale(pipe, dev) -> dict:
@@ -765,6 +863,7 @@ def phase_scale(pipe, dev) -> dict:
     x, snd, rcv, em, nm, indptr, n_edges = serving_graph(
         x0, SCALE_CAP, R, R, dev)
     build_s = time.perf_counter() - t0
+    device_build = scale_device_build(x0, dev)
     n = SCALE_CAP
     g = GeometricGraph(
         x=x[None], v=torch.zeros_like(x)[None],
@@ -786,10 +885,79 @@ def phase_scale(pipe, dev) -> dict:
                              f"non-finite values")
     return {"phase": "scale", "particles": SCALE_PARTICLES, "node_cap": n,
             "edges": n_edges, "live_edges": int((em[:n_edges] != 0).sum()),
-            "graph_build_s": build_s,
+            "graph_build_s": build_s, "device_build": device_build,
             "step_ms_median": 1e3 * statistics.median(times),
             "step_ms_min": 1e3 * min(times),
             "profile_step": profile_step(step)}
+
+
+def scale_device_build(x0, dev) -> dict:
+    """The 113K-particle graph built on the card (``device_radius_build``
+    + ``device_csr``), bitwise against the host build, timed with CUDA
+    events (median of 5), with its peak device memory above what was
+    allocated before."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.cell_list import (auto_cell_cap, cell_occupancy,
+                                            device_csr, device_radius_build)
+    from repro_torch.data.radius_graph import pad_nodes
+
+    t0 = time.perf_counter()
+    sp, rp, em, indptr, n_edges = host_graph(x0, SCALE_CAP, R)
+    host_s = time.perf_counter() - t0
+    xp, nm = pad_nodes(x0, SCALE_CAP)
+    x, nm = torch.from_numpy(xp).to(dev), torch.from_numpy(nm).to(dev)
+    occ = cell_occupancy(x0, R)
+    kw = dict(r_build=R, edge_cap=SCALE_CAP * EDGES_PER_NODE,
+              cell_cap=min(SCALE_CAP, auto_cell_cap(occ)))
+
+    def build():
+        db = device_radius_build(x, nm, **kw)
+        return db, device_csr(db.receivers, db.edge_mask, SCALE_CAP)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    db, (d_indptr, d_n_edges) = build()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    equal = {"senders": np.array_equal(db.senders.cpu().numpy(), sp),
+             "receivers": np.array_equal(db.receivers.cpu().numpy(), rp),
+             "edge_mask": np.array_equal(db.edge_mask.cpu().numpy(), em),
+             "indptr": np.array_equal(d_indptr.cpu().numpy(), indptr),
+             "n_edges": int(d_n_edges) == n_edges}
+    if bool(db.overflow) or not all(equal.values()):
+        raise AssertionError(f"113K device build differs from the host "
+                             f"build: {equal}, overflow {bool(db.overflow)}")
+    return {"bitwise_equal": True, "occupancy": occ,
+            "cell_cap": kw["cell_cap"],
+            "candidates": SCALE_CAP * 27 * kw["cell_cap"],
+            "ms_median": cuda_ms(build, reps=5, warm=1),
+            "peak_bytes": peak, "host_build_s": host_s}
+
+
+def phase_simulate() -> dict:
+    """``python -m repro_torch.launch.simulate`` in a process of its own
+    on the card: it must exit 0; its steps/s from its output."""
+    import os
+    import re
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.simulate", "--n",
+           str(N_PARTICLES), "--steps", str(STEPS), "--use-kernel"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=600, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"simulate exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    rate = re.search(r"\(([0-9.]+) steps/s", out.stdout)
+    if rate is None:
+        raise AssertionError(f"simulate printed no steps/s: {out.stdout}")
+    return {"phase": "simulate", "cmd": " ".join(cmd[1:]),
+            "steps_per_s": float(rate.group(1)), "process_s": wall,
+            "output": out.stdout.strip().splitlines()}
 
 
 class _GradsOut:
@@ -1512,6 +1680,7 @@ def main() -> int:
     serve = phase_serve(pipe, plain, scenes, dev)
     emit(serve)
     emit(phase_scale(pipe, dev))
+    emit(phase_simulate())
     train = phase_train(dev)
     emit(train)
     for row in rows:  # forward kernels: the serve run; the rest: training

@@ -1,2 +1,2 @@
-"""Host-side graph building (numpy), the fluid scene generator and the
-batch loader."""
+"""Graph building (numpy on the host, ``cell_list`` on the device), the
+fluid scene generator, the batch loader and the shared worker pool."""

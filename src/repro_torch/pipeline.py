@@ -13,7 +13,9 @@
 * :meth:`Pipeline.make_batches` → an eager list of layout-carrying
   ``data.loader.GraphBatch``es; :meth:`Pipeline.train_step`,
   :meth:`Pipeline.eval_step`, :meth:`Pipeline.predict` and
-  :meth:`Pipeline.fit` (epochs + early stopping, ``training.trainer``).
+  :meth:`Pipeline.fit` (epochs + early stopping, ``training.trainer``);
+* :meth:`Pipeline.rollout`: recursive prediction of one scene through a
+  cached :class:`~repro_torch.rollout.engine.RolloutEngine`.
 """
 from __future__ import annotations
 
@@ -26,11 +28,15 @@ from repro_torch.core.graph import GeometricGraph
 from repro_torch.kernels.runtime import require_f32, resolve_device
 from repro_torch.models.fast_egnn import (FastEGNNConfig, fast_egnn_apply,
                                           fast_egnn_full, init_fast_egnn)
+from repro_torch.serving.programs import LRUCache
 from repro_torch.training.optim import Adam
 from repro_torch.training.trainer import (FitResult, TrainConfig,
                                           build_train_step, run_fit)
 
 Tensor = torch.Tensor
+
+#: live rollout engines a pipeline keeps (LRU over their keys)
+ROLLOUT_ENGINE_CACHE = 4
 
 
 class Pipeline:
@@ -52,6 +58,7 @@ class Pipeline:
         #: coordinates, run without autograd
         self.predict_fn: Callable = torch.no_grad()(self._predict)
         self._steps = None
+        self._rollout_engines = LRUCache(ROLLOUT_ENGINE_CACHE)
 
     def _predict(self, params, g: GeometricGraph,
                  layout: Optional[tuple]) -> Tensor:
@@ -115,6 +122,52 @@ class Pipeline:
         """Batch-level forward → predicted coordinates (B, N, 3)."""
         return self.predict_fn(params, batch.graph, batch.layout)
 
+    def rollout(self, params, state0, n_steps: int, *, r: float,
+                skin: float = 0.0, dt: float, drop_rate: float = 0.0,
+                targets=None, node_cap: Optional[int] = None,
+                edge_cap: Optional[int] = None,
+                async_rebuild: Optional[bool] = None,
+                partition: str = "random", seed: int = 0,
+                traj_capacity: Optional[int] = None,
+                wrap_box: Optional[float] = None,
+                rebuild_mode: str = "auto"):
+        """Recursive prediction: feed the model its own output for
+        ``n_steps`` steps, velocities re-estimated by finite differences
+        at timestep ``dt`` (DESIGN.md §10).
+
+        ``state0`` is ``(x0, v0, h)`` (numpy, one scene).  ``r`` /
+        ``drop_rate`` are the model's graph semantics, as in training;
+        ``skin`` is an execution knob: the list is built at ``r + skin``
+        and reused until some node moves more than ``skin/2``.
+        ``rebuild_mode`` (``'auto'``: ``'device'`` whenever ``r`` is
+        finite and ``async_rebuild`` was not asked for), ``async_rebuild``,
+        the capacities, ``targets`` and ``wrap_box`` are those of
+        :class:`~repro_torch.rollout.engine.RolloutEngine`; both modes give
+        bitwise the same trajectory.  ``partition`` and ``seed`` choose the
+        shards of a mesh pipeline, which the port does not build (ROADMAP
+        queue A #8), and ``traj_capacity`` pre-sizes a compiled buffer the
+        port does not have: all three are accepted and change nothing.
+        Engines are kept in an LRU of ``ROLLOUT_ENGINE_CACHE`` keys.
+
+        Returns a :class:`~repro_torch.rollout.engine.RolloutResult`.
+        """
+        from repro_torch.rollout.engine import RolloutEngine
+
+        x0, v0, h = state0
+        key = (float(r), float(skin), float(dt), float(drop_rate), node_cap,
+               edge_cap, async_rebuild, partition, seed, wrap_box,
+               rebuild_mode)
+        eng = self._rollout_engines.get(key)
+        if eng is None:
+            eng = RolloutEngine(
+                self.predict_fn, r=r, skin=skin, dt=dt, drop_rate=drop_rate,
+                node_cap=node_cap, edge_cap=edge_cap,
+                async_rebuild=async_rebuild, wrap_box=wrap_box,
+                rebuild_mode=rebuild_mode, device=self.device)
+            self._rollout_engines.put(key, eng)
+        return eng.run(params, x0, v0, h, n_steps, targets=targets,
+                       traj_capacity=traj_capacity)
+
     def fit(self, train_batches, val_batches,
             verbose: bool = False) -> FitResult:
         """Epochs + validation-based early stopping
@@ -130,13 +183,18 @@ class Pipeline:
 
 def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,
                    params=None, device=None,
-                   train_cfg: Optional[TrainConfig] = None,
+                   train_cfg: Optional[TrainConfig] = None, mesh=None,
                    **cfg_overrides) -> Pipeline:
     """``'fast_egnn'`` + config overrides → :class:`Pipeline` on ``device``
     (default CUDA).  Weights are ``params`` (e.g. from
     ``weights.params_from_jax``) or random draws from ``generator``;
     ``train_cfg`` sets the optimizer and the fit protocol (default
-    :class:`~repro_torch.training.trainer.TrainConfig`)."""
+    :class:`~repro_torch.training.trainer.TrainConfig`).  A ``mesh``
+    (DistEGNN) pipeline is not ported yet and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a mesh pipeline needs DistEGNN on torch.distributed, which the "
+            "port does not have yet (ROADMAP queue A #8)")
     if name != "fast_egnn":
         raise NotImplementedError(
             f"model {name!r}: the PyTorch port builds 'fast_egnn' only")

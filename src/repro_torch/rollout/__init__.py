@@ -1,5 +1,7 @@
-"""Batched recursive rollout over Verlet neighbour lists."""
+"""Recursive rollout over Verlet neighbour lists, one scene or a batch."""
 from repro_torch.rollout.engine import (BatchedRolloutEngine,
-                                        BatchedRolloutResult)
+                                        BatchedRolloutResult, RolloutEngine,
+                                        RolloutResult)
 
-__all__ = ["BatchedRolloutEngine", "BatchedRolloutResult"]
+__all__ = ["BatchedRolloutEngine", "BatchedRolloutResult", "RolloutEngine",
+           "RolloutResult"]

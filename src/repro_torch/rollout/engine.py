@@ -1,15 +1,29 @@
-"""Batched recursive rollout over Verlet neighbour lists (host rebuilds).
+"""Recursive rollout over Verlet neighbour lists (DESIGN.md §10, §13).
 
 The model is fed its own output step after step, velocities re-estimated
-by finite differences.  The neighbour list of each scene is built on the
-host at ``r + skin`` (a Verlet list) and reused on the device until some
-node has moved more than ``skin/2`` from the positions it was built at;
-each step applies the exact radius-``r`` + drop-longest semantics as a
-device-side mask over the list (:func:`_step_edge_masks`), so the model
-sees the edge set a fresh build would give, whatever the rebuild schedule.
+by finite differences.  Each scene's neighbour list is built at
+``r + skin`` (a Verlet list) and reused until some node has moved more
+than ``skin/2`` from the positions it was built at; each step applies the
+exact radius-``r`` + drop-longest semantics as a device-side mask over the
+list (:func:`_step_edge_masks`), so the model sees the edge set a fresh
+build would give, whatever the rebuild schedule.
+
+Where the lists are rebuilt is ``rebuild_mode``:
+
+* ``'device'`` (what ``'auto'`` picks whenever ``r + skin`` is finite and
+  asynchronous host builds were not asked for): the cell-list build of
+  ``data/cell_list.py`` runs on the carried device coordinates, bitwise
+  the host build at the same capacities, and the CSR layout is derived on
+  the device.  Per rebuild only a ``(B, 4)`` int32 flag tensor (finite,
+  overflow, edges found, densest cell) crosses to the host.  An overflow
+  grows ``cell_cap`` and builds again on the device.
+* ``'host'``: fetch the coordinates, run the numpy cell list, upload
+  edges and CSR offsets.  The single-scene engine can submit that build
+  early to :func:`~repro_torch.data.stream.shared_worker_pool` and keep
+  stepping on the still-valid list (``async_rebuild``).
 
 The step loop is a Python loop on the device; the skin check fetches one
-scalar per step.  Frames stream to ``on_chunk`` at every rebuild boundary.
+scalar before each step (``steady_state_d2h_bytes`` counts those bytes).
 """
 from __future__ import annotations
 
@@ -21,28 +35,73 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import GeometricGraph
+from repro_torch.data.cell_list import (auto_cell_cap, cell_occupancy,
+                                        device_csr, device_radius_build)
 from repro_torch.data.radius_graph import (csr_indptr, pad_edges, pad_nodes,
                                            radius_graph,
-                                           sort_edges_by_receiver)
+                                           sort_edges_by_receiver,
+                                           warn_edge_truncation)
 from repro_torch.kernels.runtime import resolve_device
 
 Tensor = torch.Tensor
 
-_DIVERGED_MSG = ("batched rollout diverged: non-finite coordinates after step "
-                 "{} — train the model, shorten the horizon, or bound the "
+#: extra edge capacity over the first build, absorbing density changes
+#: across rebuilds (a breach truncates longest-first, with a warning)
+DEFAULT_EDGE_HEADROOM = 1.25
+
+_DIVERGED_MSG = ("{}rollout diverged: non-finite coordinates after step {} "
+                 "— train the model, shorten the horizon, or bound the "
                  "dynamics with wrap_box")
 
 
-def _resolve_rebuild_mode(rebuild_mode: str) -> str:
-    """``'auto'`` → ``'host'``: the device cell-list rebuild is not ported."""
+def _resolve_rebuild_mode(rebuild_mode: str, r_build: float,
+                          want_async: Optional[bool]) -> str:
+    """``'auto'`` → ``'device'`` when the cell list is eligible.
+
+    Eligible: a finite positive build radius (``r = inf`` is a fully
+    connected graph, with no cells to exploit).  An explicit
+    ``async_rebuild=True`` keeps the host path: a device rebuild is
+    synchronous, with nothing to overlap.
+    """
     if rebuild_mode not in ("auto", "device", "host"):
         raise ValueError(f"rebuild_mode must be 'auto', 'device' or 'host', "
                          f"got {rebuild_mode!r}")
-    if rebuild_mode == "device":
-        raise NotImplementedError(
-            "rebuild_mode='device' needs the device cell-list build, which "
-            "the PyTorch port does not have yet; use 'host' or 'auto'")
-    return "host"
+    if rebuild_mode != "auto":
+        return rebuild_mode
+    if want_async is True or not (np.isfinite(r_build) and r_build > 0):
+        return "host"
+    return "device"
+
+
+class _Telemetry:
+    """The bytes an engine moves between host and device.
+
+    ``coord_d2h`` counts coordinate fetches for host rebuilds and
+    ``edge_h2d`` host-built edge and CSR uploads (both 0 in device mode);
+    ``steady_d2h`` counts the fetches inside the stepping (the skin
+    checks).  ``d2h`` / ``h2d`` are the totals, the frames and flags
+    included.
+    """
+
+    def __init__(self):
+        self.d2h = self.h2d = self.steady_d2h = 0
+        self.coord_d2h = self.edge_h2d = 0
+
+    def fetch(self, t: Tensor, steady: bool = False,
+              coords: bool = False) -> np.ndarray:
+        out = t.cpu().numpy()
+        self.d2h += out.nbytes
+        if steady:
+            self.steady_d2h += out.nbytes
+        if coords:
+            self.coord_d2h += out.nbytes
+        return out
+
+    def uploaded(self, *arrays: np.ndarray, edges: bool = False) -> None:
+        b = sum(int(a.nbytes) for a in arrays)
+        self.h2d += b
+        if edges:
+            self.edge_h2d += b
 
 
 def _lexsort(keys: list[Tensor]) -> Tensor:
@@ -80,68 +139,37 @@ def _step_edge_masks(x: Tensor, snd: Tensor, rcv: Tensor, em: Tensor,
     return valid & (rank < n_keep)
 
 
-@dataclass
-class BatchedRolloutResult:
-    """Per-scene trajectories (real nodes only) plus the engine's counts.
+class _VerletEngine:
+    """What both engines share: the model step over ``batch_size`` slots,
+    the skin check, and the host and device rebuilds with their
+    accounting.  Subclasses set ``node_cap``, ``edge_cap`` and
+    ``batch_size`` before the first build."""
 
-    ``rebuild_count`` is batch-global (one rebuild covers every scene);
-    host rebuilds block the batch, so every rebuild is a ``rebuild_wait``.
-    ``steady_state_d2h_bytes`` counts the per-step skin-check fetches.
-    There is no compilation, so ``recompiles`` is 0.
-    """
+    batch_size = 1
+    node_cap: int
+    edge_cap: int
 
-    trajectories: list  # per real scene: (n_steps, n_j, 3) float32
-    n_steps: int
-    n_scenes: int
-    batch_size: int
-    rebuild_count: int
-    rebuild_steps: list = field(default_factory=list)
-    chunk_calls: int = 0
-    recompiles: int = 0
-    steady_state_d2h_bytes: int = 0
-    rebuild_mode: str = "host"
-    rebuild_waits: int = 0
-    rebuild_s: float = 0.0
-
-
-class BatchedRolloutEngine:
-    """Rollout of 1..``batch_size`` same-capacity scenes stepping together.
-
-    Every scene is padded to the pinned ``(node_cap, edge_cap)`` bucket.
-    The skin criterion is reduced over the batch (any scene past its
-    budget ends the chunk), so a rebuild covers all scenes.  A short batch
-    pads its slots with replicas of the last scene; replicas compute the
-    same trajectory and are dropped from the result.  The per-step masks
-    make each scene's trajectory independent of the rebuild schedule, so a
-    batched run equals single-scene runs at the same capacities.
-
-    ``predict_fn(params, graph(B,·), layout) -> (B, N, 3)`` is the model
-    (``Pipeline.predict_fn``); the engine hands it each scene's CSR layout
-    ``(indptr, n_edges)``, built with every Verlet list.
-    """
-
-    def __init__(self, predict_fn: Callable, *, batch_size: int,
-                 node_cap: int, edge_cap: int, r: float, skin: float,
-                 dt: float, drop_rate: float = 0.0,
-                 wrap_box: Optional[float] = None,
-                 rebuild_mode: str = "auto", device=None):
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    def __init__(self, predict_fn: Callable, *, r: float, skin: float,
+                 dt: float, drop_rate: float, wrap_box: Optional[float],
+                 rebuild_mode: str, want_async: Optional[bool],
+                 cell_cap: Optional[int], device):
         if skin < 0:
             raise ValueError(f"skin must be >= 0, got {skin}")
         if wrap_box is not None and not wrap_box > 0:
             raise ValueError(f"wrap_box must be > 0, got {wrap_box}")
         self.predict_fn = predict_fn
-        self.batch_size = int(batch_size)
-        self.node_cap = int(node_cap)
-        self.edge_cap = int(edge_cap)
         self.r = float(r)
         self.skin = float(skin)
         self.dt = float(dt)
         self.drop_rate = float(drop_rate)
         self.wrap_box = None if wrap_box is None else float(wrap_box)
-        self.rebuild_mode = _resolve_rebuild_mode(rebuild_mode)
+        self.rebuild_mode = _resolve_rebuild_mode(
+            rebuild_mode, self.r + self.skin, want_async)
         self.device = resolve_device(device)
+        self._cell_cap = cell_cap
+        self._cell_overflows = 0
+        self._rebuild_s = 0.0
+        self._tel = _Telemetry()
         self._g: Optional[GeometricGraph] = None
         self._lay = None
 
@@ -152,33 +180,120 @@ class BatchedRolloutEngine:
 
     # ------------------------------------------------------------- host side
     def _host_build_scene(self, x_np: np.ndarray) -> dict:
-        """One scene's Verlet list (+ CSR layout) at the pinned capacities."""
+        """One scene's Verlet list (+ CSR layout) at the pinned capacities;
+        numpy only, so a worker thread may run it."""
         snd, rcv = radius_graph(x_np, self.r + self.skin)
         snd, rcv = sort_edges_by_receiver(snd, rcv)
         sp, rp, em = pad_edges(snd, rcv, self.edge_cap, x_np)
         n_edges = int(np.count_nonzero(em))
         return dict(senders=sp, receivers=rp, edge_mask=em,
                     indptr=csr_indptr(rp, n_edges, self.node_cap),
-                    n_edges=n_edges)
-
-    def _build_scenes(self, scene_x: list) -> list:
-        # sequential: the numpy build holds the GIL, threads gain nothing
-        return [self._host_build_scene(x) for x in scene_x]
+                    n_edges=np.int32(n_edges))
 
     def _install(self, builds: list, slot_src: list) -> None:
-        """Upload per-scene builds as the stacked edge operands; padding
-        slots replicate the last real scene."""
-        dev = self.device
-        stack = lambda key: torch.from_numpy(
-            np.stack([builds[j][key] for j in slot_src])).to(dev)
-        self._g = self._g._replace(senders=stack("senders"),
-                                   receivers=stack("receivers"),
-                                   edge_mask=stack("edge_mask"))
-        n_edges = torch.tensor([builds[j]["n_edges"] for j in slot_src],
-                               device=dev)
-        self._lay = (stack("indptr"), n_edges)
+        """Upload per-scene host builds as the stacked edge operands;
+        slot ``b`` takes ``builds[slot_src[b]]``."""
+        arrs = {k: np.stack([builds[j][k] for j in slot_src])
+                for k in ("senders", "receivers", "edge_mask", "indptr",
+                          "n_edges")}
+        self._tel.uploaded(*arrs.values(), edges=True)
+        up = {k: torch.from_numpy(a).to(self.device) for k, a in arrs.items()}
+        self._g = self._g._replace(senders=up["senders"],
+                                   receivers=up["receivers"],
+                                   edge_mask=up["edge_mask"])
+        self._lay = (up["indptr"], up["n_edges"])
+
+    def _load(self, scenes: list, slot_src: list) -> tuple[list, list]:
+        """Wrap, pad and upload the scenes' ``(x0, v0, h)`` as the slots'
+        state, with empty edge lists.  Returns the real node counts and
+        the f32 (wrapped) starting coordinates of each scene."""
+        xs, vs, hs, ns, nms = [], [], [], [], []
+        for (x0, v0, h) in scenes:
+            x0 = np.asarray(x0, np.float32)
+            if self.wrap_box is not None:
+                b = np.float32(self.wrap_box)
+                x0 = x0 - b * np.floor(x0 / b)
+            n = x0.shape[0]
+            if n > self.node_cap:
+                raise ValueError(
+                    f"scene has {n} nodes but this engine's capacity bucket "
+                    f"is node_cap={self.node_cap} — route it to a larger "
+                    f"bucket")
+            xp, nm = pad_nodes(x0, self.node_cap)
+            xs.append(xp)
+            vs.append(pad_nodes(np.asarray(v0, np.float32), self.node_cap)[0])
+            hs.append(pad_nodes(np.asarray(h, np.float32), self.node_cap)[0])
+            nms.append(nm)
+            ns.append(n)
+        stacked = [np.stack([a[j] for j in slot_src])
+                   for a in (xs, vs, hs, nms)]
+        self._tel.uploaded(*stacked)
+        x, v, h, nm = (torch.from_numpy(a).to(self.device) for a in stacked)
+        b_, e_, dev = self.batch_size, self.edge_cap, self.device
+        self._g = GeometricGraph(
+            x=x, v=v, h=h,
+            senders=torch.zeros((b_, e_), dtype=torch.int32, device=dev),
+            receivers=torch.zeros((b_, e_), dtype=torch.int32, device=dev),
+            edge_attr=torch.zeros((b_, e_, 0), dtype=torch.float32,
+                                  device=dev),
+            node_mask=nm,
+            edge_mask=torch.zeros((b_, e_), dtype=torch.float32, device=dev))
+        return ns, [xs[j][:ns[j]] for j in range(len(scenes))]
 
     # ----------------------------------------------------------- device side
+    def _device_build(self, x: Tensor):
+        db = device_radius_build(x, self._g.node_mask,
+                                 r_build=self.r + self.skin,
+                                 edge_cap=self.edge_cap,
+                                 cell_cap=self._cell_cap)
+        finite = torch.isfinite(x).reshape(x.shape[0], -1).all(dim=1)
+        flags = torch.stack([finite.to(torch.int32),
+                             db.overflow.to(torch.int32), db.n_edges,
+                             db.max_occupancy], dim=1)
+        return db, flags
+
+    def _device_rebuild(self, x: Tensor, step: int, n_real: int,
+                        cap_limit: int, what: str) -> None:
+        """One batch-global rebuild on the device coordinates ``x``.
+
+        Only the ``(B, 4)`` flags of the real scenes are read.  An overflow
+        in any scene grows the shared ``cell_cap`` from the occupancy it
+        reported (never past ``cap_limit``, a bound on any cell's count,
+        so the loop ends) and builds again on the same coordinates; the
+        host build is never touched.
+        """
+        t0 = time.perf_counter()
+        db, flags = self._device_build(x)
+        f = self._tel.fetch(flags)[:n_real]
+        if not f[:, 0].all():
+            raise FloatingPointError(_DIVERGED_MSG.format(what, step))
+        while f[:, 1].any():
+            self._cell_overflows += 1
+            self._cell_cap = min(cap_limit,
+                                 max(auto_cell_cap(int(f[:, 3].max())),
+                                     self._cell_cap + 1))
+            db, flags = self._device_build(x)
+            f = self._tel.fetch(flags)[:n_real]
+        worst = int(f[:, 2].max())
+        if worst > self.edge_cap:
+            warn_edge_truncation(worst, self.edge_cap, "longest-first")
+        self._g = self._g._replace(senders=db.senders,
+                                   receivers=db.receivers,
+                                   edge_mask=db.edge_mask)
+        self._lay = device_csr(db.receivers, db.edge_mask, self.node_cap)
+        self._rebuild_s += time.perf_counter() - t0
+
+    def _within(self, x: Tensor, refs: tuple) -> bool:
+        """The skin check before a step: every ``(ref, lim2)`` holds for
+        every slot's largest masked squared displacement from ``ref``.
+        One scalar fetch."""
+        nm = self._g.node_mask
+        ok = None
+        for ref, lim2 in refs:
+            d2 = (((x - ref) ** 2).sum(-1) * nm).max() <= lim2
+            ok = d2 if ok is None else ok & d2
+        return bool(self._tel.fetch(ok, steady=True))
+
     def _step(self, params, x: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:
         g = self._g
         r2 = float(np.float32(self.r) ** 2)
@@ -195,7 +310,309 @@ class BatchedRolloutEngine:
             xp = xp - b * torch.floor(xp / b)
         return xp, (xp - x) / self.dt
 
-    # ------------------------------------------------------------------- run
+    def _counts(self, base: tuple, base2: tuple) -> dict:
+        """Per-run deltas of the accounting: ``base`` at the run's start,
+        ``base2`` after its first install (which is set-up, not rebuild
+        traffic)."""
+        tel = self._tel
+        return dict(
+            d2h_bytes=tel.d2h - base[0], h2d_bytes=tel.h2d - base[1],
+            steady_state_d2h_bytes=tel.steady_d2h - base[2],
+            rebuild_mode=self.rebuild_mode,
+            coord_d2h_bytes=tel.coord_d2h - base2[0],
+            edge_h2d_bytes=tel.edge_h2d - base2[1],
+            cell_overflows=self._cell_overflows - base2[2],
+            rebuild_s=self._rebuild_s - base2[3])
+
+    def _marks(self) -> tuple:
+        tel = self._tel
+        return (tel.coord_d2h, tel.edge_h2d, self._cell_overflows,
+                self._rebuild_s)
+
+
+@dataclass
+class RolloutResult:
+    """A single-scene rollout: trajectory plus the engine's accounting.
+
+    ``trajectory`` is the predicted positions per step, real nodes only.
+    ``per_step_mse`` (when targets were given) is the mean over nodes of
+    ‖x̂ − x‖² / 3.  ``rebuild_waits`` counts asynchronous host builds not
+    finished when the stale list's budget ran out (the host blocked).
+    ``coord_d2h_bytes`` / ``edge_h2d_bytes`` count rebuild traffic after
+    the first install, 0 in ``'device'`` mode; ``cell_overflows`` counts
+    the device build's capacity adaptations; ``rebuild_s`` is host wall
+    time in rebuild installs.  There is no compilation: ``recompiles`` is
+    0.
+    """
+
+    trajectory: np.ndarray  # (n_steps, n, 3)
+    per_step_mse: Optional[np.ndarray]  # (n_steps,) | None
+    rebuild_count: int
+    steps_per_rebuild: float  # n_steps / (rebuild_count + 1)
+    n_steps: int
+    rebuild_steps: list = field(default_factory=list)  # step of each swap
+    trigger_steps: list = field(default_factory=list)  # step of each submit
+    rebuild_waits: int = 0
+    chunk_calls: int = 0
+    recompiles: int = 0
+    d2h_bytes: int = 0
+    h2d_bytes: int = 0
+    steady_state_d2h_bytes: int = 0
+    rebuild_mode: str = "host"
+    coord_d2h_bytes: int = 0
+    edge_h2d_bytes: int = 0
+    cell_overflows: int = 0
+    rebuild_s: float = 0.0
+
+
+class RolloutEngine(_VerletEngine):
+    """Recursive rollout of one scene.
+
+    ``predict_fn(params, graph(B=1,·), layout) -> (1, N, 3)`` is the model
+    (``Pipeline.predict_fn``); ``r`` / ``drop_rate`` are the model's graph
+    semantics and ``skin`` an execution knob only: the trajectory does not
+    depend on it, and ``skin=0`` rebuilds after every step.
+
+    ``node_cap`` defaults to the first scene's node count and ``edge_cap``
+    to its edge count at ``r + skin`` times ``edge_headroom``; both stay
+    pinned for later runs.  ``rebuild_mode`` is as in the module
+    docstring.  In host mode ``async_rebuild`` (default: on when
+    ``skin > 0``) submits the build at ``rebuild_margin`` of the skin
+    budget and keeps stepping on the stale list, bounded by both the old
+    reference's full budget and the pending build's reference (each bound
+    alone would let a pair close by more than the skin), so the list
+    swapped in is valid by construction.
+
+    ``wrap_box`` wraps every predicted position into ``[0, wrap_box)^3``
+    before the velocity is formed, which bounds the recursion; the
+    neighbour search is not minimum-image (pairs across a face are not
+    found), and a node crossing a face triggers a rebuild.
+    """
+
+    def __init__(self, predict_fn: Callable, *, r: float, skin: float,
+                 dt: float, drop_rate: float = 0.0,
+                 node_cap: Optional[int] = None,
+                 edge_cap: Optional[int] = None,
+                 async_rebuild: Optional[bool] = None,
+                 rebuild_margin: float = 0.5,
+                 edge_headroom: float = DEFAULT_EDGE_HEADROOM, pool=None,
+                 wrap_box: Optional[float] = None,
+                 rebuild_mode: str = "auto",
+                 cell_cap: Optional[int] = None, device=None):
+        if not 0 < rebuild_margin <= 1:
+            raise ValueError(f"rebuild_margin must be in (0, 1], got "
+                             f"{rebuild_margin}")
+        super().__init__(predict_fn, r=r, skin=skin, dt=dt,
+                         drop_rate=drop_rate, wrap_box=wrap_box,
+                         rebuild_mode=rebuild_mode, want_async=async_rebuild,
+                         cell_cap=cell_cap, device=device)
+        self.rebuild_margin = float(rebuild_margin)
+        self.edge_headroom = float(edge_headroom)
+        self.async_rebuild = (self.rebuild_mode == "host"
+                              and (skin > 0 if async_rebuild is None
+                                   else bool(async_rebuild)))
+        self.node_cap = node_cap
+        self.edge_cap = edge_cap
+        self._pool = pool
+        self._n_real = 0
+
+    def _first_build(self, x0, v0, h) -> None:
+        """Size the capacities on the first run, load the scene and
+        install its first list."""
+        x32 = np.asarray(x0, np.float32)
+        if self.wrap_box is not None:
+            b = np.float32(self.wrap_box)
+            x32 = x32 - b * np.floor(x32 / b)
+        n = self._n_real = x32.shape[0]
+        self.node_cap = int(self.node_cap or n)
+        device = self.rebuild_mode == "device"
+        if self.edge_cap is None:
+            # a sizing pass on the host; in device mode its edges are not
+            # uploaded (the device build installs the first list)
+            snd, _ = radius_graph(x32, self.r + self.skin)
+            self.edge_cap = max(1, int(np.ceil(snd.size
+                                               * self.edge_headroom)))
+        if device and self._cell_cap is None:
+            # clamped at n: no cell can hold more than every node
+            self._cell_cap = min(n, auto_cell_cap(
+                cell_occupancy(x32, self.r + self.skin)))
+        _, (x_real,) = self._load([(x0, v0, h)], [0])
+        if device:
+            self._device_rebuild(self._g.x, 0, 1, n, "")
+        else:
+            self._install([self._host_build_scene(x_real)], [0])
+
+    @torch.no_grad()
+    def run(self, params, x0, v0, h, n_steps: int, *,
+            targets: Optional[np.ndarray] = None,
+            traj_capacity: Optional[int] = None) -> RolloutResult:
+        """Roll the model ``n_steps`` forward from ``(x0, v0, h)``.
+
+        ``targets[k]``, when given, is the ground truth for step ``k+1``
+        and must cover every step: a short array raises (comparing late
+        predictions with a frozen last frame would understate the error).
+        ``traj_capacity`` is accepted for the JAX package's signature: with
+        no compiled program there is no buffer to pre-size.
+        """
+        from repro_torch.data.stream import shared_worker_pool
+
+        del traj_capacity
+        n_steps = int(n_steps)
+        if n_steps <= 0:
+            raise ValueError(f"n_steps must be positive, got {n_steps}")
+        if targets is not None:
+            targets = np.asarray(targets)
+            if targets.shape[0] < n_steps:
+                raise ValueError(
+                    f"rollout targets cover {targets.shape[0]} steps but "
+                    f"n_steps={n_steps}: refusing to clamp ground truth to "
+                    f"the last frame (it silently understates late-step "
+                    f"error) — pass n_steps <= len(targets) or more frames")
+        tel = self._tel
+        base = (tel.d2h, tel.h2d, tel.steady_d2h)
+        self._first_build(x0, v0, h)
+        base2 = self._marks()
+        n = self._n_real
+        device = self.rebuild_mode == "device"
+
+        lim2 = float(np.float32((0.5 * self.skin) ** 2))
+        trig2 = (float(np.float32((self.rebuild_margin * 0.5 * self.skin)
+                                  ** 2)) if self.async_rebuild else lim2)
+        x, v = self._g.x, self._g.v
+        x_ref = x
+        pending = None  # (future, x at the trigger) during an async build
+        done = chunk_calls = waits = 0
+        frames: list[Tensor] = []
+        rebuild_steps: list[int] = []
+        trigger_steps: list[int] = []
+        while done < n_steps:
+            if pending is None:  # fresh list: watch the trigger
+                refs = ((x_ref, trig2),)
+            else:  # stale list: bounded by the old and the pending reference
+                refs = ((x_ref, lim2), (pending[1], lim2))
+            chunk_calls += 1
+            while done < n_steps and self._within(x, refs):
+                x, v = self._step(params, x, v)
+                frames.append(x[0])
+                done += 1
+            if done >= n_steps:
+                break
+            if pending is None:
+                trigger_steps.append(done)
+                if device:
+                    self._device_rebuild(x, done, 1, n, "")
+                    x_ref = x
+                    rebuild_steps.append(done)
+                    continue
+                x_np = tel.fetch(x[0], coords=True)[:n]
+                if not np.isfinite(x_np).all():
+                    # no displacement check passes on NaN: without this the
+                    # loop would rebuild at the same positions forever
+                    raise FloatingPointError(_DIVERGED_MSG.format("", done))
+                if self.async_rebuild:
+                    pool = self._pool or shared_worker_pool()
+                    pending = (pool.submit(self._host_build_scene, x_np), x)
+                else:
+                    t0 = time.perf_counter()
+                    self._install([self._host_build_scene(x_np)], [0])
+                    self._rebuild_s += time.perf_counter() - t0
+                    x_ref = x
+                    rebuild_steps.append(done)
+            else:
+                fut, x_trig = pending
+                if not fut.done():
+                    waits += 1  # the budget ran out before the build landed
+                t0 = time.perf_counter()
+                self._install([fut.result()], [0])
+                self._rebuild_s += time.perf_counter() - t0
+                x_ref = x_trig
+                rebuild_steps.append(done)
+                pending = None
+
+        traj = tel.fetch(torch.stack(frames))[:, :n]
+        mse = None
+        if targets is not None:
+            err = np.sum((traj - targets[:n_steps, :n]) ** 2, axis=-1)
+            mse = np.mean(err, axis=-1) / 3.0
+        rebuilds = len(rebuild_steps)
+        return RolloutResult(
+            trajectory=traj, per_step_mse=mse, rebuild_count=rebuilds,
+            steps_per_rebuild=n_steps / (rebuilds + 1), n_steps=n_steps,
+            rebuild_steps=rebuild_steps, trigger_steps=trigger_steps,
+            rebuild_waits=waits, chunk_calls=chunk_calls,
+            **self._counts(base, base2))
+
+
+@dataclass
+class BatchedRolloutResult:
+    """Per-scene trajectories (real nodes only) plus the engine's counts.
+
+    ``rebuild_count`` is batch-global (one rebuild covers every scene).
+    Host rebuilds block the batch, so in ``'host'`` mode every rebuild is
+    a ``rebuild_wait``; ``'device'`` mode has none.  The byte counts follow
+    :class:`RolloutResult`.  There is no compilation, so ``recompiles`` is
+    0.
+    """
+
+    trajectories: list  # per real scene: (n_steps, n_j, 3) float32
+    n_steps: int
+    n_scenes: int
+    batch_size: int
+    rebuild_count: int
+    rebuild_steps: list = field(default_factory=list)
+    chunk_calls: int = 0
+    recompiles: int = 0
+    d2h_bytes: int = 0
+    h2d_bytes: int = 0
+    steady_state_d2h_bytes: int = 0
+    rebuild_mode: str = "host"
+    rebuild_waits: int = 0
+    coord_d2h_bytes: int = 0
+    edge_h2d_bytes: int = 0
+    cell_overflows: int = 0
+    rebuild_s: float = 0.0
+
+
+class BatchedRolloutEngine(_VerletEngine):
+    """Rollout of 1..``batch_size`` same-capacity scenes stepping together.
+
+    Every scene is padded to the pinned ``(node_cap, edge_cap)`` bucket.
+    The skin criterion is reduced over the batch (any scene past its
+    budget ends the chunk), so a rebuild covers all scenes: in device
+    mode one build of every slot, with one fetch of the ``(B, 4)`` flags.
+    A short batch pads its slots with replicas of the last scene; replicas
+    compute the same trajectory and are dropped from the result.  The
+    per-step masks make each scene's trajectory independent of the
+    rebuild schedule, so a batched run equals single-scene runs at the
+    same capacities.
+
+    ``predict_fn(params, graph(B,·), layout) -> (B, N, 3)`` is the model
+    (``Pipeline.predict_fn``); the engine hands it each slot's CSR layout
+    ``(indptr, n_edges)``, built with every Verlet list.  ``cell_cap``
+    (device mode) defaults to the first run's densest cell at ``r + skin``
+    with headroom, clamped at ``node_cap``.
+    """
+
+    def __init__(self, predict_fn: Callable, *, batch_size: int,
+                 node_cap: int, edge_cap: int, r: float, skin: float,
+                 dt: float, drop_rate: float = 0.0,
+                 wrap_box: Optional[float] = None,
+                 rebuild_mode: str = "auto",
+                 cell_cap: Optional[int] = None, device=None):
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        super().__init__(predict_fn, r=r, skin=skin, dt=dt,
+                         drop_rate=drop_rate, wrap_box=wrap_box,
+                         rebuild_mode=rebuild_mode, want_async=None,
+                         cell_cap=cell_cap, device=device)
+        self.batch_size = int(batch_size)
+        self.node_cap = int(node_cap)
+        self.edge_cap = int(edge_cap)
+
+    def _build_scenes(self, scene_x: list) -> list:
+        # sequential: the numpy build holds the GIL, threads gain nothing
+        return [self._host_build_scene(x) for x in scene_x]
+
     @torch.no_grad()
     def run(self, params, scenes, n_steps: int, *,
             on_chunk: Optional[Callable] = None) -> BatchedRolloutResult:
@@ -216,73 +633,55 @@ class BatchedRolloutEngine:
         n_real = len(scenes)
         slot_src = list(range(n_real)) + [n_real - 1] * (self.batch_size
                                                          - n_real)
-        xs, vs, hs, ns, nms = [], [], [], [], []
-        for (x0, v0, h) in scenes:
-            x0 = np.asarray(x0, np.float32)
-            if self.wrap_box is not None:
-                b = np.float32(self.wrap_box)
-                x0 = x0 - b * np.floor(x0 / b)
-            n = x0.shape[0]
-            if n > self.node_cap:
-                raise ValueError(
-                    f"scene has {n} nodes but this engine's capacity bucket "
-                    f"is node_cap={self.node_cap} — route it to a larger "
-                    f"bucket")
-            xp, nm = pad_nodes(x0, self.node_cap)
-            xs.append(xp)
-            vs.append(pad_nodes(np.asarray(v0, np.float32), self.node_cap)[0])
-            hs.append(pad_nodes(np.asarray(h, np.float32), self.node_cap)[0])
-            nms.append(nm)
-            ns.append(n)
-        dev = self.device
-        up = lambda arrs: torch.from_numpy(
-            np.stack([arrs[j] for j in slot_src])).to(dev)
-        b_, e_ = self.batch_size, self.edge_cap
-        self._g = GeometricGraph(
-            x=up(xs), v=up(vs), h=up(hs),
-            senders=torch.zeros((b_, e_), dtype=torch.int32, device=dev),
-            receivers=torch.zeros((b_, e_), dtype=torch.int32, device=dev),
-            edge_attr=torch.zeros((b_, e_, 0), dtype=torch.float32,
-                                  device=dev),
-            node_mask=up(nms),
-            edge_mask=torch.zeros((b_, e_), dtype=torch.float32, device=dev))
-        self._install(self._build_scenes([xs[j][:ns[j]]
-                                          for j in range(n_real)]), slot_src)
+        tel = self._tel
+        base = (tel.d2h, tel.h2d, tel.steady_d2h)
+        ns, scene_x0 = self._load(scenes, slot_src)
+        device = self.rebuild_mode == "device"
+        if device:
+            if self._cell_cap is None:
+                self._cell_cap = min(self.node_cap, auto_cell_cap(
+                    max(cell_occupancy(sx, self.r + self.skin)
+                        for sx in scene_x0)))
+            self._device_rebuild(self._g.x, 0, n_real, self.node_cap,
+                                 "batched ")
+        else:
+            self._install(self._build_scenes(scene_x0), slot_src)
+        base2 = self._marks()
 
         lim2 = float(np.float32((0.5 * self.skin) ** 2))
-        nm = self._g.node_mask
         x, v = self._g.x, self._g.v
         ref = x
-        done = chunk_calls = waits = steady = 0
-        rebuild_s = 0.0
+        done = chunk_calls = waits = 0
         rebuild_steps: list[int] = []
         parts: list[np.ndarray] = []
         while done < n_steps:
             chunk_calls += 1
             block = []
-            while done + len(block) < n_steps:
-                if block:  # the chunk's loop condition (x == ref at k = 0)
-                    d2 = ((x - ref) ** 2).sum(-1) * nm
-                    steady += 1
-                    if not bool(d2.max() <= lim2):
-                        break
+            while (done + len(block) < n_steps
+                   and self._within(x, ((ref, lim2),))):
                 x, v = self._step(params, x, v)
                 block.append(x)
-            new = torch.stack(block, 1).cpu().numpy()
-            parts.append(new)
-            if on_chunk is not None:
-                on_chunk(done, new[:n_real])
-            done += len(block)
+            if block:
+                new = tel.fetch(torch.stack(block, 1))
+                parts.append(new)
+                if on_chunk is not None:
+                    on_chunk(done, new[:n_real])
+                done += len(block)
             if done >= n_steps:
                 break
-            t0 = time.perf_counter()
-            x_np = x.cpu().numpy()
-            scene_x = [x_np[j, :ns[j]] for j in range(n_real)]
-            if not all(np.isfinite(sx).all() for sx in scene_x):
-                raise FloatingPointError(_DIVERGED_MSG.format(done))
-            self._install(self._build_scenes(scene_x), slot_src)
-            rebuild_s += time.perf_counter() - t0
-            waits += 1
+            if device:
+                self._device_rebuild(x, done, n_real, self.node_cap,
+                                     "batched ")
+            else:
+                t0 = time.perf_counter()
+                x_np = tel.fetch(x, coords=True)
+                scene_x = [x_np[j, :ns[j]] for j in range(n_real)]
+                if not all(np.isfinite(sx).all() for sx in scene_x):
+                    raise FloatingPointError(
+                        _DIVERGED_MSG.format("batched ", done))
+                self._install(self._build_scenes(scene_x), slot_src)
+                self._rebuild_s += time.perf_counter() - t0
+                waits += 1
             ref = x
             rebuild_steps.append(done)
         full = np.concatenate(parts, axis=1)
@@ -290,6 +689,5 @@ class BatchedRolloutEngine:
             trajectories=[full[j, :n_steps, :ns[j]] for j in range(n_real)],
             n_steps=n_steps, n_scenes=n_real, batch_size=self.batch_size,
             rebuild_count=len(rebuild_steps), rebuild_steps=rebuild_steps,
-            chunk_calls=chunk_calls, steady_state_d2h_bytes=steady,
-            rebuild_mode=self.rebuild_mode, rebuild_waits=waits,
-            rebuild_s=rebuild_s)
+            chunk_calls=chunk_calls, rebuild_waits=waits,
+            **self._counts(base, base2))

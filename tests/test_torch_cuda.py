@@ -326,6 +326,97 @@ def test_rollout_kernel_path_bitwise_independent_of_skin(drop_rate):
         assert np.array_equal(a, b)
 
 
+def _cell_list_points(kind: str, n: int = 4096):
+    """The four point sets of the cell-list parity tests, at 4,096 nodes."""
+    rng = np.random.default_rng(7)
+    uniform = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    if kind == "uniform":
+        return uniform
+    if kind == "clustered":
+        return (0.05 * rng.random((n, 3))).astype(np.float32)
+    if kind == "skewed":
+        return np.stack([rng.uniform(0, 10, n), 0.02 * rng.random(n),
+                         0.02 * rng.random(n)], axis=1).astype(np.float32)
+    uniform[n // 2:] = uniform[:n - n // 2]  # duplicates
+    return uniform
+
+
+@needs_cuda
+@pytest.mark.parametrize("edge_cap", [200_000, 4096],
+                         ids=["roomy", "truncating"])
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "skewed",
+                                  "duplicates"])
+def test_device_cell_list_build_equals_host_build(kind, edge_cap):
+    """DESIGN.md §13.3 on the card: the device build (node-padded, a
+    quarter of the rows masked) and its CSR layout are bitwise the host
+    build's at the same capacities."""
+    import warnings
+
+    from repro_torch.data.cell_list import (auto_cell_cap, cell_occupancy,
+                                            device_csr, device_radius_build)
+
+    x = _cell_list_points(kind)
+    r_build = {"uniform": 0.08, "clustered": 0.004, "skewed": 0.045,
+               "duplicates": 0.08}[kind]  # ~7-30 neighbours a node
+    real = x[:3072]
+    cap = min(3072, auto_cell_cap(cell_occupancy(real, r_build)))
+    snd, rcv = sort_edges_by_receiver(*radius_graph(real, r_build))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        hs, hr, hm = pad_edges(snd, rcv, edge_cap, real)
+    nm = np.zeros(4096, np.float32)
+    nm[:3072] = 1.0
+    t = lambda a: torch.from_numpy(a).cuda()
+    db = device_radius_build(t(x), t(nm), r_build=r_build,
+                             edge_cap=edge_cap, cell_cap=cap)
+    indptr, n_edges = device_csr(db.receivers, db.edge_mask, 4096)
+    torch.cuda.synchronize()
+    assert not bool(db.overflow) and int(db.n_edges) == snd.size
+    assert np.array_equal(db.senders.cpu().numpy(), hs)
+    assert np.array_equal(db.receivers.cpu().numpy(), hr)
+    assert np.array_equal(db.edge_mask.cpu().numpy(), hm)
+    n_live = int(np.count_nonzero(hm))
+    assert int(n_edges) == n_live
+    assert np.array_equal(indptr.cpu().numpy(), csr_indptr(hr, n_live, 4096))
+
+
+@needs_cuda
+@pytest.mark.parametrize("drop_rate", [0.0, 0.3])
+def test_rollout_device_rebuild_equals_host_rebuild_on_card(drop_rate):
+    """Full-width FastEGNN (2 layers) through the kernels, three scenes in
+    four slots: the device rebuilds give bitwise the host rebuilds'
+    trajectories, with no coordinate fetch or edge upload after the first
+    list and no blocking rebuild."""
+    from repro_torch.rollout import BatchedRolloutEngine
+
+    dev = torch.device("cuda")
+    pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                          n_layers=2,
+                          generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(9)
+    scenes = [(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32),
+               (0.05 * rng.standard_normal((n, 3))).astype(np.float32),
+               np.ones((n, 1), np.float32)) for n in (300, 260, 311)]
+    runs = {}
+    for mode in ("host", "device"):
+        eng = BatchedRolloutEngine(pipe.predict_fn, batch_size=4, node_cap=320,
+                                   edge_cap=320 * 64, r=0.15, skin=0.02,
+                                   dt=0.01, drop_rate=drop_rate,
+                                   wrap_box=1.0, rebuild_mode=mode,
+                                   device=dev)
+        edge_message.reset_launches()
+        runs[mode] = eng.run(pipe.params, scenes, 6)
+        assert edge_message.launches == 2 * 4 * 6  # layers x slots x steps
+    host, devr = runs["host"], runs["device"]
+    assert devr.rebuild_mode == "device" and devr.rebuild_count >= 2
+    assert devr.rebuild_steps == host.rebuild_steps
+    assert devr.coord_d2h_bytes == devr.edge_h2d_bytes == 0
+    assert devr.rebuild_waits == 0 and host.rebuild_waits >= 2
+    for a, b in zip(host.trajectories, devr.trajectories):
+        assert np.isfinite(a).all()
+        assert np.array_equal(a, b)
+
+
 @needs_cuda
 def test_kernels_refuse_unsupported_widths_and_modes():
     dev = torch.device("cuda")

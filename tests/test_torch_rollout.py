@@ -1,9 +1,14 @@
-"""Port rollout engine and serving plane.
+"""Port rollout engines, ``Pipeline.rollout``, the simulate CLI and the
+serving plane.
 
 * against the JAX package: ``BatchedRolloutEngine`` (host rebuilds) over 3
   scenes and 6 steps with at least one Verlet rebuild, trajectories to 1e-4;
+  ``Pipeline.rollout`` in device and host mode against the JAX package's,
+  trajectories and ``per_step_mse`` to 1e-4;
 * port against itself, bitwise: batched == single-scene runs, replica
-  padding, trajectories independent of the skin, and the
+  padding, trajectories independent of the skin, device rebuilds == host
+  rebuilds (both engines; drop rate, ``wrap_box``, ``skin=0``, overflow
+  adaptation), asynchronous == synchronous host rebuilds, and the
   ``RolloutService`` stream == ``engine.run``;
 * service behaviour: admission errors, batching window, capacity
   isolation, queue backpressure, LRU eviction and re-admission.
@@ -15,8 +20,11 @@ import torch
 
 from repro.pipeline import build_pipeline as j_build_pipeline
 from repro.rollout.engine import BatchedRolloutEngine as JEngine
+from repro.rollout.engine import _resolve_rebuild_mode as j_resolve
+from repro_torch.launch import simulate
 from repro_torch.pipeline import build_pipeline
-from repro_torch.rollout import BatchedRolloutEngine
+from repro_torch.rollout import BatchedRolloutEngine, RolloutEngine
+from repro_torch.rollout.engine import _resolve_rebuild_mode
 from repro_torch.serving import (AdmissionError, BucketKey, DynamicBatcher,
                                  LRUCache, PendingRequest, ProgramCache,
                                  ProgramKey, QueueFullError, RolloutService,
@@ -74,17 +82,41 @@ def test_batched_rollout_matches_reference(jax_pipe, pipe, drop_rate):
 
 
 def test_rebuild_modes():
-    with pytest.raises(NotImplementedError, match="device"):
-        BatchedRolloutEngine(None, batch_size=1, node_cap=8, edge_cap=8, r=R,
-                             skin=SKIN, dt=DT, rebuild_mode="device",
-                             device="cpu")
+    kw = dict(batch_size=1, node_cap=8, edge_cap=8, r=R, skin=SKIN, dt=DT,
+              device="cpu")
+    for mode in ("device", "host"):
+        assert BatchedRolloutEngine(None, rebuild_mode=mode,
+                                    **kw).rebuild_mode == mode
     with pytest.raises(ValueError, match="rebuild_mode"):
-        BatchedRolloutEngine(None, batch_size=1, node_cap=8, edge_cap=8, r=R,
-                             skin=SKIN, dt=DT, rebuild_mode="gpu",
-                             device="cpu")
-    eng = BatchedRolloutEngine(None, batch_size=1, node_cap=8, edge_cap=8,
-                               r=R, skin=SKIN, dt=DT, device="cpu")
-    assert eng.rebuild_mode == "host" and eng.traces == 0
+        BatchedRolloutEngine(None, rebuild_mode="gpu", **kw)
+    eng = BatchedRolloutEngine(None, **kw)
+    assert eng.rebuild_mode == "device" and eng.traces == 0
+    kw["r"] = np.inf
+    assert BatchedRolloutEngine(None, **kw).rebuild_mode == "host"
+
+
+@pytest.mark.parametrize("mode", ["auto", "device", "host"])
+@pytest.mark.parametrize("r_build", [0.45, 0.0, np.inf])
+@pytest.mark.parametrize("want_async", [None, False, True])
+def test_resolve_rebuild_mode_matches_reference(mode, r_build, want_async):
+    assert (_resolve_rebuild_mode(mode, r_build, want_async)
+            == j_resolve(mode, r_build, want_async))
+
+
+def test_single_engine_auto_mode_selection():
+    kw = dict(r=R, skin=SKIN, dt=DT, device="cpu")
+    assert RolloutEngine(None, **kw).rebuild_mode == "device"
+    assert not RolloutEngine(None, **kw).async_rebuild
+    assert RolloutEngine(None, r=np.inf, skin=0.0, dt=DT,
+                         device="cpu").rebuild_mode == "host"
+    eng = RolloutEngine(None, async_rebuild=True, **kw)
+    assert eng.rebuild_mode == "host" and eng.async_rebuild
+    eng = RolloutEngine(None, rebuild_mode="host", **kw)
+    assert eng.async_rebuild  # skin > 0: async by default in host mode
+    with pytest.raises(ValueError, match="rebuild_mode"):
+        RolloutEngine(None, rebuild_mode="gpu", **kw)
+    with pytest.raises(ValueError, match="rebuild_margin"):
+        RolloutEngine(None, rebuild_margin=0.0, **kw)
 
 
 # ------------------------------------------------ port against itself
@@ -182,6 +214,186 @@ def test_wrap_box_bounds_and_divergence_guard(pipe):
         _engine(pipe, 1, skin=0.0).run(pipe.params, [bad], 3)
     with pytest.raises(ValueError, match="capacity bucket"):
         _engine(pipe, 1).run(pipe.params, [_scene(NODE_CAP + 1)], 1)
+
+
+# ----------------------------------------- device rebuilds == host rebuilds
+def _single(p, mode, **kw):
+    base = dict(r=R, skin=SKIN, dt=DT, drop_rate=0.3, device="cpu",
+                rebuild_mode=mode)
+    if mode == "host":
+        base["async_rebuild"] = False
+    base.update(kw)
+    return RolloutEngine(p.predict_fn, **base)
+
+
+def _assert_device_telemetry(res):
+    assert res.rebuild_mode == "device"
+    assert res.coord_d2h_bytes == 0 and res.edge_h2d_bytes == 0
+    assert res.rebuild_waits == 0
+
+
+@pytest.mark.parametrize("case", ["drop", "wrap_box", "skin0"])
+def test_single_engine_device_equals_host_bitwise(pipe, case):
+    kw = {"drop": {}, "wrap_box": dict(wrap_box=1.0),
+          "skin0": dict(skin=0.0)}[case]
+    x0, v0, h = _scene(40, seed=2)
+    steps = 8
+    rh = _single(pipe, "host", **kw).run(pipe.params, x0, v0, h, steps)
+    ed = _single(pipe, "device", **kw)
+    rd = ed.run(pipe.params, x0, v0, h, steps)
+    assert np.array_equal(rh.trajectory, rd.trajectory)
+    assert rd.rebuild_steps == rh.rebuild_steps and rd.rebuild_count >= 1
+    _assert_device_telemetry(rd)
+    assert rh.coord_d2h_bytes > 0 and rh.edge_h2d_bytes > 0
+    if case == "skin0":
+        assert rd.rebuild_count == steps - 1
+    rd2 = ed.run(pipe.params, x0, v0, h, steps)  # a cached engine, again
+    assert np.array_equal(rh.trajectory, rd2.trajectory)
+    _assert_device_telemetry(rd2)
+    assert rd2.recompiles == 0 and rd2.cell_overflows == 0
+
+
+@pytest.mark.parametrize("case", ["drop", "wrap_box", "skin0"])
+def test_batched_engine_device_equals_host_bitwise(pipe, case):
+    kw = {"drop": dict(drop_rate=0.3), "wrap_box": dict(wrap_box=1.0),
+          "skin0": dict(skin=0.0)}[case]
+    scenes = [_scene(n, seed=s) for s, n in enumerate((40, 33))]
+    steps = 8
+    rh = _engine(pipe, 3, rebuild_mode="host", **kw).run(pipe.params,
+                                                          scenes, steps)
+    ed = _engine(pipe, 3, rebuild_mode="device", **kw)
+    rd = ed.run(pipe.params, scenes, steps)
+    for a, b in zip(rh.trajectories, rd.trajectories):
+        assert np.array_equal(a, b)
+    assert rd.rebuild_steps == rh.rebuild_steps and rd.rebuild_count >= 1
+    assert rh.rebuild_waits == rh.rebuild_count  # host rebuilds block
+    _assert_device_telemetry(rd)
+    assert rd.d2h_bytes > rd.steady_state_d2h_bytes > 0
+    if case == "skin0":
+        assert rd.rebuild_count == steps - 1
+    rd2 = ed.run(pipe.params, scenes, steps)
+    for a, b in zip(rh.trajectories, rd2.trajectories):
+        assert np.array_equal(a, b)
+    _assert_device_telemetry(rd2)
+    assert rd2.cell_overflows == 0  # the adapted cell_cap sticks
+
+
+def test_device_overflow_adaptation_stays_bitwise(pipe):
+    """A cell_cap of 1 forces overflow adaptations: the trajectories do
+    not change, the retries stay on the device, and the grown cell_cap
+    sticks, so a re-run has no overflow."""
+    x0, v0, h = _scene(40, seed=3)
+    rh = _single(pipe, "host").run(pipe.params, x0, v0, h, 8)
+    ed = _single(pipe, "device", cell_cap=1)
+    rd = ed.run(pipe.params, x0, v0, h, 8)
+    assert np.array_equal(rh.trajectory, rd.trajectory)
+    assert ed._cell_overflows >= 1 and ed._cell_cap > 1
+    _assert_device_telemetry(rd)
+    rd2 = ed.run(pipe.params, x0, v0, h, 8)
+    assert np.array_equal(rh.trajectory, rd2.trajectory)
+    assert rd2.cell_overflows == 0
+
+    scenes = [_scene(n, seed=s) for s, n in enumerate((40, 33))]
+    bh = _engine(pipe, 2, rebuild_mode="host").run(pipe.params, scenes, 8)
+    eb = _engine(pipe, 2, rebuild_mode="device", cell_cap=1)
+    bd = eb.run(pipe.params, scenes, 8)
+    for a, b in zip(bh.trajectories, bd.trajectories):
+        assert np.array_equal(a, b)
+    assert eb._cell_overflows >= 1 and 1 < eb._cell_cap <= NODE_CAP
+    _assert_device_telemetry(bd)
+    assert eb.run(pipe.params, scenes, 8).cell_overflows == 0
+
+
+def test_single_engine_equals_batched(pipe):
+    scene = _scene(40, seed=4)
+    one = _single(pipe, "device", node_cap=NODE_CAP, edge_cap=EDGE_CAP
+                  ).run(pipe.params, *scene, 8)
+    bat = _engine(pipe, 2, drop_rate=0.3).run(pipe.params, [scene], 8)
+    assert np.array_equal(one.trajectory, bat.trajectories[0])
+
+
+def test_async_host_rebuild_equals_sync(pipe):
+    """The two-reference rule: the stale list stays valid while the build
+    runs, so asynchronous rebuilds give the synchronous trajectory."""
+    x0, v0, h = _scene(40, seed=5)
+    rs = _single(pipe, "host").run(pipe.params, x0, v0, h, 10)
+    ea = _single(pipe, "host", async_rebuild=True)
+    ra = ea.run(pipe.params, x0, v0, h, 10)
+    assert ea.async_rebuild and ra.rebuild_count >= 1
+    assert np.array_equal(rs.trajectory, ra.trajectory)
+    assert len(ra.trigger_steps) >= ra.rebuild_count
+    assert all(t <= s for t, s in zip(ra.trigger_steps, ra.rebuild_steps))
+    assert 0 <= ra.rebuild_waits <= ra.rebuild_count
+
+
+def test_single_engine_targets_and_caps(pipe):
+    x0, v0, h = _scene(40, seed=6)
+    eng = _single(pipe, "device", edge_headroom=2.0)
+    res = eng.run(pipe.params, x0, v0, h, 4, targets=np.zeros((4, 40, 3)))
+    want = np.mean(np.sum(res.trajectory ** 2, axis=-1), axis=-1) / 3.0
+    np.testing.assert_allclose(res.per_step_mse, want, rtol=1e-6)
+    from repro_torch.data.radius_graph import radius_graph
+    assert eng.node_cap == 40
+    assert eng.edge_cap == int(np.ceil(
+        radius_graph(x0, R + SKIN)[0].size * 2.0))
+    with pytest.raises(ValueError, match="targets cover 3 steps"):
+        eng.run(pipe.params, x0, v0, h, 4, targets=np.zeros((3, 40, 3)))
+    with pytest.raises(ValueError, match="n_steps must be positive"):
+        eng.run(pipe.params, x0, v0, h, 0)
+    bad = np.full_like(v0, 1e30)
+    for mode in ("device", "host"):
+        with pytest.raises(FloatingPointError, match="diverged"):
+            _single(pipe, mode, skin=0.0).run(pipe.params, x0, bad, h, 3)
+
+
+# --------------------------------------------- Pipeline.rollout and the CLI
+@pytest.mark.parametrize("mode", ["device", "host"])
+def test_pipeline_rollout_matches_reference(jax_pipe, pipe, mode):
+    """Six steps with at least one rebuild (ROADMAP queue C: keep the
+    horizon), trajectories and per-step MSE within 1e-4."""
+    x0, v0, h = _scene(40, seed=8)
+    targets = x0[None] + 0.01 * np.arange(1, 7)[:, None, None]
+    kw = dict(r=R, skin=SKIN, dt=DT, drop_rate=0.3, targets=targets,
+              rebuild_mode=mode)
+    want = jax_pipe.rollout(jax_pipe.params, (x0, v0, h), 6, **kw)
+    got = pipe.rollout(pipe.params, (x0, v0, h), 6, **kw)
+    assert got.rebuild_mode == mode and got.rebuild_count >= 1
+    assert got.rebuild_steps == want.rebuild_steps
+    assert float(np.max(np.abs(got.trajectory - want.trajectory))) <= TOL
+    np.testing.assert_allclose(got.per_step_mse, want.per_step_mse,
+                               rtol=TOL, atol=0)
+    cached = pipe._rollout_engines.stats()
+    again = pipe.rollout(pipe.params, (x0, v0, h), 6, **kw)
+    assert np.array_equal(again.trajectory, got.trajectory)
+    after = pipe._rollout_engines.stats()  # the engine came from the LRU
+    assert after["size"] == cached["size"]
+    assert after["hits"] == cached["hits"] + 1
+
+
+def test_pipeline_rollout_engine_lru_and_mesh_refusal(pipe):
+    from repro_torch.pipeline import ROLLOUT_ENGINE_CACHE
+
+    p = build_pipeline("fast_egnn", device="cpu", params=pipe.params,
+                       **SMALL)
+    x0, v0, h = _scene(20, seed=9)
+    for k in range(ROLLOUT_ENGINE_CACHE + 1):
+        p.rollout(p.params, (x0, v0, h), 1, r=R, skin=SKIN, dt=DT + k)
+    stats = p._rollout_engines.stats()
+    assert stats["size"] == ROLLOUT_ENGINE_CACHE and stats["evictions"] == 1
+    with pytest.raises(NotImplementedError, match="A #8"):
+        build_pipeline("fast_egnn", device="cpu", params=pipe.params,
+                       mesh=object(), **SMALL)
+
+
+def test_simulate_cli_on_cpu(capsys):
+    assert simulate.main(["--device", "cpu", "--n", "48", "--steps", "4",
+                          "--use-kernel"]) == 0
+    out = capsys.readouterr().out
+    assert "scene n=48" in out and "device=cpu" in out
+    assert "4 steps in" in out and "host-blocking" in out
+    assert "trajectory span" in out
+    with pytest.raises(NotImplementedError, match="A #6"):
+        simulate.main(["--device", "cpu", "--model", "egnn"])
 
 
 # ------------------------------------------------------------ pure caches
