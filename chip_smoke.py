@@ -42,6 +42,12 @@ Phases, each printing one JSON line (any failure exits nonzero):
              batched and graph by graph.  Every kernel also gets the
              device kernels one call launches, with their device times
              (``torch.profiler``): one a call for each of the MMD pair.
+             The identity-gate branch of the edge pathway (RF, SchNet) is
+             two more rows, edge_identity and edge_identity_bwd, at the
+             serving shapes in SchNet's form (Dh = 64, rel raw) with an
+             ``rf_form`` reading (Dh = 1, inv1p) each: against the plain
+             versions, a bitwise repeat, a planted fault (one live slot's
+             mask zeroed), times, the device kernels a call and the bound.
 4. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each, the Verlet lists rebuilt on the
@@ -60,6 +66,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
              timed (CUDA events) with its peak memory.
    simulate — ``python -m repro_torch.launch.simulate --n 7800 --steps
              20 --use-kernel`` in a process of its own: exit 0, steps/s.
+   zoo     — every registry model (linear, mpnn, egnn, rf, schnet, tfn,
+             fast_egnn, fast_rf, fast_schnet, fast_tfn) at full width
+             (4 layers, hidden 64, C = 3 and s_dim 64 for the fast_*
+             ones; random weights from seed 0) with ``use_kernel=True``,
+             beside a plain pipeline with the same weights: ``predict_fn``
+             on the four serve scenes batched as serve batches them,
+             within FRAME_TOL of the plain path (relative to the largest
+             coordinate where that exceeds 1), with the exact dispatch
+             (kernel / plain, the reference's rule) and kernel launch
+             counts; one ``RolloutService`` request (one scene, ZOO_STEPS
+             steps, Verlet lists rebuilt on the card): finite frames,
+             rebuild mode "device", no coordinate or edge bytes; one
+             ``Pipeline.fit`` epoch on the train scenes (batch 4), its
+             first step's loss, gradients and update against the plain
+             path's, ms a step both ways and the kernel launches a step.
 6. train   — a full-width FastEGNN (random weights from seed 0) trained
              with ``use_kernel=True`` through ``Pipeline.fit`` for 2 epochs
              on 6 + 2 fluid scenes of 7,800 particles (batch 4, so the
@@ -137,6 +158,32 @@ GATOL, GRTOL = 5e-5, 1e-3
 FRAME_TOL = 1e-4
 # serve scenes through BatchedRolloutEngine, device against host rebuilds
 REBUILD_STEPS = 6
+# zoo: every registry model; steps of its one-scene RolloutService request
+ZOO = ("linear", "mpnn", "egnn", "rf", "schnet", "tfn", "fast_egnn",
+       "fast_rf", "fast_schnet", "fast_tfn")
+ZOO_STEPS = 10
+# the request's finite-difference timestep: RF adds the re-estimated
+# velocity (x' - x) / dt to its update as it is, so at the serve's DT the
+# random weights' velocities (up to BOX / DT) overflow FastRF's virtual
+# coordinates within a few steps, as the reference's would; at dt 1 the
+# velocity is the last step's displacement
+ZOO_DT = 1.0
+# the dispatch of one forward of one layer with use_kernel=True, the
+# reference's rule: where its Pallas kernel runs, the CUDA kernel does;
+# where it runs jnp (FastRF's zero-width virtual block), the plain path
+ZOO_DISPATCH = {
+    "linear": {}, "tfn": {}, "mpnn": {"edge_kernel": 1},
+    "egnn": {"edge_kernel": 1}, "rf": {"edge_kernel": 1},
+    "schnet": {"edge_kernel": 1},
+    "fast_egnn": {"edge_kernel": 1, "virtual_kernel": 1},
+    "fast_schnet": {"edge_kernel": 1, "virtual_kernel": 1},
+    "fast_rf": {"edge_kernel": 1, "virtual_plain": 1},
+    "fast_tfn": {"virtual_kernel": 1}}
+# which edge kernel a layer of each model launches
+ZOO_EDGE_KERNEL = {"mpnn": "edge_pathway_fused", "egnn": "edge_pathway_fused",
+                   "fast_egnn": "edge_pathway_fused", "rf": "edge_identity",
+                   "schnet": "edge_identity", "fast_rf": "edge_identity",
+                   "fast_schnet": "edge_identity"}
 # training: 6 train + 2 validation scenes, batch 4, 2 epochs
 TRAIN_SCENES, VAL_SCENES, TRAIN_BATCH, EPOCHS = 6, 2, 4, 2
 LAM_MMD, MMD_SIGMA, MMD_CHANNELS = 0.03, 1.5, 3
@@ -232,6 +279,8 @@ def compare_grads(got, want) -> dict:
 
     err, rel, ok = 0.0, 0.0, True
     for g, w in zip(got, want):
+        if not w.numel():  # e.g. FastRF's zero-width feature update
+            continue
         d = (g - w).abs()
         scale = float(w.abs().max()) + 1e-6
         err = max(err, float(d.max()))
@@ -363,7 +412,7 @@ def phase_kernels(pipe, scenes, dev) -> tuple[dict, list]:
     mmd, line["mmd_objective_host_us"] = mmd_rows(scenes, dev)
     rows += mmd
     for row in rows:
-        for r in (row, row.get("fluid113k", row)):
+        for r in (row, row.get("fluid113k", row), row.get("rf_form", row)):
             ok = r["within_tol"] and r["bitwise_repeatable"]
             if "batched_equals_singles" in r:  # the MMD pair: one launch
                 ok &= (r["batched_equals_singles"]
@@ -474,6 +523,7 @@ def kernel_rows(pipe, scene, dev) -> tuple[dict, list]:
             **tensor_core_fields(run, v_bytes, v_flops),
             shapes=dict(n=n, channels=c, hidden=hid), **cmp_v))
         rows += backward_rows(e_args, kw, v_args, n_edges, live, gen, dev)
+        rows += identity_rows(x, snd, em, indptr, n_edges, live, gen, dev)
     line = {"phase": "kernels",
             "tolerance": {"values": {"atol": ATOL, "rtol": RTOL},
                           "grads_relative_to_max": {"atol": GATOL,
@@ -573,6 +623,99 @@ def backward_rows(e_args, kw, v_args, n_edges, live, gen, dev) -> list:
         bound_by=b_by, library_ms=None,
         **tensor_core_fields(run, v_bytes, v_flops),
         shapes=dict(n=n, channels=c, hidden=hid), **cmp))
+    return rows
+
+
+def identity_rows(x, snd, em, indptr, n_edges, live, gen, dev) -> list:
+    """The identity-gate edge kernels (#1 and #2's identity branch) on the
+    serving Verlet list: SchNet's form (Dh = 64, rel raw) in the row, RF's
+    (Dh = 1, a zero feature column, rel inv1p) in its ``rf_form``; weights
+    drawn as the models draw them (clamp 100, as theirs)."""
+    import torch
+
+    from repro_torch.core.mlp import init_mlp
+    from repro_torch.data.radius_graph import csr_sender_perm
+    from repro_torch.kernels import edge_message
+    from repro_torch.kernels.ops import unpack_edge_params
+    from repro_torch.models import rf, schnet
+
+    n, d = x.shape[0], 64
+    perm, sptr = csr_sender_perm(snd.cpu().numpy(), n_edges, n)
+    sperm = torch.zeros_like(snd)
+    sperm[:perm.size] = torch.from_numpy(perm).to(dev)
+    sptr = torch.from_numpy(sptr).to(dev)
+    live_slots = torch.nonzero(em[:n_edges]).flatten()
+    em_bad = em.clone()
+    em_bad[live_slots[live_slots.numel() // 2]] = 0.0
+    wgen = torch.Generator().manual_seed(5)
+    forms = {
+        "schnet": (schnet.edge_spec(100.0),
+                   init_mlp(wgen, [2 * d + 1, d, 1], final_bias=False,
+                            device=dev),
+                   torch.randn((n, d), generator=gen, device=dev)),
+        "rf": (rf.edge_spec(100.0),
+               init_mlp(wgen, [1, d, 1], final_bias=False, device=dev),
+               torch.zeros((n, 0), device=dev))}
+    out = {}
+    for form, (spec, phi, h) in forms.items():
+        hk, ws = unpack_edge_params({"phi1": phi}, h, spec)
+        dh = hk.shape[1]
+        kw = dict(gate_mode="identity", rel_mode=spec.rel,
+                  clamp=float(spec.coord_clamp))
+        args = (x, hk, snd, em, indptr, *ws)
+        bad = (x, hk, snd, em_bad, indptr, *ws)
+        fwd = lambda a=args: edge_message.edge_pathway_fused(*a, **kw)
+        fplain = lambda: edge_message.edge_pathway_plain(*args, **kw)
+        got, again, want = fwd(), fwd(), fplain()
+        f = compare(got, want)
+        f["bitwise_repeatable"] = repeat_equal(got, again)
+        f["planted_fault"] = compare(fwd(bad), want)
+        deg = want[2].contiguous()
+        g_dx = torch.randn((n, 3), generator=gen, device=dev)
+        g_mh = torch.randn((n, 1), generator=gen, device=dev)
+        bwd = lambda a=args: edge_message.edge_pathway_bwd_fused(
+            *a[:5], sperm, sptr, *a[5:], deg, g_dx, g_mh, **kw)
+        bplain = lambda: edge_message.edge_pathway_bwd_plain(
+            *args, g_dx, g_mh, **kw)
+        gk, gk2, gp = bwd(), bwd(), bplain()
+        b = compare_grads(gk, gp)
+        b["bitwise_repeatable"] = repeat_equal(gk, gk2)
+        b["planted_fault"] = compare_grads(bwd(bad), gp)
+        del got, again, want, gk, gk2, gp
+        w_bytes = (2 * dh * d + 3 * d + 1) * 4  # W1r W1s w1d b1 w2 b2
+        # the function's own work: per node P = h.W1r and Q = h.W1s;
+        # per live edge d2 (8), pre1 (4 x 64: three adds and the d2
+        # product), SiLU (4 x 64), the dot with w2 (2 x 64), the gate,
+        # the direction and the three sums (12)
+        f_flops = n * 4 * dh * d + live * (8 + 10 * d + 12)
+        f_bytes = (n * (3 + dh) * 4 + n_edges * 8 + (n + 1) * 4 + w_bytes
+                   + n * 5 * 4)
+        # backward: the forward again, then per live edge g_pre1 (2 + 3
+        # per column: w2, SiLU'), g_d2's dot (2), the W2, w1d and b1
+        # partials (5), the receiver and sender sums (2) a column; per
+        # node gh (G.W1r^T + S.W1s^T) and the W1r / W1s partials
+        b_flops = (f_flops + live * (14 * d + 30) + n * 8 * dh * d)
+        b_bytes = (n * (3 + dh) * 4 + 3 * n_edges * 4 + 2 * (n + 1) * 4
+                   + w_bytes + n * 5 * 4 + n * (3 + dh) * 4 + w_bytes)
+        for tag, cmp, run, plain, n_bytes, flops in (
+                ("fwd", f, fwd, fplain, f_bytes, f_flops),
+                ("bwd", b, bwd, bplain, b_bytes, b_flops)):
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            cmp.update(ms=cuda_ms(run), plain_ms=cuda_ms(plain, 10, 2),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       **device_fields(run),
+                       shapes=dict(n=n, slots=int(snd.shape[0]),
+                                   n_edges=n_edges, live_edges=live, dh=dh,
+                                   h1=d, m=1, rel=spec.rel))
+            out[(form, tag)] = cmp
+    rows = []
+    for tag, name, src_line in (("fwd", "edge_identity", 321),
+                                ("bwd", "edge_identity_bwd", 539)):
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/edge_identity.cu",
+            replaces=f"src/repro/kernels/edge_message.py:{src_line}",
+            **out[("schnet", tag)], rf_form=out[("rf", tag)]))
     return rows
 
 
@@ -960,6 +1103,183 @@ def phase_simulate() -> dict:
             "output": out.stdout.strip().splitlines()}
 
 
+def zoo_kwargs(name: str) -> dict:
+    """Full width: 4 layers, hidden 64, h_in 1; the fast_* ones keep the
+    registry's C = 3 and s_dim 64 (the reference's launch/train.py)."""
+    from repro_torch.models.registry import REGISTRY
+
+    kw = dict(h_in=1, n_layers=LAYERS, hidden=64, s_dim=64)
+    return {k: v for k, v in kw.items()
+            if k in REGISTRY[name].make_config._fields}
+
+
+def serve_batch(scenes, dev):
+    """The serve scenes as serve batches them: one (B, NODE_CAP) graph of
+    the Verlet lists at R + SKIN with the step mask at R, and its CSR
+    layout ``(indptr, n_edges)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.graph import GeometricGraph
+    from repro_torch.data.radius_graph import pad_nodes
+
+    parts = []
+    for x0, v0, h in scenes:
+        x, sp, rp, em, nm, indptr, n_edges = serving_graph(
+            x0, NODE_CAP, R + SKIN, R, dev)
+        t = lambda a: torch.from_numpy(
+            np.ascontiguousarray(pad_nodes(a, NODE_CAP)[0])).to(dev)
+        parts.append((x, t(v0), t(h), sp, rp, nm, em, indptr, n_edges))
+    st = lambda i: torch.stack([p[i] for p in parts])
+    b, e = len(parts), parts[0][3].shape[0]
+    g = GeometricGraph(x=st(0), v=st(1), h=st(2), senders=st(3),
+                       receivers=st(4),
+                       edge_attr=torch.zeros((b, e, 0), device=dev),
+                       node_mask=st(5), edge_mask=st(6))
+    return g, (st(7), torch.tensor([p[8] for p in parts], device=dev))
+
+
+def zoo_launch_counts() -> dict:
+    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+
+    return {"edge_pathway_fused": edge_message.launches,
+            "edge_identity": edge_message.identity_launches,
+            "virtual_pathway_fused": virtual_message.launches,
+            "edge_pathway_bwd_fused": edge_message.bwd_launches,
+            "edge_identity_bwd": edge_message.identity_bwd_launches,
+            "virtual_pathway_bwd_fused": virtual_message.bwd_launches,
+            "mmd_cross_sum": mmd_rbf.sum_launches,
+            "mmd_cross_grads": mmd_rbf.grad_launches}
+
+
+def zoo_expected(name: str, fwd: int, bwd: int = 0, mmd: int = 0) -> dict:
+    """The launches of ``fwd`` forwards and ``bwd`` backwards of one layer
+    of ``name`` (and ``mmd`` MMD steps), every other count 0."""
+    want = {k: 0 for k in zoo_launch_counts()}
+    edge = ZOO_EDGE_KERNEL.get(name)
+    if edge is not None:
+        want[edge] = fwd
+        want[{"edge_pathway_fused": "edge_pathway_bwd_fused",
+              "edge_identity": "edge_identity_bwd"}[edge]] = bwd
+    if "virtual_kernel" in ZOO_DISPATCH[name]:
+        want["virtual_pathway_fused"] = fwd
+        want["virtual_pathway_bwd_fused"] = bwd
+    want["mmd_cross_sum"] = want["mmd_cross_grads"] = mmd
+    return want
+
+
+def zoo_model(name, g, lay, scene, tr, va, tc, dev) -> dict:
+    """One registry model through predict, serve and fit (phase_zoo)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import message_passing as mp
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.serving import RolloutService, ServiceConfig
+
+    kw = zoo_kwargs(name)
+    pipe = build_pipeline(name, device=dev, use_kernel=True, train_cfg=tc,
+                          generator=torch.Generator().manual_seed(0), **kw)
+    plain = build_pipeline(name, device=dev, train_cfg=tc,
+                           params=pipe.params, **kw)
+    b = g.x.shape[0]
+    # 1. predict_fn on the serve batch, kernel path against plain path
+    reset_all_launches()
+    mp.reset_dispatch_counts()
+    xk = pipe.predict_fn(pipe.params, g, lay)
+    torch.cuda.synchronize()
+    dispatch, launches = mp.dispatch_counts(), zoo_launch_counts()
+    xp = plain.predict_fn(plain.params, g, None)
+    real = g.node_mask[..., None] > 0
+    scale = float(torch.where(real, xp.abs(), 0.0).max())
+    err = float(torch.where(real, (xk - xp).abs(), 0.0).max())
+    predict = {"max_abs_err": err, "max_abs_coord": scale,
+               "tol": FRAME_TOL * max(1.0, scale),
+               "finite": bool(torch.isfinite(xk).all()),
+               "dispatch": dispatch, "launches": launches}
+    want_d = {k: v * LAYERS * b for k, v in ZOO_DISPATCH[name].items()}
+    want_l = zoo_expected(name, LAYERS * b)
+    del xk, xp
+    # 2. one RolloutService request, Verlet lists rebuilt on the card
+    cfg = ServiceConfig(max_batch=1, queue_cap=4,
+                        edge_cap_per_node=EDGES_PER_NODE)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with RolloutService(pipe, config=cfg, model=name) as svc:
+        hd = svc.submit(*scene, ZOO_STEPS, r=R, skin=SKIN, dt=ZOO_DT,
+                        wrap_box=BOX)
+        frames = [f.copy() for f in hd.frames()]
+    serve_s = time.perf_counter() - t0
+    serve_launches = zoo_launch_counts()
+    (served,) = [svc._programs._lru.get(k) for k in svc._programs.keys()]
+    tel = served._tel
+    serve = {"steps": len(frames), "wall_s": serve_s,
+             "finite": all(bool(np.isfinite(f).all()) for f in frames),
+             "rebuild_mode": served.rebuild_mode,
+             "rebuilds": svc.metrics()["rebuilds"],
+             "coord_d2h_bytes": tel.coord_d2h, "edge_h2d_bytes": tel.edge_h2d,
+             "launches": serve_launches}
+    # 3. one fit epoch; its first step against the plain path
+    first, step_s = first_step(pipe, plain, tr[0], tc, reps=2)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = pipe.fit(tr, va)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = zoo_launch_counts()
+    steps = len(tr)
+    train_passes, eval_passes = steps * TRAIN_BATCH, len(va) * TRAIN_BATCH
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_mse")]
+    identity = (fit_launches["edge_identity"]
+                + fit_launches["edge_identity_bwd"])
+    fit = {"steps": steps, "history": res.history, "fit_s": fit_s,
+           "first_step": first, "step_ms_kernel": 1e3 * step_s["kernel"],
+           "step_ms_plain": 1e3 * step_s["plain"],
+           "identity_launches_per_step": identity / steps,
+           "launches": fit_launches}
+    out = {"model": name, "cfg": pipe.cfg._asdict(), "predict": predict,
+           "serve": serve, "fit": fit}
+    checks = {
+        "predict_close": predict["finite"] and err <= predict["tol"],
+        "dispatch": dispatch == want_d,
+        "predict_launches": launches == want_l,
+        "serve": (serve["steps"] == ZOO_STEPS and serve["finite"]
+                  and served.rebuild_mode == "device"
+                  and not tel.coord_d2h and not tel.edge_h2d),
+        "serve_launches": serve_launches == zoo_expected(
+            name, LAYERS * ZOO_STEPS),
+        "first_step": first["ok"],
+        "fit_finite": all(math.isfinite(v) for v in losses),
+        "fit_launches": fit_launches == zoo_expected(
+            name, LAYERS * (train_passes + eval_passes),
+            LAYERS * train_passes,
+            steps if name == "fast_egnn" and tc.lam_mmd > 0 else 0)}
+    out["checks"] = checks
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"zoo {name} failed {failed}: "
+                             f"{json.dumps(out, default=str)}")
+    return out
+
+
+def phase_zoo(scenes, tr, va, dev) -> dict:
+    """Every registry model at full width with the kernels: predict,
+    serve, fit (see the module docstring)."""
+    from repro_torch.training.trainer import TrainConfig
+
+    t0 = time.perf_counter()
+    g, lay = serve_batch(scenes, dev)
+    tc = TrainConfig(epochs=1, lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA,
+                     mmd_sample=None)
+    models = {name: zoo_model(name, g, lay, scenes[0], tr, va, tc, dev)
+              for name in ZOO}
+    return {"phase": "zoo", "models": models, "layers": LAYERS,
+            "scenes": len(scenes), "serve_steps": ZOO_STEPS,
+            "frame_tol": FRAME_TOL, "seconds": time.perf_counter() - t0}
+
+
 class _GradsOut:
     """An optimizer stand-in whose update returns the gradients, so a
     train step exposes them."""
@@ -982,6 +1302,8 @@ def _update_close(got, want, grads) -> dict:
     worst, ok, skipped, total = 0.0, True, 0, 0
     for g, w, gr in zip(tree_leaves(got), tree_leaves(want),
                         tree_leaves(grads)):
+        if not w.numel():
+            continue
         keep = gr.abs() >= SMALL_GRAD * (float(gr.abs().max()) + 1e-6)
         skipped += int((~keep).sum())
         total += keep.numel()
@@ -1030,21 +1352,73 @@ def profile_step(fn, watch: str = "") -> dict:
     return out
 
 
-def phase_train(dev) -> dict:
-    import math
-
+def first_step(pipe, plain, batch, tc, reps: int = 3) -> tuple[dict, dict]:
+    """One train step from the same weights, kernel path twice and plain
+    path once: the losses (ATOL / RTOL), the gradients (compare_grads),
+    the updated parameters (_update_close) and whether the kernel path
+    repeats bitwise; then the median host time of a step each way
+    (seconds)."""
     import torch
 
-    from repro_torch.data.fluid import generate_fluid_dataset
-    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
-    from repro_torch.pipeline import build_pipeline
-    from repro_torch.models.fast_egnn import fast_egnn_full
     from repro_torch.training.optim import tree_leaves
-    from repro_torch.training.trainer import TrainConfig, build_train_step
+    from repro_torch.training.trainer import build_train_step
+
+    p0 = pipe.params
+    k1, _, mk = pipe.train_step(p0, pipe.opt.init(p0), batch)
+    k2, _, _ = pipe.train_step(p0, pipe.opt.init(p0), batch)
+    pl, _, mp = plain.train_step(p0, plain.opt.init(p0), batch)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(tree_leaves(k1), tree_leaves(k2)))
+    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+    loss_ok = abs(loss_k - loss_p) <= ATOL + RTOL * abs(loss_p)
+    grads = [build_train_step(pp.apply_full, pp.cfg, tc, _GradsOut())[0](
+        p0, None, batch)[0] for pp in (pipe, plain)]
+    gcmp = compare_grads(tree_leaves(grads[0]), tree_leaves(grads[1]))
+    upd = _update_close(k1, pl, grads[1])
+    step_s = {}
+    for name, pp in (("kernel", pipe), ("plain", plain)):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            pp.train_step(p0, pp.opt.init(p0), batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        step_s[name] = statistics.median(times)
+    # ``ok`` leaves the repeat out: a plain gather's backward (the zoo's
+    # cfconv and TFN paths) adds on the card in no fixed order
+    ok = loss_ok and gcmp["within_tol"] and upd["within_tol"]
+    return ({"loss_kernel": loss_k, "loss_plain": loss_p,
+             "loss_within_tol": loss_ok, "grads": gcmp, "params": upd,
+             "bitwise_repeatable": bitwise, "ok": ok}, step_s)
+
+
+def train_batches(dev) -> tuple:
+    """The 6 + 2 fluid scenes of the train and zoo phases as layout-
+    carrying batches of TRAIN_BATCH on the card, and the seconds taken."""
+    from repro_torch.data.fluid import generate_fluid_dataset
+    from repro_torch.data.loader import dataset_to_batches
 
     t0 = time.perf_counter()
     data = generate_fluid_dataset(TRAIN_SCENES + VAL_SCENES,
                                   n_particles=N_PARTICLES)
+    tr, va = (dataset_to_batches(d, TRAIN_BATCH, r=R, with_layout=True,
+                                 device=dev)
+              for d in (data[:TRAIN_SCENES], data[TRAIN_SCENES:]))
+    if not (len(tr) == 2 and tr[1].sample_mask is not None):
+        raise AssertionError("expected a full and a mask-padded train batch")
+    return tr, va, time.perf_counter() - t0
+
+
+def phase_train(dev, tr, va, data_s) -> dict:
+    import math
+
+    import torch
+
+    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.training.trainer import TrainConfig
+
     tc = TrainConfig(epochs=EPOCHS, lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA,
                      mmd_sample=None)
     pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
@@ -1052,35 +1426,9 @@ def phase_train(dev) -> dict:
                           generator=torch.Generator().manual_seed(0))
     plain = build_pipeline("fast_egnn", device=dev, train_cfg=tc,
                            params=pipe.params)
-    tr = pipe.make_batches(data[:TRAIN_SCENES], TRAIN_BATCH, r=R)
-    va = pipe.make_batches(data[TRAIN_SCENES:], TRAIN_BATCH, r=R)
-    data_s = time.perf_counter() - t0
-    if not (len(tr) == 2 and tr[1].sample_mask is not None):
-        raise AssertionError("expected a full and a mask-padded train batch")
-    # the first step, kernel path twice and plain path once, same weights
+    first, step_s = first_step(pipe, plain, tr[0], tc)
+    loss_k, loss_p = first["loss_kernel"], first["loss_plain"]
     p0 = pipe.params
-    k1, _, mk = pipe.train_step(p0, pipe.opt.init(p0), tr[0])
-    k2, _, _ = pipe.train_step(p0, pipe.opt.init(p0), tr[0])
-    pl, _, mp = plain.train_step(p0, plain.opt.init(p0), tr[0])
-    torch.cuda.synchronize()
-    bitwise = all(torch.equal(a, b)
-                  for a, b in zip(tree_leaves(k1), tree_leaves(k2)))
-    loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
-    loss_ok = abs(loss_k - loss_p) <= ATOL + RTOL * abs(loss_p)
-    grads = [build_train_step(fast_egnn_full, pp.cfg, tc, _GradsOut())[0](
-        p0, None, tr[0])[0] for pp in (pipe, plain)]
-    gcmp = compare_grads(tree_leaves(grads[0]), tree_leaves(grads[1]))
-    upd = _update_close(k1, pl, grads[1])
-    # step time: kernel path and plain path, after the steps above
-    step_s = {}
-    for name, pp in (("kernel", pipe), ("plain", plain)):
-        times = []
-        for _ in range(3):
-            t = time.perf_counter()
-            pp.train_step(p0, pp.opt.init(p0), tr[0])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        step_s[name] = statistics.median(times)
     prof = profile_step(lambda: pipe.train_step(p0, pipe.opt.init(p0), tr[0]),
                         watch="mmd_")
 
@@ -1112,10 +1460,7 @@ def phase_train(dev) -> dict:
            "lam_mmd": LAM_MMD, "mmd_sample": None,
            "n_edges": [int(b.layout[1].max()) for b in tr],
            "data_s": data_s, "history": res.history,
-           "first_step": {"loss_kernel": loss_k, "loss_plain": loss_p,
-                          "loss_within_tol": loss_ok, "grads": gcmp,
-                          "params": upd,
-                          "bitwise_repeatable": bitwise},
+           "first_step": first,
            "step_ms_kernel": 1e3 * step_s["kernel"],
            "step_ms_plain": 1e3 * step_s["plain"], "profile_kernel_step": prof,
            "fit_s": fit_s, "launches": launches, "launches_expected": want}
@@ -1123,8 +1468,7 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"non-finite loss: {json.dumps(out)}")
     if launches != want:
         raise AssertionError(f"launch counts differ: {json.dumps(out)}")
-    if not (loss_ok and gcmp["within_tol"] and upd["within_tol"]
-            and bitwise):
+    if not (first["ok"] and first["bitwise_repeatable"]):
         raise AssertionError(f"first step disagrees: {json.dumps(out)}")
     return out
 
@@ -1266,6 +1610,8 @@ def all_launch_counts() -> dict:
             "virtual_pathway_fused": virtual_message.launches,
             "edge_pathway_bwd_fused": edge_message.bwd_launches,
             "virtual_pathway_bwd_fused": virtual_message.bwd_launches,
+            "edge_identity": edge_message.identity_launches,
+            "edge_identity_bwd": edge_message.identity_bwd_launches,
             "mmd_cross_sum": mmd_rbf.sum_launches,
             "mmd_cross_grads": mmd_rbf.grad_launches,
             "swa_attention": swa_attention.wgmma_launches,
@@ -1681,9 +2027,19 @@ def main() -> int:
     emit(serve)
     emit(phase_scale(pipe, dev))
     emit(phase_simulate())
-    train = phase_train(dev)
+    tr, va, data_s = train_batches(dev)
+    zoo = phase_zoo(scenes, tr, va, dev)
+    emit(zoo)
+    train = phase_train(dev, tr, va, data_s)
     emit(train)
+    del tr, va
     for row in rows:  # forward kernels: the serve run; the rest: training
+        if row["name"] in ("edge_identity", "edge_identity_bwd"):
+            # SchNet's serve request and fit; RF's for the rf_form
+            run = "serve" if row["name"] == "edge_identity" else "fit"
+            for r, m in ((row, "schnet"), (row["rf_form"], "rf")):
+                r["launches"] = zoo["models"][m][run]["launches"][row["name"]]
+            continue
         row["launches"] = serve["launches"].get(row["name"],
                                                 train["launches"][row["name"]])
 
@@ -1726,11 +2082,14 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "global_layer", "bound_3xtf32_ms", "kernels_per_call",
             "device_ms", "host_us")
-    for row in rows:  # the MMD pair: also its readings at Fluid113K's size
-        if "fluid113k" in row:
-            row["fluid113k"] = {k: row["fluid113k"][k] for k in keys
-                                if k in row["fluid113k"]}
-    emit({"kernels": [{k: row[k] for k in keys + ("fluid113k",) if k in row}
+    # the MMD pair: also its readings at Fluid113K's size; the identity
+    # kernels at RF's form
+    subs = ("fluid113k", "rf_form")
+    for row in rows:
+        for sub in subs:
+            if sub in row:
+                row[sub] = {k: row[sub][k] for k in keys if k in row[sub]}
+    emit({"kernels": [{k: row[k] for k in keys + subs if k in row}
                       for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

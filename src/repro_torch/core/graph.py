@@ -42,3 +42,39 @@ class GeometricGraph(NamedTuple):
     @property
     def feat_dim(self) -> int:
         return self.h.shape[-1]
+
+
+def make_graph(x, v=None, h=None, senders=None, receivers=None,
+               edge_attr=None, node_mask=None, edge_mask=None,
+               feat_dim: int = 1, device=None) -> GeometricGraph:
+    """Convenience constructor filling in defaults for missing fields.
+
+    Array-likes become float32 (indices int32) tensors on ``device``:
+    by default ``x``'s device when ``x`` is a tensor, else CUDA (raising
+    without a GPU, ``kernels.runtime.resolve_device``)."""
+    from repro_torch.kernels.runtime import resolve_device
+
+    if device is None and isinstance(x, Tensor):
+        device = x.device
+    dev = resolve_device(device)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    x = f32(x)
+    n = x.shape[0]
+    senders = i32(senders if senders is not None else [])
+    receivers = i32(receivers if receivers is not None else [])
+    e = senders.shape[0]
+    return GeometricGraph(
+        x=x,
+        v=torch.zeros_like(x) if v is None else f32(v),
+        h=(torch.ones((n, feat_dim), dtype=torch.float32, device=dev)
+           if h is None else f32(h)),
+        senders=senders,
+        receivers=receivers,
+        edge_attr=(torch.zeros((e, 0), dtype=torch.float32, device=dev)
+                   if edge_attr is None else f32(edge_attr)),
+        node_mask=(torch.ones((n,), dtype=torch.float32, device=dev)
+                   if node_mask is None else f32(node_mask)),
+        edge_mask=(torch.ones((e,), dtype=torch.float32, device=dev)
+                   if edge_mask is None else f32(edge_mask)),
+    )

@@ -3,10 +3,14 @@
 :func:`edge_pathway` gathers endpoint features, runs φ1 over
 ``[h_i | h_j | ‖x_i−x_j‖² | e_ij]``, gates the edge vector with a scalar
 head and reduces onto receivers with masked degree normalisation.  With
-``use_kernel=True`` and a kernel-eligible spec (:func:`kernel_supported`)
-it dispatches to ``kernels.ops.edge_pathway`` — the hand-written CUDA
-kernel on CUDA tensors; an ineligible spec with ``use_kernel=True``
-raises on CUDA.  Everything else runs the plain PyTorch path below.
+``use_kernel=True`` and a kernel-eligible spec (:func:`kernel_supported`,
+the reference's own rule) it dispatches to ``kernels.ops.edge_pathway`` —
+the hand-written CUDA kernels on CUDA tensors, which raise on widths they
+do not take.  A spec the reference runs in ``jnp`` (edge attributes,
+unnormalised sums, other MLP depths) runs the plain PyTorch path below on
+any device, as there, and is counted as ``edge_plain``.
+:func:`aggregate_edges` is the masked segment reduce for models whose
+per-edge message does not fit the φ1 form (SchNet's cfconv, TFN's paths).
 
 Every reduction here is :func:`segment_sum`: a fixed-order segment sum
 that adds each segment's values one at a time in edge order, on every
@@ -94,6 +98,31 @@ def segment_sum(values: Tensor, segment_ids: Tensor,
     return out
 
 
+def aggregate_edges(values: Tensor, g: GeometricGraph, *,
+                    normalize: bool = True) -> Tensor:
+    """Masked segment reduce of per-edge values (E, F) onto receivers,
+    divided by ``max(deg_i, 1)`` with ``normalize`` (the masked mean).
+
+    ``values`` must already be masked by the caller (multiplied by
+    ``edge_mask``), as in the reference; the rows of masked edges are
+    left out of the sums rather than added as zeros.
+    """
+    live = torch.nonzero(g.edge_mask != 0).squeeze(1)
+    rcv = g.receivers[live].long()
+    out = segment_sum(values[live], rcv, g.n_nodes)
+    if normalize:
+        deg = segment_sum(g.edge_mask[live], rcv, g.n_nodes)
+        inv = 1.0 / torch.clamp(deg, min=1.0)
+        out = out * inv.reshape((-1,) + (1,) * (values.ndim - 1))
+    return out
+
+
+def edge_rel_d2(x: Tensor, g: GeometricGraph) -> tuple[Tensor, Tensor]:
+    """Edge vectors r_e = x_rcv − x_snd (E, 3) and ‖r_e‖² (E, 1)."""
+    rel = x[g.receivers.long()] - x[g.senders.long()]
+    return rel, (rel * rel).sum(-1, keepdim=True)
+
+
 def live_edges(snd: Tensor, rcv: Tensor, em: Tensor):
     """The edges with a nonzero mask: ``(snd, rcv, em)`` restricted to
     them, endpoints as int64 for indexing."""
@@ -122,10 +151,13 @@ def dispatch_counts() -> dict[str, int]:
 
 
 def kernel_supported(lp: dict, g: GeometricGraph, spec: EdgeSpec) -> bool:
-    """Kernel-dispatch rule: 2-layer φ1 over ``[h_i | h_j | d²]``, a
-    2-layer (or identity) gate and a masked-mean reduction.  Extra edge
-    attributes, deeper MLPs and unnormalised sums are not kernel-eligible:
-    they take the plain path on the CPU and raise on CUDA."""
+    """The reference's kernel-dispatch rule, decided from the spec and the
+    parameter shapes only: 2-layer φ1 over ``[h_i | h_j | d²]``, a 2-layer
+    (or identity) gate and a masked-mean reduction.  Extra edge
+    attributes, other MLP depths and unnormalised sums take the plain
+    path on every device, as the reference's ``jnp`` path.  (The
+    reference's VMEM budget admits every width here; the CUDA kernels
+    take width 64 and raise on others.)"""
     if spec.use_edge_attr and g.edge_attr.shape[-1] > 0:
         return False
     if not spec.normalize:
@@ -160,9 +192,9 @@ def edge_pathway(lp: dict, h: Tensor, x: Tensor, g: GeometricGraph,
     ``data.radius_graph.csr_indptr``), optionally followed by the sender
     permutation ``(sperm, sptr)`` the CUDA backward needs
     (``data.radius_graph.csr_sender_perm``); the kernel path needs it, the
-    plain path ignores it.  With ``use_kernel`` on CUDA tensors a spec or
-    parameter block the kernel cannot run raises rather than running the
-    plain path on the card; on CPU tensors it takes the plain path.
+    plain path ignores it.  With ``use_kernel`` and a spec the reference
+    sends to its kernel, CUDA tensors launch the CUDA kernels or raise;
+    a spec the reference runs in ``jnp`` takes the plain path here too.
     """
     if use_kernel and kernel_supported(lp, g, spec):
         from repro_torch.kernels import ops as kops
@@ -170,11 +202,6 @@ def edge_pathway(lp: dict, h: Tensor, x: Tensor, g: GeometricGraph,
         dx, mh = kops.edge_pathway(lp, h, x, g, spec, layout)
         record_dispatch("edge_kernel")
         return EdgePathwayOut(dx=dx if spec.gate != "none" else None, mh=mh)
-    if use_kernel and x.is_cuda:
-        raise ValueError(
-            "use_kernel=True on CUDA, but this edge spec / parameter block "
-            "is not kernel-eligible (needs a 2-layer phi1, no edge "
-            "attributes, normalised sums); pass use_kernel=False")
     record_dispatch("edge_plain")
 
     n = g.n_nodes

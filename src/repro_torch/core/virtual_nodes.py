@@ -114,8 +114,11 @@ def virtual_node_sums(params, x: Tensor, vs: VirtualState, msgs: Tensor,
 
 
 def virtual_kernel_supported(params, h: Tensor) -> bool:
-    """The kernel implements the per-channel stacked 2-layer form of φ2 /
-    φ_x^v / φ_Z with at least one real feature column."""
+    """The reference's virtual-kernel dispatch rule: the per-channel
+    stacked 2-layer form of φ2 / φ_x^v / φ_Z with at least one real
+    feature column.  The shared-weight Global Nodes ablation, other MLP
+    depths and zero-width features (FastRF's geometry-only plug-in) take
+    the plain path on every device, as the reference's ``jnp`` path."""
     for name in ("phi2", "phi_xv", "phi_z"):
         p = params[name]
         if len(p) != 2 or p[0]["w"].ndim != 3:
@@ -129,10 +132,9 @@ def virtual_pathway(params, h: Tensor, x: Tensor, vs: VirtualState,
     """The Eq. 5–9 hot path: ``(dx (N,3), mh (N,hidden), dz_sum (C,3),
     ms_sum (C,hidden))``.  With ``use_kernel`` and an eligible parameter
     block this goes through ``kernels.ops.virtual_pathway`` (the CUDA
-    forward and backward kernels on CUDA tensors), otherwise through the
-    plain composition.
-    ``use_kernel`` with an ineligible block (e.g. the shared-weight
-    ablation) raises on CUDA tensors and runs the plain path on the CPU."""
+    forward and backward kernels on CUDA tensors, which raise on widths
+    they do not take), otherwise through the plain composition, counted
+    as ``virtual_plain``."""
     from repro_torch.core.message_passing import record_dispatch
 
     if use_kernel and virtual_kernel_supported(params, h):
@@ -141,12 +143,6 @@ def virtual_pathway(params, h: Tensor, x: Tensor, vs: VirtualState,
         record_dispatch("virtual_kernel")
         return kops.virtual_pathway(params, h, x, vs, mv, node_mask,
                                     precision=precision)
-    if use_kernel and x.is_cuda:
-        raise ValueError(
-            "use_kernel=True on CUDA, but this virtual parameter block is "
-            "not kernel-eligible (needs per-channel stacked 2-layer phi2 / "
-            "phi_xv / phi_z and a real feature column); pass "
-            "use_kernel=False")
     record_dispatch("virtual_plain")
     msgs = virtual_messages(params, h, x, vs, mv)
     dx, mh = real_from_virtual(params, x, vs, msgs)

@@ -19,6 +19,12 @@ the Pallas ``edge_pathway_bwd_fused``): four kernels, whose node pass walks
 the sender permutation ``sperm`` / ``sptr`` of
 ``data.radius_graph.csr_sender_perm``.  For CPU tensors it runs
 :func:`edge_pathway_bwd_plain`.  ``bwd_launches`` counts its calls.
+
+Gate ``'identity'`` (RF: Dh = 1, SchNet's coordinate head: Dh = 64; H1 =
+64 and M = 1 for both) is its own pair of CUDA paths,
+``csrc/edge_identity.cu`` (the Pallas kernels' identity branch): two
+kernels a forward, four a backward, counted apart in
+``identity_launches`` / ``identity_bwd_launches``.
 Gradients flow through ``kernels.ops.EdgePathway``; both raw wrappers
 refuse inputs that require grad.
 """
@@ -40,6 +46,10 @@ Tensor = torch.Tensor
 launches = 0
 #: launches of the CUDA edge backward since the last :func:`reset_launches`
 bwd_launches = 0
+#: calls of the identity-gate CUDA forward (two kernels each) and backward
+#: (four kernels each) since the last :func:`reset_launches`
+identity_launches = 0
+identity_bwd_launches = 0
 
 #: the width the CUDA kernel is compiled for (Dh = H1 = M = HG)
 KERNEL_WIDTH = 64
@@ -51,11 +61,17 @@ EDGE_FWD_CTAS = None
 #: slot range, so the weight gradients' summation order depends on this
 #: number and the inputs only, never on the card
 EDGE_BWD_CTAS = 256
+#: CTAs of the identity kernels' row passes; None: one warp a receiver
+#: row.  Each row is summed by one warp, so the outputs do not depend on
+#: this number
+IDENTITY_CTAS = None
+#: the feature widths the identity kernels take (RF's zero column, 64)
+IDENTITY_DH = (1, 64)
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches
-    launches = bwd_launches = 0
+    global launches, bwd_launches, identity_launches, identity_bwd_launches
+    launches = bwd_launches = identity_launches = identity_bwd_launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -79,6 +95,22 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
                                   + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
     lib.edge_backward.restype = ctypes.c_int
+
+
+def _bind_identity(lib: ctypes.CDLL) -> None:
+    build.common_bind(lib)
+    lib.idn_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.idn_scratch_floats.restype = ctypes.c_longlong
+    lib.edge_identity_forward.argtypes = ([ctypes.c_void_p] * 15
+                                          + [ctypes.c_int] * 4
+                                          + [ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_void_p])
+    lib.edge_identity_forward.restype = ctypes.c_int
+    lib.edge_identity_backward.argtypes = ([ctypes.c_void_p] * 25
+                                           + [ctypes.c_int] * 4
+                                           + [ctypes.c_float, ctypes.c_int,
+                                              ctypes.c_void_p])
+    lib.edge_identity_backward.restype = ctypes.c_int
 
 
 def csr_receivers(indptr: Tensor) -> Tensor:
@@ -134,21 +166,76 @@ def _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode, extra=()):
         raise ValueError(f"unknown rel_mode {rel_mode!r}")
 
 
-def _check_kernel_shapes(h, ws, gate_mode):
+def _check_kernel_shapes(h, ws, gate_mode) -> int:
+    """Raise unless the CUDA kernels take these widths; return Dh."""
     w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2 = ws
     d = KERNEL_WIDTH
-    want = {"h": (h, (h.shape[0], d)), "w1r": (w1r, (d, d)),
-            "w1s": (w1s, (d, d)), "w1d": (w1d, (1, d)), "b1": (b1, (1, d)),
-            "w2": (w2, (d, d)), "b2": (b2, (1, d))}
-    if gate_mode == "mlp":
-        want.update(wg1=(wg1, (d, d)), bg1=(bg1, (1, d)), wg2=(wg2, (d, 1)))
-    elif gate_mode == "identity":
-        raise ValueError("the CUDA edge kernel implements gate_mode 'mlp' "
-                         "and 'none'; 'identity' has no kernel")
+    dh = h.shape[1]
+    if gate_mode == "identity":
+        if dh not in IDENTITY_DH:
+            raise ValueError(f"CUDA identity edge kernel needs Dh in "
+                             f"{IDENTITY_DH} (width {d}), got {dh}")
+        want = {"h": (h, (h.shape[0], dh)), "w1r": (w1r, (dh, d)),
+                "w1s": (w1s, (dh, d)), "w1d": (w1d, (1, d)),
+                "b1": (b1, (1, d)), "w2": (w2, (d, 1)), "b2": (b2, (1, 1))}
+    else:
+        want = {"h": (h, (h.shape[0], d)), "w1r": (w1r, (d, d)),
+                "w1s": (w1s, (d, d)), "w1d": (w1d, (1, d)),
+                "b1": (b1, (1, d)), "w2": (w2, (d, d)), "b2": (b2, (1, d))}
+        if gate_mode == "mlp":
+            want.update(wg1=(wg1, (d, d)), bg1=(bg1, (1, d)),
+                        wg2=(wg2, (d, 1)))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"CUDA edge kernel needs {name} of shape {shape} "
                              f"(width {d}), got {tuple(t.shape)}")
+    return dh
+
+
+def _identity_forward(x, h, snd, em, indptr, ws, dh, rel_mode, clamp):
+    """The identity-gate CUDA forward: ``(dx, mh (N,1), deg)``."""
+    global identity_launches
+    lib = build.load("edge_identity", _bind_identity)
+    dev = x.device
+    n, e = x.shape[0], snd.shape[0]
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    dx, mh, deg = empty(n, 3), empty(n, 1), empty(n, 1)
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, 0)))
+    ins = (x, h, snd, em, indptr, *ws[:6])
+    ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
+    err = lib.edge_identity_forward(*ptrs, n, e, dh, int(rel_mode == "inv1p"),
+                                    float(clamp), IDENTITY_CTAS or 0,
+                                    build.stream_ptr(dev))
+    build.check(lib, err, "edge_identity_forward")
+    identity_launches += 1
+    return dx, mh, deg
+
+
+def _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws, deg, g_dx,
+                       g_mh, dh, rel_mode, clamp):
+    """The identity-gate CUDA backward: the 11 gradients (the gate's three
+    are zeros: the identity branch has no gate weights)."""
+    global identity_bwd_launches
+    lib = build.load("edge_identity", _bind_identity)
+    dev = x.device
+    n, e = x.shape[0], snd.shape[0]
+    d = KERNEL_WIDTH
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    gx, gh = empty(n, 3), empty(n, dh)
+    gw1r, gw1s, gw1d, gb1 = empty(dh, d), empty(dh, d), empty(1, d), empty(1, d)
+    gw2, gb2 = empty(d, 1), empty(1, 1)
+    gates = tuple(torch.zeros_like(w) for w in ws[6:])
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, 1)))
+    ins = (x, h, snd, em, indptr, sperm, sptr, *ws[:6], deg, g_dx, g_mh)
+    outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2)
+    ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
+    err = lib.edge_identity_backward(*ptrs, n, e, dh,
+                                     int(rel_mode == "inv1p"), float(clamp),
+                                     IDENTITY_CTAS or 0,
+                                     build.stream_ptr(dev))
+    build.check(lib, err, "edge_identity_backward")
+    identity_bwd_launches += 1
+    return outs + gates
 
 
 def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
@@ -160,7 +247,8 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
     """Edge forward over a receiver-sorted CSR layout → ``(dx, mh, deg)``.
 
     CUDA tensors launch the kernels (f32, widths 64, gate 'mlp' or 'none';
-    scratch: P and Q, N x 64 each, and a row map of the slots); anything
+    scratch: P and Q, N x 64 each, and a row map of the slots) or, for gate
+    'identity', the identity kernels (Dh 1 or 64, H1 = 64, M = 1); anything
     the kernels do not take raises.  CPU tensors run
     :func:`edge_pathway_plain`.
     """
@@ -172,7 +260,10 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
         return edge_pathway_plain(x, h, snd, em, indptr, *ws,
                                   gate_mode=gate_mode, rel_mode=rel_mode,
                                   clamp=clamp)
-    _check_kernel_shapes(h, ws, gate_mode)
+    dh = _check_kernel_shapes(h, ws, gate_mode)
+    if gate_mode == "identity":
+        return _identity_forward(x, h, snd, em, indptr, ws, dh, rel_mode,
+                                 clamp)
     lib = build.load("edge_message", _bind)
     dev = x.device
     n, e = x.shape[0], snd.shape[0]
@@ -246,7 +337,7 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
         return edge_pathway_bwd_plain(x, h, snd, em, indptr, *ws, g_dx, g_mh,
                                       gate_mode=gate_mode, rel_mode=rel_mode,
                                       clamp=clamp)
-    _check_kernel_shapes(h, ws, gate_mode)
+    dh = _check_kernel_shapes(h, ws, gate_mode)
     if sperm is None or sptr is None:
         raise ValueError(
             "the CUDA edge backward needs the sender permutation (sperm, "
@@ -257,6 +348,9 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
             or not (sperm.is_contiguous() and sptr.is_contiguous())):
         raise ValueError(f"sperm must be a contiguous int32 (E,) and sptr "
                          f"an int32 ({n + 1},) tensor on {x.device}")
+    if gate_mode == "identity":
+        return _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws,
+                                  deg, g_dx, g_mh, dh, rel_mode, clamp)
     lib = build.load("edge_message_bwd", _bind_bwd)
     dev = x.device
     e = snd.shape[0]

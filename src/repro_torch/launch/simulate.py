@@ -10,10 +10,12 @@ boundaries, and report the trajectory statistics and the service's own
 metrics.  The flags are the JAX package's ``launch/simulate.py``, plus
 ``--device``: the model runs on CUDA, its Verlet lists rebuilt on the card
 (``data/cell_list.py``), or with ``--device cpu`` through the plain
-PyTorch versions of the kernels.  ``--use-kernel`` routes the steps
-through the CUDA kernels, which take widths of 64 only, so it builds the
-model at hidden and s_dim 64 (32 and 16 without it, as in the JAX
-package).  Not ported yet: ``--model egnn`` (ROADMAP queue A #6).
+PyTorch versions of the kernels.  ``--model`` takes any name of
+``models.registry`` (default fast_egnn), built with the JAX package's
+keywords (2 layers; C = 3 for fast_egnn).  ``--use-kernel`` routes the
+steps through the CUDA kernels, which take widths of 64 only, so it
+builds the model at hidden and s_dim 64 (32 and 16 without it, as in the
+JAX package).
 """
 from __future__ import annotations
 
@@ -59,8 +61,10 @@ def main(argv=None) -> int:
                          "default: synthetic uniform cube")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=100)
+    from repro_torch.models.registry import REGISTRY
+
     ap.add_argument("--model", type=str, default="fast_egnn",
-                    choices=("fast_egnn", "egnn"))
+                    choices=sorted(REGISTRY))
     ap.add_argument("--r", type=float, default=None,
                     help="cutoff radius (default: ~8 neighbours/node)")
     ap.add_argument("--skin", type=float, default=None,
@@ -79,13 +83,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (default: the GPU)")
     args = ap.parse_args(argv)
-    if args.model != "fast_egnn":
-        raise NotImplementedError(
-            f"--model {args.model}: the port builds fast_egnn only (ROADMAP "
-            f"queue A #6)")
 
     import torch
 
+    from repro_torch.launch.train import config_kwargs
     from repro_torch.pipeline import build_pipeline
     from repro_torch.serving import RolloutService
 
@@ -99,12 +100,14 @@ def main(argv=None) -> int:
     else:
         wrap_box = args.wrap_box if args.wrap_box > 0 else None
 
-    width = (dict(hidden=64, s_dim=64) if args.use_kernel
-             else dict(hidden=32, s_dim=16))
+    kw = dict(h_in=h.shape[1], n_layers=2,
+              hidden=64 if args.use_kernel else 32)
+    if args.model == "fast_egnn":
+        kw.update(n_virtual=3, s_dim=64 if args.use_kernel else 16)
     pipe = build_pipeline(
         args.model, generator=torch.Generator().manual_seed(args.seed),
-        device=args.device, use_kernel=args.use_kernel, h_in=h.shape[1],
-        n_layers=2, n_virtual=3, **width)
+        device=args.device, use_kernel=args.use_kernel,
+        **config_kwargs(args.model, kw))
 
     with RolloutService(pipe, model=args.model) as svc:
         t0 = time.perf_counter()

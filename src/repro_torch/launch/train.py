@@ -3,21 +3,31 @@
     python -m repro_torch.launch.train gnn --dataset fluid --n-nodes 7800 \\
         --n-samples 8 --batch 4 --epochs 2
 
-Builds FastEGNN with ``build_pipeline`` (random weights from ``--seed``),
-the batches with ``Pipeline.make_batches`` and trains with
-``Pipeline.fit``; the flags and their defaults are the JAX package's
-``launch/train.py``, plus ``--device``: the model runs on CUDA through
-the hand-written kernels, or with ``--device cpu`` through their plain
-PyTorch versions.  Not ported yet: the ``nbody``
-and ``protein`` datasets and the streaming data plane (``--layout-cache``,
+Builds ``--model`` (any name of ``models.registry``; default fast_egnn)
+with ``build_pipeline`` (random weights from ``--seed``), the batches
+with ``Pipeline.make_batches`` and trains with ``Pipeline.fit``; the
+flags, their defaults and the per-model keywords are the JAX package's
+``launch/train.py`` (keywords a model's config does not have, such as
+RF's ``h_in``, are left out), plus ``--device``: the model runs on CUDA
+through the hand-written kernels, or with ``--device cpu`` through their
+plain PyTorch versions.  Not ported yet: the ``nbody`` and ``protein``
+datasets and the streaming data plane (``--layout-cache``,
 ``--reshuffle``; ROADMAP queue A #7), DistEGNN over several devices
-(``--devices > 1``; queue A #8), the other registry models (queue A #6)
-and LM mode (queue A #10).  ``--prefetch`` and ``--workers`` are accepted
-and have no effect: batches are built eagerly.
+(``--devices > 1``; queue A #8) and LM mode (queue A #10).
+``--prefetch`` and ``--workers`` are accepted and have no effect: batches
+are built eagerly.
 """
 from __future__ import annotations
 
 import argparse
+
+
+def config_kwargs(model: str, kw: dict) -> dict:
+    """The launcher's keywords that ``model``'s config has."""
+    from repro_torch.models.registry import REGISTRY
+
+    fields = REGISTRY[model].make_config._fields
+    return {k: v for k, v in kw.items() if k in fields}
 
 
 def gnn_main(args) -> None:
@@ -36,10 +46,6 @@ def gnn_main(args) -> None:
             f"--dataset {args.dataset}: the port generates 'fluid' only; "
             f"nbody and protein come with the data plane (ROADMAP queue A "
             f"#7)")
-    if args.model != "fast_egnn":
-        raise NotImplementedError(
-            f"--model {args.model}: the port builds fast_egnn only (ROADMAP "
-            f"queue A #6)")
     if args.layout_cache or args.reshuffle:
         raise NotImplementedError(
             "--layout-cache and --reshuffle need the streaming data plane "
@@ -49,13 +55,18 @@ def gnn_main(args) -> None:
     data = generate_fluid_dataset(args.n_samples, n_particles=args.n_nodes)
     r, h_in = 0.035, 1
     n_tr = int(0.8 * len(data))
+    model = args.model
+    kw = dict(h_in=h_in, n_layers=args.n_layers, hidden=args.hidden)
+    if model.startswith("fast_"):
+        kw.update(n_virtual=args.n_virtual)
+        if model in ("fast_egnn", "fast_schnet", "fast_tfn"):
+            kw.update(s_dim=args.hidden)
     tc = TrainConfig(epochs=args.epochs, lam_mmd=args.lam_mmd,
                      mmd_sigma=args.mmd_sigma, seed=args.seed)
     pipe = build_pipeline(
-        "fast_egnn", generator=torch.Generator().manual_seed(args.seed),
+        model, generator=torch.Generator().manual_seed(args.seed),
         device=args.device, train_cfg=tc, use_kernel=True,
-        h_in=h_in, n_layers=args.n_layers, hidden=args.hidden,
-        n_virtual=args.n_virtual, s_dim=args.hidden)
+        **config_kwargs(model, kw))
     bk = dict(r=r, drop_rate=args.drop_rate)
     tr = pipe.make_batches(data[:n_tr], args.batch, **bk)
     va = pipe.make_batches(data[n_tr:], args.batch, **bk)
@@ -72,7 +83,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
     g = sub.add_parser("gnn")
-    g.add_argument("--model", default="fast_egnn")
+    from repro_torch.models.registry import REGISTRY
+
+    g.add_argument("--model", default="fast_egnn", choices=sorted(REGISTRY))
     g.add_argument("--dataset", default="nbody",
                    choices=["nbody", "fluid", "protein"])
     g.add_argument("--n-samples", type=int, default=64)

@@ -1,8 +1,10 @@
 """The single-device surface of a built model: forward and training.
 
-``build_pipeline("fast_egnn", generator=..., device=..., train_cfg=...,
-**cfg)`` returns a :class:`Pipeline` with ``cfg``, ``params``, ``device``,
-``train_cfg``, ``opt`` and
+``build_pipeline(name, generator=..., device=..., train_cfg=..., **cfg)``
+resolves any of the registry's ten names (``models.registry``: linear,
+mpnn, egnn, rf, schnet, tfn, fast_egnn, fast_rf, fast_schnet, fast_tfn)
+and returns a :class:`Pipeline` with ``cfg``, ``params``, ``apply_full``,
+``device``, ``train_cfg``, ``opt`` and
 
 * ``predict_fn(params, graph(B,·), layout) -> (B, N, 3)``: the forward the
   rollout engine and the serving plane compose.  ``layout`` is ``None`` or
@@ -26,8 +28,7 @@ import torch
 
 from repro_torch.core.graph import GeometricGraph
 from repro_torch.kernels.runtime import require_f32, resolve_device
-from repro_torch.models.fast_egnn import (FastEGNNConfig, fast_egnn_apply,
-                                          fast_egnn_full, init_fast_egnn)
+from repro_torch.models.registry import model_config
 from repro_torch.serving.programs import LRUCache
 from repro_torch.training.optim import Adam
 from repro_torch.training.trainer import (FitResult, TrainConfig,
@@ -43,12 +44,15 @@ class Pipeline:
     """A model's config, parameters, device, forward program and training
     machinery."""
 
-    def __init__(self, name: str, cfg: FastEGNNConfig, params,
+    def __init__(self, name: str, cfg, params, apply_full: Callable,
                  device: torch.device,
                  train_cfg: Optional[TrainConfig] = None):
         self.name = name
         self.cfg = cfg
         self.params = params
+        #: the registry's ``(params, cfg, g, *, edge_layout=None) ->
+        #: (coords, aux)``
+        self.apply_full = apply_full
         self.device = device
         self.train_cfg = train_cfg if train_cfg is not None else TrainConfig()
         tc = self.train_cfg
@@ -66,7 +70,7 @@ class Pipeline:
         for b in range(g.x.shape[0]):
             gb = GeometricGraph(*(a[b] for a in g))
             lay = None if layout is None else tuple(a[b] for a in layout)
-            out.append(fast_egnn_apply(params, self.cfg, gb,
+            out.append(self.apply_full(params, self.cfg, gb,
                                        edge_layout=lay)[0])
         return torch.stack(out)
 
@@ -93,7 +97,7 @@ class Pipeline:
     # --------------------------------------------------------------- steps
     def _build_steps(self):
         if self._steps is None:
-            step, ev = build_train_step(fast_egnn_full, self.cfg,
+            step, ev = build_train_step(self.apply_full, self.cfg,
                                         self.train_cfg, self.opt)
 
             def train_step(params, opt_state, batch, generator=None):
@@ -185,9 +189,10 @@ def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,
                    params=None, device=None,
                    train_cfg: Optional[TrainConfig] = None, mesh=None,
                    **cfg_overrides) -> Pipeline:
-    """``'fast_egnn'`` + config overrides → :class:`Pipeline` on ``device``
-    (default CUDA).  Weights are ``params`` (e.g. from
-    ``weights.params_from_jax``) or random draws from ``generator``;
+    """Registry name + config overrides → :class:`Pipeline` on ``device``
+    (default CUDA).  The config is composed as the registry composes it
+    (``models.registry.model_config``); the weights are ``params`` (e.g.
+    from ``weights.params_from_jax``) or random draws from ``generator``;
     ``train_cfg`` sets the optimizer and the fit protocol (default
     :class:`~repro_torch.training.trainer.TrainConfig`).  A ``mesh``
     (DistEGNN) pipeline is not ported yet and raises."""
@@ -195,14 +200,11 @@ def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,
         raise NotImplementedError(
             "a mesh pipeline needs DistEGNN on torch.distributed, which the "
             "port does not have yet (ROADMAP queue A #8)")
-    if name != "fast_egnn":
-        raise NotImplementedError(
-            f"model {name!r}: the PyTorch port builds 'fast_egnn' only")
+    spec, cfg = model_config(name, **cfg_overrides)
     dev = resolve_device(device)
-    cfg = FastEGNNConfig(**cfg_overrides)
     require_f32(cfg.precision)
     if params is None:
         if generator is None:
             raise ValueError("build_pipeline needs params= or generator=")
-        params = init_fast_egnn(generator, cfg, device=dev)
-    return Pipeline(name, cfg, params, dev, train_cfg)
+        params = spec.init(generator, cfg, device=dev)
+    return Pipeline(name, cfg, params, spec.apply_full, dev, train_cfg)

@@ -1,4 +1,4 @@
-"""Single-device training loop for FastEGNN.
+"""Single-device training loop for the registry's models.
 
 :func:`build_train_step` returns ``train_step(params, opt_state, batch,
 generator=None) → (params, opt_state, metrics)`` and ``eval_step(params,

@@ -6,7 +6,8 @@ The reference keeps parameters as a pytree of nested dicts and lists
 …); the port keeps the same structure with ``torch.Tensor`` leaves.
 
 * :func:`params_from_jax` converts such a tree with numpy (or any
-  array-like) leaves — how the parity tests share weights;
+  array-like) leaves, every registry model's (0-d leaves such as linear's
+  ``dt`` stay 0-d) — how the parity tests share weights;
 * :func:`load_npz` reads a checkpoint written by the reference's
   ``save_checkpoint``, whose keys are the tree paths joined by ``/``
   (list positions as integers, e.g. ``layers/0/phi1/1/b``).
@@ -27,7 +28,9 @@ def _convert(tree, device):
     arr = np.asarray(tree)
     if np.issubdtype(arr.dtype, np.floating):
         arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    # np.array, not np.ascontiguousarray: the latter makes a 0-d leaf
+    # (linear's ``dt``) 1-d
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
 def params_from_jax(tree, *, device=None):

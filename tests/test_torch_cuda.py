@@ -419,11 +419,21 @@ def test_rollout_device_rebuild_equals_host_rebuild_on_card(drop_rate):
 
 @needs_cuda
 def test_kernels_refuse_unsupported_widths_and_modes():
+    """Widths the kernels are not built for raise; gate 'identity' is a
+    kernel of its own since the identity branch was ported, and raises on
+    a feature width other than 1 or 64."""
     dev = torch.device("cuda")
     args = _edge_args(dev)
     with torch.no_grad():
-        with pytest.raises(ValueError, match="identity"):
-            edge_message.edge_pathway_fused(*args, gate_mode="identity")
+        iargs = _identity_args(dev, 64)
+        edge_message.reset_launches()
+        edge_message.edge_pathway_fused(*iargs, gate_mode="identity")
+        assert edge_message.identity_launches == 1
+        iargs[1] = iargs[1][:, :32].contiguous()
+        iargs[5] = iargs[5][:32].contiguous()
+        iargs[6] = iargs[6][:32].contiguous()
+        with pytest.raises(ValueError, match="Dh in"):
+            edge_message.edge_pathway_fused(*iargs, gate_mode="identity")
         narrow = list(args)
         narrow[1] = narrow[1][:, :32].contiguous()
         with pytest.raises(ValueError, match="width 64"):
@@ -437,8 +447,13 @@ def test_kernels_refuse_unsupported_widths_and_modes():
 
 @needs_cuda
 def test_kernel_path_refuses_ineligible_blocks_on_card():
-    """``use_kernel=True`` on CUDA never runs the plain path in silence: an
-    edge spec or virtual block the kernels cannot run raises."""
+    """The reference's dispatch rule on the card: a spec or block the
+    reference runs in jnp (unnormalised sums; the shared-weight ablation;
+    zero-width features) runs the plain path, counted as such, and equals
+    ``use_kernel=False``; a 32-wide block the reference sends to its
+    kernel still raises rather than running the plain path in silence."""
+    from repro_torch.core import message_passing as mp
+
     dev = torch.device("cuda")
     x, sp, rp, em, indptr, n_edges = _graph(seed=11)
     n = x.shape[0]
@@ -448,23 +463,42 @@ def test_kernel_path_refuses_ineligible_blocks_on_card():
                        receivers=t(rp),
                        edge_attr=torch.zeros(sp.size, 0, device=dev),
                        node_mask=torch.ones(n, device=dev), edge_mask=t(em))
-    z = lambda *s: torch.zeros(s, device=dev)
-    lp = {"phi1": [{"w": z(2 * WIDTH + 1, WIDTH), "b": z(WIDTH)},
-                   {"w": z(WIDTH, WIDTH), "b": z(WIDTH)}],
-          "gate": [{"w": z(WIDTH, WIDTH), "b": z(WIDTH)}, {"w": z(WIDTH, 1)}]}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: 0.2 * torch.randn(s, generator=gen, device=dev)
+    lp = {"phi1": [{"w": r(2 * WIDTH + 1, WIDTH), "b": r(WIDTH)},
+                   {"w": r(WIDTH, WIDTH), "b": r(WIDTH)}],
+          "gate": [{"w": r(WIDTH, WIDTH), "b": r(WIDTH)}, {"w": r(WIDTH, 1)}]}
+    lay = (t(indptr), n_edges)
+    spec = EdgeSpec(normalize=False)
     with torch.no_grad():
-        with pytest.raises(ValueError, match="not kernel-eligible"):
-            edge_pathway(lp, g.h, g.x, g, EdgeSpec(normalize=False),
-                         use_kernel=True, layout=(t(indptr), n_edges))
+        mp.reset_dispatch_counts()
+        got = edge_pathway(lp, g.h, g.x, g, spec, use_kernel=True, layout=lay)
+        want = edge_pathway(lp, g.h, g.x, g, spec)
+        assert mp.dispatch_counts() == {"edge_plain": 2}
+        assert torch.equal(got.dx, want.dx) and torch.equal(got.mh, want.mh)
+        vs = VirtualState(z=torch.full((3, 3), 0.5, device=dev),
+                          s=torch.zeros(3, WIDTH, device=dev))
+        mv = torch.zeros(3, 3, device=dev)
         shared = init_virtual_block(torch.Generator().manual_seed(0), 3,
                                     WIDTH, WIDTH, WIDTH, shared=True,
                                     device=dev)
-        vs = VirtualState(z=torch.full((3, 3), 0.5, device=dev),
-                          s=torch.zeros(3, WIDTH, device=dev))
-        with pytest.raises(ValueError, match="not kernel-eligible"):
-            virtual_pathway(shared, g.h, g.x, vs,
-                            torch.zeros(3, 3, device=dev), g.node_mask,
-                            use_kernel=True)
+        geo = init_virtual_block(torch.Generator().manual_seed(1), 3, 0, 0,
+                                 WIDTH, device=dev)
+        vs0 = VirtualState(z=vs.z, s=torch.zeros(3, 0, device=dev))
+        mp.reset_dispatch_counts()
+        for blk, h, st in ((shared, g.h, vs), (geo, g.h[:, :0], vs0)):
+            got = virtual_pathway(blk, h, g.x, st, mv, g.node_mask,
+                                  use_kernel=True)
+            want = virtual_pathway(blk, h, g.x, st, mv, g.node_mask)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        assert mp.dispatch_counts() == {"virtual_plain": 4}
+        narrow = {"phi1": [{"w": r(2 * 32 + 1, 32), "b": r(32)},
+                           {"w": r(32, 32), "b": r(32)}],
+                  "gate": [{"w": r(32, 32), "b": r(32)}, {"w": r(32, 1)}]}
+        with pytest.raises(ValueError, match="width 64"):
+            edge_pathway(narrow, g.h[:, :32].contiguous(), g.x, g,
+                         EdgeSpec(), use_kernel=True, layout=lay)
 
 
 @needs_cuda
@@ -1237,3 +1271,223 @@ def test_lm_forward_kernel_path_matches_plain_on_card(n_kv, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, atol=tol * scale, rtol=tol)
+
+
+# ------------------------------------- the identity gate (RF, SchNet), #1/#2
+def _identity_args(dev, dh, seed=17, n=301):
+    """The hub graph of the backward tests (a 200-edge hub receiver and
+    sender, n not a multiple of 64) with identity-gate weights: Dh = 1
+    (RF: a zero feature column and zero W1r / W1s) or 64 (SchNet), H1 =
+    64, M = 1."""
+    args = _hub_edge_bwd_args(dev, n=n, seed=seed)[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: 0.3 * torch.randn(s, generator=gen, device=dev)
+    if dh == 1:
+        h = torch.zeros(n, 1, device=dev)
+        w1r = w1s = torch.zeros(1, WIDTH, device=dev)
+    else:
+        h, w1r, w1s = r(n, dh) / 0.3, r(dh, WIDTH), r(dh, WIDTH)
+    z11 = torch.zeros(1, 1, device=dev)
+    return [args[0], h, args[2], args[3], args[4], w1r, w1s, r(1, WIDTH),
+            r(1, WIDTH), r(WIDTH, 1), r(1, 1), z11, z11, z11]
+
+
+def _identity_bwd(dev, dh, rel, clamp, seed=17):
+    args = _identity_args(dev, dh, seed)
+    if clamp == "binds":
+        clamp = _binding_clamp(args)
+    kw = dict(gate_mode="identity", rel_mode=rel, clamp=clamp)
+    n = args[0].shape[0]
+    with torch.no_grad():
+        deg = edge_message.edge_pathway_plain(*args, **kw)[2].contiguous()
+    indptr = args[4].cpu().numpy()
+    sender = _sender_perm(args[2].cpu().numpy(), int(indptr[-1]), n, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_mh = torch.randn((n, 1), generator=gen, device=dev)
+    return args, sender, deg, g_dx, g_mh, kw
+
+
+def _identity_msgs(args):
+    """Every live edge's message (the identity gate before the clip)."""
+    x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2 = args[:11]
+    e = int(indptr[-1])
+    rcv = edge_message.csr_receivers(indptr)
+    snd = snd[:e].long()
+    d2 = ((x[rcv] - x[snd]) ** 2).sum(-1, keepdim=True)
+    pre = h[rcv] @ w1r + h[snd] @ w1s + d2 * w1d + b1
+    msg = torch.nn.functional.silu(pre) @ w2 + b2
+    return msg[em[:e] != 0]
+
+
+def _binding_clamp(args) -> float:
+    """A clamp inside the widest gap between the middle half of the live
+    edges' sorted |msg|: it binds on some edges, not on others, and no
+    edge sits within rounding of it."""
+    m = torch.sort(_identity_msgs(args).abs().flatten()).values
+    mid = m[m.numel() // 4: 3 * m.numel() // 4]
+    i = int(torch.argmax(torch.diff(mid)))
+    return float((mid[i] + mid[i + 1]) / 2)
+
+
+IDENTITY_CASES = [(1, "inv1p", math.inf), (1, "inv1p", "binds"),
+                  (64, "raw", math.inf), (64, "raw", "binds"),
+                  (64, "inv1p", "binds"), (1, "raw", "binds")]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dh,rel,clamp", IDENTITY_CASES)
+def test_identity_edge_kernels_match_plain(dh, rel, clamp):
+    """Forward and backward of the identity gate against their plain
+    versions: RF's form (Dh = 1, inv1p) and SchNet's (Dh = 64, raw), a
+    clamp that binds and one that does not, bitwise repeats, 1 forward
+    and 1 backward launch counted apart from the mlp kernels'."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh, kw = _identity_bwd(dev, dh, rel, clamp)
+    edge_message.reset_launches()
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*args, **kw)
+        again = edge_message.edge_pathway_fused(*args, **kw)
+        want = edge_message.edge_pathway_plain(*args, **kw)
+    bwd = lambda: edge_message.edge_pathway_bwd_fused(
+        *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw)
+    gk, gk2 = bwd(), bwd()
+    gp = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, **kw)
+    torch.cuda.synchronize()
+    assert edge_message.identity_launches == 2
+    assert edge_message.identity_bwd_launches == 2
+    assert edge_message.launches == edge_message.bwd_launches == 0
+    _assert_matches(got, again, want)
+    _assert_grads_match(gk, gk2, gp)
+    if clamp == "binds":  # on some live edges, not all
+        msg = _identity_msgs(args).abs()
+        assert bool((msg > kw["clamp"]).any())
+        assert bool((msg < kw["clamp"]).any())
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_ctas", [1, 3, 64, 1000])
+@pytest.mark.parametrize("dh", [1, 64])
+def test_identity_edge_kernels_cta_count_does_not_change_a_bit(
+        monkeypatch, dh, n_ctas):
+    """Each receiver row is summed by one warp and every gradient in an
+    order fixed by the inputs: any CTA count gives the same bits."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh, kw = _identity_bwd(dev, dh, "inv1p", "binds")
+    run = lambda: (edge_message.edge_pathway_fused(*args, **kw),
+                   edge_message.edge_pathway_bwd_fused(
+                       *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw))
+    with torch.no_grad():
+        ref_f, ref_b = run()
+        monkeypatch.setattr(edge_message, "IDENTITY_CTAS", n_ctas)
+        got_f, got_b = run()
+    torch.cuda.synchronize()
+    for a, b in zip(ref_f + ref_b, got_f + got_b):
+        assert torch.equal(a, b)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dh", [1, 64])
+def test_identity_edge_kernels_planted_fault_is_caught(dh):
+    """One live slot's mask zeroed in the kernels' calls only lands
+    outside the forward and the gradient tolerance."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh, kw = _identity_bwd(dev, dh, "inv1p", "binds")
+    with torch.no_grad():
+        want = edge_message.edge_pathway_plain(*args, **kw)
+    gp = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, **kw)
+    em = args[3].clone()
+    live = torch.nonzero(em).flatten()
+    em[live[live.numel() // 2]] = 0.0
+    bad = [*args[:3], em, *args[4:]]
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*bad, **kw)
+    gk = edge_message.edge_pathway_bwd_fused(*bad[:5], *sender, *bad[5:],
+                                             deg, g_dx, g_mh, **kw)
+    torch.cuda.synchronize()
+    assert _outside_values_tolerance(got, want)
+    assert _outside_tolerance(gk, gp)
+
+
+@needs_cuda
+def test_identity_edge_kernels_keep_nan_computed_on_card():
+    """NaN rows of h (SchNet's form) give NaN exactly where the plain
+    versions have it, forward and backward."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh, kw = _identity_bwd(dev, 64, "raw", "binds")
+    args[1] = _card_nan_rows(args[1], _live_nodes(args, dev))
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*args, **kw)
+        want = edge_message.edge_pathway_plain(*args, **kw)
+    _assert_same_nans(got, want)
+    gk = edge_message.edge_pathway_bwd_fused(*args[:5], *sender, *args[5:],
+                                             deg, g_dx, g_mh, **kw)
+    gp = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, **kw)
+    _assert_same_nans(gk, gp)
+
+
+ZOO = ("linear", "mpnn", "egnn", "rf", "schnet", "tfn", "fast_egnn",
+       "fast_rf", "fast_schnet", "fast_tfn")
+ZOO_DISPATCH = {  # one forward of 2 layers with use_kernel=True
+    "linear": {}, "tfn": {}, "mpnn": {"edge_kernel": 2},
+    "egnn": {"edge_kernel": 2}, "rf": {"edge_kernel": 2},
+    "schnet": {"edge_kernel": 2},
+    "fast_egnn": {"edge_kernel": 2, "virtual_kernel": 2},
+    "fast_schnet": {"edge_kernel": 2, "virtual_kernel": 2},
+    "fast_rf": {"edge_kernel": 2, "virtual_plain": 2},
+    "fast_tfn": {"virtual_kernel": 2}}
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_kernel_path_matches_plain_path_on_card(name):
+    """Each registry model at full width (2 layers, hidden 64) on the
+    card: the reference's dispatch, exactly; coordinates, and the
+    gradients of a loss of them, against the plain path; the identity
+    kernels launch once a layer in each direction for RF and SchNet."""
+    from repro_torch.core import message_passing as mp
+    from repro_torch.training.optim import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    x, sp, rp, em, indptr, n_edges = _graph(n=400, cap=16000, seed=9)
+    n_cap = 512
+    xp, nm = pad_nodes(x, n_cap)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rng = np.random.default_rng(2)
+    g = GeometricGraph(x=t(xp), v=t(0.01 * rng.standard_normal(
+                           (n_cap, 3)).astype(np.float32)),
+                       h=t(nm[:, None].copy()), senders=t(sp),
+                       receivers=t(rp),
+                       edge_attr=torch.zeros(sp.size, 0, device=dev),
+                       node_mask=t(nm), edge_mask=t(em))
+    lay = (t(csr_indptr(rp, n_edges, n_cap)), n_edges,
+           *_sender_perm(sp, n_edges, n_cap, dev))
+    kw = {} if name == "linear" else dict(n_layers=2)
+    pk = build_pipeline(name, device=dev, use_kernel=True,
+                        generator=torch.Generator().manual_seed(4), **kw)
+    pp = build_pipeline(name, device=dev, params=pk.params, **kw)
+    target = g.x + 0.01
+
+    def run(p, layout):
+        work = tree_map(lambda a: a.detach().requires_grad_(True), p.params)
+        leaves = tree_leaves(work)
+        xo, _ = p.apply_full(work, p.cfg, g, edge_layout=layout)
+        loss = (((xo - target) ** 2).sum(-1) * g.node_mask).mean()
+        out = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return xo.detach(), [torch.zeros_like(a) if o is None else o
+                             for o, a in zip(out, leaves)]
+
+    edge_message.reset_launches()
+    mp.reset_dispatch_counts()
+    xk, gk = run(pk, lay)
+    assert mp.dispatch_counts() == ZOO_DISPATCH[name]
+    identity = name in ("rf", "fast_rf", "schnet", "fast_schnet")
+    assert edge_message.identity_launches == (2 if identity else 0)
+    assert edge_message.identity_bwd_launches == (2 if identity else 0)
+    xr, gr = run(pp, None)
+    torch.cuda.synchronize()
+    scale = float(xr.abs().max())
+    assert float((xk - xr).abs().max()) <= 1e-4 * max(scale, 1.0)
+    keep = [i for i, w in enumerate(gr) if w.numel()]  # FastRF's S is 0-wide
+    _assert_grads_match([gk[i] for i in keep], [gk[i] for i in keep],
+                        [gr[i] for i in keep])

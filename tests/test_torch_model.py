@@ -104,8 +104,9 @@ def test_shared_virtual_ablation_matches_reference():
                                    TGraph(*map(torch.from_numpy, arrays)),
                                    edge_layout=(torch.from_numpy(indptr),
                                                 n_edges))
-    # rank-2 shared weights are not kernel-eligible: plain virtual path on
-    # the CPU (on CUDA this raises, see tests/test_torch_cuda.py)
+    # rank-2 shared weights are not kernel-eligible: the plain virtual
+    # path, as the reference's jnp path (on CUDA too, see
+    # tests/test_torch_cuda.py)
     assert t_mp.dispatch_counts()["virtual_plain"] == 2
     assert _max_err(want[0], got[0]) <= TOL
     assert _max_err(want[2].s, got[2].s) <= TOL
@@ -151,8 +152,8 @@ def test_build_pipeline_defaults_to_cuda_and_refuses_bf16(monkeypatch):
     with pytest.raises(NotImplementedError, match="f32"):
         build_pipeline("fast_egnn", generator=gen, device="cpu",
                        precision="bf16")
-    with pytest.raises(NotImplementedError, match="fast_egnn"):
-        build_pipeline("egnn", generator=gen, device="cpu")
+    with pytest.raises(KeyError, match="unknown model"):
+        build_pipeline("gcn", generator=gen, device="cpu")
     with pytest.raises(ValueError, match="generator"):
         build_pipeline("fast_egnn", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

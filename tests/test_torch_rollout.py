@@ -392,8 +392,11 @@ def test_simulate_cli_on_cpu(capsys):
     assert "scene n=48" in out and "device=cpu" in out
     assert "4 steps in" in out and "host-blocking" in out
     assert "trajectory span" in out
-    with pytest.raises(NotImplementedError, match="A #6"):
-        simulate.main(["--device", "cpu", "--model", "egnn"])
+    assert simulate.main(["--device", "cpu", "--n", "48", "--steps", "2",
+                          "--model", "egnn"]) == 0
+    assert "model=egnn" in capsys.readouterr().out
+    with pytest.raises(SystemExit):  # argparse refuses a name outside
+        simulate.main(["--device", "cpu", "--model", "gcn"])  # the registry
 
 
 # ------------------------------------------------------------ pure caches
