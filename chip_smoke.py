@@ -48,6 +48,22 @@ Phases, each printing one JSON line (any failure exits nonzero):
              ``rf_form`` reading (Dh = 1, inv1p) each: against the plain
              versions, a bitwise repeat, a planted fault (one live slot's
              mask zeroed), times, the device kernels a call and the bound.
+             The FastEGNN rows again at hidden 32 (the Table I model's
+             layer: every reference entry point's width) go into each
+             row's ``hidden32`` entry.
+   widths  — #1 to #4 and the identity pair (SchNet's and RF's forms)
+             alone on the serve Verlet list at every width of
+             WIDTH_CASES: 16, 24, 32, 48, 64, 96, 128, 226 (the widest the
+             reference's budget admits at N = 8,192) and Dh 24 / H1 40 / M
+             56; #1 and #2 at 512 on a 100-node graph.  Each against its
+             plain version (ATOL / RTOL, GATOL / GRTOL), a bitwise repeat
+             and a planted fault; at widths 32 and 128 two CTA counts,
+             bitwise equal (the edge backward's weight gradients, whose
+             order follows its CTA count, within the tolerance); events and
+             device times and the bounds per width, and the route each
+             took (w32, w64: the compiled widths, the rest padded up to
+             them; panel: above 64).  Each row of the kernels line carries
+             them in its ``widths`` entry.
 4. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each, the Verlet lists rebuilt on the
@@ -65,7 +81,10 @@ Phases, each printing one JSON line (any failure exits nonzero):
              also built on the card, bitwise against the host build,
              timed (CUDA events) with its peak memory.
    simulate — ``python -m repro_torch.launch.simulate --n 7800 --steps
-             20 --use-kernel`` in a process of its own: exit 0, steps/s.
+             20 --use-kernel`` in a process of its own: exit 0, steps/s,
+             and from its output the reference's model (2 layers, hidden
+             32, C = 3, s_dim 16) served by the kernels: no plain
+             dispatch, edge and virtual launches, all on the w32 route.
    zoo     — every registry model (linear, mpnn, egnn, rf, schnet, tfn,
              fast_egnn, fast_rf, fast_schnet, fast_tfn) at full width
              (4 layers, hidden 64, C = 3 and s_dim 64 for the fast_*
@@ -89,6 +108,19 @@ Phases, each printing one JSON line (any failure exits nonzero):
              the first step's loss, gradients and update against a
              ``use_kernel=False`` pipeline on the card, and that the same
              first step run twice is bitwise equal; times a train step.
+   hidden32 — the reference's hidden-32 entry points: the Table I model
+             (3 layers, hidden 32, C = 3, s_dim 32, lam_mmd 0.03) a few
+             train steps, its first step against the plain path and
+             bitwise repeatable; the simulate model (2 layers, hidden 32,
+             s_dim 16) through ``BatchedRolloutEngine`` on the serve
+             scenes, 20 steps at ZOO_DT: every step's frame within
+             FRAME_TOL of the plain path's step from the same state, the
+             first frame of a free-running plain rollout too (later ones
+             are read: random weights amplify the gap, and a pair at the
+             cutoff flips), and no steady-state fetch (the serve phase
+             gates that too); FastEGNN with the kernels E(3)-equivariant
+             (rotated and translated input, output within EQUIV_TOL) at
+             hidden 32 and 64.
 
 The FastEGNN tensors are then freed, and the LM slice (gemma3-12b, random
 weights from seed 0) runs:
@@ -158,6 +190,25 @@ GATOL, GRTOL = 5e-5, 1e-3
 FRAME_TOL = 1e-4
 # serve scenes through BatchedRolloutEngine, device against host rebuilds
 REBUILD_STEPS = 6
+# widths phase: (Dh, H1, M) of the edge pair (virtual pair: Dh, hid = H1;
+# identity: H1) on the serve Verlet list, from the compiled widths (32,
+# 64) through zero-padded ones (16, 24, 48, 24-40-56) to the panel path
+# (96, 128, 226: the widest the reference's budget admits at N = 8,192)
+WIDTH_CASES = ((16, 16, 16), (24, 24, 24), (32, 32, 32), (48, 48, 48),
+               (64, 64, 64), (96, 96, 96), (128, 128, 128), (226, 226, 226),
+               (24, 40, 56))
+# and the edge pair at 512 on a 100-node graph (the budget admits 749 there)
+WIDE_NODES, WIDE_WIDTH = 100, 512
+# widths at which two CTA counts run, bitwise equal
+CTA_WIDTHS = (32, 128)
+# hidden32 phase: the reference's Table I model (benchmarks/common.py: 3
+# layers, hidden 32, C = 3, s_dim = hidden, lam_mmd 0.03) and its simulate
+# model (launch/simulate.py: 2 layers, hidden 32, C = 3, s_dim 16)
+TABLE1 = dict(n_layers=3, hidden=32, n_virtual=3, s_dim=32)
+SIMULATE = dict(n_layers=2, hidden=32, n_virtual=3, s_dim=16)
+H32_FIT_STEPS = 3
+# E(3) equivariance of FastEGNN with the kernels (Proposition IV.1)
+EQUIV_TOL = 2e-3
 # zoo: every registry model; steps of its one-scene RolloutService request
 ZOO = ("linear", "mpnn", "egnn", "rf", "schnet", "tfn", "fast_egnn",
        "fast_rf", "fast_schnet", "fast_tfn")
@@ -168,6 +219,9 @@ ZOO_STEPS = 10
 # coordinates within a few steps, as the reference's would; at dt 1 the
 # velocity is the last step's displacement
 ZOO_DT = 1.0
+# the hidden32 rollout's timestep: the zoo's (ZOO_DT), at which the random
+# weights' finite-difference velocities stay bounded over its 20 steps
+H32_DT = ZOO_DT
 # the dispatch of one forward of one layer with use_kernel=True, the
 # reference's rule: where its Pallas kernel runs, the CUDA kernel does;
 # where it runs jnp (FastRF's zero-width virtual block), the plain path
@@ -408,10 +462,21 @@ def serving_graph(x0, node_cap: int, r_build: float, r_step: float, dev):
 
 
 def phase_kernels(pipe, scenes, dev) -> tuple[dict, list]:
+    import torch
+
+    from repro_torch.pipeline import build_pipeline
+
     line, rows = kernel_rows(pipe, scenes[0], dev)
     mmd, line["mmd_objective_host_us"] = mmd_rows(scenes, dev)
+    # the FastEGNN kernels again at hidden 32 (every reference entry
+    # point's width), the Table I model's layer
+    narrow = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                            generator=torch.Generator().manual_seed(0),
+                            **TABLE1)
+    _, rows32 = kernel_rows(narrow, scenes[0], dev)
+    line["hidden32"] = rows32
     rows += mmd
-    for row in rows:
+    for row in rows + rows32:
         for r in (row, row.get("fluid113k", row), row.get("rf_form", row)):
             ok = r["within_tol"] and r["bitwise_repeatable"]
             if "batched_equals_singles" in r:  # the MMD pair: one launch
@@ -523,7 +588,8 @@ def kernel_rows(pipe, scene, dev) -> tuple[dict, list]:
             **tensor_core_fields(run, v_bytes, v_flops),
             shapes=dict(n=n, channels=c, hidden=hid), **cmp_v))
         rows += backward_rows(e_args, kw, v_args, n_edges, live, gen, dev)
-        rows += identity_rows(x, snd, em, indptr, n_edges, live, gen, dev)
+        rows += identity_rows(x, snd, em, indptr, n_edges, live, gen, dev,
+                              hid)
     line = {"phase": "kernels",
             "tolerance": {"values": {"atol": ATOL, "rtol": RTOL},
                           "grads_relative_to_max": {"atol": GATOL,
@@ -626,11 +692,13 @@ def backward_rows(e_args, kw, v_args, n_edges, live, gen, dev) -> list:
     return rows
 
 
-def identity_rows(x, snd, em, indptr, n_edges, live, gen, dev) -> list:
+def identity_rows(x, snd, em, indptr, n_edges, live, gen, dev,
+                  d: int = 64) -> list:
     """The identity-gate edge kernels (#1 and #2's identity branch) on the
-    serving Verlet list: SchNet's form (Dh = 64, rel raw) in the row, RF's
-    (Dh = 1, a zero feature column, rel inv1p) in its ``rf_form``; weights
-    drawn as the models draw them (clamp 100, as theirs)."""
+    serving Verlet list at hidden ``d``: SchNet's form (Dh = H1 = d, rel
+    raw) in the row, RF's (Dh = 1, a zero feature column, rel inv1p) in
+    its ``rf_form``; weights drawn as the models draw them (clamp 100, as
+    theirs)."""
     import torch
 
     from repro_torch.core.mlp import init_mlp
@@ -639,7 +707,7 @@ def identity_rows(x, snd, em, indptr, n_edges, live, gen, dev) -> list:
     from repro_torch.kernels.ops import unpack_edge_params
     from repro_torch.models import rf, schnet
 
-    n, d = x.shape[0], 64
+    n = x.shape[0]
     perm, sptr = csr_sender_perm(snd.cpu().numpy(), n_edges, n)
     sperm = torch.zeros_like(snd)
     sperm[:perm.size] = torch.from_numpy(perm).to(dev)
@@ -887,23 +955,30 @@ def phase_serve(pipe, plain, scenes, dev) -> dict:
     rebuild = {"rebuild_mode": served.rebuild_mode,
                "coord_d2h_bytes": tel.coord_d2h,
                "edge_h2d_bytes": tel.edge_h2d,
+               "steady_state_d2h_bytes": tel.steady_d2h,
+               "discarded_steps": served._discarded,
                "cell_overflows": served._cell_overflows,
                "cell_cap": served._cell_cap}
-    if (served.rebuild_mode != "device" or tel.coord_d2h or tel.edge_h2d):
+    if (served.rebuild_mode != "device" or tel.coord_d2h or tel.edge_h2d
+            or tel.steady_d2h):
         raise AssertionError(f"serve did not rebuild on the device with no "
-                             f"coordinate fetch and no edge upload: {rebuild}")
+                             f"coordinate fetch, no edge upload and no "
+                             f"steady-state fetch: {rebuild}")
 
     for j, frames in enumerate(streams):
         if len(frames) != STEPS:
             raise AssertionError(f"stream {j}: {len(frames)}/{STEPS} frames")
         if not all(np.isfinite(f).all() for f in frames):
             raise AssertionError(f"stream {j}: non-finite frame")
-    want = m["batches"] * LAYERS * MAX_BATCH * STEPS
+    # a step each, and one each for the steps a chunk computed past a
+    # failed skin check and dropped
+    want = LAYERS * MAX_BATCH * (m["batches"] * STEPS + served._discarded)
     for name, got in launches.items():
         if got != want:
             raise AssertionError(f"{name}: {got} launches, expected {want} "
                                  f"({m['batches']} batches x {LAYERS} layers "
-                                 f"x {MAX_BATCH} slots x {STEPS} steps)")
+                                 f"x {MAX_BATCH} slots x {STEPS} steps + "
+                                 f"{served._discarded} dropped)")
     eng = BatchedRolloutEngine(
         plain.predict_fn, batch_size=MAX_BATCH, node_cap=NODE_CAP,
         edge_cap=NODE_CAP * EDGES_PER_NODE, r=R, skin=SKIN, dt=DT,
@@ -1098,9 +1173,28 @@ def phase_simulate() -> dict:
     rate = re.search(r"\(([0-9.]+) steps/s", out.stdout)
     if rate is None:
         raise AssertionError(f"simulate printed no steps/s: {out.stdout}")
-    return {"phase": "simulate", "cmd": " ".join(cmd[1:]),
-            "steps_per_s": float(rate.group(1)), "process_s": wall,
-            "output": out.stdout.strip().splitlines()}
+    # the reference's model, served by the kernels: its dispatch counts,
+    # kernel launches and the compiled width the kernels ran
+    model = re.search(r"model: (.*)", out.stdout)
+    counts = {k: int(v) for k, v in re.findall(
+        r"(edge_kernel|edge_plain|virtual_kernel|virtual_plain|edge|virtual)"
+        r"=(\d+)", out.stdout)}
+    routes = re.search(r"routes: edge (\S+) virtual (\S+)", out.stdout)
+    res = {"phase": "simulate", "cmd": " ".join(cmd[1:]),
+           "steps_per_s": float(rate.group(1)), "process_s": wall,
+           "model": model.group(1) if model else None, "dispatch": counts,
+           "routes": routes.groups() if routes else None,
+           "output": out.stdout.strip().splitlines()}
+    want_model = ("layers={n_layers} hidden={hidden} n_virtual={n_virtual} "
+                  "s_dim={s_dim}".format(**SIMULATE))
+    if not (res["model"] == want_model and counts.get("edge_plain") == 0
+            and counts.get("virtual_plain") == 0
+            and counts.get("edge_kernel", 0) > 0
+            and counts.get("edge", 0) > 0 and counts.get("virtual", 0) > 0
+            and routes and all(r.startswith("w32:") for r in routes.groups())):
+        raise AssertionError(f"simulate did not serve the reference's model "
+                             f"through the kernels: {json.dumps(res)}")
+    return res
 
 
 def zoo_kwargs(name: str) -> dict:
@@ -1220,6 +1314,8 @@ def zoo_model(name, g, lay, scene, tr, va, tc, dev) -> dict:
              "rebuild_mode": served.rebuild_mode,
              "rebuilds": svc.metrics()["rebuilds"],
              "coord_d2h_bytes": tel.coord_d2h, "edge_h2d_bytes": tel.edge_h2d,
+             "steady_state_d2h_bytes": tel.steady_d2h,
+             "discarded_steps": served._discarded,
              "launches": serve_launches}
     # 3. one fit epoch; its first step against the plain path
     first, step_s = first_step(pipe, plain, tr[0], tc, reps=2)
@@ -1247,9 +1343,10 @@ def zoo_model(name, g, lay, scene, tr, va, tc, dev) -> dict:
         "predict_launches": launches == want_l,
         "serve": (serve["steps"] == ZOO_STEPS and serve["finite"]
                   and served.rebuild_mode == "device"
-                  and not tel.coord_d2h and not tel.edge_h2d),
+                  and not tel.coord_d2h and not tel.edge_h2d
+                  and not tel.steady_d2h),
         "serve_launches": serve_launches == zoo_expected(
-            name, LAYERS * ZOO_STEPS),
+            name, LAYERS * (ZOO_STEPS + served._discarded)),
         "first_step": first["ok"],
         "fit_finite": all(math.isfinite(v) for v in losses),
         "fit_launches": fit_launches == zoo_expected(
@@ -1470,6 +1567,423 @@ def phase_train(dev, tr, va, data_s) -> dict:
         raise AssertionError(f"launch counts differ: {json.dumps(out)}")
     if not (first["ok"] and first["bitwise_repeatable"]):
         raise AssertionError(f"first step disagrees: {json.dumps(out)}")
+    return out
+
+
+# ------------------------------------------------------------ widths phase
+def _width_key(dh: int, h1: int, m: int) -> str:
+    return str(dh) if dh == h1 == m else f"{dh}-{h1}-{m}"
+
+
+def _width_flops(kind: str, n: int, live: int, c: int, dh: int, h1: int,
+                 m: int) -> float:
+    """The function's own FLOP at widths (Dh, H1, M) (virtual: hid = H1),
+    as the kernels phase counts them at 64."""
+    if kind == "edge_fwd":  # h.W1r, h.W1s; per live edge .W2, .Wg1, .wg2
+        return n * 2 * 2 * dh * h1 + live * (2 * h1 * m + 2 * m * h1
+                                             + 2 * h1)
+    if kind == "edge_bwd":  # six products per live edge and per node
+        return live * 6 * 2 * h1 * m + n * 6 * 2 * dh * h1
+    if kind == "virtual_fwd":
+        return n * c * (2 * dh * h1 + 3 * 2 * h1 * h1 + 4 * h1)
+    if kind == "virtual_bwd":  # recompute, cotangents, outer products
+        return n * c * 2 * (3 * dh * h1 + 9 * h1 * h1)
+    if kind == "identity_fwd":
+        return n * 4 * dh * h1 + live * (8 + 10 * h1 + 12)
+    return (n * 4 * dh * h1 + live * (8 + 10 * h1 + 12)  # identity_bwd
+            + live * (14 * h1 + 30) + n * 8 * dh * h1)
+
+
+def _width_bytes(kind: str, n: int, n_edges: int, c: int, dh: int, h1: int,
+                 m: int) -> float:
+    """Each input read once and each output written once, f32."""
+    f = 4
+    graph = n * 3 * f + n_edges * 2 * f + (n + 1) * f
+    if kind.startswith("edge"):
+        w = (2 * dh * h1 + 3 * h1 + h1 * m + m + m * h1 + h1) * f
+        io = graph + n * dh * f + w + n * (3 + m + 1) * f
+        return io if kind == "edge_fwd" else 2 * io + n_edges * f
+    if kind.startswith("identity"):
+        w = (2 * dh * h1 + 3 * h1 + 1) * f
+        io = graph + n * dh * f + w + n * 5 * f
+        return io if kind == "identity_fwd" else 2 * io + n_edges * f
+    w = c * (dh * h1 + 3 * h1 * h1 + 7 * h1) * f  # virtual
+    io = n * (3 + dh + 1) * f + c * 3 * f + w + n * (3 + h1) * f \
+        + c * (3 + h1) * f
+    return io if kind == "virtual_fwd" else 2 * io
+
+
+def _reading(run, plain, fault, cmp, kind, shape, tensor_core: bool,
+             cta=None) -> dict:
+    """One kernel at one width: against its plain version (``cmp``), a
+    bitwise repeat, a planted fault, CUDA-event and device times, bounds;
+    ``cta``: a run with another CTA count, bitwise equal (or, for the edge
+    backward's weight gradients, within the tolerance)."""
+    got, again, want = run(), run(), plain()
+    r = cmp(got, want)
+    r["bitwise_repeatable"] = repeat_equal(got, again)
+    r["planted_fault_caught"] = not cmp(fault(), want)["within_tol"]
+    if cta is not None:
+        other = cta()
+        r["cta_max_diff"] = [float((a - b).abs().max()) for a, b in
+                             zip(got, other)]
+        if kind == "edge_bwd":  # gx, gh bitwise; the weights' partials
+            r["cta_counts_equal"] = (repeat_equal(got[:2], other[:2])
+                                     and compare_grads(other,
+                                                       want)["within_tol"])
+        else:
+            r["cta_counts_equal"] = repeat_equal(got, other)
+    del got, again, want
+    n, live, n_edges = shape[:3]
+    n_bytes = _width_bytes(kind, n, n_edges, *shape[3:])
+    flops = _width_flops(kind, n, live, *shape[3:])
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    r.update(ms=cuda_ms(run, 5, 1), bound_ms=b_ms, bound_by=b_by)
+    if tensor_core:
+        r.update(tensor_core_fields(run, n_bytes, flops))
+    else:
+        r.update(device_fields(run))
+    return r
+
+
+def _width_weights(gen, dh, h1, m, dev):
+    import torch
+
+    r = lambda *s, sc: sc * torch.randn(s, generator=gen, device=dev)
+    sc1 = (2 * dh + 1) ** -0.5
+    return [r(dh, h1, sc=sc1), r(dh, h1, sc=sc1), r(1, h1, sc=0.3),
+            r(1, h1, sc=0.1), r(h1, m, sc=h1 ** -0.5), r(1, m, sc=0.1),
+            r(m, h1, sc=m ** -0.5), r(1, h1, sc=0.1),
+            r(h1, 1, sc=h1 ** -0.5)]
+
+
+def _graph_operands(x, snd, em, indptr, n_edges, dev):
+    """The sender permutation and a copy of ``em`` with one live slot
+    zeroed (the planted fault)."""
+    import torch
+
+    from repro_torch.data.radius_graph import csr_sender_perm
+
+    n = x.shape[0]
+    perm, sptr = csr_sender_perm(snd.cpu().numpy(), n_edges, n)
+    sperm = torch.zeros_like(snd)
+    sperm[:perm.size] = torch.from_numpy(perm).to(dev)
+    live = torch.nonzero(em[:n_edges]).flatten()
+    em_bad = em.clone()
+    em_bad[live[live.numel() // 2]] = 0.0
+    return (sperm, torch.from_numpy(sptr).to(dev)), em_bad, int(live.numel())
+
+
+def edge_width_readings(x, snd, em, indptr, n_edges, dh, h1, m, dev,
+                        identity=True, cta=False) -> dict:
+    """#1 and #2 (gate 'mlp', FastEGNN's rel and clamp) and, if asked, the
+    identity pair in SchNet's form (Dh, H1) and RF's (Dh = 1) at these
+    widths on this graph."""
+    import torch
+
+    from repro_torch.kernels import edge_message as em_mod
+
+    gen = torch.Generator(device=dev).manual_seed(dh * 1000 + h1 + m)
+    n = x.shape[0]
+    sender, em_bad, live = _graph_operands(x, snd, em, indptr, n_edges, dev)
+    out = {"route": em_mod.kernel_route(dh, h1, m)}
+    forms = [("edge", "mlp", "raw", 100.0, dh, m)]
+    if identity:
+        forms += [("identity", "identity", "raw", 100.0, dh, 1),
+                  ("identity_rf", "identity", "inv1p", 100.0, 1, 1)]
+    for name, gate, rel, clamp, fdh, fm in forms:
+        ws = _width_weights(gen, fdh, h1, fm, dev)
+        if gate == "identity":
+            ws[6:] = [torch.zeros(1, 1, device=dev)] * 3
+        h = (torch.randn((n, fdh), generator=gen, device=dev)
+             if name != "identity_rf"
+             else torch.zeros(n, 1, device=dev))
+        kw = dict(gate_mode=gate, rel_mode=rel, clamp=clamp)
+        args = [x, h, snd, em, indptr, *ws]
+        bad = [x, h, snd, em_bad, indptr, *ws]
+        g_dx = torch.randn((n, 3), generator=gen, device=dev)
+        g_mh = torch.randn((n, fm), generator=gen, device=dev)
+        fwd = lambda a=args: em_mod.edge_pathway_fused(*a, **kw)
+        fplain = lambda: em_mod.edge_pathway_plain(*args, **kw)
+        deg = fplain()[2].contiguous()
+        bwd = lambda a=args: em_mod.edge_pathway_bwd_fused(
+            *a[:5], *sender, *a[5:], deg, g_dx, g_mh, **kw)
+        bplain = lambda: em_mod.edge_pathway_bwd_plain(*args, g_dx, g_mh,
+                                                       **kw)
+        ctas = ("EDGE_FWD_CTAS", "EDGE_BWD_CTAS") if gate != "identity" \
+            else ("IDENTITY_CTAS", "IDENTITY_CTAS")
+
+        def other(fn, attr, value):
+            def go():
+                old = getattr(em_mod, attr)
+                setattr(em_mod, attr, value)
+                try:
+                    return fn()
+                finally:
+                    setattr(em_mod, attr, old)
+            return go
+
+        tc = gate != "identity"
+        kshape = (n, live, n_edges, 3, fdh, h1, fm)
+        kind = "edge" if tc else "identity"
+        out[name] = {
+            "fwd": _reading(fwd, fplain, lambda: fwd(bad), compare,
+                            f"{kind}_fwd", kshape, tc,
+                            other(fwd, ctas[0], 61) if cta else None),
+            "bwd": _reading(bwd, bplain, lambda: bwd(bad), compare_grads,
+                            f"{kind}_bwd", kshape, tc,
+                            other(bwd, ctas[1], 97) if cta else None)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def virtual_width_readings(x, nm, dh, hid, dev) -> dict:
+    """#3 and #4 at Dh, hid on the serve scene's nodes (C = 3)."""
+    import torch
+
+    from repro_torch.kernels import virtual_message as vm
+
+    gen = torch.Generator(device=dev).manual_seed(dh * 1000 + hid)
+    n, c = x.shape[0], 3
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+    args = [x, r(n, dh), x[:c] + 0.05 * r(c, 3), nm,
+            r(c, dh, hid, sc=dh ** -0.5), r(c, hid, sc=0.3),
+            r(c, hid, sc=0.3), r(c, hid, hid, sc=hid ** -0.5),
+            r(c, hid, sc=0.1), r(c, hid, hid, sc=hid ** -0.5),
+            r(c, hid, sc=0.1), r(c, hid, 1, sc=hid ** -0.5),
+            r(c, hid, hid, sc=hid ** -0.5), r(c, hid, sc=0.1),
+            r(c, hid, 1, sc=hid ** -0.5)]
+    bad = list(args)
+    bad[3] = nm.clone()
+    bad[3][0] = 1.0 - bad[3][0]
+    cots = (r(n, 3), r(n, hid), r(c, 3), r(c, hid))
+    shape = (n, 0, 0, c, dh, hid, hid)
+    fwd = lambda a=args: vm.virtual_pathway_fused(*a)
+    bwd = lambda a=args: vm.virtual_pathway_bwd_fused(*a, *cots)
+    out = {"route": vm.kernel_route(dh, hid),
+           "fwd": _reading(fwd, lambda: vm.virtual_pathway_plain(*args),
+                           lambda: fwd(bad), compare, "virtual_fwd", shape,
+                           True),
+           "bwd": _reading(bwd, lambda: vm.virtual_pathway_bwd_plain(
+               *args, *cots), lambda: bwd(bad), compare_grads,
+               "virtual_bwd", shape, True)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _width_ok(readings) -> bool:
+    """Every reading within its tolerance, repeatable, its fault caught
+    and its CTA counts equal."""
+    if isinstance(readings, dict):
+        if "within_tol" in readings:
+            return (readings["within_tol"] and readings["bitwise_repeatable"]
+                    and readings["planted_fault_caught"]
+                    and readings.get("cta_counts_equal", True))
+        return all(_width_ok(v) for k, v in readings.items()
+                   if k != "route")
+    return True
+
+
+def phase_widths(scene, dev) -> dict:
+    """#1 to #4 and the identity pair alone at every width of
+    WIDTH_CASES on the serve Verlet list (N = 8,192), and #1 / #2 at
+    WIDE_WIDTH on a WIDE_NODES-node graph."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.radius_graph import (csr_indptr, pad_edges,
+                                               radius_graph,
+                                               sort_edges_by_receiver)
+
+    t0 = time.perf_counter()
+    x, snd, _rcv, em, nm, indptr, n_edges = serving_graph(
+        scene[0], NODE_CAP, R + SKIN, R, dev)
+    cases = {}
+    with torch.no_grad():
+        for dh, h1, m in WIDTH_CASES:
+            cta = h1 in CTA_WIDTHS and dh == h1 == m
+            cases[_width_key(dh, h1, m)] = {
+                "edge_pair": edge_width_readings(x, snd, em, indptr, n_edges,
+                                                 dh, h1, m, dev, cta=cta),
+                "virtual_pair": virtual_width_readings(x, nm, dh, h1, dev)}
+        rng = np.random.default_rng(0)
+        xs = rng.uniform(0.0, 1.0, (WIDE_NODES, 3)).astype(np.float32)
+        s, rc = sort_edges_by_receiver(*radius_graph(xs, 0.3))
+        sp, rp, ems = pad_edges(s, rc, 2 * s.size, xs)
+        ems[::7] = 0.0  # holes in the live slots
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        w = WIDE_WIDTH
+        cases[f"{w}@{WIDE_NODES}"] = {"edge_pair": edge_width_readings(
+            t(xs), t(sp), t(ems), t(csr_indptr(rp, s.size, WIDE_NODES)),
+            s.size, w, w, w, dev, identity=False)}
+    out = {"phase": "widths", "tolerance": {"atol": ATOL, "rtol": RTOL,
+                                            "grad_atol": GATOL,
+                                            "grad_rtol": GRTOL},
+           "n": NODE_CAP, "slots": int(snd.shape[0]), "n_edges": n_edges,
+           "cases": cases, "seconds": time.perf_counter() - t0}
+    if not _width_ok(cases):
+        raise AssertionError(f"a width case failed: {json.dumps(out)}")
+    return out
+
+
+def width_subentries(widths: dict) -> dict:
+    """Per kernel row of the kernels line, its readings at each width."""
+    keep = ("max_abs_err", "ms", "device_ms", "bound_ms", "bound_3xtf32_ms")
+    rows = {"edge_pathway_fused": ("edge_pair", "edge", "fwd"),
+            "edge_pathway_bwd_fused": ("edge_pair", "edge", "bwd"),
+            "virtual_pathway_fused": ("virtual_pair", None, "fwd"),
+            "virtual_pathway_bwd_fused": ("virtual_pair", None, "bwd"),
+            "edge_identity": ("edge_pair", "identity", "fwd"),
+            "edge_identity_bwd": ("edge_pair", "identity", "bwd")}
+    out = {}
+    for row, (pair, form, d) in rows.items():
+        sub = {}
+        for key, case in widths["cases"].items():
+            c = case.get(pair)
+            part = c if c is None or form is None else c.get(form)
+            if part is None:
+                continue
+            sub[key] = dict(route=c["route"],
+                            **{k: part[d][k] for k in keep if k in part[d]})
+        out[row] = sub
+    return out
+
+
+# ----------------------------------------------------------- hidden32 phase
+def phase_hidden32(scenes, tr, va, dev) -> dict:
+    """The reference's hidden-32 entry points on the card: the Table I
+    model's fit (first step against the plain path, bitwise repeatable),
+    the simulate model's rollouts through BatchedRolloutEngine against the
+    plain path with no steady-state fetch, and FastEGNN's E(3)
+    equivariance with the kernels at hidden 32 and 64."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.equivariant import (apply_e3, apply_o3,
+                                              random_orthogonal)
+    from repro_torch.kernels import edge_message, virtual_message
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.rollout import BatchedRolloutEngine
+    from repro_torch.training.trainer import TrainConfig
+
+    t0 = time.perf_counter()
+    tc = TrainConfig(epochs=1, lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA,
+                     mmd_sample=None)
+    pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                          train_cfg=tc,
+                          generator=torch.Generator().manual_seed(0),
+                          **TABLE1)
+    plain = build_pipeline("fast_egnn", device=dev, train_cfg=tc,
+                           params=pipe.params, **TABLE1)
+    first, step_s = first_step(pipe, plain, tr[0], tc)
+    edge_message.reset_launches()
+    virtual_message.reset_launches()
+    p, st = pipe.params, pipe.opt.init(pipe.params)
+    losses = []
+    for k in range(H32_FIT_STEPS):
+        p, st, mt = pipe.train_step(p, st, tr[k % len(tr)])
+        losses.append(float(mt["loss"]))
+    fit = {"model": TABLE1, "lam_mmd": LAM_MMD, "first_step": first,
+           "step_ms_kernel": 1e3 * step_s["kernel"],
+           "step_ms_plain": 1e3 * step_s["plain"], "losses": losses,
+           "launches": {
+               "edge_pathway_bwd_fused": edge_message.bwd_launches,
+               "virtual_pathway_bwd_fused": virtual_message.bwd_launches},
+           "routes": {"edge": dict(edge_message.route_launches),
+                      "virtual": dict(virtual_message.route_launches)}}
+    del pipe, plain
+
+    # the simulate model: the serve scenes, 20 steps, both paths; every
+    # step of the kernel rollout also runs the plain path on the same
+    # graph (its one-step error, gated), and the plain path rolls out on
+    # its own (the free-running gap, read)
+    sim = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                         generator=torch.Generator().manual_seed(0),
+                         **SIMULATE)
+    sim_plain = build_pipeline("fast_egnn", device=dev, params=sim.params,
+                               **SIMULATE)
+    step_errs = []
+
+    def paired(params, g, lay):
+        xk = sim.predict_fn(params, g, lay)
+        xp = sim_plain.predict_fn(params, g, lay)
+        step_errs.append(float((xk - xp)[g.node_mask > 0].abs().max()))
+        return xk
+
+    runs = {}
+    for name, fn in (("kernel", paired), ("plain", sim_plain.predict_fn)):
+        eng = BatchedRolloutEngine(
+            fn, batch_size=MAX_BATCH, node_cap=NODE_CAP,
+            edge_cap=NODE_CAP * EDGES_PER_NODE, r=R, skin=SKIN, dt=H32_DT,
+            wrap_box=BOX, device=dev)
+        edge_message.reset_launches()
+        virtual_message.reset_launches()
+        t1 = time.perf_counter()
+        res = eng.run(sim.params, scenes, STEPS)
+        runs[name] = (res, time.perf_counter() - t1,
+                      dict(edge_message.route_launches),
+                      dict(virtual_message.route_launches),
+                      {"edge_pathway_fused": edge_message.launches,
+                       "virtual_pathway_fused": virtual_message.launches})
+    res_k, res_p = runs["kernel"][0], runs["plain"][0]
+    # periodic distance of every frame, the largest over scenes per step
+    per_step = np.max([np.max(np.minimum(np.abs(a - b), BOX - np.abs(a - b)),
+                              axis=(1, 2))
+                       for a, b in zip(res_k.trajectories,
+                                       res_p.trajectories)], axis=0)
+    rollout = {"model": SIMULATE, "scenes": len(scenes), "steps": STEPS,
+               "dt": H32_DT, "frame_tol": FRAME_TOL,
+               "max_step_err": max(step_errs), "model_calls": len(step_errs),
+               "free_running_err_by_step": [float(v) for v in per_step],
+               "steady_state_d2h_bytes": res_k.steady_state_d2h_bytes,
+               "d2h_bytes": res_k.d2h_bytes,
+               "rebuilds": res_k.rebuild_count,
+               "chunk_calls": res_k.chunk_calls,
+               "discarded_steps": res_k.discarded_steps,
+               "s_kernel": runs["kernel"][1], "s_plain": runs["plain"][1],
+               "launches": runs["kernel"][4],
+               "routes": {"edge": runs["kernel"][2],
+                          "virtual": runs["kernel"][3]}}
+    del sim, sim_plain, runs
+
+    # E(3): rotate and translate the serve batch's first scene
+    equiv = {}
+    batch = serve_batch(scenes[:1], dev)
+    gen = torch.Generator().manual_seed(5)
+    rot = random_orthogonal(gen, device="cpu").to(dev)
+    shift = (3.0 * torch.randn((3,), generator=gen)).to(dev)
+    for hid in (32, 64):
+        pp = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                            generator=torch.Generator().manual_seed(1),
+                            n_layers=LAYERS, hidden=hid, n_virtual=3,
+                            s_dim=hid)
+        g, lay = batch
+        with torch.no_grad():
+            x1 = pp.predict_fn(pp.params, g, lay)
+            gt = g._replace(x=apply_e3(g.x, rot, shift),
+                            v=apply_o3(g.v, rot))
+            x2 = pp.predict_fn(pp.params, gt, lay)
+        real = g.node_mask > 0
+        err = float((x2 - apply_e3(x1, rot, shift))[real].abs().max())
+        scale = float(x1[real].abs().max())
+        equiv[str(hid)] = {"max_abs_err": err, "scale": scale,
+                           "within_tol": err <= EQUIV_TOL * (1.0 + scale)}
+        del pp
+    out = {"phase": "hidden32", "fit": fit, "rollout": rollout,
+           "equivariance": {"tol": EQUIV_TOL, "hidden": equiv},
+           "seconds": time.perf_counter() - t0}
+    ok = (first["ok"] and first["bitwise_repeatable"]
+          and all(math.isfinite(v) for v in losses)
+          and fit["routes"]["edge"].keys() == {"w32"}
+          and fit["routes"]["virtual"].keys() == {"w32"}
+          and max(step_errs) <= FRAME_TOL and per_step[0] <= FRAME_TOL
+          and res_k.steady_state_d2h_bytes == 0
+          and rollout["routes"]["edge"].keys() == {"w32"}
+          and all(e["within_tol"] for e in equiv.values()))
+    if not ok:
+        raise AssertionError(f"hidden32 phase failed: {json.dumps(out)}")
     return out
 
 
@@ -2021,8 +2535,10 @@ def main() -> int:
     plain = build_pipeline("fast_egnn", device=dev, params=pipe.params)
     emit({"phase": "setup", "scenes_s": time.perf_counter() - t0,
           "cfg": pipe.cfg._asdict()})
-    line, rows = phase_kernels(pipe, scenes, dev)
-    emit(line)
+    kline, rows = phase_kernels(pipe, scenes, dev)
+    emit(kline)
+    widths = phase_widths(scenes[0], dev)
+    emit(widths)
     serve = phase_serve(pipe, plain, scenes, dev)
     emit(serve)
     emit(phase_scale(pipe, dev))
@@ -2032,6 +2548,8 @@ def main() -> int:
     emit(zoo)
     train = phase_train(dev, tr, va, data_s)
     emit(train)
+    hidden32 = phase_hidden32(scenes, tr, va, dev)
+    emit(hidden32)
     del tr, va
     for row in rows:  # forward kernels: the serve run; the rest: training
         if row["name"] in ("edge_identity", "edge_identity_bwd"):
@@ -2075,6 +2593,13 @@ def main() -> int:
     swa_f32["launches"] = full["seeds"][str(FULL_SEEDS[0])]["launches"][
         "swa_attention_f32"]
     rows += lm_rows
+    # the hidden-32 readings: launches from the hidden32 phase's rollout
+    # (forwards) and fit (backwards)
+    h32_launches = {**hidden32["rollout"]["launches"],
+                    **hidden32["fit"]["launches"]}
+    h32_rows = {r["name"]: dict(r, launches=h32_launches.get(r["name"]))
+                for r in kline["hidden32"]}
+    width_rows = width_subentries(widths)
     print(gpu_line(), flush=True)
     # every row: the contract's keys; the SWA rows also their global
     # layer's numbers
@@ -2083,14 +2608,20 @@ def main() -> int:
             "global_layer", "bound_3xtf32_ms", "kernels_per_call",
             "device_ms", "host_us")
     # the MMD pair: also its readings at Fluid113K's size; the identity
-    # kernels at RF's form
-    subs = ("fluid113k", "rf_form")
+    # kernels at RF's form; the FastEGNN kernels at hidden 32 and at every
+    # width of the widths phase
+    for row in rows:
+        if row["name"] in h32_rows:
+            row["hidden32"] = h32_rows[row["name"]]
+        if row["name"] in width_rows:
+            row["widths"] = width_rows[row["name"]]
+    subs = ("fluid113k", "rf_form", "hidden32")
     for row in rows:
         for sub in subs:
             if sub in row:
                 row[sub] = {k: row[sub][k] for k in keys if k in row[sub]}
-    emit({"kernels": [{k: row[k] for k in keys + subs if k in row}
-                      for row in rows]})
+    emit({"kernels": [{k: row[k] for k in keys + subs + ("widths",)
+                       if k in row} for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -150,14 +150,63 @@ def dispatch_counts() -> dict[str, int]:
     return dict(DISPATCH_COUNTS)
 
 
+# The reference's kernel-dispatch budget, carried for parity of the
+# dispatch decision only: its Pallas edge kernel bounds its per-step VMEM
+# footprint, and a layer past that budget runs in jnp there, so here it
+# takes the plain path too.  Not a limit of the CUDA kernels, which take
+# any width.  Plain integer arithmetic, a copy of the reference's
+# `edge_kernel_vmem_bytes` and of what it reads of `pick_windows`.
+EDGE_KERNEL_VMEM_BUDGET = 12 * 2**20
+EDGE_KERNEL_BLOCK_E = 128
+_LANE = 128  # TPU lane width
+_DEFAULT_WINDOW = 512  # receiver-window rows
+_DEFAULT_SWINDOW = 4096  # sender-window rows
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pick_windows(n_nodes: int) -> tuple[int, int, int]:
+    """The reference's window policy ``(window, swindow, n_pad)`` for an
+    ``n_nodes`` graph (its ``kernels.edge_message.pick_windows`` at the
+    default band sizes)."""
+    base = _round_up(max(n_nodes, 1), _LANE)
+    swindow = min(_DEFAULT_SWINDOW, base)
+    window = swindow
+    for cand in (_DEFAULT_WINDOW, 256, _LANE):
+        if swindow % cand == 0:
+            window = min(window, cand) if swindow > cand else window
+            break
+    if swindow % window != 0:
+        window = swindow
+    return window, swindow, _round_up(max(n_nodes, 1), swindow)
+
+
+def edge_kernel_vmem_bytes(n_nodes: int, dh: int, h1: int, m: int,
+                           block_e: int = EDGE_KERNEL_BLOCK_E) -> int:
+    """The reference's per-grid-step VMEM footprint model of its banded
+    edge kernel (one-hots, double-buffered node windows, output blocks,
+    edge intermediates, weights)."""
+    window, swindow, _ = pick_windows(n_nodes)
+    f32 = 4
+    one_hots = block_e * (swindow + window) * f32
+    node_windows = 2 * (swindow + window) * (3 + dh) * f32
+    out_blocks = window * (3 + m + 1) * f32
+    edge_tmp = block_e * (3 + 1 + 2 * h1 + 2 * m) * f32
+    weights = (2 * dh * h1 + 2 * h1 + h1 * m + 2 * m + m * h1) * f32
+    return one_hots + node_windows + out_blocks + edge_tmp + weights
+
+
 def kernel_supported(lp: dict, g: GeometricGraph, spec: EdgeSpec) -> bool:
-    """The reference's kernel-dispatch rule, decided from the spec and the
-    parameter shapes only: 2-layer φ1 over ``[h_i | h_j | d²]``, a 2-layer
-    (or identity) gate and a masked-mean reduction.  Extra edge
-    attributes, other MLP depths and unnormalised sums take the plain
-    path on every device, as the reference's ``jnp`` path.  (The
-    reference's VMEM budget admits every width here; the CUDA kernels
-    take width 64 and raise on others.)"""
+    """The reference's kernel-dispatch rule, whole, decided from the spec,
+    the parameter shapes and the graph's node count: 2-layer φ1 over
+    ``[h_i | h_j | d²]``, a 2-layer (or identity) gate, a masked-mean
+    reduction, and widths inside the reference's VMEM budget
+    (:func:`edge_kernel_vmem_bytes`, with Dh = 1 where φ1 reads no
+    features).  Anything else takes the plain path on every device, as
+    the reference's ``jnp`` path.  The budget is kept for exact parity of
+    the dispatch decision; the CUDA kernels take every width."""
     if spec.use_edge_attr and g.edge_attr.shape[-1] > 0:
         return False
     if not spec.normalize:
@@ -166,7 +215,11 @@ def kernel_supported(lp: dict, g: GeometricGraph, spec: EdgeSpec) -> bool:
         return False
     if spec.gate == "mlp" and len(lp.get("gate", ())) != 2:
         return False
-    return True
+    w1 = lp["phi1"][0]["w"]
+    w2 = lp["phi1"][1]["w"]
+    dh = g.feat_dim if spec.use_h else 1
+    vmem = edge_kernel_vmem_bytes(g.n_nodes, dh, w1.shape[1], w2.shape[1])
+    return vmem <= EDGE_KERNEL_VMEM_BUDGET
 
 
 def _phi1_features(h: Tensor, d2: Tensor, snd: Tensor, rcv: Tensor,

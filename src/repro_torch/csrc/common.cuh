@@ -2,17 +2,26 @@
 // edge_message_bwd.cu, virtual_message.cu, virtual_message_bwd.cu).  Header
 // only; each including file gets its own copy inside an anonymous namespace.
 //
-// * A tile is 64 rows (nodes or edge slots) x 64 features of f32 in shared
-//   memory, row-major with an XOR swizzle of 16-byte granules
-//   (`swz`): element (r, c) lives at r*64 + (c ^ h(r)), h(r) =
-//   8 (r & 3) + (r & 4).  With it every fragment load of `tile_mma` --
-//   A or B, plain or transposed -- hits 32 distinct banks, so a matrix and
-//   its transpose are the same 16 KB, read in two layouts.
+// Everything is a template of the feature width W, 32 or 64: the kernels
+// are compiled once for each, with every weight resident in shared
+// memory.  A layer of another width is zero-padded up to the next of them
+// by the caller (exact: a zero row or column adds +0 to every sum), and
+// widths above 64 take the panel path of panel.cu, whose products are
+// this file's at W = 64.
+//
+// * A row tile is 64 rows (nodes or edge slots) x W features of f32 in
+//   shared memory, a weight tile W x W, both row-major with an XOR swizzle
+//   of 16-byte granules (`swz`): element (r, c) lives at r*W + (c ^ h(r)),
+//   h(r) = 8 (r & 3) + (r & 4) < 32.  With it every fragment load of
+//   `tile_mma` -- A or B, plain or transposed -- hits 32 distinct banks, so
+//   a matrix and its transpose are the same tile, read in two layouts.
 // * CTAs have 8 warps.  Warp w owns rows 16 (w & 3) .. +15 and columns
-//   32 (w >> 2) .. +31 of every 64 x 64 product: four m16n8 accumulator
-//   tiles, 16 floats a thread (`Frag`).  Lane (g = lane / 4, t = lane % 4)
-//   holds rows 16 (w & 3) + g (+ 8) and columns 32 (w >> 2) + 8 jn + 2 t
-//   (+ 1) of accumulator tile jn, the layout of mma.m16n8k8.
+//   (W/2) (w >> 2) .. +W/2-1 of every 64 x W product: W/16 m16n8
+//   accumulator tiles, W/4 floats a thread (`Frag`).  Lane (g = lane / 4,
+//   t = lane % 4) holds rows 16 (w & 3) + g (+ 8) and columns (W/2) (w >> 2)
+//   + 8 jn + 2 t (+ 1) of accumulator tile jn, the layout of mma.m16n8k8.
+//   A W x W product (a weight gradient, rows over the features) uses the
+//   warps whose rows fall inside it.
 // * `tile_mma` runs the products on the tensor cores with
 //   mma.sync.m16n8k8 in TF32, split three ways ("3xTF32"): each operand
 //   a = a_hi + a_lo, a_hi rounded to the nearest TF32 value and a_lo cut
@@ -37,15 +46,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tf32.cuh"
 
 namespace {
 
-constexpr int HID = 64;                  // every width of both pathways
 constexpr int TR = 64;                   // rows of a tile
-constexpr int TILE_F = TR * HID;         // floats of a tile
 constexpr int THREADS = 256;             // 8 warps
 constexpr unsigned FULL = 0xffffffffu;
+
+template <int W>
+constexpr int RT = TR * W;  // floats of a row tile
+template <int W>
+constexpr int WT = W * W;   // floats of a weight tile
+template <int W>
+constexpr int JN = W / 16;  // accumulator tiles of a warp
 
 // sigmoid with the fast exponential and division (relative error ~1e-6,
 // far inside the gradient tolerance); 0 where exp(-u) overflows
@@ -61,19 +77,21 @@ __device__ __forceinline__ void silu_both(float u, float& f, float& df) {
   df = s * (1.0f + u * (1.0f - s));
 }
 
-// offset of element (r, c) of a swizzled tile
+// offset of element (r, c) of a swizzled tile of width W
+template <int W>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * HID + (c ^ (((r & 3) << 3) | (r & 4)));
+  return r * W + (c ^ (((r & 3) << 3) | (r & 4)));
 }
 
-// this thread's place in the warp tiling of a 64 x 64 product
+// this thread's place in the warp tiling of a 64 x W product
 struct Lane {
   int rb, ch, g, t;
   __device__ __forceinline__ int row(int e) const {
     return 16 * rb + g + 8 * (e >> 1);
   }
+  template <int W>
   __device__ __forceinline__ int col(int jn, int e) const {
-    return 32 * ch + 8 * jn + 2 * t + (e & 1);
+    return (W / 2) * ch + 8 * jn + 2 * t + (e & 1);
   }
 };
 
@@ -82,78 +100,85 @@ __device__ __forceinline__ Lane lane_of() {
   return Lane{w & 3, w >> 2, l >> 2, l & 3};
 }
 
-typedef float Frag[4][4];
+template <int W>
+using Frag = float[JN<W>][4];
 
-__device__ __forceinline__ void frag_zero(Frag& a) {
+template <int W>
+__device__ __forceinline__ void frag_zero(Frag<W>& a) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < JN<W>; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[j][e] = 0.0f;
 }
 
-// acc += op(A) . op(B) over k = 0..63 (3xTF32 tensor-core MMAs), with
-// op(A)[m][k] = TA ? A[k][m] : A[m][k] and op(B)[k][n] = TB ? B[n][k] :
-// B[k][n]; A and B are swizzled tiles.
+// acc += op(A) . op(B) (3xTF32 tensor-core MMAs), with op(A)[m][k] = TA ?
+// A[k][m] : A[m][k] and op(B)[k][n] = TB ? B[n][k] : B[k][n]; A and B are
+// swizzled tiles of width W.  The products the kernels run: a row tile
+// times a weight tile or its transpose (k over the W features), and a row
+// tile's transpose times a row tile (TA: k over the 64 rows, a W x W
+// result, which only the warps with 16 (w & 3) < W compute).
 // STEP_SUM: each k-step's three MMAs start from zero and the step's sum
 // joins acc by an f32 add.  The tensor core rounds an MMA's result toward
-// zero, so the 24 MMAs of a product into one accumulator leave every
-// result a few ulp too small; a masked sum of thousands of them (the
-// forwards' ms / dz sums) adds that bias up past the forward tolerance.
-// With STEP_SUM the eight round-to-nearest adds carry the running sum;
-// it costs 16 adds a k-step.
-template <bool TA, bool TB, bool STEP_SUM = false>
-__device__ __forceinline__ void tile_mma(Frag& acc, const float* A,
+// zero, so the MMAs of a product into one accumulator leave every result
+// a few ulp too small; a masked sum of thousands of them (the forwards'
+// ms / dz sums) adds that bias up past the forward tolerance.  With
+// STEP_SUM the round-to-nearest adds carry the running sum; it costs
+// 4 W / 16 adds a k-step.
+template <int W, bool TA, bool TB, bool STEP_SUM = false>
+__device__ __forceinline__ void tile_mma(Frag<W>& acc, const float* A,
                                          const float* B, const Lane& L) {
+  constexpr int K = TA ? TR : W;
+  if (TA && 16 * L.rb >= W) return;  // rows past a W x W result
   // Offsets hoisted out of the k loop.  Row m & 7 = g for every row this
   // lane reads as a fixed row (m0, m0 + 8, n0 + 8 jn), and k & 7 = t or
   // t + 4 for every row it reads at k = kk + t (+ 4), so the swizzle of a
   // read splits into a per-lane constant and a per-step term: kk ^ (h & 24)
-  // along a fixed row, kk * 64 down a fixed column.
-  const int m0 = 16 * L.rb + L.g, n0 = 32 * L.ch + L.g;
+  // along a fixed row, kk * W down a fixed column.
+  const int m0 = 16 * L.rb + L.g, n0 = (W / 2) * L.ch + L.g;
   const int tk[2] = {L.t, L.t + 4};
   const int hg = ((L.g & 3) << 3) | (L.g & 4);
-  int a_off[2][2], b_off[4][2];  // [row i or tile jn][k half]
+  int a_off[2][2], b_off[JN<W>][2];  // [row i or tile jn][k half]
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int ht = ((tk[j] & 3) << 3) | (tk[j] & 4);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      a_off[i][j] = TA ? tk[j] * HID + ((m0 + 8 * i) ^ ht)
-                       : (m0 + 8 * i) * HID + (tk[j] ^ (hg & 4));
+      a_off[i][j] = TA ? tk[j] * W + ((m0 + 8 * i) ^ ht)
+                       : (m0 + 8 * i) * W + (tk[j] ^ (hg & 4));
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
-      b_off[jn][j] = TB ? (n0 + 8 * jn) * HID + (tk[j] ^ (hg & 4))
-                        : tk[j] * HID + ((n0 + 8 * jn) ^ ht);
+    for (int jn = 0; jn < JN<W>; ++jn)
+      b_off[jn][j] = TB ? (n0 + 8 * jn) * W + (tk[j] ^ (hg & 4))
+                        : tk[j] * W + ((n0 + 8 * jn) ^ ht);
   }
 #pragma unroll 2
-  for (int kk = 0; kk < HID; kk += 8) {
-    const int sa = TA ? kk * HID : (kk ^ (hg & 24));
-    const int sb = TB ? (kk ^ (hg & 24)) : kk * HID;
+  for (int kk = 0; kk < K; kk += 8) {
+    const int sa = TA ? kk * W : (kk ^ (hg & 24));
+    const int sb = TB ? (kk ^ (hg & 24)) : kk * W;
     const float av[4] = {A[a_off[0][0] + sa], A[a_off[1][0] + sa],
                          A[a_off[0][1] + sa], A[a_off[1][1] + sa]};
     uint32_t ah[4], al[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
-    uint32_t bh[4][2], bl[4][2];
+    uint32_t bh[JN<W>][2], bl[JN<W>][2];
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
+    for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
         split_tf32(B[b_off[jn][j] + sb], bh[jn][j], bl[jn][j]);
-    // the three passes in turn over the four accumulator tiles, so that
+    // the three passes in turn over the accumulator tiles, so that
     // consecutive MMAs are independent
-    Frag step;
-    if (STEP_SUM) frag_zero(step);
-    float(&d)[4][4] = STEP_SUM ? step : acc;
+    Frag<W> step;
+    if (STEP_SUM) frag_zero<W>(step);
+    float(&d)[JN<W>][4] = STEP_SUM ? step : acc;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) mma_tf32(d[jn], al, bh[jn]);
+    for (int jn = 0; jn < JN<W>; ++jn) mma_tf32(d[jn], al, bh[jn]);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) mma_tf32(d[jn], ah, bl[jn]);
+    for (int jn = 0; jn < JN<W>; ++jn) mma_tf32(d[jn], ah, bl[jn]);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) mma_tf32(d[jn], ah, bh[jn]);
+    for (int jn = 0; jn < JN<W>; ++jn) mma_tf32(d[jn], ah, bh[jn]);
     if (STEP_SUM) {
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[jn][e] += step[jn][e];
     }
@@ -161,88 +186,99 @@ __device__ __forceinline__ void tile_mma(Frag& acc, const float* A,
 }
 
 // tile[r][c] = v at this thread's fragment positions
-__device__ __forceinline__ void frag_store(float* tile, const Frag& v,
+template <int W>
+__device__ __forceinline__ void frag_store(float* tile, const Frag<W>& v,
                                            const Lane& L) {
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn)
+  for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(tile + swz(L.row(2 * h), L.col(jn, 0))) =
+      *reinterpret_cast<float2*>(tile + swz<W>(L.row(2 * h),
+                                               L.col<W>(jn, 0))) =
           make_float2(v[jn][2 * h], v[jn][2 * h + 1]);
 }
 
-// a row-major 64 x 64 matrix in device memory = v (a weight partial)
-__device__ __forceinline__ void frag_store_global(float* dst, const Frag& v,
+// a row-major W x W matrix in device memory = v (a weight partial, the
+// result of a TA product)
+template <int W>
+__device__ __forceinline__ void frag_store_global(float* dst,
+                                                  const Frag<W>& v,
                                                   const Lane& L) {
+  if (16 * L.rb >= W) return;
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn)
+  for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(dst + L.row(2 * h) * HID + L.col(jn, 0)) =
+      *reinterpret_cast<float2*>(dst + L.row(2 * h) * W + L.col<W>(jn, 0)) =
           make_float2(v[jn][2 * h], v[jn][2 * h + 1]);
 }
 
-// Row sums over this warp's 32 columns: red[ch * 64 + row] (caller syncs;
+// Row sums over this warp's W/2 columns: red[ch * 64 + row] (caller syncs;
 // the row's sum is red[row] + red[64 + row]).
-__device__ __forceinline__ void frag_rowsum(const Frag& v, const Lane& L,
+template <int W>
+__device__ __forceinline__ void frag_rowsum(const Frag<W>& v, const Lane& L,
                                             float* red) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float s = 0.0f;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) s += v[jn][2 * h] + v[jn][2 * h + 1];
+    for (int jn = 0; jn < JN<W>; ++jn) s += v[jn][2 * h] + v[jn][2 * h + 1];
     s += __shfl_xor_sync(FULL, s, 1);
     s += __shfl_xor_sync(FULL, s, 2);
-    if (L.t == 0) red[64 * L.ch + L.row(2 * h)] = s;
+    if (L.t == 0) red[TR * L.ch + L.row(2 * h)] = s;
   }
 }
 
 // Column sums over this warp's 16 rows: red[rb * 64 + col] (caller syncs;
 // the column's sum is red[col] + red[64 + col] + red[128 + col] +
 // red[192 + col], in that order: `colsum4`).
-__device__ __forceinline__ void frag_colsum(const Frag& v, const Lane& L,
+template <int W>
+__device__ __forceinline__ void frag_colsum(const Frag<W>& v, const Lane& L,
                                             float* red) {
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn)
+  for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float s = v[jn][e] + v[jn][e + 2];
       s += __shfl_xor_sync(FULL, s, 4);
       s += __shfl_xor_sync(FULL, s, 8);
       s += __shfl_xor_sync(FULL, s, 16);
-      if (L.g == 0) red[64 * L.rb + L.col(jn, e)] = s;
+      if (L.g == 0) red[TR * L.rb + L.col<W>(jn, e)] = s;
     }
 }
 
 __device__ __forceinline__ float colsum4(const float* red, int j) {
-  return ((red[j] + red[64 + j]) + red[128 + j]) + red[192 + j];
+  return ((red[j] + red[TR + j]) + red[2 * TR + j]) + red[3 * TR + j];
 }
 
-// Fill a swizzled tile from rows of a (rows x 64) array in device memory:
-// tile row i <- src[idx(i)] for i < n_rows with idx(i) >= 0, else zeros.
-// 16-byte loads, 16 threads a row.
-template <typename Idx>
+// Fill a swizzled row tile from rows of a (rows x W) array in device
+// memory: tile row i <- src[idx(i)] for i < 64 with idx(i) >= 0, else
+// zeros.  16-byte loads, W/4 threads a row.
+template <int W, typename Idx>
 __device__ __forceinline__ void tile_gather(float* tile, const float* src,
                                             Idx idx) {
-  for (int f = threadIdx.x; f < TR * HID / 4; f += blockDim.x) {
-    const int i = f >> 4, q = (f & 15) * 4;
+  constexpr int G = W / 4;
+  for (int f = threadIdx.x; f < TR * G; f += blockDim.x) {
+    const int i = f / G, q = (f % G) * 4;
     const int r = idx(i);
     const float4 v = r >= 0 ? *reinterpret_cast<const float4*>(
-                                  src + (size_t)r * HID + q)
+                                  src + (size_t)r * W + q)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(tile + swz(i, q)) = v;
+    *reinterpret_cast<float4*>(tile + swz<W>(i, q)) = v;
   }
 }
 
-// Asynchronous 16-byte copy of a row-major 64 x 64 matrix into a swizzled
-// tile (cp.async; the caller commits and waits).
+// Asynchronous 16-byte copy of a row-major W x W matrix into a swizzled
+// weight tile (cp.async; the caller commits and waits).
+template <int W>
 __device__ __forceinline__ void tile_load_async(float* tile, const float* src) {
-  for (int f = threadIdx.x; f < HID * HID / 4; f += blockDim.x) {
-    const int i = f >> 4, q = (f & 15) * 4;
+  constexpr int G = W / 4;
+  for (int f = threadIdx.x; f < W * G; f += blockDim.x) {
+    const int i = f / G, q = (f % G) * 4;
     const unsigned dst =
-        (unsigned)__cvta_generic_to_shared(tile + swz(i, q));
+        (unsigned)__cvta_generic_to_shared(tile + swz<W>(i, q));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src + i * HID + q));
+                 "l"(src + i * W + q));
   }
 }
 
@@ -298,7 +334,8 @@ __device__ __forceinline__ int slot_share(int live_end, int n_ctas) {
   return max(1, (live_end + n_ctas - 1) / n_ctas);
 }
 
-constexpr int PROJ_SMEM_FLOATS = 3 * TILE_F;
+template <int W>
+constexpr int PROJ_SMEM_FLOATS = RT<W> + 2 * WT<W>;
 
 // One CTA per 64 nodes: P = h.W1r, Q = h.W1s for them (3xTF32 tile
 // products), and rowof[s] = the receiver row of every slot s of their CSR
@@ -310,6 +347,7 @@ constexpr int PROJ_SMEM_FLOATS = 3 * TILE_F;
 // empty rows at the end.  Row r writes the entries b in (c(r - 1), c(r)],
 // c(r) = min(indptr[r] / share, n_ctas - 1), c(-1) = -1; row N writes
 // (c(N - 1), n_ctas].
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
           const float* __restrict__ w1s, const int* __restrict__ indptr,
@@ -318,14 +356,14 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
           int n_ctas) {
   extern __shared__ float4 smem4[];
   float* tH = reinterpret_cast<float*>(smem4);
-  float* sWr = tH + TILE_F;
-  float* sWs = sWr + TILE_F;
+  float* sWr = tH + RT<W>;
+  float* sWs = sWr + WT<W>;
   const int node0 = blockIdx.x * TR;
-  tile_load_async(sWr, w1r);
-  tile_load_async(sWs, w1s);
+  tile_load_async<W>(sWr, w1r);
+  tile_load_async<W>(sWs, w1s);
   async_commit();
-  tile_gather(tH, h,
-              [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  tile_gather<W>(tH, h,
+                 [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
   // warp w: rows node0 + 8 w .. + 7; lane l <= 8 holds indptr[node0 + 8 w + l]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = node0 + 8 * warp;
@@ -351,19 +389,20 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
   __syncthreads();
   const Lane L = lane_of();
   float* dst[2] = {P, Q};
-  const float* W[2] = {sWr, sWs};
+  const float* Wk[2] = {sWr, sWs};
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    Frag a;
-    frag_zero(a);
-    tile_mma<false, false>(a, tH, W[k], L);
+    Frag<W> a;
+    frag_zero<W>(a);
+    tile_mma<W, false, false>(a, tH, Wk[k], L);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
+    for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const int i = node0 + L.row(2 * h2);
         if (i < n_nodes)
-          *reinterpret_cast<float2*>(dst[k] + (size_t)i * HID + L.col(jn, 0)) =
+          *reinterpret_cast<float2*>(dst[k] + (size_t)i * W +
+                                     L.col<W>(jn, 0)) =
               make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
       }
   }
@@ -448,14 +487,24 @@ __device__ __forceinline__ void for_live_tiles(
 constexpr int NVEC = 7;
 enum { V_W1D = 0, V_C1, V_B2, V_BG1, V_WG2, V_BZ1, V_WZ2 };
 
-// dst[v * 64 + j] = vector v of channel c (cp.async; the caller commits)
+// dst[v * W + j] = vector v of channel c (cp.async; the caller commits)
+template <int W>
 __device__ __forceinline__ void load_virtual_vecs(
     float* dst, int c, const float* w1d, const float* c1, const float* b2,
     const float* bg1, const float* wg2, const float* bz1, const float* wz2) {
   const float* src[NVEC] = {w1d, c1, b2, bg1, wg2, bz1, wz2};
 #pragma unroll
   for (int v = 0; v < NVEC; ++v)
-    vec_load_async(dst + v * HID, src[v] + (size_t)c * HID, HID);
+    vec_load_async(dst + v * W, src[v] + (size_t)c * W, W);
+}
+
+// Calls fn.template operator()<W>() for the compiled width W == width;
+// cudaErrorInvalidValue for any other (the host entry points' dispatch)
+template <typename Fn>
+int with_width(int width, Fn&& fn) {
+  if (width == 32) return fn(std::integral_constant<int, 32>());
+  if (width == 64) return fn(std::integral_constant<int, 64>());
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -4,9 +4,13 @@
 // width-1 message is the gate) and `edge_pathway_bwd_fused`
 // (`_edge_bwd_common`, `g_msg += g_gate`) of the JAX package's
 // kernels/edge_message.py.  RF runs it with a zero feature column (Dh = 1,
-// rel 'inv1p'), SchNet's Eq. 13 coordinate head with Dh = 64 (rel 'raw');
-// both with H1 = 64 and M = 1, over the receiver-sorted CSR layout of the
-// port (`indptr`, N+1 row offsets into the slot arrays).
+// rel 'inv1p'), SchNet's Eq. 13 coordinate head with Dh = hidden (rel
+// 'raw'); both with H1 = hidden and M = 1, over the receiver-sorted CSR
+// layout of the port (`indptr`, N+1 row offsets into the slot arrays).
+// Any Dh, and H1 up to 32 MAX_NJ: a lane holds columns lane + 32 j, j <
+// NJ (NJ = 1, 2, 4, 8, 16 or 24, the fewest that hold H1; compiled with
+// the width a constant where H1 = 32 NJ, columns past H1 read as zeros
+// and add +0 otherwise).
 //
 // Per receiver r and live slot e = (r <- s) (em[e] != 0), in slot order:
 //   pre1 = ((P_r + Q_s) + d2 w1d) + b1     P = h.W1r, Q = h.W1s  (64)
@@ -16,10 +20,10 @@
 //   rel_used = rel, or rel / (sqrt(d2 + 1e-12) + 1) ('inv1p')
 // then mh and dx are divided by max(deg, 1).
 //
-// With M = 1 the second product is a 64-long dot per edge, so there is no
+// With M = 1 the second product is an H1-long dot per edge, so there is no
 // tile product to give to the tensor cores: the kernels run on the FP32
-// units.  One warp owns one receiver row at a time (lane l holds columns l
-// and l + 32); it reads 32 slots' masks and senders at once, ballots the
+// units.  One warp owns one receiver row at a time (lane l holds columns l,
+// l + 32, ...); it reads 32 slots' masks and senders at once, ballots the
 // live ones and walks them in slot order, the dot product a fixed xor
 // butterfly (every lane ends with the same bits).  A row's sums start from
 // zero and add its live edges one at a time, so each output depends on its
@@ -33,10 +37,12 @@
 // each live edge's forward, backpropagates as `_edge_bwd_common` does
 // (upstream u = g_*[r] / max(deg_r, 1) em; the clip passes the gradient
 // inside [-clamp, clamp], bounds included; 'inv1p' adds the
-// -(kf^2 / 2 sd) (g_rel_used . rel) term to g_d2), stores g_pre1 (64) and
+// -(kf^2 / 2 sd) (g_rel_used . rel) term to g_d2), stores g_pre1 (H1) and
 // g_rel (3) per live slot, and sums per row G_r = sum g_pre1, the
 // receiver half of gx and the row's W2, w1d and b2 gradient partials;
-// idn_bwd_nodes, one CTA per 64 nodes, which adds each node's sender
+// idn_bwd_nodes, one CTA per tile of 64 nodes (fewer where the tile's
+// rows would not fit shared memory beside the weights, which are then
+// read from device memory: `node_plan`), which adds each node's sender
 // segment (the `csr_sender_perm` order), forms gh = G.W1r^T + S.W1s^T and
 // the tile's W1r, W1s, b1, W2, w1d and b2 partials in node order; and
 // idn_bwd_reduce, which adds the tiles' partials in tile order.  The
@@ -53,15 +59,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 namespace {
 
-constexpr int H1 = 64;             // phi1's hidden width
 constexpr int WARPS = 8;           // warps a CTA
 constexpr int THREADS = 32 * WARPS;
-constexpr int TILE_N = 64;         // nodes of a node-pass tile
-constexpr int RPW = 2 * H1 + 4;    // row partials: W2 (64) | w1d (64) | b2
-constexpr int PAD = H1 + 1;        // padded shared rows (no bank conflicts)
+constexpr int TILE_N = 64;         // nodes of a node-pass tile (at most)
+constexpr int MAX_NJ = 24;         // columns a lane: H1 <= 32 MAX_NJ
+constexpr size_t SMEM_MAX = 227 * 1024;  // shared memory a CTA can have
 constexpr unsigned FULL = 0xffffffffu;
+
+// row partials of the backward: W2 (h1) | w1d (h1) | b2 | 3 pad
+__host__ __device__ inline int rp_width(int h1) { return 2 * h1 + 4; }
 
 __device__ __forceinline__ float sigm(float u) {
   return 1.0f / (1.0f + expf(-u));
@@ -76,18 +87,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // P = h.W1r, Q = h.W1s: one thread a (node, column), a Dh-long dot in k
 // order
+template <int NJ, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 idn_proj(const float* __restrict__ h, const float* __restrict__ w1r,
          const float* __restrict__ w1s, float* __restrict__ P,
-         float* __restrict__ Q, int n_nodes, int dh) {
+         float* __restrict__ Q, int n_nodes, int dh, int h1_) {
+  const int h1 = EXACT ? 32 * NJ : h1_;
   const long long f = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (f >= (long long)n_nodes * H1) return;
-  const int n = (int)(f / H1), c = (int)(f % H1);
+  if (f >= (long long)n_nodes * h1) return;
+  const int n = (int)(f / h1), c = (int)(f % h1);
   float p = 0.0f, q = 0.0f;
   for (int k = 0; k < dh; ++k) {
     const float hv = h[(size_t)n * dh + k];
-    p = fmaf(hv, w1r[k * H1 + c], p);
-    q = fmaf(hv, w1s[k * H1 + c], q);
+    p = fmaf(hv, w1r[(size_t)k * h1 + c], p);
+    q = fmaf(hv, w1s[(size_t)k * h1 + c], q);
   }
   P[f] = p;
   Q[f] = q;
@@ -98,11 +111,25 @@ struct Edge {
   float rel[3], d2, msg;
 };
 
+// lane's columns c = lane + 32 j, j < NJ; columns past h1 read as zeros
+// (and add +0 to every sum)
+template <int NJ, bool EXACT>
+__device__ __forceinline__ void load_cols(float (&dst)[NJ],
+                                          const float* __restrict__ src,
+                                          int lane, int h1) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = lane + 32 * j;
+    dst[j] = EXACT || c < h1 ? src[c] : 0.0f;
+  }
+}
+
+template <int NJ, bool EXACT>
 __device__ __forceinline__ void edge_forward(
     const float* __restrict__ x, const float* __restrict__ Q, int s,
-    const float (&xr)[3], const float (&p)[2], const float (&w1d)[2],
-    const float (&b1)[2], const float (&w2)[2], float b2, int lane, Edge& e,
-    float (&t)[2], float (&dt)[2], bool want_dt) {
+    const float (&xr)[3], const float (&p)[NJ], const float (&w1d)[NJ],
+    const float (&b1)[NJ], const float (&w2)[NJ], float b2, int lane, int h1,
+    Edge& e, float (&t)[NJ], float (&dt)[NJ], bool want_dt) {
   e.rel[0] = xr[0] - x[3 * s];
   e.rel[1] = xr[1] - x[3 * s + 1];
   e.rel[2] = xr[2] - x[3 * s + 2];
@@ -111,10 +138,10 @@ __device__ __forceinline__ void edge_forward(
                    __fmul_rn(e.rel[2], e.rel[2]));
   float part = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const int c = lane + 32 * j;
-    const float u =
-        ((p[j] + Q[(size_t)s * H1 + c]) + e.d2 * w1d[j]) + b1[j];
+    const float qv = EXACT || c < h1 ? Q[(size_t)s * h1 + c] : 0.0f;
+    const float u = ((p[j] + qv) + e.d2 * w1d[j]) + b1[j];
     const float sg = sigm(u);
     t[j] = u * sg;
     if (want_dt) dt[j] = sg * (1.0f + u * (1.0f - sg));
@@ -147,6 +174,7 @@ __device__ __forceinline__ float clip(float g, float clamp) {
   return g < -clamp ? -clamp : (g > clamp ? clamp : g);  // NaN stays
 }
 
+template <int NJ, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              const float* __restrict__ em, const int* __restrict__ indptr,
@@ -154,24 +182,28 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              const float* __restrict__ w1d_g, const float* __restrict__ b1_g,
              const float* __restrict__ w2_g, const float* __restrict__ b2_g,
              float* __restrict__ dx, float* __restrict__ mh,
-             float* __restrict__ deg, int n_nodes, int rel_inv1p,
+             float* __restrict__ deg, int n_nodes, int h1_, int rel_inv1p,
              float clamp) {
+  const int h1 = EXACT ? 32 * NJ : h1_;
   const int lane = threadIdx.x & 31;
   const int warp0 = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * WARPS;
-  const float w1d[2] = {w1d_g[lane], w1d_g[lane + 32]};
-  const float b1[2] = {b1_g[lane], b1_g[lane + 32]};
-  const float w2[2] = {w2_g[lane], w2_g[lane + 32]};
+  float w1d[NJ], b1[NJ], w2[NJ];
+  load_cols<NJ, EXACT>(w1d, w1d_g, lane, h1);
+  load_cols<NJ, EXACT>(b1, b1_g, lane, h1);
+  load_cols<NJ, EXACT>(w2, w2_g, lane, h1);
   const float b2 = b2_g[0];
   for (int r = warp0; r < n_nodes; r += n_warps) {
     const float xr[3] = {x[3 * r], x[3 * r + 1], x[3 * r + 2]};
-    const float p[2] = {P[(size_t)r * H1 + lane], P[(size_t)r * H1 + lane + 32]};
+    float p[NJ];
+    load_cols<NJ, EXACT>(p, P + (size_t)r * h1, lane, h1);
     float a = 0.0f, dg = 0.0f, d[3] = {0.0f, 0.0f, 0.0f};
     for_live_slots(em, snd, indptr[r], indptr[r + 1], lane,
                    [&](int, float m, int s) {
       Edge e;
-      float t[2], dt[2];
-      edge_forward(x, Q, s, xr, p, w1d, b1, w2, b2, lane, e, t, dt, false);
+      float t[NJ], dt[NJ];
+      edge_forward<NJ, EXACT>(x, Q, s, xr, p, w1d, b1, w2, b2, lane, h1, e, t, dt,
+                       false);
       const float g = clip(e.msg, clamp);
       const float kd = rel_inv1p ? sqrtf(e.d2 + 1e-12f) + 1.0f : 1.0f;
 #pragma unroll
@@ -192,8 +224,9 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
 }
 
 // Backward, per receiver row: each live edge's g_pre1 and g_rel into
-// GPRE1 / GREL (slot-indexed), and the row's sums: G (64), the receiver
-// half of gx (3) and the partials W2 (64) | w1d (64) | b2 of RP.
+// GPRE1 / GREL (slot-indexed), and the row's sums: G (h1), the receiver
+// half of gx (3) and the partials W2 (h1) | w1d (h1) | b2 of RP.
+template <int NJ, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              const float* __restrict__ em, const int* __restrict__ indptr,
@@ -204,27 +237,34 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              const float* __restrict__ gmh, float* __restrict__ GPRE1,
              float* __restrict__ GREL, float* __restrict__ G,
              float* __restrict__ GXR, float* __restrict__ RP, int n_nodes,
-             int rel_inv1p, float clamp) {
+             int h1_, int rel_inv1p, float clamp) {
+  const int h1 = EXACT ? 32 * NJ : h1_;
   const int lane = threadIdx.x & 31;
   const int warp0 = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * WARPS;
-  const float w1d[2] = {w1d_g[lane], w1d_g[lane + 32]};
-  const float b1[2] = {b1_g[lane], b1_g[lane + 32]};
-  const float w2[2] = {w2_g[lane], w2_g[lane + 32]};
+  const int rpw = rp_width(h1);
+  float w1d[NJ], b1[NJ], w2[NJ];
+  load_cols<NJ, EXACT>(w1d, w1d_g, lane, h1);
+  load_cols<NJ, EXACT>(b1, b1_g, lane, h1);
+  load_cols<NJ, EXACT>(w2, w2_g, lane, h1);
   const float b2 = b2_g[0];
   for (int r = warp0; r < n_nodes; r += n_warps) {
     const float xr[3] = {x[3 * r], x[3 * r + 1], x[3 * r + 2]};
-    const float p[2] = {P[(size_t)r * H1 + lane], P[(size_t)r * H1 + lane + 32]};
+    float p[NJ];
+    load_cols<NJ, EXACT>(p, P + (size_t)r * h1, lane, h1);
     const float inv = 1.0f / fmaxf(deg[r], 1.0f);
     const float gm = gmh[r];
     const float gd[3] = {gdx[3 * r], gdx[3 * r + 1], gdx[3 * r + 2]};
-    float sG[2] = {0.0f, 0.0f}, sW2[2] = {0.0f, 0.0f}, sW1d[2] = {0.0f, 0.0f};
+    float sG[NJ], sW2[NJ], sW1d[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) sG[j] = sW2[j] = sW1d[j] = 0.0f;
     float sB2 = 0.0f, gxr = 0.0f;  // lane k < 3: component k
     for_live_slots(em, snd, indptr[r], indptr[r + 1], lane,
                    [&](int slot, float m, int s) {
       Edge e;
-      float t[2], dt[2];
-      edge_forward(x, Q, s, xr, p, w1d, b1, w2, b2, lane, e, t, dt, true);
+      float t[NJ], dt[NJ];
+      edge_forward<NJ, EXACT>(x, Q, s, xr, p, w1d, b1, w2, b2, lane, h1, e, t, dt,
+                       true);
       const float sc = inv * m;
       float u[3], ru[3], kf = 1.0f, sd = 0.0f;
       if (rel_inv1p) {
@@ -240,9 +280,9 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
       float g_gate = u[0] * ru[0] + u[1] * ru[1] + u[2] * ru[2];
       if (!(e.msg >= -clamp && e.msg <= clamp)) g_gate = 0.0f;
       const float g_msg = gm * sc + g_gate;
-      float gp[2], gwd = 0.0f;
+      float gp[NJ], gwd = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         gp[j] = __fmul_rn(g_msg * w2[j], dt[j]);
         gwd = fmaf(gp[j], w1d[j], gwd);
       }
@@ -259,8 +299,9 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
 #pragma unroll
       for (int k = 0; k < 3; ++k) gr[k] += 2.0f * e.rel[k] * g_d2;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        GPRE1[(size_t)slot * H1 + lane + 32 * j] = gp[j];
+      for (int j = 0; j < NJ; ++j) {
+        if (EXACT || lane + 32 * j < h1)
+          GPRE1[(size_t)slot * h1 + lane + 32 * j] = gp[j];
         sG[j] += gp[j];
         sW2[j] += __fmul_rn(t[j], g_msg);
         sW1d[j] += __fmul_rn(e.d2, gp[j]);
@@ -273,23 +314,49 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
       }
     });
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      G[(size_t)r * H1 + lane + 32 * j] = sG[j];
-      RP[(size_t)r * RPW + lane + 32 * j] = sW2[j];
-      RP[(size_t)r * RPW + H1 + lane + 32 * j] = sW1d[j];
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      if (EXACT || c < h1) {
+        G[(size_t)r * h1 + c] = sG[j];
+        RP[(size_t)r * rpw + c] = sW2[j];
+        RP[(size_t)r * rpw + h1 + c] = sW1d[j];
+      }
     }
-    if (lane == 0) RP[(size_t)r * RPW + 2 * H1] = sB2;
+    if (lane == 0) RP[(size_t)r * rpw + 2 * h1] = sB2;
     if (lane < 3) GXR[(size_t)r * 4 + lane] = gxr;
   }
 }
 
-// the tile's partials: W1r (dh x 64) | W1s (dh x 64) | b1 | W2 | w1d | b2
-__host__ __device__ inline int pn_width(int dh) {
-  return 2 * dh * H1 + 3 * H1 + 1;
+// the tile's partials: W1r (dh x h1) | W1s (dh x h1) | b1 | W2 | w1d | b2
+__host__ __device__ inline long long pn_width(int dh, int h1) {
+  return 2LL * dh * h1 + 3LL * h1 + 1;
 }
 
-// CTA per 64 nodes: each node's sender segment S (and the sender half of
-// gx), gh = G.W1r^T + S.W1s^T, then the tile's partials in node order.
+// The node pass's layout: weights in shared memory when they fit beside
+// 64-node tiles (else read from device memory), and the node tile as large
+// as shared memory admits, at most 64 nodes.
+struct NodePlan {
+  int tn;      // nodes a tile
+  bool wsm;    // W1r / W1s in shared memory
+  size_t smem; // bytes
+};
+
+NodePlan node_plan(int dh, int h1) {
+  const size_t pad = (size_t)h1 + 1;
+  auto bytes = [&](int tn, bool wsm) {
+    return ((wsm ? 2 * (size_t)dh * pad : 0) + 2 * (size_t)tn * pad +
+            (size_t)tn * dh) * sizeof(float);
+  };
+  if (bytes(TILE_N, true) <= SMEM_MAX) return {TILE_N, true, bytes(TILE_N, true)};
+  int tn = TILE_N;
+  while (tn > 1 && bytes(tn, false) > SMEM_MAX) tn /= 2;
+  return {tn, false, bytes(tn, false)};
+}
+
+// CTA per tile of tn nodes: each node's sender segment S (and the sender
+// half of gx), gh = G.W1r^T + S.W1s^T, then the tile's partials in node
+// order.
+template <int NJ, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
               const int* __restrict__ sperm, const int* __restrict__ sptr,
@@ -298,30 +365,36 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
               const float* __restrict__ G, const float* __restrict__ GXR,
               const float* __restrict__ RP, float* __restrict__ gx,
               float* __restrict__ gh, float* __restrict__ PN, int n_nodes,
-              int dh) {
+              int dh, int h1_, int tn, int wsm) {
+  const int h1 = EXACT ? 32 * NJ : h1_;
   extern __shared__ float smem[];
-  float* sWr = smem;              // [dh][PAD]
-  float* sWs = sWr + dh * PAD;    // [dh][PAD]
-  float* sG = sWs + dh * PAD;     // [64][PAD]
-  float* sS = sG + TILE_N * PAD;  // [64][PAD]
-  float* sH = sS + TILE_N * PAD;  // [64][dh]
+  const int pad = h1 + 1, rpw = rp_width(h1);
+  // [dh][pad] each when wsm, else read in place with row stride h1
+  float* sWr = smem;
+  float* sWs = sWr + (wsm ? dh * pad : 0);
+  float* sG = sWs + (wsm ? dh * pad : 0);  // [tn][pad]
+  float* sS = sG + tn * pad;               // [tn][pad]
+  float* sH = sS + tn * pad;               // [tn][dh]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int node0 = blockIdx.x * TILE_N;
-  for (int f = tid; f < dh * H1; f += THREADS) {
-    sWr[(f / H1) * PAD + f % H1] = w1r[f];
-    sWs[(f / H1) * PAD + f % H1] = w1s[f];
+  const int node0 = blockIdx.x * tn;
+  if (wsm) {
+    for (int f = tid; f < dh * h1; f += THREADS) {
+      sWr[(f / h1) * pad + f % h1] = w1r[f];
+      sWs[(f / h1) * pad + f % h1] = w1s[f];
+    }
   }
-  for (int f = tid; f < TILE_N * dh; f += THREADS) {
+  for (int f = tid; f < tn * dh; f += THREADS) {
     const int i = node0 + f / dh;
     sH[f] = i < n_nodes ? h[(size_t)i * dh + f % dh] : 0.0f;
   }
   __syncthreads();
-  for (int li = warp; li < TILE_N; li += WARPS) {
+  for (int li = warp; li < tn; li += WARPS) {
     const int i = node0 + li;
-    float S[2] = {0.0f, 0.0f}, gxs = 0.0f, Gv[2] = {0.0f, 0.0f};
+    float S[NJ], Gv[NJ], gxs = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) S[j] = Gv[j] = 0.0f;
     if (i < n_nodes) {
-      Gv[0] = G[(size_t)i * H1 + lane];
-      Gv[1] = G[(size_t)i * H1 + lane + 32];
+      load_cols<NJ, EXACT>(Gv, G + (size_t)i * h1, lane, h1);
       const int p1 = sptr[i + 1];
       for (int b = sptr[i]; b < p1; b += 32) {
         const int p = b + lane;
@@ -331,47 +404,62 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
           const int k = __ffs(live) - 1;
           live &= live - 1;
           const int sl = __shfl_sync(FULL, slot, k);
-          S[0] += GPRE1[(size_t)sl * H1 + lane];
-          S[1] += GPRE1[(size_t)sl * H1 + lane + 32];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            if (EXACT || lane + 32 * j < h1)
+              S[j] += GPRE1[(size_t)sl * h1 + lane + 32 * j];
           if (lane < 3) gxs -= GREL[(size_t)sl * 4 + lane];
         }
       }
       if (lane < 3) gx[3 * i + lane] = GXR[(size_t)i * 4 + lane] + gxs;
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      sG[li * PAD + lane + 32 * j] = Gv[j];
-      sS[li * PAD + lane + 32 * j] = S[j];
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      if (EXACT || c < h1) {
+        sG[li * pad + c] = Gv[j];
+        sS[li * pad + c] = S[j];
+      }
     }
     __syncwarp();
-    if (i < n_nodes) {
+    // gh = G.W1r^T + S.W1s^T, the weights read where they are (one copy
+    // of the loop each, so that the shared one stays a shared access)
+    auto gh_row = [&](const float* Wr, const float* Ws, int wstride) {
       for (int k = lane; k < dh; k += 32) {
         float a = 0.0f;
-        for (int c = 0; c < H1; ++c) a = fmaf(sG[li * PAD + c], sWr[k * PAD + c], a);
-        for (int c = 0; c < H1; ++c) a = fmaf(sS[li * PAD + c], sWs[k * PAD + c], a);
+        for (int c = 0; c < h1; ++c)
+          a = fmaf(sG[li * pad + c], Wr[(size_t)k * wstride + c], a);
+        for (int c = 0; c < h1; ++c)
+          a = fmaf(sS[li * pad + c], Ws[(size_t)k * wstride + c], a);
         gh[(size_t)i * dh + k] = a;
       }
+    };
+    if (i < n_nodes) {
+      if (wsm) gh_row(sWr, sWs, pad);
+      else gh_row(w1r, w1s, h1);
     }
   }
   __syncthreads();
-  const int pw = pn_width(dh);
+  // (fewer than 2^31 entries: the widths are capped at 32 MAX_NJ)
+  const int pw = (int)pn_width(dh, h1);
   float* out = PN + (size_t)blockIdx.x * pw;
-  const int nn = min(TILE_N, n_nodes - node0);
+  const int nn = min(tn, n_nodes - node0);
+  const int dw = dh * h1;
   for (int f = tid; f < pw; f += THREADS) {
     float a = 0.0f;
-    if (f < 2 * dh * H1) {
-      const float* T = f < dh * H1 ? sG : sS;
-      const int q = f < dh * H1 ? f : f - dh * H1;
-      const int k = q / H1, c = q % H1;
+    if (f < 2 * dw) {
+      const float* T = f < dw ? sG : sS;
+      const int q = f < dw ? f : f - dw;
+      const int k = q / h1, c = q % h1;
       for (int li = 0; li < nn; ++li)
-        a = fmaf(sH[li * dh + k], T[li * PAD + c], a);
-    } else if (f < 2 * dh * H1 + H1) {  // b1: sum of G
-      const int c = f - 2 * dh * H1;
-      for (int li = 0; li < nn; ++li) a += sG[li * PAD + c];
+        a = fmaf(sH[li * dh + k], T[li * pad + c], a);
+    } else if (f < 2 * dw + h1) {  // b1: sum of G
+      const int c = f - 2 * dw;
+      for (int li = 0; li < nn; ++li) a += sG[li * pad + c];
     } else {  // W2 | w1d | b2: the rows' partials
-      const int q = f - 2 * dh * H1 - H1;
+      const int q = f - 2 * dw - h1;
       for (int li = 0; li < nn; ++li)
-        a += RP[(size_t)(node0 + li) * RPW + q];
+        a += RP[(size_t)(node0 + li) * rpw + q];
     }
     out[f] = a;
   }
@@ -383,25 +471,50 @@ struct Outs {
 
 // every weight gradient: the tiles' partials added in tile order
 __global__ void idn_bwd_reduce(const float* __restrict__ PN, Outs o,
-                               int n_tiles, int dh) {
-  const int pw = pn_width(dh);
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+                               int n_tiles, int dh, int h1) {
+  const long long pw = pn_width(dh, h1);
+  const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= pw) return;
   float a = 0.0f;
   for (int t = 0; t < n_tiles; ++t) a += PN[(size_t)t * pw + f];
-  const int dw = dh * H1;
+  const long long dw = (long long)dh * h1;
   if (f < dw) o.gw1r[f] = a;
   else if (f < 2 * dw) o.gw1s[f - dw] = a;
-  else if (f < 2 * dw + H1) o.gb1[f - 2 * dw] = a;
-  else if (f < 2 * dw + 2 * H1) o.gw2[f - 2 * dw - H1] = a;
-  else if (f < 2 * dw + 3 * H1) o.gw1d[f - 2 * dw - 2 * H1] = a;
+  else if (f < 2 * dw + h1) o.gb1[f - 2 * dw] = a;
+  else if (f < 2 * dw + 2 * h1) o.gw2[f - 2 * dw - h1] = a;
+  else if (f < 2 * dw + 3 * h1) o.gw1d[f - 2 * dw - 2 * h1] = a;
   else o.gb2[0] = a;
 }
 
 size_t round4(size_t v) { return (v + 3) & ~size_t(3); }
-int node_tiles(int n) { return (n + TILE_N - 1) / TILE_N; }
 int row_blocks(int n, int n_ctas) {
   return n_ctas > 0 ? n_ctas : (n + WARPS - 1) / WARPS;
+}
+
+// the instantiation for h1: the fewest columns a lane that hold it
+int lane_cols(int h1) {
+  for (int nj : {1, 2, 4, 8, 16, MAX_NJ})
+    if (h1 <= 32 * nj) return nj;
+  return 0;
+}
+
+// fn(NJ, EXACT) for h1: EXACT when h1 = 32 NJ, its width then a constant
+template <typename Fn>
+int with_cols(int h1, Fn&& fn) {
+  using std::integral_constant;
+  const bool exact = h1 == 32 * lane_cols(h1);
+  auto go = [&](auto nj) {
+    return exact ? fn(nj, std::true_type()) : fn(nj, std::false_type());
+  };
+  switch (lane_cols(h1)) {
+    case 1: return go(integral_constant<int, 1>());
+    case 2: return go(integral_constant<int, 2>());
+    case 4: return go(integral_constant<int, 4>());
+    case 8: return go(integral_constant<int, 8>());
+    case 16: return go(integral_constant<int, 16>());
+    case MAX_NJ: return go(integral_constant<int, MAX_NJ>());
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 struct Scratch {
@@ -409,7 +522,7 @@ struct Scratch {
   size_t total;
 };
 
-Scratch carve(float* base, int n, int e, int dh, bool backward) {
+Scratch carve(float* base, int n, int e, int dh, int h1, bool backward) {
   Scratch s{};
   size_t off = 0;
   auto take = [&](size_t count) {
@@ -417,31 +530,37 @@ Scratch carve(float* base, int n, int e, int dh, bool backward) {
     off += round4(count);
     return p;
   };
-  s.P = take((size_t)n * H1);
-  s.Q = take((size_t)n * H1);
+  s.P = take((size_t)n * h1);
+  s.Q = take((size_t)n * h1);
   if (backward) {
-    s.G = take((size_t)n * H1);
+    const int tn = node_plan(dh, h1).tn;
+    s.G = take((size_t)n * h1);
     s.GXR = take((size_t)n * 4);
-    s.RP = take((size_t)n * RPW);
-    s.GPRE1 = take((size_t)e * H1);
+    s.RP = take((size_t)n * rp_width(h1));
+    s.GPRE1 = take((size_t)e * h1);
     s.GREL = take((size_t)e * 4);
-    s.PN = take((size_t)node_tiles(n) * pn_width(dh));
+    s.PN = take((size_t)((n + tn - 1) / tn) * pn_width(dh, h1));
   }
   s.total = off;
   return s;
 }
 
-int check_shape(int dh, int n_ctas) {
-  if ((dh != 1 && dh != H1) || n_ctas < 0) return (int)cudaErrorInvalidValue;
+int check_shape(int dh, int h1, int n_ctas) {
+  if (dh < 1 || lane_cols(h1) == 0 || n_ctas < 0)
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
 extern "C" long long idn_scratch_floats(int n_nodes, int n_slots, int dh,
-                                        int backward) {
-  return (long long)carve(nullptr, n_nodes, n_slots, dh, backward != 0).total;
+                                        int h1, int backward) {
+  return (long long)carve(nullptr, n_nodes, n_slots, dh, h1, backward != 0)
+      .total;
 }
+
+// the widest phi1 hidden width the kernels take
+extern "C" int idn_max_width() { return 32 * MAX_NJ; }
 
 // n_ctas: CTAs of the row passes (0: one warp a row); any count gives the
 // same bits
@@ -449,21 +568,26 @@ extern "C" int edge_identity_forward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const float* w1r, const float* w1s, const float* w1d,
     const float* b1, const float* w2, const float* b2, float* dx, float* mh,
-    float* deg, float* scratch, int n_nodes, int n_slots, int dh,
+    float* deg, float* scratch, int n_nodes, int n_slots, int dh, int h1,
     int rel_inv1p, float clamp, int n_ctas, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (int err = check_shape(dh, n_ctas)) return err;
+  if (int err = check_shape(dh, h1, n_ctas)) return err;
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, dh, false);
-  const long long nf = (long long)n_nodes * H1;
-  idn_proj<<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      h, w1r, w1s, s.P, s.Q, n_nodes, dh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  idn_fwd_rows<<<row_blocks(n_nodes, n_ctas), THREADS, 0, stream>>>(
-      x, snd, em, indptr, s.P, s.Q, w1d, b1, w2, b2, dx, mh, deg, n_nodes,
-      rel_inv1p, clamp);
-  return (int)cudaGetLastError();
+  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, false);
+  const long long nf = (long long)n_nodes * h1;
+  return with_cols(h1, [&](auto nj, auto exact) {
+    constexpr int NJ = decltype(nj)::value;
+    constexpr bool EX = decltype(exact)::value;
+    idn_proj<NJ, EX><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS, 0,
+                       stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh, h1);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    idn_fwd_rows<NJ, EX><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
+                           stream>>>(x, snd, em, indptr, s.P, s.Q, w1d, b1,
+                                     w2, b2, dx, mh, deg, n_nodes, h1,
+                                     rel_inv1p, clamp);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int edge_identity_backward(
@@ -473,36 +597,41 @@ extern "C" int edge_identity_backward(
     const float* b2, const float* deg, const float* gdx, const float* gmh,
     float* gx, float* gh, float* gw1r, float* gw1s, float* gw1d, float* gb1,
     float* gw2, float* gb2, float* scratch, int n_nodes, int n_slots, int dh,
-    int rel_inv1p, float clamp, int n_ctas, void* stream_ptr) {
+    int h1, int rel_inv1p, float clamp, int n_ctas, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (int err = check_shape(dh, n_ctas)) return err;
-  const size_t n_smem =
-      (size_t)(2 * dh * PAD + 2 * TILE_N * PAD + TILE_N * dh) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      idn_bwd_nodes, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)n_smem);
-  if (err != cudaSuccess) return (int)err;
+  if (int err = check_shape(dh, h1, n_ctas)) return err;
+  const NodePlan plan = node_plan(dh, h1);
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, dh, true);
-  const long long nf = (long long)n_nodes * H1;
-  idn_proj<<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      h, w1r, w1s, s.P, s.Q, n_nodes, dh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  idn_bwd_rows<<<row_blocks(n_nodes, n_ctas), THREADS, 0, stream>>>(
-      x, snd, em, indptr, s.P, s.Q, w1d, b1, w2, b2, deg, gdx, gmh, s.GPRE1,
-      s.GREL, s.G, s.GXR, s.RP, n_nodes, rel_inv1p, clamp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nt = node_tiles(n_nodes);
-  idn_bwd_nodes<<<nt, THREADS, n_smem, stream>>>(
-      h, em, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, s.G, s.GXR, s.RP, gx,
-      gh, s.PN, n_nodes, dh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, true);
+  const long long nf = (long long)n_nodes * h1;
+  const int nt = (n_nodes + plan.tn - 1) / plan.tn;
+  int rc = with_cols(h1, [&](auto nj, auto exact) {
+    constexpr int NJ = decltype(nj)::value;
+    constexpr bool EX = decltype(exact)::value;
+    cudaError_t e = cudaFuncSetAttribute(
+        idn_bwd_nodes<NJ, EX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)plan.smem);
+    if (e != cudaSuccess) return (int)e;
+    idn_proj<NJ, EX><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS, 0,
+                       stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh, h1);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    idn_bwd_rows<NJ, EX><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
+                           stream>>>(
+        x, snd, em, indptr, s.P, s.Q, w1d, b1, w2, b2, deg, gdx, gmh, s.GPRE1,
+        s.GREL, s.G, s.GXR, s.RP, n_nodes, h1, rel_inv1p, clamp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    idn_bwd_nodes<NJ, EX><<<nt, THREADS, plan.smem, stream>>>(
+        h, em, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, s.G, s.GXR, s.RP, gx,
+        gh, s.PN, n_nodes, dh, h1, plan.tn, (int)plan.wsm);
+    return (int)cudaGetLastError();
+  });
+  if (rc != 0) return rc;
   Outs o{gw1r, gw1s, gw1d, gb1, gw2, gb2};
-  const int pw = pn_width(dh);
-  idn_bwd_reduce<<<(pw + 255) / 256, 256, 0, stream>>>(s.PN, o, nt, dh);
+  const long long pw = pn_width(dh, h1);
+  idn_bwd_reduce<<<(unsigned)((pw + 255) / 256), 256, 0, stream>>>(
+      s.PN, o, nt, dh, h1);
   return (int)cudaGetLastError();
 }
 

@@ -36,12 +36,16 @@
 //      four rows at a time), carried across tile boundaries; a finished
 //      row is divided by max(deg, 1) and written once; rows without a
 //      live slot get zeros.
+// Widths: compiled for Dh = H1 = M = W, W = 32 and 64 (the entry point's
+// `width`; other widths up to 64 arrive zero-padded, wider ones take
+// panel.cu): the tiles are 64 x W, the products 64 x W x W.
 // Masked slots never enter a tile (an Inf there cannot become a NaN), and
 // each output depends only on its row's live edges and their order: not on
 // the CTA count, the SM count, or how many masked slots the layout holds
 // (a trajectory is bitwise independent of the Verlet skin).  Repeated runs
 // are bitwise equal.  W2 and Wg1 stay in shared memory as swizzled tiles;
-// ~75 KB of shared memory and at most 128 registers give two CTAs an SM.
+// ~75 KB of shared memory at W = 64 (~34 KB at 32) and at most 128
+// registers give two CTAs an SM.
 //
 // Bound on an H100: per live edge two 64 x 64 products (.W2, .Wg1) and per
 // node two (h.W1r, h.W1s), ~18K FLOP per edge against a 256-byte gather of
@@ -57,12 +61,19 @@ namespace {
 
 // edge-pass row data (64 each): mask, rel, d2, the edge's dx term
 enum { F_E = 0, F_REL0, F_REL1, F_REL2, F_D2, F_DX0, F_DX1, F_DX2, F_N };
-// carried sums of an unfinished row: mh (64) | deg | dx (3)
-constexpr int CARRY = HID + 4;
-constexpr int EDGE_SMEM_FLOATS = 4 * TILE_F + 5 * HID + F_N * TR +
-                                 QUEUE_WORDS + 2 * TR + (TR + 8) + 2 * CARRY;
+// carried sums of an unfinished row: mh (W) | deg | dx (3)
+template <int W>
+constexpr int CARRY = W + 4;
+template <int W>
+constexpr int EDGE_SMEM_FLOATS = 2 * WT<W> + 2 * RT<W> + 5 * W + F_N * TR +
+                                 QUEUE_WORDS + 2 * TR + (TR + 8) +
+                                 2 * CARRY<W>;
+// At width 32 shared memory would admit six CTAs an SM, but the 128
+// registers a thread that two CTAs leave are what the width-64 tile pass
+// is built around; both widths keep two.
 constexpr int BLOCKS_PER_SM = 2;
 
+template <int W>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                const float* __restrict__ em, const int* __restrict__ indptr,
@@ -77,15 +88,15 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* sW2 = smem;
-  float* sWg1 = sW2 + TILE_F;
-  float* tT1 = sWg1 + TILE_F;
-  float* tMSG = tT1 + TILE_F;
-  float* sw1d = tMSG + TILE_F;
-  float* sb1 = sw1d + HID;
-  float* sb2 = sb1 + HID;
-  float* sbg1 = sb2 + HID;
-  float* swg2 = sbg1 + HID;
-  float* rq = swg2 + HID;  // [F_N][64]
+  float* sWg1 = sW2 + WT<W>;
+  float* tT1 = sWg1 + WT<W>;
+  float* tMSG = tT1 + RT<W>;
+  float* sw1d = tMSG + RT<W>;
+  float* sb1 = sw1d + W;
+  float* sb2 = sb1 + W;
+  float* sbg1 = sb2 + W;
+  float* swg2 = sbg1 + W;
+  float* rq = swg2 + W;  // [F_N][64]
   const LiveQueue lq(reinterpret_cast<int*>(rq + F_N * TR));
   // [2][64]
   float* rowred = reinterpret_cast<float*>(lq.wcount + THREADS / 32);
@@ -98,10 +109,10 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
 
   const int tid = threadIdx.x;
   const Lane L = lane_of();
-  tile_load_async(sW2, w2);
-  if (gate_mlp) tile_load_async(sWg1, wg1);
+  tile_load_async<W>(sW2, w2);
+  if (gate_mlp) tile_load_async<W>(sWg1, wg1);
   async_commit();
-  if (tid < HID) {
+  if (tid < W) {
     sw1d[tid] = w1d[tid];
     sb1[tid] = b1[tid];
     sb2[tid] = b2[tid];
@@ -110,14 +121,15 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   }
   if (tid == 0) meta[1] = meta[2] = -1;
   const int row_lo = ctarow[blockIdx.x], row_hi = ctarow[blockIdx.x + 1];
-  // the row sums: thread (grp, j) adds column j of every fourth segment
-  const int j = tid & (HID - 1), grp = tid / HID;
+  // the row sums: thread (grp, j) adds column j of every (256 / W)-th
+  // segment
+  const int j = tid & (W - 1), grp = tid / W;
   int cur = 0;  // the carry buffer the next tile reads
 
   // row r is complete: its sums over max(deg, 1), written once
   auto finish = [&](int r, float a, float dg, float d) {
     const float inv = 1.0f / fmaxf(dg, 1.0f);
-    mh[(size_t)r * HID + j] = a * inv;
+    mh[(size_t)r * W + j] = a * inv;
     if (j < 3) dx[3 * r + j] = d * inv;
     if (j == 0) deg[r] = dg;
   };
@@ -163,49 +175,49 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       }
     }
     // pre1 = ((P_r + Q_s) + d2 w1d) + b1 (0 on rows past cnt); t1 = SiLU
-    for (int f = tid; f < TR * HID / 4; f += THREADS) {
-      const int i = f >> 4, q = (f & 15) * 4;
+    for (int f = tid; f < TR * W / 4; f += THREADS) {
+      const int i = f / (W / 4), q = (f % (W / 4)) * 4;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
       if (i < cnt) {
         const float4 p = *reinterpret_cast<const float4*>(
-            P + (size_t)lq.row[i] * HID + q);
+            P + (size_t)lq.row[i] * W + q);
         const float4 o = *reinterpret_cast<const float4*>(
-            Q + (size_t)lq.snd[i] * HID + q);
+            Q + (size_t)lq.snd[i] * W + q);
         const float d2 = RQ(F_D2)[i];
         v[0] = ((p.x + o.x) + d2 * sw1d[q]) + sb1[q];
         v[1] = ((p.y + o.y) + d2 * sw1d[q + 1]) + sb1[q + 1];
         v[2] = ((p.z + o.z) + d2 * sw1d[q + 2]) + sb1[q + 2];
         v[3] = ((p.w + o.w) + d2 * sw1d[q + 3]) + sb1[q + 3];
       }
-      *reinterpret_cast<float4*>(tT1 + swz(i, q)) =
+      *reinterpret_cast<float4*>(tT1 + swz<W>(i, q)) =
           make_float4(v[0] * sigm(v[0]), v[1] * sigm(v[1]), v[2] * sigm(v[2]),
                       v[3] * sigm(v[3]));
     }
     __syncthreads();
     {  // msg = t1.W2 + b2
-      Frag m;
-      frag_zero(m);
-      tile_mma<false, false, true>(m, tT1, sW2, L);
+      Frag<W> m;
+      frag_zero<W>(m);
+      tile_mma<W, false, false, true>(m, tT1, sW2, L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col(jn, e)];
-      frag_store(tMSG, m, L);
+        for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col<W>(jn, e)];
+      frag_store<W>(tMSG, m, L);
     }
     __syncthreads();
     if (gate_mlp) {  // gate = clip(SiLU(msg.Wg1 + bg1) . wg2)
-      Frag gp;
-      frag_zero(gp);
-      tile_mma<false, false, true>(gp, tMSG, sWg1, L);
+      Frag<W> gp;
+      frag_zero<W>(gp);
+      tile_mma<W, false, false, true>(gp, tMSG, sWg1, L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = L.col(jn, e);
+          const int c = L.col<W>(jn, e);
           const float u = gp[jn][e] + sbg1[c];
           gp[jn][e] = __fmul_rn(u * sigm(u), swg2[c]);  // never fused
         }
-      frag_rowsum(gp, L, rowred);
+      frag_rowsum<W>(gp, L, rowred);
       __syncthreads();
       if (tid < cnt) {
         float g = rowred[tid] + rowred[TR + tid];
@@ -225,9 +237,9 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     // each row's sums, its live edges in slot order
     const int ns = meta[0];
     const int crow = meta[1 + cur];
-    const float* cin = carry + cur * CARRY;
-    float* cout = carry + (cur ^ 1) * CARRY;
-    for (int k = grp; k < ns; k += THREADS / HID) {
+    const float* cin = carry + cur * CARRY<W>;
+    float* cout = carry + (cur ^ 1) * CARRY<W>;
+    for (int k = grp; k < ns; k += THREADS / W) {
       const int e0 = seg[k], e1 = seg[k + 1];
       const int r = lq.row[e0];
       float a = 0.0f, dg = 0.0f, d = 0.0f;
@@ -237,16 +249,16 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       if (k == 0 && crow >= 0) {
         if (crow == r) {  // the carried row goes on
           a = cin[j];
-          dg = cin[HID];
-          d = j < 3 ? cin[HID + 1 + j] : 0.0f;
+          dg = cin[W];
+          d = j < 3 ? cin[W + 1 + j] : 0.0f;
         } else {
-          finish(crow, cin[j], cin[HID], j < 3 ? cin[HID + 1 + j] : 0.0f);
+          finish(crow, cin[j], cin[W], j < 3 ? cin[W + 1 + j] : 0.0f);
         }
       }
       for (; gap < r; ++gap) finish(gap, 0.0f, 0.0f, 0.0f);
       for (int e = e0; e < e1; ++e) {
         const float w = RQ(F_E)[e];
-        a += tMSG[swz(e, j)] * w;
+        a += tMSG[swz<W>(e, j)] * w;
         dg += w;
         if (j < 3) d += RQ(F_DX0 + j)[e];
       }
@@ -254,9 +266,9 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
         finish(r, a, dg, d);
       } else {  // the tile's last row may go on in the next tile
         cout[j] = a;
-        if (j < 3) cout[HID + 1 + j] = d;
+        if (j < 3) cout[W + 1 + j] = d;
         if (j == 0) {
-          cout[HID] = dg;
+          cout[W] = dg;
           meta[1 + (cur ^ 1)] = r;
         }
       }
@@ -273,12 +285,12 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   const int crow = meta[1 + cur];
   int tail = row_lo;
   if (crow >= 0) {
-    const float* cin = carry + cur * CARRY;
+    const float* cin = carry + cur * CARRY<W>;
     if (grp == 0)
-      finish(crow, cin[j], cin[HID], j < 3 ? cin[HID + 1 + j] : 0.0f);
+      finish(crow, cin[j], cin[W], j < 3 ? cin[W + 1 + j] : 0.0f);
     tail = crow + 1;
   }
-  for (int f = tail * HID + tid; f < row_hi * HID; f += THREADS) mh[f] = 0.0f;
+  for (int f = tail * W + tid; f < row_hi * W; f += THREADS) mh[f] = 0.0f;
   for (int f = tail + tid; f < row_hi; f += THREADS) deg[f] = 0.0f;
   for (int f = 3 * tail + tid; f < 3 * row_hi; f += THREADS) dx[f] = 0.0f;
 }
@@ -289,7 +301,7 @@ struct Scratch {
   size_t total;
 };
 
-Scratch carve(float* base, int n, int e, int n_ctas) {
+Scratch carve(float* base, int n, int e, int n_ctas, int width) {
   Scratch s;
   size_t off = 0;
   auto take = [&](size_t count) {
@@ -297,21 +309,53 @@ Scratch carve(float* base, int n, int e, int n_ctas) {
     off += round4(count);
     return p;
   };
-  s.P = take((size_t)n * HID);
-  s.Q = take((size_t)n * HID);
+  s.P = take((size_t)n * width);
+  s.Q = take((size_t)n * width);
   s.rowof = reinterpret_cast<int*>(take((size_t)e));
   s.ctarow = reinterpret_cast<int*>(take((size_t)n_ctas + 1));
   s.total = off;
   return s;
 }
 
+template <int W>
+int launch_forward(const float* x, const float* h, const int* snd,
+                   const float* em, const int* indptr, const float* w1r,
+                   const float* w1s, const float* w1d, const float* b1,
+                   const float* w2, const float* b2, const float* wg1,
+                   const float* bg1, const float* wg2, float* dx, float* mh,
+                   float* deg, float* scratch, int n_nodes, int n_slots,
+                   int gate_mlp, int rel_inv1p, float clamp, int n_ctas,
+                   cudaStream_t stream) {
+  const size_t e_smem = EDGE_SMEM_FLOATS<W> * sizeof(float);
+  const size_t p_smem = PROJ_SMEM_FLOATS<W> * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_fwd_edges<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)e_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(node_proj<W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p_smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n_nodes <= 0) return (int)cudaGetLastError();
+  Scratch s = carve(scratch, n_nodes, n_slots, n_ctas, W);
+  node_proj<W><<<n_tiles(n_nodes), THREADS, p_smem, stream>>>(
+      h, w1r, w1s, indptr, s.P, s.Q, s.rowof, s.ctarow, n_nodes, n_ctas);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  edge_fwd_edges<W><<<n_ctas, THREADS, e_smem, stream>>>(
+      x, snd, em, indptr, s.rowof, s.ctarow, s.P, s.Q, w1d, b1, w2, b2, wg1,
+      bg1, wg2, dx, mh, deg, gate_mlp, rel_inv1p, clamp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" long long edge_fwd_scratch_floats(int n_nodes, int n_slots,
-                                             int n_ctas) {
-  return (long long)carve(nullptr, n_nodes, n_slots, n_ctas).total;
+                                             int n_ctas, int width) {
+  return (long long)carve(nullptr, n_nodes, n_slots, n_ctas, width).total;
 }
 
+// width: the compiled width (32 or 64) that Dh, H1 and M were padded to
 extern "C" int edge_forward(const float* x, const float* h, const int* snd,
                             const float* em, const int* indptr,
                             const float* w1r, const float* w1s,
@@ -321,32 +365,18 @@ extern "C" int edge_forward(const float* x, const float* h, const int* snd,
                             const float* wg2, float* dx, float* mh,
                             float* deg, float* scratch, int n_nodes,
                             int n_slots, int gate_mlp, int rel_inv1p,
-                            float clamp, int n_ctas, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+                            float clamp, int n_ctas, int width,
+                            void* stream_ptr) {
   if (!(aligned16(h) && aligned16(w1r) && aligned16(w1s) && aligned16(w2) &&
         (!gate_mlp || aligned16(wg1)) && aligned16(scratch)))
     return (int)cudaErrorMisalignedAddress;
   if (n_ctas <= 0) return (int)cudaErrorInvalidValue;
-  const size_t e_smem = EDGE_SMEM_FLOATS * sizeof(float);
-  const size_t p_smem = PROJ_SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_fwd_edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)e_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(node_proj,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)p_smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, n_ctas);
-  node_proj<<<n_tiles(n_nodes), THREADS, p_smem, stream>>>(
-      h, w1r, w1s, indptr, s.P, s.Q, s.rowof, s.ctarow, n_nodes, n_ctas);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  edge_fwd_edges<<<n_ctas, THREADS, e_smem, stream>>>(
-      x, snd, em, indptr, s.rowof, s.ctarow, s.P, s.Q, w1d, b1, w2, b2, wg1,
-      bg1, wg2, dx, mh, deg, gate_mlp, rel_inv1p, clamp);
-  return (int)cudaGetLastError();
+  return with_width(width, [&](auto w) {
+    return launch_forward<decltype(w)::value>(
+        x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2, dx,
+        mh, deg, scratch, n_nodes, n_slots, gate_mlp, rel_inv1p, clamp,
+        n_ctas, (cudaStream_t)stream_ptr);
+  });
 }
 
 extern "C" int edge_fwd_blocks_per_sm() { return BLOCKS_PER_SM; }

@@ -11,7 +11,10 @@
 // inv1p adds the d kf / d d2 term).
 //
 // Four launches on one stream, no atomics, every sum in an order fixed by
-// the inputs and the CTA count (repeated runs are bitwise equal):
+// the inputs and the CTA count (repeated runs are bitwise equal); gx and gh
+// do not depend on the CTA count either (an edge's g_pre1 and g_rel do not
+// depend on its tile row: the products feeding a row sum are rounded on
+// their own, `__fmul_rn`), the weight gradients' order of partials does:
 //   1. node_proj   (common.cuh, shared with the forward) CTA per 64
 //                  nodes: P = h.W1r, Q = h.W1s (the forward's
 //                  pre-activation is P_r + Q_s + d2 w1d + b1), and the
@@ -42,7 +45,9 @@
 // FP32 units, one exponential per SiLU and its derivative.  Shared memory:
 // edge pass 6 tiles (2 weights, 3 activations, silu'(pre1)) + row data and
 // the compaction queue, ~111 KB: two CTAs of 8 warps per SM, at most 128
-// registers a thread; node pass 5 tiles, 80 KB.
+// registers a thread; node pass 5 tiles, 80 KB (at W = 32: ~55 and 32
+// KB).  Widths: compiled for Dh = H1 = M = W, W = 32 and 64 (the entry
+// point's `width`, as edge_message.cu).
 //
 // Bound on an H100: per live edge six 64x64 products (recompute .W2 and
 // .Wg1; cotangents through Wg1^T and W2^T; the W2 and Wg1 outer products)
@@ -58,19 +63,27 @@
 
 namespace {
 
-// edge-pass partial of one CTA: W2 | Wg1 | b2 | bg1 | wg2 | b1 | w1d
-constexpr int E_W2 = 0, E_WG1 = 4096, E_B2 = 8192, E_BG1 = E_B2 + 64,
-              E_WG2 = E_BG1 + 64, E_B1 = E_WG2 + 64, E_W1D = E_B1 + 64;
-constexpr int PE = E_W1D + 64;
+// edge-pass partial of one CTA: W2 | Wg1 | b2 | bg1 | wg2 | b1 | w1d, the
+// matrices W x W and the vectors W long
+template <int W>
+struct EdgePart {
+  static constexpr int W2 = 0, WG1 = W * W, B2 = 2 * W * W, BG1 = B2 + W,
+                       WG2 = BG1 + W, B1 = WG2 + W, W1D = B1 + W,
+                       size = W1D + W;
+};
 // node-pass partial of one CTA: W1r | W1s
-constexpr int PN = 2 * HID * HID;
+template <int W>
+constexpr int PN = 2 * W * W;
 // edge-pass row data (64 each)
 enum { Q_E = 0, Q_REL0, Q_REL1, Q_REL2, Q_D2, Q_INV, Q_U0, Q_U1, Q_U2, Q_GG,
        Q_GR0, Q_GR1, Q_GR2, Q_GQ2, Q_N };
-constexpr int EDGE_SMEM_FLOATS = 6 * TILE_F + 5 * HID + Q_N * TR +
+template <int W>
+constexpr int EDGE_SMEM_FLOATS = 2 * WT<W> + 4 * RT<W> + 5 * W + Q_N * TR +
                                  QUEUE_WORDS + 2 * TR + 5 * 4 * TR;
-constexpr int NODE_SMEM_FLOATS = 5 * TILE_F;
+template <int W>
+constexpr int NODE_SMEM_FLOATS = 2 * WT<W> + 3 * RT<W>;
 
+template <int W>
 __global__ void __launch_bounds__(THREADS, 2)
 edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                const float* __restrict__ em, const int* __restrict__ indptr,
@@ -86,18 +99,19 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                int rel_inv1p, float clamp) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  using EP = EdgePart<W>;
   float* sW2 = smem;
-  float* sWg1 = sW2 + TILE_F;
-  float* tT1 = sWg1 + TILE_F;
-  float* tMSG = tT1 + TILE_F;  // msg, then g_msg
-  float* tGG = tMSG + TILE_F;  // g_gp1, then g_pre1
-  float* tSG = tGG + TILE_F;   // silu'(pre1)
-  float* sw1d = tSG + TILE_F;
-  float* sb1 = sw1d + HID;
-  float* sb2 = sb1 + HID;
-  float* sbg1 = sb2 + HID;
-  float* swg2 = sbg1 + HID;
-  float* rq = swg2 + HID;  // [Q_N][64]
+  float* sWg1 = sW2 + WT<W>;
+  float* tT1 = sWg1 + WT<W>;
+  float* tMSG = tT1 + RT<W>;  // msg, then g_msg
+  float* tGG = tMSG + RT<W>;  // g_gp1, then g_pre1
+  float* tSG = tGG + RT<W>;   // silu'(pre1)
+  float* sw1d = tSG + RT<W>;
+  float* sb1 = sw1d + W;
+  float* sb2 = sb1 + W;
+  float* sbg1 = sb2 + W;
+  float* swg2 = sbg1 + W;
+  float* rq = swg2 + W;  // [Q_N][64]
   const LiveQueue lq(reinterpret_cast<int*>(rq + Q_N * TR));
   const int *pslot = lq.slot, *prow = lq.row, *psnd = lq.snd;
   const float* pem = lq.em;
@@ -107,18 +121,19 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
 
   const int tid = threadIdx.x;
   const Lane L = lane_of();
-  tile_gather(sW2, w2, [](int i) { return i; });
-  if (gate_mlp) tile_gather(sWg1, wg1, [](int i) { return i; });
-  if (tid < HID) {
+  tile_load_async<W>(sW2, w2);
+  if (gate_mlp) tile_load_async<W>(sWg1, wg1);
+  async_commit();
+  if (tid < W) {
     sw1d[tid] = w1d[tid];
     sb1[tid] = b1[tid];
     sb2[tid] = b2[tid];
     sbg1[tid] = gate_mlp ? bg1[tid] : 0.0f;
     swg2[tid] = gate_mlp ? wg2[tid] : 0.0f;
   }
-  Frag aW2, aWg1;
-  frag_zero(aW2);
-  frag_zero(aWg1);
+  Frag<W> aW2, aWg1;
+  frag_zero<W>(aW2);
+  frag_zero<W>(aWg1);
   float cb2 = 0.0f, cbg1 = 0.0f, cwg2 = 0.0f, cb1 = 0.0f, cw1d = 0.0f;
 
   // one tile: the first `cnt` (<= 64) slots of the queue
@@ -153,14 +168,14 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     __syncthreads();
     // pre1 = ((P_r + Q_s) + d2 w1d) + b1 (0 on rows past cnt); t1 =
     // silu(pre1) into tT1, silu'(pre1) into tSG
-    for (int f = tid; f < TR * HID / 4; f += THREADS) {
-      const int i = f >> 4, q = (f & 15) * 4;
+    for (int f = tid; f < TR * W / 4; f += THREADS) {
+      const int i = f / (W / 4), q = (f % (W / 4)) * 4;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
       if (i < cnt) {
         const float4 p = *reinterpret_cast<const float4*>(
-            P + (size_t)prow[i] * HID + q);
+            P + (size_t)prow[i] * W + q);
         const float4 o = *reinterpret_cast<const float4*>(
-            Q + (size_t)psnd[i] * HID + q);
+            Q + (size_t)psnd[i] * W + q);
         const float d2 = RQ(Q_D2)[i];
         v[0] = ((p.x + o.x) + d2 * sw1d[q]) + sb1[q];
         v[1] = ((p.y + o.y) + d2 * sw1d[q + 1]) + sb1[q + 1];
@@ -170,36 +185,38 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       float t[4], g[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) silu_both(v[k], t[k], g[k]);
-      *reinterpret_cast<float4*>(tT1 + swz(i, q)) =
+      *reinterpret_cast<float4*>(tT1 + swz<W>(i, q)) =
           make_float4(t[0], t[1], t[2], t[3]);
-      *reinterpret_cast<float4*>(tSG + swz(i, q)) =
+      *reinterpret_cast<float4*>(tSG + swz<W>(i, q)) =
           make_float4(g[0], g[1], g[2], g[3]);
     }
     __syncthreads();
     {  // msg = t1.W2 + b2
-      Frag m;
-      frag_zero(m);
-      tile_mma<false, false>(m, tT1, sW2, L);
+      Frag<W> m;
+      frag_zero<W>(m);
+      tile_mma<W, false, false>(m, tT1, sW2, L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col(jn, e)];
-      frag_store(tMSG, m, L);
+        for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col<W>(jn, e)];
+      frag_store<W>(tMSG, m, L);
     }
     __syncthreads();
     if (gate_mlp) {
-      Frag gp, sv;
-      frag_zero(gp);
-      tile_mma<false, false>(gp, tMSG, sWg1, L);
+      Frag<W> gp, sv;
+      frag_zero<W>(gp);
+      tile_mma<W, false, false>(gp, tMSG, sWg1, L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = L.col(jn, e);
+          const int j = L.col<W>(jn, e);
           gp[jn][e] += sbg1[j];
-          sv[jn][e] = gp[jn][e] * sigm(gp[jn][e]) * swg2[j];
+          // rounded on its own: a row's gate does not depend on its tile
+          // row (no FMA fused into the row sum per fragment slot)
+          sv[jn][e] = __fmul_rn(gp[jn][e] * sigm(gp[jn][e]), swg2[j]);
         }
-      frag_rowsum(sv, L, rowred);
+      frag_rowsum<W>(sv, L, rowred);
       __syncthreads();
       if (tid < TR) {
         const float gate_pre = rowred[tid] + rowred[TR + tid];
@@ -231,71 +248,71 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       }
       __syncthreads();
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float g_gate = RQ(Q_GG)[L.row(e)];
           float sgp, dsgp;
           silu_both(gp[jn][e], sgp, dsgp);
           sv[jn][e] = sgp * g_gate;
-          gp[jn][e] = (g_gate * swg2[L.col(jn, e)]) * dsgp;
+          gp[jn][e] = (g_gate * swg2[L.col<W>(jn, e)]) * dsgp;
         }
-      frag_store(tGG, gp, L);
-      frag_colsum(gp, L, colred);           // bg1
-      frag_colsum(sv, L, colred + 4 * TR);  // wg2
+      frag_store<W>(tGG, gp, L);
+      frag_colsum<W>(gp, L, colred);           // bg1
+      frag_colsum<W>(sv, L, colred + 4 * TR);  // wg2
       __syncthreads();
-      tile_mma<true, false>(aWg1, tMSG, tGG, L);
+      tile_mma<W, true, false>(aWg1, tMSG, tGG, L);
     }
     {  // g_msg = g_mh[r] inv em (+ g_gp1.Wg1^T)
-      Frag gm;
-      frag_zero(gm);
-      if (gate_mlp) tile_mma<false, true>(gm, tGG, sWg1, L);
+      Frag<W> gm;
+      frag_zero<W>(gm);
+      if (gate_mlp) tile_mma<W, false, true>(gm, tGG, sWg1, L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
-          const int i = L.row(2 * h2), j = L.col(jn, 0);
+          const int i = L.row(2 * h2), j = L.col<W>(jn, 0);
           if (i < cnt) {
             const float2 g = *reinterpret_cast<const float2*>(
-                gmh + (size_t)prow[i] * HID + j);
+                gmh + (size_t)prow[i] * W + j);
             const float inv = RQ(Q_INV)[i], e = RQ(Q_E)[i];
             gm[jn][2 * h2] += (g.x * inv) * e;
             gm[jn][2 * h2 + 1] += (g.y * inv) * e;
           }
         }
-      frag_colsum(gm, L, colred + 8 * TR);  // b2
+      frag_colsum<W>(gm, L, colred + 8 * TR);  // b2
       __syncthreads();  // msg and g_gp1 are read
-      frag_store(tMSG, gm, L);
+      frag_store<W>(tMSG, gm, L);
     }
     __syncthreads();
-    if (tid < HID) {
+    if (tid < W) {
       cb2 += colsum4(colred + 8 * TR, tid);
       if (gate_mlp) {
         cbg1 += colsum4(colred, tid);
         cwg2 += colsum4(colred + 4 * TR, tid);
       }
     }
-    tile_mma<true, false>(aW2, tT1, tMSG, L);
-    Frag gp;  // g_pre1 = (g_msg.W2^T) silu'(pre1), into tGG (read above)
-    frag_zero(gp);
-    tile_mma<false, true>(gp, tMSG, sW2, L);
+    tile_mma<W, true, false>(aW2, tT1, tMSG, L);
+    Frag<W> gp;  // g_pre1 = (g_msg.W2^T) silu'(pre1), into tGG (read above)
+    frag_zero<W>(gp);
+    tile_mma<W, false, true>(gp, tMSG, sW2, L);
     {
-      Frag dg, gw;
+      Frag<W> dg, gw;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          gp[jn][e] *= tSG[swz(L.row(e), L.col(jn, e))];
+          gp[jn][e] *= tSG[swz<W>(L.row(e), L.col<W>(jn, e))];
           dg[jn][e] = RQ(Q_D2)[L.row(e)] * gp[jn][e];
-          gw[jn][e] = gp[jn][e] * sw1d[L.col(jn, e)];
+          gw[jn][e] = __fmul_rn(gp[jn][e], sw1d[L.col<W>(jn, e)]);
         }
-      frag_store(tGG, gp, L);
-      frag_rowsum(gw, L, rowred);
-      frag_colsum(gp, L, colred + 12 * TR);  // b1
-      frag_colsum(dg, L, colred + 16 * TR);  // w1d
+      frag_store<W>(tGG, gp, L);
+      frag_rowsum<W>(gw, L, rowred);
+      frag_colsum<W>(gp, L, colred + 12 * TR);  // b1
+      frag_colsum<W>(dg, L, colred + 16 * TR);  // w1d
     }
     __syncthreads();
-    if (tid < HID) {
+    if (tid < W) {
       cb1 += colsum4(colred + 12 * TR, tid);
       cw1d += colsum4(colred + 16 * TR, tid);
     }
@@ -308,11 +325,11 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       g.w = 0.0f;
       *reinterpret_cast<float4*>(GREL + (size_t)pslot[tid] * 4) = g;
     }
-    for (int f = tid; f < TR * HID / 4; f += THREADS) {
-      const int i = f >> 4, q = (f & 15) * 4;
+    for (int f = tid; f < TR * W / 4; f += THREADS) {
+      const int i = f / (W / 4), q = (f % (W / 4)) * 4;
       if (i < cnt)
-        *reinterpret_cast<float4*>(GPRE1 + (size_t)pslot[i] * HID + q) =
-            *reinterpret_cast<const float4*>(tGG + swz(i, q));
+        *reinterpret_cast<float4*>(GPRE1 + (size_t)pslot[i] * W + q) =
+            *reinterpret_cast<const float4*>(tGG + swz<W>(i, q));
     }
     __syncthreads();
   };
@@ -322,30 +339,33 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   const int len = (live_end + gridDim.x - 1) / gridDim.x;
   const int beg = min((int)blockIdx.x * len, live_end);
   const int end = min(beg + len, live_end);
+  async_wait_all();
   __syncthreads();  // weights in
   for_live_tiles(em, rowof, snd, beg, end, lq, tile);
 
-  float* out = part + (size_t)blockIdx.x * PE;
-  frag_store_global(out + E_W2, aW2, L);
-  frag_store_global(out + E_WG1, aWg1, L);
-  if (tid < HID) {
-    out[E_B2 + tid] = cb2;
-    out[E_BG1 + tid] = cbg1;
-    out[E_WG2 + tid] = cwg2;
-    out[E_B1 + tid] = cb1;
-    out[E_W1D + tid] = cw1d;
+  float* out = part + (size_t)blockIdx.x * EP::size;
+  frag_store_global<W>(out + EP::W2, aW2, L);
+  frag_store_global<W>(out + EP::WG1, aWg1, L);
+  if (tid < W) {
+    out[EP::B2 + tid] = cb2;
+    out[EP::BG1 + tid] = cbg1;
+    out[EP::WG2 + tid] = cwg2;
+    out[EP::B1 + tid] = cb1;
+    out[EP::W1D + tid] = cw1d;
   }
 }
 
-// A group of 8 lanes (lane gl owns columns 8 gl .. 8 gl + 7) adds, in p
-// order, the g_pre1 rows of the live slots s(p), p in [p0, p1) -- s(p) = p,
-// or perm[p] -- into acc, and lanes gl < 3 add sign * g_rel[gl] into d.
-// Eight masks are read at once and four rows are in flight.
-template <bool PERM>
+// A group of 8 lanes (lane gl owns columns (W/8) gl .. (W/8) gl + W/8 - 1)
+// adds, in p order, the g_pre1 rows of the live slots s(p), p in [p0, p1)
+// -- s(p) = p, or perm[p] -- into acc, and lanes gl < 3 add sign *
+// g_rel[gl] into d.  Eight masks are read at once and four rows are in
+// flight.
+template <int W, bool PERM>
 __device__ __forceinline__ void segment_sum(
     const int* __restrict__ perm, const float* __restrict__ em,
     const float* __restrict__ GPRE1, const float* __restrict__ GREL, int p0,
-    int p1, int gl, int grp, float sign, float (&acc)[8], float& d) {
+    int p1, int gl, int grp, float sign, float (&acc)[W / 8], float& d) {
+  constexpr int V = W / 32;  // float4s a lane
   const unsigned gm = 0xffu << (8 * grp);
   for (int b = p0; b < p1; b += 8) {
     const int p = b + gl;
@@ -360,27 +380,27 @@ __device__ __forceinline__ void segment_sum(
         sl[u] = m ? v : -1;
         m &= m - 1;
       }
-      float4 v[4][2];
+      float4 v[4][V];
       float g[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float4* row = reinterpret_cast<const float4*>(
-            GPRE1 + (size_t)(sl[u] >= 0 ? sl[u] : 0) * HID + 8 * gl);
-        v[u][0] = sl[u] >= 0 ? row[0] : make_float4(0.f, 0.f, 0.f, 0.f);
-        v[u][1] = sl[u] >= 0 ? row[1] : make_float4(0.f, 0.f, 0.f, 0.f);
+            GPRE1 + (size_t)(sl[u] >= 0 ? sl[u] : 0) * W + (W / 8) * gl);
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          v[u][k] = sl[u] >= 0 ? row[k] : make_float4(0.f, 0.f, 0.f, 0.f);
         g[u] = sl[u] >= 0 && gl < 3 ? GREL[(size_t)sl[u] * 4 + gl] : 0.0f;
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         if (sl[u] >= 0) {
-          acc[0] += v[u][0].x;
-          acc[1] += v[u][0].y;
-          acc[2] += v[u][0].z;
-          acc[3] += v[u][0].w;
-          acc[4] += v[u][1].x;
-          acc[5] += v[u][1].y;
-          acc[6] += v[u][1].z;
-          acc[7] += v[u][1].w;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            acc[4 * k] += v[u][k].x;
+            acc[4 * k + 1] += v[u][k].y;
+            acc[4 * k + 2] += v[u][k].z;
+            acc[4 * k + 3] += v[u][k].w;
+          }
           d += sign * g[u];
         }
     }
@@ -390,6 +410,7 @@ __device__ __forceinline__ void segment_sum(
 // Per node: G = receiver-segment sum of g_pre1 (slot order), S = sender-
 // segment sum (sender-permutation order), gx = dx_r + dx_s; then
 // gh = G.W1r^T + S.W1s^T and the W1r / W1s partials h^T G, h^T S.
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
                const int* __restrict__ indptr, const int* __restrict__ sperm,
@@ -400,60 +421,65 @@ edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
                int n_nodes) {
   extern __shared__ float4 smem4[];
   float* sWr = reinterpret_cast<float*>(smem4);
-  float* sWs = sWr + TILE_F;
-  float* tH = sWs + TILE_F;
-  float* tG = tH + TILE_F;
-  float* tS = tG + TILE_F;
+  float* sWs = sWr + WT<W>;
+  float* tH = sWs + WT<W>;
+  float* tG = tH + RT<W>;
+  float* tS = tG + RT<W>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int node0 = blockIdx.x * TR;
-  tile_gather(sWr, w1r, [](int i) { return i; });
-  tile_gather(sWs, w1s, [](int i) { return i; });
-  tile_gather(tH, h, [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
-  // 8 lanes per node, 2 nodes each; lane gl owns columns 8 gl .. + 7
+  tile_load_async<W>(sWr, w1r);
+  tile_load_async<W>(sWs, w1s);
+  async_commit();
+  tile_gather<W>(tH, h,
+                 [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  // 8 lanes per node, 2 nodes each; lane gl owns columns (W/8) gl .. + W/8-1
+  constexpr int CPL = W / 8;
   const int grp = lane >> 3, gl = lane & 7;
   for (int k = 0; k < 2; ++k) {
     const int r = (4 * warp + grp) * 2 + k;
     const int i = node0 + r;
-    float G[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float S[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float G[CPL], S[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) G[c] = S[c] = 0.0f;
     float dr = 0.0f, ds = 0.0f;  // lanes gl < 3: component gl
     if (i < n_nodes) {
-      segment_sum<false>(nullptr, em, GPRE1, GREL, indptr[i], indptr[i + 1],
-                         gl, grp, 1.0f, G, dr);
-      segment_sum<true>(sperm, em, GPRE1, GREL, sptr[i], sptr[i + 1], gl,
-                        grp, -1.0f, S, ds);
+      segment_sum<W, false>(nullptr, em, GPRE1, GREL, indptr[i],
+                            indptr[i + 1], gl, grp, 1.0f, G, dr);
+      segment_sum<W, true>(sperm, em, GPRE1, GREL, sptr[i], sptr[i + 1], gl,
+                           grp, -1.0f, S, ds);
       if (gl < 3) gx[3 * i + gl] = dr + ds;
     }
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      *reinterpret_cast<float4*>(tG + swz(r, 8 * gl + 4 * h2)) = make_float4(
-          G[4 * h2], G[4 * h2 + 1], G[4 * h2 + 2], G[4 * h2 + 3]);
-      *reinterpret_cast<float4*>(tS + swz(r, 8 * gl + 4 * h2)) = make_float4(
-          S[4 * h2], S[4 * h2 + 1], S[4 * h2 + 2], S[4 * h2 + 3]);
+    for (int h2 = 0; h2 < CPL / 4; ++h2) {
+      *reinterpret_cast<float4*>(tG + swz<W>(r, CPL * gl + 4 * h2)) =
+          make_float4(G[4 * h2], G[4 * h2 + 1], G[4 * h2 + 2], G[4 * h2 + 3]);
+      *reinterpret_cast<float4*>(tS + swz<W>(r, CPL * gl + 4 * h2)) =
+          make_float4(S[4 * h2], S[4 * h2 + 1], S[4 * h2 + 2], S[4 * h2 + 3]);
     }
   }
+  async_wait_all();
   __syncthreads();
   const Lane L = lane_of();
-  Frag a;
-  frag_zero(a);
-  tile_mma<false, true>(a, tG, sWr, L);
-  tile_mma<false, true>(a, tS, sWs, L);
+  Frag<W> a;
+  frag_zero<W>(a);
+  tile_mma<W, false, true>(a, tG, sWr, L);
+  tile_mma<W, false, true>(a, tS, sWs, L);
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn)
+  for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int i = node0 + L.row(2 * h2);
       if (i < n_nodes)
-        *reinterpret_cast<float2*>(gh + (size_t)i * HID + L.col(jn, 0)) =
+        *reinterpret_cast<float2*>(gh + (size_t)i * W + L.col<W>(jn, 0)) =
             make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
     }
-  float* out = part + (size_t)blockIdx.x * PN;
-  frag_zero(a);
-  tile_mma<true, false>(a, tH, tG, L);
-  frag_store_global(out, a, L);
-  frag_zero(a);
-  tile_mma<true, false>(a, tH, tS, L);
-  frag_store_global(out + HID * HID, a, L);
+  float* out = part + (size_t)blockIdx.x * PN<W>;
+  frag_zero<W>(a);
+  tile_mma<W, true, false>(a, tH, tG, L);
+  frag_store_global<W>(out, a, L);
+  frag_zero<W>(a);
+  tile_mma<W, true, false>(a, tH, tS, L);
+  frag_store_global<W>(out + W * W, a, L);
 }
 
 struct Outs {
@@ -462,28 +488,31 @@ struct Outs {
 
 // every weight gradient: edge-pass partials in CTA order, then node-pass
 // partials in CTA order
+template <int W>
 __global__ void edge_bwd_reduce(const float* __restrict__ pe,
                                 const float* __restrict__ pn, Outs o,
                                 int n_edge_ctas, int n_node_ctas,
                                 int gate_mlp) {
+  using EP = EdgePart<W>;
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= PE + PN) return;
-  if (f < PE) {
-    if (!gate_mlp && f >= E_WG1 && f < E_B1 && !(f >= E_B2 && f < E_BG1))
+  if (f >= EP::size + PN<W>) return;
+  if (f < EP::size) {
+    if (!gate_mlp && f >= EP::WG1 && f < EP::B1 &&
+        !(f >= EP::B2 && f < EP::BG1))
       return;  // no gate: the caller's gate grads stay zero
-    const float s = sum_strided(pe + f, PE, n_edge_ctas);
-    if (f < E_WG1) o.gw2[f] = s;
-    else if (f < E_B2) o.gwg1[f - E_WG1] = s;
-    else if (f < E_BG1) o.gb2[f - E_B2] = s;
-    else if (f < E_WG2) o.gbg1[f - E_BG1] = s;
-    else if (f < E_B1) o.gwg2[f - E_WG2] = s;
-    else if (f < E_W1D) o.gb1[f - E_B1] = s;
-    else o.gw1d[f - E_W1D] = s;
+    const float s = sum_strided(pe + f, EP::size, n_edge_ctas);
+    if (f < EP::WG1) o.gw2[f] = s;
+    else if (f < EP::B2) o.gwg1[f - EP::WG1] = s;
+    else if (f < EP::BG1) o.gb2[f - EP::B2] = s;
+    else if (f < EP::WG2) o.gbg1[f - EP::BG1] = s;
+    else if (f < EP::B1) o.gwg2[f - EP::WG2] = s;
+    else if (f < EP::W1D) o.gb1[f - EP::B1] = s;
+    else o.gw1d[f - EP::W1D] = s;
   } else {
-    const int k = f - PE;
-    const float s = sum_strided(pn + k, PN, n_node_ctas);
-    if (k < HID * HID) o.gw1r[k] = s;
-    else o.gw1s[k - HID * HID] = s;
+    const int k = f - EP::size;
+    const float s = sum_strided(pn + k, PN<W>, n_node_ctas);
+    if (k < W * W) o.gw1r[k] = s;
+    else o.gw1s[k - W * W] = s;
   }
 }
 
@@ -493,6 +522,7 @@ struct Scratch {
   size_t total;
 };
 
+template <int W>
 Scratch carve(float* base, int n, int e, int n_edge_ctas) {
   Scratch s;
   size_t off = 0;
@@ -501,24 +531,75 @@ Scratch carve(float* base, int n, int e, int n_edge_ctas) {
     off += round4(count);
     return p;
   };
-  s.P = take((size_t)n * HID);
-  s.Q = take((size_t)n * HID);
-  s.GPRE1 = take((size_t)e * HID);
+  s.P = take((size_t)n * W);
+  s.Q = take((size_t)n * W);
+  s.GPRE1 = take((size_t)e * W);
   s.GREL = take((size_t)e * 4);
   s.rowof = reinterpret_cast<int*>(take((size_t)e));
-  s.pe = take((size_t)n_edge_ctas * PE);
-  s.pn = take((size_t)n_tiles(n) * PN);
+  s.pe = take((size_t)n_edge_ctas * EdgePart<W>::size);
+  s.pn = take((size_t)n_tiles(n) * PN<W>);
   s.total = off;
   return s;
+}
+
+template <int W>
+int launch_backward(
+    const float* x, const float* h, const int* snd, const float* em,
+    const int* indptr, const int* sperm, const int* sptr, const float* w1r,
+    const float* w1s, const float* w1d, const float* b1, const float* w2,
+    const float* b2, const float* wg1, const float* bg1, const float* wg2,
+    const float* deg, const float* gdx, const float* gmh, float* gx,
+    float* gh, const Outs& o, float* scratch, int n_nodes, int n_slots,
+    int gate_mlp, int rel_inv1p, float clamp, int n_blocks,
+    cudaStream_t stream) {
+  const size_t e_smem = EDGE_SMEM_FLOATS<W> * sizeof(float);
+  const size_t n_smem = NODE_SMEM_FLOATS<W> * sizeof(float);
+  const size_t p_smem = PROJ_SMEM_FLOATS<W> * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_bwd_edges<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)e_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(edge_bwd_nodes<W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)n_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(node_proj<W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p_smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n_nodes <= 0) return (int)cudaGetLastError();
+  Scratch s = carve<W>(scratch, n_nodes, n_slots, n_blocks);
+  const int nt = n_tiles(n_nodes);
+  node_proj<W><<<nt, THREADS, p_smem, stream>>>(
+      h, w1r, w1s, indptr, s.P, s.Q, s.rowof, nullptr, n_nodes, 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  edge_bwd_edges<W><<<n_blocks, THREADS, e_smem, stream>>>(
+      x, snd, em, indptr, s.rowof, s.P, s.Q, w1d, b1, w2, b2, wg1, bg1, wg2,
+      deg, gdx, gmh, s.GPRE1, s.GREL, s.pe, n_nodes, gate_mlp, rel_inv1p, clamp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  edge_bwd_nodes<W><<<nt, THREADS, n_smem, stream>>>(
+      h, em, indptr, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, gx, gh, s.pn,
+      n_nodes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = EdgePart<W>::size + PN<W>;
+  edge_bwd_reduce<W><<<(total + 255) / 256, 256, 0, stream>>>(
+      s.pe, s.pn, o, n_blocks, nt, gate_mlp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" long long edge_bwd_scratch_floats(int n_nodes, int n_slots,
-                                             int n_edge_ctas) {
-  return (long long)carve(nullptr, n_nodes, n_slots, n_edge_ctas).total;
+                                             int n_edge_ctas, int width) {
+  if (width == 32) return carve<32>(nullptr, n_nodes, n_slots, n_edge_ctas).total;
+  if (width == 64) return carve<64>(nullptr, n_nodes, n_slots, n_edge_ctas).total;
+  return -1;
 }
 
+// width: the compiled width (32 or 64) that Dh, H1 and M were padded to
 extern "C" int edge_backward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const int* sperm, const int* sptr, const float* w1r,
@@ -528,49 +609,19 @@ extern "C" int edge_backward(
     float* gh, float* gw1r, float* gw1s, float* gw1d, float* gb1, float* gw2,
     float* gb2, float* gwg1, float* gbg1, float* gwg2, float* scratch,
     int n_nodes, int n_slots, int gate_mlp, int rel_inv1p, float clamp,
-    int n_blocks, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+    int n_blocks, int width, void* stream_ptr) {
   if (!(aligned16(h) && aligned16(w1r) && aligned16(w1s) && aligned16(w2) &&
         (!gate_mlp || aligned16(wg1)) && aligned16(gmh) && aligned16(gh) &&
         aligned16(scratch)))
     return (int)cudaErrorMisalignedAddress;
   if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
-  const size_t e_smem = EDGE_SMEM_FLOATS * sizeof(float);
-  const size_t n_smem = NODE_SMEM_FLOATS * sizeof(float);
-  const size_t p_smem = PROJ_SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_bwd_edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)e_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(edge_bwd_nodes,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)n_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(node_proj,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)p_smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, n_blocks);
-  const int nt = n_tiles(n_nodes);
-  node_proj<<<nt, THREADS, p_smem, stream>>>(h, w1r, w1s, indptr, s.P, s.Q,
-                                             s.rowof, nullptr, n_nodes, 0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  edge_bwd_edges<<<n_blocks, THREADS, e_smem, stream>>>(
-      x, snd, em, indptr, s.rowof, s.P, s.Q, w1d, b1, w2, b2, wg1, bg1, wg2,
-      deg, gdx, gmh, s.GPRE1, s.GREL, s.pe, n_nodes, gate_mlp, rel_inv1p, clamp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  edge_bwd_nodes<<<nt, THREADS, n_smem, stream>>>(
-      h, em, indptr, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, gx, gh, s.pn,
-      n_nodes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  Outs o{gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2};
-  edge_bwd_reduce<<<(PE + PN + 255) / 256, 256, 0, stream>>>(
-      s.pe, s.pn, o, n_blocks, nt, gate_mlp);
-  return (int)cudaGetLastError();
+  const Outs o{gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2};
+  return with_width(width, [&](auto w) {
+    return launch_backward<decltype(w)::value>(
+        x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1, w2, b2, wg1,
+        bg1, wg2, deg, gdx, gmh, gx, gh, o, scratch, n_nodes, n_slots,
+        gate_mlp, rel_inv1p, clamp, n_blocks, (cudaStream_t)stream_ptr);
+  });
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -25,8 +25,11 @@
 //      cp.async while channel c computes (two slots, ping-pong).
 //   2. virtual_block_sums  adds the partial rows in CTA order, a warp a
 //      column.
-// Shared memory: 8 weight tiles, the h, t1 and msg tiles, ~189 KB: one CTA
-// an SM.  At N = 8,192 that is 128 CTAs for 132 SMs, a single short wave.
+// Shared memory: 8 weight tiles, the h, t1 and msg tiles, ~189 KB at
+// Dh = hid = 64 (~65 KB at 32): one CTA an SM.  At N = 8,192 that is 128
+// CTAs for 132 SMs, a single short wave.  Widths: compiled for Dh = hid =
+// W, W = 32 and 64 (the entry point's `width`; other widths up to 64
+// arrive zero-padded, wider ones take panel.cu).
 //
 // Bound on an H100: per node and channel four 64 x 64 products (32,768
 // FLOP) against 268 bytes of x, h and mask read and 268 bytes of dx, mh
@@ -39,14 +42,17 @@
 
 namespace {
 
-constexpr int OUTW = 3 + HID;  // partial row: dz (3) | ms (hid)
+template <int W>
+constexpr int OUTW = 3 + W;  // partial row: dz (3) | ms (hid)
 enum { W_1H = 0, W_2, W_G1, W_Z1, W_N };  // weight tiles of a channel
 // row scalars (64 each): x, mask, rel, d2, the dz terms, the dx sums
 enum { R_X0 = 0, R_X1, R_X2, R_M, R_RL0, R_RL1, R_RL2, R_D2, R_DZ0, R_DZ1,
        R_DZ2, R_DX0, R_DX1, R_DX2, R_N };
-constexpr int SMEM_FLOATS = 2 * W_N * TILE_F + 2 * NVEC * HID + 3 * TILE_F +
+template <int W>
+constexpr int SMEM_FLOATS = 2 * W_N * WT<W> + 2 * NVEC * W + 3 * RT<W> +
                             R_N * TR + 4 * TR + 4 * TR;
 
+template <int W>
 __global__ void __launch_bounds__(THREADS, 1)
 virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ z, const float* __restrict__ mask,
@@ -61,32 +67,32 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* sW = smem;                                // [2 slots][W_N tiles]
-  float* sVec = sW + 2 * W_N * TILE_F;             // [2 slots][NVEC][64]
-  float* tH = sVec + 2 * NVEC * HID;
-  float* tT1 = tH + TILE_F;
-  float* tMSG = tT1 + TILE_F;
-  float* rs = tMSG + TILE_F;      // [R_N][64]
+  float* sVec = sW + 2 * W_N * WT<W>;              // [2 slots][NVEC][W]
+  float* tH = sVec + 2 * NVEC * W;
+  float* tT1 = tH + RT<W>;
+  float* tMSG = tT1 + RT<W>;
+  float* rs = tMSG + RT<W>;       // [R_N][64]
   float* rowred = rs + R_N * TR;  // [2 gates][2 halves][64]
   float* colred = rowred + 4 * TR;  // [4 row blocks][64]
   auto R = [&](int k) { return rs + k * TR; };
-  auto W = [&](int slot, int k) { return sW + (slot * W_N + k) * TILE_F; };
+  auto Wt = [&](int slot, int k) { return sW + (slot * W_N + k) * WT<W>; };
 
   const int tid = threadIdx.x;
   const Lane L = lane_of();
   const int node0 = blockIdx.x * TR;
-  const size_t WW = (size_t)HID * HID;
+  const size_t WW = (size_t)W * W;
   auto load_channel = [&](int slot, int c) {
-    tile_load_async(W(slot, W_1H), w1h + c * WW);
-    tile_load_async(W(slot, W_2), w2 + c * WW);
-    tile_load_async(W(slot, W_G1), wg1 + c * WW);
-    tile_load_async(W(slot, W_Z1), wz1 + c * WW);
-    load_virtual_vecs(sVec + slot * NVEC * HID, c, w1d, c1, b2, bg1, wg2, bz1,
-                      wz2);
+    tile_load_async<W>(Wt(slot, W_1H), w1h + c * WW);
+    tile_load_async<W>(Wt(slot, W_2), w2 + c * WW);
+    tile_load_async<W>(Wt(slot, W_G1), wg1 + c * WW);
+    tile_load_async<W>(Wt(slot, W_Z1), wz1 + c * WW);
+    load_virtual_vecs<W>(sVec + slot * NVEC * W, c, w1d, c1, b2, bg1, wg2,
+                         bz1, wz2);
     async_commit();
   };
   load_channel(0, 0);
-  tile_gather(tH, h,
-              [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  tile_gather<W>(tH, h,
+                 [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
   if (tid < TR) {
     const int i = node0 + tid;
     const bool ok = i < n_nodes;
@@ -96,16 +102,16 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     R(R_M)[tid] = ok ? mask[i] : 0.0f;
     R(R_DX0)[tid] = R(R_DX1)[tid] = R(R_DX2)[tid] = 0.0f;
   }
-  Frag mha;  // sum over channels of msg
-  frag_zero(mha);
+  Frag<W> mha;  // sum over channels of msg
+  frag_zero<W>(mha);
 
   for (int c = 0; c < n_chan; ++c) {
     const int slot = c & 1;
-    const float* vec = sVec + slot * NVEC * HID;
+    const float* vec = sVec + slot * NVEC * W;
     async_wait_all();
     __syncthreads();  // channel c's weights are in; channel c - 1 is done
     if (c + 1 < n_chan) load_channel(slot ^ 1, c + 1);
-    float* out = part + ((size_t)blockIdx.x * n_chan + c) * OUTW;
+    float* out = part + ((size_t)blockIdx.x * n_chan + c) * OUTW<W>;
     if (tid < TR) {
       const float rl0 = R(R_X0)[tid] - z[3 * c];
       const float rl1 = R(R_X1)[tid] - z[3 * c + 1];
@@ -117,59 +123,59 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     }
     __syncthreads();
     {  // t1 = SiLU(h.W1h + d2 w1d + const1)
-      Frag p;
-      frag_zero(p);
-      tile_mma<false, false, true>(p, tH, W(slot, W_1H), L);
+      Frag<W> p;
+      frag_zero<W>(p);
+      tile_mma<W, false, false, true>(p, tH, Wt(slot, W_1H), L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = L.col(jn, e);
+          const int j = L.col<W>(jn, e);
           const float u =
-              (p[jn][e] + R(R_D2)[L.row(e)] * vec[V_W1D * HID + j]) +
-              vec[V_C1 * HID + j];
+              (p[jn][e] + R(R_D2)[L.row(e)] * vec[V_W1D * W + j]) +
+              vec[V_C1 * W + j];
           p[jn][e] = u * sigm(u);
         }
-      frag_store(tT1, p, L);
+      frag_store<W>(tT1, p, L);
     }
     __syncthreads();
     {  // msg = t1.W2 + b2; mh += msg; the masked column sums of msg
-      Frag m, w;
-      frag_zero(m);
-      tile_mma<false, false, true>(m, tT1, W(slot, W_2), L);
+      Frag<W> m, w;
+      frag_zero<W>(m);
+      tile_mma<W, false, false, true>(m, tT1, Wt(slot, W_2), L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = L.row(e);
-          m[jn][e] += vec[V_B2 * HID + L.col(jn, e)];
+          m[jn][e] += vec[V_B2 * W + L.col<W>(jn, e)];
           mha[jn][e] += m[jn][e];
           w[jn][e] = node0 + r < n_nodes ? m[jn][e] * R(R_M)[r] : 0.0f;
         }
-      frag_store(tMSG, m, L);
-      frag_colsum(w, L, colred);
+      frag_store<W>(tMSG, m, L);
+      frag_colsum<W>(w, L, colred);
     }
     __syncthreads();
     {  // the two gates: SiLU(msg.Wg1 + bg1) . wg2, SiLU(msg.Wz1 + bz1) . wz2
-      Frag gx, gz;
-      frag_zero(gx);
-      frag_zero(gz);
-      tile_mma<false, false, true>(gx, tMSG, W(slot, W_G1), L);
-      tile_mma<false, false, true>(gz, tMSG, W(slot, W_Z1), L);
+      Frag<W> gx, gz;
+      frag_zero<W>(gx);
+      frag_zero<W>(gz);
+      tile_mma<W, false, false, true>(gx, tMSG, Wt(slot, W_G1), L);
+      tile_mma<W, false, false, true>(gz, tMSG, Wt(slot, W_Z1), L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = L.col(jn, e);
-          const float u = gx[jn][e] + vec[V_BG1 * HID + j];
-          const float v = gz[jn][e] + vec[V_BZ1 * HID + j];
+          const int j = L.col<W>(jn, e);
+          const float u = gx[jn][e] + vec[V_BG1 * W + j];
+          const float v = gz[jn][e] + vec[V_BZ1 * W + j];
           // rounded on their own: a row's gate does not depend on its
           // tile row (no FMA fused into the row sum per fragment slot)
-          gx[jn][e] = __fmul_rn(u * sigm(u), vec[V_WG2 * HID + j]);
-          gz[jn][e] = __fmul_rn(v * sigm(v), vec[V_WZ2 * HID + j]);
+          gx[jn][e] = __fmul_rn(u * sigm(u), vec[V_WG2 * W + j]);
+          gz[jn][e] = __fmul_rn(v * sigm(v), vec[V_WZ2 * W + j]);
         }
-      frag_rowsum(gx, L, rowred);
-      frag_rowsum(gz, L, rowred + 2 * TR);
+      frag_rowsum<W>(gx, L, rowred);
+      frag_rowsum<W>(gz, L, rowred + 2 * TR);
     }
     __syncthreads();
     if (tid < TR) {
@@ -183,8 +189,8 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
         R(R_DX0 + k)[tid] += rl * gxr;
         R(R_DZ0 + k)[tid] = ok ? (-rl * gzr) * m : 0.0f;
       }
-      out[3 + tid] = colsum4(colred, tid);  // ms
     }
+    if (tid < W) out[3 + tid] = colsum4(colred, tid);  // ms
     __syncthreads();
     if (tid < 3) {  // dz: the tile's nodes in order
       float s = 0.0f;
@@ -195,12 +201,12 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
 
   const float inv_c = 1.0f / (float)n_chan;
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn)
+  for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int i = node0 + L.row(2 * h2);
       if (i < n_nodes)
-        *reinterpret_cast<float2*>(mh + (size_t)i * HID + L.col(jn, 0)) =
+        *reinterpret_cast<float2*>(mh + (size_t)i * W + L.col<W>(jn, 0)) =
             make_float2(mha[jn][2 * h2] * inv_c, mha[jn][2 * h2 + 1] * inv_c);
     }
   if (tid < TR && node0 + tid < n_nodes) {
@@ -219,11 +225,12 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
 __global__ void virtual_block_sums(const float* __restrict__ part,
                                    float* __restrict__ dz,
                                    float* __restrict__ ms, int n_blocks,
-                                   int n_chan) {
+                                   int n_chan, int width) {
+  const int outw = 3 + width;
   const int idx = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (idx >= n_chan * OUTW) return;  // whole warps leave together
-  const size_t stride = (size_t)n_chan * OUTW;
+  if (idx >= n_chan * outw) return;  // whole warps leave together
+  const size_t stride = (size_t)n_chan * outw;
   float s = 0.0f;
   for (int b0 = 0; b0 < n_blocks; b0 += 128) {
     float v[4];
@@ -243,14 +250,37 @@ __global__ void virtual_block_sums(const float* __restrict__ part,
     }
   }
   if (lane == 0) {
-    const int c = idx / OUTW, f = idx % OUTW;
+    const int c = idx / outw, f = idx % outw;
     if (f < 3) dz[c * 3 + f] = s;
-    else ms[c * HID + (f - 3)] = s;
+    else ms[c * width + (f - 3)] = s;
   }
+}
+
+template <int W>
+int launch_forward(const float* x, const float* h, const float* z,
+                   const float* mask, const float* w1h, const float* w1d,
+                   const float* c1, const float* w2, const float* b2,
+                   const float* wg1, const float* bg1, const float* wg2,
+                   const float* wz1, const float* bz1, const float* wz2,
+                   float* dx, float* mh, float* part, int n_nodes, int n_chan,
+                   cudaStream_t stream) {
+  const size_t smem = SMEM_FLOATS<W> * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      virtual_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_blocks = n_tiles(n_nodes);
+  if (n_blocks > 0) {
+    virtual_fwd_kernel<W><<<n_blocks, THREADS, smem, stream>>>(
+        x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2, dx,
+        mh, part, n_nodes, n_chan);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// width: the compiled width (32 or 64) that Dh and hid were padded to
 extern "C" int virtual_forward(const float* x, const float* h, const float* z,
                                const float* mask, const float* w1h,
                                const float* w1d, const float* c1,
@@ -259,34 +289,28 @@ extern "C" int virtual_forward(const float* x, const float* h, const float* z,
                                const float* wg2, const float* wz1,
                                const float* bz1, const float* wz2, float* dx,
                                float* mh, float* part, int n_nodes,
-                               int n_chan, void* stream) {
+                               int n_chan, int width, void* stream) {
   if (!(aligned16(h) && aligned16(w1h) && aligned16(w2) && aligned16(wg1) &&
         aligned16(wz1) && aligned16(mh)))
     return (int)cudaErrorMisalignedAddress;
-  const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      virtual_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_blocks = n_tiles(n_nodes);
-  if (n_blocks > 0) {
-    virtual_fwd_kernel<<<n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  return with_width(width, [&](auto w) {
+    return launch_forward<decltype(w)::value>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2, dx,
-        mh, part, n_nodes, n_chan);
-  }
-  return (int)cudaGetLastError();
+        mh, part, n_nodes, n_chan, (cudaStream_t)stream);
+  });
 }
 
 extern "C" int virtual_sums(const float* part, float* dz, float* ms,
-                            int n_blocks, int n_chan, void* stream) {
-  const int warps = n_chan * OUTW;  // one a column
+                            int n_blocks, int n_chan, int width,
+                            void* stream) {
+  const int warps = n_chan * (3 + width);  // one a column
   virtual_block_sums<<<(warps + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
-      part, dz, ms, n_blocks, n_chan);
+      part, dz, ms, n_blocks, n_chan, width);
   return (int)cudaGetLastError();
 }
 
 extern "C" int virtual_nodes_per_block() { return TR; }
-extern "C" int virtual_partial_width() { return OUTW; }
+extern "C" int virtual_partial_width(int width) { return 3 + width; }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -30,7 +30,9 @@
 // slots, Wg1 / Wz1 / W2 of channel c + 1 load while channel c finishes.
 // Shared memory: 5 weight tiles, 6 activation tiles (h, t1, msg, g_gpx,
 // g_gpz -- later g_pre1 --, g_msg), row scalars and reduction rows:
-// ~194 KB, one CTA per SM; N = 8,192 gives 128 CTAs for 132 SMs.
+// ~194 KB at Dh = hid = 64 (~80 KB at 32), one CTA per SM; N = 8,192
+// gives 128 CTAs for 132 SMs.  Widths: compiled for W = 32 and 64, as
+// virtual_message.cu.
 //
 // Bound on an H100: per node and channel twelve 64 x 64 products (four
 // recomputed, four cotangents, four weight gradients), ~98K FLOP against
@@ -48,18 +50,23 @@ namespace {
 
 // partial of one CTA and channel: W1h | W2 | Wg1 | Wz1 | c1 | b2 | bg1 |
 // bz1 | w1d | wg2 | wz2 | dz (3) + 1 pad
-constexpr int P_W1H = 0, P_W2 = 4096, P_WG1 = 8192, P_WZ1 = 12288;
-constexpr int P_C1 = 16384, P_B2 = P_C1 + 64, P_BG1 = P_B2 + 64,
-              P_BZ1 = P_BG1 + 64, P_W1D = P_BZ1 + 64, P_WG2 = P_W1D + 64,
-              P_WZ2 = P_WG2 + 64, P_DZ = P_WZ2 + 64;
-constexpr int PART = P_DZ + 4;
+// (the matrices W x W, the vectors W long)
+template <int W>
+struct VirtPart {
+  static constexpr int W1H = 0, W2 = W * W, WG1 = 2 * W * W, WZ1 = 3 * W * W,
+                       C1 = 4 * W * W, B2 = C1 + W, BG1 = B2 + W,
+                       BZ1 = BG1 + W, W1D = BZ1 + W, WG2 = W1D + W,
+                       WZ2 = WG2 + W, DZ = WZ2 + W, size = DZ + 4;
+};
 // row scalars (64 each)
 enum { R_X0 = 0, R_X1, R_X2, R_M, R_UX0, R_UX1, R_UX2, R_RL0, R_RL1, R_RL2,
        R_D2, R_GGX, R_GGZ, R_GX, R_GZ, R_DX0, R_DX1, R_DX2, R_GR0, R_GR1,
        R_GR2, R_N };
-constexpr int SMEM_FLOATS = 5 * TILE_F + 2 * NVEC * HID + 6 * TILE_F +
+template <int W>
+constexpr int SMEM_FLOATS = 5 * WT<W> + 2 * NVEC * W + 6 * RT<W> +
                             R_N * TR + 2 * 2 * TR + 4 * 4 * TR;
 
+template <int W>
 __global__ void __launch_bounds__(THREADS, 1)
 virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ z, const float* __restrict__ mask,
@@ -75,18 +82,19 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    int n_nodes, int n_chan) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* sW1h[2] = {smem, smem + TILE_F};
-  float* sW2 = smem + 2 * TILE_F;
-  float* sWg1 = sW2 + TILE_F;
-  float* sWz1 = sWg1 + TILE_F;
-  float* sVec[2] = {sWz1 + TILE_F, sWz1 + TILE_F + NVEC * HID};
-  float* tH = sVec[1] + NVEC * HID;
-  float* tT1 = tH + TILE_F;
-  float* tMSG = tT1 + TILE_F;
-  float* tGX = tMSG + TILE_F;  // g_gpx, then g_pre1
-  float* tGZ = tGX + TILE_F;
-  float* tGM = tGZ + TILE_F;
-  float* rs = tGM + TILE_F;           // [R_N][64] row scalars
+  using VP = VirtPart<W>;
+  float* sW1h[2] = {smem, smem + WT<W>};
+  float* sW2 = smem + 2 * WT<W>;
+  float* sWg1 = sW2 + WT<W>;
+  float* sWz1 = sWg1 + WT<W>;
+  float* sVec[2] = {sWz1 + WT<W>, sWz1 + WT<W> + NVEC * W};
+  float* tH = sVec[1] + NVEC * W;
+  float* tT1 = tH + RT<W>;
+  float* tMSG = tT1 + RT<W>;
+  float* tGX = tMSG + RT<W>;  // g_gpx, then g_pre1
+  float* tGZ = tGX + RT<W>;
+  float* tGM = tGZ + RT<W>;
+  float* rs = tGM + RT<W>;            // [R_N][64] row scalars
   float* rowred = rs + R_N * TR;      // [2 sums][2 halves][64]
   float* colred = rowred + 4 * TR;    // [4 sums][4 row blocks][64]
   auto R = [&](int k) { return rs + k * TR; };
@@ -97,16 +105,17 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   const float inv_c = 1.0f / (float)n_chan;
 
   auto load_vecs = [&](float* dst, int c) {
-    load_virtual_vecs(dst, c, w1d, c1, b2, bg1, wg2, bz1, wz2);
+    load_virtual_vecs<W>(dst, c, w1d, c1, b2, bg1, wg2, bz1, wz2);
   };
-  const size_t WW = (size_t)HID * HID;
-  tile_load_async(sW1h[0], w1h);
-  tile_load_async(sW2, w2);
-  tile_load_async(sWg1, wg1);
-  tile_load_async(sWz1, wz1);
+  const size_t WW = (size_t)W * W;
+  tile_load_async<W>(sW1h[0], w1h);
+  tile_load_async<W>(sW2, w2);
+  tile_load_async<W>(sWg1, wg1);
+  tile_load_async<W>(sWz1, wz1);
   load_vecs(sVec[0], 0);
   async_commit();
-  tile_gather(tH, h, [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  tile_gather<W>(tH, h,
+                 [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
   if (tid < TR) {
     const int i = node0 + tid;
     const bool ok = i < n_nodes;
@@ -119,8 +128,8 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     R(R_UX2)[tid] = ok ? gdx[3 * i + 2] * inv_c : 0.0f;
     R(R_DX0)[tid] = R(R_DX1)[tid] = R(R_DX2)[tid] = 0.0f;
   }
-  Frag dh;
-  frag_zero(dh);
+  Frag<W> dh;
+  frag_zero<W>(dh);
 
   for (int c = 0; c < n_chan; ++c) {
     const int buf = c & 1;
@@ -129,11 +138,11 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     async_wait_all();
     __syncthreads();  // channel c's weights are in; channel c - 1 is done
     if (c + 1 < n_chan) {
-      tile_load_async(sW1h[buf ^ 1], w1h + (c + 1) * WW);
+      tile_load_async<W>(sW1h[buf ^ 1], w1h + (c + 1) * WW);
       load_vecs(sVec[buf ^ 1], c + 1);
       async_commit();
     }
-    float* P = part + ((size_t)blockIdx.x * n_chan + c) * PART;
+    float* P = part + ((size_t)blockIdx.x * n_chan + c) * VP::size;
     if (tid < TR) {
       const float rl0 = R(R_X0)[tid] - z[3 * c];
       const float rl1 = R(R_X1)[tid] - z[3 * c + 1];
@@ -150,165 +159,169 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     }
     __syncthreads();
     // ---- recompute: pre = h.W1h + d2 w1d + c1, t1 = silu(pre) ----------
-    Frag pre;  // then silu'(pre)
-    frag_zero(pre);
-    tile_mma<false, false>(pre, tH, W1h, L);
+    Frag<W> pre;  // then silu'(pre)
+    frag_zero<W>(pre);
+    tile_mma<W, false, false>(pre, tH, W1h, L);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
+    for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = L.row(e), j = L.col(jn, e);
-        pre[jn][e] = (pre[jn][e] + R(R_D2)[r] * vec[V_W1D * HID + j]) +
-                     vec[V_C1 * HID + j];
+        const int r = L.row(e), j = L.col<W>(jn, e);
+        pre[jn][e] = (pre[jn][e] + R(R_D2)[r] * vec[V_W1D * W + j]) +
+                     vec[V_C1 * W + j];
       }
     {
-      Frag t1;
+      Frag<W> t1;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) silu_both(pre[jn][e], t1[jn][e], pre[jn][e]);
-      frag_store(tT1, t1, L);
+      frag_store<W>(tT1, t1, L);
     }
     __syncthreads();
     // ---- msg = t1.W2 + b2 -------------------------------------------------
     {
-      Frag m;
-      frag_zero(m);
-      tile_mma<false, false>(m, tT1, sW2, L);
+      Frag<W> m;
+      frag_zero<W>(m);
+      tile_mma<W, false, false>(m, tT1, sW2, L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) m[jn][e] += vec[V_B2 * HID + L.col(jn, e)];
-      frag_store(tMSG, m, L);
+        for (int e = 0; e < 4; ++e) m[jn][e] += vec[V_B2 * W + L.col<W>(jn, e)];
+      frag_store<W>(tMSG, m, L);
     }
     __syncthreads();
     // ---- the two gate MLPs and their cotangents -------------------------
     {
-      Frag px, pz;
-      frag_zero(px);
-      frag_zero(pz);
-      tile_mma<false, false>(px, tMSG, sWg1, L);
-      tile_mma<false, false>(pz, tMSG, sWz1, L);
-      Frag sx, sz;  // silu(px), silu(pz); px, pz become their derivatives
+      Frag<W> px, pz;
+      frag_zero<W>(px);
+      frag_zero<W>(pz);
+      tile_mma<W, false, false>(px, tMSG, sWg1, L);
+      tile_mma<W, false, false>(pz, tMSG, sWz1, L);
+      Frag<W> sx, sz;  // silu(px), silu(pz); px, pz become their derivatives
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = L.col(jn, e);
-          silu_both(px[jn][e] + vec[V_BG1 * HID + j], sx[jn][e], px[jn][e]);
-          silu_both(pz[jn][e] + vec[V_BZ1 * HID + j], sz[jn][e], pz[jn][e]);
+          const int j = L.col<W>(jn, e);
+          silu_both(px[jn][e] + vec[V_BG1 * W + j], sx[jn][e], px[jn][e]);
+          silu_both(pz[jn][e] + vec[V_BZ1 * W + j], sz[jn][e], pz[jn][e]);
         }
-      Frag wx, wz;
+      Frag<W> wx, wz;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = L.col(jn, e);
-          wx[jn][e] = sx[jn][e] * vec[V_WG2 * HID + j];
-          wz[jn][e] = sz[jn][e] * vec[V_WZ2 * HID + j];
+          const int j = L.col<W>(jn, e);
+          wx[jn][e] = sx[jn][e] * vec[V_WG2 * W + j];
+          wz[jn][e] = sz[jn][e] * vec[V_WZ2 * W + j];
         }
-      frag_rowsum(wx, L, rowred);
-      frag_rowsum(wz, L, rowred + 2 * TR);
-      Frag qx, qz;
+      frag_rowsum<W>(wx, L, rowred);
+      frag_rowsum<W>(wz, L, rowred + 2 * TR);
+      Frag<W> qx, qz;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = L.row(e), j = L.col(jn, e);
+          const int r = L.row(e), j = L.col<W>(jn, e);
           const float ggx = R(R_GGX)[r], ggz = R(R_GGZ)[r];
-          qx[jn][e] = (ggx * vec[V_WG2 * HID + j]) * px[jn][e];
-          qz[jn][e] = (ggz * vec[V_WZ2 * HID + j]) * pz[jn][e];
+          qx[jn][e] = (ggx * vec[V_WG2 * W + j]) * px[jn][e];
+          qz[jn][e] = (ggz * vec[V_WZ2 * W + j]) * pz[jn][e];
           sx[jn][e] *= ggx;
           sz[jn][e] *= ggz;
         }
-      frag_store(tGX, qx, L);
-      frag_store(tGZ, qz, L);
-      frag_colsum(qx, L, colred);
-      frag_colsum(qz, L, colred + 4 * TR);
-      frag_colsum(sx, L, colred + 8 * TR);
-      frag_colsum(sz, L, colred + 12 * TR);
+      frag_store<W>(tGX, qx, L);
+      frag_store<W>(tGZ, qz, L);
+      frag_colsum<W>(qx, L, colred);
+      frag_colsum<W>(qz, L, colred + 4 * TR);
+      frag_colsum<W>(sx, L, colred + 8 * TR);
+      frag_colsum<W>(sz, L, colred + 12 * TR);
     }
     __syncthreads();
     if (tid < TR) {
       R(R_GX)[tid] = rowred[tid] + rowred[TR + tid];
       R(R_GZ)[tid] = rowred[2 * TR + tid] + rowred[3 * TR + tid];
-      P[P_BG1 + tid] = colsum4(colred, tid);
-      P[P_BZ1 + tid] = colsum4(colred + 4 * TR, tid);
-      P[P_WG2 + tid] = colsum4(colred + 8 * TR, tid);
-      P[P_WZ2 + tid] = colsum4(colred + 12 * TR, tid);
+    }
+    if (tid < W) {
+      P[VP::BG1 + tid] = colsum4(colred, tid);
+      P[VP::BZ1 + tid] = colsum4(colred + 4 * TR, tid);
+      P[VP::WG2 + tid] = colsum4(colred + 8 * TR, tid);
+      P[VP::WZ2 + tid] = colsum4(colred + 12 * TR, tid);
     }
     // ---- g_msg = g_mh / C + m g_ms + g_gpx.Wg1^T + g_gpz.Wz1^T ----------
     {
-      Frag gm;
-      frag_zero(gm);
-      tile_mma<false, true>(gm, tGX, sWg1, L);
-      tile_mma<false, true>(gm, tGZ, sWz1, L);
+      Frag<W> gm;
+      frag_zero<W>(gm);
+      tile_mma<W, false, true>(gm, tGX, sWg1, L);
+      tile_mma<W, false, true>(gm, tGZ, sWz1, L);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
-          const int r = L.row(2 * h2), j = L.col(jn, 0);
+          const int r = L.row(2 * h2), j = L.col<W>(jn, 0);
           const int i = node0 + r;
           float2 g = make_float2(0.f, 0.f);
           if (i < n_nodes)
-            g = *reinterpret_cast<const float2*>(gmh + (size_t)i * HID + j);
+            g = *reinterpret_cast<const float2*>(gmh + (size_t)i * W + j);
           const float m = R(R_M)[r];
-          gm[jn][2 * h2] += g.x * inv_c + m * gms[c * HID + j];
-          gm[jn][2 * h2 + 1] += g.y * inv_c + m * gms[c * HID + j + 1];
+          gm[jn][2 * h2] += g.x * inv_c + m * gms[c * W + j];
+          gm[jn][2 * h2 + 1] += g.y * inv_c + m * gms[c * W + j + 1];
         }
-      frag_store(tGM, gm, L);
+      frag_store<W>(tGM, gm, L);
       __syncthreads();  // colred / rowred reads above are done
-      frag_colsum(gm, L, colred);
+      frag_colsum<W>(gm, L, colred);
     }
     __syncthreads();
-    if (tid < TR) P[P_B2 + tid] = colsum4(colred, tid);
+    if (tid < W) P[VP::B2 + tid] = colsum4(colred, tid);
     // ---- weight partials of the message and gate MLPs ----------------
     {
-      Frag a;
-      frag_zero(a);
-      tile_mma<true, false>(a, tMSG, tGX, L);
-      frag_store_global(P + P_WG1, a, L);
-      frag_zero(a);
-      tile_mma<true, false>(a, tMSG, tGZ, L);
-      frag_store_global(P + P_WZ1, a, L);
-      frag_zero(a);
-      tile_mma<true, false>(a, tT1, tGM, L);
-      frag_store_global(P + P_W2, a, L);
+      Frag<W> a;
+      frag_zero<W>(a);
+      tile_mma<W, true, false>(a, tMSG, tGX, L);
+      frag_store_global<W>(P + VP::WG1, a, L);
+      frag_zero<W>(a);
+      tile_mma<W, true, false>(a, tMSG, tGZ, L);
+      frag_store_global<W>(P + VP::WZ1, a, L);
+      frag_zero<W>(a);
+      tile_mma<W, true, false>(a, tT1, tGM, L);
+      frag_store_global<W>(P + VP::W2, a, L);
     }
     // ---- g_pre1 = (g_msg.W2^T) silu'(pre) ----------------------------------
-    Frag gp;
-    frag_zero(gp);
-    tile_mma<false, true>(gp, tGM, sW2, L);
+    Frag<W> gp;
+    frag_zero<W>(gp);
+    tile_mma<W, false, true>(gp, tGM, sW2, L);
     __syncthreads();  // msg / g_gpx / g_gpz / Wg1 / Wz1 / colred are free
     if (c + 1 < n_chan) {
-      tile_load_async(sWg1, wg1 + (c + 1) * WW);
-      tile_load_async(sWz1, wz1 + (c + 1) * WW);
+      tile_load_async<W>(sWg1, wg1 + (c + 1) * WW);
+      tile_load_async<W>(sWz1, wz1 + (c + 1) * WW);
       async_commit();
     }
     {
-      Frag dg, gw;
+      Frag<W> dg, gw;
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn)
+      for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = L.row(e), j = L.col(jn, e);
+          const int r = L.row(e), j = L.col<W>(jn, e);
           gp[jn][e] *= pre[jn][e];
           dg[jn][e] = R(R_D2)[r] * gp[jn][e];
-          gw[jn][e] = gp[jn][e] * vec[V_W1D * HID + j];
+          gw[jn][e] = gp[jn][e] * vec[V_W1D * W + j];
         }
-      frag_store(tGX, gp, L);
-      frag_rowsum(gw, L, rowred);
-      frag_colsum(gp, L, colred);
-      frag_colsum(dg, L, colred + 4 * TR);
+      frag_store<W>(tGX, gp, L);
+      frag_rowsum<W>(gw, L, rowred);
+      frag_colsum<W>(gp, L, colred);
+      frag_colsum<W>(dg, L, colred + 4 * TR);
     }
     __syncthreads();
     if (c + 1 < n_chan) {
-      tile_load_async(sW2, w2 + (c + 1) * WW);
+      tile_load_async<W>(sW2, w2 + (c + 1) * WW);
       async_commit();
     }
+    if (tid < W) {
+      P[VP::C1 + tid] = colsum4(colred, tid);
+      P[VP::W1D + tid] = colsum4(colred + 4 * TR, tid);
+    }
     if (tid < TR) {
-      P[P_C1 + tid] = colsum4(colred, tid);
-      P[P_W1D + tid] = colsum4(colred + 4 * TR, tid);
       const float g_d2 = rowred[tid] + rowred[TR + tid];
       const float m = R(R_M)[tid];
       const float gxr = R(R_GX)[tid], gzr = R(R_GZ)[tid];
@@ -323,28 +336,28 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
       }
     }
     // ---- dh += g_pre1.W1h^T; the W1h partial h^T g_pre1 ----------------
-    tile_mma<false, true>(dh, tGX, W1h, L);
+    tile_mma<W, false, true>(dh, tGX, W1h, L);
     {
-      Frag a;
-      frag_zero(a);
-      tile_mma<true, false>(a, tH, tGX, L);
-      frag_store_global(P + P_W1H, a, L);
+      Frag<W> a;
+      frag_zero<W>(a);
+      tile_mma<W, true, false>(a, tH, tGX, L);
+      frag_store_global<W>(P + VP::W1H, a, L);
     }
     __syncthreads();
     if (tid < 3) {  // dz: nodes in order
       float s = 0.0f;
       for (int r = 0; r < TR; ++r) s += R(R_GR0 + tid)[r];
-      P[P_DZ + tid] = -s;
+      P[VP::DZ + tid] = -s;
     }
   }
 
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn)
+  for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int i = node0 + L.row(2 * h2);
       if (i < n_nodes)
-        *reinterpret_cast<float2*>(gh + (size_t)i * HID + L.col(jn, 0)) =
+        *reinterpret_cast<float2*>(gh + (size_t)i * W + L.col<W>(jn, 0)) =
             make_float2(dh[jn][2 * h2], dh[jn][2 * h2 + 1]);
     }
   if (tid < TR && node0 + tid < n_nodes) {
@@ -361,35 +374,71 @@ struct Outs {
 };
 
 // every weight gradient and dz: the CTAs' partials added in CTA order
+template <int W>
 __global__ void virtual_bwd_reduce(const float* __restrict__ part, Outs o,
                                    int n_blocks, int n_chan) {
+  using VP = VirtPart<W>;
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= n_chan * PART) return;
-  const int c = f / PART, k = f % PART;
-  if (k >= P_DZ + 3) return;
-  const float s = sum_strided(part + (size_t)c * PART + k,
-                              (size_t)n_chan * PART, n_blocks);
-  const size_t mo = (size_t)c * HID * HID, vo = (size_t)c * HID;
-  if (k < P_W2) o.gw1h[mo + k] = s;
-  else if (k < P_WG1) o.gw2[mo + k - P_W2] = s;
-  else if (k < P_WZ1) o.gwg1[mo + k - P_WG1] = s;
-  else if (k < P_C1) o.gwz1[mo + k - P_WZ1] = s;
-  else if (k < P_B2) o.gc1[vo + k - P_C1] = s;
-  else if (k < P_BG1) o.gb2[vo + k - P_B2] = s;
-  else if (k < P_BZ1) o.gbg1[vo + k - P_BG1] = s;
-  else if (k < P_W1D) o.gbz1[vo + k - P_BZ1] = s;
-  else if (k < P_WG2) o.gw1d[vo + k - P_W1D] = s;
-  else if (k < P_WZ2) o.gwg2[vo + k - P_WG2] = s;
-  else if (k < P_DZ) o.gwz2[vo + k - P_WZ2] = s;
-  else o.gz[3 * c + k - P_DZ] = s;
+  if (f >= n_chan * VP::size) return;
+  const int c = f / VP::size, k = f % VP::size;
+  if (k >= VP::DZ + 3) return;
+  const float s = sum_strided(part + (size_t)c * VP::size + k,
+                              (size_t)n_chan * VP::size, n_blocks);
+  const size_t mo = (size_t)c * W * W, vo = (size_t)c * W;
+  if (k < VP::W2) o.gw1h[mo + k] = s;
+  else if (k < VP::WG1) o.gw2[mo + k - VP::W2] = s;
+  else if (k < VP::WZ1) o.gwg1[mo + k - VP::WG1] = s;
+  else if (k < VP::C1) o.gwz1[mo + k - VP::WZ1] = s;
+  else if (k < VP::B2) o.gc1[vo + k - VP::C1] = s;
+  else if (k < VP::BG1) o.gb2[vo + k - VP::B2] = s;
+  else if (k < VP::BZ1) o.gbg1[vo + k - VP::BG1] = s;
+  else if (k < VP::W1D) o.gbz1[vo + k - VP::BZ1] = s;
+  else if (k < VP::WG2) o.gw1d[vo + k - VP::W1D] = s;
+  else if (k < VP::WZ2) o.gwg2[vo + k - VP::WG2] = s;
+  else if (k < VP::DZ) o.gwz2[vo + k - VP::WZ2] = s;
+  else o.gz[3 * c + k - VP::DZ] = s;
+}
+
+template <int W>
+int launch_backward(const float* x, const float* h, const float* z,
+                    const float* mask, const float* w1h, const float* w1d,
+                    const float* c1, const float* w2, const float* b2,
+                    const float* wg1, const float* bg1, const float* wg2,
+                    const float* wz1, const float* bz1, const float* wz2,
+                    const float* gdx, const float* gmh, const float* gdz,
+                    const float* gms, float* gx, float* gh, const Outs& o,
+                    float* scratch, int n_nodes, int n_chan,
+                    cudaStream_t stream) {
+  const size_t smem = SMEM_FLOATS<W> * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      virtual_bwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_blocks = n_tiles(n_nodes);
+  if (n_blocks > 0) {
+    virtual_bwd_kernel<W><<<n_blocks, THREADS, smem, stream>>>(
+        x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2,
+        gdx, gmh, gdz, gms, gx, gh, scratch, n_nodes, n_chan);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int total = n_chan * VirtPart<W>::size;
+  virtual_bwd_reduce<W><<<(total + 255) / 256, 256, 0, stream>>>(
+      scratch, o, n_blocks, n_chan);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" long long virtual_bwd_scratch_floats(int n_nodes, int n_chan) {
-  return (long long)n_tiles(n_nodes) * n_chan * PART;
+extern "C" long long virtual_bwd_scratch_floats(int n_nodes, int n_chan,
+                                                int width) {
+  const long long per = (long long)n_tiles(n_nodes) * n_chan;
+  if (width == 32) return per * VirtPart<32>::size;
+  if (width == 64) return per * VirtPart<64>::size;
+  return -1;
 }
 
+// width: the compiled width (32 or 64) that Dh and hid were padded to
 extern "C" int virtual_backward(
     const float* x, const float* h, const float* z, const float* mask,
     const float* w1h, const float* w1d, const float* c1, const float* w2,
@@ -399,30 +448,19 @@ extern "C" int virtual_backward(
     float* gh, float* gz, float* gw1h, float* gw1d, float* gc1, float* gw2,
     float* gb2, float* gwg1, float* gbg1, float* gwg2, float* gwz1,
     float* gbz1, float* gwz2, float* scratch, int n_nodes, int n_chan,
-    void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+    int width, void* stream_ptr) {
   if (!(aligned16(h) && aligned16(w1h) && aligned16(w2) && aligned16(wg1) &&
         aligned16(wz1) && aligned16(gmh) && aligned16(gh) &&
         aligned16(scratch)))
     return (int)cudaErrorMisalignedAddress;
-  const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      virtual_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_blocks = n_tiles(n_nodes);
-  if (n_blocks > 0) {
-    virtual_bwd_kernel<<<n_blocks, THREADS, smem, stream>>>(
+  const Outs o{gz, gw1h, gw1d, gc1, gw2, gb2, gwg1, gbg1, gwg2, gwz1, gbz1,
+               gwz2};
+  return with_width(width, [&](auto w) {
+    return launch_backward<decltype(w)::value>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2,
-        gdx, gmh, gdz, gms, gx, gh, scratch, n_nodes, n_chan);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  Outs o{gz, gw1h, gw1d, gc1, gw2, gb2, gwg1, gbg1, gwg2, gwz1, gbz1, gwz2};
-  const int total = n_chan * PART;
-  virtual_bwd_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
-      scratch, o, n_blocks, n_chan);
-  return (int)cudaGetLastError();
+        gdx, gmh, gdz, gms, gx, gh, o, scratch, n_nodes, n_chan,
+        (cudaStream_t)stream_ptr);
+  });
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("edge_message", "virtual_message", "edge_message_bwd",
-           "virtual_message_bwd", "edge_identity", "mmd_rbf",
+           "virtual_message_bwd", "edge_identity", "panel", "mmd_rbf",
            "swa_attention", "swa_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -20,11 +20,21 @@ the sender permutation ``sperm`` / ``sptr`` of
 ``data.radius_graph.csr_sender_perm``.  For CPU tensors it runs
 :func:`edge_pathway_bwd_plain`.  ``bwd_launches`` counts its calls.
 
-Gate ``'identity'`` (RF: Dh = 1, SchNet's coordinate head: Dh = 64; H1 =
-64 and M = 1 for both) is its own pair of CUDA paths,
-``csrc/edge_identity.cu`` (the Pallas kernels' identity branch): two
-kernels a forward, four a backward, counted apart in
-``identity_launches`` / ``identity_bwd_launches``.
+Widths: the kernels are compiled for Dh = H1 = M = 32 and 64, every
+weight resident in shared memory.  Any other Dh, H1 and M up to 64 are
+zero-padded up to the next of them (h's columns, the weights' rows and
+columns, the biases: exact, a zero row or column adds +0 to every sum) and
+the outputs sliced back; above 64 the panel path of ``csrc/panel.cu``
+runs.  :func:`kernel_route` names the route for a set of widths and
+``route_launches`` counts calls per route.
+
+Gate ``'identity'`` (RF: Dh = 1, SchNet's coordinate head: Dh = hidden;
+M = 1 for both) is its own pair of CUDA paths, ``csrc/edge_identity.cu``
+(the Pallas kernels' identity branch), for H1 up to
+:data:`IDENTITY_MAX_H1`: two kernels a forward, four a backward, counted
+apart in ``identity_launches`` / ``identity_bwd_launches``.  A wider
+identity layer (the reference admits them for very small graphs) takes
+the panel path, counted as the other gates' calls are.
 Gradients flow through ``kernels.ops.EdgePathway``; both raw wrappers
 refuse inputs that require grad.
 """
@@ -32,12 +42,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, panel
 from repro_torch.kernels.ref import edge_pathway_ref
-from repro_torch.kernels.runtime import align16, require_f32
+from repro_torch.kernels.runtime import align16, pad_to, require_f32, unpad
 
 Tensor = torch.Tensor
 
@@ -51,8 +62,15 @@ bwd_launches = 0
 identity_launches = 0
 identity_bwd_launches = 0
 
-#: the width the CUDA kernel is compiled for (Dh = H1 = M = HG)
-KERNEL_WIDTH = 64
+#: the widths the tile kernels are compiled for, narrowest first
+COMPILED_WIDTHS = (32, 64)
+#: the widest φ1 hidden width of the identity kernels (32 columns a lane,
+#: at most 24 a lane)
+IDENTITY_MAX_H1 = 768
+#: calls per route since the last :func:`reset_launches`: the forward and
+#: the backward of gate 'mlp' / 'none' each add one to the route they took
+#: ("w32", "w64", "panel")
+route_launches: Counter = Counter()
 #: CTAs of the forward's edge pass; None: two an SM.  Each owns the
 #: receiver rows whose CSR segment starts in its equal share of the live
 #: slot range, so the outputs do not depend on this number
@@ -65,49 +83,69 @@ EDGE_BWD_CTAS = 256
 #: row.  Each row is summed by one warp, so the outputs do not depend on
 #: this number
 IDENTITY_CTAS = None
-#: the feature widths the identity kernels take (RF's zero column, 64)
-IDENTITY_DH = (1, 64)
 
 
 def reset_launches() -> None:
     global launches, bwd_launches, identity_launches, identity_bwd_launches
     launches = bwd_launches = identity_launches = identity_bwd_launches = 0
+    route_launches.clear()
+
+
+def kernel_route(*widths: int) -> str:
+    """The route the tile kernels take for these feature widths: ``"w32"``
+    or ``"w64"`` (the compiled width all of them fit, padded up to it) or
+    ``"panel"`` (any wider)."""
+    top = max(widths)
+    for w in COMPILED_WIDTHS:
+        if top <= w:
+            return f"w{w}"
+    return "panel"
+
+
+#: the panel path's gate modes
+GATE_CODE = {"none": 0, "mlp": 1, "identity": 2}
+
+
+def _route(gate_mode: str, dh: int, h1: int, m: int) -> str:
+    """The route of a call the identity kernels do not take: the tile
+    kernels' or (any identity layer wider than them) the panel path."""
+    return "panel" if gate_mode == "identity" else kernel_route(dh, h1, m)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.edge_fwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.edge_fwd_scratch_floats.argtypes = [ctypes.c_int] * 4
     lib.edge_fwd_scratch_floats.restype = ctypes.c_longlong
     lib.edge_forward.argtypes = ([ctypes.c_void_p] * 18
                                  + [ctypes.c_int] * 4
                                  + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_void_p])
+                                    ctypes.c_int, ctypes.c_void_p])
     lib.edge_forward.restype = ctypes.c_int
     lib.edge_fwd_blocks_per_sm.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.edge_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.edge_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
     lib.edge_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.edge_backward.argtypes = ([ctypes.c_void_p] * 31
                                   + [ctypes.c_int] * 4
                                   + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p])
+                                     ctypes.c_int, ctypes.c_void_p])
     lib.edge_backward.restype = ctypes.c_int
 
 
 def _bind_identity(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.idn_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.idn_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.idn_scratch_floats.restype = ctypes.c_longlong
     lib.edge_identity_forward.argtypes = ([ctypes.c_void_p] * 15
-                                          + [ctypes.c_int] * 4
+                                          + [ctypes.c_int] * 5
                                           + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_void_p])
     lib.edge_identity_forward.restype = ctypes.c_int
     lib.edge_identity_backward.argtypes = ([ctypes.c_void_p] * 25
-                                           + [ctypes.c_int] * 4
+                                           + [ctypes.c_int] * 5
                                            + [ctypes.c_float, ctypes.c_int,
                                               ctypes.c_void_p])
     lib.edge_identity_backward.restype = ctypes.c_int
@@ -166,33 +204,49 @@ def _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode, extra=()):
         raise ValueError(f"unknown rel_mode {rel_mode!r}")
 
 
-def _check_kernel_shapes(h, ws, gate_mode) -> int:
-    """Raise unless the CUDA kernels take these widths; return Dh."""
+def _kernel_widths(h, ws, gate_mode) -> tuple[int, int, int]:
+    """Raise unless the weights fit together; return ``(Dh, H1, M)``."""
     w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2 = ws
-    d = KERNEL_WIDTH
-    dh = h.shape[1]
+    dh, h1, m = h.shape[1], w1r.shape[1], w2.shape[1]
+    want = {"w1r": (w1r, (dh, h1)), "w1s": (w1s, (dh, h1)),
+            "w1d": (w1d, (1, h1)), "b1": (b1, (1, h1)), "w2": (w2, (h1, m)),
+            "b2": (b2, (1, m))}
     if gate_mode == "identity":
-        if dh not in IDENTITY_DH:
-            raise ValueError(f"CUDA identity edge kernel needs Dh in "
-                             f"{IDENTITY_DH} (width {d}), got {dh}")
-        want = {"h": (h, (h.shape[0], dh)), "w1r": (w1r, (dh, d)),
-                "w1s": (w1s, (dh, d)), "w1d": (w1d, (1, d)),
-                "b1": (b1, (1, d)), "w2": (w2, (d, 1)), "b2": (b2, (1, 1))}
-    else:
-        want = {"h": (h, (h.shape[0], d)), "w1r": (w1r, (d, d)),
-                "w1s": (w1s, (d, d)), "w1d": (w1d, (1, d)),
-                "b1": (b1, (1, d)), "w2": (w2, (d, d)), "b2": (b2, (1, d))}
-        if gate_mode == "mlp":
-            want.update(wg1=(wg1, (d, d)), bg1=(bg1, (1, d)),
-                        wg2=(wg2, (d, 1)))
+        if m != 1:
+            raise ValueError(f"the identity gate needs M = 1, got {m}")
+    elif gate_mode == "mlp":
+        want.update(wg1=(wg1, (m, h1)), bg1=(bg1, (1, h1)),
+                    wg2=(wg2, (h1, 1)))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"CUDA edge kernel needs {name} of shape {shape} "
-                             f"(width {d}), got {tuple(t.shape)}")
-    return dh
+            raise ValueError(f"CUDA edge kernel needs {name} of shape "
+                             f"{shape} (Dh {dh}, H1 {h1}, M {m}), got "
+                             f"{tuple(t.shape)}")
+    return dh, h1, m
 
 
-def _identity_forward(x, h, snd, em, indptr, ws, dh, rel_mode, clamp):
+def padded_widths(route: str, *widths: int) -> tuple:
+    """The widths as the route takes them: each the compiled width, or
+    (panel) each rounded up to a multiple of 64."""
+    if route == "panel":
+        return tuple(-(-v // 64) * 64 for v in widths)
+    return (int(route[1:]),) * len(widths)
+
+
+def _pad_weights(ws, gate_mode, d, h, m):
+    """The nine weights zero-padded to widths ``(Dh, H1, M) = (d, h, m)``
+    (the gate's only for gate 'mlp': the other gates do not read them)."""
+    w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2 = ws
+    out = [pad_to(w1r, d, h), pad_to(w1s, d, h), pad_to(w1d, 1, h),
+           pad_to(b1, 1, h), pad_to(w2, h, m), pad_to(b2, 1, m)]
+    if gate_mode == "mlp":
+        out += [pad_to(wg1, m, h), pad_to(bg1, 1, h), pad_to(wg2, h, 1)]
+    else:
+        out += [wg1, bg1, wg2]
+    return out
+
+
+def _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode, clamp):
     """The identity-gate CUDA forward: ``(dx, mh (N,1), deg)``."""
     global identity_launches
     lib = build.load("edge_identity", _bind_identity)
@@ -200,11 +254,12 @@ def _identity_forward(x, h, snd, em, indptr, ws, dh, rel_mode, clamp):
     n, e = x.shape[0], snd.shape[0]
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     dx, mh, deg = empty(n, 3), empty(n, 1), empty(n, 1)
-    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, 0)))
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 0)))
     ins = (x, h, snd, em, indptr, *ws[:6])
     ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
-    err = lib.edge_identity_forward(*ptrs, n, e, dh, int(rel_mode == "inv1p"),
-                                    float(clamp), IDENTITY_CTAS or 0,
+    err = lib.edge_identity_forward(*ptrs, n, e, dh, h1,
+                                    int(rel_mode == "inv1p"), float(clamp),
+                                    IDENTITY_CTAS or 0,
                                     build.stream_ptr(dev))
     build.check(lib, err, "edge_identity_forward")
     identity_launches += 1
@@ -212,24 +267,24 @@ def _identity_forward(x, h, snd, em, indptr, ws, dh, rel_mode, clamp):
 
 
 def _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws, deg, g_dx,
-                       g_mh, dh, rel_mode, clamp):
+                       g_mh, dh, h1, rel_mode, clamp):
     """The identity-gate CUDA backward: the 11 gradients (the gate's three
     are zeros: the identity branch has no gate weights)."""
     global identity_bwd_launches
     lib = build.load("edge_identity", _bind_identity)
     dev = x.device
     n, e = x.shape[0], snd.shape[0]
-    d = KERNEL_WIDTH
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     gx, gh = empty(n, 3), empty(n, dh)
-    gw1r, gw1s, gw1d, gb1 = empty(dh, d), empty(dh, d), empty(1, d), empty(1, d)
-    gw2, gb2 = empty(d, 1), empty(1, 1)
+    gw1r, gw1s = empty(dh, h1), empty(dh, h1)
+    gw1d, gb1 = empty(1, h1), empty(1, h1)
+    gw2, gb2 = empty(h1, 1), empty(1, 1)
     gates = tuple(torch.zeros_like(w) for w in ws[6:])
-    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, 1)))
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 1)))
     ins = (x, h, snd, em, indptr, sperm, sptr, *ws[:6], deg, g_dx, g_mh)
     outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2)
     ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
-    err = lib.edge_identity_backward(*ptrs, n, e, dh,
+    err = lib.edge_identity_backward(*ptrs, n, e, dh, h1,
                                      int(rel_mode == "inv1p"), float(clamp),
                                      IDENTITY_CTAS or 0,
                                      build.stream_ptr(dev))
@@ -246,11 +301,12 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
                        precision=None):
     """Edge forward over a receiver-sorted CSR layout → ``(dx, mh, deg)``.
 
-    CUDA tensors launch the kernels (f32, widths 64, gate 'mlp' or 'none';
-    scratch: P and Q, N x 64 each, and a row map of the slots) or, for gate
-    'identity', the identity kernels (Dh 1 or 64, H1 = 64, M = 1); anything
-    the kernels do not take raises.  CPU tensors run
-    :func:`edge_pathway_plain`.
+    CUDA tensors launch the kernels (f32, gate 'mlp' or 'none', any Dh,
+    H1 and M: :func:`kernel_route` picks the compiled width they are
+    padded to, or the panel path; scratch: P and Q, N x width each, and a
+    row map of the slots) or, for gate 'identity', the identity kernels
+    (any Dh, M = 1; the panel path above :data:`IDENTITY_MAX_H1`);
+    anything else raises.  CPU tensors run :func:`edge_pathway_plain`.
     """
     global launches
     require_f32(precision)
@@ -260,28 +316,36 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
         return edge_pathway_plain(x, h, snd, em, indptr, *ws,
                                   gate_mode=gate_mode, rel_mode=rel_mode,
                                   clamp=clamp)
-    dh = _check_kernel_shapes(h, ws, gate_mode)
-    if gate_mode == "identity":
-        return _identity_forward(x, h, snd, em, indptr, ws, dh, rel_mode,
+    dh, h1, m = _kernel_widths(h, ws, gate_mode)
+    if gate_mode == "identity" and h1 <= IDENTITY_MAX_H1:
+        return _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode,
                                  clamp)
-    lib = build.load("edge_message", _bind)
-    dev = x.device
+    route = _route(gate_mode, dh, h1, m)
+    d, hp, mp = padded_widths(route, dh, h1, m)
     n, e = x.shape[0], snd.shape[0]
-    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    dx, mh, deg = empty(n, 3), empty(n, KERNEL_WIDTH), empty(n, 1)
-    n_ctas = EDGE_FWD_CTAS or (
-        torch.cuda.get_device_properties(dev).multi_processor_count
-        * lib.edge_fwd_blocks_per_sm())
-    scratch = empty(int(lib.edge_fwd_scratch_floats(n, e, n_ctas)))
-    # the kernels read h and the 64x64 weights with 16-byte loads
-    ins = [align16(t) for t in (x, h, snd, em, indptr, *ws)]
-    ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
-    err = lib.edge_forward(*ptrs, n, e, int(gate_mode == "mlp"),
-                           int(rel_mode == "inv1p"), float(clamp), n_ctas,
-                           build.stream_ptr(dev))
-    build.check(lib, err, "edge_forward")
+    # the kernels read h and the weights with 16-byte loads
+    ins = [align16(t) for t in (x, pad_to(h, n, d), snd, em, indptr,
+                                *_pad_weights(ws, gate_mode, d, hp, mp))]
+    flags = (int(gate_mode == "mlp"), int(rel_mode == "inv1p"), float(clamp))
+    if route == "panel":
+        dx, mh, deg = panel.edge_forward(ins, d, hp, mp, GATE_CODE[gate_mode],
+                                         *flags[1:])
+    else:
+        lib = build.load("edge_message", _bind)
+        dev = x.device
+        empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+        dx, mh, deg = empty(n, 3), empty(n, mp), empty(n, 1)
+        n_ctas = EDGE_FWD_CTAS or (
+            torch.cuda.get_device_properties(dev).multi_processor_count
+            * lib.edge_fwd_blocks_per_sm())
+        scratch = empty(int(lib.edge_fwd_scratch_floats(n, e, n_ctas, mp)))
+        ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
+        err = lib.edge_forward(*ptrs, n, e, *flags, n_ctas, mp,
+                               build.stream_ptr(dev))
+        build.check(lib, err, "edge_forward")
     launches += 1
-    return dx, mh, deg
+    route_launches[route] += 1
+    return dx, unpad(mh, (n, m)), deg
 
 
 def edge_pathway_bwd_plain(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2,
@@ -337,7 +401,7 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
         return edge_pathway_bwd_plain(x, h, snd, em, indptr, *ws, g_dx, g_mh,
                                       gate_mode=gate_mode, rel_mode=rel_mode,
                                       clamp=clamp)
-    dh = _check_kernel_shapes(h, ws, gate_mode)
+    dh, h1, m = _kernel_widths(h, ws, gate_mode)
     if sperm is None or sptr is None:
         raise ValueError(
             "the CUDA edge backward needs the sender permutation (sperm, "
@@ -348,30 +412,44 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
             or not (sperm.is_contiguous() and sptr.is_contiguous())):
         raise ValueError(f"sperm must be a contiguous int32 (E,) and sptr "
                          f"an int32 ({n + 1},) tensor on {x.device}")
-    if gate_mode == "identity":
+    if gate_mode == "identity" and h1 <= IDENTITY_MAX_H1:
         return _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws,
-                                  deg, g_dx, g_mh, dh, rel_mode, clamp)
-    lib = build.load("edge_message_bwd", _bind_bwd)
-    dev = x.device
+                                  deg, g_dx, g_mh, dh, h1, rel_mode, clamp)
+    route = _route(gate_mode, dh, h1, m)
+    d, hp, mp = padded_widths(route, dh, h1, m)
     e = snd.shape[0]
-    d = KERNEL_WIDTH
+    dev = x.device
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     gx, gh = empty(n, 3), empty(n, d)
-    gw1r, gw1s, gw1d, gb1 = empty(d, d), empty(d, d), empty(1, d), empty(1, d)
-    gw2, gb2 = empty(d, d), empty(1, d)
+    gw1r, gw1s, gw1d, gb1 = (empty(d, hp), empty(d, hp), empty(1, hp),
+                             empty(1, hp))
+    gw2, gb2 = empty(hp, mp), empty(1, mp)
     if gate_mode == "mlp":
-        gwg1, gbg1, gwg2 = empty(d, d), empty(1, d), empty(d, 1)
-    else:  # the kernel writes no gate grads
-        gwg1, gbg1, gwg2 = (torch.zeros_like(w) for w in (wg1, bg1, wg2))
-    scratch = empty(int(lib.edge_bwd_scratch_floats(n, e, EDGE_BWD_CTAS)))
+        gwg1, gbg1, gwg2 = empty(mp, hp), empty(1, hp), empty(hp, 1)
+    else:  # the kernels write no gate grads
+        gwg1, gbg1, gwg2 = (torch.zeros_like(t) for t in (wg1, bg1, wg2))
     outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2)
-    # the kernels read h, g_mh and the 64x64 weights with 16-byte loads
-    ins = [align16(t) for t in (x, h, snd, em, indptr, sperm, sptr, *ws, deg,
-                                g_dx, g_mh)]
-    ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
-    err = lib.edge_backward(*ptrs, n, e, int(gate_mode == "mlp"),
-                            int(rel_mode == "inv1p"), float(clamp),
-                            EDGE_BWD_CTAS, build.stream_ptr(dev))
-    build.check(lib, err, "edge_backward")
+    # the kernels read h, g_mh and the weights with 16-byte loads
+    ins = [align16(t) for t in (x, pad_to(h, n, d), snd, em, indptr, sperm,
+                                sptr, *_pad_weights(ws, gate_mode, d, hp, mp),
+                                deg, g_dx, pad_to(g_mh, n, mp))]
+    flags = (int(gate_mode == "mlp"), int(rel_mode == "inv1p"), float(clamp))
+    if route == "panel":
+        panel.edge_backward(ins, outs, d, hp, mp, GATE_CODE[gate_mode],
+                            *flags[1:])
+    else:
+        lib = build.load("edge_message_bwd", _bind_bwd)
+        scratch = empty(int(lib.edge_bwd_scratch_floats(n, e, EDGE_BWD_CTAS,
+                                                        mp)))
+        ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
+        err = lib.edge_backward(*ptrs, n, e, *flags, EDGE_BWD_CTAS, mp,
+                                build.stream_ptr(dev))
+        build.check(lib, err, "edge_backward")
     bwd_launches += 1
-    return outs
+    route_launches[route] += 1
+    shapes = [(n, 3), (n, dh), (dh, h1), (dh, h1), (1, h1), (1, h1),
+              (h1, m), (1, m), (m, h1), (1, h1), (h1, 1)]
+    return tuple(t if (i >= 8 and gate_mode != "mlp")
+                 else unpad(t, shape)
+                 for i, (t, shape) in enumerate(zip(outs, shapes)))
+

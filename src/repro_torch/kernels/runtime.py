@@ -31,6 +31,24 @@ def align16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def pad_to(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t`` zero-padded at the end of each dimension up to ``shape`` (a
+    new contiguous tensor), or ``t`` itself if it has that shape."""
+    if tuple(t.shape) == shape:
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, k) for k in t.shape)] = t
+    return out
+
+
+def unpad(t: torch.Tensor, shape) -> torch.Tensor:
+    """The leading ``shape`` block of a padded output (``t`` itself if it
+    has that shape)."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    return t[tuple(slice(0, k) for k in shape)].contiguous()
+
+
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """``None``/``'cuda'``/``'cpu'``/``torch.device`` → ``torch.device``.
 

@@ -19,16 +19,25 @@ kernel and the reduction of its partials; ``bwd_launches`` counts calls.
 CPU tensors run :func:`virtual_pathway_bwd_plain`.  Gradients flow through
 ``kernels.ops.VirtualPathway``; both raw wrappers refuse inputs that
 require grad.
+
+Widths: as the edge kernels (``kernels.edge_message.kernel_route``), the
+kernels are compiled for Dh = hid = 32 and 64; other widths up to 64 are
+zero-padded up to the next (exact) and the outputs sliced back, wider
+ones take the panel path of ``csrc/panel.cu``.  ``route_launches`` counts
+calls per route.  s_dim never reaches the kernels: it is folded into
+``const1`` before the call.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, panel
+from repro_torch.kernels.edge_message import kernel_route, padded_widths
 from repro_torch.kernels.ref import virtual_pathway_ref
-from repro_torch.kernels.runtime import align16, require_f32
+from repro_torch.kernels.runtime import align16, pad_to, require_f32, unpad
 
 Tensor = torch.Tensor
 
@@ -39,36 +48,50 @@ launches = 0
 #: :func:`reset_launches`
 bwd_launches = 0
 
-#: the width the CUDA kernel is compiled for (Dh = hid)
-KERNEL_WIDTH = 64
+#: calls per route ("w32", "w64", "panel") of the forward and the
+#: backward since :func:`reset_launches`
+route_launches: Counter = Counter()
 
 
 def reset_launches() -> None:
     global launches, bwd_launches
     launches = bwd_launches = 0
+    route_launches.clear()
+
+
+def pad_ops(ops: tuple, d: int, w: int) -> list:
+    """The forward's 15 operands with h and the weights zero-padded to
+    Dh = ``d`` and hid = ``w``."""
+    x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2 = ops
+    c = z.shape[0]
+    vec = lambda t: pad_to(t, c, w)
+    mat = lambda t: pad_to(t, c, w, w)
+    return [x, pad_to(h, x.shape[0], d), z, mask, pad_to(w1h, c, d, w),
+            vec(w1d), vec(c1), mat(w2), vec(b2), mat(wg1), vec(bg1),
+            pad_to(wg2, c, w, 1), mat(wz1), vec(bz1), pad_to(wz2, c, w, 1)]
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
     lib.virtual_forward.argtypes = ([ctypes.c_void_p] * 18
-                                    + [ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_void_p])
+                                    + [ctypes.c_int] * 3
+                                    + [ctypes.c_void_p])
     lib.virtual_forward.restype = ctypes.c_int
     lib.virtual_sums.argtypes = ([ctypes.c_void_p] * 3
-                                 + [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p])
+                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.virtual_sums.restype = ctypes.c_int
     lib.virtual_nodes_per_block.restype = ctypes.c_int
+    lib.virtual_partial_width.argtypes = [ctypes.c_int]
     lib.virtual_partial_width.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.virtual_bwd_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.virtual_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.virtual_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.virtual_backward.argtypes = ([ctypes.c_void_p] * 34
-                                     + [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p])
+                                     + [ctypes.c_int] * 3
+                                     + [ctypes.c_void_p])
     lib.virtual_backward.restype = ctypes.c_int
 
 
@@ -115,8 +138,9 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
                           precision=None):
     """Virtual forward → ``(dx, mh, dz_sum, ms_sum)``.
 
-    CUDA tensors launch the kernel (f32, Dh = hid = 64) or raise; CPU
-    tensors run :func:`virtual_pathway_plain`.
+    CUDA tensors launch the kernels (f32, any Dh and hid: the compiled
+    width they are padded to, or the panel path) or raise; CPU tensors
+    run :func:`virtual_pathway_plain`.
     """
     global launches
     require_f32(precision)
@@ -125,31 +149,31 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
     _check(ops)
     if x.device.type != "cuda":
         return virtual_pathway_plain(*ops)
-    d = KERNEL_WIDTH
-    if h.shape[1] != d or w1h.shape[2] != d:
-        raise ValueError(f"CUDA virtual kernel needs Dh = hid = {d}, got "
-                         f"Dh={h.shape[1]}, hid={w1h.shape[2]}")
-    lib = build.load("virtual_message", _bind)
+    dh, hid = h.shape[1], w1h.shape[2]
+    route = kernel_route(dh, hid)
+    d, w = padded_widths(route, dh, hid)
     n, c = x.shape[0], z.shape[0]
-    n_blocks = -(-n // lib.virtual_nodes_per_block())
     dev = x.device
-    dx = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    mh = torch.empty((n, d), dtype=torch.float32, device=dev)
-    part = torch.empty((n_blocks, c, lib.virtual_partial_width()),
-                       dtype=torch.float32, device=dev)
-    dz = torch.empty((c, 3), dtype=torch.float32, device=dev)
-    ms = torch.empty((c, d), dtype=torch.float32, device=dev)
-    stream = build.stream_ptr(dev)
-    # the kernel reads h and the 64x64 weights with 16-byte loads
-    ins = [align16(t) for t in ops]
-    err = lib.virtual_forward(*[t.data_ptr() for t in (*ins, dx, mh, part)],
-                              n, c, stream)
-    build.check(lib, err, "virtual_forward")
+    # the kernels read h and the weights with 16-byte loads
+    ins = [align16(t) for t in pad_ops(ops, d, w)]
+    if route == "panel":
+        dx, mh, dz, ms = panel.virtual_forward(ins, d, w)
+    else:
+        lib = build.load("virtual_message", _bind)
+        n_blocks = -(-n // lib.virtual_nodes_per_block())
+        empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+        dx, mh, dz, ms = empty(n, 3), empty(n, w), empty(c, 3), empty(c, w)
+        part = empty(n_blocks, c, lib.virtual_partial_width(w))
+        stream = build.stream_ptr(dev)
+        err = lib.virtual_forward(
+            *[t.data_ptr() for t in (*ins, dx, mh, part)], n, c, w, stream)
+        build.check(lib, err, "virtual_forward")
+        err = lib.virtual_sums(part.data_ptr(), dz.data_ptr(), ms.data_ptr(),
+                               n_blocks, c, w, stream)
+        build.check(lib, err, "virtual_sums")
     launches += 1
-    err = lib.virtual_sums(part.data_ptr(), dz.data_ptr(), ms.data_ptr(),
-                           n_blocks, c, stream)
-    build.check(lib, err, "virtual_sums")
-    return dx, mh, dz, ms
+    route_launches[route] += 1
+    return dx, unpad(mh, (n, hid)), dz, unpad(ms, (c, hid))
 
 
 def virtual_pathway_bwd_plain(*operands):
@@ -178,8 +202,8 @@ def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
     """Backward of :func:`virtual_pathway_fused` → ``(gx, gh, gz, gw1h,
     gw1d, gc1, gw2, gb2, gwg1, gbg1, gwg2, gwz1, gbz1, gwz2)``.
 
-    CUDA tensors launch the kernel (f32, Dh = hid = 64) or raise; CPU
-    tensors run :func:`virtual_pathway_bwd_plain`.
+    CUDA tensors launch the kernels (f32, any Dh and hid, routed as the
+    forward) or raise; CPU tensors run :func:`virtual_pathway_bwd_plain`.
     """
     global bwd_launches
     require_f32(precision)
@@ -200,19 +224,25 @@ def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
                            "backward: pass cotangents without grad")
     if x.device.type != "cuda":
         return virtual_pathway_bwd_plain(*ops, *cots)
-    d = KERNEL_WIDTH
-    if h.shape[1] != d or w1h.shape[2] != d:
-        raise ValueError(f"CUDA virtual kernel needs Dh = hid = {d}, got "
-                         f"Dh={h.shape[1]}, hid={w1h.shape[2]}")
-    lib = build.load("virtual_message_bwd", _bind_bwd)
+    dh, hid = h.shape[1], w1h.shape[2]
+    route = kernel_route(dh, hid)
+    d, w = padded_widths(route, dh, hid)
     n, c = x.shape[0], z.shape[0]
-    grads = tuple(torch.empty_like(t) for i, t in enumerate(ops) if i != 3)
-    scratch = torch.empty((int(lib.virtual_bwd_scratch_floats(n, c)),),
-                          dtype=torch.float32, device=x.device)
-    # the kernel reads h, g_mh and the 64x64 weights with 16-byte loads
-    ins = [align16(t) for t in (*ops, *cots)]
-    ptrs = [t.data_ptr() for t in (*ins, *grads, scratch)]
-    err = lib.virtual_backward(*ptrs, n, c, build.stream_ptr(x.device))
-    build.check(lib, err, "virtual_backward")
+    pops = pad_ops(ops, d, w)
+    grads = tuple(torch.empty_like(t) for i, t in enumerate(pops) if i != 3)
+    pcots = (g_dx, pad_to(g_mh, n, w), g_dz, pad_to(g_ms, c, w))
+    # the kernels read h, g_mh and the weights with 16-byte loads
+    ins = [align16(t) for t in (*pops, *pcots)]
+    if route == "panel":
+        panel.virtual_backward(ins, grads, d, w)
+    else:
+        lib = build.load("virtual_message_bwd", _bind_bwd)
+        scratch = torch.empty((int(lib.virtual_bwd_scratch_floats(n, c, w)),),
+                              dtype=torch.float32, device=x.device)
+        ptrs = [t.data_ptr() for t in (*ins, *grads, scratch)]
+        err = lib.virtual_backward(*ptrs, n, c, w, build.stream_ptr(x.device))
+        build.check(lib, err, "virtual_backward")
     bwd_launches += 1
-    return grads
+    route_launches[route] += 1
+    want = [t.shape for i, t in enumerate(ops) if i != 3]
+    return tuple(unpad(g, s) for g, s in zip(grads, want))

@@ -12,10 +12,9 @@ metrics.  The flags are the JAX package's ``launch/simulate.py``, plus
 (``data/cell_list.py``), or with ``--device cpu`` through the plain
 PyTorch versions of the kernels.  ``--model`` takes any name of
 ``models.registry`` (default fast_egnn), built with the JAX package's
-keywords (2 layers; C = 3 for fast_egnn).  ``--use-kernel`` routes the
-steps through the CUDA kernels, which take widths of 64 only, so it
-builds the model at hidden and s_dim 64 (32 and 16 without it, as in the
-JAX package).
+keywords (2 layers, hidden 32; C = 3 and s_dim 16 for fast_egnn).
+``--use-kernel`` routes the steps through the CUDA kernels, the same
+model either way.
 """
 from __future__ import annotations
 
@@ -100,15 +99,21 @@ def main(argv=None) -> int:
     else:
         wrap_box = args.wrap_box if args.wrap_box > 0 else None
 
-    kw = dict(h_in=h.shape[1], n_layers=2,
-              hidden=64 if args.use_kernel else 32)
+    kw = dict(h_in=h.shape[1], n_layers=2, hidden=32)
     if args.model == "fast_egnn":
-        kw.update(n_virtual=3, s_dim=64 if args.use_kernel else 16)
+        kw.update(n_virtual=3, s_dim=16)
     pipe = build_pipeline(
         args.model, generator=torch.Generator().manual_seed(args.seed),
         device=args.device, use_kernel=args.use_kernel,
         **config_kwargs(args.model, kw))
 
+    from repro_torch.core.message_passing import (dispatch_counts,
+                                                  reset_dispatch_counts)
+    from repro_torch.kernels import edge_message, virtual_message
+
+    reset_dispatch_counts()
+    edge_message.reset_launches()
+    virtual_message.reset_launches()
     with RolloutService(pipe, model=args.model) as svc:
         t0 = time.perf_counter()
         handle = svc.submit(x0, v0, h, args.steps, r=r, skin=skin,
@@ -142,6 +147,21 @@ def main(argv=None) -> int:
     print(f"trajectory span: |x| max {np.abs(tr).max():.3f}, "
           f"final-step mean displacement "
           f"{np.linalg.norm(tr[-1] - (tr[-2] if len(tr) > 1 else x0), axis=-1).mean():.4f}")
+    cfg = pipe.cfg
+    print(f"model: layers={cfg.n_layers} hidden={cfg.hidden}"
+          + (f" n_virtual={cfg.n_virtual} s_dim={cfg.s_dim}"
+             if args.model == "fast_egnn" else ""))
+    d = dispatch_counts()
+    print("dispatch: " + " ".join(
+        f"{k}={d.get(k, 0)}" for k in ("edge_kernel", "edge_plain",
+                                       "virtual_kernel", "virtual_plain"))
+          + f"  launches: edge={edge_message.launches} "
+          f"identity={edge_message.identity_launches} "
+          f"virtual={virtual_message.launches}  routes: edge "
+          + (",".join(f"{k}:{v}" for k, v in sorted(
+              edge_message.route_launches.items())) or "-")
+          + " virtual " + (",".join(f"{k}:{v}" for k, v in sorted(
+              virtual_message.route_launches.items())) or "-"))
     return 0
 
 

@@ -22,8 +22,17 @@ Where the lists are rebuilt is ``rebuild_mode``:
   early to :func:`~repro_torch.data.stream.shared_worker_pool` and keep
   stepping on the still-valid list (``async_rebuild``).
 
-The step loop is a Python loop on the device; the skin check fetches one
-scalar before each step (``steady_state_d2h_bytes`` counts those bytes).
+The step loop is a Python loop on the device with no host fetch in the
+steady state (``steady_state_d2h_bytes`` is 0), as the reference's device
+``while_loop`` chunk: the steps run in chunks on the current list, the
+skin check before each step evaluated on the device, and one fetch of a
+chunk's checks at its end finds the first that failed.  The steps from
+there on were computed on a stale list and are dropped
+(``discarded_steps``); the state before that step is rebuilt and stepped
+on.  The steps kept are the computations the per-step check would run,
+so trajectories do not depend on the chunking.  A chunk runs up to the
+last interval between failed checks, then probes a quarter of it at a
+time (doubling while the first interval is unknown).
 """
 from __future__ import annotations
 
@@ -78,9 +87,9 @@ class _Telemetry:
 
     ``coord_d2h`` counts coordinate fetches for host rebuilds and
     ``edge_h2d`` host-built edge and CSR uploads (both 0 in device mode);
-    ``steady_d2h`` counts the fetches inside the stepping (the skin
-    checks).  ``d2h`` / ``h2d`` are the totals, the frames and flags
-    included.
+    ``steady_d2h`` counts fetches inside the stepping (none: the skin
+    checks are read once a chunk, at its boundary).  ``d2h`` / ``h2d``
+    are the totals, the frames, checks and flags included.
     """
 
     def __init__(self):
@@ -172,6 +181,9 @@ class _VerletEngine:
         self._tel = _Telemetry()
         self._g: Optional[GeometricGraph] = None
         self._lay = None
+        # steps between the last two failed skin checks (chunk sizing)
+        self._interval: Optional[int] = None
+        self._discarded = 0
 
     @property
     def traces(self) -> int:
@@ -283,16 +295,64 @@ class _VerletEngine:
         self._lay = device_csr(db.receivers, db.edge_mask, self.node_cap)
         self._rebuild_s += time.perf_counter() - t0
 
-    def _within(self, x: Tensor, refs: tuple) -> bool:
-        """The skin check before a step: every ``(ref, lim2)`` holds for
-        every slot's largest masked squared displacement from ``ref``.
-        One scalar fetch."""
+    def _within(self, x: Tensor, refs: tuple) -> Tensor:
+        """The skin check before a step, on the device: every ``(ref,
+        lim2)`` holds for every slot's largest masked squared displacement
+        from ``ref`` (a 0-d bool tensor)."""
         nm = self._g.node_mask
         ok = None
         for ref, lim2 in refs:
             d2 = (((x - ref) ** 2).sum(-1) * nm).max() <= lim2
             ok = d2 if ok is None else ok & d2
-        return bool(self._tel.fetch(ok, steady=True))
+        return ok
+
+    def _chunk_len(self, since: int, left: int) -> int:
+        """Steps of the next chunk, ``since`` steps after the last failed
+        check with ``left`` to go: up to the last interval (its trailing
+        check then finds a rebuild due with no step lost), then a quarter
+        of it at a time (doubling while no interval is known)."""
+        last = self._interval
+        if last is None:  # 1, 1, 2, 4, ...: no step lost on a short one
+            k = max(since, 1)
+        elif since < last:
+            k = last - since
+        else:
+            k = max(1, last // 4)
+        return max(1, min(k, left))
+
+    def _advance(self, params, x: Tensor, v: Tensor, refs: tuple,
+                 left: int, since: int) -> tuple:
+        """Step on the current list while the skin check ``refs`` holds,
+        at most ``left`` steps, in chunks (:meth:`_chunk_len`): each
+        chunk's steps run on the device with the check before each of them
+        and after the last, then one fetch of the checks (a chunk
+        boundary).  Returns ``(x, v, kept, since, stopped)``: the state
+        after the kept steps, their positions, the steps since the last
+        failed check and whether a check failed."""
+        kept: list[Tensor] = []
+        while left > 0:
+            k = self._chunk_len(since, left)
+            oks, states = [], []
+            xi, vi = x, v
+            for _ in range(k):
+                oks.append(self._within(xi, refs))
+                xi, vi = self._step(params, xi, vi)
+                states.append((xi, vi))
+            oks.append(self._within(xi, refs))  # before the step after
+            ok = self._tel.fetch(torch.stack(oks))
+            j = int(np.argmin(ok))  # the first failed check (k + 1: none)
+            j = k + 1 if ok[j] else j
+            self._discarded += max(k - j, 0)
+            kept_now = min(j, k)
+            if kept_now:
+                x, v = states[kept_now - 1]
+                kept += [s[0] for s in states[:kept_now]]
+            left -= kept_now
+            since += kept_now
+            if j <= k:
+                self._interval = since
+                return x, v, kept, 0, True
+        return x, v, kept, since, False
 
     def _step(self, params, x: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:
         g = self._g
@@ -322,12 +382,13 @@ class _VerletEngine:
             coord_d2h_bytes=tel.coord_d2h - base2[0],
             edge_h2d_bytes=tel.edge_h2d - base2[1],
             cell_overflows=self._cell_overflows - base2[2],
-            rebuild_s=self._rebuild_s - base2[3])
+            rebuild_s=self._rebuild_s - base2[3],
+            discarded_steps=self._discarded - base2[4])
 
     def _marks(self) -> tuple:
         tel = self._tel
         return (tel.coord_d2h, tel.edge_h2d, self._cell_overflows,
-                self._rebuild_s)
+                self._rebuild_s, self._discarded)
 
 
 @dataclass
@@ -341,8 +402,9 @@ class RolloutResult:
     ``coord_d2h_bytes`` / ``edge_h2d_bytes`` count rebuild traffic after
     the first install, 0 in ``'device'`` mode; ``cell_overflows`` counts
     the device build's capacity adaptations; ``rebuild_s`` is host wall
-    time in rebuild installs.  There is no compilation: ``recompiles`` is
-    0.
+    time in rebuild installs.  ``discarded_steps`` counts steps computed
+    past a failed skin check in a chunk and dropped.  There is no
+    compilation: ``recompiles`` is 0.
     """
 
     trajectory: np.ndarray  # (n_steps, n, 3)
@@ -363,6 +425,7 @@ class RolloutResult:
     edge_h2d_bytes: int = 0
     cell_overflows: int = 0
     rebuild_s: float = 0.0
+    discarded_steps: int = 0
 
 
 class RolloutEngine(_VerletEngine):
@@ -481,7 +544,7 @@ class RolloutEngine(_VerletEngine):
         x, v = self._g.x, self._g.v
         x_ref = x
         pending = None  # (future, x at the trigger) during an async build
-        done = chunk_calls = waits = 0
+        done = chunk_calls = waits = since = 0
         frames: list[Tensor] = []
         rebuild_steps: list[int] = []
         trigger_steps: list[int] = []
@@ -491,10 +554,10 @@ class RolloutEngine(_VerletEngine):
             else:  # stale list: bounded by the old and the pending reference
                 refs = ((x_ref, lim2), (pending[1], lim2))
             chunk_calls += 1
-            while done < n_steps and self._within(x, refs):
-                x, v = self._step(params, x, v)
-                frames.append(x[0])
-                done += 1
+            x, v, kept, since, _ = self._advance(params, x, v, refs,
+                                                 n_steps - done, since)
+            frames += [xk[0] for xk in kept]
+            done += len(kept)
             if done >= n_steps:
                 break
             if pending is None:
@@ -571,6 +634,7 @@ class BatchedRolloutResult:
     edge_h2d_bytes: int = 0
     cell_overflows: int = 0
     rebuild_s: float = 0.0
+    discarded_steps: int = 0
 
 
 class BatchedRolloutEngine(_VerletEngine):
@@ -651,16 +715,13 @@ class BatchedRolloutEngine(_VerletEngine):
         lim2 = float(np.float32((0.5 * self.skin) ** 2))
         x, v = self._g.x, self._g.v
         ref = x
-        done = chunk_calls = waits = 0
+        done = chunk_calls = waits = since = 0
         rebuild_steps: list[int] = []
         parts: list[np.ndarray] = []
         while done < n_steps:
             chunk_calls += 1
-            block = []
-            while (done + len(block) < n_steps
-                   and self._within(x, ((ref, lim2),))):
-                x, v = self._step(params, x, v)
-                block.append(x)
+            x, v, block, since, _ = self._advance(
+                params, x, v, ((ref, lim2),), n_steps - done, since)
             if block:
                 new = tel.fetch(torch.stack(block, 1))
                 parts.append(new)

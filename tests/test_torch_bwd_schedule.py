@@ -109,9 +109,15 @@ def _silu_grad(u):
 # ------------------------------------------------------- edge schedule
 def edge_bwd_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1,
                       w2, b2, wg1, bg1, wg2, deg, g_dx, g_mh, *, gate_mode,
-                      rel_mode, clamp, n_ctas, mm, trace=None):
-    """``csrc/edge_message_bwd.cu``'s schedule → the 11 gradients."""
+                      rel_mode, clamp, n_ctas, mm, trace=None, rowsum=None,
+                      colsum=None):
+    """``csrc/edge_message_bwd.cu``'s schedule → the 11 gradients, at the
+    widths of the operands (``rowsum`` / ``colsum``: the sums over a row's
+    features and over a tile's rows, torch's by default)."""
     n = x.shape[0]
+    h1, m = w1r.shape[1], w2.shape[1]
+    rowsum = rowsum or (lambda t: t.sum(-1))
+    colsum = colsum or (lambda t: t.sum(0))
     f32 = torch.float32
     gate = gate_mode == "mlp"
     # 1. node_proj, per 64-node tile
@@ -121,7 +127,7 @@ def edge_bwd_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1,
     live_end = int(indptr[n])
     length = -(-live_end // n_ctas)
     e_slots = snd.shape[0]
-    GPRE1 = torch.zeros((e_slots, HID), dtype=f32)
+    GPRE1 = torch.zeros((e_slots, h1), dtype=f32)
     GREL = torch.zeros((e_slots, 3), dtype=f32)
     parts = []
     for b in range(n_ctas):
@@ -131,8 +137,8 @@ def edge_bwd_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1,
         if trace is not None:
             trace.append((beg, end, live))
         p = {k: torch.zeros(v, dtype=f32) for k, v in (
-            ("w2", (HID, HID)), ("wg1", (HID, HID)), ("b2", HID),
-            ("bg1", HID), ("wg2", HID), ("b1", HID), ("w1d", HID))}
+            ("w2", (h1, m)), ("wg1", (m, h1)), ("b2", m), ("bg1", h1),
+            ("wg2", h1), ("b1", h1), ("w1d", h1))}
         for t0 in range(0, len(live), TR):
             sl = torch.tensor(live[t0:t0 + TR], dtype=torch.long)
             cnt = sl.numel()
@@ -156,7 +162,7 @@ def edge_bwd_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1,
             if gate:
                 gp = mm(msg, wg1) + bg1
                 sgp = torch.nn.functional.silu(gp)
-                gate_pre = (sgp * wg2[:, 0]).sum(-1)[:cnt]
+                gate_pre = rowsum(sgp * wg2[:, 0])[:cnt]
                 gv = torch.clamp(gate_pre, -clamp, clamp)
                 if rel_mode == "inv1p":
                     sd = torch.sqrt(d2 + 1e-12)
@@ -174,24 +180,24 @@ def edge_bwd_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1,
                     gr[:cnt] = gu
                 g_gate = z(g_gate)
                 q = (g_gate[:, None] * wg2[:, 0]) * _silu_grad(gp)
-                p["bg1"] += q.sum(0)
-                p["wg2"] += (sgp * g_gate[:, None]).sum(0)
+                p["bg1"] += colsum(q)
+                p["wg2"] += colsum(sgp * g_gate[:, None])
                 gm = gm + mm(q, wg1.T)
                 p["wg1"] += mm(msg.T, q)
-            p["b2"] += gm.sum(0)
+            p["b2"] += colsum(gm)
             p["w2"] += mm(t1.T, gm)
             gpre = mm(gm, w2.T) * _silu_grad(pre)
-            p["b1"] += gpre.sum(0)
-            p["w1d"] += (z(d2)[:, None] * gpre).sum(0)
-            g_d2 = gq2 + (gpre * w1d[0]).sum(-1)
+            p["b1"] += colsum(gpre)
+            p["w1d"] += colsum(z(d2)[:, None] * gpre)
+            g_d2 = gq2 + rowsum(gpre * w1d[0])
             g_rel = gr + 2.0 * z(rel) * g_d2[:, None]
             GPRE1[sl] = gpre[:cnt]
             GREL[sl] = g_rel[:cnt]
         parts.append(p)
     acc = {k: sum_in_order([p[k] for p in parts]) for k in parts[0]}
     # 3. node pass: 64-node tiles, segment sums in slot / permutation order
-    G = torch.zeros((n, HID), dtype=f32)
-    S = torch.zeros((n, HID), dtype=f32)
+    G = torch.zeros((n, h1), dtype=f32)
+    S = torch.zeros((n, h1), dtype=f32)
     gx = torch.zeros((n, 3), dtype=f32)
     for i in range(n):
         dr = torch.zeros(3, dtype=f32)
@@ -345,14 +351,20 @@ def test_edge_schedule_any_cta_count(n_ctas):
 
 # ---------------------------------------------------- virtual schedule
 def virtual_bwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
-                         wz1, bz1, wz2, g_dx, g_mh, g_dz, g_ms, *, mm):
-    """``csrc/virtual_message_bwd.cu``'s schedule → the 14 gradients."""
+                         wz1, bz1, wz2, g_dx, g_mh, g_dz, g_ms, *, mm,
+                         rowsum=None, colsum=None):
+    """``csrc/virtual_message_bwd.cu``'s schedule → the 14 gradients, at
+    the widths of the operands (``rowsum`` / ``colsum`` as in
+    :func:`edge_bwd_schedule`)."""
     n, c = x.shape[0], z.shape[0]
+    dw = h.shape[1]
+    rowsum = rowsum or (lambda t: t.sum(-1))
+    colsum = colsum or (lambda t: t.sum(0))
     f32 = torch.float32
     silu = torch.nn.functional.silu
     inv_c = 1.0 / c
     gx = torch.zeros((n, 3), dtype=f32)
-    gh = torch.zeros((n, HID), dtype=f32)
+    gh = torch.zeros((n, dw), dtype=f32)
     parts = []
     for i0 in range(0, n, TR):
         cnt = min(TR, n - i0)
@@ -364,7 +376,7 @@ def virtual_bwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
         ux = zp(g_dx[i0:i0 + cnt]) * inv_c
         gmt = zp(g_mh[i0:i0 + cnt])
         dx = torch.zeros((TR, 3), dtype=f32)
-        dh = torch.zeros((TR, HID), dtype=f32)
+        dh = torch.zeros((TR, dw), dtype=f32)
         tile_parts = []
         for ch in range(c):
             rl = xt - z[ch]
@@ -377,14 +389,14 @@ def virtual_bwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
             msg = mm(t1, w2[ch]) + b2[ch]
             px = mm(msg, wg1[ch]) + bg1[ch]
             pz = mm(msg, wz1[ch]) + bz1[ch]
-            gate_x = (silu(px) * wg2[ch, :, 0]).sum(-1)
-            gate_z = (silu(pz) * wz2[ch, :, 0]).sum(-1)
+            gate_x = rowsum(silu(px) * wg2[ch, :, 0])
+            gate_z = rowsum(silu(pz) * wz2[ch, :, 0])
             qx = (ggx[:, None] * wg2[ch, :, 0]) * _silu_grad(px)
             qz = (ggz[:, None] * wz2[ch, :, 0]) * _silu_grad(pz)
             gm = (mm(qx, wg1[ch].T) + mm(qz, wz1[ch].T)) + (
                 gmt * inv_c + mt[:, None] * g_ms[ch])
             gp = mm(gm, w2[ch].T) * _silu_grad(pre)
-            g_d2 = (gp * w1d[ch]).sum(-1)
+            g_d2 = rowsum(gp * w1d[ch])
             g_rel = (ux * gate_x[:, None] + uz * gate_z[:, None]
                      + 2.0 * rl * g_d2[:, None])
             dx += g_rel
@@ -392,10 +404,10 @@ def virtual_bwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
             g_rel[cnt:] = 0.0
             tile_parts.append(dict(
                 w1h=mm(ht.T, gp), w2=mm(t1.T, gm), wg1=mm(msg.T, qx),
-                wz1=mm(msg.T, qz), c1=gp.sum(0), b2=gm.sum(0),
-                bg1=qx.sum(0), bz1=qz.sum(0), w1d=(d2[:, None] * gp).sum(0),
-                wg2=(silu(px) * ggx[:, None]).sum(0),
-                wz2=(silu(pz) * ggz[:, None]).sum(0), dz=-g_rel.sum(0)))
+                wz1=mm(msg.T, qz), c1=colsum(gp), b2=colsum(gm),
+                bg1=colsum(qx), bz1=colsum(qz), w1d=colsum(d2[:, None] * gp),
+                wg2=colsum(silu(px) * ggx[:, None]),
+                wz2=colsum(silu(pz) * ggz[:, None]), dz=-colsum(g_rel)))
         parts.append(tile_parts)
         gx[i0:i0 + cnt] = dx[:cnt]
         gh[i0:i0 + cnt] = dh[:cnt]

@@ -319,7 +319,9 @@ def test_rollout_kernel_path_bitwise_independent_of_skin(drop_rate):
                                    dt=0.01, drop_rate=drop_rate, device=dev)
         edge_message.reset_launches()
         runs.append(eng.run(pipe.params, scenes, 8))
-        assert edge_message.launches == 2 * 2 * 8  # layers x scenes x steps
+        # layers x scenes x (steps + the steps computed and dropped)
+        assert edge_message.launches == 2 * 2 * (
+            8 + runs[-1].discarded_steps)
     assert runs[1].rebuild_count < runs[0].rebuild_count
     for a, b in zip(runs[0].trajectories, runs[1].trajectories):
         assert np.isfinite(a).all()
@@ -406,7 +408,9 @@ def test_rollout_device_rebuild_equals_host_rebuild_on_card(drop_rate):
                                    device=dev)
         edge_message.reset_launches()
         runs[mode] = eng.run(pipe.params, scenes, 6)
-        assert edge_message.launches == 2 * 4 * 6  # layers x slots x steps
+        # layers x slots x (steps + the steps computed and dropped)
+        assert edge_message.launches == 2 * 4 * (
+            6 + runs[mode].discarded_steps)
     host, devr = runs["host"], runs["device"]
     assert devr.rebuild_mode == "device" and devr.rebuild_count >= 2
     assert devr.rebuild_steps == host.rebuild_steps
@@ -418,40 +422,12 @@ def test_rollout_device_rebuild_equals_host_rebuild_on_card(drop_rate):
 
 
 @needs_cuda
-def test_kernels_refuse_unsupported_widths_and_modes():
-    """Widths the kernels are not built for raise; gate 'identity' is a
-    kernel of its own since the identity branch was ported, and raises on
-    a feature width other than 1 or 64."""
-    dev = torch.device("cuda")
-    args = _edge_args(dev)
-    with torch.no_grad():
-        iargs = _identity_args(dev, 64)
-        edge_message.reset_launches()
-        edge_message.edge_pathway_fused(*iargs, gate_mode="identity")
-        assert edge_message.identity_launches == 1
-        iargs[1] = iargs[1][:, :32].contiguous()
-        iargs[5] = iargs[5][:32].contiguous()
-        iargs[6] = iargs[6][:32].contiguous()
-        with pytest.raises(ValueError, match="Dh in"):
-            edge_message.edge_pathway_fused(*iargs, gate_mode="identity")
-        narrow = list(args)
-        narrow[1] = narrow[1][:, :32].contiguous()
-        with pytest.raises(ValueError, match="width 64"):
-            edge_message.edge_pathway_fused(*narrow)
-        vargs = _virtual_args(dev, n=50)
-        vargs[1] = vargs[1][:, :32].contiguous()
-        vargs[4] = vargs[4][:, :32].contiguous()
-        with pytest.raises(ValueError, match="Dh = hid = 64"):
-            virtual_message.virtual_pathway_fused(*vargs)
-
-
-@needs_cuda
 def test_kernel_path_refuses_ineligible_blocks_on_card():
     """The reference's dispatch rule on the card: a spec or block the
     reference runs in jnp (unnormalised sums; the shared-weight ablation;
     zero-width features) runs the plain path, counted as such, and equals
-    ``use_kernel=False``; a 32-wide block the reference sends to its
-    kernel still raises rather than running the plain path in silence."""
+    ``use_kernel=False``; blocks of any width inside the reference's
+    budget run the kernels, and one past it the plain path."""
     from repro_torch.core import message_passing as mp
 
     dev = torch.device("cuda")
@@ -493,12 +469,24 @@ def test_kernel_path_refuses_ineligible_blocks_on_card():
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
         assert mp.dispatch_counts() == {"virtual_plain": 4}
-        narrow = {"phi1": [{"w": r(2 * 32 + 1, 32), "b": r(32)},
-                           {"w": r(32, 32), "b": r(32)}],
-                  "gate": [{"w": r(32, 32), "b": r(32)}, {"w": r(32, 1)}]}
-        with pytest.raises(ValueError, match="width 64"):
-            edge_pathway(narrow, g.h[:, :32].contiguous(), g.x, g,
-                         EdgeSpec(), use_kernel=True, layout=lay)
+        # every width the reference's budget admits runs the kernels (32:
+        # the compiled instantiation, 96: the panel path); a width past it
+        # runs the plain path on the card too
+        for w, kernel in ((32, True), (96, True), (1024, False)):
+            wide = {"phi1": [{"w": r(2 * w + 1, w), "b": r(w)},
+                             {"w": r(w, w), "b": r(w)}],
+                    "gate": [{"w": r(w, w), "b": r(w)}, {"w": r(w, 1)}]}
+            hw = torch.randn((n, w), generator=gen, device=dev)
+            gw = g._replace(h=hw)
+            mp.reset_dispatch_counts()
+            got = edge_pathway(wide, hw, g.x, gw, EdgeSpec(),
+                               use_kernel=True, layout=lay)
+            want = edge_pathway(wide, hw, g.x, gw, EdgeSpec())
+            assert mp.dispatch_counts() == (
+                {"edge_kernel": 1, "edge_plain": 1} if kernel
+                else {"edge_plain": 2})
+            torch.testing.assert_close(got.mh, want.mh, atol=ATOL, rtol=RTOL)
+            torch.testing.assert_close(got.dx, want.dx, atol=ATOL, rtol=RTOL)
 
 
 @needs_cuda
@@ -528,6 +516,46 @@ def test_model_kernel_path_matches_plain_path_on_card():
     torch.testing.assert_close(xk, xr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(hk, hr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(vk.z, vr.z, atol=1e-4, rtol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_model_kernel_path_e3_equivariant_on_card(hidden):
+    """FastEGNN with the kernels on the card (Proposition IV.1): rotating
+    (a random orthogonal matrix) and translating the input moves the
+    output the same way, within rtol / atol 2e-3, at the hidden width of
+    every reference entry point (32) and the default model's (64)."""
+    from repro_torch.core.equivariant import (apply_e3, apply_o3,
+                                              random_orthogonal)
+
+    dev = torch.device("cuda")
+    x, sp, rp, em, indptr, n_edges = _graph(n=400, cap=16000, seed=9)
+    n_cap = 512
+    xp, nm = pad_nodes(x, n_cap)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rng = np.random.default_rng(2)
+    g = GeometricGraph(x=t(xp), v=t(rng.standard_normal((n_cap, 3))
+                                   .astype(np.float32)),
+                       h=t(nm[:, None].copy()), senders=t(sp),
+                       receivers=t(rp),
+                       edge_attr=torch.zeros(sp.size, 0, device=dev),
+                       node_mask=t(nm), edge_mask=t(em))
+    lay = (t(csr_indptr(rp, n_edges, n_cap)), n_edges)
+    pipe = build_pipeline("fast_egnn", device=dev, n_layers=2, hidden=hidden,
+                          n_virtual=3, s_dim=hidden // 2, use_kernel=True,
+                          generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(hidden)
+    rot = random_orthogonal(gen, device="cpu").to(dev)
+    shift = (3.0 * torch.randn((3,), generator=gen)).to(dev)
+    edge_message.reset_launches()
+    with torch.no_grad():
+        x1, _ = pipe.apply_full(pipe.params, pipe.cfg, g, edge_layout=lay)
+        gt = g._replace(x=apply_e3(g.x, rot, shift), v=apply_o3(g.v, rot))
+        x2, _ = pipe.apply_full(pipe.params, pipe.cfg, gt, edge_layout=lay)
+    assert edge_message.route_launches == {f"w{hidden}": 4}
+    real = t(nm) > 0
+    torch.testing.assert_close(x2[real], apply_e3(x1, rot, shift)[real],
+                               rtol=2e-3, atol=2e-3)
 
 
 # ------------------------------------------------------------- backwards
@@ -1491,3 +1519,165 @@ def test_zoo_kernel_path_matches_plain_path_on_card(name):
     keep = [i for i, w in enumerate(gr) if w.numel()]  # FastRF's S is 0-wide
     _assert_grads_match([gk[i] for i in keep], [gk[i] for i in keep],
                         [gr[i] for i in keep])
+
+
+# ------------------------------------------------------------- widths
+# widths (Dh, H1, M) the reference's dispatch sends to its kernels: the
+# compiled ones, ones padded up to them, and panel-path ones above 64
+CUDA_WIDTHS = [(16, 16, 16), (24, 24, 24), (32, 32, 32), (48, 48, 48),
+               (24, 40, 56), (96, 96, 96), (128, 128, 128), (200, 150, 100)]
+
+
+def _width_args(dev, dh, h1, m, seed=5):
+    """The 300-node test graph with random weights of widths (Dh, H1, M)
+    for gate 'mlp', its sender permutation and its live slot count."""
+    x, sp, _, em, indptr, n_edges = _graph(seed=seed)
+    n = x.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    sc1 = (2 * dh + 1) ** -0.5
+    ws = [r(dh, h1, sc=sc1), r(dh, h1, sc=sc1), r(1, h1, sc=0.3), r(1, h1, sc=0.1), r(h1, m, sc=h1 ** -0.5),
+          r(1, m, sc=0.1), r(m, h1, sc=m ** -0.5), r(1, h1, sc=0.1),
+          r(h1, 1, sc=h1 ** -0.5)]
+    args = [t(x), r(n, dh), t(sp), t(em), t(indptr), *ws]
+    return args, _sender_perm(sp, n_edges, n, dev), n_edges
+
+
+def _one_slot_masked(args, n_edges):
+    """The arguments with one live slot's mask zeroed (a planted fault)."""
+    em = args[3]
+    live = torch.nonzero(em[:n_edges]).flatten()
+    bad = em.clone()
+    bad[live[live.numel() // 2]] = 0.0
+    return [*args[:3], bad, *args[4:]]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dh,h1,m", CUDA_WIDTHS,
+                         ids=["-".join(map(str, w)) for w in CUDA_WIDTHS])
+def test_kernels_refuse_unsupported_widths_and_modes(dh, h1, m):
+    """Every width runs on the card: the edge pair (#1, #2) with its gate,
+    the identity pair in SchNet's form (Dh, H1) and RF's (Dh = 1), and the
+    virtual pair (#3, #4) at Dh, hid = H1, each against its plain version,
+    bitwise repeatable, with a planted fault (one live slot's mask zeroed,
+    one node's mask flipped) outside the tolerance; the route taken is the
+    one ``kernel_route`` names."""
+    dev = torch.device("cuda")
+    args, sender, n_edges = _width_args(dev, dh, h1, m)
+    n = args[0].shape[0]
+    bad = _one_slot_masked(args, n_edges)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    route = edge_message.kernel_route(dh, h1, m)
+    edge_message.reset_launches()
+    virtual_message.reset_launches()
+    with torch.no_grad():
+        kw = dict(gate_mode="mlp", rel_mode="inv1p", clamp=0.05)
+        run = lambda a: edge_message.edge_pathway_fused(*a, **kw)
+        want = edge_message.edge_pathway_plain(*args, **kw)
+        _assert_matches(run(args), run(args), want)
+        assert _outside_values_tolerance(run(bad), want)
+        deg = want[2].contiguous()
+        cots = (torch.randn((n, 3), generator=gen, device=dev),
+                torch.randn((n, m), generator=gen, device=dev))
+        brun = lambda a: edge_message.edge_pathway_bwd_fused(
+            *a[:5], *sender, *a[5:], deg, *cots, **kw)
+        bwant = edge_message.edge_pathway_bwd_plain(*args, *cots, **kw)
+        _assert_grads_match(brun(args), brun(args), bwant)
+        assert _outside_tolerance(brun(bad), bwant)
+        assert edge_message.route_launches == {route: 6}
+        # the identity pair: SchNet's form and RF's (a zero column)
+        z11 = torch.zeros(1, 1, device=dev)
+        for form_dh in (dh, 1):
+            h = args[1] if form_dh == dh else torch.zeros(n, 1, device=dev)
+            ia = [args[0], h, *args[2:5],
+                  torch.randn((form_dh, h1), generator=gen, device=dev),
+                  torch.randn((form_dh, h1), generator=gen, device=dev),
+                  args[7], args[8],
+                  0.3 * torch.randn((h1, 1), generator=gen, device=dev),
+                  z11, z11, z11, z11]
+            ikw = dict(gate_mode="identity",
+                       rel_mode="raw" if form_dh == dh else "inv1p",
+                       clamp=100.0)
+            irun = lambda a: edge_message.edge_pathway_fused(*a, **ikw)
+            iwant = edge_message.edge_pathway_plain(*ia, **ikw)
+            _assert_matches(irun(ia), irun(ia), iwant)
+            ibad = _one_slot_masked(ia, n_edges)
+            assert _outside_values_tolerance(irun(ibad), iwant)
+            g_mh = torch.randn((n, 1), generator=gen, device=dev)
+            ideg = iwant[2].contiguous()
+            ibrun = lambda a: edge_message.edge_pathway_bwd_fused(
+                *a[:5], *sender, *a[5:], ideg, cots[0], g_mh, **ikw)
+            _assert_grads_match(ibrun(ia), ibrun(ia),
+                                edge_message.edge_pathway_bwd_plain(
+                                    *ia, cots[0], g_mh, **ikw))
+        # the virtual pair at Dh = dh, hid = h1
+        c = 3
+        r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+        vargs = [args[0], args[1], args[0][:c] + 0.05 * r(c, 3),
+                 (r(n) > -1.2).float(), r(c, dh, h1, sc=dh ** -0.5),
+                 r(c, h1, sc=0.3), r(c, h1, sc=0.3),
+                 r(c, h1, h1, sc=h1 ** -0.5), r(c, h1, sc=0.1),
+                 r(c, h1, h1, sc=h1 ** -0.5), r(c, h1, sc=0.1),
+                 r(c, h1, 1, sc=h1 ** -0.5), r(c, h1, h1, sc=h1 ** -0.5),
+                 r(c, h1, sc=0.1), r(c, h1, 1, sc=h1 ** -0.5)]
+        vbad = list(vargs)
+        vbad[3] = vargs[3].clone()
+        vbad[3][0] = 1.0 - vbad[3][0]
+        vrun = lambda a: virtual_message.virtual_pathway_fused(*a)
+        vwant = virtual_message.virtual_pathway_plain(*vargs)
+        _assert_matches(vrun(vargs), vrun(vargs), vwant)
+        assert _outside_values_tolerance(vrun(vbad), vwant)
+        vcots = (r(n, 3), r(n, h1), r(c, 3), r(c, h1))
+        vbrun = lambda a: virtual_message.virtual_pathway_bwd_fused(
+            *a, *vcots)
+        vbwant = virtual_message.virtual_pathway_bwd_plain(*vargs, *vcots)
+        _assert_grads_match(vbrun(vargs), vbrun(vargs), vbwant)
+        assert _outside_tolerance(vbrun(vbad), vbwant)
+        assert virtual_message.route_launches == {
+            edge_message.kernel_route(dh, h1): 6}
+
+
+@needs_cuda
+@pytest.mark.parametrize("dh", [1, 800], ids=["rf", "schnet"])
+def test_identity_wider_than_its_kernels_takes_the_panel_path(dh):
+    """An identity-gate layer wider than the identity kernels' 768 columns
+    (the reference admits H1 = 800 at 300 nodes) runs the panel path, with
+    the message's column as the gate: against the plain versions, forward
+    and backward, repeatable."""
+    from repro_torch.core import message_passing as mp
+
+    dev = torch.device("cuda")
+    h1 = 800
+    args, sender, n_edges = _width_args(dev, 1, h1, 1)
+    n = args[0].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+    h = r(n, dh) if dh > 1 else torch.zeros(n, 1, device=dev)
+    z11 = torch.zeros(1, 1, device=dev)
+    ia = [args[0], h, *args[2:5], r(dh, h1, sc=dh ** -0.5),
+          r(dh, h1, sc=dh ** -0.5), r(1, h1, sc=0.3), r(1, h1, sc=0.1),
+          r(h1, 1, sc=h1 ** -0.5), z11, z11, z11, z11]
+    kw = dict(gate_mode="identity", rel_mode="inv1p" if dh == 1 else "raw",
+              clamp=100.0)
+    lp = {"phi1": [{"w": torch.zeros(2 * (dh if dh > 1 else 0) + 1, h1)},
+                   {"w": torch.zeros(h1, 1)}]}
+    g = GeometricGraph(x=args[0], v=None, h=h, senders=None, receivers=None,
+                       edge_attr=torch.zeros(0, 0), node_mask=None,
+                       edge_mask=None)
+    assert mp.kernel_supported(lp, g, EdgeSpec(gate="identity",
+                                               use_h=dh > 1))
+    edge_message.reset_launches()
+    with torch.no_grad():
+        run = lambda: edge_message.edge_pathway_fused(*ia, **kw)
+        want = edge_message.edge_pathway_plain(*ia, **kw)
+        _assert_matches(run(), run(), want)
+        deg = want[2].contiguous()
+        cots = (r(n, 3), r(n, 1))
+        brun = lambda: edge_message.edge_pathway_bwd_fused(
+            *ia[:5], *sender, *ia[5:], deg, *cots, **kw)
+        _assert_grads_match(brun(), brun(),
+                            edge_message.edge_pathway_bwd_plain(*ia, *cots,
+                                                                **kw))
+    assert edge_message.route_launches == {"panel": 4}
+    assert edge_message.identity_launches == 0

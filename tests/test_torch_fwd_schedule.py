@@ -100,14 +100,17 @@ def cta_rows(indptr, n_ctas):
 
 def edge_fwd_schedule(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
                       bg1, wg2, *, gate_mode, rel_mode, clamp, n_ctas, mm,
-                      trace=None):
-    """``csrc/edge_message.cu``'s schedule → ``(dx, mh, deg)``."""
-    n = x.shape[0]
+                      trace=None, rowsum=None):
+    """``csrc/edge_message.cu``'s schedule → ``(dx, mh, deg)``, at the
+    widths of the operands (``rowsum``: the sums over a row's features,
+    torch's by default)."""
+    n, m = x.shape[0], w2.shape[1]
+    rowsum = rowsum or (lambda t: t.sum(-1))
     f32 = torch.float32
     P = _tiles(h, lambda t: mm(t, w1r))
     Q = _tiles(h, lambda t: mm(t, w1s))
     dx = torch.full((n, 3), float("nan"), dtype=f32)
-    mh = torch.full((n, HID), float("nan"), dtype=f32)
+    mh = torch.full((n, m), float("nan"), dtype=f32)
     deg = torch.full((n, 1), float("nan"), dtype=f32)
     rows = cta_rows(indptr, n_ctas)
     row_of = torch.searchsorted(indptr.long(), torch.arange(snd.shape[0]),
@@ -122,7 +125,7 @@ def edge_fwd_schedule(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
         live = [s for s in range(int(indptr[r0]), int(indptr[r1]))
                 if em[s] != 0]
         for r in range(r0, r1):  # rows with no live slot
-            finish(r, torch.zeros(HID), torch.tensor(0.0), torch.zeros(3))
+            finish(r, torch.zeros(m), torch.tensor(0.0), torch.zeros(3))
         carry = None  # (row, mh sum, deg, dx sum) of the unfinished row
         for t0 in range(0, len(live), TR):
             sl = torch.tensor(live[t0:t0 + TR], dtype=torch.long)
@@ -138,7 +141,7 @@ def edge_fwd_schedule(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
             msg = mm(t1, w2) + b2
             term = torch.zeros((cnt, 3), dtype=f32)
             if gate_mode == "mlp":
-                g = (silu(mm(msg, wg1) + bg1) * wg2[:, 0]).sum(-1)[:cnt]
+                g = rowsum(silu(mm(msg, wg1) + bg1) * wg2[:, 0])[:cnt]
                 g = torch.clamp(g, -clamp, clamp)
                 q = rel / (torch.sqrt(d2 + 1e-12) + 1.0)[:, None] if (
                     rel_mode == "inv1p") else rel
@@ -148,7 +151,7 @@ def edge_fwd_schedule(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
                 if carry is None or carry[0] != ri:
                     if carry is not None:
                         finish(*carry)
-                    carry = (ri, torch.zeros(HID), torch.tensor(0.0),
+                    carry = (ri, torch.zeros(m), torch.tensor(0.0),
                              torch.zeros(3))
                 _, a, dg, d = carry
                 carry = (ri, a + msg[i] * e[i], dg + e[i], d + term[i])
@@ -273,13 +276,18 @@ def test_edge_fwd_schedule_single_tf32_pass_misses_tolerance():
 
 # ---------------------------------------------------- virtual schedule
 def virtual_fwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
-                         wz1, bz1, wz2, *, mm):
-    """``csrc/virtual_message.cu``'s schedule → ``(dx, mh, dz, ms)``."""
+                         wz1, bz1, wz2, *, mm, rowsum=None, colsum=None):
+    """``csrc/virtual_message.cu``'s schedule → ``(dx, mh, dz, ms)``, at
+    the widths of the operands (``rowsum`` as in :func:`edge_fwd_schedule`,
+    ``colsum``: the sums over a tile's rows, torch's by default)."""
     n, c = x.shape[0], z.shape[0]
+    hid = w2.shape[-1]
+    rowsum = rowsum or (lambda t: t.sum(-1))
+    colsum = colsum or (lambda t: t.sum(0))
     f32 = torch.float32
     inv_c = 1.0 / c
     dx = torch.zeros((n, 3), dtype=f32)
-    mh = torch.zeros((n, HID), dtype=f32)
+    mh = torch.zeros((n, hid), dtype=f32)
     parts = []
     for i0 in range(0, n, TR):
         cnt = min(TR, n - i0)
@@ -288,7 +296,7 @@ def virtual_fwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
         xt, ht, mt = pad(x[i0:i0 + cnt]), pad(h[i0:i0 + cnt]), pad(
             mask[i0:i0 + cnt])
         ok = torch.arange(TR) < cnt
-        mha = torch.zeros((TR, HID), dtype=f32)
+        mha = torch.zeros((TR, hid), dtype=f32)
         dxa = torch.zeros((TR, 3), dtype=f32)
         tile_parts = []
         for ch in range(c):  # the channels in order
@@ -297,10 +305,10 @@ def virtual_fwd_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2,
             t1 = silu((mm(ht, w1h[ch]) + d2[:, None] * w1d[ch]) + c1[ch])
             msg = mm(t1, w2[ch]) + b2[ch]
             mha = mha + msg
-            gx = (silu(mm(msg, wg1[ch]) + bg1[ch]) * wg2[ch, :, 0]).sum(-1)
-            gz = (silu(mm(msg, wz1[ch]) + bz1[ch]) * wz2[ch, :, 0]).sum(-1)
+            gx = rowsum(silu(mm(msg, wg1[ch]) + bg1[ch]) * wg2[ch, :, 0])
+            gz = rowsum(silu(mm(msg, wz1[ch]) + bz1[ch]) * wz2[ch, :, 0])
             dxa = dxa + rl * gx[:, None]
-            ms = torch.where(ok[:, None], msg * mt[:, None], 0.0).sum(0)
+            ms = colsum(torch.where(ok[:, None], msg * mt[:, None], 0.0))
             dzt = torch.where(ok[:, None], (-rl * gz[:, None]) * mt[:, None],
                               0.0)
             tile_parts.append((sum_in_order(list(dzt)), ms))

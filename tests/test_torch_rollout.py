@@ -167,7 +167,9 @@ def test_engine_hands_predict_fn_each_slots_csr_layout(pipe):
     res = BatchedRolloutEngine(spy, batch_size=3, node_cap=NODE_CAP,
                                edge_cap=EDGE_CAP, r=R, skin=SKIN, dt=DT,
                                device="cpu").run(pipe.params, scenes, 4)
-    assert len(seen) == 4 and res.rebuild_count >= 1
+    # one call a step, and one for each step a chunk computed past a
+    # failed skin check and dropped
+    assert len(seen) == 4 + res.discarded_steps and res.rebuild_count >= 1
     for rcv, indptr, n_edges in seen:
         assert indptr.shape == (3, NODE_CAP + 1) and indptr.dtype == torch.int32
         for b in range(3):
@@ -230,6 +232,7 @@ def _assert_device_telemetry(res):
     assert res.rebuild_mode == "device"
     assert res.coord_d2h_bytes == 0 and res.edge_h2d_bytes == 0
     assert res.rebuild_waits == 0
+    assert res.steady_state_d2h_bytes == 0
 
 
 @pytest.mark.parametrize("case", ["drop", "wrap_box", "skin0"])
@@ -245,6 +248,7 @@ def test_single_engine_device_equals_host_bitwise(pipe, case):
     assert rd.rebuild_steps == rh.rebuild_steps and rd.rebuild_count >= 1
     _assert_device_telemetry(rd)
     assert rh.coord_d2h_bytes > 0 and rh.edge_h2d_bytes > 0
+    assert rh.steady_state_d2h_bytes == 0
     if case == "skin0":
         assert rd.rebuild_count == steps - 1
     rd2 = ed.run(pipe.params, x0, v0, h, steps)  # a cached engine, again
@@ -268,7 +272,10 @@ def test_batched_engine_device_equals_host_bitwise(pipe, case):
     assert rd.rebuild_steps == rh.rebuild_steps and rd.rebuild_count >= 1
     assert rh.rebuild_waits == rh.rebuild_count  # host rebuilds block
     _assert_device_telemetry(rd)
-    assert rd.d2h_bytes > rd.steady_state_d2h_bytes > 0
+    # the skin checks are read once a chunk, at its end: no fetch in the
+    # steady state (the reference's while_loop contract)
+    assert rd.d2h_bytes > 0 and rd.steady_state_d2h_bytes == 0
+    assert rh.steady_state_d2h_bytes == 0
     if case == "skin0":
         assert rd.rebuild_count == steps - 1
     rd2 = ed.run(pipe.params, scenes, steps)
