@@ -64,6 +64,18 @@ Phases, each printing one JSON line (any failure exits nonzero):
              took (w32, w64: the compiled widths, the rest padded up to
              them; panel: above 64).  Each row of the kernels line carries
              them in its ``widths`` entry.
+   widths_bf16 — the same kernels with ``precision='bf16'`` at every
+             width of BF_WIDTH_CASES (16, 32, 48, 64, 128, 226: the
+             compiled widths, padded ones and the panel path) against
+             their bf16 plain versions (``kernels.ref.*_bf16``, the
+             Pallas kernels' casts): compare_bf16 (relative L2, elementwise
+             two bf16 roundings, the virtual forward's sums), a bitwise
+             repeat, the planted fault, two CTA counts at CTA_WIDTHS, and
+             engaged (some output BF_ENGAGED away from the f32 kernel's);
+             times and bounds (h, x and the weights at 2 bytes, the bf16
+             and TF32 rates).  Each FastEGNN row of the kernels line
+             carries its width-64 reading as ``bf16`` (its hidden32 entry
+             the width-32 one) and all of them as ``widths_bf16``.
 4. serve   — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each, the Verlet lists rebuilt on the
@@ -121,6 +133,18 @@ Phases, each printing one JSON line (any failure exits nonzero):
              gates that too); FastEGNN with the kernels E(3)-equivariant
              (rotated and translated input, output within EQUIV_TOL) at
              hidden 32 and 64.
+   bf16    — the bf16 mode of the same paths, each beside its f32 phase
+             and with its weights (phase_serve_bf16, the scale line's
+             ``bf16`` entry, phase_zoo_bf16, phase_train_bf16,
+             phase_hidden32_bf16): ``precision='bf16'``, training at
+             ``loss_scale`` BF_LOSS_SCALE; every frame and loss finite,
+             exact launch counts with every FastEGNN kernel call counted
+             in bf16 (``precision_launches``), no steady-state fetch;
+             against the f32 kernel path within relative L2 BF_MODEL_L2:
+             the first served frame, the 113K step's frame, each zoo
+             model's prediction (RF and SchNet also a train step) and
+             each first train step's gradient leaves; the bf16 first step
+             bitwise repeatable; ms a step and serve p50 beside f32's.
 
 The FastEGNN tensors are then freed, and the LM slice (gemma3-12b, random
 weights from seed 0) runs:
@@ -201,6 +225,44 @@ WIDTH_CASES = ((16, 16, 16), (24, 24, 24), (32, 32, 32), (48, 48, 48),
 WIDE_NODES, WIDE_WIDTH = 100, 512
 # widths at which two CTA counts run, bitwise equal
 CTA_WIDTHS = (32, 128)
+# the bf16 mode of #1-#4 and the identity pair (precision='bf16': bf16
+# operands of every product, f32 sums) against its bf16 plain version
+# (kernels.ref.*_bf16, the Pallas kernels' casts) on the card: per output
+# relative L2 <= BF_L2, and elementwise within two bf16 roundings of each
+# other, |k - p| <= BF_KRTOL |p| + BF_KATOL max|p| (the two round the same
+# values, but a different f32 summation order may tip a rounding, and a
+# tip moves every later sum that takes the rounded value); BF_KATOL sits
+# between the sound readings and the planted faults': on an H100 the
+# widths phase's largest sound reading was 9.1e-4, the smallest fault's
+# 8.9e-3 (PERF.md section 6)
+BF_L2, BF_KRTOL, BF_KATOL = 1e-3, 2.0 ** -7, 3e-3
+# the virtual forward's dz_sum and ms_sum, f32 sums of unrounded terms over
+# every node: relative L2 <= BF_SUM_L2.  Its planted fault (one node's
+# mask flipped) moves them by one term of 8,192, far inside two bf16
+# roundings of the sum (relative L2 2.5e-4 to 2.9e-4 on an H100), while
+# a tipped rounding upstream moves one node's term by a bf16 ulp
+BF_SUM_L2 = 5e-5
+# the bf16 kernel must differ from the f32 kernel (a kernel that ignores
+# the flag fails): relative L2 of some output >= BF_ENGAGED
+BF_ENGAGED = 1e-4
+# the widths of the bf16 widths phase (every route: w32, w64, padded up
+# to them, panel), two CTA counts at CTA_WIDTHS
+BF_WIDTH_CASES = ((16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64),
+                  (128, 128, 128), (226, 226, 226))
+# bf16 model path against the f32 kernel path: relative L2 of the first
+# served frame, of each leaf of the first step's gradients and of each zoo
+# model's prediction (DESIGN.md section 9.3; the reference's
+# test_bf16_grads_finite_and_close)
+BF_MODEL_L2 = 0.1
+# ... per gradient leaf whose f32 norm is at least BF_SMALL_LEAF of the
+# largest leaf's; a smaller leaf is a cancelling sum at rounding level
+# (the phi_Z stacks while z sits at the centre of mass: bf16 rounding of
+# x - z_c breaks the cancellation), held instead to BF_SMALL_LEAF of the
+# largest leaf's norm, absolutely
+BF_SMALL_LEAF = 1e-4
+# the bf16 train step's static loss scale (the reference's
+# tests/test_fused_backward.py: test_loss_scale_grads_invariant)
+BF_LOSS_SCALE = 1024.0
 # hidden32 phase: the reference's Table I model (benchmarks/common.py: 3
 # layers, hidden 32, C = 3, s_dim = hidden, lam_mmd 0.03) and its simulate
 # model (launch/simulate.py: 2 layers, hidden 32, C = 3, s_dim 16)
@@ -341,6 +403,38 @@ def compare_grads(got, want) -> dict:
         rel = max(rel, float(d.max()) / scale)
         ok &= bool(torch.all(d <= GATOL * scale + GRTOL * w.abs()))
     return {"max_abs_err": err, "max_rel_err": rel, "within_tol": ok}
+
+
+def rel_l2(got, want) -> float:
+    import torch
+
+    d = float(torch.linalg.vector_norm((got - want).double()))
+    return d / max(float(torch.linalg.vector_norm(want.double())), 1e-30)
+
+
+def compare_bf16(got, want, sums=()) -> dict:
+    """bf16 kernel outputs against the bf16 plain version's: each
+    output's relative L2 (BF_L2; the outputs at ``sums``: BF_SUM_L2) and
+    every element within BF_KRTOL |p| + BF_KATOL max|p|; ``atol_needed``:
+    the smallest BF_KATOL each element would pass with (the readings
+    BF_KATOL is set between)."""
+    import torch
+
+    err, l2, need, ok, per = 0.0, 0.0, 0.0, True, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not w.numel():
+            per.append(0.0)
+            continue
+        d = (g - w).abs()
+        scale = float(w.abs().max()) + 1e-30
+        err = max(err, float(d.max()))
+        per.append(rel_l2(g, w))
+        l2 = max(l2, per[-1])
+        need = max(need, float((d - BF_KRTOL * w.abs()).max()) / scale)
+        ok &= bool(torch.all(d <= BF_KRTOL * w.abs() + BF_KATOL * scale))
+        ok &= per[-1] <= (BF_SUM_L2 if i in sums else BF_L2)
+    return {"max_abs_err": err, "max_rel_l2": l2, "rel_l2_per_output": per,
+            "atol_needed": need, "within_tol": ok}
 
 
 def repeat_equal(a, b) -> bool:
@@ -1068,7 +1162,11 @@ def rebuild_modes(pipe, scenes, dev) -> dict:
     return out
 
 
-def phase_scale(pipe, dev) -> dict:
+def phase_scale(pipe, dev, bpipe=None) -> dict:
+    """One 113K-particle step (see the module docstring); with ``bpipe``
+    (the same model in bf16) also its step, timed and profiled, with every
+    FastEGNN kernel call in bf16 and its frame within BF_MODEL_L2 of the
+    f32 step's."""
     import numpy as np
     import torch
 
@@ -1101,12 +1199,41 @@ def phase_scale(pipe, dev) -> dict:
     if tuple(out.shape) != (1, n, 3) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"scale step gave shape {tuple(out.shape)} or "
                              f"non-finite values")
-    return {"phase": "scale", "particles": SCALE_PARTICLES, "node_cap": n,
-            "edges": n_edges, "live_edges": int((em[:n_edges] != 0).sum()),
-            "graph_build_s": build_s, "device_build": device_build,
-            "step_ms_median": 1e3 * statistics.median(times),
-            "step_ms_min": 1e3 * min(times),
-            "profile_step": profile_step(step)}
+    res = {"phase": "scale", "particles": SCALE_PARTICLES, "node_cap": n,
+           "edges": n_edges, "live_edges": int((em[:n_edges] != 0).sum()),
+           "graph_build_s": build_s, "device_build": device_build,
+           "step_ms_median": 1e3 * statistics.median(times),
+           "step_ms_min": 1e3 * min(times),
+           "profile_step": profile_step(step)}
+    if bpipe is not None:
+        from repro_torch.kernels import edge_message, virtual_message
+
+        bstep = lambda: bpipe.predict_fn(bpipe.params, g, lay)
+        edge_message.reset_launches()
+        virtual_message.reset_launches()
+        bout = bstep()
+        torch.cuda.synchronize()
+        prec = precision_counts()
+        btimes, ftimes = [], []
+        for _ in range(5):  # in turns with the f32 step
+            for fn, ts in ((bstep, btimes), (step, ftimes)):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+        keep = nm[None, :, None]
+        b = {"step_ms_median": 1e3 * statistics.median(btimes),
+             "f32_step_ms_median": 1e3 * statistics.median(ftimes),
+             "frame_rel_l2_vs_f32": rel_l2(bout * keep, out * keep),
+             "displacement_rel_l2_vs_f32": rel_l2((bout - x[None]) * keep,
+                                                  (out - x[None]) * keep),
+             "precision_launches": prec, "profile_step": profile_step(bstep)}
+        res["bf16"] = b
+        if not (bool(torch.isfinite(bout).all())
+                and b["frame_rel_l2_vs_f32"] < BF_MODEL_L2
+                and _only_bf16(prec, LAYERS, LAYERS)):
+            raise AssertionError(f"scale_bf16 failed: {json.dumps(res)}")
+    return res
 
 
 def scale_device_build(x0, dev) -> dict:
@@ -1595,48 +1722,67 @@ def _width_flops(kind: str, n: int, live: int, c: int, dh: int, h1: int,
 
 
 def _width_bytes(kind: str, n: int, n_edges: int, c: int, dh: int, h1: int,
-                 m: int) -> float:
-    """Each input read once and each output written once, f32."""
+                 m: int, hw: int = 4) -> float:
+    """Each input read once and each output written once, f32; h, x, z
+    and the weights at ``hw`` bytes (2: the bf16 mode's operands)."""
     f = 4
-    graph = n * 3 * f + n_edges * 2 * f + (n + 1) * f
+    graph = n * 3 * hw + n_edges * 2 * f + (n + 1) * f
     if kind.startswith("edge"):
-        w = (2 * dh * h1 + 3 * h1 + h1 * m + m + m * h1 + h1) * f
-        io = graph + n * dh * f + w + n * (3 + m + 1) * f
+        w = (2 * dh * h1 + 3 * h1 + h1 * m + m + m * h1 + h1) * hw
+        io = graph + n * dh * hw + w + n * (3 + m + 1) * f
         return io if kind == "edge_fwd" else 2 * io + n_edges * f
     if kind.startswith("identity"):
-        w = (2 * dh * h1 + 3 * h1 + 1) * f
-        io = graph + n * dh * f + w + n * 5 * f
+        w = (2 * dh * h1 + 3 * h1 + 1) * hw
+        io = graph + n * dh * hw + w + n * 5 * f
         return io if kind == "identity_fwd" else 2 * io + n_edges * f
-    w = c * (dh * h1 + 3 * h1 * h1 + 7 * h1) * f  # virtual
-    io = n * (3 + dh + 1) * f + c * 3 * f + w + n * (3 + h1) * f \
+    w = c * (dh * h1 + 3 * h1 * h1 + 7 * h1) * hw  # virtual
+    io = n * (3 * hw + dh * hw + f) + c * 3 * hw + w + n * (3 + h1) * f \
         + c * (3 + h1) * f
     return io if kind == "virtual_fwd" else 2 * io
 
 
 def _reading(run, plain, fault, cmp, kind, shape, tensor_core: bool,
-             cta=None) -> dict:
+             cta=None, f32=None) -> dict:
     """One kernel at one width: against its plain version (``cmp``), a
     bitwise repeat, a planted fault, CUDA-event and device times, bounds;
     ``cta``: a run with another CTA count, bitwise equal (or, for the edge
-    backward's weight gradients, within the tolerance)."""
+    backward's weight gradients, within the tolerance).  ``f32``: for a
+    bf16 reading, the f32 kernel on the same inputs: the bf16 mode must be
+    engaged (an output BF_ENGAGED away from it), plain_ms is timed, and
+    the bounds count h, x and the weights at 2 bytes, the FLOP at the bf16
+    rate and (``bound_tf32_ms``) at the TF32 rate."""
     got, again, want = run(), run(), plain()
     r = cmp(got, want)
     r["bitwise_repeatable"] = repeat_equal(got, again)
-    r["planted_fault_caught"] = not cmp(fault(), want)["within_tol"]
+    bad = cmp(fault(), want)
+    r["planted_fault_caught"] = not bad["within_tol"]
+    if f32 is not None:
+        r["fault_atol_needed"] = bad["atol_needed"]
+        r["fault_rel_l2_per_output"] = bad["rel_l2_per_output"]
+        r["vs_f32_rel_l2"] = max(rel_l2(a, b) for a, b in zip(got, f32())
+                                 if b.numel())
+        r["engaged"] = r["vs_f32_rel_l2"] >= BF_ENGAGED
     if cta is not None:
         other = cta()
         r["cta_max_diff"] = [float((a - b).abs().max()) for a, b in
                              zip(got, other)]
         if kind == "edge_bwd":  # gx, gh bitwise; the weights' partials
             r["cta_counts_equal"] = (repeat_equal(got[:2], other[:2])
-                                     and compare_grads(other,
-                                                       want)["within_tol"])
+                                     and cmp(other, want)["within_tol"])
         else:
             r["cta_counts_equal"] = repeat_equal(got, other)
     del got, again, want
     n, live, n_edges = shape[:3]
-    n_bytes = _width_bytes(kind, n, n_edges, *shape[3:])
     flops = _width_flops(kind, n, live, *shape[3:])
+    if f32 is not None:
+        n_bytes = _width_bytes(kind, n, n_edges, *shape[3:], hw=2)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+        r.update(ms=cuda_ms(run, 5, 1), plain_ms=cuda_ms(plain, 3, 1),
+                 bound_ms=b_ms, bound_by=b_by,
+                 bound_tf32_ms=bound_ms(n_bytes, flops, TF32_FLOPS)[0],
+                 library_ms=None, **device_fields(run))
+        return r
+    n_bytes = _width_bytes(kind, n, n_edges, *shape[3:])
     b_ms, b_by = bound_ms(n_bytes, flops)
     r.update(ms=cuda_ms(run, 5, 1), bound_ms=b_ms, bound_by=b_by)
     if tensor_core:
@@ -1675,10 +1821,11 @@ def _graph_operands(x, snd, em, indptr, n_edges, dev):
 
 
 def edge_width_readings(x, snd, em, indptr, n_edges, dh, h1, m, dev,
-                        identity=True, cta=False) -> dict:
+                        identity=True, cta=False, precision="f32") -> dict:
     """#1 and #2 (gate 'mlp', FastEGNN's rel and clamp) and, if asked, the
     identity pair in SchNet's form (Dh, H1) and RF's (Dh = 1) at these
-    widths on this graph."""
+    widths on this graph; in ``precision`` ('bf16': against the bf16 plain
+    versions, compare_bf16, and the f32 kernels)."""
     import torch
 
     from repro_torch.kernels import edge_message as em_mod
@@ -1698,18 +1845,23 @@ def edge_width_readings(x, snd, em, indptr, n_edges, dh, h1, m, dev,
         h = (torch.randn((n, fdh), generator=gen, device=dev)
              if name != "identity_rf"
              else torch.zeros(n, 1, device=dev))
-        kw = dict(gate_mode=gate, rel_mode=rel, clamp=clamp)
+        kw = dict(gate_mode=gate, rel_mode=rel, clamp=clamp,
+                  precision=precision)
+        kw32 = dict(kw, precision="f32")
         args = [x, h, snd, em, indptr, *ws]
         bad = [x, h, snd, em_bad, indptr, *ws]
         g_dx = torch.randn((n, 3), generator=gen, device=dev)
         g_mh = torch.randn((n, fm), generator=gen, device=dev)
-        fwd = lambda a=args: em_mod.edge_pathway_fused(*a, **kw)
+        fwd = lambda a=args, k=kw: em_mod.edge_pathway_fused(*a, **k)
         fplain = lambda: em_mod.edge_pathway_plain(*args, **kw)
         deg = fplain()[2].contiguous()
-        bwd = lambda a=args: em_mod.edge_pathway_bwd_fused(
-            *a[:5], *sender, *a[5:], deg, g_dx, g_mh, **kw)
+        bwd = lambda a=args, k=kw: em_mod.edge_pathway_bwd_fused(
+            *a[:5], *sender, *a[5:], deg, g_dx, g_mh, **k)
         bplain = lambda: em_mod.edge_pathway_bwd_plain(*args, g_dx, g_mh,
-                                                       **kw)
+                                                       deg=deg, **kw)
+        bf = precision != "f32"
+        fcmp, bcmp = ((compare_bf16, compare_bf16) if bf
+                      else (compare, compare_grads))
         ctas = ("EDGE_FWD_CTAS", "EDGE_BWD_CTAS") if gate != "identity" \
             else ("IDENTITY_CTAS", "IDENTITY_CTAS")
 
@@ -1727,18 +1879,21 @@ def edge_width_readings(x, snd, em, indptr, n_edges, dh, h1, m, dev,
         kshape = (n, live, n_edges, 3, fdh, h1, fm)
         kind = "edge" if tc else "identity"
         out[name] = {
-            "fwd": _reading(fwd, fplain, lambda: fwd(bad), compare,
+            "fwd": _reading(fwd, fplain, lambda: fwd(bad), fcmp,
                             f"{kind}_fwd", kshape, tc,
-                            other(fwd, ctas[0], 61) if cta else None),
-            "bwd": _reading(bwd, bplain, lambda: bwd(bad), compare_grads,
+                            other(fwd, ctas[0], 61) if cta else None,
+                            (lambda: fwd(args, kw32)) if bf else None),
+            "bwd": _reading(bwd, bplain, lambda: bwd(bad), bcmp,
                             f"{kind}_bwd", kshape, tc,
-                            other(bwd, ctas[1], 97) if cta else None)}
+                            other(bwd, ctas[1], 97) if cta else None,
+                            (lambda: bwd(args, kw32)) if bf else None)}
         torch.cuda.empty_cache()
     return out
 
 
-def virtual_width_readings(x, nm, dh, hid, dev) -> dict:
-    """#3 and #4 at Dh, hid on the serve scene's nodes (C = 3)."""
+def virtual_width_readings(x, nm, dh, hid, dev, precision="f32") -> dict:
+    """#3 and #4 at Dh, hid on the serve scene's nodes (C = 3), in
+    ``precision`` (as edge_width_readings)."""
     import torch
 
     from repro_torch.kernels import virtual_message as vm
@@ -1758,27 +1913,34 @@ def virtual_width_readings(x, nm, dh, hid, dev) -> dict:
     bad[3][0] = 1.0 - bad[3][0]
     cots = (r(n, 3), r(n, hid), r(c, 3), r(c, hid))
     shape = (n, 0, 0, c, dh, hid, hid)
-    fwd = lambda a=args: vm.virtual_pathway_fused(*a)
-    bwd = lambda a=args: vm.virtual_pathway_bwd_fused(*a, *cots)
+    p = precision
+    fwd = lambda a=args, p=p: vm.virtual_pathway_fused(*a, precision=p)
+    bwd = lambda a=args, p=p: vm.virtual_pathway_bwd_fused(*a, *cots,
+                                                           precision=p)
+    bf = precision != "f32"
     out = {"route": vm.kernel_route(dh, hid),
-           "fwd": _reading(fwd, lambda: vm.virtual_pathway_plain(*args),
-                           lambda: fwd(bad), compare, "virtual_fwd", shape,
-                           True),
+           "fwd": _reading(fwd, lambda: vm.virtual_pathway_plain(
+               *args, precision=p), lambda: fwd(bad),
+               (lambda g, w: compare_bf16(g, w, sums=(2, 3))) if bf
+               else compare, "virtual_fwd", shape, True,
+               f32=(lambda: fwd(args, "f32")) if bf else None),
            "bwd": _reading(bwd, lambda: vm.virtual_pathway_bwd_plain(
-               *args, *cots), lambda: bwd(bad), compare_grads,
-               "virtual_bwd", shape, True)}
+               *args, *cots, precision=p), lambda: bwd(bad),
+               compare_bf16 if bf else compare_grads, "virtual_bwd", shape,
+               True, f32=(lambda: bwd(args, "f32")) if bf else None)}
     torch.cuda.empty_cache()
     return out
 
 
 def _width_ok(readings) -> bool:
-    """Every reading within its tolerance, repeatable, its fault caught
-    and its CTA counts equal."""
+    """Every reading within its tolerance, repeatable, its fault caught,
+    its CTA counts equal and (bf16) the bf16 mode engaged."""
     if isinstance(readings, dict):
         if "within_tol" in readings:
             return (readings["within_tol"] and readings["bitwise_repeatable"]
                     and readings["planted_fault_caught"]
-                    and readings.get("cta_counts_equal", True))
+                    and readings.get("cta_counts_equal", True)
+                    and readings.get("engaged", True))
         return all(_width_ok(v) for k, v in readings.items()
                    if k != "route")
     return True
@@ -1826,15 +1988,417 @@ def phase_widths(scene, dev) -> dict:
     return out
 
 
-def width_subentries(widths: dict) -> dict:
-    """Per kernel row of the kernels line, its readings at each width."""
-    keep = ("max_abs_err", "ms", "device_ms", "bound_ms", "bound_3xtf32_ms")
+def phase_widths_bf16(scene, dev) -> dict:
+    """The bf16 mode of #1 to #4 and the identity pair alone at every
+    width of BF_WIDTH_CASES on the serve Verlet list: against the bf16
+    plain versions (compare_bf16), a bitwise repeat, the planted fault,
+    two CTA counts at CTA_WIDTHS, engaged against the f32 kernels; times
+    and bounds."""
+    import torch
+
+    t0 = time.perf_counter()
+    x, snd, _rcv, em, nm, indptr, n_edges = serving_graph(
+        scene[0], NODE_CAP, R + SKIN, R, dev)
+    cases = {}
+    with torch.no_grad():
+        for dh, h1, m in BF_WIDTH_CASES:
+            cta = h1 in CTA_WIDTHS
+            cases[_width_key(dh, h1, m)] = {
+                "edge_pair": edge_width_readings(
+                    x, snd, em, indptr, n_edges, dh, h1, m, dev, cta=cta,
+                    precision="bf16"),
+                "virtual_pair": virtual_width_readings(x, nm, dh, h1, dev,
+                                                       precision="bf16")}
+    out = {"phase": "widths_bf16",
+           "tolerance": {"rel_l2": BF_L2, "rtol": BF_KRTOL,
+                         "atol_of_max": BF_KATOL,
+                         "virtual_sums_rel_l2": BF_SUM_L2,
+                         "engaged": BF_ENGAGED},
+           "n": NODE_CAP, "slots": int(snd.shape[0]), "n_edges": n_edges,
+           "cases": cases, "seconds": time.perf_counter() - t0}
+    if not _width_ok(cases):
+        raise AssertionError(f"a bf16 width case failed: {json.dumps(out)}")
+    return out
+
+
+# ------------------------------------------------------------- bf16 phases
+def _periodic_rel_l2(got, want, base=None) -> float:
+    """Relative L2 of frames ``got`` against ``want`` (numpy, wrapped in
+    [0, BOX)) by periodic differences; with ``base`` (the frames' start),
+    of the displacements from it instead."""
+    import numpy as np
+
+    wrap = lambda d: (d + BOX / 2) % BOX - BOX / 2
+    d = wrap(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    ref = (np.asarray(want, np.float64) if base is None
+           else wrap(np.asarray(want, np.float64)
+                     - np.asarray(base, np.float64)))
+    return float(np.linalg.norm(d) / max(np.linalg.norm(ref), 1e-30))
+
+
+def precision_counts() -> dict:
+    """The FastEGNN kernels' calls per precision (forward and backward,
+    every route) since the last reset."""
+    from repro_torch.kernels import edge_message, virtual_message
+
+    return {"edge": dict(edge_message.precision_launches),
+            "virtual": dict(virtual_message.precision_launches)}
+
+
+def _only_bf16(counts: dict, edge: int, virtual: int) -> bool:
+    """The kernels ran ``edge`` / ``virtual`` calls, every one bf16."""
+    want = {"edge": {"bf16": edge} if edge else {},
+            "virtual": {"bf16": virtual} if virtual else {}}
+    return counts == want
+
+
+def phase_serve_bf16(pipe, scenes, serve32, dev) -> dict:
+    """The serve phase's path with ``precision='bf16'`` (the same
+    weights): four scenes, STEPS steps, device rebuilds; every frame
+    finite, exact launch counts all in bf16, no steady-state fetch, the
+    first frame against the f32 kernel path's (relative L2 of the frames,
+    BF_MODEL_L2; that of the displacements is read), and the serve p50
+    beside the f32 serve phase's."""
+    import numpy as np
+
+    from repro_torch.kernels import edge_message, virtual_message
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.rollout import BatchedRolloutEngine
+    from repro_torch.serving import RolloutService, ServiceConfig
+
+    t_phase = time.perf_counter()
+    bpipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                           precision="bf16", params=pipe.params)
+    cfg = ServiceConfig(max_batch=MAX_BATCH, window_s=1.0, queue_cap=16,
+                        edge_cap_per_node=EDGES_PER_NODE)
+    submit = dict(r=R, skin=SKIN, dt=DT, wrap_box=BOX)
+    with RolloutService(bpipe, config=cfg) as warm:
+        x, v, h = scenes[0]
+        warm.submit(x, v, h, 2, **submit).result()
+    edge_message.reset_launches()
+    virtual_message.reset_launches()
+    t0 = time.perf_counter()
+    with RolloutService(bpipe, config=cfg) as svc:
+        handles = [svc.submit(x, v, h, STEPS, **submit) for x, v, h in scenes]
+        streams = [[f.copy() for f in hd.frames()] for hd in handles]
+    wall = time.perf_counter() - t0
+    launches = {"edge_pathway_fused": edge_message.launches,
+                "virtual_pathway_fused": virtual_message.launches}
+    prec = precision_counts()
+    m = svc.metrics()
+    (served,) = [svc._programs._lru.get(k) for k in svc._programs.keys()]
+    tel = served._tel
+    want = LAYERS * MAX_BATCH * (m["batches"] * STEPS + served._discarded)
+    eng = BatchedRolloutEngine(
+        pipe.predict_fn, batch_size=MAX_BATCH, node_cap=NODE_CAP,
+        edge_cap=NODE_CAP * EDGES_PER_NODE, r=R, skin=SKIN, dt=DT,
+        wrap_box=BOX, device=dev)
+    ref = eng.run(pipe.params, scenes, 1).trajectories
+    first = np.stack([s[0] for s in streams])
+    f32 = np.stack([t[0] for t in ref])
+    x0 = np.stack([sc[0] for sc in scenes])
+    out = {"phase": "serve_bf16", "steps": STEPS, "batches": m["batches"],
+           "launches": launches, "launches_expected": want,
+           "precision_launches": prec,
+           "rebuild_mode": served.rebuild_mode,
+           "coord_d2h_bytes": tel.coord_d2h, "edge_h2d_bytes": tel.edge_h2d,
+           "steady_state_d2h_bytes": tel.steady_d2h,
+           "discarded_steps": served._discarded,
+           "first_frame_rel_l2_vs_f32": _periodic_rel_l2(first, f32),
+           "first_step_displacement_rel_l2_vs_f32": _periodic_rel_l2(
+               first, f32, x0),
+           "rel_l2_limit": BF_MODEL_L2,
+           "latency_p50_s": m["latency_p50_s"],
+           "latency_p99_s": m["latency_p99_s"],
+           "f32_latency_p50_s": serve32["latency_p50_s"],
+           "mean_step_s": m["compute_mean_s"] / STEPS,
+           "f32_mean_step_s": serve32["mean_step_s"], "wall_s": wall,
+           "seconds": time.perf_counter() - t_phase}
+    finite = all(len(fr) == STEPS and all(np.isfinite(f).all() for f in fr)
+                 for fr in streams)
+    if not (finite and all(v == want for v in launches.values())
+            and _only_bf16(prec, want, want)
+            and served.rebuild_mode == "device" and not tel.coord_d2h
+            and not tel.edge_h2d and not tel.steady_d2h
+            and out["first_frame_rel_l2_vs_f32"] < BF_MODEL_L2):
+        raise AssertionError(f"serve_bf16 failed: {json.dumps(out)}")
+    return out
+
+
+def _grads_rel_l2(pa, pb, batch, tca, tcb) -> dict:
+    """Pipeline ``pa``'s first-step gradients (train config ``tca``)
+    against ``pb``'s, from ``pa``'s weights, per leaf: the relative L2
+    (BF_MODEL_L2) of every leaf whose ``pb`` gradient holds at least
+    BF_SMALL_LEAF of the largest leaf's norm; the rest (cancelling sums
+    at rounding level: the phi_Z stacks while z sits at the centre of
+    mass, unused leaves) must lie within BF_SMALL_LEAF of that norm
+    absolutely.  ``ok``: all of them."""
+    import torch
+
+    from repro_torch.training.optim import tree_leaves
+    from repro_torch.training.trainer import build_train_step
+
+    grads = [tree_leaves(build_train_step(p.apply_full, p.cfg, tc,
+                                          _GradsOut())[0](
+        pa.params, None, batch)[0]) for p, tc in ((pa, tca), (pb, tcb))]
+    norm = lambda t: float(torch.linalg.vector_norm(t.double()))
+    top = max(norm(b) for b in grads[1])
+    l2, small = [], []
+    for a, b in zip(*grads):
+        if norm(b) >= BF_SMALL_LEAF * top:
+            l2.append(norm(a - b) / norm(b))
+        else:
+            small.append(norm(a - b) / top)
+    return {"rel_l2": l2, "rel_l2_max": max(l2), "small_leaves": len(small),
+            "small_leaves_dev_max": max(small, default=0.0),
+            "ok": max(l2) < BF_MODEL_L2
+            and max(small, default=0.0) <= BF_SMALL_LEAF}
+
+
+def bf16_first_step(bpipe, fpipe, batch, tcb, tcf, reps: int = 3) -> dict:
+    """The first train step in bf16 against f32 (both with the kernels,
+    the same weights): per-leaf gradient relative L2 (BF_MODEL_L2), the
+    bf16 step bitwise repeatable, and ms a step each way, taken in
+    turns."""
+    import math
+
+    import torch
+
+    from repro_torch.training.optim import tree_leaves
+
+    p0 = bpipe.params
+    k1, _, mk = bpipe.train_step(p0, bpipe.opt.init(p0), batch)
+    k2, _, _ = bpipe.train_step(p0, bpipe.opt.init(p0), batch)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(tree_leaves(k1), tree_leaves(k2)))
+    gcmp = _grads_rel_l2(bpipe, fpipe, batch, tcb, tcf)
+    times = {"bf16": [], "f32": []}
+    for _ in range(reps):
+        for name, pp in (("bf16", bpipe), ("f32", fpipe), ):
+            t = time.perf_counter()
+            pp.train_step(p0, pp.opt.init(p0), batch)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+    loss = float(mk["loss"])
+    return {"loss": loss, "grads": gcmp, "bitwise_repeatable": bitwise,
+            "step_ms_bf16": 1e3 * statistics.median(times["bf16"]),
+            "step_ms_f32": 1e3 * statistics.median(times["f32"]),
+            "ok": math.isfinite(loss) and gcmp["ok"] and bitwise}
+
+
+def phase_train_bf16(dev, tr, va) -> dict:
+    """The train phase's path with ``precision='bf16'`` and
+    ``loss_scale=BF_LOSS_SCALE``: the first step against the f32 kernel
+    path's (per-leaf gradient relative L2 < BF_MODEL_L2, bitwise repeat,
+    ms a step both ways), then Pipeline.fit for EPOCHS epochs: finite
+    losses, exact launch counts, every FastEGNN kernel call in bf16."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.training.trainer import TrainConfig
+
+    t_phase = time.perf_counter()
+    kw = dict(epochs=EPOCHS, lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA,
+              mmd_sample=None)
+    tcb, tcf = TrainConfig(loss_scale=BF_LOSS_SCALE, **kw), TrainConfig(**kw)
+    bpipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                           precision="bf16", train_cfg=tcb,
+                           generator=torch.Generator().manual_seed(0))
+    fpipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                           train_cfg=tcf, params=bpipe.params)
+    first = bf16_first_step(bpipe, fpipe, tr[0], tcb, tcf)
+    for mod in (edge_message, virtual_message, mmd_rbf):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    res = bpipe.fit(tr, va)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"edge_pathway_fused": edge_message.launches,
+                "virtual_pathway_fused": virtual_message.launches,
+                "edge_pathway_bwd_fused": edge_message.bwd_launches,
+                "virtual_pathway_bwd_fused": virtual_message.bwd_launches,
+                "mmd_cross_sum": mmd_rbf.sum_launches,
+                "mmd_cross_grads": mmd_rbf.grad_launches}
+    steps = EPOCHS * len(tr)
+    passes = LAYERS * (steps + EPOCHS * len(va)) * TRAIN_BATCH
+    bwd = LAYERS * steps * TRAIN_BATCH
+    want = {"edge_pathway_fused": passes, "virtual_pathway_fused": passes,
+            "edge_pathway_bwd_fused": bwd, "virtual_pathway_bwd_fused": bwd,
+            "mmd_cross_sum": steps, "mmd_cross_grads": steps}
+    prec = precision_counts()
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_mse")]
+    out = {"phase": "train_bf16", "loss_scale": BF_LOSS_SCALE,
+           "history": res.history, "first_step": first, "fit_s": fit_s,
+           "launches": launches, "launches_expected": want,
+           "precision_launches": prec, "rel_l2_limit": BF_MODEL_L2,
+           "seconds": time.perf_counter() - t_phase}
+    if not (all(math.isfinite(v) for v in losses) and launches == want
+            and _only_bf16(prec, passes + bwd, passes + bwd)
+            and first["ok"]):
+        raise AssertionError(f"train_bf16 failed: {json.dumps(out)}")
+    return out
+
+
+def phase_hidden32_bf16(dev, tr) -> dict:
+    """The Table I model (hidden 32: the w32 route) H32_FIT_STEPS train
+    steps in bf16 at BF_LOSS_SCALE: the first against the f32 kernel
+    path's, as train_bf16, then the steps: finite losses, exact launch
+    counts, all bf16."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.training.trainer import TrainConfig
+
+    t_phase = time.perf_counter()
+    kw = dict(lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA, mmd_sample=None)
+    tcb, tcf = TrainConfig(loss_scale=BF_LOSS_SCALE, **kw), TrainConfig(**kw)
+    bpipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                           precision="bf16", train_cfg=tcb,
+                           generator=torch.Generator().manual_seed(0),
+                           **TABLE1)
+    fpipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                           train_cfg=tcf, params=bpipe.params, **TABLE1)
+    first = bf16_first_step(bpipe, fpipe, tr[0], tcb, tcf)
+    for mod in (edge_message, virtual_message, mmd_rbf):
+        mod.reset_launches()
+    p, st = bpipe.params, bpipe.opt.init(bpipe.params)
+    losses = []
+    for i in range(H32_FIT_STEPS):
+        p, st, mt = bpipe.train_step(p, st, tr[i % len(tr)])
+        losses.append(float(mt["loss"]))
+    n = TABLE1["n_layers"] * H32_FIT_STEPS * TRAIN_BATCH
+    launches = {"edge_pathway_fused": edge_message.launches,
+                "edge_pathway_bwd_fused": edge_message.bwd_launches,
+                "virtual_pathway_fused": virtual_message.launches,
+                "virtual_pathway_bwd_fused": virtual_message.bwd_launches}
+    prec = precision_counts()
+    routes = {"edge": dict(edge_message.route_launches),
+              "virtual": dict(virtual_message.route_launches)}
+    out = {"phase": "hidden32_bf16", "model": TABLE1,
+           "steps": H32_FIT_STEPS, "losses": losses, "first_step": first,
+           "launches": launches, "precision_launches": prec,
+           "routes": routes, "seconds": time.perf_counter() - t_phase}
+    if not (all(math.isfinite(v) for v in losses) and first["ok"]
+            and all(v == n for v in launches.values())
+            and _only_bf16(prec, 2 * n, 2 * n)
+            and routes == {"edge": {"w32": 2 * n},
+                           "virtual": {"w32": 2 * n}}):
+        raise AssertionError(f"hidden32_bf16 failed: {json.dumps(out)}")
+    return out
+
+
+def phase_zoo_bf16(scenes, tr, dev) -> dict:
+    """Every registry model whose layers reach #1-#4 or the identity pair
+    (ZOO_DISPATCH), with the kernels in bf16 and in f32 (the same weights):
+    predict_fn on the serve batch, the bf16 prediction within relative L2
+    BF_MODEL_L2 of the f32 one (the displacements' relative L2 is read),
+    the kernel launches exact and all bf16; for RF and SchNet (the identity
+    pair's backward) also one bf16 train step at BF_LOSS_SCALE: a finite
+    loss and exact bf16 launches, its gradients' distance from the f32
+    step's read (not gated: SchNet's coordinate head reads 0.21 on three
+    leaves, the bf16 mode's own rounding of coordinates near 0.5, whose
+    ulp is 1/6 of the particle spacing; the kernels agree with their bf16
+    plain versions, widths_bf16)."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import edge_message, mmd_rbf, virtual_message
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.training.trainer import TrainConfig
+
+    kw = dict(lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA, mmd_sample=None)
+    tcb, tcf = TrainConfig(loss_scale=BF_LOSS_SCALE, **kw), TrainConfig(**kw)
+
+    t_phase = time.perf_counter()
+    g, lay = serve_batch(scenes, dev)
+    b = g.x.shape[0]
+    models = {}
+    ok = True
+    for name in ZOO:
+        d = ZOO_DISPATCH[name]
+        if not ("edge_kernel" in d or "virtual_kernel" in d):
+            continue
+        fp = build_pipeline(name, device=dev, use_kernel=True,
+                            generator=torch.Generator().manual_seed(0),
+                            **zoo_kwargs(name))
+        bp = build_pipeline(name, device=dev, use_kernel=True,
+                            precision="bf16", params=fp.params,
+                            **zoo_kwargs(name))
+        with torch.no_grad():
+            want = fp.predict_fn(fp.params, g, lay)
+            edge_message.reset_launches()
+            virtual_message.reset_launches()
+            got = bp.predict_fn(bp.params, g, lay)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in zoo_launch_counts().items() if v}
+        prec = precision_counts()
+        n_e = LAYERS * b if "edge_kernel" in d else 0
+        n_v = LAYERS * b if "virtual_kernel" in d else 0
+        exp = {k: v for k, v in zoo_expected(name, LAYERS * b).items() if v}
+        nm = g.node_mask[..., None]
+        r = {"pred_rel_l2_vs_f32": rel_l2(got * nm, want * nm),
+             "displacement_rel_l2_vs_f32": rel_l2((got - g.x) * nm,
+                                                  (want - g.x) * nm),
+             "finite": bool(torch.isfinite(got).all()),
+             "launches": launches, "launches_expected": exp,
+             "precision_launches": prec}
+        r["ok"] = (r["finite"] and r["pred_rel_l2_vs_f32"] < BF_MODEL_L2
+                   and launches == exp and _only_bf16(prec, n_e, n_v))
+        if name in ("rf", "schnet"):
+            bt = build_pipeline(name, device=dev, use_kernel=True,
+                                precision="bf16", params=fp.params,
+                                train_cfg=tcb, **zoo_kwargs(name))
+            ft = build_pipeline(name, device=dev, use_kernel=True,
+                                params=fp.params, train_cfg=tcf,
+                                **zoo_kwargs(name))
+            for mod in (edge_message, virtual_message, mmd_rbf):
+                mod.reset_launches()
+            _, _, mt = bt.train_step(bt.params, bt.opt.init(bt.params),
+                                     tr[0])
+            torch.cuda.synchronize()
+            tl = {k: v for k, v in zoo_launch_counts().items() if v}
+            tprec = precision_counts()
+            gcmp = _grads_rel_l2(bt, ft, tr[0], tcb, tcf)
+            ne = LAYERS * TRAIN_BATCH
+            texp = {k: v for k, v in zoo_expected(name, ne, ne).items() if v}
+            r["train_step"] = {"loss": float(mt["loss"]),
+                               "grads": gcmp,
+                               "launches": tl, "launches_expected": texp,
+                               "precision_launches": tprec}
+            r["ok"] &= (math.isfinite(float(mt["loss"])) and tl == texp
+                        and _only_bf16(tprec, 2 * ne, 0))
+            del bt, ft
+        ok &= r["ok"]
+        models[name] = r
+        del fp, bp, want, got
+        torch.cuda.empty_cache()
+    out = {"phase": "zoo_bf16", "models": models,
+           "rel_l2_limit": BF_MODEL_L2,
+           "seconds": time.perf_counter() - t_phase}
+    if not ok:
+        raise AssertionError(f"zoo_bf16 failed: {json.dumps(out)}")
+    return out
+
+
+def width_subentries(widths: dict, keep=("max_abs_err", "ms", "device_ms",
+                                          "bound_ms", "bound_3xtf32_ms"),
+                     forms=("edge", "identity")) -> dict:
+    """Per kernel row of the kernels line, its readings at each width
+    (the identity rows: the ``forms[1]`` form)."""
     rows = {"edge_pathway_fused": ("edge_pair", "edge", "fwd"),
             "edge_pathway_bwd_fused": ("edge_pair", "edge", "bwd"),
             "virtual_pathway_fused": ("virtual_pair", None, "fwd"),
             "virtual_pathway_bwd_fused": ("virtual_pair", None, "bwd"),
-            "edge_identity": ("edge_pair", "identity", "fwd"),
-            "edge_identity_bwd": ("edge_pair", "identity", "bwd")}
+            "edge_identity": ("edge_pair", forms[1], "fwd"),
+            "edge_identity_bwd": ("edge_pair", forms[1], "bwd")}
     out = {}
     for row, (pair, form, d) in rows.items():
         sub = {}
@@ -2539,17 +3103,29 @@ def main() -> int:
     emit(kline)
     widths = phase_widths(scenes[0], dev)
     emit(widths)
+    widths_bf16 = phase_widths_bf16(scenes[0], dev)
+    emit(widths_bf16)
     serve = phase_serve(pipe, plain, scenes, dev)
     emit(serve)
-    emit(phase_scale(pipe, dev))
+    serve_bf16 = phase_serve_bf16(pipe, scenes, serve, dev)
+    emit(serve_bf16)
+    emit(phase_scale(pipe, dev, build_pipeline(
+        "fast_egnn", device=dev, use_kernel=True, precision="bf16",
+        params=pipe.params)))
     emit(phase_simulate())
     tr, va, data_s = train_batches(dev)
     zoo = phase_zoo(scenes, tr, va, dev)
     emit(zoo)
+    zoo_bf16 = phase_zoo_bf16(scenes, tr, dev)
+    emit(zoo_bf16)
     train = phase_train(dev, tr, va, data_s)
     emit(train)
+    train_bf16 = phase_train_bf16(dev, tr, va)
+    emit(train_bf16)
     hidden32 = phase_hidden32(scenes, tr, va, dev)
     emit(hidden32)
+    hidden32_bf16 = phase_hidden32_bf16(dev, tr)
+    emit(hidden32_bf16)
     del tr, va
     for row in rows:  # forward kernels: the serve run; the rest: training
         if row["name"] in ("edge_identity", "edge_identity_bwd"):
@@ -2600,6 +3176,20 @@ def main() -> int:
     h32_rows = {r["name"]: dict(r, launches=h32_launches.get(r["name"]))
                 for r in kline["hidden32"]}
     width_rows = width_subentries(widths)
+    # the bf16 mode: each FastEGNN row's reading at width 64 (its hidden32
+    # entry's at 32) from widths_bf16, launches from the bf16 phases
+    bf_keep = ("max_abs_err", "max_rel_l2", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms", "bound_tf32_ms", "kernels_per_call",
+               "device_ms")
+    at = lambda w, forms: width_subentries(
+        {"cases": {w: widths_bf16["cases"][w]}}, bf_keep, forms)
+    bf_rows = {w: at(w, ("edge", "identity")) for w in ("64", "32")}
+    bf_rf = {w: at(w, ("edge", "identity_rf")) for w in ("64", "32")}
+    # forwards: the serve run's; backwards: the fit's
+    bf_launches = {**train_bf16["launches"], **serve_bf16["launches"]}
+    h32b = hidden32_bf16["launches"]
+    zl = {m: zoo_bf16["models"][m] for m in ("schnet", "rf")}
+    bf_width_rows = width_subentries(widths_bf16, bf_keep)
     print(gpu_line(), flush=True)
     # every row: the contract's keys; the SWA rows also their global
     # layer's numbers
@@ -2611,17 +3201,41 @@ def main() -> int:
     # kernels at RF's form; the FastEGNN kernels at hidden 32 and at every
     # width of the widths phase
     for row in rows:
-        if row["name"] in h32_rows:
-            row["hidden32"] = h32_rows[row["name"]]
-        if row["name"] in width_rows:
-            row["widths"] = width_rows[row["name"]]
+        name = row["name"]
+        if name in h32_rows:
+            row["hidden32"] = h32_rows[name]
+        if name in width_rows:
+            row["widths"] = width_rows[name]
+            row["widths_bf16"] = bf_width_rows[name]
+            for w, target in (("64", row), ("32", row.get("hidden32"))):
+                if target is None:
+                    continue
+                entry = dict(bf_rows[w][name][w], name=name, route="cuda",
+                             source=row["source"], replaces=row["replaces"])
+                if name.startswith("edge_identity"):
+                    # the bf16 zoo: SchNet's / RF's predict (forward) and
+                    # train step (backward)
+                    run = lambda m: (zl[m] if name == "edge_identity"
+                                     else zl[m]["train_step"])
+                    entry["launches"] = (run("schnet")["launches"][name]
+                                         if w == "64" else None)
+                    entry["rf_form"] = dict(
+                        bf_rf[w][name][w],
+                        launches=run("rf")["launches"][name]
+                        if w == "64" else None)
+                else:
+                    entry["launches"] = (bf_launches.get(name) if w == "64"
+                                         else h32b.get(name))
+                target["bf16"] = entry
     subs = ("fluid113k", "rf_form", "hidden32")
     for row in rows:
         for sub in subs:
             if sub in row:
-                row[sub] = {k: row[sub][k] for k in keys if k in row[sub]}
-    emit({"kernels": [{k: row[k] for k in keys + subs + ("widths",)
-                       if k in row} for row in rows]})
+                row[sub] = {k: row[sub][k] for k in keys + ("bf16",)
+                            if k in row[sub]}
+    emit({"kernels": [{k: row[k] for k in keys + subs
+                       + ("bf16", "widths", "widths_bf16") if k in row}
+                      for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -42,7 +42,8 @@ class EdgeSpec(NamedTuple):
     rel:         'raw' (x_i − x_j) or 'inv1p' ((x_i − x_j)/(‖x_i−x_j‖+1)).
     coord_clamp: clamp on the scalar gate.
     normalize:   divide segment sums by the masked receiver degree.
-    precision:   kernel compute precision; this port serves 'f32' only.
+    precision:   kernel compute precision, 'f32' or 'bf16' (bf16 operands
+                 of every product, f32 sums); the plain path runs f32.
     """
 
     use_h: bool = True

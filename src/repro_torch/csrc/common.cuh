@@ -37,6 +37,18 @@
 //   A row of a product depends on that row of A alone, wherever it sits
 //   in the tile, so a per-edge result does not depend on how edges were
 //   packed into tiles.
+// * The bf16 mode (template parameter BF of every kernel; the reference's
+//   `precision='bf16'`: matmul operands cast to bfloat16, products summed
+//   in f32, DESIGN.md section 9.3): `tile_mma<..., true>` rounds each
+//   operand to bf16 (`bf16_round`, tf32.cuh) as it reads it and runs ONE
+//   TF32 MMA on those values.  A bf16 value is a TF32 value and the
+//   product of two is exact in f32, so this is what a bf16 MMA with f32
+//   accumulation computes; the fragments, the swizzle and STEP_SUM are the
+//   f32 mode's.  The tiles stay f32 in shared memory: a tile read both as
+//   an operand and elementwise (msg: rounded into msg.Wg1, f32 in the mh
+//   sum) keeps its f32 values.  Vectors (biases, w1d, wg2) and
+//   coordinates are rounded where they are loaded; the kernels round the
+//   other elementwise values where the reference casts them.
 // * The edge pathway's pieces used by its forward and backward: the node
 //   projection `node_proj` (P = h.W1r, Q = h.W1s once per node), and
 //   `for_live_tiles`, which packs the live slots of a slot range into
@@ -124,7 +136,8 @@ __device__ __forceinline__ void frag_zero(Frag<W>& a) {
 // ms / dz sums) adds that bias up past the forward tolerance.  With
 // STEP_SUM the round-to-nearest adds carry the running sum; it costs
 // 4 W / 16 adds a k-step.
-template <int W, bool TA, bool TB, bool STEP_SUM = false>
+// BF: the bf16 mode (operands rounded to bf16, one TF32 MMA a k-step).
+template <int W, bool TA, bool TB, bool STEP_SUM = false, bool BF = false>
 __device__ __forceinline__ void tile_mma(Frag<W>& acc, const float* A,
                                          const float* B, const Lane& L) {
   constexpr int K = TA ? TR : W;
@@ -156,6 +169,28 @@ __device__ __forceinline__ void tile_mma(Frag<W>& acc, const float* A,
     const int sb = TB ? (kk ^ (hg & 24)) : kk * W;
     const float av[4] = {A[a_off[0][0] + sa], A[a_off[1][0] + sa],
                          A[a_off[0][1] + sa], A[a_off[1][1] + sa]};
+    if (BF) {
+      uint32_t ar[4], br[JN<W>][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ar[i] = __float_as_uint(bf16_round(av[i]));
+#pragma unroll
+      for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          br[jn][j] = __float_as_uint(bf16_round(B[b_off[jn][j] + sb]));
+      Frag<W> step;
+      if (STEP_SUM) frag_zero<W>(step);
+      float(&d)[JN<W>][4] = STEP_SUM ? step : acc;
+#pragma unroll
+      for (int jn = 0; jn < JN<W>; ++jn) mma_tf32(d[jn], ar, br[jn]);
+      if (STEP_SUM) {
+#pragma unroll
+        for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[jn][e] += step[jn][e];
+      }
+      continue;
+    }
     uint32_t ah[4], al[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
@@ -254,18 +289,28 @@ __device__ __forceinline__ float colsum4(const float* red, int j) {
 // Fill a swizzled row tile from rows of a (rows x W) array in device
 // memory: tile row i <- src[idx(i)] for i < 64 with idx(i) >= 0, else
 // zeros.  16-byte loads, W/4 threads a row.
-template <int W, typename Idx>
+// With BF the values are rounded to bf16 as they are stored.
+template <int W, bool BF = false, typename Idx>
 __device__ __forceinline__ void tile_gather(float* tile, const float* src,
                                             Idx idx) {
   constexpr int G = W / 4;
   for (int f = threadIdx.x; f < TR * G; f += blockDim.x) {
     const int i = f / G, q = (f % G) * 4;
     const int r = idx(i);
-    const float4 v = r >= 0 ? *reinterpret_cast<const float4*>(
-                                  src + (size_t)r * W + q)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 v = r >= 0 ? *reinterpret_cast<const float4*>(
+                            src + (size_t)r * W + q)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (BF)
+      v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                      bf16_round(v.w));
     *reinterpret_cast<float4*>(tile + swz<W>(i, q)) = v;
   }
+}
+
+// n floats of shared memory rounded to bf16 in place (all threads; the
+// caller syncs before and after)
+__device__ __forceinline__ void smem_round_bf16(float* p, int n) {
+  for (int f = threadIdx.x; f < n; f += blockDim.x) p[f] = bf16_round(p[f]);
 }
 
 // Asynchronous 16-byte copy of a row-major W x W matrix into a swizzled
@@ -347,7 +392,7 @@ constexpr int PROJ_SMEM_FLOATS = RT<W> + 2 * WT<W>;
 // empty rows at the end.  Row r writes the entries b in (c(r - 1), c(r)],
 // c(r) = min(indptr[r] / share, n_ctas - 1), c(-1) = -1; row N writes
 // (c(N - 1), n_ctas].
-template <int W>
+template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS)
 node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
           const float* __restrict__ w1s, const int* __restrict__ indptr,
@@ -394,7 +439,7 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
   for (int k = 0; k < 2; ++k) {
     Frag<W> a;
     frag_zero<W>(a);
-    tile_mma<W, false, false>(a, tH, Wk[k], L);
+    tile_mma<W, false, false, false, BF>(a, tH, Wk[k], L);
 #pragma unroll
     for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -498,13 +543,18 @@ __device__ __forceinline__ void load_virtual_vecs(
     vec_load_async(dst + v * W, src[v] + (size_t)c * W, W);
 }
 
-// Calls fn.template operator()<W>() for the compiled width W == width;
-// cudaErrorInvalidValue for any other (the host entry points' dispatch)
+// Calls fn(w, bf) with w = std::integral_constant<int, W> for the compiled
+// width W == width (32 or 64) and bf = std::integral_constant<bool, BF>
+// for the precision (bf16 != 0: the bf16 mode); cudaErrorInvalidValue for
+// any other width (the host entry points' dispatch)
 template <typename Fn>
-int with_width(int width, Fn&& fn) {
-  if (width == 32) return fn(std::integral_constant<int, 32>());
-  if (width == 64) return fn(std::integral_constant<int, 64>());
-  return (int)cudaErrorInvalidValue;
+int with_width(int width, int bf16, Fn&& fn) {
+  auto at = [&](auto bf) {
+    if (width == 32) return fn(std::integral_constant<int, 32>(), bf);
+    if (width == 64) return fn(std::integral_constant<int, 64>(), bf);
+    return (int)cudaErrorInvalidValue;
+  };
+  return bf16 ? at(std::true_type()) : at(std::false_type());
 }
 
 }  // namespace

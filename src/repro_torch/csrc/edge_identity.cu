@@ -1,5 +1,5 @@
 // Real-real edge pathway with the identity gate, forward and backward, for
-// Hopper (sm_90a), f32: the `gate_mode = 'identity'` branch of the Pallas
+// Hopper (sm_90a), f32 and bf16 modes: the `gate_mode = 'identity'` branch of the Pallas
 // TPU kernels `edge_pathway_fused` (`_edge_kernel`, the branch where the
 // width-1 message is the gate) and `edge_pathway_bwd_fused`
 // (`_edge_bwd_common`, `g_msg += g_gate`) of the JAX package's
@@ -48,6 +48,18 @@
 // idn_bwd_reduce, which adds the tiles' partials in tile order.  The
 // summation order of every gradient is fixed by the inputs alone.
 //
+// The bf16 mode (template BF; `precision='bf16'` of the Pallas kernels'
+// identity branch): the rounding points of edge_message.cu /
+// edge_message_bwd.cu with gate = msg: x, h and the weights rounded (h and
+// W1r / W1s in the projections, x where it is read, the rest where it is
+// loaded), d2 and t1 rounded as operands, the row sums' summands rounded
+// (bf16(msg em), bf16(rel gate em), bf16(em)); backward: the gathered inv,
+// g_mh and g_dx rounded, g_msg and g_pre1 rounded as operands, b1 and b2
+// sums of unrounded terms, and the node pass's summands the reference's
+// scatter operands: bf16(g_rel), bf16(g_pre1) and the per-edge products
+// bf16(bf16(g_pre1) W1r^T) (summed per receiver row by the row pass) and
+// bf16(bf16(g_pre1) W1s^T) (stored per slot, summed per sender by the
+// node pass).  The FMAs stay f32: a product of two bf16 values is exact.
 // Bound on an H100 (serving shape: 8,192 nodes, 84,806 live edges,
 // Dh = 64): per node the two 64 x 64 projections (16K FLOP), per live edge
 // ~0.66K FLOP forward; ~0.19 GFLOP in all, 0.0028 ms at 67 TFLOP/s, against
@@ -58,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32.cuh"
 
 #include <initializer_list>
 #include <type_traits>
@@ -71,8 +85,11 @@ constexpr int MAX_NJ = 24;         // columns a lane: H1 <= 32 MAX_NJ
 constexpr size_t SMEM_MAX = 227 * 1024;  // shared memory a CTA can have
 constexpr unsigned FULL = 0xffffffffu;
 
-// row partials of the backward: W2 (h1) | w1d (h1) | b2 | 3 pad
-__host__ __device__ inline int rp_width(int h1) { return 2 * h1 + 4; }
+// row partials of the backward: W2 (h1) | w1d (h1) | b2 | 3 pad; in bf16
+// also b1 (h1) before b2 (G sums rounded g_pre1 there, b1 unrounded)
+__host__ __device__ inline int rp_width(int h1, bool bf16) {
+  return (bf16 ? 3 : 2) * h1 + 4;
+}
 
 __device__ __forceinline__ float sigm(float u) {
   return 1.0f / (1.0f + expf(-u));
@@ -87,7 +104,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // P = h.W1r, Q = h.W1s: one thread a (node, column), a Dh-long dot in k
 // order
-template <int NJ, bool EXACT>
+template <int NJ, bool EXACT, bool BF>
 __global__ void __launch_bounds__(THREADS)
 idn_proj(const float* __restrict__ h, const float* __restrict__ w1r,
          const float* __restrict__ w1s, float* __restrict__ P,
@@ -98,9 +115,9 @@ idn_proj(const float* __restrict__ h, const float* __restrict__ w1r,
   const int n = (int)(f / h1), c = (int)(f % h1);
   float p = 0.0f, q = 0.0f;
   for (int k = 0; k < dh; ++k) {
-    const float hv = h[(size_t)n * dh + k];
-    p = fmaf(hv, w1r[(size_t)k * h1 + c], p);
-    q = fmaf(hv, w1s[(size_t)k * h1 + c], q);
+    const float hv = rnd<BF>(h[(size_t)n * dh + k]);
+    p = fmaf(hv, rnd<BF>(w1r[(size_t)k * h1 + c]), p);
+    q = fmaf(hv, rnd<BF>(w1s[(size_t)k * h1 + c]), q);
   }
   P[f] = p;
   Q[f] = q;
@@ -113,39 +130,42 @@ struct Edge {
 
 // lane's columns c = lane + 32 j, j < NJ; columns past h1 read as zeros
 // (and add +0 to every sum)
-template <int NJ, bool EXACT>
+// (rounded to bf16 with BF: the weight vectors)
+template <int NJ, bool EXACT, bool BF = false>
 __device__ __forceinline__ void load_cols(float (&dst)[NJ],
                                           const float* __restrict__ src,
                                           int lane, int h1) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int c = lane + 32 * j;
-    dst[j] = EXACT || c < h1 ? src[c] : 0.0f;
+    dst[j] = EXACT || c < h1 ? rnd<BF>(src[c]) : 0.0f;
   }
 }
 
-template <int NJ, bool EXACT>
+// (BF: xr and the weight vectors arrive rounded)
+template <int NJ, bool EXACT, bool BF>
 __device__ __forceinline__ void edge_forward(
     const float* __restrict__ x, const float* __restrict__ Q, int s,
     const float (&xr)[3], const float (&p)[NJ], const float (&w1d)[NJ],
     const float (&b1)[NJ], const float (&w2)[NJ], float b2, int lane, int h1,
     Edge& e, float (&t)[NJ], float (&dt)[NJ], bool want_dt) {
-  e.rel[0] = xr[0] - x[3 * s];
-  e.rel[1] = xr[1] - x[3 * s + 1];
-  e.rel[2] = xr[2] - x[3 * s + 2];
+  e.rel[0] = xr[0] - rnd<BF>(x[3 * s]);
+  e.rel[1] = xr[1] - rnd<BF>(x[3 * s + 1]);
+  e.rel[2] = xr[2] - rnd<BF>(x[3 * s + 2]);
   e.d2 = __fadd_rn(__fadd_rn(__fmul_rn(e.rel[0], e.rel[0]),
                              __fmul_rn(e.rel[1], e.rel[1])),
                    __fmul_rn(e.rel[2], e.rel[2]));
   float part = 0.0f;
+  const float d2 = rnd<BF>(e.d2);  // an operand of d2 . w1d
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int c = lane + 32 * j;
     const float qv = EXACT || c < h1 ? Q[(size_t)s * h1 + c] : 0.0f;
-    const float u = ((p[j] + qv) + e.d2 * w1d[j]) + b1[j];
+    const float u = ((p[j] + qv) + d2 * w1d[j]) + b1[j];
     const float sg = sigm(u);
     t[j] = u * sg;
     if (want_dt) dt[j] = sg * (1.0f + u * (1.0f - sg));
-    part = fmaf(t[j], w2[j], part);
+    part = fmaf(rnd<BF>(t[j]), w2[j], part);
   }
   e.msg = warp_sum(part) + b2;
 }
@@ -174,7 +194,7 @@ __device__ __forceinline__ float clip(float g, float clamp) {
   return g < -clamp ? -clamp : (g > clamp ? clamp : g);  // NaN stays
 }
 
-template <int NJ, bool EXACT>
+template <int NJ, bool EXACT, bool BF>
 __global__ void __launch_bounds__(THREADS)
 idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              const float* __restrict__ em, const int* __restrict__ indptr,
@@ -189,12 +209,13 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
   const int warp0 = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * WARPS;
   float w1d[NJ], b1[NJ], w2[NJ];
-  load_cols<NJ, EXACT>(w1d, w1d_g, lane, h1);
-  load_cols<NJ, EXACT>(b1, b1_g, lane, h1);
-  load_cols<NJ, EXACT>(w2, w2_g, lane, h1);
-  const float b2 = b2_g[0];
+  load_cols<NJ, EXACT, BF>(w1d, w1d_g, lane, h1);
+  load_cols<NJ, EXACT, BF>(b1, b1_g, lane, h1);
+  load_cols<NJ, EXACT, BF>(w2, w2_g, lane, h1);
+  const float b2 = rnd<BF>(b2_g[0]);
   for (int r = warp0; r < n_nodes; r += n_warps) {
-    const float xr[3] = {x[3 * r], x[3 * r + 1], x[3 * r + 2]};
+    const float xr[3] = {rnd<BF>(x[3 * r]), rnd<BF>(x[3 * r + 1]),
+                         rnd<BF>(x[3 * r + 2])};
     float p[NJ];
     load_cols<NJ, EXACT>(p, P + (size_t)r * h1, lane, h1);
     float a = 0.0f, dg = 0.0f, d[3] = {0.0f, 0.0f, 0.0f};
@@ -202,17 +223,17 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
                    [&](int, float m, int s) {
       Edge e;
       float t[NJ], dt[NJ];
-      edge_forward<NJ, EXACT>(x, Q, s, xr, p, w1d, b1, w2, b2, lane, h1, e, t, dt,
-                       false);
+      edge_forward<NJ, EXACT, BF>(x, Q, s, xr, p, w1d, b1, w2, b2, lane, h1,
+                                  e, t, dt, false);
       const float g = clip(e.msg, clamp);
       const float kd = rel_inv1p ? sqrtf(e.d2 + 1e-12f) + 1.0f : 1.0f;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const float q = rel_inv1p ? e.rel[k] / kd : e.rel[k];
-        d[k] += __fmul_rn(__fmul_rn(q, g), m);
+        d[k] += rnd<BF>(__fmul_rn(__fmul_rn(q, g), m));  // bf16: a summand
       }
-      a += __fmul_rn(e.msg, m);
-      dg += m;
+      a += rnd<BF>(__fmul_rn(e.msg, m));
+      dg += rnd<BF>(m);
     });
     const float inv = 1.0f / fmaxf(dg, 1.0f);
     if (lane == 0) {
@@ -225,8 +246,12 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
 
 // Backward, per receiver row: each live edge's g_pre1 and g_rel into
 // GPRE1 / GREL (slot-indexed), and the row's sums: G (h1), the receiver
-// half of gx (3) and the partials W2 (h1) | w1d (h1) | b2 of RP.
-template <int NJ, bool EXACT>
+// half of gx (3) and the partials W2 (h1) | w1d (h1) | b1 (h1) | b2 of RP.
+// BF: also the row's sum of the per-edge bf16(bf16(g_pre1) W1r^T) into
+// GHR (dh) and each edge's bf16(bf16(g_pre1) W1s^T) into GS
+// (slot-indexed): for each entry k a warp dot over the columns (the
+// weights' rows read coalesced), lane k % 32 writing it.
+template <int NJ, bool EXACT, bool BF>
 __global__ void __launch_bounds__(THREADS)
 idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              const float* __restrict__ em, const int* __restrict__ indptr,
@@ -236,35 +261,42 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              const float* __restrict__ deg, const float* __restrict__ gdx,
              const float* __restrict__ gmh, float* __restrict__ GPRE1,
              float* __restrict__ GREL, float* __restrict__ G,
-             float* __restrict__ GXR, float* __restrict__ RP, int n_nodes,
-             int h1_, int rel_inv1p, float clamp) {
+             float* __restrict__ GXR, float* __restrict__ RP,
+             const float* __restrict__ w1r, const float* __restrict__ w1s,
+             float* __restrict__ GHR, float* __restrict__ GS, int n_nodes,
+             int dh, int h1_, int rel_inv1p, float clamp) {
   const int h1 = EXACT ? 32 * NJ : h1_;
   const int lane = threadIdx.x & 31;
   const int warp0 = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * WARPS;
-  const int rpw = rp_width(h1);
+  const int rpw = rp_width(h1, BF);
   float w1d[NJ], b1[NJ], w2[NJ];
-  load_cols<NJ, EXACT>(w1d, w1d_g, lane, h1);
-  load_cols<NJ, EXACT>(b1, b1_g, lane, h1);
-  load_cols<NJ, EXACT>(w2, w2_g, lane, h1);
-  const float b2 = b2_g[0];
+  load_cols<NJ, EXACT, BF>(w1d, w1d_g, lane, h1);
+  load_cols<NJ, EXACT, BF>(b1, b1_g, lane, h1);
+  load_cols<NJ, EXACT, BF>(w2, w2_g, lane, h1);
+  const float b2 = rnd<BF>(b2_g[0]);
   for (int r = warp0; r < n_nodes; r += n_warps) {
-    const float xr[3] = {x[3 * r], x[3 * r + 1], x[3 * r + 2]};
+    const float xr[3] = {rnd<BF>(x[3 * r]), rnd<BF>(x[3 * r + 1]),
+                         rnd<BF>(x[3 * r + 2])};
     float p[NJ];
     load_cols<NJ, EXACT>(p, P + (size_t)r * h1, lane, h1);
-    const float inv = 1.0f / fmaxf(deg[r], 1.0f);
-    const float gm = gmh[r];
-    const float gd[3] = {gdx[3 * r], gdx[3 * r + 1], gdx[3 * r + 2]};
-    float sG[NJ], sW2[NJ], sW1d[NJ];
+    // BF: the gathered inv, g_mh and g_dx are rounded
+    const float inv = rnd<BF>(1.0f / fmaxf(deg[r], 1.0f));
+    const float gm = rnd<BF>(gmh[r]);
+    const float gd[3] = {rnd<BF>(gdx[3 * r]), rnd<BF>(gdx[3 * r + 1]),
+                         rnd<BF>(gdx[3 * r + 2])};
+    float sG[NJ], sW2[NJ], sW1d[NJ], sB1[NJ];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) sG[j] = sW2[j] = sW1d[j] = 0.0f;
+    for (int j = 0; j < NJ; ++j) sG[j] = sW2[j] = sW1d[j] = sB1[j] = 0.0f;
     float sB2 = 0.0f, gxr = 0.0f;  // lane k < 3: component k
+    if (BF)
+      for (int k = lane; k < dh; k += 32) GHR[(size_t)r * dh + k] = 0.0f;
     for_live_slots(em, snd, indptr[r], indptr[r + 1], lane,
                    [&](int slot, float m, int s) {
       Edge e;
       float t[NJ], dt[NJ];
-      edge_forward<NJ, EXACT>(x, Q, s, xr, p, w1d, b1, w2, b2, lane, h1, e, t, dt,
-                       true);
+      edge_forward<NJ, EXACT, BF>(x, Q, s, xr, p, w1d, b1, w2, b2, lane, h1,
+                                  e, t, dt, true);
       const float sc = inv * m;
       float u[3], ru[3], kf = 1.0f, sd = 0.0f;
       if (rel_inv1p) {
@@ -283,8 +315,8 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
       float gp[NJ], gwd = 0.0f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        gp[j] = __fmul_rn(g_msg * w2[j], dt[j]);
-        gwd = fmaf(gp[j], w1d[j], gwd);
+        gp[j] = __fmul_rn(rnd<BF>(g_msg) * w2[j], dt[j]);
+        gwd = fmaf(rnd<BF>(gp[j]), w1d[j], gwd);
       }
       float g_d2 = warp_sum(gwd);
       float gr[3];
@@ -297,16 +329,41 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
         for (int k = 0; k < 3; ++k) gr[k] *= kf;
       }
 #pragma unroll
-      for (int k = 0; k < 3; ++k) gr[k] += 2.0f * e.rel[k] * g_d2;
+      for (int k = 0; k < 3; ++k)  // bf16: the node pass's summand, rounded
+        gr[k] = rnd<BF>(gr[k] + 2.0f * e.rel[k] * g_d2);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
+        const float gq = rnd<BF>(gp[j]);
         if (EXACT || lane + 32 * j < h1)
-          GPRE1[(size_t)slot * h1 + lane + 32 * j] = gp[j];
-        sG[j] += gp[j];
-        sW2[j] += __fmul_rn(t[j], g_msg);
-        sW1d[j] += __fmul_rn(e.d2, gp[j]);
+          GPRE1[(size_t)slot * h1 + lane + 32 * j] = gq;
+        sG[j] += gq;
+        if (BF) sB1[j] += gp[j];
+        sW2[j] += __fmul_rn(rnd<BF>(t[j]), rnd<BF>(g_msg));
+        sW1d[j] += __fmul_rn(rnd<BF>(e.d2), gq);
       }
       sB2 += g_msg;
+      if constexpr (BF) {  // the per-edge dh terms
+        for (int k = 0; k < dh; ++k) {
+          const float* wr = w1r + (size_t)k * h1;
+          const float* ws = w1s + (size_t)k * h1;
+          float ar = 0.0f, as = 0.0f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int c = lane + 32 * j;
+            if (EXACT || c < h1) {
+              const float gq = bf16_round(gp[j]);
+              ar = fmaf(gq, bf16_round(wr[c]), ar);
+              as = fmaf(gq, bf16_round(ws[c]), as);
+            }
+          }
+          ar = warp_sum(ar);
+          as = warp_sum(as);
+          if (lane == (k & 31)) {
+            GHR[(size_t)r * dh + k] += bf16_round(ar);
+            GS[(size_t)slot * dh + k] = bf16_round(as);
+          }
+        }
+      }
       const float mine = lane == 0 ? gr[0] : (lane == 1 ? gr[1] : gr[2]);
       if (lane < 3) {
         GREL[(size_t)slot * 4 + lane] = mine;
@@ -320,9 +377,10 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
         G[(size_t)r * h1 + c] = sG[j];
         RP[(size_t)r * rpw + c] = sW2[j];
         RP[(size_t)r * rpw + h1 + c] = sW1d[j];
+        if (BF) RP[(size_t)r * rpw + 2 * h1 + c] = sB1[j];
       }
     }
-    if (lane == 0) RP[(size_t)r * rpw + 2 * h1] = sB2;
+    if (lane == 0) RP[(size_t)r * rpw + (BF ? 3 : 2) * h1] = sB2;
     if (lane < 3) GXR[(size_t)r * 4 + lane] = gxr;
   }
 }
@@ -354,21 +412,22 @@ NodePlan node_plan(int dh, int h1) {
 }
 
 // CTA per tile of tn nodes: each node's sender segment S (and the sender
-// half of gx), gh = G.W1r^T + S.W1s^T, then the tile's partials in node
-// order.
-template <int NJ, bool EXACT>
+// half of gx), gh = G.W1r^T + S.W1s^T (BF: GHR plus the sender segment's
+// sum of GS), then the tile's partials in node order (BF: h rounded).
+template <int NJ, bool EXACT, bool BF>
 __global__ void __launch_bounds__(THREADS)
 idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
               const int* __restrict__ sperm, const int* __restrict__ sptr,
               const float* __restrict__ w1r, const float* __restrict__ w1s,
               const float* __restrict__ GPRE1, const float* __restrict__ GREL,
               const float* __restrict__ G, const float* __restrict__ GXR,
-              const float* __restrict__ RP, float* __restrict__ gx,
+              const float* __restrict__ RP, const float* __restrict__ GHR,
+              const float* __restrict__ GS, float* __restrict__ gx,
               float* __restrict__ gh, float* __restrict__ PN, int n_nodes,
               int dh, int h1_, int tn, int wsm) {
   const int h1 = EXACT ? 32 * NJ : h1_;
   extern __shared__ float smem[];
-  const int pad = h1 + 1, rpw = rp_width(h1);
+  const int pad = h1 + 1, rpw = rp_width(h1, BF);
   // [dh][pad] each when wsm, else read in place with row stride h1
   float* sWr = smem;
   float* sWs = sWr + (wsm ? dh * pad : 0);
@@ -377,7 +436,7 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
   float* sH = sS + tn * pad;               // [tn][dh]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int node0 = blockIdx.x * tn;
-  if (wsm) {
+  if (wsm && !BF) {
     for (int f = tid; f < dh * h1; f += THREADS) {
       sWr[(f / h1) * pad + f % h1] = w1r[f];
       sWs[(f / h1) * pad + f % h1] = w1s[f];
@@ -385,7 +444,7 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
   }
   for (int f = tid; f < tn * dh; f += THREADS) {
     const int i = node0 + f / dh;
-    sH[f] = i < n_nodes ? h[(size_t)i * dh + f % dh] : 0.0f;
+    sH[f] = i < n_nodes ? rnd<BF>(h[(size_t)i * dh + f % dh]) : 0.0f;
   }
   __syncthreads();
   for (int li = warp; li < tn; li += WARPS) {
@@ -412,6 +471,16 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
         }
       }
       if (lane < 3) gx[3 * i + lane] = GXR[(size_t)i * 4 + lane] + gxs;
+      if constexpr (BF) {  // gh = the receiver rows' sum + the senders'
+        for (int k = lane; k < dh; k += 32) {
+          float a = 0.0f;
+          for (int p = sptr[i]; p < p1; ++p) {
+            const int sl = sperm[p];
+            if (em[sl] != 0.0f) a += GS[(size_t)sl * dh + k];
+          }
+          gh[(size_t)i * dh + k] = GHR[(size_t)i * dh + k] + a;
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -434,7 +503,7 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
         gh[(size_t)i * dh + k] = a;
       }
     };
-    if (i < n_nodes) {
+    if (i < n_nodes && !BF) {
       if (wsm) gh_row(sWr, sWs, pad);
       else gh_row(w1r, w1s, h1);
     }
@@ -453,11 +522,14 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
       const int k = q / h1, c = q % h1;
       for (int li = 0; li < nn; ++li)
         a = fmaf(sH[li * dh + k], T[li * pad + c], a);
-    } else if (f < 2 * dw + h1) {  // b1: sum of G
+    } else if (f < 2 * dw + h1) {  // b1: sum of G (bf16: of its column)
       const int c = f - 2 * dw;
-      for (int li = 0; li < nn; ++li) a += sG[li * pad + c];
+      for (int li = 0; li < nn; ++li)
+        a += BF ? RP[(size_t)(node0 + li) * rpw + 2 * h1 + c]
+                : sG[li * pad + c];
     } else {  // W2 | w1d | b2: the rows' partials
-      const int q = f - 2 * dw - h1;
+      int q = f - 2 * dw - h1;
+      if (BF && q >= 2 * h1) q += h1;  // b2 sits after the rows' b1
       for (int li = 0; li < nn; ++li)
         a += RP[(size_t)(node0 + li) * rpw + q];
     }
@@ -498,13 +570,18 @@ int lane_cols(int h1) {
   return 0;
 }
 
-// fn(NJ, EXACT) for h1: EXACT when h1 = 32 NJ, its width then a constant
+// fn(NJ, EXACT, BF) for h1: EXACT when h1 = 32 NJ, its width then a
+// constant; BF the bf16 mode (bf16 != 0)
 template <typename Fn>
-int with_cols(int h1, Fn&& fn) {
+int with_cols(int h1, int bf16, Fn&& fn) {
   using std::integral_constant;
   const bool exact = h1 == 32 * lane_cols(h1);
   auto go = [&](auto nj) {
-    return exact ? fn(nj, std::true_type()) : fn(nj, std::false_type());
+    auto at = [&](auto bf) {
+      return exact ? fn(nj, std::true_type(), bf)
+                   : fn(nj, std::false_type(), bf);
+    };
+    return bf16 ? at(std::true_type()) : at(std::false_type());
   };
   switch (lane_cols(h1)) {
     case 1: return go(integral_constant<int, 1>());
@@ -518,11 +595,12 @@ int with_cols(int h1, Fn&& fn) {
 }
 
 struct Scratch {
-  float *P, *Q, *G, *GXR, *RP, *GPRE1, *GREL, *PN;
+  float *P, *Q, *G, *GXR, *RP, *GPRE1, *GREL, *PN, *GHR, *GS;
   size_t total;
 };
 
-Scratch carve(float* base, int n, int e, int dh, int h1, bool backward) {
+Scratch carve(float* base, int n, int e, int dh, int h1, bool backward,
+              bool bf16) {
   Scratch s{};
   size_t off = 0;
   auto take = [&](size_t count) {
@@ -536,10 +614,14 @@ Scratch carve(float* base, int n, int e, int dh, int h1, bool backward) {
     const int tn = node_plan(dh, h1).tn;
     s.G = take((size_t)n * h1);
     s.GXR = take((size_t)n * 4);
-    s.RP = take((size_t)n * rp_width(h1));
+    s.RP = take((size_t)n * rp_width(h1, bf16));
     s.GPRE1 = take((size_t)e * h1);
     s.GREL = take((size_t)e * 4);
     s.PN = take((size_t)((n + tn - 1) / tn) * pn_width(dh, h1));
+    if (bf16) {
+      s.GHR = take((size_t)n * dh);
+      s.GS = take((size_t)e * dh);
+    }
   }
   s.total = off;
   return s;
@@ -554,8 +636,9 @@ int check_shape(int dh, int h1, int n_ctas) {
 }  // namespace
 
 extern "C" long long idn_scratch_floats(int n_nodes, int n_slots, int dh,
-                                        int h1, int backward) {
-  return (long long)carve(nullptr, n_nodes, n_slots, dh, h1, backward != 0)
+                                        int h1, int backward, int bf16) {
+  return (long long)carve(nullptr, n_nodes, n_slots, dh, h1, backward != 0,
+                          bf16 != 0)
       .total;
 }
 
@@ -563,29 +646,31 @@ extern "C" long long idn_scratch_floats(int n_nodes, int n_slots, int dh,
 extern "C" int idn_max_width() { return 32 * MAX_NJ; }
 
 // n_ctas: CTAs of the row passes (0: one warp a row); any count gives the
-// same bits
+// same bits.  bf16 != 0: the bf16 mode
 extern "C" int edge_identity_forward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const float* w1r, const float* w1s, const float* w1d,
     const float* b1, const float* w2, const float* b2, float* dx, float* mh,
     float* deg, float* scratch, int n_nodes, int n_slots, int dh, int h1,
-    int rel_inv1p, float clamp, int n_ctas, void* stream_ptr) {
+    int rel_inv1p, float clamp, int n_ctas, int bf16, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (int err = check_shape(dh, h1, n_ctas)) return err;
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, false);
+  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, false, bf16 != 0);
   const long long nf = (long long)n_nodes * h1;
-  return with_cols(h1, [&](auto nj, auto exact) {
+  return with_cols(h1, bf16, [&](auto nj, auto exact, auto bf) {
     constexpr int NJ = decltype(nj)::value;
     constexpr bool EX = decltype(exact)::value;
-    idn_proj<NJ, EX><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS, 0,
-                       stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh, h1);
+    constexpr bool BF = decltype(bf)::value;
+    idn_proj<NJ, EX, BF><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS,
+                           0, stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh,
+                                        h1);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    idn_fwd_rows<NJ, EX><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
-                           stream>>>(x, snd, em, indptr, s.P, s.Q, w1d, b1,
-                                     w2, b2, dx, mh, deg, n_nodes, h1,
-                                     rel_inv1p, clamp);
+    idn_fwd_rows<NJ, EX, BF><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
+                               stream>>>(x, snd, em, indptr, s.P, s.Q, w1d,
+                                         b1, w2, b2, dx, mh, deg, n_nodes, h1,
+                                         rel_inv1p, clamp);
     return (int)cudaGetLastError();
   });
 }
@@ -597,34 +682,38 @@ extern "C" int edge_identity_backward(
     const float* b2, const float* deg, const float* gdx, const float* gmh,
     float* gx, float* gh, float* gw1r, float* gw1s, float* gw1d, float* gb1,
     float* gw2, float* gb2, float* scratch, int n_nodes, int n_slots, int dh,
-    int h1, int rel_inv1p, float clamp, int n_ctas, void* stream_ptr) {
+    int h1, int rel_inv1p, float clamp, int n_ctas, int bf16,
+    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (int err = check_shape(dh, h1, n_ctas)) return err;
   const NodePlan plan = node_plan(dh, h1);
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, true);
+  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, true, bf16 != 0);
   const long long nf = (long long)n_nodes * h1;
   const int nt = (n_nodes + plan.tn - 1) / plan.tn;
-  int rc = with_cols(h1, [&](auto nj, auto exact) {
+  int rc = with_cols(h1, bf16, [&](auto nj, auto exact, auto bf) {
     constexpr int NJ = decltype(nj)::value;
     constexpr bool EX = decltype(exact)::value;
+    constexpr bool BF = decltype(bf)::value;
     cudaError_t e = cudaFuncSetAttribute(
-        idn_bwd_nodes<NJ, EX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)plan.smem);
+        idn_bwd_nodes<NJ, EX, BF>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (e != cudaSuccess) return (int)e;
-    idn_proj<NJ, EX><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS, 0,
-                       stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh, h1);
+    idn_proj<NJ, EX, BF><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS,
+                           0, stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh,
+                                        h1);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    idn_bwd_rows<NJ, EX><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
-                           stream>>>(
+    idn_bwd_rows<NJ, EX, BF><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
+                               stream>>>(
         x, snd, em, indptr, s.P, s.Q, w1d, b1, w2, b2, deg, gdx, gmh, s.GPRE1,
-        s.GREL, s.G, s.GXR, s.RP, n_nodes, h1, rel_inv1p, clamp);
+        s.GREL, s.G, s.GXR, s.RP, w1r, w1s, s.GHR, s.GS, n_nodes, dh, h1,
+        rel_inv1p, clamp);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    idn_bwd_nodes<NJ, EX><<<nt, THREADS, plan.smem, stream>>>(
-        h, em, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, s.G, s.GXR, s.RP, gx,
-        gh, s.PN, n_nodes, dh, h1, plan.tn, (int)plan.wsm);
+    idn_bwd_nodes<NJ, EX, BF><<<nt, THREADS, plan.smem, stream>>>(
+        h, em, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, s.G, s.GXR, s.RP,
+        s.GHR, s.GS, gx, gh, s.PN, n_nodes, dh, h1, plan.tn, (int)plan.wsm);
     return (int)cudaGetLastError();
   });
   if (rc != 0) return rc;

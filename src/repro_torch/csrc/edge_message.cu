@@ -1,5 +1,5 @@
 // Real-real edge pathway forward (Eq. 3 + the real parts of Eqs. 6-7) for
-// Hopper (sm_90a), f32.
+// Hopper (sm_90a), f32 and bf16 modes.
 //
 // Replaces the Pallas TPU kernel `edge_pathway_fused` (`_edge_kernel`) of
 // the JAX package's kernels/edge_message.py.  It computes the same
@@ -36,6 +36,15 @@
 //      four rows at a time), carried across tile boundaries; a finished
 //      row is divided by max(deg, 1) and written once; rows without a
 //      live slot get zeros.
+// The bf16 mode (template BF; `precision='bf16'` of `_edge_kernel`): x, h
+// and the weights rounded to bf16 (x where it is read, the vectors where
+// they are loaded, h and the weight tiles inside `tile_mma`); rel and d2
+// are formed in f32 from the rounded coordinates (the reference gathers
+// with a one-hot matmul, f32 result); d2, t1, msg and the gate's SiLU
+// enter their products rounded; the row sums take rounded summands
+// (bf16(msg em), bf16(rel gate em), bf16(em): the reference scatters with
+// a one-hot matmul, edge_message.py:314-326).  A product of two bf16
+// values is exact, so no FMA the compiler fuses can change it.
 // Widths: compiled for Dh = H1 = M = W, W = 32 and 64 (the entry point's
 // `width`; other widths up to 64 arrive zero-padded, wider ones take
 // panel.cu): the tiles are 64 x W, the products 64 x W x W.
@@ -73,7 +82,7 @@ constexpr int EDGE_SMEM_FLOATS = 2 * WT<W> + 2 * RT<W> + 5 * W + F_N * TR +
 // is built around; both widths keep two.
 constexpr int BLOCKS_PER_SM = 2;
 
-template <int W>
+template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                const float* __restrict__ em, const int* __restrict__ indptr,
@@ -113,11 +122,11 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   if (gate_mlp) tile_load_async<W>(sWg1, wg1);
   async_commit();
   if (tid < W) {
-    sw1d[tid] = w1d[tid];
-    sb1[tid] = b1[tid];
-    sb2[tid] = b2[tid];
-    sbg1[tid] = gate_mlp ? bg1[tid] : 0.0f;
-    swg2[tid] = gate_mlp ? wg2[tid] : 0.0f;
+    sw1d[tid] = rnd<BF>(w1d[tid]);
+    sb1[tid] = rnd<BF>(b1[tid]);
+    sb2[tid] = rnd<BF>(b2[tid]);
+    sbg1[tid] = gate_mlp ? rnd<BF>(bg1[tid]) : 0.0f;
+    swg2[tid] = gate_mlp ? rnd<BF>(wg2[tid]) : 0.0f;
   }
   if (tid == 0) meta[1] = meta[2] = -1;
   const int row_lo = ctarow[blockIdx.x], row_hi = ctarow[blockIdx.x + 1];
@@ -143,9 +152,9 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       if (live) {
         r = lq.row[tid];
         const int s = lq.snd[tid];
-        rel[0] = x[3 * r] - x[3 * s];
-        rel[1] = x[3 * r + 1] - x[3 * s + 1];
-        rel[2] = x[3 * r + 2] - x[3 * s + 2];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          rel[k] = rnd<BF>(x[3 * r + k]) - rnd<BF>(x[3 * s + k]);
         d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
       }
       RQ(F_E)[tid] = live ? lq.em[tid] : 0.0f;
@@ -183,7 +192,7 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
             P + (size_t)lq.row[i] * W + q);
         const float4 o = *reinterpret_cast<const float4*>(
             Q + (size_t)lq.snd[i] * W + q);
-        const float d2 = RQ(F_D2)[i];
+        const float d2 = rnd<BF>(RQ(F_D2)[i]);  // an operand of d2 . w1d
         v[0] = ((p.x + o.x) + d2 * sw1d[q]) + sb1[q];
         v[1] = ((p.y + o.y) + d2 * sw1d[q + 1]) + sb1[q + 1];
         v[2] = ((p.z + o.z) + d2 * sw1d[q + 2]) + sb1[q + 2];
@@ -197,7 +206,7 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     {  // msg = t1.W2 + b2
       Frag<W> m;
       frag_zero<W>(m);
-      tile_mma<W, false, false, true>(m, tT1, sW2, L);
+      tile_mma<W, false, false, true, BF>(m, tT1, sW2, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -208,14 +217,14 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     if (gate_mlp) {  // gate = clip(SiLU(msg.Wg1 + bg1) . wg2)
       Frag<W> gp;
       frag_zero<W>(gp);
-      tile_mma<W, false, false, true>(gp, tMSG, sWg1, L);
+      tile_mma<W, false, false, true, BF>(gp, tMSG, sWg1, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = L.col<W>(jn, e);
           const float u = gp[jn][e] + sbg1[c];
-          gp[jn][e] = __fmul_rn(u * sigm(u), swg2[c]);  // never fused
+          gp[jn][e] = __fmul_rn(rnd<BF>(u * sigm(u)), swg2[c]);  // never fused
         }
       frag_rowsum<W>(gp, L, rowred);
       __syncthreads();
@@ -229,7 +238,7 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
         for (int k = 0; k < 3; ++k) {
           const float q = rel_inv1p ? RQ(F_REL0 + k)[tid] / kd
                                     : RQ(F_REL0 + k)[tid];
-          RQ(F_DX0 + k)[tid] = (q * g) * e;
+          RQ(F_DX0 + k)[tid] = rnd<BF>((q * g) * e);  // bf16: a summand
         }
       }
       __syncthreads();
@@ -258,8 +267,8 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       for (; gap < r; ++gap) finish(gap, 0.0f, 0.0f, 0.0f);
       for (int e = e0; e < e1; ++e) {
         const float w = RQ(F_E)[e];
-        a += tMSG[swz<W>(e, j)] * w;
-        dg += w;
+        a += rnd<BF>(tMSG[swz<W>(e, j)] * w);
+        dg += rnd<BF>(w);
         if (j < 3) d += RQ(F_DX0 + j)[e];
       }
       if (k + 1 < ns) {
@@ -317,7 +326,7 @@ Scratch carve(float* base, int n, int e, int n_ctas, int width) {
   return s;
 }
 
-template <int W>
+template <int W, bool BF>
 int launch_forward(const float* x, const float* h, const int* snd,
                    const float* em, const int* indptr, const float* w1r,
                    const float* w1s, const float* w1d, const float* b1,
@@ -329,20 +338,20 @@ int launch_forward(const float* x, const float* h, const int* snd,
   const size_t e_smem = EDGE_SMEM_FLOATS<W> * sizeof(float);
   const size_t p_smem = PROJ_SMEM_FLOATS<W> * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_fwd_edges<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_fwd_edges<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)e_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(node_proj<W>,
+    err = cudaFuncSetAttribute(node_proj<W, BF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)p_smem);
   if (err != cudaSuccess) return (int)err;
   if (n_nodes <= 0) return (int)cudaGetLastError();
   Scratch s = carve(scratch, n_nodes, n_slots, n_ctas, W);
-  node_proj<W><<<n_tiles(n_nodes), THREADS, p_smem, stream>>>(
+  node_proj<W, BF><<<n_tiles(n_nodes), THREADS, p_smem, stream>>>(
       h, w1r, w1s, indptr, s.P, s.Q, s.rowof, s.ctarow, n_nodes, n_ctas);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  edge_fwd_edges<W><<<n_ctas, THREADS, e_smem, stream>>>(
+  edge_fwd_edges<W, BF><<<n_ctas, THREADS, e_smem, stream>>>(
       x, snd, em, indptr, s.rowof, s.ctarow, s.P, s.Q, w1d, b1, w2, b2, wg1,
       bg1, wg2, dx, mh, deg, gate_mlp, rel_inv1p, clamp);
   return (int)cudaGetLastError();
@@ -355,7 +364,8 @@ extern "C" long long edge_fwd_scratch_floats(int n_nodes, int n_slots,
   return (long long)carve(nullptr, n_nodes, n_slots, n_ctas, width).total;
 }
 
-// width: the compiled width (32 or 64) that Dh, H1 and M were padded to
+// width: the compiled width (32 or 64) that Dh, H1 and M were padded to;
+// bf16 != 0: the bf16 mode
 extern "C" int edge_forward(const float* x, const float* h, const int* snd,
                             const float* em, const int* indptr,
                             const float* w1r, const float* w1s,
@@ -365,14 +375,14 @@ extern "C" int edge_forward(const float* x, const float* h, const int* snd,
                             const float* wg2, float* dx, float* mh,
                             float* deg, float* scratch, int n_nodes,
                             int n_slots, int gate_mlp, int rel_inv1p,
-                            float clamp, int n_ctas, int width,
+                            float clamp, int n_ctas, int width, int bf16,
                             void* stream_ptr) {
   if (!(aligned16(h) && aligned16(w1r) && aligned16(w1s) && aligned16(w2) &&
         (!gate_mlp || aligned16(wg1)) && aligned16(scratch)))
     return (int)cudaErrorMisalignedAddress;
   if (n_ctas <= 0) return (int)cudaErrorInvalidValue;
-  return with_width(width, [&](auto w) {
-    return launch_forward<decltype(w)::value>(
+  return with_width(width, bf16, [&](auto w, auto bf) {
+    return launch_forward<decltype(w)::value, decltype(bf)::value>(
         x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2, dx,
         mh, deg, scratch, n_nodes, n_slots, gate_mlp, rel_inv1p, clamp,
         n_ctas, (cudaStream_t)stream_ptr);

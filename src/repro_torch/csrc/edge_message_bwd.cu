@@ -1,4 +1,4 @@
-// Real-real edge pathway backward for Hopper (sm_90a), f32.
+// Real-real edge pathway backward for Hopper (sm_90a), f32 and bf16 modes.
 //
 // Replaces the Pallas TPU kernel `edge_pathway_bwd_fused` (its receiver
 // pass `_edge_bwd_r_kernel` and sender pass `_edge_bwd_s_kernel`, sharing
@@ -39,6 +39,19 @@
 //                  partials h^T G, h^T S as tile products.
 //   4. reduce      adds the edge-pass partials in CTA order, then the
 //                  node-pass partials in CTA order: every weight gradient.
+// The bf16 mode (template BF; `precision='bf16'` of `_edge_bwd_common` and
+// its two passes): the forward's rounding points in the recompute
+// (edge_message.cu); the gathered inv, g_mh and g_dx rounded (the
+// reference gathers them with one-hot matmuls); every product's operands
+// rounded (tile_mma), while the column sums (b1, b2, bg1) and g_gate,
+// g_rel take unrounded terms (edge_message.py:488-609).  The node pass's
+// summands are the reference's scatter operands, rounded: bf16(g_rel),
+// bf16(g_pre1) and the per-edge products bf16(bf16(g_pre1) W1r^T) /
+// bf16(bf16(g_pre1) W1s^T), which the edge pass forms as two more tile
+// products (W1r and W1s resident too: one CTA an SM at W = 64) and stores
+// per slot; so in bf16 the node pass sums gh instead of multiplying the
+// summed G and S, and forms h^T G, h^T S with h rounded and G, S in f32
+// (3xTF32: the reference's sum of bf16 products, exact in f32).
 // All 64 x 64 products run on the tensor cores in 3xTF32 (common.cuh):
 // mma.sync.m16n8k8, the transposes read from the same swizzled tile in the
 // other operand layout.  SiLU, the gate, the clip and the sums run on the
@@ -77,13 +90,14 @@ constexpr int PN = 2 * W * W;
 // edge-pass row data (64 each)
 enum { Q_E = 0, Q_REL0, Q_REL1, Q_REL2, Q_D2, Q_INV, Q_U0, Q_U1, Q_U2, Q_GG,
        Q_GR0, Q_GR1, Q_GR2, Q_GQ2, Q_N };
-template <int W>
-constexpr int EDGE_SMEM_FLOATS = 2 * WT<W> + 4 * RT<W> + 5 * W + Q_N * TR +
-                                 QUEUE_WORDS + 2 * TR + 5 * 4 * TR;
+template <int W, bool BF>
+constexpr int EDGE_SMEM_FLOATS = (BF ? 4 : 2) * WT<W> + 4 * RT<W> + 5 * W +
+                                 Q_N * TR + QUEUE_WORDS + 2 * TR +
+                                 5 * 4 * TR;
 template <int W>
 constexpr int NODE_SMEM_FLOATS = 2 * WT<W> + 3 * RT<W>;
 
-template <int W>
+template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS, 2)
 edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                const float* __restrict__ em, const int* __restrict__ indptr,
@@ -94,7 +108,9 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                const float* __restrict__ wg1, const float* __restrict__ bg1,
                const float* __restrict__ wg2, const float* __restrict__ deg,
                const float* __restrict__ gdx, const float* __restrict__ gmh,
+               const float* __restrict__ w1r, const float* __restrict__ w1s,
                float* __restrict__ GPRE1, float* __restrict__ GREL,
+               float* __restrict__ GR, float* __restrict__ GS,
                float* __restrict__ part, int n_nodes, int gate_mlp,
                int rel_inv1p, float clamp) {
   extern __shared__ float4 smem4[];
@@ -117,19 +133,25 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   const float* pem = lq.em;
   float* rowred = reinterpret_cast<float*>(rq + Q_N * TR + QUEUE_WORDS);
   float* colred = rowred + 2 * TR;  // [5 sums][4][64]
+  float* sW1r = colred + 5 * 4 * TR;  // bf16 only: W1r, W1s
+  float* sW1s = sW1r + WT<W>;
   auto RQ = [&](int k) { return rq + k * TR; };
 
   const int tid = threadIdx.x;
   const Lane L = lane_of();
   tile_load_async<W>(sW2, w2);
   if (gate_mlp) tile_load_async<W>(sWg1, wg1);
+  if (BF) {
+    tile_load_async<W>(sW1r, w1r);
+    tile_load_async<W>(sW1s, w1s);
+  }
   async_commit();
   if (tid < W) {
-    sw1d[tid] = w1d[tid];
-    sb1[tid] = b1[tid];
-    sb2[tid] = b2[tid];
-    sbg1[tid] = gate_mlp ? bg1[tid] : 0.0f;
-    swg2[tid] = gate_mlp ? wg2[tid] : 0.0f;
+    sw1d[tid] = rnd<BF>(w1d[tid]);
+    sb1[tid] = rnd<BF>(b1[tid]);
+    sb2[tid] = rnd<BF>(b2[tid]);
+    sbg1[tid] = gate_mlp ? rnd<BF>(bg1[tid]) : 0.0f;
+    swg2[tid] = gate_mlp ? rnd<BF>(wg2[tid]) : 0.0f;
   }
   Frag<W> aW2, aWg1;
   frag_zero<W>(aW2);
@@ -146,13 +168,20 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       float rel[3] = {0.f, 0.f, 0.f}, u[3] = {0.f, 0.f, 0.f}, d2 = 0.f,
             inv = 0.f;
       if (live) {
-        rel[0] = x[3 * r] - x[3 * s];
-        rel[1] = x[3 * r + 1] - x[3 * s + 1];
-        rel[2] = x[3 * r + 2] - x[3 * s + 2];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          rel[k] = rnd<BF>(x[3 * r + k]) - rnd<BF>(x[3 * s + k]);
         d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
         inv = 1.0f / fmaxf(deg[r], 1.0f);
+        if (BF) {  // the gathered inv and g_dx are rounded
+          inv = bf16_round(inv);
 #pragma unroll
-        for (int k = 0; k < 3; ++k) u[k] = (gdx[3 * r + k] * inv) * e;
+          for (int k = 0; k < 3; ++k)
+            u[k] = bf16_round(gdx[3 * r + k]) * (inv * e);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) u[k] = (gdx[3 * r + k] * inv) * e;
+        }
       }
       RQ(Q_E)[tid] = e;
       RQ(Q_INV)[tid] = inv;
@@ -176,7 +205,7 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
             P + (size_t)prow[i] * W + q);
         const float4 o = *reinterpret_cast<const float4*>(
             Q + (size_t)psnd[i] * W + q);
-        const float d2 = RQ(Q_D2)[i];
+        const float d2 = rnd<BF>(RQ(Q_D2)[i]);  // an operand of d2 . w1d
         v[0] = ((p.x + o.x) + d2 * sw1d[q]) + sb1[q];
         v[1] = ((p.y + o.y) + d2 * sw1d[q + 1]) + sb1[q + 1];
         v[2] = ((p.z + o.z) + d2 * sw1d[q + 2]) + sb1[q + 2];
@@ -194,7 +223,7 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     {  // msg = t1.W2 + b2
       Frag<W> m;
       frag_zero<W>(m);
-      tile_mma<W, false, false>(m, tT1, sW2, L);
+      tile_mma<W, false, false, false, BF>(m, tT1, sW2, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -205,7 +234,7 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     if (gate_mlp) {
       Frag<W> gp, sv;
       frag_zero<W>(gp);
-      tile_mma<W, false, false>(gp, tMSG, sWg1, L);
+      tile_mma<W, false, false, false, BF>(gp, tMSG, sWg1, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -214,7 +243,8 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
           gp[jn][e] += sbg1[j];
           // rounded on its own: a row's gate does not depend on its tile
           // row (no FMA fused into the row sum per fragment slot)
-          sv[jn][e] = __fmul_rn(gp[jn][e] * sigm(gp[jn][e]), swg2[j]);
+          sv[jn][e] =
+              __fmul_rn(rnd<BF>(gp[jn][e] * sigm(gp[jn][e])), swg2[j]);
         }
       frag_rowsum<W>(sv, L, rowred);
       __syncthreads();
@@ -251,22 +281,23 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float g_gate = RQ(Q_GG)[L.row(e)];
+          // bf16: g_gate and silu enter their products rounded
+          const float g_gate = rnd<BF>(RQ(Q_GG)[L.row(e)]);
           float sgp, dsgp;
           silu_both(gp[jn][e], sgp, dsgp);
-          sv[jn][e] = sgp * g_gate;
+          sv[jn][e] = rnd<BF>(sgp) * g_gate;
           gp[jn][e] = (g_gate * swg2[L.col<W>(jn, e)]) * dsgp;
         }
       frag_store<W>(tGG, gp, L);
       frag_colsum<W>(gp, L, colred);           // bg1
       frag_colsum<W>(sv, L, colred + 4 * TR);  // wg2
       __syncthreads();
-      tile_mma<W, true, false>(aWg1, tMSG, tGG, L);
+      tile_mma<W, true, false, false, BF>(aWg1, tMSG, tGG, L);
     }
     {  // g_msg = g_mh[r] inv em (+ g_gp1.Wg1^T)
       Frag<W> gm;
       frag_zero<W>(gm);
-      if (gate_mlp) tile_mma<W, false, true>(gm, tGG, sWg1, L);
+      if (gate_mlp) tile_mma<W, false, true, false, BF>(gm, tGG, sWg1, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -276,8 +307,13 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
             const float2 g = *reinterpret_cast<const float2*>(
                 gmh + (size_t)prow[i] * W + j);
             const float inv = RQ(Q_INV)[i], e = RQ(Q_E)[i];
-            gm[jn][2 * h2] += (g.x * inv) * e;
-            gm[jn][2 * h2 + 1] += (g.y * inv) * e;
+            if (BF) {  // bf16(g_mh[r]) (bf16(inv) em)
+              gm[jn][2 * h2] += bf16_round(g.x) * (inv * e);
+              gm[jn][2 * h2 + 1] += bf16_round(g.y) * (inv * e);
+            } else {
+              gm[jn][2 * h2] += (g.x * inv) * e;
+              gm[jn][2 * h2 + 1] += (g.y * inv) * e;
+            }
           }
         }
       frag_colsum<W>(gm, L, colred + 8 * TR);  // b2
@@ -292,10 +328,10 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
         cwg2 += colsum4(colred + 4 * TR, tid);
       }
     }
-    tile_mma<W, true, false>(aW2, tT1, tMSG, L);
+    tile_mma<W, true, false, false, BF>(aW2, tT1, tMSG, L);
     Frag<W> gp;  // g_pre1 = (g_msg.W2^T) silu'(pre1), into tGG (read above)
     frag_zero<W>(gp);
-    tile_mma<W, false, true>(gp, tMSG, sW2, L);
+    tile_mma<W, false, true, false, BF>(gp, tMSG, sW2, L);
     {
       Frag<W> dg, gw;
 #pragma unroll
@@ -303,8 +339,9 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           gp[jn][e] *= tSG[swz<W>(L.row(e), L.col<W>(jn, e))];
-          dg[jn][e] = RQ(Q_D2)[L.row(e)] * gp[jn][e];
-          gw[jn][e] = __fmul_rn(gp[jn][e], sw1d[L.col<W>(jn, e)]);
+          // bf16: d2 and g_pre1 enter d2^T g_pre1 and g_pre1 . w1d rounded
+          dg[jn][e] = rnd<BF>(RQ(Q_D2)[L.row(e)]) * rnd<BF>(gp[jn][e]);
+          gw[jn][e] = __fmul_rn(rnd<BF>(gp[jn][e]), sw1d[L.col<W>(jn, e)]);
         }
       frag_store<W>(tGG, gp, L);
       frag_rowsum<W>(gw, L, rowred);
@@ -319,17 +356,43 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     if (tid < cnt) {  // g_rel = g_r + 2 rel g_d2
       const float g_d2 = RQ(Q_GQ2)[tid] + (rowred[tid] + rowred[TR + tid]);
       float4 g;
-      g.x = RQ(Q_GR0)[tid] + 2.0f * RQ(Q_REL0)[tid] * g_d2;
-      g.y = RQ(Q_GR1)[tid] + 2.0f * RQ(Q_REL1)[tid] * g_d2;
-      g.z = RQ(Q_GR2)[tid] + 2.0f * RQ(Q_REL2)[tid] * g_d2;
+      // bf16: the node pass's summands, rounded
+      g.x = rnd<BF>(RQ(Q_GR0)[tid] + 2.0f * RQ(Q_REL0)[tid] * g_d2);
+      g.y = rnd<BF>(RQ(Q_GR1)[tid] + 2.0f * RQ(Q_REL1)[tid] * g_d2);
+      g.z = rnd<BF>(RQ(Q_GR2)[tid] + 2.0f * RQ(Q_REL2)[tid] * g_d2);
       g.w = 0.0f;
       *reinterpret_cast<float4*>(GREL + (size_t)pslot[tid] * 4) = g;
     }
     for (int f = tid; f < TR * W / 4; f += THREADS) {
       const int i = f / (W / 4), q = (f % (W / 4)) * 4;
-      if (i < cnt)
-        *reinterpret_cast<float4*>(GPRE1 + (size_t)pslot[i] * W + q) =
-            *reinterpret_cast<const float4*>(tGG + swz<W>(i, q));
+      if (i < cnt) {
+        float4 v = *reinterpret_cast<const float4*>(tGG + swz<W>(i, q));
+        if (BF)
+          v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                          bf16_round(v.w));
+        *reinterpret_cast<float4*>(GPRE1 + (size_t)pslot[i] * W + q) = v;
+      }
+    }
+    if (BF) {  // the per-edge dh terms bf16(bf16(g_pre1) W1r^T), ... W1s^T
+      float* dst[2] = {GR, GS};
+      const float* Wk[2] = {sW1r, sW1s};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        Frag<W> a;
+        frag_zero<W>(a);
+        tile_mma<W, false, true, false, true>(a, tGG, Wk[k], L);
+#pragma unroll
+        for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int i = L.row(2 * h2);
+            if (i < cnt)
+              *reinterpret_cast<float2*>(dst[k] + (size_t)pslot[i] * W +
+                                         L.col<W>(jn, 0)) =
+                  make_float2(bf16_round(a[jn][2 * h2]),
+                              bf16_round(a[jn][2 * h2 + 1]));
+          }
+      }
     }
     __syncthreads();
   };
@@ -357,14 +420,15 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
 
 // A group of 8 lanes (lane gl owns columns (W/8) gl .. (W/8) gl + W/8 - 1)
 // adds, in p order, the g_pre1 rows of the live slots s(p), p in [p0, p1)
-// -- s(p) = p, or perm[p] -- into acc, and lanes gl < 3 add sign *
-// g_rel[gl] into d.  Eight masks are read at once and four rows are in
-// flight.
-template <int W, bool PERM>
+// -- s(p) = p, or perm[p] -- into acc, the rows of X (if ROW2) into acc2,
+// and lanes gl < 3 add sign * g_rel[gl] into d.  Eight masks are read at
+// once and four rows are in flight.
+template <int W, bool PERM, bool ROW2>
 __device__ __forceinline__ void segment_sum(
     const int* __restrict__ perm, const float* __restrict__ em,
-    const float* __restrict__ GPRE1, const float* __restrict__ GREL, int p0,
-    int p1, int gl, int grp, float sign, float (&acc)[W / 8], float& d) {
+    const float* __restrict__ GPRE1, const float* __restrict__ GREL,
+    const float* __restrict__ X, int p0, int p1, int gl, int grp,
+    float sign, float (&acc)[W / 8], float (&acc2)[W / 8], float& d) {
   constexpr int V = W / 32;  // float4s a lane
   const unsigned gm = 0xffu << (8 * grp);
   for (int b = p0; b < p1; b += 8) {
@@ -380,15 +444,22 @@ __device__ __forceinline__ void segment_sum(
         sl[u] = m ? v : -1;
         m &= m - 1;
       }
-      float4 v[4][V];
+      float4 v[4][V], v2[ROW2 ? 4 : 1][V];
       float g[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float4* row = reinterpret_cast<const float4*>(
-            GPRE1 + (size_t)(sl[u] >= 0 ? sl[u] : 0) * W + (W / 8) * gl);
+        const size_t off = (size_t)(sl[u] >= 0 ? sl[u] : 0) * W + (W / 8) * gl;
+        const float4* row = reinterpret_cast<const float4*>(GPRE1 + off);
 #pragma unroll
         for (int k = 0; k < V; ++k)
           v[u][k] = sl[u] >= 0 ? row[k] : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ROW2) {
+          const float4* row2 = reinterpret_cast<const float4*>(X + off);
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            v2[ROW2 ? u : 0][k] =
+                sl[u] >= 0 ? row2[k] : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
         g[u] = sl[u] >= 0 && gl < 3 ? GREL[(size_t)sl[u] * 4 + gl] : 0.0f;
       }
 #pragma unroll
@@ -400,6 +471,13 @@ __device__ __forceinline__ void segment_sum(
             acc[4 * k + 1] += v[u][k].y;
             acc[4 * k + 2] += v[u][k].z;
             acc[4 * k + 3] += v[u][k].w;
+            if (ROW2) {
+              const float4 w = v2[ROW2 ? u : 0][k];
+              acc2[4 * k] += w.x;
+              acc2[4 * k + 1] += w.y;
+              acc2[4 * k + 2] += w.z;
+              acc2[4 * k + 3] += w.w;
+            }
           }
           d += sign * g[u];
         }
@@ -409,14 +487,16 @@ __device__ __forceinline__ void segment_sum(
 
 // Per node: G = receiver-segment sum of g_pre1 (slot order), S = sender-
 // segment sum (sender-permutation order), gx = dx_r + dx_s; then
-// gh = G.W1r^T + S.W1s^T and the W1r / W1s partials h^T G, h^T S.
-template <int W>
+// gh = G.W1r^T + S.W1s^T (bf16: the receiver-segment sum of GR plus the
+// sender-segment sum of GS) and the W1r / W1s partials h^T G, h^T S.
+template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS)
 edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
                const int* __restrict__ indptr, const int* __restrict__ sperm,
                const int* __restrict__ sptr, const float* __restrict__ w1r,
                const float* __restrict__ w1s, const float* __restrict__ GPRE1,
-               const float* __restrict__ GREL, float* __restrict__ gx,
+               const float* __restrict__ GREL, const float* __restrict__ GR,
+               const float* __restrict__ GS, float* __restrict__ gx,
                float* __restrict__ gh, float* __restrict__ part,
                int n_nodes) {
   extern __shared__ float4 smem4[];
@@ -427,27 +507,39 @@ edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
   float* tS = tG + RT<W>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int node0 = blockIdx.x * TR;
-  tile_load_async<W>(sWr, w1r);
-  tile_load_async<W>(sWs, w1s);
-  async_commit();
-  tile_gather<W>(tH, h,
-                 [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  if (!BF) {
+    tile_load_async<W>(sWr, w1r);
+    tile_load_async<W>(sWs, w1s);
+    async_commit();
+  }
+  // bf16: h rounded (an operand of h^T G)
+  tile_gather<W, BF>(
+      tH, h, [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
   // 8 lanes per node, 2 nodes each; lane gl owns columns (W/8) gl .. + W/8-1
   constexpr int CPL = W / 8;
   const int grp = lane >> 3, gl = lane & 7;
   for (int k = 0; k < 2; ++k) {
     const int r = (4 * warp + grp) * 2 + k;
     const int i = node0 + r;
-    float G[CPL], S[CPL];
+    float G[CPL], S[CPL], Hr[CPL], Hs[CPL];
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) G[c] = S[c] = 0.0f;
+    for (int c = 0; c < CPL; ++c) G[c] = S[c] = Hr[c] = Hs[c] = 0.0f;
     float dr = 0.0f, ds = 0.0f;  // lanes gl < 3: component gl
     if (i < n_nodes) {
-      segment_sum<W, false>(nullptr, em, GPRE1, GREL, indptr[i],
-                            indptr[i + 1], gl, grp, 1.0f, G, dr);
-      segment_sum<W, true>(sperm, em, GPRE1, GREL, sptr[i], sptr[i + 1], gl,
-                           grp, -1.0f, S, ds);
+      segment_sum<W, false, BF>(nullptr, em, GPRE1, GREL, GR, indptr[i],
+                                indptr[i + 1], gl, grp, 1.0f, G, Hr, dr);
+      segment_sum<W, true, BF>(sperm, em, GPRE1, GREL, GS, sptr[i],
+                               sptr[i + 1], gl, grp, -1.0f, S, Hs, ds);
       if (gl < 3) gx[3 * i + gl] = dr + ds;
+      if (BF) {  // gh = dh_r + dh_s, the reference's two passes
+#pragma unroll
+        for (int h2 = 0; h2 < CPL / 4; ++h2)
+          *reinterpret_cast<float4*>(gh + (size_t)i * W + CPL * gl + 4 * h2) =
+              make_float4(Hr[4 * h2] + Hs[4 * h2],
+                          Hr[4 * h2 + 1] + Hs[4 * h2 + 1],
+                          Hr[4 * h2 + 2] + Hs[4 * h2 + 2],
+                          Hr[4 * h2 + 3] + Hs[4 * h2 + 3]);
+      }
     }
 #pragma unroll
     for (int h2 = 0; h2 < CPL / 4; ++h2) {
@@ -457,22 +549,24 @@ edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
           make_float4(S[4 * h2], S[4 * h2 + 1], S[4 * h2 + 2], S[4 * h2 + 3]);
     }
   }
-  async_wait_all();
+  if (!BF) async_wait_all();
   __syncthreads();
   const Lane L = lane_of();
   Frag<W> a;
-  frag_zero<W>(a);
-  tile_mma<W, false, true>(a, tG, sWr, L);
-  tile_mma<W, false, true>(a, tS, sWs, L);
+  if (!BF) {
+    frag_zero<W>(a);
+    tile_mma<W, false, true>(a, tG, sWr, L);
+    tile_mma<W, false, true>(a, tS, sWs, L);
 #pragma unroll
-  for (int jn = 0; jn < JN<W>; ++jn)
+    for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int i = node0 + L.row(2 * h2);
-      if (i < n_nodes)
-        *reinterpret_cast<float2*>(gh + (size_t)i * W + L.col<W>(jn, 0)) =
-            make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
-    }
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int i = node0 + L.row(2 * h2);
+        if (i < n_nodes)
+          *reinterpret_cast<float2*>(gh + (size_t)i * W + L.col<W>(jn, 0)) =
+              make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
+      }
+  }
   float* out = part + (size_t)blockIdx.x * PN<W>;
   frag_zero<W>(a);
   tile_mma<W, true, false>(a, tH, tG, L);
@@ -517,12 +611,12 @@ __global__ void edge_bwd_reduce(const float* __restrict__ pe,
 }
 
 struct Scratch {
-  float *P, *Q, *GPRE1, *GREL, *pe, *pn;
+  float *P, *Q, *GPRE1, *GREL, *GR, *GS, *pe, *pn;
   int* rowof;
   size_t total;
 };
 
-template <int W>
+template <int W, bool BF>
 Scratch carve(float* base, int n, int e, int n_edge_ctas) {
   Scratch s;
   size_t off = 0;
@@ -535,6 +629,8 @@ Scratch carve(float* base, int n, int e, int n_edge_ctas) {
   s.Q = take((size_t)n * W);
   s.GPRE1 = take((size_t)e * W);
   s.GREL = take((size_t)e * 4);
+  s.GR = BF ? take((size_t)e * W) : nullptr;
+  s.GS = BF ? take((size_t)e * W) : nullptr;
   s.rowof = reinterpret_cast<int*>(take((size_t)e));
   s.pe = take((size_t)n_edge_ctas * EdgePart<W>::size);
   s.pn = take((size_t)n_tiles(n) * PN<W>);
@@ -542,7 +638,7 @@ Scratch carve(float* base, int n, int e, int n_edge_ctas) {
   return s;
 }
 
-template <int W>
+template <int W, bool BF>
 int launch_backward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const int* sperm, const int* sptr, const float* w1r,
@@ -552,36 +648,37 @@ int launch_backward(
     float* gh, const Outs& o, float* scratch, int n_nodes, int n_slots,
     int gate_mlp, int rel_inv1p, float clamp, int n_blocks,
     cudaStream_t stream) {
-  const size_t e_smem = EDGE_SMEM_FLOATS<W> * sizeof(float);
+  const size_t e_smem = EDGE_SMEM_FLOATS<W, BF> * sizeof(float);
   const size_t n_smem = NODE_SMEM_FLOATS<W> * sizeof(float);
   const size_t p_smem = PROJ_SMEM_FLOATS<W> * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_bwd_edges<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_bwd_edges<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)e_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(edge_bwd_nodes<W>,
+    err = cudaFuncSetAttribute(edge_bwd_nodes<W, BF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)n_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(node_proj<W>,
+    err = cudaFuncSetAttribute(node_proj<W, BF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)p_smem);
   if (err != cudaSuccess) return (int)err;
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve<W>(scratch, n_nodes, n_slots, n_blocks);
+  Scratch s = carve<W, BF>(scratch, n_nodes, n_slots, n_blocks);
   const int nt = n_tiles(n_nodes);
-  node_proj<W><<<nt, THREADS, p_smem, stream>>>(
+  node_proj<W, BF><<<nt, THREADS, p_smem, stream>>>(
       h, w1r, w1s, indptr, s.P, s.Q, s.rowof, nullptr, n_nodes, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  edge_bwd_edges<W><<<n_blocks, THREADS, e_smem, stream>>>(
+  edge_bwd_edges<W, BF><<<n_blocks, THREADS, e_smem, stream>>>(
       x, snd, em, indptr, s.rowof, s.P, s.Q, w1d, b1, w2, b2, wg1, bg1, wg2,
-      deg, gdx, gmh, s.GPRE1, s.GREL, s.pe, n_nodes, gate_mlp, rel_inv1p, clamp);
+      deg, gdx, gmh, w1r, w1s, s.GPRE1, s.GREL, s.GR, s.GS, s.pe, n_nodes,
+      gate_mlp, rel_inv1p, clamp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  edge_bwd_nodes<W><<<nt, THREADS, n_smem, stream>>>(
-      h, em, indptr, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, gx, gh, s.pn,
-      n_nodes);
+  edge_bwd_nodes<W, BF><<<nt, THREADS, n_smem, stream>>>(
+      h, em, indptr, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, s.GR, s.GS, gx,
+      gh, s.pn, n_nodes);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int total = EdgePart<W>::size + PN<W>;
@@ -593,13 +690,19 @@ int launch_backward(
 }  // namespace
 
 extern "C" long long edge_bwd_scratch_floats(int n_nodes, int n_slots,
-                                             int n_edge_ctas, int width) {
-  if (width == 32) return carve<32>(nullptr, n_nodes, n_slots, n_edge_ctas).total;
-  if (width == 64) return carve<64>(nullptr, n_nodes, n_slots, n_edge_ctas).total;
-  return -1;
+                                             int n_edge_ctas, int width,
+                                             int bf16) {
+  long long total = -1;
+  with_width(width, bf16, [&](auto w, auto bf) {
+    total = carve<decltype(w)::value, decltype(bf)::value>(
+                nullptr, n_nodes, n_slots, n_edge_ctas).total;
+    return 0;
+  });
+  return total;
 }
 
-// width: the compiled width (32 or 64) that Dh, H1 and M were padded to
+// width: the compiled width (32 or 64) that Dh, H1 and M were padded to;
+// bf16 != 0: the bf16 mode
 extern "C" int edge_backward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const int* sperm, const int* sptr, const float* w1r,
@@ -609,15 +712,15 @@ extern "C" int edge_backward(
     float* gh, float* gw1r, float* gw1s, float* gw1d, float* gb1, float* gw2,
     float* gb2, float* gwg1, float* gbg1, float* gwg2, float* scratch,
     int n_nodes, int n_slots, int gate_mlp, int rel_inv1p, float clamp,
-    int n_blocks, int width, void* stream_ptr) {
+    int n_blocks, int width, int bf16, void* stream_ptr) {
   if (!(aligned16(h) && aligned16(w1r) && aligned16(w1s) && aligned16(w2) &&
         (!gate_mlp || aligned16(wg1)) && aligned16(gmh) && aligned16(gh) &&
         aligned16(scratch)))
     return (int)cudaErrorMisalignedAddress;
   if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
   const Outs o{gw1r, gw1s, gw1d, gb1, gw2, gb2, gwg1, gbg1, gwg2};
-  return with_width(width, [&](auto w) {
-    return launch_backward<decltype(w)::value>(
+  return with_width(width, bf16, [&](auto w, auto bf) {
+    return launch_backward<decltype(w)::value, decltype(bf)::value>(
         x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1, w2, b2, wg1,
         bg1, wg2, deg, gdx, gmh, gx, gh, o, scratch, n_nodes, n_slots,
         gate_mlp, rel_inv1p, clamp, n_blocks, (cudaStream_t)stream_ptr);

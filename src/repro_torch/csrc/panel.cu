@@ -1,5 +1,5 @@
 // The panel path of the FastEGNN edge and virtual pathways (forward and
-// backward) for widths above 64, for Hopper (sm_90a), f32.
+// backward) for widths above 64, for Hopper (sm_90a), f32 and bf16 modes.
 //
 // Replaces, for those widths, the same Pallas TPU kernels as
 // edge_message.cu / edge_message_bwd.cu (`edge_pathway_fused`,
@@ -29,7 +29,16 @@
 // The edge pathway works on the live slots only, compacted in slot order
 // (`compact_live`), so masked slots never enter a product and no output
 // depends on how many masked slots the layout holds; nothing depends on a
-// CTA count.  No float atomics; repeated runs are bitwise equal.  A simple
+// CTA count.  No float atomics; repeated runs are bitwise equal.
+// The bf16 mode (`bf`, the Pallas kernels' `precision='bf16'`): the gemms
+// run common.cuh's bf16 tile products (operands rounded to bf16, one TF32
+// MMA a k-step; a bias rounded too), and the elementwise kernels round
+// where the tile kernels do (edge_message.cu, edge_message_bwd.cu,
+// virtual_message.cu, virtual_message_bwd.cu).  The edge backward's gh is
+// then the reference's sum of per-edge rounded products: two more gemms
+// over the live edges, bf16(bf16(g_pre1) W1r^T) and ... W1s^T (outputs
+// rounded), summed per receiver row and per sender; W1r = h^T G and W1s =
+// h^T S take h rounded (a copy) and G, S in f32.  A simple
 // path: the intermediates make several round trips through device memory
 // and every panel is loaded synchronously.
 #include "common.cuh"
@@ -68,13 +77,14 @@ struct Gemm {
   const int* dynK;    // if set: K = *dynK
   int acc;            // C += op(A) op(B) (else C =)
   float* part;        // if set: SPLIT partials over K chunks, M x N each
+  int rnd_out = 0;    // bf16 mode: outputs rounded to bf16 (no `part`)
 };
 
 // One CTA a 64 x 64 block of C.  op(A)[m][k] = TA ? A[k][m] : A[m][k],
 // op(B)[k][n] = TB ? B[n][k] : B[k][n]; rows of A, B or C past M or K read
 // as zeros and are not written.  With `part`, CTA z of the grid's third
 // dimension takes K chunk z of SPLIT (64-row aligned) into partial z.
-template <bool TA, bool TB, bool STEP_SUM>
+template <bool TA, bool TB, bool STEP_SUM, bool BF>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(Gemm g) {
   __shared__ __align__(16) float sA[64 * 64];
@@ -113,7 +123,7 @@ gemm_kernel(Gemm g) {
     if (TB) panel_load(sB, g.B, g.ldb, n0, k0, g.N);
     else panel_load(sB, g.B, g.ldb, k0, n0, K);
     __syncthreads();
-    tile_mma<64, TA, TB, STEP_SUM>(acc, sA, sB, L);
+    tile_mma<64, TA, TB, STEP_SUM, BF>(acc, sA, sB, L);
     __syncthreads();
   }
 #pragma unroll
@@ -125,9 +135,10 @@ gemm_kernel(Gemm g) {
       if (r < M) {
         float2 v = make_float2(acc[jn][2 * h], acc[jn][2 * h + 1]);
         if (g.bias) {
-          v.x += g.bias[c];
-          v.y += g.bias[c + 1];
+          v.x += rnd<BF>(g.bias[c]);
+          v.y += rnd<BF>(g.bias[c + 1]);
         }
+        if (BF && g.rnd_out) v = make_float2(bf16_round(v.x), bf16_round(v.y));
         *reinterpret_cast<float2*>(C + (size_t)r * g.ldc + c) = v;
       }
     }
@@ -143,12 +154,14 @@ __global__ void split_sum(const float* __restrict__ part,
   C[f] = s;
 }
 
+// bf: the bf16 mode
 template <bool TA, bool TB, bool STEP_SUM = false>
-cudaError_t gemm(const Gemm& g, int max_m, cudaStream_t stream) {
+cudaError_t gemm(const Gemm& g, int max_m, cudaStream_t stream, int bf) {
   const dim3 grid((max_m + P64 - 1) / P64, g.N / P64,
                   g.part != nullptr ? SPLIT : 1);
   if (grid.x == 0 || grid.y == 0) return cudaSuccess;
-  gemm_kernel<TA, TB, STEP_SUM><<<grid, THREADS, 0, stream>>>(g);
+  if (bf) gemm_kernel<TA, TB, STEP_SUM, true><<<grid, THREADS, 0, stream>>>(g);
+  else gemm_kernel<TA, TB, STEP_SUM, false><<<grid, THREADS, 0, stream>>>(g);
   if (g.part == nullptr) return cudaGetLastError();
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -163,9 +176,9 @@ cudaError_t gemm(const Gemm& g, int max_m, cudaStream_t stream) {
 // summed on its own)
 cudaError_t weight_grad(const float* A, int lda, const float* B, int ldb,
                         float* W, int M, int N, int K, const int* dynK,
-                        float* part, cudaStream_t stream) {
+                        float* part, cudaStream_t stream, int bf) {
   Gemm g{A, B, W, nullptr, lda, ldb, N, M, N, K, nullptr, dynK, 0, part};
-  return gemm<true, false, true>(g, M, stream);
+  return gemm<true, false, true>(g, M, stream, bf);
 }
 
 // C (M x N) = op(A) op(B) [+ bias] [+ C]
@@ -183,7 +196,7 @@ Gemm mm(const float* A, int lda, const float* B, int ldb, float* C, int ldc,
 __global__ void colsum_chunks(const float* __restrict__ X, int ld, int ncol,
                               const float* __restrict__ scale, int sstride,
                               int M_static, const int* __restrict__ dynM,
-                              float* __restrict__ part) {
+                              float* __restrict__ part, int rnd_terms) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int chunk = blockIdx.y;
   if (c >= ncol) return;
@@ -192,8 +205,13 @@ __global__ void colsum_chunks(const float* __restrict__ X, int ld, int ncol,
   const int r0 = min(chunk * len, M), r1 = min(r0 + len, M);
   float s = 0.0f;
   for (int r = r0; r < r1; ++r) {
-    const float v = X[(size_t)r * ld + c];
-    s += scale ? scale[(size_t)r * sstride] * v : v;
+    float v = X[(size_t)r * ld + c];
+    float w = scale ? scale[(size_t)r * sstride] : 1.0f;
+    if (rnd_terms) {  // bf16: a product of rounded operands
+      v = bf16_round(v);
+      w = bf16_round(w);
+    }
+    s += scale ? w * v : v;
   }
   part[(size_t)chunk * ncol + c] = s;
 }
@@ -209,12 +227,14 @@ __global__ void colsum_finish(const float* __restrict__ part, int ncol,
 
 // out[c] = sign * sum over rows of X[r][c] (x scale[r]) in the fixed chunk
 // order; part holds CHUNKS x ncol floats
+// (rnd_terms: X and scale rounded to bf16 first)
 cudaError_t colsum(const float* X, int ld, int ncol, const float* scale,
                    int sstride, int M, const int* dynM, float* part,
-                   float* out, cudaStream_t stream, float sign = 1.0f) {
+                   float* out, cudaStream_t stream, float sign = 1.0f,
+                   int rnd_terms = 0) {
   const dim3 grid((ncol + 127) / 128, CHUNKS);
   colsum_chunks<<<grid, 128, 0, stream>>>(X, ld, ncol, scale, sstride, M,
-                                          dynM, part);
+                                          dynM, part, rnd_terms);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   colsum_finish<<<(ncol + 127) / 128, 128, 0, stream>>>(part, ncol, out,
@@ -328,19 +348,22 @@ __global__ void edge_pre(const float* __restrict__ x,
                          const float* __restrict__ w1d,
                          const float* __restrict__ b1, int H,
                          float* __restrict__ E4, float* __restrict__ T1,
-                         float* __restrict__ SG) {
+                         float* __restrict__ SG, int bf) {
   const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int i = (int)(f / H), c = (int)(f % H);
   if (i >= *n_live) return;
   const int slot = live[i], r = rowof[slot], s = snd[slot];
-  const float rel0 = x[3 * r] - x[3 * s], rel1 = x[3 * r + 1] - x[3 * s + 1],
-              rel2 = x[3 * r + 2] - x[3 * s + 2];
+  auto X = [&](int k) { return bf ? bf16_round(x[k]) : x[k]; };
+  const float rel0 = X(3 * r) - X(3 * s), rel1 = X(3 * r + 1) - X(3 * s + 1),
+              rel2 = X(3 * r + 2) - X(3 * s + 2);
   const float d2 = rel0 * rel0 + rel1 * rel1 + rel2 * rel2;
   if (c == 0)
     *reinterpret_cast<float4*>(E4 + 4 * (size_t)i) =
         make_float4(rel0, rel1, rel2, d2);
-  const float u = ((P[(size_t)r * H + c] + Q[(size_t)s * H + c]) +
-                   d2 * w1d[c]) + b1[c];
+  const float u =
+      ((P[(size_t)r * H + c] + Q[(size_t)s * H + c]) +
+       (bf ? bf16_round(d2) * bf16_round(w1d[c]) : d2 * w1d[c])) +
+      (bf ? bf16_round(b1[c]) : b1[c]);
   float t, dt;
   silu_both(u, t, dt);
   T1[(size_t)i * H + c] = t;
@@ -362,17 +385,18 @@ __global__ void edge_gate_fwd(const float* __restrict__ GP,
                               const float* __restrict__ em,
                               const int* __restrict__ live,
                               const int* __restrict__ n_live, int rel_inv1p,
-                              float clamp, float* __restrict__ TERM) {
+                              float clamp, float* __restrict__ TERM, int bf) {
   const int i = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= *n_live) return;
+  auto rb = [&](float v) { return bf ? bf16_round(v) : v; };
   float s = 0.0f;
   if (gate == GATE_IDENTITY) {
     s = MSG[(size_t)i * M];
   } else {
     for (int c = lane; c < H; c += 32) {
-      const float u = GP[(size_t)i * H + c] + bg1[c];
-      s += __fmul_rn(u * sigm(u), wg2[c]);
+      const float u = GP[(size_t)i * H + c] + rb(bg1[c]);
+      s += __fmul_rn(rb(u * sigm(u)), rb(wg2[c]));
     }
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
   }
@@ -382,7 +406,7 @@ __global__ void edge_gate_fwd(const float* __restrict__ GP,
     const float rl = lane == 0 ? e4.x : (lane == 1 ? e4.y : e4.z);
     const float kd = rel_inv1p ? sqrtf(e4.w + 1e-12f) + 1.0f : 1.0f;
     const float q = rel_inv1p ? rl / kd : rl;
-    TERM[4 * (size_t)i + lane] = (q * g) * em[live[i]];
+    TERM[4 * (size_t)i + lane] = rb((q * g) * em[live[i]]);
   }
 }
 
@@ -395,16 +419,17 @@ __global__ void edge_rows_fwd(const float* __restrict__ MSG, int M,
                               const int* __restrict__ lidx, int n_nodes,
                               int gate, float* __restrict__ dx,
                               float* __restrict__ mh,
-                              float* __restrict__ deg) {
+                              float* __restrict__ deg, int bf) {
   const int r = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= n_nodes) return;
+  auto rb = [&](float v) { return bf ? bf16_round(v) : v; };
   const int e0 = indptr[r], e1 = indptr[r + 1];
   float dg = 0.0f, d = 0.0f;
   for (int s = e0; s < e1; ++s) {
     const int i = lidx[s];
     if (i < 0) continue;
-    dg += em[s];
+    dg += rb(em[s]);
     if (gate && lane < 3) d += TERM[4 * (size_t)i + lane];
   }
   const float inv = 1.0f / fmaxf(dg, 1.0f);
@@ -412,7 +437,7 @@ __global__ void edge_rows_fwd(const float* __restrict__ MSG, int M,
     float a = 0.0f;
     for (int s = e0; s < e1; ++s) {
       const int i = lidx[s];
-      if (i >= 0) a += MSG[(size_t)i * M + c0 + lane] * em[s];
+      if (i >= 0) a += rb(MSG[(size_t)i * M + c0 + lane] * em[s]);
     }
     mh[(size_t)r * M + c0 + lane] = a * inv;
   }
@@ -439,15 +464,25 @@ __global__ void edge_gate_bwd(float* __restrict__ GP,
                               const float* __restrict__ gdx, int gate,
                               int rel_inv1p, float clamp,
                               float* __restrict__ U4,
-                              float* __restrict__ GR4) {
+                              float* __restrict__ GR4, int bf) {
   const int i = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= *n_live) return;
+  auto rb = [&](float v) { return bf ? bf16_round(v) : v; };
   const int slot = live[i], r = rowof[slot];
   const float e = em[slot];
-  const float inv = 1.0f / fmaxf(deg[r], 1.0f);
-  const float u0 = (gdx[3 * r] * inv) * e, u1 = (gdx[3 * r + 1] * inv) * e,
-              u2 = (gdx[3 * r + 2] * inv) * e;
+  // bf16: the gathered inv and g_dx are rounded, u = g_dx (inv em)
+  const float inv = rb(1.0f / fmaxf(deg[r], 1.0f));
+  float u0, u1, u2;
+  if (bf) {
+    u0 = rb(gdx[3 * r]) * (inv * e);
+    u1 = rb(gdx[3 * r + 1]) * (inv * e);
+    u2 = rb(gdx[3 * r + 2]) * (inv * e);
+  } else {
+    u0 = (gdx[3 * r] * inv) * e;
+    u1 = (gdx[3 * r + 1] * inv) * e;
+    u2 = (gdx[3 * r + 2] * inv) * e;
+  }
   if (lane == 0)
     *reinterpret_cast<float4*>(U4 + 4 * (size_t)i) =
         make_float4(u0, u1, u2, inv);
@@ -462,8 +497,8 @@ __global__ void edge_gate_bwd(float* __restrict__ GP,
     s = MSG[(size_t)i * M];
   } else {
     for (int c = lane; c < H; c += 32) {
-      const float gp = GP[(size_t)i * H + c] + bg1[c];
-      s += gp * sigm(gp) * wg2[c];
+      const float gp = GP[(size_t)i * H + c] + rb(bg1[c]);
+      s += rb(gp * sigm(gp)) * rb(wg2[c]);
     }
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
   }
@@ -478,11 +513,11 @@ __global__ void edge_gate_bwd(float* __restrict__ GP,
   if (!(s >= -clamp && s <= clamp)) g_gate = 0.0f;
   if (gate == GATE_IDENTITY && lane == 0) GGATE[i] = g_gate;
   for (int c = lane; gate == GATE_MLP && c < H; c += 32) {
-    const float gp = GP[(size_t)i * H + c] + bg1[c];
+    const float gp = GP[(size_t)i * H + c] + rb(bg1[c]);
     float sgp, dsgp;
     silu_both(gp, sgp, dsgp);
-    SV[(size_t)i * H + c] = sgp * g_gate;
-    GP[(size_t)i * H + c] = (g_gate * wg2[c]) * dsgp;
+    SV[(size_t)i * H + c] = rb(sgp) * rb(g_gate);
+    GP[(size_t)i * H + c] = (rb(g_gate) * rb(wg2[c])) * dsgp;
   }
   if (lane == 0) {
     const float gu0 = u0 * gate_v, gu1 = u1 * gate_v, gu2 = u2 * gate_v;
@@ -507,16 +542,18 @@ __global__ void edge_gmsg(float* __restrict__ GM, int M,
                           const int* __restrict__ live,
                           const int* __restrict__ rowof,
                           const int* __restrict__ n_live, int zero_first,
-                          const float* __restrict__ GGATE) {
+                          const float* __restrict__ GGATE, int bf) {
   const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int i = (int)(f / M), c = (int)(f % M);
   if (i >= *n_live) return;
   const int slot = live[i], r = rowof[slot];
-  const float add = (gmh[(size_t)r * M + c] * U4[4 * (size_t)i + 3]) *
-                    em[slot];
+  const float g = gmh[(size_t)r * M + c], inv = U4[4 * (size_t)i + 3];
+  // bf16: bf16(g_mh[r]) (bf16(inv) em)
+  const float add = bf ? bf16_round(g) * (inv * em[slot]) : (g * inv) *
+                                                                em[slot];
   const size_t k = (size_t)i * M + c;
-  const float g = (zero_first ? 0.0f : GM[k]) + add;
-  GM[k] = GGATE != nullptr && c == 0 ? g + GGATE[i] : g;
+  const float v = (zero_first ? 0.0f : GM[k]) + add;
+  GM[k] = GGATE != nullptr && c == 0 ? v + GGATE[i] : v;
 }
 
 // g_pre1 = GPRE (= g_msg.W2^T) * silu'(pre1), in place; then, a warp a
@@ -528,16 +565,17 @@ __global__ void edge_gpre(float* __restrict__ GPRE,
                           const float* __restrict__ GR4,
                           const int* __restrict__ live,
                           const int* __restrict__ n_live,
-                          float* __restrict__ GREL) {
+                          float* __restrict__ GREL, int bf) {
   const int i = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= *n_live) return;
+  auto rb = [&](float v) { return bf ? bf16_round(v) : v; };
   float s = 0.0f;
   for (int c = lane; c < H; c += 32) {
     const size_t k = (size_t)i * H + c;
     const float gp = GPRE[k] * SG[k];
     GPRE[k] = gp;
-    s += gp * w1d[c];
+    s += rb(gp) * rb(w1d[c]);
   }
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
   if (lane < 3) {
@@ -546,7 +584,7 @@ __global__ void edge_gpre(float* __restrict__ GPRE,
     const float g_d2 = gr.w + s;
     const float rl = lane == 0 ? e4.x : (lane == 1 ? e4.y : e4.z);
     const float g = lane == 0 ? gr.x : (lane == 1 ? gr.y : gr.z);
-    GREL[4 * (size_t)live[i] + lane] = g + 2.0f * rl * g_d2;
+    GREL[4 * (size_t)live[i] + lane] = rb(g + 2.0f * rl * g_d2);
   }
 }
 
@@ -588,6 +626,40 @@ __global__ void edge_nodes_bwd(const float* __restrict__ GPRE, int H,
   if (lane < 3) gx[3 * r + lane] = dr + ds;
 }
 
+// bf16: per node, a warp: gh = its receiver segment's GHR rows (slot
+// order) + its sender segment's GHS rows (sender-permutation order), the
+// rows D wide, indexed by live index
+__global__ void edge_nodes_gh(const float* __restrict__ GHR,
+                              const float* __restrict__ GHS, int D,
+                              const int* __restrict__ lidx,
+                              const int* __restrict__ indptr,
+                              const int* __restrict__ sperm,
+                              const int* __restrict__ sptr, int n_nodes,
+                              float* __restrict__ gh) {
+  const int r = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= n_nodes) return;
+  for (int c0 = 0; c0 < D; c0 += 32) {
+    float a = 0.0f, b = 0.0f;
+    for (int s = indptr[r]; s < indptr[r + 1]; ++s) {
+      const int i = lidx[s];
+      if (i >= 0) a += GHR[(size_t)i * D + c0 + lane];
+    }
+    for (int p = sptr[r]; p < sptr[r + 1]; ++p) {
+      const int i = lidx[sperm[p]];
+      if (i >= 0) b += GHS[(size_t)i * D + c0 + lane];
+    }
+    gh[(size_t)r * D + c0 + lane] = a + b;
+  }
+}
+
+// X[f] = bf16(X[f]) (or of src into X), f < n
+__global__ void round_bf16(float* __restrict__ X,
+                           const float* __restrict__ src, long long n) {
+  const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (f < n) X[f] = bf16_round(src ? src[f] : X[f]);
+}
+
 // --------------------------------------------------------- virtual pieces
 // rl4[i] = (x_i - z_c, d2); T1 = silu(PRE + d2 w1d + c1) and, if SP is
 // given, SP = silu'(.)
@@ -597,18 +669,29 @@ __global__ void virt_pre(const float* __restrict__ x,
                          const float* __restrict__ w1d,
                          const float* __restrict__ c1,
                          float* __restrict__ T1, float* __restrict__ SP,
-                         float* __restrict__ RL4) {
+                         float* __restrict__ RL4, int bf) {
   const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int i = (int)(f / H), j = (int)(f % H);
   if (i >= n) return;
-  const float r0 = x[3 * i] - z[3 * c], r1 = x[3 * i + 1] - z[3 * c + 1],
-              r2 = x[3 * i + 2] - z[3 * c + 2];
-  const float d2 = r0 * r0 + r1 * r1 + r2 * r2;
+  float r0, r1, r2, d2, u;
+  const size_t k = (size_t)i * H + j;
+  if (bf) {  // bfloat16 arithmetic: each op rounded
+    r0 = bf16_round(bf16_round(x[3 * i]) - bf16_round(z[3 * c]));
+    r1 = bf16_round(bf16_round(x[3 * i + 1]) - bf16_round(z[3 * c + 1]));
+    r2 = bf16_round(bf16_round(x[3 * i + 2]) - bf16_round(z[3 * c + 2]));
+    d2 = bf16_round((bf16_round(r0 * r0) + bf16_round(r1 * r1)) +
+                    bf16_round(r2 * r2));
+    u = (PRE[k] + bf16_round(d2 * bf16_round(w1d[j]))) + bf16_round(c1[j]);
+  } else {
+    r0 = x[3 * i] - z[3 * c];
+    r1 = x[3 * i + 1] - z[3 * c + 1];
+    r2 = x[3 * i + 2] - z[3 * c + 2];
+    d2 = r0 * r0 + r1 * r1 + r2 * r2;
+    u = (PRE[k] + d2 * w1d[j]) + c1[j];
+  }
   if (j == 0)
     *reinterpret_cast<float4*>(RL4 + 4 * (size_t)i) =
         make_float4(r0, r1, r2, d2);
-  const size_t k = (size_t)i * H + j;
-  const float u = (PRE[k] + d2 * w1d[j]) + c1[j];
   float t, dt;
   silu_both(u, t, dt);
   T1[k] = t;
@@ -629,17 +712,18 @@ __global__ void virt_gates_fwd(const float* __restrict__ GX,
                                int first, float* __restrict__ DX,
                                float* __restrict__ DZT,
                                float* __restrict__ MHA,
-                               float* __restrict__ WMS) {
+                               float* __restrict__ WMS, int bf) {
   const int i = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= n) return;
+  auto rb = [&](float v) { return bf ? bf16_round(v) : v; };
   const float m = mask[i];
   float sx = 0.0f, sz = 0.0f;
   for (int j = lane; j < H; j += 32) {
     const size_t k = (size_t)i * H + j;
-    const float u = GX[k] + bg1[j], v = GZ[k] + bz1[j];
-    sx += __fmul_rn(u * sigm(u), wg2[j]);
-    sz += __fmul_rn(v * sigm(v), wz2[j]);
+    const float u = GX[k] + rb(bg1[j]), v = GZ[k] + rb(bz1[j]);
+    sx += __fmul_rn(rb(u * sigm(u)), rb(wg2[j]));
+    sz += __fmul_rn(rb(v * sigm(v)), rb(wz2[j]));
     const float msg = MSG[k];
     MHA[k] = (first ? 0.0f : MHA[k]) + msg;
     WMS[k] = msg * m;
@@ -679,10 +763,11 @@ __global__ void virt_gates_bwd(float* __restrict__ PX, float* __restrict__ PZ,
                                const float* __restrict__ mask,
                                const float* __restrict__ gdx,
                                const float* __restrict__ gdz, int c, int n,
-                               float inv_c, float* __restrict__ GXZ) {
+                               float inv_c, float* __restrict__ GXZ, int bf) {
   const int i = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= n) return;
+  auto rb = [&](float v) { return bf ? bf16_round(v) : v; };
   const float4 rl = *reinterpret_cast<const float4*>(RL4 + 4 * (size_t)i);
   const float m = mask[i];
   const float ggx = (gdx[3 * i] * inv_c) * rl.x +
@@ -694,14 +779,15 @@ __global__ void virt_gates_bwd(float* __restrict__ PX, float* __restrict__ PZ,
   for (int j = lane; j < H; j += 32) {
     const size_t k = (size_t)i * H + j;
     float ax, dax, az, daz;
-    silu_both(PX[k] + bg1[j], ax, dax);
-    silu_both(PZ[k] + bz1[j], az, daz);
-    sx += ax * wg2[j];
-    sz += az * wz2[j];
-    PX[k] = (ggx * wg2[j]) * dax;
-    PZ[k] = (ggz * wz2[j]) * daz;
-    SXG[k] = ax * ggx;
-    SZG[k] = az * ggz;
+    silu_both(PX[k] + rb(bg1[j]), ax, dax);
+    silu_both(PZ[k] + rb(bz1[j]), az, daz);
+    const float wx = rb(wg2[j]), wz = rb(wz2[j]);
+    sx += rb(ax) * wx;
+    sz += rb(az) * wz;
+    PX[k] = (rb(ggx) * wx) * dax;
+    PZ[k] = (rb(ggz) * wz) * daz;
+    SXG[k] = rb(ax) * rb(ggx);
+    SZG[k] = rb(az) * rb(ggz);
   }
   for (int o = 16; o > 0; o >>= 1) {
     sx += __shfl_xor_sync(FULL, sx, o);
@@ -735,7 +821,7 @@ __global__ void virt_gpre(float* __restrict__ GP,
                           const float* __restrict__ gdx,
                           const float* __restrict__ gdz, int c, int n,
                           float inv_c, int first, float* __restrict__ gx,
-                          float* __restrict__ GRM) {
+                          float* __restrict__ GRM, int bf) {
   const int i = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= n) return;
@@ -744,7 +830,7 @@ __global__ void virt_gpre(float* __restrict__ GP,
     const size_t k = (size_t)i * H + j;
     const float g = GP[k] * SP[k];
     GP[k] = g;
-    s += g * w1d[j];
+    s += g * (bf ? bf16_round(w1d[j]) : w1d[j]);
   }
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
   if (lane < 3) {
@@ -813,11 +899,12 @@ EdgeFwd carve_edge_fwd(Carver& cv, int n, int e, int H, int M) {
 
 struct EdgeBwd {
   float *P, *Q, *E4, *U4, *GR4, *GGATE, *T1, *SG, *MSG, *GP, *SV, *GM, *GPRE,
-      *GREL, *G, *S, *part, *wpart;
+      *GREL, *G, *S, *part, *wpart, *HB, *GHR, *GHS;
   Live L;
 };
 
-EdgeBwd carve_edge_bwd(Carver& cv, int n, int e, int D, int H, int M) {
+EdgeBwd carve_edge_bwd(Carver& cv, int n, int e, int D, int H, int M,
+                       bool bf) {
   EdgeBwd s;
   s.P = cv.take((size_t)n * H);
   s.Q = cv.take((size_t)n * H);
@@ -838,6 +925,9 @@ EdgeBwd carve_edge_bwd(Carver& cv, int n, int e, int D, int H, int M) {
   s.S = cv.take((size_t)n * H);
   s.part = cv.take((size_t)CHUNKS * (H > M ? H : M));
   s.wpart = cv.take((size_t)SPLIT * max(H * M, D * H));
+  s.HB = bf ? cv.take((size_t)n * D) : nullptr;
+  s.GHR = bf ? cv.take((size_t)e * D) : nullptr;
+  s.GHS = bf ? cv.take((size_t)e * D) : nullptr;
   return s;
 }
 
@@ -900,9 +990,9 @@ extern "C" long long panel_edge_fwd_scratch_floats(int n, int e, int H,
 }
 
 extern "C" long long panel_edge_bwd_scratch_floats(int n, int e, int D,
-                                                   int H, int M) {
+                                                   int H, int M, int bf) {
   Carver cv{nullptr};
-  carve_edge_bwd(cv, n, e, D, H, M);
+  carve_edge_bwd(cv, n, e, D, H, M, bf != 0);
   return (long long)cv.off;
 }
 
@@ -919,44 +1009,45 @@ extern "C" long long panel_virtual_bwd_scratch_floats(int n, int D, int H) {
 }
 
 // Edge forward: D, H, M (Dh, H1, M) multiples of 64, gate 0 'none', 1
-// 'mlp', 2 'identity' (M = 64, the message's column 0 real); outputs dx
-// (n x 3), mh (n x M), deg (n)
+// 'mlp', 2 'identity' (M = 64, the message's column 0 real); bf != 0: the
+// bf16 mode; outputs dx (n x 3), mh (n x M), deg (n)
 extern "C" int panel_edge_forward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const float* w1r, const float* w1s, const float* w1d,
     const float* b1, const float* w2, const float* b2, const float* wg1,
     const float* bg1, const float* wg2, float* dx, float* mh, float* deg,
     float* scratch, int n, int e, int D, int H, int M, int gate,
-    int rel_inv1p, float clamp, void* stream_ptr) {
+    int rel_inv1p, float clamp, int bf, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   if (!panel_widths(D, H, M)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   Carver cv{scratch};
   const EdgeFwd s = carve_edge_fwd(cv, n, e, H, M);
   const int* nl = s.L.n_live;
-  TRY((gemm<false, false>(mm(h, D, w1r, H, s.P, H, n, H, D), n, st)));
-  TRY((gemm<false, false>(mm(h, D, w1s, H, s.Q, H, n, H, D), n, st)));
+  TRY((gemm<false, false>(mm(h, D, w1r, H, s.P, H, n, H, D), n, st, bf)));
+  TRY((gemm<false, false>(mm(h, D, w1s, H, s.Q, H, n, H, D), n, st, bf)));
   TRY(compact_live(em, indptr, n, e, s.L, st));
   if (e > 0) {
     edge_pre<<<blocks((long long)e * H), 256, 0, st>>>(
         x, snd, s.L.live, s.L.rowof, nl, s.P, s.Q, w1d, b1, H, s.E4, s.T1,
-        nullptr);
+        nullptr, bf);
     TRY(cudaGetLastError());
     TRY((gemm<false, false, true>(
-        mm(s.T1, H, w2, M, s.MSG, M, e, M, H, b2, 0, nl), e, st)));
+        mm(s.T1, H, w2, M, s.MSG, M, e, M, H, b2, 0, nl), e, st, bf)));
     if (gate == GATE_MLP)
       TRY((gemm<false, false, true>(
-          mm(s.MSG, M, wg1, H, s.GP, H, e, H, M, nullptr, 0, nl), e, st)));
+          mm(s.MSG, M, wg1, H, s.GP, H, e, H, M, nullptr, 0, nl), e, st,
+          bf)));
     if (gate != GATE_NONE) {
       edge_gate_fwd<<<blocks((long long)e * 32), 256, 0, st>>>(
           s.GP, bg1, wg2, H, s.MSG, M, gate, s.E4, em, s.L.live, nl,
-          rel_inv1p, clamp, s.TERM);
+          rel_inv1p, clamp, s.TERM, bf);
       TRY(cudaGetLastError());
     }
   }
   edge_rows_fwd<<<blocks((long long)n * 32), 256, 0, st>>>(
       s.MSG, M, s.TERM, em, indptr, s.L.lidx, n, gate != GATE_NONE, dx, mh,
-      deg);
+      deg, bf);
   return (int)cudaGetLastError();
 }
 
@@ -970,54 +1061,61 @@ extern "C" int panel_edge_backward(
     const float* deg, const float* gdx, const float* gmh, float* gx,
     float* gh, float* gw1r, float* gw1s, float* gw1d, float* gb1, float* gw2,
     float* gb2, float* gwg1, float* gbg1, float* gwg2, float* scratch, int n,
-    int e, int D, int H, int M, int gate, int rel_inv1p, float clamp,
+    int e, int D, int H, int M, int gate, int rel_inv1p, float clamp, int bf,
     void* stream_ptr) {
   const bool gate_mlp = gate == GATE_MLP;
   cudaStream_t st = (cudaStream_t)stream_ptr;
   if (!panel_widths(D, H, M)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   Carver cv{scratch};
-  const EdgeBwd s = carve_edge_bwd(cv, n, e, D, H, M);
+  const EdgeBwd s = carve_edge_bwd(cv, n, e, D, H, M, bf != 0);
   const int* nl = s.L.n_live;
-  TRY((gemm<false, false>(mm(h, D, w1r, H, s.P, H, n, H, D), n, st)));
-  TRY((gemm<false, false>(mm(h, D, w1s, H, s.Q, H, n, H, D), n, st)));
+  TRY((gemm<false, false>(mm(h, D, w1r, H, s.P, H, n, H, D), n, st, bf)));
+  TRY((gemm<false, false>(mm(h, D, w1s, H, s.Q, H, n, H, D), n, st, bf)));
   TRY(compact_live(em, indptr, n, e, s.L, st));
   if (e > 0) {
     edge_pre<<<blocks((long long)e * H), 256, 0, st>>>(
         x, snd, s.L.live, s.L.rowof, nl, s.P, s.Q, w1d, b1, H, s.E4, s.T1,
-        s.SG);
+        s.SG, bf);
     TRY(cudaGetLastError());
     TRY((gemm<false, false>(mm(s.T1, H, w2, M, s.MSG, M, e, M, H, b2, 0, nl),
-                            e, st)));
+                            e, st, bf)));
     if (gate_mlp)
       TRY((gemm<false, false>(
-          mm(s.MSG, M, wg1, H, s.GP, H, e, H, M, nullptr, 0, nl), e, st)));
+          mm(s.MSG, M, wg1, H, s.GP, H, e, H, M, nullptr, 0, nl), e, st,
+          bf)));
     edge_gate_bwd<<<blocks((long long)e * 32), 256, 0, st>>>(
         s.GP, s.SV, bg1, wg2, H, s.MSG, M, s.GGATE, s.E4, em, s.L.live,
-        s.L.rowof, nl, deg, gdx, gate, rel_inv1p, clamp, s.U4, s.GR4);
+        s.L.rowof, nl, deg, gdx, gate, rel_inv1p, clamp, s.U4, s.GR4, bf);
     TRY(cudaGetLastError());
     // g_msg = (g_gp1.Wg1^T) + g_mh[r] inv em
     if (gate_mlp)
       TRY((gemm<false, true>(
-          mm(s.GP, H, wg1, H, s.GM, M, e, M, H, nullptr, 0, nl), e, st)));
+          mm(s.GP, H, wg1, H, s.GM, M, e, M, H, nullptr, 0, nl), e, st,
+          bf)));
     edge_gmsg<<<blocks((long long)e * M), 256, 0, st>>>(
         s.GM, M, gmh, s.U4, em, s.L.live, s.L.rowof, nl, !gate_mlp,
-        gate == GATE_IDENTITY ? s.GGATE : nullptr);
+        gate == GATE_IDENTITY ? s.GGATE : nullptr, bf);
     TRY(cudaGetLastError());
     // g_pre1 = (g_msg.W2^T) silu'(pre1); g_rel
     TRY((gemm<false, true>(
-        mm(s.GM, M, w2, M, s.GPRE, H, e, H, M, nullptr, 0, nl), e, st)));
+        mm(s.GM, M, w2, M, s.GPRE, H, e, H, M, nullptr, 0, nl), e, st, bf)));
     edge_gpre<<<blocks((long long)e * 32), 256, 0, st>>>(
-        s.GPRE, s.SG, H, w1d, s.E4, s.GR4, s.L.live, nl, s.GREL);
+        s.GPRE, s.SG, H, w1d, s.E4, s.GR4, s.L.live, nl, s.GREL, bf);
     TRY(cudaGetLastError());
   }
   // weight gradients over the live edges, in their order
-  TRY(weight_grad(s.T1, H, s.GM, M, gw2, H, M, 0, nl, s.wpart, st));
+  TRY(weight_grad(s.T1, H, s.GM, M, gw2, H, M, 0, nl, s.wpart, st, bf));
   TRY(colsum(s.GM, M, M, nullptr, 0, 0, nl, s.part, gb2, st));
   TRY(colsum(s.GPRE, H, H, nullptr, 0, 0, nl, s.part, gb1, st));
-  TRY(colsum(s.GPRE, H, H, s.E4 + 3, 4, 0, nl, s.part, gw1d, st));
+  if (bf && e > 0) {  // g_pre1 enters every product below rounded
+    round_bf16<<<blocks((long long)e * H), 256, 0, st>>>(s.GPRE, nullptr,
+                                                          (long long)e * H);
+    TRY(cudaGetLastError());
+  }
+  TRY(colsum(s.GPRE, H, H, s.E4 + 3, 4, 0, nl, s.part, gw1d, st, 1.0f, bf));
   if (gate_mlp) {
-    TRY(weight_grad(s.MSG, M, s.GP, H, gwg1, M, H, 0, nl, s.wpart, st));
+    TRY(weight_grad(s.MSG, M, s.GP, H, gwg1, M, H, 0, nl, s.wpart, st, bf));
     TRY(colsum(s.GP, H, H, nullptr, 0, 0, nl, s.part, gbg1, st));
     TRY(colsum(s.SV, H, H, nullptr, 0, 0, nl, s.part, gwg2, st));
   }
@@ -1025,11 +1123,31 @@ extern "C" int panel_edge_backward(
   edge_nodes_bwd<<<blocks((long long)n * 32), 256, 0, st>>>(
       s.GPRE, H, s.GREL, s.L.lidx, indptr, sperm, sptr, n, s.G, s.S, gx);
   TRY(cudaGetLastError());
-  TRY((gemm<false, true>(mm(s.G, H, w1r, H, gh, D, n, D, H), n, st)));
-  TRY((gemm<false, true>(mm(s.S, H, w1s, H, gh, D, n, D, H, nullptr, 1), n,
-                         st)));
-  TRY(weight_grad(h, D, s.G, H, gw1r, D, H, n, nullptr, s.wpart, st));
-  TRY(weight_grad(h, D, s.S, H, gw1s, D, H, n, nullptr, s.wpart, st));
+  const float* hw = h;
+  if (bf) {
+    // gh: the per-edge products bf16(g_pre1 W1r^T), bf16(g_pre1 W1s^T)
+    // over the live edges, summed per receiver row and per sender
+    if (e > 0) {
+      Gemm gr = mm(s.GPRE, H, w1r, H, s.GHR, D, e, D, H, nullptr, 0, nl);
+      Gemm gs = mm(s.GPRE, H, w1s, H, s.GHS, D, e, D, H, nullptr, 0, nl);
+      gr.rnd_out = gs.rnd_out = 1;
+      TRY((gemm<false, true>(gr, e, st, bf)));
+      TRY((gemm<false, true>(gs, e, st, bf)));
+    }
+    edge_nodes_gh<<<blocks((long long)n * 32), 256, 0, st>>>(
+        s.GHR, s.GHS, D, s.L.lidx, indptr, sperm, sptr, n, gh);
+    TRY(cudaGetLastError());
+    round_bf16<<<blocks((long long)n * D), 256, 0, st>>>(s.HB, h,
+                                                         (long long)n * D);
+    TRY(cudaGetLastError());
+    hw = s.HB;  // h rounded; G and S enter in f32 (3xTF32)
+  } else {
+    TRY((gemm<false, true>(mm(s.G, H, w1r, H, gh, D, n, D, H), n, st, 0)));
+    TRY((gemm<false, true>(mm(s.S, H, w1s, H, gh, D, n, D, H, nullptr, 1),
+                           n, st, 0)));
+  }
+  TRY(weight_grad(hw, D, s.G, H, gw1r, D, H, n, nullptr, s.wpart, st, 0));
+  TRY(weight_grad(hw, D, s.S, H, gw1s, D, H, n, nullptr, s.wpart, st, 0));
   return (int)cudaGetLastError();
 }
 
@@ -1040,7 +1158,7 @@ extern "C" int panel_virtual_forward(
     const float* b2, const float* wg1, const float* bg1, const float* wg2,
     const float* wz1, const float* bz1, const float* wz2, float* dx,
     float* mh, float* dz, float* ms, float* scratch, int n, int n_chan,
-    int D, int H, void* stream_ptr) {
+    int D, int H, int bf, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   if (!panel_widths(D, H, H) || n_chan <= 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
@@ -1049,22 +1167,22 @@ extern "C" int panel_virtual_forward(
   const size_t HH = (size_t)H * H, DH = (size_t)D * H;
   for (int c = 0; c < n_chan; ++c) {
     TRY((gemm<false, false, true>(
-        mm(h, D, w1h + c * DH, H, s.PRE, H, n, H, D), n, st)));
+        mm(h, D, w1h + c * DH, H, s.PRE, H, n, H, D), n, st, bf)));
     virt_pre<<<blocks((long long)n * H), 256, 0, st>>>(
         x, z, c, n, s.PRE, H, w1d + (size_t)c * H, c1 + (size_t)c * H, s.T1,
-        nullptr, s.RL4);
+        nullptr, s.RL4, bf);
     TRY(cudaGetLastError());
     TRY((gemm<false, false, true>(
         mm(s.T1, H, w2 + c * HH, H, s.MSG, H, n, H, H, b2 + (size_t)c * H),
-        n, st)));
+        n, st, bf)));
     TRY((gemm<false, false, true>(mm(s.MSG, H, wg1 + c * HH, H, s.GX, H, n,
-                                     H, H), n, st)));
+                                     H, H), n, st, bf)));
     TRY((gemm<false, false, true>(mm(s.MSG, H, wz1 + c * HH, H, s.GZ, H, n,
-                                     H, H), n, st)));
+                                     H, H), n, st, bf)));
     virt_gates_fwd<<<blocks((long long)n * 32), 256, 0, st>>>(
         s.GX, s.GZ, s.MSG, H, bg1 + (size_t)c * H, wg2 + (size_t)c * H,
         bz1 + (size_t)c * H, wz2 + (size_t)c * H, s.RL4, mask, n, c == 0,
-        s.DX, s.DZT, s.MHA, s.WMS);
+        s.DX, s.DZT, s.MHA, s.WMS, bf);
     TRY(cudaGetLastError());
     TRY(colsum(s.WMS, H, H, nullptr, 0, n, nullptr, s.part,
                ms + (size_t)c * H, st));
@@ -1085,7 +1203,7 @@ extern "C" int panel_virtual_backward(
     float* gh, float* gz, float* gw1h, float* gw1d, float* gc1, float* gw2,
     float* gb2, float* gwg1, float* gbg1, float* gwg2, float* gwz1,
     float* gbz1, float* gwz2, float* scratch, int n, int n_chan, int D,
-    int H, void* stream_ptr) {
+    int H, int bf, void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   if (!panel_widths(D, H, H) || n_chan <= 0) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
@@ -1096,19 +1214,19 @@ extern "C" int panel_virtual_backward(
   for (int c = 0; c < n_chan; ++c) {
     const size_t v = (size_t)c * H;
     TRY((gemm<false, false>(mm(h, D, w1h + c * DH, H, s.PRE, H, n, H, D), n,
-                            st)));
+                            st, bf)));
     virt_pre<<<blocks((long long)n * H), 256, 0, st>>>(
-        x, z, c, n, s.PRE, H, w1d + v, c1 + v, s.T1, s.SP, s.RL4);
+        x, z, c, n, s.PRE, H, w1d + v, c1 + v, s.T1, s.SP, s.RL4, bf);
     TRY(cudaGetLastError());
     TRY((gemm<false, false>(
-        mm(s.T1, H, w2 + c * HH, H, s.MSG, H, n, H, H, b2 + v), n, st)));
+        mm(s.T1, H, w2 + c * HH, H, s.MSG, H, n, H, H, b2 + v), n, st, bf)));
     TRY((gemm<false, false>(mm(s.MSG, H, wg1 + c * HH, H, s.PX, H, n, H, H),
-                            n, st)));
+                            n, st, bf)));
     TRY((gemm<false, false>(mm(s.MSG, H, wz1 + c * HH, H, s.PZ, H, n, H, H),
-                            n, st)));
+                            n, st, bf)));
     virt_gates_bwd<<<blocks((long long)n * 32), 256, 0, st>>>(
         s.PX, s.PZ, s.SXG, s.SZG, H, bg1 + v, wg2 + v, bz1 + v, wz2 + v,
-        s.RL4, mask, gdx, gdz, c, n, inv_c, s.GXZ);
+        s.RL4, mask, gdx, gdz, c, n, inv_c, s.GXZ, bf);
     TRY(cudaGetLastError());
     TRY(colsum(s.PX, H, H, nullptr, 0, n, nullptr, s.part, gbg1 + v, st));
     TRY(colsum(s.PZ, H, H, nullptr, 0, n, nullptr, s.part, gbz1 + v, st));
@@ -1116,25 +1234,26 @@ extern "C" int panel_virtual_backward(
     TRY(colsum(s.SZG, H, H, nullptr, 0, n, nullptr, s.part, gwz2 + v, st));
     // g_msg = q_x.Wg1^T + q_z.Wz1^T + g_mh / C + m g_ms
     TRY((gemm<false, true>(mm(s.PX, H, wg1 + c * HH, H, s.GM, H, n, H, H),
-                           n, st)));
+                           n, st, bf)));
     TRY((gemm<false, true>(
-        mm(s.PZ, H, wz1 + c * HH, H, s.GM, H, n, H, H, nullptr, 1), n, st)));
+        mm(s.PZ, H, wz1 + c * HH, H, s.GM, H, n, H, H, nullptr, 1), n, st,
+        bf)));
     virt_gmsg<<<blocks((long long)n * H), 256, 0, st>>>(s.GM, H, gmh, gms,
                                                         mask, c, n, inv_c);
     TRY(cudaGetLastError());
     TRY(colsum(s.GM, H, H, nullptr, 0, n, nullptr, s.part, gb2 + v, st));
     TRY(weight_grad(s.MSG, H, s.PX, H, gwg1 + c * HH, H, H, n, nullptr,
-                    s.wpart, st));
+                    s.wpart, st, bf));
     TRY(weight_grad(s.MSG, H, s.PZ, H, gwz1 + c * HH, H, H, n, nullptr,
-                    s.wpart, st));
+                    s.wpart, st, bf));
     TRY(weight_grad(s.T1, H, s.GM, H, gw2 + c * HH, H, H, n, nullptr,
-                    s.wpart, st));
+                    s.wpart, st, bf));
     // g_pre = (g_msg.W2^T) silu'(pre), into PRE; g_rel, gx
     TRY((gemm<false, true>(mm(s.GM, H, w2 + c * HH, H, s.PRE, H, n, H, H),
-                           n, st)));
+                           n, st, bf)));
     virt_gpre<<<blocks((long long)n * 32), 256, 0, st>>>(
         s.PRE, s.SP, H, w1d + v, s.RL4, s.GXZ, mask, gdx, gdz, c, n, inv_c,
-        c == 0, gx, s.GRM);
+        c == 0, gx, s.GRM, bf);
     TRY(cudaGetLastError());
     TRY(colsum(s.PRE, H, H, nullptr, 0, n, nullptr, s.part, gc1 + v, st));
     TRY(colsum(s.PRE, H, H, s.RL4 + 3, 4, n, nullptr, s.part, gw1d + v, st));
@@ -1143,9 +1262,9 @@ extern "C" int panel_virtual_backward(
     // gh += g_pre.W1h^T (channels in order); W1h = h^T g_pre
     TRY((gemm<false, true>(
         mm(s.PRE, H, w1h + c * DH, H, gh, D, n, D, H, nullptr, c > 0), n,
-        st)));
+        st, bf)));
     TRY(weight_grad(h, D, s.PRE, H, gw1h + c * DH, D, H, n, nullptr,
-                    s.wpart, st));
+                    s.wpart, st, bf));
   }
   return (int)cudaGetLastError();
 }

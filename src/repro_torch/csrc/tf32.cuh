@@ -1,8 +1,10 @@
 // The 3xTF32 building blocks shared by the FastEGNN kernels (through
 // common.cuh) and the f32 attention kernel (swa_attention.cu): the operand
-// split and one tensor-core MMA.  Header only, inside an anonymous
+// split and one tensor-core MMA; and the bf16 operand rounding of the
+// FastEGNN kernels' bf16 mode.  Header only, inside an anonymous
 // namespace, so each including file gets its own copy.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,6 +21,20 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
                                            uint32_t& lo) {
   hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// a rounded to the nearest bfloat16 value, ties to even, held in f32 (its
+// 16 low bits zero): the cast of the reference's bf16 mode.  cvt.rn.bf16
+// keeps NaN a NaN and infinities infinite; a bf16 value is a TF32 value,
+// and the product of two is exact in f32.
+__device__ __forceinline__ float bf16_round(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
+
+// bf16_round in the bf16 mode (BF), the identity in f32
+template <bool BF>
+__device__ __forceinline__ float rnd(float a) {
+  return BF ? bf16_round(a) : a;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],

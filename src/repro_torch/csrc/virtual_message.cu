@@ -1,5 +1,5 @@
 // Virtual-node pathway forward (Eq. 5 + the virtual terms of Eqs. 6-8) for
-// Hopper (sm_90a), f32.
+// Hopper (sm_90a), f32 and bf16 modes.
 //
 // Replaces the Pallas TPU kernel `virtual_pathway_fused` (`_kernel`) of the
 // JAX package's kernels/virtual_message.py.  For node i and channel c:
@@ -25,6 +25,14 @@
 //      cp.async while channel c computes (two slots, ping-pong).
 //   2. virtual_block_sums  adds the partial rows in CTA order, a warp a
 //      column.
+// The bf16 mode (template BF; `precision='bf16'` of the Pallas kernel):
+// x, z, h, the stacks, const1, b2, bg1 and bz1 rounded to bf16 (the
+// vectors in shared memory when their channel arrives, h and the weight
+// tiles inside `tile_mma`, which runs one TF32 MMA on bf16 operands);
+// rel = x - z_c, d2 = sum rel^2 and d2 w1d are bfloat16 arithmetic (each
+// op rounded; d2's three terms added in f32, as jnp.sum upcasts bf16);
+// t1, msg and the gates' SiLU enter their products rounded; mh, ms_sum,
+// dz_sum and dx are f32 sums of unrounded terms (virtual_message.py:73-86).
 // Shared memory: 8 weight tiles, the h, t1 and msg tiles, ~189 KB at
 // Dh = hid = 64 (~65 KB at 32): one CTA an SM.  At N = 8,192 that is 128
 // CTAs for 132 SMs, a single short wave.  Widths: compiled for Dh = hid =
@@ -52,7 +60,7 @@ template <int W>
 constexpr int SMEM_FLOATS = 2 * W_N * WT<W> + 2 * NVEC * W + 3 * RT<W> +
                             R_N * TR + 4 * TR + 4 * TR;
 
-template <int W>
+template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS, 1)
 virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ z, const float* __restrict__ mask,
@@ -96,9 +104,9 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   if (tid < TR) {
     const int i = node0 + tid;
     const bool ok = i < n_nodes;
-    R(R_X0)[tid] = ok ? x[3 * i] : 0.0f;
-    R(R_X1)[tid] = ok ? x[3 * i + 1] : 0.0f;
-    R(R_X2)[tid] = ok ? x[3 * i + 2] : 0.0f;
+    R(R_X0)[tid] = ok ? rnd<BF>(x[3 * i]) : 0.0f;
+    R(R_X1)[tid] = ok ? rnd<BF>(x[3 * i + 1]) : 0.0f;
+    R(R_X2)[tid] = ok ? rnd<BF>(x[3 * i + 2]) : 0.0f;
     R(R_M)[tid] = ok ? mask[i] : 0.0f;
     R(R_DX0)[tid] = R(R_DX1)[tid] = R(R_DX2)[tid] = 0.0f;
   }
@@ -107,32 +115,38 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
 
   for (int c = 0; c < n_chan; ++c) {
     const int slot = c & 1;
-    const float* vec = sVec + slot * NVEC * W;
+    float* vec = sVec + slot * NVEC * W;
     async_wait_all();
     __syncthreads();  // channel c's weights are in; channel c - 1 is done
     if (c + 1 < n_chan) load_channel(slot ^ 1, c + 1);
+    // bf16: the vectors rounded once (first read after the next sync)
+    if (BF) smem_round_bf16(vec, NVEC * W);
     float* out = part + ((size_t)blockIdx.x * n_chan + c) * OUTW<W>;
     if (tid < TR) {
-      const float rl0 = R(R_X0)[tid] - z[3 * c];
-      const float rl1 = R(R_X1)[tid] - z[3 * c + 1];
-      const float rl2 = R(R_X2)[tid] - z[3 * c + 2];
+      const float rl0 = rnd<BF>(R(R_X0)[tid] - rnd<BF>(z[3 * c]));
+      const float rl1 = rnd<BF>(R(R_X1)[tid] - rnd<BF>(z[3 * c + 1]));
+      const float rl2 = rnd<BF>(R(R_X2)[tid] - rnd<BF>(z[3 * c + 2]));
       R(R_RL0)[tid] = rl0;
       R(R_RL1)[tid] = rl1;
       R(R_RL2)[tid] = rl2;
-      R(R_D2)[tid] = rl0 * rl0 + rl1 * rl1 + rl2 * rl2;
+      R(R_D2)[tid] = BF ? bf16_round((bf16_round(rl0 * rl0) +
+                                      bf16_round(rl1 * rl1)) +
+                                     bf16_round(rl2 * rl2))
+                        : rl0 * rl0 + rl1 * rl1 + rl2 * rl2;
     }
     __syncthreads();
     {  // t1 = SiLU(h.W1h + d2 w1d + const1)
       Frag<W> p;
       frag_zero<W>(p);
-      tile_mma<W, false, false, true>(p, tH, Wt(slot, W_1H), L);
+      tile_mma<W, false, false, true, BF>(p, tH, Wt(slot, W_1H), L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int j = L.col<W>(jn, e);
+          // bf16: d2 w1d is a bf16 product (rounded)
           const float u =
-              (p[jn][e] + R(R_D2)[L.row(e)] * vec[V_W1D * W + j]) +
+              (p[jn][e] + rnd<BF>(R(R_D2)[L.row(e)] * vec[V_W1D * W + j])) +
               vec[V_C1 * W + j];
           p[jn][e] = u * sigm(u);
         }
@@ -142,7 +156,7 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     {  // msg = t1.W2 + b2; mh += msg; the masked column sums of msg
       Frag<W> m, w;
       frag_zero<W>(m);
-      tile_mma<W, false, false, true>(m, tT1, Wt(slot, W_2), L);
+      tile_mma<W, false, false, true, BF>(m, tT1, Wt(slot, W_2), L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -160,8 +174,8 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
       Frag<W> gx, gz;
       frag_zero<W>(gx);
       frag_zero<W>(gz);
-      tile_mma<W, false, false, true>(gx, tMSG, Wt(slot, W_G1), L);
-      tile_mma<W, false, false, true>(gz, tMSG, Wt(slot, W_Z1), L);
+      tile_mma<W, false, false, true, BF>(gx, tMSG, Wt(slot, W_G1), L);
+      tile_mma<W, false, false, true, BF>(gz, tMSG, Wt(slot, W_Z1), L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -171,8 +185,8 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
           const float v = gz[jn][e] + vec[V_BZ1 * W + j];
           // rounded on their own: a row's gate does not depend on its
           // tile row (no FMA fused into the row sum per fragment slot)
-          gx[jn][e] = __fmul_rn(u * sigm(u), vec[V_WG2 * W + j]);
-          gz[jn][e] = __fmul_rn(v * sigm(v), vec[V_WZ2 * W + j]);
+          gx[jn][e] = __fmul_rn(rnd<BF>(u * sigm(u)), vec[V_WG2 * W + j]);
+          gz[jn][e] = __fmul_rn(rnd<BF>(v * sigm(v)), vec[V_WZ2 * W + j]);
         }
       frag_rowsum<W>(gx, L, rowred);
       frag_rowsum<W>(gz, L, rowred + 2 * TR);
@@ -256,7 +270,7 @@ __global__ void virtual_block_sums(const float* __restrict__ part,
   }
 }
 
-template <int W>
+template <int W, bool BF>
 int launch_forward(const float* x, const float* h, const float* z,
                    const float* mask, const float* w1h, const float* w1d,
                    const float* c1, const float* w2, const float* b2,
@@ -266,12 +280,12 @@ int launch_forward(const float* x, const float* h, const float* z,
                    cudaStream_t stream) {
   const size_t smem = SMEM_FLOATS<W> * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      virtual_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      virtual_fwd_kernel<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_blocks = n_tiles(n_nodes);
   if (n_blocks > 0) {
-    virtual_fwd_kernel<W><<<n_blocks, THREADS, smem, stream>>>(
+    virtual_fwd_kernel<W, BF><<<n_blocks, THREADS, smem, stream>>>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2, dx,
         mh, part, n_nodes, n_chan);
   }
@@ -280,7 +294,8 @@ int launch_forward(const float* x, const float* h, const float* z,
 
 }  // namespace
 
-// width: the compiled width (32 or 64) that Dh and hid were padded to
+// width: the compiled width (32 or 64) that Dh and hid were padded to;
+// bf16 != 0: the bf16 mode
 extern "C" int virtual_forward(const float* x, const float* h, const float* z,
                                const float* mask, const float* w1h,
                                const float* w1d, const float* c1,
@@ -289,12 +304,13 @@ extern "C" int virtual_forward(const float* x, const float* h, const float* z,
                                const float* wg2, const float* wz1,
                                const float* bz1, const float* wz2, float* dx,
                                float* mh, float* part, int n_nodes,
-                               int n_chan, int width, void* stream) {
+                               int n_chan, int width, int bf16,
+                               void* stream) {
   if (!(aligned16(h) && aligned16(w1h) && aligned16(w2) && aligned16(wg1) &&
         aligned16(wz1) && aligned16(mh)))
     return (int)cudaErrorMisalignedAddress;
-  return with_width(width, [&](auto w) {
-    return launch_forward<decltype(w)::value>(
+  return with_width(width, bf16, [&](auto w, auto bf) {
+    return launch_forward<decltype(w)::value, decltype(bf)::value>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2, dx,
         mh, part, n_nodes, n_chan, (cudaStream_t)stream);
   });

@@ -1,4 +1,4 @@
-// Virtual-node pathway backward for Hopper (sm_90a), f32.
+// Virtual-node pathway backward for Hopper (sm_90a), f32 and bf16 modes.
 //
 // Replaces the Pallas TPU kernel `virtual_pathway_bwd_fused` (`_bwd_kernel`)
 // of the JAX package's kernels/virtual_message.py.  From the forward's
@@ -25,6 +25,12 @@
 //      the chip.
 //   2. virtual_bwd_reduce  adds the CTAs' partials in CTA order: every
 //      weight gradient and dz.
+// The bf16 mode (template BF; `precision='bf16'` of `_bwd_kernel`): the
+// forward's rounding points in the recompute (virtual_message.cu); every
+// product's operands rounded (tile_mma), so g_gx, g_gz, g_gpx, g_gpz,
+// g_msg and g_pre1 enter their products rounded, while the column sums
+// (b2, bg1, bz1, const1, w1d), g_d2 and g_rel take unrounded terms
+// (virtual_message.py:155-230); the cotangents stay f32.
 // Weights stream in with 16-byte cp.async as soon as the previous channel
 // is done with their slot: W1h (needed first) ping-pongs between two
 // slots, Wg1 / Wz1 / W2 of channel c + 1 load while channel c finishes.
@@ -66,7 +72,7 @@ template <int W>
 constexpr int SMEM_FLOATS = 5 * WT<W> + 2 * NVEC * W + 6 * RT<W> +
                             R_N * TR + 2 * 2 * TR + 4 * 4 * TR;
 
-template <int W>
+template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS, 1)
 virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ z, const float* __restrict__ mask,
@@ -119,9 +125,9 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   if (tid < TR) {
     const int i = node0 + tid;
     const bool ok = i < n_nodes;
-    R(R_X0)[tid] = ok ? x[3 * i] : 0.0f;
-    R(R_X1)[tid] = ok ? x[3 * i + 1] : 0.0f;
-    R(R_X2)[tid] = ok ? x[3 * i + 2] : 0.0f;
+    R(R_X0)[tid] = ok ? rnd<BF>(x[3 * i]) : 0.0f;
+    R(R_X1)[tid] = ok ? rnd<BF>(x[3 * i + 1]) : 0.0f;
+    R(R_X2)[tid] = ok ? rnd<BF>(x[3 * i + 2]) : 0.0f;
     R(R_M)[tid] = ok ? mask[i] : 0.0f;
     R(R_UX0)[tid] = ok ? gdx[3 * i] * inv_c : 0.0f;
     R(R_UX1)[tid] = ok ? gdx[3 * i + 1] * inv_c : 0.0f;
@@ -134,7 +140,7 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   for (int c = 0; c < n_chan; ++c) {
     const int buf = c & 1;
     const float* W1h = sW1h[buf];
-    const float* vec = sVec[buf];
+    float* vec = sVec[buf];
     async_wait_all();
     __syncthreads();  // channel c's weights are in; channel c - 1 is done
     if (c + 1 < n_chan) {
@@ -142,16 +148,21 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
       load_vecs(sVec[buf ^ 1], c + 1);
       async_commit();
     }
+    // bf16: the vectors rounded once (first read after the next sync)
+    if (BF) smem_round_bf16(vec, NVEC * W);
     float* P = part + ((size_t)blockIdx.x * n_chan + c) * VP::size;
     if (tid < TR) {
-      const float rl0 = R(R_X0)[tid] - z[3 * c];
-      const float rl1 = R(R_X1)[tid] - z[3 * c + 1];
-      const float rl2 = R(R_X2)[tid] - z[3 * c + 2];
+      const float rl0 = rnd<BF>(R(R_X0)[tid] - rnd<BF>(z[3 * c]));
+      const float rl1 = rnd<BF>(R(R_X1)[tid] - rnd<BF>(z[3 * c + 1]));
+      const float rl2 = rnd<BF>(R(R_X2)[tid] - rnd<BF>(z[3 * c + 2]));
       const float m = R(R_M)[tid];
       R(R_RL0)[tid] = rl0;
       R(R_RL1)[tid] = rl1;
       R(R_RL2)[tid] = rl2;
-      R(R_D2)[tid] = rl0 * rl0 + rl1 * rl1 + rl2 * rl2;
+      R(R_D2)[tid] = BF ? bf16_round((bf16_round(rl0 * rl0) +
+                                      bf16_round(rl1 * rl1)) +
+                                     bf16_round(rl2 * rl2))
+                        : rl0 * rl0 + rl1 * rl1 + rl2 * rl2;
       R(R_GGX)[tid] = R(R_UX0)[tid] * rl0 + R(R_UX1)[tid] * rl1 +
                       R(R_UX2)[tid] * rl2;
       R(R_GGZ)[tid] = (-m * gdz[3 * c]) * rl0 + (-m * gdz[3 * c + 1]) * rl1 +
@@ -161,14 +172,15 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     // ---- recompute: pre = h.W1h + d2 w1d + c1, t1 = silu(pre) ----------
     Frag<W> pre;  // then silu'(pre)
     frag_zero<W>(pre);
-    tile_mma<W, false, false>(pre, tH, W1h, L);
+    tile_mma<W, false, false, false, BF>(pre, tH, W1h, L);
 #pragma unroll
     for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = L.row(e), j = L.col<W>(jn, e);
-        pre[jn][e] = (pre[jn][e] + R(R_D2)[r] * vec[V_W1D * W + j]) +
-                     vec[V_C1 * W + j];
+        pre[jn][e] =
+            (pre[jn][e] + rnd<BF>(R(R_D2)[r] * vec[V_W1D * W + j])) +
+            vec[V_C1 * W + j];
       }
     {
       Frag<W> t1;
@@ -183,7 +195,7 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     {
       Frag<W> m;
       frag_zero<W>(m);
-      tile_mma<W, false, false>(m, tT1, sW2, L);
+      tile_mma<W, false, false, false, BF>(m, tT1, sW2, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -196,8 +208,8 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
       Frag<W> px, pz;
       frag_zero<W>(px);
       frag_zero<W>(pz);
-      tile_mma<W, false, false>(px, tMSG, sWg1, L);
-      tile_mma<W, false, false>(pz, tMSG, sWz1, L);
+      tile_mma<W, false, false, false, BF>(px, tMSG, sWg1, L);
+      tile_mma<W, false, false, false, BF>(pz, tMSG, sWz1, L);
       Frag<W> sx, sz;  // silu(px), silu(pz); px, pz become their derivatives
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
@@ -213,8 +225,8 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int j = L.col<W>(jn, e);
-          wx[jn][e] = sx[jn][e] * vec[V_WG2 * W + j];
-          wz[jn][e] = sz[jn][e] * vec[V_WZ2 * W + j];
+          wx[jn][e] = rnd<BF>(sx[jn][e]) * vec[V_WG2 * W + j];
+          wz[jn][e] = rnd<BF>(sz[jn][e]) * vec[V_WZ2 * W + j];
         }
       frag_rowsum<W>(wx, L, rowred);
       frag_rowsum<W>(wz, L, rowred + 2 * TR);
@@ -224,11 +236,12 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = L.row(e), j = L.col<W>(jn, e);
-          const float ggx = R(R_GGX)[r], ggz = R(R_GGZ)[r];
+          // bf16: g_gx, g_gz and silu enter their products rounded
+          const float ggx = rnd<BF>(R(R_GGX)[r]), ggz = rnd<BF>(R(R_GGZ)[r]);
           qx[jn][e] = (ggx * vec[V_WG2 * W + j]) * px[jn][e];
           qz[jn][e] = (ggz * vec[V_WZ2 * W + j]) * pz[jn][e];
-          sx[jn][e] *= ggx;
-          sz[jn][e] *= ggz;
+          sx[jn][e] = rnd<BF>(sx[jn][e]) * ggx;
+          sz[jn][e] = rnd<BF>(sz[jn][e]) * ggz;
         }
       frag_store<W>(tGX, qx, L);
       frag_store<W>(tGZ, qz, L);
@@ -252,8 +265,8 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     {
       Frag<W> gm;
       frag_zero<W>(gm);
-      tile_mma<W, false, true>(gm, tGX, sWg1, L);
-      tile_mma<W, false, true>(gm, tGZ, sWz1, L);
+      tile_mma<W, false, true, false, BF>(gm, tGX, sWg1, L);
+      tile_mma<W, false, true, false, BF>(gm, tGZ, sWz1, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -277,19 +290,19 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     {
       Frag<W> a;
       frag_zero<W>(a);
-      tile_mma<W, true, false>(a, tMSG, tGX, L);
+      tile_mma<W, true, false, false, BF>(a, tMSG, tGX, L);
       frag_store_global<W>(P + VP::WG1, a, L);
       frag_zero<W>(a);
-      tile_mma<W, true, false>(a, tMSG, tGZ, L);
+      tile_mma<W, true, false, false, BF>(a, tMSG, tGZ, L);
       frag_store_global<W>(P + VP::WZ1, a, L);
       frag_zero<W>(a);
-      tile_mma<W, true, false>(a, tT1, tGM, L);
+      tile_mma<W, true, false, false, BF>(a, tT1, tGM, L);
       frag_store_global<W>(P + VP::W2, a, L);
     }
     // ---- g_pre1 = (g_msg.W2^T) silu'(pre) ----------------------------------
     Frag<W> gp;
     frag_zero<W>(gp);
-    tile_mma<W, false, true>(gp, tGM, sW2, L);
+    tile_mma<W, false, true, false, BF>(gp, tGM, sW2, L);
     __syncthreads();  // msg / g_gpx / g_gpz / Wg1 / Wz1 / colred are free
     if (c + 1 < n_chan) {
       tile_load_async<W>(sWg1, wg1 + (c + 1) * WW);
@@ -336,11 +349,11 @@ virtual_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
       }
     }
     // ---- dh += g_pre1.W1h^T; the W1h partial h^T g_pre1 ----------------
-    tile_mma<W, false, true>(dh, tGX, W1h, L);
+    tile_mma<W, false, true, false, BF>(dh, tGX, W1h, L);
     {
       Frag<W> a;
       frag_zero<W>(a);
-      tile_mma<W, true, false>(a, tH, tGX, L);
+      tile_mma<W, true, false, false, BF>(a, tH, tGX, L);
       frag_store_global<W>(P + VP::W1H, a, L);
     }
     __syncthreads();
@@ -399,7 +412,7 @@ __global__ void virtual_bwd_reduce(const float* __restrict__ part, Outs o,
   else o.gz[3 * c + k - VP::DZ] = s;
 }
 
-template <int W>
+template <int W, bool BF>
 int launch_backward(const float* x, const float* h, const float* z,
                     const float* mask, const float* w1h, const float* w1d,
                     const float* c1, const float* w2, const float* b2,
@@ -411,12 +424,12 @@ int launch_backward(const float* x, const float* h, const float* z,
                     cudaStream_t stream) {
   const size_t smem = SMEM_FLOATS<W> * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      virtual_bwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      virtual_bwd_kernel<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_blocks = n_tiles(n_nodes);
   if (n_blocks > 0) {
-    virtual_bwd_kernel<W><<<n_blocks, THREADS, smem, stream>>>(
+    virtual_bwd_kernel<W, BF><<<n_blocks, THREADS, smem, stream>>>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2,
         gdx, gmh, gdz, gms, gx, gh, scratch, n_nodes, n_chan);
     err = cudaGetLastError();
@@ -438,7 +451,8 @@ extern "C" long long virtual_bwd_scratch_floats(int n_nodes, int n_chan,
   return -1;
 }
 
-// width: the compiled width (32 or 64) that Dh and hid were padded to
+// width: the compiled width (32 or 64) that Dh and hid were padded to;
+// bf16 != 0: the bf16 mode
 extern "C" int virtual_backward(
     const float* x, const float* h, const float* z, const float* mask,
     const float* w1h, const float* w1d, const float* c1, const float* w2,
@@ -448,15 +462,15 @@ extern "C" int virtual_backward(
     float* gh, float* gz, float* gw1h, float* gw1d, float* gc1, float* gw2,
     float* gb2, float* gwg1, float* gbg1, float* gwg2, float* gwz1,
     float* gbz1, float* gwz2, float* scratch, int n_nodes, int n_chan,
-    int width, void* stream_ptr) {
+    int width, int bf16, void* stream_ptr) {
   if (!(aligned16(h) && aligned16(w1h) && aligned16(w2) && aligned16(wg1) &&
         aligned16(wz1) && aligned16(gmh) && aligned16(gh) &&
         aligned16(scratch)))
     return (int)cudaErrorMisalignedAddress;
   const Outs o{gz, gw1h, gw1d, gc1, gw2, gb2, gwg1, gbg1, gwg2, gwz1, gbz1,
                gwz2};
-  return with_width(width, [&](auto w) {
-    return launch_backward<decltype(w)::value>(
+  return with_width(width, bf16, [&](auto w, auto bf) {
+    return launch_backward<decltype(w)::value, decltype(bf)::value>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2,
         gdx, gmh, gdz, gms, gx, gh, o, scratch, n_nodes, n_chan,
         (cudaStream_t)stream_ptr);

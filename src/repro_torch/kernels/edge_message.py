@@ -28,6 +28,15 @@ the outputs sliced back; above 64 the panel path of ``csrc/panel.cu``
 runs.  :func:`kernel_route` names the route for a set of widths and
 ``route_launches`` counts calls per route.
 
+Precision: every wrapper takes the reference kernels' ``precision``
+('f32' or 'bf16', ``runtime.resolve_precision``) and passes it to the C
+entry points as one more int; in bf16 the kernels round every product's
+operands to bfloat16 where the Pallas kernels cast them and sum in f32
+(inputs and outputs stay f32), and the plain versions follow the same
+casts (``kernels.ref.edge_pathway_ref_bf16``,
+``edge_pathway_bwd_ref_bf16``).  ``precision_launches`` counts every
+call (any route, forward or backward) per precision.
+
 Gate ``'identity'`` (RF: Dh = 1, SchNet's coordinate head: Dh = hidden;
 M = 1 for both) is its own pair of CUDA paths, ``csrc/edge_identity.cu``
 (the Pallas kernels' identity branch), for H1 up to
@@ -47,8 +56,10 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import build, panel
-from repro_torch.kernels.ref import edge_pathway_ref
-from repro_torch.kernels.runtime import align16, pad_to, require_f32, unpad
+from repro_torch.kernels.ref import (edge_pathway_bwd_ref_bf16,
+                                     edge_pathway_ref, edge_pathway_ref_bf16)
+from repro_torch.kernels.runtime import (BF16, align16, pad_to,
+                                         resolve_precision, unpad)
 
 Tensor = torch.Tensor
 
@@ -71,6 +82,10 @@ IDENTITY_MAX_H1 = 768
 #: the backward of gate 'mlp' / 'none' each add one to the route they took
 #: ("w32", "w64", "panel")
 route_launches: Counter = Counter()
+#: calls of every CUDA path of this module (forward and backward, tile,
+#: panel and identity kernels) per precision ("f32", "bf16") since the last
+#: :func:`reset_launches`
+precision_launches: Counter = Counter()
 #: CTAs of the forward's edge pass; None: two an SM.  Each owns the
 #: receiver rows whose CSR segment starts in its equal share of the live
 #: slot range, so the outputs do not depend on this number
@@ -89,6 +104,12 @@ def reset_launches() -> None:
     global launches, bwd_launches, identity_launches, identity_bwd_launches
     launches = bwd_launches = identity_launches = identity_bwd_launches = 0
     route_launches.clear()
+    precision_launches.clear()
+
+
+def prec_name(bf16: bool) -> str:
+    """The key of ``precision_launches`` for a call in bf16 or f32."""
+    return "bf16" if bf16 else "f32"
 
 
 def kernel_route(*widths: int) -> str:
@@ -118,36 +139,37 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.edge_fwd_scratch_floats.restype = ctypes.c_longlong
     lib.edge_forward.argtypes = ([ctypes.c_void_p] * 18
                                  + [ctypes.c_int] * 4
-                                 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_void_p])
+                                 + [ctypes.c_float] + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p])
     lib.edge_forward.restype = ctypes.c_int
     lib.edge_fwd_blocks_per_sm.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.edge_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.edge_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.edge_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.edge_backward.argtypes = ([ctypes.c_void_p] * 31
                                   + [ctypes.c_int] * 4
-                                  + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p])
+                                  + [ctypes.c_float] + [ctypes.c_int] * 3
+                                  + [ctypes.c_void_p])
     lib.edge_backward.restype = ctypes.c_int
 
 
 def _bind_identity(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.idn_scratch_floats.argtypes = [ctypes.c_int] * 5
+    lib.idn_scratch_floats.argtypes = [ctypes.c_int] * 6
     lib.idn_scratch_floats.restype = ctypes.c_longlong
     lib.edge_identity_forward.argtypes = ([ctypes.c_void_p] * 15
                                           + [ctypes.c_int] * 5
-                                          + [ctypes.c_float, ctypes.c_int,
-                                             ctypes.c_void_p])
+                                          + [ctypes.c_float] + [ctypes.c_int] * 2
+                                          + [ctypes.c_void_p])
     lib.edge_identity_forward.restype = ctypes.c_int
     lib.edge_identity_backward.argtypes = ([ctypes.c_void_p] * 25
                                            + [ctypes.c_int] * 5
-                                           + [ctypes.c_float, ctypes.c_int,
-                                              ctypes.c_void_p])
+                                           + [ctypes.c_float]
+                                           + [ctypes.c_int] * 2
+                                           + [ctypes.c_void_p])
     lib.edge_identity_backward.restype = ctypes.c_int
 
 
@@ -161,14 +183,17 @@ def csr_receivers(indptr: Tensor) -> Tensor:
 
 def edge_pathway_plain(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2, wg1,
                        bg1, wg2, *, gate_mode="mlp", rel_mode="raw",
-                       clamp=math.inf):
+                       clamp=math.inf, precision=None):
     """The kernel's function in plain PyTorch: the CSR rows of ``indptr``
-    name each slot's receiver, slots past ``indptr[-1]`` are not read."""
+    name each slot's receiver, slots past ``indptr[-1]`` are not read.
+    ``precision`` 'bf16' rounds where the bf16 kernel does
+    (``kernels.ref.edge_pathway_ref_bf16``)."""
     e = int(indptr[-1])
-    return edge_pathway_ref(x, h, snd[:e], csr_receivers(indptr), em[:e],
-                            w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2,
-                            gate_mode=gate_mode, rel_mode=rel_mode,
-                            clamp=clamp)
+    ref = (edge_pathway_ref_bf16 if resolve_precision(precision) == BF16
+           else edge_pathway_ref)
+    return ref(x, h, snd[:e], csr_receivers(indptr), em[:e], w1r, w1s, w1d,
+               b1, w2, b2, wg1, bg1, wg2, gate_mode=gate_mode,
+               rel_mode=rel_mode, clamp=clamp)
 
 
 def _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode, extra=()):
@@ -246,7 +271,8 @@ def _pad_weights(ws, gate_mode, d, h, m):
     return out
 
 
-def _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode, clamp):
+def _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode, clamp,
+                      bf16):
     """The identity-gate CUDA forward: ``(dx, mh (N,1), deg)``."""
     global identity_launches
     lib = build.load("edge_identity", _bind_identity)
@@ -254,20 +280,21 @@ def _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode, clamp):
     n, e = x.shape[0], snd.shape[0]
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     dx, mh, deg = empty(n, 3), empty(n, 1), empty(n, 1)
-    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 0)))
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 0, int(bf16))))
     ins = (x, h, snd, em, indptr, *ws[:6])
     ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
     err = lib.edge_identity_forward(*ptrs, n, e, dh, h1,
                                     int(rel_mode == "inv1p"), float(clamp),
-                                    IDENTITY_CTAS or 0,
+                                    IDENTITY_CTAS or 0, int(bf16),
                                     build.stream_ptr(dev))
     build.check(lib, err, "edge_identity_forward")
     identity_launches += 1
+    precision_launches[prec_name(bf16)] += 1
     return dx, mh, deg
 
 
 def _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws, deg, g_dx,
-                       g_mh, dh, h1, rel_mode, clamp):
+                       g_mh, dh, h1, rel_mode, clamp, bf16):
     """The identity-gate CUDA backward: the 11 gradients (the gate's three
     are zeros: the identity branch has no gate weights)."""
     global identity_bwd_launches
@@ -280,16 +307,17 @@ def _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws, deg, g_dx,
     gw1d, gb1 = empty(1, h1), empty(1, h1)
     gw2, gb2 = empty(h1, 1), empty(1, 1)
     gates = tuple(torch.zeros_like(w) for w in ws[6:])
-    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 1)))
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 1, int(bf16))))
     ins = (x, h, snd, em, indptr, sperm, sptr, *ws[:6], deg, g_dx, g_mh)
     outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2)
     ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
     err = lib.edge_identity_backward(*ptrs, n, e, dh, h1,
                                      int(rel_mode == "inv1p"), float(clamp),
-                                     IDENTITY_CTAS or 0,
+                                     IDENTITY_CTAS or 0, int(bf16),
                                      build.stream_ptr(dev))
     build.check(lib, err, "edge_identity_backward")
     identity_bwd_launches += 1
+    precision_launches[prec_name(bf16)] += 1
     return outs + gates
 
 
@@ -301,7 +329,9 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
                        precision=None):
     """Edge forward over a receiver-sorted CSR layout → ``(dx, mh, deg)``.
 
-    CUDA tensors launch the kernels (f32, gate 'mlp' or 'none', any Dh,
+    CUDA tensors launch the kernels (f32 operands; ``precision`` 'f32' or
+    'bf16', the Pallas kernels' contract: bf16 operands of every product,
+    f32 sums and outputs; gate 'mlp' or 'none', any Dh,
     H1 and M: :func:`kernel_route` picks the compiled width they are
     padded to, or the panel path; scratch: P and Q, N x width each, and a
     row map of the slots) or, for gate 'identity', the identity kernels
@@ -309,17 +339,17 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
     anything else raises.  CPU tensors run :func:`edge_pathway_plain`.
     """
     global launches
-    require_f32(precision)
+    bf16 = resolve_precision(precision) == BF16
     ws = (w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2)
     _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode)
     if x.device.type != "cuda":
         return edge_pathway_plain(x, h, snd, em, indptr, *ws,
                                   gate_mode=gate_mode, rel_mode=rel_mode,
-                                  clamp=clamp)
+                                  clamp=clamp, precision=precision)
     dh, h1, m = _kernel_widths(h, ws, gate_mode)
     if gate_mode == "identity" and h1 <= IDENTITY_MAX_H1:
         return _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode,
-                                 clamp)
+                                 clamp, bf16)
     route = _route(gate_mode, dh, h1, m)
     d, hp, mp = padded_widths(route, dh, h1, m)
     n, e = x.shape[0], snd.shape[0]
@@ -329,7 +359,7 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
     flags = (int(gate_mode == "mlp"), int(rel_mode == "inv1p"), float(clamp))
     if route == "panel":
         dx, mh, deg = panel.edge_forward(ins, d, hp, mp, GATE_CODE[gate_mode],
-                                         *flags[1:])
+                                         *flags[1:], bf16)
     else:
         lib = build.load("edge_message", _bind)
         dev = x.device
@@ -340,20 +370,34 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
             * lib.edge_fwd_blocks_per_sm())
         scratch = empty(int(lib.edge_fwd_scratch_floats(n, e, n_ctas, mp)))
         ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
-        err = lib.edge_forward(*ptrs, n, e, *flags, n_ctas, mp,
+        err = lib.edge_forward(*ptrs, n, e, *flags, n_ctas, mp, int(bf16),
                                build.stream_ptr(dev))
         build.check(lib, err, "edge_forward")
     launches += 1
     route_launches[route] += 1
+    precision_launches[prec_name(bf16)] += 1
     return dx, unpad(mh, (n, m)), deg
 
 
 def edge_pathway_bwd_plain(x, h, snd, em, indptr, w1r, w1s, w1d, b1, w2, b2,
                            wg1, bg1, wg2, g_dx, g_mh, *, gate_mode="mlp",
-                           rel_mode="raw", clamp=math.inf):
+                           rel_mode="raw", clamp=math.inf, precision=None,
+                           deg=None):
     """``torch.autograd.grad`` of :func:`edge_pathway_plain` for the
     cotangents ``(g_dx, g_mh)`` → the 11 gradients ``(x, h, w1r, w1s, w1d,
-    b1, w2, b2, wg1, bg1, wg2)``; zeros where an input is unused."""
+    b1, w2, b2, wg1, bg1, wg2)``; zeros where an input is unused.
+    ``precision`` 'bf16' runs the bf16 kernel's explicit backward
+    (``kernels.ref.edge_pathway_bwd_ref_bf16``) instead, with the
+    forward's ``deg`` (recomputed if not given)."""
+    if resolve_precision(precision) == BF16:
+        e = int(indptr[-1])
+        if deg is None:
+            deg = edge_pathway_plain(x, h, snd, em, indptr, w1r, w1s, w1d, b1,
+                                     w2, b2, wg1, bg1, wg2)[2]
+        return edge_pathway_bwd_ref_bf16(
+            x, h, snd[:e], csr_receivers(indptr), em[:e], w1r, w1s, w1d, b1,
+            w2, b2, wg1, bg1, wg2, deg, g_dx, g_mh, gate_mode=gate_mode,
+            rel_mode=rel_mode, clamp=clamp)
     prim = [t.detach().requires_grad_(True)
             for t in (x, h, w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2)]
     with torch.enable_grad():
@@ -385,7 +429,7 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
     give exact zeros; an empty slot list gives zeros.
     """
     global bwd_launches
-    require_f32(precision)
+    bf16 = resolve_precision(precision) == BF16
     ws = (w1r, w1s, w1d, b1, w2, b2, wg1, bg1, wg2)
     _check(x, h, snd, em, indptr, ws, gate_mode, rel_mode,
            extra=(deg, g_dx, g_mh))
@@ -400,7 +444,8 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
     if x.device.type != "cuda":
         return edge_pathway_bwd_plain(x, h, snd, em, indptr, *ws, g_dx, g_mh,
                                       gate_mode=gate_mode, rel_mode=rel_mode,
-                                      clamp=clamp)
+                                      clamp=clamp, precision=precision,
+                                      deg=deg)
     dh, h1, m = _kernel_widths(h, ws, gate_mode)
     if sperm is None or sptr is None:
         raise ValueError(
@@ -414,7 +459,8 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
                          f"an int32 ({n + 1},) tensor on {x.device}")
     if gate_mode == "identity" and h1 <= IDENTITY_MAX_H1:
         return _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws,
-                                  deg, g_dx, g_mh, dh, h1, rel_mode, clamp)
+                                  deg, g_dx, g_mh, dh, h1, rel_mode, clamp,
+                                  bf16)
     route = _route(gate_mode, dh, h1, m)
     d, hp, mp = padded_widths(route, dh, h1, m)
     e = snd.shape[0]
@@ -436,17 +482,18 @@ def edge_pathway_bwd_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
     flags = (int(gate_mode == "mlp"), int(rel_mode == "inv1p"), float(clamp))
     if route == "panel":
         panel.edge_backward(ins, outs, d, hp, mp, GATE_CODE[gate_mode],
-                            *flags[1:])
+                            *flags[1:], bf16)
     else:
         lib = build.load("edge_message_bwd", _bind_bwd)
         scratch = empty(int(lib.edge_bwd_scratch_floats(n, e, EDGE_BWD_CTAS,
-                                                        mp)))
+                                                        mp, int(bf16))))
         ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
         err = lib.edge_backward(*ptrs, n, e, *flags, EDGE_BWD_CTAS, mp,
-                                build.stream_ptr(dev))
+                                int(bf16), build.stream_ptr(dev))
         build.check(lib, err, "edge_backward")
     bwd_launches += 1
     route_launches[route] += 1
+    precision_launches[prec_name(bf16)] += 1
     shapes = [(n, 3), (n, dh), (dh, h1), (dh, h1), (1, h1), (1, h1),
               (h1, m), (1, m), (m, h1), (1, h1), (h1, 1)]
     return tuple(t if (i >= 8 and gate_mode != "mlp")

@@ -10,7 +10,11 @@
   the forward kernel wrappers and, in ``backward``, the backward kernel
   wrappers (``edge_pathway_bwd_fused``, ``virtual_pathway_bwd_fused``,
   ``mmd_cross_grads``); on CPU tensors both directions run the plain
-  versions, so the CPU tests exercise this glue too;
+  versions, so the CPU tests exercise this glue too.  The first two are
+  f32; :func:`edge_function` / :func:`virtual_function` give the Function
+  of a precision (one class per precision, as the reference caches one
+  ``custom_vjp`` per precision), whose kernels take that ``precision``
+  in both directions;
 * :func:`edge_pathway`, :func:`virtual_pathway` and :func:`mmd_cross` are
   the entry points the model and the loss call.
 
@@ -23,12 +27,14 @@ through a kernel.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.edge_message import (edge_pathway_bwd_fused,
                                               edge_pathway_fused)
 from repro_torch.kernels.mmd_rbf import mmd_cross_grads, mmd_cross_sum
-from repro_torch.kernels.runtime import require_f32
+from repro_torch.kernels.runtime import F32, resolve_precision
 from repro_torch.kernels.virtual_message import (virtual_pathway_bwd_fused,
                                                  virtual_pathway_fused)
 
@@ -68,38 +74,57 @@ def unpack_edge_params(lp, h: Tensor, spec) -> tuple[Tensor, tuple]:
     return hk.contiguous(), tuple(w.contiguous() for w in ws)
 
 
-class EdgePathway(torch.autograd.Function):
-    """Edge forward kernel with the edge backward kernel as its vjp.
+def _as_primals(grads, primals):
+    """The kernels' f32 gradients cast back to the primals' dtypes."""
+    return tuple(g.to(p.dtype) for g, p in zip(grads, primals))
+
+
+@functools.lru_cache(maxsize=None)
+def edge_function(precision=None) -> type:
+    """The edge pathway's ``torch.autograd.Function`` for ``precision``
+    ('f32', 'bf16' or a ``runtime.Precision``): forward kernel, with the
+    backward kernel as its vjp, both in that precision.
 
     ``apply(x, h, snd, em, indptr, sperm, sptr, gate_mode, rel_mode, clamp,
     *ws)`` → ``(dx, mh, deg)``.  Saves the primals and ``deg``; gradients
     for ``x``, ``h`` and the nine weights, ``None`` for the rest.
     """
+    prec = resolve_precision(precision)
 
-    @staticmethod
-    def forward(ctx, x, h, snd, em, indptr, sperm, sptr, gate_mode, rel_mode,
-                clamp, *ws):
-        dx, mh, deg = edge_pathway_fused(x, h, snd, em, indptr, *ws,
-                                         gate_mode=gate_mode,
-                                         rel_mode=rel_mode, clamp=clamp)
-        ctx.save_for_backward(x, h, snd, em, indptr, deg.contiguous(), *ws)
-        ctx.sender = (sperm, sptr)
-        ctx.kw = dict(gate_mode=gate_mode, rel_mode=rel_mode, clamp=clamp)
-        ctx.mark_non_differentiable(deg)
-        return dx, mh, deg
+    class EdgePathwayP(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, h, snd, em, indptr, sperm, sptr, gate_mode,
+                    rel_mode, clamp, *ws):
+            kw = dict(gate_mode=gate_mode, rel_mode=rel_mode, clamp=clamp,
+                      precision=prec)
+            dx, mh, deg = edge_pathway_fused(x, h, snd, em, indptr, *ws, **kw)
+            ctx.save_for_backward(x, h, snd, em, indptr, deg.contiguous(),
+                                  *ws)
+            ctx.sender = (sperm, sptr)
+            ctx.kw = kw
+            ctx.mark_non_differentiable(deg)
+            return dx, mh, deg
 
-    @staticmethod
-    def backward(ctx, g_dx, g_mh, _g_deg):
-        x, h, snd, em, indptr, deg, *ws = ctx.saved_tensors
-        g_dx = torch.zeros_like(x) if g_dx is None else g_dx.contiguous()
-        g_mh = (torch.zeros((x.shape[0], ws[4].shape[1]), dtype=x.dtype,
-                            device=x.device)
-                if g_mh is None else g_mh.contiguous())
-        gx, gh, *gws = edge_pathway_bwd_fused(
-            x, h, snd, em, indptr, *ctx.sender, *ws, deg, g_dx, g_mh,
-            **ctx.kw)
-        return (gx, gh, None, None, None, None, None, None, None, None,
-                *gws)
+        @staticmethod
+        def backward(ctx, g_dx, g_mh, _g_deg):
+            x, h, snd, em, indptr, deg, *ws = ctx.saved_tensors
+            g_dx = torch.zeros_like(x) if g_dx is None else g_dx.contiguous()
+            g_mh = (torch.zeros((x.shape[0], ws[4].shape[1]), dtype=x.dtype,
+                                device=x.device)
+                    if g_mh is None else g_mh.contiguous())
+            grads = edge_pathway_bwd_fused(
+                x, h, snd, em, indptr, *ctx.sender, *ws, deg, g_dx, g_mh,
+                **ctx.kw)
+            gx, gh, *gws = _as_primals(grads, (x, h, *ws))
+            return (gx, gh, None, None, None, None, None, None, None, None,
+                    *gws)
+
+    EdgePathwayP.__name__ = EdgePathwayP.__qualname__ = (
+        "EdgePathway" if prec == F32 else f"EdgePathway_{prec.compute}")
+    return EdgePathwayP
+
+
+EdgePathway = edge_function("f32")
 
 
 def edge_pathway(lp, h: Tensor, x: Tensor, g, spec,
@@ -116,10 +141,9 @@ def edge_pathway(lp, h: Tensor, x: Tensor, g, spec,
         raise ValueError(
             "the kernel edge pathway needs the graph's CSR layout "
             "(indptr, n_edges) from data.radius_graph.csr_indptr")
-    require_f32(spec.precision)
     hk, ws = unpack_edge_params(lp, h, spec)
     sperm, sptr = (layout[2], layout[3]) if len(layout) > 2 else (None, None)
-    dx, mh, _deg = EdgePathway.apply(
+    dx, mh, _deg = edge_function(spec.precision).apply(
         x.contiguous(), hk, g.senders.contiguous(), g.edge_mask.contiguous(),
         layout[0].contiguous(), sperm, sptr, spec.gate, spec.rel,
         float(spec.coord_clamp), *ws)
@@ -152,41 +176,55 @@ def unpack_virtual_block(vb, s: Tensor, mv: Tensor, h_dim: int) -> dict:
     return {k: v.contiguous() for k, v in out.items()}
 
 
-class VirtualPathway(torch.autograd.Function):
-    """Virtual forward kernel with the virtual backward kernel as its vjp.
+@functools.lru_cache(maxsize=None)
+def virtual_function(precision=None) -> type:
+    """The virtual pathway's ``torch.autograd.Function`` for
+    ``precision``: forward kernel, with the backward kernel as its vjp.
 
     ``apply(x, h, z, node_mask, *ws)`` (``ws``: the 11 per-channel stacks)
     → ``(dx, mh, dz_sum, ms_sum)``.  Saves the primals only; no gradient
     for the node mask.
     """
+    prec = resolve_precision(precision)
 
-    @staticmethod
-    def forward(ctx, x, h, z, node_mask, *ws):
-        ctx.save_for_backward(x, h, z, node_mask, *ws)
-        return virtual_pathway_fused(x, h, z, node_mask, *ws)
+    class VirtualPathwayP(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, h, z, node_mask, *ws):
+            ctx.save_for_backward(x, h, z, node_mask, *ws)
+            return virtual_pathway_fused(x, h, z, node_mask, *ws,
+                                         precision=prec)
 
-    @staticmethod
-    def backward(ctx, g_dx, g_mh, g_dz, g_ms):
-        ops = ctx.saved_tensors
-        x, z, w2 = ops[0], ops[2], ops[7]
-        hid = w2.shape[2]
-        shapes = ((x.shape[0], 3), (x.shape[0], hid), (z.shape[0], 3),
-                  (z.shape[0], hid))
-        cots = tuple(
-            torch.zeros(s, dtype=x.dtype, device=x.device) if c is None
-            else c.contiguous() for c, s in zip((g_dx, g_mh, g_dz, g_ms),
-                                                shapes))
-        gx, gh, gz, *gws = virtual_pathway_bwd_fused(*ops, *cots)
-        return (gx, gh, gz, None, *gws)
+        @staticmethod
+        def backward(ctx, g_dx, g_mh, g_dz, g_ms):
+            ops = ctx.saved_tensors
+            x, z, w2 = ops[0], ops[2], ops[7]
+            hid = w2.shape[2]
+            shapes = ((x.shape[0], 3), (x.shape[0], hid), (z.shape[0], 3),
+                      (z.shape[0], hid))
+            cots = tuple(
+                torch.zeros(s, dtype=x.dtype, device=x.device) if c is None
+                else c.contiguous() for c, s in zip((g_dx, g_mh, g_dz, g_ms),
+                                                    shapes))
+            grads = virtual_pathway_bwd_fused(*ops, *cots, precision=prec)
+            gx, gh, gz, *gws = _as_primals(
+                grads, [t for i, t in enumerate(ops) if i != 3])
+            return (gx, gh, gz, None, *gws)
+
+    VirtualPathwayP.__name__ = VirtualPathwayP.__qualname__ = (
+        "VirtualPathway" if prec == F32
+        else f"VirtualPathway_{prec.compute}")
+    return VirtualPathwayP
+
+
+VirtualPathway = virtual_function("f32")
 
 
 def virtual_pathway(vb, h: Tensor, x: Tensor, vs, mv: Tensor,
                     node_mask: Tensor, precision=None):
     """Kernel-backed virtual pathway → ``(dx, mh, dz_sum, ms_sum)``,
     trainable."""
-    require_f32(precision)
     w = unpack_virtual_block(vb, vs.s, mv, h.shape[-1])
-    return VirtualPathway.apply(
+    return virtual_function(precision).apply(
         x.contiguous(), h.contiguous(), vs.z.contiguous(),
         node_mask.contiguous(), w["w1h"], w["w1d"], w["const1"], w["w2"],
         w["b2"], w["wg1"], w["bg1"], w["wg2"], w["wz1"], w["bz1"], w["wz2"])

@@ -11,11 +11,13 @@ parity contract with the reference needs full-precision products.
 Precision contract
 ------------------
 :class:`Precision` is the static ``(compute, accumulate)`` dtype pair.
-The FastEGNN path runs ``'f32'`` only: its kernels raise
-``NotImplementedError`` for ``'bf16'`` (:func:`require_f32`).  The LM
-path computes in bf16 by default with f32 accumulation: the
-sliding-window attention kernel takes f32 or bf16 inputs and does its
-math in f32.
+The FastEGNN kernels (edge, virtual, identity and panel paths) take
+either, as the reference's Pallas kernels do (DESIGN.md §9.3): in
+``'bf16'`` every product's operands are rounded to bfloat16 and every
+sum runs in f32, on f32 inputs and outputs.  A plain path ignores the
+flag and runs f32, as the reference's ``jnp`` path does.  The LM path
+computes in bf16 by default with f32 accumulation: the sliding-window
+attention kernel takes f32 or bf16 inputs and does its math in f32.
 """
 from __future__ import annotations
 
@@ -105,11 +107,3 @@ def resolve_precision(p: Union[str, Precision, None]) -> Precision:
         raise ValueError(
             f"unknown precision {p!r}: expected 'f32', 'bf16', or a "
             f"kernels.runtime.Precision") from None
-
-
-def require_f32(p: Union[str, Precision, None]) -> None:
-    """Raise ``NotImplementedError`` unless ``p`` resolves to f32."""
-    if resolve_precision(p) != F32:
-        raise NotImplementedError(
-            f"precision {p!r}: the PyTorch port serves precision='f32' "
-            f"only; bf16 kernels are not ported yet")

@@ -26,6 +26,11 @@ zero-padded up to the next (exact) and the outputs sliced back, wider
 ones take the panel path of ``csrc/panel.cu``.  ``route_launches`` counts
 calls per route.  s_dim never reaches the kernels: it is folded into
 ``const1`` before the call.
+
+Precision: both wrappers take ``precision`` ('f32' or 'bf16') as the
+edge wrappers do (``kernels.edge_message``), with plain versions
+``kernels.ref.virtual_pathway_ref_bf16`` / ``virtual_pathway_bwd_ref_bf16``;
+``precision_launches`` counts calls per precision.
 """
 from __future__ import annotations
 
@@ -35,9 +40,13 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import build, panel
-from repro_torch.kernels.edge_message import kernel_route, padded_widths
-from repro_torch.kernels.ref import virtual_pathway_ref
-from repro_torch.kernels.runtime import align16, pad_to, require_f32, unpad
+from repro_torch.kernels.edge_message import (kernel_route, padded_widths,
+                                              prec_name)
+from repro_torch.kernels.ref import (virtual_pathway_bwd_ref_bf16,
+                                     virtual_pathway_ref,
+                                     virtual_pathway_ref_bf16)
+from repro_torch.kernels.runtime import (BF16, align16, pad_to,
+                                         resolve_precision, unpad)
 
 Tensor = torch.Tensor
 
@@ -51,12 +60,16 @@ bwd_launches = 0
 #: calls per route ("w32", "w64", "panel") of the forward and the
 #: backward since :func:`reset_launches`
 route_launches: Counter = Counter()
+#: calls of the forward and the backward per precision ("f32", "bf16")
+#: since :func:`reset_launches`
+precision_launches: Counter = Counter()
 
 
 def reset_launches() -> None:
     global launches, bwd_launches
     launches = bwd_launches = 0
     route_launches.clear()
+    precision_launches.clear()
 
 
 def pad_ops(ops: tuple, d: int, w: int) -> list:
@@ -74,7 +87,7 @@ def pad_ops(ops: tuple, d: int, w: int) -> list:
 def _bind(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
     lib.virtual_forward.argtypes = ([ctypes.c_void_p] * 18
-                                    + [ctypes.c_int] * 3
+                                    + [ctypes.c_int] * 4
                                     + [ctypes.c_void_p])
     lib.virtual_forward.restype = ctypes.c_int
     lib.virtual_sums.argtypes = ([ctypes.c_void_p] * 3
@@ -90,13 +103,17 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.virtual_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.virtual_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.virtual_backward.argtypes = ([ctypes.c_void_p] * 34
-                                     + [ctypes.c_int] * 3
+                                     + [ctypes.c_int] * 4
                                      + [ctypes.c_void_p])
     lib.virtual_backward.restype = ctypes.c_int
 
 
-def virtual_pathway_plain(*operands):
-    """The kernel's function in plain PyTorch (``virtual_pathway_ref``)."""
+def virtual_pathway_plain(*operands, precision=None):
+    """The kernel's function in plain PyTorch (``virtual_pathway_ref``;
+    ``precision`` 'bf16': ``virtual_pathway_ref_bf16``, rounded where the
+    bf16 kernel rounds)."""
+    if resolve_precision(precision) == BF16:
+        return virtual_pathway_ref_bf16(*operands)
     return virtual_pathway_ref(*operands)
 
 
@@ -138,17 +155,18 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
                           precision=None):
     """Virtual forward → ``(dx, mh, dz_sum, ms_sum)``.
 
-    CUDA tensors launch the kernels (f32, any Dh and hid: the compiled
-    width they are padded to, or the panel path) or raise; CPU tensors
-    run :func:`virtual_pathway_plain`.
+    CUDA tensors launch the kernels (f32 operands, ``precision`` 'f32' or
+    'bf16': bf16 operands of every product, f32 sums and outputs; any Dh
+    and hid: the compiled width they are padded to, or the panel path) or
+    raise; CPU tensors run :func:`virtual_pathway_plain`.
     """
     global launches
-    require_f32(precision)
+    bf16 = resolve_precision(precision) == BF16
     ops = (x, h, z, node_mask, w1h, w1d, const1, w2, b2, wg1, bg1, wg2, wz1,
            bz1, wz2)
     _check(ops)
     if x.device.type != "cuda":
-        return virtual_pathway_plain(*ops)
+        return virtual_pathway_plain(*ops, precision=precision)
     dh, hid = h.shape[1], w1h.shape[2]
     route = kernel_route(dh, hid)
     d, w = padded_widths(route, dh, hid)
@@ -157,7 +175,7 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
     # the kernels read h and the weights with 16-byte loads
     ins = [align16(t) for t in pad_ops(ops, d, w)]
     if route == "panel":
-        dx, mh, dz, ms = panel.virtual_forward(ins, d, w)
+        dx, mh, dz, ms = panel.virtual_forward(ins, d, w, bf16)
     else:
         lib = build.load("virtual_message", _bind)
         n_blocks = -(-n // lib.virtual_nodes_per_block())
@@ -166,20 +184,26 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
         part = empty(n_blocks, c, lib.virtual_partial_width(w))
         stream = build.stream_ptr(dev)
         err = lib.virtual_forward(
-            *[t.data_ptr() for t in (*ins, dx, mh, part)], n, c, w, stream)
+            *[t.data_ptr() for t in (*ins, dx, mh, part)], n, c, w, int(bf16),
+            stream)
         build.check(lib, err, "virtual_forward")
         err = lib.virtual_sums(part.data_ptr(), dz.data_ptr(), ms.data_ptr(),
                                n_blocks, c, w, stream)
         build.check(lib, err, "virtual_sums")
     launches += 1
     route_launches[route] += 1
+    precision_launches[prec_name(bf16)] += 1
     return dx, unpad(mh, (n, hid)), dz, unpad(ms, (c, hid))
 
 
-def virtual_pathway_bwd_plain(*operands):
+def virtual_pathway_bwd_plain(*operands, precision=None):
     """``torch.autograd.grad`` of :func:`virtual_pathway_plain`: operands
     are the forward's 15 followed by the four cotangents ``(g_dx, g_mh,
-    g_dz, g_ms)``; returns the 14 gradients (no node-mask gradient)."""
+    g_dz, g_ms)``; returns the 14 gradients (no node-mask gradient).
+    ``precision`` 'bf16' runs the bf16 kernel's explicit backward
+    (``kernels.ref.virtual_pathway_bwd_ref_bf16``) instead."""
+    if resolve_precision(precision) == BF16:
+        return virtual_pathway_bwd_ref_bf16(*operands)
     prim, cots = operands[:15], operands[15:]
     diff = [t.detach().requires_grad_(True)
             for i, t in enumerate(prim) if i != 3]
@@ -202,11 +226,12 @@ def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
     """Backward of :func:`virtual_pathway_fused` → ``(gx, gh, gz, gw1h,
     gw1d, gc1, gw2, gb2, gwg1, gbg1, gwg2, gwz1, gbz1, gwz2)``.
 
-    CUDA tensors launch the kernels (f32, any Dh and hid, routed as the
-    forward) or raise; CPU tensors run :func:`virtual_pathway_bwd_plain`.
+    CUDA tensors launch the kernels (f32 operands, ``precision`` as the
+    forward's, any Dh and hid, routed as the forward) or raise; CPU
+    tensors run :func:`virtual_pathway_bwd_plain`.
     """
     global bwd_launches
-    require_f32(precision)
+    bf16 = resolve_precision(precision) == BF16
     ops = (x, h, z, node_mask, w1h, w1d, const1, w2, b2, wg1, bg1, wg2, wz1,
            bz1, wz2)
     _check(ops)
@@ -223,7 +248,7 @@ def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
         raise RuntimeError("virtual_pathway_bwd_fused has no double "
                            "backward: pass cotangents without grad")
     if x.device.type != "cuda":
-        return virtual_pathway_bwd_plain(*ops, *cots)
+        return virtual_pathway_bwd_plain(*ops, *cots, precision=precision)
     dh, hid = h.shape[1], w1h.shape[2]
     route = kernel_route(dh, hid)
     d, w = padded_widths(route, dh, hid)
@@ -234,15 +259,17 @@ def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
     # the kernels read h, g_mh and the weights with 16-byte loads
     ins = [align16(t) for t in (*pops, *pcots)]
     if route == "panel":
-        panel.virtual_backward(ins, grads, d, w)
+        panel.virtual_backward(ins, grads, d, w, bf16)
     else:
         lib = build.load("virtual_message_bwd", _bind_bwd)
         scratch = torch.empty((int(lib.virtual_bwd_scratch_floats(n, c, w)),),
                               dtype=torch.float32, device=x.device)
         ptrs = [t.data_ptr() for t in (*ins, *grads, scratch)]
-        err = lib.virtual_backward(*ptrs, n, c, w, build.stream_ptr(x.device))
+        err = lib.virtual_backward(*ptrs, n, c, w, int(bf16),
+                                   build.stream_ptr(x.device))
         build.check(lib, err, "virtual_backward")
     bwd_launches += 1
     route_launches[route] += 1
+    precision_launches[prec_name(bf16)] += 1
     want = [t.shape for i, t in enumerate(ops) if i != 3]
     return tuple(unpad(g, s) for g, s in zip(grads, want))

@@ -19,7 +19,7 @@ from repro_torch.core.virtual_nodes import (VirtualState, init_virtual_block,
                                             virtual_aggregate_from_sums,
                                             virtual_global_message,
                                             virtual_pathway)
-from repro_torch.kernels.runtime import require_f32, resolve_device
+from repro_torch.kernels.runtime import resolve_device, resolve_precision
 from repro_torch.models.egnn import real_real_pathway
 
 Tensor = torch.Tensor
@@ -36,7 +36,7 @@ class FastEGNNConfig(NamedTuple):
     coord_clamp: float = 100.0
     use_kernel: bool = False  # virtual AND edge pathways through the kernels
     shared_virtual: bool = False  # Table II "Global Nodes" ablation
-    precision: str = "f32"  # this port serves 'f32' only
+    precision: str = "f32"  # kernel compute precision ('f32' | 'bf16')
 
 
 def init_fast_egnn_layer(gen: torch.Generator, cfg: FastEGNNConfig,
@@ -78,7 +78,7 @@ def fast_egnn_apply(params, cfg: FastEGNNConfig, g: GeometricGraph, *,
     ``edge_layout`` is this graph's CSR layout ``(indptr, n_edges)`` for
     the kernel edge pathway (ignored by the plain path).
     """
-    require_f32(cfg.precision)
+    resolve_precision(cfg.precision)  # an unknown string raises
     h = mlp(params["embed"], g.h)
     x = g.x
     vs = VirtualState(z=init_virtual_coords(x, g.node_mask, cfg.n_virtual),

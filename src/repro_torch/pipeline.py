@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import GeometricGraph
-from repro_torch.kernels.runtime import require_f32, resolve_device
+from repro_torch.kernels.runtime import resolve_device, resolve_precision
 from repro_torch.models.registry import model_config
 from repro_torch.serving.programs import LRUCache
 from repro_torch.training.optim import Adam
@@ -202,7 +202,7 @@ def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,
             "port does not have yet (ROADMAP queue A #8)")
     spec, cfg = model_config(name, **cfg_overrides)
     dev = resolve_device(device)
-    require_f32(cfg.precision)
+    resolve_precision(cfg.precision)  # an unknown string raises
     if params is None:
         if generator is None:
             raise ValueError("build_pipeline needs params= or generator=")

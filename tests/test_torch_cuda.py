@@ -1681,3 +1681,229 @@ def test_identity_wider_than_its_kernels_takes_the_panel_path(dh):
                                                                 **kw))
     assert edge_message.route_launches == {"panel": 4}
     assert edge_message.identity_launches == 0
+
+
+# ------------------------------------------------------------- bf16 mode
+# The bf16 mode of #1-#4 and the identity pair (precision='bf16': bf16
+# operands of every product, f32 sums) against the bf16 plain versions
+# (kernels.ref.*_bf16): per output relative L2 <= 1e-3 (the two round the
+# same values; a different f32 summation order may tip a rounding), the
+# kernel repeatable bitwise, and engaged: some output >= 1e-4 (relative
+# L2) away from the f32 kernel's.
+BF_L2, BF_ENGAGED = 1e-3, 1e-4
+
+
+def _rel_l2(a, b):
+    d = float(torch.linalg.vector_norm((a - b).double()))
+    return d / max(float(torch.linalg.vector_norm(b.double())), 1e-30)
+
+
+def _assert_bf16(got, again, want, f32):
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, a)
+        if w.numel() and float(w.abs().max()) > 0:
+            assert _rel_l2(g, w) <= BF_L2
+    assert max(_rel_l2(g, f) for g, f in zip(got, f32) if f.numel()) \
+        >= BF_ENGAGED
+
+
+def _bf16_edge_case(dev, form, width):
+    """(args, sender, kw): the test graph at ``width`` in FastEGNN's form
+    (gate 'mlp'), SchNet's identity form (Dh = H1 = width) or RF's (Dh =
+    1, inv1p)."""
+    if form == "mlp":
+        args, sender, _ = _width_args(dev, width, width, width)
+        return args, sender, dict(gate_mode="mlp", rel_mode="raw",
+                                  clamp=100.0)
+    dh = width if form == "schnet" else 1
+    args, sender, _ = _width_args(dev, dh, width, 1)
+    if form == "rf":
+        args[1] = torch.zeros_like(args[1])
+    args[11:14] = [torch.zeros(1, 1, device=dev)] * 3
+    return args, sender, dict(gate_mode="identity",
+                              rel_mode="raw" if form == "schnet" else "inv1p",
+                              clamp=100.0)
+
+
+@needs_cuda
+@pytest.mark.parametrize("width", [24, 32, 48, 64, 128])
+@pytest.mark.parametrize("form", ["mlp", "schnet", "rf"])
+def test_edge_kernels_bf16_match_plain_bf16(form, width):
+    """#1 and #2 (and the identity pair) in bf16 on every route: the
+    compiled widths, padded ones and the panel path."""
+    dev = torch.device("cuda")
+    args, sender, kw = _bf16_edge_case(dev, form, width)
+    n = args[0].shape[0]
+    m = args[9].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(width)
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_mh = torch.randn((n, m), generator=gen, device=dev)
+    edge_message.reset_launches()
+    with torch.no_grad():
+        run = lambda p: edge_message.edge_pathway_fused(*args, **kw,
+                                                        precision=p)
+        got, again, f32 = run("bf16"), run("bf16"), run("f32")
+        want = edge_message.edge_pathway_plain(*args, **kw, precision="bf16")
+        _assert_bf16(got, again, want, f32)
+        deg = want[2].contiguous()
+        brun = lambda p: edge_message.edge_pathway_bwd_fused(
+            *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw, precision=p)
+        gk, gk2, g32 = brun("bf16"), brun("bf16"), brun("f32")
+        gp = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, deg=deg,
+                                                 **kw, precision="bf16")
+        _assert_bf16(gk, gk2, gp, g32)
+    assert edge_message.precision_launches == {"bf16": 4, "f32": 2}
+
+
+@needs_cuda
+@pytest.mark.parametrize("width", [24, 32, 64, 128])
+def test_virtual_kernels_bf16_match_plain_bf16(width):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(width)
+    n, c = 1000, 3
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    args = [x, r(n, width), x[:c] + 0.05 * r(c, 3),
+            (torch.rand(n, generator=gen, device=dev) > 0.1).float(),
+            r(c, width, width, sc=width ** -0.5), r(c, width, sc=0.3),
+            r(c, width, sc=0.3), r(c, width, width, sc=width ** -0.5),
+            r(c, width, sc=0.1), r(c, width, width, sc=width ** -0.5),
+            r(c, width, sc=0.1), r(c, width, 1, sc=width ** -0.5),
+            r(c, width, width, sc=width ** -0.5), r(c, width, sc=0.1),
+            r(c, width, 1, sc=width ** -0.5)]
+    cots = (r(n, 3), r(n, width), r(c, 3), r(c, width))
+    virtual_message.reset_launches()
+    with torch.no_grad():
+        run = lambda p: virtual_message.virtual_pathway_fused(*args,
+                                                              precision=p)
+        _assert_bf16(run("bf16"), run("bf16"), virtual_message.
+                     virtual_pathway_plain(*args, precision="bf16"),
+                     run("f32"))
+        brun = lambda p: virtual_message.virtual_pathway_bwd_fused(
+            *args, *cots, precision=p)
+        _assert_bf16(brun("bf16"), brun("bf16"),
+                     virtual_message.virtual_pathway_bwd_plain(
+                         *args, *cots, precision="bf16"), brun("f32"))
+    assert virtual_message.precision_launches == {"bf16": 4, "f32": 2}
+
+
+@needs_cuda
+@pytest.mark.parametrize("form", ["mlp", "schnet"])
+def test_bf16_padded_width_equals_unpadded_bitwise(form):
+    """Width 24 (the wrapper pads it to the compiled 32) against the same
+    call zero-padded to 32 by hand: bitwise equal, forward and backward
+    (a zero row or column adds +0, and bf16(0) = 0)."""
+    from repro_torch.kernels.runtime import pad_to
+
+    dev = torch.device("cuda")
+    args, sender, kw = _bf16_edge_case(dev, form, 24)
+    kw["precision"] = "bf16"
+    n = args[0].shape[0]
+    dh, h1, m = args[1].shape[1], args[5].shape[1], args[9].shape[1]
+    d, hp, mp = 32 if dh > 1 else 1, 32, 32 if m > 1 else 1
+    padded = [args[0], pad_to(args[1], n, d), *args[2:5],
+              pad_to(args[5], d, hp), pad_to(args[6], d, hp),
+              pad_to(args[7], 1, hp), pad_to(args[8], 1, hp),
+              pad_to(args[9], hp, mp), pad_to(args[10], 1, mp)]
+    if form == "mlp":
+        padded += [pad_to(args[11], mp, hp), pad_to(args[12], 1, hp),
+                   pad_to(args[13], hp, 1)]
+    else:
+        padded += args[11:14]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_mh = torch.randn((n, m), generator=gen, device=dev)
+    with torch.no_grad():
+        a = edge_message.edge_pathway_fused(*args, **kw)
+        b = edge_message.edge_pathway_fused(*padded, **kw)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+        assert torch.equal(a[1], b[1][:, :m])
+        deg = a[2].contiguous()
+        ga = edge_message.edge_pathway_bwd_fused(
+            *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw)
+        gb = edge_message.edge_pathway_bwd_fused(
+            *padded[:5], *sender, *padded[5:], deg, g_dx,
+            pad_to(g_mh, n, mp), **kw)
+    for x, y in zip(ga, gb):
+        assert torch.equal(x, y[tuple(slice(0, k) for k in x.shape)])
+
+
+@needs_cuda
+def test_bf16_kernels_keep_nan():
+    """A NaN in h passes the bf16 rounding as a NaN (cvt.rn.bf16 keeps
+    it): the bf16 kernels' outputs are NaN exactly where the bf16 plain
+    versions' are, forward and backward."""
+    dev = torch.device("cuda")
+    args, sender, kw = _bf16_edge_case(dev, "mlp", 64)
+    kw["precision"] = "bf16"
+    args[1] = args[1].clone()
+    args[1][7, 3] = float("nan")
+    n = args[0].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_mh = torch.randn((n, 64), generator=gen, device=dev)
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*args, **kw)
+        want = edge_message.edge_pathway_plain(*args, **kw)
+        deg = want[2].contiguous()
+        gk = edge_message.edge_pathway_bwd_fused(
+            *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw)
+        gp = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, deg=deg,
+                                                 **kw)
+    for g, w in list(zip(got, want)) + list(zip(gk, gp)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert bool(torch.isnan(got[1]).any())
+    v = [args[0], args[1]] + _virtual_args(dev)[2:]
+    v[0], v[1] = v[0][:300], v[1][:300].clone()
+    v[3] = v[3][:300]
+    with torch.no_grad():
+        vg = virtual_message.virtual_pathway_fused(*v, precision="bf16")
+        vw = virtual_message.virtual_pathway_plain(*v, precision="bf16")
+    for g, w in zip(vg, vw):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert bool(torch.isnan(vg[1]).any())
+
+
+@needs_cuda
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_fast_egnn_bf16_launch_counts_and_close_to_f32(hidden):
+    """FastEGNN with precision='bf16' on the card: every FastEGNN kernel
+    call in bf16 (and none in f32), its coordinates within relative L2
+    0.1 of the f32 kernel path's; with use_kernel=False bitwise the f32
+    plain path (the precision is the kernels' only)."""
+    from repro_torch.core import message_passing as mp
+
+    dev = torch.device("cuda")
+    x, sp, rp, em, indptr, n_edges = _graph()
+    n = x.shape[0]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    g = GeometricGraph(x=t(x), v=torch.zeros(n, 3, device=dev),
+                       h=torch.ones(n, 1, device=dev), senders=t(sp),
+                       receivers=t(rp),
+                       edge_attr=torch.zeros(sp.size, 0, device=dev),
+                       node_mask=torch.ones(n, device=dev), edge_mask=t(em))
+    lay = (t(indptr), n_edges)
+    gen = torch.Generator().manual_seed(0)
+    p32 = build_pipeline("fast_egnn", device=dev, generator=gen,
+                         use_kernel=True, n_layers=2, hidden=hidden)
+    outs = {}
+    for prec, uk in (("f32", True), ("bf16", True), ("f32", False),
+                     ("bf16", False)):
+        cfg = FastEGNNConfig(**{**p32.cfg._asdict(), "precision": prec,
+                                "use_kernel": uk})
+        edge_message.reset_launches()
+        virtual_message.reset_launches()
+        mp.reset_dispatch_counts()
+        with torch.no_grad():
+            outs[prec, uk] = fast_egnn_apply(p32.params, cfg, g,
+                                             edge_layout=lay)[0]
+        if uk:
+            assert edge_message.precision_launches == {prec: 2}
+            assert virtual_message.precision_launches == {prec: 2}
+        else:
+            assert mp.dispatch_counts() == {"edge_plain": 2,
+                                            "virtual_plain": 2}
+    assert torch.isfinite(outs["bf16", True]).all()
+    assert 0 < _rel_l2(outs["bf16", True], outs["f32", True]) < 0.1
+    assert torch.equal(outs["bf16", False], outs["f32", False])

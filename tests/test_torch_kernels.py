@@ -239,8 +239,16 @@ def test_wrappers_refuse_gradients_and_bf16():
         edge_message.edge_pathway_fused(*args)
     with torch.no_grad():
         edge_message.edge_pathway_fused(*args)  # fine without autograd
-    with pytest.raises(NotImplementedError, match="f32"):
+    # bf16 is a mode of the kernels (its own plain version on the CPU),
+    # refused with gradients as f32 is; an unknown precision raises
+    with pytest.raises(RuntimeError, match="no backward kernel"):
         edge_message.edge_pathway_fused(*args, precision="bf16")
+    with torch.no_grad():
+        f32 = edge_message.edge_pathway_fused(*args)
+        bf16 = edge_message.edge_pathway_fused(*args, precision="bf16")
+        assert not torch.equal(f32[1], bf16[1])
+        with pytest.raises(ValueError, match="unknown precision"):
+            edge_message.edge_pathway_fused(*args, precision="bf8")
     x, h, mask, z, s, block = _virtual_inputs(n=20)
     flat = [_t(a) for a in (x, h, z, mask)]
     w = ops.unpack_virtual_block(params_from_jax(block, device="cpu"), _t(s),
@@ -250,9 +258,10 @@ def test_wrappers_refuse_gradients_and_bf16():
     vargs[0] = vargs[0].clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward kernel"):
         virtual_message.virtual_pathway_fused(*vargs)
-    with pytest.raises(NotImplementedError, match="f32"):
-        with torch.no_grad():
-            virtual_message.virtual_pathway_fused(*vargs, precision=BF16)
+    with torch.no_grad():
+        virtual_message.virtual_pathway_fused(*vargs, precision=BF16)
+        with pytest.raises(ValueError, match="unknown precision"):
+            virtual_message.virtual_pathway_fused(*vargs, precision="fp16")
 
 
 def test_wrappers_check_dtype_shape_contiguity():

@@ -149,9 +149,12 @@ def test_load_npz_reads_reference_checkpoint(tmp_path):
 
 def test_build_pipeline_defaults_to_cuda_and_refuses_bf16(monkeypatch):
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="f32"):
+    # bf16 builds (the kernels' bf16 mode); an unknown precision raises
+    assert build_pipeline("fast_egnn", generator=gen, device="cpu",
+                          precision="bf16").cfg.precision == "bf16"
+    with pytest.raises(ValueError, match="unknown precision"):
         build_pipeline("fast_egnn", generator=gen, device="cpu",
-                       precision="bf16")
+                       precision="fp8")
     with pytest.raises(KeyError, match="unknown model"):
         build_pipeline("gcn", generator=gen, device="cpu")
     with pytest.raises(ValueError, match="generator"):
