@@ -76,7 +76,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
              and TF32 rates).  Each FastEGNN row of the kernels line
              carries its width-64 reading as ``bf16`` (its hidden32 entry
              the width-32 one) and all of them as ``widths_bf16``.
-4. serve   — a full-width FastEGNN (random weights from a seed) behind
+   bf16_edge — the bf16 edge pair (#1, #2 on bf16 tiles): the CTAs an
+             SM the card holds of each (two at least) and its device ms
+             at 64 and 32 from widths_bf16, beside the figures before the
+             redesign (BF_EDGE_PARENT).
+4. serve  — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each, the Verlet lists rebuilt on the
              card (``data/cell_list.py``, the service's default).  Checks
@@ -249,6 +253,16 @@ BF_ENGAGED = 1e-4
 # to them, panel), two CTA counts at CTA_WIDTHS
 BF_WIDTH_CASES = ((16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64),
                   (128, 128, 128), (226, 226, 226))
+# the bf16 edge pair (#1, #2) before its redesign on bf16 tiles: CTAs an
+# SM and device ms on the serve Verlet list at widths 64 and 32, as
+# PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W); the
+# bf16_edge line prints the redesigned kernels' beside them, and needs
+# two CTAs an SM
+BF_EDGE_PARENT = {
+    "edge_pathway_fused": {"ctas_per_sm": {"64": 2, "32": 2},
+                           "device_ms": {"64": 0.0689, "32": 0.0379}},
+    "edge_pathway_bwd_fused": {"ctas_per_sm": {"64": 1, "32": 2},
+                               "device_ms": {"64": 0.306, "32": 0.135}}}
 # bf16 model path against the f32 kernel path: relative L2 of the first
 # served frame, of each leaf of the first step's gradients and of each zoo
 # model's prediction (DESIGN.md section 9.3; the reference's
@@ -2021,6 +2035,32 @@ def phase_widths_bf16(scene, dev) -> dict:
     return out
 
 
+def bf16_edge_line(widths_bf16: dict) -> dict:
+    """The bf16 edge pair's CTAs an SM (as the card reports them for the
+    kernels' registers and shared memory) and device ms at 64 and 32 (the
+    widths_bf16 phase's readings), beside the parent's (BF_EDGE_PARENT)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import edge_message as em_mod
+
+    occ = {"edge_pathway_fused": build.load(
+               "edge_message", em_mod._bind).edge_fwd_occupancy,
+           "edge_pathway_bwd_fused": build.load(
+               "edge_message_bwd", em_mod._bind_bwd).edge_bwd_occupancy}
+    kinds = {"edge_pathway_fused": "fwd", "edge_pathway_bwd_fused": "bwd"}
+    out = {"phase": "bf16_edge", "gpu": gpu_line(), "kernels": {}}
+    for name, fn in occ.items():
+        out["kernels"][name] = {
+            "ctas_per_sm": {w: fn(int(w), 1) for w in ("64", "32")},
+            "device_ms": {w: widths_bf16["cases"][w]["edge_pair"]["edge"][
+                kinds[name]]["device_ms"] for w in ("64", "32")},
+            "parent": BF_EDGE_PARENT[name]}
+    if min(v for k in out["kernels"].values()
+           for v in k["ctas_per_sm"].values()) < 2:
+        raise AssertionError(f"a bf16 edge kernel fits fewer than two CTAs "
+                             f"an SM: {json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------- bf16 phases
 def _periodic_rel_l2(got, want, base=None) -> float:
     """Relative L2 of frames ``got`` against ``want`` (numpy, wrapped in
@@ -2112,7 +2152,10 @@ def phase_serve_bf16(pipe, scenes, serve32, dev) -> dict:
            "latency_p99_s": m["latency_p99_s"],
            "f32_latency_p50_s": serve32["latency_p50_s"],
            "mean_step_s": m["compute_mean_s"] / STEPS,
-           "f32_mean_step_s": serve32["mean_step_s"], "wall_s": wall,
+           "f32_mean_step_s": serve32["mean_step_s"],
+           "rebuilds": m["rebuilds"], "rebuild_mean_s": m["rebuild_mean_s"],
+           "rebuild_share": m["rebuild_mean_s"] / m["compute_mean_s"],
+           "cell_cap": served._cell_cap, "wall_s": wall,
            "seconds": time.perf_counter() - t_phase}
     finite = all(len(fr) == STEPS and all(np.isfinite(f).all() for f in fr)
                  for fr in streams)
@@ -3105,6 +3148,7 @@ def main() -> int:
     emit(widths)
     widths_bf16 = phase_widths_bf16(scenes[0], dev)
     emit(widths_bf16)
+    emit(bf16_edge_line(widths_bf16))
     serve = phase_serve(pipe, plain, scenes, dev)
     emit(serve)
     serve_bf16 = phase_serve_bf16(pipe, scenes, serve, dev)

@@ -48,7 +48,18 @@
 //   an operand and elementwise (msg: rounded into msg.Wg1, f32 in the mh
 //   sum) keeps its f32 values.  Vectors (biases, w1d, wg2) and
 //   coordinates are rounded where they are loaded; the kernels round the
-//   other elementwise values where the reference casts them.
+//   other elementwise values where the reference casts them.  #3, #4 and
+//   the panel path run this mode.
+// * The edge pathway's bf16 mode (#1, #2 and their `node_proj`) has tiles
+//   of its own: bf16 in shared memory (`Bf`), each value rounded once, as
+//   it is stored, under a swizzle of 16-byte granules for 2-byte elements
+//   (`swz16`), read with `ldmatrix` (`.trans` for the transposed operand
+//   layouts) into bf16 tensor-core products, mma.sync.m16n8k16 with f32
+//   accumulation (`tile_mma_bf`): half the shared memory of the f32
+//   tiles, one ldmatrix.x4 in place of eight 4-byte fragment loads, and
+//   half the MMAs of the TF32 route's k8 shape.  The accumulator
+//   fragments are the m16n8k8 ones above, so `frag_store`, the row and
+//   column sums and STEP_SUM (per k16 step) are shared.
 // * The edge pathway's pieces used by its forward and backward: the node
 //   projection `node_proj` (P = h.W1r, Q = h.W1s once per node), and
 //   `for_live_tiles`, which packs the live slots of a slot range into
@@ -220,6 +231,153 @@ __device__ __forceinline__ void tile_mma(Frag<W>& acc, const float* A,
   }
 }
 
+// ------------------------------------------------------------ bf16 tiles
+using Bf = __nv_bfloat16;
+
+// offset of element (r, c) of a swizzled bf16 tile of width W: granule
+// c / 8 (16 bytes) of row r XORed with the row's phase, r & 7 at W = 64
+// (a row fills the 128 bytes of the 32 banks) and (r >> 1) & 3 at W = 32
+// (two rows a line, the odd one in the upper half).  Eight consecutive
+// rows (r0 a multiple of 8) then put one granule each in eight distinct
+// bank groups: every `ldmatrix` phase of `tile_mma_bf`, plain or .trans,
+// A or B, and every fragment store is free of bank conflicts.
+template <int W>
+__device__ __forceinline__ int swz16(int r, int c) {
+  static_assert(W == 32 || W == 64, "bf16 tiles are 32 or 64 wide");
+  const int ph = W == 64 ? (r & 7) : ((r >> 1) & 3);
+  return r * W + ((((c >> 3) ^ ph) << 3) | (c & 7));
+}
+
+// bits of bf16(lo) | bf16(hi) << 16 (cvt.rn.bf16x2: ties to even, NaN kept)
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint2 bf16x4(float4 a) {
+  return make_uint2(bf16x2(a.x, a.y), bf16x2(a.z, a.w));
+}
+
+// the two bf16 values of u (low half first), widened to f32 (exact)
+__device__ __forceinline__ void bf16_widen(uint32_t u, float& lo, float& hi) {
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const Bf* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const Bf* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += op(A) . op(B) on bf16 swizzled tiles of width W, as `tile_mma`
+// (the same operand layouts, warp tiling, accumulator fragments and
+// STEP_SUM, a step being k16) with one m16n8k16 bf16 MMA per accumulator
+// tile and k-step: its products of bf16 values are exact, its sums f32.
+// ldmatrix.x4 loads the A fragment (rows m, k-halves 0 / 8) and the B
+// fragments of two accumulator tiles (n-tiles jn, jn + 1, k-halves 0 / 8);
+// an operand stored k-major (op(A) = A^T, op(B) = B) takes .trans.
+template <int W, bool TA, bool TB, bool STEP_SUM = false>
+__device__ __forceinline__ void tile_mma_bf(Frag<W>& acc, const Bf* A,
+                                            const Bf* B, const Lane& L) {
+  constexpr int K = TA ? TR : W;
+  if (TA && 16 * L.rb >= W) return;  // rows past a W x W result
+  // lane l addresses row l & 7 of matrix l >> 3 of each x4 load
+  const int l = threadIdx.x & 31, i8 = l & 7, hi = (l >> 3) & 1, q = l >> 4;
+  const int mb = 16 * L.rb, nb = (W / 2) * L.ch;
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 16) {
+    uint32_t a[4];
+    if (TA)
+      ldsm_x4_t(a, A + swz16<W>(kk + i8 + 8 * q, mb + 8 * hi));
+    else
+      ldsm_x4(a, A + swz16<W>(mb + i8 + 8 * hi, kk + 8 * q));
+    uint32_t b[JN<W>][2];
+#pragma unroll
+    for (int p = 0; p < JN<W> / 2; ++p) {
+      uint32_t r[4];
+      const int n = nb + 8 * (2 * p + q);
+      if (TB)
+        ldsm_x4(r, B + swz16<W>(n + i8, kk + 8 * hi));
+      else
+        ldsm_x4_t(r, B + swz16<W>(kk + i8 + 8 * hi, n));
+      b[2 * p][0] = r[0];
+      b[2 * p][1] = r[1];
+      b[2 * p + 1][0] = r[2];
+      b[2 * p + 1][1] = r[3];
+    }
+    Frag<W> step;
+    if (STEP_SUM) frag_zero<W>(step);
+    float(&d)[JN<W>][4] = STEP_SUM ? step : acc;
+#pragma unroll
+    for (int jn = 0; jn < JN<W>; ++jn) mma_bf16(d[jn], a, b[jn][0], b[jn][1]);
+    if (STEP_SUM) {
+#pragma unroll
+      for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jn][e] += step[jn][e];
+    }
+  }
+}
+
+// bf16 tile[r][c] = bf16(v) at this thread's fragment positions
+template <int W>
+__device__ __forceinline__ void frag_store_bf(Bf* tile, const Frag<W>& v,
+                                              const Lane& L) {
+#pragma unroll
+  for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(tile + swz16<W>(L.row(2 * h),
+                                                   L.col<W>(jn, 0))) =
+          bf16x2(v[jn][2 * h], v[jn][2 * h + 1]);
+}
+
+// Fill a bf16 tile from rows of a (rows x W) f32 array in device memory,
+// each value rounded: tile row i <- src[idx(i)] for i < nrows with
+// idx(i) >= 0, else zeros (all threads; the caller syncs).  Two 16-byte
+// loads and one 16-byte store a granule.  A weight tile is idx(i) = i.
+template <int W, typename Idx>
+__device__ __forceinline__ void tile_gather_bf(Bf* tile, const float* src,
+                                               int nrows, Idx idx) {
+  constexpr int G = W / 8;
+  for (int f = threadIdx.x; f < nrows * G; f += blockDim.x) {
+    const int i = f / G, q = (f % G) * 8;
+    const int r = idx(i);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r >= 0) {
+      const float4* p =
+          reinterpret_cast<const float4*>(src + (size_t)r * W + q);
+      const uint2 a = bf16x4(p[0]), b = bf16x4(p[1]);
+      v = make_uint4(a.x, a.y, b.x, b.y);
+    }
+    *reinterpret_cast<uint4*>(tile + swz16<W>(i, q)) = v;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void tile_load_bf(Bf* tile, const float* src) {
+  tile_gather_bf<W>(tile, src, W, [](int i) { return i; });
+}
+
 // tile[r][c] = v at this thread's fragment positions
 template <int W>
 __device__ __forceinline__ void frag_store(float* tile, const Frag<W>& v,
@@ -336,6 +494,19 @@ __device__ __forceinline__ void vec_load_async(float* dst, const float* src,
   }
 }
 
+// one asynchronous copy of 16 (4) bytes into shared memory, through L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
 __device__ __forceinline__ void async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -379,19 +550,19 @@ __device__ __forceinline__ int slot_share(int live_end, int n_ctas) {
   return max(1, (live_end + n_ctas - 1) / n_ctas);
 }
 
-template <int W>
-constexpr int PROJ_SMEM_FLOATS = RT<W> + 2 * WT<W>;
+template <int W, bool BF>
+constexpr int PROJ_SMEM_FLOATS = (BF ? 1 : 2) * (RT<W> + 2 * WT<W>) / 2;
 
 // One CTA per 64 nodes: P = h.W1r, Q = h.W1s for them (3xTF32 tile
-// products), and rowof[s] = the receiver row of every slot s of their CSR
-// rows.  If `ctarow` is given, also the rows of the forward's `n_ctas` edge
-// CTAs: ctarow[b] (0 < b < n_ctas) is the first row whose CSR segment
-// starts at or after b * slot_share(indptr[N], n_ctas), else N;
-// ctarow[0] = 0, ctarow[n_ctas] = N.  CTA b owns rows [ctarow[b],
-// ctarow[b + 1]) -- whole rows, every row once, the last CTA also the
-// empty rows at the end.  Row r writes the entries b in (c(r - 1), c(r)],
-// c(r) = min(indptr[r] / share, n_ctas - 1), c(-1) = -1; row N writes
-// (c(N - 1), n_ctas].
+// products; bf16: on bf16 tiles, `tile_mma_bf`), and rowof[s] = the
+// receiver row of every slot s of their CSR rows.  If `ctarow` is given,
+// also the rows of the forward's `n_ctas` edge CTAs: ctarow[b] (0 < b <
+// n_ctas) is the first row whose CSR segment starts at or after b *
+// slot_share(indptr[N], n_ctas), else N; ctarow[0] = 0, ctarow[n_ctas] = N.
+// CTA b owns rows [ctarow[b], ctarow[b + 1]) -- whole rows, every row
+// once, the last CTA also the empty rows at the end.  Row r writes the
+// entries b in (c(r - 1), c(r)], c(r) = min(indptr[r] / share, n_ctas -
+// 1), c(-1) = -1; row N writes (c(N - 1), n_ctas].
 template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS)
 node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
@@ -403,12 +574,21 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
   float* tH = reinterpret_cast<float*>(smem4);
   float* sWr = tH + RT<W>;
   float* sWs = sWr + WT<W>;
+  Bf* bH = reinterpret_cast<Bf*>(smem4);  // bf16: the same three tiles
+  Bf* bWr = bH + RT<W>;
+  Bf* bWs = bWr + WT<W>;
   const int node0 = blockIdx.x * TR;
-  tile_load_async<W>(sWr, w1r);
-  tile_load_async<W>(sWs, w1s);
-  async_commit();
-  tile_gather<W>(tH, h,
-                 [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  auto node = [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; };
+  if constexpr (BF) {
+    tile_load_bf<W>(bWr, w1r);
+    tile_load_bf<W>(bWs, w1s);
+    tile_gather_bf<W>(bH, h, TR, node);
+  } else {
+    tile_load_async<W>(sWr, w1r);
+    tile_load_async<W>(sWs, w1s);
+    async_commit();
+    tile_gather<W>(tH, h, node);
+  }
   // warp w: rows node0 + 8 w .. + 7; lane l <= 8 holds indptr[node0 + 8 w + l]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = node0 + 8 * warp;
@@ -430,16 +610,20 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
       for (int b = lo + 1; b <= up; ++b) ctarow[b] = r;
     }
   }
-  async_wait_all();
+  if (!BF) async_wait_all();
   __syncthreads();
   const Lane L = lane_of();
   float* dst[2] = {P, Q};
   const float* Wk[2] = {sWr, sWs};
+  const Bf* bWk[2] = {bWr, bWs};
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     Frag<W> a;
     frag_zero<W>(a);
-    tile_mma<W, false, false, false, BF>(a, tH, Wk[k], L);
+    if constexpr (BF)
+      tile_mma_bf<W, false, false>(a, bH, bWk[k], L);
+    else
+      tile_mma<W, false, false>(a, tH, Wk[k], L);
 #pragma unroll
     for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -454,77 +638,138 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
 }
 
 // The queue of live slots: slot, receiver row, sender and mask of each,
-// PEND entries apiece, and the per-warp counts of the block-wide scan.
+// `pend` entries apiece (PEND for `for_live_tiles`, PEND_AHEAD for
+// `for_live_tiles_ahead`), and the per-warp counts of the block-wide scan.
 constexpr int PEND = TR + THREADS;
-constexpr int QUEUE_WORDS = 4 * PEND + THREADS / 32;
+constexpr int PEND_AHEAD = 2 * TR + THREADS;
+constexpr int queue_words(int pend) { return 4 * pend + THREADS / 32; }
+constexpr int QUEUE_WORDS = queue_words(PEND);
 
 struct LiveQueue {
   int *slot, *row, *snd;
   float* em;
   int* wcount;
-  __device__ explicit LiveQueue(int* base)
-      : slot(base), row(base + PEND), snd(base + 2 * PEND),
-        em(reinterpret_cast<float*>(base + 3 * PEND)),
-        wcount(base + 4 * PEND) {}
+  __device__ explicit LiveQueue(int* base, int pend = PEND)
+      : slot(base), row(base + pend), snd(base + 2 * pend),
+        em(reinterpret_cast<float*>(base + 3 * pend)),
+        wcount(base + 4 * pend) {}
 };
 
+// The live slots (em != 0) of [base, min(base + THREADS, end)) join the
+// queue behind its `cnt` entries, in slot order (a block-wide ballot
+// scan); returns how many joined.  Every thread calls it; it ends synced.
+__device__ __forceinline__ int queue_live(const float* __restrict__ em,
+                                          const int* __restrict__ rowof,
+                                          const int* __restrict__ snd,
+                                          int base, int end, int cnt,
+                                          const LiveQueue& q) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slot = base + tid;
+  const float e = slot < end ? em[slot] : 0.0f;
+  const bool live = e != 0.0f;
+  const unsigned m = __ballot_sync(FULL, live);
+  if (lane == 0) q.wcount[warp] = __popc(m);
+  __syncthreads();
+  int off = cnt, total = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    off += w < warp ? q.wcount[w] : 0;
+    total += q.wcount[w];
+  }
+  if (live) {
+    const int k = off + __popc(m & ((1u << lane) - 1u));
+    q.slot[k] = slot;
+    q.row[k] = rowof[slot];
+    q.snd[k] = snd[slot];
+    q.em[k] = e;
+  }
+  __syncthreads();
+  return total;
+}
+
+// The queue's first k of its cnt entries leave; the rest (at most
+// PER * THREADS) move up.  Every thread calls it; it ends synced.
+template <int PER>
+__device__ __forceinline__ void queue_drop(const LiveQueue& q, int k,
+                                           int cnt) {
+  const int tid = threadIdx.x, rest = cnt - k;
+  int v0[PER], v1[PER], v2[PER];
+  float v3[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = tid + u * THREADS;
+    v0[u] = v1[u] = v2[u] = 0;
+    v3[u] = 0.0f;
+    if (i < rest) {
+      v0[u] = q.slot[k + i];
+      v1[u] = q.row[k + i];
+      v2[u] = q.snd[k + i];
+      v3[u] = q.em[k + i];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = tid + u * THREADS;
+    if (i < rest) {
+      q.slot[i] = v0[u];
+      q.row[i] = v1[u];
+      q.snd[i] = v2[u];
+      q.em[i] = v3[u];
+    }
+  }
+  __syncthreads();
+}
+
 // tile(cnt) over the live slots (em != 0) of [beg, end), in slot order:
-// THREADS slots at a time join the queue by a block-wide ballot scan;
-// whenever 64 are queued, tile(64) takes the first 64 and the rest move
-// up; tile(cnt) takes the last cnt < 64.  Every thread of the CTA calls
-// it; `tile` must end with a __syncthreads().
+// THREADS slots at a time join the queue (`queue_live`); whenever 64 are
+// queued, tile(64) takes the first 64 and the rest move up; tile(cnt)
+// takes the last cnt < 64.  Every thread of the CTA calls it; `tile` must
+// end with a __syncthreads().
 template <typename Tile>
 __device__ __forceinline__ void for_live_tiles(
     const float* __restrict__ em, const int* __restrict__ rowof,
     const int* __restrict__ snd, int beg, int end, const LiveQueue& q,
     Tile&& tile) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int cnt = 0;  // queued live slots (the same on every thread)
   for (int base = beg; base < end; base += THREADS) {
-    const int slot = base + tid;
-    const float e = slot < end ? em[slot] : 0.0f;
-    const bool live = e != 0.0f;
-    const unsigned m = __ballot_sync(FULL, live);
-    if (lane == 0) q.wcount[warp] = __popc(m);
-    __syncthreads();
-    int off = cnt, total = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
-      off += w < warp ? q.wcount[w] : 0;
-      total += q.wcount[w];
-    }
-    if (live) {
-      const int k = off + __popc(m & ((1u << lane) - 1u));
-      q.slot[k] = slot;
-      q.row[k] = rowof[slot];
-      q.snd[k] = snd[slot];
-      q.em[k] = e;
-    }
-    cnt += total;
-    __syncthreads();
+    cnt += queue_live(em, rowof, snd, base, end, cnt, q);
     while (cnt >= TR) {
       tile(TR);
-      const int rest = cnt - TR;
-      int v0 = 0, v1 = 0, v2 = 0;
-      float v3 = 0.0f;
-      if (tid < rest) {
-        v0 = q.slot[TR + tid];
-        v1 = q.row[TR + tid];
-        v2 = q.snd[TR + tid];
-        v3 = q.em[TR + tid];
-      }
-      __syncthreads();
-      if (tid < rest) {
-        q.slot[tid] = v0;
-        q.row[tid] = v1;
-        q.snd[tid] = v2;
-        q.em[tid] = v3;
-      }
-      __syncthreads();
-      cnt = rest;
+      queue_drop<1>(q, TR, cnt);
+      cnt -= TR;
     }
   }
   if (cnt > 0) tile(cnt);
+}
+
+// for_live_tiles with one tile of lookahead (a queue of PEND_AHEAD): a
+// tile runs once 2 x 64 slots are queued or the range is done, as
+// tile(cnt, nxt) over the first cnt entries, while entries [64, 64 + nxt)
+// are the next tile's (nxt = 0: none), so that `tile` can start the next
+// tile's gathers, fetch(64, nxt), as soon as its own have been read;
+// fetch(0, cnt) starts the first tile's.  The tiles, and the slots of
+// each, are for_live_tiles' (the same slots in the same order).
+template <typename Fetch, typename Tile>
+__device__ __forceinline__ void for_live_tiles_ahead(
+    const float* __restrict__ em, const int* __restrict__ rowof,
+    const int* __restrict__ snd, int beg, int end, const LiveQueue& q,
+    Fetch&& fetch, Tile&& tile) {
+  int cnt = 0;
+  bool fetched = false;  // the first tile's gathers are in flight
+  auto take = [&](int c) {
+    if (!fetched) fetch(0, c);
+    const int nxt = min(cnt - c, TR);
+    tile(c, nxt);
+    fetched = nxt > 0;
+    queue_drop<2>(q, c, cnt);
+    cnt -= c;
+  };
+  for (int base = beg; base < end; base += THREADS) {
+    cnt += queue_live(em, rowof, snd, base, end, cnt, q);
+    while (cnt >= 2 * TR) take(TR);
+  }
+  while (cnt > 0) take(min(cnt, TR));
 }
 
 // --------------------------------------------------------- virtual pathway

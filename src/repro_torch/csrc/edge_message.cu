@@ -38,13 +38,21 @@
 //      live slot get zeros.
 // The bf16 mode (template BF; `precision='bf16'` of `_edge_kernel`): x, h
 // and the weights rounded to bf16 (x where it is read, the vectors where
-// they are loaded, h and the weight tiles inside `tile_mma`); rel and d2
+// they are loaded, h and the weight tiles as they are stored); rel and d2
 // are formed in f32 from the rounded coordinates (the reference gathers
 // with a one-hot matmul, f32 result); d2, t1, msg and the gate's SiLU
 // enter their products rounded; the row sums take rounded summands
 // (bf16(msg em), bf16(rel gate em), bf16(em): the reference scatters with
 // a one-hot matmul, edge_message.py:314-326).  A product of two bf16
-// values is exact, so no FMA the compiler fuses can change it.
+// values is exact, so no FMA the compiler fuses can change it.  Its tiles
+// are bf16 (common.cuh: W2, Wg1 and h rounded once, as they are stored;
+// t1 and msg stored rounded, msg also in f32 for the mh sums) and its
+// products bf16 tensor-core MMAs, m16n8k16 on `ldmatrix` fragments
+// (`tile_mma_bf`).  The shared memory this frees holds a stage for the
+// gathers: the tiles come one ahead (`for_live_tiles_ahead`), and as soon
+// as a tile has read its P_r / Q_s rows and coordinates from the stage,
+// cp.async brings the next tile's there while this one's products and
+// row sums run.  P and Q stay f32 (pre1 = P_r + Q_s + ... is an f32 sum).
 // Widths: compiled for Dh = H1 = M = W, W = 32 and 64 (the entry point's
 // `width`; other widths up to 64 arrive zero-padded, wider ones take
 // panel.cu): the tiles are 64 x W, the products 64 x W x W.
@@ -53,17 +61,17 @@
 // the CTA count, the SM count, or how many masked slots the layout holds
 // (a trajectory is bitwise independent of the Verlet skin).  Repeated runs
 // are bitwise equal.  W2 and Wg1 stay in shared memory as swizzled tiles;
-// ~75 KB of shared memory at W = 64 (~34 KB at 32) and at most 128
-// registers give two CTAs an SM.
+// f32: ~75 KB of shared memory at W = 64 (~34 KB at 32), bf16: ~94 KB
+// (~48 KB), and at most 128 registers give two CTAs an SM (CTAS_PER_SM).
 //
 // Bound on an H100: per live edge two 64 x 64 products (.W2, .Wg1) and per
 // node two (h.W1r, h.W1s), ~18K FLOP per edge against a 256-byte gather of
 // Q_s: above the f32 ridge, so bound by operations -- 1.52 GFLOP at the
 // serving shapes (8,192 nodes, 84,806 live edges), 0.0229 ms at the
 // 67 TFLOP/s f32 rate, and 0.0092 ms for its three TF32 MMAs a product at
-// 495 TFLOP/s.  Every product here is a tensor-core tile product; the
-// elementwise SiLU, the gate and the ordered row sums run on the FP32
-// units.
+// 495 TFLOP/s; in bf16 0.0015 ms at 989 TFLOP/s.  Every product here is a
+// tensor-core tile product; the elementwise SiLU, the gate and the
+// ordered row sums run on the FP32 units.
 #include "common.cuh"
 
 namespace {
@@ -73,17 +81,26 @@ enum { F_E = 0, F_REL0, F_REL1, F_REL2, F_D2, F_DX0, F_DX1, F_DX2, F_N };
 // carried sums of an unfinished row: mh (W) | deg | dx (3)
 template <int W>
 constexpr int CARRY = W + 4;
-template <int W>
-constexpr int EDGE_SMEM_FLOATS = 2 * WT<W> + 2 * RT<W> + 5 * W + F_N * TR +
-                                 QUEUE_WORDS + 2 * TR + (TR + 8) +
-                                 2 * CARRY<W>;
+// f32: the W2 and Wg1 tiles, the t1 and msg tiles.  bf16: W2, Wg1, t1 and
+// msg in bf16 (half as many floats), msg in f32, and the stage: the P and
+// Q rows of a tile (2 x 64 x W) and the coordinates of its receivers and
+// senders (2 x 64 x 3)
+template <int W, bool BF>
+constexpr int EDGE_TILE_FLOATS =
+    BF ? WT<W> + 4 * RT<W> + 6 * TR : 2 * WT<W> + 2 * RT<W>;
+template <int W, bool BF>
+constexpr int EDGE_SMEM_FLOATS =
+    EDGE_TILE_FLOATS<W, BF> + 5 * W + F_N * TR +
+    queue_words(BF ? PEND_AHEAD : PEND) + 2 * TR + (TR + 8) + 2 * CARRY<W>;
 // At width 32 shared memory would admit six CTAs an SM, but the 128
 // registers a thread that two CTAs leave are what the width-64 tile pass
-// is built around; both widths keep two.
-constexpr int BLOCKS_PER_SM = 2;
+// is built around; both widths and both modes keep two (the bf16 mode's
+// ~94 KB at 64 admits no third).
+template <int W, bool BF>
+constexpr int CTAS_PER_SM = 2;
 
 template <int W, bool BF>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS, (CTAS_PER_SM<W, BF>))
 edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                const float* __restrict__ em, const int* __restrict__ indptr,
                const int* __restrict__ rowof, const int* __restrict__ ctarow,
@@ -96,17 +113,25 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
                int rel_inv1p, float clamp) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* sW2 = smem;
+  float* sW2 = smem;  // f32 tiles
   float* sWg1 = sW2 + WT<W>;
   float* tT1 = sWg1 + WT<W>;
   float* tMSG = tT1 + RT<W>;
-  float* sw1d = tMSG + RT<W>;
+  Bf* bW2 = reinterpret_cast<Bf*>(smem);  // bf16 tiles
+  Bf* bWg1 = bW2 + WT<W>;
+  Bf* bT1 = bWg1 + WT<W>;
+  Bf* bMSG = bT1 + RT<W>;
+  if (BF) tMSG = reinterpret_cast<float*>(bMSG + RT<W>);
+  float* stage = tMSG + RT<W>;  // bf16: P rows | Q rows
+  float* sx = stage + 2 * RT<W>;  // bf16: x of receivers | of senders
+  float* sw1d = smem + EDGE_TILE_FLOATS<W, BF>;
   float* sb1 = sw1d + W;
   float* sb2 = sb1 + W;
   float* sbg1 = sb2 + W;
   float* swg2 = sbg1 + W;
   float* rq = swg2 + W;  // [F_N][64]
-  const LiveQueue lq(reinterpret_cast<int*>(rq + F_N * TR));
+  const LiveQueue lq(reinterpret_cast<int*>(rq + F_N * TR),
+                     BF ? PEND_AHEAD : PEND);
   // [2][64]
   float* rowred = reinterpret_cast<float*>(lq.wcount + THREADS / 32);
   int* seg = reinterpret_cast<int*>(rowred + 2 * TR);  // segment starts
@@ -118,9 +143,14 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
 
   const int tid = threadIdx.x;
   const Lane L = lane_of();
-  tile_load_async<W>(sW2, w2);
-  if (gate_mlp) tile_load_async<W>(sWg1, wg1);
-  async_commit();
+  if constexpr (BF) {
+    tile_load_bf<W>(bW2, w2);
+    if (gate_mlp) tile_load_bf<W>(bWg1, wg1);
+  } else {
+    tile_load_async<W>(sW2, w2);
+    if (gate_mlp) tile_load_async<W>(sWg1, wg1);
+    async_commit();
+  }
   if (tid < W) {
     sw1d[tid] = rnd<BF>(w1d[tid]);
     sb1[tid] = rnd<BF>(b1[tid]);
@@ -143,8 +173,35 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     if (j == 0) deg[r] = dg;
   };
 
-  // one tile: the first `cnt` (<= 64) live slots of the queue
-  auto tile = [&](int cnt) {
+  // bf16: start the gathers of queue entries [base, base + n) into the
+  // stage (one cp.async group)
+  auto fetch = [&](int base, int n) {
+    constexpr int G = W / 4;
+    for (int f = tid; f < 2 * TR * G; f += THREADS) {
+      const int k = f / (TR * G), i = (f / G) % TR, q = (f % G) * 4;
+      if (i < n) {
+        const int v = k ? lq.snd[base + i] : lq.row[base + i];
+        cp_async16(stage + k * RT<W> + i * W + q,
+                   (k ? Q : P) + (size_t)v * W + q);
+      }
+    }
+    for (int f = tid; f < 6 * TR; f += THREADS) {
+      const int k = f / (3 * TR), i = (f / 3) % TR, c = f % 3;
+      if (i < n) {
+        const int v = k ? lq.snd[base + i] : lq.row[base + i];
+        cp_async4(sx + k * 3 * TR + 3 * i + c, x + 3 * v + c);
+      }
+    }
+    async_commit();
+  };
+
+  // one tile: the first `cnt` (<= 64) live slots of the queue; bf16: the
+  // next tile's `nxt` are entries [64, 64 + nxt)
+  auto tile = [&](int cnt, int nxt) {
+    if (BF) {
+      async_wait_all();
+      __syncthreads();  // this tile's gathers are in
+    }
     if (tid < TR) {
       const bool live = tid < cnt;
       float rel[3] = {0.f, 0.f, 0.f}, d2 = 0.f;
@@ -154,7 +211,9 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
         const int s = lq.snd[tid];
 #pragma unroll
         for (int k = 0; k < 3; ++k)
-          rel[k] = rnd<BF>(x[3 * r + k]) - rnd<BF>(x[3 * s + k]);
+          rel[k] = BF ? bf16_round(sx[3 * tid + k]) -
+                            bf16_round(sx[3 * TR + 3 * tid + k])
+                      : x[3 * r + k] - x[3 * s + k];
         d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
       }
       RQ(F_E)[tid] = live ? lq.em[tid] : 0.0f;
@@ -189,35 +248,46 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       float v[4] = {0.f, 0.f, 0.f, 0.f};
       if (i < cnt) {
         const float4 p = *reinterpret_cast<const float4*>(
-            P + (size_t)lq.row[i] * W + q);
+            BF ? stage + i * W + q : P + (size_t)lq.row[i] * W + q);
         const float4 o = *reinterpret_cast<const float4*>(
-            Q + (size_t)lq.snd[i] * W + q);
+            BF ? stage + RT<W> + i * W + q : Q + (size_t)lq.snd[i] * W + q);
         const float d2 = rnd<BF>(RQ(F_D2)[i]);  // an operand of d2 . w1d
         v[0] = ((p.x + o.x) + d2 * sw1d[q]) + sb1[q];
         v[1] = ((p.y + o.y) + d2 * sw1d[q + 1]) + sb1[q + 1];
         v[2] = ((p.z + o.z) + d2 * sw1d[q + 2]) + sb1[q + 2];
         v[3] = ((p.w + o.w) + d2 * sw1d[q + 3]) + sb1[q + 3];
       }
-      *reinterpret_cast<float4*>(tT1 + swz<W>(i, q)) =
-          make_float4(v[0] * sigm(v[0]), v[1] * sigm(v[1]), v[2] * sigm(v[2]),
-                      v[3] * sigm(v[3]));
+      const float4 t = make_float4(v[0] * sigm(v[0]), v[1] * sigm(v[1]),
+                                   v[2] * sigm(v[2]), v[3] * sigm(v[3]));
+      if (BF)
+        *reinterpret_cast<uint2*>(bT1 + swz16<W>(i, q)) = bf16x4(t);
+      else
+        *reinterpret_cast<float4*>(tT1 + swz<W>(i, q)) = t;
     }
     __syncthreads();
+    if (BF && nxt > 0) fetch(TR, nxt);  // the stage has been read
     {  // msg = t1.W2 + b2
       Frag<W> m;
       frag_zero<W>(m);
-      tile_mma<W, false, false, true, BF>(m, tT1, sW2, L);
+      if constexpr (BF)
+        tile_mma_bf<W, false, false, true>(m, bT1, bW2, L);
+      else
+        tile_mma<W, false, false, true>(m, tT1, sW2, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col<W>(jn, e)];
       frag_store<W>(tMSG, m, L);
+      if (BF) frag_store_bf<W>(bMSG, m, L);
     }
     __syncthreads();
     if (gate_mlp) {  // gate = clip(SiLU(msg.Wg1 + bg1) . wg2)
       Frag<W> gp;
       frag_zero<W>(gp);
-      tile_mma<W, false, false, true, BF>(gp, tMSG, sWg1, L);
+      if constexpr (BF)
+        tile_mma_bf<W, false, false, true>(gp, bMSG, bWg1, L);
+      else
+        tile_mma<W, false, false, true>(gp, tMSG, sWg1, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -288,7 +358,12 @@ edge_fwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
 
   async_wait_all();
   __syncthreads();  // weights in
-  for_live_tiles(em, rowof, snd, indptr[row_lo], indptr[row_hi], lq, tile);
+  const int beg = indptr[row_lo], end = indptr[row_hi];
+  if constexpr (BF)
+    for_live_tiles_ahead(em, rowof, snd, beg, end, lq, fetch, tile);
+  else
+    for_live_tiles(em, rowof, snd, beg, end, lq,
+                   [&](int cnt) { tile(cnt, 0); });
 
   // the last row with live slots, then the rows after it: zeros
   const int crow = meta[1 + cur];
@@ -335,8 +410,8 @@ int launch_forward(const float* x, const float* h, const int* snd,
                    float* deg, float* scratch, int n_nodes, int n_slots,
                    int gate_mlp, int rel_inv1p, float clamp, int n_ctas,
                    cudaStream_t stream) {
-  const size_t e_smem = EDGE_SMEM_FLOATS<W> * sizeof(float);
-  const size_t p_smem = PROJ_SMEM_FLOATS<W> * sizeof(float);
+  const size_t e_smem = EDGE_SMEM_FLOATS<W, BF> * sizeof(float);
+  const size_t p_smem = PROJ_SMEM_FLOATS<W, BF> * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       edge_fwd_edges<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)e_smem);
@@ -389,7 +464,31 @@ extern "C" int edge_forward(const float* x, const float* h, const int* snd,
   });
 }
 
-extern "C" int edge_fwd_blocks_per_sm() { return BLOCKS_PER_SM; }
+// the CTAs an SM the edge kernel is built for (the wrapper launches that
+// many an SM)
+extern "C" int edge_fwd_blocks_per_sm(int width, int bf16) {
+  return with_width(width, bf16, [](auto w, auto bf) {
+    return CTAS_PER_SM<decltype(w)::value, decltype(bf)::value>;
+  });
+}
+
+// the CTAs of the edge kernel an SM holds at once, as the card reports
+// it for its registers and shared memory (-1 on an error)
+extern "C" int edge_fwd_occupancy(int width, int bf16) {
+  return with_width(width, bf16, [](auto w, auto bf) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool B = decltype(bf)::value;
+    const int bytes = EDGE_SMEM_FLOATS<W, B> * sizeof(float);
+    int n = -1;
+    if (cudaFuncSetAttribute(edge_fwd_edges<W, B>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, edge_fwd_edges<W, B>, THREADS, bytes) != cudaSuccess)
+      return -1;
+    return n;
+  });
+}
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -43,24 +43,34 @@
 // its two passes): the forward's rounding points in the recompute
 // (edge_message.cu); the gathered inv, g_mh and g_dx rounded (the
 // reference gathers them with one-hot matmuls); every product's operands
-// rounded (tile_mma), while the column sums (b1, b2, bg1) and g_gate,
+// rounded (tile_mma_bf), while the column sums (b1, b2, bg1) and g_gate,
 // g_rel take unrounded terms (edge_message.py:488-609).  The node pass's
 // summands are the reference's scatter operands, rounded: bf16(g_rel),
 // bf16(g_pre1) and the per-edge products bf16(bf16(g_pre1) W1r^T) /
 // bf16(bf16(g_pre1) W1s^T), which the edge pass forms as two more tile
-// products (W1r and W1s resident too: one CTA an SM at W = 64) and stores
-// per slot; so in bf16 the node pass sums gh instead of multiplying the
-// summed G and S, and forms h^T G, h^T S with h rounded and G, S in f32
-// (3xTF32: the reference's sum of bf16 products, exact in f32).
-// All 64 x 64 products run on the tensor cores in 3xTF32 (common.cuh):
-// mma.sync.m16n8k8, the transposes read from the same swizzled tile in the
-// other operand layout.  SiLU, the gate, the clip and the sums run on the
-// FP32 units, one exponential per SiLU and its derivative.  Shared memory:
-// edge pass 6 tiles (2 weights, 3 activations, silu'(pre1)) + row data and
-// the compaction queue, ~111 KB: two CTAs of 8 warps per SM, at most 128
-// registers a thread; node pass 5 tiles, 80 KB (at W = 32: ~55 and 32
-// KB).  Widths: compiled for Dh = H1 = M = W, W = 32 and 64 (the entry
-// point's `width`, as edge_message.cu).
+// products (W1r and W1s resident too) and stores per slot; so in bf16
+// the node pass sums gh instead of multiplying the summed G and S, and
+// forms h^T G, h^T S with h rounded and G, S in f32 (3xTF32: the
+// reference's sum of bf16 products, exact in f32).
+// The bf16 edge pass keeps its tiles in bf16 (common.cuh): the four weight
+// tiles W2, Wg1, W1r, W1s rounded once as they are stored, and t1, msg /
+// g_msg, g_gp1 / g_pre1 stored rounded, as every read of them is a
+// product's operand; only silu'(pre1), an f32 factor, stays f32.  Its
+// products are bf16 tensor-core MMAs (`tile_mma_bf`, m16n8k16 on
+// `ldmatrix` fragments).  Its per-slot scratch (g_pre1 and the two dh
+// terms, each a rounded value) is bf16, 3 x 2 W bytes a live slot; the
+// node pass widens it to f32 and sums it as before.
+// The f32 mode's 64 x 64 products run on the tensor cores in 3xTF32
+// (common.cuh): mma.sync.m16n8k8, the transposes read from the same
+// swizzled tile in the other operand layout.  SiLU, the gate, the clip and
+// the sums run on the FP32 units, one exponential per SiLU and its
+// derivative.  Shared memory: edge pass 6 tiles (2 weights, 3
+// activations, silu'(pre1)) + row data and the compaction queue, ~111 KB
+// (bf16: 4 weights and 3 activations in bf16, silu'(pre1) in f32, ~89 KB):
+// two CTAs of 8 warps per SM, at most 128 registers a thread; node pass 5
+// tiles, 80 KB (at W = 32: ~55 (bf16 ~44) and 32 KB).  Widths: compiled
+// for Dh = H1 = M = W, W = 32 and 64 (the entry point's `width`, as
+// edge_message.cu).
 //
 // Bound on an H100: per live edge six 64x64 products (recompute .W2 and
 // .Wg1; cotangents through Wg1^T and W2^T; the W2 and Wg1 outer products)
@@ -90,10 +100,15 @@ constexpr int PN = 2 * W * W;
 // edge-pass row data (64 each)
 enum { Q_E = 0, Q_REL0, Q_REL1, Q_REL2, Q_D2, Q_INV, Q_U0, Q_U1, Q_U2, Q_GG,
        Q_GR0, Q_GR1, Q_GR2, Q_GQ2, Q_N };
+// f32: the W2 and Wg1 tiles, t1, msg / g_msg, g_gp1 / g_pre1 and
+// silu'(pre1); bf16: W2, Wg1, W1r, W1s, t1, msg / g_msg and g_gp1 / g_pre1
+// in bf16 (half as many floats), silu'(pre1) in f32
 template <int W, bool BF>
-constexpr int EDGE_SMEM_FLOATS = (BF ? 4 : 2) * WT<W> + 4 * RT<W> + 5 * W +
-                                 Q_N * TR + QUEUE_WORDS + 2 * TR +
-                                 5 * 4 * TR;
+constexpr int EDGE_TILE_FLOATS =
+    BF ? 2 * WT<W> + 5 * RT<W> / 2 : 2 * WT<W> + 4 * RT<W>;
+template <int W, bool BF>
+constexpr int EDGE_SMEM_FLOATS = EDGE_TILE_FLOATS<W, BF> + 5 * W + Q_N * TR +
+                                 QUEUE_WORDS + 2 * TR + 5 * 4 * TR;
 template <int W>
 constexpr int NODE_SMEM_FLOATS = 2 * WT<W> + 3 * RT<W>;
 
@@ -116,13 +131,21 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   using EP = EdgePart<W>;
-  float* sW2 = smem;
+  float* sW2 = smem;  // f32 tiles
   float* sWg1 = sW2 + WT<W>;
   float* tT1 = sWg1 + WT<W>;
   float* tMSG = tT1 + RT<W>;  // msg, then g_msg
   float* tGG = tMSG + RT<W>;  // g_gp1, then g_pre1
   float* tSG = tGG + RT<W>;   // silu'(pre1)
-  float* sw1d = tSG + RT<W>;
+  Bf* bW2 = reinterpret_cast<Bf*>(smem);  // bf16 tiles
+  Bf* bWg1 = bW2 + WT<W>;
+  Bf* bW1r = bWg1 + WT<W>;
+  Bf* bW1s = bW1r + WT<W>;
+  Bf* bT1 = bW1s + WT<W>;
+  Bf* bMSG = bT1 + RT<W>;  // msg, then g_msg
+  Bf* bGG = bMSG + RT<W>;  // g_gp1, then g_pre1
+  if (BF) tSG = reinterpret_cast<float*>(bGG + RT<W>);
+  float* sw1d = smem + EDGE_TILE_FLOATS<W, BF>;
   float* sb1 = sw1d + W;
   float* sb2 = sb1 + W;
   float* sbg1 = sb2 + W;
@@ -133,19 +156,20 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   const float* pem = lq.em;
   float* rowred = reinterpret_cast<float*>(rq + Q_N * TR + QUEUE_WORDS);
   float* colred = rowred + 2 * TR;  // [5 sums][4][64]
-  float* sW1r = colred + 5 * 4 * TR;  // bf16 only: W1r, W1s
-  float* sW1s = sW1r + WT<W>;
   auto RQ = [&](int k) { return rq + k * TR; };
 
   const int tid = threadIdx.x;
   const Lane L = lane_of();
-  tile_load_async<W>(sW2, w2);
-  if (gate_mlp) tile_load_async<W>(sWg1, wg1);
-  if (BF) {
-    tile_load_async<W>(sW1r, w1r);
-    tile_load_async<W>(sW1s, w1s);
+  if constexpr (BF) {
+    tile_load_bf<W>(bW2, w2);
+    if (gate_mlp) tile_load_bf<W>(bWg1, wg1);
+    tile_load_bf<W>(bW1r, w1r);
+    tile_load_bf<W>(bW1s, w1s);
+  } else {
+    tile_load_async<W>(sW2, w2);
+    if (gate_mlp) tile_load_async<W>(sWg1, wg1);
+    async_commit();
   }
-  async_commit();
   if (tid < W) {
     sw1d[tid] = rnd<BF>(w1d[tid]);
     sb1[tid] = rnd<BF>(b1[tid]);
@@ -196,7 +220,7 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     }
     __syncthreads();
     // pre1 = ((P_r + Q_s) + d2 w1d) + b1 (0 on rows past cnt); t1 =
-    // silu(pre1) into tT1, silu'(pre1) into tSG
+    // silu(pre1) into tT1 (bf16: bT1, rounded), silu'(pre1) into tSG
     for (int f = tid; f < TR * W / 4; f += THREADS) {
       const int i = f / (W / 4), q = (f % (W / 4)) * 4;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -214,8 +238,12 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       float t[4], g[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) silu_both(v[k], t[k], g[k]);
-      *reinterpret_cast<float4*>(tT1 + swz<W>(i, q)) =
-          make_float4(t[0], t[1], t[2], t[3]);
+      if (BF)
+        *reinterpret_cast<uint2*>(bT1 + swz16<W>(i, q)) =
+            bf16x4(make_float4(t[0], t[1], t[2], t[3]));
+      else
+        *reinterpret_cast<float4*>(tT1 + swz<W>(i, q)) =
+            make_float4(t[0], t[1], t[2], t[3]);
       *reinterpret_cast<float4*>(tSG + swz<W>(i, q)) =
           make_float4(g[0], g[1], g[2], g[3]);
     }
@@ -223,18 +251,27 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
     {  // msg = t1.W2 + b2
       Frag<W> m;
       frag_zero<W>(m);
-      tile_mma<W, false, false, false, BF>(m, tT1, sW2, L);
+      if constexpr (BF)
+        tile_mma_bf<W, false, false>(m, bT1, bW2, L);
+      else
+        tile_mma<W, false, false>(m, tT1, sW2, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) m[jn][e] += sb2[L.col<W>(jn, e)];
-      frag_store<W>(tMSG, m, L);
+      if (BF)
+        frag_store_bf<W>(bMSG, m, L);
+      else
+        frag_store<W>(tMSG, m, L);
     }
     __syncthreads();
     if (gate_mlp) {
       Frag<W> gp, sv;
       frag_zero<W>(gp);
-      tile_mma<W, false, false, false, BF>(gp, tMSG, sWg1, L);
+      if constexpr (BF)
+        tile_mma_bf<W, false, false>(gp, bMSG, bWg1, L);
+      else
+        tile_mma<W, false, false>(gp, tMSG, sWg1, L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -288,16 +325,27 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
           sv[jn][e] = rnd<BF>(sgp) * g_gate;
           gp[jn][e] = (g_gate * swg2[L.col<W>(jn, e)]) * dsgp;
         }
-      frag_store<W>(tGG, gp, L);
+      if (BF)
+        frag_store_bf<W>(bGG, gp, L);
+      else
+        frag_store<W>(tGG, gp, L);
       frag_colsum<W>(gp, L, colred);           // bg1
       frag_colsum<W>(sv, L, colred + 4 * TR);  // wg2
       __syncthreads();
-      tile_mma<W, true, false, false, BF>(aWg1, tMSG, tGG, L);
+      if constexpr (BF)
+        tile_mma_bf<W, true, false>(aWg1, bMSG, bGG, L);
+      else
+        tile_mma<W, true, false>(aWg1, tMSG, tGG, L);
     }
     {  // g_msg = g_mh[r] inv em (+ g_gp1.Wg1^T)
       Frag<W> gm;
       frag_zero<W>(gm);
-      if (gate_mlp) tile_mma<W, false, true, false, BF>(gm, tGG, sWg1, L);
+      if (gate_mlp) {
+        if constexpr (BF)
+          tile_mma_bf<W, false, true>(gm, bGG, bWg1, L);
+        else
+          tile_mma<W, false, true>(gm, tGG, sWg1, L);
+      }
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -318,7 +366,10 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
         }
       frag_colsum<W>(gm, L, colred + 8 * TR);  // b2
       __syncthreads();  // msg and g_gp1 are read
-      frag_store<W>(tMSG, gm, L);
+      if (BF)
+        frag_store_bf<W>(bMSG, gm, L);
+      else
+        frag_store<W>(tMSG, gm, L);
     }
     __syncthreads();
     if (tid < W) {
@@ -328,10 +379,15 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
         cwg2 += colsum4(colred + 4 * TR, tid);
       }
     }
-    tile_mma<W, true, false, false, BF>(aW2, tT1, tMSG, L);
     Frag<W> gp;  // g_pre1 = (g_msg.W2^T) silu'(pre1), into tGG (read above)
     frag_zero<W>(gp);
-    tile_mma<W, false, true, false, BF>(gp, tMSG, sW2, L);
+    if constexpr (BF) {
+      tile_mma_bf<W, true, false>(aW2, bT1, bMSG, L);
+      tile_mma_bf<W, false, true>(gp, bMSG, bW2, L);
+    } else {
+      tile_mma<W, true, false>(aW2, tT1, tMSG, L);
+      tile_mma<W, false, true>(gp, tMSG, sW2, L);
+    }
     {
       Frag<W> dg, gw;
 #pragma unroll
@@ -343,7 +399,10 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
           dg[jn][e] = rnd<BF>(RQ(Q_D2)[L.row(e)]) * rnd<BF>(gp[jn][e]);
           gw[jn][e] = __fmul_rn(rnd<BF>(gp[jn][e]), sw1d[L.col<W>(jn, e)]);
         }
-      frag_store<W>(tGG, gp, L);
+      if (BF)  // bf16: g_pre1 rounded, the operand of its every read
+        frag_store_bf<W>(bGG, gp, L);
+      else
+        frag_store<W>(tGG, gp, L);
       frag_rowsum<W>(gw, L, rowred);
       frag_colsum<W>(gp, L, colred + 12 * TR);  // b1
       frag_colsum<W>(dg, L, colred + 16 * TR);  // w1d
@@ -363,35 +422,40 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
       g.w = 0.0f;
       *reinterpret_cast<float4*>(GREL + (size_t)pslot[tid] * 4) = g;
     }
-    for (int f = tid; f < TR * W / 4; f += THREADS) {
-      const int i = f / (W / 4), q = (f % (W / 4)) * 4;
-      if (i < cnt) {
-        float4 v = *reinterpret_cast<const float4*>(tGG + swz<W>(i, q));
-        if (BF)
-          v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
-                          bf16_round(v.w));
-        *reinterpret_cast<float4*>(GPRE1 + (size_t)pslot[i] * W + q) = v;
+    if constexpr (BF) {
+      // the node pass's summands, bf16: g_pre1, and the per-edge dh terms
+      // bf16(bf16(g_pre1) W1r^T), ... W1s^T
+      Bf* gpre1 = reinterpret_cast<Bf*>(GPRE1);
+      for (int f = tid; f < TR * W / 8; f += THREADS) {
+        const int i = f / (W / 8), q = (f % (W / 8)) * 8;
+        if (i < cnt)
+          *reinterpret_cast<uint4*>(gpre1 + (size_t)pslot[i] * W + q) =
+              *reinterpret_cast<const uint4*>(bGG + swz16<W>(i, q));
       }
-    }
-    if (BF) {  // the per-edge dh terms bf16(bf16(g_pre1) W1r^T), ... W1s^T
-      float* dst[2] = {GR, GS};
-      const float* Wk[2] = {sW1r, sW1s};
+      Bf* dst[2] = {reinterpret_cast<Bf*>(GR), reinterpret_cast<Bf*>(GS)};
+      const Bf* Wk[2] = {bW1r, bW1s};
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         Frag<W> a;
         frag_zero<W>(a);
-        tile_mma<W, false, true, false, true>(a, tGG, Wk[k], L);
+        tile_mma_bf<W, false, true>(a, bGG, Wk[k], L);
 #pragma unroll
         for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
           for (int h2 = 0; h2 < 2; ++h2) {
             const int i = L.row(2 * h2);
             if (i < cnt)
-              *reinterpret_cast<float2*>(dst[k] + (size_t)pslot[i] * W +
-                                         L.col<W>(jn, 0)) =
-                  make_float2(bf16_round(a[jn][2 * h2]),
-                              bf16_round(a[jn][2 * h2 + 1]));
+              *reinterpret_cast<uint32_t*>(dst[k] + (size_t)pslot[i] * W +
+                                           L.col<W>(jn, 0)) =
+                  bf16x2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
           }
+      }
+    } else {
+      for (int f = tid; f < TR * W / 4; f += THREADS) {
+        const int i = f / (W / 4), q = (f % (W / 4)) * 4;
+        if (i < cnt)
+          *reinterpret_cast<float4*>(GPRE1 + (size_t)pslot[i] * W + q) =
+              *reinterpret_cast<const float4*>(tGG + swz<W>(i, q));
       }
     }
     __syncthreads();
@@ -418,18 +482,56 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   }
 }
 
+// Columns (W/8) gl .. (W/8) gl + W/8 - 1 of row s of a (rows x W) array
+// of f32 or bf16 (widened, exactly), or zeros if !ok: one 16-byte load
+// (bf16 at W = 32: 8 bytes) for every four (eight) of them.
+template <int W, typename T>
+__device__ __forceinline__ void row_cols(const T* __restrict__ a, int s,
+                                         bool ok, int gl,
+                                         float (&v)[W / 8]) {
+  const size_t off = (size_t)(ok ? s : 0) * W + (W / 8) * gl;
+  if constexpr (std::is_same<T, float>::value) {
+    const float4* row = reinterpret_cast<const float4*>(a + off);
+#pragma unroll
+    for (int k = 0; k < W / 32; ++k) {
+      const float4 t = ok ? row[k] : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * k] = t.x;
+      v[4 * k + 1] = t.y;
+      v[4 * k + 2] = t.z;
+      v[4 * k + 3] = t.w;
+    }
+  } else {
+    uint32_t u[W / 16];
+    if constexpr (W == 64) {
+      const uint4 t = ok ? *reinterpret_cast<const uint4*>(a + off)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      u[0] = t.x;
+      u[1] = t.y;
+      u[2] = t.z;
+      u[3] = t.w;
+    } else {
+      const uint2 t = ok ? *reinterpret_cast<const uint2*>(a + off)
+                         : make_uint2(0u, 0u);
+      u[0] = t.x;
+      u[1] = t.y;
+    }
+#pragma unroll
+    for (int k = 0; k < W / 16; ++k) bf16_widen(u[k], v[2 * k], v[2 * k + 1]);
+  }
+}
+
 // A group of 8 lanes (lane gl owns columns (W/8) gl .. (W/8) gl + W/8 - 1)
 // adds, in p order, the g_pre1 rows of the live slots s(p), p in [p0, p1)
 // -- s(p) = p, or perm[p] -- into acc, the rows of X (if ROW2) into acc2,
 // and lanes gl < 3 add sign * g_rel[gl] into d.  Eight masks are read at
-// once and four rows are in flight.
-template <int W, bool PERM, bool ROW2>
+// once and four rows are in flight.  The rows are f32, or bf16 (T = Bf).
+template <int W, bool PERM, bool ROW2, typename T>
 __device__ __forceinline__ void segment_sum(
     const int* __restrict__ perm, const float* __restrict__ em,
-    const float* __restrict__ GPRE1, const float* __restrict__ GREL,
-    const float* __restrict__ X, int p0, int p1, int gl, int grp,
+    const T* __restrict__ GPRE1, const float* __restrict__ GREL,
+    const T* __restrict__ X, int p0, int p1, int gl, int grp,
     float sign, float (&acc)[W / 8], float (&acc2)[W / 8], float& d) {
-  constexpr int V = W / 32;  // float4s a lane
+  constexpr int C = W / 8;  // columns a lane
   const unsigned gm = 0xffu << (8 * grp);
   for (int b = p0; b < p1; b += 8) {
     const int p = b + gl;
@@ -444,40 +546,21 @@ __device__ __forceinline__ void segment_sum(
         sl[u] = m ? v : -1;
         m &= m - 1;
       }
-      float4 v[4][V], v2[ROW2 ? 4 : 1][V];
+      float v[4][C], v2[ROW2 ? 4 : 1][C];
       float g[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const size_t off = (size_t)(sl[u] >= 0 ? sl[u] : 0) * W + (W / 8) * gl;
-        const float4* row = reinterpret_cast<const float4*>(GPRE1 + off);
-#pragma unroll
-        for (int k = 0; k < V; ++k)
-          v[u][k] = sl[u] >= 0 ? row[k] : make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ROW2) {
-          const float4* row2 = reinterpret_cast<const float4*>(X + off);
-#pragma unroll
-          for (int k = 0; k < V; ++k)
-            v2[ROW2 ? u : 0][k] =
-                sl[u] >= 0 ? row2[k] : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
+        row_cols<W>(GPRE1, sl[u], sl[u] >= 0, gl, v[u]);
+        if (ROW2) row_cols<W>(X, sl[u], sl[u] >= 0, gl, v2[ROW2 ? u : 0]);
         g[u] = sl[u] >= 0 && gl < 3 ? GREL[(size_t)sl[u] * 4 + gl] : 0.0f;
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         if (sl[u] >= 0) {
 #pragma unroll
-          for (int k = 0; k < V; ++k) {
-            acc[4 * k] += v[u][k].x;
-            acc[4 * k + 1] += v[u][k].y;
-            acc[4 * k + 2] += v[u][k].z;
-            acc[4 * k + 3] += v[u][k].w;
-            if (ROW2) {
-              const float4 w = v2[ROW2 ? u : 0][k];
-              acc2[4 * k] += w.x;
-              acc2[4 * k + 1] += w.y;
-              acc2[4 * k + 2] += w.z;
-              acc2[4 * k + 3] += w.w;
-            }
+          for (int c = 0; c < C; ++c) {
+            acc[c] += v[u][c];
+            if (ROW2) acc2[c] += v2[ROW2 ? u : 0][c];
           }
           d += sign * g[u];
         }
@@ -503,6 +586,9 @@ edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
   float* sWr = reinterpret_cast<float*>(smem4);
   float* sWs = sWr + WT<W>;
   float* tH = sWs + WT<W>;
+  // the edge pass's per-slot rows: bf16 in the bf16 mode
+  using T = std::conditional_t<BF, Bf, float>;
+  const T* gpre1 = reinterpret_cast<const T*>(GPRE1);
   float* tG = tH + RT<W>;
   float* tS = tG + RT<W>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -526,9 +612,11 @@ edge_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
     for (int c = 0; c < CPL; ++c) G[c] = S[c] = Hr[c] = Hs[c] = 0.0f;
     float dr = 0.0f, ds = 0.0f;  // lanes gl < 3: component gl
     if (i < n_nodes) {
-      segment_sum<W, false, BF>(nullptr, em, GPRE1, GREL, GR, indptr[i],
+      segment_sum<W, false, BF>(nullptr, em, gpre1, GREL,
+                                reinterpret_cast<const T*>(GR), indptr[i],
                                 indptr[i + 1], gl, grp, 1.0f, G, Hr, dr);
-      segment_sum<W, true, BF>(sperm, em, GPRE1, GREL, GS, sptr[i],
+      segment_sum<W, true, BF>(sperm, em, gpre1, GREL,
+                               reinterpret_cast<const T*>(GS), sptr[i],
                                sptr[i + 1], gl, grp, -1.0f, S, Hs, ds);
       if (gl < 3) gx[3 * i + gl] = dr + ds;
       if (BF) {  // gh = dh_r + dh_s, the reference's two passes
@@ -627,10 +715,11 @@ Scratch carve(float* base, int n, int e, int n_edge_ctas) {
   };
   s.P = take((size_t)n * W);
   s.Q = take((size_t)n * W);
-  s.GPRE1 = take((size_t)e * W);
+  // bf16: g_pre1, GR and GS as bf16, half a float an element
+  s.GPRE1 = take((size_t)e * W / (BF ? 2 : 1));
   s.GREL = take((size_t)e * 4);
-  s.GR = BF ? take((size_t)e * W) : nullptr;
-  s.GS = BF ? take((size_t)e * W) : nullptr;
+  s.GR = BF ? take((size_t)e * W / 2) : nullptr;
+  s.GS = BF ? take((size_t)e * W / 2) : nullptr;
   s.rowof = reinterpret_cast<int*>(take((size_t)e));
   s.pe = take((size_t)n_edge_ctas * EdgePart<W>::size);
   s.pn = take((size_t)n_tiles(n) * PN<W>);
@@ -650,7 +739,7 @@ int launch_backward(
     cudaStream_t stream) {
   const size_t e_smem = EDGE_SMEM_FLOATS<W, BF> * sizeof(float);
   const size_t n_smem = NODE_SMEM_FLOATS<W> * sizeof(float);
-  const size_t p_smem = PROJ_SMEM_FLOATS<W> * sizeof(float);
+  const size_t p_smem = PROJ_SMEM_FLOATS<W, BF> * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       edge_bwd_edges<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)e_smem);
@@ -724,6 +813,24 @@ extern "C" int edge_backward(
         x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d, b1, w2, b2, wg1,
         bg1, wg2, deg, gdx, gmh, gx, gh, o, scratch, n_nodes, n_slots,
         gate_mlp, rel_inv1p, clamp, n_blocks, (cudaStream_t)stream_ptr);
+  });
+}
+
+// the CTAs of the edge pass an SM holds at once, as the card reports it
+// for its registers and shared memory (-1 on an error)
+extern "C" int edge_bwd_occupancy(int width, int bf16) {
+  return with_width(width, bf16, [](auto w, auto bf) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool B = decltype(bf)::value;
+    const int bytes = EDGE_SMEM_FLOATS<W, B> * sizeof(float);
+    int n = -1;
+    if (cudaFuncSetAttribute(edge_bwd_edges<W, B>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, edge_bwd_edges<W, B>, THREADS, bytes) != cudaSuccess)
+      return -1;
+    return n;
   });
 }
 

@@ -142,7 +142,9 @@ def _bind(lib: ctypes.CDLL) -> None:
                                  + [ctypes.c_float] + [ctypes.c_int] * 3
                                  + [ctypes.c_void_p])
     lib.edge_forward.restype = ctypes.c_int
-    lib.edge_fwd_blocks_per_sm.restype = ctypes.c_int
+    for fn in (lib.edge_fwd_blocks_per_sm, lib.edge_fwd_occupancy):
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -154,6 +156,8 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
                                   + [ctypes.c_float] + [ctypes.c_int] * 3
                                   + [ctypes.c_void_p])
     lib.edge_backward.restype = ctypes.c_int
+    lib.edge_bwd_occupancy.argtypes = [ctypes.c_int] * 2
+    lib.edge_bwd_occupancy.restype = ctypes.c_int
 
 
 def _bind_identity(lib: ctypes.CDLL) -> None:
@@ -367,7 +371,7 @@ def edge_pathway_fused(x: Tensor, h: Tensor, snd: Tensor, em: Tensor,
         dx, mh, deg = empty(n, 3), empty(n, mp), empty(n, 1)
         n_ctas = EDGE_FWD_CTAS or (
             torch.cuda.get_device_properties(dev).multi_processor_count
-            * lib.edge_fwd_blocks_per_sm())
+            * lib.edge_fwd_blocks_per_sm(mp, int(bf16)))
         scratch = empty(int(lib.edge_fwd_scratch_floats(n, e, n_ctas, mp)))
         ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
         err = lib.edge_forward(*ptrs, n, e, *flags, n_ctas, mp, int(bf16),

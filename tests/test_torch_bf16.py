@@ -70,6 +70,10 @@ MODEL_N, MODEL_E = 48, 120
 TRAIN = dict(n_layers=1, hidden=16, s_dim=16, n_virtual=3)
 TRAIN_TC = dict(lam_mmd=0.03, mmd_sample=None, lr=1e-3, loss_scale=1024.0)
 R = 0.035
+# SchNet's first train step (the zoo's identity-gate model), bf16 at
+# TRAIN_TC's loss scale against its f32 step, in both packages
+SCHNET = dict(n_layers=2, hidden=16, h_in=1)
+SCHNET_KEY = 2
 
 
 # ------------------------------------------------------------- inputs
@@ -131,6 +135,21 @@ def _model_graph(seed=12):
     return out
 
 
+class _GradsOut:
+    """An optimiser whose update returns the gradients: the train step's
+    new parameters are its gradients."""
+
+    def update(self, grads, state, params):
+        return grads, state
+
+
+def _schnet_tc(prec):
+    tc = dict(TRAIN_TC)
+    if prec == "f32":
+        del tc["loss_scale"]
+    return tc
+
+
 # ------------------------------------------- the reference (subprocess)
 def _reference(path, part):
     """Run the JAX package's bf16 edge kernels (``part`` 'edge'), virtual
@@ -168,6 +187,23 @@ def _reference(path, part):
         for i, t in enumerate(tuple(fwd) + tuple(bwd)):
             out[f"virtual/{name}/{i}"] = np.asarray(t)
     if part in ("edge", "virtual"):
+        np.savez(path, **out)
+        return
+    if part == "schnet":  # its first train step's gradients, bf16 and f32
+        from repro.training.trainer import build_train_step as j_bts
+
+        data = generate_fluid_dataset(5, n_particles=64)
+        for prec in ("bf16", "f32"):
+            jp = j_build("schnet", jax.random.PRNGKey(SCHNET_KEY),
+                         train_cfg=JTrainConfig(**_schnet_tc(prec)),
+                         use_kernel=True, precision=prec, **SCHNET)
+            batch = list(jp.make_batches(data[:2], 2, r=R,
+                                         num_workers=0))[0]
+            step, _ = j_bts(jp.apply_full, jp.cfg, jp.train_cfg, _GradsOut())
+            grads, _, m = step(jp.params, None, batch, jax.random.PRNGKey(0))
+            out[f"schnet/{prec}/loss"] = np.asarray(m["loss"])
+            for i, leaf in enumerate(jax.tree.leaves(grads)):
+                out[f"schnet/{prec}/grad/{i}"] = np.asarray(leaf)
         np.savez(path, **out)
         return
     if part == "train":  # one bf16 train step at loss_scale 1024
@@ -212,7 +248,7 @@ def _reference(path, part):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference's outputs, from four processes side by side (each
+    """The reference's outputs, from five processes side by side (each
     compiles interpret-mode Pallas kernels for 10-20 s)."""
     tmp = tmp_path_factory.mktemp("bf16_ref")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -223,7 +259,8 @@ def reference(tmp_path_factory):
     runs = {part: subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(tmp / part), part],
         env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-        text=True) for part in ("edge", "virtual", "model", "train")}
+        text=True) for part in ("edge", "virtual", "model", "train",
+                                   "schnet")}
     out = {}
     for part, run in runs.items():
         _, err = run.communicate(timeout=600)
@@ -396,6 +433,47 @@ def test_bf16_train_step_matches_reference(reference):
     for i, leaf in enumerate(t_optim.tree_leaves(new)):
         _assert_rel(leaf, reference[f"train/param/{i}"], MODEL_TOL,
                     f"updated parameter {i}")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_schnet_bf16_train_step_matches_reference(reference):
+    """SchNet's first bf16 train step (the identity-gate kernels' plain
+    bf16 versions, loss_scale 1024) against the reference's in bf16, leaf
+    by leaf within MODEL_TOL; and its f32 step within 1e-4.  Prints each
+    leaf's bf16-vs-f32 distance in both packages (the card's zoo_bf16
+    phase reads it, ungated, at full width)."""
+    import jax
+
+    from repro.data.fluid import generate_fluid_dataset
+    from repro.pipeline import build_pipeline as j_build
+    from repro_torch.training.trainer import build_train_step
+
+    jp = j_build("schnet", jax.random.PRNGKey(SCHNET_KEY), **SCHNET)
+    params = jax.tree.map(np.asarray, jp.params)
+    data = generate_fluid_dataset(5, n_particles=64)
+    grads = {}
+    for prec in ("bf16", "f32"):
+        tp = build_pipeline("schnet", device="cpu",
+                            train_cfg=TrainConfig(**_schnet_tc(prec)),
+                            params=params_from_jax(params, device="cpu"),
+                            use_kernel=True, precision=prec, **SCHNET)
+        batch = tp.make_batches(data[:2], 2, r=R)[0]
+        step, _ = build_train_step(tp.apply_full, tp.cfg, tp.train_cfg,
+                                   _GradsOut())
+        g, _, m = step(tp.params, None, batch)
+        _assert_rel(m["loss"].item(), reference[f"schnet/{prec}/loss"],
+                    MODEL_TOL if prec == "bf16" else 1e-4, f"{prec} loss")
+        grads[prec] = t_optim.tree_leaves(g)
+    readings = []
+    for i, (gb, gf) in enumerate(zip(grads["bf16"], grads["f32"])):
+        jb = reference[f"schnet/bf16/grad/{i}"]
+        jf = reference[f"schnet/f32/grad/{i}"]
+        assert torch.isfinite(gb).all()
+        _assert_rel(gb, jb, MODEL_TOL, f"bf16 grad leaf {i}")
+        _assert_rel(gf, jf, 1e-4, f"f32 grad leaf {i}")
+        readings.append((i, _rel_l2(jb, jf), _rel_l2(gb, gf)))
+    print("SchNet bf16 vs f32, per gradient leaf (leaf, reference, port):",
+          " ".join(f"{i}:{a:.3g}/{b:.3g}" for i, a, b in readings))
 
 
 @pytest.mark.usefixtures("one_torch_thread")

@@ -1907,3 +1907,116 @@ def test_fast_egnn_bf16_launch_counts_and_close_to_f32(hidden):
     assert torch.isfinite(outs["bf16", True]).all()
     assert 0 < _rel_l2(outs["bf16", True], outs["f32", True]) < 0.1
     assert torch.equal(outs["bf16", False], outs["f32", False])
+
+
+# ------------------------------------- the bf16 edge pair on bf16 tiles
+@needs_cuda
+@pytest.mark.parametrize("width", [16, 24, 32, 48, 64])
+def test_edge_pair_bf16_cta_counts_bitwise(width):
+    """#1 and #2 in bf16 on the tile route (16 and 24 padded to 32, 48 to
+    64): within BF_L2 of the bf16 plain versions, and bitwise the same
+    under another CTA count (#2: gx and gh; its weight gradients add the
+    CTAs' partials in CTA order, within BF_L2)."""
+    dev = torch.device("cuda")
+    args, sender, kw = _bf16_edge_case(dev, "mlp", width)
+    kw["precision"] = "bf16"
+    n = args[0].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(width + 1)
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_mh = torch.randn((n, width), generator=gen, device=dev)
+    fwd = lambda: edge_message.edge_pathway_fused(*args, **kw)
+    with torch.no_grad():
+        want = edge_message.edge_pathway_plain(*args, **kw)
+        deg = want[2].contiguous()
+        bwd = lambda: edge_message.edge_pathway_bwd_fused(
+            *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw)
+        gwant = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh,
+                                                    deg=deg, **kw)
+        outs = []
+        for f_ctas, b_ctas in ((None, edge_message.EDGE_BWD_CTAS), (7, 61)):
+            old = edge_message.EDGE_FWD_CTAS, edge_message.EDGE_BWD_CTAS
+            edge_message.EDGE_FWD_CTAS, edge_message.EDGE_BWD_CTAS = (f_ctas,
+                                                                      b_ctas)
+            try:
+                outs.append((fwd(), bwd()))
+            finally:
+                edge_message.EDGE_FWD_CTAS, edge_message.EDGE_BWD_CTAS = old
+    for got, grads in outs:
+        for g, w in list(zip(got, want)) + list(zip(grads, gwant)):
+            if w.numel() and float(w.abs().max()) > 0:
+                assert _rel_l2(g, w) <= BF_L2
+    (f1, g1), (f2, g2) = outs
+    assert all(torch.equal(a, b) for a, b in zip(f1, f2))
+    assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
+
+
+def _sass_functions(lib_path) -> dict:
+    """{function name: its SASS} of a built library (cuobjdump -sass)."""
+    import os
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                         capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(ln)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+@needs_cuda
+def test_edge_pair_bf16_runs_bf16_mma():
+    """The bf16 instantiations of #1 (edge_fwd_edges, node_proj) and #2
+    (edge_bwd_edges, node_proj) at both compiled widths run bf16 tensor-
+    core MMAs (HMMA.16816.F32.BF16) and no TF32 ones; their f32
+    instantiations keep the 3xTF32 route (HMMA.1688.F32.TF32, no bf16
+    MMAs)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    checked = {}
+    for src, kernels in (("edge_message", ("edge_fwd_edges", "node_proj")),
+                         ("edge_message_bwd", ("edge_bwd_edges",
+                                               "node_proj"))):
+        build.load(src, edge_message._bind if src == "edge_message"
+                   else edge_message._bind_bwd)
+        funcs = _sass_functions(build.library_path(src))
+        for name, sass in funcs.items():
+            kernel = next((k for k in kernels if k in name), None)
+            if kernel is None:
+                continue
+            ops = sorted(set(re.findall(r"HMMA\.[\w.]+", sass)))
+            bf = "Lb1E" in name
+            width = 64 if "Li64E" in name else 32
+            checked[src, kernel, width, bf] = ops
+    assert len(checked) == 2 * 2 * 2 * 2  # sources, kernels, widths, modes
+    for (src, kernel, width, bf), ops in checked.items():
+        if bf:
+            assert "HMMA.16816.F32.BF16" in ops, (src, kernel, width, ops)
+            assert not any("TF32" in op for op in ops), (src, kernel, ops)
+        else:
+            assert "HMMA.1688.F32.TF32" in ops, (src, kernel, width, ops)
+            assert not any("BF16" in op for op in ops), (src, kernel, ops)
+
+
+@needs_cuda
+def test_edge_pair_bf16_occupancy():
+    """The card holds two CTAs of each bf16 edge kernel an SM at both
+    widths (the bf16 tiles halve #2's shared memory; it held one at 64),
+    and the forward launches as many as it holds."""
+    from repro_torch.kernels import build
+
+    fwd = build.load("edge_message", edge_message._bind)
+    bwd = build.load("edge_message_bwd", edge_message._bind_bwd)
+    for width in (32, 64):
+        assert fwd.edge_fwd_occupancy(width, 1) >= 2
+        assert bwd.edge_bwd_occupancy(width, 1) >= 2
+        assert fwd.edge_fwd_blocks_per_sm(width, 1) <= \
+            fwd.edge_fwd_occupancy(width, 1)

@@ -359,6 +359,57 @@ def test_pipeline_rollout_matches_reference(name):
     assert (err <= TOL * np.maximum(mag, 1.0)).all()
 
 
+def test_fast_rf_overflow_at_the_serve_dt_matches_reference():
+    """FastRF recursed at the serve's dt 0.005 (``chip_smoke.py``'s DT),
+    each step as the rollout engines take it with no skin (a fresh radius
+    graph of the step's coordinates, v = (x' - x) / dt), port against
+    reference step by step up to and including the first step whose
+    frame is not finite: the same step, NaN and Inf at the same entries,
+    and every finite frame within TOL of the reference's, relative to its
+    largest coordinate where that exceeds 1.  RF adds the re-estimated
+    velocity to its update as it is, so the coordinates grow ~10^2.6 a
+    step until the virtual coordinates overflow (step 5 here); the zoo
+    serves at dt 1 for that reason (``chip_smoke.py``'s ZOO_DT)."""
+    n, ncap, ecap, r, dt = 40, 48, 2000, 0.35, 0.005
+    rng = np.random.default_rng(8)
+    x0 = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    v0 = (0.01 * rng.standard_normal((n, 3))).astype(np.float32)
+    jp = j_build("fast_rf", jax.random.PRNGKey(3), use_kernel=True,
+                 **small_kw("fast_rf"))
+    tp = _port_pipe("fast_rf", jp, True)
+    ones = np.ones((n, 1), np.float32)
+
+    def graph(x, v):
+        snd, rcv = sort_edges_by_receiver(*radius_graph(x, r))
+        sp, rp, em = pad_edges(snd, rcv, ecap, x)
+        arrays = (pad_nodes(x, ncap)[0], pad_nodes(v, ncap)[0],
+                  pad_nodes(ones, ncap)[0], sp, rp,
+                  np.zeros((ecap, 0), np.float32), pad_nodes(x, ncap)[1], em)
+        return arrays, csr_indptr(rp, snd.size, ncap), snd.size
+
+    (xj, vj), (xt, vt) = (x0, v0), (x0, v0)
+    for step in range(1, 11):
+        aj, _, _ = graph(xj, vj)
+        at, indptr, n_edges = graph(xt, vt)
+        yj = np.asarray(jp.apply_full(jp.params, jp.cfg,
+                                      JGraph(*map(jnp.asarray, aj)))[0])[:n]
+        with torch.no_grad():
+            yt = tp.apply_full(tp.params, tp.cfg,
+                               TGraph(*map(torch.from_numpy, at)),
+                               edge_layout=(torch.from_numpy(indptr),
+                                            n_edges))[0].numpy()[:n]
+        assert np.array_equal(np.isnan(yt), np.isnan(yj)), step
+        assert np.array_equal(np.isinf(yt), np.isinf(yj)), step
+        fin = np.isfinite(yj)
+        if fin.any():
+            mag = max(float(np.abs(yj[fin]).max()), 1.0)
+            assert float(np.abs(yt[fin] - yj[fin]).max()) <= TOL * mag, step
+        if not fin.all():
+            break
+        (xj, vj), (xt, vt) = (yj, (yj - xj) / dt), (yt, (yt - xt) / dt)
+    assert not np.isfinite(yj).all() and step > 2  # it overflows, later
+
+
 # ----------------------------------------------------------- training
 R = 0.035
 TC = dict(lam_mmd=0.03, mmd_sample=None, epochs=1, lr=1e-3)

@@ -2,7 +2,9 @@
 """Per-phase clock trace of the FastEGNN edge and virtual kernels, forward
 and backward, on one GPU.
 
-    python3 tools/phase_trace.py          # from the repository root
+    python3 tools/phase_trace.py                 # from the repository root
+    python3 tools/phase_trace.py --bf16 [--width 32]
+    python3 tools/phase_trace.py --bf16 --tree _tree/old   # another tree
 
 Builds instrumented copies of ``csrc/edge_message.cu``,
 ``csrc/virtual_message.cu``, ``csrc/edge_message_bwd.cu`` and
@@ -13,11 +15,19 @@ those inside ``common.cuh``), thread 0 of CTA 0 records the source line
 and ``clock64()``.  Runs the kernels through ``chip_smoke.phase_kernels`` at
 its serving shapes (the last call's trace is kept) and prints, for each
 sync point, how often CTA 0 passed it and the mean clocks since the
-previous one.  The clocks include the work of any other CTA on the same
-SM.  Needs CUDA and nvcc; imports nothing of JAX.
+previous one.  ``--bf16`` traces the bf16 mode of the edge pair instead
+(``edge_fwd_edges<W, true>``, ``edge_bwd_edges<W, true>``): one forward
+and one backward call, gate 'mlp', at width ``--width`` (64) on the
+serving scene's Verlet list (N = 8,192), and prints the registers and
+spills ``ptxas`` reports for the two sources.  ``--tree DIR`` traces the
+sources of another checkout (e.g. a ``git archive`` of an earlier commit
+under the gitignored ``_tree/``), through that tree's own package.  The
+clocks include the work of any other CTA on the same SM.  Needs CUDA and
+nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -83,8 +93,41 @@ def report(name: str, lib: ctypes.CDLL) -> None:
               f"mean {sum(g) / len(g):9.0f} clocks since the previous point")
 
 
+def run_bf16(cs, width: int, dev) -> None:
+    """One bf16 forward and backward call of the edge pair at ``width`` on
+    the serving scene's Verlet list."""
+    import torch
+
+    from repro_torch.kernels import edge_message as em_mod
+
+    scene = cs.make_scenes(1, cs.N_PARTICLES)[0]
+    x, snd, _rcv, em, _nm, indptr, n_edges = cs.serving_graph(
+        scene[0], cs.NODE_CAP, cs.R + cs.SKIN, cs.R, dev)
+    sender, _, _ = cs._graph_operands(x, snd, em, indptr, n_edges, dev)
+    gen = torch.Generator(device=dev).manual_seed(width)
+    ws = cs._width_weights(gen, width, width, width, dev)
+    n = x.shape[0]
+    h = torch.randn((n, width), generator=gen, device=dev)
+    kw = dict(gate_mode="mlp", rel_mode="raw", clamp=100.0, precision="bf16")
+    with torch.no_grad():
+        _, _, deg = em_mod.edge_pathway_fused(x, h, snd, em, indptr, *ws,
+                                              **kw)
+        em_mod.edge_pathway_bwd_fused(
+            x, h, snd, em, indptr, *sender, *ws, deg.contiguous(),
+            torch.randn((n, 3), generator=gen, device=dev),
+            torch.randn((n, width), generator=gen, device=dev), **kw)
+
+
 def main() -> int:
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bf16", action="store_true",
+                    help="trace the bf16 mode of the edge pair")
+    ap.add_argument("--width", type=int, default=64, choices=(32, 64))
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="the checkout whose sources and package to trace")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path[:0] = [str(tree / "src"), str(tree)]
     import torch
 
     if not torch.cuda.is_available():
@@ -95,29 +138,41 @@ def main() -> int:
     from repro_torch.pipeline import build_pipeline
 
     print(cs.gpu_line(), flush=True)
+    print(f"tree {tree}" + (f", bf16, width {args.width}" if args.bf16
+                            else ""), flush=True)
     out_dir = build.BUILD_DIR / "trace"
     out_dir.mkdir(parents=True, exist_ok=True)
     binds = {"edge_message": edge_message._bind,
              "virtual_message": virtual_message._bind,
              "edge_message_bwd": edge_message._bind_bwd,
              "virtual_message_bwd": virtual_message._bind_bwd}
+    names = (("edge_message", "edge_message_bwd") if args.bf16
+             else tuple(KERNELS))
     libs = {}
-    for name, kernel in KERNELS.items():
+    for name in names:
         src = out_dir / f"{name}.cu"
         src.write_text(instrument((build.CSRC_DIR / f"{name}.cu").read_text(),
-                                  kernel))
+                                  KERNELS[name]))
         so = out_dir / f"{name}.so"
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
-                        str(build.CSRC_DIR), "-o", str(so), str(src)],
-                       check=True, capture_output=True)
+        proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                               str(build.CSRC_DIR), "-o", str(so), str(src)],
+                              check=True, capture_output=True, text=True)
+        if args.bf16:  # ptxas: the kernels' registers, spills, shared memory
+            for ln in proc.stderr.splitlines():
+                if "Compiling entry" in ln or "registers" in ln or (
+                        "spill" in ln and " 0 bytes spill" not in ln):
+                    print(f"  ptxas {name}: {ln.strip()}")
         libs[name] = ctypes.CDLL(str(so))
         binds[name](libs[name])
         build._LIBS[name] = libs[name]  # the wrappers now call the copies
     dev = torch.device("cuda")
-    pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
-                          generator=torch.Generator().manual_seed(0))
-    scene = cs.make_scenes(1, cs.N_PARTICLES)[0]
-    cs.phase_kernels(pipe, scene, dev)
+    if args.bf16:
+        run_bf16(cs, args.width, dev)
+    else:
+        pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                              generator=torch.Generator().manual_seed(0))
+        cs.phase_kernels(pipe, cs.make_scenes(cs.MAX_BATCH, cs.N_PARTICLES),
+                         dev)
     torch.cuda.synchronize()
     for name, lib in libs.items():
         report(name, lib)

@@ -8,28 +8,35 @@ commit unpacked under the gitignored ``_tree/``).  For each tree in the
 order OLD NEW NEW OLD, a process of its own imports that tree's
 ``chip_smoke`` and runs its ``kernel_rows`` (the kernels phase's readings
 at the serving shapes: N = 8,192 on the serve Verlet list, hidden 64),
-building the tree's kernels into its own ``_build``; it prints one JSON
-line per run with each kernel's device time per call (``torch.profiler``)
-and CUDA-event time, then each tree's medians.  The lines also go to
-``chiprun_out/tree_ab.jsonl``.  Needs CUDA and nvcc; imports nothing of
+building the tree's kernels into its own ``_build``; then #1-#4 once more
+in f32 and in bf16 at widths 64 and 32 on the same Verlet list (gate
+'mlp'; inputs from seeds), with each call's device time (``torch.profiler``)
+and CUDA-event time.  It prints one JSON line per run, then each tree's
+medians, and the lines also go to ``chiprun_out/tree_ab.jsonl``.  The f32
+outputs of #1-#4 must be bitwise equal in every run, across the trees (the
+bf16 outputs' largest difference from the first run is printed); the
+script exits 1 if they are not.  Needs CUDA and nvcc; imports nothing of
 JAX.
 """
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+WIDTHS = (64, 32)
 
 CHILD = r"""
 import json, sys
-tree = sys.argv[1]
+tree, out_path = sys.argv[1], sys.argv[2]
 sys.path[:0] = [tree + "/src", tree]
 import torch
 import chip_smoke as cs
+from repro_torch.kernels import edge_message as em, virtual_message as vm
 from repro_torch.pipeline import build_pipeline
 dev = torch.device("cuda")
 pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
@@ -42,8 +49,71 @@ for r in rows:
     if "rf_form" in r:
         out[r["name"] + "/rf"] = {"device_ms": r["rf_form"].get("device_ms"),
                                   "ms": r["rf_form"].get("ms")}
+x, snd, _rcv, emask, nm, indptr, n_edges = cs.serving_graph(
+    scene[0], cs.NODE_CAP, cs.R + cs.SKIN, cs.R, dev)
+sender, _, _ = cs._graph_operands(x, snd, emask, indptr, n_edges, dev)
+n, c = x.shape[0], 3
+saved = {}
+with torch.no_grad():
+    for w in WIDTHS:
+        gen = torch.Generator(device=dev).manual_seed(w)
+        r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+        ws = cs._width_weights(gen, w, w, w, dev)
+        h, g_dx, g_mh = r(n, w), r(n, 3), r(n, w)
+        va = [x, h, x[:c] + 0.05 * r(c, 3), nm,
+              r(c, w, w, sc=w ** -0.5), r(c, w, sc=0.3), r(c, w, sc=0.3),
+              r(c, w, w, sc=w ** -0.5), r(c, w, sc=0.1),
+              r(c, w, w, sc=w ** -0.5), r(c, w, sc=0.1),
+              r(c, w, 1, sc=w ** -0.5), r(c, w, w, sc=w ** -0.5),
+              r(c, w, sc=0.1), r(c, w, 1, sc=w ** -0.5)]
+        cots = (r(n, 3), r(n, w), r(c, 3), r(c, w))
+        for prec in ("f32", "bf16"):
+            kw = dict(gate_mode="mlp", rel_mode="raw", clamp=100.0,
+                      precision=prec)
+            fwd = lambda: em.edge_pathway_fused(x, h, snd, emask, indptr,
+                                                *ws, **kw)
+            deg = fwd()[2].contiguous()
+            calls = {
+                "edge_fwd": fwd,
+                "edge_bwd": lambda: em.edge_pathway_bwd_fused(
+                    x, h, snd, emask, indptr, *sender, *ws, deg, g_dx,
+                    g_mh, **kw),
+                "virtual_fwd": lambda: vm.virtual_pathway_fused(
+                    *va, precision=prec),
+                "virtual_bwd": lambda: vm.virtual_pathway_bwd_fused(
+                    *va, *cots, precision=prec)}
+            for name, fn in calls.items():
+                key = f"{prec}/{w}/{name}"
+                saved[key] = [t.cpu() for t in fn()]
+                out[key] = {"device_ms": cs.device_fields(fn)["device_ms"],
+                            "ms": cs.cuda_ms(fn, 5, 1)}
+torch.save(saved, out_path)
 print(json.dumps({"tree": tree, "gpu": cs.gpu_line(), "kernels": out}))
-"""
+""".replace("WIDTHS", repr(WIDTHS))
+
+
+def compare_outputs(paths: list[Path]) -> dict:
+    """Each run's outputs against the first run's: f32 bitwise equal, the
+    bf16 outputs' largest absolute difference."""
+    import torch
+
+    first = torch.load(paths[0])
+    out = {"f32_bitwise_equal": True, "bf16_max_abs_diff": {}}
+    for p in paths[1:]:
+        other = torch.load(p)
+        for key, ts in first.items():
+            pairs = list(zip(ts, other[key]))
+            if key.startswith("f32/"):
+                same = all(torch.equal(a, b) for a, b in pairs)
+                out["f32_bitwise_equal"] &= same
+                if not same:
+                    out.setdefault("f32_differs", []).append(f"{p.name}:{key}")
+            else:
+                d = max(float((a - b).abs().max()) if a.numel() else 0.0
+                        for a, b in pairs)
+                prev = out["bf16_max_abs_diff"].get(key, 0.0)
+                out["bf16_max_abs_diff"][key] = max(prev, d)
+    return out
 
 
 def main() -> int:
@@ -53,31 +123,38 @@ def main() -> int:
     old = str(Path(sys.argv[1]).resolve())
     new = str(Path(sys.argv[2]).resolve()) if len(sys.argv) == 3 else str(ROOT)
     out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    runs = []
-    with open(out_dir / "tree_ab.jsonl", "w") as log:
-        for tree in (old, new, new, old):
-            proc = subprocess.run([sys.executable, "-c", CHILD, tree],
-                                  capture_output=True, text=True, cwd=tree)
-            if proc.returncode != 0:
-                print(proc.stderr[-4000:], file=sys.stderr)
-                return 1
-            line = proc.stdout.strip().splitlines()[-1]
-            runs.append(json.loads(line))
-            print(line, flush=True)
+    work = out_dir / "tree_ab_outputs"  # removed before the script ends
+    work.mkdir(parents=True, exist_ok=True)
+    runs, paths = [], []
+    try:
+        with open(out_dir / "tree_ab.jsonl", "w") as log:
+            for k, tree in enumerate((old, new, new, old)):
+                paths.append(work / f"run{k}.pt")
+                proc = subprocess.run(
+                    [sys.executable, "-c", CHILD, tree, str(paths[-1])],
+                    capture_output=True, text=True, cwd=tree)
+                if proc.returncode != 0:
+                    print(proc.stderr[-4000:], file=sys.stderr)
+                    return 1
+                line = proc.stdout.strip().splitlines()[-1]
+                runs.append(json.loads(line))
+                print(line, flush=True)
+                log.write(line + "\n")
+            medians = {}
+            for tree in (old, new):
+                mine = [r["kernels"] for r in runs if r["tree"] == tree]
+                medians[tree] = {
+                    k: {f: statistics.median(m[k][f] for m in mine)
+                        for f in ("device_ms", "ms")
+                        if all(isinstance(m[k][f], float) for m in mine)}
+                    for k in mine[0]}
+            outputs = compare_outputs(paths)
+            line = json.dumps({"medians": medians, "outputs": outputs})
+            print(line)
             log.write(line + "\n")
-        medians = {}
-        for tree in (old, new):
-            mine = [r["kernels"] for r in runs if r["tree"] == tree]
-            medians[tree] = {
-                k: {f: statistics.median(m[k][f] for m in mine)
-                    for f in ("device_ms", "ms")
-                    if all(isinstance(m[k][f], float) for m in mine)}
-                for k in mine[0]}
-        line = json.dumps({"medians": medians})
-        print(line)
-        log.write(line + "\n")
-    return 0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0 if outputs["f32_bitwise_equal"] else 1
 
 
 if __name__ == "__main__":
