@@ -76,10 +76,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
              and TF32 rates).  Each FastEGNN row of the kernels line
              carries its width-64 reading as ``bf16`` (its hidden32 entry
              the width-32 one) and all of them as ``widths_bf16``.
-   bf16_edge — the bf16 edge pair (#1, #2 on bf16 tiles): the CTAs an
-             SM the card holds of each (two at least) and its device ms
-             at 64 and 32 from widths_bf16, beside the figures before the
-             redesign (BF_EDGE_PARENT).
+   bf16_edge — the bf16 kernels on bf16 tiles (#1, #2, the identity
+             backward in SchNet's and RF's forms, #3): device ms at 64 and
+             32 from widths_bf16 and, for #1, #2 and #3, the CTAs an SM
+             the card holds (two at least), beside the figures before
+             their redesign (BF_EDGE_PARENT).
 4. serve  — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each, the Verlet lists rebuilt on the
@@ -253,16 +254,21 @@ BF_ENGAGED = 1e-4
 # to them, panel), two CTA counts at CTA_WIDTHS
 BF_WIDTH_CASES = ((16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64),
                   (128, 128, 128), (226, 226, 226))
-# the bf16 edge pair (#1, #2) before its redesign on bf16 tiles: CTAs an
-# SM and device ms on the serve Verlet list at widths 64 and 32, as
-# PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W); the
-# bf16_edge line prints the redesigned kernels' beside them, and needs
-# two CTAs an SM
+# the bf16 kernels redesigned on bf16 tiles, before their redesign: the
+# edge pair (#1, #2), the identity backward (SchNet's and RF's forms) and
+# the virtual forward (#3): CTAs an SM and device ms on the serve Verlet
+# list at widths 64 and 32, as PERF.md section 6 records them (NVIDIA
+# H100 80GB HBM3, 700 W); the bf16_edge line prints the redesigned
+# kernels' beside them, and needs two CTAs an SM of #1, #2 and #3
 BF_EDGE_PARENT = {
     "edge_pathway_fused": {"ctas_per_sm": {"64": 2, "32": 2},
                            "device_ms": {"64": 0.0689, "32": 0.0379}},
     "edge_pathway_bwd_fused": {"ctas_per_sm": {"64": 1, "32": 2},
-                               "device_ms": {"64": 0.306, "32": 0.135}}}
+                               "device_ms": {"64": 0.306, "32": 0.135}},
+    "edge_identity_bwd": {"device_ms": {"64": 0.834, "32": 0.404}},
+    "edge_identity_bwd_rf": {"device_ms": {"64": 0.161, "32": 0.126}},
+    "virtual_pathway_fused": {"ctas_per_sm": {"64": 1, "32": "not measured"},
+                              "device_ms": {"64": 0.0326, "32": 0.0168}}}
 # bf16 model path against the f32 kernel path: relative L2 of the first
 # served frame, of each leaf of the first step's gradients and of each zoo
 # model's prediction (DESIGN.md section 9.3; the reference's
@@ -2036,28 +2042,41 @@ def phase_widths_bf16(scene, dev) -> dict:
 
 
 def bf16_edge_line(widths_bf16: dict) -> dict:
-    """The bf16 edge pair's CTAs an SM (as the card reports them for the
-    kernels' registers and shared memory) and device ms at 64 and 32 (the
-    widths_bf16 phase's readings), beside the parent's (BF_EDGE_PARENT)."""
+    """The bf16 kernels redesigned on bf16 tiles (BF_EDGE_PARENT: the edge
+    pair, the identity backward in SchNet's and RF's forms, #3): device ms
+    at 64 and 32 (the widths_bf16 phase's readings) and, for #1, #2 and
+    #3, the CTAs an SM (as the card reports them for the kernels'
+    registers and shared memory), beside the parent's."""
     from repro_torch.kernels import build
     from repro_torch.kernels import edge_message as em_mod
+    from repro_torch.kernels import virtual_message as vm
 
     occ = {"edge_pathway_fused": build.load(
                "edge_message", em_mod._bind).edge_fwd_occupancy,
            "edge_pathway_bwd_fused": build.load(
-               "edge_message_bwd", em_mod._bind_bwd).edge_bwd_occupancy}
-    kinds = {"edge_pathway_fused": "fwd", "edge_pathway_bwd_fused": "bwd"}
+               "edge_message_bwd", em_mod._bind_bwd).edge_bwd_occupancy,
+           "virtual_pathway_fused": build.load(
+               "virtual_message", vm._bind).virtual_fwd_occupancy}
+    # each kernel's reading in a widths_bf16 case: (pair, form, pass)
+    where = {"edge_pathway_fused": ("edge_pair", "edge", "fwd"),
+             "edge_pathway_bwd_fused": ("edge_pair", "edge", "bwd"),
+             "edge_identity_bwd": ("edge_pair", "identity", "bwd"),
+             "edge_identity_bwd_rf": ("edge_pair", "identity_rf", "bwd"),
+             "virtual_pathway_fused": ("virtual_pair", None, "fwd")}
     out = {"phase": "bf16_edge", "gpu": gpu_line(), "kernels": {}}
-    for name, fn in occ.items():
-        out["kernels"][name] = {
-            "ctas_per_sm": {w: fn(int(w), 1) for w in ("64", "32")},
-            "device_ms": {w: widths_bf16["cases"][w]["edge_pair"]["edge"][
-                kinds[name]]["device_ms"] for w in ("64", "32")},
-            "parent": BF_EDGE_PARENT[name]}
+    for name, (pair, form, kind) in where.items():
+        row = {"device_ms": {}, "parent": BF_EDGE_PARENT[name]}
+        for w in ("64", "32"):
+            r = widths_bf16["cases"][w][pair]
+            row["device_ms"][w] = (r[form] if form else r)[kind]["device_ms"]
+        if name in occ:
+            row["ctas_per_sm"] = {w: occ[name](int(w), 1)
+                                  for w in ("64", "32")}
+        out["kernels"][name] = row
     if min(v for k in out["kernels"].values()
-           for v in k["ctas_per_sm"].values()) < 2:
-        raise AssertionError(f"a bf16 edge kernel fits fewer than two CTAs "
-                             f"an SM: {json.dumps(out)}")
+           for v in k.get("ctas_per_sm", {}).values()) < 2:
+        raise AssertionError(f"a bf16 kernel on bf16 tiles fits fewer than "
+                             f"two CTAs an SM: {json.dumps(out)}")
     return out
 
 

@@ -1,5 +1,6 @@
 // Tile machinery shared by the FastEGNN kernels (edge_message.cu,
-// edge_message_bwd.cu, virtual_message.cu, virtual_message_bwd.cu).  Header
+// edge_message_bwd.cu, virtual_message.cu, virtual_message_bwd.cu, and the
+// identity gate's bf16 backward in edge_identity.cu).  Header
 // only; each including file gets its own copy inside an anonymous namespace.
 //
 // Everything is a template of the feature width W, 32 or 64: the kernels
@@ -48,23 +49,26 @@
 //   an operand and elementwise (msg: rounded into msg.Wg1, f32 in the mh
 //   sum) keeps its f32 values.  Vectors (biases, w1d, wg2) and
 //   coordinates are rounded where they are loaded; the kernels round the
-//   other elementwise values where the reference casts them.  #3, #4 and
-//   the panel path run this mode.
-// * The edge pathway's bf16 mode (#1, #2 and their `node_proj`) has tiles
-//   of its own: bf16 in shared memory (`Bf`), each value rounded once, as
-//   it is stored, under a swizzle of 16-byte granules for 2-byte elements
-//   (`swz16`), read with `ldmatrix` (`.trans` for the transposed operand
-//   layouts) into bf16 tensor-core products, mma.sync.m16n8k16 with f32
+//   other elementwise values where the reference casts them.  #4 and the
+//   panel path run this mode.
+// * The bf16 mode of #1, #2 (and their `node_proj`), #3 and the identity
+//   backward's dh pass (edge_identity.cu) has tiles of its own: bf16 in
+//   shared memory (`Bf`), each value rounded once, as it is stored, under
+//   a swizzle of 16-byte granules for 2-byte elements (`swz16`), read with
+//   `ldmatrix` (`.trans` for the transposed operand layouts) into bf16
+//   tensor-core products, mma.sync.m16n8k16 with f32
 //   accumulation (`tile_mma_bf`): half the shared memory of the f32
 //   tiles, one ldmatrix.x4 in place of eight 4-byte fragment loads, and
 //   half the MMAs of the TF32 route's k8 shape.  The accumulator
 //   fragments are the m16n8k8 ones above, so `frag_store`, the row and
 //   column sums and STEP_SUM (per k16 step) are shared.
-// * The edge pathway's pieces used by its forward and backward: the node
-//   projection `node_proj` (P = h.W1r, Q = h.W1s once per node), and
-//   `for_live_tiles`, which packs the live slots of a slot range into
-//   64-row tiles in slot order.  The virtual pathway's: the per-channel
-//   vectors `load_virtual_vecs`.
+// * The edge pathway's pieces used by its forward and backward (and the
+//   identity gate's bf16 backward, edge_identity.cu): the node projection
+//   `node_proj` (P = h.W1r, Q = h.W1s once per node), `for_live_tiles`,
+//   which packs the live slots of a slot range into 64-row tiles in slot
+//   order, and the node passes' ordered segment sums of per-slot rows
+//   (`segment_sum`).  The virtual pathway's: the per-channel vectors
+//   `load_virtual_vecs`.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -485,6 +489,20 @@ __device__ __forceinline__ void tile_load_async(float* tile, const float* src) {
   }
 }
 
+// The same for a row-major W x W matrix of bf16 values into a bf16 tile
+// (`swz16`): one 16-byte copy a granule of 8.
+template <int W>
+__device__ __forceinline__ void tile_load_async_bf(Bf* tile, const Bf* src) {
+  constexpr int G = W / 8;
+  for (int f = threadIdx.x; f < W * G; f += blockDim.x) {
+    const int i = f / G, q = (f % G) * 8;
+    const unsigned dst =
+        (unsigned)__cvta_generic_to_shared(tile + swz16<W>(i, q));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src + i * W + q));
+  }
+}
+
 __device__ __forceinline__ void vec_load_async(float* dst, const float* src,
                                                int n) {
   for (int f = threadIdx.x; f < n; f += blockDim.x) {
@@ -770,6 +788,92 @@ __device__ __forceinline__ void for_live_tiles_ahead(
     while (cnt >= 2 * TR) take(TR);
   }
   while (cnt > 0) take(min(cnt, TR));
+}
+
+// Columns (W/8) gl .. (W/8) gl + W/8 - 1 of row s of a (rows x W) array
+// of f32 or bf16 (widened, exactly), or zeros if !ok: one 16-byte load
+// (bf16 at W = 32: 8 bytes) for every four (eight) of them.
+template <int W, typename T>
+__device__ __forceinline__ void row_cols(const T* __restrict__ a, int s,
+                                         bool ok, int gl,
+                                         float (&v)[W / 8]) {
+  const size_t off = (size_t)(ok ? s : 0) * W + (W / 8) * gl;
+  if constexpr (std::is_same<T, float>::value) {
+    const float4* row = reinterpret_cast<const float4*>(a + off);
+#pragma unroll
+    for (int k = 0; k < W / 32; ++k) {
+      const float4 t = ok ? row[k] : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * k] = t.x;
+      v[4 * k + 1] = t.y;
+      v[4 * k + 2] = t.z;
+      v[4 * k + 3] = t.w;
+    }
+  } else {
+    uint32_t u[W / 16];
+    if constexpr (W == 64) {
+      const uint4 t = ok ? *reinterpret_cast<const uint4*>(a + off)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      u[0] = t.x;
+      u[1] = t.y;
+      u[2] = t.z;
+      u[3] = t.w;
+    } else {
+      const uint2 t = ok ? *reinterpret_cast<const uint2*>(a + off)
+                         : make_uint2(0u, 0u);
+      u[0] = t.x;
+      u[1] = t.y;
+    }
+#pragma unroll
+    for (int k = 0; k < W / 16; ++k) bf16_widen(u[k], v[2 * k], v[2 * k + 1]);
+  }
+}
+
+// A group of 8 lanes (lane gl owns columns (W/8) gl .. (W/8) gl + W/8 - 1)
+// adds, in p order, the g_pre1 rows of the live slots s(p), p in [p0, p1)
+// -- s(p) = p, or perm[p] -- into acc, the rows of X (if ROW2) into acc2,
+// and lanes gl < 3 add sign * g_rel[gl] into d.  Eight masks are read at
+// once and four rows are in flight.  The rows are f32, or bf16 (T = Bf).
+template <int W, bool PERM, bool ROW2, typename T>
+__device__ __forceinline__ void segment_sum(
+    const int* __restrict__ perm, const float* __restrict__ em,
+    const T* __restrict__ GPRE1, const float* __restrict__ GREL,
+    const T* __restrict__ X, int p0, int p1, int gl, int grp,
+    float sign, float (&acc)[W / 8], float (&acc2)[W / 8], float& d) {
+  constexpr int C = W / 8;  // columns a lane
+  const unsigned gm = 0xffu << (8 * grp);
+  for (int b = p0; b < p1; b += 8) {
+    const int p = b + gl;
+    const int s = p < p1 ? (PERM ? perm[p] : p) : 0;
+    const bool ok = p < p1 && em[s] != 0.0f;
+    unsigned m = (__ballot_sync(gm, ok) >> (8 * grp)) & 0xffu;
+    while (m) {
+      int sl[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int v = __shfl_sync(gm, s, 8 * grp + (m ? __ffs(m) - 1 : 0));
+        sl[u] = m ? v : -1;
+        m &= m - 1;
+      }
+      float v[4][C], v2[ROW2 ? 4 : 1][C];
+      float g[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        row_cols<W>(GPRE1, sl[u], sl[u] >= 0, gl, v[u]);
+        if (ROW2) row_cols<W>(X, sl[u], sl[u] >= 0, gl, v2[ROW2 ? u : 0]);
+        g[u] = sl[u] >= 0 && gl < 3 ? GREL[(size_t)sl[u] * 4 + gl] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (sl[u] >= 0) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            acc[c] += v[u][c];
+            if (ROW2) acc2[c] += v2[ROW2 ? u : 0][c];
+          }
+          d += sign * g[u];
+        }
+    }
+  }
 }
 
 // --------------------------------------------------------- virtual pathway

@@ -57,9 +57,23 @@
 // g_mh and g_dx rounded, g_msg and g_pre1 rounded as operands, b1 and b2
 // sums of unrounded terms, and the node pass's summands the reference's
 // scatter operands: bf16(g_rel), bf16(g_pre1) and the per-edge products
-// bf16(bf16(g_pre1) W1r^T) (summed per receiver row by the row pass) and
-// bf16(bf16(g_pre1) W1s^T) (stored per slot, summed per sender by the
-// node pass).  The FMAs stay f32: a product of two bf16 values is exact.
+// bf16(bf16(g_pre1) W1r^T) (summed per receiver) and bf16(bf16(g_pre1)
+// W1s^T) (summed per sender).  The FMAs stay f32: a product of two bf16
+// values is exact.
+// The bf16 backward at Dh and H1 up to 64 (SchNet's and RF's forms) takes
+// the tile route (`tile_width`: both zero-padded to W = 32 or 64, exact):
+// idn_bwd_rows stores bf16(g_pre1) per slot as bf16 rows of W; idn_bwd_dh
+// streams the slot range in 64-slot tiles and forms the two per-edge dh
+// products on the tensor cores (bf16 tiles, m16n8k16, as
+// edge_message_bwd.cu's bf16 edge pass), stored per live slot in bf16;
+// and idn_bwd_nodes_bf sums them per node with 8 lanes a node and rows in
+// flight (`segment_sum`, common.cuh: the receiver segment in slot order,
+// the sender segment in sender-permutation order, the FP32-unit route's
+// orders) and forms the W1r / W1s partials as 3xTF32 tile products, as
+// edge_message_bwd.cu's bf16 node pass does: five launches, scratch 3 x 2
+// W bytes a slot.  Wider bf16 layers keep the FP32-unit route above: a
+// warp dot a per-edge dh entry in the row pass, the node pass's serial
+// per-lane sum of the sender terms.
 // Bound on an H100 (serving shape: 8,192 nodes, 84,806 live edges,
 // Dh = 64): per node the two 64 x 64 projections (16K FLOP), per live edge
 // ~0.66K FLOP forward; ~0.19 GFLOP in all, 0.0028 ms at 67 TFLOP/s, against
@@ -67,23 +81,20 @@
 // operations.  In practice a warp's walk of its row is a chain of
 // dependent gathers (slot -> sender -> Q_s), which the 32-slot prefetch
 // shortens.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"  // THREADS, FULL, the bf16 tiles and node sums
 
-#include "tf32.cuh"
+#include <math.h>
 
 #include <initializer_list>
-#include <type_traits>
 
 namespace {
 
-constexpr int WARPS = 8;           // warps a CTA
-constexpr int THREADS = 32 * WARPS;
+constexpr int WARPS = THREADS / 32;  // warps a CTA
 constexpr int TILE_N = 64;         // nodes of a node-pass tile (at most)
 constexpr int MAX_NJ = 24;         // columns a lane: H1 <= 32 MAX_NJ
 constexpr size_t SMEM_MAX = 227 * 1024;  // shared memory a CTA can have
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int DH_CTAS_PER_SM = 4;  // CTAs of the bf16 dh pass an SM (any
+                                   // count gives the same bits)
 
 // row partials of the backward: W2 (h1) | w1d (h1) | b2 | 3 pad; in bf16
 // also b1 (h1) before b2 (G sums rounded g_pre1 there, b1 unrounded)
@@ -91,8 +102,18 @@ __host__ __device__ inline int rp_width(int h1, bool bf16) {
   return (bf16 ? 3 : 2) * h1 + 4;
 }
 
-__device__ __forceinline__ float sigm(float u) {
+// the sigmoid with IEEE division and expf (common.cuh's `sigm` takes the
+// fast ones; these kernels keep their own bits)
+__device__ __forceinline__ float sigm_ieee(float u) {
   return 1.0f / (1.0f + expf(-u));
+}
+
+// The bf16 mode's tile route, for Dh and H1 up to 64: the compiled width
+// W (32 or 64) both are zero-padded to; 0: the FP32-unit route (f32, and
+// bf16 above 64)
+int tile_width(int dh, int h1, bool bf16) {
+  if (!bf16 || dh > 64 || h1 > 64) return 0;
+  return dh <= 32 && h1 <= 32 ? 32 : 64;
 }
 
 // the same sum on every lane: a fixed xor butterfly
@@ -162,7 +183,7 @@ __device__ __forceinline__ void edge_forward(
     const int c = lane + 32 * j;
     const float qv = EXACT || c < h1 ? Q[(size_t)s * h1 + c] : 0.0f;
     const float u = ((p[j] + qv) + d2 * w1d[j]) + b1[j];
-    const float sg = sigm(u);
+    const float sg = sigm_ieee(u);
     t[j] = u * sg;
     if (want_dt) dt[j] = sg * (1.0f + u * (1.0f - sg));
     part = fmaf(rnd<BF>(t[j]), w2[j], part);
@@ -247,10 +268,12 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
 // Backward, per receiver row: each live edge's g_pre1 and g_rel into
 // GPRE1 / GREL (slot-indexed), and the row's sums: G (h1), the receiver
 // half of gx (3) and the partials W2 (h1) | w1d (h1) | b1 (h1) | b2 of RP.
-// BF: also the row's sum of the per-edge bf16(bf16(g_pre1) W1r^T) into
-// GHR (dh) and each edge's bf16(bf16(g_pre1) W1s^T) into GS
-// (slot-indexed): for each entry k a warp dot over the columns (the
-// weights' rows read coalesced), lane k % 32 writing it.
+// BF on the tile route (gw = its width W): GPRE1 holds bf16(g_pre1) as
+// bf16 rows of W, zeros past h1, for the dh pass.  BF above 64 (gw = 0):
+// also the row's sum of the per-edge bf16(bf16(g_pre1) W1r^T) into GHR
+// (dh) and each edge's bf16(bf16(g_pre1) W1s^T) into GS (slot-indexed):
+// for each entry k a warp dot over the columns (the weights' rows read
+// coalesced), lane k % 32 writing it.
 template <int NJ, bool EXACT, bool BF>
 __global__ void __launch_bounds__(THREADS)
 idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
@@ -264,12 +287,16 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
              float* __restrict__ GXR, float* __restrict__ RP,
              const float* __restrict__ w1r, const float* __restrict__ w1s,
              float* __restrict__ GHR, float* __restrict__ GS, int n_nodes,
-             int dh, int h1_, int rel_inv1p, float clamp) {
+             int dh, int h1_, int rel_inv1p, float clamp, int gw_) {
   const int h1 = EXACT ? 32 * NJ : h1_;
+  // the tile route takes H1 <= 64 (NJ <= 2): wider instances keep gw = 0
+  // as a constant, and their code as it was
+  const int gw = BF && NJ <= 2 ? gw_ : 0;
   const int lane = threadIdx.x & 31;
   const int warp0 = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * WARPS;
   const int rpw = rp_width(h1, BF);
+  Bf* gb = reinterpret_cast<Bf*>(GPRE1);  // the tile route's bf16 rows
   float w1d[NJ], b1[NJ], w2[NJ];
   load_cols<NJ, EXACT, BF>(w1d, w1d_g, lane, h1);
   load_cols<NJ, EXACT, BF>(b1, b1_g, lane, h1);
@@ -289,7 +316,7 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) sG[j] = sW2[j] = sW1d[j] = sB1[j] = 0.0f;
     float sB2 = 0.0f, gxr = 0.0f;  // lane k < 3: component k
-    if (BF)
+    if (BF && !gw)
       for (int k = lane; k < dh; k += 32) GHR[(size_t)r * dh + k] = 0.0f;
     for_live_slots(em, snd, indptr[r], indptr[r + 1], lane,
                    [&](int slot, float m, int s) {
@@ -334,15 +361,24 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float gq = rnd<BF>(gp[j]);
-        if (EXACT || lane + 32 * j < h1)
-          GPRE1[(size_t)slot * h1 + lane + 32 * j] = gq;
+        const int c = lane + 32 * j;
+        if (BF && gw) {
+          if (c < gw)
+            gb[(size_t)slot * gw + c] =
+                __float2bfloat16_rn(EXACT || c < h1 ? gq : 0.0f);
+        } else if (EXACT || c < h1) {
+          GPRE1[(size_t)slot * h1 + c] = gq;
+        }
         sG[j] += gq;
         if (BF) sB1[j] += gp[j];
         sW2[j] += __fmul_rn(rnd<BF>(t[j]), rnd<BF>(g_msg));
         sW1d[j] += __fmul_rn(rnd<BF>(e.d2), gq);
       }
       sB2 += g_msg;
-      if constexpr (BF) {  // the per-edge dh terms
+      if (BF && gw)  // the tile route's pad columns past 32 NJ
+        for (int c = 32 * NJ + lane; c < gw; c += 32)
+          gb[(size_t)slot * gw + c] = __float2bfloat16_rn(0.0f);
+      if (BF && !gw) {  // the per-edge dh terms, above width 64
         for (int k = 0; k < dh; ++k) {
           const float* wr = w1r + (size_t)k * h1;
           const float* ws = w1s + (size_t)k * h1;
@@ -537,6 +573,200 @@ idn_bwd_nodes(const float* __restrict__ h, const float* __restrict__ em,
   }
 }
 
+// ------------------------------------------------- bf16 tile route (<= 64)
+// The per-edge dh terms of the bf16 backward, bf16(bf16(g_pre1) W1r^T) and
+// bf16(bf16(g_pre1) W1s^T), of every live slot into GR / GS (bf16 rows of
+// W).  The slot range [0, indptr[N]) is cut into 64-slot tiles, CTA b
+// taking tiles b, b + gridDim.x, ...  By cp.async, a tile's masks arrive
+// one tile ahead of its g_pre1 rows (bf16 rows of W from idn_bwd_rows),
+// so that only the live slots' rows are fetched, and both arrive while
+// the tile before runs (two row stages, three mask stages).  Both
+// products run on the tensor cores (`tile_mma_bf`, m16n8k16) against W1r
+// and W1s, resident as bf16 tiles (dh x h1 zero-padded to W x W, rounded
+// once as they are stored); the results go through a bf16 stage in shared
+// memory, so that the live slots' rows leave as whole 16-byte granules.
+// A masked slot's row (stale in the stage) gives a product row that is
+// never stored: a row of a product depends on its own row of A alone, so
+// the live slots' terms do not depend on the tiling, the CTA count or the
+// masked slots.  (Packing the live slots into tiles first, as
+// edge_message_bwd.cu's edge pass does for its longer per-tile chain,
+// cost a block-wide scan and three dependent round trips to device memory
+// a tile here: 34 us of device time at the serve shape on an H100,
+// PERF.md.)
+template <int W>
+constexpr int DH_SMEM_FLOATS = (2 * WT<W> + 4 * RT<W>) / 2 + 3 * TR;
+
+template <int W>
+__global__ void __launch_bounds__(THREADS, DH_CTAS_PER_SM)
+idn_bwd_dh(const float* __restrict__ em, const int* __restrict__ indptr,
+           const float* __restrict__ w1r, const float* __restrict__ w1s,
+           const Bf* __restrict__ GPRE1, Bf* __restrict__ GR,
+           Bf* __restrict__ GS, int n_nodes, int dh, int h1) {
+  extern __shared__ float4 smem4[];
+  Bf* bWr = reinterpret_cast<Bf*>(smem4);
+  Bf* bWs = bWr + WT<W>;
+  Bf* bG = bWs + WT<W>;     // [2 stages][RT]: g_pre1 rows
+  Bf* bO = bG + 2 * RT<W>;  // [2][RT]: the two products, rounded
+  float* sEm = reinterpret_cast<float*>(bO + 2 * RT<W>);  // [3][64] masks
+  const int tid = threadIdx.x;
+  const Lane L = lane_of();
+  for (int f = tid; f < WT<W> / 2; f += THREADS) {
+    const int i = f / (W / 2), c = 2 * (f % (W / 2));
+    const bool in = i < dh;
+    const size_t o = (size_t)i * h1 + c;
+    *reinterpret_cast<uint32_t*>(bWr + swz16<W>(i, c)) =
+        bf16x2(in && c < h1 ? w1r[o] : 0.0f,
+               in && c + 1 < h1 ? w1r[o + 1] : 0.0f);
+    *reinterpret_cast<uint32_t*>(bWs + swz16<W>(i, c)) =
+        bf16x2(in && c < h1 ? w1s[o] : 0.0f,
+               in && c + 1 < h1 ? w1s[o + 1] : 0.0f);
+  }
+  const int live_end = indptr[n_nodes];
+  const int n_t = (live_end + TR - 1) / TR, step = gridDim.x;
+  auto fetch_masks = [&](int t, int ms) {  // masks past live_end: 0
+    if (t < n_t && tid < TR) {
+      const int sl = t * TR + tid;
+      if (sl < live_end)
+        cp_async4(sEm + ms * TR + tid, em + sl);
+      else
+        sEm[ms * TR + tid] = 0.0f;
+    }
+  };
+  auto fetch_rows = [&](int t, int stage, int ms) {  // the live slots'
+    if (t >= n_t) return;
+    Bf* dst = bG + stage * RT<W>;
+    for (int f = tid; f < TR * W / 8; f += THREADS) {
+      const int i = f / (W / 8), q = (f % (W / 8)) * 8;
+      if (sEm[ms * TR + i] != 0.0f)
+        cp_async16(dst + swz16<W>(i, q),
+                   GPRE1 + (size_t)(t * TR + i) * W + q);
+    }
+  };
+  // tile t (the k-th of this CTA): rows in stage k & 1, masks in k % 3
+  const int t0 = blockIdx.x;
+  fetch_masks(t0, 0);
+  async_commit();
+  async_wait_all();
+  __syncthreads();
+  fetch_rows(t0, 0, 0);
+  fetch_masks(t0 + step, 1);
+  async_commit();
+  int k = 0;
+  for (int t = t0; t < n_t; t += step, ++k) {
+    const int stage = k & 1, ms = k % 3;
+    async_wait_all();
+    __syncthreads();  // tile t's rows and the next tile's masks are in
+    fetch_rows(t + step, stage ^ 1, (k + 1) % 3);
+    fetch_masks(t + 2 * step, (k + 2) % 3);
+    async_commit();
+    const Bf* Wk[2] = {bWr, bWs};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      Frag<W> a;
+      frag_zero<W>(a);
+      tile_mma_bf<W, false, true>(a, bG + stage * RT<W>, Wk[j], L);
+      frag_store_bf<W>(bO + j * RT<W>, a, L);
+    }
+    __syncthreads();  // the products are staged
+    const float* m = sEm + ms * TR;
+    Bf* dst[2] = {GR, GS};
+    for (int f = tid; f < 2 * TR * W / 8; f += THREADS) {
+      const int j = f / (TR * W / 8), g = f % (TR * W / 8);
+      const int i = g / (W / 8), q = (g % (W / 8)) * 8;
+      if (m[i] != 0.0f)
+        *reinterpret_cast<uint4*>(dst[j] + (size_t)(t * TR + i) * W + q) =
+            *reinterpret_cast<const uint4*>(bO + j * RT<W> + swz16<W>(i, q));
+    }
+  }
+}
+
+// The bf16 tile route's node pass, a CTA of NODE_THREADS per 64 nodes, a
+// group of 8 lanes a node (the 64 nodes' segment walks all in flight):
+// each node's sender segment S (g_pre1 rows, in `csr_sender_perm` order)
+// and the sender half of gx; gh = the receiver segment's sum of GR (slot
+// order) + the sender segment's sum of GS, each from zero, so gh's order
+// is the FP32-unit route's; then (warps 0-7) the tile's W1r / W1s partials
+// h^T G, h^T S as 3xTF32 tile products (h rounded, G from idn_bwd_rows and
+// S in f32, dh and h1 zero-padded to W), and its b1, W2, w1d, b2 partials
+// from the rows' RP, in node order.
+constexpr int NODE_THREADS = 2 * THREADS;
+
+template <int W>
+__global__ void __launch_bounds__(NODE_THREADS)
+idn_bwd_nodes_bf(const float* __restrict__ h, const float* __restrict__ em,
+                 const int* __restrict__ indptr,
+                 const int* __restrict__ sperm, const int* __restrict__ sptr,
+                 const Bf* __restrict__ GPRE1, const float* __restrict__ GREL,
+                 const float* __restrict__ G, const float* __restrict__ GXR,
+                 const float* __restrict__ RP, const Bf* __restrict__ GR,
+                 const Bf* __restrict__ GS, float* __restrict__ gx,
+                 float* __restrict__ gh, float* __restrict__ PN, int n_nodes,
+                 int dh, int h1) {
+  extern __shared__ float4 smem4[];
+  float* tH = reinterpret_cast<float*>(smem4);
+  float* tG = tH + RT<W>;
+  float* tS = tG + RT<W>;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int node0 = blockIdx.x * TR;
+#pragma unroll 4
+  for (int f = tid; f < RT<W>; f += NODE_THREADS) {
+    const int i = f / W, c = f % W, n = node0 + i;
+    const bool ok = n < n_nodes;
+    tH[swz<W>(i, c)] = ok && c < dh ? bf16_round(h[(size_t)n * dh + c]) : 0.0f;
+    tG[swz<W>(i, c)] = ok && c < h1 ? G[(size_t)n * h1 + c] : 0.0f;
+  }
+  constexpr int CPL = W / 8;  // columns a lane
+  const int grp = lane >> 3, gl = lane & 7;
+  const int r = 4 * warp + grp, i = node0 + r;
+  float S[CPL], Hr[CPL], Hs[CPL], unused[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) S[c] = Hr[c] = Hs[c] = 0.0f;
+  float dr = 0.0f, ds = 0.0f;  // lanes gl < 3: component gl
+  if (i < n_nodes) {
+    segment_sum<W, false, false>(nullptr, em, GR, GREL, GR, indptr[i],
+                                 indptr[i + 1], gl, grp, 1.0f, Hr, unused,
+                                 dr);
+    segment_sum<W, true, true>(sperm, em, GPRE1, GREL, GS, sptr[i],
+                               sptr[i + 1], gl, grp, -1.0f, S, Hs, ds);
+    if (gl < 3) gx[3 * i + gl] = GXR[(size_t)i * 4 + gl] + ds;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (CPL * gl + c < dh)
+        gh[(size_t)i * dh + CPL * gl + c] = Hr[c] + Hs[c];
+  }
+#pragma unroll
+  for (int h2 = 0; h2 < CPL / 4; ++h2)
+    *reinterpret_cast<float4*>(tS + swz<W>(r, CPL * gl + 4 * h2)) =
+        make_float4(S[4 * h2], S[4 * h2 + 1], S[4 * h2 + 2], S[4 * h2 + 3]);
+  __syncthreads();
+  const int pw = (int)pn_width(dh, h1), dw = dh * h1;
+  float* out = PN + (size_t)blockIdx.x * pw;
+  if (warp < THREADS / 32) {  // the tile products' 8 warps
+    const Lane L = lane_of();
+#pragma unroll 1
+    for (int m = 0; m < 2; ++m) {
+      Frag<W> a;
+      frag_zero<W>(a);
+      tile_mma<W, true, false>(a, tH, m ? tS : tG, L);
+      if (16 * L.rb < W)
+#pragma unroll
+        for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = L.row(e), c = L.col<W>(jn, e);
+            if (k < dh && c < h1) out[m * dw + k * h1 + c] = a[jn][e];
+          }
+    }
+  } else {  // b1 | W2 | w1d | b2 from RP (W2 | w1d | b1 | b2), node order
+    const int nn = min(TR, n_nodes - node0), rpw = rp_width(h1, true);
+    for (int f = 2 * dw + tid - THREADS; f < pw; f += NODE_THREADS - THREADS) {
+      const int q = f - 2 * dw;
+      const int col = q < h1 ? 2 * h1 + q : (q < 3 * h1 ? q - h1 : 3 * h1);
+      out[f] = sum_strided(RP + (size_t)node0 * rpw + col, rpw, nn);
+    }
+  }
+}
+
 struct Outs {
   float *gw1r, *gw1s, *gw1d, *gb1, *gw2, *gb2;
 };
@@ -558,7 +788,6 @@ __global__ void idn_bwd_reduce(const float* __restrict__ PN, Outs o,
   else o.gb2[0] = a;
 }
 
-size_t round4(size_t v) { return (v + 3) & ~size_t(3); }
 int row_blocks(int n, int n_ctas) {
   return n_ctas > 0 ? n_ctas : (n + WARPS - 1) / WARPS;
 }
@@ -595,7 +824,7 @@ int with_cols(int h1, int bf16, Fn&& fn) {
 }
 
 struct Scratch {
-  float *P, *Q, *G, *GXR, *RP, *GPRE1, *GREL, *PN, *GHR, *GS;
+  float *P, *Q, *G, *GXR, *RP, *GPRE1, *GREL, *PN, *GHR, *GR, *GS;
   size_t total;
 };
 
@@ -615,10 +844,16 @@ Scratch carve(float* base, int n, int e, int dh, int h1, bool backward,
     s.G = take((size_t)n * h1);
     s.GXR = take((size_t)n * 4);
     s.RP = take((size_t)n * rp_width(h1, bf16));
-    s.GPRE1 = take((size_t)e * h1);
+    // the tile route: g_pre1 and the two dh terms as bf16 rows of its
+    // width, half a float an element
+    const int tw = tile_width(dh, h1, bf16);
+    s.GPRE1 = take(tw ? (size_t)e * tw / 2 : (size_t)e * h1);
     s.GREL = take((size_t)e * 4);
     s.PN = take((size_t)((n + tn - 1) / tn) * pn_width(dh, h1));
-    if (bf16) {
+    if (tw) {
+      s.GR = take((size_t)e * tw / 2);
+      s.GS = take((size_t)e * tw / 2);
+    } else if (bf16) {
       s.GHR = take((size_t)n * dh);
       s.GS = take((size_t)e * dh);
     }
@@ -633,6 +868,42 @@ int check_shape(int dh, int h1, int n_ctas) {
   return 0;
 }
 
+// The bf16 tile route's dh pass and node pass (after idn_proj and
+// idn_bwd_rows); the dh pass on n_ctas CTAs, else DH_CTAS_PER_SM an SM
+template <int W>
+int launch_tile_passes(const float* h, const float* em,
+                       const int* indptr, const int* sperm, const int* sptr,
+                       const float* w1r, const float* w1s, const Scratch& s,
+                       float* gx, float* gh, int n_nodes, int dh, int h1,
+                       int n_ctas, cudaStream_t stream) {
+  const size_t d_smem = DH_SMEM_FLOATS<W> * sizeof(float);
+  const size_t n_smem = 3 * RT<W> * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      idn_bwd_dh<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)d_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(idn_bwd_nodes_bf<W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)n_smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const Bf* gpre1 = reinterpret_cast<const Bf*>(s.GPRE1);
+  Bf* gr = reinterpret_cast<Bf*>(s.GR);
+  Bf* gs = reinterpret_cast<Bf*>(s.GS);
+  idn_bwd_dh<W><<<n_ctas > 0 ? n_ctas : DH_CTAS_PER_SM * sms, THREADS,
+                  d_smem, stream>>>(em, indptr, w1r, w1s, gpre1, gr, gs,
+                                    n_nodes, dh, h1);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  idn_bwd_nodes_bf<W><<<n_tiles(n_nodes), NODE_THREADS, n_smem, stream>>>(
+      h, em, indptr, sperm, sptr, gpre1, s.GREL, s.G, s.GXR, s.RP, gr, gs,
+      gx, gh, s.PN, n_nodes, dh, h1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" long long idn_scratch_floats(int n_nodes, int n_slots, int dh,
@@ -645,8 +916,9 @@ extern "C" long long idn_scratch_floats(int n_nodes, int n_slots, int dh,
 // the widest phi1 hidden width the kernels take
 extern "C" int idn_max_width() { return 32 * MAX_NJ; }
 
-// n_ctas: CTAs of the row passes (0: one warp a row); any count gives the
-// same bits.  bf16 != 0: the bf16 mode
+// n_ctas: CTAs of the row passes and the bf16 dh pass (0: one warp a row,
+// DH_CTAS_PER_SM dh CTAs an SM); any count gives the same bits.  bf16 !=
+// 0: the bf16 mode
 extern "C" int edge_identity_forward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const float* w1r, const float* w1s, const float* w1d,
@@ -691,6 +963,7 @@ extern "C" int edge_identity_backward(
   Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, true, bf16 != 0);
   const long long nf = (long long)n_nodes * h1;
   const int nt = (n_nodes + plan.tn - 1) / plan.tn;
+  const int tw = tile_width(dh, h1, bf16 != 0);  // bf16 tiles, <= 64
   int rc = with_cols(h1, bf16, [&](auto nj, auto exact, auto bf) {
     constexpr int NJ = decltype(nj)::value;
     constexpr bool EX = decltype(exact)::value;
@@ -708,14 +981,20 @@ extern "C" int edge_identity_backward(
                                stream>>>(
         x, snd, em, indptr, s.P, s.Q, w1d, b1, w2, b2, deg, gdx, gmh, s.GPRE1,
         s.GREL, s.G, s.GXR, s.RP, w1r, w1s, s.GHR, s.GS, n_nodes, dh, h1,
-        rel_inv1p, clamp);
+        rel_inv1p, clamp, tw);
     e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess || tw) return (int)e;
     idn_bwd_nodes<NJ, EX, BF><<<nt, THREADS, plan.smem, stream>>>(
         h, em, sperm, sptr, w1r, w1s, s.GPRE1, s.GREL, s.G, s.GXR, s.RP,
         s.GHR, s.GS, gx, gh, s.PN, n_nodes, dh, h1, plan.tn, (int)plan.wsm);
     return (int)cudaGetLastError();
   });
+  if (rc == 0 && tw)
+    rc = with_width(tw, 1, [&](auto w, auto) {
+      return launch_tile_passes<decltype(w)::value>(
+          h, em, indptr, sperm, sptr, w1r, w1s, s, gx, gh, n_nodes, dh,
+          h1, n_ctas, stream);
+    });
   if (rc != 0) return rc;
   Outs o{gw1r, gw1s, gw1d, gb1, gw2, gb2};
   const long long pw = pn_width(dh, h1);

@@ -482,92 +482,6 @@ edge_bwd_edges(const float* __restrict__ x, const int* __restrict__ snd,
   }
 }
 
-// Columns (W/8) gl .. (W/8) gl + W/8 - 1 of row s of a (rows x W) array
-// of f32 or bf16 (widened, exactly), or zeros if !ok: one 16-byte load
-// (bf16 at W = 32: 8 bytes) for every four (eight) of them.
-template <int W, typename T>
-__device__ __forceinline__ void row_cols(const T* __restrict__ a, int s,
-                                         bool ok, int gl,
-                                         float (&v)[W / 8]) {
-  const size_t off = (size_t)(ok ? s : 0) * W + (W / 8) * gl;
-  if constexpr (std::is_same<T, float>::value) {
-    const float4* row = reinterpret_cast<const float4*>(a + off);
-#pragma unroll
-    for (int k = 0; k < W / 32; ++k) {
-      const float4 t = ok ? row[k] : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[4 * k] = t.x;
-      v[4 * k + 1] = t.y;
-      v[4 * k + 2] = t.z;
-      v[4 * k + 3] = t.w;
-    }
-  } else {
-    uint32_t u[W / 16];
-    if constexpr (W == 64) {
-      const uint4 t = ok ? *reinterpret_cast<const uint4*>(a + off)
-                         : make_uint4(0u, 0u, 0u, 0u);
-      u[0] = t.x;
-      u[1] = t.y;
-      u[2] = t.z;
-      u[3] = t.w;
-    } else {
-      const uint2 t = ok ? *reinterpret_cast<const uint2*>(a + off)
-                         : make_uint2(0u, 0u);
-      u[0] = t.x;
-      u[1] = t.y;
-    }
-#pragma unroll
-    for (int k = 0; k < W / 16; ++k) bf16_widen(u[k], v[2 * k], v[2 * k + 1]);
-  }
-}
-
-// A group of 8 lanes (lane gl owns columns (W/8) gl .. (W/8) gl + W/8 - 1)
-// adds, in p order, the g_pre1 rows of the live slots s(p), p in [p0, p1)
-// -- s(p) = p, or perm[p] -- into acc, the rows of X (if ROW2) into acc2,
-// and lanes gl < 3 add sign * g_rel[gl] into d.  Eight masks are read at
-// once and four rows are in flight.  The rows are f32, or bf16 (T = Bf).
-template <int W, bool PERM, bool ROW2, typename T>
-__device__ __forceinline__ void segment_sum(
-    const int* __restrict__ perm, const float* __restrict__ em,
-    const T* __restrict__ GPRE1, const float* __restrict__ GREL,
-    const T* __restrict__ X, int p0, int p1, int gl, int grp,
-    float sign, float (&acc)[W / 8], float (&acc2)[W / 8], float& d) {
-  constexpr int C = W / 8;  // columns a lane
-  const unsigned gm = 0xffu << (8 * grp);
-  for (int b = p0; b < p1; b += 8) {
-    const int p = b + gl;
-    const int s = p < p1 ? (PERM ? perm[p] : p) : 0;
-    const bool ok = p < p1 && em[s] != 0.0f;
-    unsigned m = (__ballot_sync(gm, ok) >> (8 * grp)) & 0xffu;
-    while (m) {
-      int sl[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int v = __shfl_sync(gm, s, 8 * grp + (m ? __ffs(m) - 1 : 0));
-        sl[u] = m ? v : -1;
-        m &= m - 1;
-      }
-      float v[4][C], v2[ROW2 ? 4 : 1][C];
-      float g[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        row_cols<W>(GPRE1, sl[u], sl[u] >= 0, gl, v[u]);
-        if (ROW2) row_cols<W>(X, sl[u], sl[u] >= 0, gl, v2[ROW2 ? u : 0]);
-        g[u] = sl[u] >= 0 && gl < 3 ? GREL[(size_t)sl[u] * 4 + gl] : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (sl[u] >= 0) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            acc[c] += v[u][c];
-            if (ROW2) acc2[c] += v2[ROW2 ? u : 0][c];
-          }
-          d += sign * g[u];
-        }
-    }
-  }
-}
-
 // Per node: G = receiver-segment sum of g_pre1 (slot order), S = sender-
 // segment sum (sender-permutation order), gx = dx_r + dx_s; then
 // gh = G.W1r^T + S.W1s^T (bf16: the receiver-segment sum of GR plus the

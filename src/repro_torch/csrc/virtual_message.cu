@@ -10,8 +10,8 @@
 // and it returns dx_i = mean_c rel gate_x, mh_i = mean_c msg (per node),
 // dz_sum_c = sum_i mask_i (z_c - x_i) gate_z and ms_sum_c = sum_i mask_i msg.
 //
-// Two launches on one stream, no atomics, every sum in a fixed order
-// (repeated runs are bitwise equal):
+// Two launches on one stream (bf16: three), no atomics, every sum in a
+// fixed order (repeated runs are bitwise equal):
 //   1. virtual_fwd_kernel  one CTA of 8 warps per 64-node tile.  It gathers
 //      the h tile once (swizzled) and takes the channels in order; per
 //      channel four 3xTF32 tensor-core tile products (common.cuh, each
@@ -27,17 +27,24 @@
 //      column.
 // The bf16 mode (template BF; `precision='bf16'` of the Pallas kernel):
 // x, z, h, the stacks, const1, b2, bg1 and bz1 rounded to bf16 (the
-// vectors in shared memory when their channel arrives, h and the weight
-// tiles inside `tile_mma`, which runs one TF32 MMA on bf16 operands);
-// rel = x - z_c, d2 = sum rel^2 and d2 w1d are bfloat16 arithmetic (each
-// op rounded; d2's three terms added in f32, as jnp.sum upcasts bf16);
-// t1, msg and the gates' SiLU enter their products rounded; mh, ms_sum,
-// dz_sum and dx are f32 sums of unrounded terms (virtual_message.py:73-86).
+// vectors in shared memory when their channel arrives); rel = x - z_c, d2 =
+// sum rel^2 and d2 w1d are bfloat16 arithmetic (each op rounded; d2's three
+// terms added in f32, as jnp.sum upcasts bf16); t1, msg and the gates'
+// SiLU enter their products rounded; mh, ms_sum, dz_sum and dx are f32
+// sums of unrounded terms (virtual_message.py:73-86).  Every read of the
+// weight, h, t1 and msg tiles is a product's operand, so in bf16 they are
+// bf16 tiles (common.cuh: `swz16`, each value rounded once as stored) and
+// the four products bf16 tensor-core MMAs (`tile_mma_bf`, m16n8k16 on
+// `ldmatrix` fragments, STEP_SUM per k16 step); a third launch,
+// virtual_round_stacks, rounds the four stacks once a call, so that each
+// channel streams 2-byte tiles straight into shared memory (8 KB a tile
+// at 64, half the f32 bytes).
 // Shared memory: 8 weight tiles, the h, t1 and msg tiles, ~189 KB at
-// Dh = hid = 64 (~65 KB at 32): one CTA an SM.  At N = 8,192 that is 128
-// CTAs for 132 SMs, a single short wave.  Widths: compiled for Dh = hid =
-// W, W = 32 and 64 (the entry point's `width`; other widths up to 64
-// arrive zero-padded, wider ones take panel.cu).
+// Dh = hid = 64 (~65 KB at 32): one CTA an SM; bf16 ~97 KB (~36 KB): two
+// CTAs an SM (at most 128 registers a thread).  At N = 8,192 that is 128
+// CTAs for 132 SMs, a single short wave; at 131,072 nodes 2,048.  Widths:
+// compiled for Dh = hid = W, W = 32 and 64 (the entry point's `width`;
+// other widths up to 64 arrive zero-padded, wider ones take panel.cu).
 //
 // Bound on an H100: per node and channel four 64 x 64 products (32,768
 // FLOP) against 268 bytes of x, h and mask read and 268 bytes of dx, mh
@@ -56,12 +63,16 @@ enum { W_1H = 0, W_2, W_G1, W_Z1, W_N };  // weight tiles of a channel
 // row scalars (64 each): x, mask, rel, d2, the dz terms, the dx sums
 enum { R_X0 = 0, R_X1, R_X2, R_M, R_RL0, R_RL1, R_RL2, R_D2, R_DZ0, R_DZ1,
        R_DZ2, R_DX0, R_DX1, R_DX2, R_N };
-template <int W>
-constexpr int SMEM_FLOATS = 2 * W_N * WT<W> + 2 * NVEC * W + 3 * RT<W> +
-                            R_N * TR + 4 * TR + 4 * TR;
-
+// two slots of W_N weight tiles, the vectors, the h, t1 and msg tiles (f32;
+// bf16: the tiles in bf16, half a float an element) and the row data
 template <int W, bool BF>
-__global__ void __launch_bounds__(THREADS, 1)
+constexpr int SMEM_FLOATS = (2 * W_N * WT<W> + 3 * RT<W>) / (BF ? 2 : 1) +
+                            2 * NVEC * W + R_N * TR + 4 * TR + 4 * TR;
+
+// bf16: wbf holds the four stacks rounded (virtual_round_stacks), channel c's
+// tile k at wbf + (c W_N + k) W^2
+template <int W, bool BF>
+__global__ void __launch_bounds__(THREADS, BF ? 2 : 1)
 virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ z, const float* __restrict__ mask,
                    const float* __restrict__ w1h, const float* __restrict__ w1d,
@@ -71,36 +82,52 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                    const float* __restrict__ wz1, const float* __restrict__ bz1,
                    const float* __restrict__ wz2, float* __restrict__ dx,
                    float* __restrict__ mh, float* __restrict__ part,
-                   int n_nodes, int n_chan) {
+                   const Bf* __restrict__ wbf, int n_nodes, int n_chan) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  // bf16: the same tiles in bf16, half as many floats
+  constexpr int HALF = BF ? 2 : 1;
   float* sW = smem;                                // [2 slots][W_N tiles]
-  float* sVec = sW + 2 * W_N * WT<W>;              // [2 slots][NVEC][W]
+  float* sVec = sW + 2 * W_N * WT<W> / HALF;       // [2 slots][NVEC][W]
   float* tH = sVec + 2 * NVEC * W;
   float* tT1 = tH + RT<W>;
   float* tMSG = tT1 + RT<W>;
-  float* rs = tMSG + RT<W>;       // [R_N][64]
+  Bf* bW = reinterpret_cast<Bf*>(sW);
+  Bf* bH = reinterpret_cast<Bf*>(tH);
+  Bf* bT1 = bH + RT<W>;
+  Bf* bMSG = bT1 + RT<W>;
+  float* rs = tH + 3 * RT<W> / HALF;  // [R_N][64]
   float* rowred = rs + R_N * TR;  // [2 gates][2 halves][64]
   float* colred = rowred + 4 * TR;  // [4 row blocks][64]
   auto R = [&](int k) { return rs + k * TR; };
   auto Wt = [&](int slot, int k) { return sW + (slot * W_N + k) * WT<W>; };
+  auto bWt = [&](int slot, int k) { return bW + (slot * W_N + k) * WT<W>; };
 
   const int tid = threadIdx.x;
   const Lane L = lane_of();
   const int node0 = blockIdx.x * TR;
   const size_t WW = (size_t)W * W;
   auto load_channel = [&](int slot, int c) {
-    tile_load_async<W>(Wt(slot, W_1H), w1h + c * WW);
-    tile_load_async<W>(Wt(slot, W_2), w2 + c * WW);
-    tile_load_async<W>(Wt(slot, W_G1), wg1 + c * WW);
-    tile_load_async<W>(Wt(slot, W_Z1), wz1 + c * WW);
+    if constexpr (BF) {
+#pragma unroll
+      for (int k = 0; k < W_N; ++k)
+        tile_load_async_bf<W>(bWt(slot, k), wbf + (c * W_N + k) * WW);
+    } else {
+      tile_load_async<W>(Wt(slot, W_1H), w1h + c * WW);
+      tile_load_async<W>(Wt(slot, W_2), w2 + c * WW);
+      tile_load_async<W>(Wt(slot, W_G1), wg1 + c * WW);
+      tile_load_async<W>(Wt(slot, W_Z1), wz1 + c * WW);
+    }
     load_virtual_vecs<W>(sVec + slot * NVEC * W, c, w1d, c1, b2, bg1, wg2,
                          bz1, wz2);
     async_commit();
   };
   load_channel(0, 0);
-  tile_gather<W>(tH, h,
-                 [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; });
+  auto node = [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; };
+  if constexpr (BF)
+    tile_gather_bf<W>(bH, h, TR, node);
+  else
+    tile_gather<W>(tH, h, node);
   if (tid < TR) {
     const int i = node0 + tid;
     const bool ok = i < n_nodes;
@@ -138,7 +165,10 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
     {  // t1 = SiLU(h.W1h + d2 w1d + const1)
       Frag<W> p;
       frag_zero<W>(p);
-      tile_mma<W, false, false, true, BF>(p, tH, Wt(slot, W_1H), L);
+      if constexpr (BF)
+        tile_mma_bf<W, false, false, true>(p, bH, bWt(slot, W_1H), L);
+      else
+        tile_mma<W, false, false, true>(p, tH, Wt(slot, W_1H), L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -150,13 +180,19 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
               vec[V_C1 * W + j];
           p[jn][e] = u * sigm(u);
         }
-      frag_store<W>(tT1, p, L);
+      if (BF)
+        frag_store_bf<W>(bT1, p, L);
+      else
+        frag_store<W>(tT1, p, L);
     }
     __syncthreads();
     {  // msg = t1.W2 + b2; mh += msg; the masked column sums of msg
       Frag<W> m, w;
       frag_zero<W>(m);
-      tile_mma<W, false, false, true, BF>(m, tT1, Wt(slot, W_2), L);
+      if constexpr (BF)
+        tile_mma_bf<W, false, false, true>(m, bT1, bWt(slot, W_2), L);
+      else
+        tile_mma<W, false, false, true>(m, tT1, Wt(slot, W_2), L);
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -166,7 +202,10 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
           mha[jn][e] += m[jn][e];
           w[jn][e] = node0 + r < n_nodes ? m[jn][e] * R(R_M)[r] : 0.0f;
         }
-      frag_store<W>(tMSG, m, L);
+      if (BF)
+        frag_store_bf<W>(bMSG, m, L);
+      else
+        frag_store<W>(tMSG, m, L);
       frag_colsum<W>(w, L, colred);
     }
     __syncthreads();
@@ -174,8 +213,13 @@ virtual_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
       Frag<W> gx, gz;
       frag_zero<W>(gx);
       frag_zero<W>(gz);
-      tile_mma<W, false, false, true, BF>(gx, tMSG, Wt(slot, W_G1), L);
-      tile_mma<W, false, false, true, BF>(gz, tMSG, Wt(slot, W_Z1), L);
+      if constexpr (BF) {
+        tile_mma_bf<W, false, false, true>(gx, bMSG, bWt(slot, W_G1), L);
+        tile_mma_bf<W, false, false, true>(gz, bMSG, bWt(slot, W_Z1), L);
+      } else {
+        tile_mma<W, false, false, true>(gx, tMSG, Wt(slot, W_G1), L);
+        tile_mma<W, false, false, true>(gz, tMSG, Wt(slot, W_Z1), L);
+      }
 #pragma unroll
       for (int jn = 0; jn < JN<W>; ++jn)
 #pragma unroll
@@ -270,32 +314,75 @@ __global__ void virtual_block_sums(const float* __restrict__ part,
   }
 }
 
+// The bf16 mode's weight stacks rounded once a call: wbf[c][k] = bf16 of
+// channel c's W1h, W2, Wg1, Wz1 (k in that order, W x W each), so that the
+// forward streams 2-byte tiles by cp.async straight into its bf16 tiles.
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+virtual_round_stacks(const float* __restrict__ w1h,
+                     const float* __restrict__ w2,
+                     const float* __restrict__ wg1,
+                     const float* __restrict__ wz1, Bf* __restrict__ wbf,
+                     int n_chan) {
+  constexpr int WW = W * W;
+  const float* src[W_N] = {w1h, w2, wg1, wz1};
+  const int n4 = n_chan * W_N * WW / 4;
+  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < n4;
+       f += gridDim.x * blockDim.x) {
+    const int e = 4 * f, c = e / (W_N * WW), k = (e / WW) % W_N;
+    const float4 v =
+        *reinterpret_cast<const float4*>(src[k] + c * WW + e % WW);
+    *reinterpret_cast<uint2*>(wbf + e) = bf16x4(v);
+  }
+}
+
+template <int W, bool BF>
+constexpr int smem_bytes() {
+  return SMEM_FLOATS<W, BF> * sizeof(float);
+}
+
 template <int W, bool BF>
 int launch_forward(const float* x, const float* h, const float* z,
                    const float* mask, const float* w1h, const float* w1d,
                    const float* c1, const float* w2, const float* b2,
                    const float* wg1, const float* bg1, const float* wg2,
                    const float* wz1, const float* bz1, const float* wz2,
-                   float* dx, float* mh, float* part, int n_nodes, int n_chan,
-                   cudaStream_t stream) {
-  const size_t smem = SMEM_FLOATS<W> * sizeof(float);
+                   float* dx, float* mh, float* part, float* scratch,
+                   int n_nodes, int n_chan, cudaStream_t stream) {
+  const size_t smem = smem_bytes<W, BF>();
   cudaError_t err = cudaFuncSetAttribute(
       virtual_fwd_kernel<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_blocks = n_tiles(n_nodes);
+  Bf* wbf = reinterpret_cast<Bf*>(scratch);
+  if (BF && n_blocks > 0) {
+    const int n4 = n_chan * W_N * W * W / 4;
+    virtual_round_stacks<W><<<min((n4 + THREADS - 1) / THREADS, 1024),
+                              THREADS, 0, stream>>>(w1h, w2, wg1, wz1, wbf,
+                                                    n_chan);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   if (n_blocks > 0) {
     virtual_fwd_kernel<W, BF><<<n_blocks, THREADS, smem, stream>>>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2, dx,
-        mh, part, n_nodes, n_chan);
+        mh, part, wbf, n_nodes, n_chan);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the scratch of a forward call: the bf16 mode's rounded stacks (bf16,
+// half a float an element), none in f32
+extern "C" long long virtual_fwd_scratch_floats(int n_chan, int width,
+                                                int bf16) {
+  return bf16 ? (long long)n_chan * W_N * width * width / 2 : 0;
+}
+
 // width: the compiled width (32 or 64) that Dh and hid were padded to;
-// bf16 != 0: the bf16 mode
+// bf16 != 0: the bf16 mode (scratch: virtual_fwd_scratch_floats)
 extern "C" int virtual_forward(const float* x, const float* h, const float* z,
                                const float* mask, const float* w1h,
                                const float* w1d, const float* c1,
@@ -303,16 +390,34 @@ extern "C" int virtual_forward(const float* x, const float* h, const float* z,
                                const float* wg1, const float* bg1,
                                const float* wg2, const float* wz1,
                                const float* bz1, const float* wz2, float* dx,
-                               float* mh, float* part, int n_nodes,
-                               int n_chan, int width, int bf16,
+                               float* mh, float* part, float* scratch,
+                               int n_nodes, int n_chan, int width, int bf16,
                                void* stream) {
   if (!(aligned16(h) && aligned16(w1h) && aligned16(w2) && aligned16(wg1) &&
-        aligned16(wz1) && aligned16(mh)))
+        aligned16(wz1) && aligned16(mh) && (!bf16 || aligned16(scratch))))
     return (int)cudaErrorMisalignedAddress;
   return with_width(width, bf16, [&](auto w, auto bf) {
     return launch_forward<decltype(w)::value, decltype(bf)::value>(
         x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2, dx,
-        mh, part, n_nodes, n_chan, (cudaStream_t)stream);
+        mh, part, scratch, n_nodes, n_chan, (cudaStream_t)stream);
+  });
+}
+
+// the CTAs of the forward an SM holds at once, as the card reports it for
+// its registers and shared memory (-1 on an error)
+extern "C" int virtual_fwd_occupancy(int width, int bf16) {
+  return with_width(width, bf16, [](auto w, auto bf) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool B = decltype(bf)::value;
+    const int bytes = smem_bytes<W, B>();
+    int n = -1;
+    if (cudaFuncSetAttribute(virtual_fwd_kernel<W, B>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, virtual_fwd_kernel<W, B>, THREADS, bytes) != cudaSuccess)
+      return -1;
+    return n;
   });
 }
 

@@ -40,8 +40,10 @@ call (any route, forward or backward) per precision.
 Gate ``'identity'`` (RF: Dh = 1, SchNet's coordinate head: Dh = hidden;
 M = 1 for both) is its own pair of CUDA paths, ``csrc/edge_identity.cu``
 (the Pallas kernels' identity branch), for H1 up to
-:data:`IDENTITY_MAX_H1`: two kernels a forward, four a backward, counted
-apart in ``identity_launches`` / ``identity_bwd_launches``.  A wider
+:data:`IDENTITY_MAX_H1`: two kernels a forward, four a backward (five in
+bf16 at Dh and H1 up to 64, whose per-edge dh products run as bf16 tile
+products), counted apart in ``identity_launches`` /
+``identity_bwd_launches``.  A wider
 identity layer (the reference admits them for very small graphs) takes
 the panel path, counted as the other gates' calls are.
 Gradients flow through ``kernels.ops.EdgePathway``; both raw wrappers
@@ -69,7 +71,8 @@ launches = 0
 #: launches of the CUDA edge backward since the last :func:`reset_launches`
 bwd_launches = 0
 #: calls of the identity-gate CUDA forward (two kernels each) and backward
-#: (four kernels each) since the last :func:`reset_launches`
+#: (four kernels each; five on the bf16 tile route) since the last
+#: :func:`reset_launches`
 identity_launches = 0
 identity_bwd_launches = 0
 

@@ -8,8 +8,9 @@ plain versions, launch counters.
 ``virtual_pathway_fused``): the main kernel, one CTA per 64-node tile,
 writes dx and mh and one row of partial sums per CTA and channel into a
 scratch tensor this wrapper allocates, and a second kernel adds the CTAs
-in order.  ``launches`` counts calls (two kernels each).  CPU tensors run
-:func:`virtual_pathway_plain`.
+in order (in bf16 a first kernel rounds the weight stacks into a second
+scratch tensor).  ``launches`` counts calls (two kernels each, bf16
+three).  CPU tensors run :func:`virtual_pathway_plain`.
 
 :func:`virtual_pathway_bwd_fused` returns the 14 gradients of the forward
 (all operands but the node mask) from its primals and the four output
@@ -50,7 +51,7 @@ from repro_torch.kernels.runtime import (BF16, align16, pad_to,
 
 Tensor = torch.Tensor
 
-#: calls of the CUDA virtual forward (two kernels each) since
+#: calls of the CUDA virtual forward (two kernels each, bf16 three) since
 #: :func:`reset_launches`
 launches = 0
 #: calls of the CUDA virtual backward (two kernels each) since
@@ -86,10 +87,14 @@ def pad_ops(ops: tuple, d: int, w: int) -> list:
 
 def _bind(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.virtual_forward.argtypes = ([ctypes.c_void_p] * 18
+    lib.virtual_forward.argtypes = ([ctypes.c_void_p] * 19
                                     + [ctypes.c_int] * 4
                                     + [ctypes.c_void_p])
     lib.virtual_forward.restype = ctypes.c_int
+    lib.virtual_fwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.virtual_fwd_scratch_floats.restype = ctypes.c_longlong
+    lib.virtual_fwd_occupancy.argtypes = [ctypes.c_int] * 2
+    lib.virtual_fwd_occupancy.restype = ctypes.c_int
     lib.virtual_sums.argtypes = ([ctypes.c_void_p] * 3
                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.virtual_sums.restype = ctypes.c_int
@@ -182,10 +187,12 @@ def virtual_pathway_fused(x: Tensor, h: Tensor, z: Tensor, node_mask: Tensor,
         empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
         dx, mh, dz, ms = empty(n, 3), empty(n, w), empty(c, 3), empty(c, w)
         part = empty(n_blocks, c, lib.virtual_partial_width(w))
+        # bf16: the four weight stacks rounded once a call, read as tiles
+        scratch = empty(int(lib.virtual_fwd_scratch_floats(c, w, int(bf16))))
         stream = build.stream_ptr(dev)
         err = lib.virtual_forward(
-            *[t.data_ptr() for t in (*ins, dx, mh, part)], n, c, w, int(bf16),
-            stream)
+            *[t.data_ptr() for t in (*ins, dx, mh, part, scratch)], n, c, w,
+            int(bf16), stream)
         build.check(lib, err, "virtual_forward")
         err = lib.virtual_sums(part.data_ptr(), dz.data_ptr(), ms.data_ptr(),
                                n_blocks, c, w, stream)

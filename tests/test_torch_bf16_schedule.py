@@ -1,9 +1,11 @@
 """The bf16 schedule of the CUDA edge kernels (#1 ``edge_fwd_edges<W,
 true>``, #2 ``edge_bwd_edges<W, true>`` / ``edge_bwd_nodes<W, true>``,
-their ``node_proj<W, true>``), emulated in plain PyTorch and held to the
-plain bf16 versions ``kernels.ref.edge_pathway_ref_bf16`` /
-``edge_pathway_bwd_ref_bf16`` (which ``tests/test_torch_bf16.py`` holds to
-the JAX package's bf16 kernels).
+their ``node_proj<W, true>``), of the identity gate's backward on its tile
+route (``idn_bwd_dh<W>`` / ``idn_bwd_nodes_bf<W>``) and of the virtual
+forward (#3 ``virtual_fwd_kernel<W, true>``), emulated in plain PyTorch and
+held to the plain bf16 versions ``kernels.ref.edge_pathway_ref_bf16`` /
+``edge_pathway_bwd_ref_bf16`` / ``virtual_pathway_ref_bf16`` (which
+``tests/test_torch_bf16.py`` holds to the JAX package's bf16 kernels).
 
 No CUDA kernel runs on the CPU, so these tests hold the bf16 kernels'
 algorithm where the kernels cannot run, as ``tests/test_torch_fwd_schedule.py``
@@ -13,7 +15,7 @@ and ``tests/test_torch_bwd_schedule.py`` do for the 3xTF32 route:
   (``tile_mma_bf``, ``csrc/common.cuh``): operands rounded to bf16 (the
   tiles are stored rounded), the 16 products of a k-step exact and added
   to the accumulator, each MMA's result rounded toward zero; with
-  STEP_SUM (the forward's products) each k16 step starts from zero and
+  STEP_SUM (the forwards' products) each k16 step starts from zero and
   joins the running sum by a round-to-nearest f32 add.
 * #1: CTA b owns the receiver rows whose CSR segment starts in its equal
   share of the live slot range, its live slots packed in slot order into
@@ -23,6 +25,16 @@ and ``tests/test_torch_bwd_schedule.py`` do for the 3xTF32 route:
   W1r^T), ... W1s^T) stored as torch.bfloat16 and widened by the node
   pass, which sums it per node in slot / sender-permutation order; the
   weight partials per range, added in range order.
+* The identity backward (SchNet's form, Dh = H1; RF's, Dh = 1): the row
+  pass's per-edge terms and per-row sums in slot order; bf16(g_pre1) per
+  slot in bf16; the dh pass's 64-slot tiles of the slot range (a masked
+  slot's unwritten row in the tile, its products not stored), the live
+  slots' two products stored in bf16; the node pass's sums in slot /
+  sender-permutation order; h^T G, h^T S and the rows' partials per
+  64-node tile, added in tile order.
+* #3: 64-node tiles, the channels in order, bf16 tiles and k16 STEP_SUM
+  products; one partial row (dz | ms) per tile and channel, added in tile
+  order.
 
 Tolerances.  With round-to-nearest f32 products of the rounded operands
 (the plain version's), the schedules reproduce the plain bf16 versions
@@ -34,11 +46,14 @@ summands are rounded to bf16, so a last-bit difference in an edge's g_rel
 or dh term (another order of the gate's f32 row sum is enough) can tip
 its rounding by a bf16 ulp, and on this 230-node graph one tipped summand
 reads ~1e-3 in gx (tensor-core products at width 32: 1.08e-3, two
-elements off by half a bf16 ulp of 1).  They are held to the card's elementwise bound for
-exactly that (``chip_smoke.py``'s BF_KRTOL |p| + BF_KATOL max|p|), with
-under 1 % of their elements differing at all.  Bitwise: #1's outputs,
-and #2's gx and gh, do not change with the CTA count or with masked slots
-in the layout.
+elements off by half a bf16 ulp of 1).  They are held to the card's
+elementwise bound for exactly that (``chip_smoke.py``'s BF_KRTOL |p| +
+BF_KATOL max|p|), with under 1 % of their elements differing at all; so
+are the identity backward's.  The virtual forward's masked sums dz and
+ms, over every node, are held to ``chip_smoke.py``'s BF_SUM_L2 with the
+tensor core's products.  Bitwise:
+#1's outputs, and #2's and the identity backward's gx and gh, do not
+change with the CTA count or with masked slots in the layout.
 """
 import math
 
@@ -51,9 +66,11 @@ from repro_torch.data.radius_graph import (csr_indptr, csr_sender_perm,
                                            pad_edges, radius_graph,
                                            sort_edges_by_receiver)
 from repro_torch.kernels.ref import (edge_pathway_bwd_ref_bf16,
-                                     edge_pathway_ref_bf16)
+                                     edge_pathway_ref_bf16,
+                                     virtual_pathway_ref_bf16)
 from test_torch_bf16 import one_torch_thread  # noqa: F401 (a fixture)
-from test_torch_bwd_schedule import TR, _edge_graph, _silu_grad, sum_in_order
+from test_torch_bwd_schedule import (TR, _edge_graph, _silu_grad,
+                                     sum_in_order)
 from test_torch_fwd_schedule import _round_to_zero, cta_rows
 
 BF_L2 = 1e-3
@@ -436,3 +453,285 @@ def test_bf16_edge_schedules_masked_slots_do_not_change_a_bit():
     assert 0 < keep.sum() < keep.size
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- #2, identity gate
+def identity_bwd_bf16_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s,
+                               w1d, b1, w2, b2, deg, g_dx, g_mh, *, rel_mode,
+                               clamp, n_ctas, mm=mm_bf16, scratch=None):
+    """The identity gate's bf16 backward on its tile route (Dh, H1 <= 64:
+    ``idn_bwd_rows<..., true>``, ``idn_bwd_dh<W>``, ``idn_bwd_nodes_bf<W>``)
+    → the 8 gradients ``(x, h, w1r, w1s, w1d, b1, w2, b2)``.  The row pass
+    recomputes each live edge (FP32 units) and sums per receiver row in
+    slot order; the dh pass takes the slot range in 64-slot tiles (CTA b
+    tiles b, b + n_ctas, ...), a masked slot's row whatever the stage
+    holds (never written nor fetched: NaN here), forms the per-edge dh
+    terms with the tile products ``mm`` and stores the live slots' in
+    bf16; the node pass
+    sums them per node in slot / sender-permutation order and forms h^T G,
+    h^T S per 64-node tile.  ``scratch``
+    (a dict) receives the per-slot bf16 rows (and ``g_msg``, the terms of
+    the b2 gradient)."""
+    n, h1 = x.shape[0], w1r.shape[1]
+    inv1p = rel_mode == "inv1p"
+    w1d_b, b1_b, w2_b, b2_b = (_b(w) for w in (w1d, b1, w2, b2))
+    P = _tiles(h, lambda t: mm_plain(t, w1r))  # idn_proj: exact products
+    Q = _tiles(h, lambda t: mm_plain(t, w1s))
+    live_end = int(indptr[n])
+    live = [s for s in range(live_end) if em[s] != 0]
+    sl = torch.tensor(live, dtype=torch.long)
+    r = torch.searchsorted(indptr.long(), sl, right=True) - 1
+    s, e = snd[sl].long(), em[sl]
+    # the row pass's per-edge terms (each edge's alone)
+    rel, d2 = _rel_d2(x, r, s)
+    pre = _pre1(P, Q, r, s, d2, w1d, b1)
+    t1, dt = F.silu(pre), _silu_grad(pre)
+    msg = (_b(t1) @ w2_b + b2_b)[:, 0]
+    inv = _b(1.0 / torch.clamp(deg[r, 0], min=1.0))
+    sc = inv * e
+    u = _b(g_dx[r]) * sc[:, None]
+    kf = 1.0 / (torch.sqrt(d2 + 1e-12) + 1.0) if inv1p else torch.ones_like(d2)
+    g_gate = (u * (rel * kf[:, None])).sum(-1)
+    g_gate = torch.where((msg >= -clamp) & (msg <= clamp), g_gate, 0.0)
+    g_msg = _b(g_mh[r, 0]) * sc + g_gate
+    gp = (_b(g_msg)[:, None] * w2_b[:, 0]) * dt
+    gq = _b(gp)
+    g_d2 = gq @ w1d_b[0]
+    gu = u * torch.clamp(msg, -clamp, clamp)[:, None]  # g_rel_used
+    if inv1p:
+        g_d2 = g_d2 + (gu * rel).sum(-1) * (-(kf * kf)
+                                            / (2.0 * torch.sqrt(d2 + 1e-12)))
+        gu = gu * kf[:, None]
+    grel = _b(gu + 2.0 * rel * g_d2[:, None])
+    # per receiver row, its live edges in slot order
+    rows = {"G": gq, "gxr": grel, "w2": _b(t1) * _b(g_msg)[:, None],
+            "w1d": _b(d2)[:, None] * gq, "b1": gp, "b2": g_msg[:, None]}
+    RS = {k: torch.zeros((n, v.shape[1])) for k, v in rows.items()}
+    for k, v in rows.items():
+        for i in range(n):
+            idx = (r == i).nonzero().flatten()
+            if idx.numel():
+                RS[k][i] = sum_in_order(list(v[idx]))
+    # the dh pass: 64-slot tiles of the slot range, taken by the CTAs in
+    # turn; a masked slot's row is garbage and its products are not stored
+    bf = torch.bfloat16
+    slots = snd.shape[0]
+    GPRE1 = torch.full((slots, h1), float("nan"), dtype=bf)
+    GR = torch.zeros((slots, w1r.shape[0]), dtype=bf)
+    GS = torch.zeros((slots, w1r.shape[0]), dtype=bf)
+    GPRE1[sl] = gq.to(bf)
+    n_t = -(-live_end // TR)
+    for b in range(n_ctas):
+        for t in range(b, n_t, n_ctas):
+            k = torch.arange(t * TR, min(t * TR + TR, live_end))
+            on = em[k] != 0
+            g = _pad(GPRE1[k].float(), TR)
+            GR[k[on]] = mm(g, w1r.T)[:k.numel()][on].to(bf)
+            GS[k[on]] = mm(g, w1s.T)[:k.numel()][on].to(bf)
+    if scratch is not None:
+        scratch.update(GPRE1=GPRE1, GR=GR, GS=GS, g_msg=g_msg)
+    # the node pass: 8 lanes a node, the bf16 rows widened and summed
+    g1, gr_, gs_ = GPRE1.float(), GR.float(), GS.float()
+    GREL = torch.zeros((slots, 3))
+    GREL[sl] = grel
+    S = torch.zeros((n, h1))
+    gx, gh = torch.zeros((n, 3)), torch.zeros((n, w1r.shape[0]))
+    for i in range(n):
+        hr, hs, ds = torch.zeros_like(gh[i]), torch.zeros_like(gh[i]), \
+            torch.zeros(3)
+        for k in range(int(indptr[i]), int(indptr[i + 1])):
+            if em[k] != 0:
+                hr = hr + gr_[k]
+        for p in range(int(sptr[i]), int(sptr[i + 1])):
+            k = int(sperm[p])
+            if em[k] != 0:
+                S[i] = S[i] + g1[k]
+                hs = hs + gs_[k]
+                ds = ds - GREL[k]
+        gx[i], gh[i] = RS["gxr"][i] + ds, hr + hs
+    # h^T G, h^T S (3xTF32 on the card: f32-accurate) and the rows'
+    # partials, per 64-node tile, added in tile order
+    hb = _b(h)
+    tiles = lambda fn: sum_in_order([fn(slice(i, i + TR))
+                                     for i in range(0, n, TR)])
+    col = lambda k: tiles(lambda t: sum_in_order(list(RS[k][t])))
+    return (gx, gh, tiles(lambda t: hb[t].T @ RS["G"][t]),
+            tiles(lambda t: hb[t].T @ S[t]), col("w1d")[None],
+            col("b1")[None], col("w2")[:, None], col("b2")[None])
+
+
+# SchNet's form (Dh = H1, rel 'raw') and RF's (Dh = 1, 'inv1p' with a clamp
+# that binds on most edges)
+IDN_FORMS = {"schnet": (None, "raw", math.inf), "rf": (1, "inv1p", 0.5)}
+
+
+def _identity_case(width, form):
+    x, h, sp, rp, em, indptr, sperm, sptr, ws, g_dx, _ = _case(width)
+    dh, rel, clamp = IDN_FORMS[form]
+    dh = dh or width
+    rng = np.random.default_rng(width + 7)
+    t = torch.from_numpy
+    h = t(rng.standard_normal((x.shape[0], dh)).astype(np.float32))
+    w = [t(rng.standard_normal((dh, width)).astype(np.float32))
+         / math.sqrt(2 * dh + 1) for _ in range(2)]
+    ws = w + ws[2:4] + [ws[4][:, :1], ws[5][:, :1]]
+    g_mh = t(rng.standard_normal((x.shape[0], 1)).astype(np.float32))
+    kw = dict(gate_mode="identity", rel_mode=rel, clamp=clamp)
+    zeros = [torch.zeros(1, 1)] * 3
+    deg = edge_pathway_ref_bf16(x, h, sp, rp, em, *ws, *zeros, **kw)[2]
+    want = edge_pathway_bwd_ref_bf16(x, h, sp, rp, em, *ws, *zeros, deg,
+                                     g_dx, g_mh, **kw)[:8]
+    args = (x, h, sp, em, indptr, sperm, sptr, *ws, deg, g_dx, g_mh)
+    return args, dict(rel_mode=rel, clamp=clamp), want
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("products", sorted(PRODUCTS))
+@pytest.mark.parametrize("form", sorted(IDN_FORMS))
+@pytest.mark.parametrize("width", WIDTHS)
+def test_bf16_identity_bwd_schedule_matches_plain_bf16(width, form,
+                                                       products):
+    """The identity backward's bf16 tile route at widths 16 / 32 / 64 in
+    SchNet's and RF's forms: within the products' tolerance of the plain
+    bf16 backward (gx, gh: the card's elementwise bound, see the module's
+    note); the per-slot scratch is bf16 and holds exactly the rounded
+    values the row pass formed."""
+    mm, tol = PRODUCTS[products]
+    args, kw, want = _identity_case(width, form)
+    scratch = {}
+    got = identity_bwd_bf16_schedule(*args, **kw, n_ctas=12, mm=mm,
+                                     scratch=scratch)
+    _assert_close(got[:7], want[:7], f"identity bwd {form} at {width}", tol,
+                  node_sums=(0, 1))
+    # the b2 gradient is one scalar, the sum of every live edge's g_msg of
+    # either sign: two f32 orders of it differ by ulps of the terms'
+    # magnitudes, not of their cancelling sum (1.15e-6 of it at width 32)
+    terms = float(scratch.pop("g_msg").abs().sum())
+    assert float((got[7] - want[7]).abs()) <= tol * terms
+    assert all(v.dtype == torch.bfloat16 for v in scratch.values())
+    em, indptr = args[3], args[4]
+    live = (em[:int(indptr[-1])] != 0).nonzero().flatten()
+    g1 = scratch["GPRE1"][live].float()
+    assert bool(g1.abs().sum() > 0) and bool(torch.isfinite(got[1]).all())
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_bf16_identity_bwd_schedule_ctas_masked_slots_keep_bits():
+    """The identity backward's tile route: gx and gh bitwise equal under 12
+    and 5 dh-pass CTAs, and with the same live edges in a Verlet list at
+    r + skin (the candidates outside r masked) and in a list of exactly
+    the live edges (RF's form, a clamp that binds)."""
+    rng = np.random.default_rng(5)
+    n, r, width = 120, 0.22, 32
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    snd, rcv = sort_edges_by_receiver(*radius_graph(x, r + 0.1))
+    d = x[snd] - x[rcv]
+    keep = (d * d).sum(-1) <= np.float32(r) ** 2
+    t = torch.from_numpy
+    h = t(rng.standard_normal((n, 1)).astype(np.float32))
+    g_dx = t(rng.standard_normal((n, 3)).astype(np.float32))
+    g_mh = t(rng.standard_normal((n, 1)).astype(np.float32))
+    ws = _weights(width)
+    ws = [ws[0][:1], ws[1][:1]] + ws[2:4] + [ws[4][:, :1], ws[5][:, :1]]
+    kw = dict(rel_mode="inv1p", clamp=0.5)
+    outs = []
+    for s, rc, mk in ((snd, rcv, keep), (snd[keep], rcv[keep], keep[keep])):
+        sp, rp, em = pad_edges(s, rc, s.size + 50, x)
+        em[:s.size] = mk
+        indptr = csr_indptr(rp, s.size, n)
+        perm, sptr = csr_sender_perm(sp, s.size, n)
+        sperm = np.zeros(sp.size, np.int32)
+        sperm[:perm.size] = perm
+        deg = edge_pathway_ref_bf16(
+            t(x), h, t(sp), t(rp), t(em), *ws, *[torch.zeros(1, 1)] * 3,
+            gate_mode="identity", **kw)[2]
+        args = (t(x), h, t(sp), t(em), t(indptr), t(sperm), t(sptr), *ws,
+                deg, g_dx, g_mh)
+        for k in (12, 5):
+            outs.append(identity_bwd_bf16_schedule(*args, **kw, n_ctas=k)[:2])
+    assert 0 < keep.sum() < keep.size
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+# ------------------------------------------------------------------- #3
+def virtual_fwd_bf16_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1,
+                              wg2, wz1, bz1, wz2, *, mm=mm_bf16):
+    """``virtual_fwd_kernel<W, true>``'s schedule → ``(dx, mh, dz, ms)``:
+    64-node tiles, the channels in order; the h, t1, msg and weight tiles
+    bf16 and the four products ``mm`` with a STEP_SUM per k16 step; rel,
+    d2 and d2 w1d in bfloat16 arithmetic; mh, dx and the masked sums f32
+    sums of unrounded terms, one partial row per tile and channel, added
+    in tile order."""
+    n, c = x.shape[0], z.shape[0]
+    hid = w2.shape[-1]
+    xb, zb = _b(x), _b(z)
+    w1d, c1, b2, bg1, wg2, bz1, wz2 = (_b(v) for v in (w1d, c1, b2, bg1,
+                                                      wg2, bz1, wz2))
+    inv_c = 1.0 / c
+    dx, mh = torch.zeros((n, 3)), torch.zeros((n, hid))
+    parts = []
+    for i0 in range(0, n, TR):
+        cnt = min(TR, n - i0)
+        xt, ht, mt = (_pad(a[i0:i0 + cnt], TR) for a in (xb, h, mask))
+        ok = (torch.arange(TR) < cnt)[:, None]
+        mha, dxa = torch.zeros((TR, hid)), torch.zeros((TR, 3))
+        tile_parts = []
+        for ch in range(c):
+            rl = _b(xt - zb[ch])
+            sq = _b(rl * rl)
+            d2 = _b((sq[:, 0] + sq[:, 1]) + sq[:, 2])
+            t1 = F.silu((mm(ht, w1h[ch], step_sum=True)
+                         + _b(d2[:, None] * w1d[ch])) + c1[ch])
+            msg = mm(t1, w2[ch], step_sum=True) + b2[ch]
+            mha = mha + msg
+            gx = (_b(F.silu(mm(msg, wg1[ch], step_sum=True) + bg1[ch]))
+                  * wg2[ch, :, 0]).sum(-1)
+            gz = (_b(F.silu(mm(msg, wz1[ch], step_sum=True) + bz1[ch]))
+                  * wz2[ch, :, 0]).sum(-1)
+            dxa = dxa + rl * gx[:, None]
+            ms = torch.where(ok, msg * mt[:, None], 0.0).sum(0)
+            dzt = torch.where(ok, (-rl * gz[:, None]) * mt[:, None], 0.0)
+            tile_parts.append((sum_in_order(list(dzt)), ms))
+        parts.append(tile_parts)
+        mh[i0:i0 + cnt] = (mha * inv_c)[:cnt]
+        dx[i0:i0 + cnt] = (dxa * inv_c)[:cnt]
+    red = lambda k: torch.stack([sum_in_order([p[ch][k] for p in parts])
+                                 for ch in range(c)])
+    return dx, mh, red(0), red(1)
+
+
+def _virtual_case(width, n=200, c=3):
+    rng = np.random.default_rng(40 + width)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.standard_normal(s)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=n) > 0.2).astype(np.float32))
+    sw = width ** -0.5
+    return (x, f(n, width), x[:c] + 0.05 * f(c, 3), mask,
+            f(c, width, width, sc=sw), f(c, width, sc=0.3),
+            f(c, width, sc=0.3), f(c, width, width, sc=sw),
+            f(c, width, sc=0.1), f(c, width, width, sc=sw), f(c, width, sc=0.1),
+            f(c, width, 1, sc=sw), f(c, width, width, sc=sw),
+            f(c, width, sc=0.1), f(c, width, 1, sc=sw))
+
+
+BF_SUM_L2 = 5e-5  # chip_smoke.py's bound on the virtual forward's sums
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("products", sorted(PRODUCTS))
+@pytest.mark.parametrize("width", WIDTHS)
+def test_bf16_virtual_fwd_schedule_matches_plain_bf16(width, products):
+    """#3 in bf16 at widths 16 / 32 / 64 on bf16 tiles with k16 products:
+    dx and mh within the products' tolerance of the plain bf16 forward,
+    the masked sums dz and ms within it (plain products) or BF_SUM_L2
+    (the tensor core's)."""
+    mm, tol = PRODUCTS[products]
+    args = _virtual_case(width)
+    want = virtual_pathway_ref_bf16(*args)
+    got = virtual_fwd_bf16_schedule(*args, mm=mm)
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = _rel_l2(g, w)
+        assert err <= (tol if i < 2 or tol < BF_SUM_L2 else BF_SUM_L2), (
+            f"output {i}: relative L2 {err:.3g}")

@@ -1972,31 +1972,37 @@ def _sass_functions(lib_path) -> dict:
 
 @needs_cuda
 def test_edge_pair_bf16_runs_bf16_mma():
-    """The bf16 instantiations of #1 (edge_fwd_edges, node_proj) and #2
-    (edge_bwd_edges, node_proj) at both compiled widths run bf16 tensor-
-    core MMAs (HMMA.16816.F32.BF16) and no TF32 ones; their f32
-    instantiations keep the 3xTF32 route (HMMA.1688.F32.TF32, no bf16
-    MMAs)."""
+    """The bf16 instantiations of #1 (edge_fwd_edges, node_proj), #2
+    (edge_bwd_edges, node_proj) and #3 (virtual_fwd_kernel), and the
+    identity backward's bf16 dh pass (idn_bwd_dh, bf16 only), at both
+    compiled widths run bf16 tensor-core MMAs (HMMA.16816.F32.BF16) and no
+    TF32 ones; the f32 instantiations keep the 3xTF32 route
+    (HMMA.1688.F32.TF32, no bf16 MMAs)."""
     import re
 
     from repro_torch.kernels import build
 
     checked = {}
-    for src, kernels in (("edge_message", ("edge_fwd_edges", "node_proj")),
-                         ("edge_message_bwd", ("edge_bwd_edges",
-                                               "node_proj"))):
-        build.load(src, edge_message._bind if src == "edge_message"
-                   else edge_message._bind_bwd)
+    for src, bind, kernels in (
+            ("edge_message", edge_message._bind,
+             ("edge_fwd_edges", "node_proj")),
+            ("edge_message_bwd", edge_message._bind_bwd,
+             ("edge_bwd_edges", "node_proj")),
+            ("virtual_message", virtual_message._bind,
+             ("virtual_fwd_kernel",)),
+            ("edge_identity", edge_message._bind_identity, ("idn_bwd_dh",))):
+        build.load(src, bind)
         funcs = _sass_functions(build.library_path(src))
         for name, sass in funcs.items():
             kernel = next((k for k in kernels if k in name), None)
             if kernel is None:
                 continue
             ops = sorted(set(re.findall(r"HMMA\.[\w.]+", sass)))
-            bf = "Lb1E" in name
+            bf = "Lb1E" in name or kernel == "idn_bwd_dh"
             width = 64 if "Li64E" in name else 32
             checked[src, kernel, width, bf] = ops
-    assert len(checked) == 2 * 2 * 2 * 2  # sources, kernels, widths, modes
+    # sources x kernels x widths x modes; idn_bwd_dh has the bf16 mode only
+    assert len(checked) == 2 * 2 * 2 * 2 + 2 * 2 + 2
     for (src, kernel, width, bf), ops in checked.items():
         if bf:
             assert "HMMA.16816.F32.BF16" in ops, (src, kernel, width, ops)
@@ -2008,15 +2014,46 @@ def test_edge_pair_bf16_runs_bf16_mma():
 
 @needs_cuda
 def test_edge_pair_bf16_occupancy():
-    """The card holds two CTAs of each bf16 edge kernel an SM at both
-    widths (the bf16 tiles halve #2's shared memory; it held one at 64),
-    and the forward launches as many as it holds."""
+    """The card holds two CTAs of each bf16 edge kernel and of the bf16
+    virtual forward an SM at both widths (the bf16 tiles halve #2's and
+    #3's shared memory; both held one at 64), and the edge forward
+    launches as many as it holds."""
     from repro_torch.kernels import build
 
     fwd = build.load("edge_message", edge_message._bind)
     bwd = build.load("edge_message_bwd", edge_message._bind_bwd)
+    vfwd = build.load("virtual_message", virtual_message._bind)
     for width in (32, 64):
         assert fwd.edge_fwd_occupancy(width, 1) >= 2
         assert bwd.edge_bwd_occupancy(width, 1) >= 2
+        assert vfwd.virtual_fwd_occupancy(width, 1) >= 2
         assert fwd.edge_fwd_blocks_per_sm(width, 1) <= \
             fwd.edge_fwd_occupancy(width, 1)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_ctas", [1, 3, 64, 1000])
+@pytest.mark.parametrize("dh", [1, 64])
+def test_identity_bwd_bf16_tile_route_repeat_and_cta_count(monkeypatch, dh,
+                                                           n_ctas):
+    """The identity backward's bf16 tile route (Dh = 1 RF, 64 SchNet; H1 =
+    64): repeated calls and any CTA count of the row and dh passes give
+    the same bits, and the gradients stay within the bf16 tolerance of
+    the plain bf16 backward."""
+    dev = torch.device("cuda")
+    args, sender, deg, g_dx, g_mh, kw = _identity_bwd(dev, dh, "inv1p",
+                                                      "binds")
+    kw["precision"] = "bf16"
+    run = lambda: edge_message.edge_pathway_bwd_fused(
+        *args[:5], *sender, *args[5:], deg, g_dx, g_mh, **kw)
+    with torch.no_grad():
+        first, again = run(), run()
+        monkeypatch.setattr(edge_message, "IDENTITY_CTAS", n_ctas)
+        other = run()
+    want = edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh, deg=deg,
+                                               **kw)
+    torch.cuda.synchronize()
+    for a, b, c, w in zip(first, again, other, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        if w.numel() and float(w.abs().max()) > 0:
+            assert _rel_l2(a, w) <= BF_L2

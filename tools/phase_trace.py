@@ -15,11 +15,14 @@ those inside ``common.cuh``), thread 0 of CTA 0 records the source line
 and ``clock64()``.  Runs the kernels through ``chip_smoke.phase_kernels`` at
 its serving shapes (the last call's trace is kept) and prints, for each
 sync point, how often CTA 0 passed it and the mean clocks since the
-previous one.  ``--bf16`` traces the bf16 mode of the edge pair instead
-(``edge_fwd_edges<W, true>``, ``edge_bwd_edges<W, true>``): one forward
-and one backward call, gate 'mlp', at width ``--width`` (64) on the
-serving scene's Verlet list (N = 8,192), and prints the registers and
-spills ``ptxas`` reports for the two sources.  ``--tree DIR`` traces the
+previous one.  ``--bf16`` traces the kernels on bf16 tiles instead
+(``edge_fwd_edges<W, true>``, ``edge_bwd_edges<W, true>``, the identity
+backward's dh pass ``idn_bwd_dh<W>`` and ``virtual_fwd_kernel<W, true>``):
+one bf16 call each of the edge forward and backward (gate 'mlp'), the
+identity backward (SchNet's form, Dh = H1) and the virtual forward (C =
+3), at width ``--width`` (64) on the serving scene's Verlet list (N =
+8,192), and prints the registers and spills ``ptxas`` reports for the
+four sources.  ``--tree DIR`` traces the
 sources of another checkout (e.g. a ``git archive`` of an earlier commit
 under the gitignored ``_tree/``), through that tree's own package.  The
 clocks include the work of any other CTA on the same SM.  Needs CUDA and
@@ -37,7 +40,11 @@ ROOT = Path(__file__).resolve().parent.parent
 KERNELS = {"edge_message": "edge_fwd_edges",
            "virtual_message": "virtual_fwd_kernel",
            "edge_message_bwd": "edge_bwd_edges",
-           "virtual_message_bwd": "virtual_bwd_kernel"}
+           "virtual_message_bwd": "virtual_bwd_kernel",
+           "edge_identity": "idn_bwd_dh"}
+# the sources --bf16 traces (else the four FastEGNN kernels of f32)
+BF16_SOURCES = ("edge_message", "edge_message_bwd", "edge_identity",
+                "virtual_message")
 SLOTS = 1024
 
 
@@ -94,34 +101,48 @@ def report(name: str, lib: ctypes.CDLL) -> None:
 
 
 def run_bf16(cs, width: int, dev) -> None:
-    """One bf16 forward and backward call of the edge pair at ``width`` on
-    the serving scene's Verlet list."""
+    """One bf16 call each of the edge forward and backward, the identity
+    backward (SchNet's form) and the virtual forward at ``width`` on the
+    serving scene's Verlet list."""
     import torch
 
     from repro_torch.kernels import edge_message as em_mod
+    from repro_torch.kernels import virtual_message as vm
 
     scene = cs.make_scenes(1, cs.N_PARTICLES)[0]
-    x, snd, _rcv, em, _nm, indptr, n_edges = cs.serving_graph(
+    x, snd, _rcv, em, nm, indptr, n_edges = cs.serving_graph(
         scene[0], cs.NODE_CAP, cs.R + cs.SKIN, cs.R, dev)
     sender, _, _ = cs._graph_operands(x, snd, em, indptr, n_edges, dev)
     gen = torch.Generator(device=dev).manual_seed(width)
-    ws = cs._width_weights(gen, width, width, width, dev)
-    n = x.shape[0]
-    h = torch.randn((n, width), generator=gen, device=dev)
-    kw = dict(gate_mode="mlp", rel_mode="raw", clamp=100.0, precision="bf16")
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+    n, c = x.shape[0], 3
+    h = r(n, width)
     with torch.no_grad():
-        _, _, deg = em_mod.edge_pathway_fused(x, h, snd, em, indptr, *ws,
-                                              **kw)
-        em_mod.edge_pathway_bwd_fused(
-            x, h, snd, em, indptr, *sender, *ws, deg.contiguous(),
-            torch.randn((n, 3), generator=gen, device=dev),
-            torch.randn((n, width), generator=gen, device=dev), **kw)
+        for gate, m in (("mlp", width), ("identity", 1)):
+            ws = cs._width_weights(gen, width, width, m, dev)
+            if gate == "identity":
+                ws[6:] = [torch.zeros(1, 1, device=dev)] * 3
+            kw = dict(gate_mode=gate, rel_mode="raw", clamp=100.0,
+                      precision="bf16")
+            _, _, deg = em_mod.edge_pathway_fused(x, h, snd, em, indptr,
+                                                  *ws, **kw)
+            em_mod.edge_pathway_bwd_fused(
+                x, h, snd, em, indptr, *sender, *ws, deg.contiguous(),
+                r(n, 3), r(n, m), **kw)
+        sw = width ** -0.5
+        w = width
+        vm.virtual_pathway_fused(
+            x, h, x[:c] + 0.05 * r(c, 3), nm, r(c, w, w, sc=sw),
+            r(c, w, sc=0.3), r(c, w, sc=0.3),
+            r(c, w, w, sc=sw), r(c, w, sc=0.1), r(c, w, w, sc=sw),
+            r(c, w, sc=0.1), r(c, w, 1, sc=sw), r(c, w, w, sc=sw),
+            r(c, w, sc=0.1), r(c, w, 1, sc=sw), precision="bf16")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bf16", action="store_true",
-                    help="trace the bf16 mode of the edge pair")
+                    help="trace the kernels on bf16 tiles")
     ap.add_argument("--width", type=int, default=64, choices=(32, 64))
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose sources and package to trace")
@@ -145,14 +166,17 @@ def main() -> int:
     binds = {"edge_message": edge_message._bind,
              "virtual_message": virtual_message._bind,
              "edge_message_bwd": edge_message._bind_bwd,
-             "virtual_message_bwd": virtual_message._bind_bwd}
-    names = (("edge_message", "edge_message_bwd") if args.bf16
-             else tuple(KERNELS))
+             "virtual_message_bwd": virtual_message._bind_bwd,
+             "edge_identity": edge_message._bind_identity}
+    names = BF16_SOURCES if args.bf16 else tuple(KERNELS)[:4]
     libs = {}
     for name in names:
+        text = (build.CSRC_DIR / f"{name}.cu").read_text()
+        if f"\n{KERNELS[name]}(" not in text:  # an older tree's source
+            print(f"  {name}: no {KERNELS[name]} in this tree", flush=True)
+            continue
         src = out_dir / f"{name}.cu"
-        src.write_text(instrument((build.CSRC_DIR / f"{name}.cu").read_text(),
-                                  KERNELS[name]))
+        src.write_text(instrument(text, KERNELS[name]))
         so = out_dir / f"{name}.so"
         proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
                                str(build.CSRC_DIR), "-o", str(so), str(src)],

@@ -10,13 +10,15 @@ order OLD NEW NEW OLD, a process of its own imports that tree's
 at the serving shapes: N = 8,192 on the serve Verlet list, hidden 64),
 building the tree's kernels into its own ``_build``; then #1-#4 once more
 in f32 and in bf16 at widths 64 and 32 on the same Verlet list (gate
-'mlp'; inputs from seeds), with each call's device time (``torch.profiler``)
-and CUDA-event time.  It prints one JSON line per run, then each tree's
+'mlp'; inputs from seeds), and the identity pair in SchNet's form (Dh =
+H1) and RF's (Dh = 1, inv1p; the backward also at 226, the FP32-unit
+route), with each call's device time (``torch.profiler``, split by
+kernel) and CUDA-event time.  It prints a JSON line a run, then each tree's
 medians, and the lines also go to ``chiprun_out/tree_ab.jsonl``.  The f32
-outputs of #1-#4 must be bitwise equal in every run, across the trees (the
-bf16 outputs' largest difference from the first run is printed); the
-script exits 1 if they are not.  Needs CUDA and nvcc; imports nothing of
-JAX.
+outputs of #1-#4 and of the identity pair must be bitwise equal in every
+run, across the trees (the bf16 outputs' largest difference from the
+first run is printed); the script exits 1 if they are not.  Needs CUDA
+and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 WIDTHS = (64, 32)
+WIDE = 226  # the identity backward's width on the FP32-unit route
 
 CHILD = r"""
 import json, sys
@@ -82,14 +85,56 @@ with torch.no_grad():
                     *va, precision=prec),
                 "virtual_bwd": lambda: vm.virtual_pathway_bwd_fused(
                     *va, *cots, precision=prec)}
+            # the identity pair: SchNet's form (Dh = H1 = w, raw) and RF's
+            # (Dh = 1, a zero feature column, inv1p)
+            for form, dh, rel in (("idn", w, "raw"), ("idn_rf", 1, "inv1p")):
+                iws = cs._width_weights(gen, dh, w, 1, dev)
+                iws[6:] = [torch.zeros(1, 1, device=dev)] * 3
+                ih = h[:, :dh] if dh == w else torch.zeros(n, 1, device=dev)
+                ikw = dict(gate_mode="identity", rel_mode=rel, clamp=100.0,
+                           precision=prec)
+                ifwd = lambda ih=ih, iws=iws, ikw=ikw: em.edge_pathway_fused(
+                    x, ih, snd, emask, indptr, *iws, **ikw)
+                ideg = ifwd()[2].contiguous()
+                g_m1 = g_mh[:, :1].contiguous()
+                calls[f"{form}_fwd"] = ifwd
+                calls[f"{form}_bwd"] = (
+                    lambda ih=ih, iws=iws, ikw=ikw, ideg=ideg, g_m1=g_m1:
+                    em.edge_pathway_bwd_fused(x, ih, snd, emask, indptr,
+                                              *sender, *iws, ideg, g_dx,
+                                              g_m1, **ikw))
             for name, fn in calls.items():
                 key = f"{prec}/{w}/{name}"
                 saved[key] = [t.cpu() for t in fn()]
-                out[key] = {"device_ms": cs.device_fields(fn)["device_ms"],
+                dev_f = cs.device_fields(fn)
+                out[key] = {"device_ms": dev_f["device_ms"],
+                            "kernels_us": dev_f["kernels_us"],
                             "ms": cs.cuda_ms(fn, 5, 1)}
+    # the identity backward at the widest width the reference admits at
+    # this N (226: the FP32-unit route, which bf16 keeps above 64)
+    w = WIDE
+    gen = torch.Generator(device=dev).manual_seed(w)
+    iws = cs._width_weights(gen, w, w, 1, dev)
+    iws[6:] = [torch.zeros(1, 1, device=dev)] * 3
+    ih = torch.randn((n, w), generator=gen, device=dev)
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_m1 = torch.randn((n, 1), generator=gen, device=dev)
+    for prec in ("f32", "bf16"):
+        ikw = dict(gate_mode="identity", rel_mode="raw", clamp=100.0,
+                   precision=prec)
+        ideg = em.edge_pathway_fused(x, ih, snd, emask, indptr, *iws,
+                                     **ikw)[2].contiguous()
+        fn = lambda: em.edge_pathway_bwd_fused(
+            x, ih, snd, emask, indptr, *sender, *iws, ideg, g_dx, g_m1, **ikw)
+        key = f"{prec}/{w}/idn_bwd"
+        saved[key] = [t.cpu() for t in fn()]
+        dev_f = cs.device_fields(fn)
+        out[key] = {"device_ms": dev_f["device_ms"],
+                    "kernels_us": dev_f["kernels_us"],
+                    "ms": cs.cuda_ms(fn, 2, 1)}
 torch.save(saved, out_path)
 print(json.dumps({"tree": tree, "gpu": cs.gpu_line(), "kernels": out}))
-""".replace("WIDTHS", repr(WIDTHS))
+""".replace("WIDTHS", repr(WIDTHS)).replace("WIDE", repr(WIDE))
 
 
 def compare_outputs(paths: list[Path]) -> dict:
