@@ -77,10 +77,16 @@ Phases, each printing one JSON line (any failure exits nonzero):
              carries its width-64 reading as ``bf16`` (its hidden32 entry
              the width-32 one) and all of them as ``widths_bf16``.
    bf16_edge — the bf16 kernels on bf16 tiles (#1, #2, the identity
-             backward in SchNet's and RF's forms, #3): device ms at 64 and
-             32 from widths_bf16 and, for #1, #2 and #3, the CTAs an SM
+             backward in SchNet's and RF's forms, #3, #4): device ms at 64
+             and 32 from widths_bf16 and, for #1 to #4, the CTAs an SM
              the card holds (two at least), beside the figures before
              their redesign (BF_EDGE_PARENT).
+   identity_f32 — the identity pair in f32 on its tile route (Dh and
+             H1 up to 64: tile products for the projection and the
+             backward's node pass): device ms and the split by kernel of
+             the forward and the backward in SchNet's and RF's forms at
+             hidden 64 and 32, from the kernels phase's rows, beside the
+             figures before (IDN_F32_PARENT).
 4. serve  — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each, the Verlet lists rebuilt on the
@@ -256,10 +262,10 @@ BF_WIDTH_CASES = ((16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64),
                   (128, 128, 128), (226, 226, 226))
 # the bf16 kernels redesigned on bf16 tiles, before their redesign: the
 # edge pair (#1, #2), the identity backward (SchNet's and RF's forms) and
-# the virtual forward (#3): CTAs an SM and device ms on the serve Verlet
+# the virtual pair (#3, #4): CTAs an SM and device ms on the serve Verlet
 # list at widths 64 and 32, as PERF.md section 6 records them (NVIDIA
 # H100 80GB HBM3, 700 W); the bf16_edge line prints the redesigned
-# kernels' beside them, and needs two CTAs an SM of #1, #2 and #3
+# kernels' beside them, and needs two CTAs an SM of #1 to #4
 BF_EDGE_PARENT = {
     "edge_pathway_fused": {"ctas_per_sm": {"64": 2, "32": 2},
                            "device_ms": {"64": 0.0689, "32": 0.0379}},
@@ -268,7 +274,19 @@ BF_EDGE_PARENT = {
     "edge_identity_bwd": {"device_ms": {"64": 0.834, "32": 0.404}},
     "edge_identity_bwd_rf": {"device_ms": {"64": 0.161, "32": 0.126}},
     "virtual_pathway_fused": {"ctas_per_sm": {"64": 1, "32": "not measured"},
-                              "device_ms": {"64": 0.0326, "32": 0.0168}}}
+                              "device_ms": {"64": 0.0326, "32": 0.0168}},
+    "virtual_pathway_bwd_fused": {"ctas_per_sm": {"64": 1,
+                                                  "32": "not measured"},
+                                  "device_ms": {"64": 0.0823, "32": 0.0436}}}
+# the identity pair in f32 before its tile route: device ms of the kernels
+# phase's rows at hidden 64 and 32 (SchNet's form; "_rf": RF's), as
+# PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W); the
+# identity_f32 line prints the tile route's beside them
+IDN_F32_PARENT = {
+    "edge_identity": {"64": 0.0383, "32": 0.0221},
+    "edge_identity_rf": {"64": 0.0290, "32": 0.0227},
+    "edge_identity_bwd": {"64": 0.1495, "32": 0.101},
+    "edge_identity_bwd_rf": {"64": 0.107, "32": 0.0918}}
 # bf16 model path against the f32 kernel path: relative L2 of the first
 # served frame, of each leaf of the first step's gradients and of each zoo
 # model's prediction (DESIGN.md section 9.3; the reference's
@@ -2043,10 +2061,10 @@ def phase_widths_bf16(scene, dev) -> dict:
 
 def bf16_edge_line(widths_bf16: dict) -> dict:
     """The bf16 kernels redesigned on bf16 tiles (BF_EDGE_PARENT: the edge
-    pair, the identity backward in SchNet's and RF's forms, #3): device ms
-    at 64 and 32 (the widths_bf16 phase's readings) and, for #1, #2 and
-    #3, the CTAs an SM (as the card reports them for the kernels'
-    registers and shared memory), beside the parent's."""
+    pair, the identity backward in SchNet's and RF's forms, #3, #4): device
+    ms at 64 and 32 (the widths_bf16 phase's readings) and, for #1 to #4,
+    the CTAs an SM (as the card reports them for the kernels' registers
+    and shared memory), beside the parent's."""
     from repro_torch.kernels import build
     from repro_torch.kernels import edge_message as em_mod
     from repro_torch.kernels import virtual_message as vm
@@ -2056,13 +2074,16 @@ def bf16_edge_line(widths_bf16: dict) -> dict:
            "edge_pathway_bwd_fused": build.load(
                "edge_message_bwd", em_mod._bind_bwd).edge_bwd_occupancy,
            "virtual_pathway_fused": build.load(
-               "virtual_message", vm._bind).virtual_fwd_occupancy}
+               "virtual_message", vm._bind).virtual_fwd_occupancy,
+           "virtual_pathway_bwd_fused": build.load(
+               "virtual_message_bwd", vm._bind_bwd).virtual_bwd_occupancy}
     # each kernel's reading in a widths_bf16 case: (pair, form, pass)
     where = {"edge_pathway_fused": ("edge_pair", "edge", "fwd"),
              "edge_pathway_bwd_fused": ("edge_pair", "edge", "bwd"),
              "edge_identity_bwd": ("edge_pair", "identity", "bwd"),
              "edge_identity_bwd_rf": ("edge_pair", "identity_rf", "bwd"),
-             "virtual_pathway_fused": ("virtual_pair", None, "fwd")}
+             "virtual_pathway_fused": ("virtual_pair", None, "fwd"),
+             "virtual_pathway_bwd_fused": ("virtual_pair", None, "bwd")}
     out = {"phase": "bf16_edge", "gpu": gpu_line(), "kernels": {}}
     for name, (pair, form, kind) in where.items():
         row = {"device_ms": {}, "parent": BF_EDGE_PARENT[name]}
@@ -2077,6 +2098,24 @@ def bf16_edge_line(widths_bf16: dict) -> dict:
            for v in k.get("ctas_per_sm", {}).values()) < 2:
         raise AssertionError(f"a bf16 kernel on bf16 tiles fits fewer than "
                              f"two CTAs an SM: {json.dumps(out)}")
+    return out
+
+
+def identity_f32_line(kline: dict) -> dict:
+    """The identity pair in f32 on its tile route (IDN_F32_PARENT): device
+    ms and the split by kernel (µs) of the kernels phase's rows at hidden
+    64 and 32, SchNet's form and RF's, beside the figures before."""
+    rows = {"64": {r["name"]: r for r in kline["kernels"]},
+            "32": {r["name"]: r for r in kline["hidden32"]}}
+    out = {"phase": "identity_f32", "gpu": gpu_line(), "kernels": {}}
+    for key, parent in IDN_F32_PARENT.items():
+        name = key.removesuffix("_rf")
+        got = {w: (rs[name]["rf_form"] if key.endswith("_rf") else rs[name])
+               for w, rs in rows.items()}
+        out["kernels"][key] = {
+            "device_ms": {w: r["device_ms"] for w, r in got.items()},
+            "kernels_us": {w: r["kernels_us"] for w, r in got.items()},
+            "parent_device_ms": parent}
     return out
 
 
@@ -3163,6 +3202,7 @@ def main() -> int:
           "cfg": pipe.cfg._asdict()})
     kline, rows = phase_kernels(pipe, scenes, dev)
     emit(kline)
+    emit(identity_f32_line(kline))
     widths = phase_widths(scenes[0], dev)
     emit(widths)
     widths_bf16 = phase_widths_bf16(scenes[0], dev)

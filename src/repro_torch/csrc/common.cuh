@@ -1,6 +1,6 @@
 // Tile machinery shared by the FastEGNN kernels (edge_message.cu,
 // edge_message_bwd.cu, virtual_message.cu, virtual_message_bwd.cu, and the
-// identity gate's bf16 backward in edge_identity.cu).  Header
+// identity gate's tile route in edge_identity.cu).  Header
 // only; each including file gets its own copy inside an anonymous namespace.
 //
 // Everything is a template of the feature width W, 32 or 64: the kernels
@@ -49,10 +49,11 @@
 //   an operand and elementwise (msg: rounded into msg.Wg1, f32 in the mh
 //   sum) keeps its f32 values.  Vectors (biases, w1d, wg2) and
 //   coordinates are rounded where they are loaded; the kernels round the
-//   other elementwise values where the reference casts them.  #4 and the
-//   panel path run this mode.
-// * The bf16 mode of #1, #2 (and their `node_proj`), #3 and the identity
-//   backward's dh pass (edge_identity.cu) has tiles of its own: bf16 in
+//   other elementwise values where the reference casts them.  The panel
+//   path runs this mode.
+// * The bf16 mode of #1, #2 (and their `node_proj`), #3, #4 and the
+//   identity pair's projection and dh pass (edge_identity.cu) has tiles of
+//   its own: bf16 in
 //   shared memory (`Bf`), each value rounded once, as it is stored, under
 //   a swizzle of 16-byte granules for 2-byte elements (`swz16`), read with
 //   `ldmatrix` (`.trans` for the transposed operand layouts) into bf16
@@ -63,12 +64,13 @@
 //   fragments are the m16n8k8 ones above, so `frag_store`, the row and
 //   column sums and STEP_SUM (per k16 step) are shared.
 // * The edge pathway's pieces used by its forward and backward (and the
-//   identity gate's bf16 backward, edge_identity.cu): the node projection
-//   `node_proj` (P = h.W1r, Q = h.W1s once per node), `for_live_tiles`,
+//   identity gate's tile route, edge_identity.cu): the node projection
+//   `node_proj` (P = h.W1r, Q = h.W1s once per node; `padded_proj` for
+//   widths zero-padded inside the kernel), `for_live_tiles`,
 //   which packs the live slots of a slot range into 64-row tiles in slot
 //   order, and the node passes' ordered segment sums of per-slot rows
 //   (`segment_sum`).  The virtual pathway's: the per-channel vectors
-//   `load_virtual_vecs`.
+//   `load_virtual_vecs` and the bf16 weight stacks `virtual_round_stacks`.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -448,6 +450,33 @@ __device__ __forceinline__ float colsum4(const float* red, int j) {
   return ((red[j] + red[TR + j]) + red[2 * TR + j]) + red[3 * TR + j];
 }
 
+// Fill a swizzled tile (f32, or bf16 with BF: `swz16`, each value rounded
+// once) of W columns from rows of a (rows x ld) array of any width:
+// tile row i < nrows <- src[idx(i) * ld + c] at columns c < cols, zeros
+// at the columns past cols and in the rows with idx(i) < 0 (all threads;
+// the caller syncs).  Element loads, two a thread-step: the tiles of
+// layers narrower than W (zero-padded in the kernel: a zero row or column
+// adds +0) and of weights (dh x h1) with idx(i) = i < dh ? i : -1.
+template <int W, bool BF, typename Idx>
+__device__ __forceinline__ void tile_gather_padded(void* tile,
+                                                   const float* src,
+                                                   int nrows, int ld,
+                                                   int cols, Idx idx) {
+  for (int f = threadIdx.x; f < nrows * W / 2; f += blockDim.x) {
+    const int i = f / (W / 2), c = 2 * (f % (W / 2));
+    const int r = idx(i);
+    const float* row = src + (size_t)(r >= 0 ? r : 0) * ld;
+    const float a = r >= 0 && c < cols ? row[c] : 0.0f;
+    const float b = r >= 0 && c + 1 < cols ? row[c + 1] : 0.0f;
+    if constexpr (BF)
+      *reinterpret_cast<uint32_t*>(static_cast<Bf*>(tile) + swz16<W>(i, c)) =
+          bf16x2(a, b);
+    else
+      *reinterpret_cast<float2*>(static_cast<float*>(tile) + swz<W>(i, c)) =
+          make_float2(a, b);
+  }
+}
+
 // Fill a swizzled row tile from rows of a (rows x W) array in device
 // memory: tile row i <- src[idx(i)] for i < 64 with idx(i) >= 0, else
 // zeros.  16-byte loads, W/4 threads a row.
@@ -651,6 +680,73 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
           *reinterpret_cast<float2*>(dst[k] + (size_t)i * W +
                                      L.col<W>(jn, 0)) =
               make_float2(a[jn][2 * h2], a[jn][2 * h2 + 1]);
+      }
+  }
+}
+
+// P = h.W1r, Q = h.W1s for the layers of any width up to W (the identity
+// gate's projection, edge_identity.cu): one CTA per 64 nodes, h (n x dh)
+// and the weights (dh x h1) zero-padded to W inside the kernel, P and Q
+// written as (n x h1).  3xTF32 tile products; bf16: on bf16 tiles
+// (`tile_mma_bf`), each operand rounded once as stored.  node_proj's
+// products without its CSR by-products.  vec (h and the weights 16-byte
+// aligned): at dh = W node_proj's 16-byte loads of h, at dh = h1 = W its
+// weight loads (cp.async in f32).
+template <int W, bool BF>
+constexpr int PAD_PROJ_SMEM_FLOATS = (RT<W> + 2 * WT<W>) / (BF ? 2 : 1);
+
+template <int W, bool BF>
+__global__ void __launch_bounds__(THREADS)
+padded_proj(const float* __restrict__ h, const float* __restrict__ w1r,
+            const float* __restrict__ w1s, float* __restrict__ P,
+            float* __restrict__ Q, int n_nodes, int dh, int h1, int vec) {
+  extern __shared__ float4 smem4[];
+  using T = std::conditional_t<BF, Bf, float>;
+  T* tH = reinterpret_cast<T*>(smem4);
+  T* sW[2] = {tH + RT<W>, tH + RT<W> + WT<W>};
+  const int node0 = blockIdx.x * TR;
+  const float* src[2] = {w1r, w1s};
+  const bool full_w = vec && dh == W && h1 == W;
+  if (full_w && !BF) {
+    tile_load_async<W>(reinterpret_cast<float*>(sW[0]), w1r);
+    tile_load_async<W>(reinterpret_cast<float*>(sW[1]), w1s);
+    async_commit();
+  }
+  auto node = [&](int i) { return node0 + i < n_nodes ? node0 + i : -1; };
+  if (vec && dh == W) {
+    if constexpr (BF)
+      tile_gather_bf<W>(tH, h, TR, node);
+    else
+      tile_gather<W>(tH, h, node);
+  } else {
+    tile_gather_padded<W, BF>(tH, h, TR, dh, dh, node);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (full_w && BF)
+      tile_load_bf<W>(reinterpret_cast<Bf*>(sW[k]), src[k]);
+    else if (!full_w)
+      tile_gather_padded<W, BF>(sW[k], src[k], W, h1, h1,
+                                [&](int i) { return i < dh ? i : -1; });
+  }
+  if (full_w && !BF) async_wait_all();
+  __syncthreads();
+  const Lane L = lane_of();
+  float* dst[2] = {P, Q};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    Frag<W> a;
+    frag_zero<W>(a);
+    if constexpr (BF)
+      tile_mma_bf<W, false, false>(a, tH, sW[k], L);
+    else
+      tile_mma<W, false, false>(a, tH, sW[k], L);
+#pragma unroll
+    for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = node0 + L.row(e), c = L.col<W>(jn, e);
+        if (i < n_nodes && c < h1) dst[k][(size_t)i * h1 + c] = a[jn][e];
       }
   }
 }
@@ -890,6 +986,48 @@ __device__ __forceinline__ void load_virtual_vecs(
 #pragma unroll
   for (int v = 0; v < NVEC; ++v)
     vec_load_async(dst + v * W, src[v] + (size_t)c * W, W);
+}
+
+// The weight tiles of a virtual channel, in the order of the bf16 stacks
+enum { W_1H = 0, W_2, W_G1, W_Z1, W_N };
+
+// The bf16 mode's weight stacks rounded once a call (virtual_message.cu,
+// virtual_message_bwd.cu): wbf[c][k] = bf16 of channel c's W1h, W2, Wg1,
+// Wz1 (k in that order, W x W each), so that the kernels stream 2-byte
+// tiles by cp.async straight into their bf16 tiles.
+template <int W>
+__global__ void __launch_bounds__(THREADS)
+virtual_round_stacks(const float* __restrict__ w1h,
+                     const float* __restrict__ w2,
+                     const float* __restrict__ wg1,
+                     const float* __restrict__ wz1, Bf* __restrict__ wbf,
+                     int n_chan) {
+  constexpr int WW = W * W;
+  const float* src[W_N] = {w1h, w2, wg1, wz1};
+  const int n4 = n_chan * W_N * WW / 4;
+  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < n4;
+       f += gridDim.x * blockDim.x) {
+    const int e = 4 * f, c = e / (W_N * WW), k = (e / WW) % W_N;
+    const float4 v =
+        *reinterpret_cast<const float4*>(src[k] + c * WW + e % WW);
+    *reinterpret_cast<uint2*>(wbf + e) = bf16x4(v);
+  }
+}
+
+template <int W>
+cudaError_t launch_round_stacks(const float* w1h, const float* w2,
+                                const float* wg1, const float* wz1, Bf* wbf,
+                                int n_chan, cudaStream_t stream) {
+  const int n4 = n_chan * W_N * W * W / 4;
+  virtual_round_stacks<W><<<min((n4 + THREADS - 1) / THREADS, 1024), THREADS,
+                            0, stream>>>(w1h, w2, wg1, wz1, wbf, n_chan);
+  return cudaGetLastError();
+}
+
+// the floats of the bf16 stacks of n_chan channels (half a float an
+// element)
+inline long long round_stacks_floats(int n_chan, int width) {
+  return (long long)n_chan * W_N * width * width / 2;
 }
 
 // Calls fn(w, bf) with w = std::integral_constant<int, W> for the compiled

@@ -31,22 +31,37 @@
 // or how many masked slots the layout holds.  No float atomics; repeated
 // runs are bitwise equal.
 //
-// Forward, two launches: idn_proj (P and Q, one thread a node and column,
-// a Dh-long dot: for RF's Dh = 1 the rank-1 product h_n W1r[0, c]) and
-// idn_fwd_rows.  Backward, four: idn_proj; idn_bwd_rows, which recomputes
+// Forward, two launches: the projection (P and Q) and idn_fwd_rows.  At
+// Dh (above 1) and H1 up to 64 (`tile_width`: SchNet's form at 32 and 64)
+// the projection is `padded_proj` (common.cuh): 64-node tiles, both
+// widths zero-padded to W = 32 or 64 in the kernel, two tile products on
+// the tensor cores (3xTF32; bf16: bf16 tiles, m16n8k16); wider layers and
+// RF's Dh = 1 (a rank-1 product) take idn_proj, one thread a node and
+// column, a Dh-long dot.  Backward,
+// four: the projection; idn_bwd_rows, which recomputes
 // each live edge's forward, backpropagates as `_edge_bwd_common` does
 // (upstream u = g_*[r] / max(deg_r, 1) em; the clip passes the gradient
 // inside [-clamp, clamp], bounds included; 'inv1p' adds the
 // -(kf^2 / 2 sd) (g_rel_used . rel) term to g_d2), stores g_pre1 (H1) and
 // g_rel (3) per live slot, and sums per row G_r = sum g_pre1, the
 // receiver half of gx and the row's W2, w1d and b2 gradient partials;
-// idn_bwd_nodes, one CTA per tile of 64 nodes (fewer where the tile's
-// rows would not fit shared memory beside the weights, which are then
-// read from device memory: `node_plan`), which adds each node's sender
-// segment (the `csr_sender_perm` order), forms gh = G.W1r^T + S.W1s^T and
-// the tile's W1r, W1s, b1, W2, w1d and b2 partials in node order; and
+// the node pass, one CTA per tile of 64 nodes, which adds each node's
+// sender segment (the `csr_sender_perm` order), forms gh = G.W1r^T +
+// S.W1s^T and the tile's W1r, W1s, b1, W2, w1d and b2 partials; and
 // idn_bwd_reduce, which adds the tiles' partials in tile order.  The
 // summation order of every gradient is fixed by the inputs alone.
+// At Dh and H1 up to 64 the node pass is the tile route's
+// idn_bwd_nodes_tile<W, false>: idn_bwd_rows stores g_pre1 per live slot
+// as f32 rows of W (zeros past H1); a CTA of 512 threads, 8 lanes a node,
+// walks all 64 nodes' sender segments at once (`segment_sum`, common.cuh:
+// the same order and bits as the FP32-unit walk below), stages G, S and
+// h as f32 tiles beside W1r and W1s, and forms gh and the W1r / W1s
+// partials h^T G, h^T S as four 3xTF32 tile products; the b1, W2, w1d
+// and b2 partials are the rows' sums in node order.  Wider layers take
+// idn_bwd_nodes (fewer nodes a tile where they would not fit shared
+// memory beside the weights, which are then read from device memory:
+// `node_plan`): a warp a node, gh one lane an entry, the partials one
+// thread an entry, serial sums over the tile's nodes.
 //
 // The bf16 mode (template BF; `precision='bf16'` of the Pallas kernels'
 // identity branch): the rounding points of edge_message.cu /
@@ -60,20 +75,18 @@
 // bf16(bf16(g_pre1) W1r^T) (summed per receiver) and bf16(bf16(g_pre1)
 // W1s^T) (summed per sender).  The FMAs stay f32: a product of two bf16
 // values is exact.
-// The bf16 backward at Dh and H1 up to 64 (SchNet's and RF's forms) takes
-// the tile route (`tile_width`: both zero-padded to W = 32 or 64, exact):
-// idn_bwd_rows stores bf16(g_pre1) per slot as bf16 rows of W; idn_bwd_dh
-// streams the slot range in 64-slot tiles and forms the two per-edge dh
-// products on the tensor cores (bf16 tiles, m16n8k16, as
+// The bf16 backward's tile route (Dh and H1 up to 64, SchNet's and RF's
+// forms): idn_bwd_rows stores bf16(g_pre1) per slot as bf16 rows of W;
+// idn_bwd_dh streams the slot range in 64-slot tiles and forms the two
+// per-edge dh products on the tensor cores (bf16 tiles, m16n8k16, as
 // edge_message_bwd.cu's bf16 edge pass), stored per live slot in bf16;
-// and idn_bwd_nodes_bf sums them per node with 8 lanes a node and rows in
-// flight (`segment_sum`, common.cuh: the receiver segment in slot order,
-// the sender segment in sender-permutation order, the FP32-unit route's
-// orders) and forms the W1r / W1s partials as 3xTF32 tile products, as
-// edge_message_bwd.cu's bf16 node pass does: five launches, scratch 3 x 2
-// W bytes a slot.  Wider bf16 layers keep the FP32-unit route above: a
-// warp dot a per-edge dh entry in the row pass, the node pass's serial
-// per-lane sum of the sender terms.
+// and idn_bwd_nodes_tile<W, true> sums them per node with 8 lanes a node
+// (the receiver segment in slot order, the sender segment in
+// sender-permutation order, the FP32-unit route's orders) and forms the
+// W1r / W1s partials as 3xTF32 tile products, as edge_message_bwd.cu's
+// bf16 node pass does: five launches, scratch 3 x 2 W bytes a slot.  Wider
+// bf16 layers keep the FP32-unit route: a warp dot a per-edge dh entry in
+// the row pass, the node pass's serial per-lane sum of the sender terms.
 // Bound on an H100 (serving shape: 8,192 nodes, 84,806 live edges,
 // Dh = 64): per node the two 64 x 64 projections (16K FLOP), per live edge
 // ~0.66K FLOP forward; ~0.19 GFLOP in all, 0.0028 ms at 67 TFLOP/s, against
@@ -108,11 +121,10 @@ __device__ __forceinline__ float sigm_ieee(float u) {
   return 1.0f / (1.0f + expf(-u));
 }
 
-// The bf16 mode's tile route, for Dh and H1 up to 64: the compiled width
-// W (32 or 64) both are zero-padded to; 0: the FP32-unit route (f32, and
-// bf16 above 64)
-int tile_width(int dh, int h1, bool bf16) {
-  if (!bf16 || dh > 64 || h1 > 64) return 0;
+// The tile route, for Dh and H1 up to 64 (both modes): the compiled width
+// W (32 or 64) both are zero-padded to; 0: the FP32-unit route (above 64)
+int tile_width(int dh, int h1) {
+  if (dh > 64 || h1 > 64) return 0;
   return dh <= 32 && h1 <= 32 ? 32 : 64;
 }
 
@@ -123,8 +135,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// P = h.W1r, Q = h.W1s: one thread a (node, column), a Dh-long dot in k
-// order
+// P = h.W1r, Q = h.W1s above the tile route: one thread a (node, column),
+// a Dh-long dot in k order
 template <int NJ, bool EXACT, bool BF>
 __global__ void __launch_bounds__(THREADS)
 idn_proj(const float* __restrict__ h, const float* __restrict__ w1r,
@@ -268,8 +280,9 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
 // Backward, per receiver row: each live edge's g_pre1 and g_rel into
 // GPRE1 / GREL (slot-indexed), and the row's sums: G (h1), the receiver
 // half of gx (3) and the partials W2 (h1) | w1d (h1) | b1 (h1) | b2 of RP.
-// BF on the tile route (gw = its width W): GPRE1 holds bf16(g_pre1) as
-// bf16 rows of W, zeros past h1, for the dh pass.  BF above 64 (gw = 0):
+// On the tile route (gw = its width W) GPRE1 holds rows of W, zeros past
+// h1: f32 rows of g_pre1 for the node pass, or (BF) bf16 rows of
+// bf16(g_pre1) for the dh pass.  BF above 64 (gw = 0):
 // also the row's sum of the per-edge bf16(bf16(g_pre1) W1r^T) into GHR
 // (dh) and each edge's bf16(bf16(g_pre1) W1s^T) into GS (slot-indexed):
 // for each entry k a warp dot over the columns (the weights' rows read
@@ -291,7 +304,7 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
   const int h1 = EXACT ? 32 * NJ : h1_;
   // the tile route takes H1 <= 64 (NJ <= 2): wider instances keep gw = 0
   // as a constant, and their code as it was
-  const int gw = BF && NJ <= 2 ? gw_ : 0;
+  const int gw = NJ <= 2 ? gw_ : 0;
   const int lane = threadIdx.x & 31;
   const int warp0 = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * WARPS;
@@ -362,10 +375,12 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
       for (int j = 0; j < NJ; ++j) {
         const float gq = rnd<BF>(gp[j]);
         const int c = lane + 32 * j;
-        if (BF && gw) {
-          if (c < gw)
-            gb[(size_t)slot * gw + c] =
-                __float2bfloat16_rn(EXACT || c < h1 ? gq : 0.0f);
+        if (gw) {
+          const float v = EXACT || c < h1 ? gq : 0.0f;
+          if (BF && c < gw)
+            gb[(size_t)slot * gw + c] = __float2bfloat16_rn(v);
+          else if (c < gw)
+            GPRE1[(size_t)slot * gw + c] = v;
         } else if (EXACT || c < h1) {
           GPRE1[(size_t)slot * h1 + c] = gq;
         }
@@ -375,9 +390,12 @@ idn_bwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
         sW1d[j] += __fmul_rn(rnd<BF>(e.d2), gq);
       }
       sB2 += g_msg;
-      if (BF && gw)  // the tile route's pad columns past 32 NJ
-        for (int c = 32 * NJ + lane; c < gw; c += 32)
-          gb[(size_t)slot * gw + c] = __float2bfloat16_rn(0.0f);
+      for (int c = 32 * NJ + lane; c < gw; c += 32) {  // the tile route's
+        if (BF)                                        // pad columns past
+          gb[(size_t)slot * gw + c] = __float2bfloat16_rn(0.0f);  // 32 NJ
+        else
+          GPRE1[(size_t)slot * gw + c] = 0.0f;
+      }
       if (BF && !gw) {  // the per-edge dh terms, above width 64
         for (int k = 0; k < dh; ++k) {
           const float* wr = w1r + (size_t)k * h1;
@@ -610,17 +628,9 @@ idn_bwd_dh(const float* __restrict__ em, const int* __restrict__ indptr,
   float* sEm = reinterpret_cast<float*>(bO + 2 * RT<W>);  // [3][64] masks
   const int tid = threadIdx.x;
   const Lane L = lane_of();
-  for (int f = tid; f < WT<W> / 2; f += THREADS) {
-    const int i = f / (W / 2), c = 2 * (f % (W / 2));
-    const bool in = i < dh;
-    const size_t o = (size_t)i * h1 + c;
-    *reinterpret_cast<uint32_t*>(bWr + swz16<W>(i, c)) =
-        bf16x2(in && c < h1 ? w1r[o] : 0.0f,
-               in && c + 1 < h1 ? w1r[o + 1] : 0.0f);
-    *reinterpret_cast<uint32_t*>(bWs + swz16<W>(i, c)) =
-        bf16x2(in && c < h1 ? w1s[o] : 0.0f,
-               in && c + 1 < h1 ? w1s[o + 1] : 0.0f);
-  }
+  auto wrow = [&](int i) { return i < dh ? i : -1; };
+  tile_gather_padded<W, true>(bWr, w1r, W, h1, h1, wrow);
+  tile_gather_padded<W, true>(bWs, w1s, W, h1, h1, wrow);
   const int live_end = indptr[n_nodes];
   const int n_t = (live_end + TR - 1) / TR, step = gridDim.x;
   auto fetch_masks = [&](int t, int ms) {  // masks past live_end: 0
@@ -680,40 +690,57 @@ idn_bwd_dh(const float* __restrict__ em, const int* __restrict__ indptr,
   }
 }
 
-// The bf16 tile route's node pass, a CTA of NODE_THREADS per 64 nodes, a
-// group of 8 lanes a node (the 64 nodes' segment walks all in flight):
-// each node's sender segment S (g_pre1 rows, in `csr_sender_perm` order)
-// and the sender half of gx; gh = the receiver segment's sum of GR (slot
-// order) + the sender segment's sum of GS, each from zero, so gh's order
-// is the FP32-unit route's; then (warps 0-7) the tile's W1r / W1s partials
-// h^T G, h^T S as 3xTF32 tile products (h rounded, G from idn_bwd_rows and
-// S in f32, dh and h1 zero-padded to W), and its b1, W2, w1d, b2 partials
-// from the rows' RP, in node order.
+// The tile route's node pass, a CTA of NODE_THREADS per 64 nodes, a group
+// of 8 lanes a node (the 64 nodes' segment walks all in flight): each
+// node's sender segment S (g_pre1 rows in `csr_sender_perm` order: f32
+// rows, or BF bf16 rows widened) and the sender half of gx, in the
+// FP32-unit route's order.  Then
+// * f32: G, S and h staged as f32 tiles beside W1r and W1s (dh x h1
+//   zero-padded to W x W); warps 0-7 form gh = G.W1r^T + S.W1s^T, warps
+//   8-15 the tile's W1r / W1s partials h^T G, h^T S (3xTF32 tile products);
+// * BF: gh = the receiver segment's sum of GR (slot order) + the sender
+//   segment's sum of GS, each from zero (the FP32-unit route's order);
+//   warps 8-15 form the partials h^T G, h^T S (3xTF32, h rounded).
+// The b1, W2, w1d and b2 partials (warps 0-7, after gh in f32) are the
+// rows' sums in node order: b1 of G's columns (BF: of the rows' unrounded
+// b1 partials), the rest of RP's.  dh and h1 are zero-padded to W.
 constexpr int NODE_THREADS = 2 * THREADS;
 
-template <int W>
+template <int W, bool BF>
+constexpr int NODE_SMEM_FLOATS = 3 * RT<W> + (BF ? 0 : 2 * WT<W>);
+
+template <int W, bool BF>
 __global__ void __launch_bounds__(NODE_THREADS)
-idn_bwd_nodes_bf(const float* __restrict__ h, const float* __restrict__ em,
-                 const int* __restrict__ indptr,
-                 const int* __restrict__ sperm, const int* __restrict__ sptr,
-                 const Bf* __restrict__ GPRE1, const float* __restrict__ GREL,
-                 const float* __restrict__ G, const float* __restrict__ GXR,
-                 const float* __restrict__ RP, const Bf* __restrict__ GR,
-                 const Bf* __restrict__ GS, float* __restrict__ gx,
-                 float* __restrict__ gh, float* __restrict__ PN, int n_nodes,
-                 int dh, int h1) {
+idn_bwd_nodes_tile(const float* __restrict__ h, const float* __restrict__ em,
+                   const int* __restrict__ indptr,
+                   const int* __restrict__ sperm, const int* __restrict__ sptr,
+                   const float* __restrict__ GPRE1,
+                   const float* __restrict__ GREL,
+                   const float* __restrict__ G, const float* __restrict__ GXR,
+                   const float* __restrict__ RP, const Bf* __restrict__ GR,
+                   const Bf* __restrict__ GS, const float* __restrict__ w1r,
+                   const float* __restrict__ w1s, float* __restrict__ gx,
+                   float* __restrict__ gh, float* __restrict__ PN,
+                   int n_nodes, int dh, int h1) {
   extern __shared__ float4 smem4[];
   float* tH = reinterpret_cast<float*>(smem4);
   float* tG = tH + RT<W>;
   float* tS = tG + RT<W>;
+  float* sWr = tS + RT<W>;  // f32 only
+  float* sWs = sWr + WT<W>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int node0 = blockIdx.x * TR;
 #pragma unroll 4
   for (int f = tid; f < RT<W>; f += NODE_THREADS) {
     const int i = f / W, c = f % W, n = node0 + i;
     const bool ok = n < n_nodes;
-    tH[swz<W>(i, c)] = ok && c < dh ? bf16_round(h[(size_t)n * dh + c]) : 0.0f;
+    tH[swz<W>(i, c)] = ok && c < dh ? rnd<BF>(h[(size_t)n * dh + c]) : 0.0f;
     tG[swz<W>(i, c)] = ok && c < h1 ? G[(size_t)n * h1 + c] : 0.0f;
+  }
+  if constexpr (!BF) {
+    auto wrow = [&](int i) { return i < dh ? i : -1; };
+    tile_gather_padded<W, false>(sWr, w1r, W, h1, h1, wrow);
+    tile_gather_padded<W, false>(sWs, w1s, W, h1, h1, wrow);
   }
   constexpr int CPL = W / 8;  // columns a lane
   const int grp = lane >> 3, gl = lane & 7;
@@ -723,16 +750,23 @@ idn_bwd_nodes_bf(const float* __restrict__ h, const float* __restrict__ em,
   for (int c = 0; c < CPL; ++c) S[c] = Hr[c] = Hs[c] = 0.0f;
   float dr = 0.0f, ds = 0.0f;  // lanes gl < 3: component gl
   if (i < n_nodes) {
-    segment_sum<W, false, false>(nullptr, em, GR, GREL, GR, indptr[i],
-                                 indptr[i + 1], gl, grp, 1.0f, Hr, unused,
-                                 dr);
-    segment_sum<W, true, true>(sperm, em, GPRE1, GREL, GS, sptr[i],
-                               sptr[i + 1], gl, grp, -1.0f, S, Hs, ds);
-    if (gl < 3) gx[3 * i + gl] = GXR[(size_t)i * 4 + gl] + ds;
+    if constexpr (BF) {
+      const Bf* g1 = reinterpret_cast<const Bf*>(GPRE1);
+      segment_sum<W, false, false>(nullptr, em, GR, GREL, GR, indptr[i],
+                                   indptr[i + 1], gl, grp, 1.0f, Hr, unused,
+                                   dr);
+      segment_sum<W, true, true>(sperm, em, g1, GREL, GS, sptr[i],
+                                 sptr[i + 1], gl, grp, -1.0f, S, Hs, ds);
 #pragma unroll
-    for (int c = 0; c < CPL; ++c)
-      if (CPL * gl + c < dh)
-        gh[(size_t)i * dh + CPL * gl + c] = Hr[c] + Hs[c];
+      for (int c = 0; c < CPL; ++c)
+        if (CPL * gl + c < dh)
+          gh[(size_t)i * dh + CPL * gl + c] = Hr[c] + Hs[c];
+    } else {
+      segment_sum<W, true, false>(sperm, em, GPRE1, GREL, GPRE1, sptr[i],
+                                  sptr[i + 1], gl, grp, -1.0f, S, unused,
+                                  ds);
+    }
+    if (gl < 3) gx[3 * i + gl] = GXR[(size_t)i * 4 + gl] + ds;
   }
 #pragma unroll
   for (int h2 = 0; h2 < CPL / 4; ++h2)
@@ -741,8 +775,10 @@ idn_bwd_nodes_bf(const float* __restrict__ h, const float* __restrict__ em,
   __syncthreads();
   const int pw = (int)pn_width(dh, h1), dw = dh * h1;
   float* out = PN + (size_t)blockIdx.x * pw;
-  if (warp < THREADS / 32) {  // the tile products' 8 warps
-    const Lane L = lane_of();
+  // this thread's place in the tile products of its half of the CTA
+  const int hw = warp & 7;
+  const Lane L{hw & 3, hw >> 2, lane >> 2, lane & 3};
+  if (warp >= THREADS / 32) {  // h^T G, h^T S
 #pragma unroll 1
     for (int m = 0; m < 2; ++m) {
       Frag<W> a;
@@ -757,13 +793,31 @@ idn_bwd_nodes_bf(const float* __restrict__ h, const float* __restrict__ em,
             if (k < dh && c < h1) out[m * dw + k * h1 + c] = a[jn][e];
           }
     }
-  } else {  // b1 | W2 | w1d | b2 from RP (W2 | w1d | b1 | b2), node order
-    const int nn = min(TR, n_nodes - node0), rpw = rp_width(h1, true);
-    for (int f = 2 * dw + tid - THREADS; f < pw; f += NODE_THREADS - THREADS) {
-      const int q = f - 2 * dw;
-      const int col = q < h1 ? 2 * h1 + q : (q < 3 * h1 ? q - h1 : 3 * h1);
-      out[f] = sum_strided(RP + (size_t)node0 * rpw + col, rpw, nn);
-    }
+    return;
+  }
+  if constexpr (!BF) {  // gh = G.W1r^T + S.W1s^T
+    Frag<W> a;
+    frag_zero<W>(a);
+    tile_mma<W, false, true>(a, tG, sWr, L);
+    tile_mma<W, false, true>(a, tS, sWs, L);
+#pragma unroll
+    for (int jn = 0; jn < JN<W>; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = node0 + L.row(e), k = L.col<W>(jn, e);
+        if (n < n_nodes && k < dh) gh[(size_t)n * dh + k] = a[jn][e];
+      }
+  }
+  // b1 | W2 | w1d | b2 in node order: b1 from G (BF: RP's b1), the rest
+  // from RP (W2 | w1d | b2; BF: W2 | w1d | b1 | b2)
+  const int nn = min(TR, n_nodes - node0), rpw = rp_width(h1, BF);
+  for (int f = 2 * dw + tid; f < pw; f += THREADS) {
+    const int q = f - 2 * dw;
+    const int col = q >= h1 ? (q < 3 * h1 ? q - h1 : (BF ? 3 : 2) * h1)
+                            : 2 * h1 + q;  // BF: b1
+    out[f] = BF || q >= h1
+                 ? sum_strided(RP + (size_t)node0 * rpw + col, rpw, nn)
+                 : sum_strided(G + (size_t)node0 * h1 + q, h1, nn);
   }
 }
 
@@ -840,14 +894,15 @@ Scratch carve(float* base, int n, int e, int dh, int h1, bool backward,
   s.P = take((size_t)n * h1);
   s.Q = take((size_t)n * h1);
   if (backward) {
-    const int tn = node_plan(dh, h1).tn;
+    const int tw = tile_width(dh, h1);
+    const int tn = tw ? TR : node_plan(dh, h1).tn;
     s.G = take((size_t)n * h1);
     s.GXR = take((size_t)n * 4);
     s.RP = take((size_t)n * rp_width(h1, bf16));
-    // the tile route: g_pre1 and the two dh terms as bf16 rows of its
-    // width, half a float an element
-    const int tw = tile_width(dh, h1, bf16);
-    s.GPRE1 = take(tw ? (size_t)e * tw / 2 : (size_t)e * h1);
+    // the tile route: g_pre1 as rows of its width, f32 or (bf16) half a
+    // float an element, as are the two dh terms
+    s.GPRE1 = take(!tw ? (size_t)e * h1 : bf16 ? (size_t)e * tw / 2
+                                               : (size_t)e * tw);
     s.GREL = take((size_t)e * 4);
     s.PN = take((size_t)((n + tn - 1) / tn) * pn_width(dh, h1));
     if (tw) {
@@ -868,39 +923,73 @@ int check_shape(int dh, int h1, int n_ctas) {
   return 0;
 }
 
-// The bf16 tile route's dh pass and node pass (after idn_proj and
-// idn_bwd_rows); the dh pass on n_ctas CTAs, else DH_CTAS_PER_SM an SM
-template <int W>
+// The projection P = h.W1r, Q = h.W1s: on the tile route `padded_proj`
+// (64-node tiles of tensor-core products), else idn_proj, which also
+// takes RF's Dh = 1: its rank-1 product h_n W1r[0, c] elementwise ran in
+// 2.9 us at the serve shape against 9.1 for the tile products of a
+// zero-padded h (PERF.md section 6)
+template <int NJ, bool EX, bool BF>
+int launch_proj(const float* h, const float* w1r, const float* w1s,
+                const Scratch& s, int n_nodes, int dh, int h1,
+                cudaStream_t stream) {
+  const int tw = tile_width(dh, h1);
+  if (tw == 0 || dh == 1) {
+    const long long nf = (long long)n_nodes * h1;
+    idn_proj<NJ, EX, BF><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS,
+                           0, stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh,
+                                        h1);
+    return (int)cudaGetLastError();
+  }
+  return with_width(tw, BF, [&](auto w, auto) {
+    constexpr int W = decltype(w)::value;
+    const size_t smem = PAD_PROJ_SMEM_FLOATS<W, BF> * sizeof(float);
+    const cudaError_t e = cudaFuncSetAttribute(
+        padded_proj<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const int vec = aligned16(h) && aligned16(w1r) && aligned16(w1s);
+    padded_proj<W, BF><<<n_tiles(n_nodes), THREADS, smem, stream>>>(
+        h, w1r, w1s, s.P, s.Q, n_nodes, dh, h1, vec);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The tile route's passes after idn_bwd_rows: (bf16) the dh pass on n_ctas
+// CTAs, else DH_CTAS_PER_SM an SM; the node pass
+template <int W, bool BF>
 int launch_tile_passes(const float* h, const float* em,
                        const int* indptr, const int* sperm, const int* sptr,
                        const float* w1r, const float* w1s, const Scratch& s,
                        float* gx, float* gh, int n_nodes, int dh, int h1,
                        int n_ctas, cudaStream_t stream) {
-  const size_t d_smem = DH_SMEM_FLOATS<W> * sizeof(float);
-  const size_t n_smem = 3 * RT<W> * sizeof(float);
+  const size_t n_smem = NODE_SMEM_FLOATS<W, BF> * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      idn_bwd_dh<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)d_smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(idn_bwd_nodes_bf<W>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)n_smem);
-  int dev = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      idn_bwd_nodes_tile<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)n_smem);
   if (e != cudaSuccess) return (int)e;
-  const Bf* gpre1 = reinterpret_cast<const Bf*>(s.GPRE1);
   Bf* gr = reinterpret_cast<Bf*>(s.GR);
   Bf* gs = reinterpret_cast<Bf*>(s.GS);
-  idn_bwd_dh<W><<<n_ctas > 0 ? n_ctas : DH_CTAS_PER_SM * sms, THREADS,
-                  d_smem, stream>>>(em, indptr, w1r, w1s, gpre1, gr, gs,
-                                    n_nodes, dh, h1);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  idn_bwd_nodes_bf<W><<<n_tiles(n_nodes), NODE_THREADS, n_smem, stream>>>(
-      h, em, indptr, sperm, sptr, gpre1, s.GREL, s.G, s.GXR, s.RP, gr, gs,
-      gx, gh, s.PN, n_nodes, dh, h1);
+  if constexpr (BF) {
+    const size_t d_smem = DH_SMEM_FLOATS<W> * sizeof(float);
+    e = cudaFuncSetAttribute(idn_bwd_dh<W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)d_smem);
+    int dev = 0, sms = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    idn_bwd_dh<W><<<n_ctas > 0 ? n_ctas : DH_CTAS_PER_SM * sms, THREADS,
+                    d_smem, stream>>>(em, indptr, w1r, w1s,
+                                      reinterpret_cast<const Bf*>(s.GPRE1),
+                                      gr, gs, n_nodes, dh, h1);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  idn_bwd_nodes_tile<W, BF><<<n_tiles(n_nodes), NODE_THREADS, n_smem,
+                              stream>>>(
+      h, em, indptr, sperm, sptr, s.GPRE1, s.GREL, s.G, s.GXR, s.RP, gr, gs,
+      w1r, w1s, gx, gh, s.PN, n_nodes, dh, h1);
   return (int)cudaGetLastError();
 }
 
@@ -929,16 +1018,13 @@ extern "C" int edge_identity_forward(
   if (int err = check_shape(dh, h1, n_ctas)) return err;
   if (n_nodes <= 0) return (int)cudaGetLastError();
   Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, false, bf16 != 0);
-  const long long nf = (long long)n_nodes * h1;
   return with_cols(h1, bf16, [&](auto nj, auto exact, auto bf) {
     constexpr int NJ = decltype(nj)::value;
     constexpr bool EX = decltype(exact)::value;
     constexpr bool BF = decltype(bf)::value;
-    idn_proj<NJ, EX, BF><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS,
-                           0, stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh,
-                                        h1);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (int e = launch_proj<NJ, EX, BF>(h, w1r, w1s, s, n_nodes, dh, h1,
+                                        stream))
+      return e;
     idn_fwd_rows<NJ, EX, BF><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
                                stream>>>(x, snd, em, indptr, s.P, s.Q, w1d,
                                          b1, w2, b2, dx, mh, deg, n_nodes, h1,
@@ -961,9 +1047,8 @@ extern "C" int edge_identity_backward(
   const NodePlan plan = node_plan(dh, h1);
   if (n_nodes <= 0) return (int)cudaGetLastError();
   Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, true, bf16 != 0);
-  const long long nf = (long long)n_nodes * h1;
-  const int nt = (n_nodes + plan.tn - 1) / plan.tn;
-  const int tw = tile_width(dh, h1, bf16 != 0);  // bf16 tiles, <= 64
+  const int tw = tile_width(dh, h1);  // the tile route, <= 64
+  const int nt = tw ? n_tiles(n_nodes) : (n_nodes + plan.tn - 1) / plan.tn;
   int rc = with_cols(h1, bf16, [&](auto nj, auto exact, auto bf) {
     constexpr int NJ = decltype(nj)::value;
     constexpr bool EX = decltype(exact)::value;
@@ -972,11 +1057,9 @@ extern "C" int edge_identity_backward(
         idn_bwd_nodes<NJ, EX, BF>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (e != cudaSuccess) return (int)e;
-    idn_proj<NJ, EX, BF><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS,
-                           0, stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh,
-                                        h1);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (int err = launch_proj<NJ, EX, BF>(h, w1r, w1s, s, n_nodes, dh, h1,
+                                          stream))
+      return err;
     idn_bwd_rows<NJ, EX, BF><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
                                stream>>>(
         x, snd, em, indptr, s.P, s.Q, w1d, b1, w2, b2, deg, gdx, gmh, s.GPRE1,
@@ -990,8 +1073,8 @@ extern "C" int edge_identity_backward(
     return (int)cudaGetLastError();
   });
   if (rc == 0 && tw)
-    rc = with_width(tw, 1, [&](auto w, auto) {
-      return launch_tile_passes<decltype(w)::value>(
+    rc = with_width(tw, bf16, [&](auto w, auto bf) {
+      return launch_tile_passes<decltype(w)::value, decltype(bf)::value>(
           h, em, indptr, sperm, sptr, w1r, w1s, s, gx, gh, n_nodes, dh,
           h1, n_ctas, stream);
     });

@@ -36,9 +36,9 @@
 // bf16 tiles (common.cuh: `swz16`, each value rounded once as stored) and
 // the four products bf16 tensor-core MMAs (`tile_mma_bf`, m16n8k16 on
 // `ldmatrix` fragments, STEP_SUM per k16 step); a third launch,
-// virtual_round_stacks, rounds the four stacks once a call, so that each
-// channel streams 2-byte tiles straight into shared memory (8 KB a tile
-// at 64, half the f32 bytes).
+// virtual_round_stacks (common.cuh), rounds the four stacks once a call,
+// so that each channel streams 2-byte tiles straight into shared memory
+// (8 KB a tile at 64, half the f32 bytes).
 // Shared memory: 8 weight tiles, the h, t1 and msg tiles, ~189 KB at
 // Dh = hid = 64 (~65 KB at 32): one CTA an SM; bf16 ~97 KB (~36 KB): two
 // CTAs an SM (at most 128 registers a thread).  At N = 8,192 that is 128
@@ -59,7 +59,6 @@ namespace {
 
 template <int W>
 constexpr int OUTW = 3 + W;  // partial row: dz (3) | ms (hid)
-enum { W_1H = 0, W_2, W_G1, W_Z1, W_N };  // weight tiles of a channel
 // row scalars (64 each): x, mask, rel, d2, the dz terms, the dx sums
 enum { R_X0 = 0, R_X1, R_X2, R_M, R_RL0, R_RL1, R_RL2, R_D2, R_DZ0, R_DZ1,
        R_DZ2, R_DX0, R_DX1, R_DX2, R_N };
@@ -314,28 +313,6 @@ __global__ void virtual_block_sums(const float* __restrict__ part,
   }
 }
 
-// The bf16 mode's weight stacks rounded once a call: wbf[c][k] = bf16 of
-// channel c's W1h, W2, Wg1, Wz1 (k in that order, W x W each), so that the
-// forward streams 2-byte tiles by cp.async straight into its bf16 tiles.
-template <int W>
-__global__ void __launch_bounds__(THREADS)
-virtual_round_stacks(const float* __restrict__ w1h,
-                     const float* __restrict__ w2,
-                     const float* __restrict__ wg1,
-                     const float* __restrict__ wz1, Bf* __restrict__ wbf,
-                     int n_chan) {
-  constexpr int WW = W * W;
-  const float* src[W_N] = {w1h, w2, wg1, wz1};
-  const int n4 = n_chan * W_N * WW / 4;
-  for (int f = blockIdx.x * blockDim.x + threadIdx.x; f < n4;
-       f += gridDim.x * blockDim.x) {
-    const int e = 4 * f, c = e / (W_N * WW), k = (e / WW) % W_N;
-    const float4 v =
-        *reinterpret_cast<const float4*>(src[k] + c * WW + e % WW);
-    *reinterpret_cast<uint2*>(wbf + e) = bf16x4(v);
-  }
-}
-
 template <int W, bool BF>
 constexpr int smem_bytes() {
   return SMEM_FLOATS<W, BF> * sizeof(float);
@@ -357,11 +334,7 @@ int launch_forward(const float* x, const float* h, const float* z,
   const int n_blocks = n_tiles(n_nodes);
   Bf* wbf = reinterpret_cast<Bf*>(scratch);
   if (BF && n_blocks > 0) {
-    const int n4 = n_chan * W_N * W * W / 4;
-    virtual_round_stacks<W><<<min((n4 + THREADS - 1) / THREADS, 1024),
-                              THREADS, 0, stream>>>(w1h, w2, wg1, wz1, wbf,
-                                                    n_chan);
-    err = cudaGetLastError();
+    err = launch_round_stacks<W>(w1h, w2, wg1, wz1, wbf, n_chan, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (n_blocks > 0) {
@@ -378,7 +351,7 @@ int launch_forward(const float* x, const float* h, const float* z,
 // half a float an element), none in f32
 extern "C" long long virtual_fwd_scratch_floats(int n_chan, int width,
                                                 int bf16) {
-  return bf16 ? (long long)n_chan * W_N * width * width / 2 : 0;
+  return bf16 ? round_stacks_floats(n_chan, width) : 0;
 }
 
 // width: the compiled width (32 or 64) that Dh and hid were padded to;

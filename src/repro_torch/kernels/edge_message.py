@@ -42,8 +42,9 @@ M = 1 for both) is its own pair of CUDA paths, ``csrc/edge_identity.cu``
 (the Pallas kernels' identity branch), for H1 up to
 :data:`IDENTITY_MAX_H1`: two kernels a forward, four a backward (five in
 bf16 at Dh and H1 up to 64, whose per-edge dh products run as bf16 tile
-products), counted apart in ``identity_launches`` /
-``identity_bwd_launches``.  A wider
+products; at Dh and H1 up to 64 the projection and the backward's node
+pass are tensor-core tile products in both precisions), counted apart in
+``identity_launches`` / ``identity_bwd_launches``.  A wider
 identity layer (the reference admits them for very small graphs) takes
 the panel path, counted as the other gates' calls are.
 Gradients flow through ``kernels.ops.EdgePathway``; both raw wrappers
@@ -288,7 +289,8 @@ def _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode, clamp,
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     dx, mh, deg = empty(n, 3), empty(n, 1), empty(n, 1)
     scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 0, int(bf16))))
-    ins = (x, h, snd, em, indptr, *ws[:6])
+    # the projection reads h and W1r / W1s with 16-byte loads where aligned
+    ins = (x, align16(h), snd, em, indptr, *map(align16, ws[:2]), *ws[2:6])
     ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
     err = lib.edge_identity_forward(*ptrs, n, e, dh, h1,
                                     int(rel_mode == "inv1p"), float(clamp),
@@ -315,7 +317,8 @@ def _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws, deg, g_dx,
     gw2, gb2 = empty(h1, 1), empty(1, 1)
     gates = tuple(torch.zeros_like(w) for w in ws[6:])
     scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 1, int(bf16))))
-    ins = (x, h, snd, em, indptr, sperm, sptr, *ws[:6], deg, g_dx, g_mh)
+    ins = (x, align16(h), snd, em, indptr, sperm, sptr,
+           *map(align16, ws[:2]), *ws[2:6], deg, g_dx, g_mh)
     outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2)
     ptrs = [t.data_ptr() for t in (*ins, *outs, scratch)]
     err = lib.edge_identity_backward(*ptrs, n, e, dh, h1,

@@ -16,7 +16,9 @@ three).  CPU tensors run :func:`virtual_pathway_plain`.
 (all operands but the node mask) from its primals and the four output
 cotangents.  For CUDA tensors it launches ``csrc/virtual_message_bwd.cu``
 (which replaces the Pallas ``virtual_pathway_bwd_fused``): the main
-kernel and the reduction of its partials; ``bwd_launches`` counts calls.
+kernel and the reduction of its partials (in bf16 a first kernel rounds
+the weight stacks into the scratch tensor, as the forward's does);
+``bwd_launches`` counts calls.
 CPU tensors run :func:`virtual_pathway_bwd_plain`.  Gradients flow through
 ``kernels.ops.VirtualPathway``; both raw wrappers refuse inputs that
 require grad.
@@ -54,7 +56,7 @@ Tensor = torch.Tensor
 #: calls of the CUDA virtual forward (two kernels each, bf16 three) since
 #: :func:`reset_launches`
 launches = 0
-#: calls of the CUDA virtual backward (two kernels each) since
+#: calls of the CUDA virtual backward (two kernels each, bf16 three) since
 #: :func:`reset_launches`
 bwd_launches = 0
 
@@ -105,8 +107,10 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.virtual_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.virtual_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
     lib.virtual_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.virtual_bwd_occupancy.argtypes = [ctypes.c_int] * 2
+    lib.virtual_bwd_occupancy.restype = ctypes.c_int
     lib.virtual_backward.argtypes = ([ctypes.c_void_p] * 34
                                      + [ctypes.c_int] * 4
                                      + [ctypes.c_void_p])
@@ -269,8 +273,10 @@ def virtual_pathway_bwd_fused(x: Tensor, h: Tensor, z: Tensor,
         panel.virtual_backward(ins, grads, d, w, bf16)
     else:
         lib = build.load("virtual_message_bwd", _bind_bwd)
-        scratch = torch.empty((int(lib.virtual_bwd_scratch_floats(n, c, w)),),
-                              dtype=torch.float32, device=x.device)
+        # the CTAs' partials; bf16: also the rounded weight stacks
+        scratch = torch.empty(
+            (int(lib.virtual_bwd_scratch_floats(n, c, w, int(bf16))),),
+            dtype=torch.float32, device=x.device)
         ptrs = [t.data_ptr() for t in (*ins, *grads, scratch)]
         err = lib.virtual_backward(*ptrs, n, c, w, int(bf16),
                                    build.stream_ptr(x.device))

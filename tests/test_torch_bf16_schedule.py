@@ -1,10 +1,12 @@
 """The bf16 schedule of the CUDA edge kernels (#1 ``edge_fwd_edges<W,
 true>``, #2 ``edge_bwd_edges<W, true>`` / ``edge_bwd_nodes<W, true>``,
 their ``node_proj<W, true>``), of the identity gate's backward on its tile
-route (``idn_bwd_dh<W>`` / ``idn_bwd_nodes_bf<W>``) and of the virtual
-forward (#3 ``virtual_fwd_kernel<W, true>``), emulated in plain PyTorch and
-held to the plain bf16 versions ``kernels.ref.edge_pathway_ref_bf16`` /
-``edge_pathway_bwd_ref_bf16`` / ``virtual_pathway_ref_bf16`` (which
+route (``padded_proj<W, true>``, ``idn_bwd_dh<W>``,
+``idn_bwd_nodes_tile<W, true>``) and of the virtual forward and backward
+(#3 ``virtual_fwd_kernel<W, true>``, #4 ``virtual_bwd_kernel<W, true>``),
+emulated in plain PyTorch and held to the plain bf16 versions
+``kernels.ref.edge_pathway_ref_bf16`` / ``edge_pathway_bwd_ref_bf16`` /
+``virtual_pathway_ref_bf16`` / ``virtual_pathway_bwd_ref_bf16`` (which
 ``tests/test_torch_bf16.py`` holds to the JAX package's bf16 kernels).
 
 No CUDA kernel runs on the CPU, so these tests hold the bf16 kernels'
@@ -25,8 +27,9 @@ and ``tests/test_torch_bwd_schedule.py`` do for the 3xTF32 route:
   W1r^T), ... W1s^T) stored as torch.bfloat16 and widened by the node
   pass, which sums it per node in slot / sender-permutation order; the
   weight partials per range, added in range order.
-* The identity backward (SchNet's form, Dh = H1; RF's, Dh = 1): the row
-  pass's per-edge terms and per-row sums in slot order; bf16(g_pre1) per
+* The identity backward (SchNet's form, Dh = H1; RF's, Dh = 1): the
+  projection P = h.W1r, Q = h.W1s as tile products on 64-node tiles; the
+  row pass's per-edge terms and per-row sums in slot order; bf16(g_pre1) per
   slot in bf16; the dh pass's 64-slot tiles of the slot range (a masked
   slot's unwritten row in the tile, its products not stored), the live
   slots' two products stored in bf16; the node pass's sums in slot /
@@ -35,6 +38,11 @@ and ``tests/test_torch_bwd_schedule.py`` do for the 3xTF32 route:
 * #3: 64-node tiles, the channels in order, bf16 tiles and k16 STEP_SUM
   products; one partial row (dz | ms) per tile and channel, added in tile
   order.
+* #4: the same tiles, its twelve products a channel (four recomputed,
+  four cotangents, four weight partials) on bf16 tiles without STEP_SUM
+  (no sum adds more than 12 MMA results), every column sum, g_d2 and
+  g_rel of the unrounded f32 terms; one partial per tile and channel,
+  added in tile order; dh accumulated over the channels.
 
 Tolerances.  With round-to-nearest f32 products of the rounded operands
 (the plain version's), the schedules reproduce the plain bf16 versions
@@ -67,7 +75,10 @@ from repro_torch.data.radius_graph import (csr_indptr, csr_sender_perm,
                                            sort_edges_by_receiver)
 from repro_torch.kernels.ref import (edge_pathway_bwd_ref_bf16,
                                      edge_pathway_ref_bf16,
+                                     virtual_pathway_bwd_ref_bf16,
                                      virtual_pathway_ref_bf16)
+from repro_torch.kernels.runtime import pad_to
+from repro_torch.kernels.virtual_message import pad_ops
 from test_torch_bf16 import one_torch_thread  # noqa: F401 (a fixture)
 from test_torch_bwd_schedule import (TR, _edge_graph, _silu_grad,
                                      sum_in_order)
@@ -460,8 +471,11 @@ def identity_bwd_bf16_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s,
                                w1d, b1, w2, b2, deg, g_dx, g_mh, *, rel_mode,
                                clamp, n_ctas, mm=mm_bf16, scratch=None):
     """The identity gate's bf16 backward on its tile route (Dh, H1 <= 64:
-    ``idn_bwd_rows<..., true>``, ``idn_bwd_dh<W>``, ``idn_bwd_nodes_bf<W>``)
-    → the 8 gradients ``(x, h, w1r, w1s, w1d, b1, w2, b2)``.  The row pass
+    ``padded_proj<W, true>``, ``idn_bwd_rows<..., true>``,
+    ``idn_bwd_dh<W>``, ``idn_bwd_nodes_tile<W, true>``) → the 8 gradients
+    ``(x, h, w1r, w1s, w1d, b1, w2, b2)``.  The projection takes 64-node
+    tiles and the tile products ``mm`` (RF's Dh = 1: ``idn_proj``'s exact
+    rank-1 products).  The row pass
     recomputes each live edge (FP32 units) and sums per receiver row in
     slot order; the dh pass takes the slot range in 64-slot tiles (CTA b
     tiles b, b + n_ctas, ...), a masked slot's row whatever the stage
@@ -475,8 +489,10 @@ def identity_bwd_bf16_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s,
     n, h1 = x.shape[0], w1r.shape[1]
     inv1p = rel_mode == "inv1p"
     w1d_b, b1_b, w2_b, b2_b = (_b(w) for w in (w1d, b1, w2, b2))
-    P = _tiles(h, lambda t: mm_plain(t, w1r))  # idn_proj: exact products
-    Q = _tiles(h, lambda t: mm_plain(t, w1s))
+    # padded_proj's tile products (idn_proj's exact rank-1 product at Dh = 1)
+    proj = mm if h.shape[1] > 1 else mm_plain
+    P = _tiles(h, lambda t: proj(t, w1r))
+    Q = _tiles(h, lambda t: proj(t, w1s))
     live_end = int(indptr[n])
     live = [s for s in range(live_end) if em[s] != 0]
     sl = torch.tensor(live, dtype=torch.long)
@@ -735,3 +751,140 @@ def test_bf16_virtual_fwd_schedule_matches_plain_bf16(width, products):
         err = _rel_l2(g, w)
         assert err <= (tol if i < 2 or tol < BF_SUM_L2 else BF_SUM_L2), (
             f"output {i}: relative L2 {err:.3g}")
+
+
+# ------------------------------------------------------------------- #4
+def virtual_bwd_bf16_schedule(x, h, z, mask, w1h, w1d, c1, w2, b2, wg1, bg1,
+                              wg2, wz1, bz1, wz2, g_dx, g_mh, g_dz, g_ms, *,
+                              mm=mm_bf16):
+    """``virtual_bwd_kernel<W, true>``'s schedule → the 14 gradients
+    ``(x, h, z, w1h, w1d, const1, w2, b2, wg1, bg1, wg2, wz1, bz1, wz2)``:
+    64-node tiles (the last padded with zero rows), the channels in order;
+    the h, t1, msg, g_gpx, g_gpz, g_msg and g_pre1 tiles and the weights
+    bf16 (each value rounded once, as stored) and the twelve products
+    ``mm``, each k16 step's MMA into the accumulator (g_msg's two
+    cotangent products into one: one product over the joined K); rel, d2 and d2
+    w1d in bfloat16 arithmetic; every column sum, the gates' row dots,
+    g_d2 and g_rel of the unrounded f32 terms; one partial per tile and
+    channel, added in tile order; dh summed over the channels."""
+    n, c = x.shape[0], z.shape[0]
+    dw = h.shape[1]
+    xb, zb = _b(x), _b(z)
+    vecs = [_b(v) for v in (w1d, c1, b2, bg1, wg2[..., 0], bz1, wz2[..., 0])]
+    inv_c = 1.0 / c
+    gx, gh = torch.zeros((n, 3)), torch.zeros((n, dw))
+    parts = []
+    for i0 in range(0, n, TR):
+        cnt = min(TR, n - i0)
+        xt, ht, mt, gdx, gmh = (_pad(a[i0:i0 + cnt], TR)
+                                for a in (xb, h, mask, g_dx, g_mh))
+        ux = gdx * inv_c
+        dx, dh = torch.zeros((TR, 3)), torch.zeros((TR, dw))
+        tile_parts = []
+        for ch in range(c):
+            vw1d, vc1, vb2, vbg1, vwg2, vbz1, vwz2 = (v[ch] for v in vecs)
+            rl = _b(xt - zb[ch])
+            sq = _b(rl * rl)
+            d2 = _b((sq[:, 0] + sq[:, 1]) + sq[:, 2])
+            uz = -mt[:, None] * g_dz[ch]
+            ggx = (ux[:, 0] * rl[:, 0] + ux[:, 1] * rl[:, 1]) \
+                + ux[:, 2] * rl[:, 2]
+            ggz = (uz[:, 0] * rl[:, 0] + uz[:, 1] * rl[:, 1]) \
+                + uz[:, 2] * rl[:, 2]
+            pre = (mm(ht, w1h[ch]) + _b(d2[:, None] * vw1d)) + vc1
+            t1, dt = F.silu(pre), _silu_grad(pre)
+            msg = mm(t1, w2[ch]) + vb2
+            gate, q, sgg = [], [], []
+            for wg, bg, w2g, gg in ((wg1[ch], vbg1, vwg2, ggx),
+                                    (wz1[ch], vbz1, vwz2, ggz)):
+                p = mm(msg, wg) + bg
+                sg = F.silu(p)
+                gate.append((_b(sg) * w2g).sum(-1))
+                q.append((_b(gg)[:, None] * w2g) * _silu_grad(p))
+                sgg.append(_b(sg) * _b(gg)[:, None])
+            gm = mm(torch.cat(q, 1), torch.cat([wg1[ch].T, wz1[ch].T])) + (
+                gmh * inv_c + mt[:, None] * g_ms[ch])
+            gp = mm(gm, w2[ch].T) * dt
+            g_d2 = (gp * vw1d).sum(-1)
+            g_rel = (ux * gate[0][:, None] + uz * gate[1][:, None]
+                     + 2.0 * rl * g_d2[:, None])
+            dx = dx + g_rel
+            dh = dh + mm(gp, w1h[ch].T)
+            g_rel[cnt:] = 0.0
+            tile_parts.append(dict(
+                w1h=mm(ht.T, gp), w1d=(d2[:, None] * gp).sum(0),
+                c1=gp.sum(0), w2=mm(t1.T, gm), b2=gm.sum(0),
+                wg1=mm(msg.T, q[0]), bg1=q[0].sum(0), wg2=sgg[0].sum(0),
+                wz1=mm(msg.T, q[1]), bz1=q[1].sum(0), wz2=sgg[1].sum(0),
+                dz=-sum_in_order(list(g_rel))))
+        parts.append(tile_parts)
+        gx[i0:i0 + cnt], gh[i0:i0 + cnt] = dx[:cnt], dh[:cnt]
+    red = lambda k: torch.stack([sum_in_order([p[ch][k] for p in parts])
+                                 for ch in range(c)])
+    return (gx, gh, red("dz"), red("w1h"), red("w1d"), red("c1"), red("w2"),
+            red("b2"), red("wg1"), red("bg1"), red("wg2")[..., None],
+            red("wz1"), red("bz1"), red("wz2")[..., None])
+
+
+def _virtual_bwd_case(width, n=200, c=3):
+    args = _virtual_case(width, n, c)
+    rng = np.random.default_rng(80 + width)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    return args, (f(n, 3), f(n, width), f(c, 3), f(c, width))
+
+
+# #4's tolerance with exact products: the kernel adds g_msg's terms (the
+# two cotangent products into one accumulator, then g_mh / C + m g_ms) and
+# the g_gx / g_gz dots in other orders than the plain version, so the
+# bf16 rounding of an entry of g_msg or g_gx can tip by a bf16 ulp (4.5e-5
+# at width 64 here; in the plain version's orders the schedule reproduces
+# it to 1.4e-7: every rounding point is the plain version's)
+V4_TOL = {"plain": 1e-4, "tensor-core": BF_L2}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("products", sorted(PRODUCTS))
+@pytest.mark.parametrize("width", (16, 32, 64))
+def test_bf16_virtual_bwd_schedule_matches_plain_bf16(width, products):
+    """#4 in bf16 at widths 32 and 64 and 16 (zero-padded to 32 as the
+    wrapper pads it) on bf16 tiles with k16 products: every gradient
+    within V4_TOL of the plain bf16 backward (relative L2), on 200 nodes
+    (a ragged last tile) with masked nodes."""
+    mm, tol = PRODUCTS[products][0], V4_TOL[products]
+    args, cots = _virtual_bwd_case(width)
+    assert 0 < float(args[3].sum()) < args[3].numel()
+    want = virtual_pathway_bwd_ref_bf16(*args, *cots)
+    if width < 32:  # the wrapper's zero padding to the compiled width
+        n, c = args[0].shape[0], args[2].shape[0]
+        args = pad_ops(args, 32, 32)
+        cots = (cots[0], pad_to(cots[1], n, 32), cots[2],
+                pad_to(cots[3], c, 32))
+    got = virtual_bwd_bf16_schedule(*args, *cots, mm=mm)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g[tuple(slice(0, k) for k in w.shape)]
+        err = _rel_l2(g, w)
+        assert err <= tol, f"gradient {i}: relative L2 {err:.3g}"
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_bf16_virtual_bwd_schedule_padding_nodes_leave_no_mark():
+    """Nodes past the graph's (the ragged last tile filled with padding
+    nodes: any coordinates and features, mask 0, zero cotangents, as a
+    batch's padding arrives) change no bit of any gradient: their rows of
+    every cotangent tile are exact zeros."""
+    args, cots = _virtual_bwd_case(64, n=200)
+    rng = np.random.default_rng(9)
+    extra = 40
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    more = list(args)
+    more[0] = torch.cat([args[0], torch.from_numpy(
+        rng.uniform(0.0, 1.0, (extra, 3)).astype(np.float32))])
+    more[1] = torch.cat([args[1], f(extra, 64)])
+    more[3] = torch.cat([args[3], torch.zeros(extra)])
+    mcots = (torch.cat([cots[0], torch.zeros(extra, 3)]),
+             torch.cat([cots[1], torch.zeros(extra, 64)]), *cots[2:])
+    assert -(-(200 + extra) // TR) == -(-200 // TR)  # the same tiles
+    a = virtual_bwd_bf16_schedule(*args, *cots)
+    b = virtual_bwd_bf16_schedule(*more, *mcots)
+    for i, (u, v) in enumerate(zip(a, b)):
+        assert torch.equal(u, v[:200] if i < 2 else v), f"gradient {i}"

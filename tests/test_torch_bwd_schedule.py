@@ -495,3 +495,208 @@ def test_virtual_schedule_keeps_nan_in_h():
     args[1] = h
     got = virtual_bwd_schedule(*args, mm=mm_3xtf32)
     _assert_same_nans(got, virtual_pathway_bwd_plain(*args))
+
+
+# ------------------------------------------ identity gate, f32 tile route
+def walk_fp32_units(perm, em, p0, p1, rows, grel):
+    """The FP32-unit route's sender walk (``idn_bwd_nodes``): a warp
+    ballots 32 slots' masks at a time and adds the live rows one after
+    another from zero; gx's sender half subtracts their g_rel."""
+    acc, d = torch.zeros(rows.shape[1]), torch.zeros(3)
+    for b in range(p0, p1, 32):
+        for p in range(b, min(b + 32, p1)):
+            s = int(perm[p])
+            if em[s] != 0:
+                acc = acc + rows[s]
+                d = d - grel[s]
+    return acc, d
+
+
+def walk_segment_sum(perm, em, p0, p1, rows, grel):
+    """``segment_sum<W, true, false>`` (common.cuh) as the tile route's
+    node pass runs it: a group of 8 lanes ballots 8 slots' masks at a
+    time, takes their live rows four at a time and adds them in slot
+    order; gx's sender half adds sign * g_rel, sign = -1."""
+    acc, d = torch.zeros(rows.shape[1]), torch.zeros(3)
+    for b in range(p0, p1, 8):
+        live = [int(perm[p]) for p in range(b, min(b + 8, p1))
+                if em[int(perm[p])] != 0]
+        for k in range(0, len(live), 4):
+            for s in live[k:k + 4]:
+                acc = acc + rows[s]
+                d = d + (-1.0) * grel[s]
+    return acc, d
+
+
+def _zero_pad(t, rows, cols):
+    out = torch.zeros((rows, cols), dtype=torch.float32)
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def identity_bwd_schedule(x, h, snd, em, indptr, sperm, sptr, w1r, w1s, w1d,
+                          b1, w2, b2, deg, g_dx, g_mh, *, rel_mode, clamp,
+                          width, mm, walk=walk_segment_sum, trace=None):
+    """The identity gate's f32 backward on its tile route (Dh, H1 <= 64:
+    ``padded_proj<W, false>`` (``idn_proj`` at Dh = 1), ``idn_bwd_rows``,
+    ``idn_bwd_nodes_tile<W, false>``, ``idn_bwd_reduce``) → the 8
+    gradients ``(x, h, w1r, w1s, w1d, b1, w2, b2)``.  Dh and H1 are
+    zero-padded to ``width`` in the tile products.  P = h.W1r and Q =
+    h.W1s on 64-node tiles (RF's Dh = 1: exact rank-1 products); each
+    receiver row's live edges recomputed and summed in slot order (G,
+    the receiver half of gx, the W2 / w1d / b2 terms); each node's sender
+    segment summed by ``walk`` (S and the sender half of gx); gh = G.W1r^T
+    + S.W1s^T and h^T G, h^T S with the tile products ``mm``; the b1, W2,
+    w1d, b2 partials the rows' sums in node order; tiles added in order.
+    ``trace`` (a dict) receives S."""
+    n, dh, h1 = x.shape[0], h.shape[1], w1r.shape[1]
+    f32 = torch.float32
+    hp = _zero_pad(h, n, width)
+    wr, ws = _zero_pad(w1r, width, width), _zero_pad(w1s, width, width)
+    tiles = range(0, n, TR)
+    if dh == 1:  # idn_proj: RF's rank-1 product elementwise, exact
+        P, Q = h @ w1r, h @ w1s
+    else:  # padded_proj
+        P = torch.cat([mm(hp[i:i + TR], wr) for i in tiles])[:, :h1]
+        Q = torch.cat([mm(hp[i:i + TR], ws) for i in tiles])[:, :h1]
+    # the row pass: each live edge alone, then each row's sums in slot order
+    live_end = int(indptr[n])
+    sl = torch.tensor([s for s in range(live_end) if em[s] != 0])
+    r = torch.searchsorted(indptr.long(), sl, right=True) - 1
+    s = snd[sl].long()
+    rel = x[r] - x[s]
+    d2 = (rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1]) + rel[:, 2] * rel[:, 2]
+    pre = ((P[r] + Q[s]) + d2[:, None] * w1d) + b1
+    t1, dt = torch.nn.functional.silu(pre), _silu_grad(pre)
+    msg = (t1 * w2[:, 0]).sum(-1) + b2[0, 0]
+    sc = (1.0 / torch.clamp(deg[r, 0], min=1.0)) * em[sl]
+    u = g_dx[r] * sc[:, None]
+    if rel_mode == "inv1p":
+        sd = torch.sqrt(d2 + 1e-12)
+        kf = 1.0 / (sd + 1.0)
+    else:
+        kf = torch.ones_like(d2)
+    g_gate = (u * (rel * kf[:, None])).sum(-1)
+    g_gate = torch.where((msg >= -clamp) & (msg <= clamp), g_gate, 0.0)
+    g_msg = g_mh[r, 0] * sc + g_gate
+    gp = (g_msg[:, None] * w2[:, 0]) * dt
+    g_d2 = (gp * w1d[0]).sum(-1)
+    gr = u * torch.clamp(msg, -clamp, clamp)[:, None]
+    if rel_mode == "inv1p":
+        g_d2 = g_d2 + (gr * rel).sum(-1) * (-(kf * kf) / (2.0 * sd))
+        gr = gr * kf[:, None]
+    grel = gr + 2.0 * rel * g_d2[:, None]
+    terms = {"G": gp, "gxr": grel, "w2": t1 * g_msg[:, None],
+             "w1d": d2[:, None] * gp, "b2": g_msg[:, None]}
+    RS = {k: torch.zeros((n, v.shape[1]), dtype=f32) for k, v in terms.items()}
+    for i in range(n):
+        idx = (r == i).nonzero().flatten()
+        for k, v in terms.items():
+            if idx.numel():
+                RS[k][i] = sum_in_order(list(v[idx]))
+    # the rows' per-slot scratch: g_pre1 as f32 rows of the width
+    slots = snd.shape[0]
+    GPRE1 = torch.full((slots, width), float("nan"), dtype=f32)
+    GPRE1[sl] = _zero_pad(gp, gp.shape[0], width)
+    GREL = torch.zeros((slots, 3), dtype=f32)
+    GREL[sl] = grel
+    # the node pass: sender segments, then the tile products
+    S = torch.zeros((n, width), dtype=f32)
+    gx = torch.zeros((n, 3), dtype=f32)
+    for i in range(n):
+        S[i], ds = walk(sperm, em, int(sptr[i]), int(sptr[i + 1]), GPRE1,
+                        GREL)
+        gx[i] = RS["gxr"][i] + ds
+    if trace is not None:
+        trace["S"] = S
+    G = _zero_pad(RS["G"], n, width)
+    gh = torch.cat([mm(G[i:i + TR], wr.T) + mm(S[i:i + TR], ws.T)
+                    for i in tiles])[:, :dh]
+    in_order = lambda fn: sum_in_order([fn(slice(i, i + TR)) for i in tiles])
+    node_sum = lambda a: in_order(lambda t: sum_in_order(list(a[t])))
+    return (gx, gh,
+            in_order(lambda t: mm(hp[t].T, G[t]))[:dh, :h1],
+            in_order(lambda t: mm(hp[t].T, S[t]))[:dh, :h1],
+            node_sum(RS["w1d"])[None], node_sum(RS["G"])[None],
+            node_sum(RS["w2"])[:, None], node_sum(RS["b2"])[None])
+
+
+# SchNet's form (Dh = H1, rel 'raw') at the compiled width 64 and padded
+# from 24 to 32, RF's (Dh = 1, 'inv1p', a clamp that binds) at 64
+IDN_CASES = {"schnet": (64, 64, 64, "raw", math.inf),
+             "schnet-clip": (64, 64, 64, "raw", 0.5),
+             "rf": (1, 64, 64, "inv1p", 0.5),
+             "padded": (24, 24, 32, "raw", math.inf)}
+
+
+def _identity_case(form):
+    """The hub graph of the edge cases (n = 230 nodes: a ragged last
+    64-node tile), identity-gate operands at Dh, H1 of ``form``, and the
+    reference's gradients (``jax.vjp`` of its identity branch)."""
+    dh, h1, width, rel, clamp = IDN_CASES[form]
+    x, sp, rp, em, indptr, sperm, sptr = _edge_graph()
+    ncap = x.shape[0]
+    rng = np.random.default_rng(11)
+    f = lambda *s, sc=1.0: (sc * rng.standard_normal(s)).astype(np.float32)
+    h = f(ncap, dh)
+    ws = [f(dh, h1, sc=(2 * dh + 1) ** -0.5), f(dh, h1, sc=(2 * dh + 1) ** -0.5),
+          f(1, h1, sc=0.3), f(1, h1, sc=0.1), f(h1, 1, sc=h1 ** -0.5),
+          f(1, 1, sc=0.1)]
+    zeros = [np.zeros((1, 1), np.float32)] * 3
+    kw = dict(gate_mode="identity", rel_mode=rel, clamp=clamp)
+    g_dx, g_mh = f(ncap, 3), f(ncap, 1)
+    jargs = [jnp.asarray(a) for a in (x, h, sp, rp, em)]
+    jz = [jnp.asarray(z) for z in zeros]
+    _, _, deg = j_ref.edge_pathway_ref(*jargs, *map(jnp.asarray, ws), *jz,
+                                       **kw)
+    fn = lambda xx, hh, *ww: j_ref.edge_pathway_ref(
+        xx, hh, *jargs[2:], *ww, *jz, **kw)[:2]
+    _, vjp = jax.vjp(fn, jargs[0], jargs[1], *map(jnp.asarray, ws))
+    want = vjp((jnp.asarray(g_dx), jnp.asarray(g_mh)))
+    t = lambda a: torch.from_numpy(np.array(a))
+    args = (t(x), t(h), t(sp), t(em), t(indptr), t(sperm), t(sptr),
+            *map(t, ws), t(np.asarray(deg)), t(g_dx), t(g_mh))
+    return args, dict(rel_mode=rel, clamp=clamp, width=width), want
+
+
+@pytest.mark.parametrize("mm", [mm_f32, mm_3xtf32], ids=["f32", "3xtf32"])
+@pytest.mark.parametrize("form", sorted(IDN_CASES))
+def test_identity_tile_schedule_matches_vjp(form, mm):
+    """The identity backward's f32 tile route in SchNet's form (raw, a
+    clamp that binds and one that does not), RF's (Dh = 1, inv1p) and a
+    width padded from 24 to 32, on 230 nodes (a ragged last tile): within
+    the gradient tolerance of ``jax.vjp`` of the reference."""
+    args, kw, want = _identity_case(form)
+    assert args[0].shape[0] % TR != 0
+    got = identity_bwd_schedule(*args, **kw, mm=mm)
+    _assert_grads_close(got, want)
+    # padding nodes (no edge) get exact zeros
+    assert not got[0][200:].any() and not got[1][200:].any()
+
+
+def test_identity_tile_schedule_single_tf32_pass_misses_tolerance():
+    """Why gh and the W1r / W1s partials (and the projection) are 3xTF32
+    products: one TF32 pass each lands outside the gradient tolerance."""
+    args, kw, want = _identity_case("schnet")
+    got = identity_bwd_schedule(*args, **kw, mm=mm_1xtf32)
+    with pytest.raises(AssertionError):
+        _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("form", ["schnet", "rf"])
+def test_identity_tile_sender_sums_keep_the_fp32_unit_order(form):
+    """S (the sender segments' sums of g_pre1) and gx are bitwise the
+    FP32-unit route's: ``segment_sum``'s 8-slot groups add the live rows
+    in the same permutation order, from zero, as the warp's 32-slot
+    walk."""
+    args, kw, _ = _identity_case(form)
+    outs = []
+    for walk in (walk_fp32_units, walk_segment_sum):
+        trace = {}
+        got = identity_bwd_schedule(*args, **kw, mm=mm_3xtf32, walk=walk,
+                                    trace=trace)
+        outs.append((trace["S"], got[0]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    sptr = args[6]
+    assert int(torch.diff(sptr).max()) > 32  # a segment of several walks

@@ -1760,19 +1760,7 @@ def test_edge_kernels_bf16_match_plain_bf16(form, width):
 @pytest.mark.parametrize("width", [24, 32, 64, 128])
 def test_virtual_kernels_bf16_match_plain_bf16(width):
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(width)
-    n, c = 1000, 3
-    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
-    x = torch.rand((n, 3), generator=gen, device=dev)
-    args = [x, r(n, width), x[:c] + 0.05 * r(c, 3),
-            (torch.rand(n, generator=gen, device=dev) > 0.1).float(),
-            r(c, width, width, sc=width ** -0.5), r(c, width, sc=0.3),
-            r(c, width, sc=0.3), r(c, width, width, sc=width ** -0.5),
-            r(c, width, sc=0.1), r(c, width, width, sc=width ** -0.5),
-            r(c, width, sc=0.1), r(c, width, 1, sc=width ** -0.5),
-            r(c, width, width, sc=width ** -0.5), r(c, width, sc=0.1),
-            r(c, width, 1, sc=width ** -0.5)]
-    cots = (r(n, 3), r(n, width), r(c, 3), r(c, width))
+    args, cots = _virtual_bf16_args(dev, width)
     virtual_message.reset_launches()
     with torch.no_grad():
         run = lambda p: virtual_message.virtual_pathway_fused(*args,
@@ -1794,11 +1782,18 @@ def test_bf16_padded_width_equals_unpadded_bitwise(form):
     """Width 24 (the wrapper pads it to the compiled 32) against the same
     call zero-padded to 32 by hand: bitwise equal, forward and backward
     (a zero row or column adds +0, and bf16(0) = 0)."""
+    _assert_padded_equals_unpadded(form, "bf16")
+
+
+def _assert_padded_equals_unpadded(form, precision):
+    """The edge pair in ``form`` at width 24 against the same call
+    zero-padded to 32 by hand, in ``precision``: bitwise equal, forward
+    and backward."""
     from repro_torch.kernels.runtime import pad_to
 
     dev = torch.device("cuda")
     args, sender, kw = _bf16_edge_case(dev, form, 24)
-    kw["precision"] = "bf16"
+    kw["precision"] = precision
     n = args[0].shape[0]
     dh, h1, m = args[1].shape[1], args[5].shape[1], args[9].shape[1]
     d, hp, mp = 32 if dh > 1 else 1, 32, 32 if m > 1 else 1
@@ -2057,3 +2052,195 @@ def test_identity_bwd_bf16_tile_route_repeat_and_cta_count(monkeypatch, dh,
         assert torch.equal(a, b) and torch.equal(a, c)
         if w.numel() and float(w.abs().max()) > 0:
             assert _rel_l2(a, w) <= BF_L2
+
+
+# --------- the identity backward's f32 tile route; #4 bf16 on bf16 tiles
+# Dh and H1 up to 64 take the identity pair's tile route in f32 too (the
+# projection as tile products, the backward's node pass 8 lanes a node
+# with 3xTF32 gh and W1r / W1s partials): the compiled widths 32 and 64
+# and widths padded up to them
+IDN_TILE_WIDTHS = [16, 32, 48, 64]
+
+
+def _identity_tile_case(dev, form, width):
+    """(args, kw, fwd, bwd, fplain, bplain, n_edges) of the identity pair
+    in SchNet's or RF's form at ``width``, f32."""
+    args, sender, kw = _bf16_edge_case(dev, form, width)
+    n = args[0].shape[0]
+    with torch.no_grad():
+        deg = edge_message.edge_pathway_plain(*args, **kw)[2].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(width + 1)
+    g_dx = torch.randn((n, 3), generator=gen, device=dev)
+    g_mh = torch.randn((n, 1), generator=gen, device=dev)
+    fwd = lambda a=args: edge_message.edge_pathway_fused(*a, **kw)
+    bwd = lambda a=args: edge_message.edge_pathway_bwd_fused(
+        *a[:5], *sender, *a[5:], deg, g_dx, g_mh, **kw)
+    fplain = lambda: edge_message.edge_pathway_plain(*args, **kw)
+    bplain = lambda: edge_message.edge_pathway_bwd_plain(*args, g_dx, g_mh,
+                                                         **kw)
+    return args, kw, fwd, bwd, fplain, bplain, int(args[4][-1])
+
+
+@needs_cuda
+@pytest.mark.parametrize("form", ["schnet", "rf"])
+@pytest.mark.parametrize("width", IDN_TILE_WIDTHS)
+def test_identity_f32_tile_route_matches_plain(monkeypatch, form, width):
+    """The identity pair in f32 on its tile route, SchNet's form (Dh = H1)
+    and RF's (Dh = 1): within the f32 tolerances of the plain versions
+    (forward 1e-4, gradients 1e-3), bitwise repeats, the same bits under
+    another CTA count of the row passes, and one live slot's mask zeroed
+    (a planted fault) outside both tolerances."""
+    dev = torch.device("cuda")
+    args, kw, fwd, bwd, fplain, bplain, n_edges = _identity_tile_case(
+        dev, form, width)
+    with torch.no_grad():
+        got, again, want = fwd(), fwd(), fplain()
+        gk, gk2 = bwd(), bwd()
+    gp = bplain()
+    _assert_matches(got, again, want)
+    _assert_grads_match(gk, gk2, gp)
+    monkeypatch.setattr(edge_message, "IDENTITY_CTAS", 7)
+    bad = _one_slot_masked(args, n_edges)
+    with torch.no_grad():
+        other = fwd() + bwd()
+        fault_f, fault_b = fwd(bad), bwd(bad)
+    torch.cuda.synchronize()
+    for a, b in zip(got + gk, other):
+        assert torch.equal(a, b)
+    assert _outside_values_tolerance(fault_f, want)
+    assert _outside_tolerance(fault_b, gp)
+
+
+@needs_cuda
+@pytest.mark.parametrize("form", ["schnet", "rf"])
+def test_identity_f32_padded_width_equals_unpadded_bitwise(form):
+    """The identity pair in f32 at width 24 (padded to 32 inside the
+    kernels) against the same call zero-padded to 32 by hand: bitwise
+    equal, forward and backward."""
+    _assert_padded_equals_unpadded(form, "f32")
+
+
+@needs_cuda
+@pytest.mark.parametrize("width", [24, 32])
+def test_identity_f32_tile_route_keeps_nan(width):
+    """NaN rows of h (the card's bit patterns) on the W = 32 tile route,
+    SchNet's form: NaN exactly where the plain versions have it, forward
+    and backward (the 3xTF32 split keeps a NaN operand a NaN)."""
+    dev = torch.device("cuda")
+    args, kw, fwd, bwd, fplain, bplain, _ = _identity_tile_case(
+        dev, "schnet", width)
+    args[1] = _card_nan_rows(args[1], _live_nodes(args, dev))
+    with torch.no_grad():
+        _assert_same_nans(fwd(args), edge_message.edge_pathway_plain(
+            *args, **kw))
+        gk = bwd(args)
+    _assert_same_nans(gk, bplain())
+
+
+def _virtual_bf16_args(dev, width, n=1000, c=3):
+    """#3 / #4's operands and cotangents at ``width`` (from a seed)."""
+    gen = torch.Generator(device=dev).manual_seed(width)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=gen, device=dev)
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    sw = width ** -0.5
+    args = [x, r(n, width), x[:c] + 0.05 * r(c, 3),
+            (torch.rand(n, generator=gen, device=dev) > 0.1).float(),
+            r(c, width, width, sc=sw), r(c, width, sc=0.3),
+            r(c, width, sc=0.3), r(c, width, width, sc=sw),
+            r(c, width, sc=0.1), r(c, width, width, sc=sw),
+            r(c, width, sc=0.1), r(c, width, 1, sc=sw),
+            r(c, width, width, sc=sw), r(c, width, sc=0.1),
+            r(c, width, 1, sc=sw)]
+    cots = [r(n, 3), r(n, width), r(c, 3), r(c, width)]
+    return args, cots
+
+
+@needs_cuda
+def test_virtual_bwd_bf16_occupancy():
+    """The card holds two CTAs of #4 in bf16 an SM at both compiled widths
+    (its bf16 tiles halve the shared memory, ~102 KB at 64), and one of
+    the f32 instance at 64."""
+    from repro_torch.kernels import build
+
+    lib = build.load("virtual_message_bwd", virtual_message._bind_bwd)
+    for width in (32, 64):
+        assert lib.virtual_bwd_occupancy(width, 1) >= 2
+    assert lib.virtual_bwd_occupancy(64, 0) >= 1
+
+
+@needs_cuda
+@pytest.mark.parametrize("width", [16, 32, 48, 64])
+def test_virtual_bwd_bf16_tiles_match_plain_bf16(width):
+    """#4 in bf16 on bf16 tiles (16 padded to 32, 48 to 64): within BF_L2
+    of the plain bf16 backward, bitwise repeatable, engaged against the
+    f32 kernel, one call counted."""
+    dev = torch.device("cuda")
+    args, cots = _virtual_bf16_args(dev, width)
+    run = lambda p: virtual_message.virtual_pathway_bwd_fused(
+        *args, *cots, precision=p)
+    virtual_message.reset_launches()
+    with torch.no_grad():
+        got, again = run("bf16"), run("bf16")
+        f32 = run("f32")
+    want = virtual_message.virtual_pathway_bwd_plain(*args, *cots,
+                                                     precision="bf16")
+    torch.cuda.synchronize()
+    _assert_bf16(got, again, want, f32)
+    assert virtual_message.bwd_launches == 3
+    assert virtual_message.precision_launches == {"bf16": 2, "f32": 1}
+
+
+@needs_cuda
+def test_virtual_bwd_bf16_padded_width_equals_unpadded_bitwise():
+    """#4 in bf16 at width 24 (the wrapper pads it to 32) against the same
+    call zero-padded to 32 by hand: bitwise equal (a zero row or column
+    adds +0, and bf16(0) = 0)."""
+    from repro_torch.kernels.runtime import pad_to
+
+    dev = torch.device("cuda")
+    args, cots = _virtual_bf16_args(dev, 24)
+    n, c = args[0].shape[0], args[2].shape[0]
+    padded = virtual_message.pad_ops(tuple(args), 32, 32)
+    pcots = [cots[0], pad_to(cots[1], n, 32), cots[2], pad_to(cots[3], c, 32)]
+    with torch.no_grad():
+        a = virtual_message.virtual_pathway_bwd_fused(*args, *cots,
+                                                      precision="bf16")
+        b = virtual_message.virtual_pathway_bwd_fused(*padded, *pcots,
+                                                      precision="bf16")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y[tuple(slice(0, k) for k in x.shape)])
+
+
+@needs_cuda
+def test_virtual_bwd_and_identity_projection_run_their_mma_kinds():
+    """#4's bf16 instances and the identity projection's bf16 ones run
+    bf16 tensor-core MMAs (HMMA.16816.F32.BF16) and no TF32 ones; their
+    f32 instances, and the identity backward's tile node pass in both
+    modes (3xTF32 partials), the TF32 ones and no bf16 ones."""
+    import re
+
+    from repro_torch.kernels import build
+
+    checked = {}
+    for src, bind, kernels in (
+            ("virtual_message_bwd", virtual_message._bind_bwd,
+             ("virtual_bwd_kernel",)),
+            ("edge_identity", edge_message._bind_identity,
+             ("padded_proj", "idn_bwd_nodes_tile"))):
+        build.load(src, bind)
+        for name, sass in _sass_functions(build.library_path(src)).items():
+            kernel = next((k for k in kernels if k in name), None)
+            if kernel is None:
+                continue
+            ops = sorted(set(re.findall(r"HMMA\.[\w.]+", sass)))
+            bf = "Lb1E" in name and kernel != "idn_bwd_nodes_tile"
+            width = 64 if "Li64E" in name else 32
+            checked[src, kernel, width, "Lb1E" in name] = (bf, ops)
+    assert len(checked) == 3 * 2 * 2  # kernels x widths x modes
+    for key, (bf, ops) in checked.items():
+        if bf:
+            assert "HMMA.16816.F32.BF16" in ops, (key, ops)
+            assert not any("TF32" in op for op in ops), (key, ops)
+        else:
+            assert "HMMA.1688.F32.TF32" in ops, (key, ops)
+            assert not any("BF16" in op for op in ops), (key, ops)

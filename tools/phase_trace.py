@@ -15,14 +15,14 @@ those inside ``common.cuh``), thread 0 of CTA 0 records the source line
 and ``clock64()``.  Runs the kernels through ``chip_smoke.phase_kernels`` at
 its serving shapes (the last call's trace is kept) and prints, for each
 sync point, how often CTA 0 passed it and the mean clocks since the
-previous one.  ``--bf16`` traces the kernels on bf16 tiles instead
+previous one.  ``--bf16`` traces the bf16 kernels instead
 (``edge_fwd_edges<W, true>``, ``edge_bwd_edges<W, true>``, the identity
-backward's dh pass ``idn_bwd_dh<W>`` and ``virtual_fwd_kernel<W, true>``):
-one bf16 call each of the edge forward and backward (gate 'mlp'), the
-identity backward (SchNet's form, Dh = H1) and the virtual forward (C =
-3), at width ``--width`` (64) on the serving scene's Verlet list (N =
-8,192), and prints the registers and spills ``ptxas`` reports for the
-four sources.  ``--tree DIR`` traces the
+backward's dh pass ``idn_bwd_dh<W>``, ``virtual_fwd_kernel<W, true>`` and
+``virtual_bwd_kernel<W, true>``): one bf16 call each of the edge forward
+and backward (gate 'mlp'), the identity backward (SchNet's form, Dh =
+H1) and the virtual forward and backward (C = 3), at width ``--width``
+(64) on the serving scene's Verlet list (N = 8,192), and prints the
+registers and spills ``ptxas`` reports for the five sources.  ``--tree DIR`` traces the
 sources of another checkout (e.g. a ``git archive`` of an earlier commit
 under the gitignored ``_tree/``), through that tree's own package.  The
 clocks include the work of any other CTA on the same SM.  Needs CUDA and
@@ -44,7 +44,7 @@ KERNELS = {"edge_message": "edge_fwd_edges",
            "edge_identity": "idn_bwd_dh"}
 # the sources --bf16 traces (else the four FastEGNN kernels of f32)
 BF16_SOURCES = ("edge_message", "edge_message_bwd", "edge_identity",
-                "virtual_message")
+                "virtual_message", "virtual_message_bwd")
 SLOTS = 1024
 
 
@@ -102,8 +102,8 @@ def report(name: str, lib: ctypes.CDLL) -> None:
 
 def run_bf16(cs, width: int, dev) -> None:
     """One bf16 call each of the edge forward and backward, the identity
-    backward (SchNet's form) and the virtual forward at ``width`` on the
-    serving scene's Verlet list."""
+    backward (SchNet's form) and the virtual forward and backward at
+    ``width`` on the serving scene's Verlet list."""
     import torch
 
     from repro_torch.kernels import edge_message as em_mod
@@ -131,12 +131,14 @@ def run_bf16(cs, width: int, dev) -> None:
                 r(n, 3), r(n, m), **kw)
         sw = width ** -0.5
         w = width
-        vm.virtual_pathway_fused(
-            x, h, x[:c] + 0.05 * r(c, 3), nm, r(c, w, w, sc=sw),
-            r(c, w, sc=0.3), r(c, w, sc=0.3),
-            r(c, w, w, sc=sw), r(c, w, sc=0.1), r(c, w, w, sc=sw),
-            r(c, w, sc=0.1), r(c, w, 1, sc=sw), r(c, w, w, sc=sw),
-            r(c, w, sc=0.1), r(c, w, 1, sc=sw), precision="bf16")
+        va = (x, h, x[:c] + 0.05 * r(c, 3), nm, r(c, w, w, sc=sw),
+              r(c, w, sc=0.3), r(c, w, sc=0.3),
+              r(c, w, w, sc=sw), r(c, w, sc=0.1), r(c, w, w, sc=sw),
+              r(c, w, sc=0.1), r(c, w, 1, sc=sw), r(c, w, w, sc=sw),
+              r(c, w, sc=0.1), r(c, w, 1, sc=sw))
+        vm.virtual_pathway_fused(*va, precision="bf16")
+        vm.virtual_pathway_bwd_fused(*va, r(n, 3), r(n, w), r(c, 3),
+                                     r(c, w), precision="bf16")
 
 
 def main() -> int:

@@ -15,10 +15,15 @@ H1) and RF's (Dh = 1, inv1p; the backward also at 226, the FP32-unit
 route), with each call's device time (``torch.profiler``, split by
 kernel) and CUDA-event time.  It prints a JSON line a run, then each tree's
 medians, and the lines also go to ``chiprun_out/tree_ab.jsonl``.  The f32
-outputs of #1-#4 and of the identity pair must be bitwise equal in every
-run, across the trees (the bf16 outputs' largest difference from the
-first run is printed); the script exits 1 if they are not.  Needs CUDA
-and nvcc; imports nothing of JAX.
+outputs must be bitwise equal in every run of a tree, and across the
+trees those of #1-#4 and of the identity backward at 226; the identity
+pair's f32 outputs at 64 and 32 (its tile route, whose tensor-core
+products may change bits from one tree to another by design) are held
+across the trees to the f32 tolerances of ``chip_smoke.py`` (forward
+ATOL / RTOL, gradients GATOL / GRTOL of each output's largest
+magnitude).  The bf16 outputs' largest difference
+from the first run is printed.  The script exits 1 if an f32 check
+fails.  Needs CUDA and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -137,22 +142,54 @@ print(json.dumps({"tree": tree, "gpu": cs.gpu_line(), "kernels": out}))
 """.replace("WIDTHS", repr(WIDTHS)).replace("WIDE", repr(WIDE))
 
 
+def tile_identity(key: str) -> bool:
+    """An f32 output of the identity pair's tile route (widths 64, 32)."""
+    prec, width, name = key.split("/")
+    return prec == "f32" and width in ("64", "32") and name.startswith("idn")
+
+
+def within_f32_tolerance(key: str, got, want) -> bool:
+    """``got`` within chip_smoke.py's f32 tolerances of ``want``: values
+    (a forward) elementwise, gradients relative to each output's largest
+    magnitude."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    for a, b in zip(got, want):
+        if not b.numel():
+            continue
+        err = (a - b).abs()
+        if key.endswith("_fwd"):
+            ok = err <= cs.ATOL + cs.RTOL * b.abs()
+        else:
+            ok = err <= cs.GATOL * float(b.abs().max()) + cs.GRTOL * b.abs()
+        if not bool(ok.all()):
+            return False
+    return True
+
+
 def compare_outputs(paths: list[Path]) -> dict:
-    """Each run's outputs against the first run's: f32 bitwise equal, the
-    bf16 outputs' largest absolute difference."""
+    """The runs' outputs (OLD NEW NEW OLD): f32 bitwise equal within each
+    tree, and across the trees but for the identity tile route's, which
+    must be within the f32 tolerances; the bf16 outputs' largest absolute
+    difference from the first run."""
     import torch
 
-    first = torch.load(paths[0])
-    out = {"f32_bitwise_equal": True, "bf16_max_abs_diff": {}}
-    for p in paths[1:]:
-        other = torch.load(p)
-        for key, ts in first.items():
-            pairs = list(zip(ts, other[key]))
-            if key.startswith("f32/"):
-                same = all(torch.equal(a, b) for a, b in pairs)
-                out["f32_bitwise_equal"] &= same
-                if not same:
-                    out.setdefault("f32_differs", []).append(f"{p.name}:{key}")
+    runs = [torch.load(p) for p in paths]
+    out = {"f32_bitwise_equal": True, "f32_within_tolerance": True,
+           "bf16_max_abs_diff": {}}
+    for k, ref in ((3, 0), (2, 1), (1, 0)):  # old, new, across
+        for key, ts in runs[ref].items():
+            pairs = list(zip(runs[k][key], ts))
+            if key.startswith("f32/") and k == 1 and tile_identity(key):
+                if not within_f32_tolerance(key, runs[k][key], ts):
+                    out["f32_within_tolerance"] = False
+                    out.setdefault("f32_outside", []).append(key)
+            elif key.startswith("f32/"):
+                if not all(torch.equal(a, b) for a, b in pairs):
+                    out["f32_bitwise_equal"] = False
+                    out.setdefault("f32_differs", []).append(
+                        f"{paths[k].name}:{key}")
             else:
                 d = max(float((a - b).abs().max()) if a.numel() else 0.0
                         for a, b in pairs)
@@ -199,7 +236,8 @@ def main() -> int:
             log.write(line + "\n")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return 0 if outputs["f32_bitwise_equal"] else 1
+    return 0 if (outputs["f32_bitwise_equal"]
+                 and outputs["f32_within_tolerance"]) else 1
 
 
 if __name__ == "__main__":
