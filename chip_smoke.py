@@ -87,6 +87,12 @@ Phases, each printing one JSON line (any failure exits nonzero):
              the forward and the backward in SchNet's and RF's forms at
              hidden 64 and 32, from the kernels phase's rows, beside the
              figures before (IDN_F32_PARENT).
+   identity_fwd — the identity forward on its edge-parallel tile pass
+             (idn_fwd_tiles, Dh and H1 up to 64), f32 (the kernels
+             phase's rows) and bf16 (widths_bf16), SchNet's and RF's
+             forms at 64 and 32: device ms and its µs split (the
+             projection, which also writes the CSR by-products, and the
+             tile pass) beside the figures before (IDN_FWD_PARENT).
 4. serve  — a full-width FastEGNN (random weights from a seed) behind
              ``RolloutService`` with max_batch 4: four 7,800-particle
              fluid scenes, 20 steps each, the Verlet lists rebuilt on the
@@ -287,6 +293,16 @@ IDN_F32_PARENT = {
     "edge_identity_rf": {"64": 0.0290, "32": 0.0227},
     "edge_identity_bwd": {"64": 0.1495, "32": 0.101},
     "edge_identity_bwd_rf": {"64": 0.107, "32": 0.0918}}
+# the identity forward before its edge-parallel tile pass (a warp a
+# receiver row): device ms of the kernels phase's rows (f32) and of
+# widths_bf16 (bf16) at widths 64 and 32, SchNet's form and RF's ("_rf"),
+# as PERF.md section 6 records them (PR 25; NVIDIA H100 80GB HBM3, 700 W);
+# the identity_fwd line prints the tile pass's beside them
+IDN_FWD_PARENT = {
+    "f32": {"edge_identity": {"64": 0.0296, "32": 0.0210},
+            "edge_identity_rf": {"64": 0.0283, "32": 0.0236}},
+    "bf16": {"edge_identity": {"64": 0.0317, "32": 0.0236},
+             "edge_identity_rf": {"64": 0.0344, "32": "not measured"}}}
 # bf16 model path against the f32 kernel path: relative L2 of the first
 # served frame, of each leaf of the first step's gradients and of each zoo
 # model's prediction (DESIGN.md section 9.3; the reference's
@@ -2119,6 +2135,45 @@ def identity_f32_line(kline: dict) -> dict:
     return out
 
 
+def identity_fwd_line(kline: dict, widths_bf16: dict) -> dict:
+    """The identity forward on its tile pass (IDN_FWD_PARENT): device ms
+    and the µs split by kernel -- the projection (with the CSR
+    by-products: rowof, ctarow) and the tile pass -- in f32 (the kernels
+    phase's rows at hidden 64 and 32) and bf16 (widths_bf16 at 64 and 32),
+    SchNet's form and RF's, beside the figures before."""
+    def split(kernels_us: dict) -> dict:
+        out = {"projection_and_by_products": 0.0, "tile_pass": 0.0,
+               "other": 0.0}
+        for name, us in kernels_us.items():
+            key = ("tile_pass" if "idn_fwd_tiles" in name else
+                   "projection_and_by_products"
+                   if "padded_proj" in name or "idn_proj" in name
+                   else "other")
+            out[key] += us
+        return out
+
+    rows = {"64": {r["name"]: r for r in kline["kernels"]},
+            "32": {r["name"]: r for r in kline["hidden32"]}}
+    out = {"phase": "identity_fwd", "gpu": gpu_line(), "kernels": {}}
+    for prec, table in IDN_FWD_PARENT.items():
+        for key, parent in table.items():
+            got = {}
+            for w in ("64", "32"):
+                if prec == "f32":
+                    r = rows[w]["edge_identity"]
+                    r = r["rf_form"] if key.endswith("_rf") else r
+                else:
+                    form = "identity_rf" if key.endswith("_rf") else "identity"
+                    r = widths_bf16["cases"][w]["edge_pair"][form]["fwd"]
+                got[w] = r
+            out["kernels"][f"{prec}/{key}"] = {
+                "device_ms": {w: r["device_ms"] for w, r in got.items()},
+                "split_us": {w: split(r["kernels_us"])
+                             for w, r in got.items()},
+                "parent_device_ms": parent}
+    return out
+
+
 # ------------------------------------------------------------- bf16 phases
 def _periodic_rel_l2(got, want, base=None) -> float:
     """Relative L2 of frames ``got`` against ``want`` (numpy, wrapped in
@@ -3208,6 +3263,7 @@ def main() -> int:
     widths_bf16 = phase_widths_bf16(scenes[0], dev)
     emit(widths_bf16)
     emit(bf16_edge_line(widths_bf16))
+    emit(identity_fwd_line(kline, widths_bf16))
     serve = phase_serve(pipe, plain, scenes, dev)
     emit(serve)
     serve_bf16 = phase_serve_bf16(pipe, scenes, serve, dev)

@@ -585,7 +585,7 @@ inline bool aligned16(const void* p) {
 
 inline size_t round4(size_t v) { return (v + 3) & ~size_t(3); }
 
-int n_tiles(int n) { return (n + TR - 1) / TR; }
+__host__ __device__ inline int n_tiles(int n) { return (n + TR - 1) / TR; }
 
 // ------------------------------------------------------------ edge pathway
 // The first layer splits per node: pre1 = ((P_r + Q_s) + d2 w1d) + b1 with
@@ -600,16 +600,48 @@ __device__ __forceinline__ int slot_share(int live_end, int n_ctas) {
 template <int W, bool BF>
 constexpr int PROJ_SMEM_FLOATS = (BF ? 1 : 2) * (RT<W> + 2 * WT<W>) / 2;
 
-// One CTA per 64 nodes: P = h.W1r, Q = h.W1s for them (3xTF32 tile
-// products; bf16: on bf16 tiles, `tile_mma_bf`), and rowof[s] = the
+// The CSR by-products of the 64 nodes of node tile t, written by a CTA of
+// THREADS (t = blockIdx.x when a CTA takes a 64-node tile): rowof[s] = the
 // receiver row of every slot s of their CSR rows.  If `ctarow` is given,
-// also the rows of the forward's `n_ctas` edge CTAs: ctarow[b] (0 < b <
-// n_ctas) is the first row whose CSR segment starts at or after b *
-// slot_share(indptr[N], n_ctas), else N; ctarow[0] = 0, ctarow[n_ctas] = N.
-// CTA b owns rows [ctarow[b], ctarow[b + 1]) -- whole rows, every row
-// once, the last CTA also the empty rows at the end.  Row r writes the
-// entries b in (c(r - 1), c(r)], c(r) = min(indptr[r] / share, n_ctas -
-// 1), c(-1) = -1; row N writes (c(N - 1), n_ctas].
+// also the rows of a forward's `n_ctas`
+// edge CTAs: ctarow[b] (0 < b < n_ctas) is the first row whose CSR
+// segment starts at or after b * slot_share(indptr[N], n_ctas), else N;
+// ctarow[0] = 0, ctarow[n_ctas] = N.  CTA b owns rows [ctarow[b],
+// ctarow[b + 1]) -- whole rows, every row once, the last CTA also the
+// empty rows at the end.  Row r writes the entries b in (c(r - 1), c(r)],
+// c(r) = min(indptr[r] / share, n_ctas - 1), c(-1) = -1; row N writes
+// (c(N - 1), n_ctas].
+__device__ __forceinline__ void csr_rows(const int* __restrict__ indptr,
+                                         int* __restrict__ rowof,
+                                         int* __restrict__ ctarow,
+                                         int n_nodes, int n_ctas, int t) {
+  const int node0 = t * TR;
+  // warp w: rows node0 + 8 w .. + 7; lane l <= 8 holds indptr[node0 + 8 w + l]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = node0 + 8 * warp;
+  const int ip = lane <= 8 && r0 + lane <= n_nodes ? indptr[r0 + lane] : 0;
+#pragma unroll 1
+  for (int k = 0; k < 8; ++k) {
+    const int beg = __shfl_sync(FULL, ip, k);
+    const int end = __shfl_sync(FULL, ip, k + 1);
+    if (r0 + k < n_nodes)
+      for (int s = beg + lane; s < end; s += 32) rowof[s] = r0 + k;
+  }
+  if (ctarow != nullptr) {
+    const int share = slot_share(indptr[n_nodes], n_ctas);
+    const int hi = t == n_tiles(n_nodes) - 1 ? n_nodes + 1 : node0 + TR;
+    for (int r = node0 + threadIdx.x; r < hi; r += blockDim.x) {
+      const int lo = r == 0 ? -1 : min(indptr[r - 1] / share, n_ctas - 1);
+      const int up =
+          r == n_nodes ? n_ctas : min(indptr[r] / share, n_ctas - 1);
+      for (int b = lo + 1; b <= up; ++b) ctarow[b] = r;
+    }
+  }
+}
+
+// One CTA per 64 nodes: P = h.W1r, Q = h.W1s for them (3xTF32 tile
+// products; bf16: on bf16 tiles, `tile_mma_bf`), and their CSR
+// by-products (`csr_rows`: rowof, and ctarow if given).
 template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS)
 node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
@@ -636,27 +668,7 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
     async_commit();
     tile_gather<W>(tH, h, node);
   }
-  // warp w: rows node0 + 8 w .. + 7; lane l <= 8 holds indptr[node0 + 8 w + l]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = node0 + 8 * warp;
-  const int ip = lane <= 8 && r0 + lane <= n_nodes ? indptr[r0 + lane] : 0;
-#pragma unroll 1
-  for (int k = 0; k < 8; ++k) {
-    const int beg = __shfl_sync(FULL, ip, k);
-    const int end = __shfl_sync(FULL, ip, k + 1);
-    if (r0 + k < n_nodes)
-      for (int s = beg + lane; s < end; s += 32) rowof[s] = r0 + k;
-  }
-  if (ctarow != nullptr) {
-    const int share = slot_share(indptr[n_nodes], n_ctas);
-    const int hi = blockIdx.x == gridDim.x - 1 ? n_nodes + 1 : node0 + TR;
-    for (int r = node0 + threadIdx.x; r < hi; r += blockDim.x) {
-      const int lo = r == 0 ? -1 : min(indptr[r - 1] / share, n_ctas - 1);
-      const int up =
-          r == n_nodes ? n_ctas : min(indptr[r] / share, n_ctas - 1);
-      for (int b = lo + 1; b <= up; ++b) ctarow[b] = r;
-    }
-  }
+  csr_rows(indptr, rowof, ctarow, n_nodes, n_ctas, blockIdx.x);
   if (!BF) async_wait_all();
   __syncthreads();
   const Lane L = lane_of();
@@ -687,9 +699,10 @@ node_proj(const float* __restrict__ h, const float* __restrict__ w1r,
 // P = h.W1r, Q = h.W1s for the layers of any width up to W (the identity
 // gate's projection, edge_identity.cu): one CTA per 64 nodes, h (n x dh)
 // and the weights (dh x h1) zero-padded to W inside the kernel, P and Q
-// written as (n x h1).  3xTF32 tile products; bf16: on bf16 tiles
-// (`tile_mma_bf`), each operand rounded once as stored.  node_proj's
-// products without its CSR by-products.  vec (h and the weights 16-byte
+// written as rows of ld floats (ld = h1, or W: zeros past h1).  3xTF32
+// tile products; bf16: on bf16 tiles (`tile_mma_bf`), each operand
+// rounded once as stored.  node_proj's products, and its CSR by-products
+// if `rowof` is given (`csr_rows`).  vec (h and the weights 16-byte
 // aligned): at dh = W node_proj's 16-byte loads of h, at dh = h1 = W its
 // weight loads (cp.async in f32).
 template <int W, bool BF>
@@ -699,7 +712,9 @@ template <int W, bool BF>
 __global__ void __launch_bounds__(THREADS)
 padded_proj(const float* __restrict__ h, const float* __restrict__ w1r,
             const float* __restrict__ w1s, float* __restrict__ P,
-            float* __restrict__ Q, int n_nodes, int dh, int h1, int vec) {
+            float* __restrict__ Q, int n_nodes, int dh, int h1, int ld,
+            int vec, const int* __restrict__ indptr, int* __restrict__ rowof,
+            int* __restrict__ ctarow, int n_ctas) {
   extern __shared__ float4 smem4[];
   using T = std::conditional_t<BF, Bf, float>;
   T* tH = reinterpret_cast<T*>(smem4);
@@ -729,6 +744,8 @@ padded_proj(const float* __restrict__ h, const float* __restrict__ w1r,
       tile_gather_padded<W, BF>(sW[k], src[k], W, h1, h1,
                                 [&](int i) { return i < dh ? i : -1; });
   }
+  if (rowof != nullptr)
+    csr_rows(indptr, rowof, ctarow, n_nodes, n_ctas, blockIdx.x);
   if (full_w && !BF) async_wait_all();
   __syncthreads();
   const Lane L = lane_of();
@@ -746,7 +763,8 @@ padded_proj(const float* __restrict__ h, const float* __restrict__ w1r,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = node0 + L.row(e), c = L.col<W>(jn, e);
-        if (i < n_nodes && c < h1) dst[k][(size_t)i * h1 + c] = a[jn][e];
+        if (i < n_nodes && c < ld)
+          dst[k][(size_t)i * ld + c] = c < h1 ? a[jn][e] : 0.0f;
       }
   }
 }

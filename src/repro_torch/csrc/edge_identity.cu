@@ -21,23 +21,43 @@
 // then mh and dx are divided by max(deg, 1).
 //
 // With M = 1 the second product is an H1-long dot per edge, so there is no
-// tile product to give to the tensor cores: the kernels run on the FP32
-// units.  One warp owns one receiver row at a time (lane l holds columns l,
-// l + 32, ...); it reads 32 slots' masks and senders at once, ballots the
-// live ones and walks them in slot order, the dot product a fixed xor
-// butterfly (every lane ends with the same bits).  A row's sums start from
-// zero and add its live edges one at a time, so each output depends on its
-// row's live edges and their order only: not on the CTA count, the card,
-// or how many masked slots the layout holds.  No float atomics; repeated
-// runs are bitwise equal.
+// tile product to give to the tensor cores: the per-edge work runs on the
+// FP32 units.  The dot is a fixed xor butterfly over 32 lanes' partials
+// (lane l: columns l, l + 32, ...), the same tree in every kernel that
+// forms it.  Each row's sums start from zero and add its live edges one
+// at a time in slot order, so each output depends on its row's live edges
+// and their order only: not on the CTA count, the card, or how many
+// masked slots the layout holds.  No float atomics; repeated runs are
+// bitwise equal.
 //
-// Forward, two launches: the projection (P and Q) and idn_fwd_rows.  At
-// Dh (above 1) and H1 up to 64 (`tile_width`: SchNet's form at 32 and 64)
-// the projection is `padded_proj` (common.cuh): 64-node tiles, both
-// widths zero-padded to W = 32 or 64 in the kernel, two tile products on
-// the tensor cores (3xTF32; bf16: bf16 tiles, m16n8k16); wider layers and
-// RF's Dh = 1 (a rank-1 product) take idn_proj, one thread a node and
-// column, a Dh-long dot.  Backward,
+// Forward, two launches: the projection (P and Q) and the edge pass.
+// * The tile route (Dh and H1 up to 64, `tile_width`: SchNet's form at 32
+//   and 64, RF's Dh = 1): the projection `padded_proj` (common.cuh:
+//   64-node tiles, both widths zero-padded to W = 32 or 64 in the kernel,
+//   two tile products on the tensor cores, 3xTF32; bf16: bf16 tiles,
+//   m16n8k16), or for RF's Dh = 1 (a rank-1 product) idn_proj_rows,
+//   writes P and Q as rows of W (zeros past H1) and the CSR by-products of #1's
+//   node_proj (`csr_rows`: each slot's receiver row, each edge CTA's
+//   rows).  Then idn_fwd_tiles, edge-parallel as #1's edge pass: CTA b
+//   owns the receiver rows whose CSR segment starts in its equal share of
+//   [0, indptr[N]) (a row is never split), packs their live slots in slot
+//   order into 64-edge tiles (#1's tiles) and brings the next tile's Q_s
+//   rows, x_s and its rows' P_r and x_r (once a row a tile) into a second
+//   shared-memory stage by cp.async while this tile runs.
+//   Four threads an edge, 16 columns a thread at W = 64: pre1, the SiLU
+//   (the fast sigmoid of #1) and the thread's eight lanes' partials of
+//   the dot, the butterfly's xor 16, 8, 4 levels inside the thread and
+//   2, 1 by shuffles -- the warp butterfly's tree.  Each row's five sums
+//   are added in slot order by one thread, carried across tiles; a warp of
+//   its own scans the slots, cuts the tiles and adds the row sums beside
+//   the compute warps.  Masked slots never enter a tile (an Inf there
+//   cannot become a NaN).
+// * Wider layers (H1 above 64, or Dh above 64): idn_proj (one thread a
+//   node and column, a Dh-long dot) and idn_fwd_rows, one warp a receiver
+//   row at a time (lane l holds columns l, l + 32, ...): it reads 32
+//   slots' masks and senders at once, ballots the live ones and walks them
+//   in slot order.
+// Backward,
 // four: the projection; idn_bwd_rows, which recomputes
 // each live edge's forward, backpropagates as `_edge_bwd_common` does
 // (upstream u = g_*[r] / max(deg_r, 1) em; the clip passes the gradient
@@ -91,9 +111,10 @@
 // Dh = 64): per node the two 64 x 64 projections (16K FLOP), per live edge
 // ~0.66K FLOP forward; ~0.19 GFLOP in all, 0.0028 ms at 67 TFLOP/s, against
 // ~3.8 MB of reads and writes (0.0011 ms at 3.35 TB/s): bound by
-// operations.  In practice a warp's walk of its row is a chain of
-// dependent gathers (slot -> sender -> Q_s), which the 32-slot prefetch
-// shortens.
+// operations.  In practice the FP32-unit route's walk of a row is a chain
+// of dependent gathers (slot -> sender -> Q_s), which the 32-slot
+// prefetch shortens; the tile route gathers a tile's 64 Q_s rows (16 KB)
+// at once, a tile ahead, and spreads its 4,096 sigmoids over the CTA.
 #include "common.cuh"  // THREADS, FULL, the bf16 tiles and node sums
 
 #include <math.h>
@@ -116,7 +137,8 @@ __host__ __device__ inline int rp_width(int h1, bool bf16) {
 }
 
 // the sigmoid with IEEE division and expf (common.cuh's `sigm` takes the
-// fast ones; these kernels keep their own bits)
+// fast ones, as the forward's tile pass does; the row passes keep their
+// own bits)
 __device__ __forceinline__ float sigm_ieee(float u) {
   return 1.0f / (1.0f + expf(-u));
 }
@@ -154,6 +176,27 @@ idn_proj(const float* __restrict__ h, const float* __restrict__ w1r,
   }
   P[f] = p;
   Q[f] = q;
+}
+
+// The tile route forward's projection at RF's Dh = 1 (a rank-1 product):
+// P and Q as rows of W (zeros past h1), one thread an entry, idn_proj's
+// products; CTA t < n_tiles(N) also writes node tile t's CSR by-products
+// (`csr_rows`)
+template <int W, bool BF>
+__global__ void __launch_bounds__(THREADS)
+idn_proj_rows(const float* __restrict__ h, const float* __restrict__ w1r,
+              const float* __restrict__ w1s, float* __restrict__ P,
+              float* __restrict__ Q, int n_nodes, int h1,
+              const int* __restrict__ indptr, int* __restrict__ rowof,
+              int* __restrict__ ctarow, int n_ctas) {
+  if ((int)blockIdx.x < n_tiles(n_nodes))
+    csr_rows(indptr, rowof, ctarow, n_nodes, n_ctas, blockIdx.x);
+  const int f = blockIdx.x * THREADS + threadIdx.x;
+  if (f >= n_nodes * W) return;
+  const int n = f / W, c = f % W;
+  const float hv = rnd<BF>(h[n]);
+  P[f] = c < h1 ? fmaf(hv, rnd<BF>(w1r[c]), 0.0f) : 0.0f;
+  Q[f] = c < h1 ? fmaf(hv, rnd<BF>(w1s[c]), 0.0f) : 0.0f;
 }
 
 // One live edge's forward terms, recomputed identically by the backward.
@@ -275,6 +318,372 @@ idn_fwd_rows(const float* __restrict__ x, const int* __restrict__ snd,
     }
     if (lane < 3) dx[3 * r + lane] = d[lane] * inv;
   }
+}
+
+// ------------------------------------------------ forward, tile route
+// idn_fwd_tiles<W, BF>: the forward's edge pass at Dh and H1 up to 64
+// (both zero-padded to W), n_ctas CTAs of FWD_THREADS, FWD_CTAS_PER_SM an
+// SM by default.  The CTA's live slots, in slot order, make tiles of 64
+// (the last one shorter).  Eight compute warps and a scan warp (warp 8),
+// one barrier a tile.  While the compute warps run tile t, the scan warp
+// scans the next slots into a ring of entries (row, sender, mask; a block
+// of 256 slots read a block ahead into registers), cuts tile t + 2 and
+// finds its segments (a row's first live slot in the tile) and each
+// edge's row's first entry, and adds tile t - 1's row sums.  A compute
+// thread first starts its quarter of tile t + 1's gathers into the other
+// stage by cp.async (a quarter of its entry's Q_s row, and of the P_r row
+// at its row's first entry; a coordinate of x_s and x_r), then, as
+// thread (e, k) -- edge e = tid / T, k = tid % T, T = FWD_TPE threads an
+// edge -- forms edge e's pre1, SiLU and dot partials of the butterfly's
+// lanes v = k + T i (columns v and v + 32) and adds them as the warp
+// butterfly does (the levels xor 16 down to T in registers, the rest by
+// shuffles); thread k = 0 stores the edge's five row-sum summands.  The
+// scan warp's lane s adds segment s's summands in slot order (the row's
+// first live edge from zero, or from the sums carried from the tile
+// before) and finishes the row unless it is the tile's last.  (A warp
+// that issued all of a tile's gathers beside the compute warps got too
+// few issue slots to keep up: PERF.md section 6.)
+constexpr int FWD_TPE = THREADS / TR;  // threads an edge: 4
+constexpr int FWD_NV = 32 / FWD_TPE;    // butterfly lanes a thread
+constexpr int FWD_THREADS = THREADS + 32;  // 8 compute warps + the scan
+constexpr int FWD_CTAS_PER_SM = 2;  // (any count gives the same bits)
+// the ring of entries: tiles t - 1 to t + 2 and the slots scanned ahead
+// (fewer than 4 x 64 + 64 + 256) are never overwritten
+constexpr int RING = 1024;
+// a tile's record: ring start | size | segment-start ballots (entries
+// 0-31, 32-63); four tiles (t - 1 to t + 2) at once
+enum { TI_H = 0, TI_N, TI_M0, TI_M1, TI_W };
+// an edge's row-sum summands: msg em | em | rel_used gate em (3)
+enum { T_A = 0, T_DG, T_D0, T_N = T_D0 + 3 };
+// a stage row's stride in floats: rows 4 banks apart, so that the 32
+// threads of a warp (8 edges x 4 columns) read 32 banks; a multiple of 4
+// (16-byte cp.async)
+template <int W>
+constexpr int FWD_LD = W + FWD_TPE;
+template <int W>
+constexpr int FWD_STAGE = 2 * TR * FWD_LD<W>;  // P rows | Q rows
+// two stages and their coordinates ([x_r | x_s][64][3]), w1d | b1 | w2,
+// two tiles' summands, the ring (row | sender | mask), four tiles' first
+// entries and records, the segments, the carried row
+template <int W>
+constexpr int FWD_SMEM_FLOATS = 2 * FWD_STAGE<W> + 12 * TR + 3 * W +
+                                2 * T_N * TR + 3 * RING + 4 * TR +
+                                4 * TI_W + (TR + 1) + 8 + 1;
+
+// the in-thread levels of warp_sum's butterfly: s[i] += s[i + O] for
+// i < O, O = FWD_NV / 2, ..., 1 (s[0] then holds this thread's lane)
+template <int O>
+__device__ __forceinline__ void fold_lanes(float (&s)[FWD_NV]) {
+  if constexpr (O > 0) {
+#pragma unroll
+    for (int i = 0; i < O; ++i) s[i] = s[i] + s[i + O];
+    fold_lanes<O / 2>(s);
+  }
+}
+
+// row r's outputs from its five sums
+__device__ __forceinline__ void fwd_finish(float* __restrict__ mh,
+                                           float* __restrict__ deg,
+                                           float* __restrict__ dx, int r,
+                                           const float (&v)[T_N]) {
+  const float inv = 1.0f / fmaxf(v[T_DG], 1.0f);
+  mh[r] = v[T_A] * inv;
+  deg[r] = v[T_DG];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dx[3 * r + k] = v[T_D0 + k] * inv;
+}
+
+template <int W, bool BF>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_CTAS_PER_SM)
+idn_fwd_tiles(const float* __restrict__ x, const int* __restrict__ snd,
+              const float* __restrict__ em, const int* __restrict__ indptr,
+              const int* __restrict__ rowof, const int* __restrict__ ctarow,
+              const float* __restrict__ P, const float* __restrict__ Q,
+              const float* __restrict__ w1d_g, const float* __restrict__ b1_g,
+              const float* __restrict__ w2_g, const float* __restrict__ b2_g,
+              float* __restrict__ dx, float* __restrict__ mh,
+              float* __restrict__ deg, int h1, int rel_inv1p, float clamp) {
+  constexpr int LD = FWD_LD<W>, NJ = W / 32, M = RING - 1;
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);  // [2][P | Q][64][LD]
+  float* sx = stage + 2 * FWD_STAGE<W>;            // [2][x_r | x_s][64][3]
+  float* sw1d = sx + 12 * TR;
+  float* sb1 = sw1d + W;
+  float* sw2 = sb1 + W;
+  float* term = sw2 + W;  // [2][T_N][64]
+  int* ring_row = reinterpret_cast<int*>(term + 2 * T_N * TR);
+  int* ring_snd = ring_row + RING;
+  float* ring_em = reinterpret_cast<float*>(ring_snd + RING);
+  // pidx[t & 3][e]: the tile entry that holds edge e's P_r row and x_r
+  // (its row's first in the tile); tinfo[t & 3]: tile t's record
+  int* pidx = reinterpret_cast<int*>(ring_em + RING);
+  int* tinfo = pidx + 4 * TR;
+  int* seg = tinfo + 4 * TI_W;  // the segment starts, seg[ns] = size
+  float* carry = reinterpret_cast<float*>(seg + TR + 1);  // mh | deg | dx
+  int* crow = reinterpret_cast<int*>(carry + 8);  // the carried row (-1)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int c = tid; c < W; c += FWD_THREADS) {  // zeros past h1
+    const bool in = c < h1;
+    sw1d[c] = in ? rnd<BF>(w1d_g[c]) : 0.0f;
+    sb1[c] = in ? rnd<BF>(b1_g[c]) : 0.0f;
+    sw2[c] = in ? rnd<BF>(w2_g[c]) : 0.0f;
+  }
+  if (tid == 0) *crow = -1;
+  const int row_lo = ctarow[blockIdx.x], row_hi = ctarow[blockIdx.x + 1];
+  const int beg = indptr[row_lo], end = indptr[row_hi];
+
+  // ---- the scan warp's state and steps
+  int head = 0, tail = 0;  // ring positions: the next tile's, the next free
+  int base = beg;          // the first slot not scanned
+  float ae[8];             // the block of slots read ahead: mask, row,
+  int ar[8], as[8];        // sender of slot base + 32 j + lane
+  auto read_ahead = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int slot = base + 32 * j + lane;
+      ae[j] = 0.0f;
+      if (slot < end) {
+        ae[j] = em[slot];
+        ar[j] = rowof[slot];
+        as[j] = snd[slot];
+      }
+    }
+  };
+  // the live slots of the block read ahead join the ring in slot order;
+  // the next block's reads start
+  auto scan = [&]() {
+    float e[8];
+    int r[8], s[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      e[j] = ae[j];
+      r[j] = ar[j];
+      s[j] = as[j];
+    }
+    base += THREADS;
+    read_ahead();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool live = e[j] != 0.0f;
+      const unsigned m = __ballot_sync(FULL, live);
+      if (live) {
+        const int p = (tail + __popc(m & ((1u << lane) - 1u))) & M;
+        ring_row[p] = r[j];
+        ring_snd[p] = s[j];
+        ring_em[p] = e[j];
+      }
+      tail += __popc(m);
+    }
+  };
+  // cut tile t (size 0 when the range is done): its record, and each
+  // edge's row's first entry
+  auto cut = [&](int t) {
+    while (tail - head < TR && base < end) scan();
+    const int h = head, n = min(tail - head, TR);
+    head += n;
+    const int r0 = ring_row[(h + lane) & M];
+    const int r1 = ring_row[(h + lane + 32) & M];
+    const int q0 = __shfl_up_sync(FULL, r0, 1);
+    const int q1 = __shfl_up_sync(FULL, r1, 1);
+    const int last0 = __shfl_sync(FULL, r0, 31);
+    const unsigned m0 =
+        __ballot_sync(FULL, lane < n && (lane == 0 || r0 != q0));
+    const unsigned m1 =
+        __ballot_sync(FULL, lane + 32 < n && r1 != (lane ? q1 : last0));
+    const unsigned upto = (2u << lane) - 1u;  // bits <= lane
+    int* pi = pidx + (t & 3) * TR;
+    pi[lane] = 31 - __clz(m0 & upto);
+    pi[lane + 32] = m1 & upto ? 63 - __clz(m1 & upto) : 31 - __clz(m0);
+    if (lane == 0) {
+      int* ti = tinfo + (t & 3) * TI_W;
+      ti[TI_H] = h;
+      ti[TI_N] = n;
+      ti[TI_M0] = (int)m0;
+      ti[TI_M1] = (int)m1;
+    }
+  };
+  // tile t's row sums: lane k adds segment k's summands in slot order
+  auto row_sums = [&](int t) {
+    const int* ti = tinfo + (t & 3) * TI_W;
+    const int h = ti[TI_H], n = ti[TI_N];
+    const unsigned m0 = (unsigned)ti[TI_M0], m1 = (unsigned)ti[TI_M1];
+    const float* tv = term + (t & 1) * T_N * TR;
+    const int ns = __popc(m0) + __popc(m1);
+    const unsigned below = (1u << lane) - 1u;
+    if ((m0 >> lane) & 1u) seg[__popc(m0 & below)] = lane;
+    if ((m1 >> lane) & 1u) seg[__popc(m0) + __popc(m1 & below)] = lane + 32;
+    if (lane == 0) seg[ns] = n;
+    const int cr = *crow;
+    float cin[T_N];
+#pragma unroll
+    for (int c = 0; c < T_N; ++c) cin[c] = carry[c];
+    __syncwarp();  // seg written; the carry read before it is replaced
+    for (int k = lane; k < ns; k += 32) {
+      const int e0 = seg[k], e1 = seg[k + 1];
+      const int r = ring_row[(h + e0) & M];
+      float v[T_N] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      // rows between the previous segment's and this one's: no live slot
+      int gap = k > 0 ? ring_row[(h + seg[k - 1]) & M] + 1
+                      : (cr >= 0 ? cr + 1 : row_lo);
+      if (k == 0 && cr >= 0) {
+        if (cr == r) {  // the carried row goes on
+#pragma unroll
+          for (int c = 0; c < T_N; ++c) v[c] = cin[c];
+        } else {
+          fwd_finish(mh, deg, dx, cr, cin);
+        }
+      }
+      const float zero[T_N] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (; gap < r; ++gap) fwd_finish(mh, deg, dx, gap, zero);
+#pragma unroll 4
+      for (int e = e0; e < e1; ++e)  // (the loads of 4 edges in flight)
+#pragma unroll
+        for (int c = 0; c < T_N; ++c) v[c] += tv[c * TR + e];
+      if (k + 1 < ns) {
+        fwd_finish(mh, deg, dx, r, v);
+      } else {  // the tile's last row may go on in the next tile
+#pragma unroll
+        for (int c = 0; c < T_N; ++c) carry[c] = v[c];
+        *crow = r;
+      }
+    }
+    __syncwarp();
+  };
+
+  // ---- the compute warps' steps
+  // start this thread's quarter of tile t's gathers into stage t & 1 (one
+  // cp.async group): entry i = tid / 4, part = tid % 4
+  auto gather = [&](int t) {
+    const int* ti = tinfo + (t & 3) * TI_W;
+    const int i = tid >> 2, part = tid & 3;
+    if (i < ti[TI_N]) {
+      float* sp = stage + (t & 1) * FWD_STAGE<W>;
+      float* xs = sx + (t & 1) * 6 * TR;
+      const int e = (ti[TI_H] + i) & M;
+      const int r = ring_row[e], s = ring_snd[e];
+      const unsigned m = (unsigned)ti[i < 32 ? TI_M0 : TI_M1];
+      const bool first = ((m >> (i & 31)) & 1u) != 0;
+      constexpr int GQ = W / 16;  // 16-byte granules of a quarter row
+#pragma unroll
+      for (int g = 0; g < GQ; ++g) {
+        const int q = 4 * (part * GQ + g);
+        cp_async16(sp + (TR + i) * LD + q, Q + (size_t)s * W + q);
+        if (first) cp_async16(sp + i * LD + q, P + (size_t)r * W + q);
+      }
+      if (part < 3) {
+        cp_async4(xs + 3 * TR + 3 * i + part, x + 3 * s + part);
+        if (first) cp_async4(xs + 3 * i + part, x + 3 * r + part);
+      }
+    }
+    async_commit();
+  };
+  const float b2 = rnd<BF>(b2_g[0]);
+  // tile t's edges
+  auto compute = [&](int t, int n) {
+    const int b = t & 1, h = tinfo[(t & 3) * TI_W + TI_H];
+    const float* sp = stage + b * FWD_STAGE<W>;
+    const float* xs = sx + b * 6 * TR;
+    float* tv = term + b * T_N * TR;
+    const int e = tid / FWD_TPE, k = tid % FWD_TPE;
+    const bool live = e < n;
+    const int pe = live ? pidx[(t & 3) * TR + e] : 0;
+    const float* prow = sp + pe * LD;
+    const float* qrow = sp + (TR + e) * LD;
+    float rel[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      rel[c] = live ? rnd<BF>(xs[3 * pe + c]) - rnd<BF>(xs[3 * TR + 3 * e + c])
+                    : 0.0f;
+    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rel[0], rel[0]),
+                                         __fmul_rn(rel[1], rel[1])),
+                               __fmul_rn(rel[2], rel[2]));
+    const float d2r = rnd<BF>(d2);  // an operand of d2 . w1d
+    float s[FWD_NV];
+#pragma unroll
+    for (int i = 0; i < FWD_NV; ++i) {
+      float part = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = k + FWD_TPE * i + 32 * j;
+        const float pv = live ? prow[c] : 0.0f;
+        const float qv = live ? qrow[c] : 0.0f;
+        const float u = ((pv + qv) + d2r * sw1d[c]) + sb1[c];
+        // the fast sigmoid: the pass took 17.8 us on an H100 against 21.0
+        // with sigm_ieee (PERF.md section 6)
+        const float sg = sigm(u);
+        const float tt = u * sg;
+        part = fmaf(rnd<BF>(tt), sw2[c], part);
+      }
+      s[i] = part;
+    }
+    // the butterfly: lane v + lane v ^ o; o = 16 .. T here (s[i] and
+    // s[i + o / T]), then T / 2 .. 1 by shuffles
+    fold_lanes<FWD_NV / 2>(s);
+#pragma unroll
+    for (int o = FWD_TPE / 2; o > 0; o >>= 1)
+      s[0] += __shfl_xor_sync(FULL, s[0], o);
+    const float msg = s[0] + b2;
+    if (live && k == 0) {
+      const float m = ring_em[(h + e) & M];
+      const float g = clip(msg, clamp);
+      const float kd = rel_inv1p ? sqrtf(d2 + 1e-12f) + 1.0f : 1.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float q = rel_inv1p ? rel[c] / kd : rel[c];
+        // bf16: a summand
+        tv[(T_D0 + c) * TR + e] = rnd<BF>(__fmul_rn(__fmul_rn(q, g), m));
+      }
+      tv[T_A * TR + e] = rnd<BF>(__fmul_rn(msg, m));
+      tv[T_DG * TR + e] = rnd<BF>(m);
+    }
+  };
+
+  // ---- the pipeline: one barrier a tile
+  if (warp == 8) {
+    read_ahead();
+    cut(0);
+    cut(1);
+  }
+  __syncthreads();
+  if (warp < 8) {
+    gather(0);
+    async_wait_all();
+  }
+  __syncthreads();
+  for (int t = 0;; ++t) {
+    const int n = tinfo[(t & 3) * TI_W + TI_N];  // 0: the range is done
+    if (warp < 8) {
+      if (n > 0) {
+        gather(t + 1);  // (into the stage of tile t - 1)
+        compute(t, n);
+      }
+      async_wait_all();
+    } else {
+      if (n > 0) cut(t + 2);
+      if (t > 0) row_sums(t - 1);
+    }
+    __syncthreads();
+    if (n == 0) break;
+  }
+
+  // the last row with live slots, then the rows after it: zeros
+  const int cr = *crow;
+  int tail_row = row_lo;
+  if (cr >= 0) {
+    if (tid == 0) {
+      float v[T_N];
+#pragma unroll
+      for (int c = 0; c < T_N; ++c) v[c] = carry[c];
+      fwd_finish(mh, deg, dx, cr, v);
+    }
+    tail_row = cr + 1;
+  }
+  for (int r = tail_row + tid; r < row_hi; r += FWD_THREADS) {
+    mh[r] = 0.0f;
+    deg[r] = 0.0f;
+  }
+  for (int f = 3 * tail_row + tid; f < 3 * row_hi; f += FWD_THREADS)
+    dx[f] = 0.0f;
 }
 
 // Backward, per receiver row: each live edge's g_pre1 and g_rel into
@@ -879,11 +1288,13 @@ int with_cols(int h1, int bf16, Fn&& fn) {
 
 struct Scratch {
   float *P, *Q, *G, *GXR, *RP, *GPRE1, *GREL, *PN, *GHR, *GR, *GS;
+  int *rowof, *ctarow;  // the forward's tile route
   size_t total;
 };
 
+// n_ctas: the forward tile route's CTAs (its ctarow)
 Scratch carve(float* base, int n, int e, int dh, int h1, bool backward,
-              bool bf16) {
+              bool bf16, int n_ctas) {
   Scratch s{};
   size_t off = 0;
   auto take = [&](size_t count) {
@@ -891,8 +1302,14 @@ Scratch carve(float* base, int n, int e, int dh, int h1, bool backward,
     off += round4(count);
     return p;
   };
-  s.P = take((size_t)n * h1);
-  s.Q = take((size_t)n * h1);
+  // the forward's tile route: P and Q as rows of its width W
+  const int fw = backward ? 0 : tile_width(dh, h1);
+  s.P = take((size_t)n * (fw ? fw : h1));
+  s.Q = take((size_t)n * (fw ? fw : h1));
+  if (fw) {
+    s.rowof = reinterpret_cast<int*>(take((size_t)e));
+    s.ctarow = reinterpret_cast<int*>(take((size_t)n_ctas + 1));
+  }
   if (backward) {
     const int tw = tile_width(dh, h1);
     const int tn = tw ? TR : node_plan(dh, h1).tn;
@@ -927,13 +1344,18 @@ int check_shape(int dh, int h1, int n_ctas) {
 // (64-node tiles of tensor-core products), else idn_proj, which also
 // takes RF's Dh = 1: its rank-1 product h_n W1r[0, c] elementwise ran in
 // 2.9 us at the serve shape against 9.1 for the tile products of a
-// zero-padded h (PERF.md section 6)
+// zero-padded h (PERF.md section 6).  fwd: the forward's tile route, rows
+// of its width W and the CSR by-products for n_ctas edge CTAs (RF's
+// Dh = 1: idn_proj_rows, the same products); else rows of h1.
 template <int NJ, bool EX, bool BF>
 int launch_proj(const float* h, const float* w1r, const float* w1s,
-                const Scratch& s, int n_nodes, int dh, int h1,
-                cudaStream_t stream) {
+                const int* indptr, const Scratch& s, int n_nodes, int dh,
+                int h1, bool fwd, int n_ctas, cudaStream_t stream) {
   const int tw = tile_width(dh, h1);
-  if (tw == 0 || dh == 1) {
+  const int ld = fwd ? tw : h1;
+  int* rowof = fwd ? s.rowof : nullptr;
+  int* ctarow = fwd ? s.ctarow : nullptr;
+  if (!fwd && (tw == 0 || dh == 1)) {
     const long long nf = (long long)n_nodes * h1;
     idn_proj<NJ, EX, BF><<<(unsigned)((nf + THREADS - 1) / THREADS), THREADS,
                            0, stream>>>(h, w1r, w1s, s.P, s.Q, n_nodes, dh,
@@ -942,6 +1364,14 @@ int launch_proj(const float* h, const float* w1r, const float* w1s,
   }
   return with_width(tw, BF, [&](auto w, auto) {
     constexpr int W = decltype(w)::value;
+    if (dh == 1) {  // the forward's tile route at RF's Dh = 1
+      idn_proj_rows<W, BF><<<max(n_tiles(n_nodes), (n_nodes * W + THREADS - 1) /
+                                                       THREADS),
+                             THREADS, 0, stream>>>(h, w1r, w1s, s.P, s.Q,
+                                                   n_nodes, h1, indptr, rowof,
+                                                   ctarow, n_ctas);
+      return (int)cudaGetLastError();
+    }
     const size_t smem = PAD_PROJ_SMEM_FLOATS<W, BF> * sizeof(float);
     const cudaError_t e = cudaFuncSetAttribute(
         padded_proj<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -949,9 +1379,28 @@ int launch_proj(const float* h, const float* w1r, const float* w1s,
     if (e != cudaSuccess) return (int)e;
     const int vec = aligned16(h) && aligned16(w1r) && aligned16(w1s);
     padded_proj<W, BF><<<n_tiles(n_nodes), THREADS, smem, stream>>>(
-        h, w1r, w1s, s.P, s.Q, n_nodes, dh, h1, vec);
+        h, w1r, w1s, s.P, s.Q, n_nodes, dh, h1, ld, vec, indptr, rowof,
+        ctarow, n_ctas);
     return (int)cudaGetLastError();
   });
+}
+
+// The forward's edge pass on the tile route, n_ctas CTAs
+template <int W, bool BF>
+int launch_fwd_tiles(const float* x, const int* snd, const float* em,
+                     const int* indptr, const float* w1d, const float* b1,
+                     const float* w2, const float* b2, float* dx, float* mh,
+                     float* deg, const Scratch& s, int h1, int rel_inv1p,
+                     float clamp, int n_ctas, cudaStream_t stream) {
+  const size_t smem = FWD_SMEM_FLOATS<W> * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      idn_fwd_tiles<W, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  idn_fwd_tiles<W, BF><<<n_ctas, FWD_THREADS, smem, stream>>>(
+      x, snd, em, indptr, s.rowof, s.ctarow, s.P, s.Q, w1d, b1, w2, b2, dx,
+      mh, deg, h1, rel_inv1p, clamp);
+  return (int)cudaGetLastError();
 }
 
 // The tile route's passes after idn_bwd_rows: (bf16) the dh pass on n_ctas
@@ -995,19 +1444,46 @@ int launch_tile_passes(const float* h, const float* em,
 
 }  // namespace
 
+// n_ctas: the CTAs the forward is given (its tile route's ctarow)
 extern "C" long long idn_scratch_floats(int n_nodes, int n_slots, int dh,
-                                        int h1, int backward, int bf16) {
+                                        int h1, int backward, int bf16,
+                                        int n_ctas) {
   return (long long)carve(nullptr, n_nodes, n_slots, dh, h1, backward != 0,
-                          bf16 != 0)
+                          bf16 != 0, n_ctas)
       .total;
 }
 
 // the widest phi1 hidden width the kernels take
 extern "C" int idn_max_width() { return 32 * MAX_NJ; }
 
-// n_ctas: CTAs of the row passes and the bf16 dh pass (0: one warp a row,
-// DH_CTAS_PER_SM dh CTAs an SM); any count gives the same bits.  bf16 !=
-// 0: the bf16 mode
+// the CTAs an SM the forward's tile route is built for at (dh, h1), 0 off
+// it (the wrapper launches that many an SM)
+extern "C" int idn_fwd_blocks_per_sm(int dh, int h1) {
+  return tile_width(dh, h1) ? FWD_CTAS_PER_SM : 0;
+}
+
+// the CTAs of the forward's tile pass an SM holds at once, as the card
+// reports it for its registers and shared memory (-1 on an error)
+extern "C" int idn_fwd_occupancy(int width, int bf16) {
+  return with_width(width, bf16, [](auto w, auto bf) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool B = decltype(bf)::value;
+    const int bytes = FWD_SMEM_FLOATS<W> * sizeof(float);
+    int n = -1;
+    if (cudaFuncSetAttribute(idn_fwd_tiles<W, B>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, idn_fwd_tiles<W, B>, FWD_THREADS, bytes) != cudaSuccess)
+      return -1;
+    return n;
+  });
+}
+
+// n_ctas: CTAs of the forward's tile pass (Dh and H1 up to 64: at least
+// 1, each owning whole receiver rows), else of the row passes and the
+// bf16 dh pass (0: one warp a row, DH_CTAS_PER_SM dh CTAs an SM); any
+// count gives the same bits.  bf16 != 0: the bf16 mode
 extern "C" int edge_identity_forward(
     const float* x, const float* h, const int* snd, const float* em,
     const int* indptr, const float* w1r, const float* w1s, const float* w1d,
@@ -1016,15 +1492,24 @@ extern "C" int edge_identity_forward(
     int rel_inv1p, float clamp, int n_ctas, int bf16, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (int err = check_shape(dh, h1, n_ctas)) return err;
+  const int tw = tile_width(dh, h1);
+  if (tw && n_ctas == 0) return (int)cudaErrorInvalidValue;
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, false, bf16 != 0);
+  Scratch s =
+      carve(scratch, n_nodes, n_slots, dh, h1, false, bf16 != 0, n_ctas);
   return with_cols(h1, bf16, [&](auto nj, auto exact, auto bf) {
     constexpr int NJ = decltype(nj)::value;
     constexpr bool EX = decltype(exact)::value;
     constexpr bool BF = decltype(bf)::value;
-    if (int e = launch_proj<NJ, EX, BF>(h, w1r, w1s, s, n_nodes, dh, h1,
-                                        stream))
+    if (int e = launch_proj<NJ, EX, BF>(h, w1r, w1s, indptr, s, n_nodes, dh,
+                                        h1, tw != 0, n_ctas, stream))
       return e;
+    if (tw)
+      return with_width(tw, BF, [&](auto w, auto) {
+        return launch_fwd_tiles<decltype(w)::value, BF>(
+            x, snd, em, indptr, w1d, b1, w2, b2, dx, mh, deg, s, h1,
+            rel_inv1p, clamp, n_ctas, stream);
+      });
     idn_fwd_rows<NJ, EX, BF><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
                                stream>>>(x, snd, em, indptr, s.P, s.Q, w1d,
                                          b1, w2, b2, dx, mh, deg, n_nodes, h1,
@@ -1046,7 +1531,7 @@ extern "C" int edge_identity_backward(
   if (int err = check_shape(dh, h1, n_ctas)) return err;
   const NodePlan plan = node_plan(dh, h1);
   if (n_nodes <= 0) return (int)cudaGetLastError();
-  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, true, bf16 != 0);
+  Scratch s = carve(scratch, n_nodes, n_slots, dh, h1, true, bf16 != 0, 0);
   const int tw = tile_width(dh, h1);  // the tile route, <= 64
   const int nt = tw ? n_tiles(n_nodes) : (n_nodes + plan.tn - 1) / plan.tn;
   int rc = with_cols(h1, bf16, [&](auto nj, auto exact, auto bf) {
@@ -1057,8 +1542,8 @@ extern "C" int edge_identity_backward(
         idn_bwd_nodes<NJ, EX, BF>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (e != cudaSuccess) return (int)e;
-    if (int err = launch_proj<NJ, EX, BF>(h, w1r, w1s, s, n_nodes, dh, h1,
-                                          stream))
+    if (int err = launch_proj<NJ, EX, BF>(h, w1r, w1s, indptr, s, n_nodes,
+                                          dh, h1, false, 0, stream))
       return err;
     idn_bwd_rows<NJ, EX, BF><<<row_blocks(n_nodes, n_ctas), THREADS, 0,
                                stream>>>(

@@ -43,7 +43,9 @@ M = 1 for both) is its own pair of CUDA paths, ``csrc/edge_identity.cu``
 :data:`IDENTITY_MAX_H1`: two kernels a forward, four a backward (five in
 bf16 at Dh and H1 up to 64, whose per-edge dh products run as bf16 tile
 products; at Dh and H1 up to 64 the projection and the backward's node
-pass are tensor-core tile products in both precisions), counted apart in
+pass are tensor-core tile products in both precisions, and the forward's
+edge pass runs on 64-edge tiles, edge-parallel; above 64 it walks one
+receiver row a warp), counted apart in
 ``identity_launches`` / ``identity_bwd_launches``.  A wider
 identity layer (the reference admits them for very small graphs) takes
 the panel path, counted as the other gates' calls are.
@@ -76,6 +78,10 @@ bwd_launches = 0
 #: :func:`reset_launches`
 identity_launches = 0
 identity_bwd_launches = 0
+#: identity-gate forward calls per route since the last
+#: :func:`reset_launches`: "tiles" (Dh and H1 up to 64, the edge-parallel
+#: tile pass) or "rows" (a warp a receiver row)
+identity_fwd_routes: Counter = Counter()
 
 #: the widths the tile kernels are compiled for, narrowest first
 COMPILED_WIDTHS = (32, 64)
@@ -98,9 +104,11 @@ EDGE_FWD_CTAS = None
 #: slot range, so the weight gradients' summation order depends on this
 #: number and the inputs only, never on the card
 EDGE_BWD_CTAS = 256
-#: CTAs of the identity kernels' row passes; None: one warp a receiver
-#: row.  Each row is summed by one warp, so the outputs do not depend on
-#: this number
+#: CTAs of the identity kernels' passes: the forward's tile pass (Dh and
+#: H1 up to 64; None: ``idn_fwd_blocks_per_sm`` an SM), which owns whole
+#: receiver rows as the edge forward's CTAs do, and the row passes (None:
+#: one warp a receiver row).  Each row is summed in slot order by one
+#: thread or warp, so the outputs do not depend on this number
 IDENTITY_CTAS = None
 
 
@@ -109,6 +117,7 @@ def reset_launches() -> None:
     launches = bwd_launches = identity_launches = identity_bwd_launches = 0
     route_launches.clear()
     precision_launches.clear()
+    identity_fwd_routes.clear()
 
 
 def prec_name(bf16: bool) -> str:
@@ -166,8 +175,11 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
 
 def _bind_identity(lib: ctypes.CDLL) -> None:
     build.common_bind(lib)
-    lib.idn_scratch_floats.argtypes = [ctypes.c_int] * 6
+    lib.idn_scratch_floats.argtypes = [ctypes.c_int] * 7
     lib.idn_scratch_floats.restype = ctypes.c_longlong
+    for fn in (lib.idn_fwd_blocks_per_sm, lib.idn_fwd_occupancy):
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
     lib.edge_identity_forward.argtypes = ([ctypes.c_void_p] * 15
                                           + [ctypes.c_int] * 5
                                           + [ctypes.c_float] + [ctypes.c_int] * 2
@@ -288,16 +300,20 @@ def _identity_forward(x, h, snd, em, indptr, ws, dh, h1, rel_mode, clamp,
     n, e = x.shape[0], snd.shape[0]
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     dx, mh, deg = empty(n, 3), empty(n, 1), empty(n, 1)
-    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 0, int(bf16))))
+    per_sm = lib.idn_fwd_blocks_per_sm(dh, h1)  # 0: off the tile route
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_ctas = IDENTITY_CTAS or per_sm * sms
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 0, int(bf16),
+                                               n_ctas)))
     # the projection reads h and W1r / W1s with 16-byte loads where aligned
     ins = (x, align16(h), snd, em, indptr, *map(align16, ws[:2]), *ws[2:6])
     ptrs = [t.data_ptr() for t in (*ins, dx, mh, deg, scratch)]
     err = lib.edge_identity_forward(*ptrs, n, e, dh, h1,
                                     int(rel_mode == "inv1p"), float(clamp),
-                                    IDENTITY_CTAS or 0, int(bf16),
-                                    build.stream_ptr(dev))
+                                    n_ctas, int(bf16), build.stream_ptr(dev))
     build.check(lib, err, "edge_identity_forward")
     identity_launches += 1
+    identity_fwd_routes["tiles" if per_sm else "rows"] += 1
     precision_launches[prec_name(bf16)] += 1
     return dx, mh, deg
 
@@ -316,7 +332,8 @@ def _identity_backward(x, h, snd, em, indptr, sperm, sptr, ws, deg, g_dx,
     gw1d, gb1 = empty(1, h1), empty(1, h1)
     gw2, gb2 = empty(h1, 1), empty(1, 1)
     gates = tuple(torch.zeros_like(w) for w in ws[6:])
-    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 1, int(bf16))))
+    scratch = empty(int(lib.idn_scratch_floats(n, e, dh, h1, 1, int(bf16),
+                                               0)))
     ins = (x, align16(h), snd, em, indptr, sperm, sptr,
            *map(align16, ws[:2]), *ws[2:6], deg, g_dx, g_mh)
     outs = (gx, gh, gw1r, gw1s, gw1d, gb1, gw2, gb2)

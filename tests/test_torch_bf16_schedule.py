@@ -27,6 +27,13 @@ and ``tests/test_torch_bwd_schedule.py`` do for the 3xTF32 route:
   W1r^T), ... W1s^T) stored as torch.bfloat16 and widened by the node
   pass, which sums it per node in slot / sender-permutation order; the
   weight partials per range, added in range order.
+* The identity forward's tile route (``idn_fwd_tiles<W, true>``, Dh and
+  H1 up to 64; SchNet's and RF's forms): the projection as in the
+  backward, #1's CTA rows and 64-edge live tiles, the bf16 rounding points
+  of the FP32-unit route (x, d2 and t1 as operands, the weights where
+  loaded, the row sums' summands), each edge's msg as the warp butterfly
+  adds it (``butterfly_dot``) and each row's sums in slot order, carried
+  across tiles.
 * The identity backward (SchNet's form, Dh = H1; RF's, Dh = 1): the
   projection P = h.W1r, Q = h.W1s as tile products on 64-node tiles; the
   row pass's per-edge terms and per-row sums in slot order; bf16(g_pre1) per
@@ -82,7 +89,10 @@ from repro_torch.kernels.virtual_message import pad_ops
 from test_torch_bf16 import one_torch_thread  # noqa: F401 (a fixture)
 from test_torch_bwd_schedule import (TR, _edge_graph, _silu_grad,
                                      sum_in_order)
-from test_torch_fwd_schedule import _round_to_zero, cta_rows
+from test_torch_fwd_schedule import (_round_to_zero, butterfly_dot,
+                                     cta_rows, identity_edge_terms,
+                                     identity_fwd_schedule,
+                                     identity_projection)
 
 BF_L2 = 1e-3
 BF_KRTOL, BF_KATOL = 2.0 ** -7, 3e-3  # chip_smoke.py's elementwise bound
@@ -668,6 +678,132 @@ def test_bf16_identity_bwd_schedule_ctas_masked_slots_keep_bits():
     assert 0 < keep.sum() < keep.size
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+# ------------------------------------------- #1, identity gate, tile route
+def _plain_dot(t, w2, width):
+    """The plain bf16 version's msg dot: ``_b(t1) @ w2`` as a matmul."""
+    return (t @ w2[:, None])[:, 0]
+
+
+def identity_fwd_bf16_schedule(x, h, snd, em, indptr, w1r, w1s, w1d, b1,
+                               w2, b2, *, rel_mode, clamp, n_ctas,
+                               mm=mm_bf16, dot=butterfly_dot):
+    """``idn_fwd_tiles<W, true>``'s schedule -> ``(dx, mh, deg)``: the f32
+    schedule (``identity_fwd_schedule``) at the compiled width the widths
+    pad to, with h, x and the weights rounded where the kernels read them,
+    d2 and t1 rounded as operands, the summands rounded; the projection's
+    tile products ``mm`` (RF's Dh = 1: the exact rank-1 product of the
+    rounded operands), each msg's dot ``dot``."""
+    width = 32 if max(h.shape[1], w1r.shape[1]) <= 32 else 64
+
+    def proj(h_, wr, ws, w, _):
+        return identity_projection(_b(h_), _b(wr), _b(ws), w,
+                                   mm if h_.shape[1] > 1 else mm_plain)
+
+    def terms(*a, **kw):
+        return identity_edge_terms(*a, **kw, dot=dot, rnd=_b)
+
+    return identity_fwd_schedule(
+        x, h, snd, em, indptr, w1r, w1s, _b(w1d), _b(b1), _b(w2), _b(b2),
+        rel_mode=rel_mode, clamp=clamp, n_ctas=n_ctas, width=width, mm=mm,
+        terms=terms, proj=proj)
+
+
+def _identity_fwd_case(width, form, graph=None):
+    """The edge cases' hub graph (or ``graph``) with identity-gate operands
+    of ``form`` at ``width``, and the plain bf16 version's outputs."""
+    x, _, sp, rp, em, indptr, _, _, ws, _, _ = _case(width)
+    if graph is not None:
+        x, sp, rp, em, indptr = (torch.from_numpy(a) for a in graph)
+    dh, rel, clamp = IDN_FORMS[form]
+    dh = dh or width
+    rng = np.random.default_rng(width + 8)
+    t = torch.from_numpy
+    h = t(rng.standard_normal((x.shape[0], dh)).astype(np.float32))
+    w = [t(rng.standard_normal((dh, width)).astype(np.float32))
+         / math.sqrt(2 * dh + 1) for _ in range(2)]
+    ws = w + ws[2:4] + [ws[4][:, :1], ws[5][:, :1]]
+    kw = dict(rel_mode=rel, clamp=clamp)
+    zeros = [torch.zeros(1, 1)] * 3
+    want = edge_pathway_ref_bf16(x, h, sp, rp, em, *ws, *zeros,
+                                 gate_mode="identity", **kw)
+    return (x, h, sp, em, indptr, *ws), kw, want
+
+
+# the per-edge dot and the projection: the plain version's (1e-6), the
+# kernel's butterfly with the plain projection (one bf16 summand can tip
+# where msg moves by an f32 rounding: BF_TIP_L2), and the kernel's with
+# the tensor core's projection (BF_L2)
+BF_TIP_L2 = 1e-4
+IDN_FWD_PRODUCTS = {"plain": (mm_plain, _plain_dot, 1e-6),
+                    "butterfly": (mm_plain, butterfly_dot, BF_TIP_L2),
+                    "tensor-core": (mm_bf16, butterfly_dot, BF_L2)}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("products", sorted(IDN_FWD_PRODUCTS))
+@pytest.mark.parametrize("form", sorted(IDN_FORMS))
+@pytest.mark.parametrize("width", WIDTHS)
+def test_bf16_identity_fwd_schedule_matches_plain_bf16(width, form,
+                                                       products):
+    """The identity forward's bf16 tile route at widths 16 / 32 / 64 in
+    SchNet's and RF's forms (RF's clamp binds): within each variant's
+    tolerance of the plain bf16 forward, under 12 CTAs."""
+    mm, dot, tol = IDN_FWD_PRODUCTS[products]
+    args, kw, want = _identity_fwd_case(width, form)
+    got = identity_fwd_bf16_schedule(*args, **kw, n_ctas=12, mm=mm, dot=dot)
+    _assert_close(got, want, f"identity fwd {form} at {width}", tol)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_bf16_identity_fwd_schedule_ctas_masked_slots_keep_bits():
+    """The bf16 tile route (RF's form, a clamp that binds): bitwise equal
+    under 1, 5 and 300 CTAs, and with the same live edges in a Verlet list
+    at r + skin (the candidates outside r masked) and in a list of exactly
+    the live edges."""
+    rng = np.random.default_rng(6)
+    n, r = 120, 0.22
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    snd, rcv = sort_edges_by_receiver(*radius_graph(x, r + 0.1))
+    d = x[snd] - x[rcv]
+    keep = (d * d).sum(-1) <= np.float32(r) ** 2
+    outs = []
+    for s, rc, mk in ((snd, rcv, keep), (snd[keep], rcv[keep], keep[keep])):
+        sp, rp, em = pad_edges(s, rc, s.size + 50, x)
+        em[:s.size] = mk
+        graph = (x, sp, rp, em, csr_indptr(rp, s.size, n))
+        args, kw, _ = _identity_fwd_case(32, "rf", graph)
+        for k in (1, 5, 300):
+            outs.append(identity_fwd_bf16_schedule(*args, **kw, n_ctas=k))
+    assert 0 < keep.sum() < keep.size
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_bf16_identity_fwd_schedule_keeps_nan():
+    """A NaN row of h (SchNet's form at 32; bf16 rounding keeps a NaN):
+    NaN exactly where the plain bf16 version has it, the rest within the
+    tensor-core variant's tolerance."""
+    args, kw, _ = _identity_fwd_case(32, "schnet")
+    h = args[1].clone()
+    h[5] = float("nan")
+    args = (args[0], h, *args[2:])
+    got = identity_fwd_bf16_schedule(*args, **kw, n_ctas=12)
+    x, _, sp, em, indptr = args[:5]
+    rp = torch.searchsorted(indptr.long(), torch.arange(sp.shape[0]),
+                            right=True) - 1
+    want = edge_pathway_ref_bf16(x, h, sp, rp.clamp(max=x.shape[0] - 1), em,
+                                 *args[5:], *[torch.zeros(1, 1)] * 3,
+                                 gate_mode="identity", **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        assert _rel_l2(g[ok], w[ok]) <= BF_L2
+    assert bool(torch.isnan(got[1]).any()) and not bool(
+        torch.isnan(got[1]).all())
 
 
 # ------------------------------------------------------------------- #3

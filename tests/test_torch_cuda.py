@@ -1398,8 +1398,9 @@ def test_identity_edge_kernels_match_plain(dh, rel, clamp):
 @pytest.mark.parametrize("dh", [1, 64])
 def test_identity_edge_kernels_cta_count_does_not_change_a_bit(
         monkeypatch, dh, n_ctas):
-    """Each receiver row is summed by one warp and every gradient in an
-    order fixed by the inputs: any CTA count gives the same bits."""
+    """Each receiver row is summed in slot order by one thread (the
+    forward's tile pass) or one warp (the row passes) and every gradient in
+    an order fixed by the inputs: any CTA count gives the same bits."""
     dev = torch.device("cuda")
     args, sender, deg, g_dx, g_mh, kw = _identity_bwd(dev, dh, "inv1p", "binds")
     run = lambda: (edge_message.edge_pathway_fused(*args, **kw),
@@ -2135,6 +2136,123 @@ def test_identity_f32_tile_route_keeps_nan(width):
             *args, **kw))
         gk = bwd(args)
     _assert_same_nans(gk, bplain())
+
+
+# ---------------- the identity forward's tile pass (Dh and H1 up to 64)
+# idn_fwd_tiles<W, BF>: the CTAs own whole receiver rows, their live slots
+# packed into 64-edge tiles; at every width padded to the compiled 32 and
+# 64, in SchNet's form (Dh = H1) and RF's (Dh = 1), in f32 and bf16
+IDN_FWD_WIDTHS = [(16, 16), (24, 24), (32, 32), (48, 48), (64, 64),
+                  (24, 40)]
+
+
+def _idn_fwd_case(dev, form, dh, h1):
+    """(args, kw, n_edges): the 300-node test graph with identity-gate
+    weights in SchNet's form (Dh, H1, rel raw) or RF's (Dh = 1, a zero
+    feature column, inv1p)."""
+    args, _, n_edges = _width_args(dev, dh if form == "schnet" else 1, h1, 1)
+    if form == "rf":
+        args[1] = torch.zeros_like(args[1])
+    args[11:14] = [torch.zeros(1, 1, device=dev)] * 3
+    kw = dict(gate_mode="identity",
+              rel_mode="raw" if form == "schnet" else "inv1p", clamp=100.0)
+    return args, kw, n_edges
+
+
+@needs_cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["schnet", "rf"])
+@pytest.mark.parametrize("dh,h1", IDN_FWD_WIDTHS,
+                         ids=[f"{d}-{h}" for d, h in IDN_FWD_WIDTHS])
+def test_identity_fwd_tiles_match_plain(monkeypatch, dh, h1, form,
+                                        precision):
+    """The identity forward's tile pass against its plain version (f32:
+    ATOL / RTOL elementwise; bf16: BF_L2 per output of the plain bf16
+    version), a bitwise repeat, the same bits under 1 and 7 CTAs as under
+    the default count, one live slot's mask zeroed (a planted fault)
+    outside the tolerance, every call on the tile route."""
+    dev = torch.device("cuda")
+    args, kw, n_edges = _idn_fwd_case(dev, form, dh, h1)
+    kw["precision"] = precision
+    run = lambda a=args: edge_message.edge_pathway_fused(*a, **kw)
+    edge_message.reset_launches()
+    with torch.no_grad():
+        got, again = run(), run()
+        want = edge_message.edge_pathway_plain(*args, **kw)
+        bad = run(_one_slot_masked(args, n_edges))
+        others = []
+        for n_ctas in (1, 7):
+            monkeypatch.setattr(edge_message, "IDENTITY_CTAS", n_ctas)
+            others.append(run())
+    torch.cuda.synchronize()
+    if precision == "f32":
+        _assert_matches(got, again, want)
+        assert _outside_values_tolerance(bad, want)
+    else:
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        assert max(_rel_l2(g, w) for g, w in zip(got, want)) <= BF_L2
+        assert max(_rel_l2(g, w) for g, w in zip(bad, want)) > BF_L2
+    for other in others:
+        assert all(torch.equal(a, b) for a, b in zip(got, other))
+    assert edge_message.identity_fwd_routes == {"tiles": 5}
+
+
+@needs_cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [24, 64])
+def test_identity_fwd_tiles_keep_nan(width, precision):
+    """NaN rows of h (the card's bit patterns; SchNet's form) give NaN in
+    the tile pass's outputs exactly where the plain version has it, and
+    the rest within the tolerance."""
+    dev = torch.device("cuda")
+    args, kw, _ = _idn_fwd_case(dev, "schnet", width, width)
+    kw["precision"] = precision
+    args[1] = _card_nan_rows(args[1], _live_nodes(args, dev))
+    with torch.no_grad():
+        got = edge_message.edge_pathway_fused(*args, **kw)
+        want = edge_message.edge_pathway_plain(*args, **kw)
+    if precision == "f32":
+        _assert_same_nans(got, want)
+        return
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        assert _rel_l2(g[ok], w[ok]) <= BF_L2
+    assert torch.isnan(got[1]).any() and not torch.isnan(got[1]).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("h1", [96, 128, 226])
+def test_identity_fwd_wider_keeps_the_row_pass(h1):
+    """Above 64 (SchNet's form, Dh = H1) the forward keeps idn_fwd_rows,
+    one warp a receiver row, against its plain version."""
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    args, kw, _ = _idn_fwd_case(dev, "schnet", h1, h1)
+    lib = build.load("edge_identity", edge_message._bind_identity)
+    assert lib.idn_fwd_blocks_per_sm(h1, h1) == 0
+    run = lambda: edge_message.edge_pathway_fused(*args, **kw)
+    edge_message.reset_launches()
+    with torch.no_grad():
+        _assert_matches(run(), run(),
+                        edge_message.edge_pathway_plain(*args, **kw))
+    assert edge_message.identity_fwd_routes == {"rows": 2}
+
+
+@needs_cuda
+def test_identity_fwd_tiles_occupancy():
+    """The card holds as many CTAs of the tile pass an SM as the wrapper
+    launches by default (idn_fwd_blocks_per_sm), at both widths and in
+    both modes."""
+    from repro_torch.kernels import build
+
+    lib = build.load("edge_identity", edge_message._bind_identity)
+    for width in (32, 64):
+        per_sm = lib.idn_fwd_blocks_per_sm(width, width)
+        assert per_sm >= 1 and lib.idn_fwd_blocks_per_sm(1, width) == per_sm
+        for bf in (0, 1):
+            assert lib.idn_fwd_occupancy(width, bf) >= per_sm
 
 
 def _virtual_bf16_args(dev, width, n=1000, c=3):

@@ -22,9 +22,15 @@ backward's dh pass ``idn_bwd_dh<W>``, ``virtual_fwd_kernel<W, true>`` and
 and backward (gate 'mlp'), the identity backward (SchNet's form, Dh =
 H1) and the virtual forward and backward (C = 3), at width ``--width``
 (64) on the serving scene's Verlet list (N = 8,192), and prints the
-registers and spills ``ptxas`` reports for the five sources.  ``--tree DIR`` traces the
-sources of another checkout (e.g. a ``git archive`` of an earlier commit
-under the gitignored ``_tree/``), through that tree's own package.  The
+registers and spills ``ptxas`` reports for the five sources.
+``--identity-fwd`` traces the identity forward's tile pass
+(``idn_fwd_tiles``) instead: one call in SchNet's form (Dh = H1 =
+``--width``) on the same list, f32 (bf16 with ``--bf16``).  Trace points
+also follow the kernel's ``__syncwarp()`` and ``async_wait_all()``;
+``--thread N`` records thread N of CTA 0 (0 by default).  ``--tree DIR``
+traces the sources of another checkout (e.g. a ``git archive`` of an
+earlier commit under the gitignored ``_tree/``), through that tree's own
+package.  The
 clocks include the work of any other CTA on the same SM.  Needs CUDA and
 nvcc; imports nothing of JAX.
 """
@@ -48,27 +54,30 @@ BF16_SOURCES = ("edge_message", "edge_message_bwd", "edge_identity",
 SLOTS = 1024
 
 
-def instrument(src: str, kernel: str) -> str:
-    """``src`` with a trace point after each ``__syncthreads()`` of
-    ``kernel`` and a C entry point ``get_trace`` that copies it out."""
+def instrument(src: str, kernel: str, thread: int = 0) -> str:
+    """``src`` with a trace point after each ``__syncthreads()`` (and
+    ``__syncwarp()`` and ``async_wait_all()``) of ``kernel``, recorded by
+    thread ``thread`` of CTA 0, and a C entry point ``get_trace`` that
+    copies it out."""
     lines = src.split("\n")
     start = next(i for i, ln in enumerate(lines) if ln.startswith(kernel + "("))
     stop = next(i for i, ln in enumerate(lines) if i > start
                 and ln.startswith("}"))
+    body = next(i for i in range(start, stop) if lines[i].endswith(") {"))
     out = []
     for i, ln in enumerate(lines):
-        if start < i < stop and "__syncthreads();" in ln:
-            ln = ln.replace("__syncthreads();",
-                            f"__syncthreads(); trace_point({i + 1});")
+        for sync in ("__syncthreads();", "__syncwarp();",
+                     "async_wait_all();"):
+            if start < i < stop and sync in ln:
+                ln = ln.replace(sync, f"{sync} trace_point({i + 1});")
         out.append(ln)
         if ln.startswith('#include "common.cuh"'):
             out.append(f"__device__ long long g_trace[{2 * SLOTS}];")
-        if (start < i < stop
-                and ln.strip().startswith("const Lane L = lane_of();")):
+        if i == body:  # the kernel's first line
             out.append(
                 "  int n_trace = 0;\n"
                 "  auto trace_point = [&](int line) {\n"
-                "    if (threadIdx.x == 0 && blockIdx.x == 0 &&\n"
+                f"    if (threadIdx.x == {thread} && blockIdx.x == 0 &&\n"
                 f"        n_trace < {SLOTS}) {{\n"
                 "      g_trace[2 * n_trace] = line;\n"
                 "      g_trace[2 * n_trace + 1] = clock64();\n"
@@ -141,11 +150,35 @@ def run_bf16(cs, width: int, dev) -> None:
                                      r(c, w), precision="bf16")
 
 
+def run_identity_fwd(cs, width: int, precision: str, dev) -> None:
+    """One identity forward in SchNet's form (Dh = H1 = ``width``) on
+    the serving scene's Verlet list."""
+    import torch
+
+    from repro_torch.kernels import edge_message as em_mod
+
+    scene = cs.make_scenes(1, cs.N_PARTICLES)[0]
+    x, snd, _rcv, em, nm, indptr, n_edges = cs.serving_graph(
+        scene[0], cs.NODE_CAP, cs.R + cs.SKIN, cs.R, dev)
+    gen = torch.Generator(device=dev).manual_seed(width)
+    ws = cs._width_weights(gen, width, width, 1, dev)
+    ws[6:] = [torch.zeros(1, 1, device=dev)] * 3
+    h = torch.randn((x.shape[0], width), generator=gen, device=dev)
+    with torch.no_grad():
+        em_mod.edge_pathway_fused(x, h, snd, em, indptr, *ws,
+                                  gate_mode="identity", rel_mode="raw",
+                                  clamp=100.0, precision=precision)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bf16", action="store_true",
                     help="trace the kernels on bf16 tiles")
     ap.add_argument("--width", type=int, default=64, choices=(32, 64))
+    ap.add_argument("--identity-fwd", action="store_true",
+                    help="trace the identity forward's tile pass")
+    ap.add_argument("--thread", type=int, default=0,
+                    help="the thread of CTA 0 whose clocks are recorded")
     ap.add_argument("--tree", default=str(ROOT),
                     help="the checkout whose sources and package to trace")
     args = ap.parse_args()
@@ -170,20 +203,24 @@ def main() -> int:
              "edge_message_bwd": edge_message._bind_bwd,
              "virtual_message_bwd": virtual_message._bind_bwd,
              "edge_identity": edge_message._bind_identity}
-    names = BF16_SOURCES if args.bf16 else tuple(KERNELS)[:4]
+    kernels = dict(KERNELS)
+    if args.identity_fwd:
+        kernels["edge_identity"] = "idn_fwd_tiles"
+    names = (("edge_identity",) if args.identity_fwd else
+             BF16_SOURCES if args.bf16 else tuple(KERNELS)[:4])
     libs = {}
     for name in names:
         text = (build.CSRC_DIR / f"{name}.cu").read_text()
-        if f"\n{KERNELS[name]}(" not in text:  # an older tree's source
-            print(f"  {name}: no {KERNELS[name]} in this tree", flush=True)
+        if f"\n{kernels[name]}(" not in text:  # an older tree's source
+            print(f"  {name}: no {kernels[name]} in this tree", flush=True)
             continue
         src = out_dir / f"{name}.cu"
-        src.write_text(instrument(text, KERNELS[name]))
+        src.write_text(instrument(text, kernels[name], args.thread))
         so = out_dir / f"{name}.so"
         proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
                                str(build.CSRC_DIR), "-o", str(so), str(src)],
                               check=True, capture_output=True, text=True)
-        if args.bf16:  # ptxas: the kernels' registers, spills, shared memory
+        if args.bf16 or args.identity_fwd:  # ptxas: registers, spills
             for ln in proc.stderr.splitlines():
                 if "Compiling entry" in ln or "registers" in ln or (
                         "spill" in ln and " 0 bytes spill" not in ln):
@@ -192,7 +229,9 @@ def main() -> int:
         binds[name](libs[name])
         build._LIBS[name] = libs[name]  # the wrappers now call the copies
     dev = torch.device("cuda")
-    if args.bf16:
+    if args.identity_fwd:
+        run_identity_fwd(cs, args.width, "bf16" if args.bf16 else "f32", dev)
+    elif args.bf16:
         run_bf16(cs, args.width, dev)
     else:
         pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
