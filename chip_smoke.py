@@ -162,6 +162,25 @@ Phases, each printing one JSON line (any failure exits nonzero):
              model's prediction (RF and SchNet also a train step) and
              each first train step's gradient leaves; the bf16 first step
              bitwise repeatable; ms a step and serve p50 beside f32's.
+   dist    — DistEGNN on ``torch.distributed``: DIST_RANKS ranks,
+             processes of their own (``chip_smoke.py --dist-rank``), all
+             on cuda:0 over gloo (NCCL takes one rank a GPU), FastEGNN
+             defaults with the kernels, through ``build_pipeline(mesh=
+             ...)``.  (a) The scale phase's 113,000-particle scene in 2
+             random shards: the overlapped and serialized forwards bitwise
+             equal, the kernel path within ATOL / RTOL of the plain path
+             on the same shard and through the same sums, the virtual
+             state equal on both ranks, #1 and #3 launched once a layer;
+             each rank's forward ms (CUDA events) and peak memory.  (b)
+             One train step on the train phase's first 4 scenes in 2
+             shards (the other 2 dropped with a warning): a finite loss,
+             equal on both ranks, parameters equal across ranks (a digest
+             of every leaf), the schedules bitwise, gradients within
+             GATOL / GRTOL of the plain path's, #1-#6 launches a rank;
+             ms a step.  (c) A one-rank mesh against the single-device
+             pipeline on the 113K scene: bitwise, with both forwards'
+             ms and peak memory.  Two ranks on one card time contention
+             and collective latency, not scaling.
 
 The FastEGNN tensors are then freed, and the LM slice (gemma3-12b, random
 weights from seed 0) runs:
@@ -357,6 +376,9 @@ ZOO_EDGE_KERNEL = {"mpnn": "edge_pathway_fused", "egnn": "edge_pathway_fused",
 # training: 6 train + 2 validation scenes, batch 4, 2 epochs
 TRAIN_SCENES, VAL_SCENES, TRAIN_BATCH, EPOCHS = 6, 2, 4, 2
 LAM_MMD, MMD_SIGMA, MMD_CHANNELS = 0.03, 1.5, 3
+# dist phase: DistEGNN ranks, all on cuda:0 over gloo (NCCL takes one rank
+# a GPU), and how long they may take
+DIST_RANKS, DIST_TIMEOUT_S = 2, 600
 # first-step update compared where |g| >= SMALL_GRAD x the leaf's largest
 SMALL_GRAD = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
@@ -1216,20 +1238,27 @@ def rebuild_modes(pipe, scenes, dev) -> dict:
     return out
 
 
+def _scale_scene():
+    """The 113,000-particle scene of the scale and dist phases."""
+    import numpy as np
+
+    from repro_torch.data.fluid import simulate_fluid
+
+    xs, _ = simulate_fluid(np.random.default_rng(0), SCALE_PARTICLES, 1)
+    return xs[0].astype(np.float32)
+
+
 def phase_scale(pipe, dev, bpipe=None) -> dict:
     """One 113K-particle step (see the module docstring); with ``bpipe``
     (the same model in bf16) also its step, timed and profiled, with every
     FastEGNN kernel call in bf16 and its frame within BF_MODEL_L2 of the
     f32 step's."""
-    import numpy as np
     import torch
 
     from repro_torch.core.graph import GeometricGraph
-    from repro_torch.data.fluid import simulate_fluid
 
     t0 = time.perf_counter()
-    xs, _ = simulate_fluid(np.random.default_rng(0), SCALE_PARTICLES, 1)
-    x0 = xs[0].astype(np.float32)
+    x0 = _scale_scene()
     x, snd, rcv, em, nm, indptr, n_edges = serving_graph(
         x0, SCALE_CAP, R, R, dev)
     build_s = time.perf_counter() - t0
@@ -2707,6 +2736,284 @@ def phase_hidden32(scenes, tr, va, dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- dist phase
+def _scene_sample(x0):
+    """The 113K scene as a raw sample (zero velocity, feature 1, its own
+    coordinates as the target), for ``Pipeline.make_batches``."""
+    import numpy as np
+
+    from repro_torch.data.fluid import FluidSample
+
+    return FluidSample(x0, np.zeros_like(x0),
+                       np.ones((x0.shape[0], 1), np.float32), x0)
+
+
+def _forward_reading(fn) -> dict:
+    """CUDA-event ms (median of 5 after a warm call), and the peak device
+    memory of one call above what was allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"ms": cuda_ms(fn, reps=5, warm=1), "peak_bytes": peak - base,
+            "peak_total_bytes": peak}
+
+
+def _param_digest(tree) -> str:
+    import hashlib
+
+    from repro_torch.training.optim import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _leaves_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.training.optim import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                   tree_leaves(b)))
+
+
+def _collective_us(mesh) -> dict:
+    """Host µs of one blocking rank-order sum over the axis (median of
+    20, synchronised), at the CoM's size (3 + 1 floats) and the aggregate's
+    (C x (3 + hidden) + 1)."""
+    import torch
+
+    from repro_torch.core.collectives import sum_across
+
+    out = {}
+    for n in (4, MMD_CHANNELS * (3 + 64) + 1):
+        t = torch.ones(n, device=mesh.device)
+        times = []
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sum_across(t, mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[str(n)] = 1e6 * statistics.median(times[5:])
+    return out
+
+
+def dist_rank(rank: int, port: int, out: str) -> None:
+    """One DistEGNN rank of the dist phase (a process of its own, all
+    ranks on cuda:0 over gloo): its readings go to ``out`` as JSON."""
+    import warnings
+
+    import torch
+
+    from repro_torch.distributed.dist_egnn import (build_dist_apply,
+                                                   build_dist_loss,
+                                                   dist_value_and_grad,
+                                                   make_gnn_mesh)
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.training.trainer import TrainConfig
+
+    backend = init_distributed(f"localhost:{port}", DIST_RANKS, rank)
+    mesh = make_gnn_mesh(DIST_RANKS)
+    res = {"rank": rank, "backend": backend, "device": str(mesh.device)}
+    # (a) the 113K scene in DIST_RANKS random shards, FastEGNN defaults
+    t0 = time.perf_counter()
+    pipe = build_pipeline("fast_egnn", mesh=mesh, use_kernel=True,
+                          generator=torch.Generator().manual_seed(0))
+    ser = build_pipeline("fast_egnn", mesh=mesh, use_kernel=True,
+                         overlap_sync=False, params=pipe.params)
+    plain = build_pipeline("fast_egnn", mesh=mesh, params=pipe.params)
+    [sb] = pipe.make_batches([_scene_sample(_scale_scene())], 1, r=R)
+    torch.cuda.synchronize()
+    res["shard_build_s"] = time.perf_counter() - t0
+    res["shard"] = {"node_cap": sb.x.shape[1],
+                    "nodes": int(sb.node_mask.sum()),
+                    "edge_cap": sb.senders.shape[1],
+                    "edges": int(sb.layout[1][0])}
+    p = pipe.params
+    reset_all_launches()
+    x_ov = pipe.predict(p, sb)
+    torch.cuda.synchronize()
+    res["forward_launches"] = all_launch_counts()
+    x_ser = ser.predict(p, sb)
+    x_plain = plain.predict(p, sb)
+    with torch.no_grad():
+        _, vs = build_dist_apply(pipe.cfg, mesh)(p, sb)
+    res["forward"] = {
+        "schedules_bitwise": bool(torch.equal(x_ov, x_ser)),
+        "finite": bool(torch.isfinite(x_ov).all()),
+        "vs_plain": compare([x_ov], [x_plain]),
+        "z": vs.z.cpu().double().tolist(), "s_digest": _param_digest(vs.s),
+        "overlapped": _forward_reading(lambda: pipe.predict(p, sb)),
+        "serialized": _forward_reading(lambda: ser.predict(p, sb))}
+    del x_plain, plain
+    res["collective_us"] = _collective_us(mesh)
+    # (b) one train step on the train phase's scenes in DIST_RANKS shards
+    from repro_torch.data.fluid import generate_fluid_dataset
+
+    data = generate_fluid_dataset(TRAIN_SCENES + VAL_SCENES,
+                                  n_particles=N_PARTICLES)
+    tc = TrainConfig(lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA, mmd_sample=None)
+    tpipe = build_pipeline("fast_egnn", mesh=mesh, use_kernel=True,
+                           train_cfg=tc,
+                           generator=torch.Generator().manual_seed(0))
+    tser = build_pipeline("fast_egnn", mesh=mesh, use_kernel=True,
+                          overlap_sync=False, train_cfg=tc,
+                          params=tpipe.params)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        batches = tpipe.make_batches(data[:TRAIN_SCENES], TRAIN_BATCH, r=R)
+    batch, p0 = batches[0], tpipe.params
+    reset_all_launches()
+    p1, _, m1 = tpipe.train_step(p0, tpipe.opt.init(p0), batch)
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    p1s, _, m1s = tser.train_step(p0, tser.opt.init(p0), batch)
+    grads = {}
+    for name, cfg in (("kernel", tpipe.cfg),
+                      ("plain", tpipe.cfg._replace(use_kernel=False))):
+        grads[name] = dist_value_and_grad(
+            build_dist_loss(cfg, mesh, LAM_MMD, MMD_SIGMA), p0, batch, mesh)
+    from repro_torch.training.optim import tree_leaves
+
+    res["train"] = {
+        "batches": len(batches), "scenes": TRAIN_BATCH,
+        "dropped_warning": [str(w.message) for w in rec
+                            if "dropping" in str(w.message)],
+        "loss": float(m1["loss"]), "loss_serialized": float(m1s["loss"]),
+        "schedules_bitwise": bool(m1["loss"] == m1s["loss"]
+                                  and _leaves_equal(p1, p1s)),
+        "params_digest": _param_digest(p1), "launches": launches,
+        "loss_plain": float(grads["plain"][0]),
+        "grads_vs_plain": compare_grads(tree_leaves(grads["kernel"][1]),
+                                        tree_leaves(grads["plain"][1])),
+        "step_ms": cuda_ms(lambda: tpipe.train_step(
+            p0, tpipe.opt.init(p0), batch), reps=3, warm=1)}
+    with open(out, "w") as fh:
+        json.dump(res, fh)
+
+
+def phase_dist(dev, scale: dict) -> dict:
+    """DistEGNN on the card: DIST_RANKS ranks (processes of their own)
+    share cuda:0 over gloo (see the module docstring); then a one-rank
+    mesh against the single-device pipeline on the 113K scene."""
+    import math
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed.dist_egnn import make_gnn_mesh
+    from repro_torch.launch.mesh import free_port
+    from repro_torch.pipeline import build_pipeline
+
+    # (c) a one-rank mesh (no process group) against the single-device
+    # pipeline on the 113K scene, both through the kernels
+    sample = _scene_sample(_scale_scene())
+    single = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                            generator=torch.Generator().manual_seed(0))
+    mesh1 = build_pipeline("fast_egnn", mesh=make_gnn_mesh(1),
+                           use_kernel=True, params=single.params)
+    [gb] = single.make_batches([sample], 1, r=R)
+    [sb] = mesh1.make_batches([sample], 1, r=R)
+    want = single.predict(single.params, gb)
+    got = mesh1.predict(single.params, sb)
+    one_rank = {"bitwise": bool(torch.equal(got, want)),
+                "single": _forward_reading(
+                    lambda: single.predict(single.params, gb)),
+                "mesh1": _forward_reading(
+                    lambda: mesh1.predict(single.params, sb))}
+    del single, mesh1, gb, sb, want, got
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="dist_smoke_")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+         str(r), str(port), os.path.join(tmp, f"rank{r}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(DIST_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dist rank {r} exited {p.returncode}:\n"
+                                 f"{so[-2000:]}\n{se[-4000:]}")
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    backend_lines = [ln for so, _ in outs for ln in so.splitlines()
+                     if "torch.distributed backend" in ln]
+    L, B = LAYERS, TRAIN_BATCH
+    want_fwd = {k: 0 for k in all_launch_counts()}
+    want_fwd.update(edge_pathway_fused=L, virtual_pathway_fused=L)
+    want_step = dict(want_fwd, edge_pathway_fused=L * B,
+                     virtual_pathway_fused=L * B,
+                     edge_pathway_bwd_fused=L * B,
+                     virtual_pathway_bwd_fused=L * B, mmd_cross_sum=1,
+                     mmd_cross_grads=1)
+    checks = {
+        "backend_gloo_cuda0": all(r["backend"] == "gloo"
+                                  and r["device"] == "cuda:0"
+                                  for r in ranks),
+        "forward_schedules_bitwise": all(r["forward"]["schedules_bitwise"]
+                                         for r in ranks),
+        "forward_finite": all(r["forward"]["finite"] for r in ranks),
+        "forward_kernel_vs_plain": all(
+            r["forward"]["vs_plain"]["within_tol"] for r in ranks),
+        "virtual_state_equal_across_ranks": all(
+            r["forward"]["z"] == ranks[0]["forward"]["z"]
+            and r["forward"]["s_digest"] == ranks[0]["forward"]["s_digest"]
+            for r in ranks),
+        "forward_launches": all(r["forward_launches"] == want_fwd
+                                for r in ranks),
+        "train_loss_finite": all(math.isfinite(r["train"]["loss"])
+                                 for r in ranks),
+        "train_loss_equal_across_ranks": all(
+            r["train"]["loss"] == ranks[0]["train"]["loss"] for r in ranks),
+        "train_params_equal_across_ranks": all(
+            r["train"]["params_digest"] == ranks[0]["train"]["params_digest"]
+            for r in ranks),
+        "train_schedules_bitwise": all(r["train"]["schedules_bitwise"]
+                                       for r in ranks),
+        "train_grads_kernel_vs_plain": all(
+            r["train"]["grads_vs_plain"]["within_tol"] for r in ranks),
+        "train_launches": all(r["train"]["launches"] == want_step
+                              for r in ranks),
+        "train_dropped_warning": all(len(r["train"]["dropped_warning"]) == 1
+                                     for r in ranks),
+        "one_rank_mesh_bitwise": one_rank["bitwise"]}
+    for r in ranks:
+        r["forward"].pop("z")
+    res = {"phase": "dist", "ranks": DIST_RANKS, "wall_s": wall,
+           "backend_lines": backend_lines, "per_rank": ranks,
+           "one_rank_mesh": one_rank,
+           "single_device_113k_step_ms_median": scale["step_ms_median"],
+           "launches_expected": {"forward": want_fwd, "train_step":
+                                 want_step},
+           "checks": checks, "gpu": gpu_line()}
+    if not all(checks.values()):
+        raise AssertionError(f"dist phase failed: {json.dumps(res)}")
+    return res
+
+
 # ---------------------------------------------------------------- LM slice
 def _attention_close(got, want) -> dict:
     """Kernel against plain attention: f32 at ATOL / RTOL, bf16 within one
@@ -3229,6 +3536,10 @@ def phase_lm_full_f32(cfg, dev, served) -> tuple[dict, dict]:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dist-rank"]:  # a rank of the dist phase
+        sys.path.insert(0, str(SRC))
+        dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: no src/repro_torch beside this script — run it "
               "from a checkout of the repository", file=sys.stderr)
@@ -3268,9 +3579,10 @@ def main() -> int:
     emit(serve)
     serve_bf16 = phase_serve_bf16(pipe, scenes, serve, dev)
     emit(serve_bf16)
-    emit(phase_scale(pipe, dev, build_pipeline(
+    scale = phase_scale(pipe, dev, build_pipeline(
         "fast_egnn", device=dev, use_kernel=True, precision="bf16",
-        params=pipe.params)))
+        params=pipe.params))
+    emit(scale)
     emit(phase_simulate())
     tr, va, data_s = train_batches(dev)
     zoo = phase_zoo(scenes, tr, va, dev)
@@ -3285,6 +3597,7 @@ def main() -> int:
     emit(hidden32)
     hidden32_bf16 = phase_hidden32_bf16(dev, tr)
     emit(hidden32_bf16)
+    emit(phase_dist(dev, scale))
     del tr, va
     for row in rows:  # forward kernels: the serve run; the rest: training
         if row["name"] in ("edge_identity", "edge_identity_bwd"):

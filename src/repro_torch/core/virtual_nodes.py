@@ -1,4 +1,4 @@
-"""Virtual node learning on one device (Secs. IV-A/IV-B).
+"""Virtual node learning (Secs. IV-A/IV-B, VI).
 
 An ordered set of C virtual nodes ``(Z, S)``: CoM initialisation of the
 coordinates (Eq. 2), per-channel learnable features ``S``, the invariant
@@ -6,13 +6,20 @@ virtual global message (Eq. 4), per-channel real↔virtual messages (Eq. 5),
 the virtual terms of Eqs. 6–7 and the virtual-node aggregation (Eqs. 8–9).
 Every channel owns its MLP weights (stacked on a leading axis); the
 shared-weight "Global Nodes" ablation keeps rank-2 weights.
+
+An ``axis`` (``core.collectives.GraphAxis``) turns the node sums of the
+CoM and of Eqs. 8–9 into cross-shard sums: DistEGNN's Eqs. 16–17.  The
+``launch_*`` halves issue a sum and return a pending handle, so the
+overlapped layer schedule can put local compute between the launch and
+the ``wait()``; the floats are those of the blocking form.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.collectives import GraphAxis, PendingParts
 from repro_torch.core.mlp import init_mlp, init_stacked_mlp, mlp
 from repro_torch.kernels.runtime import resolve_device
 
@@ -24,16 +31,33 @@ class VirtualState(NamedTuple):
     s: Tensor  # (C, S) invariant features
 
 
-def masked_com(x: Tensor, node_mask: Tensor) -> Tensor:
-    """CoM over real nodes (Alg. 1 line 4): (3,)."""
+def launch_com_sums(x: Tensor, node_mask: Tensor,
+                    axis: Optional[GraphAxis] = None) -> PendingParts:
+    """Issue the CoM sums ``(Σ m_i x_i, Σ m_i)`` over the axis; ``wait()``
+    returns them reduced."""
     w = node_mask[:, None]
-    return (x * w).sum(0) / torch.clamp(w.sum(), min=1.0)
+    return PendingParts(((x * w).sum(0), w.sum()), axis)
 
 
-def init_virtual_coords(x: Tensor, node_mask: Tensor,
-                        n_channels: int) -> Tensor:
-    """Eq. 2 / Alg. 1 line 1: every channel starts at the CoM."""
-    return masked_com(x, node_mask)[None, :].repeat(n_channels, 1)
+def masked_com_sums(x: Tensor, node_mask: Tensor,
+                    axis: Optional[GraphAxis] = None) -> tuple[Tensor, Tensor]:
+    """The globally reduced ``(Σ m_i x_i, Σ m_i)``."""
+    return launch_com_sums(x, node_mask, axis).wait()
+
+
+def masked_com(x: Tensor, node_mask: Tensor,
+               axis: Optional[GraphAxis] = None) -> Tensor:
+    """CoM over real nodes (Alg. 1 line 4), over every shard of ``axis``:
+    (3,)."""
+    tot, cnt = masked_com_sums(x, node_mask, axis)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def init_virtual_coords(x: Tensor, node_mask: Tensor, n_channels: int,
+                        axis: Optional[GraphAxis] = None) -> Tensor:
+    """Eq. 2 / Alg. 1 line 1: every channel starts at the CoM (of the whole
+    graph, with ``axis``: Sec. VI)."""
+    return masked_com(x, node_mask, axis)[None, :].repeat(n_channels, 1)
 
 
 def virtual_global_message(z: Tensor, com: Tensor) -> Tensor:
@@ -150,10 +174,18 @@ def virtual_pathway(params, h: Tensor, x: Tensor, vs: VirtualState,
     return dx, mh, dz_sum, ms_sum
 
 
-def virtual_aggregate_from_sums(params, vs: VirtualState, dz_sum: Tensor,
-                                ms_sum: Tensor, n_total: Tensor) -> VirtualState:
-    """Eqs. 8–9 from the node sums: ``z_c += dz_sum_c / N`` and
-    ``s_c += φ_S^{(c)}(s_c, ms_sum_c / N)``."""
+def launch_virtual_sums(dz_sum: Tensor, ms_sum: Tensor, n_local: Tensor,
+                        axis: Optional[GraphAxis] = None) -> PendingParts:
+    """Issue the Eqs. 16–17 sums ``(dz_sum, ms_sum, n)`` over the axis as
+    one collective (the communication half); ``wait()`` returns them
+    reduced, for :func:`finish_virtual_aggregate`."""
+    return PendingParts((dz_sum, ms_sum, n_local), axis)
+
+
+def finish_virtual_aggregate(params, vs: VirtualState, dz_sum: Tensor,
+                             ms_sum: Tensor, n_total: Tensor) -> VirtualState:
+    """Eqs. 8–9 from already reduced node sums (the compute half):
+    ``z_c += dz_sum_c / N`` and ``s_c += φ_S^{(c)}(s_c, ms_sum_c / N)``."""
     n = torch.clamp(n_total, min=1.0)
     z_new = vs.z + dz_sum / n
     s_in = torch.cat([vs.s, ms_sum / n], dim=-1)  # (C, S+hidden)
@@ -162,3 +194,24 @@ def virtual_aggregate_from_sums(params, vs: VirtualState, dz_sum: Tensor,
     else:
         ds = mlp(params["phi_s"], s_in)
     return VirtualState(z=z_new, s=vs.s + ds)
+
+
+def virtual_aggregate_from_sums(params, vs: VirtualState, dz_sum: Tensor,
+                                ms_sum: Tensor, n_local: Tensor,
+                                axis: Optional[GraphAxis] = None
+                                ) -> VirtualState:
+    """Eqs. 8–9 (or 16–17 with ``axis``) from the node sums."""
+    return finish_virtual_aggregate(
+        params, vs, *launch_virtual_sums(dz_sum, ms_sum, n_local,
+                                         axis).wait())
+
+
+def virtual_aggregate(params, x: Tensor, vs: VirtualState, msgs: Tensor,
+                      node_mask: Tensor,
+                      axis: Optional[GraphAxis] = None) -> VirtualState:
+    """Eqs. 8–9 (single device) / Eqs. 16–17 (over ``axis``) from the
+    messages: ``z_c ← z_c + (1/N) Σ_i (z_c − x_i) φ_Z^{(c)}(m_ic)``,
+    ``s_c ← s_c + φ_S^{(c)}(s_c, (1/N) Σ_i m_ic)``."""
+    dz_sum, ms_sum = virtual_node_sums(params, x, vs, msgs, node_mask)
+    return virtual_aggregate_from_sums(params, vs, dz_sum, ms_sum,
+                                       node_mask.sum(), axis)

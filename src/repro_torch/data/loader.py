@@ -92,17 +92,24 @@ def repad_arrays(a: dict, node_cap: int, edge_cap: int) -> dict:
     return out
 
 
-def attach_layout(a: dict) -> dict:
-    """Store the sample's CSR layout under ``"layout"``: ``(indptr,
-    n_edges, sperm, sptr)`` over its padded edge arrays, ``sperm`` padded
-    with zeros to the edge capacity (only ``sptr[-1]`` entries are read)."""
-    a = dict(a)
-    n = a["x"].shape[0]
-    e = int(np.count_nonzero(a["edge_mask"]))
-    perm, sptr = csr_sender_perm(a["senders"], e, n)
-    sperm = np.zeros(a["senders"].shape[0], np.int32)
+def csr_layout(senders: np.ndarray, receivers: np.ndarray,
+               edge_mask: np.ndarray, n_nodes: int) -> tuple:
+    """The CSR layout ``(indptr, n_edges, sperm, sptr)`` of one padded edge
+    list (real slots first), ``sperm`` padded with zeros to the edge
+    capacity (only ``sptr[-1]`` entries are read)."""
+    e = int(np.count_nonzero(edge_mask))
+    perm, sptr = csr_sender_perm(senders, e, n_nodes)
+    sperm = np.zeros(senders.shape[0], np.int32)
     sperm[:perm.size] = perm
-    a["layout"] = (csr_indptr(a["receivers"], e, n), np.int64(e), sperm, sptr)
+    return csr_indptr(receivers, e, n_nodes), np.int64(e), sperm, sptr
+
+
+def attach_layout(a: dict) -> dict:
+    """Store the sample's CSR layout (:func:`csr_layout`) under
+    ``"layout"``."""
+    a = dict(a)
+    a["layout"] = csr_layout(a["senders"], a["receivers"], a["edge_mask"],
+                             a["x"].shape[0])
     return a
 
 

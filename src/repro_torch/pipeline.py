@@ -1,4 +1,5 @@
-"""The single-device surface of a built model: forward and training.
+"""The surface of a built model: forward and training, on one device or
+DistEGNN over a ``torch.distributed`` group.
 
 ``build_pipeline(name, generator=..., device=..., train_cfg=..., **cfg)``
 resolves any of the registry's ten names (``models.registry``: linear,
@@ -18,9 +19,17 @@ and returns a :class:`Pipeline` with ``cfg``, ``params``, ``apply_full``,
   :meth:`Pipeline.fit` (epochs + early stopping, ``training.trainer``);
 * :meth:`Pipeline.rollout`: recursive prediction of one scene through a
   cached :class:`~repro_torch.rollout.engine.RolloutEngine`.
+
+``build_pipeline("fast_egnn", mesh=make_gnn_mesh(...), ...)`` (DistEGNN,
+Sec. VI; ``distributed.dist_egnn``) is the same surface on one rank of a
+group: ``make_batches`` builds this rank's shard of each batch,
+``predict_fn(params, ShardedBatch) -> (B, n_cap, 3)`` is the distributed
+forward, ``train_step`` / ``fit`` the distributed train step, and
+``eval_step`` the Eq. 18 objective.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -46,8 +55,11 @@ class Pipeline:
 
     def __init__(self, name: str, cfg, params, apply_full: Callable,
                  device: torch.device,
-                 train_cfg: Optional[TrainConfig] = None):
+                 train_cfg: Optional[TrainConfig] = None, mesh=None):
         self.name = name
+        #: ``None``, or the DistEGNN graph axis
+        #: (``core.collectives.GraphAxis``) this pipeline's rank runs on
+        self.mesh = mesh
         self.cfg = cfg
         self.params = params
         #: the registry's ``(params, cfg, g, *, edge_layout=None) ->
@@ -59,8 +71,16 @@ class Pipeline:
         self.opt = Adam(lr=tc.lr, weight_decay=tc.weight_decay,
                         grad_clip=tc.grad_clip)
         #: ``(params, graph(B,·), layout|None) -> (B, N, 3)`` predicted
-        #: coordinates, run without autograd
-        self.predict_fn: Callable = torch.no_grad()(self._predict)
+        #: coordinates, run without autograd; on a mesh ``(params,
+        #: ShardedBatch) -> (B, n_cap, 3)``, this rank's shard
+        if mesh is None:
+            self.predict_fn: Callable = torch.no_grad()(self._predict)
+        else:
+            from repro_torch.distributed.dist_egnn import build_dist_apply
+
+            dist_apply = build_dist_apply(cfg, mesh)
+            self.predict_fn = torch.no_grad()(
+                lambda params, sb: dist_apply(params, sb)[0])
         self._steps = None
         self._rollout_engines = LRUCache(ROLLOUT_ENGINE_CACHE)
 
@@ -80,13 +100,26 @@ class Pipeline:
                      shuffle_seed: Optional[int] = None,
                      with_layout: Optional[bool] = None,
                      edge_cap: Optional[int] = None,
-                     drop_last: bool = False) -> list:
+                     drop_last: bool = False,
+                     partition: str = "random") -> list:
         """Raw samples → an eager list of fixed-shape ``GraphBatch``es on
         this pipeline's device; the trailing partial batch is mask-padded
         (``data.loader.dataset_to_batches``).  ``with_layout`` defaults to
-        ``cfg.use_kernel``: only the kernel path reads the CSR layout."""
+        ``cfg.use_kernel``: only the kernel path reads the CSR layout.
+
+        On a mesh: an eager list of this rank's ``ShardedBatch``es (their
+        CSR layouts always built).  Sample j of a batch is split by
+        ``partition_sample(strategy=partition, seed=j)``, and this rank
+        builds only its own shard; the edge capacities (each sample's max
+        over its shards, unless ``edge_cap``) are agreed by an integer max
+        over the group, so every shard is the one a single process would
+        build.  The trailing samples short of a full batch are dropped
+        with a warning (the sharded step has no sample mask)."""
         from repro_torch.data.loader import dataset_to_batches
 
+        if self.mesh is not None:
+            return self._sharded_batches(samples, batch_size, r, drop_rate,
+                                         partition, shuffle_seed, edge_cap)
         if with_layout is None:
             with_layout = bool(self.cfg.use_kernel)
         return dataset_to_batches(
@@ -94,8 +127,59 @@ class Pipeline:
             shuffle_seed=shuffle_seed, with_layout=with_layout,
             drop_last=drop_last, device=self.device)
 
+    def _sharded_batches(self, samples, batch_size: int, r: float,
+                         drop_rate: float, partition: str,
+                         shuffle_seed: Optional[int],
+                         edge_cap: Optional[int]) -> list:
+        from repro_torch.core.collectives import max_across
+        from repro_torch.data.loader import sample_h
+        from repro_torch.data.partition import pad_shards, partition_shards
+        from repro_torch.distributed.dist_egnn import stack_partitions
+
+        axis = self.mesh
+        d, rank = axis.size, axis.rank
+        order = np.arange(len(samples))
+        if shuffle_seed is not None:
+            np.random.default_rng(shuffle_seed).shuffle(order)
+        bs, n = batch_size, len(samples)
+        if n % bs:
+            warnings.warn(
+                f"make_batches: dropping the trailing {n % bs} samples (mesh "
+                f"n_shards={d}; the sharded step has no sample mask, "
+                f"batch_size={bs})", stacklevel=3)
+        slices = [order[i:i + bs] for i in range(0, n - bs + 1, bs)]
+        local = [[partition_shards(
+            samples[i].x0, samples[i].v0, sample_h(samples[i]),
+            samples[i].x1, d, r, strategy=partition, drop_rate=drop_rate,
+            seed=j, shard_range=(rank, rank + 1))[0]
+            for j, i in enumerate(sl)] for sl in slices]
+        counts = [max(1, sh.senders.size) for shards in local
+                  for sh in shards]
+        caps = iter(max_across(counts, axis) if edge_cap is None
+                    else [int(edge_cap)] * len(counts))
+        out = []
+        for sl, shards in zip(slices, local):
+            pgs = [pad_shards([sh], int(np.ceil(samples[i].x0.shape[0] / d)),
+                              next(caps)) for i, sh in zip(sl, shards)]
+            out.append(stack_partitions(pgs, device=self.device))
+        return out
+
     # --------------------------------------------------------------- steps
     def _build_steps(self):
+        if self._steps is None and self.mesh is not None:
+            from repro_torch.distributed.dist_egnn import \
+                build_dist_train_step
+
+            tc = self.train_cfg
+            step, loss_fn = build_dist_train_step(
+                self.cfg, self.mesh, self.opt, lam_mmd=tc.lam_mmd,
+                mmd_sigma=tc.mmd_sigma)
+
+            def train_step(params, opt_state, batch, generator=None):
+                params, opt_state, loss = step(params, opt_state, batch)
+                return params, opt_state, {"loss": loss}
+
+            self._steps = (train_step, torch.no_grad()(loss_fn))
         if self._steps is None:
             step, ev = build_train_step(self.apply_full, self.cfg,
                                         self.train_cfg, self.opt)
@@ -119,11 +203,15 @@ class Pipeline:
 
     @property
     def eval_step(self) -> Callable:
-        """``(params, batch)`` → the batch's masked MSE (0-d tensor)."""
+        """``(params, batch)`` → the batch's masked MSE (0-d tensor); on a
+        mesh the Eq. 18 objective (MSE + λ·MMD), the same on every rank."""
         return self._build_steps()[1]
 
     def predict(self, params, batch) -> Tensor:
-        """Batch-level forward → predicted coordinates (B, N, 3)."""
+        """Batch-level forward → predicted coordinates (B, N, 3); on a mesh
+        this rank's shard, (B, n_cap, 3)."""
+        if self.mesh is not None:
+            return self.predict_fn(params, batch)
         return self.predict_fn(params, batch.graph, batch.layout)
 
     def rollout(self, params, state0, n_steps: int, *, r: float,
@@ -147,16 +235,21 @@ class Pipeline:
         finite and ``async_rebuild`` was not asked for), ``async_rebuild``,
         the capacities, ``targets`` and ``wrap_box`` are those of
         :class:`~repro_torch.rollout.engine.RolloutEngine`; both modes give
-        bitwise the same trajectory.  ``partition`` and ``seed`` choose the
-        shards of a mesh pipeline, which the port does not build (ROADMAP
-        queue A #8), and ``traj_capacity`` pre-sizes a compiled buffer the
-        port does not have: all three are accepted and change nothing.
-        Engines are kept in an LRU of ``ROLLOUT_ENGINE_CACHE`` keys.
+        bitwise the same trajectory.  ``partition`` and ``seed`` choose a
+        mesh rollout's shards, which needs ``DistRolloutEngine``: a mesh
+        pipeline raises ``NotImplementedError`` here.  ``traj_capacity``
+        pre-sizes a compiled buffer the port does not have: it is accepted
+        and changes nothing.  Engines are kept in an LRU of
+        ``ROLLOUT_ENGINE_CACHE`` keys.
 
         Returns a :class:`~repro_torch.rollout.engine.RolloutResult`.
         """
         from repro_torch.rollout.engine import RolloutEngine
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "rollout on a mesh needs DistRolloutEngine, the next DistEGNN "
+                "slice (ROADMAP queue A #8); use a single-device pipeline")
         x0, v0, h = state0
         key = (float(r), float(skin), float(dt), float(drop_rate), node_cap,
                edge_cap, async_rebuild, partition, seed, wrap_box,
@@ -192,19 +285,25 @@ def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,
     """Registry name + config overrides → :class:`Pipeline` on ``device``
     (default CUDA).  The config is composed as the registry composes it
     (``models.registry.model_config``); the weights are ``params`` (e.g.
-    from ``weights.params_from_jax``) or random draws from ``generator``;
-    ``train_cfg`` sets the optimizer and the fit protocol (default
-    :class:`~repro_torch.training.trainer.TrainConfig`).  A ``mesh``
-    (DistEGNN) pipeline is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh pipeline needs DistEGNN on torch.distributed, which the "
-            "port does not have yet (ROADMAP queue A #8)")
+    from ``weights.params_from_jax``) or random draws from ``generator``
+    (the same seed on every rank of a mesh gives every rank the same
+    weights); ``train_cfg`` sets the optimizer and the fit protocol
+    (default :class:`~repro_torch.training.trainer.TrainConfig`).  A
+    ``mesh`` (``distributed.dist_egnn.make_gnn_mesh``) builds DistEGNN on
+    its device, which is FastEGNN over a graph partition: any other name
+    raises."""
+    if mesh is not None and name != "fast_egnn":
+        raise ValueError(
+            f"build_pipeline(mesh=...) implements DistEGNN (Sec. VI), which "
+            f"is FastEGNN over a graph partition — got model {name!r}; pass "
+            f"name='fast_egnn' or mesh=None")
     spec, cfg = model_config(name, **cfg_overrides)
+    if mesh is not None and device is None:
+        device = mesh.device
     dev = resolve_device(device)
     resolve_precision(cfg.precision)  # an unknown string raises
     if params is None:
         if generator is None:
             raise ValueError("build_pipeline needs params= or generator=")
         params = spec.init(generator, cfg, device=dev)
-    return Pipeline(name, cfg, params, spec.apply_full, dev, train_cfg)
+    return Pipeline(name, cfg, params, spec.apply_full, dev, train_cfg, mesh)

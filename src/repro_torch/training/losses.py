@@ -9,16 +9,22 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.collectives import GraphAxis, graph_sum_parts
 from repro_torch.core.mmd import mmd_loss
 
 Tensor = torch.Tensor
 
 
-def masked_mse(pred: Tensor, target: Tensor, node_mask: Tensor) -> Tensor:
+def masked_mse(pred: Tensor, target: Tensor, node_mask: Tensor,
+               axis: Optional[GraphAxis] = None) -> Tensor:
     """Mean over real nodes of ‖pred − target‖² (per-coordinate mean):
-    (N,3), (N,3), (N,) → a scalar, or (B,N,3), (B,N,3), (B,N) → (B,)."""
+    (N,3), (N,3), (N,) → a scalar, or (B,N,3), (B,N,3), (B,N) → (B,).
+
+    With ``axis``: the global mean over every shard's nodes (DistEGNN's
+    Eq. 18 summed over devices, the full graph's MSE)."""
     err = ((pred - target) ** 2).sum(-1) * node_mask
-    return err.sum(-1) / torch.clamp(node_mask.sum(-1), min=1.0) / 3.0
+    tot, cnt = graph_sum_parts((err.sum(-1), node_mask.sum(-1)), axis)
+    return tot / torch.clamp(cnt, min=1.0) / 3.0
 
 
 def combined_objective(

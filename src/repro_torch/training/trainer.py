@@ -123,7 +123,7 @@ def batch_weight(batch) -> float:
     not over-weight its few real samples)."""
     if batch.sample_mask is not None:
         return float(batch.sample_mask.sum())
-    return float(batch.graph.x.shape[0])
+    return float(batch.x_target.shape[0])
 
 
 def run_fit(train_step: Callable, eval_step: Callable, params, opt_state,

@@ -2362,3 +2362,165 @@ def test_virtual_bwd_and_identity_projection_run_their_mma_kinds():
         else:
             assert "HMMA.1688.F32.TF32" in ops, (key, ops)
             assert not any("BF16" in op for op in ops), (key, ops)
+
+
+# ------------------------------------------------------------ DistEGNN
+_DIST_RANK = """
+import sys
+import numpy as np, torch
+from repro_torch.core import collectives as C
+from repro_torch.data.fluid import generate_fluid_dataset
+from repro_torch.data.partition import partition_sample
+from repro_torch.distributed.dist_egnn import (
+    build_dist_apply, build_dist_loss, build_dist_train_step,
+    dist_value_and_grad, make_gnn_mesh, stack_partitions)
+from repro_torch.kernels import edge_message, virtual_message
+from repro_torch.launch.mesh import init_distributed
+from repro_torch.models.fast_egnn import FastEGNNConfig, init_fast_egnn
+from repro_torch.training.optim import Adam, tree_leaves
+
+rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
+                          int(sys.argv[3]), sys.argv[4])
+backend = init_distributed(f"localhost:{port}", world, rank, verbose=False)
+mesh = make_gnn_mesh()
+dev = mesh.device
+res = {"backend_gloo": np.array(backend == "gloo"),
+       "device_index": np.array(dev.index)}
+# graph_sum and its backward on CUDA tensors: y = sum_r t_r; rank r's loss
+# (w_r * y).sum(), so every rank's t.grad is sum_r w_r
+ts = [torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3)
+      * (r + 1.5) for r in range(world)]
+ws = [torch.full((2, 3), 0.25 * (r + 1), device=dev) for r in range(world)]
+t = ts[rank].clone().requires_grad_(True)
+y = C.graph_sum(t, mesh)
+(ws[rank] * y).sum().backward()
+want_y = ts[0]
+for r in range(1, world):
+    want_y = want_y + ts[r]
+res["sum_equal"] = np.array(torch.equal(y.detach(), want_y))
+res["sum_on_device"] = np.array(y.device == dev)
+want_g = ws[0]
+for r in range(1, world):
+    want_g = want_g + ws[r]
+res["grad_equal"] = np.array(torch.equal(t.grad, want_g))
+pend = C.graph_sum_async(ts[rank] * 2, mesh)
+res["async_equal"] = np.array(torch.equal(pend.wait(), 2 * want_y))
+res["max_equal"] = np.array(C.max_across([rank, 7 - rank], mesh)
+                            == [world - 1, 7])
+# a 2-shard forward and gradient on the kernels against the plain path,
+# both schedules
+s = generate_fluid_dataset(1, n_particles=4000, seed=3)[0]
+sb = stack_partitions([partition_sample(s.x0, s.v0, s.h, s.x1, d=world,
+                                        r=0.06, seed=0)], shard=rank,
+                      device=dev)
+kcfg = FastEGNNConfig(use_kernel=True)
+pcfg = kcfg._replace(use_kernel=False)
+params = init_fast_egnn(torch.Generator().manual_seed(0), kcfg, device=dev)
+for name, cfg in (("k", kcfg), ("p", pcfg)):
+    for ov in (1, 0):
+        edge_message.reset_launches()
+        virtual_message.reset_launches()
+        with torch.no_grad():
+            x, vs = build_dist_apply(cfg, mesh, overlap=bool(ov))(params, sb)
+        res[f"{name}_x_{ov}"], res[f"{name}_z_{ov}"] = (x.cpu().numpy(),
+                                                        vs.z.cpu().numpy())
+        res[f"{name}_launches_{ov}"] = np.array(
+            [edge_message.launches, virtual_message.launches])
+    loss, g = dist_value_and_grad(build_dist_loss(cfg, mesh, 0.03, 1.5),
+                                  params, sb, mesh)
+    res[f"{name}_loss"] = loss.cpu().numpy()
+    for i, leaf in enumerate(tree_leaves(g)):
+        res[f"{name}_g{i}"] = leaf.cpu().numpy()
+opt = Adam(lr=1e-3)
+for ov in (0, 1):
+    step, _ = build_dist_train_step(kcfg, mesh, opt, 0.03, 1.5,
+                                    overlap=bool(ov))
+    p2, _, loss = step(params, opt.init(params), sb)
+    res[f"step_loss_{ov}"] = loss.cpu().numpy()
+    for i, leaf in enumerate(tree_leaves(p2)):
+        res[f"p{ov}_{i}"] = leaf.cpu().numpy()
+np.savez(out, **res)
+"""
+
+
+@pytest.fixture(scope="module")
+def dist_runs(tmp_path_factory):
+    """Two gloo ranks sharing the GPU (processes of their own), each
+    writing its readings; a failing rank fails the fixture."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    tmp = tmp_path_factory.mktemp("dist_cuda")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DIST_RANK, str(r), "2", str(port),
+         str(tmp / f"r{r}.npz")], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+    return [dict(np.load(tmp / f"r{r}.npz")) for r in range(2)]
+
+
+def _dist_leaves(res, prefix):
+    n = sum(1 for k in res if k.startswith(prefix)
+            and k[len(prefix):].isdigit())
+    return [res[f"{prefix}{i}"] for i in range(n)]
+
+
+@needs_cuda
+def test_dist_graph_sum_and_backward_on_cuda_tensors(dist_runs):
+    """gloo takes the ranks' CUDA tensors: the rank-order sum, its async
+    form and its backward (every rank's cotangents summed) are exact, and
+    the integer max agrees."""
+    for res in dist_runs:
+        assert res["backend_gloo"] and res["device_index"] == 0
+        for k in ("sum_equal", "sum_on_device", "grad_equal", "async_equal",
+                  "max_equal"):
+            assert res[k], k
+
+
+@needs_cuda
+def test_dist_forward_kernels_match_plain(dist_runs):
+    """Each rank's 2-shard forward through the kernels against the plain
+    path on the same shard and through the same sums: forward within
+    ATOL / RTOL, gradients within the gradient tolerance, and the kernels
+    launched once a layer each."""
+    layers = FastEGNNConfig().n_layers
+    for res in dist_runs:
+        for k in ("x", "z"):
+            np.testing.assert_allclose(res[f"k_{k}_1"], res[f"p_{k}_1"],
+                                       atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(res["k_loss"], res["p_loss"], rtol=1e-4)
+        for g, w in zip(_dist_leaves(res, "k_g"), _dist_leaves(res, "p_g")):
+            scale = float(np.abs(w).max()) + 1e-6
+            np.testing.assert_allclose(g / scale, w / scale, rtol=1e-3,
+                                       atol=5e-5)
+        np.testing.assert_array_equal(res["k_launches_1"], [layers, layers])
+        np.testing.assert_array_equal(res["p_launches_1"], [0, 0])
+    np.testing.assert_array_equal(dist_runs[0]["k_z_1"],
+                                  dist_runs[1]["k_z_1"])
+
+
+@needs_cuda
+def test_dist_schedules_bitwise_on_card(dist_runs):
+    """On the kernels, the overlapped and serialized schedules give the
+    same forward, loss and updated parameters, bit for bit, and the
+    parameters are the same on both ranks."""
+    for res in dist_runs:
+        for k in ("x", "z"):
+            np.testing.assert_array_equal(res[f"k_{k}_0"], res[f"k_{k}_1"])
+        assert res["step_loss_0"] == res["step_loss_1"]
+        for a, b in zip(_dist_leaves(res, "p0_"), _dist_leaves(res, "p1_")):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(_dist_leaves(dist_runs[0], "p1_"),
+                    _dist_leaves(dist_runs[1], "p1_")):
+        np.testing.assert_array_equal(a, b)

@@ -328,7 +328,7 @@ def test_schnet_helpers_match_reference():
 
 def test_build_pipeline_refuses_mesh_and_unknown_names():
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A #8"):
+    with pytest.raises(ValueError, match="DistEGNN"):  # FastEGNN only
         build_pipeline("rf", generator=gen, device="cpu", mesh=object())
     with pytest.raises(KeyError, match="unknown model"):
         build_pipeline("gcn", generator=gen, device="cpu")

@@ -387,9 +387,12 @@ def test_pipeline_rollout_engine_lru_and_mesh_refusal(pipe):
         p.rollout(p.params, (x0, v0, h), 1, r=R, skin=SKIN, dt=DT + k)
     stats = p._rollout_engines.stats()
     assert stats["size"] == ROLLOUT_ENGINE_CACHE and stats["evictions"] == 1
-    with pytest.raises(NotImplementedError, match="A #8"):
-        build_pipeline("fast_egnn", device="cpu", params=pipe.params,
-                       mesh=object(), **SMALL)
+    from repro_torch.distributed.dist_egnn import make_gnn_mesh
+
+    mesh = build_pipeline("fast_egnn", device="cpu", params=pipe.params,
+                          mesh=make_gnn_mesh(device="cpu"), **SMALL)
+    with pytest.raises(NotImplementedError, match="DistRolloutEngine"):
+        mesh.rollout(mesh.params, (x0, v0, h), 1, r=R, skin=SKIN, dt=DT)
 
 
 def test_simulate_cli_on_cpu(capsys):

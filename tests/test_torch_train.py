@@ -431,7 +431,7 @@ def test_launch_train_runs_on_cpu_and_refuses_unported_modes(tmp_path,
     params = load_npz(ck, device="cpu")
     assert params["layers"][0]["phi1"][0]["w"].shape == (33, 16)
     for extra, what in ((["--dataset", "nbody"], "queue A #7"),
-                        (["--devices", "2"], "queue A #8"),
+                        (["--layout-cache", "d"], "queue A #7"),
                         (["--reshuffle"], "queue A #7")):
         with pytest.raises(NotImplementedError, match=what):
             launch.main(base + extra)
