@@ -179,8 +179,30 @@ Phases, each printing one JSON line (any failure exits nonzero):
              GATOL / GRTOL of the plain path's, #1-#6 launches a rank;
              ms a step.  (c) A one-rank mesh against the single-device
              pipeline on the 113K scene: bitwise, with both forwards'
-             ms and peak memory.  Two ranks on one card time contention
-             and collective latency, not scaling.
+             ms and peak memory.  (d) ``Pipeline.rollout`` on the 2-rank
+             mesh (``DistRolloutEngine``): the 113K scene, DIST_ROLLOUT_
+             STEPS steps at R / SKIN / DT in [0, BOX), device rebuilds on
+             each shard: both ranks' trajectories bitwise equal, device ==
+             host (synchronous) rebuilds bitwise, the first frame within
+             FRAME_TOL of a ``use_kernel=False`` mesh rollout (later ones
+             read: random weights amplify the gap), no coordinate, edge or
+             steady-state bytes in device mode, and #1 / #3 launched once
+             a layer for every step computed; each rank's ms a step,
+             rebuilds and their ms, ``cell_cap``, bytes fetched and peak
+             memory.  (e) A one-rank mesh's rollout against the
+             single-device ``Pipeline.rollout`` on the same scene,
+             ONE_RANK_ROLLOUT_STEPS steps: bitwise.  Two ranks on one card
+             time contention and collective latency, not scaling.
+   data    — the data plane: a streamed fit (``Pipeline.make_batches``
+             streams with worker threads, prefetch and a layout cache;
+             one epoch of ``Pipeline.fit``) at FastEGNN defaults with the
+             kernels, on nbody (DATA_NODES particles, r = ∞, h_in 1) and
+             on protein (the paper's 855 residues, r = 10, h_in 4), the
+             seed-0 init scaled by DATA_WEIGHT_SCALE: every loss finite,
+             #1-#6 launch counts exact, the first step's loss, gradients
+             and update within the train phase's limits of the plain path
+             and bitwise repeatable, and a warm layout cache building
+             nothing; ms a step.
 
 The FastEGNN tensors are then freed, and the LM slice (gemma3-12b, random
 weights from seed 0) runs:
@@ -379,6 +401,21 @@ LAM_MMD, MMD_SIGMA, MMD_CHANNELS = 0.03, 1.5, 3
 # dist phase: DistEGNN ranks, all on cuda:0 over gloo (NCCL takes one rank
 # a GPU), and how long they may take
 DIST_RANKS, DIST_TIMEOUT_S = 2, 600
+# dist phase (d): Pipeline.rollout on the mesh, steps on the 113K scene;
+# (e): the one-rank mesh against the single-device rollout
+DIST_ROLLOUT_STEPS, ONE_RANK_ROLLOUT_STEPS = 10, 6
+# data phase: a streamed fit on each dataset (nodes: the launcher's
+# default for nbody, the paper's 855-residue AdK for protein); 8 train
+# samples (2 batches) and 2 validation samples (a mask-padded batch)
+DATA_SAMPLES, DATA_VAL = 10, 2
+DATA_NODES = {"nbody": 100, "protein": 855}
+# ... with the seed-0 init scaled by this: at full scale the random
+# 4-layer, hidden-64 model's forward is non-finite on the protein chain
+# (coordinates tens of Å apart; the JAX package's own init gives NaN there
+# too) and reaches 3e7 on nbody; at 0.3 protein's first step is so badly
+# conditioned that its f32 gradients stray ~1e-3 of a leaf's largest
+# entry from an f64 computation of the same step (the f64 reading below)
+DATA_WEIGHT_SCALE = 0.2
 # first-step update compared where |g| >= SMALL_GRAD x the leaf's largest
 SMALL_GRAD = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
@@ -2896,14 +2933,116 @@ def dist_rank(rank: int, port: int, out: str) -> None:
                                         tree_leaves(grads["plain"][1])),
         "step_ms": cuda_ms(lambda: tpipe.train_step(
             p0, tpipe.opt.init(p0), batch), reps=3, warm=1)}
+    del tpipe, tser, batches, batch, grads, p1, p1s
+    torch.cuda.empty_cache()
+    res["rollout"] = dist_rollout_reading(pipe, mesh)
     with open(out, "w") as fh:
         json.dump(res, fh)
 
 
+def _traj_digest(traj) -> str:
+    import hashlib
+
+    return hashlib.sha256(traj.tobytes()).hexdigest()
+
+
+def dist_rollout_reading(pipe, mesh) -> dict:
+    """(d) ``Pipeline.rollout`` on the mesh: the 113K scene, DIST_ROLLOUT_
+    STEPS steps at R / SKIN / DT in [0, BOX), device rebuilds, then the
+    same with synchronous host rebuilds and through a ``use_kernel=False``
+    mesh pipeline; this rank's readings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pipeline import build_pipeline
+
+    x0 = _scale_scene()
+    state = (x0, np.zeros_like(x0), np.ones((x0.shape[0], 1), np.float32))
+    kw = dict(r=R, skin=SKIN, dt=DT, wrap_box=BOX, rebuild_mode="device")
+    p, n = pipe.params, DIST_ROLLOUT_STEPS
+
+    def timed(steps: int):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.rollout(p, state, steps, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the first run sizes and pins the engine's capacities (host radius
+    # graph of the shard, every shard's densest cell); a step's ms is the
+    # difference of an n-step and a 1-step run on the pinned engine
+    _, setup_s = timed(1)
+    _, one_s = timed(1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_all_launches()
+    dev_res, wall = timed(n)
+    launches = all_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    eng = pipe._rollout_engines.get(pipe._rollout_engines.keys()[-1])
+    t0 = time.perf_counter()
+    host_kw = dict(kw, rebuild_mode="host", async_rebuild=False)
+    host_res = pipe.rollout(p, state, n, **host_kw)
+    host_wall = time.perf_counter() - t0
+    plain = build_pipeline("fast_egnn", mesh=mesh, params=p)
+    t0 = time.perf_counter()
+    plain_res = plain.rollout(p, state, n, **kw)
+    plain_wall = time.perf_counter() - t0
+    d = np.abs(dev_res.trajectory.astype(np.float64)
+               - plain_res.trajectory)
+    per_step = np.max(np.minimum(d, BOX - d), axis=(1, 2))
+    computed = n + dev_res.discarded_steps
+    rebuilds = dev_res.rebuild_count
+    return {
+        "steps": n, "steps_computed": computed, "nodes": int(x0.shape[0]),
+        "shard": {"node_cap": eng.node_cap, "edge_cap": eng.edge_cap,
+                  "nodes": int(eng._n_real)},
+        "traj_digest": _traj_digest(dev_res.trajectory),
+        "finite": bool(np.isfinite(dev_res.trajectory).all()),
+        "device_equals_host": bool(np.array_equal(
+            dev_res.trajectory, host_res.trajectory, equal_nan=True)),
+        "rebuild_steps": dev_res.rebuild_steps,
+        "host_rebuild_steps": host_res.rebuild_steps,
+        "rebuilds": rebuilds, "rebuild_ms": 1e3 * dev_res.rebuild_s,
+        "rebuild_ms_mean": 1e3 * dev_res.rebuild_s / max(rebuilds, 1),
+        "rebuild_share": dev_res.rebuild_s / (wall - one_s),
+        "cell_cap": eng._cell_cap, "cell_overflows": dev_res.cell_overflows,
+        "d2h_bytes": dev_res.d2h_bytes,
+        "coord_d2h_bytes": dev_res.coord_d2h_bytes,
+        "edge_h2d_bytes": dev_res.edge_h2d_bytes,
+        "steady_state_d2h_bytes": dev_res.steady_state_d2h_bytes,
+        "chunk_calls": dev_res.chunk_calls,
+        "first_run_s": setup_s, "one_step_run_s": one_s, "run_s": wall,
+        "ms_per_step": 1e3 * (wall - one_s) / (computed - 1),
+        # these two runs include their first list's build (host mode: the
+        # shard's numpy radius graph; plain: a new engine's sizing pass)
+        "host_mode_run_s": host_wall,
+        "host_mode_rebuild_ms_mean": 1e3 * host_res.rebuild_s
+        / max(host_res.rebuild_count, 1),
+        "plain_run_s": plain_wall,
+        "peak_bytes": peak - base, "peak_total_bytes": peak,
+        "launches": launches,
+        "vs_plain": {"first_frame_max_err": float(per_step[0]),
+                     "per_step_max_err": per_step.tolist(),
+                     "within_tol": bool(per_step[0] <= FRAME_TOL),
+                     "plain_rebuild_steps": plain_res.rebuild_steps}}
+
+
+def rollout_launches(reading: dict) -> dict:
+    """The kernel launches a rank's rollout must count: #1 and #3 once a
+    layer for every step computed (kept or dropped past a failed skin
+    check), nothing else."""
+    want = {k: 0 for k in all_launch_counts()}
+    want.update(edge_pathway_fused=LAYERS * reading["steps_computed"],
+                virtual_pathway_fused=LAYERS * reading["steps_computed"])
+    return want
+
+
 def phase_dist(dev, scale: dict) -> dict:
-    """DistEGNN on the card: DIST_RANKS ranks (processes of their own)
-    share cuda:0 over gloo (see the module docstring); then a one-rank
-    mesh against the single-device pipeline on the 113K scene."""
+    """DistEGNN on the card: a one-rank mesh against the single-device
+    pipeline on the 113K scene, its forward and its rollout; then
+    DIST_RANKS ranks (processes of their own) sharing cuda:0 over gloo
+    (see the module docstring)."""
     import math
     import os
     import tempfile
@@ -2930,7 +3069,29 @@ def phase_dist(dev, scale: dict) -> dict:
                     lambda: single.predict(single.params, gb)),
                 "mesh1": _forward_reading(
                     lambda: mesh1.predict(single.params, sb))}
-    del single, mesh1, gb, sb, want, got
+    del gb, sb, want, got
+    torch.cuda.empty_cache()
+    # (e) the one-rank mesh's Pipeline.rollout (DistRolloutEngine) against
+    # the single-device one on the same scene, device rebuilds
+    import numpy as np
+
+    state = (sample.x0, sample.v0, sample.h)
+    kw = dict(r=R, skin=SKIN, dt=DT, wrap_box=BOX)
+    t0 = time.perf_counter()
+    ws = single.rollout(single.params, state, ONE_RANK_ROLLOUT_STEPS, **kw)
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gs = mesh1.rollout(single.params, state, ONE_RANK_ROLLOUT_STEPS, **kw)
+    mesh1_s = time.perf_counter() - t0
+    one_rank["rollout"] = {
+        "steps": ONE_RANK_ROLLOUT_STEPS,
+        "bitwise": bool(np.array_equal(gs.trajectory, ws.trajectory,
+                                       equal_nan=True)
+                        and gs.rebuild_steps == ws.rebuild_steps),
+        "finite": bool(np.isfinite(gs.trajectory).all()),
+        "rebuild_steps": gs.rebuild_steps, "rebuild_mode": gs.rebuild_mode,
+        "single_s": single_s, "mesh1_s": mesh1_s}
+    del single, mesh1, ws, gs
     torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="dist_smoke_")
@@ -2999,7 +3160,25 @@ def phase_dist(dev, scale: dict) -> dict:
                               for r in ranks),
         "train_dropped_warning": all(len(r["train"]["dropped_warning"]) == 1
                                      for r in ranks),
-        "one_rank_mesh_bitwise": one_rank["bitwise"]}
+        "one_rank_mesh_bitwise": one_rank["bitwise"],
+        "one_rank_rollout_bitwise": one_rank["rollout"]["bitwise"],
+        "one_rank_rollout_finite": one_rank["rollout"]["finite"],
+        "rollout_finite": all(r["rollout"]["finite"] for r in ranks),
+        "rollout_equal_across_ranks": all(
+            r["rollout"]["traj_digest"] == ranks[0]["rollout"]["traj_digest"]
+            for r in ranks),
+        "rollout_device_equals_host": all(
+            r["rollout"]["device_equals_host"] for r in ranks),
+        "rollout_kernel_vs_plain": all(
+            r["rollout"]["vs_plain"]["within_tol"] for r in ranks),
+        "rollout_device_rebuilds_move_nothing": all(
+            r["rollout"]["coord_d2h_bytes"] == 0
+            and r["rollout"]["edge_h2d_bytes"] == 0
+            and r["rollout"]["steady_state_d2h_bytes"] == 0
+            for r in ranks),
+        "rollout_launches": all(
+            r["rollout"]["launches"] == rollout_launches(r["rollout"])
+            for r in ranks)}
     for r in ranks:
         r["forward"].pop("z")
     res = {"phase": "dist", "ranks": DIST_RANKS, "wall_s": wall,
@@ -3012,6 +3191,127 @@ def phase_dist(dev, scale: dict) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"dist phase failed: {json.dumps(res)}")
     return res
+
+
+def f64_reading(pipe, plain, batch, tc) -> dict:
+    """How far the first step's f32 gradients, kernel and plain path, lie
+    from the plain path's in f64 on the same inputs: the step's own f32
+    conditioning, for reading the kernel-vs-plain comparison (largest
+    error over the leaves, relative to the leaf's largest f64 entry)."""
+    import torch
+
+    from repro_torch.training.optim import tree_leaves, tree_map
+    from repro_torch.training.trainer import build_train_step
+
+    def grads(pp, params, b):
+        step = build_train_step(pp.apply_full, pp.cfg, tc, _GradsOut())[0]
+        return tree_leaves(step(params, None, b)[0])
+
+    wide = lambda t: t.double() if t.is_floating_point() else t
+    b64 = batch._replace(
+        graph=type(batch.graph)(*(wide(t) for t in batch.graph)),
+        x_target=wide(batch.x_target),
+        sample_mask=None if batch.sample_mask is None
+        else wide(batch.sample_mask))
+    want = grads(plain, tree_map(wide, pipe.params), b64)
+
+    def err(got):
+        return max(float((g.double() - w).abs().max())
+                   / (float(w.abs().max()) + 1e-6)
+                   for g, w in zip(got, want) if w.numel())
+
+    out = {"kernel_max_rel_err": err(grads(pipe, pipe.params, batch)),
+           "plain_max_rel_err": err(grads(plain, pipe.params, batch))}
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_data(dev) -> dict:
+    """A streamed fit on nbody and on protein through the data plane: the
+    launcher's datasets (``launch.train.dataset``), ``Pipeline.
+    make_batches`` streams (worker threads, prefetch on, a layout cache)
+    and ``Pipeline.fit``, FastEGNN defaults with the kernels."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import layout_cache
+    from repro_torch.launch.train import dataset
+    from repro_torch.pipeline import build_pipeline
+    from repro_torch.training.optim import tree_map
+    from repro_torch.training.trainer import TrainConfig
+
+    out, ok = {"phase": "data", "weight_scale": DATA_WEIGHT_SCALE}, True
+    for name in ("nbody", "protein"):
+        t0 = time.perf_counter()
+        data, r, h_in = dataset(name, DATA_SAMPLES, DATA_NODES[name])
+        gen_s = time.perf_counter() - t0
+        n_tr = DATA_SAMPLES - DATA_VAL
+        tc = TrainConfig(epochs=1, lam_mmd=LAM_MMD, mmd_sigma=MMD_SIGMA,
+                         mmd_sample=None)
+        pipe = build_pipeline("fast_egnn", device=dev, use_kernel=True,
+                              h_in=h_in, train_cfg=tc,
+                              generator=torch.Generator().manual_seed(0))
+        pipe.params = tree_map(lambda t: t * DATA_WEIGHT_SCALE, pipe.params)
+        plain = build_pipeline("fast_egnn", device=dev, h_in=h_in,
+                               train_cfg=tc, params=pipe.params)
+        cache = tempfile.mkdtemp(prefix=f"layout_cache_{name}_")
+        kw = dict(r=r, prefetch=2, num_workers=4, cache_dir=cache)
+        layout_cache.reset_cache_stats()
+        tr = pipe.make_batches(data[:n_tr], TRAIN_BATCH, **kw)
+        va = pipe.make_batches(data[n_tr:], TRAIN_BATCH, **kw)
+        first, step_s = first_step(pipe, plain, tr[0], tc)
+        first["f64"] = f64_reading(pipe, plain, tr[0], tc)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = pipe.fit(tr, va)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = all_launch_counts()
+        cold = layout_cache.cache_stats()
+        layout_cache.reset_cache_stats()
+        for d in (data[:n_tr], data[n_tr:]):
+            pipe.make_batches(d, TRAIN_BATCH, **kw).materialize()
+        warm = layout_cache.cache_stats()
+        train_passes = len(tr) * TRAIN_BATCH  # padded slots included
+        eval_passes = len(va) * TRAIN_BATCH
+        want = {k: 0 for k in launches}
+        want.update(
+            edge_pathway_fused=LAYERS * (train_passes + eval_passes),
+            virtual_pathway_fused=LAYERS * (train_passes + eval_passes),
+            edge_pathway_bwd_fused=LAYERS * train_passes,
+            virtual_pathway_bwd_fused=LAYERS * train_passes,
+            mmd_cross_sum=len(tr), mmd_cross_grads=len(tr))
+        losses = [h[k] for h in res.history
+                  for k in ("train_loss", "val_mse")]
+        checks = {
+            "losses_finite": all(math.isfinite(v) for v in losses + [
+                first["loss_kernel"], first["loss_plain"]]),
+            "launches": launches == want,
+            "first_step_vs_plain": first["ok"],
+            "first_step_bitwise": first["bitwise_repeatable"],
+            "warm_cache_builds_nothing": warm["builds"] == 0
+            and warm["hits"] > 0}
+        out[name] = {
+            "samples": {"train": n_tr, "val": DATA_VAL},
+            "nodes": DATA_NODES[name], "r": r, "h_in": h_in,
+            "batch": TRAIN_BATCH, "batches": [len(tr), len(va)],
+            "edges": [int(b.layout[1].max()) for b in tr],
+            "generate_s": gen_s, "history": res.history,
+            "first_step": first, "step_ms_kernel": 1e3 * step_s["kernel"],
+            "step_ms_plain": 1e3 * step_s["plain"],
+            "fit_s": fit_s, "fit_ms_per_step": 1e3 * fit_s / len(tr),
+            "launches": launches, "launches_expected": want,
+            "layout_cache": {"cold": cold, "warm": warm},
+            "checks": checks}
+        ok &= all(checks.values())
+        del pipe, plain, tr, va
+        torch.cuda.empty_cache()
+    out["gpu"] = gpu_line()
+    if not ok:
+        raise AssertionError(f"data phase failed: {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------- LM slice
@@ -3598,6 +3898,7 @@ def main() -> int:
     hidden32_bf16 = phase_hidden32_bf16(dev, tr)
     emit(hidden32_bf16)
     emit(phase_dist(dev, scale))
+    emit(phase_data(dev))
     del tr, va
     for row in rows:  # forward kernels: the serve run; the rest: training
         if row["name"] in ("edge_identity", "edge_identity_bwd"):

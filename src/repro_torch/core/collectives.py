@@ -189,3 +189,29 @@ def max_across(values: list, axis: Optional[GraphAxis]) -> list:
     t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
     return [int(v) for v in t.tolist()]
+
+
+def gather_across(t: Tensor, axis: Optional[GraphAxis]) -> list:
+    """Every rank's ``t`` (one shape on every rank), in rank order, outside
+    autograd; ``[t]`` on no axis or a one-rank axis."""
+    if axis is None or axis.size == 1:
+        return [t]
+    bufs, _ = _gather(t, axis, async_op=False)
+    return bufs
+
+
+def max_across_f32(t: Tensor, axis: Optional[GraphAxis]) -> Tensor:
+    """Elementwise max over the axis of non-negative f32 values, exact.
+
+    The values go as their int32 bit patterns, which order as non-negative
+    floats do (NaN is first made +inf, which loses no comparison it
+    should win), reduced as int64 MAX: what gloo is known to reduce on
+    CUDA tensors (``tools/collective_probe.py``)."""
+    t = torch.nan_to_num(t, nan=float("inf"))
+    if axis is None or axis.size == 1:
+        return t
+    import torch.distributed as dist
+
+    bits = t.contiguous().view(torch.int32).to(torch.int64)
+    dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=axis.group)
+    return bits.to(torch.int32).view(torch.float32)

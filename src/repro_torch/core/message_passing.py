@@ -99,6 +99,13 @@ def segment_sum(values: Tensor, segment_ids: Tensor,
     return out
 
 
+def receiver_degree(g: GeometricGraph) -> Tensor:
+    """Masked in-degree per node: Σ_{e: rcv(e)=i} edge_mask_e, (N,)."""
+    live = torch.nonzero(g.edge_mask != 0).squeeze(1)
+    return segment_sum(g.edge_mask[live], g.receivers[live].long(),
+                       g.n_nodes)
+
+
 def aggregate_edges(values: Tensor, g: GeometricGraph, *,
                     normalize: bool = True) -> Tensor:
     """Masked segment reduce of per-edge values (E, F) onto receivers,
@@ -149,6 +156,21 @@ def reset_dispatch_counts() -> None:
 
 def dispatch_counts() -> dict[str, int]:
     return dict(DISPATCH_COUNTS)
+
+
+def dispatch_mode(counts: dict, use_kernel: bool, backend_mode: str) -> str:
+    """Classify the edge dispatch of the calls ``counts`` saw: ``'plain'``
+    when the kernel was not asked for (the reference's ``'jnp'``),
+    ``backend_mode`` (``kernels.runtime.backend_mode``: ``'cuda'``, or
+    ``'cpu'`` where the wrappers run their plain versions) when the kernel
+    path was taken, ``'fallback'`` when it was asked for and never taken.
+    The CSR layout is always built on the host, so there is no regroup to
+    count (the reference's other ``'fallback'`` case)."""
+    if not use_kernel:
+        return "plain"
+    if counts.get("edge_kernel", 0):
+        return backend_mode
+    return "fallback"
 
 
 # The reference's kernel-dispatch budget, carried for parity of the

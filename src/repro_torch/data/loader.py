@@ -10,11 +10,10 @@ slots of a mask-padded trailing batch.  Assembly is split host/device as
 in the JAX package: :func:`collate_host` stacks numpy arrays into a
 :class:`HostBatch`, :func:`batch_to_device` moves it to the device, and
 :func:`make_batch` is their composition.  :func:`dataset_to_batches`
-builds one epoch's list eagerly (the streaming data plane is not ported).
+is one epoch of ``data.stream.BatchStream``, materialized.
 """
 from __future__ import annotations
 
-import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -104,12 +103,16 @@ def csr_layout(senders: np.ndarray, receivers: np.ndarray,
     return csr_indptr(receivers, e, n_nodes), np.int64(e), sperm, sptr
 
 
-def attach_layout(a: dict) -> dict:
+def attach_layout(a: dict, cache=None) -> dict:
     """Store the sample's CSR layout (:func:`csr_layout`) under
-    ``"layout"``."""
+    ``"layout"``.  The build goes through ``data.layout_cache.get_or_build``
+    (``cache``: a ``LayoutCache`` to load it from, or ``None``), so its
+    counters see it."""
+    from repro_torch.data.layout_cache import get_or_build
+
     a = dict(a)
-    a["layout"] = csr_layout(a["senders"], a["receivers"], a["edge_mask"],
-                             a["x"].shape[0])
+    a["layout"] = get_or_build(cache, a["senders"], a["receivers"],
+                               a["x"].shape[0], edge_mask=a["edge_mask"])
     return a
 
 
@@ -185,39 +188,24 @@ def dataset_to_batches(samples, batch_size: int, *, r: float = np.inf,
                        drop_rate: float = 0.0, edge_cap: int | None = None,
                        shuffle_seed: int | None = None,
                        with_layout: bool = True, drop_last: bool = False,
+                       cache_dir: str | None = None,
                        device=None) -> list[GraphBatch]:
     """Raw samples (NamedTuples with ``x0``/``v0``/``x1`` and a feature
-    field) → one epoch of fixed-shape batches, eagerly.
+    field) → one epoch of fixed-shape batches, eagerly: the materialized
+    ``data.stream.BatchStream``.
 
     All samples share the dataset's node and edge capacities (the largest
     of any sample unless ``edge_cap`` is given).  ``shuffle_seed`` permutes
     the samples once with ``np.random.default_rng(seed)``.  The trailing
     ``len % batch_size`` samples become a mask-padded partial batch, or are
-    dropped with a warning when ``drop_last``.  The same batches, in the
-    same order, as the JAX package's ``dataset_to_batches``.
+    dropped with a warning when ``drop_last``.  ``cache_dir`` loads the CSR
+    layouts from a ``data.layout_cache`` directory.  The same batches, in
+    the same order, as the JAX package's ``dataset_to_batches``.
     """
-    arrays = [sample_to_arrays(s.x0, s.v0, sample_h(s), s.x1, r=r,
-                               drop_rate=drop_rate, edge_cap=edge_cap)
-              for s in samples]
-    if not arrays:
-        return []
-    n_cap = max(a["x"].shape[0] for a in arrays)
-    e_cap = edge_cap or max(a["senders"].shape[0] for a in arrays)
-    arrays = [repad_arrays(a, n_cap, e_cap) for a in arrays]
-    if with_layout:
-        arrays = [attach_layout(a) for a in arrays]
-    order = np.arange(len(arrays))
-    if shuffle_seed is not None:
-        np.random.default_rng(shuffle_seed).shuffle(order)
-    bs, n = batch_size, len(arrays)
-    out = [make_batch([arrays[j] for j in order[i:i + bs]], device=device)
-           for i in range(0, n - bs + 1, bs)]
-    rem = n % bs
-    if rem and drop_last:
-        warnings.warn(f"dataset_to_batches: dropping the trailing {rem} "
-                      f"samples (drop_last=True, batch_size={bs})",
-                      stacklevel=2)
-    elif rem:
-        out.append(make_batch([arrays[j] for j in order[n - rem:]],
-                              pad_to=bs, device=device))
-    return out
+    from repro_torch.data.stream import BatchStream
+
+    return BatchStream(
+        samples, batch_size, r=r, drop_rate=drop_rate, edge_cap=edge_cap,
+        shuffle_seed=shuffle_seed, with_layout=with_layout,
+        drop_last=drop_last, cache_dir=cache_dir,
+        device=device).materialize()

@@ -13,7 +13,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
-from repro_torch.data.loader import csr_layout
 from repro_torch.data.radius_graph import (drop_longest_edges, pad_edges,
                                            pad_nodes, radius_graph,
                                            sort_edges_by_receiver)
@@ -108,17 +107,23 @@ LAYOUT_FIELDS = ("indptr", "n_edges", "sperm", "sptr")
 
 
 def shard_layout_fields(senders: np.ndarray, receivers: np.ndarray,
-                        edge_mask: np.ndarray, n_cap: int) -> dict:
+                        edge_mask: np.ndarray, n_cap: int,
+                        layout_cache=None) -> dict:
     """(D, e_cap) padded local edge arrays → the stacked CSR layout fields
     (the one place they are built, for :func:`partition_sample` and
-    :func:`repad_partition`)."""
-    lays = [csr_layout(senders[d], receivers[d], edge_mask[d], n_cap)
+    :func:`repad_partition`), each through
+    ``data.layout_cache.get_or_build`` (``layout_cache``: a ``LayoutCache``
+    or ``None``)."""
+    from repro_torch.data.layout_cache import get_or_build
+
+    lays = [get_or_build(layout_cache, senders[d], receivers[d], n_cap,
+                         edge_mask=edge_mask[d])
             for d in range(senders.shape[0])]
     return {f: np.stack(parts) for f, parts in zip(LAYOUT_FIELDS, zip(*lays))}
 
 
-def repad_partition(pg: PartitionedGraph, n_cap: int,
-                    e_cap: int) -> PartitionedGraph:
+def repad_partition(pg: PartitionedGraph, n_cap: int, e_cap: int,
+                    layout_cache=None) -> PartitionedGraph:
     """One PartitionedGraph at larger capacities: node and edge arrays grow
     by zero padding (masked slots) and the CSR layouts are rebuilt at the
     new shapes."""
@@ -131,7 +136,7 @@ def repad_partition(pg: PartitionedGraph, n_cap: int,
     edge = {f: pad_to(getattr(pg, f), e_cap)
             for f in ("senders", "receivers", "edge_mask")}
     lay = shard_layout_fields(edge["senders"], edge["receivers"],
-                              edge["edge_mask"], n_cap)
+                              edge["edge_mask"], n_cap, layout_cache)
     return pg._replace(**node, **edge, **lay)
 
 
@@ -217,10 +222,10 @@ def partition_shards(x: np.ndarray, v: np.ndarray, h: np.ndarray,
     return shards
 
 
-def pad_shards(shards: list[LocalShard], n_cap: int,
-               e_cap: int) -> PartitionedGraph:
+def pad_shards(shards: list[LocalShard], n_cap: int, e_cap: int,
+               layout_cache=None) -> PartitionedGraph:
     """Pad unpadded shards to ``(n_cap, e_cap)`` and build their CSR
-    layouts."""
+    layouts (through ``layout_cache``, a ``LayoutCache`` or ``None``)."""
     fields = ("x", "v", "h", "x_target", "senders", "receivers", "node_mask",
               "edge_mask")
     out = {k: [] for k in fields}
@@ -237,7 +242,7 @@ def pad_shards(shards: list[LocalShard], n_cap: int,
         out["edge_mask"].append(em)
     base = {k: np.stack(v) for k, v in out.items()}
     lay = shard_layout_fields(base["senders"], base["receivers"],
-                              base["edge_mask"], n_cap)
+                              base["edge_mask"], n_cap, layout_cache)
     return PartitionedGraph(**base, **lay)
 
 

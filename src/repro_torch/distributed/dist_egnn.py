@@ -97,7 +97,7 @@ _GRAPH_FIELDS = ("x", "v", "h", "senders", "receivers", "node_mask",
 _REPAD_WARNED = False
 
 
-def stack_partitions_host(pgs) -> dict:
+def stack_partitions_host(pgs, layout_cache=None) -> dict:
     """list[PartitionedGraph] (one per batch element, each (D_l, ...)) →
     dict of stacked numpy fields (D_l, B, ...), the CSR layout fields
     included.
@@ -106,7 +106,8 @@ def stack_partitions_host(pgs) -> dict:
     (its CSR layout rebuilt at the new shapes,
     ``data.partition.repad_partition``).  Inflating a sample's capacity by
     more than 2× warns once: one outlier sample is then dictating the
-    batch's shapes and compute.
+    batch's shapes and compute.  ``layout_cache`` (a
+    ``data.layout_cache.LayoutCache``) serves the rebuilt layouts.
     """
     global _REPAD_WARNED
     n_cap = max(p.x.shape[1] for p in pgs)
@@ -124,7 +125,7 @@ def stack_partitions_host(pgs) -> dict:
                 f"e_cap={e0}) to the batch max (n_cap={n_cap}, e_cap={e_cap}) "
                 f"— >2× inflation; one outlier sample is dictating the "
                 f"batch's padded shapes (warned once)", stacklevel=2)
-        stacked.append(repad_partition(p, n_cap, e_cap))
+        stacked.append(repad_partition(p, n_cap, e_cap, layout_cache))
     return {f: np.stack([getattr(p, f) for p in stacked], axis=1)
             for f in _GRAPH_FIELDS + LAYOUT_FIELDS}
 

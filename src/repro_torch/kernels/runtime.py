@@ -51,6 +51,14 @@ def unpad(t: torch.Tensor, shape) -> torch.Tensor:
     return t[tuple(slice(0, k) for k in shape)].contiguous()
 
 
+def backend_mode(device) -> str:
+    """What a dispatched kernel path runs as on ``device``: ``'cuda'`` (the
+    CUDA kernels) or ``'cpu'`` (the wrappers' plain versions) — the tag
+    ``core.message_passing.dispatch_mode`` reports, where the reference
+    reports ``'tpu'`` or ``'interpret'``."""
+    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+
+
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """``None``/``'cuda'``/``'cpu'``/``torch.device`` → ``torch.device``.
 

@@ -1,28 +1,31 @@
 """Training launcher (GNN mode).
 
-    python -m repro_torch.launch.train gnn --dataset fluid --n-nodes 7800 \
-        --n-samples 8 --batch 4 --epochs 2 [--devices 2]
+    python -m repro_torch.launch.train gnn --dataset nbody --epochs 50 \
+        [--devices 2] [--layout-cache DIR] [--reshuffle]
 
 Builds ``--model`` (any name of ``models.registry``; default fast_egnn)
-with ``build_pipeline`` (random weights from ``--seed``), the batches
-with ``Pipeline.make_batches`` and trains with ``Pipeline.fit``; the
-flags, their defaults and the per-model keywords are the JAX package's
-``launch/train.py`` (keywords a model's config does not have, such as
-RF's ``h_in``, are left out), plus ``--device``: the model runs on CUDA
-through the hand-written kernels, or with ``--device cpu`` through their
-plain PyTorch versions.  ``--devices D`` > 1 trains DistEGNN (the model
-pinned to fast_egnn, Sec. VI): D ranks started on this machine
-(``launch.mesh.spawn_ranks``), each on its own shard of every batch
-(``--partition``), over NCCL with a GPU each or gloo when they share one
-GPU or run on the CPU.  Not ported yet: the ``nbody`` and ``protein``
-datasets and the streaming data plane (``--layout-cache``,
-``--reshuffle``; ROADMAP queue A #7) and LM mode (queue A #10).
-``--prefetch`` and ``--workers`` are accepted and have no effect: batches
-are built eagerly.
+with ``build_pipeline`` (random weights from ``--seed``), streams the
+batches of ``--dataset`` (nbody, fluid or protein, generated from their
+seeds) with ``Pipeline.make_batches`` (``--workers`` build threads,
+``--prefetch`` batches ahead; ``--layout-cache DIR`` keeps the CSR
+layouts on disk and prints the cache's counters; ``--reshuffle``
+reshuffles the training stream each epoch) and trains with
+``Pipeline.fit``.  The flags, their defaults and the per-model keywords
+are the JAX package's ``launch/train.py`` (keywords a model's config does
+not have, such as RF's ``h_in``, are left out), plus ``--device``: the
+model runs on CUDA through the hand-written kernels, or with ``--device
+cpu`` through their plain PyTorch versions.  ``--devices D`` > 1 trains
+DistEGNN (the model pinned to fast_egnn, Sec. VI): D ranks started on
+this machine (``launch.mesh.spawn_ranks``), each on its own shard of
+every batch (``--partition``), over NCCL with a GPU each or gloo when
+they share one GPU or run on the CPU.  LM mode is not ported yet
+(ROADMAP queue A #10).
 """
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 
 def config_kwargs(model: str, kw: dict) -> dict:
@@ -34,15 +37,6 @@ def config_kwargs(model: str, kw: dict) -> dict:
 
 
 def gnn_main(args) -> None:
-    if args.dataset != "fluid":
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: the port generates 'fluid' only; "
-            f"nbody and protein come with the data plane (ROADMAP queue A "
-            f"#7)")
-    if args.layout_cache or args.reshuffle:
-        raise NotImplementedError(
-            "--layout-cache and --reshuffle need the streaming data plane "
-            "(ROADMAP queue A #7)")
     if args.devices > 1:
         from repro_torch.launch.mesh import spawn_ranks
 
@@ -57,19 +51,36 @@ def _gnn_rank(rank: int, world: int, args) -> None:
     train_gnn(args, make_gnn_mesh(world, device=args.device))
 
 
+def dataset(name: str, n_samples: int, n_nodes: int) -> tuple:
+    """``(samples, r, h_in)`` of a dataset, as the JAX package's launcher
+    sets them: nbody fully connected (r = ∞) with one charge feature,
+    fluid r = 0.035, protein r = 10 Å with four residue-type features."""
+    if name == "nbody":
+        from repro_torch.data.nbody import generate_nbody_dataset
+
+        return generate_nbody_dataset(n_samples, n_nodes=n_nodes), np.inf, 1
+    if name == "fluid":
+        from repro_torch.data.fluid import generate_fluid_dataset
+
+        return (generate_fluid_dataset(n_samples, n_particles=n_nodes),
+                0.035, 1)
+    from repro_torch.data.protein import generate_protein_dataset
+
+    return generate_protein_dataset(n_samples, n_res=n_nodes), 10.0, 4
+
+
 def train_gnn(args, mesh=None) -> None:
     """Generate the data, build the pipeline (on ``mesh``, DistEGNN, when
-    given), fit, report and checkpoint (rank 0 of a mesh)."""
+    given), stream the batches, fit, report and checkpoint (rank 0 of a
+    mesh)."""
     import torch
 
-    from repro_torch.data.fluid import generate_fluid_dataset
     from repro_torch.pipeline import build_pipeline
     from repro_torch.training.checkpoint import save_checkpoint
     from repro_torch.training.trainer import TrainConfig
 
     lead = mesh is None or mesh.rank == 0
-    data = generate_fluid_dataset(args.n_samples, n_particles=args.n_nodes)
-    r, h_in = 0.035, 1
+    data, r, h_in = dataset(args.dataset, args.n_samples, args.n_nodes)
     n_tr = int(0.8 * len(data))
     model = args.model if mesh is None else "fast_egnn"
     kw = dict(h_in=h_in, n_layers=args.n_layers, hidden=args.hidden)
@@ -83,14 +94,25 @@ def train_gnn(args, mesh=None) -> None:
         model, generator=torch.Generator().manual_seed(args.seed),
         device=args.device, train_cfg=tc, use_kernel=True, mesh=mesh,
         **config_kwargs(model, kw))
-    bk = dict(r=r, drop_rate=args.drop_rate)
-    if mesh is not None:
-        bk.update(partition=args.partition)
-    tr = pipe.make_batches(data[:n_tr], args.batch, **bk)
+    # the streaming data plane: batches built by --workers threads,
+    # --prefetch ahead; --layout-cache keeps the CSR layouts on disk
+    bk = dict(r=r, drop_rate=args.drop_rate, partition=args.partition,
+              prefetch=args.prefetch, num_workers=args.workers,
+              cache_dir=args.layout_cache)
+    # reshuffle the training stream only: a reshuffled validation stream
+    # would move the early-stopping metric with its batching
+    tr = pipe.make_batches(data[:n_tr], args.batch,
+                           reshuffle_each_epoch=args.reshuffle,
+                           shuffle_seed=args.seed if args.reshuffle else None,
+                           **bk)
     va = pipe.make_batches(data[n_tr:], args.batch, **bk)
     res = pipe.fit(tr, va, verbose=lead)
     if not lead:
         return
+    if args.layout_cache:
+        from repro_torch.data.layout_cache import cache_stats
+
+        print("layout cache:", cache_stats())
     print(f"best val MSE: {res.best_val:.6f}  wall: {res.wall_time:.1f}s"
           f"  device: {pipe.device}  devices: {args.devices}")
     if args.checkpoint:

@@ -13,23 +13,26 @@ and returns a :class:`Pipeline` with ``cfg``, ``params``, ``apply_full``,
   sptr])``.  The scenes of a batch run one after another through the same
   per-scene forward, so a batched prediction equals the per-scene ones by
   construction;
-* :meth:`Pipeline.make_batches` → an eager list of layout-carrying
+* :meth:`Pipeline.make_batches` → a re-iterable
+  :class:`~repro_torch.data.stream.BatchStream` of layout-carrying
   ``data.loader.GraphBatch``es; :meth:`Pipeline.train_step`,
   :meth:`Pipeline.eval_step`, :meth:`Pipeline.predict` and
   :meth:`Pipeline.fit` (epochs + early stopping, ``training.trainer``);
 * :meth:`Pipeline.rollout`: recursive prediction of one scene through a
-  cached :class:`~repro_torch.rollout.engine.RolloutEngine`.
+  cached :class:`~repro_torch.rollout.engine.RolloutEngine`;
+* :meth:`Pipeline.dispatch_report`: the kernel-dispatch counts and the
+  rollout engines' LRU.
 
 ``build_pipeline("fast_egnn", mesh=make_gnn_mesh(...), ...)`` (DistEGNN,
 Sec. VI; ``distributed.dist_egnn``) is the same surface on one rank of a
-group: ``make_batches`` builds this rank's shard of each batch,
+group: ``make_batches`` streams this rank's shard of each batch,
 ``predict_fn(params, ShardedBatch) -> (B, n_cap, 3)`` is the distributed
-forward, ``train_step`` / ``fit`` the distributed train step, and
-``eval_step`` the Eq. 18 objective.
+forward, ``train_step`` / ``fit`` the distributed train step,
+``eval_step`` the Eq. 18 objective, and ``rollout`` runs
+:class:`~repro_torch.rollout.engine.DistRolloutEngine` on the group.
 """
 from __future__ import annotations
 
-import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -96,73 +99,53 @@ class Pipeline:
 
     # ------------------------------------------------------------- batches
     def make_batches(self, samples, batch_size: int, *, r: float = np.inf,
-                     drop_rate: float = 0.0,
+                     drop_rate: float = 0.0, partition: str = "random",
                      shuffle_seed: Optional[int] = None,
                      with_layout: Optional[bool] = None,
+                     reshuffle_each_epoch: bool = False,
+                     cache_dir: Optional[str] = None,
+                     prefetch: Optional[int] = None,
+                     num_workers: Optional[int] = None,
                      edge_cap: Optional[int] = None,
-                     drop_last: bool = False,
-                     partition: str = "random") -> list:
-        """Raw samples → an eager list of fixed-shape ``GraphBatch``es on
-        this pipeline's device; the trailing partial batch is mask-padded
-        (``data.loader.dataset_to_batches``).  ``with_layout`` defaults to
-        ``cfg.use_kernel``: only the kernel path reads the CSR layout.
+                     drop_last: bool = False):
+        """Raw samples → a :class:`~repro_torch.data.stream.BatchStream` of
+        fixed-shape batches on this pipeline's device (DESIGN.md §8).
 
-        On a mesh: an eager list of this rank's ``ShardedBatch``es (their
-        CSR layouts always built).  Sample j of a batch is split by
-        ``partition_sample(strategy=partition, seed=j)``, and this rank
-        builds only its own shard; the edge capacities (each sample's max
-        over its shards, unless ``edge_cap``) are agreed by an integer max
-        over the group, so every shard is the one a single process would
-        build.  The trailing samples short of a full batch are dropped
-        with a warning (the sharded step has no sample mask)."""
-        from repro_torch.data.loader import dataset_to_batches
+        One device: ``GraphBatch``es at the dataset's shared capacities,
+        the trailing partial batch mask-padded (dropped with a warning when
+        ``drop_last``); ``with_layout`` defaults to ``cfg.use_kernel``
+        (only the kernel path reads the CSR layout).  On a mesh: this
+        rank's ``ShardedBatch``es (their CSR layouts always built): sample
+        j of a batch is split by ``partition_shards(strategy=partition,
+        seed=j)`` and this rank builds only its own shard; each sample's
+        edge capacity (its max over the shards, unless ``edge_cap``) is
+        agreed by an integer max over the group, so every shard is the one
+        a single process would build.  The trailing samples short of a
+        full batch are dropped with a warning (the sharded step has no
+        sample mask).
 
-        if self.mesh is not None:
-            return self._sharded_batches(samples, batch_size, r, drop_rate,
-                                         partition, shuffle_seed, edge_cap)
+        The stream re-iterates once an epoch (``fit``), its host batches
+        built by ``num_workers`` threads ``prefetch`` batches ahead
+        (defaults ``data.stream.DEFAULT_PREFETCH`` / ``DEFAULT_WORKERS``;
+        0 iterates synchronously); ``len``, indexing and ``materialize()``
+        give the eager list.  ``reshuffle_each_epoch`` shuffles each epoch
+        by ``(shuffle_seed, epoch)``; off, every epoch replays the eager
+        order.  ``cache_dir`` keeps the CSR layouts in a
+        ``data.layout_cache`` directory, so a warm run builds none."""
+        from repro_torch.data.stream import (DEFAULT_PREFETCH,
+                                             DEFAULT_WORKERS, BatchStream)
+
         if with_layout is None:
             with_layout = bool(self.cfg.use_kernel)
-        return dataset_to_batches(
+        return BatchStream(
             samples, batch_size, r=r, drop_rate=drop_rate, edge_cap=edge_cap,
             shuffle_seed=shuffle_seed, with_layout=with_layout,
-            drop_last=drop_last, device=self.device)
-
-    def _sharded_batches(self, samples, batch_size: int, r: float,
-                         drop_rate: float, partition: str,
-                         shuffle_seed: Optional[int],
-                         edge_cap: Optional[int]) -> list:
-        from repro_torch.core.collectives import max_across
-        from repro_torch.data.loader import sample_h
-        from repro_torch.data.partition import pad_shards, partition_shards
-        from repro_torch.distributed.dist_egnn import stack_partitions
-
-        axis = self.mesh
-        d, rank = axis.size, axis.rank
-        order = np.arange(len(samples))
-        if shuffle_seed is not None:
-            np.random.default_rng(shuffle_seed).shuffle(order)
-        bs, n = batch_size, len(samples)
-        if n % bs:
-            warnings.warn(
-                f"make_batches: dropping the trailing {n % bs} samples (mesh "
-                f"n_shards={d}; the sharded step has no sample mask, "
-                f"batch_size={bs})", stacklevel=3)
-        slices = [order[i:i + bs] for i in range(0, n - bs + 1, bs)]
-        local = [[partition_shards(
-            samples[i].x0, samples[i].v0, sample_h(samples[i]),
-            samples[i].x1, d, r, strategy=partition, drop_rate=drop_rate,
-            seed=j, shard_range=(rank, rank + 1))[0]
-            for j, i in enumerate(sl)] for sl in slices]
-        counts = [max(1, sh.senders.size) for shards in local
-                  for sh in shards]
-        caps = iter(max_across(counts, axis) if edge_cap is None
-                    else [int(edge_cap)] * len(counts))
-        out = []
-        for sl, shards in zip(slices, local):
-            pgs = [pad_shards([sh], int(np.ceil(samples[i].x0.shape[0] / d)),
-                              next(caps)) for i, sh in zip(sl, shards)]
-            out.append(stack_partitions(pgs, device=self.device))
-        return out
+            reshuffle_each_epoch=reshuffle_each_epoch, drop_last=drop_last,
+            cache_dir=cache_dir,
+            prefetch=DEFAULT_PREFETCH if prefetch is None else prefetch,
+            num_workers=(DEFAULT_WORKERS if num_workers is None
+                         else num_workers),
+            mesh=self.mesh, partition=partition, device=self.device)
 
     # --------------------------------------------------------------- steps
     def _build_steps(self):
@@ -235,32 +218,41 @@ class Pipeline:
         finite and ``async_rebuild`` was not asked for), ``async_rebuild``,
         the capacities, ``targets`` and ``wrap_box`` are those of
         :class:`~repro_torch.rollout.engine.RolloutEngine`; both modes give
-        bitwise the same trajectory.  ``partition`` and ``seed`` choose a
-        mesh rollout's shards, which needs ``DistRolloutEngine``: a mesh
-        pipeline raises ``NotImplementedError`` here.  ``traj_capacity``
-        pre-sizes a compiled buffer the port does not have: it is accepted
-        and changes nothing.  Engines are kept in an LRU of
-        ``ROLLOUT_ENGINE_CACHE`` keys.
+        bitwise the same trajectory.  On a mesh every rank calls this with
+        the whole scene and runs
+        :class:`~repro_torch.rollout.engine.DistRolloutEngine`: the
+        partition (``partition``, ``seed``) is frozen at ``x0``, each rank
+        steps its shard (``node_cap`` / ``edge_cap`` are a shard's), and
+        every rank returns the same global trajectory.
+        ``traj_capacity`` pre-sizes a compiled buffer the port does not
+        have: it is accepted and changes nothing.  Engines are kept in an
+        LRU of ``ROLLOUT_ENGINE_CACHE`` keys.
 
         Returns a :class:`~repro_torch.rollout.engine.RolloutResult`.
         """
-        from repro_torch.rollout.engine import RolloutEngine
+        from repro_torch.rollout.engine import (DistRolloutEngine,
+                                                RolloutEngine)
 
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "rollout on a mesh needs DistRolloutEngine, the next DistEGNN "
-                "slice (ROADMAP queue A #8); use a single-device pipeline")
         x0, v0, h = state0
-        key = (float(r), float(skin), float(dt), float(drop_rate), node_cap,
-               edge_cap, async_rebuild, partition, seed, wrap_box,
-               rebuild_mode)
+        key = (self.mesh is None, float(r), float(skin), float(dt),
+               float(drop_rate), node_cap, edge_cap, async_rebuild,
+               partition, seed, wrap_box, rebuild_mode)
         eng = self._rollout_engines.get(key)
         if eng is None:
-            eng = RolloutEngine(
-                self.predict_fn, r=r, skin=skin, dt=dt, drop_rate=drop_rate,
-                node_cap=node_cap, edge_cap=edge_cap,
-                async_rebuild=async_rebuild, wrap_box=wrap_box,
-                rebuild_mode=rebuild_mode, device=self.device)
+            if self.mesh is None:
+                eng = RolloutEngine(
+                    self.predict_fn, r=r, skin=skin, dt=dt,
+                    drop_rate=drop_rate, node_cap=node_cap,
+                    edge_cap=edge_cap, async_rebuild=async_rebuild,
+                    wrap_box=wrap_box, rebuild_mode=rebuild_mode,
+                    device=self.device)
+            else:
+                eng = DistRolloutEngine(
+                    self.apply_full, self.cfg, self.mesh, r=r, skin=skin,
+                    dt=dt, drop_rate=drop_rate, strategy=partition,
+                    seed=seed, n_cap=node_cap, e_cap=edge_cap,
+                    async_rebuild=async_rebuild, wrap_box=wrap_box,
+                    rebuild_mode=rebuild_mode, device=self.device)
             self._rollout_engines.put(key, eng)
         return eng.run(params, x0, v0, h, n_steps, targets=targets,
                        traj_capacity=traj_capacity)
@@ -276,6 +268,24 @@ class Pipeline:
                       train_batches, val_batches, verbose=verbose)
         self.params = res.params
         return res
+
+
+    # ------------------------------------------------------------ telemetry
+    def dispatch_report(self) -> dict:
+        """The kernel-dispatch counters (``core.message_passing.
+        dispatch_counts``, per call since the last ``reset_dispatch_counts``),
+        ``use_kernel``, the dispatch mode they show for this pipeline
+        (``message_passing.dispatch_mode`` on this device), and the rollout
+        engines' LRU stats."""
+        from repro_torch.core import message_passing as mp
+        from repro_torch.kernels.runtime import backend_mode
+
+        counts = mp.dispatch_counts()
+        use_kernel = bool(getattr(self.cfg, "use_kernel", False))
+        return dict(counts=counts, use_kernel=use_kernel,
+                    mode=mp.dispatch_mode(counts, use_kernel,
+                                          backend_mode(self.device)),
+                    rollout_engine_cache=self._rollout_engines.stats())
 
 
 def build_pipeline(name: str, *, generator: Optional[torch.Generator] = None,

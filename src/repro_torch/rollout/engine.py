@@ -33,6 +33,12 @@ on.  The steps kept are the computations the per-step check would run,
 so trajectories do not depend on the chunking.  A chunk runs up to the
 last interval between failed checks, then probes a quarter of it at a
 time (doubling while the first interval is unknown).
+
+:class:`DistRolloutEngine` is the same single-scene engine on one rank of
+a DistEGNN mesh (DESIGN.md §11): each rank steps its shard of a frozen
+partition, and the skin checks, the device build's flags and the final
+trajectory are agreed over the group, so every rank stops, rebuilds and
+returns alike.
 """
 from __future__ import annotations
 
@@ -191,10 +197,12 @@ class _VerletEngine:
         return 0
 
     # ------------------------------------------------------------- host side
-    def _host_build_scene(self, x_np: np.ndarray) -> dict:
-        """One scene's Verlet list (+ CSR layout) at the pinned capacities;
-        numpy only, so a worker thread may run it."""
-        snd, rcv = radius_graph(x_np, self.r + self.skin)
+    def _host_build_scene(self, x_np: np.ndarray, edges=None) -> dict:
+        """One scene's Verlet list (+ CSR layout) at the pinned capacities,
+        from ``edges`` (its radius graph at ``r + skin``, when already
+        built); numpy only, so a worker thread may run it."""
+        snd, rcv = (radius_graph(x_np, self.r + self.skin) if edges is None
+                    else edges)
         snd, rcv = sort_edges_by_receiver(snd, rcv)
         sp, rp, em = pad_edges(snd, rcv, self.edge_cap, x_np)
         n_edges = int(np.count_nonzero(em))
@@ -215,14 +223,16 @@ class _VerletEngine:
                                    edge_mask=up["edge_mask"])
         self._lay = (up["indptr"], up["n_edges"])
 
-    def _load(self, scenes: list, slot_src: list) -> tuple[list, list]:
-        """Wrap, pad and upload the scenes' ``(x0, v0, h)`` as the slots'
-        state, with empty edge lists.  Returns the real node counts and
-        the f32 (wrapped) starting coordinates of each scene."""
+    def _load(self, scenes: list, slot_src: list,
+              wrap: bool = True) -> tuple[list, list]:
+        """Wrap (unless ``wrap`` is off: already wrapped), pad and upload
+        the scenes' ``(x0, v0, h)`` as the slots' state, with empty edge
+        lists.  Returns the real node counts and the f32 (wrapped)
+        starting coordinates of each scene."""
         xs, vs, hs, ns, nms = [], [], [], [], []
         for (x0, v0, h) in scenes:
             x0 = np.asarray(x0, np.float32)
-            if self.wrap_box is not None:
+            if wrap and self.wrap_box is not None:
                 b = np.float32(self.wrap_box)
                 x0 = x0 - b * np.floor(x0 / b)
             n = x0.shape[0]
@@ -276,7 +286,7 @@ class _VerletEngine:
         """
         t0 = time.perf_counter()
         db, flags = self._device_build(x)
-        f = self._tel.fetch(flags)[:n_real]
+        f = self._reduce_flags(self._tel.fetch(flags)[:n_real])
         if not f[:, 0].all():
             raise FloatingPointError(_DIVERGED_MSG.format(what, step))
         while f[:, 1].any():
@@ -285,7 +295,7 @@ class _VerletEngine:
                                  max(auto_cell_cap(int(f[:, 3].max())),
                                      self._cell_cap + 1))
             db, flags = self._device_build(x)
-            f = self._tel.fetch(flags)[:n_real]
+            f = self._reduce_flags(self._tel.fetch(flags)[:n_real])
         worst = int(f[:, 2].max())
         if worst > self.edge_cap:
             warn_edge_truncation(worst, self.edge_cap, "longest-first")
@@ -295,16 +305,28 @@ class _VerletEngine:
         self._lay = device_csr(db.receivers, db.edge_mask, self.node_cap)
         self._rebuild_s += time.perf_counter() - t0
 
-    def _within(self, x: Tensor, refs: tuple) -> Tensor:
-        """The skin check before a step, on the device: every ``(ref,
-        lim2)`` holds for every slot's largest masked squared displacement
-        from ``ref`` (a 0-d bool tensor)."""
+    def _reduce_flags(self, f: np.ndarray) -> np.ndarray:
+        """The build flags every rank acts on (one rank: its own)."""
+        return f
+
+    def _disp2(self, x: Tensor, refs: tuple) -> Tensor:
+        """What the skin check before a step reads, left on the device: the
+        largest masked squared displacement of any slot from each ``(ref,
+        lim2)``'s reference (``(len(refs),)`` f32)."""
         nm = self._g.node_mask
-        ok = None
-        for ref, lim2 in refs:
-            d2 = (((x - ref) ** 2).sum(-1) * nm).max() <= lim2
-            ok = d2 if ok is None else ok & d2
-        return ok
+        return torch.stack([(((x - ref) ** 2).sum(-1) * nm).max()
+                            for ref, _ in refs])
+
+    def _read_checks(self, disp2: Tensor, refs: tuple) -> np.ndarray:
+        """A chunk's checks ``(k + 1, len(refs))`` → whether each held
+        (every reference within its ``lim2``), in the chunk's one fetch."""
+        d2 = self._tel.fetch(self._max_over_ranks(disp2))
+        lims = np.array([lim2 for _, lim2 in refs], np.float32)
+        return (d2 <= lims).all(axis=1)
+
+    def _max_over_ranks(self, t: Tensor) -> Tensor:
+        """``t`` as every rank sees it (one rank: itself)."""
+        return t
 
     def _chunk_len(self, since: int, left: int) -> int:
         """Steps of the next chunk, ``since`` steps after the last failed
@@ -332,14 +354,14 @@ class _VerletEngine:
         kept: list[Tensor] = []
         while left > 0:
             k = self._chunk_len(since, left)
-            oks, states = [], []
+            checks, states = [], []
             xi, vi = x, v
             for _ in range(k):
-                oks.append(self._within(xi, refs))
+                checks.append(self._disp2(xi, refs))
                 xi, vi = self._step(params, xi, vi)
                 states.append((xi, vi))
-            oks.append(self._within(xi, refs))  # before the step after
-            ok = self._tel.fetch(torch.stack(oks))
+            checks.append(self._disp2(xi, refs))  # before the next step
+            ok = self._read_checks(torch.stack(checks), refs)
             j = int(np.argmin(ok))  # the first failed check (k + 1: none)
             j = k + 1 if ok[j] else j
             self._discarded += max(k - j, 0)
@@ -489,11 +511,12 @@ class RolloutEngine(_VerletEngine):
         n = self._n_real = x32.shape[0]
         self.node_cap = int(self.node_cap or n)
         device = self.rebuild_mode == "device"
+        edges = None
         if self.edge_cap is None:
             # a sizing pass on the host; in device mode its edges are not
             # uploaded (the device build installs the first list)
-            snd, _ = radius_graph(x32, self.r + self.skin)
-            self.edge_cap = max(1, int(np.ceil(snd.size
+            edges = radius_graph(x32, self.r + self.skin)
+            self.edge_cap = max(1, int(np.ceil(edges[0].size
                                                * self.edge_headroom)))
         if device and self._cell_cap is None:
             # clamped at n: no cell can hold more than every node
@@ -503,7 +526,19 @@ class RolloutEngine(_VerletEngine):
         if device:
             self._device_rebuild(self._g.x, 0, 1, n, "")
         else:
-            self._install([self._host_build_scene(x_real)], [0])
+            self._install([self._host_build_scene(x_real, edges)], [0])
+
+    def _all_finite(self, x_np: np.ndarray) -> bool:
+        return bool(np.isfinite(x_np).all())
+
+    def _cap_limit(self) -> int:
+        """A bound on any cell's count, where ``cell_cap`` stops growing."""
+        return self._n_real
+
+    def _trajectory(self, frames: Tensor) -> np.ndarray:
+        """The kept frames (n_steps, node_cap, 3) → the result's
+        trajectory, real nodes only."""
+        return self._tel.fetch(frames)[:, :self._n_real]
 
     @torch.no_grad()
     def run(self, params, x0, v0, h, n_steps: int, *,
@@ -563,12 +598,12 @@ class RolloutEngine(_VerletEngine):
             if pending is None:
                 trigger_steps.append(done)
                 if device:
-                    self._device_rebuild(x, done, 1, n, "")
+                    self._device_rebuild(x, done, 1, self._cap_limit(), "")
                     x_ref = x
                     rebuild_steps.append(done)
                     continue
                 x_np = tel.fetch(x[0], coords=True)[:n]
-                if not np.isfinite(x_np).all():
+                if not self._all_finite(x_np):
                     # no displacement check passes on NaN: without this the
                     # loop would rebuild at the same positions forever
                     raise FloatingPointError(_DIVERGED_MSG.format("", done))
@@ -592,9 +627,10 @@ class RolloutEngine(_VerletEngine):
                 rebuild_steps.append(done)
                 pending = None
 
-        traj = tel.fetch(torch.stack(frames))[:, :n]
+        traj = self._trajectory(torch.stack(frames))
         mse = None
         if targets is not None:
+            n = traj.shape[1]
             err = np.sum((traj - targets[:n_steps, :n]) ** 2, axis=-1)
             mse = np.mean(err, axis=-1) / 3.0
         rebuilds = len(rebuild_steps)
@@ -752,3 +788,163 @@ class BatchedRolloutEngine(_VerletEngine):
             rebuild_count=len(rebuild_steps), rebuild_steps=rebuild_steps,
             chunk_calls=chunk_calls, rebuild_waits=waits,
             **self._counts(base, base2))
+
+
+class DistRolloutEngine(RolloutEngine):
+    """Recursive rollout of one scene on a DistEGNN mesh: each rank of the
+    ``torch.distributed`` group steps its own shard.
+
+    ``apply_full(params, cfg, g, *, axis, edge_layout)`` is the registry's
+    FastEGNN forward; with ``mesh`` (a ``core.collectives.GraphAxis``) its
+    virtual-node sums go over the group in every layer
+    (``core.collectives.graph_sum``).  The engine is the single-scene
+    engine on the rank's shard, with the reference's semantics:
+
+    * the partition is frozen once a run, at the (wrapped) starting
+      positions: ``random_partition(default_rng(seed), n, D)`` or
+      ``metis_like_partition`` on the radius graph at ``r + skin``
+      (``strategy``).  Every rank computes it from its copy of the whole
+      scene, so every rank knows every shard's nodes; ``n_cap`` (default:
+      the largest shard) and ``e_cap`` (the largest shard's Verlet edge
+      count × ``edge_headroom``, agreed by an integer max) stay pinned for
+      later runs, as does ``cell_cap`` (default: the densest cell of any
+      shard, with headroom);
+    * the skin check: each rank's largest masked squared displacement,
+      before every step of a chunk and after its last, made global by one
+      ``all_reduce(MAX)`` a chunk (``collectives.max_across_f32``), so every
+      rank stops at the same step; the chunk lengths and every branch
+      depend only on such agreed values, so the ranks' collective calls
+      stay matched;
+    * device rebuilds (``data/cell_list.py`` on the shard, at the pinned
+      capacities): the flags (non-finite, overflow, edges found, densest
+      cell) are agreed by one integer max, so an overflow on any shard
+      grows ``cell_cap`` and builds again on every rank, and a non-finite
+      coordinate raises ``FloatingPointError`` on every rank at the same
+      step.  Host rebuilds fetch and build only the rank's own shard,
+      synchronously or (``async_rebuild``) on the shared worker pool,
+      with the two-reference rule of :class:`RolloutEngine`;
+    * the result: one ``all_gather`` of the ranks' trajectories, scattered
+      by the frozen indices, gives every rank the same global
+      ``(n_steps, n, 3)`` trajectory, bit for bit.
+    """
+
+    def __init__(self, apply_full: Callable, cfg, mesh, *, r: float,
+                 skin: float, dt: float, drop_rate: float = 0.0,
+                 strategy: str = "random", seed: int = 0,
+                 n_cap: Optional[int] = None, e_cap: Optional[int] = None,
+                 async_rebuild: Optional[bool] = None,
+                 rebuild_margin: float = 0.5,
+                 edge_headroom: float = DEFAULT_EDGE_HEADROOM, pool=None,
+                 wrap_box: Optional[float] = None,
+                 rebuild_mode: str = "auto",
+                 cell_cap: Optional[int] = None, device=None):
+        if strategy not in ("random", "metis"):
+            raise ValueError(f"unknown partition strategy {strategy!r}")
+
+        def predict(params, g: GeometricGraph, layout) -> Tensor:
+            out = []
+            for b in range(g.x.shape[0]):
+                gb = GeometricGraph(*(a[b] for a in g))
+                lay = None if layout is None else tuple(a[b] for a in layout)
+                out.append(apply_full(params, cfg, gb, axis=mesh,
+                                      edge_layout=lay)[0])
+            return torch.stack(out)
+
+        super().__init__(
+            predict, r=r, skin=skin, dt=dt, drop_rate=drop_rate,
+            node_cap=n_cap, edge_cap=e_cap, async_rebuild=async_rebuild,
+            rebuild_margin=rebuild_margin, edge_headroom=edge_headroom,
+            pool=pool, wrap_box=wrap_box, rebuild_mode=rebuild_mode,
+            cell_cap=cell_cap,
+            device=mesh.device if device is None else device)
+        self.apply_full = apply_full
+        self.cfg = cfg
+        self.mesh = mesh
+        self.d = int(mesh.size)
+        self.strategy = strategy
+        self.seed = int(seed)
+        self._idx: list = []  # each shard's global node indices (frozen)
+        self._n_global = 0
+
+    # ------------------------------------------------------- the partition
+    def _freeze_assignment(self, x: np.ndarray) -> None:
+        from repro_torch.data.partition import (metis_like_partition,
+                                                random_partition)
+
+        n = x.shape[0]
+        if self.strategy == "random":
+            assign = random_partition(np.random.default_rng(self.seed), n,
+                                      self.d)
+        else:
+            gs, gr = radius_graph(x, self.r + self.skin)
+            assign = metis_like_partition(x, gs, gr, self.d)
+        self._idx = [np.nonzero(assign == p)[0] for p in range(self.d)]
+        self._n_global = n
+        if self.node_cap is None:
+            self.node_cap = max(1, max(i.size for i in self._idx))
+
+    def _first_build(self, x0, v0, h) -> None:
+        """Freeze the partition, size the capacities on the first run, load
+        this rank's shard and install its first list (device mode: built
+        on the device, bitwise the host build)."""
+        from repro_torch.core.collectives import max_across
+
+        x32 = np.asarray(x0, np.float32)
+        if self.wrap_box is not None:
+            b = np.float32(self.wrap_box)
+            x32 = x32 - b * np.floor(x32 / b)
+        self._freeze_assignment(x32)
+        idx = self._idx[self.mesh.rank]
+        self._n_real = idx.size
+        r_build = self.r + self.skin
+        x_local = x32[idx]
+        device = self.rebuild_mode == "device"
+        edges = None
+        if self.edge_cap is None:
+            edges = radius_graph(x_local, r_build)
+            e_max = max(1, max_across([edges[0].size], self.mesh)[0])
+            self.edge_cap = max(1, int(np.ceil(e_max * self.edge_headroom)))
+        if device and self._cell_cap is None:
+            # every rank holds the whole scene: the same value everywhere
+            occ = max((cell_occupancy(x32[i], r_build) for i in self._idx
+                       if i.size), default=1)
+            self._cell_cap = min(self.node_cap, auto_cell_cap(occ))
+        self._load([(x_local, np.asarray(v0, np.float32)[idx],
+                     np.asarray(h, np.float32)[idx])], [0], wrap=False)
+        if device:
+            self._device_rebuild(self._g.x, 0, 1, self._cap_limit(), "")
+        else:
+            self._install([self._host_build_scene(x_local, edges)], [0])
+
+    # ----------------------------------------------------- agreed decisions
+    def _max_over_ranks(self, t: Tensor) -> Tensor:
+        from repro_torch.core.collectives import max_across_f32
+
+        return max_across_f32(t, self.mesh)
+
+    def _reduce_flags(self, f: np.ndarray) -> np.ndarray:
+        from repro_torch.core.collectives import max_across
+
+        worst = max_across([1 - int(f[0, 0]), int(f[0, 1]), int(f[0, 2]),
+                            int(f[0, 3])], self.mesh)
+        return np.array([[1 - worst[0]] + worst[1:]], np.int32)
+
+    def _cap_limit(self) -> int:
+        return self.node_cap  # the same on every rank
+
+    def _all_finite(self, x_np: np.ndarray) -> bool:
+        from repro_torch.core.collectives import max_across
+
+        return not max_across([int(not np.isfinite(x_np).all())],
+                              self.mesh)[0]
+
+    def _trajectory(self, frames: Tensor) -> np.ndarray:
+        """Every rank's kept frames, gathered and scattered by the frozen
+        indices: the global trajectory, the same on every rank."""
+        from repro_torch.core.collectives import gather_across
+
+        out = np.zeros((frames.shape[0], self._n_global, 3), np.float32)
+        for idx, part in zip(self._idx,
+                             gather_across(frames.contiguous(), self.mesh)):
+            out[:, idx] = self._tel.fetch(part)[:, :idx.size]
+        return out

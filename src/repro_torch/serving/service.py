@@ -164,12 +164,16 @@ class RolloutService:
 
     ``pipeline`` is a built ``repro_torch.pipeline.Pipeline``
     (duck-typed); the service snapshots its ``params``, ``predict_fn`` and
-    ``device`` at construction.  ``clock`` is injectable for
-    deterministic tests.
+    ``device`` at construction; a mesh pipeline (DistEGNN) raises
+    ``ValueError``.  ``clock`` is injectable for deterministic tests.
     """
 
     def __init__(self, pipeline, *, model: str = "default",
                  config: Optional[ServiceConfig] = None, clock=time.monotonic):
+        if getattr(pipeline, "mesh", None) is not None:
+            raise ValueError(
+                "RolloutService serves the single-device path; for the mesh "
+                "path call Pipeline.rollout, which runs DistRolloutEngine")
         self.cfg = config or ServiceConfig()
         self.model = str(model)
         self._predict_fn = pipeline.predict_fn

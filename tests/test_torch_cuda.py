@@ -2524,3 +2524,111 @@ def test_dist_schedules_bitwise_on_card(dist_runs):
     for a, b in zip(_dist_leaves(dist_runs[0], "p1_"),
                     _dist_leaves(dist_runs[1], "p1_")):
         np.testing.assert_array_equal(a, b)
+
+
+_DIST_ROLLOUT_RANK = """
+import json, sys
+import numpy as np, torch
+from repro_torch.data.fluid import generate_fluid_dataset
+from repro_torch.distributed.dist_egnn import make_gnn_mesh
+from repro_torch.kernels import edge_message, virtual_message
+from repro_torch.launch.mesh import init_distributed
+from repro_torch.pipeline import build_pipeline
+
+rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
+                          int(sys.argv[3]), sys.argv[4])
+backend = init_distributed(f"localhost:{port}", world, rank, verbose=False)
+mesh = make_gnn_mesh()
+s = generate_fluid_dataset(1, n_particles=4000, seed=3)[0]
+state = (s.x0, s.v0, s.h)
+kw = dict(r=0.06, skin=0.01, dt=0.005, wrap_box=1.0)
+pipe = build_pipeline("fast_egnn", mesh=mesh, use_kernel=True,
+                      generator=torch.Generator().manual_seed(0))
+plain = build_pipeline("fast_egnn", mesh=mesh, params=pipe.params)
+res, meta = {}, {"backend": backend, "device": str(mesh.device)}
+for name, p, extra in (("dev", pipe, dict(rebuild_mode="device")),
+                       ("host", pipe, dict(rebuild_mode="host",
+                                           async_rebuild=False)),
+                       ("async", pipe, dict(rebuild_mode="host",
+                                            async_rebuild=True)),
+                       ("plain", plain, dict(rebuild_mode="device"))):
+    edge_message.reset_launches()
+    virtual_message.reset_launches()
+    r = p.rollout(p.params, state, 6, **kw, **extra)
+    torch.cuda.synchronize()
+    res[name] = r.trajectory
+    meta[name] = dict(launches=[edge_message.launches,
+                                virtual_message.launches],
+                      computed=6 + r.discarded_steps,
+                      rebuild_steps=r.rebuild_steps,
+                      coord_d2h=r.coord_d2h_bytes, edge_h2d=r.edge_h2d_bytes,
+                      steady=r.steady_state_d2h_bytes)
+np.savez(out + ".npz", **res)
+with open(out + ".json", "w") as fh:
+    json.dump(meta, fh)
+"""
+
+
+@pytest.fixture(scope="module")
+def dist_rollout_runs(tmp_path_factory):
+    """``Pipeline.rollout`` on a 2-rank mesh (gloo, both ranks on the
+    GPU, processes of their own) of a 4,000-particle scene, 6 steps:
+    device, host and asynchronous host rebuilds on the kernels, and device
+    rebuilds on the plain path."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    tmp = tmp_path_factory.mktemp("dist_rollout_cuda")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DIST_ROLLOUT_RANK, str(r), "2", str(port),
+         str(tmp / f"r{r}")], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+    return [(dict(np.load(tmp / f"r{r}.npz")),
+             json.loads((tmp / f"r{r}.json").read_text())) for r in range(2)]
+
+
+@needs_cuda
+def test_dist_rollout_device_equals_host_on_card(dist_rollout_runs):
+    """On CUDA tensors over gloo: device rebuilds give the host rebuilds'
+    trajectory (synchronous and asynchronous) bit for bit, both ranks
+    return the same trajectory, device mode moves no coordinates or
+    edges, and #1 / #3 launch once a layer for every step computed."""
+    layers = FastEGNNConfig().n_layers
+    (r0, m0), (r1, _) = dist_rollout_runs
+    for res, meta in dist_rollout_runs:
+        assert meta["backend"] == "gloo" and meta["device"] == "cuda:0"
+        np.testing.assert_array_equal(res["dev"], res["host"])
+        np.testing.assert_array_equal(res["async"], res["host"])
+        assert meta["dev"]["coord_d2h"] == meta["dev"]["edge_h2d"] == 0
+        assert all(meta[k]["steady"] == 0 for k in ("dev", "host", "async"))
+        for k in ("dev", "host", "async"):
+            n = layers * meta[k]["computed"]
+            assert meta[k]["launches"] == [n, n], k
+        assert meta["plain"]["launches"] == [0, 0]
+    for k in ("dev", "host", "async", "plain"):
+        np.testing.assert_array_equal(r0[k], r1[k])
+    assert m0["dev"]["rebuild_steps"] == m0["host"]["rebuild_steps"]
+
+
+@needs_cuda
+def test_dist_rollout_kernels_match_plain_on_card(dist_rollout_runs):
+    """The first frame of the kernel path's mesh rollout within 1e-4
+    (periodic distance in the unit box) of the plain path's; later frames
+    are not compared (random weights amplify the kernels' rounding)."""
+    for res, _ in dist_rollout_runs:
+        assert np.isfinite(res["dev"]).all()
+        d = np.abs(res["dev"][0].astype(np.float64) - res["plain"][0])
+        assert float(np.max(np.minimum(d, 1.0 - d))) <= 1e-4

@@ -473,8 +473,10 @@ def test_mesh_pipeline_rejects_other_models_and_rollout():
     pipe = build_pipeline("fast_egnn", mesh=mesh, device="cpu", **CFG,
                           generator=torch.Generator().manual_seed(0))
     s = _scenes()[0]
-    with pytest.raises(NotImplementedError, match="DistRolloutEngine"):
-        pipe.rollout(pipe.params, (s.x0, s.v0, s.h), 2, r=R, dt=0.01)
+    # the mesh rollout is ported: it runs (DistRolloutEngine) and is finite
+    res = pipe.rollout(pipe.params, (s.x0, s.v0, s.h), 2, r=R, dt=0.01)
+    assert res.trajectory.shape == (2, N_PARTICLES, 3)
+    assert np.isfinite(res.trajectory).all()
 
 
 def test_launch_train_two_devices():

@@ -391,8 +391,25 @@ def test_pipeline_rollout_engine_lru_and_mesh_refusal(pipe):
 
     mesh = build_pipeline("fast_egnn", device="cpu", params=pipe.params,
                           mesh=make_gnn_mesh(device="cpu"), **SMALL)
-    with pytest.raises(NotImplementedError, match="DistRolloutEngine"):
-        mesh.rollout(mesh.params, (x0, v0, h), 1, r=R, skin=SKIN, dt=DT)
+    # a mesh pipeline rolls out through DistRolloutEngine (no refusal
+    # since the distributed rollout was ported); one rank is single-device
+    got = mesh.rollout(mesh.params, (x0, v0, h), 1, r=R, skin=SKIN, dt=DT)
+    want = p.rollout(p.params, (x0, v0, h), 1, r=R, skin=SKIN, dt=DT)
+    assert np.array_equal(got.trajectory, want.trajectory)
+    from repro_torch.rollout import DistRolloutEngine
+    [key] = mesh._rollout_engines.keys()
+    assert isinstance(mesh._rollout_engines.get(key), DistRolloutEngine)
+
+
+def test_service_refuses_a_mesh_pipeline(pipe):
+    """``RolloutService`` serves the single-device path: a mesh pipeline
+    is refused at construction, naming the mesh path's entry point."""
+    from repro_torch.distributed.dist_egnn import make_gnn_mesh
+
+    mesh = build_pipeline("fast_egnn", device="cpu", params=pipe.params,
+                          mesh=make_gnn_mesh(device="cpu"), **SMALL)
+    with pytest.raises(ValueError, match="DistRolloutEngine"):
+        RolloutService(mesh)
 
 
 def test_simulate_cli_on_cpu(capsys):
