@@ -239,6 +239,38 @@ weights from seed 0) runs:
     lm_decode_f32 — seed 0's f32 weights replay the served tokens: the
              virtual-token state overflows inside the same window and
              within one step of the bf16 replay.
+11. lm_families — the LM stack's attention family, one line a config
+             (FAMILIES: olmoe-1b-7b, deepseek-v2-lite-16b, granite-20b,
+             llama3-405b, whisper-small, llama-3.2-vision-11b), each at
+             its published widths with random weights, freed before the
+             next: (a) f32 at the fewest layers that hold a cross layer
+             (2; llama-vision 5) and FAMILY_PARITY_S tokens (whisper 448
+             over its 1,500 frames): ``forward`` with the kernel against
+             ``use_kernel=False``, every logit within 1e-4 of the largest,
+             aux within 1e-5, one f32 launch per self-, encoder and
+             cross-attention; the bf16 forward of the same weights (one
+             bf16 launch per call) within relative L2 0.1 of it.  (b)
+             bf16 weights built on the card at full depth (llama3-405b: 4
+             of 126 layers, its ``reduced``): a B = 1 prefill of 8,192
+             tokens (whisper: 448) with one bf16 launch per attention
+             call, wall s, tokens/s, peak memory; then ``serve.run`` at
+             batch 4, 16 + 32 tokens: tokens/s, the exact cache footprint,
+             one launch per cross layer and step (and the encoder's).
+             (c) whisper and llama-vision: ``decode_step`` with the kernel
+             against ``use_kernel=False`` over 6 teacher-forced steps at
+             batch 4, each from one shared cache (the cross layers' one
+             query a row over T keys), with (a)'s weights and depth: f32
+             within 1e-4 of each row's largest logit, bf16 within
+             relative L2 0.1 a row, one launch per cross layer and step.
+    lm_family_kernels — the attention kernel alone at the families' new
+             forms (FAMILY_FORMS: MLA's 192 / 128 causal at 8,192;
+             whisper's cross-attention, 448 over 1,500, and encoder,
+             1,500 not causal; llama-vision's cross-attention, 8,192 over
+             1,601; both cross-attentions as decode gives them, batch 4 of
+             one query), bf16 and f32, against its plain version with a
+             bitwise repeat, CUDA-event and device ms beside the plain
+             version, SDPA and the bound; they join the two #7 rows of
+             the kernels line as ``forms``.
 
 Then it prints the card's name and power limit, the per-kernel summary,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA and a checkout
@@ -455,6 +487,56 @@ FULL_LOGIT_TOL = 3e-3
 # The card's first non-finite step, bf16 and f32, must lie in this window
 # (inclusive), and the two within one step of each other.
 VT_OVERFLOW_STEPS = (13, 16)
+# lm_families: the LM stack's attention family, each config at its
+# published widths.  Parity in f32 at FAMILY_PARITY_S tokens (whisper: its
+# decoder's 448, over its 1,500 frames) and the fewest layers that hold a
+# cross layer (2, llama-vision's 5); then bf16 weights at full depth (but
+# llama3-405b: 4 of its 126 layers, its 'reduced') for a PREFILL_S prefill
+# (whisper: 448 decoder tokens) and serve.run at SERVE_BATCH x (SERVE_PROMPT
+# + SERVE_GEN).  The bf16 forward with the f32 weights against the f32
+# kernel forward within relative L2 FAMILY_BF16_L2 (DESIGN.md section 9.3's
+# bf16 bound: bf16 roundings tip some tokens' MoE routing)
+FAMILIES = ("olmoe_1b_7b", "deepseek_v2_lite_16b", "granite_20b",
+            "llama3_405b", "whisper_small", "llama_3_2_vision_11b")
+FAMILY_DEPTH = {"llama3_405b": 4}
+FAMILY_PARITY_S, WHISPER_S = 1024, 448
+FAMILY_BF16_L2 = 0.1
+# decode with the kernel against use_kernel=False (the cross-attention
+# configs: one query a row over the encoder's / image tokens, a batch of
+# SERVE_BATCH): this many teacher-forced steps, each from one shared
+# cache, with the parity run's weights and depth, f32 (LOGIT_TOL of each
+# row's largest logit) and bf16 (each row's relative L2 within
+# FAMILY_BF16_L2).  Not at full depth: there the random weights' virtual-
+# token state grows until whisper's 12 layers round its cross-attention
+# away (rows bitwise equal) or tip a row (relative L2 0.54 at step 5) on
+# an H100; the kernel at decode's shapes is held alone (FAMILY_FORMS)
+DECODE_CMP_STEPS = 6
+# the attention kernel alone at the families' new forms (full heads; B = 1
+# unless ``b`` says otherwise): MLA's widths (192 / 128, causal, 8,192
+# tokens), whisper's cross-attention (448 decoder tokens over 1,500 frames)
+# and encoder (1,500 frames, not causal), llama-vision's cross-attention
+# (8,192 tokens over 1,601 image tokens), and both cross-attentions as
+# decode gives them (SERVE_BATCH rows of one query); ``launches`` from the
+# runs of ``arch`` that ``stages`` names (bf16, f32; by default its prefill
+# and its f32 parity run), by the wrapper's form key
+FAMILY_FORMS = {
+    "mla": dict(arch="deepseek_v2_lite_16b", h=16, kv=16, d=192, dv=128,
+                s=8192, t=8192, causal=True),
+    "whisper_cross": dict(arch="whisper_small", h=12, kv=12, d=64, dv=64,
+                          s=448, t=1500, causal=False),
+    "whisper_encoder": dict(arch="whisper_small", h=12, kv=12, d=64, dv=64,
+                            s=1500, t=1500, causal=False),
+    "vision_cross": dict(arch="llama_3_2_vision_11b", h=32, kv=8, d=128,
+                         dv=128, s=8192, t=1601, causal=False),
+    "whisper_decode_cross": dict(arch="whisper_small", b=SERVE_BATCH, h=12,
+                                 kv=12, d=64, dv=64, s=1, t=1500,
+                                 causal=False,
+                                 stages=("serve", "decode_f32")),
+    "vision_decode_cross": dict(arch="llama_3_2_vision_11b", b=SERVE_BATCH,
+                                h=32, kv=8, d=128, dv=128, s=1, t=1601,
+                                causal=False,
+                                stages=("serve", "decode_f32")),
+}
 
 
 def emit(obj) -> None:
@@ -3835,6 +3917,393 @@ def phase_lm_full_f32(cfg, dev, served) -> tuple[dict, dict]:
     return parity, decode
 
 
+def family_cut(cfg, n_layers: int):
+    """``cfg`` at its published widths and its first ``n_layers`` layers
+    (and at most as many encoder layers)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, n_layers=n_layers, blocks=cfg.blocks[:n_layers],
+        ffns=cfg.ffns[:n_layers],
+        encoder_layers=min(cfg.encoder_layers, n_layers))
+
+
+def attention_calls(cfg) -> int:
+    """Attention calls of one prefill: every self-attention, encoder layer
+    and cross-attention layer."""
+    return (cfg.n_layers + cfg.encoder_layers
+            + sum(cfg.has_cross(i) for i in range(cfg.n_layers)))
+
+
+def family_inputs(cfg, s: int, dev, seed: int) -> tuple:
+    """Tokens (1, s) and the modality input the config reads (whisper's
+    frame embeddings, llama-vision's patch embeddings), from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab, (1, s), device=dev, generator=gen)
+    mod = {}
+    if cfg.has_encoder:
+        mod["audio"] = torch.randn((1, cfg.n_audio_frames, cfg.d_model),
+                                   generator=gen, device=dev)
+    elif cfg.cross_attn_every > 0:
+        mod["images"] = torch.randn((1, cfg.n_image_tokens, cfg.d_model),
+                                    generator=gen, device=dev)
+    return tok, mod
+
+
+def family_cache_bytes(cfg, batch: int, cap: int) -> int:
+    """bf16 caches: K and V (or MLA's latent and rope key) and int32
+    positions per layer, the virtual-token state, and the encoder states
+    or image embeddings cross-attention reads."""
+    total = 0
+    for kind in cfg.blocks:
+        if kind == "mla":
+            width = 2 * (cfg.mla.kv_lora + cfg.mla.d_rope)
+        else:
+            width = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+        total += batch * cap * (width + 4)
+    total += batch * cfg.n_virtual_tokens * cfg.d_virtual * 2
+    if cfg.has_encoder:
+        total += batch * cfg.n_audio_frames * cfg.d_model * 2
+    elif cfg.cross_attn_every > 0:
+        total += batch * cfg.n_image_tokens * cfg.d_model * 2
+    return total
+
+
+def family_parity(full, dev) -> dict:
+    """f32 weights (seed 0) at full width and the fewest layers that hold a
+    cross layer: ``forward`` with the kernel against ``use_kernel=False``
+    (every logit within LOGIT_TOL of the largest, aux within 1e-5), one f32
+    launch per attention call; then the bf16 forward with the same weights
+    (one bf16 launch per call) against the f32 kernel path within
+    FAMILY_BF16_L2; and :func:`family_decode_parity` in f32 and bf16."""
+    import torch
+
+    from repro_torch.archs.model import forward
+    from repro_torch.kernels import swa_attention
+
+    n = 2
+    while not any(full.has_cross(i) for i in range(n)) and \
+            full.cross_attn_every > 0:
+        n += 1
+    cfg = family_cut(full, n)
+    s = WHISPER_S if cfg.has_encoder else FAMILY_PARITY_S
+    params = lm_f32_weights(cfg, 0, dev)
+    tok, mod = family_inputs(cfg, s, dev, seed=1)
+    with torch.no_grad():
+        reset_all_launches()
+        t = time.perf_counter()
+        got, aux = forward(params, cfg, tok, dtype=torch.float32, **mod)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t
+        launches = all_launch_counts()
+        forms = dict(swa_attention.form_launches)
+        want, aux_plain = forward(params, cfg, tok, dtype=torch.float32,
+                                  use_kernel=False, **mod)
+        scale = float(want.abs().max())
+        d = (got - want).abs()
+        out = {"layers": n, "encoder_layers": cfg.encoder_layers,
+               "seq": s, "attention_calls": attention_calls(cfg),
+               "kernel_forward_s": kernel_s,
+               "max_abs_err": float(d.max()), "max_abs_logit": scale,
+               "max_err_over_max_logit": float(d.max()) / scale,
+               "elementwise_within_logit_tol": bool(torch.all(
+                   d <= LOGIT_TOL * scale + LOGIT_TOL * want.abs())),
+               "aux": float(aux), "aux_abs_err": abs(float(aux - aux_plain)),
+               "finite": bool(torch.isfinite(got).all()),
+               "launches": launches, "form_launches": forms}
+        del d, want
+        reset_all_launches()
+        bf, _ = forward(params, cfg, tok, dtype=torch.bfloat16, **mod)
+        out["bf16_launches"] = all_launch_counts()
+        out["bf16_rel_l2_vs_f32"] = rel_l2(bf.float(), got)
+        del bf, got
+    out["decode"] = {tag: family_decode_parity(params, cfg, dt, dev)
+                     for tag, dt in (("f32", torch.float32),
+                                     ("bf16", torch.bfloat16))}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_decode_parity(params, cfg, dtype, dev) -> dict | None:
+    """``decode_step`` with the kernel against ``use_kernel=False`` on the
+    card, for a config with cross layers (None for the others: their
+    decode launches no kernel): SERVE_BATCH rows over serve.run's
+    modality inputs (the encoder's states through the kernel for whisper),
+    DECODE_CMP_STEPS random tokens (seed 2) teacher-forced.  Each step
+    forks the plain path's cache, steps the fork with the kernel and the
+    cache itself without it, so a step's reading is its own: with two
+    caches the bf16 roundings of whisper's 12 random-weight layers
+    compounded from 0.03 to 1.3 relative L2 in 6 steps on an H100.  Only
+    the cross layers launch the kernel there, one query a row over T keys.
+    Per step and row: f32, every logit within LOGIT_TOL of the row's
+    largest; bf16, the relative L2 within FAMILY_BF16_L2."""
+    import torch
+
+    from repro_torch.archs.model import decode_step, encode_audio, init_cache
+    from repro_torch.kernels import swa_attention
+    from repro_torch.launch.serve import modality_inputs
+
+    n_cross = sum(cfg.has_cross(i) for i in range(cfg.n_layers))
+    if not n_cross:
+        return None
+    b, n = SERVE_BATCH, DECODE_CMP_STEPS
+    with torch.no_grad():
+        mod = modality_inputs(cfg, b, dev)
+        enc = (encode_audio(params, cfg, mod["audio"], dtype)
+               if cfg.has_encoder else mod["images"].to(dtype))
+        tok = torch.randint(0, cfg.vocab, (b, n),
+                            generator=torch.Generator().manual_seed(2)).to(dev)
+        cache = init_cache(cfg, b, n, enc_out=enc, dtype=dtype, device=dev)
+        fork = lambda c: c._replace(layers=tuple(
+            {k: type(kv)(*(x.clone() for x in kv)) for k, kv in e.items()}
+            for e in c.layers), vt=None if c.vt is None else c.vt.clone())
+        errs, l2s, finite, within = [], [], True, True
+        launches, forms = {}, {}
+        for t in range(n):
+            pos = torch.full((b,), t, dtype=torch.int32, device=dev)
+            reset_all_launches()
+            got, _ = decode_step(params, cfg, fork(cache), tok[:, t], pos,
+                                 dtype=dtype)
+            torch.cuda.synchronize()
+            for k, v in all_launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            for k, v in swa_attention.form_launches.items():
+                forms[k] = forms.get(k, 0) + v
+            want, cache = decode_step(params, cfg, cache, tok[:, t], pos,
+                                      dtype=dtype, use_kernel=False)
+            finite &= bool(torch.isfinite(got).all()
+                           and torch.isfinite(want).all())
+            d = (got - want).abs()
+            scale = want.abs().amax(dim=-1, keepdim=True)
+            errs.append(float((d / scale).max()))
+            l2s.append([rel_l2(got[i], want[i]) for i in range(b)])
+            if dtype == torch.float32:
+                within &= bool(torch.all(
+                    d <= LOGIT_TOL * scale + LOGIT_TOL * want.abs()))
+            else:
+                within &= max(l2s[-1]) <= FAMILY_BF16_L2
+        del cache, enc
+    return {"dtype": str(dtype).removeprefix("torch."), "batch": b,
+            "steps": n, "cross_layers": n_cross,
+            "max_err_over_row_max_logit": errs, "rel_l2_per_row": l2s,
+            "finite": finite, "within_limit": within,
+            "launches": launches, "form_launches": forms}
+
+
+def family_full(cfg, dev) -> dict:
+    """bf16 weights built on the card at full width and depth: a B = 1
+    prefill of PREFILL_S tokens (whisper: WHISPER_S over its frames), one
+    bf16 launch per attention call, timed; then serve.run at SERVE_BATCH x
+    (SERVE_PROMPT + SERVE_GEN) with the exact cache footprint and one
+    launch per cross layer and step (and the encoder's)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.archs.model import forward, init_arch
+    from repro_torch.kernels import swa_attention
+    from repro_torch.launch import serve
+    from repro_torch.training.optim import tree_leaves
+
+    t0 = time.perf_counter()
+    params = init_arch(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params))}
+    s = WHISPER_S if cfg.has_encoder else PREFILL_S
+    tok, mod = family_inputs(cfg, s, dev, seed=1)
+    with torch.no_grad():
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        logits, aux = forward(params, cfg, tok, **mod)
+        torch.cuda.synchronize()
+        launches = all_launch_counts()
+        forms = dict(swa_attention.form_launches)
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        shape = list(logits.shape)
+        del logits
+        times = []
+        for _ in range(3):  # a warm-up, then 2 timed
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            forward(params, cfg, tok, **mod)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    wall = statistics.median(times[1:])
+    out.update(prefill={
+        "batch": 1, "seq": s, "logits_shape": shape, "finite": finite,
+        "aux": float(aux), "launches": launches, "form_launches": forms,
+        "attention_calls": attention_calls(cfg), "wall_s": times[1:],
+        "wall_s_median": wall, "tokens_per_s": s / wall,
+        "allocated_before_bytes": before, "peak_memory_bytes": peak})
+    text = io.StringIO()
+    reset_all_launches()
+    with contextlib.redirect_stdout(text):
+        res = serve.run(params, cfg, batch=SERVE_BATCH,
+                        prompt_len=SERVE_PROMPT, gen=SERVE_GEN, device=dev)
+    steps = SERVE_PROMPT + SERVE_GEN
+    n_cross = sum(cfg.has_cross(i) for i in range(cfg.n_layers))
+    out["serve"] = {
+        **{k: v for k, v in res.items() if k not in ("prompt", "generated")},
+        "launches": all_launch_counts(),
+        "form_launches": dict(swa_attention.form_launches),
+        "cache_bytes_expected": family_cache_bytes(cfg, SERVE_BATCH, steps),
+        "attention_launches_expected": n_cross * steps,
+        "encoder_launches_expected": cfg.encoder_layers,
+        "generated_row0": res["generated"][0].tolist(),
+        "generated_in_vocab": bool(int(res["generated"].max()) < cfg.vocab),
+        "printout": text.getvalue().splitlines()}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_family(aid: str, dev) -> dict:
+    """One config of the attention family: :func:`family_parity`, then
+    :func:`family_full`; fails on a count, limit or footprint missed."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch(aid)
+    depth = FAMILY_DEPTH.get(aid, full.n_layers)
+    cfg = family_cut(full, depth)
+    t0 = time.perf_counter()
+    par = family_parity(full, dev)
+    big = family_full(cfg, dev)
+    line = {"phase": "lm_families", "arch": full.name, "layers": depth,
+            "published_layers": full.n_layers,
+            "reduced": ([f"{depth} of {full.n_layers} layers"]
+                        if depth < full.n_layers else []),
+            "parity_f32": par, **big, "seconds": time.perf_counter() - t0,
+            "tolerance": {"atol_x_max": LOGIT_TOL, "rtol": LOGIT_TOL,
+                          "aux_atol": 1e-5, "bf16_rel_l2": FAMILY_BF16_L2,
+                          "decode_f32_atol_x_row_max": LOGIT_TOL,
+                          "decode_bf16_row_rel_l2": FAMILY_BF16_L2}}
+    _expect_launches(f"lm_families {aid} parity", par["launches"],
+                     f32=par["attention_calls"])
+    _expect_launches(f"lm_families {aid} parity bf16", par["bf16_launches"],
+                     bf16=par["attention_calls"])
+    pre, srv = big["prefill"], big["serve"]
+    _expect_launches(f"lm_families {aid} prefill", pre["launches"],
+                     bf16=pre["attention_calls"])
+    _expect_launches(f"lm_families {aid} serve", srv["launches"],
+                     bf16=(srv["attention_launches_expected"]
+                           + srv["encoder_launches_expected"]))
+    for tag, dec in par["decode"].items():
+        if dec is not None:
+            _expect_launches(f"lm_families {aid} decode {tag}",
+                             dec["launches"],
+                             **{tag: dec["cross_layers"] * dec["steps"]})
+            if not (dec["finite"] and dec["within_limit"]):
+                raise AssertionError(f"lm_families {aid}: decode {tag} with "
+                                     f"the kernel is not within the limit "
+                                     f"of its plain path: {json.dumps(line)}")
+    ok = (par["elementwise_within_logit_tol"] and par["finite"]
+          and par["aux_abs_err"] <= 1e-5
+          and par["bf16_rel_l2_vs_f32"] <= FAMILY_BF16_L2
+          and pre["finite"]
+          and srv["cache_bytes"] == srv["cache_bytes_expected"]
+          and srv["attention_launches"] == srv["attention_launches_expected"]
+          and srv["encoder_launches"] == srv["encoder_launches_expected"]
+          and srv["generated_in_vocab"])
+    if not ok:
+        raise AssertionError(f"lm_families {aid} failed: {json.dumps(line)}")
+    return line
+
+
+def family_form_rows(dev, families: dict) -> tuple[dict, dict]:
+    """The attention kernel alone at FAMILY_FORMS, bf16 and f32 (the same
+    values), against its plain version in its dtype with a bitwise repeat,
+    timed (CUDA events; device ms from ``torch.profiler``) beside the
+    plain version and SDPA (``library_ms``: None where SDPA refuses the
+    form), with the bound (q, k, v and o once; 2 (D + Dv)
+    FLOP per visible pair at the bf16 tensor-core / f32 rate; for f32
+    also ``bound_3xtf32_ms``, 3x the FLOP at the TF32 tensor-core rate,
+    as the f32 kernel runs its products) and the launches of that form in
+    the runs of ``arch`` that the form's ``stages`` name."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import swa_attention
+
+    readings, rows = {}, {"bf16": {}, "f32": {}}
+    with torch.no_grad():
+        for name, f in FAMILY_FORMS.items():
+            gen = torch.Generator(device=dev).manual_seed(3)
+            b = f.get("b", 1)
+            r = lambda n, length, d: torch.randn((b, length, n, d),
+                                                 generator=gen, device=dev)
+            q32 = r(f["h"], f["s"], f["d"])
+            k32, v32 = r(f["kv"], f["t"], f["d"]), r(f["kv"], f["t"], f["dv"])
+            qp = torch.arange(f["s"], device=dev)
+            kp = torch.arange(f["t"], device=dev)
+            key = swa_attention.form(f["d"], f["dv"], f["s"], f["t"],
+                                     f["causal"])
+            pairs = (visible_pairs(f["s"], True, None) if f["causal"]
+                     else f["s"] * f["t"])
+            flops = 2 * (f["d"] + f["dv"]) * pairs * f["h"] * b
+            elems = b * (f["s"] * f["h"] * (f["d"] + f["dv"])
+                         + f["t"] * f["kv"] * (f["d"] + f["dv"]))
+            stages = f.get("stages", ("prefill", "parity_f32"))
+            out = {"form": key, "shape": {k: v for k, v in f.items()
+                                          if k not in ("arch", "stages")},
+                   "gflop": flops / 1e9}
+            for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+                q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+                run = lambda: swa_attention.attention(q, k, v,
+                                                      causal=f["causal"])
+                plain = lambda: swa_attention.chunked_attention(
+                    q, k, v, qp, kp, causal=f["causal"], window=None)
+                got, again, want = run(), run(), plain()
+                cmp = _attention_close(got, want)
+                cmp["bitwise_repeatable"] = torch.equal(got, again)
+                del got, again, want
+                sq, sk, sv = (a.transpose(1, 2) for a in (q, k, v))
+                lib = lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, is_causal=f["causal"], enable_gqa=True)
+                try:
+                    lib_ms = cuda_ms(lib, 10, 2)
+                except RuntimeError as err:  # SDPA's yardstick only
+                    lib_ms, cmp["library_error"] = None, str(err)[:200]
+                peak = BF16_FLOPS if tag == "bf16" else F32_FLOPS
+                b_ms, b_by = bound_ms(elems * (2 if tag == "bf16" else 4),
+                                      flops, peak)
+                if tag == "f32":
+                    cmp["bound_3xtf32_ms"] = bound_ms(
+                        elems * 4, 3 * flops, TF32_FLOPS)[0]
+                stage = stages[tag == "f32"]
+                counts = families[f["arch"]][stage]["form_launches"]
+                dev_f = device_fields(run)
+                out[tag] = dict(
+                    cmp, ms=cuda_ms(run, 10, 2),
+                    device_ms=dev_f["device_ms"],
+                    kernels_per_call=dev_f["kernels_per_call"],
+                    plain_ms=cuda_ms(plain, 5, 1), library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, launches=counts.get(key, 0))
+                rows[tag][name] = dict(out[tag], name=name)
+            readings[name] = out
+    line = {"phase": "lm_family_kernels", "forms": readings,
+            "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL},
+                          "bf16": {"atol": BF16_ATOL, "rtol": BF16_RTOL}}}
+    for name, out in readings.items():
+        for tag in ("bf16", "f32"):
+            c = out[tag]
+            if not (c["within_tol"] and c["bitwise_repeatable"]
+                    and c["launches"] > 0):
+                raise AssertionError(f"attention kernel at {name} ({tag}) "
+                                     f"disagrees with its plain version or "
+                                     f"never ran on the main path: "
+                                     f"{json.dumps(line)}")
+    return line, rows
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dist-rank"]:  # a rank of the dist phase
         sys.path.insert(0, str(SRC))
@@ -3935,12 +4404,33 @@ def main() -> int:
     full, decode = phase_lm_full_f32(cfg, dev, served)
     emit(full)
     emit(decode)
+    # the attention family: each config, then the kernel at its new forms
+    families = {}
+    for aid in FAMILIES:
+        line = phase_lm_family(aid, dev)
+        emit(line)
+        families[aid] = {"prefill": line["prefill"],
+                         "parity_f32": line["parity_f32"],
+                         "serve": line["serve"],
+                         "decode_f32": line["parity_f32"]["decode"]["f32"]}
+    line, form_rows = family_form_rows(dev, families)
+    emit(line)
     # the bf16 kernel's launches: the bf16 prefill; the f32 kernel's: the
     # f32 prefill of lm_parity_full (seed 0)
     swa_bf16, swa_f32 = lm_rows
     swa_bf16["launches"] = prefill["launches"]["swa_attention"]
     swa_f32["launches"] = full["seeds"][str(FULL_SEEDS[0])]["launches"][
         "swa_attention_f32"]
+    # ... and its readings at the families' forms
+    for row, tag in ((swa_bf16, "bf16"), (swa_f32, "f32")):
+        row["forms"] = {
+            name: dict({k: r[k] for k in ("launches", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "bound_3xtf32_ms", "library_ms",
+                                          "device_ms") if k in r},
+                       name=f"{row['name']}[{name}]", route="cuda",
+                       source=row["source"], replaces=row["replaces"])
+            for name, r in form_rows[tag].items()}
     rows += lm_rows
     # the hidden-32 readings: launches from the hidden32 phase's rollout
     # (forwards) and fit (backwards)
@@ -4007,7 +4497,8 @@ def main() -> int:
                 row[sub] = {k: row[sub][k] for k in keys + ("bf16",)
                             if k in row[sub]}
     emit({"kernels": [{k: row[k] for k in keys + subs
-                       + ("bf16", "widths", "widths_bf16") if k in row}
+                       + ("bf16", "widths", "widths_bf16", "forms")
+                       if k in row}
                       for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,26 @@
-"""Config-driven decoder stack, the dense-attention part.
+"""Config-driven decoder stack: every block kind but the recurrent ones.
 
 The counterpart of the JAX package's ``archs/model.py`` for architectures
-whose blocks are all GQA self-attention (``ATTN``) or sliding-window
-attention (``SWA``), with SwiGLU / GeGLU FFNs and the optional
-virtual-token pathway (the paper's technique): the gemma3 configs.  Other
-block kinds (MLA, Mamba2, mLSTM, sLSTM, shared attention), MoE FFNs, the
-audio encoder and cross-attention raise ``NotImplementedError`` (ROADMAP
-queue A #10).
+whose blocks are GQA self-attention (``ATTN``), sliding-window attention
+(``SWA``) or multi-head latent attention (``MLA``), with SwiGLU / GeGLU /
+MoE FFNs, the optional bidirectional audio encoder (whisper), the optional
+cross-attention layers (whisper's decoder, llama-vision's image layers)
+and the optional virtual-token pathway (the paper's technique): gemma3,
+olmoe, deepseek-v2-lite, granite, llama3 and whisper and llama-vision.
+Mamba2, mLSTM, sLSTM and shared-attention blocks raise
+``NotImplementedError`` (ROADMAP queue A #10).
 
 Three entry points:
   ``forward``      — prefill: tokens (B, S) → logits (B, S, V); every
-                     self-attention runs ``csrc/swa_attention.cu`` on the
-                     card (``use_kernel=False``: the plain attention)
-  ``init_cache``   — decode caches (full KV for ATTN, a ring for SWA)
-  ``decode_step``  — one-token serve step, plain PyTorch, cache updated in
-                     place
+                     self-, encoder and cross-attention runs the hand-
+                     written attention kernel on the card
+                     (``use_kernel=False``: the plain attention)
+  ``init_cache``   — decode caches (full KV for ATTN, a ring for SWA,
+                     latents for MLA) and the encoder states / image
+                     embeddings that cross-attention reads
+  ``decode_step``  — one-token serve step, cache updated in place; plain
+                     PyTorch but for cross-attention, which launches the
+                     kernel (one query over the T encoder states)
 
 Layers run in a Python loop: ``ArchConfig.scan_layers``, ``remat`` and
 ``remat_policy`` are XLA compile-time knobs of the reference and have no
@@ -29,10 +35,12 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.archs.config import (ATTN, FFN_GEGLU, FFN_MOE, FFN_NONE,
-                                      FFN_SWIGLU, SWA, ArchConfig)
+from repro_torch.archs.config import (FFN_GEGLU, FFN_MOE, FFN_NONE,
+                                      FFN_SWIGLU, MAMBA2, MLA, MLSTM,
+                                      SHARED_ATTN, SLSTM, SWA, ArchConfig)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.nn import attention as attn
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn.basic import (dense_init, geglu, init_geglu, init_rmsnorm,
                                   init_swiglu, randn, rmsnorm, swiglu)
 from repro_torch.nn.virtual_tokens import (init_virtual_tokens, init_vt_state,
@@ -59,17 +67,12 @@ def cast_params(params, dtype):
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    kinds = sorted(set(cfg.blocks) - {ATTN, SWA})
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the recurrent blocks and zamba2's shared attention."""
+    kinds = sorted(set(cfg.blocks) & {MAMBA2, MLSTM, SLSTM, SHARED_ATTN})
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {kinds} are not ported {_TODO}")
-    if FFN_MOE in cfg.ffns:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported {_TODO}")
-    if cfg.has_encoder or cfg.cross_attn_every > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and cross-attention are not ported "
-            f"{_TODO}")
 
 
 # -------------------------------------------------------------------- init
@@ -78,15 +81,30 @@ def _init_ffn(gen, cfg: ArchConfig, kind: str, kw):
         return init_swiglu(gen, cfg.d_model, cfg.d_ff, **kw)
     if kind == FFN_GEGLU:
         return init_geglu(gen, cfg.d_model, cfg.d_ff, **kw)
+    if kind == FFN_MOE:
+        m = cfg.moe
+        return moe_lib.init_moe(gen, cfg.d_model, m.d_expert_ff, m.n_experts,
+                                m.top_k, m.n_shared, m.d_shared_ff, **kw)
     return None
 
 
+def _init_gqa(gen, cfg: ArchConfig, kw):
+    return attn.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, **kw)
+
+
 def _init_layer(gen, cfg: ArchConfig, i: int, kw):
-    p: dict[str, Any] = {
-        "norm1": init_rmsnorm(cfg.d_model, **kw),
-        "attn": attn.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.head_dim, **kw),
-    }
+    p: dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, **kw)}
+    if cfg.block_kind(i) == MLA:
+        m = cfg.mla
+        p["attn"] = attn.init_mla(gen, cfg.d_model, cfg.n_heads,
+                                  kv_lora=m.kv_lora, d_nope=m.d_nope,
+                                  d_rope=m.d_rope, d_v=m.d_v, **kw)
+    else:
+        p["attn"] = _init_gqa(gen, cfg, kw)
+    if cfg.has_cross(i):
+        p["norm_x"] = init_rmsnorm(cfg.d_model, **kw)
+        p["cross"] = _init_gqa(gen, cfg, kw)
     fk = cfg.ffns[i]
     if fk != FFN_NONE:
         p["norm2"] = init_rmsnorm(cfg.d_model, **kw)
@@ -108,6 +126,18 @@ def init_arch(gen: torch.Generator, cfg: ArchConfig, *, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, 0.02, **kw)
+    if cfg.has_encoder:
+        params["encoder"] = {
+            "layers": [
+                {"norm1": init_rmsnorm(cfg.d_model, **kw),
+                 "attn": _init_gqa(gen, cfg, kw),
+                 "norm2": init_rmsnorm(cfg.d_model, **kw),
+                 "ffn": init_swiglu(gen, cfg.d_model,
+                                    cfg.d_ff or 4 * cfg.d_model, **kw)}
+                for _ in range(cfg.encoder_layers)
+            ],
+            "final_norm": init_rmsnorm(cfg.d_model, **kw),
+        }
     if cfg.n_virtual_tokens > 0:
         params["vt"] = [
             init_virtual_tokens(gen, cfg.n_virtual_tokens, cfg.d_model,
@@ -117,27 +147,79 @@ def init_arch(gen: torch.Generator, cfg: ArchConfig, *, device=None,
     return params
 
 
+# ----------------------------------------------------------------- encoder
+def _gqa_kw(cfg: ArchConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim)
+
+
+def encode_audio(params, cfg: ArchConfig, frames: Tensor,
+                 dtype=torch.bfloat16, use_kernel: bool = True) -> Tensor:
+    """Whisper-style bidirectional encoder over precomputed frame
+    embeddings (B, n_frames, d_model) (the conv/mel frontend is the stubbed
+    modality input, as in the reference): every layer's self-attention is
+    not causal and runs the attention kernel on the card."""
+    params = cast_params(params, dtype)
+    x = frames.to(dtype)
+    for lp in params["encoder"]["layers"]:
+        h = rmsnorm(lp["norm1"], x)
+        x = x + attn.gqa_forward(lp["attn"], h, None, **_gqa_kw(cfg),
+                                 causal=False, rope_theta=cfg.rope_theta,
+                                 q_chunk=cfg.q_chunk, use_kernel=use_kernel)
+        x = x + swiglu(lp["ffn"], rmsnorm(lp["norm2"], x))
+    return rmsnorm(params["encoder"]["final_norm"], x)
+
+
 # ----------------------------------------------------------------- forward
-def _ffn_apply(lp, kind: str, x: Tensor) -> Tensor:
+def _ffn_apply(lp, cfg: ArchConfig, kind: str, x: Tensor
+               ) -> tuple[Tensor, Optional[Tensor]]:
+    """The FFN's output and, for MoE, its aux loss (else None)."""
     if kind == FFN_SWIGLU:
-        return swiglu(lp["ffn"], x)
+        return swiglu(lp["ffn"], x), None
     if kind == FFN_GEGLU:
-        return geglu(lp["ffn"], x)
-    return torch.zeros_like(x)
+        return geglu(lp["ffn"], x), None
+    if kind == FFN_MOE:
+        m = cfg.moe
+        return moe_lib.moe_ffn(lp["ffn"], x, n_experts=m.n_experts,
+                               top_k=m.top_k,
+                               capacity_factor=m.capacity_factor,
+                               grouped=cfg.moe_grouped)
+    return torch.zeros_like(x), None
+
+
+def _cross(lp, cfg: ArchConfig, x: Tensor, enc_out: Tensor, positions,
+           q_chunk: int, use_kernel: bool) -> Tensor:
+    h = rmsnorm(lp["norm_x"], x)
+    return x + attn.gqa_forward(lp["cross"], h, positions, **_gqa_kw(cfg),
+                                cross_kv=enc_out, q_chunk=q_chunk,
+                                use_kernel=use_kernel)
 
 
 def _layer_forward(lp, cfg: ArchConfig, i: int, x: Tensor,
-                   use_kernel: bool) -> Tensor:
+                   enc_out: Optional[Tensor], use_kernel: bool
+                   ) -> tuple[Tensor, Optional[Tensor]]:
     kind = cfg.block_kind(i)
     h = rmsnorm(lp["norm1"], x)
-    x = x + attn.gqa_forward(
-        lp["attn"], h, None, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        d_head=cfg.head_dim, window=cfg.window if kind == SWA else None,
-        rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk, use_kernel=use_kernel)
+    if kind == MLA:
+        m = cfg.mla
+        x = x + attn.mla_forward(
+            lp["attn"], h, None, n_heads=cfg.n_heads, kv_lora=m.kv_lora,
+            d_nope=m.d_nope, d_rope=m.d_rope, d_v=m.d_v,
+            rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
+            use_kernel=use_kernel)
+    else:
+        x = x + attn.gqa_forward(
+            lp["attn"], h, None, **_gqa_kw(cfg),
+            window=cfg.window if kind == SWA else None,
+            rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
+            use_kernel=use_kernel)
+    if cfg.has_cross(i) and enc_out is not None:
+        x = _cross(lp, cfg, x, enc_out, None, cfg.q_chunk, use_kernel)
+    aux = None
     fk = cfg.ffns[i]
     if fk != FFN_NONE:
-        x = x + _ffn_apply(lp, fk, rmsnorm(lp["norm2"], x))
-    return x
+        out, aux = _ffn_apply(lp, cfg, fk, rmsnorm(lp["norm2"], x))
+        x = x + out
+    return x, aux
 
 
 def _embed(params, cfg: ArchConfig, tokens: Tensor, dtype) -> Tensor:
@@ -152,34 +234,48 @@ def forward(
     cfg: ArchConfig,
     tokens: Tensor,  # (B, S) integer
     *,
-    audio: Optional[Tensor] = None,
-    images: Optional[Tensor] = None,
+    audio: Optional[Tensor] = None,  # (B, n_audio, d_model)
+    images: Optional[Tensor] = None,  # (B, n_img, d_model)
     dtype=torch.bfloat16,
     return_hidden: bool = False,
     use_kernel: bool = True,
 ) -> tuple[Tensor, Tensor]:
-    """Returns (logits (B,S,V) in fp32, aux loss scalar); with
-    ``return_hidden`` the pre-head hidden states (B,S,d) in compute dtype
-    instead of logits.  There is no MoE here, so aux is 0."""
+    """Returns (logits (B,S,V) in fp32, aux loss scalar: the sum of the MoE
+    layers' load-balance losses); with ``return_hidden`` the pre-head
+    hidden states (B,S,d) in compute dtype instead of logits.  Whisper
+    needs ``audio`` (frame embeddings, encoded here), llama-vision
+    ``images`` (patch embeddings, read by its cross-attention layers)."""
     check_supported(cfg)
-    if audio is not None or images is not None:
-        raise NotImplementedError(f"audio / image inputs are not ported {_TODO}")
     params = cast_params(params, dtype)
     b = tokens.shape[0]
     x = _embed(params, cfg, tokens, dtype)
+    enc_out = None
+    if cfg.has_encoder:
+        if audio is None:
+            raise ValueError(f"{cfg.name}: the whisper backbone needs frame "
+                             f"embeddings (audio=)")
+        enc_out = encode_audio(params, cfg, audio, dtype, use_kernel)
+    elif cfg.cross_attn_every > 0:
+        if images is None:
+            raise ValueError(f"{cfg.name}: the vlm backbone needs patch "
+                             f"embeddings (images=)")
+        enc_out = images.to(dtype)
     vt = None
     if cfg.n_virtual_tokens > 0:
         vt = init_vt_state(params["vt"][0], b).to(dtype)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
-        x = _layer_forward(params["layers"][i], cfg, i, x, use_kernel)
+        x, aux = _layer_forward(params["layers"][i], cfg, i, x, enc_out,
+                                use_kernel)
+        if aux is not None:
+            aux_total = aux_total + aux
         if vt is not None:
             x, vt = virtual_token_layer(params["vt"][i], x, vt)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     x = rmsnorm(params["final_norm"], x)
     if return_hidden:
-        return x, aux
+        return x, aux_total
     logits = (x @ lm_head_weights(params, cfg, dtype)).to(torch.float32)
-    return logits, aux
+    return logits, aux_total
 
 
 def lm_head_weights(params, cfg: ArchConfig, dtype=torch.bfloat16) -> Tensor:
@@ -190,29 +286,32 @@ def lm_head_weights(params, cfg: ArchConfig, dtype=torch.bfloat16) -> Tensor:
 
 # ------------------------------------------------------------------ decode
 class DecodeCache(NamedTuple):
-    layers: tuple  # per-layer {"kv": KVCache}
+    layers: tuple  # per-layer {"kv": KVCache or MLACache}
     vt: Optional[Tensor]
-    enc_out: Optional[Tensor]  # cross K/V source (not ported: always None)
+    enc_out: Optional[Tensor]  # encoder states / image embeddings (cross K/V src)
 
 
 def init_cache(cfg: ArchConfig, batch: int, capacity: int, *,
                enc_out: Optional[Tensor] = None, dtype=torch.bfloat16,
                device=None) -> DecodeCache:
     check_supported(cfg)
-    if enc_out is not None:
-        raise NotImplementedError(f"encoder states are not ported {_TODO}")
     dev = resolve_device(device)
     layers = []
     for i in range(cfg.n_layers):
-        cap = min(cfg.window, capacity) if cfg.block_kind(i) == SWA else capacity
-        layers.append({"kv": attn.init_kv_cache(batch, cap, cfg.n_kv_heads,
-                                                cfg.head_dim, dtype,
-                                                device=dev)})
+        kind = cfg.block_kind(i)
+        if kind == MLA:
+            kv = attn.init_mla_cache(batch, capacity, cfg.mla.kv_lora,
+                                     cfg.mla.d_rope, dtype, device=dev)
+        else:
+            cap = min(cfg.window, capacity) if kind == SWA else capacity
+            kv = attn.init_kv_cache(batch, cap, cfg.n_kv_heads, cfg.head_dim,
+                                    dtype, device=dev)
+        layers.append({"kv": kv})
     vt = None
     if cfg.n_virtual_tokens > 0:
         vt = torch.zeros((batch, cfg.n_virtual_tokens, cfg.d_virtual),
                          dtype=dtype, device=dev)
-    return DecodeCache(layers=tuple(layers), vt=vt, enc_out=None)
+    return DecodeCache(layers=tuple(layers), vt=vt, enc_out=enc_out)
 
 
 def decode_step(
@@ -223,9 +322,12 @@ def decode_step(
     pos: Tensor,  # (B,) int32 — its absolute position
     *,
     dtype=torch.bfloat16,
+    use_kernel: bool = True,
 ) -> tuple[Tensor, DecodeCache]:
-    """One serve step: next-token logits (B, V) + the cache, its KV tensors
-    updated in place.  Launches no kernel of its own."""
+    """One serve step: next-token logits (B, V) + the cache, its tensors
+    updated in place.  Self-attention and MLA are plain PyTorch over the
+    cache; cross-attention (one query over the cached ``enc_out``) runs the
+    attention kernel on the card (``use_kernel=False``: the plain one)."""
     params = cast_params(params, dtype)
     x = _embed(params, cfg, tokens, dtype)[:, None, :]
     vt = cache.vt
@@ -234,15 +336,24 @@ def decode_step(
         kind = cfg.block_kind(i)
         entry = dict(cache.layers[i])
         h = rmsnorm(lp["norm1"], x)
-        out, entry["kv"] = attn.gqa_decode(
-            lp["attn"], h, entry["kv"], pos, n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
-            window=cfg.window if kind == SWA else None,
-            rope_theta=cfg.rope_theta)
+        if kind == MLA:
+            m = cfg.mla
+            out, entry["kv"] = attn.mla_decode(
+                lp["attn"], h, entry["kv"], pos, n_heads=cfg.n_heads,
+                kv_lora=m.kv_lora, d_nope=m.d_nope, d_rope=m.d_rope,
+                d_v=m.d_v, rope_theta=cfg.rope_theta)
+        else:
+            out, entry["kv"] = attn.gqa_decode(
+                lp["attn"], h, entry["kv"], pos, **_gqa_kw(cfg),
+                window=cfg.window if kind == SWA else None,
+                rope_theta=cfg.rope_theta)
         x = x + out
+        if cfg.has_cross(i) and cache.enc_out is not None:
+            x = _cross(lp, cfg, x, cache.enc_out.to(dtype), pos[:1], 1,
+                       use_kernel)
         fk = cfg.ffns[i]
         if fk != FFN_NONE:
-            x = x + _ffn_apply(lp, fk, rmsnorm(lp["norm2"], x))
+            x = x + _ffn_apply(lp, cfg, fk, rmsnorm(lp["norm2"], x))[0]
         if vt is not None:
             x, vt = virtual_token_layer(params["vt"][i], x, vt)
         new_layers.append(entry)

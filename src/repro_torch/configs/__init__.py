@@ -1,9 +1,14 @@
 """Config registry: ``get_arch(name)`` + the assigned input shapes.
 
-Only the two gemma3 configs are ported (dense GQA/SWA blocks with GeGLU
-FFNs, the path whose self-attention runs ``csrc/swa_attention.cu``).  The
-other ids keep their aliases, and :func:`get_arch` raises
-``NotImplementedError`` naming the block kinds that keep them out.
+Eight configs are ported, each a copy of the JAX package's field by field:
+the attention family — gemma3-12b / 27b (GQA + sliding window, GeGLU),
+olmoe-1b-7b (MoE), deepseek-v2-lite-16b (MLA + MoE with shared experts),
+granite-20b (MQA), llama3-405b (GQA), whisper-small (audio encoder +
+cross-attention) and llama-3.2-vision-11b (image cross-attention every 5th
+layer) — whose attention runs the hand-written attention kernel on the
+card.  The recurrent family (xlstm-125m, zamba2-1.2b) keeps its aliases,
+and :func:`get_arch` raises ``NotImplementedError`` naming the block kinds
+that keep it out.
 """
 from __future__ import annotations
 
@@ -27,14 +32,8 @@ _ARCH_IDS = [
 
 # ids whose config is not ported yet → what they need (ROADMAP queue A #10)
 _NOT_PORTED = {
-    "olmoe_1b_7b": "MoE FFNs",
     "xlstm_125m": "mLSTM/sLSTM blocks",
-    "deepseek_v2_lite_16b": "MLA attention and MoE FFNs",
-    "whisper_small": "the audio encoder and cross-attention",
-    "llama3_405b": "its config module",
     "zamba2_1_2b": "Mamba2 and shared-attention blocks",
-    "llama_3_2_vision_11b": "image cross-attention",
-    "granite_20b": "its config module",
 }
 
 # canonical dashed ids (CLI) → module names

@@ -7,10 +7,18 @@
 // Replaces the Pallas TPU kernel `swa_attention` (`_kernel`) of the JAX
 // package's kernels/swa_attention.py for f32 inputs (bf16 inputs go to the
 // kernel in swa_attention_wgmma.cu), generalised to the layout the
-// transformer hands over: q and o (B, S, H, D), k and v (B, S, KV, D), head
-// h reading KV head h / (H / KV), any element strides (multiples of 4) per
-// batch, position and head, D in {64, 128, 256}, any S >= 1 (the ragged
-// last block is masked here; the Pallas kernel asserted S % block == 0).
+// transformer hands over: q (B, S, H, DQK), k (B, T, KV, DQK), v (B, T, KV,
+// DV) and o (B, S, H, DV), head h reading KV head h / (H / KV), any element
+// strides (multiples of 4) per batch, position and head of each, (DQK, DV)
+// in {(64, 64), (128, 128), (256, 256)} and MLA's (192, 128), any S, T >= 1
+// (the ragged last blocks are masked here; the Pallas kernel asserted
+// S % block == 0).  T is the keys' own length (cross-attention over an
+// encoder's states); the caller takes T != S only with causal = 0, and
+// passes scale = 1 / sqrt(DQK).  Keys >= T are masked.  Below, D stands for
+// DQK where it counts Q and K columns and for DV where it counts V and O
+// columns; at MLA's (192, 128) the products take DQK / 8 = 24 k-steps for
+// Q K^T and DV / 32 = 4 column groups for P V, and shared memory holds
+// 102,400 + 25,600 + 16,896 = 144,896 B.
 // As `_kernel`: masked scores get p = 0 by a select (m starts at -1e30,
 // where exp(s - m) would be 1), online softmax, o = acc / max(l, 1e-30),
 // and key blocks outside the causal / window band are skipped.
@@ -89,11 +97,11 @@ constexpr int THREADS = 32 * WARPS;
 constexpr float NEG = -1e30f;  // the Pallas kernel's _NEG
 constexpr unsigned FULL = 0xffffffffu;
 
-// shared-memory layout for head width D (floats)
-template <int D>
+// shared-memory layout for head widths DQK (q, k) and DV (v, o) (floats)
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int LDQ = D + 8;   // row stride of Q and K
-  static constexpr int LDV = D + 4;   // row stride of V
+  static constexpr int LDQ = DQK + 8;  // row stride of Q and K
+  static constexpr int LDV = DV + 4;   // row stride of V
   static constexpr int Q = 0, K = BQ * LDQ, V = K + BK * LDQ;
   static constexpr size_t BYTES = sizeof(float) * (V + BK * LDV);
 };
@@ -103,9 +111,11 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int S, H, group;             // group = H / KV
-  long long q_sb, q_ss, q_sh;  // element strides of q and o
-  long long k_sb, k_ss, k_sh;  // element strides of k and v
+  int S, T, H, group;          // T: the keys' length; group = H / KV
+  long long q_sb, q_ss, q_sh;  // element strides of q
+  long long k_sb, k_ss, k_sh;  // ... of k
+  long long v_sb, v_ss, v_sh;  // ... of v
+  long long o_sb, o_ss, o_sh;  // ... of o
   int causal, window;          // window <= 0: no window
   float scale;
 };
@@ -130,8 +140,9 @@ __device__ __forceinline__ void async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows [r0, r0 + n) of src (row stride ss elements) into dst (row stride
-// ld floats) by 16-byte cp.async; rows at or past S are filled with zeros
+// rows [r0, r0 + n) of src (row stride ss elements, D columns) into dst
+// (row stride ld floats) by 16-byte cp.async; rows at or past S are filled
+// with zeros
 template <int D>
 __device__ __forceinline__ void stage_rows(float* dst, int ld,
                                            const float* src, long long ss,
@@ -147,11 +158,11 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 swa_attention_kernel(const Params p) {
-  using L = Smem<D>;
-  constexpr int LDQ = L::LDQ, LDV = L::LDV, NG = D / 32;
+  using L = Smem<DQK, DV>;
+  constexpr int LDQ = L::LDQ, LDV = L::LDV, NG = DV / 32;
   extern __shared__ float4 smem4[];
   float* const sq = reinterpret_cast<float*>(smem4) + L::Q;
   float* const sk = reinterpret_cast<float*>(smem4) + L::K;
@@ -163,17 +174,17 @@ swa_attention_kernel(const Params p) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest bands first
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.k_sb + kvh * p.k_sh;
-  float* og = static_cast<float*>(p.o) + b * p.q_sb + h * p.q_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   // the key blocks that meet the band of rows [q0, q0 + BQ)
   const int q_last = min(q0 + BQ, p.S) - 1;
   const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int k_hi = p.causal ? q_last : p.S - 1;
+  const int k_hi = p.causal ? q_last : p.T - 1;
   const int kb0 = k_lo / BK, kb1 = k_hi / BK;
 
-  stage_rows<D>(sq, LDQ, qg, p.q_ss, q0, BQ, p.S);
-  stage_rows<D>(sk, LDQ, kg, p.k_ss, kb0 * BK, BK, p.S);
+  stage_rows<DQK>(sq, LDQ, qg, p.q_ss, q0, BQ, p.S);
+  stage_rows<DQK>(sk, LDQ, kg, p.k_ss, kb0 * BK, BK, p.T);
   async_commit();
 
   const int r0 = q0 + 16 * warp;           // this warp's first row
@@ -196,7 +207,7 @@ swa_attention_kernel(const Params p) {
     const int k0 = kb * BK;
     async_wait_all();
     __syncthreads();  // K of this block is in; every warp is done with V
-    stage_rows<D>(sv, LDV, vg, p.k_ss, k0, BK, p.S);
+    stage_rows<DV>(sv, LDV, vg, p.v_ss, k0, BK, p.T);
     async_commit();
 
     // a warp skips a block none of its rows sees
@@ -212,7 +223,7 @@ swa_attention_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 2
-      for (int kk = 0; kk < D / 8; ++kk) {
+      for (int kk = 0; kk < DQK / 8; ++kk) {
         const float2 x0 = load2(qa + 8 * kk);
         const float2 x1 = load2(qa + 8 * LDQ + 8 * kk);
         uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
@@ -245,7 +256,7 @@ swa_attention_kernel(const Params p) {
 
       // mask and scale; s[j][e]: row row[e >> 1], key k0 + 8 j + 2 t + (e & 1).
       // Only a block that meets a band edge or the end needs the mask.
-      const bool edge = k0 + BK > p.S ||
+      const bool edge = k0 + BK > p.T ||
                         (p.causal && k0 + BK - 1 > r0) ||
                         (p.window > 0 && k0 <= r0 + 15 - p.window);
       uint32_t vis = 0xffffffffu;  // bit 4 j + e
@@ -255,7 +266,7 @@ swa_attention_kernel(const Params p) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * j + 2 * t + (e & 1), q = row[e >> 1];
-            const bool ok = key < p.S && (!p.causal || key <= q) &&
+            const bool ok = key < p.T && (!p.causal || key <= q) &&
                             (p.window <= 0 || key > q - p.window);
             if (!ok) vis &= ~(1u << (4 * j + e));
           }
@@ -311,7 +322,7 @@ swa_attention_kernel(const Params p) {
 
     async_wait_all();
     __syncthreads();  // V of this block is in; every warp is done with K
-    if (kb < kb1) stage_rows<D>(sk, LDQ, kg, p.k_ss, k0 + BK, BK, p.S);
+    if (kb < kb1) stage_rows<DQK>(sk, LDQ, kg, p.k_ss, k0 + BK, BK, p.T);
     async_commit();
 
     if (live) {
@@ -357,7 +368,7 @@ swa_attention_kernel(const Params p) {
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= p.S) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    float* dst = og + (long long)row[r] * p.q_ss + 8 * t;
+    float* dst = og + (long long)row[r] * p.o_ss + 8 * t;
 #pragma unroll
     for (int c = 0; c < NG; ++c)
 #pragma unroll
@@ -370,38 +381,44 @@ swa_attention_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const Params& p, int n_bh, int n_q_blocks, cudaStream_t stream) {
-  const size_t smem = Smem<D>::BYTES;
+  const size_t smem = Smem<DQK, DV>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      swa_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      swa_attention_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  swa_attention_kernel<D>
+  swa_attention_kernel<DQK, DV>
       <<<dim3(n_bh, n_q_blocks), THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// float32 only.  Strides are in elements.
+// float32 only.  Strides are in elements; T != S only with causal = 0.
 extern "C" int swa_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B,
-    int S, int H, int KV, int D, long long q_sb, long long q_ss,
+    const void* q, const void* k, const void* v, void* o, int B, int S,
+    int T, int H, int KV, int DQK, int DV, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    int causal, int window, float scale, void* stream_ptr) {
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, int causal, int window, float scale,
+    void* stream_ptr) {
   const int n_q_blocks = (S + BQ - 1) / BQ;
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || n_q_blocks > 65535)
+  if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 ||
+      n_q_blocks > 65535 || (causal && T != S))
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, S, H, H / KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-           causal, window, scale};
+  Params p{q, k, v, o, S, T, H, H / KV, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, scale};
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  switch (D) {
-    case 64: return launch<64>(p, B * H, n_q_blocks, stream);
-    case 128: return launch<128>(p, B * H, n_q_blocks, stream);
-    case 256: return launch<256>(p, B * H, n_q_blocks, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int bh = B * H;
+  if (DQK == 64 && DV == 64) return launch<64, 64>(p, bh, n_q_blocks, stream);
+  if (DQK == 128 && DV == 128)
+    return launch<128, 128>(p, bh, n_q_blocks, stream);
+  if (DQK == 256 && DV == 256)
+    return launch<256, 256>(p, bh, n_q_blocks, stream);
+  if (DQK == 192 && DV == 128)
+    return launch<192, 128>(p, bh, n_q_blocks, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -6,12 +6,19 @@
 //
 // Replaces the Pallas TPU kernel `swa_attention` (`_kernel`) of the JAX
 // package's kernels/swa_attention.py for bf16 inputs; csrc/swa_attention.cu
-// keeps f32.  Same contract as that kernel: q and o (B, S, H, D), k and v
-// (B, S, KV, D), head h reading KV head h / (H / KV), any element strides
-// that are multiples of 8 (TMA's 16-byte rule) per batch, position and head,
-// D in {64, 128, 256}, any S >= 1.  Scores, running max, normaliser and
-// accumulator are f32; masked scores give p = 0 by a select; the output is
-// acc / max(l, 1e-30), rounded to bf16 once.
+// keeps f32.  Same contract as that kernel: q (B, S, H, DQK), k (B, T, KV,
+// DQK), v (B, T, KV, DV) and o (B, S, H, DV), head h reading KV head
+// h / (H / KV), any element strides that are multiples of 8 (TMA's 16-byte
+// rule) per batch, position and head of each, (DQK, DV) in {(64, 64),
+// (128, 128), (256, 256)} and MLA's (192, 128), any S, T >= 1 (T != S only
+// with causal = 0: cross-attention over an encoder's states; keys >= T are
+// masked), scale = 1 / sqrt(DQK) from the caller.  Scores, running max,
+// normaliser and accumulator are f32; masked scores give p = 0 by a select;
+// the output is acc / max(l, 1e-30), rounded to bf16 once.  Below, D is DQK
+// where it counts Q and K columns and DV where it counts V and O columns: at
+// (192, 128) S = Q K^T takes 12 k16 steps over three 64-column boxes, O =
+// P V is wgmma n = 128, and shared memory holds Q (48 KB) and two stages of
+// K (24 KB each) and V (16 KB each), 129 KB.
 //
 // Bound on an H100 (B = 1, S = 8,192, H = 16, KV = 8, D = 256): 4 D FLOP per
 // visible (q, k) pair, 129 GFLOP for a 1,024 window and 550 GFLOP causal,
@@ -61,24 +68,27 @@ constexpr float NEG = -1e30f;  // the Pallas kernel's _NEG
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int D>
+template <int DQK, int DV>
 struct Layout {
-  static constexpr uint32_t Q_BYTES = BQ * D * 2;
-  static constexpr uint32_t KV_BYTES = BK * D * 2;  // one stage of K or V
-  static constexpr uint32_t Q_CHUNK = BQ * 128;     // 64 columns of Q
-  static constexpr uint32_t KV_CHUNK = BK * 128;    // 64 columns of K or V
-  static constexpr uint32_t BARS = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static_assert(DV <= DQK, "the epilogue stages O in Q's tile");
+  static constexpr uint32_t Q_BYTES = BQ * DQK * 2;
+  static constexpr uint32_t K_BYTES = BK * DQK * 2;  // one stage of K
+  static constexpr uint32_t V_BYTES = BK * DV * 2;   // one stage of V
+  static constexpr uint32_t Q_CHUNK = BQ * 128;      // 64 columns of Q
+  static constexpr uint32_t KV_CHUNK = BK * 128;     // 64 columns of K or V
+  static constexpr uint32_t BARS = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
   // 1 KB to align the tiles for the 128-byte swizzle, 9 mbarriers
   static constexpr uint32_t SMEM = 1024 + BARS + 9 * 8;
 };
 
 struct Params {
   void* o;
-  int S, H, group;             // group = H / KV
+  int S, T, H, group;          // T: the keys' length; group = H / KV
   int causal, window;          // window <= 0: no window
   long long o_sb, o_ss, o_sh;  // element strides of o
-  float scale_log2;            // log2(e) / sqrt(D)
-  int q_axis[3], kv_axis[3];   // tensor-map axis of (head, position, batch)
+  float scale_log2;            // log2(e) * scale
+  // tensor-map axis of (head, position, batch) in q's, k's and v's maps
+  int q_axis[3], k_axis[3], v_axis[3];
 };
 
 // ------------------------------------------------------------- PTX helpers
@@ -258,19 +268,19 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(FULL, v, 2);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const Params p) {
-  using L = Layout<D>;
+  using L = Layout<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* base_ptr = smem_raw + (base - raw);
-  const uint32_t sq = base;                      // Q: [D/64][BQ][64]
-  const uint32_t sk = sq + L::Q_BYTES;           // K: [STAGES][D/64][BK][64]
-  const uint32_t sv = sk + STAGES * L::KV_BYTES;  // V: the same
+  const uint32_t sq = base;                      // Q: [DQK/64][BQ][64]
+  const uint32_t sk = sq + L::Q_BYTES;           // K: [STAGES][DQK/64][BK][64]
+  const uint32_t sv = sk + STAGES * L::K_BYTES;  // V: [STAGES][DV/64][BK][64]
   const uint32_t bars = base + L::BARS;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8u * (1 + s); };
@@ -283,7 +293,7 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // the key blocks that meet the band of rows [q0, q0 + BQ)
   const int q_last = min(q0 + BQ, p.S) - 1;
   const int kb_lo = (p.window > 0 ? max(0, q0 - p.window + 1) : 0) / BK;
-  const int kb_hi = (p.causal ? q_last : p.S - 1) / BK;
+  const int kb_hi = (p.causal ? q_last : p.T - 1) / BK;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -307,27 +317,31 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       c[p.q_axis[1]] = q0;
       c[p.q_axis[2]] = b;
       mbar_expect_tx(q_full, L::Q_BYTES);
-      for (int j = 0; j < D / 64; ++j) {
+      for (int j = 0; j < DQK / 64; ++j) {
         c[0] = 64 * j;
         tma_load(sq + j * L::Q_CHUNK, &tq, q_full, c);
       }
-      c[p.kv_axis[0]] = kvh;
-      c[p.kv_axis[2]] = b;
+      int ck[4], cv[4];
+      ck[p.k_axis[0]] = kvh;
+      ck[p.k_axis[2]] = b;
+      cv[p.v_axis[0]] = kvh;
+      cv[p.v_axis[2]] = b;
       for (int kb = kb_lo, i = 0; kb <= kb_hi; ++kb, ++i) {
         const int s = i % STAGES;
         const uint32_t ph = (i / STAGES) & 1;
-        c[p.kv_axis[1]] = kb * BK;
+        ck[p.k_axis[1]] = kb * BK;
+        cv[p.v_axis[1]] = kb * BK;
         mbar_wait(k_empty(s), ph ^ 1);
-        mbar_expect_tx(k_full(s), L::KV_BYTES);
-        for (int j = 0; j < D / 64; ++j) {
-          c[0] = 64 * j;
-          tma_load(sk + s * L::KV_BYTES + j * L::KV_CHUNK, &tk, k_full(s), c);
+        mbar_expect_tx(k_full(s), L::K_BYTES);
+        for (int j = 0; j < DQK / 64; ++j) {
+          ck[0] = 64 * j;
+          tma_load(sk + s * L::K_BYTES + j * L::KV_CHUNK, &tk, k_full(s), ck);
         }
         mbar_wait(v_empty(s), ph ^ 1);
-        mbar_expect_tx(v_full(s), L::KV_BYTES);
-        for (int j = 0; j < D / 64; ++j) {
-          c[0] = 64 * j;
-          tma_load(sv + s * L::KV_BYTES + j * L::KV_CHUNK, &tv, v_full(s), c);
+        mbar_expect_tx(v_full(s), L::V_BYTES);
+        for (int j = 0; j < DV / 64; ++j) {
+          cv[0] = 64 * j;
+          tma_load(sv + s * L::V_BYTES + j * L::KV_CHUNK, &tv, v_full(s), cv);
         }
       }
     }
@@ -341,11 +355,11 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // the key blocks that meet the band of this warpgroup's rows
     const int my_lo = (p.window > 0 ? max(0, r0 - p.window + 1) : 0) / BK;
     const int my_hi =
-        r0 < p.S ? (p.causal ? min(r0 + 63, p.S - 1) : p.S - 1) / BK : -1;
+        r0 < p.S ? (p.causal ? min(r0 + 63, p.T - 1) : p.T - 1) / BK : -1;
     // accumulator: o[4j + e] is row (row + 8 (e / 2)), column 8j + col + e % 2
-    float o[D / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float o[DV / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     const uint32_t qa = sq + cw * 64 * 128;
     mbar_wait(q_full, 0);
 
@@ -362,9 +376,9 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < 32; ++j) sc[j] = 0.f;
         fence_regs(sc);
         wgmma_fence();
-        const uint32_t kt = sk + s * L::KV_BYTES;
+        const uint32_t kt = sk + s * L::K_BYTES;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DQK / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;  // 16 columns into the chunk
           wgmma_ss_n64(sc, gmma_desc(qa + (kk / 4) * L::Q_CHUNK + off, 16, 1024),
                        gmma_desc(kt + (kk / 4) * L::KV_CHUNK + off, 16, 1024),
@@ -379,7 +393,7 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       uint32_t p_hi[4][4], p_lo[4][4];
       if (mine) {
         // mask only blocks that cross the diagonal, the window's edge or S
-        const bool edge = !(k0 + BK <= p.S &&
+        const bool edge = !(k0 + BK <= p.T &&
                             (!p.causal || k0 + BK - 1 <= r0) &&
                             (p.window <= 0 || k0 > r0 + 63 - p.window));
         uint32_t vis = FULL;
@@ -390,7 +404,7 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           if (edge) {
             const int kpos = k0 + 8 * (j / 4) + col + (j % 2);
             const int qpos = row + 8 * ((j / 2) % 2);
-            const bool ok = kpos < p.S && (!p.causal || kpos <= qpos) &&
+            const bool ok = kpos < p.T && (!p.causal || kpos <= qpos) &&
                             (p.window <= 0 || kpos > qpos - p.window);
             if (!ok) {
               vis &= ~(1u << j);
@@ -416,7 +430,7 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j / 2) % 2];
+        for (int j = 0; j < DV / 2; ++j) o[j] *= alpha[(j / 2) % 2];
         // A fragment of k16 step kk: n8 groups 2kk and 2kk + 1 of sc
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -434,7 +448,7 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (mine) {
         fence_regs(o);
         wgmma_fence();
-        const uint32_t vt = sv + s * L::KV_BYTES;
+        const uint32_t vt = sv + s * L::V_BYTES;
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           // keys 16kk .. 16kk + 15: two 8-row groups of every 64-column chunk
@@ -455,7 +469,7 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
     uint8_t* stage = base_ptr + cw * 64 * 128;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rl = 16 * warp + lane / 4 + 8 * r;
@@ -468,8 +482,8 @@ swa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                         h * p.o_sh;
-    for (int i = t; i < 64 * (D / 8); i += 128) {
-      const int rl = i / (D / 8), g = i % (D / 8);
+    for (int i = t; i < 64 * (DV / 8); i += 128) {
+      const int rl = i / (DV / 8), g = i % (DV / 8);
       if (r0 + rl >= p.S) break;
       const uint4 v = *reinterpret_cast<const uint4*>(
           stage + (g / 8) * L::Q_CHUNK + rl * 128 + (((g % 8) ^ (rl % 8)) * 16));
@@ -537,14 +551,15 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int heads, int s,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const Params& p, int n_bh, int n_q_blocks, cudaStream_t stream) {
-  const int smem = (int)Layout<D>::SMEM;
+  const int smem = (int)Layout<DQK, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      swa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      swa_wgmma_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  swa_wgmma_kernel<D>
+  swa_wgmma_kernel<DQK, DV>
       <<<dim3(n_bh, n_q_blocks), THREADS, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -557,31 +572,39 @@ bool aligned(const void* ptr, long long a, long long b, long long c) {
 }  // namespace
 
 // bf16 only.  Strides are in elements, multiples of 8, pointers 16-byte
-// aligned; o shares q's strides, v k's.
+// aligned; T != S only with causal = 0.
 extern "C" int swa_attention_wgmma_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-    int KV, int D, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, int causal, int window,
-    float scale, void* stream_ptr) {
+    const void* q, const void* k, const void* v, void* o, int B, int S, int T,
+    int H, int KV, int DQK, int DV, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, int causal, int window, float scale,
+    void* stream_ptr) {
   const int n_q_blocks = (S + BQ - 1) / BQ;
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || n_q_blocks > 65535 ||
+  if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 ||
+      n_q_blocks > 65535 || (causal && T != S) ||
       !aligned(q, q_sb, q_ss, q_sh) || !aligned(k, k_sb, k_ss, k_sh) ||
-      !aligned(v, k_sb, k_ss, k_sh) || !aligned(o, q_sb, q_ss, q_sh))
+      !aligned(v, v_sb, v_ss, v_sh) || !aligned(o, o_sb, o_ss, o_sh))
     return (int)cudaErrorInvalidValue;
-  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
-  Params p{o, S, H, H / KV, causal, window, q_sb, q_ss, q_sh,
-           scale * LOG2E, {0, 0, 0}, {0, 0, 0}};
+  const bool square = DQK == DV && (DQK == 64 || DQK == 128 || DQK == 256);
+  if (!square && !(DQK == 192 && DV == 128)) return (int)cudaErrorInvalidValue;
+  Params p{o, S, T, H, H / KV, causal, window, o_sb, o_ss, o_sh,
+           scale * LOG2E, {0, 0, 0}, {0, 0, 0}, {0, 0, 0}};
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, D, H, S, B, q_sh, q_ss, q_sb, BQ, p.q_axis);
-  if (!err) err = make_map(&tk, k, D, KV, S, B, k_sh, k_ss, k_sb, BK, p.kv_axis);
-  if (!err) err = make_map(&tv, v, D, KV, S, B, k_sh, k_ss, k_sb, BK, p.kv_axis);
+  int err = make_map(&tq, q, DQK, H, S, B, q_sh, q_ss, q_sb, BQ, p.q_axis);
+  if (!err)
+    err = make_map(&tk, k, DQK, KV, T, B, k_sh, k_ss, k_sb, BK, p.k_axis);
+  if (!err)
+    err = make_map(&tv, v, DV, KV, T, B, v_sh, v_ss, v_sb, BK, p.v_axis);
   if (err) return err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  switch (D) {
-    case 64: return launch<64>(tq, tk, tv, p, B * H, n_q_blocks, stream);
-    case 128: return launch<128>(tq, tk, tv, p, B * H, n_q_blocks, stream);
-    default: return launch<256>(tq, tk, tv, p, B * H, n_q_blocks, stream);
-  }
+  const int bh = B * H;
+  if (DQK == 64) return launch<64, 64>(tq, tk, tv, p, bh, n_q_blocks, stream);
+  if (DQK == 128)
+    return launch<128, 128>(tq, tk, tv, p, bh, n_q_blocks, stream);
+  if (DQK == 192)
+    return launch<192, 128>(tq, tk, tv, p, bh, n_q_blocks, stream);
+  return launch<256, 256>(tq, tk, tv, p, bh, n_q_blocks, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

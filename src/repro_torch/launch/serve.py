@@ -8,9 +8,12 @@ plus ``--device`` (default ``cuda``).  Runs the reduced config by default;
 ``--full`` runs the published widths and depth.  The weights are random
 from ``--seed`` and built in bf16, the compute dtype of ``decode_step``
 (the reference builds f32 and casts them every step: the same values).
-The prompt is teacher-forced through ``decode_step``, as the reference
-does it, then ``--gen`` tokens are decoded greedily.  Prints tokens/s and
-the cache footprint.
+Whisper's random frame embeddings go through ``encode_audio`` and
+llama-vision's random bf16 patch embeddings are taken as they are; both
+are kept in the cache (``enc_out``) for the cross-attention layers.  The
+prompt is teacher-forced through ``decode_step``, as the reference does
+it, then ``--gen`` tokens are decoded greedily.  Prints tokens/s and the
+cache footprint.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ import time
 
 import torch
 
-from repro_torch.archs.model import decode_step, init_arch, init_cache
+from repro_torch.archs.model import (decode_step, encode_audio, init_arch,
+                                     init_cache)
 from repro_torch.configs import get_arch
+from repro_torch.kernels import swa_attention
 from repro_torch.kernels.runtime import resolve_device
 
 
@@ -40,18 +45,48 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def modality_inputs(cfg, batch: int, device=None) -> dict:
+    """The random modality input a config reads, from seed 1: whisper's
+    frame embeddings ``audio`` (B, n_audio_frames, d_model) or
+    llama-vision's bf16 patch embeddings ``images`` (B, n_image_tokens,
+    d_model); {} for the others."""
+    gen = torch.Generator().manual_seed(1)
+    dev = resolve_device(device)
+    if cfg.has_encoder:
+        return {"audio": torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
+                                     generator=gen).to(dev)}
+    if cfg.cross_attn_every > 0:
+        return {"images": torch.randn(
+            (batch, cfg.n_image_tokens, cfg.d_model), generator=gen).to(
+                dev, torch.bfloat16)}
+    return {}
+
+
 @torch.no_grad()
 def run(params, cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
         capacity: int | None = None, device=None) -> dict:
     """Decode ``batch`` random prompts (seed 1) of ``prompt_len`` tokens,
     then ``gen`` greedy tokens each; prints as the reference does and
-    returns the numbers, the prompt and the generated tokens."""
+    returns the numbers, the prompt and the generated tokens.  Whisper
+    encodes its frames and llama-vision reads its patch embeddings (both
+    from :func:`modality_inputs`) through the cross-attention layers of
+    every step.  ``attention_launches`` counts the attention
+    kernel's launches of the decode loop (its cross-attention; 0 on the
+    CPU), ``encoder_launches`` those of the encoder."""
     dev = resolve_device(device)
     b = batch
     cap = capacity or (prompt_len + gen)
     prompt = torch.randint(0, cfg.vocab, (b, prompt_len),
                            generator=torch.Generator().manual_seed(1)).to(dev)
-    cache = init_cache(cfg, b, cap, device=dev)
+    mod = modality_inputs(cfg, b, dev)
+    n0 = swa_attention.launches
+    enc_out = None
+    if cfg.has_encoder:
+        enc_out = encode_audio(params, cfg, mod["audio"])
+    elif cfg.cross_attn_every > 0:
+        enc_out = mod["images"]
+    n_enc = swa_attention.launches - n0
+    cache = init_cache(cfg, b, cap, enc_out=enc_out, device=dev)
     footprint = cache_bytes(cache)
     print(f"{cfg.name}: cache footprint {footprint/1e6:.1f} MB "
           f"(capacity {cap})")
@@ -61,6 +96,7 @@ def run(params, cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
                            torch.full((b,), t, dtype=torch.int32, device=dev))
 
     _sync(dev)
+    n0 = swa_attention.launches
     t0 = time.perf_counter()
     for t in range(prompt_len):
         logits, cache = step(prompt[:, t], t)
@@ -71,6 +107,7 @@ def run(params, cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
         logits, cache = step(tok, t)
     _sync(dev)
     dt = time.perf_counter() - t0
+    n_dec = swa_attention.launches - n0
     total = b * (prompt_len + gen)
     print(f"decoded {total} tokens in {dt:.2f}s → {total/dt:.1f} tok/s")
     tokens = torch.stack(generated, dim=1).cpu() if generated else \
@@ -79,6 +116,7 @@ def run(params, cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
     return {"arch": cfg.name, "batch": b, "prompt_len": prompt_len,
             "gen": gen, "capacity": cap, "cache_bytes": footprint,
             "tokens": total, "seconds": dt, "tokens_per_s": total / dt,
+            "attention_launches": n_dec, "encoder_launches": n_enc,
             "prompt": prompt.cpu(), "generated": tokens}
 
 

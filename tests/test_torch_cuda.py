@@ -1243,13 +1243,173 @@ def test_swa_wrapper_refuses_what_the_kernel_does_not_take():
                                     .transpose(1, 2), k, v)
     with pytest.raises(RuntimeError, match="no backward"):
         swa_attention.attention(q.requires_grad_(True), k, v)
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_cross_attention_kernel_matches_plain(dtype):
+    """Cross-attention (reduced gemma3-12b's widths over 40 encoder states,
+    S = 100 queries, and one decode query at position 17) launches the
+    kernel, within the attention tolerance of the plain path on the card."""
     cfg = get_arch("gemma3_12b").reduced()
     p = init_gqa(torch.Generator(device="cuda").manual_seed(0), cfg.d_model,
-                 cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    x = torch.zeros((1, 8, cfg.d_model), device="cuda")
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="cross"):
-        gqa_forward(p, x, torch.arange(8, device="cuda"), n_heads=cfg.n_heads,
-                    n_kv=cfg.n_kv_heads, d_head=cfg.head_dim, cross_kv=x)
+                 cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, 100, cfg.d_model), generator=gen, device="cuda").to(
+        dtype)
+    enc = torch.randn((2, 40, cfg.d_model), generator=gen, device="cuda").to(
+        dtype)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+              cross_kv=enc)
+    for xs, pos in ((x, None), (x[:, :1], torch.tensor([17], device="cuda"))):
+        swa_attention.reset_launches()
+        with torch.no_grad():
+            got = gqa_forward(p, xs, pos, **kw)
+            assert swa_attention.launches == 1
+            want = gqa_forward(p, xs, pos, use_kernel=False, **kw)
+        scale = float(want.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=tol * scale, rtol=tol)
+
+
+# the attention forms of the LM families (PERF.md section 6): MLA's
+# (192, 128) causal, whisper's cross-attention (448 queries over 1,500
+# frames) and its encoder (non-causal, 1,500), llama-vision's cross-
+# attention (1,601 image tokens), each at fewer heads than the model's
+FORMS = {
+    "mla": dict(s=1000, t=1000, h=4, kv=4, d=192, dv=128, causal=True),
+    "whisper_cross": dict(s=448, t=1500, h=4, kv=4, d=64, dv=64,
+                          causal=False),
+    "whisper_encoder": dict(s=1500, t=1500, h=4, kv=4, d=64, dv=64,
+                            causal=False),
+    "vision_cross": dict(s=200, t=1601, h=4, kv=1, d=128, dv=128,
+                         causal=False),
+    "decode_cross": dict(s=1, t=1601, h=8, kv=2, d=128, dv=128,
+                         causal=False),
+}
+
+
+def _form_inputs(f, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda n, length, d: torch.randn((2, length, n, d), generator=gen,
+                                         device="cuda").to(dtype)
+    return (r(f["h"], f["s"], f["d"]), r(f["kv"], f["t"], f["d"]),
+            r(f["kv"], f["t"], f["dv"]))
+
+
+@needs_cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_new_forms_match_plain(form, dtype):
+    """D_v != D_qk and a key length of its own: each kernel within its
+    tolerance of ``chunked_attention`` and bitwise repeatable."""
+    f = FORMS[form]
+    q, k, v = _form_inputs(f, dtype, seed=len(form))
+    swa_attention.reset_launches()
+    with torch.no_grad():
+        got = swa_attention.attention(q, k, v, causal=f["causal"])
+        again = swa_attention.attention(q, k, v, causal=f["causal"])
+        want = swa_attention.chunked_attention(
+            q, k, v, torch.arange(f["s"], device="cuda"),
+            torch.arange(f["t"], device="cuda"), causal=f["causal"],
+            window=None)
+    torch.cuda.synchronize()
+    assert swa_attention.launches == 2
+    assert got.shape == (2, f["s"], f["h"], f["dv"]) and got.dtype == dtype
+    assert torch.equal(got, again)
+    _assert_attention_close(got, want)
+
+
+@needs_cuda
+def test_swa_kernel_new_forms_planted_fault_is_caught():
+    """A cross-attention whose keys are cut one short (T - 1) lands
+    outside the bound the sound kernel keeps, in both dtypes."""
+    f = FORMS["whisper_cross"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _form_inputs(f, dtype, seed=3)
+        with torch.no_grad():
+            want = swa_attention.attention(q.cpu(), k.cpu(), v.cpu(),
+                                           causal=False)
+            bad = swa_attention.attention(q, k[:, :-1].contiguous(),
+                                          v[:, :-1].contiguous(),
+                                          causal=False)
+        with pytest.raises(AssertionError):
+            _assert_attention_close(bad.cpu(), want)
+
+
+@needs_cuda
+def test_swa_kernel_refuses_uncompiled_forms():
+    """Widths outside the compiled set and a causal T != S raise
+    ``ValueError`` on the card: no padding, no plain fallback."""
+    for d, dv in ((128, 64), (48, 32), (192, 192), (96, 96)):
+        q, k, _ = _form_inputs(dict(s=64, t=64, h=2, kv=2, d=d, dv=d),
+                               torch.bfloat16, 0)
+        v = torch.zeros(k.shape[:3] + (dv,), device="cuda",
+                        dtype=torch.bfloat16)
+        with torch.no_grad(), pytest.raises(ValueError, match="D in"):
+            swa_attention.attention(q, k, v, causal=False)
+    q, k, v = _form_inputs(dict(s=64, t=80, h=2, kv=2, d=64, dv=64),
+                           torch.float32, 0)
+    with torch.no_grad(), pytest.raises(ValueError, match="causal"):
+        swa_attention.attention(q, k, v, causal=True)
+
+
+@needs_cuda
+@pytest.mark.parametrize("aid", ["olmoe_1b_7b", "deepseek_v2_lite_16b",
+                                 "granite_20b", "whisper_small",
+                                 "llama_3_2_vision_11b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_family_forward_kernel_path_matches_plain_on_card(aid, dtype):
+    """Each family's reduced config (MLA at deepseek-v2-lite's compiled
+    widths, 128 + 64 / 128) at S = 192: one launch per self-, encoder and
+    cross-attention, logits within 1e-4 of the largest |logit| of the plain
+    path in f32 and within relative L2 0.1 in bf16 (DESIGN.md section
+    9.3's bf16 bound: a bf16 rounding may tip a token's MoE routing, which
+    moves that token's logits further than an elementwise bound allows);
+    decode launches once per cross layer."""
+    from repro_torch.archs.config import MLASpec
+
+    cfg = get_arch(aid).reduced()
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=MLASpec(kv_lora=64, d_nope=128,
+                                                   d_rope=64, d_v=128))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm_model.init_arch(gen, cfg, device="cuda", dtype=dtype)
+    tok = torch.randint(0, cfg.vocab, (2, 192), device="cuda", generator=gen)
+    mod = {}
+    if cfg.has_encoder:
+        mod["audio"] = torch.randn((2, cfg.n_audio_frames, cfg.d_model),
+                                   generator=gen, device="cuda")
+    elif cfg.cross_attn_every:
+        mod["images"] = torch.randn((2, cfg.n_image_tokens, cfg.d_model),
+                                    generator=gen, device="cuda")
+    n_cross = sum(cfg.has_cross(i) for i in range(cfg.n_layers))
+    swa_attention.reset_launches()
+    with torch.no_grad():
+        got, aux = lm_model.forward(params, cfg, tok, dtype=dtype, **mod)
+        n = swa_attention.launches
+        want, aux_plain = lm_model.forward(params, cfg, tok, dtype=dtype,
+                                           use_kernel=False, **mod)
+        enc = (lm_model.encode_audio(params, cfg, mod["audio"], dtype)
+               if "audio" in mod else mod.get("images"))
+        cache = lm_model.init_cache(cfg, 2, 8, enc_out=enc, dtype=dtype,
+                                    device="cuda")
+        swa_attention.reset_launches()
+        lm_model.decode_step(params, cfg, cache, tok[:, 0],
+                             torch.zeros(2, dtype=torch.int32, device="cuda"),
+                             dtype=dtype)
+    torch.cuda.synchronize()
+    assert n == cfg.n_layers + cfg.encoder_layers + n_cross
+    assert swa_attention.launches == n_cross
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4)
+        torch.testing.assert_close(aux, aux_plain, atol=1e-5, rtol=0)
+    else:
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 0.1, rel
 
 
 @needs_cuda

@@ -35,6 +35,7 @@ from repro_torch.configs import ALIASES, INPUT_SHAPES, get_arch
 from repro_torch.launch import serve as t_serve
 from repro_torch.nn import attention as t_attn
 from repro_torch.nn import basic as t_basic
+from repro_torch.nn import moe as t_moe
 from repro_torch.nn import virtual_tokens as t_vt
 from repro_torch.weights import params_from_jax
 
@@ -75,7 +76,10 @@ def _close_to_max(got, want, tol=1e-4):
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("aid", ["gemma3_12b", "gemma3_27b", "gemma3-12b"])
+@pytest.mark.parametrize("aid", ["gemma3_12b", "gemma3_27b", "gemma3-12b",
+                                 "olmoe_1b_7b", "deepseek_v2_lite_16b",
+                                 "granite_20b", "llama3_405b", "whisper_small",
+                                 "llama_3_2_vision_11b"])
 def test_configs_match_reference(aid):
     cfg, jcfg = get_arch(aid), j_get_arch(aid)
     for a, b in ((cfg, jcfg), (cfg.reduced(), jcfg.reduced()),
@@ -85,8 +89,8 @@ def test_configs_match_reference(aid):
     assert INPUT_SHAPES == {k: tuple(v) for k, v in J_SHAPES.items()}
 
 
-@pytest.mark.parametrize("aid", ["olmoe_1b_7b", "xlstm-125m",
-                                 "deepseek-v2-lite-16b", "whisper_small"])
+@pytest.mark.parametrize("aid", ["xlstm_125m", "xlstm-125m", "zamba2_1_2b",
+                                 "zamba2-1.2b"])
 def test_unported_arch_raises(aid):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch(aid)
@@ -190,6 +194,10 @@ _INITS = {
     "init_swiglu": lambda: t_basic.init_swiglu(_GEN(), 4, 8),
     "init_gqa": lambda: t_attn.init_gqa(_GEN(), 8, 2, 1, 4),
     "init_kv_cache": lambda: t_attn.init_kv_cache(1, 4, 1, 4),
+    "init_mla": lambda: t_attn.init_mla(_GEN(), 8, 2, kv_lora=4, d_nope=4,
+                                        d_rope=2, d_v=4),
+    "init_mla_cache": lambda: t_attn.init_mla_cache(1, 4, 4, 2),
+    "init_moe": lambda: t_moe.init_moe(_GEN(), 8, 4, 4, 2, 1),
     "init_virtual_tokens": lambda: t_vt.init_virtual_tokens(_GEN(), 2, 8, 4),
     "init_arch": lambda: t_model.init_arch(_GEN(), _CFG),
     "init_cache": lambda: t_model.init_cache(_CFG, 1, 4),
@@ -206,12 +214,24 @@ def test_lm_inits_default_to_cuda(name, monkeypatch):
 
 
 def test_gqa_cross_attention_is_not_ported(model):
-    cfg, _, _, tp = model
-    x = torch.zeros((1, 8, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        t_attn.gqa_forward(tp["layers"][0]["attn"], x, torch.arange(8),
-                           n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                           d_head=cfg.head_dim, cross_kv=x)
+    """Cross-attention, once refused here, is ported: over encoder states
+    of their own length (T = 24 against S = 40 queries; no RoPE, not
+    causal) it matches the reference's ``gqa_forward(..., cross_kv=)``,
+    through the kernel's plain version and the plain attention alike."""
+    cfg, _, jp, tp = model
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+              q_chunk=cfg.q_chunk)
+    want = j_attn.gqa_forward(jp["layers"][0]["attn"], jnp.asarray(x),
+                              jnp.arange(40), cross_kv=jnp.asarray(enc), **kw)
+    for use_kernel in (True, False):
+        got = t_attn.gqa_forward(tp["layers"][0]["attn"], _t(x), None,
+                                 cross_kv=_t(enc), use_kernel=use_kernel,
+                                 **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=RTOL)
 
 
 def test_virtual_token_layer_matches(model):

@@ -437,5 +437,7 @@ def test_route_refuses_bf16_strides_off_tma_alignment():
 def test_reset_launches_resets_both_counters(monkeypatch):
     monkeypatch.setattr(t_swa, "launches", 5)
     monkeypatch.setattr(t_swa, "wgmma_launches", 3)
+    monkeypatch.setitem(t_swa.form_launches, "64x64-causal", 5)
     t_swa.reset_launches()
     assert t_swa.launches == 0 and t_swa.wgmma_launches == 0
+    assert t_swa.form_launches == {}

@@ -6,7 +6,10 @@
 Builds ``src/repro_torch/csrc/swa_attention.cu`` (variant ``committed``)
 and each ``--variant`` source (a file with the same C entry point, e.g. an
 older commit's copy from ``git show <rev>:src/repro_torch/csrc/
-swa_attention.cu``) into ``src/repro_torch/_build/swa_ab/<name>/``, one
+swa_attention.cu``; the entry has taken T, D_v and the strides of v and o
+since the kernel learned MLA's widths and cross-attention, so a copy from
+before that needs its entry point brought up to the committed one's
+signature) into ``src/repro_torch/_build/swa_ab/<name>/``, one
 nvcc each, all started together.  Then, at ``chip_smoke.py``'s prefill
 shape (B = 1, S = 8,192, 16 heads over 8 KV heads, D = 256, f32), for the
 sliding-window layer (window 1,024) and the global (causal) layer, runs
