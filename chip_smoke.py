@@ -271,6 +271,34 @@ weights from seed 0) runs:
              bitwise repeat, CUDA-event and device ms beside the plain
              version, SDPA and the bound; they join the two #7 rows of
              the kernels line as ``forms``.
+12. lm_recurrent — the recurrent family, one line a config (RECURRENT:
+             zamba2-1.2b, xlstm-125m), each at its published widths with
+             random weights, freed before the next.  zamba2: (a) f32 at
+             ZAMBA_PARITY_LAYERS layers (five Mamba2 and the first shared
+             layer) and FAMILY_PARITY_S tokens, ``forward`` with the
+             kernel against ``use_kernel=False``, every logit within 1e-4
+             of the largest, one f32 launch of #7; the bf16 forward of the
+             same weights (one bf16 launch) within relative L2 0.1 of it.
+             xlstm: (b) XLSTM_CARD_LAYERS layers (mLSTM, sLSTM) and
+             XLSTM_CARD_S tokens, the card's f32 logits against the same
+             weights' forward on the CPU, within 1e-4 of the largest.
+             Both: (c) f32 decode against forward, module by module
+             (Mamba2 at zamba2's widths, at its SSD chunk and at
+             MODULE_SMALL_CHUNK; mLSTM and sLSTM at xlstm's), MODULE_TOKENS
+             tokens a row, MODULE_BATCH rows, within 1e-4 (the reference's
+             own limit); (d) bf16 weights built on the card at full depth:
+             a B = 1 prefill of PREFILL_S tokens, one bf16 launch of #7 per
+             shared layer (zamba2 6, xlstm 0), wall s, tokens/s, peak
+             memory, and zamba2's profile (xlstm's token-by-token
+             recurrences, ~30 s, timed in the counted run alone); (e)
+             ``serve.run`` at batch 4, 16 + 32 tokens: tokens/s, the exact
+             cache footprint (f32 recurrent states), 0 launches in decode,
+             and the first step whose logits are not finite (reported, not
+             gated: random weights' virtual-token state overflows at
+             depth, in the reference as here).
+    lm_recurrent_kernels — #7 alone at zamba2's form (32 heads of 64,
+             causal, 8,192 tokens), bf16 and f32, as lm_family_kernels
+             does it; it joins the #7 rows' ``forms``.
 
 Then it prints the card's name and power limit, the per-kernel summary,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA and a checkout
@@ -536,6 +564,27 @@ FAMILY_FORMS = {
                                 h=32, kv=8, d=128, dv=128, s=1, t=1601,
                                 causal=False,
                                 stages=("serve", "decode_f32")),
+}
+
+# lm_recurrent: zamba2-1.2b and xlstm-125m at their published widths.
+# zamba2's f32 parity at its first ZAMBA_PARITY_LAYERS layers (the first
+# shared layer is layer 5) and FAMILY_PARITY_S tokens (a multiple of its
+# SSD chunk); xlstm's card against the CPU at XLSTM_CARD_LAYERS (mLSTM,
+# sLSTM) and XLSTM_CARD_S tokens; decode against forward per module over
+# MODULE_TOKENS tokens and MODULE_BATCH rows at MODULE_TOL (atol and rtol,
+# the reference's own tests/test_nn.py limit), Mamba2 also at
+# MODULE_SMALL_CHUNK so that its forward crosses chunk boundaries
+RECURRENT = ("zamba2_1_2b", "xlstm_125m")
+ZAMBA_PARITY_LAYERS = 6
+XLSTM_CARD_LAYERS, XLSTM_CARD_S = 2, 256
+MODULE_TOKENS, MODULE_BATCH, MODULE_SMALL_CHUNK = 128, 2, 32
+MODULE_TOL = 1e-4
+# the attention kernel alone at zamba2's shared attention (32 heads of 64,
+# causal, the prefill's length); launches from zamba2's bf16 prefill and
+# f32 parity run
+RECURRENT_FORMS = {
+    "zamba2_shared": dict(arch="zamba2_1_2b", h=32, kv=32, d=64, dv=64,
+                          s=PREFILL_S, t=PREFILL_S, causal=True),
 }
 
 
@@ -3929,9 +3978,11 @@ def family_cut(cfg, n_layers: int):
 
 
 def attention_calls(cfg) -> int:
-    """Attention calls of one prefill: every self-attention, encoder layer
-    and cross-attention layer."""
-    return (cfg.n_layers + cfg.encoder_layers
+    """Attention calls of one prefill: every self-attention (zamba2's shared
+    layers included; Mamba2, mLSTM and sLSTM have none), encoder layer and
+    cross-attention layer."""
+    return (sum(k in ("attn", "swa", "mla", "shared_attn")
+                for k in cfg.blocks) + cfg.encoder_layers
             + sum(cfg.has_cross(i) for i in range(cfg.n_layers)))
 
 
@@ -3954,15 +4005,28 @@ def family_inputs(cfg, s: int, dev, seed: int) -> tuple:
 
 def family_cache_bytes(cfg, batch: int, cap: int) -> int:
     """bf16 caches: K and V (or MLA's latent and rope key) and int32
-    positions per layer, the virtual-token state, and the encoder states
-    or image embeddings cross-attention reads."""
+    positions per attention layer, the recurrent layers' f32 states, the
+    virtual-token state, and the encoder states or image embeddings
+    cross-attention reads."""
     total = 0
+    d, ssm = cfg.d_model, cfg.ssm
+    p = 2 * d // cfg.n_heads  # mLSTM's head width: pf 2
+    mamba_heads = ssm.expand * d // ssm.head_dim
     for kind in cfg.blocks:
-        if kind == "mla":
-            width = 2 * (cfg.mla.kv_lora + cfg.mla.d_rope)
+        if kind == "mamba2":  # f32 state (H, P, N) and conv tail (3, C)
+            total += batch * 4 * (
+                mamba_heads * ssm.head_dim * ssm.d_state
+                + 3 * (ssm.expand * d + 2 * ssm.d_state))
+        elif kind == "mlstm":  # f32 C (H, P, P), n (H, P), m (H)
+            total += batch * 4 * cfg.n_heads * (p * p + p + 1)
+        elif kind == "slstm":  # f32 c, n, m (d each)
+            total += batch * 4 * 3 * d
+        elif kind == "mla":
+            total += batch * cap * (2 * (cfg.mla.kv_lora + cfg.mla.d_rope)
+                                    + 4)
         else:
-            width = 2 * cfg.n_kv_heads * cfg.head_dim * 2
-        total += batch * cap * (width + 4)
+            total += batch * cap * (2 * cfg.n_kv_heads * cfg.head_dim * 2
+                                    + 4)
     total += batch * cfg.n_virtual_tokens * cfg.d_virtual * 2
     if cfg.has_encoder:
         total += batch * cfg.n_audio_frames * cfg.d_model * 2
@@ -3971,19 +4035,19 @@ def family_cache_bytes(cfg, batch: int, cap: int) -> int:
     return total
 
 
-def family_parity(full, dev) -> dict:
-    """f32 weights (seed 0) at full width and the fewest layers that hold a
-    cross layer: ``forward`` with the kernel against ``use_kernel=False``
-    (every logit within LOGIT_TOL of the largest, aux within 1e-5), one f32
-    launch per attention call; then the bf16 forward with the same weights
-    (one bf16 launch per call) against the f32 kernel path within
-    FAMILY_BF16_L2; and :func:`family_decode_parity` in f32 and bf16."""
+def family_parity(full, dev, n: int = 2) -> dict:
+    """f32 weights (seed 0) at full width and ``n`` layers, or the fewest
+    beyond that hold a cross layer: ``forward`` with the kernel against
+    ``use_kernel=False`` (every logit within LOGIT_TOL of the largest, aux
+    within 1e-5), one f32 launch per attention call; then the bf16 forward
+    with the same weights (one bf16 launch per call) against the f32
+    kernel path within FAMILY_BF16_L2; and :func:`family_decode_parity` in
+    f32 and bf16."""
     import torch
 
     from repro_torch.archs.model import forward
     from repro_torch.kernels import swa_attention
 
-    n = 2
     while not any(full.has_cross(i) for i in range(n)) and \
             full.cross_attn_every > 0:
         n += 1
@@ -4093,10 +4157,13 @@ def family_decode_parity(params, cfg, dtype, dev) -> dict | None:
             "launches": launches, "form_launches": forms}
 
 
-def family_full(cfg, dev) -> dict:
+def family_full(cfg, dev, runs: int = 3, profile: bool = False) -> dict:
     """bf16 weights built on the card at full width and depth: a B = 1
     prefill of PREFILL_S tokens (whisper: WHISPER_S over its frames), one
-    bf16 launch per attention call, timed; then serve.run at SERVE_BATCH x
+    bf16 launch per attention call, then ``runs`` more, timed (the first
+    a warm-up where there are several; with none, the counted run is the
+    timed one), and with ``profile`` one under :func:`profile_step`; then
+    serve.run at SERVE_BATCH x
     (SERVE_PROMPT + SERVE_GEN) with the exact cache footprint and one
     launch per cross layer and step (and the encoder's)."""
     import contextlib
@@ -4122,8 +4189,10 @@ def family_full(cfg, dev) -> dict:
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
+        t = time.perf_counter()
         logits, aux = forward(params, cfg, tok, **mod)
         torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
         launches = all_launch_counts()
         forms = dict(swa_attention.form_launches)
         peak = torch.cuda.max_memory_allocated()
@@ -4131,19 +4200,23 @@ def family_full(cfg, dev) -> dict:
         shape = list(logits.shape)
         del logits
         times = []
-        for _ in range(3):  # a warm-up, then 2 timed
+        for _ in range(runs):
             torch.cuda.synchronize()
             t = time.perf_counter()
             forward(params, cfg, tok, **mod)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-    wall = statistics.median(times[1:])
+        prof = (profile_step(lambda: forward(params, cfg, tok, **mod))
+                if profile else None)
+    times = times[1:] or times or [first_s]  # without the warm-up
+    wall = statistics.median(times)
     out.update(prefill={
         "batch": 1, "seq": s, "logits_shape": shape, "finite": finite,
         "aux": float(aux), "launches": launches, "form_launches": forms,
-        "attention_calls": attention_calls(cfg), "wall_s": times[1:],
-        "wall_s_median": wall, "tokens_per_s": s / wall,
-        "allocated_before_bytes": before, "peak_memory_bytes": peak})
+        "attention_calls": attention_calls(cfg), "first_run_s": first_s,
+        "wall_s": times, "wall_s_median": wall, "tokens_per_s": s / wall,
+        "allocated_before_bytes": before, "peak_memory_bytes": peak,
+        "profile": prof})
     text = io.StringIO()
     reset_all_launches()
     with contextlib.redirect_stdout(text):
@@ -4218,8 +4291,9 @@ def phase_lm_family(aid: str, dev) -> dict:
     return line
 
 
-def family_form_rows(dev, families: dict) -> tuple[dict, dict]:
-    """The attention kernel alone at FAMILY_FORMS, bf16 and f32 (the same
+def family_form_rows(dev, families: dict, forms: dict = FAMILY_FORMS,
+                     phase: str = "lm_family_kernels") -> tuple[dict, dict]:
+    """The attention kernel alone at ``forms``, bf16 and f32 (the same
     values), against its plain version in its dtype with a bitwise repeat,
     timed (CUDA events; device ms from ``torch.profiler``) beside the
     plain version and SDPA (``library_ms``: None where SDPA refuses the
@@ -4235,7 +4309,7 @@ def family_form_rows(dev, families: dict) -> tuple[dict, dict]:
 
     readings, rows = {}, {"bf16": {}, "f32": {}}
     with torch.no_grad():
-        for name, f in FAMILY_FORMS.items():
+        for name, f in forms.items():
             gen = torch.Generator(device=dev).manual_seed(3)
             b = f.get("b", 1)
             r = lambda n, length, d: torch.randn((b, length, n, d),
@@ -4289,7 +4363,7 @@ def family_form_rows(dev, families: dict) -> tuple[dict, dict]:
                     bound_ms=b_ms, bound_by=b_by, launches=counts.get(key, 0))
                 rows[tag][name] = dict(out[tag], name=name)
             readings[name] = out
-    line = {"phase": "lm_family_kernels", "forms": readings,
+    line = {"phase": phase, "forms": readings,
             "tolerance": {"f32": {"atol": ATOL, "rtol": RTOL},
                           "bf16": {"atol": BF16_ATOL, "rtol": BF16_RTOL}}}
     for name, out in readings.items():
@@ -4302,6 +4376,177 @@ def family_form_rows(dev, families: dict) -> tuple[dict, dict]:
                                      f"never ran on the main path: "
                                      f"{json.dumps(line)}")
     return line, rows
+
+
+def _held(got, want, tol: float) -> dict:
+    """``got`` against ``want`` elementwise: |g - w| <= tol + tol |w|."""
+    import torch
+
+    d = (got - want).abs()
+    return {"max_abs_err": float(d.max()), "max_abs": float(want.abs().max()),
+            "finite": bool(torch.isfinite(got).all()
+                           and torch.isfinite(want).all()),
+            "within_tol": bool(torch.all(d <= tol + tol * want.abs()))}
+
+
+def xlstm_card_vs_cpu(full, dev) -> dict:
+    """xlstm at its published widths and XLSTM_CARD_LAYERS layers (mLSTM,
+    sLSTM), f32 weights (seed 0) built on the card: the card's logits for
+    XLSTM_CARD_S tokens against the same weights' forward on the CPU (the
+    recurrences are plain PyTorch on both; no kernel to hold), every logit
+    within LOGIT_TOL of the largest, and no launch; the card's bf16
+    forward against its f32 (relative L2, reported)."""
+    import torch
+
+    from repro_torch.archs.model import forward
+    from repro_torch.training.optim import tree_map
+
+    cfg = family_cut(full, XLSTM_CARD_LAYERS)
+    params = lm_f32_weights(cfg, 0, dev)
+    tok, _ = family_inputs(cfg, XLSTM_CARD_S, dev, seed=1)
+    with torch.no_grad():
+        reset_all_launches()
+        t = time.perf_counter()
+        got, _ = forward(params, cfg, tok, dtype=torch.float32)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        launches = all_launch_counts()
+        bf, _ = forward(params, cfg, tok)
+        bf_l2 = rel_l2(bf.float(), got)
+        del bf
+        cpu = tree_map(lambda t: t.cpu(), params)
+        t = time.perf_counter()
+        want, _ = forward(cpu, cfg, tok.cpu(), dtype=torch.float32)
+        cpu_s = time.perf_counter() - t
+    got = got.cpu()
+    scale = float(want.abs().max())
+    d = (got - want).abs()
+    out = {"layers": list(cfg.blocks), "seq": XLSTM_CARD_S,
+           "card_forward_s": card_s, "cpu_forward_s": cpu_s,
+           "cpu_threads": torch.get_num_threads(),
+           "max_abs_err": float(d.max()), "max_abs_logit": scale,
+           "max_err_over_max_logit": float(d.max()) / scale,
+           "elementwise_within_logit_tol": bool(torch.all(
+               d <= LOGIT_TOL * scale + LOGIT_TOL * want.abs())),
+           "finite": bool(torch.isfinite(got).all()),
+           "bf16_rel_l2_vs_f32": bf_l2, "launches": launches}
+    del params, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode_run(step, x, state) -> tuple:
+    """Every token of ``x`` (B, T, d) through ``step(x_t, state)``: the
+    outputs (B, T, d) and the ms a token."""
+    import torch
+
+    outs = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(x.shape[1]):
+        y, state = step(x[:, i:i + 1], state)
+        outs.append(y)
+    torch.cuda.synchronize()
+    return torch.cat(outs, 1), 1e3 * (time.perf_counter() - t) / x.shape[1]
+
+
+def module_decode_parity(cfg, dev) -> dict:
+    """The reference's decode-against-forward contract (its
+    tests/test_nn.py), module by module on the card in f32 at ``cfg``'s
+    published widths: MODULE_TOKENS tokens of random inputs (seed 4) for
+    MODULE_BATCH rows, one decode step a token from an empty state against
+    the forward over all of them, within MODULE_TOL (atol and rtol).
+    Mamba2 (zamba2) at its SSD chunk and at MODULE_SMALL_CHUNK; mLSTM and
+    sLSTM (xlstm)."""
+    import torch
+
+    from repro_torch.nn import ssm, xlstm
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, n, d = MODULE_BATCH, MODULE_TOKENS, cfg.d_model
+    out = {}
+    with torch.no_grad():
+        x = torch.randn((b, n, d), generator=gen, device=dev)
+        if "mamba2" in cfg.blocks:
+            md = ssm.mamba2_dims(d, d_state=cfg.ssm.d_state,
+                                 head_dim=cfg.ssm.head_dim,
+                                 expand=cfg.ssm.expand)
+            p = ssm.init_mamba2(gen, md, device=dev)
+            dec, ms = _decode_run(
+                lambda xt, c: ssm.mamba2_decode(p, xt, c, md), x,
+                ssm.init_mamba2_cache(b, md, device=dev))
+            for c in (cfg.ssd_chunk, MODULE_SMALL_CHUNK):
+                out[f"mamba2_chunk_{c}"] = dict(_held(
+                    dec, ssm.mamba2_forward(p, x, md, c), MODULE_TOL),
+                    decode_ms_per_token=ms)
+        if "mlstm" in cfg.blocks:
+            xd = xlstm.xlstm_dims(d, cfg.n_heads)
+            p = xlstm.init_mlstm(gen, xd, device=dev)
+            dec, ms = _decode_run(
+                lambda xt, st: xlstm.mlstm_decode(p, xt, st, xd), x,
+                xlstm.init_mlstm_state(b, xd, device=dev))
+            out["mlstm"] = dict(_held(dec, xlstm.mlstm_forward(p, x, xd),
+                                      MODULE_TOL), decode_ms_per_token=ms)
+            p = xlstm.init_slstm(gen, xd, device=dev)
+            dec, ms = _decode_run(
+                lambda xt, st: xlstm.slstm_decode(p, xt, st), x,
+                xlstm.init_slstm_state(b, d, device=dev))
+            out["slstm"] = dict(_held(dec, xlstm.slstm_forward(p, x),
+                                      MODULE_TOL), decode_ms_per_token=ms)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_recurrent(aid: str, dev) -> dict:
+    """One config of the recurrent family at its published widths: zamba2's
+    kernel path against the plain one (:func:`family_parity` at
+    ZAMBA_PARITY_LAYERS layers), or xlstm's card against the CPU
+    (:func:`xlstm_card_vs_cpu`); :func:`module_decode_parity`; then
+    :func:`family_full` at full depth (xlstm's prefill timed in its
+    counted run alone: its token-by-token recurrences take ~30 s).  Fails
+    on a count, limit or footprint missed."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch(aid)
+    shared = full.blocks.count("shared_attn")
+    t0 = time.perf_counter()
+    line = {"phase": "lm_recurrent", "arch": full.name,
+            "layers": full.n_layers, "published_layers": full.n_layers,
+            "reduced": [], "blocks": {k: full.blocks.count(k)
+                                      for k in sorted(set(full.blocks))}}
+    if shared:
+        line["parity_f32"] = par = family_parity(full, dev,
+                                                 ZAMBA_PARITY_LAYERS)
+        _expect_launches(f"lm_recurrent {aid} parity", par["launches"],
+                         f32=par["attention_calls"])
+        _expect_launches(f"lm_recurrent {aid} parity bf16",
+                         par["bf16_launches"], bf16=par["attention_calls"])
+        ok = (par["attention_calls"] == 1
+              and par["elementwise_within_logit_tol"] and par["finite"]
+              and par["bf16_rel_l2_vs_f32"] <= FAMILY_BF16_L2)
+    else:
+        line["card_vs_cpu_f32"] = cvc = xlstm_card_vs_cpu(full, dev)
+        _expect_launches(f"lm_recurrent {aid} card", cvc["launches"])
+        ok = cvc["elementwise_within_logit_tol"] and cvc["finite"]
+    line["decode_vs_forward"] = mods = module_decode_parity(full, dev)
+    ok &= all(r["within_tol"] and r["finite"] for r in mods.values())
+    line.update(family_full(full, dev, runs=3 if shared else 0,
+                            profile=bool(shared)))
+    pre, srv = line["prefill"], line["serve"]
+    _expect_launches(f"lm_recurrent {aid} prefill", pre["launches"],
+                     bf16=shared)
+    _expect_launches(f"lm_recurrent {aid} serve", srv["launches"])
+    line["seconds"] = time.perf_counter() - t0
+    line["tolerance"] = {"atol_x_max": LOGIT_TOL, "rtol": LOGIT_TOL,
+                         "bf16_rel_l2": FAMILY_BF16_L2,
+                         "module_decode_atol": MODULE_TOL,
+                         "module_decode_rtol": MODULE_TOL}
+    ok &= (pre["attention_calls"] == shared and pre["finite"]
+           and srv["cache_bytes"] == srv["cache_bytes_expected"]
+           and srv["attention_launches"] == 0 and srv["generated_in_vocab"])
+    if not ok:
+        raise AssertionError(f"lm_recurrent {aid} failed: {json.dumps(line)}")
+    return line
 
 
 def main() -> int:
@@ -4415,6 +4660,18 @@ def main() -> int:
                          "decode_f32": line["parity_f32"]["decode"]["f32"]}
     line, form_rows = family_form_rows(dev, families)
     emit(line)
+    # the recurrent family, then the kernel at zamba2's shared attention
+    recurrent = {}
+    for aid in RECURRENT:
+        line = phase_lm_recurrent(aid, dev)
+        emit(line)
+        recurrent[aid] = {"prefill": line["prefill"],
+                          "parity_f32": line.get("parity_f32")}
+    line, rec_rows = family_form_rows(dev, recurrent, RECURRENT_FORMS,
+                                      "lm_recurrent_kernels")
+    emit(line)
+    for tag in form_rows:
+        form_rows[tag].update(rec_rows[tag])
     # the bf16 kernel's launches: the bf16 prefill; the f32 kernel's: the
     # f32 prefill of lm_parity_full (seed 0)
     swa_bf16, swa_f32 = lm_rows

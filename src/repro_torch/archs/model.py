@@ -1,26 +1,33 @@
-"""Config-driven decoder stack: every block kind but the recurrent ones.
+"""Config-driven decoder stack: every block kind of the ten configs.
 
-The counterpart of the JAX package's ``archs/model.py`` for architectures
-whose blocks are GQA self-attention (``ATTN``), sliding-window attention
-(``SWA``) or multi-head latent attention (``MLA``), with SwiGLU / GeGLU /
-MoE FFNs, the optional bidirectional audio encoder (whisper), the optional
-cross-attention layers (whisper's decoder, llama-vision's image layers)
-and the optional virtual-token pathway (the paper's technique): gemma3,
-olmoe, deepseek-v2-lite, granite, llama3 and whisper and llama-vision.
-Mamba2, mLSTM, sLSTM and shared-attention blocks raise
-``NotImplementedError`` (ROADMAP queue A #10).
+The counterpart of the JAX package's ``archs/model.py``: a decoder whose
+per-layer block kind comes from ``ArchConfig.blocks`` — GQA self-attention
+(``ATTN``), sliding-window attention (``SWA``), multi-head latent
+attention (``MLA``), Mamba2 (``MAMBA2``), mLSTM / sLSTM (``MLSTM``,
+``SLSTM``) and zamba2's shared attention block (``SHARED_ATTN``: one
+attention + SwiGLU block whose weights all such layers share, read through
+each layer's own norm and projection of ``concat([x, x0])``, ``x0`` the
+embedding output) — with SwiGLU / GeGLU / MoE FFNs, the optional
+bidirectional audio encoder (whisper), the optional cross-attention layers
+(whisper's decoder, llama-vision's image layers) and the optional
+virtual-token pathway (the paper's technique).  An unknown block kind
+raises ``ValueError``, as the reference's ``_init_layer`` does.
 
 Three entry points:
   ``forward``      — prefill: tokens (B, S) → logits (B, S, V); every
-                     self-, encoder and cross-attention runs the hand-
-                     written attention kernel on the card
-                     (``use_kernel=False``: the plain attention)
-  ``init_cache``   — decode caches (full KV for ATTN, a ring for SWA,
-                     latents for MLA) and the encoder states / image
-                     embeddings that cross-attention reads
-  ``decode_step``  — one-token serve step, cache updated in place; plain
-                     PyTorch but for cross-attention, which launches the
-                     kernel (one query over the T encoder states)
+                     self-, shared, encoder and cross-attention runs the
+                     hand-written attention kernel on the card
+                     (``use_kernel=False``: the plain attention); Mamba2,
+                     mLSTM and sLSTM are plain PyTorch, as the reference's
+                     are plain ``jnp``
+  ``init_cache``   — decode caches (full KV for ATTN and SHARED_ATTN, a
+                     ring for SWA, latents for MLA, the f32 recurrent state
+                     for MAMBA2 / MLSTM / SLSTM) and the encoder states /
+                     image embeddings that cross-attention reads
+  ``decode_step``  — one-token serve step; KV caches updated in place,
+                     recurrent states replaced; plain PyTorch but for
+                     cross-attention, which launches the kernel (one query
+                     over the T encoder states)
 
 Layers run in a Python loop: ``ArchConfig.scan_layers``, ``remat`` and
 ``remat_policy`` are XLA compile-time knobs of the reference and have no
@@ -35,21 +42,20 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.archs.config import (FFN_GEGLU, FFN_MOE, FFN_NONE,
+from repro_torch.archs.config import (ATTN, FFN_GEGLU, FFN_MOE, FFN_NONE,
                                       FFN_SWIGLU, MAMBA2, MLA, MLSTM,
                                       SHARED_ATTN, SLSTM, SWA, ArchConfig)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.nn import attention as attn
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import ssm as ssm_lib
+from repro_torch.nn import xlstm as xlstm_lib
 from repro_torch.nn.basic import (dense_init, geglu, init_geglu, init_rmsnorm,
                                   init_swiglu, randn, rmsnorm, swiglu)
 from repro_torch.nn.virtual_tokens import (init_virtual_tokens, init_vt_state,
                                            virtual_token_layer)
 
 Tensor = torch.Tensor
-
-_TODO = "(ROADMAP queue A #10, the LM stack)"
-
 
 # ----------------------------------------------------------------- helpers
 def _tree_map(fn, tree):
@@ -66,13 +72,13 @@ def cast_params(params, dtype):
         lambda a: a.to(dtype) if a.dtype == torch.float32 else a, params)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    the recurrent blocks and zamba2's shared attention."""
-    kinds = sorted(set(cfg.blocks) & {MAMBA2, MLSTM, SLSTM, SHARED_ATTN})
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {kinds} are not ported {_TODO}")
+def _mamba_dims(cfg: ArchConfig) -> ssm_lib.Mamba2Dims:
+    return ssm_lib.mamba2_dims(cfg.d_model, d_state=cfg.ssm.d_state,
+                               head_dim=cfg.ssm.head_dim, expand=cfg.ssm.expand)
+
+
+def _xlstm_dims(cfg: ArchConfig) -> xlstm_lib.XLSTMDims:
+    return xlstm_lib.xlstm_dims(cfg.d_model, cfg.n_heads)
 
 
 # -------------------------------------------------------------------- init
@@ -94,14 +100,29 @@ def _init_gqa(gen, cfg: ArchConfig, kw):
 
 
 def _init_layer(gen, cfg: ArchConfig, i: int, kw):
-    p: dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, **kw)}
-    if cfg.block_kind(i) == MLA:
+    kind = cfg.block_kind(i)
+    p: dict[str, Any] = {}
+    if kind == SHARED_ATTN:
+        # a per-layer input projection; attention and FFN weights are shared
+        p["norm1"] = init_rmsnorm(2 * cfg.d_model, **kw)
+        p["in_proj"] = dense_init(gen, 2 * cfg.d_model, cfg.d_model, **kw)
+    else:
+        p["norm1"] = init_rmsnorm(cfg.d_model, **kw)
+    if kind in (ATTN, SWA):
+        p["attn"] = _init_gqa(gen, cfg, kw)
+    elif kind == MLA:
         m = cfg.mla
         p["attn"] = attn.init_mla(gen, cfg.d_model, cfg.n_heads,
                                   kv_lora=m.kv_lora, d_nope=m.d_nope,
                                   d_rope=m.d_rope, d_v=m.d_v, **kw)
-    else:
-        p["attn"] = _init_gqa(gen, cfg, kw)
+    elif kind == MAMBA2:
+        p["mixer"] = ssm_lib.init_mamba2(gen, _mamba_dims(cfg), **kw)
+    elif kind == MLSTM:
+        p["mixer"] = xlstm_lib.init_mlstm(gen, _xlstm_dims(cfg), **kw)
+    elif kind == SLSTM:
+        p["mixer"] = xlstm_lib.init_slstm(gen, _xlstm_dims(cfg), **kw)
+    elif kind != SHARED_ATTN:
+        raise ValueError(kind)
     if cfg.has_cross(i):
         p["norm_x"] = init_rmsnorm(cfg.d_model, **kw)
         p["cross"] = _init_gqa(gen, cfg, kw)
@@ -117,7 +138,6 @@ def init_arch(gen: torch.Generator, cfg: ArchConfig, *, device=None,
     """Random weights of the reference's shapes and scales, drawn from
     ``gen`` on its own device (a CUDA generator builds a large model on the
     card) and stored on ``device`` (default CUDA) in ``dtype``."""
-    check_supported(cfg)
     kw = dict(device=resolve_device(device), dtype=dtype)
     params: dict[str, Any] = {
         "embed": randn(gen, (cfg.vocab, cfg.d_model), scale=0.02, **kw),
@@ -126,6 +146,13 @@ def init_arch(gen: torch.Generator, cfg: ArchConfig, *, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, 0.02, **kw)
+    if SHARED_ATTN in cfg.blocks:
+        params["shared_block"] = {
+            "attn": _init_gqa(gen, cfg, kw),
+            "norm2": init_rmsnorm(cfg.d_model, **kw),
+            "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff or 4 * cfg.d_model,
+                               **kw),
+        }
     if cfg.has_encoder:
         params["encoder"] = {
             "layers": [
@@ -194,24 +221,50 @@ def _cross(lp, cfg: ArchConfig, x: Tensor, enc_out: Tensor, positions,
                                 use_kernel=use_kernel)
 
 
-def _layer_forward(lp, cfg: ArchConfig, i: int, x: Tensor,
-                   enc_out: Optional[Tensor], use_kernel: bool
+def _shared_in(lp, x: Tensor, x0: Tensor) -> Tensor:
+    """A shared-attention layer's input: its norm over ``concat([x, x0])``
+    (2·d_model wide), then its own projection back to d_model."""
+    return rmsnorm(lp["norm1"], torch.cat([x, x0], dim=-1)) @ lp["in_proj"]
+
+
+def _shared_out(sb, x: Tensor, a: Tensor) -> Tensor:
+    """The shared block's residual: attention plus its SwiGLU of the
+    normed attention output."""
+    return x + a + swiglu(sb["ffn"], rmsnorm(sb["norm2"], a))
+
+
+def _layer_forward(params, lp, cfg: ArchConfig, i: int, x: Tensor,
+                   x0: Tensor, enc_out: Optional[Tensor], use_kernel: bool
                    ) -> tuple[Tensor, Optional[Tensor]]:
     kind = cfg.block_kind(i)
-    h = rmsnorm(lp["norm1"], x)
-    if kind == MLA:
-        m = cfg.mla
-        x = x + attn.mla_forward(
-            lp["attn"], h, None, n_heads=cfg.n_heads, kv_lora=m.kv_lora,
-            d_nope=m.d_nope, d_rope=m.d_rope, d_v=m.d_v,
-            rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
-            use_kernel=use_kernel)
+    if kind == SHARED_ATTN:
+        sb = params["shared_block"]
+        a = attn.gqa_forward(sb["attn"], _shared_in(lp, x, x0), None,
+                             **_gqa_kw(cfg), rope_theta=cfg.rope_theta,
+                             q_chunk=cfg.q_chunk, use_kernel=use_kernel)
+        x = _shared_out(sb, x, a)
     else:
-        x = x + attn.gqa_forward(
-            lp["attn"], h, None, **_gqa_kw(cfg),
-            window=cfg.window if kind == SWA else None,
-            rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
-            use_kernel=use_kernel)
+        h = rmsnorm(lp["norm1"], x)
+        if kind == MLA:
+            m = cfg.mla
+            x = x + attn.mla_forward(
+                lp["attn"], h, None, n_heads=cfg.n_heads, kv_lora=m.kv_lora,
+                d_nope=m.d_nope, d_rope=m.d_rope, d_v=m.d_v,
+                rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
+                use_kernel=use_kernel)
+        elif kind == MAMBA2:
+            x = x + ssm_lib.mamba2_forward(lp["mixer"], h, _mamba_dims(cfg),
+                                           cfg.ssd_chunk)
+        elif kind == MLSTM:
+            x = x + xlstm_lib.mlstm_forward(lp["mixer"], h, _xlstm_dims(cfg))
+        elif kind == SLSTM:
+            x = x + xlstm_lib.slstm_forward(lp["mixer"], h)
+        else:
+            x = x + attn.gqa_forward(
+                lp["attn"], h, None, **_gqa_kw(cfg),
+                window=cfg.window if kind == SWA else None,
+                rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
+                use_kernel=use_kernel)
     if cfg.has_cross(i) and enc_out is not None:
         x = _cross(lp, cfg, x, enc_out, None, cfg.q_chunk, use_kernel)
     aux = None
@@ -245,10 +298,9 @@ def forward(
     hidden states (B,S,d) in compute dtype instead of logits.  Whisper
     needs ``audio`` (frame embeddings, encoded here), llama-vision
     ``images`` (patch embeddings, read by its cross-attention layers)."""
-    check_supported(cfg)
     params = cast_params(params, dtype)
     b = tokens.shape[0]
-    x = _embed(params, cfg, tokens, dtype)
+    x = x0 = _embed(params, cfg, tokens, dtype)
     enc_out = None
     if cfg.has_encoder:
         if audio is None:
@@ -265,8 +317,8 @@ def forward(
         vt = init_vt_state(params["vt"][0], b).to(dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
-        x, aux = _layer_forward(params["layers"][i], cfg, i, x, enc_out,
-                                use_kernel)
+        x, aux = _layer_forward(params, params["layers"][i], cfg, i, x, x0,
+                                enc_out, use_kernel)
         if aux is not None:
             aux_total = aux_total + aux
         if vt is not None:
@@ -286,7 +338,7 @@ def lm_head_weights(params, cfg: ArchConfig, dtype=torch.bfloat16) -> Tensor:
 
 # ------------------------------------------------------------------ decode
 class DecodeCache(NamedTuple):
-    layers: tuple  # per-layer {"kv": KVCache or MLACache}
+    layers: tuple  # per-layer {"kv": KVCache or MLACache} or {"ssm": state}
     vt: Optional[Tensor]
     enc_out: Optional[Tensor]  # encoder states / image embeddings (cross K/V src)
 
@@ -294,19 +346,30 @@ class DecodeCache(NamedTuple):
 def init_cache(cfg: ArchConfig, batch: int, capacity: int, *,
                enc_out: Optional[Tensor] = None, dtype=torch.bfloat16,
                device=None) -> DecodeCache:
-    check_supported(cfg)
+    """Attention layers' KV caches in ``dtype``; the recurrent layers'
+    states in f32 whatever ``dtype``, as the reference's."""
     dev = resolve_device(device)
     layers = []
     for i in range(cfg.n_layers):
         kind = cfg.block_kind(i)
         if kind == MLA:
-            kv = attn.init_mla_cache(batch, capacity, cfg.mla.kv_lora,
-                                     cfg.mla.d_rope, dtype, device=dev)
-        else:
+            entry = {"kv": attn.init_mla_cache(
+                batch, capacity, cfg.mla.kv_lora, cfg.mla.d_rope, dtype,
+                device=dev)}
+        elif kind == MAMBA2:
+            entry = {"ssm": ssm_lib.init_mamba2_cache(
+                batch, _mamba_dims(cfg), device=dev)}
+        elif kind == MLSTM:
+            entry = {"ssm": xlstm_lib.init_mlstm_state(
+                batch, _xlstm_dims(cfg), device=dev)}
+        elif kind == SLSTM:
+            entry = {"ssm": xlstm_lib.init_slstm_state(
+                batch, cfg.d_model, device=dev)}
+        else:  # ATTN, SHARED_ATTN: full capacity; SWA: a ring
             cap = min(cfg.window, capacity) if kind == SWA else capacity
-            kv = attn.init_kv_cache(batch, cap, cfg.n_kv_heads, cfg.head_dim,
-                                    dtype, device=dev)
-        layers.append({"kv": kv})
+            entry = {"kv": attn.init_kv_cache(
+                batch, cap, cfg.n_kv_heads, cfg.head_dim, dtype, device=dev)}
+        layers.append(entry)
     vt = None
     if cfg.n_virtual_tokens > 0:
         vt = torch.zeros((batch, cfg.n_virtual_tokens, cfg.d_virtual),
@@ -324,30 +387,48 @@ def decode_step(
     dtype=torch.bfloat16,
     use_kernel: bool = True,
 ) -> tuple[Tensor, DecodeCache]:
-    """One serve step: next-token logits (B, V) + the cache, its tensors
-    updated in place.  Self-attention and MLA are plain PyTorch over the
-    cache; cross-attention (one query over the cached ``enc_out``) runs the
-    attention kernel on the card (``use_kernel=False``: the plain one)."""
+    """One serve step: next-token logits (B, V) + the cache (KV tensors
+    updated in place, recurrent states replaced by new tensors).
+    Self-attention, MLA, the shared block and the recurrent blocks are
+    plain PyTorch over the cache; cross-attention (one query over the
+    cached ``enc_out``) runs the attention kernel on the card
+    (``use_kernel=False``: the plain one)."""
     params = cast_params(params, dtype)
-    x = _embed(params, cfg, tokens, dtype)[:, None, :]
+    x = x0 = _embed(params, cfg, tokens, dtype)[:, None, :]
     vt = cache.vt
     new_layers = []
     for i, lp in enumerate(params["layers"]):
         kind = cfg.block_kind(i)
         entry = dict(cache.layers[i])
-        h = rmsnorm(lp["norm1"], x)
-        if kind == MLA:
-            m = cfg.mla
-            out, entry["kv"] = attn.mla_decode(
-                lp["attn"], h, entry["kv"], pos, n_heads=cfg.n_heads,
-                kv_lora=m.kv_lora, d_nope=m.d_nope, d_rope=m.d_rope,
-                d_v=m.d_v, rope_theta=cfg.rope_theta)
+        if kind == SHARED_ATTN:
+            sb = params["shared_block"]
+            a, entry["kv"] = attn.gqa_decode(
+                sb["attn"], _shared_in(lp, x, x0), entry["kv"], pos,
+                **_gqa_kw(cfg), rope_theta=cfg.rope_theta)
+            x = _shared_out(sb, x, a)
         else:
-            out, entry["kv"] = attn.gqa_decode(
-                lp["attn"], h, entry["kv"], pos, **_gqa_kw(cfg),
-                window=cfg.window if kind == SWA else None,
-                rope_theta=cfg.rope_theta)
-        x = x + out
+            h = rmsnorm(lp["norm1"], x)
+            if kind == MLA:
+                m = cfg.mla
+                out, entry["kv"] = attn.mla_decode(
+                    lp["attn"], h, entry["kv"], pos, n_heads=cfg.n_heads,
+                    kv_lora=m.kv_lora, d_nope=m.d_nope, d_rope=m.d_rope,
+                    d_v=m.d_v, rope_theta=cfg.rope_theta)
+            elif kind == MAMBA2:
+                out, entry["ssm"] = ssm_lib.mamba2_decode(
+                    lp["mixer"], h, entry["ssm"], _mamba_dims(cfg))
+            elif kind == MLSTM:
+                out, entry["ssm"] = xlstm_lib.mlstm_decode(
+                    lp["mixer"], h, entry["ssm"], _xlstm_dims(cfg))
+            elif kind == SLSTM:
+                out, entry["ssm"] = xlstm_lib.slstm_decode(
+                    lp["mixer"], h, entry["ssm"])
+            else:
+                out, entry["kv"] = attn.gqa_decode(
+                    lp["attn"], h, entry["kv"], pos, **_gqa_kw(cfg),
+                    window=cfg.window if kind == SWA else None,
+                    rope_theta=cfg.rope_theta)
+            x = x + out
         if cfg.has_cross(i) and cache.enc_out is not None:
             x = _cross(lp, cfg, x, cache.enc_out.to(dtype), pos[:1], 1,
                        use_kernel)

@@ -1,14 +1,14 @@
 """Config registry: ``get_arch(name)`` + the assigned input shapes.
 
-Eight configs are ported, each a copy of the JAX package's field by field:
-the attention family — gemma3-12b / 27b (GQA + sliding window, GeGLU),
-olmoe-1b-7b (MoE), deepseek-v2-lite-16b (MLA + MoE with shared experts),
-granite-20b (MQA), llama3-405b (GQA), whisper-small (audio encoder +
-cross-attention) and llama-3.2-vision-11b (image cross-attention every 5th
-layer) — whose attention runs the hand-written attention kernel on the
-card.  The recurrent family (xlstm-125m, zamba2-1.2b) keeps its aliases,
-and :func:`get_arch` raises ``NotImplementedError`` naming the block kinds
-that keep it out.
+All ten configs are ported, each a copy of the JAX package's field by
+field: the attention family — gemma3-12b / 27b (GQA + sliding window,
+GeGLU), olmoe-1b-7b (MoE), deepseek-v2-lite-16b (MLA + MoE with shared
+experts), granite-20b (MQA), llama3-405b (GQA), whisper-small (audio
+encoder + cross-attention) and llama-3.2-vision-11b (image cross-attention
+every 5th layer) — whose attention runs the hand-written attention kernel
+on the card; and the recurrent family — xlstm-125m (mLSTM, sLSTM at
+layers 1, 4, 7, 10) and zamba2-1.2b (Mamba2, with a shared attention block
+every 6th layer that runs the attention kernel).
 """
 from __future__ import annotations
 
@@ -30,12 +30,6 @@ _ARCH_IDS = [
     "granite_20b",
 ]
 
-# ids whose config is not ported yet → what they need (ROADMAP queue A #10)
-_NOT_PORTED = {
-    "xlstm_125m": "mLSTM/sLSTM blocks",
-    "zamba2_1_2b": "Mamba2 and shared-attention blocks",
-}
-
 # canonical dashed ids (CLI) → module names
 ALIASES = {i.replace("_", "-"): i for i in _ARCH_IDS}
 ALIASES.update({i: i for i in _ARCH_IDS})
@@ -52,10 +46,6 @@ ARCH_NAMES = sorted(ALIASES)
 
 def get_arch(name: str) -> ArchConfig:
     mod = ALIASES[name]
-    if mod in _NOT_PORTED:
-        raise NotImplementedError(
-            f"config {name!r} is not ported to repro_torch yet: it needs "
-            f"{_NOT_PORTED[mod]} (ROADMAP queue A #10, the LM stack)")
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 

@@ -1,10 +1,13 @@
-"""Serving launcher: batched greedy decoding with per-layer KV caches.
+"""Serving launcher: batched greedy decoding with per-layer KV / state caches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --batch 4 --prompt-len 16 --gen 32 [--full] [--device cuda|cpu]
 
 The JAX package's ``launch/serve.py`` with the same flags and printout,
-plus ``--device`` (default ``cuda``).  Runs the reduced config by default;
+plus ``--device`` (default ``cuda``), for all ten configs: the attention
+family's layers keep KV caches (or MLA latents), xlstm-125m's and
+zamba2-1.2b's recurrent layers their f32 states, zamba2's shared
+attention layers full KV caches.  Runs the reduced config by default;
 ``--full`` runs the published widths and depth.  The weights are random
 from ``--seed`` and built in bf16, the compute dtype of ``decode_step``
 (the reference builds f32 and casts them every step: the same values).
@@ -30,7 +33,8 @@ from repro_torch.kernels.runtime import resolve_device
 
 
 def cache_bytes(cache) -> int:
-    """Bytes held by every tensor of a decode cache."""
+    """Bytes held by every tensor of a decode cache (KV caches, recurrent
+    state tuples, the virtual tokens, the encoder states)."""
     if isinstance(cache, torch.Tensor):
         return cache.numel() * cache.element_size()
     if isinstance(cache, dict):
@@ -72,7 +76,10 @@ def run(params, cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
     from :func:`modality_inputs`) through the cross-attention layers of
     every step.  ``attention_launches`` counts the attention
     kernel's launches of the decode loop (its cross-attention; 0 on the
-    CPU), ``encoder_launches`` those of the encoder."""
+    CPU), ``encoder_launches`` those of the encoder;
+    ``first_nonfinite_step`` is the first step whose logits are not all
+    finite (None if none is: random weights' virtual-token state
+    overflows at depth, in the reference as here)."""
     dev = resolve_device(device)
     b = batch
     cap = capacity or (prompt_len + gen)
@@ -97,17 +104,21 @@ def run(params, cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
 
     _sync(dev)
     n0 = swa_attention.launches
+    finite = []  # a device flag a step: no host sync in the loop
     t0 = time.perf_counter()
     for t in range(prompt_len):
         logits, cache = step(prompt[:, t], t)
+        finite.append(torch.isfinite(logits).all())
     generated = []
     for t in range(prompt_len, prompt_len + gen):
         tok = torch.argmax(logits, dim=-1)
         generated.append(tok)
         logits, cache = step(tok, t)
+        finite.append(torch.isfinite(logits).all())
     _sync(dev)
     dt = time.perf_counter() - t0
     n_dec = swa_attention.launches - n0
+    finite = torch.stack(finite).tolist() if finite else []
     total = b * (prompt_len + gen)
     print(f"decoded {total} tokens in {dt:.2f}s → {total/dt:.1f} tok/s")
     tokens = torch.stack(generated, dim=1).cpu() if generated else \
@@ -117,6 +128,8 @@ def run(params, cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
             "gen": gen, "capacity": cap, "cache_bytes": footprint,
             "tokens": total, "seconds": dt, "tokens_per_s": total / dt,
             "attention_launches": n_dec, "encoder_launches": n_enc,
+            "first_nonfinite_step": (finite.index(False)
+                                     if False in finite else None),
             "prompt": prompt.cpu(), "generated": tokens}
 
 

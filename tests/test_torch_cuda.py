@@ -1413,6 +1413,50 @@ def test_lm_family_forward_kernel_path_matches_plain_on_card(aid, dtype):
 
 
 @needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_recurrent_forward_launches_once_per_shared_layer(dtype):
+    """Reduced zamba2-1.2b stretched to 4 layers (Mamba2, shared, Mamba2,
+    shared) at S = 64 (4 SSD chunks of 16): #7 launches once per shared
+    layer (the tensor-core kernel in bf16), logits within 1e-4 of the
+    largest |logit| of the plain path in f32 and within relative L2 0.1 in
+    bf16; decode launches nothing.  Reduced xlstm-125m launches nothing."""
+    base = get_arch("zamba2_1_2b").reduced()
+    cfg = dataclasses.replace(base, n_layers=4, blocks=base.blocks * 2,
+                              ffns=base.ffns * 2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm_model.init_arch(gen, cfg, device="cuda", dtype=dtype)
+    tok = torch.randint(0, cfg.vocab, (2, 64), device="cuda", generator=gen)
+    swa_attention.reset_launches()
+    with torch.no_grad():
+        got, _ = lm_model.forward(params, cfg, tok, dtype=dtype)
+        n, n_wgmma = swa_attention.launches, swa_attention.wgmma_launches
+        want, _ = lm_model.forward(params, cfg, tok, dtype=dtype,
+                                   use_kernel=False)
+        cache = lm_model.init_cache(cfg, 2, 8, dtype=dtype, device="cuda")
+        swa_attention.reset_launches()
+        lm_model.decode_step(params, cfg, cache, tok[:, 0],
+                             torch.zeros(2, dtype=torch.int32, device="cuda"),
+                             dtype=dtype)
+        n_decode = swa_attention.launches
+        x_cfg = get_arch("xlstm_125m").reduced()
+        x_params = lm_model.init_arch(gen, x_cfg, device="cuda", dtype=dtype)
+        swa_attention.reset_launches()
+        x_out, _ = lm_model.forward(x_params, x_cfg, tok[:, :16], dtype=dtype)
+    torch.cuda.synchronize()
+    assert n == cfg.blocks.count("shared_attn") == 2
+    assert n_wgmma == (n if dtype == torch.bfloat16 else 0)
+    assert n_decode == 0 and swa_attention.launches == 0
+    assert torch.isfinite(x_out).all()
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=1e-4)
+    else:
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 0.1, rel
+
+
+@needs_cuda
 def test_lm_inits_default_to_the_card():
     """With no ``device`` the LM's weights and caches land on the card,
     drawn from a CPU generator as from a CUDA one."""

@@ -36,6 +36,8 @@ from repro_torch.launch import serve as t_serve
 from repro_torch.nn import attention as t_attn
 from repro_torch.nn import basic as t_basic
 from repro_torch.nn import moe as t_moe
+from repro_torch.nn import ssm as t_ssm
+from repro_torch.nn import xlstm as t_xlstm
 from repro_torch.nn import virtual_tokens as t_vt
 from repro_torch.weights import params_from_jax
 
@@ -79,7 +81,8 @@ def _close_to_max(got, want, tol=1e-4):
 @pytest.mark.parametrize("aid", ["gemma3_12b", "gemma3_27b", "gemma3-12b",
                                  "olmoe_1b_7b", "deepseek_v2_lite_16b",
                                  "granite_20b", "llama3_405b", "whisper_small",
-                                 "llama_3_2_vision_11b"])
+                                 "llama_3_2_vision_11b", "xlstm_125m",
+                                 "xlstm-125m", "zamba2_1_2b", "zamba2-1.2b"])
 def test_configs_match_reference(aid):
     cfg, jcfg = get_arch(aid), j_get_arch(aid)
     for a, b in ((cfg, jcfg), (cfg.reduced(), jcfg.reduced()),
@@ -89,17 +92,16 @@ def test_configs_match_reference(aid):
     assert INPUT_SHAPES == {k: tuple(v) for k, v in J_SHAPES.items()}
 
 
-@pytest.mark.parametrize("aid", ["xlstm_125m", "xlstm-125m", "zamba2_1_2b",
-                                 "zamba2-1.2b"])
-def test_unported_arch_raises(aid):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch(aid)
-
-
-def test_unported_blocks_raise():
+def test_unknown_block_kind_raises():
+    """An unknown block kind raises ``ValueError(kind)`` at ``init_arch``,
+    as the reference's ``_init_layer`` does."""
     cfg = dataclasses.replace(get_arch("gemma3_12b").reduced(),
-                              blocks=("mamba2", "attn"))
-    with pytest.raises(NotImplementedError, match="mamba2"):
+                              blocks=("attn", "conv"))
+    jcfg = dataclasses.replace(j_get_arch("gemma3_12b").reduced(),
+                               blocks=("attn", "conv"))
+    with pytest.raises(ValueError, match="conv"):
+        j_model.init_arch(jax.random.PRNGKey(0), jcfg)
+    with pytest.raises(ValueError, match="conv"):
         t_model.init_arch(torch.Generator().manual_seed(0), cfg, device="cpu")
 
 
@@ -198,6 +200,15 @@ _INITS = {
                                         d_rope=2, d_v=4),
     "init_mla_cache": lambda: t_attn.init_mla_cache(1, 4, 4, 2),
     "init_moe": lambda: t_moe.init_moe(_GEN(), 8, 4, 4, 2, 1),
+    "init_mamba2": lambda: t_ssm.init_mamba2(_GEN(), t_ssm.mamba2_dims(8, 4,
+                                                                       4)),
+    "init_mamba2_cache": lambda: t_ssm.init_mamba2_cache(
+        1, t_ssm.mamba2_dims(8, 4, 4)),
+    "init_mlstm": lambda: t_xlstm.init_mlstm(_GEN(), t_xlstm.xlstm_dims(8, 2)),
+    "init_mlstm_state": lambda: t_xlstm.init_mlstm_state(
+        1, t_xlstm.xlstm_dims(8, 2)),
+    "init_slstm": lambda: t_xlstm.init_slstm(_GEN(), t_xlstm.xlstm_dims(8, 2)),
+    "init_slstm_state": lambda: t_xlstm.init_slstm_state(1, 8),
     "init_virtual_tokens": lambda: t_vt.init_virtual_tokens(_GEN(), 2, 8, 4),
     "init_arch": lambda: t_model.init_arch(_GEN(), _CFG),
     "init_cache": lambda: t_model.init_cache(_CFG, 1, 4),
