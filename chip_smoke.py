@@ -39,7 +39,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
              against its row of the batch (bitwise), the host time of the
              wrapper alone, a planted fault (one live node's mask
              flipped), and the host time of the MMD term of a train step,
-             batched and graph by graph.  Every kernel also gets the
+             batched and graph by graph; and ``kernels.ops.
+             mmd_loss_kernel`` (Eq. 10 of one graph over the pair) on the
+             train batch's first graph against its plain version, loss
+             and gradients, one launch of each kernel, a planted fault
+             (one node masked out).  Every kernel also gets the
              device kernels one call launches, with their device times
              (``torch.profiler``): one a call for each of the MMD pair.
              The identity-gate branch of the edge pathway (RF, SchNet) is
@@ -299,6 +303,27 @@ weights from seed 0) runs:
     lm_recurrent_kernels — #7 alone at zamba2's form (32 heads of 64,
              causal, 8,192 tokens), bf16 and f32, as lm_family_kernels
              does it; it joins the #7 rows' ``forms``.
+13. lm_train — LM training (``training/lm.py``), no kernel launched (the
+             plain attention, which the reference differentiates too):
+             (a) every config's ``reduced()`` variant at TRAIN_B x
+             TRAIN_S, one step (``value_and_grad``, then Adam) on the card
+             against the same weights' step on the CPU, f32 (loss within
+             TRAIN_LOSS_RTOL relative, each gradient leaf within
+             TRAIN_GRAD_TOL of its largest |value|) and bf16 (each leaf's
+             relative L2 within TRAIN_BF16_L2), and a planted fault (one
+             label changed, on the card only) outside; (b) TRAIN_RUNS at
+             their published widths with seed-0 f32 weights built on the
+             card: olmoe's gradients at init (aux share, every router's
+             gradient norm > 0) and gemma3's chunked loss against its
+             dense one at the same weights (the loss within
+             CHUNK_LOSS_RTOL, gradients at the bound argued beside it;
+             each loss form's extra peak memory), then TRAIN_STEPS Adam
+             steps twice from the seed's weights for each loss form (ms a
+             step, tokens/s, peak memory; losses finite and falling, the
+             repeat within TRAIN_REPEAT_RTOL), xlstm's parameters and Adam
+             state through a checkpoint round trip, bitwise; (c) the
+             launcher's LM mode (LAUNCH_ARGS): 3 step lines and the
+             reduced config's parameter count.
 
 Then it prints the card's name and power limit, the per-kernel summary,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA and a checkout
@@ -307,6 +332,7 @@ of the repository around it.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -586,6 +612,38 @@ RECURRENT_FORMS = {
     "zamba2_shared": dict(arch="zamba2_1_2b", h=32, kv=32, d=64, dv=64,
                           s=PREFILL_S, t=PREFILL_S, causal=True),
 }
+# lm_train phase.  Card against CPU: every config's reduced() variant at
+# TRAIN_B x TRAIN_S, one step (training.lm.value_and_grad, then Adam);
+# f32: loss within TRAIN_LOSS_RTOL relative, each gradient leaf within
+# TRAIN_GRAD_TOL of its largest |value|; bf16: each leaf's relative L2 <=
+# TRAIN_BF16_L2 (DESIGN.md section 9.3)
+TRAIN_B, TRAIN_S = 2, 32
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_BF16_L2 = 1e-5, 1e-3, 0.1
+# the published-width runs: TRAIN_STEPS Adam steps (lr TRAIN_LR, clip
+# TRAIN_CLIP) on one fixed batch, bf16 compute over f32 masters, each run
+# twice from the seed's weights (losses within TRAIN_REPEAT_RTOL): (arch,
+# layers (None: all), B, S, loss chunks)
+TRAIN_STEPS, TRAIN_LR, TRAIN_CLIP, TRAIN_REPEAT_RTOL = 4, 1e-4, 1.0, 1e-5
+TRAIN_RUNS = (("xlstm_125m", None, 2, 256, (0,)),
+              ("olmoe_1b_7b", 2, 2, 1024, (0,)),
+              ("gemma3_12b", 6, 1, 2048, (0, 512)))
+# gemma3's chunked loss against its dense one at the same weights: the
+# loss within CHUNK_LOSS_RTOL (the reference's own rtol); each gradient
+# leaf within relative L2 (n_chunks + 1 + n_layers) * BF16_U.  Argument:
+# both paths accumulate every product in f32 and differ only in bf16
+# roundings (unit roundoff u = 2^-8).  The head's gradient h^T dlogits is
+# rounded once in the dense path (u); the chunked path rounds each
+# chunk's product (u of a partial, u of the sum over all of them) and
+# each of the n_chunks - 1 bf16 additions autograd makes (u each): at
+# most (n_chunks + 1) u between them.  dhidden = dlogits head^T is one
+# product a row either way, but cuBLAS may tile M = chunk and M = S
+# differently, so its rounding may flip by one ulp; each layer's
+# backward re-rounds that perturbed cotangent in bf16 once more (one u
+# a layer).
+CHUNK_LOSS_RTOL, BF16_U = 2e-5, 2.0 ** -8
+# the launcher on the card: launch/train.py lm, reduced xlstm-125m
+LAUNCH_ARGS = ["lm", "--arch", "xlstm-125m", "--steps", "3", "--batch",
+               "2", "--seq", "64"]
 
 
 def emit(obj) -> None:
@@ -805,7 +863,17 @@ def phase_kernels(pipe, scenes, dev) -> tuple[dict, list]:
     from repro_torch.pipeline import build_pipeline
 
     line, rows = kernel_rows(pipe, scenes[0], dev)
-    mmd, line["mmd_objective_host_us"] = mmd_rows(scenes, dev)
+    mmd, host = mmd_rows(scenes, dev)
+    line["mmd_loss_kernel"] = lk = host.pop("mmd_loss_kernel")
+    line["mmd_objective_host_us"] = host
+    if not (lk["loss"]["within_tol"] and lk["grads"]["within_tol"]
+            and not lk["planted_fault"]["within_tol"]
+            and lk["launches"] == {"mmd_cross_sum": 1,
+                                   "mmd_cross_grads": 1}):
+        raise AssertionError(f"mmd_loss_kernel disagrees with its plain "
+                             f"version, launches otherwise than once each, "
+                             f"or its planted fault lands inside: "
+                             f"{json.dumps(lk)}")
     # the FastEGNN kernels again at hidden 32 (every reference entry
     # point's width), the Table I model's layer
     narrow = build_pipeline("fast_egnn", device=dev, use_kernel=True,
@@ -1233,6 +1301,46 @@ def mmd_objective_host_us(x, z, nm) -> dict:
             "per_slot": host_us(per_slot, 50), "graphs": int(x.shape[0])}
 
 
+def mmd_loss_kernel_reading(x, z, nm) -> dict:
+    """``kernels.ops.mmd_loss_kernel`` (Eq. 10 of one graph, its cross term
+    through #5 and #6) on graph 0 of the train batch against its plain
+    version (``core.mmd.mmd_loss``, the plain pair) on the card: the loss
+    (ATOL / RTOL) and its gradients to z and x (GATOL / GRTOL), the
+    launches of one forward and backward (one of each kernel), CUDA-event
+    ms of both, and a planted fault (node ``N_PARTICLES // 2`` masked out
+    in the kernel's call only), which must land outside the gradients'
+    tolerance."""
+    import torch
+
+    from repro_torch.core.mmd import mmd_loss
+    from repro_torch.kernels import mmd_rbf
+    from repro_torch.kernels.ops import mmd_loss_kernel
+
+    x0, z0, m0 = x[0], z[0], nm[0]
+
+    def run(fn, mask=m0):
+        zz = z0.clone().requires_grad_(True)
+        xx = x0.clone().requires_grad_(True)
+        loss = fn(zz, xx, mask)
+        return (loss.detach(),) + torch.autograd.grad(loss, (zz, xx))
+
+    kernel = lambda zz, xx, mm: mmd_loss_kernel(zz, xx, mm, sigma=MMD_SIGMA)
+    plain = lambda zz, xx, mm: mmd_loss(zz, xx, mm, sigma=MMD_SIGMA)
+    mmd_rbf.reset_launches()
+    got = run(kernel)
+    launches = {"mmd_cross_sum": mmd_rbf.sum_launches,
+                "mmd_cross_grads": mmd_rbf.grad_launches}
+    want = run(plain)
+    bad = m0.clone()
+    bad[N_PARTICLES // 2] = 0.0
+    return {"loss": compare(got[:1], want[:1]),
+            "grads": compare_grads(got[1:], want[1:]),
+            "planted_fault": compare_grads(run(kernel, bad)[1:], want[1:]),
+            "launches": launches, "ms": cuda_ms(lambda: run(kernel)),
+            "plain_ms": cuda_ms(lambda: run(plain)),
+            "nodes": int(m0.sum()), "bucket": int(m0.numel())}
+
+
 def mmd_rows(scenes, dev) -> tuple[list, dict]:
     """The MMD pair (#5 cross sum, #6 cross gradient), batched as the
     trainer calls it: at the train step's shape (the four 7,800-particle
@@ -1261,7 +1369,9 @@ def mmd_rows(scenes, dev) -> tuple[list, dict]:
                  **train[name], fluid113k=big[name])
             for name, line in (("mmd_cross_sum", 46),
                                ("mmd_cross_grads", 102))]
-    return rows, mmd_objective_host_us(*args[:3])
+    host = mmd_objective_host_us(*args[:3])
+    host["mmd_loss_kernel"] = mmd_loss_kernel_reading(*args[:3])
+    return rows, host
 
 
 def phase_serve(pipe, plain, scenes, dev) -> dict:
@@ -4549,6 +4659,348 @@ def phase_lm_recurrent(aid: str, dev) -> dict:
     return line
 
 
+# ---------------------------------------------------------- lm_train phase
+def train_inputs(cfg, b: int, s: int, seed: int) -> dict:
+    """A (b, s) batch of random tokens and their random labels (+ the
+    whisper / vlm stubs), from a CPU generator seeded ``seed``, on the
+    CPU."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen),
+           "labels": torch.randint(0, cfg.vocab, (b, s), generator=gen)}
+    if cfg.has_encoder:
+        out["audio"] = torch.randn((b, cfg.n_audio_frames, cfg.d_model),
+                                   generator=gen)
+    if cfg.cross_attn_every:
+        out["images"] = torch.randn((b, cfg.n_image_tokens, cfg.d_model),
+                                    generator=gen)
+    return out
+
+
+def example_stream(cfg, b: int, s: int, seed: int) -> dict:
+    """The reference example's synthetic stream (examples/train_lm_100m.py):
+    an order-2 stream over min(V, 1,024) tokens, from a CPU generator."""
+    import torch
+
+    vocab = min(cfg.vocab, 1024)
+    base = torch.randint(0, vocab, (b, s + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    prev = base[:, :-1]
+    toks = base.clone()
+    toks[:, 1:] = (prev * 31 + torch.roll(prev, 1, dims=1) * 7 + 11) % vocab
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def one_step(params, cfg, batch, dtype) -> tuple:
+    """The step ``make_train_step`` takes, in its two parts: the loss and
+    gradients (``training.lm.value_and_grad``), then one Adam update from
+    a fresh state.  Returns (loss, gradient leaves, updated leaves) on the
+    CPU."""
+    from repro_torch.training.lm import value_and_grad
+    from repro_torch.training.optim import Adam, tree_leaves
+
+    opt = Adam(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
+    loss, _, grads = value_and_grad(params, cfg, batch, dtype=dtype)
+    new, _ = opt.update(grads, opt.init(params), params)
+    cpu = lambda tree: [t.float().cpu() for t in tree_leaves(tree)]
+    return float(loss), cpu(grads), cpu(new)
+
+
+def step_held(got, want, dtype) -> dict:
+    """A card step against the CPU's: f32, the loss (TRAIN_LOSS_RTOL) and
+    every gradient leaf (TRAIN_GRAD_TOL of its largest |value|); bf16, each
+    leaf's relative L2 (TRAIN_BF16_L2)."""
+    import torch
+
+    (gl, gg, gp), (wl, wg, wp) = got, want
+    out = {"loss": gl, "loss_cpu": wl, "loss_rel": abs(gl - wl) / abs(wl),
+           "finite": all(bool(torch.isfinite(g).all()) for g in gg),
+           "grad_max_rel_l2": max(rel_l2(g, w) for g, w in zip(gg, wg)),
+           "step_max_abs_diff": max(float((g - w).abs().max())
+                                    for g, w in zip(gp, wp))}
+    if dtype == torch.float32:
+        errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for g, w in zip(gg, wg)]
+        out["grad_max_err_over_leaf_max"] = max(errs)
+        out["within_tol"] = (out["loss_rel"] <= TRAIN_LOSS_RTOL and all(
+            bool(torch.all((g - w).abs() <= TRAIN_GRAD_TOL * w.abs().max()))
+            for g, w in zip(gg, wg)))
+    else:
+        out["within_tol"] = out["grad_max_rel_l2"] <= TRAIN_BF16_L2
+    out["within_tol"] &= out["finite"]
+    return out
+
+
+def train_card_vs_cpu(aid: str, dev) -> dict:
+    """One config's reduced() variant: the card's step against the CPU's in
+    f32 and bf16 (seed-0 weights built on the CPU, seed-1 batch), and a
+    planted fault: one label changed, on the card only (f32)."""
+    import torch
+
+    from repro_torch.archs.model import init_arch
+    from repro_torch.configs import get_arch
+    from repro_torch.training.optim import tree_map
+
+    cfg = get_arch(aid).reduced()
+    cpu_p = init_arch(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card_p = tree_map(lambda t: t.to(dev), cpu_p)
+    batch = train_inputs(cfg, TRAIN_B, TRAIN_S, 1)
+    on_card = lambda b: {k: v.to(dev) for k, v in b.items()}
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        want = one_step(cpu_p, cfg, batch, dt)
+        out[name] = step_held(one_step(card_p, cfg, on_card(batch), dt),
+                              want, dt)
+        if name == "f32":
+            bad = dict(batch, labels=batch["labels"].clone())
+            bad["labels"][0, 0] = (bad["labels"][0, 0] + 1) % cfg.vocab
+            out["planted_fault"] = step_held(
+                one_step(card_p, cfg, on_card(bad), dt), want, dt)
+    return out
+
+
+def train_run(cfg, batch: dict, dev, chunk: int = 0) -> tuple:
+    """TRAIN_STEPS steps of ``make_train_step`` from the seed-0 f32 weights
+    (built on the card) on ``batch``, bf16 compute: each step's loss, nll,
+    aux and ms (a host clock around the step and its synchronise), tokens
+    a second over the steps after the first, and the peak memory.  Returns
+    (reading, params, Adam state)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.training.lm import make_train_step
+    from repro_torch.training.optim import Adam
+
+    cfg = dataclasses.replace(cfg, loss_chunk=chunk)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_f32_weights(cfg, 0, dev)
+    opt = Adam(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    r = {"loss": [], "nll": [], "aux": [], "ms": []}
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        r["ms"].append(1e3 * (time.perf_counter() - t))
+        for k in ("loss", "nll", "aux"):
+            r[k].append(float(m[k]))
+    tokens = batch["tokens"].numel()
+    r["ms_per_step"] = statistics.median(r["ms"][1:])
+    r["tokens_per_s"] = tokens / (r["ms_per_step"] / 1e3)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["finite_and_falling"] = (all(map(math.isfinite, r["loss"]))
+                               and r["loss"][-1] < r["loss"][0])
+    return r, params, state
+
+
+def checkpoint_round_trip(params, state) -> dict:
+    """Parameters and Adam state through ``save_checkpoint`` and
+    ``restore_checkpoint`` in a temporary directory: bitwise, dtypes
+    and devices kept; seconds and bytes."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optim import tree_leaves
+
+    tree = {"params": params, "opt": state}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm.npz")
+        t = time.perf_counter()
+        save_checkpoint(path, tree, {"steps": TRAIN_STEPS})
+        save_s = time.perf_counter() - t
+        n_bytes = os.path.getsize(path)
+        t = time.perf_counter()
+        back, meta = restore_checkpoint(path, tree)
+        load_s = time.perf_counter() - t
+    bitwise = meta == {"steps": TRAIN_STEPS} and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(tree_leaves(back), tree_leaves(tree)))
+    return {"bitwise": bitwise, "save_s": save_s, "load_s": load_s,
+            "bytes": n_bytes}
+
+
+def train_grads_at_init(cfg, batch: dict, dev, chunks) -> dict:
+    """``value_and_grad`` at the seed-0 weights (bf16), once for each loss
+    chunk of ``chunks``: the peak memory it adds, the loss and aux, every
+    MoE layer's router gradient norm, and for a second chunk each
+    gradient leaf against the first's (relative L2) and the loss's
+    relative difference."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.training.lm import value_and_grad
+    from repro_torch.training.optim import tree_leaves
+
+    params = lm_f32_weights(cfg, 0, dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    out, first = {}, None
+    for chunk in chunks:
+        c = dataclasses.replace(cfg, loss_chunk=chunk)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, parts, grads = value_and_grad(params, c, batch)
+        r = {"peak_gb_above_start":
+             (torch.cuda.max_memory_allocated() - base) / 1e9,
+             "loss": float(loss), "aux": float(parts["aux"]),
+             "aux_share": 0.01 * float(parts["aux"]) / float(loss),
+             "router_grad_norms": [
+                 float(torch.linalg.vector_norm(lp["ffn"]["router"]))
+                 for lp in grads["layers"] if "router" in lp.get("ffn", {})]}
+        if first is None:
+            first = (r["loss"], tree_leaves(grads))
+        else:
+            r["loss_rel_vs_dense"] = abs(r["loss"] - first[0]) / first[0]
+            r["grad_max_rel_l2_vs_dense"] = max(
+                rel_l2(g, w) for g, w in zip(tree_leaves(grads), first[1]))
+        out[str(chunk)] = r
+        del grads
+    del params, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_published(aid: str, layers, b: int, s: int, chunks, dev) -> dict:
+    """One config at its published widths (its first ``layers`` layers):
+    for MoE or more than one loss chunk the gradients at init
+    (:func:`train_grads_at_init`), then for each
+    loss chunk two runs of :func:`train_run` from the same weights; the
+    first run of the first chunk's state also round-trips a checkpoint
+    (xlstm)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.training.optim import tree_leaves
+
+    full = get_arch(aid)
+    cfg = full if layers is None else family_cut(full, layers)
+    batch = (example_stream(cfg, b, s, 1) if aid == "xlstm_125m"
+             else train_inputs(cfg, b, s, 1))
+    out = {"arch": full.name, "layers": cfg.n_layers,
+           "published_layers": full.n_layers, "batch": b, "seq": s}
+    if cfg.moe is not None or len(chunks) > 1:
+        out["grads_at_init"] = train_grads_at_init(cfg, batch, dev, chunks)
+    for chunk in chunks:
+        runs = []
+        for i in range(2):
+            r, params, state = train_run(cfg, batch, dev, chunk)
+            if i == 0:
+                r["params"] = sum(t.numel() for t in tree_leaves(params))
+                if aid == "xlstm_125m":
+                    out["checkpoint"] = checkpoint_round_trip(params, state)
+            del params, state
+            torch.cuda.empty_cache()
+            runs.append(r)
+        runs[1] = {"loss": runs[1]["loss"], "ms_per_step":
+                   runs[1]["ms_per_step"], "repeat_max_rel": max(
+                       abs(a - w) / abs(w) for a, w in
+                       zip(runs[1]["loss"], runs[0]["loss"]))}
+        out[f"chunk_{chunk}"] = runs
+    return out
+
+
+def launcher_reading() -> dict:
+    """``launch/train.py`` LM mode on the card (LAUNCH_ARGS, in this
+    process): its step lines, and its parameter line against the count of
+    the reduced config's weights built on the CPU."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.archs.model import init_arch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch
+    from repro_torch.training.optim import tree_leaves
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launch.main(LAUNCH_ARGS)
+    secs = time.perf_counter() - t
+    lines = buf.getvalue().splitlines()
+    cfg = get_arch("xlstm-125m").reduced()
+    n = sum(t.numel() for t in tree_leaves(
+        init_arch(torch.Generator().manual_seed(0), cfg, device="cpu")))
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    return {"lines": lines, "seconds": secs, "params": n,
+            "ok": (lines[0] == f"{cfg.name}: {n/1e6:.1f}M params"
+                   and len(steps) == 3 and all(
+                       math.isfinite(float(ln.split()[3])) for ln in steps))}
+
+
+def phase_lm_train(dev) -> dict:
+    """LM training on the card: (a) every config's reduced() step against
+    the CPU's (f32 and bf16) with a planted fault; (b) TRAIN_RUNS at their
+    published widths: gradients at init (olmoe's router gradients and aux
+    share; gemma3's chunked loss against its dense one), 4-step runs twice
+    each (finite, falling, repeated), xlstm's checkpoint round trip; (c)
+    the launcher's LM mode.  No kernel launches (training runs the plain
+    attention).  Fails on any limit missed."""
+    from repro_torch.configs import _ARCH_IDS
+
+    t0 = time.perf_counter()
+    reset_all_launches()
+    line = {"phase": "lm_train", "gpu": gpu_line(),
+            "card_vs_cpu": {aid: train_card_vs_cpu(aid, dev)
+                            for aid in _ARCH_IDS}}
+    line["card_vs_cpu_s"] = time.perf_counter() - t0
+    line["runs"] = {aid: train_published(aid, layers, b, s, chunks, dev)
+                    for aid, layers, b, s, chunks in TRAIN_RUNS}
+    line["launcher"] = launcher_reading()
+    line["launches"] = all_launch_counts()
+    line["seconds"] = time.perf_counter() - t0
+    line["tolerance"] = {"loss_rtol": TRAIN_LOSS_RTOL,
+                         "grad_atol_x_leaf_max": TRAIN_GRAD_TOL,
+                         "bf16_rel_l2": TRAIN_BF16_L2,
+                         "repeat_rtol": TRAIN_REPEAT_RTOL,
+                         "chunk_loss_rtol": CHUNK_LOSS_RTOL}
+    _expect_launches("lm_train", line["launches"])
+    bad = []
+    for aid, r in line["card_vs_cpu"].items():
+        if not (r["f32"]["within_tol"] and r["bf16"]["within_tol"]):
+            bad.append(f"{aid}: card against CPU")
+        if r["planted_fault"]["within_tol"]:
+            bad.append(f"{aid}: planted fault inside")
+    for aid, r in line["runs"].items():
+        for key in [k for k in r if k.startswith("chunk_")]:
+            first, second = r[key]
+            if not first["finite_and_falling"]:
+                bad.append(f"{aid} {key}: losses not finite and falling")
+            if second["repeat_max_rel"] > TRAIN_REPEAT_RTOL:
+                bad.append(f"{aid} {key}: the repeat differs")
+    olmoe = line["runs"]["olmoe_1b_7b"]["grads_at_init"]["0"]
+    if not (olmoe["router_grad_norms"]
+            and min(olmoe["router_grad_norms"]) > 0):
+        bad.append("olmoe: a router gets no gradient")
+    gemma = line["runs"]["gemma3_12b"]
+    for chunk, r in gemma["grads_at_init"].items():
+        if chunk == "0":
+            continue
+        n_chunks = -(-gemma["seq"] // int(chunk))
+        r["grad_bound"] = (n_chunks + 1 + gemma["layers"]) * BF16_U
+        if not (r["loss_rel_vs_dense"] <= CHUNK_LOSS_RTOL
+                and r["grad_max_rel_l2_vs_dense"] <= r["grad_bound"]):
+            bad.append(f"gemma3 chunk {chunk} against dense")
+    if not line["runs"]["xlstm_125m"]["checkpoint"]["bitwise"]:
+        bad.append("xlstm checkpoint round trip")
+    if not line["launcher"]["ok"]:
+        bad.append("launcher")
+    if bad:
+        raise AssertionError(f"lm_train failed ({bad}): {json.dumps(line)}")
+    return line
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dist-rank"]:  # a rank of the dist phase
         sys.path.insert(0, str(SRC))
@@ -4670,6 +5122,7 @@ def main() -> int:
     line, rec_rows = family_form_rows(dev, recurrent, RECURRENT_FORMS,
                                       "lm_recurrent_kernels")
     emit(line)
+    emit(phase_lm_train(dev))
     for tag in form_rows:
         form_rows[tag].update(rec_rows[tag])
     # the bf16 kernel's launches: the bf16 prefill; the f32 kernel's: the

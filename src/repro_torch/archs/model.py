@@ -14,10 +14,12 @@ virtual-token pathway (the paper's technique).  An unknown block kind
 raises ``ValueError``, as the reference's ``_init_layer`` does.
 
 Three entry points:
-  ``forward``      — prefill: tokens (B, S) → logits (B, S, V); every
-                     self-, shared, encoder and cross-attention runs the
-                     hand-written attention kernel on the card
-                     (``use_kernel=False``: the plain attention); Mamba2,
+  ``forward``      — training / prefill: tokens (B, S) → logits (B, S, V);
+                     every self-, shared, encoder and cross-attention runs
+                     the hand-written attention kernel on the card
+                     (``use_kernel=False``: the plain attention, which
+                     training differentiates, as the reference's
+                     ``jax.grad`` goes through its XLA attention); Mamba2,
                      mLSTM and sLSTM are plain PyTorch, as the reference's
                      are plain ``jnp``
   ``init_cache``   — decode caches (full KV for ATTN and SHARED_ATTN, a
@@ -29,18 +31,29 @@ Three entry points:
                      cross-attention, which launches the kernel (one query
                      over the T encoder states)
 
-Layers run in a Python loop: ``ArchConfig.scan_layers``, ``remat`` and
-``remat_policy`` are XLA compile-time knobs of the reference and have no
-effect here.  ``forward`` and ``decode_step`` take the compute ``dtype``
+Layers run in a Python loop: ``ArchConfig.scan_layers`` (the reference's
+``lax.scan`` over layer groups, an XLA compile-time knob) has no effect
+here.  While autograd records (grad mode on and a parameter that requires
+grad: training), ``forward`` runs each layer with its virtual-token step
+under ``ArchConfig.remat_policy`` as the reference's ``_remat_wrap`` does:
+``"full"`` under ``torch.utils.checkpoint`` (the layer's forward runs again
+in the backward), ``"dots"`` under selective checkpointing that keeps the
+outputs of ``mm`` / ``addmm`` (the counterpart of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, ``"none"``
+(or ``remat=False``) with every activation kept.  Under ``torch.no_grad()``
+(prefill) no layer is wrapped.  ``forward`` and ``decode_step`` take the
+compute ``dtype``
 (bf16 by default, as the reference) and cast f32 leaves to it
 (:func:`cast_params`); ``init_arch(..., dtype=torch.bfloat16)`` builds the
 weights in bf16 directly, so no f32 copy of a large model ever exists.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.archs.config import (ATTN, FFN_GEGLU, FFN_MOE, FFN_NONE,
                                       FFN_SWIGLU, MAMBA2, MLA, MLSTM,
@@ -275,6 +288,45 @@ def _layer_forward(params, lp, cfg: ArchConfig, i: int, x: Tensor,
     return x, aux
 
 
+def _layer_step(params, cfg: ArchConfig, i: int, x0: Tensor,
+                enc_out: Optional[Tensor], use_kernel: bool, x: Tensor,
+                vt: Optional[Tensor]):
+    """Layer ``i`` and its virtual-token step: (x, vt, aux or None)."""
+    x, aux = _layer_forward(params, params["layers"][i], cfg, i, x, x0,
+                            enc_out, use_kernel)
+    if vt is not None:
+        x, vt = virtual_token_layer(params["vt"][i], x, vt)
+    return x, vt, aux
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``"dots"``: keep the products
+    without batch dims (``x @ w``), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(step, cfg: ArchConfig, *args):
+    """``step(*args)`` under ``cfg``'s activation-checkpoint policy."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return step(*args)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(step, *args, use_reentrant=False, **kw)
+
+
+def _records_grad(params) -> bool:
+    """Whether autograd records a forward over ``params``."""
+    if not torch.is_grad_enabled():
+        return False
+    found = []
+    _tree_map(lambda a: found.append(a.requires_grad), params)
+    return any(found)
+
+
 def _embed(params, cfg: ArchConfig, tokens: Tensor, dtype) -> Tensor:
     # √d rounded to the compute dtype on the host, as the reference's
     # jnp.asarray(√d, dtype): no device tensor (and no sync) per call
@@ -297,7 +349,9 @@ def forward(
     layers' load-balance losses); with ``return_hidden`` the pre-head
     hidden states (B,S,d) in compute dtype instead of logits.  Whisper
     needs ``audio`` (frame embeddings, encoded here), llama-vision
-    ``images`` (patch embeddings, read by its cross-attention layers)."""
+    ``images`` (patch embeddings, read by its cross-attention layers).
+    While autograd records, each layer runs under ``cfg.remat_policy``."""
+    recording = _records_grad(params)
     params = cast_params(params, dtype)
     b = tokens.shape[0]
     x = x0 = _embed(params, cfg, tokens, dtype)
@@ -317,12 +371,11 @@ def forward(
         vt = init_vt_state(params["vt"][0], b).to(dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
-        x, aux = _layer_forward(params, params["layers"][i], cfg, i, x, x0,
-                                enc_out, use_kernel)
+        step = functools.partial(_layer_step, params, cfg, i, x0, enc_out,
+                                 use_kernel)
+        x, vt, aux = _remat(step, cfg, x, vt) if recording else step(x, vt)
         if aux is not None:
             aux_total = aux_total + aux
-        if vt is not None:
-            x, vt = virtual_token_layer(params["vt"][i], x, vt)
     x = rmsnorm(params["final_norm"], x)
     if return_hidden:
         return x, aux_total

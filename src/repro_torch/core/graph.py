@@ -43,6 +43,16 @@ class GeometricGraph(NamedTuple):
     def feat_dim(self) -> int:
         return self.h.shape[-1]
 
+    def num_real_nodes(self) -> Tensor:
+        """Σ node_mask (per graph of a stack)."""
+        return torch.sum(self.node_mask, dim=-1)
+
+    def com(self) -> Tensor:
+        """Center of mass over *real* nodes: (3,) ((B, 3) for a stack)."""
+        w = self.node_mask[..., None]
+        return torch.sum(self.x * w, dim=-2) / torch.clamp(
+            torch.sum(w, dim=-2), min=1.0)
+
 
 def make_graph(x, v=None, h=None, senders=None, receivers=None,
                edge_attr=None, node_mask=None, edge_mask=None,
@@ -78,3 +88,22 @@ def make_graph(x, v=None, h=None, senders=None, receivers=None,
         edge_mask=(torch.ones((e,), dtype=torch.float32, device=dev)
                    if edge_mask is None else f32(edge_mask)),
     )
+
+
+def segment_mean(data: Tensor, segment_ids: Tensor, num_segments: int,
+                 weights: Tensor | None = None) -> Tensor:
+    """Masked segment mean: Σ data / count per segment (0 where empty);
+    with ``weights`` (E,), Σ w·data / Σ w.  The sums are
+    ``core.message_passing.segment_sum``'s fixed-order ones."""
+    from repro_torch.core.message_passing import segment_sum
+
+    expand = lambda t: t.reshape((-1,) + (1,) * (data.dim() - 1))
+    if weights is not None:
+        data = data * expand(weights)
+        ones = weights
+    else:
+        ones = torch.ones(data.shape[0], dtype=data.dtype,
+                          device=data.device)
+    tot = segment_sum(data, segment_ids, num_segments)
+    cnt = torch.clamp(segment_sum(ones, segment_ids, num_segments), min=1.0)
+    return tot / expand(cnt)

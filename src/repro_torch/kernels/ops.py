@@ -16,7 +16,8 @@
   ``custom_vjp`` per precision), whose kernels take that ``precision``
   in both directions;
 * :func:`edge_pathway`, :func:`virtual_pathway` and :func:`mmd_cross` are
-  the entry points the model and the loss call.
+  the entry points the model and the loss call; :func:`mmd_loss_kernel`
+  is the reference's one-graph Eq. 10 over :func:`mmd_cross`.
 
 Differentiability contract (as the JAX package's ``kernels/ops.py``):
 coordinates, features, virtual state and all weights get gradients; masks
@@ -259,3 +260,18 @@ def mmd_cross(x: Tensor, z: Tensor, weight: Tensor, sigma: float) -> Tensor:
     all-ones for a sampled subset)."""
     return MMDCross.apply(x.contiguous(), z.contiguous(), weight.contiguous(),
                           float(sigma))
+
+
+def mmd_loss_kernel(z: Tensor, x: Tensor, node_mask: Tensor, *,
+                    sigma: float = 1.5) -> Tensor:
+    """Eq. 10 of one graph (z (C, 3), x (N, 3), node_mask (N,)) → a
+    scalar, its cross term through :func:`mmd_cross` (the MMD kernels on
+    CUDA tensors, their plain versions on CPU tensors); the C×C
+    virtual-virtual term stays plain."""
+    c = z.shape[0]
+    zc = z[:, None, :] - z[None, :, :]
+    term_vv = torch.sum(torch.exp(-torch.sum(zc ** 2, -1)
+                                  / (2 * sigma * sigma))) / (c * c)
+    cross = mmd_cross(x, z, node_mask, sigma)
+    denom = torch.clamp(torch.sum(node_mask), min=1.0) * c
+    return term_vv - cross / denom

@@ -1,7 +1,9 @@
-"""Training launcher (GNN mode).
+"""Training launcher: GNN mode and LM mode.
 
     python -m repro_torch.launch.train gnn --dataset nbody --epochs 50 \
         [--devices 2] [--layout-cache DIR] [--reshuffle]
+    python -m repro_torch.launch.train lm --arch xlstm-125m --steps 100 \
+        [--batch 4] [--seq 128] [--lr 3e-4] [--full] [--device cpu]
 
 Builds ``--model`` (any name of ``models.registry``; default fast_egnn)
 with ``build_pipeline`` (random weights from ``--seed``), streams the
@@ -18,14 +20,26 @@ cpu`` through their plain PyTorch versions.  ``--devices D`` > 1 trains
 DistEGNN (the model pinned to fast_egnn, Sec. VI): D ranks started on
 this machine (``launch.mesh.spawn_ranks``), each on its own shard of
 every batch (``--partition``), over NCCL with a GPU each or gloo when
-they share one GPU or run on the CPU.  LM mode is not ported yet
-(ROADMAP queue A #10).
+they share one GPU or run on the CPU.
+
+LM mode trains an LM config (``--arch``, any name of ``configs``; its
+``reduced()`` variant unless ``--full``) as the JAX package's ``lm_main``
+does: f32 master weights from ``--seed``, bf16 compute,
+``training.lm.make_train_step`` with Adam (``cosine_schedule(--lr, 20,
+--steps)``, grad_clip 1.0), on one synthetic batch of an order-1 stream
+(token t+1 = 7·token t + 13 mod min(V, 512)) drawn from a
+``torch.Generator`` seeded 0, with random audio frames / image embeddings
+for the whisper / vlm backbones.  It prints the parameter count and the
+loss every ``steps // 20`` steps in the reference's format; the stream's
+values are not ``jax.random``'s.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
+import torch
 
 
 def config_kwargs(model: str, kw: dict) -> dict:
@@ -121,6 +135,55 @@ def train_gnn(args, mesh=None) -> None:
         print("saved", args.checkpoint)
 
 
+def synthetic_lm_batch(cfg, batch: int, seq: int, gen: torch.Generator,
+                       device) -> dict:
+    """The reference launcher's synthetic batch: (batch, seq) tokens of an
+    order-1 stream in ``[0, min(V, 512))`` and the next tokens as labels
+    (+ 'audio' / 'images' stubs), drawn from ``gen`` and moved to
+    ``device``."""
+    v = min(cfg.vocab, 512)
+    tokens = torch.randint(0, v, (batch, seq + 1), generator=gen)
+    tokens[:, 1:] = (tokens[:, :-1] * 7 + 13) % v
+    out = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.has_encoder:
+        out["audio"] = torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
+                                   generator=gen)
+    if cfg.cross_attn_every:
+        out["images"] = torch.randn((batch, cfg.n_image_tokens, cfg.d_model),
+                                    generator=gen)
+    return {k: t.to(device) for k, t in out.items()}
+
+
+def lm_main(args) -> None:
+    """Train ``--arch`` for ``--steps`` steps on one synthetic batch."""
+    from repro_torch.archs.model import init_arch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.runtime import resolve_device
+    from repro_torch.training.lm import make_train_step
+    from repro_torch.training.optim import Adam, cosine_schedule, tree_leaves
+
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = init_arch(torch.Generator(device=dev).manual_seed(args.seed),
+                       cfg, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{cfg.name}: {n_params/1e6:.1f}M params")
+    opt = Adam(lr=cosine_schedule(args.lr, 20, args.steps), grad_clip=1.0)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    batch = synthetic_lm_batch(cfg, args.batch, args.seq,
+                               torch.Generator().manual_seed(0), dev)
+    t0 = time.time()
+    for i in range(args.steps):
+        params, state, m = step(params, state, batch)
+        if i % max(1, args.steps // 20) == 0 or i == args.steps - 1:
+            print(f"step {i:4d}  loss {float(m['loss']):.4f}  "
+                  f"nll {float(m['nll']):.4f}", flush=True)
+    print(f"{args.steps} steps in {time.time()-t0:.1f}s")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -151,13 +214,22 @@ def main(argv=None) -> None:
     g.add_argument("--workers", type=int, default=4)
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs (default: the GPU)")
-    sub.add_parser("lm")
+    li = sub.add_parser("lm")
+    li.add_argument("--arch", required=True)
+    li.add_argument("--steps", type=int, default=100)
+    li.add_argument("--batch", type=int, default=4)
+    li.add_argument("--seq", type=int, default=128)
+    li.add_argument("--lr", type=float, default=3e-4)
+    li.add_argument("--reduced", action="store_true", default=True)
+    li.add_argument("--full", dest="reduced", action="store_false")
+    li.add_argument("--seed", type=int, default=0)
+    li.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model trains (default: the GPU)")
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError(
-            "LM mode needs the LM stack, which the port does not have yet "
-            "(ROADMAP queue A #10)")
-    gnn_main(args)
+        lm_main(args)
+    else:
+        gnn_main(args)
 
 
 if __name__ == "__main__":

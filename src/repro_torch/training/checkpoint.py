@@ -38,9 +38,14 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save_checkpoint(path: str, tree: Any, metadata: dict | None = None) -> None:
+    """Write ``tree`` and ``metadata`` to ``path`` as an uncompressed
+    ``.npz`` (the reference writes a compressed one; ``np.load`` reads
+    either, so both packages load both.  Deflating an LM's parameters and
+    Adam moments, gigabytes of floats that barely compress, would take
+    minutes on one core)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
-    np.savez_compressed(path, __meta__=json.dumps(metadata or {}), **flat)
+    np.savez(path, __meta__=json.dumps(metadata or {}), **flat)
 
 
 def _rebuild(like, flat: dict, prefix: str = ""):
@@ -57,7 +62,9 @@ def _rebuild(like, flat: dict, prefix: str = ""):
         raise ValueError(f"shape mismatch at {prefix}: {arr.shape} vs "
                          f"{tuple(np.shape(like))}")
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        # np.array, not np.ascontiguousarray: the latter makes a 0-d leaf
+        # (AdamState.step) 1-d
+        return torch.from_numpy(np.array(arr, order="C")).to(
             device=like.device, dtype=like.dtype)
     return arr
 

@@ -6,7 +6,10 @@ The arithmetic follows the JAX package's ``training/optim.py`` step for
 step: the moments first, then the bias corrections as f32 scalars from
 ``step``, then ``p - lr*(u + wd*p)``; clipping scales the gradients by
 ``min(1, grad_clip / (gnorm + 1e-9))``.  Updates are functional: new
-tensors, the inputs are not modified.
+tensors, the inputs are not modified.  The update runs leaf by leaf
+(clip, moments, step), so besides the inputs only one leaf's
+temporaries and the new parameters and moments exist at a time (no
+clipped copy of the whole gradient tree).
 """
 from __future__ import annotations
 
@@ -51,6 +54,10 @@ def global_norm(tree) -> Tensor:
                           for x in tree_leaves(tree)))
 
 
+#: the JAX package's name for :func:`global_norm`
+optax_global_norm = global_norm
+
+
 class Adam(NamedTuple):
     lr: float | Callable[[Tensor], Tensor] = 5e-4
     b1: float = 0.9
@@ -68,24 +75,28 @@ class Adam(NamedTuple):
     @torch.no_grad()
     def update(self, grads, state: AdamState, params):
         step = state.step + 1
+        scale = None
         if self.grad_clip is not None:
             gnorm = global_norm(grads)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
-        m = tree_map(lambda mm, g: b1 * mm + (1 - b1) * g, state.m, grads)
-        v = tree_map(lambda vv, g: b2 * vv + (1 - b2) * g * g, state.v, grads)
         sf = step.to(torch.float32)
         f32 = lambda c: torch.tensor(c, dtype=torch.float32, device=sf.device)
         mh_c = 1.0 - f32(b1) ** sf
         vh_c = 1.0 - f32(b2) ** sf
 
-        def upd(p, mm, vv):
+        def upd(p, g, mm, vv):
+            if scale is not None:
+                g = g * scale
+            mm = b1 * mm + (1 - b1) * g
+            vv = b2 * vv + (1 - b2) * g * g
             u = (mm / mh_c) / (torch.sqrt(vv / vh_c) + self.eps)
-            return p - lr * (u + self.weight_decay * p)
+            return p - lr * (u + self.weight_decay * p), mm, vv
 
-        return tree_map(upd, params, m, v), AdamState(step=step, m=m, v=v)
+        new = tree_map(upd, params, grads, state.m, state.v)
+        part = lambda k: tree_map(lambda _, t: t[k], params, new)
+        return part(0), AdamState(step=step, m=part(1), v=part(2))
 
 
 def cosine_schedule(base_lr: float, warmup: int,

@@ -417,8 +417,9 @@ def test_checkpoints_load_in_both_packages(tmp_path, train_case):
 
 
 # ----------------------------------------------------------- launcher
-def test_launch_train_runs_on_cpu_and_refuses_unported_modes(tmp_path,
-                                                             capsys):
+def test_launch_train_runs_gnn_and_lm_modes_on_cpu(tmp_path, capsys):
+    from repro.archs.model import init_arch as j_init_arch
+    from repro.configs import get_arch as j_get_arch
     from repro_torch.launch import train as launch
     from repro_torch.weights import load_npz
 
@@ -437,6 +438,16 @@ def test_launch_train_runs_on_cpu_and_refuses_unported_modes(tmp_path,
                   ["--reshuffle", "--prefetch", "0", "--workers", "0"]):
         launch.main(base + extra)
         assert "best val MSE" in capsys.readouterr().out
-    # only LM mode is still refused
-    with pytest.raises(NotImplementedError, match="queue A #10"):
-        launch.main(["lm"])
+    # LM mode: the reduced xlstm-125m, the reference's parameter count and
+    # a loss line a step
+    launch.main(["lm", "--arch", "xlstm-125m", "--steps", "2", "--batch",
+                 "1", "--seq", "16", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    jcfg = j_get_arch("xlstm-125m").reduced()
+    n = sum(a.size for a in jax.tree.leaves(jax.eval_shape(
+        lambda: j_init_arch(jax.random.PRNGKey(0), jcfg))))
+    assert lines[0] == f"{jcfg.name}: {n/1e6:.1f}M params"
+    steps = [ln.split() for ln in lines if ln.startswith("step ")]
+    assert [s[1] for s in steps] == ["0", "1"]
+    assert all(math.isfinite(float(s[3])) and s[2] == "loss" for s in steps)
+    assert lines[-1].startswith("2 steps in ")
